@@ -5,21 +5,31 @@
 
 Phases, each raising on failure (the script then exits non-zero):
   1. the card: name and power limit, TF32 off;
-  2. build the hand-written kernels from csrc/ (nvcc, sm_90a);
-  3. each kernel against its plain torch version at the main path's shapes,
-     in bf16, against the plain version run on fp32 upcasts;
+  2. build the hand-written kernels from csrc/ (one nvcc per source, in
+     parallel; sm_90a);
+  3. each kernel against its plain torch version at the main paths' shapes,
+     in bf16, against the plain math run in fp32 on the same bf16 inputs:
+     mod_ln and flash attention at the SD3 shapes, flash attention at d=128
+     and the int4 dequant-matmul at the FLUX shapes;
   4. each kernel's device time against its plain version's (CUDA graph
      replays timed with CUDA events);
-  5. a reduced-depth, full-width MMDiT in bf16 on the card (kernels on)
-     against the same weights in fp32 on the CPU (plain path);
-  6. the main path: SD3-medium (24 blocks, hidden 1536), CLIP-L, CLIP-G and
-     the full VAE decoder in bf16 with random weights from a seed, serving
-     two 512² txt2img requests (50 Euler steps, CFG 5.0) through
-     DiffusionPipeline.generate_image, then repeating the first through the
-     phase methods; the repeat must give the identical image, and both
-     kernels' launch counters must have risen by the path's launch count;
-  7. two more denoise steps under torch.profiler: device-busy time per step
-     by kernel family and the device's idle share.
+  5. reduced-depth, full-width MMDiTs in bf16 on the card (kernels on)
+     against the same weights in fp32 on the CPU (plain path): SD3-medium
+     (2 blocks) and FLUX.1-schnell int4 (1 dual-stream + 2 single-stream
+     blocks);
+  6. the main paths, with random weights from a seed, each serving two
+     requests through generate_image and repeating the first through the
+     phase methods (the repeat must give the identical image, the two
+     requests different ones, and every kernel's launch counter must rise by
+     the path's launch count):
+     a. SD3-medium (24 blocks, hidden 1536), CLIP-L/G and the VAE decoder in
+        bf16: 512², 50 Euler steps, CFG 5.0;
+     b. FLUX.1-schnell int4 (19 + 38 blocks, hidden 3072, int4 block linears
+        at group 64), T5-XXL, CLIP-L and the VAE decoder in bf16: 1024²,
+        4 Euler steps, no CFG;
+  7. two denoise steps of each path under torch.profiler: device-busy time
+     per step by kernel family and the device's idle share; for FLUX also
+     the text encoding (T5-XXL and CLIP-L).
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' summary as JSON, and before that the card's name and power limit.
@@ -28,6 +38,7 @@ kernels' summary as JSON, and before that the card's name and power limit.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -36,9 +47,16 @@ import time
 import numpy as np
 import torch
 
-from diffusionkit_tpu_torch.config import CLIP_G, CLIP_L, SD3_2b, VAEDecoderConfig
+from diffusionkit_tpu_torch.config import (
+    CLIP_G,
+    CLIP_L,
+    FLUX_SCHNELL,
+    SD3_2b,
+    T5_XXL,
+    VAEDecoderConfig,
+)
 from diffusionkit_tpu_torch.flops import device_peak_flops, mmdit_step_flops
-from diffusionkit_tpu_torch.models import init_clip, init_mmdit, init_vae_decoder
+from diffusionkit_tpu_torch.models import init_clip, init_mmdit, init_t5, init_vae_decoder
 from diffusionkit_tpu_torch.models.mmdit import MMDiT
 from diffusionkit_tpu_torch.ops import kernels
 from diffusionkit_tpu_torch.ops.flash_attention import (
@@ -46,32 +64,75 @@ from diffusionkit_tpu_torch.ops.flash_attention import (
     flash_attention_bshd_plain,
 )
 from diffusionkit_tpu_torch.ops.fused_quant import mod_ln, mod_ln_plain
-from diffusionkit_tpu_torch.pipeline import DiffusionPipeline
-from diffusionkit_tpu_torch.tokenizer import CLIPTokenizer, synthetic_clip_vocab
+from diffusionkit_tpu_torch.ops.int4_matmul import dequantize_int4, int4_matmul, int4_matmul_plain
+from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline
+from diffusionkit_tpu_torch.tokenizer import (
+    CLIPTokenizer,
+    SyntheticT5Tokenizer,
+    synthetic_clip_vocab,
+)
 
-STEPS, CFG, LATENT = 50, 5.0, (64, 64)
-REQUESTS = [
+KERNELS = {
+    "mod_ln": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
+               "diffusionkit_tpu/ops/fused_quant.py:284"),
+    "flash_attention_bshd": ("diffusionkit_tpu_torch/csrc/flash_attention.cu",
+                             "diffusionkit_tpu/ops/flash_attention.py:343"),
+    "int4_matmul": ("diffusionkit_tpu_torch/csrc/int4_matmul.cu",
+                    "diffusionkit_tpu/ops/int4_matmul.py:74"),
+}
+COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
+           "int4_matmul": int4_matmul}
+
+
+@dataclasses.dataclass(frozen=True)
+class Path:
+    """One main path: its requests and per-request settings."""
+
+    name: str
+    steps: int
+    cfg: float
+    latent: tuple
+    txt_tokens: int
+    requests: tuple
+
+
+SD3 = Path("sd3", 50, 5.0, (64, 64), 154, (
     ("a photo of an astronaut riding a horse on the moon", 42),
     ("a watercolor painting of a lighthouse at dusk, soft light", 7),
-]
-MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536)]  # image / text stream sites
-FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512)]  # joint attn / VAE mid-block
-# Checked but not timed: a kv edge 51 keys short of the 64-key tile, where
-# an unmasked pad would move the outputs by far more than the bound.
-FLASH_RAGGED = [(1, 77, 3, 64)]
+))
+FLUX = Path("flux", 4, 0.0, (128, 128), 256, (
+    ("a photo of a red fox in the snow, morning light", 3),
+    ("an isometric illustration of a tiny island city", 11),
+))
+
+MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536)]  # SD3 image / text stream sites
+# SD3 joint attention / VAE mid-block at 512² / FLUX joint attention at 1024².
+FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512), (1, 4352, 24, 128)]
+# Checked but not timed: kv edges 51 keys short of the 64-key tile, where an
+# unmasked pad would move the outputs by far more than the bound.
+FLASH_RAGGED = [(1, 77, 3, 64), (1, 77, 3, 128)]
+# (M, K, N, group) of kernel C on the FLUX path: the unified blocks' q/k/v/o
+# and fc1, the dual blocks' fc2 (image stream), the text stream, and a
+# dual block's `ada` GEMV; the same q shape at the quantize-at-load group
+# 32; and a ragged M (checked, not timed).
+INT4_SHAPES = [(4352, 3072, 3072, 64), (4352, 3072, 12288, 64), (4352, 12288, 3072, 64),
+               (256, 3072, 3072, 64), (1, 3072, 18432, 64), (4352, 3072, 3072, 32)]
+INT4_RAGGED = [(77, 3072, 3072, 64)]
 # Kernel B against fp32 math, per element: one bf16 ulp of the exact value
 # (half for the output rounding, half for crossing a binade) plus 2^-8 of
 # the largest |output| for P rounded to bf16 before P.V. The same numerics
 # in plain torch on the CPU reach 0.31-0.40 of this bound at these shapes;
 # leaving the 38 pad keys of (2, 1178, 24, 64) unmasked reaches 2.
 FLASH_SLACK = 2.0**-8
-# bf16 activations through two full-width blocks: the plain bf16 path on
-# the CPU lands at a relative L2 error of 8.5e-3 on this same check.
+# Kernel C against fp32 math on the same bf16-rounded weights, per element:
+# one bf16 ulp (the output rounding, across a binade edge) plus twice the
+# worst-case fp32 summation error of K terms, K * 2^-24 * (|x| @ |w|): the
+# kernel and the reference differ only in the order of the fp32 sums. A
+# wrong nibble, group or scale moves an output by O(|x| @ |w|), far above.
+# bf16 activations through full-width blocks: the plain bf16 SD3 path on the
+# CPU lands at a relative L2 error of 8.5e-3 on its check; the same bound
+# holds FLUX's three blocks (the int4 weights are identical on both sides).
 REF_RTOL = 3e-2
-# Launches per request: 50 steps x 24 joint attentions + 1 VAE mid-block;
-# 50 steps x (4 sites x 23 blocks + 3 in the last block + 1 final layer).
-FLASH_PER_REQUEST = STEPS * 24 + 1
-MOD_LN_PER_REQUEST = STEPS * (4 * 23 + 3 + 1)
 
 
 def log(msg: str) -> None:
@@ -117,6 +178,28 @@ def device_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def reset_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def random_int4(shape, gen):
+    """Random packed words, and scales/zeros giving weights of about
+    +-1/sqrt(K), like a trained layer's."""
+    m, k, n, group = shape
+    dev = torch.device("cuda")
+    q4 = torch.randint(-(2**31), 2**31, (k // 8, n), generator=gen, device=dev,
+                       dtype=torch.int32)
+    scales = (torch.rand(k // group, n, generator=gen, device=dev) + 0.5) * (2 / 15 / k**0.5)
+    zeros = -(torch.rand(k // group, n, generator=gen, device=dev) + 0.5) / k**0.5
+    x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+    return x, q4, scales, zeros
+
+
 def kernel_inputs(gen):
     dev = torch.device("cuda")
     mod = []
@@ -129,23 +212,23 @@ def kernel_inputs(gen):
         tuple(torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
         for shape in FLASH_SHAPES
     ]
-    return mod, flash
+    int4 = [random_int4(shape, gen) for shape in INT4_SHAPES]
+    return mod, flash, int4
 
 
-def check_kernels(mod, flash) -> dict:
-    """Phase 3: kernel against plain on fp32 upcasts. Returns errors."""
-    errs = {"mod_ln": [], "flash_attention_bshd": []}
+def check_kernels(mod, flash, int4) -> dict:
+    """Phase 3: kernel against plain math in fp32. Returns errors."""
+    errs = {name: [] for name in KERNELS}
     for x, sh, sc in mod:
         got = mod_ln(x, sh, sc)
         torch.cuda.synchronize()
         want = mod_ln_plain(x.float(), sh.float(), sc.float())
         diff = (got.float() - want).abs()
-        bound = 0.5 * bf16_ulp(want) + 1e-5
+        ok = bool((diff <= 0.5 * bf16_ulp(want) + 1e-5).all())
         err = diff.max().item()
         log(f"  mod_ln {tuple(x.shape)}: max_abs_err {err!r}, "
-            f"tolerance half a bf16 ulp + 1e-5 per element: "
-            f"{'ok' if bool((diff <= bound).all()) else 'FAIL'}")
-        if not bool((diff <= bound).all()):
+            f"tolerance half a bf16 ulp + 1e-5 per element: {'ok' if ok else 'FAIL'}")
+        if not ok:
             raise AssertionError(f"mod_ln {tuple(x.shape)} disagrees with its plain version")
         errs["mod_ln"].append(err)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -169,12 +252,29 @@ def check_kernels(mod, flash) -> dict:
         if not ok:
             raise AssertionError(f"flash_attention_bshd {tuple(q.shape)} disagrees")
         errs["flash_attention_bshd"].append(err)
+    for shape, (x, q4, s, z) in zip(INT4_SHAPES + INT4_RAGGED,
+                                    int4 + [random_int4(sh, gen) for sh in INT4_RAGGED]):
+        got = int4_matmul(x, q4, s, z)
+        torch.cuda.synchronize()
+        w = dequantize_int4(q4, s, z, torch.bfloat16).float()
+        want = x.float() @ w
+        bound = bf16_ulp(want) + 2 * shape[1] * 2.0**-24 * (x.float().abs() @ w.abs())
+        diff = (got.float() - want).abs()
+        err, ratio = diff.max().item(), (diff / bound).max().item()
+        ok = ratio <= 1 and bool(torch.isfinite(got).all())
+        log(f"  int4_matmul (M, K, N, group) {shape}: max_abs_err {err!r}, max |want| "
+            f"{want.abs().max().item()!r}; tolerance one bf16 ulp + 2K 2^-24 (|x|@|w|) per "
+            f"element, worst element at {ratio!r} of it: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"int4_matmul {shape} disagrees")
+        errs["int4_matmul"].append(err)
+        del w, want, bound, diff
     return errs
 
 
-def time_kernels(mod, flash, tag: str) -> dict:
+def time_kernels(mod, flash, int4, tag: str) -> dict:
     """Phase 4: kernel vs plain version on the same bf16 inputs."""
-    times = {"mod_ln": [], "flash_attention_bshd": []}
+    times = {name: [] for name in KERNELS}
     for x, sh, sc in mod:
         ms = device_ms(lambda: mod_ln(x, sh, sc))
         plain = device_ms(lambda: mod_ln_plain(x, sh, sc))
@@ -185,47 +285,89 @@ def time_kernels(mod, flash, tag: str) -> dict:
     for q, k, v in flash:
         scale = q.shape[-1] ** -0.5
         ms = device_ms(lambda: flash_attention_bshd(q, k, v, scale))
-        plain = device_ms(lambda: flash_attention_bshd_plain(q, k, v, scale))
+        plain = device_ms(lambda: flash_attention_bshd_plain(q, k, v, scale), reps=5)
         b, s, h, d = q.shape
         tflops = 4 * b * h * s * s * d / (ms / 1e3) / 1e12
         log(f"  flash_attention_bshd {tuple(q.shape)}: kernel {ms!r} ms ({tflops!r} TFLOP/s), "
             f"plain {plain!r} ms [{tag}]")
         times["flash_attention_bshd"].append((tuple(q.shape), ms, plain))
+    for shape, (x, q4, s, z) in zip(INT4_SHAPES, int4):
+        m, k, n, _ = shape
+        ms = device_ms(lambda: int4_matmul(x, q4, s, z))
+        plain = device_ms(lambda: int4_matmul_plain(x, q4, s, z))
+        tflops = 2 * m * k * n / (ms / 1e3) / 1e12
+        wbytes = q4.numel() * 4 + 2 * s.numel() * 4
+        log(f"  int4_matmul (M, K, N, group) {shape}: kernel {ms!r} ms ({tflops!r} TFLOP/s, "
+            f"{wbytes / ms / 1e9!r} TB/s of packed weight), plain {plain!r} ms [{tag}]")
+        times["int4_matmul"].append((shape, ms, plain))
     return times
 
 
-def reference_check(gen) -> None:
-    """Phase 5: full-width, 2-block MMDiT, bf16 with kernels on the card vs
-    the same weights in fp32 on the CPU (plain path)."""
-    cfg = dataclasses.replace(SD3_2b, depth_multimodal=2, hidden_size_override=1536)
-    model = init_mmdit(cfg, gen, "cuda")
+def reference_check(cfg, inputs, want_counts: dict, label: str, gen,
+                    quantize_bits=None) -> None:
+    """Phase 5: a full-width, reduced-depth MMDiT in bf16 with the kernels on
+    the card against the same weights in fp32 on the CPU (plain path)."""
+    model = init_mmdit(cfg, gen, "cuda", quantize_bits=quantize_bits)
     with torch.device("meta"):
-        ref = MMDiT(dataclasses.replace(cfg, dtype=torch.float32))
+        ref = MMDiT(dataclasses.replace(cfg, dtype=torch.float32),
+                    quantize_group_size=64 if quantize_bits else None)
     ref.to_empty(device="cpu")
-    ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
-    rs = np.random.RandomState(0)
-    inputs = [
-        torch.from_numpy(rs.randn(2, *LATENT, 16).astype(np.float32)),
-        torch.from_numpy(rs.randn(2, 154, 4096).astype(np.float32)),
-        torch.from_numpy(rs.randn(2, 2048).astype(np.float32)),
-        torch.tensor([900.0, 900.0]),
-    ]
-    counts = (mod_ln.launches, flash_attention_bshd.launches)
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    reset_counts()
     with torch.inference_mode():
         got = model(*(t.cuda() for t in inputs)).float().cpu()
+        have = counts()
         want = ref(*inputs)
-    assert mod_ln.launches - counts[0] == 4 + 3 + 1
-    assert flash_attention_bshd.launches - counts[1] == 2
+    for name, n in want_counts.items():
+        if have[name] != n:
+            raise AssertionError(f"{label}: {name} launched {have[name]} times, expected {n}")
     rel = ((got - want).norm() / want.norm()).item()
-    log(f"  MMDiT 2 blocks x hidden 1536, 512² CFG batch: bf16+kernels vs fp32 CPU: "
-        f"relative L2 error {rel!r} (tolerance {REF_RTOL}), "
-        f"finite {bool(torch.isfinite(got).all())}")
+    log(f"  {label}: bf16+kernels vs fp32 CPU: relative L2 error {rel!r} "
+        f"(tolerance {REF_RTOL}), finite {bool(torch.isfinite(got).all())}, launches {have}")
     if not (rel < REF_RTOL and torch.isfinite(got).all()):
-        raise AssertionError("the bf16 MMDiT on the card disagrees with the fp32 reference")
-    del model, ref
+        raise AssertionError(f"{label}: the bf16 model on the card disagrees with fp32")
 
 
-def build_pipeline(gen) -> DiffusionPipeline:
+def reference_checks(gen) -> None:
+    rs = np.random.RandomState(0)
+    sd3 = dataclasses.replace(SD3_2b, depth_multimodal=2, hidden_size_override=1536)
+    inputs = [torch.from_numpy(rs.randn(2, 64, 64, 16).astype(np.float32)),
+              torch.from_numpy(rs.randn(2, 154, 4096).astype(np.float32)),
+              torch.from_numpy(rs.randn(2, 2048).astype(np.float32)),
+              torch.tensor([900.0, 900.0])]
+    reference_check(sd3, inputs, {"mod_ln": 4 + 3 + 1, "flash_attention_bshd": 2,
+                                  "int4_matmul": 0},
+                    "SD3 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen)
+    # 512²: 1024 image + 256 text tokens, above the flash threshold.
+    flux = dataclasses.replace(FLUX_SCHNELL, depth_multimodal=1, depth_unified=2)
+    inputs = [torch.from_numpy(rs.randn(1, 64, 64, 16).astype(np.float32)),
+              torch.from_numpy(rs.randn(1, 256, 4096).astype(np.float32)),
+              torch.from_numpy(rs.randn(1, 768).astype(np.float32)),
+              torch.tensor([1000.0])]
+    reference_check(flux, inputs, {"mod_ln": 4 + 2 + 1, "flash_attention_bshd": 3,
+                                   "int4_matmul": 2 * 7 + 2 * 7},
+                    "FLUX.1-schnell int4 MMDiT 1 dual + 2 single blocks x hidden 3072, 512²",
+                    gen, quantize_bits=4)
+
+
+def per_request_launches(path: Path, cfg) -> dict:
+    """Each kernel's launches per request, from the model config: per step
+    one flash call per block, the AdaLN sites (4 a dual block with a text
+    MLP, 3 in SD3's K/V-only last block, 1 a single-stream block, 1 the final
+    layer), and for the int4 model the 7 block linears of each stream
+    (q, k, v, o, fc1, fc2, ada); plus the VAE mid-block's attention."""
+    if path is FLUX:
+        dual, uni = cfg.depth_multimodal, cfg.depth_unified
+        return {"mod_ln": path.steps * (4 * dual + uni + 1),
+                "flash_attention_bshd": path.steps * (dual + uni) + 1,
+                "int4_matmul": path.steps * (2 * 7 * dual + 7 * uni)}
+    dual = cfg.depth_multimodal - 1
+    return {"mod_ln": path.steps * (4 * dual + 3 + 1),
+            "flash_attention_bshd": path.steps * (dual + 1) + 1,
+            "int4_matmul": 0}
+
+
+def build_sd3(gen) -> DiffusionPipeline:
     pipe = DiffusionPipeline(device="cuda")
     pipe.mmdit = init_mmdit(SD3_2b, gen, "cuda")
     pipe.clip_l = init_clip(CLIP_L, gen, "cuda", dtype=torch.bfloat16)
@@ -237,28 +379,41 @@ def build_pipeline(gen) -> DiffusionPipeline:
     return pipe
 
 
-def serve(pipe: DiffusionPipeline, tag: str):
+def build_flux(gen) -> FluxPipeline:
+    """FLUX.1-schnell with int4 block linears drawn packed (group 64, as the
+    MLX 4-bit file), T5-XXL, CLIP-L and the VAE decoder, all in bf16."""
+    pipe = FluxPipeline(device="cuda")
+    pipe.mmdit = init_mmdit(FLUX_SCHNELL, gen, "cuda", quantize_bits=4)
+    pipe.t5 = init_t5(T5_XXL, gen, "cuda", dtype=torch.bfloat16)
+    pipe.clip_l = init_clip(CLIP_L, gen, "cuda", dtype=torch.bfloat16)
+    pipe.decoder = init_vae_decoder(VAEDecoderConfig(), gen, "cuda", dtype=torch.bfloat16)
+    pipe.tokenizer_l = CLIPTokenizer({}, synthetic_clip_vocab(), pad_with_eos=True)
+    pipe.t5_tokenizer = SyntheticT5Tokenizer(max_length=256)
+    return pipe
+
+
+def serve(pipe, path: Path, tag: str):
     """Phase 6: the two requests, then the first again through the phase
     methods. Counters are zeroed right before and read right after."""
-    kw = dict(num_steps=STEPS, cfg_weight=CFG, latent_size=LATENT, verbose=False)
+    kw = dict(num_steps=path.steps, cfg_weight=path.cfg, latent_size=path.latent, verbose=False)
     torch.cuda.reset_peak_memory_stats()
-    mod_ln.launches = 0
-    flash_attention_bshd.launches = 0
+    reset_counts()
     images, logs = [], []
-    for text, seed in REQUESTS:
+    for text, seed in path.requests:
         image, phase_log = pipe.generate_image(text, seed=seed, **kw)
         images.append(np.asarray(image))
         logs.append(phase_log)
-    text, seed = REQUESTS[0]
-    cond, pooled = pipe.encode_text(text, CFG)
-    latents, _ = pipe.denoise_latents(cond, pooled, num_steps=STEPS, cfg_weight=CFG,
-                                      latent_size=LATENT, seed=seed)
+    text, seed = path.requests[0]
+    cond, pooled = pipe.encode_text(text, path.cfg)
+    latents, _ = pipe.denoise_latents(cond, pooled, num_steps=path.steps, cfg_weight=path.cfg,
+                                      latent_size=path.latent, seed=seed)
     repeat = pipe.decode_latents_to_u8(latents).cpu().numpy()[0]
     torch.cuda.synchronize()
-    launches = {"mod_ln": mod_ln.launches, "flash_attention_bshd": flash_attention_bshd.launches}
-    n = len(REQUESTS) + 1
-    need = {"mod_ln": n * MOD_LN_PER_REQUEST, "flash_attention_bshd": n * FLASH_PER_REQUEST}
-    log(f"  launches during the main path: {launches} (at least {need})")
+    launches = counts()
+    n = len(path.requests) + 1
+    per = per_request_launches(path, pipe.mmdit.config)
+    need = {name: n * c for name, c in per.items()}
+    log(f"  launches during the {path.name} main path: {launches} (at least {need})")
     for name in need:
         if launches[name] < need[name]:
             raise AssertionError(f"{name} launched {launches[name]} times, expected >= {need[name]}")
@@ -268,10 +423,11 @@ def serve(pipe: DiffusionPipeline, tag: str):
         f"mean {latents.mean().item()!r}, std {latents.std().item()!r}")
     if not finite:
         raise AssertionError("non-finite latents")
+    side = 8 * path.latent[0]
     for i, img in enumerate(images):
         log(f"  request {i}: image {img.shape} {img.dtype}, pixel std {img.std()!r}, "
             f"levels {len(np.unique(img))}")
-        if img.shape != (512, 512, 3) or img.std() == 0:
+        if img.shape != (side, side, 3) or img.std() == 0:
             raise AssertionError(f"request {i}: wrong shape or constant image")
     if not np.array_equal(repeat, images[0]):
         raise AssertionError("repeating the first request gave a different image")
@@ -279,55 +435,81 @@ def serve(pipe: DiffusionPipeline, tag: str):
     if np.array_equal(images[0], images[1]):
         raise AssertionError("two different requests gave the same image")
 
-    flops = mmdit_step_flops(SD3_2b, LATENT, 154, cfg=True)["total"]
+    cfg = pipe.mmdit.config
+    flops = mmdit_step_flops(cfg, path.latent, path.txt_tokens, cfg=path.cfg > 1)["total"]
     peak = device_peak_flops(torch.cuda.get_device_name(0))
     for i, lg in enumerate(logs):
         it = lg["denoising"]["iter_time"]
-        mean_ms = 1e3 * statistics.mean(it)
         median_ms = 1e3 * statistics.median(it)
         tflops = flops / (median_ms / 1e3) / 1e12
         log(f"  request {i}: text_encoding {lg['text_encoding']['time']!r} s, "
             f"denoising {lg['denoising']['time']!r} s, decoding {lg['decoding']['time']!r} s, "
             f"total {lg['total_time']!r} s/image [{tag}]")
-        log(f"  request {i}: denoise mean {mean_ms!r} ms/step, median {median_ms!r} ms/step, "
-            f"first step {1e3 * it[0]!r} ms; {tflops!r} TFLOP/s at the median "
-            f"({flops / 1e12!r} TFLOP/step), {tflops * 1e12 / peak if peak else None!r} of the "
-            f"{peak / 1e12!r} TFLOP/s bf16 peak [{tag}]")
+        log(f"  request {i}: denoise mean {1e3 * statistics.mean(it)!r} ms/step, median "
+            f"{median_ms!r} ms/step, first step {1e3 * it[0]!r} ms; {tflops!r} TFLOP/s at the "
+            f"median ({flops / 1e12!r} TFLOP/step), {tflops * 1e12 / peak if peak else None!r} "
+            f"of the {peak / 1e12!r} TFLOP/s bf16 peak [{tag}]")
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB [{tag}]")
     return launches, 1e3 * statistics.median(logs[1]["denoising"]["iter_time"])
 
 
-def profile_step(pipe: DiffusionPipeline, step_ms: float, tag: str) -> None:
-    """Phase 7: two denoise steps under torch.profiler; device-busy time per
-    step by kernel family, the largest kernels outside the named families,
-    and the idle share against a step's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def family(name: str) -> str:
+    if "flash_fwd" in name:
+        return "flash_attention_bshd"
+    if "mod_ln" in name:
+        return "mod_ln"
+    if "int4_mm" in name:
+        return "int4_matmul"
+    if "nvjet" in name or "gemm" in name:
+        return "gemm"
+    return "other"
 
-    cond, pooled = pipe.encode_text(REQUESTS[0][0], CFG)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, it = pipe.denoise_latents(cond, pooled, num_steps=2, cfg_weight=CFG,
-                                     latent_size=LATENT, seed=1)
-        torch.cuda.synchronize()
+
+def device_split(prof, div: int):
+    """Device-side time by kernel family from a profile, divided by ``div``."""
+    from torch.autograd import DeviceType
+
     families, other = {}, []
     for ev in prof.key_averages():
         # Device-side rows only (kernels, copies, memsets): a CPU op's row
         # repeats the device time of the kernels it launched.
         if ev.device_type != DeviceType.CUDA:
             continue
-        ms = ev.self_device_time_total / 1e3 / 2
-        name = ev.key
-        fam = ("flash_attention_bshd" if "flash_fwd" in name else "mod_ln" if "mod_ln" in name
-               else "gemm" if ("nvjet" in name or "gemm" in name) else "other")
+        ms = ev.self_device_time_total / 1e3 / div
+        fam = family(ev.key)
         families[fam] = families.get(fam, 0.0) + ms
         if fam == "other":
-            other.append((ms, ev.count // 2, name))
+            other.append((ms, ev.count // div, ev.key))
+    return families, other
+
+
+def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
+    """Phase 7: two denoise steps under torch.profiler: device-busy time per
+    step by kernel family, the largest kernels outside the named families,
+    and the idle share against a step's wall time; for FLUX the text
+    encoding's device time too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    text = path.requests[0][0]
+    with profile(activities=acts) as prof:
+        cond, pooled = pipe.encode_text(text, path.cfg)
+        torch.cuda.synchronize()
+    if path is FLUX:
+        fams, _ = device_split(prof, 1)
+        log(f"  text encoding (T5-XXL + CLIP-L): device busy {sum(fams.values())!r} ms "
+            f"{dict(sorted(fams.items()))} [{tag}]")
+    with profile(activities=acts) as prof:
+        _, it = pipe.denoise_latents(cond, pooled, num_steps=2, cfg_weight=path.cfg,
+                                     latent_size=path.latent, seed=1)
+        torch.cuda.synchronize()
+    families, other = device_split(prof, 2)
     busy = sum(families.values())
-    log(f"  device busy {busy!r} ms/step: {dict(sorted(families.items()))} [{tag}]")
+    log(f"  {path.name} device busy {busy!r} ms/step: {dict(sorted(families.items()))} [{tag}]")
     for ms, count, name in sorted(other, reverse=True)[:6]:
         log(f"    other: {ms!r} ms/step in {count} launches/step of {name[:90]}")
     profiled_ms = 1e3 * statistics.mean(it)
-    log(f"  idle share: {1 - busy / step_ms!r} at the median step of request 1 "
+    log(f"  {path.name} idle share: {1 - busy / step_ms!r} at the median step of request 1 "
         f"({step_ms!r} ms, unprofiled); {1 - busy / profiled_ms!r} at the profiled "
         f"steps' own mean ({profiled_ms!r} ms, profiler overhead included) [{tag}]")
 
@@ -355,38 +537,45 @@ def main() -> None:
                 log(f"  {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    mod, flash = kernel_inputs(gen)
-    log("phase 3: kernels against their plain versions (bf16 vs fp32 upcasts)")
-    errs = check_kernels(mod, flash)
+    mod, flash, int4 = kernel_inputs(gen)
+    log("phase 3: kernels against their plain versions (bf16 vs fp32 math)")
+    errs = check_kernels(mod, flash, int4)
     log("phase 4: kernel device times (20 calls per CUDA graph, median of 5 replays)")
-    times = time_kernels(mod, flash, tag)
-    del mod, flash
-
-    log("phase 5: reference check")
-    reference_check(gen)
+    times = time_kernels(mod, flash, int4, tag)
+    del mod, flash, int4
     torch.cuda.empty_cache()
 
-    log("phase 6: main path (SD3-medium 512², 50 steps, CFG 5.0, random weights)")
-    t0 = time.perf_counter()
-    pipe = build_pipeline(gen)
-    torch.cuda.synchronize()
-    log(f"  random SD3-medium + CLIP-L/G + VAE decoder on the card in {time.perf_counter() - t0!r} s")
-    launches, step_ms = serve(pipe, tag)
-    log("phase 7: where a denoise step's device time goes (torch.profiler)")
-    profile_step(pipe, step_ms, tag)
+    log("phase 5: reference checks")
+    reference_checks(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    sources = {
-        "mod_ln": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
-                   "diffusionkit_tpu/ops/fused_quant.py:284"),
-        "flash_attention_bshd": ("diffusionkit_tpu_torch/csrc/flash_attention.cu",
-                                 "diffusionkit_tpu/ops/flash_attention.py:343"),
-    }
+    launches = {}
+    for path, build in ((SD3, build_sd3), (FLUX, build_flux)):
+        log(f"phase 6{'ab'[path is FLUX]}: main path {path.name} ({path.latent[0] * 8}², "
+            f"{path.steps} steps, CFG {path.cfg}, random weights)")
+        t0 = time.perf_counter()
+        pipe = build(gen)
+        torch.cuda.synchronize()
+        log(f"  random {path.name} models on the card in {time.perf_counter() - t0!r} s, "
+            f"{torch.cuda.memory_allocated() / 2**30!r} GiB allocated")
+        launches[path.name], step_ms = serve(pipe, path, tag)
+        log(f"phase 7{'ab'[path is FLUX]}: where a {path.name} step's device time goes "
+            f"(torch.profiler)")
+        profile_steps(pipe, path, step_ms, tag)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
     summary = []
-    for name, (source, replaces) in sources.items():
+    for name, (source, replaces) in KERNELS.items():
         shape, ms, plain = times[name][0]
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(errs[name]),
+            # This slice's main path (FLUX) runs all three kernels.
+            "launches": launches["flux"][name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": max(errs[name]),
             "ms": ms, "plain_ms": plain, "shape": list(shape),
             "shapes": [{"shape": list(s), "ms": m, "plain_ms": p} for s, m, p in times[name]],
         })

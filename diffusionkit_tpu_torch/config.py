@@ -2,8 +2,8 @@
 
 Counterpart of ``diffusionkit_tpu/config.py``: the numeric values are the
 checkpoint-compatibility spec and are identical; only ``dtype`` is a torch
-dtype. The FLUX/SD3.5 presets are carried for reference and are not yet
-exercised by this package (their RoPE, QK-norm and unified blocks wait).
+dtype. SD3-medium and FLUX.1 (schnell and dev) build; SD3.5-large waits for
+its fp32-upcast block segments.
 """
 
 from __future__ import annotations
@@ -142,3 +142,23 @@ CLIP_G = CLIPTextModelConfig(
     projection_dim=1280,
     hidden_act="gelu",
 )
+
+
+@dataclass(frozen=True)
+class T5Config:
+    """T5 encoder config; defaults are google/t5-v1_1-xxl."""
+
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    d_ff: int = 10240
+    num_layers: int = 24
+    num_heads: int = 64
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    feed_forward_proj: str = "gated-gelu"
+    decoder_start_token_id: int = 0
+
+
+T5_XXL = T5Config()

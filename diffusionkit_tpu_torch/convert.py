@@ -5,8 +5,10 @@ The JAX trees hold numpy-convertible leaves with input-major linear kernels
 a leading axis. Here the stacks are unstacked into ``nn.ModuleList`` entries,
 linear kernels are transposed to ``nn.Linear``'s ``(out, in)``, convolution
 kernels become OIHW, and the result is loaded with ``strict=True`` so a
-missing or extra leaf raises. Values are carried exactly (through fp32) and
-cast to each module's dtype on load.
+missing or extra leaf raises. Float values are carried exactly (through
+fp32) and cast to each module's dtype on load. Packed int4 leaves (``q4``,
+uint32) are carried bit for bit as an int32 view, never through a float;
+their ``scales``/``zeros`` keep the reference's ``(K/g, N)`` layout.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .config import CLIPTextModelConfig, MMDiTConfig, VAEDecoderConfig
+from .config import CLIPTextModelConfig, MMDiTConfig, T5Config, VAEDecoderConfig
 from .models.clip import CLIPTextModel
 from .models.mmdit import MMDiT
+from .models.t5 import T5Encoder
 from .models.vae import VAEDecoder
+from .ops.quantized import QuantizedLinear
 
 
 def _index(tree: Any, i: int) -> Any:
@@ -44,6 +48,10 @@ def _state_dict(tree: Any, prefix: str = "", out=None) -> Dict[str, torch.Tensor
         if isinstance(v, (dict, list, tuple)):
             _state_dict(v, key + ".", out)
             continue
+        if k == "q4":  # packed words: a bit view, no value cast
+            out[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(v, np.uint32))
+                                        .view(np.int32))
+            continue
         a = np.asarray(v, dtype=np.float32)
         if k == "kernel":
             key = f"{prefix}weight"
@@ -62,11 +70,47 @@ def _load(model: torch.nn.Module, sd: Dict[str, torch.Tensor], device) -> torch.
 
 
 def mmdit_from_jax(tree: Dict[str, Any], config: MMDiTConfig, device="cpu") -> MMDiT:
-    """``init_mmdit_params``-style tree -> MMDiT (SD3 path)."""
+    """``init_mmdit_params``-style tree (SD3 or FLUX) -> MMDiT; every linear
+    the tree holds packed (``q4`` leaves) becomes a ``QuantizedLinear``."""
     tree = dict(tree)
-    tree["mm_blocks"] = _unstack(tree["mm_blocks"], config.depth_multimodal - 1)
+    flux = config.depth_unified > 0
+    tree["mm_blocks"] = _unstack(tree["mm_blocks"], config.depth_multimodal - (0 if flux else 1))
+    if flux:
+        tree["uni_blocks"] = _unstack(tree["uni_blocks"], config.depth_unified)
     with torch.device("meta"):
         model = MMDiT(config)
+        _pack_like(model, tree)
+    return _load(model, _state_dict(tree), device)
+
+
+def _pack_like(module: torch.nn.Module, tree: Any) -> None:
+    """Swap in a ``QuantizedLinear`` wherever the tree holds a packed linear
+    (``q4`` leaves): the reference's quantize-at-load packs embedders too."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, sub in items:
+        if not isinstance(sub, (dict, list)):
+            continue
+        child = module[k] if isinstance(k, int) else getattr(module, k)
+        if isinstance(sub, dict) and "q4" in sub:
+            k8, n = np.shape(sub["q4"])
+            group = k8 * 8 // np.shape(sub["scales"])[0]
+            dtype = next(child.parameters()).dtype
+            setattr(module, k, QuantizedLinear(k8 * 8, n, group, bias=sub.get("bias") is not None,
+                                               dtype=dtype))
+        else:
+            _pack_like(child, sub)
+
+
+def t5_from_jax(
+    tree: Dict[str, Any], config: T5Config, dtype=torch.float32, device="cpu"
+) -> T5Encoder:
+    """``init_t5_params``-style tree -> T5Encoder."""
+    tree = dict(tree)
+    tree["layers"] = _unstack(tree["layers"], config.num_layers)
+    for name in ("wte", "relative_attention_bias"):
+        tree[name] = {"weight": tree[name]}
+    with torch.device("meta"):
+        model = T5Encoder(config, dtype)
     return _load(model, _state_dict(tree), device)
 
 

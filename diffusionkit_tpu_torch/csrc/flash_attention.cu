@@ -21,9 +21,13 @@
 // are not carried over. wgmma/TMA pipelines come later.
 //
 // Two tilings:
-//  * d <= 128 (`flash_fwd_small`): 4 warps x 16 query rows; each warp keeps
-//    its q fragments, scores and output accumulator (16 x d fp32) in
-//    registers, FlashAttention-2 style.
+//  * d = 64 and d = 128 (`flash_fwd_small`): 4 warps x 16 query rows; each
+//    warp keeps its q fragments, scores and output accumulator (16 x d fp32)
+//    in registers, FlashAttention-2 style. The q/k/v tiles live in dynamic
+//    shared memory: 52 KB at d = 128 (FLUX's joint attention, 24 heads over
+//    256 text + 4096 image tokens at 1024^2), over the 48 KB static limit.
+//    At d = 128 a thread holds 32 q-fragment and 64 accumulator registers
+//    besides the 32 scores; the ptxas report in _build/ shows the spills.
 //  * d = 512 (`flash_fwd_wide`, the VAE mid-block's single head): a 16 x 512
 //    fp32 accumulator per warp would need 256 registers a thread, so the
 //    block shares one 16-row query tile among 4 warps. Each warp computes an
@@ -58,14 +62,22 @@ __device__ __forceinline__ void load_tile(bf16* smem, const bf16* g, long long r
 }
 
 template <int D>
+struct SmallTile {
+  static constexpr int BQ = 64, BK = 64, LD = D + 8;
+  static constexpr size_t kBytes = (size_t)(BQ + 2 * BK) * LD * 2;
+};
+
+template <int D>
 __global__ void __launch_bounds__(128)
     flash_fwd_small(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o, int S, Strides qs,
                     Strides ks, Strides vs, Strides os, float scale_log2) {
-  constexpr int BQ = 64, BK = 64, LD = D + 8, NT = 128;
-  __shared__ __align__(16) bf16 Qs[BQ * LD];
-  __shared__ __align__(16) bf16 Ks[BK * LD];
-  __shared__ __align__(16) bf16 Vs[BK * LD];
+  constexpr int BQ = SmallTile<D>::BQ, BK = SmallTile<D>::BK, LD = SmallTile<D>::LD, NT = 128;
+  // Dynamic: at D = 128 the three tiles take 52 KB, over the 48 KB static limit.
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BQ * LD;
+  bf16* Vs = Ks + BK * LD;
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -338,6 +350,19 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+template <int D>
+int launch_small(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
+                 Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
+                 cudaStream_t st) {
+  const size_t smem = SmallTile<D>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_small<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + SmallTile<D>::BQ - 1) / SmallTile<D>::BQ, H, B);
+  flash_fwd_small<D><<<grid, 128, smem, st>>>(q, k, v, o, S, qs, ks, vs, os, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dk_flash_attn_bf16(const void* q, const void* k, const void* v, void* o, int B,
@@ -355,11 +380,10 @@ extern "C" int dk_flash_attn_bf16(const void* q, const void* k, const void* v, v
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: {
-      const dim3 grid((S + 63) / 64, H, B);
-      flash_fwd_small<64><<<grid, 128, 0, st>>>(qp, kp, vp, op, S, qs, ks, vs, os, scale_log2);
-      break;
-    }
+    case 64:
+      return launch_small<64>(qp, kp, vp, op, B, S, H, qs, ks, vs, os, scale_log2, st);
+    case 128:
+      return launch_small<128>(qp, kp, vp, op, B, S, H, qs, ks, vs, os, scale_log2, st);
     case 512: {
       const size_t smem = WideTile<512>::kBytes;
       const cudaError_t e = cudaFuncSetAttribute(

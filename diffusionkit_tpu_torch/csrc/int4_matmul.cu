@@ -1,0 +1,212 @@
+// Kernel C: y[M, N] = x[M, K] @ dequant(q4, scales, zeros), bf16 x.
+//
+// Replaces the Pallas kernel diffusionkit_tpu/ops/int4_matmul.py:int4_matmul
+// (_kernel). q4 is (K/8, N) 32-bit words; nibble j of word r is row 8r + j
+// (bits [4j, 4j+4)). scales and zeros are fp32 (K/g, N) and w = q*s + z. As
+// in the reference, the weight is dequantised in fp32 (a product and a sum,
+// each rounded: no FMA), ROUNDED TO BF16 before the product, the product is
+// accumulated in fp32 and the output rounded to bf16 once.
+//
+// Bound on the H100: at M >= 256 (the FLUX image stream, 4096 tokens; the
+// unified blocks, 4352; the text stream, 256) the kernel is tensor-core
+// bound: a (BM x 64) x (64 x 128) step is 2*BM*8192 flops against 4 KB of
+// packed weight and BM*128 bytes of x. The design dequantises each weight
+// tile ONCE per block into a bf16 (128 x 64) shared tile that every row of
+// the block's M tile reuses, so the dequantisation costs 1/BM of the
+// products. At M = 1 (the AdaLN `ada` GEMVs) it is bound by reading the
+// 4-bit weights (28 MB per dual-block `ada`); a 16-row tile keeps the wasted
+// tensor-core work small there. Split-K for the GEMV and wgmma/TMA
+// pipelining come later.
+//
+// Tiling: 256 threads (8 warps), BN = 128 columns, BK = 64 (a multiple of
+// every group size taken: 32, or a multiple of 64, so a tile never straddles
+// a group boundary it cannot see). BM = 128 (2 x 4 warps of 64 x 32), 64
+// (2 x 4 warps of 32 x 32) or 16 (1 x 8 warps of 16 x 16), picked by M.
+// Per k tile: cp.async stages the x tile (16-byte chunks, rows past M
+// zero-filled: no padded copy of x), the packed (8 x 128) words and their
+// scale/zero rows into a double buffer, coalesced along N; the words of the
+// current tile are dequantised from shared memory into Bs, stored [n][k]
+// with rows padded by 8 so both the 16-byte dequant stores and the ldmatrix
+// fragment loads are bank-conflict free; then mma.sync m16n8k16 (bf16 in,
+// fp32 out) with A and B fragments from ldmatrix. The ragged M edge is
+// masked at the store. K and N that the tiling does not take are refused.
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BK = 64, BN = 128, NTHREADS = 256;
+constexpr int LDA = BK + 8, LDB = BK + 8;  // padded shared rows (elements)
+constexpr int QROWS = BK / 8;              // packed word rows per k tile
+constexpr int SROWS = 2;                   // scale rows per k tile (group 32 -> 2)
+
+template <int BM>
+struct Smem {
+  static constexpr size_t a = 2 * (size_t)BM * LDA * sizeof(bf16);
+  static constexpr size_t q = 2 * (size_t)QROWS * BN * 4;
+  static constexpr size_t s = 2 * (size_t)SROWS * BN * 4;
+  static constexpr size_t b = (size_t)BN * LDB * sizeof(bf16);
+  static constexpr size_t bytes = a + q + 2 * s + b;
+};
+
+template <int WARPS_M, int MT, int NT>
+__global__ void __launch_bounds__(NTHREADS)
+    int4_mm(const bf16* __restrict__ x, const uint32_t* __restrict__ q4,
+            const float* __restrict__ scales, const float* __restrict__ zeros,
+            bf16* __restrict__ y, int M, int N, int K, int group, long long lda) {
+  constexpr int WARPS_N = 8 / WARPS_M;
+  constexpr int BM = WARPS_M * MT * 16;
+  static_assert(WARPS_N * NT * 8 == BN, "warp tiles must cover BN");
+  static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
+  using L = Smem<BM>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);                    // [2][BM][LDA]
+  uint32_t* Qs = reinterpret_cast<uint32_t*>(smem + L::a);     // [2][QROWS][BN]
+  float* Ss = reinterpret_cast<float*>(smem + L::a + L::q);    // [2][SROWS][BN]
+  float* Zs = Ss + 2 * SROWS * BN;                             // [2][SROWS][BN]
+  bf16* Bs = reinterpret_cast<bf16*>(smem + L::a + L::q + 2 * L::s);  // [BN][LDB]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int srows = group < BK ? BK / group : 1;
+  const int KT = K / BK;
+
+  auto load_stage = [&](int kt, int buf) {
+    const int k0 = kt * BK;
+    for (int c = tid; c < BM * (BK / 8); c += NTHREADS) {
+      const int r = c >> 3, col = (c & 7) * 8;
+      const int row = m0 + r;
+      const bf16* src = x + (long long)(row < M ? row : 0) * lda + k0 + col;
+      dk::cp_async16(&As[(buf * BM + r) * LDA + col], src, row < M ? 16 : 0);
+    }
+    {  // QROWS x BN words: one 16-byte chunk per thread
+      const int r = tid >> 5, col = (tid & 31) * 4;
+      dk::cp_async16(&Qs[(buf * QROWS + r) * BN + col],
+                     q4 + (long long)(k0 / 8 + r) * N + n0 + col, 16);
+    }
+    if (tid < srows * 32) {
+      const int r = tid >> 5, col = (tid & 31) * 4;
+      const long long off = (long long)(k0 / group + r) * N + n0 + col;
+      dk::cp_async16(&Ss[(buf * SROWS + r) * BN + col], scales + off, 16);
+      dk::cp_async16(&Zs[(buf * SROWS + r) * BN + col], zeros + off, 16);
+    }
+    dk::cp_async_commit();
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+
+  load_stage(0, 0);
+  for (int kt = 0; kt < KT; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < KT) {
+      load_stage(kt + 1, buf ^ 1);  // the buffer's last reader finished (sync below)
+      dk::cp_async_wait<1>();
+    } else {
+      dk::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    {  // Dequantise this tile's words into Bs[n][k]: thread -> word row r,
+       // columns l, l+32, l+64, l+96; one 16-byte store of 8 k values each.
+      const int r = tid >> 5, l = tid & 31;
+      const int srow = group < BK ? (8 * r) / group : 0;
+      const uint32_t* qrow = &Qs[(buf * QROWS + r) * BN];
+      const float* sp = &Ss[(buf * SROWS + srow) * BN];
+      const float* zp = &Zs[(buf * SROWS + srow) * BN];
+#pragma unroll
+      for (int i = 0; i < BN / 32; ++i) {
+        const int n = l + 32 * i;
+        const uint32_t w = qrow[n];
+        const float s = sp[n], z = zp[n];
+        uint32_t p[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float lo = __fadd_rn(__fmul_rn((float)((w >> (8 * j)) & 0xFu), s), z);
+          const float hi = __fadd_rn(__fmul_rn((float)((w >> (8 * j + 4)) & 0xFu), s), z);
+          p[j] = dk::pack_bf16(lo, hi);
+        }
+        *reinterpret_cast<uint4*>(&Bs[n * LDB + 8 * r]) = make_uint4(p[0], p[1], p[2], p[3]);
+      }
+    }
+    __syncthreads();
+
+    const bf16* Ab = As + buf * BM * LDA;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        dk::ldmatrix_x4(a[mt], &Ab[(wm * MT * 16 + mt * 16 + (lane & 15)) * LDA + ks * 16 +
+                                   (lane >> 4) * 8]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        dk::ldmatrix_x4(r, &Bs[(wn * NT * 8 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * LDB +
+                              ks * 16 + ((lane >> 3) & 1) * 8]);
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) dk::mma_bf16_16816(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+    }
+    __syncthreads();  // As[buf] and Bs are free for the next tile
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int row = m0 + wm * MT * 16 + mt * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = n0 + wn * NT * 8 + nt * 8 + 2 * t;
+      if (row < M)
+        *reinterpret_cast<uint32_t*>(y + (long long)row * N + col) =
+            dk::pack_bf16(acc[mt][nt][0], acc[mt][nt][1]);
+      if (row + 8 < M)
+        *reinterpret_cast<uint32_t*>(y + (long long)(row + 8) * N + col) =
+            dk::pack_bf16(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+}
+
+template <int WARPS_M, int MT, int NT>
+int launch(const void* x, const void* q4, const void* scales, const void* zeros, void* y, int M,
+           int N, int K, int group, long long lda, cudaStream_t st) {
+  constexpr int BM = WARPS_M * MT * 16;
+  const size_t smem = Smem<BM>::bytes;
+  auto kernel = int4_mm<WARPS_M, MT, NT>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(N / BN, (M + BM - 1) / BM);
+  kernel<<<grid, NTHREADS, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const uint32_t*>(q4),
+      static_cast<const float*>(scales), static_cast<const float*>(zeros), static_cast<bf16*>(y),
+      M, N, K, group, lda);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int dk_int4_matmul_bf16(const void* x, const void* q4, const void* scales,
+                                   const void* zeros, void* y, int M, int N, int K, int group,
+                                   long long lda, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % BN || K % BK || group <= 0 || K % group ||
+      !(group == 32 || group % BK == 0) || lda < K || lda % 8 || M > 65535 * 128)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 16) return launch<1, 1, 2>(x, q4, scales, zeros, y, M, N, K, group, lda, st);
+  if (M <= 1024) return launch<2, 2, 4>(x, q4, scales, zeros, y, M, N, K, group, lda, st);
+  return launch<2, 4, 4>(x, q4, scales, zeros, y, M, N, K, group, lda, st);
+}

@@ -1,20 +1,28 @@
-"""Multi-modal Diffusion Transformer (MMDiT), SD3 path, as ``nn.Module``s.
+"""Multi-modal Diffusion Transformer (MMDiT): SD3 and FLUX, as ``nn.Module``s.
 
 Counterpart of ``diffusionkit_tpu/models/mmdit.py``: the stacked block
-parameters and ``lax.scan`` become an ``nn.ModuleList`` walked by a Python
-loop. Same math and sequence order: SD3 concatenates [image, text] for the
-joint attention; the last dual-stream block's text branch is K/V-only
-(``final=True``: two modulation vectors, no o-projection or MLP). The AdaLN
-LayerNorm sites go to kernel A (``ops/fused_quant.mod_ln``) and the joint
-attention to kernel B through ``ops/attention.sdpa``.
+parameters and ``lax.scan`` become ``nn.ModuleList``s walked by a Python
+loop. Same math and sequence order:
 
-RoPE, QK-norm, the unified (single-stream) blocks and the fp32-upcast block
-segments wait for the FLUX and SD3.5 slices; building such a config raises.
+- SD3 concatenates [image, text] for the joint attention, adds a learned,
+  centre-cropped position table, and its last dual-stream block's text
+  branch is K/V-only (``final=True``).
+- FLUX concatenates [text, image] in both block families, rotates q/k with
+  RoPE after the QK-RMSNorm (image rows only in the dual-stream blocks: the
+  text rows' rotation is the identity), runs 38 single-stream
+  ``UnifiedBlock``s with a parallel MLP, and unpacks with ``unpack_flux``.
+  FLUX-dev adds a guidance embedding to the modulation input.
+
+The AdaLN LayerNorm sites go to kernel A (``ops/fused_quant.mod_ln``), the
+joint attention to kernel B through ``ops/attention.sdpa``, and the block
+linears of an int4 model (``QuantizedLinear``) to kernel C through
+``ops/common.linear``. The fp32-upcast block segments of SD3.5-large wait;
+building such a config raises.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,9 +30,21 @@ from torch import nn
 
 from ..config import MMDiTConfig, PositionalEncoding
 from ..ops.attention import sdpa
-from ..ops.common import MLPSiLU, ffn_gelu, linear, patchify, timestep_embedding, unpatchify_sd3
+from ..ops.common import (
+    MLPSiLU,
+    ffn_gelu,
+    linear,
+    patchify,
+    timestep_embedding,
+    unpack_flux,
+    unpatchify_sd3,
+)
 from ..ops.fused_quant import mod_ln
-from ..ops.norms import modulated_layer_norm
+from ..ops.norms import modulated_layer_norm, rms_norm
+from ..ops.quantized import QuantizedLinear, random_quantized_linear_
+from ..ops.rope import apply_rope, rms_norm_rope, rope_frequencies
+
+Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _mod_ln_maybe_fused(
@@ -39,48 +59,83 @@ def _mod_ln_maybe_fused(
     return modulated_layer_norm(x, shift, scale, eps)
 
 
-class BlockBranch(nn.Module):
-    """One stream (image or text) of a dual-stream block."""
+class QKNorm(nn.Module):
+    """Per-head-dim RMSNorm scales of q and k."""
 
-    def __init__(self, config: MMDiTConfig, num_mod: int, with_mlp: bool = True):
+    def __init__(self, head_dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.q_scale = nn.Parameter(torch.empty(head_dim, dtype=dtype))
+        self.k_scale = nn.Parameter(torch.empty(head_dim, dtype=dtype))
+
+
+class Projections(nn.Module):
+    """The linears of one stream: q, k (no bias: redundant under softmax
+    shift invariance), v, ada and, with the MLP, o, fc1, fc2; plus the QK
+    norm. Block linears are int4 ``QuantizedLinear``s when ``group_size`` is
+    set, as the reference's ``init_mmdit_params(quantize_bits=4)`` builds
+    them."""
+
+    def __init__(self, config: MMDiTConfig, num_mod: int, with_mlp: bool = True,
+                 group_size: Optional[int] = None):
         super().__init__()
         H, dt = config.hidden_size, config.dtype
         self.num_mod = num_mod
-        self.q = nn.Linear(H, H, dtype=dt)
-        # No key bias: redundant under softmax shift invariance.
-        self.k = nn.Linear(H, H, bias=False, dtype=dt)
-        self.v = nn.Linear(H, H, dtype=dt)
-        self.ada = nn.Linear(H, num_mod * H, dtype=dt)
+
+        def lin(d_in, d_out, bias=True):
+            if group_size:
+                return QuantizedLinear(d_in, d_out, group_size, bias=bias, dtype=dt)
+            return nn.Linear(d_in, d_out, bias=bias, dtype=dt)
+
+        self.q = lin(H, H)
+        self.k = lin(H, H, bias=False)
+        self.v = lin(H, H)
+        self.ada = lin(H, num_mod * H)
         if with_mlp:
-            self.o = nn.Linear(H, H, dtype=dt)
-            self.fc1 = nn.Linear(H, H * config.mlp_ratio, dtype=dt)
-            self.fc2 = nn.Linear(H * config.mlp_ratio, H, dtype=dt)
+            self.o = lin(H, H)
+            self.fc1 = lin(H, H * config.mlp_ratio)
+            self.fc2 = lin(H * config.mlp_ratio, H)
+        self.qk_norm = QKNorm(config.head_dim, dt) if config.use_qk_norm else None
 
     def modulation(self, c: torch.Tensor) -> List[torch.Tensor]:
         """adaLN_modulation: SiLU -> Linear -> split into (B, 1, H) views."""
         y = linear(self.ada, F.silu(c))
         return [p[:, None, :] for p in y.chunk(self.num_mod, dim=-1)]
 
-    def qkv(self, x: torch.Tensor, num_heads: int):
+    def qkv(self, x: torch.Tensor, num_heads: int, rope: Rope = None):
+        """Per-head q, k, v (B, S, heads, d); QK-RMSNorm and RoPE when
+        configured, fused in fp32 with one rounding when both apply."""
         b, s, h = x.shape
-        return tuple(
-            linear(layer, x).reshape(b, s, num_heads, h // num_heads)
-            for layer in (self.q, self.k, self.v)
-        )
+        q, k, v = (linear(layer, x).reshape(b, s, num_heads, h // num_heads)
+                   for layer in (self.q, self.k, self.v))
+        if rope is not None:
+            cos, sin = (t[:, None, :] for t in rope)  # broadcast over heads
+        if self.qk_norm is not None:
+            if rope is not None:
+                q = rms_norm_rope(q, self.qk_norm.q_scale, cos, sin)
+                k = rms_norm_rope(k, self.qk_norm.k_scale, cos, sin)
+            else:
+                q = rms_norm(q, self.qk_norm.q_scale)
+                k = rms_norm(k, self.qk_norm.k_scale)
+        elif rope is not None:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        return q, k, v
 
 
 class MMBlock(nn.Module):
-    """Dual-stream block with joint attention over [image, text]."""
+    """Dual-stream block with joint attention: [image, text] for SD3,
+    [text, image] for FLUX (``config.depth_unified > 0``)."""
 
-    def __init__(self, config: MMDiTConfig, final: bool = False):
+    def __init__(self, config: MMDiTConfig, final: bool = False,
+                 group_size: Optional[int] = None):
         super().__init__()
         self.config = config
         self.final = final
-        self.img = BlockBranch(config, 6)
-        self.txt = BlockBranch(config, 2 if final else 6, with_mlp=not final)
+        self.img = Projections(config, 6, group_size=group_size)
+        self.txt = Projections(config, 2 if final else 6, with_mlp=not final,
+                               group_size=group_size)
 
     def forward(
-        self, img: torch.Tensor, txt: torch.Tensor, c: torch.Tensor
+        self, img: torch.Tensor, txt: torch.Tensor, c: torch.Tensor, rope: Rope = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
         eps = cfg.layer_norm_eps
@@ -89,15 +144,23 @@ class MMBlock(nn.Module):
 
         img_h = _mod_ln_maybe_fused(img, img_mods[0], img_mods[1], eps)
         txt_h = _mod_ln_maybe_fused(txt, txt_mods[0], txt_mods[1], eps)
-        q_i, k_i, v_i = self.img.qkv(img_h, cfg.num_heads)
+        img_len, txt_len = img.shape[1], txt.shape[1]
+        flux = cfg.depth_unified > 0
+        rope_img = None if rope is None else (rope[0][txt_len:], rope[1][txt_len:])
+        q_i, k_i, v_i = self.img.qkv(img_h, cfg.num_heads, rope_img if flux else None)
         q_t, k_t, v_t = self.txt.qkv(txt_h, cfg.num_heads)
-        q = torch.cat([q_i, q_t], dim=1)
-        k = torch.cat([k_i, k_t], dim=1)
-        v = torch.cat([v_i, v_t], dim=1)
-        o = sdpa(q, k, v, scale=1.0 / (cfg.head_dim**0.5), layout="bshd")
-        o = o.flatten(2)
-        img_len = img.shape[1]
-        o_img, o_txt = o[:, :img_len], o[:, img_len:]
+        if flux:
+            q, k, v = (torch.cat(p, dim=1) for p in ((q_t, q_i), (k_t, k_i), (v_t, v_i)))
+        else:
+            q, k, v = (torch.cat(p, dim=1) for p in ((q_i, q_t), (k_i, k_t), (v_i, v_t)))
+            if rope is not None:
+                cos, sin = (t[:, None, :] for t in rope)
+                q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        o = sdpa(q, k, v, scale=1.0 / (cfg.head_dim**0.5), layout="bshd").flatten(2)
+        if flux:
+            o_txt, o_img = o[:, :txt_len], o[:, txt_len:]
+        else:
+            o_img, o_txt = o[:, :img_len], o[:, img_len:]
 
         img = img + img_mods[2] * linear(self.img.o, o_img)
         img = img + img_mods[5] * ffn_gelu(
@@ -114,6 +177,31 @@ class MMBlock(nn.Module):
         return img, txt
 
 
+class UnifiedBlock(Projections):
+    """FLUX single-stream block over [text, image]: one AdaLN site feeds both
+    the attention and, with the parallel MLP, the MLP (3 modulation vectors:
+    shift, scale, gate); else a sequential MLP with its own site (6)."""
+
+    def __init__(self, config: MMDiTConfig, group_size: Optional[int] = None):
+        n_mod = 3 if config.parallel_mlp_for_unified_blocks else 6
+        super().__init__(config, n_mod, group_size=group_size)
+        self.config = config
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor, rope: Rope) -> torch.Tensor:
+        cfg = self.config
+        eps = cfg.layer_norm_eps
+        mods = self.modulation(c)
+        h = _mod_ln_maybe_fused(x, mods[0], mods[1], eps)
+        q, k, v = self.qkv(h, cfg.num_heads, rope)
+        o = sdpa(q, k, v, scale=1.0 / (cfg.head_dim**0.5), layout="bshd").flatten(2)
+        if cfg.parallel_mlp_for_unified_blocks:
+            return x + mods[2] * (linear(self.o, o) + ffn_gelu(self.fc1, self.fc2, h))
+        x = x + mods[2] * linear(self.o, o)
+        return x + mods[5] * ffn_gelu(
+            self.fc1, self.fc2, _mod_ln_maybe_fused(x, mods[3], mods[4], eps)
+        )
+
+
 class FinalLayer(nn.Module):
     """2-vector AdaLN + linear to patch features."""
 
@@ -125,36 +213,41 @@ class FinalLayer(nn.Module):
 
 
 class MMDiT(nn.Module):
-    """SD3 MMDiT: forward(latent NHWC, token embeddings, pooled, timestep)
-    -> velocity prediction NHWC."""
+    """forward(latent NHWC, token embeddings, pooled, timestep[, guidance])
+    -> velocity prediction NHWC.
 
-    def __init__(self, config: MMDiTConfig):
+    ``quantize_group_size``: build the block linears as int4
+    ``QuantizedLinear``s with this group size (the embedders and the final
+    layer stay float, as in the reference's random int4 init)."""
+
+    def __init__(self, config: MMDiTConfig, quantize_group_size: Optional[int] = None):
         super().__init__()
-        if (
-            config.depth_unified
-            or config.pos_embed_type != PositionalEncoding.LearnedInputEmbedding
-            or config.use_qk_norm
-            or config.upcast_multimodal_blocks
-            or config.guidance_embed
-        ):
+        if config.upcast_multimodal_blocks or config.upcast_unified_blocks:
             raise NotImplementedError(
-                "only the SD3 MMDiT path (learned pos-embed, no QK-norm, no "
-                "unified blocks, no upcast segments) is ported"
+                "the fp32-upcast block segments (SD3.5-large) are not ported yet"
             )
         self.config = config
-        H, dt = config.hidden_size, config.dtype
+        H, dt, g = config.hidden_size, config.dtype, quantize_group_size
         patch_in = config.vae_latent_dim * config.patch_size**2
         self.x_embedder = nn.Linear(patch_in, H, dtype=dt)
         self.context_embedder = nn.Linear(config.token_level_text_embed_dim, H, dtype=dt)
         self.y_embedder = MLPSiLU(config.pooled_text_embed_dim, H, dtype=dt)
         self.t_embedder = MLPSiLU(config.frequency_embed_dim, H, dtype=dt)
-        self.pos_embed = nn.Parameter(
-            torch.empty(config.max_latent_resolution**2, H, dtype=dt)
+        self.guidance_embedder = (
+            MLPSiLU(config.frequency_embed_dim, H, dtype=dt) if config.guidance_embed else None
         )
-        self.mm_blocks = nn.ModuleList(
-            MMBlock(config) for _ in range(config.depth_multimodal - 1)
+        learned = config.pos_embed_type == PositionalEncoding.LearnedInputEmbedding
+        self.pos_embed = (
+            nn.Parameter(torch.empty(config.max_latent_resolution**2, H, dtype=dt))
+            if learned else None
         )
-        self.mm_final = MMBlock(config, final=True)
+        flux = config.depth_unified > 0
+        n_uniform = config.depth_multimodal - (0 if flux else 1)
+        self.mm_blocks = nn.ModuleList(MMBlock(config, group_size=g) for _ in range(n_uniform))
+        self.mm_final = None if flux else MMBlock(config, final=True, group_size=g)
+        self.uni_blocks = nn.ModuleList(
+            UnifiedBlock(config, group_size=g) for _ in range(config.depth_unified)
+        )
         self.final_layer = FinalLayer(config)
 
     def forward(
@@ -163,6 +256,7 @@ class MMDiT(nn.Module):
         token_level_text_embeddings: torch.Tensor,
         pooled_text_embeddings: torch.Tensor,
         timestep: torch.Tensor,
+        guidance: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         cfg = self.config
         b, lh, lw, _ = latent.shape
@@ -171,43 +265,73 @@ class MMDiT(nn.Module):
         txt = linear(self.context_embedder, token_level_text_embeddings.to(dt))
         x = linear(self.x_embedder, patchify(latent.to(dt), p))
 
-        # Center-cropped learned position table; its size comes from the
-        # weights (SD3-medium and SD3.5 ship different table sizes).
         h, w = lh // p, lw // p
-        maxhw = int(round(self.pos_embed.shape[0] ** 0.5))
-        y0, x0 = (maxhw - h) // 2, (maxhw - w) // 2
-        pos = self.pos_embed.reshape(maxhw, maxhw, cfg.hidden_size)
-        x = x + pos[y0 : y0 + h, x0 : x0 + w].reshape(1, h * w, -1).to(dt)
+        rope = None
+        if self.pos_embed is not None:
+            # Center-cropped learned position table; its size comes from the
+            # weights (SD3-medium and SD3.5 ship different table sizes).
+            maxhw = int(round(self.pos_embed.shape[0] ** 0.5))
+            y0, x0 = (maxhw - h) // 2, (maxhw - w) // 2
+            pos = self.pos_embed.reshape(maxhw, maxhw, cfg.hidden_size)
+            x = x + pos[y0 : y0 + h, x0 : x0 + w].reshape(1, h * w, -1).to(dt)
+        else:
+            rope = rope_frequencies((h, w), txt.shape[1], cfg.rope_axes_dim, device=x.device)
 
-        t_emb = self.t_embedder(
+        c = self.t_embedder(
             timestep_embedding(timestep, cfg.frequency_embed_dim, cfg.max_period).to(dt)
-        )
-        c = t_emb + self.y_embedder(pooled_text_embeddings.to(dt))
+        ) + self.y_embedder(pooled_text_embeddings.to(dt))
+        if self.guidance_embedder is not None:
+            if guidance is None:
+                guidance = torch.full((b,), 3.5, dtype=torch.float32, device=x.device)
+            c = c + self.guidance_embedder(
+                timestep_embedding(guidance, cfg.frequency_embed_dim, cfg.max_period).to(dt)
+            )
 
         for block in self.mm_blocks:
-            x, txt = block(x, txt, c)
-        x, _ = self.mm_final(x, txt, c)
+            x, txt = block(x, txt, c, rope)
+        if self.mm_final is not None:
+            x, _ = self.mm_final(x, txt, c, rope)
+        else:
+            u = torch.cat([txt, x], dim=1)
+            for block in self.uni_blocks:
+                u = block(u, c, rope)
+            x = u[:, txt.shape[1]:].contiguous()
 
         fl = self.final_layer
         shift, scale = (m[:, None, :] for m in linear(fl.ada, F.silu(c)).chunk(2, dim=-1))
         x = _mod_ln_maybe_fused(x, shift, scale, cfg.layer_norm_eps)
         x = linear(fl.linear, x)
+        if cfg.patchify_via_reshape:
+            return unpack_flux(x, (lh, lw), p)
         return unpatchify_sd3(x, (lh, lw), p, cfg.vae_latent_dim)
 
 
+@torch.no_grad()
 def init_mmdit(
-    config: MMDiTConfig, generator: torch.Generator, device="cpu", std: float = 0.02
+    config: MMDiTConfig, generator: torch.Generator, device="cpu", std: float = 0.02,
+    quantize_bits: Optional[int] = None,
 ) -> MMDiT:
     """Random MMDiT with checkpoint-compatible shapes, built directly on
-    ``device``: weights ~ N(0, std) from ``generator`` (which must live on
-    that device), biases zero."""
+    ``device`` from ``generator`` (which must live on that device): float
+    weights ~ N(0, std), biases zero, QK-norm scales one. With
+    ``quantize_bits=4`` the block linears are drawn directly in the packed
+    int4 format at group 64 (``random_quantized_linear_``), as the
+    reference's ``init_mmdit_params(quantize_bits=4)`` does, so a 12B model
+    never exists in float."""
+    if quantize_bits not in (None, 4):
+        raise NotImplementedError(f"quantize_bits={quantize_bits}: only int4 is ported")
     with torch.device("meta"):
-        model = MMDiT(config)
+        model = MMDiT(config, quantize_group_size=64 if quantize_bits else None)
     model.to_empty(device=device)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("bias"):
-                p.zero_()
-            else:
-                p.normal_(0.0, std, generator=generator)
+    for module in model.modules():
+        if isinstance(module, QuantizedLinear):
+            random_quantized_linear_(module, generator, std)
+        elif isinstance(module, QKNorm):
+            module.q_scale.fill_(1.0)
+            module.k_scale.fill_(1.0)
+    for name, p in model.named_parameters():
+        if name.endswith("bias"):
+            p.zero_()
+        elif not name.endswith(("q_scale", "k_scale")):
+            p.normal_(0.0, std, generator=generator)
     return model.eval()

@@ -13,10 +13,17 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import SUPPORTED_HEAD_DIMS, flash_attention_bshd
+from .flash_attention import flash_attention_bshd
 
 # Sequence length above which the flash kernel is used.
 FLASH_ATTN_THRESHOLD = 1024
+
+
+def flash_eligible(head_dim: int) -> bool:
+    """The reference's ``flash_ok``: the head dims its dispatch sends to the
+    flash kernel. A head dim that passes here but that kernel B does not
+    take yet raises from ``flash_attention_bshd``; it never falls back."""
+    return head_dim in (64, 128, 256) or head_dim % 128 == 0
 
 
 def _check_layout(layout: str) -> None:
@@ -50,8 +57,8 @@ def sdpa(
     ``impl``: None/'auto', 'xla' or 'flash' (default from
     ``DIFFUSIONKIT_TPU_SDPA``). 'auto' takes the flash kernel for a CUDA
     tensor whose sequence exceeds FLASH_ATTN_THRESHOLD and whose head dim
-    the kernel supports; 'flash' always takes it (on the CPU its plain
-    version). The kernel raises on what it does not take (for now fp32).
+    passes ``flash_eligible``; 'flash' always takes it (on the CPU its plain
+    version). The kernel raises on what it does not take.
     """
     _check_layout(layout)
     impl = impl or os.environ.get("DIFFUSIONKIT_TPU_SDPA", "auto")
@@ -59,7 +66,7 @@ def sdpa(
         impl == "auto"
         and q.device.type == "cuda"
         and q.shape[1] > FLASH_ATTN_THRESHOLD
-        and q.shape[-1] in SUPPORTED_HEAD_DIMS
+        and flash_eligible(q.shape[-1])
     )
     if want_flash:
         return flash_attention_bshd(q, k, v, scale)

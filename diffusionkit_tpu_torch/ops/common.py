@@ -1,8 +1,9 @@
 """Shared building blocks on tensors: linear layers, MLPs, patchify.
 
-Counterpart of ``diffusionkit_tpu/ops/common.py``. Weights live in
-``nn.Linear`` modules in torch's (out, in) layout; the GEMMs go to
-``F.linear`` as the reference left them to XLA.
+Counterpart of ``diffusionkit_tpu/ops/common.py``. Float weights live in
+``nn.Linear`` modules in torch's (out, in) layout and their GEMMs go to
+``F.linear``, as the reference left them to XLA; int4 weights live in
+``ops/quantized.QuantizedLinear`` and go to kernel C.
 """
 
 from __future__ import annotations
@@ -14,9 +15,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .int4_matmul import int4_linear
+from .quantized import QuantizedLinear
 
-def linear(layer: nn.Linear, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+
+def linear(layer: nn.Module, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
     """y = act(x @ W^T (+ b)), rounded to x's dtype BEFORE the activation.
+
+    A ``QuantizedLinear`` goes to ``int4_linear`` (kernel C on the card), as
+    the reference's ``linear`` hands quantized params to ``quantized_linear``.
 
     The product runs in the promoted dtype of x and the weight (as the
     reference's ``jnp.dot`` does for a bf16 activation against fp32
@@ -24,6 +31,8 @@ def linear(layer: nn.Linear, x: torch.Tensor, act: Optional[str] = None) -> torc
     both casts are no-ops. ``act="gelu"`` is the exact erf GELU, applied to
     the rounded value.
     """
+    if isinstance(layer, QuantizedLinear):
+        return int4_linear(layer, x, act)
     w = layer.weight
     ct = torch.promote_types(x.dtype, w.dtype)
     b = layer.bias.to(ct) if layer.bias is not None else None
@@ -45,8 +54,8 @@ class MLPSiLU(nn.Module):
         return linear(self.fc2, F.silu(linear(self.fc1, x)))
 
 
-def ffn_gelu(fc1: nn.Linear, fc2: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """Transformer FFN with exact (erf) GELU, float path."""
+def ffn_gelu(fc1: nn.Module, fc2: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Transformer FFN with exact (erf) GELU; float or int4 layers."""
     return linear(fc2, linear(fc1, x, act="gelu"))
 
 
@@ -66,6 +75,17 @@ def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
     p = patch_size
     x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 5, 2, 4)
     return x.reshape(b, (h // p) * (w // p), c * p * p)
+
+
+def unpack_flux(x: torch.Tensor, latent_hw: Tuple[int, int], patch_size: int) -> torch.Tensor:
+    """Inverse of FLUX packing: (B, S, c*p*p) -> (B, H, W, c), feature order
+    (c, ph, pw)."""
+    b, _, f = x.shape
+    p = patch_size
+    h, w = latent_hw[0] // p, latent_hw[1] // p
+    c = f // (p * p)
+    x = x.reshape(b, h, w, c, p, p).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(b, h * p, w * p, c)
 
 
 def unpatchify_sd3(

@@ -2,8 +2,9 @@
 
 Replaces the Pallas kernel
 ``diffusionkit_tpu/ops/flash_attention.py:flash_attention_bshd``, which runs
-the SD3 joint attention (24 heads of d=64 over 1024 + 154 tokens at 512²)
-and the VAE mid-block attention (one head of d=512 over 4096 positions).
+the SD3 joint attention (24 heads of d=64 over 1024 + 154 tokens at 512²),
+FLUX's joint attention (24 heads of d=128 over 256 + 4096 tokens at 1024²)
+and the VAE mid-block attention (one head of d=512).
 The CUDA source is ``csrc/flash_attention.cu``: compute-bound at the SD3
 shape, tensor-core (mma.sync) products with an in-register online softmax,
 the bshd layout read in place through strides; see the note there.
@@ -21,7 +22,7 @@ import torch
 from . import kernels
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (64, 512)
+SUPPORTED_HEAD_DIMS = (64, 128, 512)
 
 
 def flash_attention_bshd_plain(

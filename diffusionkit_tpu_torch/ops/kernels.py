@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into ONE shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
-so the build takes seconds). The build happens at first use, into
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects link into ONE shared library with a plain
+C interface, loaded with ``ctypes`` (no PyTorch headers, so the build takes
+seconds). The build happens at first use, into
 ``diffusionkit_tpu_torch/_build/`` (gitignored), under a name keyed by a
 hash of the sources: an edited source rebuilds, an unchanged one is reused.
 Nothing here runs at import time.
@@ -26,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "dk_mod_ln_bf16": [_P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
     "dk_mod_ln_f32": [_P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
     "dk_flash_attn_bf16": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
+    "dk_int4_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -72,27 +74,56 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
+def _start(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(cmd, proc: subprocess.Popen) -> str:
+    """Wait for one nvcc command; its output, or raise with it on failure."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return out
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists.
 
-    Writes to a temporary name and renames, so another process never
-    loads a half-written library. The compiler's register/shared-memory
-    report goes to ``<library>.log``.
+    One nvcc per source, all started at once, then one link. Writes to
+    temporary names and renames, so another process never loads a
+    half-written library. The compiler's register/shared-memory report goes
+    to ``<library>.log``.
     """
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, CSRC.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, _start(cmd)))
+    tmp = out.with_name(f"{tag}.so.tmp")
+    try:
+        # Every job is waited for, even after one has failed.
+        logs, failed = [], None
+        for cmd, _, proc in jobs:
+            try:
+                logs.append(_wait(cmd, proc))
+            except RuntimeError as e:
+                failed = failed or e
+        if failed:
+            raise failed
+        link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        logs.append(_wait(link, _start(link)))
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -42,6 +42,14 @@ def modulated_layer_norm(
     return layer_norm(x, eps) * (1.0 + residual_scale) + shift
 
 
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm (FLUX QK-norm, T5): fp32 ``x * rsqrt(mean(x^2) + eps)``,
+    rounded to x's dtype, then times ``weight`` (in the promoted dtype)."""
+    x32 = x.float()
+    ms = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps)).to(x.dtype) * weight
+
+
 def group_norm(
     x: torch.Tensor,
     weight: torch.Tensor,

@@ -1,16 +1,20 @@
-"""SD3 txt2img pipeline: text encoding, CFG + Euler denoising, VAE decoding.
+"""txt2img pipelines: text encoding, CFG + Euler denoising, VAE decoding.
 
-Counterpart of ``diffusionkit_tpu/pipeline.py:DiffusionPipeline`` (txt2img).
-The denoise loop is a per-step Python loop that synchronises the device
-after each step, so ``iter_time`` holds real per-step times. Noise is drawn
-with numpy in NCHW and transposed to NHWC, as in the reference, so one seed
-gives the same starting latents in both packages.
+Counterparts of ``diffusionkit_tpu/pipeline.py:DiffusionPipeline`` (SD3,
+txt2img) and ``FluxPipeline`` (FLUX.1: CLIP-L pooled + T5 tokens, the FLUX
+schedule and latent format, FLUX-dev's guidance). The denoise loop is a
+per-step Python loop that synchronises the device after each step, so
+``iter_time`` holds real per-step times. Noise is drawn with numpy in NCHW
+and transposed to NHWC, as in the reference, so one seed gives the same
+starting latents in both packages.
 
-Models are plain attributes (``mmdit``, ``decoder``, ``clip_l``, ``clip_g``
-and the two tokenizers), set by the caller: the checkpoint loaders wait, and
-``models.init_*`` build random ones. Every model stays resident; the
-reference's phase-lazy loading, ``use_scan``, mesh, batch chunking, T5 and
-img2img wait for later slices.
+Models are plain attributes (``mmdit``, ``decoder``, ``clip_l``, ``clip_g``,
+``t5`` and the tokenizers), set by the caller: the checkpoint loaders wait,
+and ``models.init_*`` build random ones. ``quantize_mmdit`` (int4) packs the
+float linears of an assigned MMDiT with the min/max host quantizer; an
+already packed model passes through. Every model stays resident; the
+reference's phase-lazy loading, ``use_scan``, mesh, batch chunking, T5 for
+SD3 and img2img wait for later slices.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ import torch
 
 from .models.clip import CLIPTextModel
 from .models.mmdit import MMDiT
+from .models.t5 import T5Encoder
 from .models.vae import VAEDecoder
-from .sampler import FlowSchedule, ModelSamplingDiscreteFlow
+from .ops.quantized import quantize_module_
+from .sampler import FlowSchedule, FluxSampler, ModelSamplingDiscreteFlow
 from .tokenizer import tokenize_batch
 from .utils import bytes2gigabytes, device_memory_stats, get_logger
 
@@ -43,6 +49,7 @@ class LatentFormat:
 
 
 SD3LatentFormat = partial(LatentFormat, 1.5305, 0.0609)
+FluxLatentFormat = partial(LatentFormat, 0.3611, 0.1159)
 
 
 def _sync(device: torch.device) -> None:
@@ -59,12 +66,13 @@ def _cfg_euler_step(
     pooled: torch.Tensor,
     cfg_weight: float,
     cfg_on: bool,
+    guidance: Optional[float] = None,
 ) -> torch.Tensor:
     """One CFG + Euler step on fp32 latents x (N, H, W, C).
 
     With CFG the model batch is [x, x] against conditioning rows
     [positive, negative]. All scalars are fp32 values, as on the reference's
-    device.
+    device. ``guidance`` (FLUX-dev) is broadcast over the model batch.
     """
     n = x.shape[0]
     xin = torch.cat([x, x]) if cfg_on else x
@@ -72,7 +80,9 @@ def _cfg_euler_step(
         (xin.shape[0],), float(np.float32(sigma) * np.float32(1000.0)),
         dtype=torch.float32, device=x.device,
     )
-    out = model(xin, conditioning, pooled, timestep).float()
+    g = None if guidance is None else torch.full(
+        (xin.shape[0],), float(np.float32(guidance)), dtype=torch.float32, device=x.device)
+    out = model(xin, conditioning, pooled, timestep, g).float()
     denoised = xin - out * float(sigma)
     if cfg_on:
         eps_text, eps_neg = denoised[:n], denoised[n:]
@@ -110,24 +120,43 @@ class DiffusionPipeline:
     latent_size, seed, verbose)`` plus the ``encode_text`` /
     ``denoise_latents`` phase methods. The models carry their own weight
     dtypes; ``a16`` selects bf16 VAE activations; ``shift=3.0`` is the SD3
-    production schedule."""
+    production schedule. ``quantize_mmdit`` (True or "int4") packs the
+    assigned MMDiT's eligible float linears at group ``quantize_group_size``
+    (the reference's int4 quantize-at-load, with the min/max grid until GPTQ
+    is ported)."""
 
     def __init__(
         self,
         shift: float = 3.0,
         a16: bool = True,
         device="cuda",
+        quantize_mmdit=False,
+        quantize_group_size: int = 32,
     ):
+        if quantize_mmdit not in (False, True, "int4"):
+            raise NotImplementedError(f"quantize_mmdit={quantize_mmdit!r}: only int4 is ported")
         self.device = torch.device(device)
         self.activation_dtype = torch.bfloat16 if a16 else torch.float32
         self.sampler: FlowSchedule = ModelSamplingDiscreteFlow(shift=shift)
         self.latent_format = SD3LatentFormat()
-        self.mmdit: Optional[MMDiT] = None
+        self.quantize_mmdit = bool(quantize_mmdit)
+        self.quantize_group_size = quantize_group_size
+        self._mmdit: Optional[MMDiT] = None
         self.decoder: Optional[VAEDecoder] = None
         self.clip_l: Optional[CLIPTextModel] = None
         self.clip_g: Optional[CLIPTextModel] = None
         self.tokenizer_l = None
         self.tokenizer_g = None
+
+    @property
+    def mmdit(self) -> Optional[MMDiT]:
+        return self._mmdit
+
+    @mmdit.setter
+    def mmdit(self, model: Optional[MMDiT]) -> None:
+        if model is not None and self.quantize_mmdit:
+            quantize_module_(model, self.quantize_group_size)
+        self._mmdit = model
 
     # -- text encoding -------------------------------------------------------
 
@@ -172,7 +201,10 @@ class DiffusionPipeline:
         cfg_weight: float = 0.0,
         latent_size: Tuple[int, int] = (64, 64),
         seed=None,
+        guidance: Optional[float] = None,
     ) -> Tuple[torch.Tensor, List[float]]:
+        """``guidance``: FLUX-dev's distilled guidance scale (3.5 when not
+        given); ignored by models without a guidance embedding."""
         seed = int(time.time()) if seed is None else int(seed)
         logger.info("Seed: %s", seed)
         x_T = self.get_empty_latent(*latent_size)
@@ -188,13 +220,16 @@ class DiffusionPipeline:
         conditioning, pooled_conditioning = _prep_conditioning(
             conditioning, pooled_conditioning, cfg_on, self.mmdit.config.dtype
         )
+        g = None
+        if self.mmdit.config.guidance_embed:
+            g = 3.5 if guidance is None else guidance
         x = torch.from_numpy(noise_scaled).to(self.device)
         iter_time: List[float] = []
         for i in range(len(sigmas) - 1):
             t0 = time.perf_counter()
             x = _cfg_euler_step(
                 self.mmdit, x, sigmas[i], sigmas[i + 1], conditioning,
-                pooled_conditioning, cfg_weight, cfg_on,
+                pooled_conditioning, cfg_weight, cfg_on, g,
             )
             _sync(self.device)
             iter_time.append(time.perf_counter() - t0)
@@ -276,3 +311,38 @@ class DiffusionPipeline:
             logger.info("Total time: %.3fs, peak memory %.3f GB",
                         log["total_time"], log["peak_memory"])
         return Image.fromarray(x[0]), log
+
+
+class FluxPipeline(DiffusionPipeline):
+    """FLUX.1 txt2img: CLIP-L pooled output and T5 token embeddings (no
+    CLIP-G), positive row only, T5 tokens zero-padded to ``t5_max_length``
+    (256 for FLUX.1-schnell, 512 for FLUX.1-dev); the FLUX sigma schedule
+    (``shift=1.0``) and latent format."""
+
+    def __init__(
+        self,
+        shift: float = 1.0,
+        a16: bool = True,
+        device="cuda",
+        quantize_mmdit=False,
+        quantize_group_size: int = 32,
+        t5_max_length: int = 256,
+    ):
+        super().__init__(shift=shift, a16=a16, device=device, quantize_mmdit=quantize_mmdit,
+                         quantize_group_size=quantize_group_size)
+        self.sampler = FluxSampler(shift=shift)
+        self.latent_format = FluxLatentFormat()
+        self.t5_max_length = t5_max_length
+        self.t5: Optional[T5Encoder] = None
+        self.t5_tokenizer = None
+
+    @torch.inference_mode()
+    def encode_text(self, text: str, cfg_weight: float = 7.5, negative_text: str = ""):
+        neg = negative_text if cfg_weight > 1 else None
+        tokens_l = tokenize_batch(self.tokenizer_l, text, neg)[:1]
+        pooled = self.clip_l(torch.from_numpy(tokens_l).to(self.device, torch.long)).pooled_output
+        tokens_t5 = tokenize_batch(self.t5_tokenizer, text, neg)
+        padded = np.zeros((1, self.t5_max_length), dtype=np.int64)
+        padded[:, : tokens_t5.shape[1]] = tokens_t5[:1]
+        conditioning = self.t5(torch.from_numpy(padded).to(self.device))
+        return conditioning, pooled

@@ -1,9 +1,9 @@
-"""CLIP byte-pair-encoding tokenizer (host numpy).
+"""CLIP byte-pair-encoding and T5 tokenizers (host code).
 
-A copy of the CLIP half of ``diffusionkit_tpu/tokenizer.py``; the T5 wrapper
-waits for the FLUX / T5 slice. ``synthetic_clip_vocab`` builds the 49408-entry
-character-level vocabulary that stands in for the real one when no tokenizer
-files are on the machine.
+A copy of ``diffusionkit_tpu/tokenizer.py``. ``synthetic_clip_vocab`` builds
+the 49408-entry character-level vocabulary and ``SyntheticT5Tokenizer`` the
+T5 ids that stand in for the real tokenizers when no tokenizer files are on
+the machine.
 """
 
 from __future__ import annotations
@@ -149,6 +149,53 @@ def synthetic_clip_vocab(size: int = 49408) -> Dict[str, int]:
         vocab[f"<fill{i}>"] = len(vocab)
         i += 1
     return vocab
+
+
+class T5TokenizerWrapper:
+    """T5 sentencepiece tokenizer through ``transformers`` (imported here, so
+    this module imports without it): ids truncated to ``max_length`` with EOS
+    appended, padding id 0."""
+
+    def __init__(self, path_or_repo: str = "google/t5-v1_1-xxl", max_length: int = 256):
+        from transformers import AutoTokenizer
+
+        self.max_length = max_length
+        self._tok = AutoTokenizer.from_pretrained(
+            path_or_repo, legacy=False, model_max_length=max_length
+        )
+        self.pad_with_eos = False
+
+    @property
+    def eos_token(self) -> int:
+        return self._tok.eos_token_id
+
+    @property
+    def pad_token(self) -> int:
+        return 0
+
+    def tokenize(self, text: str) -> List[int]:
+        return list(self._tok(text, return_attention_mask=False, max_length=self.max_length,
+                              truncation=True)["input_ids"])
+
+
+class SyntheticT5Tokenizer:
+    """A deterministic stand-in for the T5 sentencepiece tokenizer, used until
+    the sentencepiece model is on the machine: one id per character in the
+    32128-entry T5 vocabulary (ids 3 and up; 0 is padding, 1 EOS, 2 unknown),
+    truncated to ``max_length`` with EOS appended, as the real tokenizer
+    truncates."""
+
+    pad_with_eos = False
+    pad_token = 0
+    eos_token = 1
+
+    def __init__(self, max_length: int = 256, vocab_size: int = 32128):
+        self.max_length = max_length
+        self.vocab_size = vocab_size
+
+    def tokenize(self, text: str) -> List[int]:
+        ids = [3 + ord(c) % (self.vocab_size - 3) for c in text[: self.max_length - 1]]
+        return ids + [self.eos_token]
 
 
 def tokenize_batch(

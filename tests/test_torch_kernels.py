@@ -21,15 +21,22 @@ from diffusionkit_tpu_torch.ops.flash_attention import (
     flash_attention_bshd_plain,
 )
 from diffusionkit_tpu_torch.ops.fused_quant import mod_ln, mod_ln_plain
+from diffusionkit_tpu_torch.ops.int4_matmul import dequantize_int4, int4_matmul
 
 torch.set_num_threads(1)
 
 # Main-path shapes of SD3-medium at 512² with CFG (batch 2): AdaLN sites on
 # the image (1024 tokens) and text (154 tokens) streams, the joint attention
 # (1024 + 154 tokens, 24 heads of 64) and the VAE mid-block (64x64 positions,
-# one head of 512). Plus small ragged shapes.
+# one head of 512); FLUX.1 at 1024²: the joint attention (256 + 4096 tokens,
+# 24 heads of 128). Plus small ragged shapes.
 MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536), (1, 37, 256)]
-FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512), (1, 77, 3, 64), (2, 300, 1, 512)]
+FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512), (1, 77, 3, 64), (2, 300, 1, 512),
+                (1, 4352, 24, 128), (1, 77, 3, 128)]
+# (M, K, N, group) of kernel C: FLUX's unified-block q and fc2, an `ada`
+# GEMV, the text stream at group 32, and ragged M at two tile heights.
+INT4_SHAPES = [(4352, 3072, 3072, 64), (4352, 12288, 3072, 64), (1, 3072, 18432, 64),
+               (256, 3072, 3072, 32), (77, 512, 256, 64), (1300, 1024, 384, 128)]
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -65,7 +72,8 @@ def test_kernel_library_is_keyed_by_source_hash():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR
     assert kernels.source_hash() in path.name
-    assert {p.name for p in kernels.CSRC.glob("*.cu")} >= {"mod_ln.cu", "flash_attention.cu"}
+    assert {p.name for p in kernels.CSRC.glob("*.cu")} >= {"mod_ln.cu", "flash_attention.cu",
+                                                             "int4_matmul.cu"}
 
 
 @pytest.fixture
@@ -134,7 +142,7 @@ def test_flash_kernel_reads_strided_heads_in_place(cuda):
 
 @pytest.mark.gpu
 def test_kernel_wrappers_raise_on_unsupported_input(cuda):
-    q = torch.zeros(1, 8, 2, 128, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(1, 8, 2, 256, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_bshd(q, q, q, 0.1)
     q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
@@ -170,3 +178,74 @@ def test_sdpa_auto_takes_the_kernel_on_the_card(cuda):
         sdpa(short_q, short_q, short_q, 0.125, impl="flash"),
         xla_sdpa(short_q.float(), short_q.float(), short_q.float(), 0.125),
     )
+    # d=128 (FLUX) takes the kernel; d=256 passes the reference's flash
+    # predicate but kernel B does not take it: it raises, never falls back.
+    q128 = torch.randn(1, 1100, 2, 128, generator=g, device=cuda).bfloat16()
+    sdpa(q128, q128, q128, 0.1)
+    assert flash_attention_bshd.launches == launches + 3
+    q256 = torch.zeros(1, 1100, 1, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        sdpa(q256, q256, q256, 0.1)
+
+
+def random_int4(k, n, group, gen, device):
+    """Random packed words, and scales/zeros giving weights of about
+    +-1/sqrt(K), like a trained layer's."""
+    q4 = torch.randint(-(2**31), 2**31, (k // 8, n), generator=gen, device=device,
+                       dtype=torch.int32)
+    scales = (torch.rand(k // group, n, generator=gen, device=device) + 0.5) * (2 / 15 / k**0.5)
+    zeros = -(torch.rand(k // group, n, generator=gen, device=device) + 0.5) / k**0.5
+    return q4, scales, zeros
+
+
+def assert_int4_close(x, q4, scales, zeros, got):
+    """Kernel C against fp32 math on the same bf16-rounded weights, per
+    element: one bf16 ulp (the output rounding, across a binade edge) plus
+    twice the worst-case fp32 summation error of K terms, K * 2^-24 *
+    (|x| @ |w|), since the kernel and the reference sum in other orders."""
+    w = dequantize_int4(q4, scales, zeros, torch.bfloat16).float()
+    want = x.float() @ w
+    slack = 2 * x.shape[1] * 2.0**-24 * (x.float().abs() @ w.abs())
+    diff = (got.float() - want).abs()
+    assert torch.all(diff <= bf16_ulp(want) + slack), (diff / (bf16_ulp(want) + slack)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", INT4_SHAPES)
+def test_int4_kernel_matches_plain(cuda, shape):
+    m, k, n, group = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q4, scales, zeros = random_int4(k, n, group, g, cuda)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    launches = int4_matmul.launches
+    got = int4_matmul(x, q4, scales, zeros)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert_int4_close(x, q4, scales, zeros, got)
+
+
+@pytest.mark.gpu
+def test_int4_kernel_reads_strided_rows_in_place(cuda):
+    """x as the image rows of a wider activation (a row stride above K)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q4, scales, zeros = random_int4(512, 256, 64, g, cuda)
+    wide = torch.randn(300, 640, generator=g, device=cuda).bfloat16()
+    x = wide[:, 64:576]
+    assert x.stride(0) == 640
+    assert torch.equal(int4_matmul(x, q4, scales, zeros), int4_matmul(x.contiguous(), q4, scales, zeros))
+
+
+@pytest.mark.gpu
+def test_int4_wrapper_raises_on_unsupported_input(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q4, scales, zeros = random_int4(512, 256, 64, g, cuda)
+    x = torch.randn(8, 512, generator=g, device=cuda)
+    with pytest.raises(TypeError):
+        int4_matmul(x, q4, scales, zeros)  # fp32 x
+    x = x.bfloat16()
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int4_matmul(x, q4[:, :200], scales[:, :200], zeros[:, :200])
+    q16, s16, z16 = random_int4(512, 256, 16, g, cuda)
+    with pytest.raises(ValueError, match="group size"):
+        int4_matmul(x, q16, s16, z16)

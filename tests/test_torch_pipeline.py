@@ -158,9 +158,9 @@ def test_port_never_imports_jax():
         "import diffusionkit_tpu_torch\n"
         "from diffusionkit_tpu_torch import config, convert, flops, pipeline, sampler, "
         "tokenizer, utils\n"
-        "from diffusionkit_tpu_torch.models import clip, mmdit, vae\n"
+        "from diffusionkit_tpu_torch.models import clip, mmdit, t5, vae\n"
         "from diffusionkit_tpu_torch.ops import attention, common, flash_attention, "
-        "fused_quant, kernels, norms\n"
+        "fused_quant, int4_matmul, kernels, norms, quantized, rope\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'diffusionkit_tpu.')))\n"
         "assert not bad, bad\n"
     )
