@@ -13,10 +13,15 @@ Phases, each raising on failure (the script then exits non-zero):
      and the int4 dequant-matmul at the FLUX shapes;
   4. each kernel's device time against its plain version's (CUDA graph
      replays timed with CUDA events);
+  3-4b. the w4a8 kernels (mod_ln_quantize, quantize and w4a8_matmul in its
+     four modes) against their plain versions run on the card on the same
+     inputs, at the FLUX w4a8 shapes plus M=1, a ragged M and group 32, and
+     their device times beside the plain versions' and kernel C's at the
+     same (M, K, N);
   5. reduced-depth, full-width MMDiTs in bf16 on the card (kernels on)
      against the same weights in fp32 on the CPU (plain path): SD3-medium
-     (2 blocks) and FLUX.1-schnell int4 (1 dual-stream + 2 single-stream
-     blocks);
+     (2 blocks), FLUX.1-schnell int4 and FLUX.1-schnell w4a8 (1 dual-stream
+     + 2 single-stream blocks each);
   6. the main paths, with random weights from a seed, each serving two
      requests through generate_image and repeating the first through the
      phase methods (the repeat must give the identical image, the two
@@ -27,6 +32,10 @@ Phases, each raising on failure (the script then exits non-zero):
      b. FLUX.1-schnell int4 (19 + 38 blocks, hidden 3072, int4 block linears
         at group 64), T5-XXL, CLIP-L and the VAE decoder in bf16: 1024²,
         4 Euler steps, no CFG;
+     c. FLUX.1-schnell w4a8, the FLUX serving configuration: a freshly drawn
+        packed model given to FluxPipeline(quantize_mmdit="w4a8"), which adds
+        the per-channel wscale; b's T5-XXL, CLIP-L, VAE and tokenizers;
+        kernel C must not run;
   7. two denoise steps of each path under torch.profiler: device-busy time
      per step by kernel family and the device's idle share; for FLUX also
      the text encoding (T5-XXL and CLIP-L).
@@ -63,8 +72,17 @@ from diffusionkit_tpu_torch.ops.flash_attention import (
     flash_attention_bshd,
     flash_attention_bshd_plain,
 )
-from diffusionkit_tpu_torch.ops.fused_quant import mod_ln, mod_ln_plain
+from diffusionkit_tpu_torch.ops.fused_quant import (
+    mod_ln,
+    mod_ln_plain,
+    mod_ln_quantize,
+    mod_ln_quantize_plain,
+    quantize,
+    quantize_plain,
+)
 from diffusionkit_tpu_torch.ops.int4_matmul import dequantize_int4, int4_matmul, int4_matmul_plain
+from diffusionkit_tpu_torch.ops.quantized import QuantizedLinear, add_wscale_, wscale_from_q4
+from diffusionkit_tpu_torch.ops.w4a8_matmul import MODES, w4a8_matmul, w4a8_matmul_plain
 from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline
 from diffusionkit_tpu_torch.tokenizer import (
     CLIPTokenizer,
@@ -79,9 +97,17 @@ KERNELS = {
                              "diffusionkit_tpu/ops/flash_attention.py:343"),
     "int4_matmul": ("diffusionkit_tpu_torch/csrc/int4_matmul.cu",
                     "diffusionkit_tpu/ops/int4_matmul.py:74"),
+    "mod_ln_quantize": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
+                        "diffusionkit_tpu/ops/fused_quant.py:313"),
+    "quantize": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
+                 "diffusionkit_tpu/ops/fused_quant.py:246"),
+    **{f"w4a8_matmul[{mode}]": ("diffusionkit_tpu_torch/csrc/w4a8_matmul.cu",
+                                "diffusionkit_tpu/ops/w4a8_matmul.py:268")
+       for mode in MODES},
 }
 COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
-           "int4_matmul": int4_matmul}
+           "int4_matmul": int4_matmul, "mod_ln_quantize": mod_ln_quantize,
+           "quantize": quantize}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +130,7 @@ FLUX = Path("flux", 4, 0.0, (128, 128), 256, (
     ("a photo of a red fox in the snow, morning light", 3),
     ("an isometric illustration of a tiny island city", 11),
 ))
+FLUX_W4A8 = dataclasses.replace(FLUX, name="flux-w4a8")
 
 MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536)]  # SD3 image / text stream sites
 # SD3 joint attention / VAE mid-block at 512² / FLUX joint attention at 1024².
@@ -118,6 +145,42 @@ FLASH_RAGGED = [(1, 77, 3, 64), (1, 77, 3, 128)]
 INT4_SHAPES = [(4352, 3072, 3072, 64), (4352, 3072, 12288, 64), (4352, 12288, 3072, 64),
                (256, 3072, 3072, 64), (1, 3072, 18432, 64), (4352, 3072, 3072, 32)]
 INT4_RAGGED = [(77, 3072, 3072, 64)]
+# Kernels A' (B, S, H) and D (M, K) at the FLUX w4a8 shapes: the AdaLN sites
+# of the image stream, the text stream and the unified blocks; the `ada`
+# input silu(c) and the `o` inputs. A ragged S of 77 is checked, not timed.
+MOD_LN_QUANT_SHAPES = [(1, 4096, 3072), (1, 256, 3072), (1, 4352, 3072)]
+QUANTIZE_SHAPES = [(1, 3072), (4096, 3072), (256, 3072), (4352, 3072)]
+QUANT_RAGGED = [(1, 77, 3072)]
+# (M, K, N, group) of kernel E by mode on the FLUX w4a8 path: `ada` GEMVs
+# (dual and single), v/o of the image stream and the unified blocks, the
+# text stream; q/k; fc1; fc2; the quantize-at-load group 32 at one shape of
+# each mode. Ragged M (checked, not timed) in W4A8_RAGGED.
+W4A8_SHAPES = {
+    "plain": [(1, 3072, 18432, 64), (1, 3072, 9216, 64), (4096, 3072, 3072, 64),
+              (4352, 3072, 3072, 64), (256, 3072, 3072, 64), (4352, 3072, 3072, 32)],
+    "norm_rope": [(4096, 3072, 3072, 64), (4352, 3072, 3072, 64), (4352, 3072, 3072, 32)],
+    "gelu_quant": [(4096, 3072, 12288, 64), (256, 3072, 12288, 64), (4352, 3072, 12288, 64),
+                   (4352, 3072, 12288, 32)],
+    "grouped_xs": [(4096, 12288, 3072, 64), (256, 12288, 3072, 64), (4352, 12288, 3072, 64),
+                   (4352, 12288, 3072, 32)],
+}
+W4A8_RAGGED = {"plain": [(77, 3072, 3072, 64)], "norm_rope": [(77, 3072, 3072, 64)],
+               "gelu_quant": [(77, 3072, 12288, 64)], "grouped_xs": [(77, 12288, 3072, 64)]}
+# Tolerances of the w4a8 kernels against their plain versions on the card:
+# - plain and grouped_xs: bit-identical (the int32 products are exact and
+#   the fp32 epilogue runs in the same order, each step rounded);
+# - norm_rope: one bf16 ulp of the plain output plus 2^-21 of the largest
+#   |output| per element (the order of the 128-term mean and rsqrt's last
+#   bits move the fp32 terms by ~1e-7 relative, which crosses a bf16
+#   rounding boundary now and then, and a near-zero rotated output
+#   x1 cos - x2 sin keeps the terms' absolute error: 209 of 13.4M elements
+#   differed at (4352, 3072, 3072), the worst by 3e-8 at |out| ~ 4e-6);
+# - gelu_quant: y8 one step apart on at most 0.1 % of the elements (exp's
+#   last bit), scales within 1e-6 relative;
+# - mod_ln_quantize: x8 one step apart on at most 1 % (the LayerNorm's fp32
+#   sums in another order; rsqrt correctly rounded), scales within 1e-5;
+# - quantize: bit-identical (max, IEEE division and round-half-even).
+INT8_FLIP_SHARE = {"gelu_quant": 1e-3, "mod_ln_quantize": 1e-2}
 # Kernel B against fp32 math, per element: one bf16 ulp of the exact value
 # (half for the output rounding, half for crossing a binade) plus 2^-8 of
 # the largest |output| for P rounded to bf16 before P.V. The same numerics
@@ -181,10 +244,14 @@ def device_ms(fn, reps: int = 20) -> float:
 def reset_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
+    w4a8_matmul.launches = 0
+    w4a8_matmul.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    out = {name: fn.launches for name, fn in COUNTED.items()}
+    out.update({f"w4a8_matmul[{m}]": n for m, n in w4a8_matmul.mode_launches.items()})
+    return out
 
 
 def random_int4(shape, gen):
@@ -303,24 +370,165 @@ def time_kernels(mod, flash, int4, tag: str) -> dict:
     return times
 
 
+def random_w4a8(k, n, group, gen) -> QuantizedLinear:
+    """A packed layer with random words and scales/zeros as random_int4's,
+    its exact per-channel wscale and a random bf16 bias."""
+    _, q4, scales, zeros = random_int4((1, k, n, group), gen)
+    layer = QuantizedLinear(k, n, group, dtype=torch.bfloat16, device="cuda")
+    layer.q4.copy_(q4)
+    layer.scales.copy_(scales)
+    layer.zeros.copy_(zeros)
+    layer.bias.copy_(0.1 * torch.randn(n, generator=gen, device="cuda"))
+    layer.wscale = wscale_from_q4(layer)
+    return layer
+
+
+def w4a8_case(mode, shape, gen):
+    """Inputs of one kernel E call: int8 activations as kernels A'/D give
+    them, per-row scales (per (row, 512-k group) for grouped_xs), and for
+    norm_rope a bf16 norm weight and (S, 64) fp32 RoPE tables."""
+    m, k, n, group = shape
+    layer = random_w4a8(k, n, group, gen)
+    x8 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    cols = k // 512 if mode == "grouped_xs" else 1
+    xs = (torch.rand(m, cols, generator=gen, device="cuda") + 0.5) / (127 * k**0.5)
+    extra = {}
+    if mode == "norm_rope":
+        ang = torch.rand(m, 64, generator=gen, device="cuda") * 6.28
+        extra = dict(norm_w=(torch.rand(128, generator=gen, device="cuda") + 0.5).bfloat16(),
+                     cos=torch.cos(ang), sin=torch.sin(ang))
+    args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias)
+    return args, extra
+
+
+def int8_flips(got8, want8) -> tuple:
+    diff = (got8.int() - want8.int()).abs()
+    return diff.max().item(), (diff > 0).float().mean().item()
+
+
+def check_w4a8_result(mode, got, want, label) -> float:
+    """Hold one kernel E result against its plain version (tolerances at
+    W4A8_SHAPES); returns the max abs error."""
+    if mode == "gelu_quant":
+        worst, share = int8_flips(got[0], want[0])
+        srel = ((got[1] - want[1]).abs() / want[1]).max().item()
+        ok = worst <= 1 and share <= INT8_FLIP_SHARE[mode] and srel <= 1e-6
+        log(f"  w4a8_matmul[{mode}] {label}: y8 max step {worst}, on {share!r} of the "
+            f"elements (<= 1 on <= {INT8_FLIP_SHARE[mode]}); scales max rel {srel!r} (<= 1e-6): "
+            f"{'ok' if ok else 'FAIL'}")
+        err = float(worst)
+    elif mode == "norm_rope":
+        want = want.float()
+        diff = (got.float() - want).abs()
+        ratio = (diff / (bf16_ulp(want) + 2.0**-21 * want.abs().max())).max().item()
+        ok = ratio <= 1 and bool(torch.isfinite(got).all())
+        err = diff.max().item()
+        log(f"  w4a8_matmul[{mode}] {label}: max_abs_err {err!r}, worst element at {ratio!r} "
+            f"of one bf16 ulp + 2^-21 max|out|: {'ok' if ok else 'FAIL'}")
+    else:
+        ok = got.dtype == torch.bfloat16 and torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"  w4a8_matmul[{mode}] {label}: bit-identical to its plain version: "
+            f"{'ok' if ok else 'FAIL'} (max_abs_err {err!r})")
+    if not ok:
+        raise AssertionError(f"w4a8_matmul[{mode}] {label} disagrees with its plain version")
+    return err
+
+
+def w4a8_kernels(gen, tag: str):
+    """Phases 3-4b: kernels A', D and E against their plain versions on the
+    card, then each one's device time beside its plain version's (and, for
+    E, kernel C's at the same (M, K, N)). One shape's inputs at a time."""
+    errs = {name: [] for name in KERNELS if name.startswith(("w4a8", "mod_ln_q", "quantize"))}
+    times = {name: [] for name in errs}
+    for shape in MOD_LN_QUANT_SHAPES + QUANT_RAGGED:
+        b, s_, h = shape
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+        vec = torch.randn(b, 6 * h, generator=gen, device="cuda").bfloat16()
+        sh, sc = vec[:, None, :h], vec[:, None, h : 2 * h]
+        got, want = mod_ln_quantize(x, sh, sc), mod_ln_quantize_plain(x, sh, sc)
+        torch.cuda.synchronize()
+        worst, share = int8_flips(got.x8, want.x8)
+        srel = ((got.xscale - want.xscale).abs() / want.xscale).max().item()
+        ok = worst <= 1 and share <= INT8_FLIP_SHARE["mod_ln_quantize"] and srel <= 1e-5
+        log(f"  mod_ln_quantize {shape}: x8 max step {worst} on {share!r} of the elements "
+            f"(<= 1 on <= 0.01), scales max rel {srel!r} (<= 1e-5): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mod_ln_quantize {shape} disagrees with its plain version")
+        errs["mod_ln_quantize"].append(float(worst))
+        if shape in MOD_LN_QUANT_SHAPES:
+            ms = device_ms(lambda: mod_ln_quantize(x, sh, sc))
+            plain = device_ms(lambda: mod_ln_quantize_plain(x, sh, sc))
+            moved = x.numel() * 3
+            log(f"  mod_ln_quantize {shape}: kernel {ms!r} ms ({moved / ms / 1e9!r} TB/s), "
+                f"plain {plain!r} ms [{tag}]")
+            times["mod_ln_quantize"].append((shape, ms, plain))
+    for shape in QUANTIZE_SHAPES:
+        y = (torch.randn(shape, generator=gen, device="cuda") * 3).bfloat16()
+        got, want = quantize(y), quantize_plain(y)
+        torch.cuda.synchronize()
+        ok = torch.equal(got.x8, want.x8) and torch.equal(got.xscale, want.xscale)
+        log(f"  quantize {shape}: bit-identical to its plain version: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"quantize {shape} disagrees with its plain version")
+        errs["quantize"].append(0.0)
+        ms, plain = device_ms(lambda: quantize(y)), device_ms(lambda: quantize_plain(y))
+        log(f"  quantize {shape}: kernel {ms!r} ms ({y.numel() * 3 / ms / 1e9!r} TB/s), "
+            f"plain {plain!r} ms [{tag}]")
+        times["quantize"].append((shape, ms, plain))
+    for mode in MODES:
+        name = f"w4a8_matmul[{mode}]"
+        for shape in W4A8_SHAPES[mode] + W4A8_RAGGED[mode]:
+            args, extra = w4a8_case(mode, shape, gen)
+            got = w4a8_matmul(*args, mode=mode, **extra)
+            torch.cuda.synchronize()
+            want = w4a8_matmul_plain(*args, mode=mode, **extra)
+            errs[name].append(check_w4a8_result(mode, got, want, f"(M, K, N, group) {shape}"))
+            del got, want
+            if shape not in W4A8_SHAPES[mode]:
+                continue
+            m, k, n, group = shape
+            ms = device_ms(lambda: w4a8_matmul(*args, mode=mode, **extra))
+            plain = device_ms(lambda: w4a8_matmul_plain(*args, mode=mode, **extra), reps=5)
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            c_ms = device_ms(lambda: int4_matmul(x, *args[1:4]))
+            tops = 2 * m * k * n / (ms / 1e3) / 1e12
+            log(f"  {name} (M, K, N, group) {shape}: kernel {ms!r} ms ({tops!r} TOP/s, "
+                f"{args[1].numel() * 4 / ms / 1e9!r} TB/s of packed weight), plain {plain!r} ms, "
+                f"kernel C at this shape {c_ms!r} ms [{tag}]")
+            times[name].append((shape, ms, plain, c_ms))
+            del args, extra, x
+        torch.cuda.empty_cache()
+    return errs, times
+
+
 def reference_check(cfg, inputs, want_counts: dict, label: str, gen,
-                    quantize_bits=None) -> None:
+                    quantize_bits=None, w4a8=False) -> None:
     """Phase 5: a full-width, reduced-depth MMDiT in bf16 with the kernels on
-    the card against the same weights in fp32 on the CPU (plain path)."""
+    the card against the same weights (and, for w4a8, the same wscale) in
+    fp32 on the CPU (plain path). A counter the check does not name must
+    stay at 0."""
     model = init_mmdit(cfg, gen, "cuda", quantize_bits=quantize_bits)
+    if w4a8:
+        add_wscale_(model)
     with torch.device("meta"):
         ref = MMDiT(dataclasses.replace(cfg, dtype=torch.float32),
                     quantize_group_size=64 if quantize_bits else None)
     ref.to_empty(device="cpu")
+    if w4a8:
+        for layer in ref.modules():
+            if isinstance(layer, QuantizedLinear):
+                layer.wscale = torch.empty(layer.out_features)
     ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     reset_counts()
     with torch.inference_mode():
         got = model(*(t.cuda() for t in inputs)).float().cpu()
         have = counts()
         want = ref(*inputs)
-    for name, n in want_counts.items():
-        if have[name] != n:
-            raise AssertionError(f"{label}: {name} launched {have[name]} times, expected {n}")
+    for name in have:
+        if have[name] != want_counts.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {have[name]} times, expected "
+                                 f"{want_counts.get(name, 0)}")
     rel = ((got - want).norm() / want.norm()).item()
     log(f"  {label}: bf16+kernels vs fp32 CPU: relative L2 error {rel!r} "
         f"(tolerance {REF_RTOL}), finite {bool(torch.isfinite(got).all())}, launches {have}")
@@ -348,6 +556,23 @@ def reference_checks(gen) -> None:
                                    "int4_matmul": 2 * 7 + 2 * 7},
                     "FLUX.1-schnell int4 MMDiT 1 dual + 2 single blocks x hidden 3072, 512²",
                     gen, quantize_bits=4)
+    # The same at w4a8: per dual block plain 8 (ada x2, v and o of the image
+    # stream, the text stream's q/k/v/o), norm_rope 2, gelu_quant 2,
+    # grouped_xs 2; per single block 3 (ada, v, o), 2, 1, 1; kernel D before
+    # each ada and o; kernel A' at each quantizing AdaLN site; kernel A in
+    # the final layer only; no kernel C.
+    want = per_block_w4a8(1, 2)
+    want.update({"mod_ln": 1, "flash_attention_bshd": 3})
+    reference_check(flux, inputs, want,
+                    "FLUX.1-schnell w4a8 MMDiT 1 dual + 2 single blocks x hidden 3072, 512²",
+                    gen, quantize_bits=4, w4a8=True)
+
+
+def per_block_w4a8(dual: int, uni: int) -> dict:
+    """Launches of the w4a8 kernels in one forward of dual + uni blocks."""
+    return {"w4a8_matmul[plain]": 8 * dual + 3 * uni, "w4a8_matmul[norm_rope]": 2 * dual + 2 * uni,
+            "w4a8_matmul[gelu_quant]": 2 * dual + uni, "w4a8_matmul[grouped_xs]": 2 * dual + uni,
+            "quantize": 4 * dual + 2 * uni, "mod_ln_quantize": 4 * dual + uni}
 
 
 def per_request_launches(path: Path, cfg) -> dict:
@@ -355,7 +580,14 @@ def per_request_launches(path: Path, cfg) -> dict:
     one flash call per block, the AdaLN sites (4 a dual block with a text
     MLP, 3 in SD3's K/V-only last block, 1 a single-stream block, 1 the final
     layer), and for the int4 model the 7 block linears of each stream
-    (q, k, v, o, fc1, fc2, ada); plus the VAE mid-block's attention."""
+    (q, k, v, o, fc1, fc2, ada); for the w4a8 model per_block_w4a8 and
+    kernel A in the final layer only; plus the VAE mid-block's attention. A
+    kernel a path must not run has 0 (kernel C on the w4a8 path)."""
+    if path is FLUX_W4A8:
+        dual, uni = cfg.depth_multimodal, cfg.depth_unified
+        per = {k: path.steps * v for k, v in per_block_w4a8(dual, uni).items()}
+        return {**per, "mod_ln": path.steps, "int4_matmul": 0,
+                "flash_attention_bshd": path.steps * (dual + uni) + 1}
     if path is FLUX:
         dual, uni = cfg.depth_multimodal, cfg.depth_unified
         return {"mod_ln": path.steps * (4 * dual + uni + 1),
@@ -367,7 +599,7 @@ def per_request_launches(path: Path, cfg) -> dict:
             "int4_matmul": 0}
 
 
-def build_sd3(gen) -> DiffusionPipeline:
+def build_sd3(gen, _prev) -> DiffusionPipeline:
     pipe = DiffusionPipeline(device="cuda")
     pipe.mmdit = init_mmdit(SD3_2b, gen, "cuda")
     pipe.clip_l = init_clip(CLIP_L, gen, "cuda", dtype=torch.bfloat16)
@@ -379,7 +611,7 @@ def build_sd3(gen) -> DiffusionPipeline:
     return pipe
 
 
-def build_flux(gen) -> FluxPipeline:
+def build_flux(gen, _prev) -> FluxPipeline:
     """FLUX.1-schnell with int4 block linears drawn packed (group 64, as the
     MLX 4-bit file), T5-XXL, CLIP-L and the VAE decoder, all in bf16."""
     pipe = FluxPipeline(device="cuda")
@@ -389,6 +621,24 @@ def build_flux(gen) -> FluxPipeline:
     pipe.decoder = init_vae_decoder(VAEDecoderConfig(), gen, "cuda", dtype=torch.bfloat16)
     pipe.tokenizer_l = CLIPTokenizer({}, synthetic_clip_vocab(), pad_with_eos=True)
     pipe.t5_tokenizer = SyntheticT5Tokenizer(max_length=256)
+    return pipe
+
+
+def build_flux_w4a8(gen, prev: FluxPipeline) -> FluxPipeline:
+    """FLUX.1-schnell w4a8: a freshly drawn packed model (group 64) given to
+    FluxPipeline(quantize_mmdit="w4a8"), which passes it through and adds
+    each packed linear's exact wscale on the card; the int4 path's T5-XXL,
+    CLIP-L, VAE decoder and tokenizers, whose MMDiT is freed first."""
+    prev.mmdit = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = FluxPipeline(device="cuda", quantize_mmdit="w4a8")
+    for name in ("t5", "clip_l", "decoder", "tokenizer_l", "t5_tokenizer"):
+        setattr(pipe, name, getattr(prev, name))
+    pipe.mmdit = init_mmdit(FLUX_SCHNELL, gen, "cuda", quantize_bits=4)
+    if not all(m.wscale is not None for m in pipe.mmdit.modules()
+               if isinstance(m, QuantizedLinear)):
+        raise AssertionError("quantize_mmdit='w4a8' left a packed linear without wscale")
     return pipe
 
 
@@ -412,11 +662,13 @@ def serve(pipe, path: Path, tag: str):
     launches = counts()
     n = len(path.requests) + 1
     per = per_request_launches(path, pipe.mmdit.config)
-    need = {name: n * c for name, c in per.items()}
+    need = {name: n * per.get(name, 0) for name in launches}
     log(f"  launches during the {path.name} main path: {launches} (at least {need})")
     for name in need:
-        if launches[name] < need[name]:
-            raise AssertionError(f"{name} launched {launches[name]} times, expected >= {need[name]}")
+        if launches[name] < need[name] or (need[name] == 0 and launches[name]):
+            raise AssertionError(f"{name} launched {launches[name]} times on the {path.name} "
+                                 f"path, expected {'0' if need[name] == 0 else '>= '}"
+                                 f"{need[name] or ''}")
 
     finite = bool(torch.isfinite(latents).all())
     log(f"  latents {tuple(latents.shape)} finite: {finite}, "
@@ -438,17 +690,20 @@ def serve(pipe, path: Path, tag: str):
     cfg = pipe.mmdit.config
     flops = mmdit_step_flops(cfg, path.latent, path.txt_tokens, cfg=path.cfg > 1)["total"]
     peak = device_peak_flops(torch.cuda.get_device_name(0))
+    rate, peak_name = "TFLOP/s", "bf16"
+    if path is FLUX_W4A8:  # the block products run on the int8 tensor cores
+        rate, peak_name, peak = "TOP/s", "int8", 2 * peak
     for i, lg in enumerate(logs):
         it = lg["denoising"]["iter_time"]
         median_ms = 1e3 * statistics.median(it)
-        tflops = flops / (median_ms / 1e3) / 1e12
+        tflops = flops / (median_ms / 1e3) / 1e12  # TOP/s on the w4a8 path
         log(f"  request {i}: text_encoding {lg['text_encoding']['time']!r} s, "
             f"denoising {lg['denoising']['time']!r} s, decoding {lg['decoding']['time']!r} s, "
             f"total {lg['total_time']!r} s/image [{tag}]")
         log(f"  request {i}: denoise mean {1e3 * statistics.mean(it)!r} ms/step, median "
-            f"{median_ms!r} ms/step, first step {1e3 * it[0]!r} ms; {tflops!r} TFLOP/s at the "
-            f"median ({flops / 1e12!r} TFLOP/step), {tflops * 1e12 / peak if peak else None!r} "
-            f"of the {peak / 1e12!r} TFLOP/s bf16 peak [{tag}]")
+            f"{median_ms!r} ms/step, first step {1e3 * it[0]!r} ms; {tflops!r} {rate} at the "
+            f"median ({flops / 1e12!r} T ops/step), {tflops * 1e12 / peak if peak else None!r} "
+            f"of the {peak / 1e12!r} {rate} {peak_name} peak [{tag}]")
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB [{tag}]")
     return launches, 1e3 * statistics.median(logs[1]["denoising"]["iter_time"])
 
@@ -456,8 +711,14 @@ def serve(pipe, path: Path, tag: str):
 def family(name: str) -> str:
     if "flash_fwd" in name:
         return "flash_attention_bshd"
+    if "w4a8_mm" in name:
+        return "w4a8_matmul"
+    if "mod_ln_quant" in name:
+        return "mod_ln_quantize"
     if "mod_ln" in name:
         return "mod_ln"
+    if "quantize_kernel" in name:
+        return "quantize"
     if "int4_mm" in name:
         return "int4_matmul"
     if "nvjet" in name or "gemm" in name:
@@ -495,7 +756,7 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
     with profile(activities=acts) as prof:
         cond, pooled = pipe.encode_text(text, path.cfg)
         torch.cuda.synchronize()
-    if path is FLUX:
+    if path is not SD3:
         fams, _ = device_split(prof, 1)
         log(f"  text encoding (T5-XXL + CLIP-L): device busy {sum(fams.values())!r} ms "
             f"{dict(sorted(fams.items()))} [{tag}]")
@@ -512,6 +773,7 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
     log(f"  {path.name} idle share: {1 - busy / step_ms!r} at the median step of request 1 "
         f"({step_ms!r} ms, unprofiled); {1 - busy / profiled_ms!r} at the profiled "
         f"steps' own mean ({profiled_ms!r} ms, profiler overhead included) [{tag}]")
+    return families
 
 
 def main() -> None:
@@ -544,40 +806,58 @@ def main() -> None:
     times = time_kernels(mod, flash, int4, tag)
     del mod, flash, int4
     torch.cuda.empty_cache()
+    log("phase 3-4b: the w4a8 kernels against their plain versions on the card, and their "
+        "device times")
+    w_errs, w_times = w4a8_kernels(gen, tag)
+    errs.update(w_errs)
+    times.update(w_times)
+    torch.cuda.empty_cache()
 
     log("phase 5: reference checks")
     reference_checks(gen)
     gc.collect()
     torch.cuda.empty_cache()
 
-    launches = {}
-    for path, build in ((SD3, build_sd3), (FLUX, build_flux)):
-        log(f"phase 6{'ab'[path is FLUX]}: main path {path.name} ({path.latent[0] * 8}², "
+    launches, families = {}, {}
+    pipe = None
+    for letter, path, build in (("a", SD3, build_sd3), ("b", FLUX, build_flux),
+                                ("c", FLUX_W4A8, build_flux_w4a8)):
+        if path is not FLUX_W4A8:  # c reuses b's encoders and decoder
+            pipe = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"phase 6{letter}: main path {path.name} ({path.latent[0] * 8}², "
             f"{path.steps} steps, CFG {path.cfg}, random weights)")
         t0 = time.perf_counter()
-        pipe = build(gen)
+        pipe = build(gen, pipe)
         torch.cuda.synchronize()
         log(f"  random {path.name} models on the card in {time.perf_counter() - t0!r} s, "
             f"{torch.cuda.memory_allocated() / 2**30!r} GiB allocated")
         launches[path.name], step_ms = serve(pipe, path, tag)
-        log(f"phase 7{'ab'[path is FLUX]}: where a {path.name} step's device time goes "
-            f"(torch.profiler)")
-        profile_steps(pipe, path, step_ms, tag)
-        del pipe
-        gc.collect()
-        torch.cuda.empty_cache()
+        log(f"phase 7{letter}: where a {path.name} step's device time goes (torch.profiler)")
+        families[path.name] = profile_steps(pipe, path, step_ms, tag)
+    log(f"  elementwise 'other' per FLUX step: w4a8 {families['flux-w4a8']['other']!r} ms, "
+        f"int4 {families['flux']['other']!r} ms (the int4 path's fp32 bias and "
+        f"QK-norm+RoPE chains ride kernel E's epilogues on the w4a8 path) [{tag}]")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
 
     summary = []
     for name, (source, replaces) in KERNELS.items():
-        shape, ms, plain = times[name][0]
+        shape, ms, plain = times[name][0][:3]
+        # Each kernel's launches on this slice's main path (FLUX w4a8), or,
+        # for kernel C, which that path must not run, on the FLUX int4 path.
+        main_path = "flux-w4a8" if launches["flux-w4a8"][name] else "flux"
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # This slice's main path (FLUX) runs all three kernels.
-            "launches": launches["flux"][name],
+            "launches": launches[main_path][name], "launches_path": main_path,
             "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": max(errs[name]),
             "ms": ms, "plain_ms": plain, "shape": list(shape),
-            "shapes": [{"shape": list(s), "ms": m, "plain_ms": p} for s, m, p in times[name]],
+            "shapes": [{"shape": list(t[0]), "ms": t[1], "plain_ms": t[2],
+                        **({"int4_matmul_ms": t[3]} if len(t) > 3 else {})}
+                       for t in times[name]],
         })
     log(tag)
     log(json.dumps({"kernels": summary}))

@@ -8,7 +8,9 @@ kernels become OIHW, and the result is loaded with ``strict=True`` so a
 missing or extra leaf raises. Float values are carried exactly (through
 fp32) and cast to each module's dtype on load. Packed int4 leaves (``q4``,
 uint32) are carried bit for bit as an int32 view, never through a float;
-their ``scales``/``zeros`` keep the reference's ``(K/g, N)`` layout.
+their ``scales``/``zeros`` keep the reference's ``(K/g, N)`` layout, and a
+w4a8 ``wscale`` leaf (fp32 ``(N,)``, from ``add_wscale_tree`` or
+``add_wscale_bound_tree``) lands on ``QuantizedLinear.wscale``.
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ def _pack_like(module: torch.nn.Module, tree: Any) -> None:
             group = k8 * 8 // np.shape(sub["scales"])[0]
             dtype = next(child.parameters()).dtype
             setattr(module, k, QuantizedLinear(k8 * 8, n, group, bias=sub.get("bias") is not None,
-                                               dtype=dtype))
+                                               dtype=dtype, wscale="wscale" in sub))
         else:
             _pack_like(child, sub)
 

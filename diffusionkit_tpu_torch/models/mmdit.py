@@ -18,6 +18,18 @@ joint attention to kernel B through ``ops/attention.sdpa``, and the block
 linears of an int4 model (``QuantizedLinear``) to kernel C through
 ``ops/common.linear``. The fp32-upcast block segments of SD3.5-large wait;
 building such a config raises.
+
+A w4a8 model (``QuantizedLinear``s carrying ``wscale``) takes the
+reference's w4a8 dispatch: each AdaLN site whose consumers quantize runs
+kernel A' (``mod_ln_quantize``) and hands one ``ActQuant`` to q/k/v and
+fc1; the image-stream and single-stream q/k take kernel E's norm_rope
+epilogue (``w4a8_qk_linear``); every FFN keeps its hidden in int8
+(``w4a8_ffn_gelu``); the other linears take kernel E's plain mode, after
+kernel D where their input is float. The dispatch is not gated on the
+device: on the CPU the same route runs through the plain versions. (The JAX
+package on a CPU backend quietly computes a w4a8 model as int4
+weight-only, since ``quantized.py:_quant_kernel_eligible`` gates on
+``jax.default_backend()``; the port does not copy that.)
 """
 
 from __future__ import annotations
@@ -39,10 +51,12 @@ from ..ops.common import (
     unpack_flux,
     unpatchify_sd3,
 )
-from ..ops.fused_quant import mod_ln
+from ..ops.fused_quant import mod_ln, mod_ln_quantize
 from ..ops.norms import modulated_layer_norm, rms_norm
 from ..ops.quantized import QuantizedLinear, random_quantized_linear_
 from ..ops.rope import apply_rope, rms_norm_rope, rope_frequencies
+from ..ops.w4a8_matmul import w4a8_qk_eligible, w4a8_qk_linear
+from ..ops.w8a8 import needs_act_quant, quantize_shared
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -57,6 +71,21 @@ def _mod_ln_maybe_fused(
     if x.is_cuda and x.ndim == 3 and x.shape[-1] % 128 == 0:
         return mod_ln(x, shift, scale, eps)
     return modulated_layer_norm(x, shift, scale, eps)
+
+
+def _mod_ln_maybe_quant(consumer: nn.Module, x: torch.Tensor, shift: torch.Tensor,
+                        scale: torch.Tensor, eps: float):
+    """AdaLN LayerNorm site, quantized once for its quantized consumers (the
+    reference's ``_mod_ln_maybe_quant``): when ``consumer`` (q, or fc1)
+    quantizes its activations, kernel A' (``mod_ln_quantize``) for a
+    (B, S, H) x with H a multiple of 128, else the plain modulated LN
+    quantized by ``quantize_shared``; an ``ActQuant`` either way. Float
+    consumers get ``_mod_ln_maybe_fused``."""
+    if needs_act_quant(consumer):
+        if x.ndim == 3 and x.shape[-1] % 128 == 0:
+            return mod_ln_quantize(x, shift, scale, eps)
+        return quantize_shared(modulated_layer_norm(x, shift, scale, eps))
+    return _mod_ln_maybe_fused(x, shift, scale, eps)
 
 
 class QKNorm(nn.Module):
@@ -101,11 +130,20 @@ class Projections(nn.Module):
         y = linear(self.ada, F.silu(c))
         return [p[:, None, :] for p in y.chunk(self.num_mod, dim=-1)]
 
-    def qkv(self, x: torch.Tensor, num_heads: int, rope: Rope = None):
-        """Per-head q, k, v (B, S, heads, d); QK-RMSNorm and RoPE when
-        configured, fused in fp32 with one rounding when both apply."""
+    def qkv(self, x, num_heads: int, rope: Rope = None):
+        """Per-head q, k, v (B, S, heads, d) from x (a tensor or a shared
+        ``ActQuant``); QK-RMSNorm and RoPE when configured, fused in fp32
+        with one rounding when both apply: in kernel E's epilogue when q
+        and k are w4a8 with 128-wide heads (``w4a8_qk_linear``)."""
         b, s, h = x.shape
-        q, k, v = (linear(layer, x).reshape(b, s, num_heads, h // num_heads)
+        d = h // num_heads
+        if rope is not None and self.qk_norm is not None and all(
+                w4a8_qk_eligible(layer, d) for layer in (self.q, self.k)):
+            cos, sin = rope
+            q = w4a8_qk_linear(self.q, x, self.qk_norm.q_scale, cos, sin)
+            k = w4a8_qk_linear(self.k, x, self.qk_norm.k_scale, cos, sin)
+            return tuple(t.reshape(b, s, num_heads, d) for t in (q, k, linear(self.v, x)))
+        q, k, v = (linear(layer, x).reshape(b, s, num_heads, d)
                    for layer in (self.q, self.k, self.v))
         if rope is not None:
             cos, sin = (t[:, None, :] for t in rope)  # broadcast over heads
@@ -142,8 +180,8 @@ class MMBlock(nn.Module):
         img_mods = self.img.modulation(c)
         txt_mods = self.txt.modulation(c)
 
-        img_h = _mod_ln_maybe_fused(img, img_mods[0], img_mods[1], eps)
-        txt_h = _mod_ln_maybe_fused(txt, txt_mods[0], txt_mods[1], eps)
+        img_h = _mod_ln_maybe_quant(self.img.q, img, img_mods[0], img_mods[1], eps)
+        txt_h = _mod_ln_maybe_quant(self.txt.q, txt, txt_mods[0], txt_mods[1], eps)
         img_len, txt_len = img.shape[1], txt.shape[1]
         flux = cfg.depth_unified > 0
         rope_img = None if rope is None else (rope[0][txt_len:], rope[1][txt_len:])
@@ -165,14 +203,14 @@ class MMBlock(nn.Module):
         img = img + img_mods[2] * linear(self.img.o, o_img)
         img = img + img_mods[5] * ffn_gelu(
             self.img.fc1, self.img.fc2,
-            _mod_ln_maybe_fused(img, img_mods[3], img_mods[4], eps),
+            _mod_ln_maybe_quant(self.img.fc1, img, img_mods[3], img_mods[4], eps),
         )
         if self.final:
             return img, txt
         txt = txt + txt_mods[2] * linear(self.txt.o, o_txt)
         txt = txt + txt_mods[5] * ffn_gelu(
             self.txt.fc1, self.txt.fc2,
-            _mod_ln_maybe_fused(txt, txt_mods[3], txt_mods[4], eps),
+            _mod_ln_maybe_quant(self.txt.fc1, txt, txt_mods[3], txt_mods[4], eps),
         )
         return img, txt
 
@@ -191,14 +229,14 @@ class UnifiedBlock(Projections):
         cfg = self.config
         eps = cfg.layer_norm_eps
         mods = self.modulation(c)
-        h = _mod_ln_maybe_fused(x, mods[0], mods[1], eps)
+        h = _mod_ln_maybe_quant(self.q, x, mods[0], mods[1], eps)
         q, k, v = self.qkv(h, cfg.num_heads, rope)
         o = sdpa(q, k, v, scale=1.0 / (cfg.head_dim**0.5), layout="bshd").flatten(2)
         if cfg.parallel_mlp_for_unified_blocks:
             return x + mods[2] * (linear(self.o, o) + ffn_gelu(self.fc1, self.fc2, h))
         x = x + mods[2] * linear(self.o, o)
         return x + mods[5] * ffn_gelu(
-            self.fc1, self.fc2, _mod_ln_maybe_fused(x, mods[3], mods[4], eps)
+            self.fc1, self.fc2, _mod_ln_maybe_quant(self.fc1, x, mods[3], mods[4], eps)
         )
 
 

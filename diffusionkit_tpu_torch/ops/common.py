@@ -3,7 +3,8 @@
 Counterpart of ``diffusionkit_tpu/ops/common.py``. Float weights live in
 ``nn.Linear`` modules in torch's (out, in) layout and their GEMMs go to
 ``F.linear``, as the reference left them to XLA; int4 weights live in
-``ops/quantized.QuantizedLinear`` and go to kernel C.
+``ops/quantized.QuantizedLinear`` and go to kernel C, or with a w4a8
+``wscale`` to kernel E.
 """
 
 from __future__ import annotations
@@ -17,13 +18,18 @@ from torch import nn
 
 from .int4_matmul import int4_linear
 from .quantized import QuantizedLinear
+from .w4a8_matmul import w4a8_ffn_eligible, w4a8_ffn_gelu, w4a8_linear
+from .w8a8 import ActQuant, needs_act_quant
 
 
-def linear(layer: nn.Module, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+def linear(layer: nn.Module, x, act: Optional[str] = None) -> torch.Tensor:
     """y = act(x @ W^T (+ b)), rounded to x's dtype BEFORE the activation.
 
-    A ``QuantizedLinear`` goes to ``int4_linear`` (kernel C on the card), as
-    the reference's ``linear`` hands quantized params to ``quantized_linear``.
+    A ``QuantizedLinear`` with a w4a8 ``wscale`` goes to ``w4a8_linear``
+    (kernel E on the card), which takes an ``ActQuant`` as it is; one
+    without goes to ``int4_linear`` (kernel C), as the reference's ``linear``
+    hands quantized params to ``quantized_linear``. Every other consumer of
+    an ``ActQuant`` uses its ``to_float()``.
 
     The product runs in the promoted dtype of x and the weight (as the
     reference's ``jnp.dot`` does for a bf16 activation against fp32
@@ -31,6 +37,10 @@ def linear(layer: nn.Module, x: torch.Tensor, act: Optional[str] = None) -> torc
     both casts are no-ops. ``act="gelu"`` is the exact erf GELU, applied to
     the rounded value.
     """
+    if needs_act_quant(layer):
+        return w4a8_linear(layer, x, act)
+    if isinstance(x, ActQuant):
+        x = x.to_float()
     if isinstance(layer, QuantizedLinear):
         return int4_linear(layer, x, act)
     w = layer.weight
@@ -54,8 +64,21 @@ class MLPSiLU(nn.Module):
         return linear(self.fc2, F.silu(linear(self.fc1, x)))
 
 
-def ffn_gelu(fc1: nn.Module, fc2: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Transformer FFN with exact (erf) GELU; float or int4 layers."""
+def ffn_gelu(fc1: nn.Module, fc2: nn.Module, x) -> torch.Tensor:
+    """Transformer FFN with exact (erf) GELU; float, int4 or w4a8 layers.
+
+    When fc2 quantizes its activations and fc1's width is a multiple of 128
+    (the reference's ``fused_eligible``), the hidden never exists in float:
+    both legs w4a8 take ``w4a8_ffn_gelu`` (kernel E's gelu_quant then
+    grouped_xs). Any other such FFN would take the reference's
+    ``gelu_quantize`` kernel, which is not ported: it raises rather than
+    take a float path."""
+    if needs_act_quant(fc2) and fc1.out_features % 128 == 0:
+        if w4a8_ffn_eligible(fc1, fc2):
+            return w4a8_ffn_gelu(fc1, fc2, x)
+        raise NotImplementedError(
+            "this FFN needs fused_quant.gelu_quantize (the GELU -> int8 kernel of the "
+            "w8a8 mode), which is not ported yet")
     return linear(fc2, linear(fc1, x, act="gelu"))
 
 

@@ -1,15 +1,22 @@
-"""Kernel A: the fused AdaLN LayerNorm ``mod_ln`` (float path).
+"""Row-wise fused kernels: AdaLN LayerNorm and per-row int8 quantization.
 
-Replaces the Pallas kernel ``diffusionkit_tpu/ops/fused_quant.py:mod_ln``
-(``_mod_ln_kernel`` -> ``_ln_modulate``), which runs at four sites per SD3
-block and once in the final layer. The CUDA source is ``csrc/mod_ln.cu``:
-memory-bound (one read of x, one write), one block per row with the row in
-registers and 16-byte accesses; see the note there.
+Three kernels of ``csrc/mod_ln.cu``, each replacing a Pallas kernel of
+``diffusionkit_tpu/ops/fused_quant.py``:
 
-``mod_ln`` launches the kernel for a CUDA tensor and raises on what the
-kernel does not take; a CPU tensor goes to ``mod_ln_plain``, the same math
-in plain torch. The quantizing siblings (``mod_ln_quantize``,
-``gelu_quantize``, ``quantize``) wait for the quantized slices.
+- kernel A ``mod_ln`` (``_mod_ln_kernel`` -> ``_ln_modulate``): the float
+  AdaLN LayerNorm, at four sites per SD3 block and in every final layer;
+- kernel A' ``mod_ln_quantize`` (``_mod_ln_quant_kernel``): the same
+  LayerNorm and modulation in fp32, NOT rounded to x's dtype, quantized per
+  row to int8 for the w4a8 linears that read it (q/k/v, fc1);
+- kernel D ``quantize`` (``_quant_kernel``): the per-row absmax -> int8
+  pass in front of a w4a8 linear whose input is float (``ada``, ``o``).
+
+All three are memory-bound single passes: one block per row with the row in
+registers and 16-byte accesses; see the note in the source. Each wrapper
+launches its kernel for a CUDA tensor and raises on what the kernel does not
+take; a CPU tensor goes to the plain torch version beside it. The quantizers
+return an ``ActQuant`` with ``orig=None``. ``gelu_quantize`` (the w8a8 mode
+and FFNs the fused w4a8 chain does not take) waits for the w8a8 slice.
 """
 
 from __future__ import annotations
@@ -17,23 +24,73 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .w8a8 import ActQuant, quantize_activations
 
 _KERNELS = {torch.bfloat16: "dk_mod_ln_bf16", torch.float32: "dk_mod_ln_f32"}
+_QUANT_KERNELS = {torch.bfloat16: "dk_quantize_bf16", torch.float32: "dk_quantize_f32"}
+_MOD_LN_QUANT_KERNELS = {torch.bfloat16: "dk_mod_ln_quant_bf16",
+                         torch.float32: "dk_mod_ln_quant_f32"}
 
 
-def mod_ln_plain(
-    x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
-) -> torch.Tensor:
-    """Plain torch ``mod_ln``: per row fp32 mean and centred variance,
-    ``(x - mean) * rsqrt(var + eps) * (1 + scale) + shift`` in fp32, one
-    rounding to x's dtype (unlike ``modulated_layer_norm``, which rounds
-    before modulating)."""
+def _ln_modulate_f32(x, shift, scale, eps: float) -> torch.Tensor:
+    """Per row fp32 mean and centred variance, then ``(x - mean) *
+    rsqrt(var + eps) * (1 + scale) + shift``, all in fp32."""
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     xc = x32 - mean
     var = (xc * xc).mean(dim=-1, keepdim=True)
     h = xc * torch.rsqrt(var + eps)
-    return (h * (1.0 + scale.float()) + shift.float()).to(x.dtype)
+    return h * (1.0 + scale.float()) + shift.float()
+
+
+def mod_ln_plain(
+    x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
+    """Plain torch ``mod_ln``: the fp32 LayerNorm and modulation, one
+    rounding to x's dtype (unlike ``modulated_layer_norm``, which rounds
+    before modulating)."""
+    return _ln_modulate_f32(x, shift, scale, eps).to(x.dtype)
+
+
+def mod_ln_quantize_plain(
+    x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+) -> ActQuant:
+    """Plain torch ``mod_ln_quantize``: the fp32 LayerNorm and modulation,
+    quantized per row without a rounding to x's dtype in between."""
+    x8, xscale = quantize_activations(_ln_modulate_f32(x, shift, scale, eps))
+    return ActQuant(x8, xscale, None, out_dtype=x.dtype)
+
+
+def quantize_plain(y: torch.Tensor) -> ActQuant:
+    """Plain torch ``quantize``: the per-row int8 grid of
+    ``w8a8.quantize_activations``."""
+    x8, xscale = quantize_activations(y)
+    return ActQuant(x8, xscale, None, out_dtype=y.dtype)
+
+
+def _check_mod_ln_args(name: str, x, shift, scale) -> None:
+    """What kernels A and A' take: a contiguous (B, S, H) x, H a multiple of
+    the 16-byte vector and at most 1024 vectors, (B, 1, H) shift/scale
+    views with a contiguous 16-byte aligned last axis."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in _KERNELS:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported (bf16, fp32)")
+    if x.ndim != 3 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous (B, S, H) tensor, got {tuple(x.shape)}")
+    b, s, h = x.shape
+    vec = 16 // x.element_size()
+    if h % vec or h // vec > 1024:
+        raise ValueError(f"{name}: hidden {h} must be a multiple of {vec} and <= {1024 * vec}")
+    for arg, m in (("shift", shift), ("scale", scale)):
+        if m.shape != (b, 1, h) or m.dtype != x.dtype or m.device != x.device:
+            raise ValueError(f"{name}: {arg} must be ({b}, 1, {h}) {x.dtype} on {x.device}")
+        if m.stride(-1) != 1 or m.stride(0) % vec or m.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must have a contiguous, 16-byte aligned last axis")
+    if shift.stride(0) != scale.stride(0):
+        raise ValueError(f"{name}: shift and scale must share a batch stride")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
 
 
 def mod_ln(
@@ -46,25 +103,8 @@ def mod_ln(
     """
     if x.device.type == "cpu":
         return mod_ln_plain(x, shift, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"mod_ln: unsupported device {x.device}")
-    if x.dtype not in _KERNELS:
-        raise TypeError(f"mod_ln: dtype {x.dtype} not supported (bf16, fp32)")
-    if x.ndim != 3 or not x.is_contiguous():
-        raise ValueError(f"mod_ln: x must be a contiguous (B, S, H) tensor, got {tuple(x.shape)}")
+    _check_mod_ln_args("mod_ln", x, shift, scale)
     b, s, h = x.shape
-    vec = 16 // x.element_size()
-    if h % vec or h // vec > 1024:
-        raise ValueError(f"mod_ln: hidden {h} must be a multiple of {vec} and <= {1024 * vec}")
-    for name, m in (("shift", shift), ("scale", scale)):
-        if m.shape != (b, 1, h) or m.dtype != x.dtype or m.device != x.device:
-            raise ValueError(f"mod_ln: {name} must be ({b}, 1, {h}) {x.dtype} on {x.device}")
-        if m.stride(-1) != 1 or m.stride(0) % vec or m.data_ptr() % 16:
-            raise ValueError(f"mod_ln: {name} must have a contiguous, 16-byte aligned last axis")
-    if shift.stride(0) != scale.stride(0):
-        raise ValueError("mod_ln: shift and scale must share a batch stride")
-    if x.data_ptr() % 16:
-        raise ValueError("mod_ln: x must be 16-byte aligned")
     out = torch.empty_like(x)
     fn = getattr(kernels.library(), _KERNELS[x.dtype])
     err = fn(x.data_ptr(), shift.data_ptr(), scale.data_ptr(), out.data_ptr(),
@@ -75,3 +115,58 @@ def mod_ln(
 
 
 mod_ln.launches = 0
+
+
+def mod_ln_quantize(
+    x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+) -> ActQuant:
+    """AdaLN LayerNorm fused with per-row int8 quantization of its fp32
+    output: ``ActQuant(x8 (B, S, H) int8, xscale (B, S, 1) fp32, None,
+    x.dtype)``. Takes what ``mod_ln`` takes."""
+    if x.device.type == "cpu":
+        return mod_ln_quantize_plain(x, shift, scale, eps)
+    _check_mod_ln_args("mod_ln_quantize", x, shift, scale)
+    b, s, h = x.shape
+    x8 = torch.empty((b, s, h), dtype=torch.int8, device=x.device)
+    xscale = torch.empty((b, s, 1), dtype=torch.float32, device=x.device)
+    fn = getattr(kernels.library(), _MOD_LN_QUANT_KERNELS[x.dtype])
+    err = fn(x.data_ptr(), shift.data_ptr(), scale.data_ptr(), x8.data_ptr(), xscale.data_ptr(),
+             b, s, h, shift.stride(0), float(eps), kernels.stream_ptr(x.device))
+    kernels.check(err, "mod_ln_quantize")
+    mod_ln_quantize.launches += 1
+    return ActQuant(x8, xscale, None, out_dtype=x.dtype)
+
+
+mod_ln_quantize.launches = 0
+
+
+def quantize(y: torch.Tensor) -> ActQuant:
+    """Per-row absmax int8 quantization of y (..., K): ``ActQuant(x8,
+    xscale (..., 1), None, y.dtype)``. On the card y is bf16 or fp32,
+    contiguous and 16-byte aligned, K a multiple of the 16-byte vector and
+    at most 1024 vectors."""
+    if y.device.type == "cpu":
+        return quantize_plain(y)
+    if y.device.type != "cuda":
+        raise ValueError(f"quantize: unsupported device {y.device}")
+    if y.dtype not in _QUANT_KERNELS:
+        raise TypeError(f"quantize: dtype {y.dtype} not supported (bf16, fp32)")
+    if not y.is_contiguous() or y.data_ptr() % 16:
+        raise ValueError("quantize: y must be contiguous and 16-byte aligned")
+    k = y.shape[-1]
+    vec = 16 // y.element_size()
+    if k % vec or k // vec > 1024:
+        raise ValueError(f"quantize: K={k} must be a multiple of {vec} and <= {1024 * vec}")
+    m = y.numel() // k
+    x8 = torch.empty(y.shape, dtype=torch.int8, device=y.device)
+    xscale = torch.empty((*y.shape[:-1], 1), dtype=torch.float32, device=y.device)
+    if m:
+        fn = getattr(kernels.library(), _QUANT_KERNELS[y.dtype])
+        err = fn(y.data_ptr(), x8.data_ptr(), xscale.data_ptr(), m, k,
+                 kernels.stream_ptr(y.device))
+        kernels.check(err, "quantize")
+        quantize.launches += 1
+    return ActQuant(x8, xscale, None, out_dtype=y.dtype)
+
+
+quantize.launches = 0

@@ -9,14 +9,20 @@ bit for bit:
   scales  (K/g, N) fp32, zeros (K/g, N) fp32, ``w = q * scale + zero``
   bias    (N,) in the model dtype, or absent
 
+  wscale  (N,) fp32, optional: the w4a8 per-channel int8-grid scale,
+          ``max_k |dequant(w)[k, n]| / 127``
+
 torch has little uint32 support, so ``QuantizedLinear`` keeps ``q4`` as an
-int32 tensor holding the same bits (a bit view, never a value cast). The
-product runs through ``ops/int4_matmul.int4_linear`` (kernel C on the card).
+int32 tensor holding the same bits (a bit view, never a value cast). A layer
+without ``wscale`` runs through ``ops/int4_matmul.int4_linear`` (kernel C on
+the card); with it, through ``ops/w4a8_matmul.w4a8_linear`` (kernel E).
 
 Host numpy, copied from the reference: ``pack_int4_host``, the min/max path
 of ``quantize_kernel_host`` and ``mlx_q4_to_exec`` (the lossless repack of
-MLX 4-bit files). The ALS and GPTQ quantizers, the ``-mixed`` overrides and
-the w4a8 scales wait for their slices.
+MLX 4-bit files). The w4a8 scales (``wscale_from_q4``, ``add_wscale_bound_``,
+``add_wscale_``) are computed on the layer's own device, so a 12B model
+makes no host round trip. The ALS and GPTQ quantizers and the ``-mixed``
+overrides wait for their slices.
 """
 
 from __future__ import annotations
@@ -48,11 +54,14 @@ def pack_int4_host(q: np.ndarray) -> np.ndarray:
     return packed
 
 
-def quantize_kernel_host(w: np.ndarray, group_size: int = 64) -> Dict[str, np.ndarray]:
+def quantize_kernel_host(w: np.ndarray, group_size: int = 64,
+                         with_wscale: bool = False) -> Dict[str, np.ndarray]:
     """Min/max affine int4 group quantisation of an (in, out) float kernel:
     per (group, out channel) ``scale = max((max - min) / 15, 1e-8)``,
     ``zero = min``, ``q = clip(round((w - zero) / scale), 0, 15)``. The
-    reference's ``quantize_kernel_host(bits=4, refine=False)``."""
+    reference's ``quantize_kernel_host(bits=4, refine=False)``; with
+    ``with_wscale`` also the w4a8 ``wscale`` from the exact dequantised
+    values, as the reference's numpy path computes it."""
     in_dim, out_dim = w.shape
     if in_dim % group_size:
         raise ValueError(f"quantize_kernel_host: {in_dim} rows, group {group_size}")
@@ -62,7 +71,11 @@ def quantize_kernel_host(w: np.ndarray, group_size: int = 64) -> Dict[str, np.nd
     scale = np.maximum((wmax - wmin) / 15.0, 1e-8).astype(np.float32)
     zero = wmin.astype(np.float32)
     q = np.clip(np.round((g - zero[:, None, :]) / scale[:, None, :]), 0, 15).astype(np.uint8)
-    return {"q4": pack_int4_host(q.reshape(in_dim, out_dim)), "scales": scale, "zeros": zero}
+    out = {"q4": pack_int4_host(q.reshape(in_dim, out_dim)), "scales": scale, "zeros": zero}
+    if with_wscale:
+        deq = (q.astype(np.float32) * scale[:, None, :] + zero[:, None, :]).reshape(in_dim, out_dim)
+        out["wscale"] = (np.maximum(np.abs(deq).max(0), 1e-8) / 127.0).astype(np.float32)
+    return out
 
 
 def mlx_q4_to_exec(
@@ -86,12 +99,14 @@ def mlx_q4_to_exec(
 
 
 class QuantizedLinear(nn.Module):
-    """int4 weight-only linear: buffers ``q4`` (int32 bit view of the uint32
-    words), ``scales``, ``zeros`` (fp32) and an optional ``bias`` in the
-    model dtype. Applied by ``ops/common.linear``."""
+    """int4 linear: buffers ``q4`` (int32 bit view of the uint32 words),
+    ``scales``, ``zeros`` (fp32), an optional ``bias`` in the model dtype
+    and an optional fp32 ``wscale`` (N,), whose presence selects the w4a8
+    mode. Applied by ``ops/common.linear``."""
 
     def __init__(self, in_features: int, out_features: int, group_size: int = 64,
-                 bias: bool = True, dtype: torch.dtype = torch.bfloat16, device=None):
+                 bias: bool = True, dtype: torch.dtype = torch.bfloat16, device=None,
+                 wscale: bool = False):
         super().__init__()
         if in_features % group_size or group_size % 8:
             raise ValueError(f"QuantizedLinear: {in_features} inputs, group {group_size}")
@@ -105,6 +120,8 @@ class QuantizedLinear(nn.Module):
                                                   device=device))
         self.bias = (nn.Parameter(torch.empty(out_features, dtype=dtype, device=device),
                                   requires_grad=False) if bias else None)
+        self.register_buffer("wscale", torch.empty(out_features, dtype=torch.float32,
+                                                   device=device) if wscale else None)
 
     @classmethod
     def from_host(cls, packed: Dict[str, Optional[np.ndarray]], dtype: torch.dtype,
@@ -114,7 +131,9 @@ class QuantizedLinear(nn.Module):
         k8, n = packed["q4"].shape
         group = k8 * 8 // packed["scales"].shape[0]
         bias = packed.get("bias")
-        layer = cls(k8 * 8, n, group, bias=bias is not None, dtype=dtype, device=device)
+        wscale = packed.get("wscale")
+        layer = cls(k8 * 8, n, group, bias=bias is not None, dtype=dtype, device=device,
+                    wscale=wscale is not None)
         with torch.no_grad():
             layer.q4.copy_(torch.from_numpy(np.ascontiguousarray(packed["q4"], np.uint32)
                                             .view(np.int32)))
@@ -122,11 +141,52 @@ class QuantizedLinear(nn.Module):
             layer.zeros.copy_(torch.from_numpy(np.asarray(packed["zeros"], np.float32)))
             if bias is not None:
                 layer.bias.copy_(torch.from_numpy(np.asarray(bias, np.float32)))
+            if wscale is not None:
+                layer.wscale.copy_(torch.from_numpy(np.asarray(wscale, np.float32)))
         return layer
 
     def extra_repr(self) -> str:
         return (f"in_features={self.in_features}, out_features={self.out_features}, "
-                f"group_size={self.group_size}, bias={self.bias is not None}")
+                f"group_size={self.group_size}, bias={self.bias is not None}, "
+                f"w4a8={self.wscale is not None}")
+
+
+@torch.no_grad()
+def wscale_from_q4(layer: QuantizedLinear) -> torch.Tensor:
+    """Per-channel int8-grid scale from the exact dequantised extrema, on
+    the layer's device: ``max(max_k |q * scale + zero|, 1e-8) / 127`` in
+    fp32 (the reference's ``wscale_from_q4_host``). The dequantisation is a
+    product and a sum, each rounded, as numpy computes it there."""
+    k8, n = layer.q4.shape
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=layer.q4.device)
+    q = ((layer.q4[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(k8 * 8, n).float()
+    g = q.shape[0] // layer.scales.shape[0]
+    w = q * layer.scales.repeat_interleave(g, dim=0) + layer.zeros.repeat_interleave(g, dim=0)
+    amax = w.abs().amax(dim=0).clamp_min(1e-8)
+    return amax / torch.full_like(amax, 127.0)
+
+
+@torch.no_grad()
+def add_wscale_bound_(layer: QuantizedLinear) -> QuantizedLinear:
+    """Set ``wscale`` from the group-affine bounds, with no nibble unpack
+    (the reference's ``add_wscale_bound_tree``): per channel
+    ``max_g max(|z|, |z + 15 s|)`` bounds |dequant(w)| and is attained by
+    a min/max grid."""
+    s, z = layer.scales.float(), layer.zeros.float()
+    amax = torch.maximum(z.abs(), (z + 15.0 * s).abs()).amax(dim=-2).clamp_min(1e-8)
+    layer.wscale = amax / torch.full_like(amax, 127.0)
+    return layer
+
+
+@torch.no_grad()
+def add_wscale_(module: nn.Module) -> nn.Module:
+    """Give every ``QuantizedLinear`` under ``module`` that lacks one its
+    exact w4a8 ``wscale`` (the reference's ``add_wscale_tree``). In place;
+    returns ``module``."""
+    for layer in module.modules():
+        if isinstance(layer, QuantizedLinear) and layer.wscale is None:
+            layer.wscale = wscale_from_q4(layer)
+    return module
 
 
 @torch.no_grad()

@@ -1,0 +1,313 @@
+"""Kernel E: int4-packed weights x int8 activations on the int8 tensor cores.
+
+Replaces the Pallas kernel ``diffusionkit_tpu/ops/w4a8_matmul.py:
+w4a8_matmul`` and its four modes (epilogues on one main loop), which run
+every block linear of the w4a8 FLUX model:
+
+  plain       ``y = (x8 @ w8) * xscale * wscale + bias`` (ada, v, o, the text
+              stream's q/k/v/o)
+  norm_rope   plain, then per-128-column-head QK-RMSNorm and rotate-half
+              RoPE in fp32 (the image and single-stream q/k)
+  gelu_quant  plain, then the A&S-erf GELU and int8 per (row, 512-column
+              tile): ``(y8, yscale)`` (every FFN's fc1)
+  grouped_xs  activation scales per (row, 512-wide k group), each group's
+              exact int32 partial rescaled into an fp32 sum (every fc2)
+
+The packed int4 weight is requantised per tile onto the per-channel int8
+grid ``w8 = clip(round_half_even(q * s8 + z8), -127, 127)``, with
+``s8 = scales * (1 / wscale)`` and ``z8 = zeros * (1 / wscale)``, each a
+separately rounded fp32 operation (``requant_w8_plain`` is the reference's
+``dequant_w8``). The CUDA source is ``csrc/w4a8_matmul.cu``; the note there
+says what bounds it and how it is tiled.
+
+``w4a8_matmul`` launches the kernel for a CUDA tensor (counting launches per
+mode) and raises on what it does not take; a CPU tensor goes to
+``w4a8_matmul_plain``, the same math in plain torch with the int32 product
+computed exactly. The reference's TPU tile pickers (``_pick_kn_blocks``,
+``pick_m_block``) and its N padding (``_maybe_pad_n``, bit-identical by its
+own account and a no-op at FLUX's shapes) are not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import kernels
+from .w8a8 import ActQuant
+
+# The activation-scale tile of the FFN hidden: fc1's gelu_quant column tile
+# and fc2's grouped_xs k group. It is the reference's fc1 n block at every
+# FLUX shape on the CPU and on a v5e (ops/chip.py would make it 1024 on a
+# v6e), the value its CPU tests hold; fixed here.
+SCALE_TILE = 512
+HEAD_DIM = 128  # norm_rope's head width
+K_TILE = 128
+MODES = {"plain": 0, "gelu_quant": 1, "grouped_xs": 2, "norm_rope": 3}
+# Column tile of each mode's kernel configuration (csrc/w4a8_matmul.cu).
+N_TILE = {"plain": 128, "gelu_quant": SCALE_TILE, "grouped_xs": 128, "norm_rope": HEAD_DIM}
+
+
+def _div(num: float, t: torch.Tensor) -> torch.Tensor:
+    """``num / t`` as one IEEE division on any device (torch computes a
+    scalar divisor on CUDA as a reciprocal product, and ``num / t`` as
+    ``reciprocal(t) * num``)."""
+    return torch.full_like(t, num) / t
+
+
+def scaled_affine(scales: torch.Tensor, zeros: torch.Tensor,
+                  wscale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(s8, z8)``: the group affine on the int8 grid, ``scales * (1 /
+    wscale)`` and ``zeros * (1 / wscale)`` (the reciprocal first, then the
+    product, as the reference's ``_scaled_affine``)."""
+    rws = _div(1.0, wscale.float())
+    return scales.float() * rws, zeros.float() * rws
+
+
+def requant_w8_plain(q4: torch.Tensor, s8: torch.Tensor, z8: torch.Tensor) -> torch.Tensor:
+    """(K/8, N) packed words -> (K, N) int8 grid: ``clip(round_half_even(q *
+    s8 + z8), -127, 127)``, the product and the sum each rounded in fp32
+    (the reference's ``dequant_w8``)."""
+    k8, n = q4.shape
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=q4.device)
+    q = ((q4[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(k8 * 8, n).float()
+    g = q.shape[0] // s8.shape[0]
+    y = q * s8.repeat_interleave(g, dim=0) + z8.repeat_interleave(g, dim=0)
+    return torch.round(y).clamp_(-127, 127).to(torch.int8)
+
+
+def _int_dot(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product ``x8 @ w8`` as fp32 (one rounding, as the
+    kernel's int -> float conversion): ``torch._int_mm`` on the card where
+    its shape rules allow, else in float64, where every partial sum below
+    2^53 is exact."""
+    m, k = x8.shape
+    if x8.is_cuda and m > 16 and k % 8 == 0 and w8.shape[1] % 8 == 0:
+        return torch._int_mm(x8, w8).float()
+    return (x8.double() @ w8.double()).float()
+
+
+def gelu_as(x: torch.Tensor) -> torch.Tensor:
+    """fp32 GELU with the Abramowitz-Stegun 7.1.26 erf, op for op as the
+    reference's ``fused_quant._gelu_erf`` (its default form)."""
+    a1, a2, a3, a4, a5 = 0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429
+    z = x * 0.7071067811865476
+    ax = z.abs()
+    t = _div(1.0, 1.0 + 0.3275911 * ax)
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    erf = torch.sign(z) * (1.0 - poly * torch.exp(-ax * ax))
+    return x * 0.5 * (1.0 + erf)
+
+
+def w4a8_matmul_plain(
+    x8: torch.Tensor, q4: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    wscale: torch.Tensor, xscale: torch.Tensor, bias: Optional[torch.Tensor],
+    mode: str = "plain", out_dtype: torch.dtype = torch.bfloat16,
+    norm_w: Optional[torch.Tensor] = None, cos: Optional[torch.Tensor] = None,
+    sin: Optional[torch.Tensor] = None, eps: float = 1e-6,
+):
+    """Plain torch ``w4a8_matmul``: the same math with the int32 product
+    computed exactly and the fp32 epilogue in the kernel's order."""
+    m, k = x8.shape
+    n = q4.shape[1]
+    s8, z8 = scaled_affine(scales, zeros, wscale)
+    w8 = requant_w8_plain(q4, s8, z8)
+    ws = wscale.float()
+    b = bias.float() if bias is not None else torch.zeros(n, device=x8.device)
+    if mode == "grouped_xs":
+        acc = torch.zeros((m, n), dtype=torch.float32, device=x8.device)
+        for kg in range(k // SCALE_TILE):
+            ks = slice(kg * SCALE_TILE, (kg + 1) * SCALE_TILE)
+            acc = acc + _int_dot(x8[:, ks].contiguous(), w8[ks]) * xscale[:, kg : kg + 1].float()
+        return (acc * ws + b).to(out_dtype)
+    y = _int_dot(x8, w8) * xscale.reshape(m, 1).float() * ws + b
+    if mode == "plain":
+        return y.to(out_dtype)
+    if mode == "gelu_quant":
+        g = gelu_as(y).reshape(m, n // SCALE_TILE, SCALE_TILE)
+        amax = g.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+        y8 = torch.round(g * _div(127.0, amax)).clamp_(-127, 127).to(torch.int8)
+        return y8.reshape(m, n), (amax / torch.full_like(amax, 127.0)).reshape(m, -1)
+    if mode == "norm_rope":
+        y = y.reshape(m, n // HEAD_DIM, HEAD_DIM)
+        ms = (y * y).mean(dim=-1, keepdim=True)
+        yn = y * torch.rsqrt(ms + eps) * norm_w.float()
+        rows = torch.arange(m, device=x8.device) % cos.shape[0]
+        c, s = cos[rows][:, None, :], sin[rows][:, None, :]
+        x1, x2 = yn[..., : HEAD_DIM // 2], yn[..., HEAD_DIM // 2 :]
+        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+        return out.reshape(m, n).to(out_dtype)
+    raise ValueError(f"w4a8_matmul: unknown mode {mode!r}")
+
+
+def _contiguous_on(name: str, t: torch.Tensor, device, dtype, shape) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"w4a8_matmul: {name} must be {dtype} {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"w4a8_matmul: {name} must be contiguous and 16-byte aligned")
+
+
+def w4a8_matmul(
+    x8: torch.Tensor, q4: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    wscale: torch.Tensor, xscale: torch.Tensor, bias: Optional[torch.Tensor],
+    mode: str = "plain", out_dtype: torch.dtype = torch.bfloat16,
+    norm_w: Optional[torch.Tensor] = None, cos: Optional[torch.Tensor] = None,
+    sin: Optional[torch.Tensor] = None, eps: float = 1e-6,
+):
+    """``(x8 @ requant(q4)) * xscale * wscale + bias`` with ``mode``'s
+    epilogue (module docstring). x8 int8 (M, K); q4 int32 (K/8, N); scales,
+    zeros fp32 (K/g, N); wscale fp32 (N,); xscale fp32 (M, 1), or (M, K/512)
+    for grouped_xs; bias (N,) or None. norm_rope takes norm_w (128,) and the
+    (S, 64) fp32 cos/sin tables, row m using table row m mod S. Returns y
+    (M, N) in ``out_dtype``, or for gelu_quant ``(y8 (M, N) int8, yscale
+    (M, N/512) fp32)``.
+
+    On CUDA: K a multiple of 128, group 32, 64 or a multiple of 128, N a multiple
+    of the mode's column tile (128; 512 for gelu_quant), K a multiple of 512
+    for grouped_xs; bias and norm_w bf16, the output bf16.
+    """
+    if mode not in MODES:
+        raise ValueError(f"w4a8_matmul: unknown mode {mode!r}")
+    if x8.device.type == "cpu":
+        return w4a8_matmul_plain(x8, q4, scales, zeros, wscale, xscale, bias, mode, out_dtype,
+                                 norm_w, cos, sin, eps)
+    if x8.device.type != "cuda":
+        raise ValueError(f"w4a8_matmul: unsupported device {x8.device}")
+    if x8.dtype != torch.int8 or x8.ndim != 2 or q4.ndim != 2:
+        raise TypeError(f"w4a8_matmul: x8 must be int8 (M, K) and q4 (K/8, N), got {x8.dtype} "
+                        f"{tuple(x8.shape)}, {tuple(q4.shape)}")
+    m, k = x8.shape
+    k8, n = q4.shape
+    if k8 * 8 != k or k % K_TILE or n % N_TILE[mode]:
+        raise ValueError(f"w4a8_matmul: K={k} must be 8 * {k8} and a multiple of {K_TILE}, "
+                         f"N={n} a multiple of {N_TILE[mode]} ({mode})")
+    groups = scales.shape[0]
+    if groups == 0 or k % groups or not (k // groups in (32, 64) or (k // groups) % K_TILE == 0):
+        raise ValueError(f"w4a8_matmul: group size K/{groups} must be 32, 64 or a multiple of "
+                         f"{K_TILE}")
+    if mode == "grouped_xs" and k % SCALE_TILE:
+        raise ValueError(f"w4a8_matmul: grouped_xs needs K a multiple of {SCALE_TILE}, got {k}")
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"w4a8_matmul: the card's output is bf16, got {out_dtype}")
+    dev = x8.device
+    if q4.dtype != torch.int32:
+        raise TypeError("w4a8_matmul: q4 must be int32 words")
+    _contiguous_on("q4", q4, dev, torch.int32, (k8, n))
+    _contiguous_on("scales", scales, dev, torch.float32, (groups, n))
+    _contiguous_on("zeros", zeros, dev, torch.float32, (groups, n))
+    _contiguous_on("wscale", wscale, dev, torch.float32, (n,))
+    xs_cols = k // SCALE_TILE if mode == "grouped_xs" else 1
+    if xscale.device != dev or xscale.dtype != torch.float32 or xscale.numel() != m * xs_cols \
+            or not xscale.is_contiguous():
+        raise ValueError(f"w4a8_matmul: xscale must be contiguous fp32 ({m}, {xs_cols}) on {dev}")
+    if bias is not None:
+        _contiguous_on("bias", bias, dev, torch.bfloat16, (n,))
+    if not x8.is_contiguous() or x8.data_ptr() % 16:
+        raise ValueError("w4a8_matmul: x8 must be contiguous and 16-byte aligned")
+    s_rows = 0
+    if mode == "norm_rope":
+        _contiguous_on("norm_w", norm_w, dev, torch.bfloat16, (HEAD_DIM,))
+        s_rows = cos.shape[0]
+        for name, t in (("cos", cos), ("sin", sin)):
+            if t.shape != (s_rows, HEAD_DIM // 2) or t.dtype != torch.float32 or t.device != dev \
+                    or not t.is_contiguous():
+                raise ValueError(f"w4a8_matmul: {name} must be contiguous fp32 "
+                                 f"(S, {HEAD_DIM // 2}) on {dev}")
+    if mode == "gelu_quant":
+        y = torch.empty((m, n), dtype=torch.int8, device=dev)
+        yscale = torch.empty((m, n // SCALE_TILE), dtype=torch.float32, device=dev)
+    else:
+        y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+        yscale = None
+    if m:
+        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+        err = kernels.library().dk_w4a8_matmul(
+            x8.data_ptr(), q4.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+            wscale.data_ptr(), xscale.data_ptr(), ptr(bias), ptr(norm_w), ptr(cos), ptr(sin),
+            s_rows, y.data_ptr(), ptr(yscale), MODES[mode], m, n, k, k // groups, k, float(eps),
+            kernels.stream_ptr(dev),
+        )
+        kernels.check(err, f"w4a8_matmul ({mode})")
+        w4a8_matmul.launches += 1
+        w4a8_matmul.mode_launches[mode] += 1
+    return (y, yscale) if mode == "gelu_quant" else y
+
+
+w4a8_matmul.launches = 0
+w4a8_matmul.mode_launches = dict.fromkeys(MODES, 0)
+
+
+def _act(x) -> ActQuant:
+    """x as an ``ActQuant``: passed through, or quantized per row by
+    ``fused_quant.quantize`` (kernel D on the card)."""
+    if isinstance(x, ActQuant):
+        return x
+    from .fused_quant import quantize
+
+    return quantize(x)
+
+
+def w4a8_linear(layer, x, act: Optional[str] = None) -> torch.Tensor:
+    """Apply a ``QuantizedLinear`` carrying ``wscale`` (mode plain): x
+    (..., K) float, or an ``ActQuant`` used as it is -> (..., N) in x's
+    dtype. ``act="gelu"`` applies the exact-erf GELU afterwards, in that
+    dtype, as the reference does."""
+    aq = _act(x)
+    lead, k = aq.shape[:-1], aq.shape[-1]
+    y = w4a8_matmul(aq.x8.reshape(-1, k), layer.q4, layer.scales, layer.zeros, layer.wscale,
+                    aq.xscale.reshape(-1, 1), layer.bias, out_dtype=aq.dtype)
+    y = y.reshape(*lead, y.shape[-1])
+    return F.gelu(y) if act == "gelu" else y
+
+
+def w4a8_qk_eligible(layer, head_dim: int) -> bool:
+    """A q/k projection takes the fused QK-RMSNorm + RoPE epilogue when it
+    is a w4a8 ``QuantizedLinear`` and the head is 128 wide."""
+    from .quantized import QuantizedLinear
+
+    return isinstance(layer, QuantizedLinear) and layer.wscale is not None \
+        and head_dim == HEAD_DIM
+
+
+def w4a8_qk_linear(layer, x, norm_w: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """q/k projection with QK-RMSNorm and rotate-half RoPE in the epilogue
+    (mode norm_rope): x (..., K) float or ``ActQuant``; cos/sin (S, 64) for
+    the S rows of x's sequence. Returns (..., N) in x's dtype: numerically
+    ``rms_norm_rope`` of the fp32 epilogue value, with one rounding."""
+    aq = _act(x)
+    lead, k = aq.shape[:-1], aq.shape[-1]
+    y = w4a8_matmul(aq.x8.reshape(-1, k), layer.q4, layer.scales, layer.zeros, layer.wscale,
+                    aq.xscale.reshape(-1, 1), layer.bias, mode="norm_rope", out_dtype=aq.dtype,
+                    norm_w=norm_w, cos=cos, sin=sin, eps=eps)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def w4a8_ffn_eligible(fc1, fc2) -> bool:
+    """fc1 -> GELU -> fc2 runs as two fused w4a8 kernels with an int8
+    hidden when both are w4a8 ``QuantizedLinear``s, fc1's N (fc2's K) is a
+    multiple of the 512 scale tile, and fc2's group divides it."""
+    from .quantized import QuantizedLinear
+
+    for layer in (fc1, fc2):
+        if not (isinstance(layer, QuantizedLinear) and layer.wscale is not None):
+            return False
+    n1 = fc1.out_features
+    return fc2.in_features == n1 and n1 % SCALE_TILE == 0 and SCALE_TILE % fc2.group_size == 0
+
+
+def w4a8_ffn_gelu(fc1, fc2, x) -> torch.Tensor:
+    """fc2(GELU(fc1(x))) with the hidden in int8 end to end: fc1 in mode
+    gelu_quant (scales per (row, 512-column tile)), fc2 in mode grouped_xs
+    on them. x (..., K) float or ``ActQuant``; returns (..., N2) in x's
+    dtype."""
+    aq = _act(x)
+    lead, k = aq.shape[:-1], aq.shape[-1]
+    h8, hs = w4a8_matmul(aq.x8.reshape(-1, k), fc1.q4, fc1.scales, fc1.zeros, fc1.wscale,
+                         aq.xscale.reshape(-1, 1), fc1.bias, mode="gelu_quant")
+    y = w4a8_matmul(h8, fc2.q4, fc2.scales, fc2.zeros, fc2.wscale, hs, fc2.bias,
+                    mode="grouped_xs", out_dtype=aq.dtype)
+    return y.reshape(*lead, y.shape[-1])

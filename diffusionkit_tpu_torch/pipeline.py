@@ -10,9 +10,10 @@ starting latents in both packages.
 
 Models are plain attributes (``mmdit``, ``decoder``, ``clip_l``, ``clip_g``,
 ``t5`` and the tokenizers), set by the caller: the checkpoint loaders wait,
-and ``models.init_*`` build random ones. ``quantize_mmdit`` (int4) packs the
-float linears of an assigned MMDiT with the min/max host quantizer; an
-already packed model passes through. Every model stays resident; the
+and ``models.init_*`` build random ones. ``quantize_mmdit`` (int4 or w4a8)
+packs the float linears of an assigned MMDiT with the min/max host
+quantizer; an already packed model passes through; w4a8 then gives every
+packed linear its per-channel ``wscale``. Every model stays resident; the
 reference's phase-lazy loading, ``use_scan``, mesh, batch chunking, T5 for
 SD3 and img2img wait for later slices.
 """
@@ -31,7 +32,7 @@ from .models.clip import CLIPTextModel
 from .models.mmdit import MMDiT
 from .models.t5 import T5Encoder
 from .models.vae import VAEDecoder
-from .ops.quantized import quantize_module_
+from .ops.quantized import QuantizedLinear, add_wscale_, quantize_module_
 from .sampler import FlowSchedule, FluxSampler, ModelSamplingDiscreteFlow
 from .tokenizer import tokenize_batch
 from .utils import bytes2gigabytes, device_memory_stats, get_logger
@@ -133,13 +134,14 @@ class DiffusionPipeline:
         quantize_mmdit=False,
         quantize_group_size: int = 32,
     ):
-        if quantize_mmdit not in (False, True, "int4"):
-            raise NotImplementedError(f"quantize_mmdit={quantize_mmdit!r}: only int4 is ported")
+        if quantize_mmdit not in (False, True, "int4", "w4a8"):
+            raise NotImplementedError(
+                f"quantize_mmdit={quantize_mmdit!r}: only int4 and w4a8 are ported")
         self.device = torch.device(device)
         self.activation_dtype = torch.bfloat16 if a16 else torch.float32
         self.sampler: FlowSchedule = ModelSamplingDiscreteFlow(shift=shift)
         self.latent_format = SD3LatentFormat()
-        self.quantize_mmdit = bool(quantize_mmdit)
+        self.quantize_mmdit = "int4" if quantize_mmdit is True else quantize_mmdit
         self.quantize_group_size = quantize_group_size
         self._mmdit: Optional[MMDiT] = None
         self.decoder: Optional[VAEDecoder] = None
@@ -155,7 +157,13 @@ class DiffusionPipeline:
     @mmdit.setter
     def mmdit(self, model: Optional[MMDiT]) -> None:
         if model is not None and self.quantize_mmdit:
-            quantize_module_(model, self.quantize_group_size)
+            # A model that holds packed linears is a pre-quantized one (the
+            # MLX 4-bit file, or a random packed init): it passes through,
+            # as the reference skips quantize_tree for such checkpoints.
+            if not any(isinstance(m, QuantizedLinear) for m in model.modules()):
+                quantize_module_(model, self.quantize_group_size)
+            if self.quantize_mmdit == "w4a8":
+                add_wscale_(model)
         self._mmdit = model
 
     # -- text encoding -------------------------------------------------------

@@ -20,8 +20,17 @@ from diffusionkit_tpu_torch.ops.flash_attention import (
     flash_attention_bshd,
     flash_attention_bshd_plain,
 )
-from diffusionkit_tpu_torch.ops.fused_quant import mod_ln, mod_ln_plain
+from diffusionkit_tpu_torch.ops.fused_quant import (
+    mod_ln,
+    mod_ln_plain,
+    mod_ln_quantize,
+    mod_ln_quantize_plain,
+    quantize,
+    quantize_plain,
+)
 from diffusionkit_tpu_torch.ops.int4_matmul import dequantize_int4, int4_matmul
+from diffusionkit_tpu_torch.ops.quantized import QuantizedLinear, wscale_from_q4
+from diffusionkit_tpu_torch.ops.w4a8_matmul import w4a8_matmul, w4a8_matmul_plain
 
 torch.set_num_threads(1)
 
@@ -73,7 +82,7 @@ def test_kernel_library_is_keyed_by_source_hash():
     assert path.parent == kernels.BUILD_DIR
     assert kernels.source_hash() in path.name
     assert {p.name for p in kernels.CSRC.glob("*.cu")} >= {"mod_ln.cu", "flash_attention.cu",
-                                                             "int4_matmul.cu"}
+                                                             "int4_matmul.cu", "w4a8_matmul.cu"}
 
 
 @pytest.fixture
@@ -249,3 +258,136 @@ def test_int4_wrapper_raises_on_unsupported_input(cuda):
     q16, s16, z16 = random_int4(512, 256, 16, g, cuda)
     with pytest.raises(ValueError, match="group size"):
         int4_matmul(x, q16, s16, z16)
+
+
+# Kernels A' and D at FLUX's AdaLN-site and `ada`/`o` shapes, plus ragged
+# rows and fp32.
+QUANT_SHAPES = [(1, 4352, 3072), (1, 256, 3072), (1, 77, 3072), (2, 33, 1024)]
+
+
+def assert_int8_close(got8, want8, share: float = 1e-2):
+    """Equal but for one int8 step on a small share of the elements: the
+    LayerNorm's sums (A') and exp's last bit (gelu_quant) run in another
+    order or form than the plain version's."""
+    diff = (got8.int() - want8.int()).abs()
+    assert diff.max().item() <= 1, diff.max().item()
+    assert (diff > 0).float().mean().item() <= share, (diff > 0).float().mean().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_kernel_matches_plain(cuda, shape, dtype):
+    """Kernel D: max, IEEE division and round-half-even are exact, so the
+    kernel equals its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    y = (torch.randn(shape, generator=g, device=cuda) * 3).to(dtype)
+    launches = quantize.launches
+    got = quantize(y)
+    torch.cuda.synchronize()
+    assert quantize.launches == launches + 1
+    want = quantize_plain(y)
+    assert torch.equal(got.x8, want.x8) and torch.equal(got.xscale, want.xscale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mod_ln_quantize_kernel_matches_plain(cuda, shape, dtype):
+    """Kernel A': x8 within one step on at most 1 % of the elements, scales
+    within 1e-5 (fp32 sums in another order, rsqrt correctly rounded)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    b, s, h = shape
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    mods = torch.randn(b, 6 * h, generator=g, device=cuda).to(dtype)
+    shift, scale = mods[:, None, :h], mods[:, None, h : 2 * h]
+    launches = mod_ln_quantize.launches
+    got = mod_ln_quantize(x, shift, scale)
+    torch.cuda.synchronize()
+    assert mod_ln_quantize.launches == launches + 1
+    want = mod_ln_quantize_plain(x, shift, scale)
+    assert got.x8.shape == shape and got.xscale.shape == (b, s, 1) and got.dtype == dtype
+    assert_int8_close(got.x8, want.x8)
+    torch.testing.assert_close(got.xscale, want.xscale, rtol=1e-5, atol=0)
+
+
+def random_w4a8(k, n, group, gen, device):
+    """A random packed layer with its exact wscale and a bf16 bias."""
+    layer = QuantizedLinear(k, n, group, dtype=torch.bfloat16, device=device)
+    q4, scales, zeros = random_int4(k, n, group, gen, device)
+    layer.q4.copy_(q4)
+    layer.scales.copy_(scales)
+    layer.zeros.copy_(zeros)
+    layer.bias.copy_(0.1 * torch.randn(n, generator=gen, device=device))
+    layer.wscale = wscale_from_q4(layer)
+    return layer
+
+
+# (mode, M, K, N, group): FLUX's shapes of each mode (the text stream, the
+# `ada` GEMV, a ragged M, group 32) at reduced N where N does not matter.
+W4A8_CASES = [("plain", 1, 3072, 18432, 64), ("plain", 256, 3072, 3072, 64),
+              ("plain", 77, 3072, 1024, 32), ("plain", 4352, 3072, 3072, 64),
+              ("norm_rope", 4352, 3072, 3072, 64), ("norm_rope", 77, 3072, 512, 32),
+              ("gelu_quant", 4352, 3072, 12288, 64), ("gelu_quant", 77, 3072, 1024, 32),
+              ("grouped_xs", 4352, 12288, 3072, 64), ("grouped_xs", 77, 1024, 512, 32)]
+
+
+def w4a8_inputs(mode, m, k, n, group, gen, device):
+    layer = random_w4a8(k, n, group, gen, device)
+    x8 = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
+    cols = k // 512 if mode == "grouped_xs" else 1
+    xs = (torch.rand(m, cols, generator=gen, device=device) + 0.5) / 127
+    extra = {}
+    if mode == "norm_rope":
+        ang = torch.rand(m + 5, 64, generator=gen, device=device) * 6.28
+        extra = dict(norm_w=(torch.rand(128, generator=gen, device=device) + 0.5).bfloat16(),
+                     cos=torch.cos(ang), sin=torch.sin(ang))
+    return layer, x8, xs, extra
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", W4A8_CASES)
+def test_w4a8_kernel_matches_plain(cuda, case):
+    """Kernel E against its plain version on the same card: plain and
+    grouped_xs bit-identical (exact int32 products, the fp32 epilogue in
+    the same order); norm_rope within one bf16 ulp plus 2^-21 of the
+    largest |output| (the 128-term mean's order and rsqrt's rounding move
+    the fp32 terms by ~1e-7 relative, which a near-zero rotated output
+    x1 cos - x2 sin does not scale down);
+    gelu_quant's y8 one step apart on at most 0.1 % (exp's last bit), its
+    scales within 1e-6."""
+    mode, m, k, n, group = case
+    g = torch.Generator(device=cuda).manual_seed(10)
+    layer, x8, xs, extra = w4a8_inputs(mode, m, k, n, group, g, cuda)
+    args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias)
+    launches = w4a8_matmul.mode_launches[mode]
+    got = w4a8_matmul(*args, mode=mode, **extra)
+    torch.cuda.synchronize()
+    assert w4a8_matmul.mode_launches[mode] == launches + 1
+    want = w4a8_matmul_plain(*args, mode=mode, **extra)
+    if mode == "gelu_quant":
+        assert got[0].shape == (m, n) and got[1].shape == (m, n // 512)
+        assert_int8_close(got[0], want[0], share=1e-3)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    elif mode == "norm_rope":
+        want = want.float()
+        bound = bf16_ulp(want) + 2.0**-21 * want.abs().max()
+        diff = (got.float() - want).abs()
+        assert torch.all(diff <= bound), (diff / bound).max().item()
+    else:
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_w4a8_wrapper_raises_on_unsupported_input(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    layer, x8, xs, _ = w4a8_inputs("plain", 8, 512, 256, 64, g, cuda)
+    args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias)
+    with pytest.raises(ValueError, match="multiple of 512"):
+        w4a8_matmul(*args, mode="gelu_quant")
+    with pytest.raises(TypeError):
+        w4a8_matmul(x8.float(), *args[1:])
+    with pytest.raises(ValueError, match="bias"):
+        w4a8_matmul(*args[:-1], layer.bias.float())
+    with pytest.raises(TypeError):
+        w4a8_matmul(*args, out_dtype=torch.float32)
