@@ -18,10 +18,21 @@ Phases, each raising on failure (the script then exits non-zero):
      inputs, at the FLUX w4a8 shapes plus M=1, a ragged M and group 32, and
      their device times beside the plain versions' and kernel C's at the
      same (M, K, N);
-  5. reduced-depth, full-width MMDiTs in bf16 on the card (kernels on)
+  3-4c. the kernels of the w8a8 and int8 modes against their plain versions
+     on the card: gelu_quantize and w8_matmul at the SD3-medium w8a8 and
+     T5-XXL w8a8 shapes, int8_matmul at the SD3-medium int8 shapes, kernel
+     D on 10240- and 12288-wide rows, each with a ragged M; their device
+     times beside the plain versions' (w8_matmul beside torch._int_mm's
+     int32 product alone, int8_matmul beside kernel C's);
+  every kernel's time is printed beside its bound (the larger of its
+  operations over the card's peak for their type and its bytes over
+  3.35 TB/s) and, for flash attention, beside F.scaled_dot_product_attention
+  on the same inputs (a yardstick; the port never calls it);
+  5. reduced-depth, full-width models in bf16 on the card (kernels on)
      against the same weights in fp32 on the CPU (plain path): SD3-medium
-     (2 blocks), FLUX.1-schnell int4 and FLUX.1-schnell w4a8 (1 dual-stream
-     + 2 single-stream blocks each);
+     in bf16, w8a8 and int8 (2 blocks each), FLUX.1-schnell int4 and w4a8
+     (1 dual-stream + 2 single-stream blocks each), and T5-XXL in w8a8 after
+     SmoothQuant (2 layers);
   6. the main paths, with random weights from a seed, each serving two
      requests through generate_image and repeating the first through the
      phase methods (the repeat must give the identical image, the two
@@ -36,6 +47,18 @@ Phases, each raising on failure (the script then exits non-zero):
         packed model given to FluxPipeline(quantize_mmdit="w4a8"), which adds
         the per-channel wscale; b's T5-XXL, CLIP-L, VAE and tokenizers;
         kernel C must not run;
+     d. SD3-medium w8a8: a float bf16 SD3-medium drawn on the card and given
+        to DiffusionPipeline(quantize_mmdit="w8a8"), which converts it on
+        the card; a's encoders, decoder and settings; kernels C, E and
+        int8_matmul must not run;
+     e. SD3-medium int8 weight-only: the same with quantize_mmdit="int8";
+        w8_matmul, C and E must not run;
+     f. the FLUX serving configuration of bench.py's flux-e2e: c's packed
+        w4a8 MMDiT with FluxPipeline(quantize_mmdit="w4a8",
+        quantize_t5=True), which smooths b's bf16 T5-XXL and converts it to
+        w8a8 on the card; c's settings;
+     (run in the order a, d, e, b, c, f, so d and e share a's encoders and
+     f c's models);
   7. two denoise steps of each path under torch.profiler: device-busy time
      per step by kernel family and the device's idle share; for FLUX also
      the text encoding (T5-XXL and CLIP-L).
@@ -55,6 +78,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from diffusionkit_tpu_torch.config import (
     CLIP_G,
@@ -67,12 +91,15 @@ from diffusionkit_tpu_torch.config import (
 from diffusionkit_tpu_torch.flops import device_peak_flops, mmdit_step_flops
 from diffusionkit_tpu_torch.models import init_clip, init_mmdit, init_t5, init_vae_decoder
 from diffusionkit_tpu_torch.models.mmdit import MMDiT
+from diffusionkit_tpu_torch.models.t5 import T5Encoder
 from diffusionkit_tpu_torch.ops import kernels
 from diffusionkit_tpu_torch.ops.flash_attention import (
     flash_attention_bshd,
     flash_attention_bshd_plain,
 )
 from diffusionkit_tpu_torch.ops.fused_quant import (
+    gelu_quantize,
+    gelu_quantize_plain,
     mod_ln,
     mod_ln_plain,
     mod_ln_quantize,
@@ -80,9 +107,29 @@ from diffusionkit_tpu_torch.ops.fused_quant import (
     quantize,
     quantize_plain,
 )
-from diffusionkit_tpu_torch.ops.int4_matmul import dequantize_int4, int4_matmul, int4_matmul_plain
-from diffusionkit_tpu_torch.ops.quantized import QuantizedLinear, add_wscale_, wscale_from_q4
-from diffusionkit_tpu_torch.ops.w4a8_matmul import MODES, w4a8_matmul, w4a8_matmul_plain
+from diffusionkit_tpu_torch.ops.int4_matmul import (
+    dequantize_int4,
+    dequantize_int8,
+    int4_matmul,
+    int4_matmul_plain,
+    int8_matmul,
+    int8_matmul_plain,
+)
+from diffusionkit_tpu_torch.ops.quantized import (
+    QuantizedLinear,
+    add_wscale_,
+    quantize_module_,
+    wscale_from_q4,
+)
+from diffusionkit_tpu_torch.ops.smoothquant import smooth_t5
+from diffusionkit_tpu_torch.ops.w4a8_matmul import (
+    MODES,
+    w4a8_matmul,
+    w4a8_matmul_plain,
+    w8_matmul,
+    w8_matmul_plain,
+)
+from diffusionkit_tpu_torch.ops.w8a8 import W8A8Linear, w8a8_module_
 from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline
 from diffusionkit_tpu_torch.tokenizer import (
     CLIPTokenizer,
@@ -104,10 +151,22 @@ KERNELS = {
     **{f"w4a8_matmul[{mode}]": ("diffusionkit_tpu_torch/csrc/w4a8_matmul.cu",
                                 "diffusionkit_tpu/ops/w4a8_matmul.py:268")
        for mode in MODES},
+    "gelu_quantize": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
+                      "diffusionkit_tpu/ops/fused_quant.py:229"),
+    "w8_matmul": ("diffusionkit_tpu_torch/csrc/w8_matmul.cu",
+                  "diffusionkit_tpu/ops/w4a8_matmul.py:530"),
+    "int8_matmul": ("diffusionkit_tpu_torch/csrc/int4_matmul.cu",
+                    "diffusionkit_tpu/ops/int4_matmul.py:244"),
 }
 COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "int4_matmul": int4_matmul, "mod_ln_quantize": mod_ln_quantize,
-           "quantize": quantize}
+           "quantize": quantize, "gelu_quantize": gelu_quantize, "w8_matmul": w8_matmul,
+           "int8_matmul": int8_matmul}
+# The path whose launches the kernels line reports for each kernel: the
+# slice that brought it, or for kernel C, which the w4a8 path must not run,
+# the FLUX int4 path.
+MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flux",
+             "gelu_quantize": "sd3-w8a8", "w8_matmul": "sd3-w8a8", "int8_matmul": "sd3-int8"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +190,10 @@ FLUX = Path("flux", 4, 0.0, (128, 128), 256, (
     ("an isometric illustration of a tiny island city", 11),
 ))
 FLUX_W4A8 = dataclasses.replace(FLUX, name="flux-w4a8")
+SD3_W8A8 = dataclasses.replace(SD3, name="sd3-w8a8")
+SD3_INT8 = dataclasses.replace(SD3, name="sd3-int8")
+FLUX_E2E = dataclasses.replace(FLUX, name="flux-w4a8-t5w8a8")
+T5_LAYERS = T5_XXL.num_layers
 
 MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536)]  # SD3 image / text stream sites
 # SD3 joint attention / VAE mid-block at 512² / FLUX joint attention at 1024².
@@ -196,6 +259,66 @@ FLASH_SLACK = 2.0**-8
 # CPU lands at a relative L2 error of 8.5e-3 on its check; the same bound
 # holds FLUX's three blocks (the int4 weights are identical on both sides).
 REF_RTOL = 3e-2
+
+# The H100 SXM's published dense peaks and memory rate (NVIDIA's data
+# sheet), against which each kernel's bound is computed.
+PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+HBM = 3.35e12
+# Non-tensor fp32 operations an element of the row kernels: mod_ln's sums,
+# centring, squares and modulation; A' adds the absmax and the rounding;
+# D the absmax, division and rounding; #4 the A&S GELU (~25) and D's.
+ROW_OPS = {"mod_ln": 9, "mod_ln_quantize": 12, "quantize": 3, "gelu_quantize": 30}
+
+
+def bound(ops: float, peak: str, nbytes: float) -> tuple:
+    """(ms, what sets it): the larger of ``ops`` at the card's peak rate for
+    their type and ``nbytes`` (each input read once, each output written
+    once) at the memory rate."""
+    t_ops, t_bytes = ops / PEAK[peak], nbytes / HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_bound(name: str, shape) -> tuple:
+    """The bound of one call of kernel ``name`` at ``shape`` (bf16
+    activations), in the layout each phase times it."""
+    if name == "mod_ln":
+        b, s_, h = shape
+        return bound(ROW_OPS[name] * b * s_ * h, "fp32", 4 * b * s_ * h + 4 * b * h)
+    if name == "mod_ln_quantize":
+        b, s_, h = shape
+        return bound(ROW_OPS[name] * b * s_ * h, "fp32", 3 * b * s_ * h + 4 * b * s_ + 4 * b * h)
+    if name in ("quantize", "gelu_quantize"):
+        m, k = shape
+        return bound(ROW_OPS[name] * m * k, "fp32", 3 * m * k + 4 * m)
+    if name == "flash_attention_bshd":
+        b, s_, h, d = shape
+        return bound(4 * b * h * s_ * s_ * d, "bf16", 8 * b * s_ * h * d)
+    if name == "w8_matmul":
+        m, k, n = shape
+        return bound(2 * m * k * n, "int8", m * k + n * k + 4 * m + 6 * n + 2 * m * n)
+    m, k, n, g = shape
+    affine = 8 * (k // g) * n  # scales and zeros
+    if name == "int4_matmul":
+        return bound(2 * m * k * n, "bf16", 2 * m * k + k * n // 2 + affine + 2 * m * n)
+    if name == "int8_matmul":
+        return bound(2 * m * k * n, "bf16", 2 * m * k + k * n + affine + 2 * m * n)
+    mode = name[len("w4a8_matmul["):-1]
+    out = m * n + 4 * m * (n // 512) if mode == "gelu_quant" else 2 * m * n
+    xs = 4 * m * (k // 512 if mode == "grouped_xs" else 1)
+    extra = 2 * m * 64 * 4 + 256 if mode == "norm_rope" else 0  # cos/sin tables, norm weight
+    return bound(2 * m * k * n, "int8", m * k + k * n // 2 + affine + 6 * n + xs + out + extra)
+
+
+def timing(name: str, shape, ms: float, plain: float, **extra) -> dict:
+    """One timed shape of a kernel: its time, its plain version's, its bound
+    and any yardstick (``library_ms``, kernel C's time)."""
+    b_ms, b_by = kernel_bound(name, shape)
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, **extra}
+
+
+def bound_note(t: dict) -> str:
+    return f"bound {t['bound_ms']!r} ms ({t['bound_by']}), at {t['bound_ms'] / t['ms']!r} of it"
 
 
 def log(msg: str) -> None:
@@ -346,27 +469,34 @@ def time_kernels(mod, flash, int4, tag: str) -> dict:
         ms = device_ms(lambda: mod_ln(x, sh, sc))
         plain = device_ms(lambda: mod_ln_plain(x, sh, sc))
         moved = 2 * x.numel() * x.element_size()
+        t = timing("mod_ln", tuple(x.shape), ms, plain)
         log(f"  mod_ln {tuple(x.shape)}: kernel {ms!r} ms ({moved / ms / 1e9!r} TB/s), "
-            f"plain {plain!r} ms [{tag}]")
-        times["mod_ln"].append((tuple(x.shape), ms, plain))
+            f"plain {plain!r} ms, {bound_note(t)} [{tag}]")
+        times["mod_ln"].append(t)
     for q, k, v in flash:
         scale = q.shape[-1] ** -0.5
         ms = device_ms(lambda: flash_attention_bshd(q, k, v, scale))
         plain = device_ms(lambda: flash_attention_bshd_plain(q, k, v, scale), reps=5)
+        qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))  # (B, H, S, D) views
+        lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
         b, s, h, d = q.shape
         tflops = 4 * b * h * s * s * d / (ms / 1e3) / 1e12
+        t = timing("flash_attention_bshd", tuple(q.shape), ms, plain, library_ms=lib)
         log(f"  flash_attention_bshd {tuple(q.shape)}: kernel {ms!r} ms ({tflops!r} TFLOP/s), "
-            f"plain {plain!r} ms [{tag}]")
-        times["flash_attention_bshd"].append((tuple(q.shape), ms, plain))
+            f"plain {plain!r} ms, F.scaled_dot_product_attention {lib!r} ms, {bound_note(t)} "
+            f"[{tag}]")
+        times["flash_attention_bshd"].append(t)
     for shape, (x, q4, s, z) in zip(INT4_SHAPES, int4):
         m, k, n, _ = shape
         ms = device_ms(lambda: int4_matmul(x, q4, s, z))
         plain = device_ms(lambda: int4_matmul_plain(x, q4, s, z))
         tflops = 2 * m * k * n / (ms / 1e3) / 1e12
         wbytes = q4.numel() * 4 + 2 * s.numel() * 4
+        t = timing("int4_matmul", shape, ms, plain)
         log(f"  int4_matmul (M, K, N, group) {shape}: kernel {ms!r} ms ({tflops!r} TFLOP/s, "
-            f"{wbytes / ms / 1e9!r} TB/s of packed weight), plain {plain!r} ms [{tag}]")
-        times["int4_matmul"].append((shape, ms, plain))
+            f"{wbytes / ms / 1e9!r} TB/s of packed weight), plain {plain!r} ms, {bound_note(t)} "
+            f"[{tag}]")
+        times["int4_matmul"].append(t)
     return times
 
 
@@ -460,9 +590,10 @@ def w4a8_kernels(gen, tag: str):
             ms = device_ms(lambda: mod_ln_quantize(x, sh, sc))
             plain = device_ms(lambda: mod_ln_quantize_plain(x, sh, sc))
             moved = x.numel() * 3
+            t = timing("mod_ln_quantize", shape, ms, plain)
             log(f"  mod_ln_quantize {shape}: kernel {ms!r} ms ({moved / ms / 1e9!r} TB/s), "
-                f"plain {plain!r} ms [{tag}]")
-            times["mod_ln_quantize"].append((shape, ms, plain))
+                f"plain {plain!r} ms, {bound_note(t)} [{tag}]")
+            times["mod_ln_quantize"].append(t)
     for shape in QUANTIZE_SHAPES:
         y = (torch.randn(shape, generator=gen, device="cuda") * 3).bfloat16()
         got, want = quantize(y), quantize_plain(y)
@@ -473,9 +604,10 @@ def w4a8_kernels(gen, tag: str):
             raise AssertionError(f"quantize {shape} disagrees with its plain version")
         errs["quantize"].append(0.0)
         ms, plain = device_ms(lambda: quantize(y)), device_ms(lambda: quantize_plain(y))
+        t = timing("quantize", shape, ms, plain)
         log(f"  quantize {shape}: kernel {ms!r} ms ({y.numel() * 3 / ms / 1e9!r} TB/s), "
-            f"plain {plain!r} ms [{tag}]")
-        times["quantize"].append((shape, ms, plain))
+            f"plain {plain!r} ms, {bound_note(t)} [{tag}]")
+        times["quantize"].append(t)
     for mode in MODES:
         name = f"w4a8_matmul[{mode}]"
         for shape in W4A8_SHAPES[mode] + W4A8_RAGGED[mode]:
@@ -493,38 +625,186 @@ def w4a8_kernels(gen, tag: str):
             x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
             c_ms = device_ms(lambda: int4_matmul(x, *args[1:4]))
             tops = 2 * m * k * n / (ms / 1e3) / 1e12
+            t = timing(name, shape, ms, plain, int4_matmul_ms=c_ms)
             log(f"  {name} (M, K, N, group) {shape}: kernel {ms!r} ms ({tops!r} TOP/s, "
                 f"{args[1].numel() * 4 / ms / 1e9!r} TB/s of packed weight), plain {plain!r} ms, "
-                f"kernel C at this shape {c_ms!r} ms [{tag}]")
-            times[name].append((shape, ms, plain, c_ms))
+                f"kernel C at this shape {c_ms!r} ms, {bound_note(t)} [{tag}]")
+            times[name].append(t)
             del args, extra, x
         torch.cuda.empty_cache()
     return errs, times
 
 
-def reference_check(cfg, inputs, want_counts: dict, label: str, gen,
-                    quantize_bits=None, w4a8=False) -> None:
-    """Phase 5: a full-width, reduced-depth MMDiT in bf16 with the kernels on
-    the card against the same weights (and, for w4a8, the same wscale) in
-    fp32 on the CPU (plain path). A counter the check does not name must
-    stay at 0."""
-    model = init_mmdit(cfg, gen, "cuda", quantize_bits=quantize_bits)
-    if w4a8:
-        add_wscale_(model)
+# Kernel D on rows wider than 8192: T5-XXL's wo input (256 tokens x d_ff
+# 10240) and a FLUX w8a8 FFN hidden (4352 x 12288). Bit-identical.
+WIDE_ROWS = [(256, 10240), (4352, 12288)]
+# Kernel #4 at the SD3-medium w8a8 FFN hiddens: image rows (2 x 1024) and
+# text rows (2 x 154), 6144 wide; a ragged M checked, not timed.
+GELU_SHAPES = [(2048, 6144), (308, 6144)]
+GELU_RAGGED = [(77, 6144)]
+# (M, K, N) of kernel #11: SD3-medium w8a8 at 512² with CFG (image rows
+# 2048, text rows 308): q/k/v/o, fc1, fc2; the AdaLN `ada` GEMVs of the
+# blocks and the final layer, the y/t embedders' GEMVs; the x_embedder
+# (K = 64), the context embedder and the final linear (N = 64); T5-XXL's
+# projections at 256 tokens. A ragged M checked, not timed.
+W8_SHAPES = [(2048, 1536, 1536), (308, 1536, 1536), (2048, 1536, 6144), (308, 1536, 6144),
+             (2048, 6144, 1536), (308, 6144, 1536), (2, 1536, 9216), (2, 1536, 3072),
+             (2, 2048, 1536), (2, 256, 1536), (2, 1536, 1536), (2048, 64, 1536),
+             (308, 4096, 1536), (2048, 1536, 64), (256, 4096, 4096), (256, 4096, 10240),
+             (256, 10240, 4096)]
+W8_RAGGED = [(77, 1536, 1536)]
+# (M, K, N, group) of kernel #13: SD3-medium int8 at the quantize-at-load
+# group 32 (the x_embedder and final linear stay float: MIN_DIM). A ragged
+# M checked, not timed.
+INT8_SHAPES = [(2048, 1536, 1536, 32), (308, 1536, 1536, 32), (2048, 1536, 6144, 32),
+               (308, 1536, 6144, 32), (2048, 6144, 1536, 32), (308, 6144, 1536, 32),
+               (2, 1536, 9216, 32), (2, 1536, 3072, 32), (2, 2048, 1536, 32),
+               (2, 256, 1536, 32), (2, 1536, 1536, 32), (308, 4096, 1536, 32)]
+INT8_RAGGED = [(77, 1536, 1536, 32)]
+
+
+def w8a8_kernels(gen, tag: str):
+    """Phase 3-4c: kernel D on wide rows and kernels #4, #11 and #13 against
+    their plain versions on the card, then each one's device time beside its
+    plain version's and its bound (and #11's beside the int32 product of
+    ``torch._int_mm`` alone, where its shape rules allow; #13's beside kernel
+    C's at the same shape). Tolerances: D and #11 bit-identical; #4 one
+    step on <= 0.1 %, scales within 1e-6; #13 kernel C's bound."""
+    dev = torch.device("cuda")
+    errs = {"quantize": [], "gelu_quantize": [], "w8_matmul": [], "int8_matmul": []}
+    times = {name: [] for name in errs}
+    for shape in WIDE_ROWS:
+        y = (torch.randn(shape, generator=gen, device=dev) * 3).bfloat16()
+        got, want = quantize(y), quantize_plain(y)
+        torch.cuda.synchronize()
+        ok = torch.equal(got.x8, want.x8) and torch.equal(got.xscale, want.xscale)
+        log(f"  quantize {shape} (wide rows): bit-identical to its plain version: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"quantize {shape} disagrees with its plain version")
+        errs["quantize"].append(0.0)
+        ms, plain = device_ms(lambda: quantize(y)), device_ms(lambda: quantize_plain(y))
+        t = timing("quantize", shape, ms, plain)
+        log(f"  quantize {shape}: kernel {ms!r} ms ({y.numel() * 3 / ms / 1e9!r} TB/s), "
+            f"plain {plain!r} ms, {bound_note(t)} [{tag}]")
+        times["quantize"].append(t)
+    for shape in GELU_SHAPES + GELU_RAGGED:
+        y = (torch.randn(shape, generator=gen, device=dev) * 2).bfloat16()
+        got, want = gelu_quantize(y), gelu_quantize_plain(y)
+        torch.cuda.synchronize()
+        worst, share = int8_flips(got.x8, want.x8)
+        srel = ((got.xscale - want.xscale).abs() / want.xscale).max().item()
+        ok = worst <= 1 and share <= 1e-3 and srel <= 1e-6
+        log(f"  gelu_quantize {shape}: y8 max step {worst} on {share!r} of the elements "
+            f"(<= 1 on <= 0.001), scales max rel {srel!r} (<= 1e-6): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"gelu_quantize {shape} disagrees with its plain version")
+        errs["gelu_quantize"].append(float(worst))
+        if shape in GELU_SHAPES:
+            ms = device_ms(lambda: gelu_quantize(y))
+            plain = device_ms(lambda: gelu_quantize_plain(y))
+            t = timing("gelu_quantize", shape, ms, plain)
+            log(f"  gelu_quantize {shape}: kernel {ms!r} ms ({y.numel() * 3 / ms / 1e9!r} TB/s), "
+                f"plain {plain!r} ms, {bound_note(t)} [{tag}]")
+            times["gelu_quantize"].append(t)
+    for shape in W8_SHAPES + W8_RAGGED:
+        m, k, n = shape
+        x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        xs = (torch.rand(m, 1, generator=gen, device=dev) + 0.5) / (127 * k**0.5)
+        ws = (torch.rand(n, generator=gen, device=dev) + 0.5) / 127
+        b = (0.1 * torch.randn(n, generator=gen, device=dev)).bfloat16()
+        args = (x8, w8, ws, xs, b)
+        got, want = w8_matmul(*args), w8_matmul_plain(*args)
+        torch.cuda.synchronize()
+        ok = got.dtype == torch.bfloat16 and torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"  w8_matmul (M, K, N) {shape}: bit-identical to its plain version: "
+            f"{'ok' if ok else 'FAIL'} (max_abs_err {err!r})")
+        if not ok:
+            raise AssertionError(f"w8_matmul {shape} disagrees with its plain version")
+        errs["w8_matmul"].append(err)
+        if shape in W8_SHAPES:
+            ms = device_ms(lambda: w8_matmul(*args))
+            plain = device_ms(lambda: w8_matmul_plain(*args), reps=5)
+            w8t = w8.t()
+            int_mm = device_ms(lambda: torch._int_mm(x8, w8t)) if m > 16 else None
+            t = timing("w8_matmul", shape, ms, plain, int32_product_only_ms=int_mm)
+            log(f"  w8_matmul (M, K, N) {shape}: kernel {ms!r} ms "
+                f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TOP/s, {n * k / ms / 1e9!r} TB/s of w8), "
+                f"plain {plain!r} ms, torch._int_mm's int32 product alone {int_mm!r} ms, "
+                f"{bound_note(t)} [{tag}]")
+            times["w8_matmul"].append(t)
+        del args, x8, w8, got, want
+    for shape in INT8_SHAPES + INT8_RAGGED:
+        m, k, n, group = shape
+        q8 = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
+        sc = (torch.rand(k // group, n, generator=gen, device=dev) + 0.5) * (2 / 255 / k**0.5)
+        zr = -(torch.rand(k // group, n, generator=gen, device=dev) + 0.5) / k**0.5
+        x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        got = int8_matmul(x, q8, sc, zr)
+        torch.cuda.synchronize()
+        w = dequantize_int8(q8, sc, zr, torch.bfloat16).float()
+        want = x.float() @ w
+        bnd = bf16_ulp(want) + 2 * k * 2.0**-24 * (x.float().abs() @ w.abs())
+        diff = (got.float() - want).abs()
+        err, ratio = diff.max().item(), (diff / bnd).max().item()
+        ok = ratio <= 1 and bool(torch.isfinite(got).all())
+        log(f"  int8_matmul (M, K, N, group) {shape}: max_abs_err {err!r}; tolerance one bf16 "
+            f"ulp + 2K 2^-24 (|x|@|w|) per element, worst element at {ratio!r} of it: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"int8_matmul {shape} disagrees")
+        errs["int8_matmul"].append(err)
+        del w, want, bnd, diff
+        if shape in INT8_SHAPES:
+            ms = device_ms(lambda: int8_matmul(x, q8, sc, zr))
+            plain = device_ms(lambda: int8_matmul_plain(x, q8, sc, zr))
+            _, q4, s4, z4 = random_int4(shape, gen)
+            c_ms = device_ms(lambda: int4_matmul(x, q4, s4, z4))
+            t = timing("int8_matmul", shape, ms, plain, int4_matmul_ms=c_ms)
+            log(f"  int8_matmul (M, K, N, group) {shape}: kernel {ms!r} ms "
+                f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TFLOP/s, "
+                f"{k * n / ms / 1e9!r} TB/s of q8), "
+                f"plain {plain!r} ms, kernel C at this shape {c_ms!r} ms, {bound_note(t)} [{tag}]")
+            times["int8_matmul"].append(t)
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def fp32_cpu_mirror(model: torch.nn.Module, make) -> torch.nn.Module:
+    """An fp32 copy of ``model`` on the CPU: ``make()`` builds the float
+    structure, every packed or w8a8 linear of ``model`` is mirrored by a
+    layer of the same form, and the weights (and scales) are loaded."""
     with torch.device("meta"):
-        ref = MMDiT(dataclasses.replace(cfg, dtype=torch.float32),
-                    quantize_group_size=64 if quantize_bits else None)
+        ref = make()
+        for name, m in model.named_modules():
+            if not isinstance(m, (QuantizedLinear, W8A8Linear)):
+                continue
+            parent, _, leaf = name.rpartition(".")
+            owner = ref.get_submodule(parent) if parent else ref
+            bias = m.bias is not None
+            if isinstance(m, W8A8Linear):
+                twin = W8A8Linear(m.in_features, m.out_features, bias=bias, dtype=torch.float32)
+            else:
+                twin = QuantizedLinear(m.in_features, m.out_features, m.group_size, bias=bias,
+                                       dtype=torch.float32, wscale=m.wscale is not None,
+                                       bits=m.bits)
+            setattr(owner, leaf, twin)
     ref.to_empty(device="cpu")
-    if w4a8:
-        for layer in ref.modules():
-            if isinstance(layer, QuantizedLinear):
-                layer.wscale = torch.empty(layer.out_features)
     ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return ref.eval()
+
+
+def reference_check(model, ref, inputs, want_counts: dict, label: str) -> None:
+    """Phase 5: a full-width, reduced-depth model in bf16 with the kernels on
+    the card against the same weights in fp32 on the CPU (plain path). A
+    counter the check does not name must stay at 0."""
     reset_counts()
     with torch.inference_mode():
         got = model(*(t.cuda() for t in inputs)).float().cpu()
         have = counts()
-        want = ref(*inputs)
+        want = ref(*inputs).float()
     for name in have:
         if have[name] != want_counts.get(name, 0):
             raise AssertionError(f"{label}: {name} launched {have[name]} times, expected "
@@ -536,6 +816,41 @@ def reference_check(cfg, inputs, want_counts: dict, label: str, gen,
         raise AssertionError(f"{label}: the bf16 model on the card disagrees with fp32")
 
 
+def mmdit_check(cfg, inputs, want_counts: dict, label: str, gen, quantize_bits=None,
+                convert=None) -> None:
+    """``reference_check`` of a random MMDiT drawn on the card (packed
+    blocks with ``quantize_bits``), then converted in place by
+    ``convert``."""
+    model = init_mmdit(cfg, gen, "cuda", quantize_bits=quantize_bits)
+    if convert is not None:
+        convert(model)
+    ref = fp32_cpu_mirror(model, lambda: MMDiT(dataclasses.replace(cfg, dtype=torch.float32)))
+    reference_check(model, ref, inputs, want_counts, label)
+
+
+def per_forward_sd3(depth: int, mode=None) -> dict:
+    """Launches of one SD3 forward (CFG batch) with ``depth`` dual blocks,
+    the last K/V-only, by quantize mode. Float: kernel A at 4 AdaLN sites a
+    block (3 in the last) and the final layer. int8: the same, and #13 for
+    the 14 block linears of a block (11 in the last: its text stream has no
+    o/fc1/fc2), the context embedder, the y/t embedders' four and the final
+    ``ada`` (the x_embedder and final linear are below MIN_DIM). w8a8 (every
+    linear converted, min_dim 0): #11 for those and the x_embedder and final
+    linear (14 a block, 11 in the last, 8 outside); kernel D before each
+    float input (ada x2 and o x2 a block, ada x2 and o in the last, the
+    six embedder linears and the final ada); A' at every AdaLN site and the
+    final layer's; #4 in each FFN."""
+    dual = depth - 1
+    per = {"flash_attention_bshd": depth}
+    if mode == "w8a8":
+        return {**per, "w8_matmul": 14 * dual + 19, "quantize": 4 * dual + 10,
+                "mod_ln_quantize": 4 * dual + 4, "gelu_quantize": 2 * dual + 1}
+    per["mod_ln"] = 4 * dual + 4
+    if mode == "int8":
+        per["int8_matmul"] = 14 * dual + 17
+    return per
+
+
 def reference_checks(gen) -> None:
     rs = np.random.RandomState(0)
     sd3 = dataclasses.replace(SD3_2b, depth_multimodal=2, hidden_size_override=1536)
@@ -543,19 +858,34 @@ def reference_checks(gen) -> None:
               torch.from_numpy(rs.randn(2, 154, 4096).astype(np.float32)),
               torch.from_numpy(rs.randn(2, 2048).astype(np.float32)),
               torch.tensor([900.0, 900.0])]
-    reference_check(sd3, inputs, {"mod_ln": 4 + 3 + 1, "flash_attention_bshd": 2,
-                                  "int4_matmul": 0},
-                    "SD3 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen)
+    mmdit_check(sd3, inputs, per_forward_sd3(2),
+                "SD3 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen)
+    # SD3 w8a8 as the reference's random w8a8 init draws it (block linears
+    # in w8a8; embedders and final layer float, so kernel A runs once, in
+    # the final layer): per block #11 for 14 linears (11 in the last), D
+    # before ada x2 and o x2 (ada x2 and o), A' at 4 sites (3), #4 per FFN.
+    # Converting every linear of a float model, as path d does, puts the
+    # bf16-vs-fp32 difference at the w8a8 grid's own error (3.35e-2 in
+    # bf16 vs fp32 on the CPU at this size): the int8 steps that bf16
+    # rounding flips are as large as the quantization noise.
+    mmdit_check(sd3, inputs, {"w8_matmul": 14 + 11, "quantize": 4 + 3, "mod_ln_quantize": 4 + 3,
+                              "gelu_quantize": 2 + 1, "mod_ln": 1, "flash_attention_bshd": 2},
+                "SD3 w8a8 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen,
+                quantize_bits="w8a8")
+    # SD3 int8: a float model quantized at load on the card at group 32.
+    mmdit_check(sd3, inputs, per_forward_sd3(2, "int8"),
+                "SD3 int8 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen,
+                convert=lambda m: quantize_module_(m, 32, bits=8))
     # 512²: 1024 image + 256 text tokens, above the flash threshold.
     flux = dataclasses.replace(FLUX_SCHNELL, depth_multimodal=1, depth_unified=2)
     inputs = [torch.from_numpy(rs.randn(1, 64, 64, 16).astype(np.float32)),
               torch.from_numpy(rs.randn(1, 256, 4096).astype(np.float32)),
               torch.from_numpy(rs.randn(1, 768).astype(np.float32)),
               torch.tensor([1000.0])]
-    reference_check(flux, inputs, {"mod_ln": 4 + 2 + 1, "flash_attention_bshd": 3,
-                                   "int4_matmul": 2 * 7 + 2 * 7},
-                    "FLUX.1-schnell int4 MMDiT 1 dual + 2 single blocks x hidden 3072, 512²",
-                    gen, quantize_bits=4)
+    mmdit_check(flux, inputs, {"mod_ln": 4 + 2 + 1, "flash_attention_bshd": 3,
+                               "int4_matmul": 2 * 7 + 2 * 7},
+                "FLUX.1-schnell int4 MMDiT 1 dual + 2 single blocks x hidden 3072, 512²",
+                gen, quantize_bits=4)
     # The same at w4a8: per dual block plain 8 (ada x2, v and o of the image
     # stream, the text stream's q/k/v/o), norm_rope 2, gelu_quant 2,
     # grouped_xs 2; per single block 3 (ada, v, o), 2, 1, 1; kernel D before
@@ -563,9 +893,42 @@ def reference_checks(gen) -> None:
     # the final layer only; no kernel C.
     want = per_block_w4a8(1, 2)
     want.update({"mod_ln": 1, "flash_attention_bshd": 3})
-    reference_check(flux, inputs, want,
-                    "FLUX.1-schnell w4a8 MMDiT 1 dual + 2 single blocks x hidden 3072, 512²",
-                    gen, quantize_bits=4, w4a8=True)
+    mmdit_check(flux, inputs, want,
+                "FLUX.1-schnell w4a8 MMDiT 1 dual + 2 single blocks x hidden 3072, 512²",
+                gen, quantize_bits=4, convert=add_wscale_)
+    # T5-XXL w8a8 after SmoothQuant, 2 layers at 256 tokens: per layer 7
+    # w8a8 products, kernel D once for q/k/v, once for wi_0/wi_1 and before
+    # out_proj and wo (10240 wide). The weights are drawn at HF T5's
+    # initialisation scales, a trained T5's magnitudes: at std 0.02
+    # everywhere the unscaled attention's softmax is so sharp that bf16
+    # rounding alone moves the output by 1.9 % at d_model 1024 (0.4 % at
+    # these scales; both on the CPU).
+    t5 = dataclasses.replace(T5_XXL, num_layers=2)
+    model = init_t5(t5, gen, "cuda", dtype=torch.bfloat16)
+    t5_trained_scales_(model, gen)
+    smooth_t5(model, SyntheticT5Tokenizer(max_length=256))
+    w8a8_module_(model)
+    ref = fp32_cpu_mirror(model, lambda: T5Encoder(t5, torch.float32))
+    tokens = torch.from_numpy(rs.randint(1, t5.vocab_size, size=(1, 256)).astype(np.int64))
+    reference_check(model, ref, [tokens], {"w8_matmul": 2 * 7, "quantize": 2 * 4},
+                    "T5-XXL w8a8 (SmoothQuant) 2 layers x d_model 4096, d_ff 10240, 256 tokens")
+
+
+@torch.no_grad()
+def t5_trained_scales_(model: T5Encoder, gen) -> None:
+    """Redraw a T5's weights at HF T5's initialisation scales: q with std
+    (d_model d_kv)^-1/2, k/v/wi with d_model^-1/2, o with (heads d_kv)^-1/2,
+    wo with d_ff^-1/2, the embedding with 1 and the bucket table with
+    d_model^-1/2."""
+    c = model.config
+    for layer in model.layers:
+        layer.query_proj.weight.normal_(0.0, (c.d_model * c.d_kv) ** -0.5, generator=gen)
+        for lin in (layer.key_proj, layer.value_proj, layer.wi_0, layer.wi_1):
+            lin.weight.normal_(0.0, c.d_model**-0.5, generator=gen)
+        layer.out_proj.weight.normal_(0.0, (c.num_heads * c.d_kv) ** -0.5, generator=gen)
+        layer.wo.weight.normal_(0.0, c.d_ff**-0.5, generator=gen)
+    model.wte.weight.normal_(0.0, 1.0, generator=gen)
+    model.relative_attention_bias.weight.normal_(0.0, c.d_model**-0.5, generator=gen)
 
 
 def per_block_w4a8(dual: int, uni: int) -> dict:
@@ -581,22 +944,27 @@ def per_request_launches(path: Path, cfg) -> dict:
     MLP, 3 in SD3's K/V-only last block, 1 a single-stream block, 1 the final
     layer), and for the int4 model the 7 block linears of each stream
     (q, k, v, o, fc1, fc2, ada); for the w4a8 model per_block_w4a8 and
-    kernel A in the final layer only; plus the VAE mid-block's attention. A
-    kernel a path must not run has 0 (kernel C on the w4a8 path)."""
-    if path is FLUX_W4A8:
-        dual, uni = cfg.depth_multimodal, cfg.depth_unified
-        per = {k: path.steps * v for k, v in per_block_w4a8(dual, uni).items()}
-        return {**per, "mod_ln": path.steps, "int4_matmul": 0,
-                "flash_attention_bshd": path.steps * (dual + uni) + 1}
-    if path is FLUX:
-        dual, uni = cfg.depth_multimodal, cfg.depth_unified
+    kernel A in the final layer only; for SD3 per_forward_sd3 by mode; plus
+    the VAE mid-block's attention, and with the w8a8 T5 its 7 products and
+    4 quantizations a layer. A kernel a path must not run has 0 (kernel C on
+    the w4a8 paths, C, E and #13 on SD3 w8a8, #11, C and E on SD3 int8)."""
+    if path.name.startswith("sd3"):
+        mode = {"sd3": None, "sd3-w8a8": "w8a8", "sd3-int8": "int8"}[path.name]
+        per = {k: path.steps * v for k, v in per_forward_sd3(cfg.depth_multimodal, mode).items()}
+        per["flash_attention_bshd"] += 1
+        return per
+    dual, uni = cfg.depth_multimodal, cfg.depth_unified
+    if path.name == FLUX.name:
         return {"mod_ln": path.steps * (4 * dual + uni + 1),
                 "flash_attention_bshd": path.steps * (dual + uni) + 1,
                 "int4_matmul": path.steps * (2 * 7 * dual + 7 * uni)}
-    dual = cfg.depth_multimodal - 1
-    return {"mod_ln": path.steps * (4 * dual + 3 + 1),
-            "flash_attention_bshd": path.steps * (dual + 1) + 1,
-            "int4_matmul": 0}
+    per = {k: path.steps * v for k, v in per_block_w4a8(dual, uni).items()}
+    per.update({"mod_ln": path.steps, "int4_matmul": 0,
+                "flash_attention_bshd": path.steps * (dual + uni) + 1})
+    if path.name == FLUX_E2E.name:
+        per["w8_matmul"] = 7 * T5_LAYERS
+        per["quantize"] += 4 * T5_LAYERS
+    return per
 
 
 def build_sd3(gen, _prev) -> DiffusionPipeline:
@@ -621,6 +989,54 @@ def build_flux(gen, _prev) -> FluxPipeline:
     pipe.decoder = init_vae_decoder(VAEDecoderConfig(), gen, "cuda", dtype=torch.bfloat16)
     pipe.tokenizer_l = CLIPTokenizer({}, synthetic_clip_vocab(), pad_with_eos=True)
     pipe.t5_tokenizer = SyntheticT5Tokenizer(max_length=256)
+    return pipe
+
+
+def build_sd3_quantized(mode: str):
+    """Path d / e: a fresh float bf16 SD3-medium drawn on the card and given
+    to DiffusionPipeline(quantize_mmdit=mode), which converts it on the
+    card; the previous SD3 path's CLIP-L/G, VAE decoder and tokenizers,
+    whose MMDiT is freed first."""
+    form = W8A8Linear if mode == "w8a8" else QuantizedLinear
+
+    def build(gen, prev: DiffusionPipeline) -> DiffusionPipeline:
+        prev.mmdit = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        pipe = DiffusionPipeline(device="cuda", quantize_mmdit=mode)
+        for name in ("clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g"):
+            setattr(pipe, name, getattr(prev, name))
+        t0 = time.perf_counter()
+        pipe.mmdit = init_mmdit(SD3_2b, gen, "cuda")
+        torch.cuda.synchronize()
+        blocks = pipe.mmdit.mm_blocks[0].img
+        if not all(isinstance(getattr(blocks, n), form) for n in ("q", "ada", "fc1", "fc2")):
+            raise AssertionError(f"quantize_mmdit={mode!r} left a block linear unconverted")
+        log(f"  float SD3-medium drawn and converted to {mode} on the card in "
+            f"{time.perf_counter() - t0!r} s")
+        return pipe
+
+    return build
+
+
+def build_flux_e2e(gen, prev: FluxPipeline) -> FluxPipeline:
+    """Path f, bench.py's flux-e2e configuration: the w4a8 path's packed
+    MMDiT (with its wscale: it passes through) and FluxPipeline(
+    quantize_mmdit="w4a8", quantize_t5=True), whose T5 setter smooths the
+    int4 path's bf16 T5-XXL with the synthetic tokenizer's calibration
+    tokens and converts it to w8a8 on the card; CLIP-L and the VAE shared."""
+    pipe = FluxPipeline(device="cuda", quantize_mmdit="w4a8", quantize_t5=True)
+    for name in ("clip_l", "decoder", "tokenizer_l", "t5_tokenizer"):
+        setattr(pipe, name, getattr(prev, name))
+    pipe.mmdit = prev.mmdit
+    t0 = time.perf_counter()
+    pipe.t5 = prev.t5
+    torch.cuda.synchronize()
+    linears = [m for m in pipe.t5.modules() if isinstance(m, (torch.nn.Linear, W8A8Linear))]
+    if not all(isinstance(m, W8A8Linear) for m in linears):
+        raise AssertionError("quantize_t5 left a T5 linear unconverted")
+    log(f"  T5-XXL smoothed (8 calibration prompts) and converted to w8a8 on the card in "
+        f"{time.perf_counter() - t0!r} s ({len(linears)} linears)")
     return pipe
 
 
@@ -691,12 +1107,12 @@ def serve(pipe, path: Path, tag: str):
     flops = mmdit_step_flops(cfg, path.latent, path.txt_tokens, cfg=path.cfg > 1)["total"]
     peak = device_peak_flops(torch.cuda.get_device_name(0))
     rate, peak_name = "TFLOP/s", "bf16"
-    if path is FLUX_W4A8:  # the block products run on the int8 tensor cores
-        rate, peak_name, peak = "TOP/s", "int8", 2 * peak
+    if path.name in (FLUX_W4A8.name, FLUX_E2E.name, SD3_W8A8.name):
+        rate, peak_name, peak = "TOP/s", "int8", 2 * peak  # the int8 tensor cores
     for i, lg in enumerate(logs):
         it = lg["denoising"]["iter_time"]
         median_ms = 1e3 * statistics.median(it)
-        tflops = flops / (median_ms / 1e3) / 1e12  # TOP/s on the w4a8 path
+        tflops = flops / (median_ms / 1e3) / 1e12  # TOP/s on the int8 paths
         log(f"  request {i}: text_encoding {lg['text_encoding']['time']!r} s, "
             f"denoising {lg['denoising']['time']!r} s, decoding {lg['decoding']['time']!r} s, "
             f"total {lg['total_time']!r} s/image [{tag}]")
@@ -713,6 +1129,12 @@ def family(name: str) -> str:
         return "flash_attention_bshd"
     if "w4a8_mm" in name:
         return "w4a8_matmul"
+    if "w8_mm" in name:
+        return "w8_matmul"
+    if "int8_mm" in name:
+        return "int8_matmul"
+    if "gelu_quantize_kernel" in name:
+        return "gelu_quantize"
     if "mod_ln_quant" in name:
         return "mod_ln_quantize"
     if "mod_ln" in name:
@@ -756,7 +1178,7 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
     with profile(activities=acts) as prof:
         cond, pooled = pipe.encode_text(text, path.cfg)
         torch.cuda.synchronize()
-    if path is not SD3:
+    if path.name.startswith("flux"):
         fams, _ = device_split(prof, 1)
         log(f"  text encoding (T5-XXL + CLIP-L): device busy {sum(fams.values())!r} ms "
             f"{dict(sorted(fams.items()))} [{tag}]")
@@ -812,6 +1234,13 @@ def main() -> None:
     errs.update(w_errs)
     times.update(w_times)
     torch.cuda.empty_cache()
+    log("phase 3-4c: the w8a8 and int8 kernels (gelu_quantize, w8_matmul, int8_matmul, and "
+        "quantize on wide rows) against their plain versions on the card, and their device times")
+    w_errs, w_times = w8a8_kernels(gen, tag)
+    for name in w_errs:
+        errs.setdefault(name, []).extend(w_errs[name])
+        times.setdefault(name, []).extend(w_times[name])
+    torch.cuda.empty_cache()
 
     log("phase 5: reference checks")
     reference_checks(gen)
@@ -820,9 +1249,12 @@ def main() -> None:
 
     launches, families = {}, {}
     pipe = None
-    for letter, path, build in (("a", SD3, build_sd3), ("b", FLUX, build_flux),
-                                ("c", FLUX_W4A8, build_flux_w4a8)):
-        if path is not FLUX_W4A8:  # c reuses b's encoders and decoder
+    # d and e reuse a's encoders and decoder, c b's, f c's models.
+    plan = (("a", SD3, build_sd3, False), ("d", SD3_W8A8, build_sd3_quantized("w8a8"), True),
+            ("e", SD3_INT8, build_sd3_quantized("int8"), True), ("b", FLUX, build_flux, False),
+            ("c", FLUX_W4A8, build_flux_w4a8, True), ("f", FLUX_E2E, build_flux_e2e, True))
+    for letter, path, build, reuse in plan:
+        if not reuse:
             pipe = None
             gc.collect()
             torch.cuda.empty_cache()
@@ -845,19 +1277,16 @@ def main() -> None:
 
     summary = []
     for name, (source, replaces) in KERNELS.items():
-        shape, ms, plain = times[name][0][:3]
-        # Each kernel's launches on this slice's main path (FLUX w4a8), or,
-        # for kernel C, which that path must not run, on the FLUX int4 path.
-        main_path = "flux-w4a8" if launches["flux-w4a8"][name] else "flux"
+        first = times[name][0]  # the main path's first shape
+        main_path = MAIN_PATH.get(name, FLUX_W4A8.name)
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[main_path][name], "launches_path": main_path,
             "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": max(errs[name]),
-            "ms": ms, "plain_ms": plain, "shape": list(shape),
-            "shapes": [{"shape": list(t[0]), "ms": t[1], "plain_ms": t[2],
-                        **({"int4_matmul_ms": t[3]} if len(t) > 3 else {})}
-                       for t in times[name]],
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first.get("library_ms"),
+            "shape": first["shape"], "shapes": times[name],
         })
     log(tag)
     log(json.dumps({"kernels": summary}))

@@ -2,10 +2,12 @@
 
 A second package beside the JAX one, for one NVIDIA H100. It never imports
 jax. Plain tensor code is PyTorch; the Pallas kernels of the SD3-medium and
-FLUX.1-schnell int4 txt2img paths are hand-written CUDA for sm_90a
-(``csrc/``): the flash attention (``ops/flash_attention.py``), the fused
-AdaLN LayerNorm (``ops/fused_quant.py``) and the int4 dequant-matmul
-(``ops/int4_matmul.py``).
+FLUX.1-schnell txt2img paths in bf16, int4, int8, w4a8 and w8a8 are
+hand-written CUDA for sm_90a (``csrc/``): the flash attention
+(``ops/flash_attention.py``), the fused AdaLN LayerNorm and the row-wise
+int8 quantizers (``ops/fused_quant.py``), the int4 and int8 dequant-matmuls
+(``ops/int4_matmul.py``) and the int8 tensor-core matmuls of the w4a8 and
+w8a8 linears (``ops/w4a8_matmul.py``).
 """
 
 __version__ = "0.1.0"

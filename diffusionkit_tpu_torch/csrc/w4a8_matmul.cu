@@ -118,26 +118,6 @@ __device__ __forceinline__ uint2 requant_word(uint32_t w, float s8, float z8) {
   return make_uint2(dk::pack_i8x4(b[0], b[1], b[2], b[3]), dk::pack_i8x4(b[4], b[5], b[6], b[7]));
 }
 
-// GELU with the Abramowitz-Stegun 7.1.26 erf, op for op as the reference's
-// _gelu_erf (constants rounded from double to float, as JAX does).
-__device__ __forceinline__ float gelu_as(float x) {
-  const float a1 = static_cast<float>(0.254829592), a2 = static_cast<float>(-0.284496736);
-  const float a3 = static_cast<float>(1.421413741), a4 = static_cast<float>(-1.453152027);
-  const float a5 = static_cast<float>(1.061405429), p = static_cast<float>(0.3275911);
-  const float z = __fmul_rn(x, static_cast<float>(0.7071067811865476));
-  const float ax = fabsf(z);
-  const float t = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(p, ax)));
-  float poly = __fadd_rn(a4, __fmul_rn(t, a5));
-  poly = __fadd_rn(a3, __fmul_rn(t, poly));
-  poly = __fadd_rn(a2, __fmul_rn(t, poly));
-  poly = __fadd_rn(a1, __fmul_rn(t, poly));
-  poly = __fmul_rn(t, poly);
-  const float e = expf(__fmul_rn(-ax, ax));
-  const float sign = z > 0.f ? 1.f : (z < 0.f ? -1.f : 0.f);
-  const float erf = __fmul_rn(sign, __fsub_rn(1.f, __fmul_rn(poly, e)));
-  return __fmul_rn(__fmul_rn(x, 0.5f), __fadd_rn(1.f, erf));
-}
-
 // Blocks of one gelu_quant cluster: together they span one 512-column tile.
 template <int BN>
 constexpr int kCluster = SCALE_TILE / BN;
@@ -385,7 +365,7 @@ __global__ void __launch_bounds__(NTHREADS, MODE != GROUPED_XS && MT * NT <= 16 
             const int cl = wn * NT * 8 + nt * 8 + 2 * t + e;
             int& a = acc[mt][nt][2 * h + e];
             const float y = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(a), xs), Ws[cl]), Bv[cl]);
-            const float gv = gelu_as(y);
+            const float gv = dk::gelu_as(y);
             a = __float_as_int(gv);  // the accumulator register now holds GELU(y)
             mx = fmaxf(mx, fabsf(gv));
           }

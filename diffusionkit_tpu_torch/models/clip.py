@@ -114,7 +114,7 @@ class CLIPTextModel(nn.Module):
 
 @torch.no_grad()
 def init_clip(
-    config: CLIPTextModelConfig, generator: torch.Generator, device="cpu",
+    config: CLIPTextModelConfig, generator: torch.Generator, device="cuda",
     dtype: torch.dtype = torch.float32, std: float = 0.02,
 ) -> CLIPTextModel:
     """Random CLIP text encoder on ``device``: embeddings and projections

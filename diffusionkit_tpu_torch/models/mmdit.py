@@ -15,9 +15,9 @@ loop. Same math and sequence order:
 
 The AdaLN LayerNorm sites go to kernel A (``ops/fused_quant.mod_ln``), the
 joint attention to kernel B through ``ops/attention.sdpa``, and the block
-linears of an int4 model (``QuantizedLinear``) to kernel C through
-``ops/common.linear``. The fp32-upcast block segments of SD3.5-large wait;
-building such a config raises.
+linears of an int4 or int8 model (``QuantizedLinear``) to kernels C and #13
+through ``ops/common.linear``. The fp32-upcast block segments of SD3.5-large
+wait; building such a config raises.
 
 A w4a8 model (``QuantizedLinear``s carrying ``wscale``) takes the
 reference's w4a8 dispatch: each AdaLN site whose consumers quantize runs
@@ -30,11 +30,16 @@ device: on the CPU the same route runs through the plain versions. (The JAX
 package on a CPU backend quietly computes a w4a8 model as int4
 weight-only, since ``quantized.py:_quant_kernel_eligible`` gates on
 ``jax.default_backend()``; the port does not copy that.)
+
+A w8a8 model (``W8A8Linear``s) takes the same dispatch with kernel #11 for
+every product: A' at each AdaLN site (the final layer's too, when its
+linear is w8a8), D before a float input, and kernel #4 (``gelu_quantize``)
+between fc1 and fc2.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +61,9 @@ from ..ops.norms import modulated_layer_norm, rms_norm
 from ..ops.quantized import QuantizedLinear, random_quantized_linear_
 from ..ops.rope import apply_rope, rms_norm_rope, rope_frequencies
 from ..ops.w4a8_matmul import w4a8_qk_eligible, w4a8_qk_linear
-from ..ops.w8a8 import needs_act_quant, quantize_shared
+from ..ops.w8a8 import W8A8Linear, needs_act_quant, quantize_shared, random_w8a8_linear_
+
+QuantBits = Optional[Union[int, str]]  # None (float), 4, 8 or "w8a8"
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -100,19 +107,21 @@ class QKNorm(nn.Module):
 class Projections(nn.Module):
     """The linears of one stream: q, k (no bias: redundant under softmax
     shift invariance), v, ada and, with the MLP, o, fc1, fc2; plus the QK
-    norm. Block linears are int4 ``QuantizedLinear``s when ``group_size`` is
-    set, as the reference's ``init_mmdit_params(quantize_bits=4)`` builds
-    them."""
+    norm. Block linears are packed ``QuantizedLinear``s at group 64 for
+    ``quantize_bits`` 4 or 8 and ``W8A8Linear``s for "w8a8", as the
+    reference's ``init_mmdit_params(quantize_bits=...)`` builds them."""
 
     def __init__(self, config: MMDiTConfig, num_mod: int, with_mlp: bool = True,
-                 group_size: Optional[int] = None):
+                 quantize_bits: QuantBits = None):
         super().__init__()
         H, dt = config.hidden_size, config.dtype
         self.num_mod = num_mod
 
         def lin(d_in, d_out, bias=True):
-            if group_size:
-                return QuantizedLinear(d_in, d_out, group_size, bias=bias, dtype=dt)
+            if quantize_bits == "w8a8":
+                return W8A8Linear(d_in, d_out, bias=bias, dtype=dt)
+            if quantize_bits:
+                return QuantizedLinear(d_in, d_out, 64, bias=bias, dtype=dt, bits=quantize_bits)
             return nn.Linear(d_in, d_out, bias=bias, dtype=dt)
 
         self.q = lin(H, H)
@@ -164,13 +173,13 @@ class MMBlock(nn.Module):
     [text, image] for FLUX (``config.depth_unified > 0``)."""
 
     def __init__(self, config: MMDiTConfig, final: bool = False,
-                 group_size: Optional[int] = None):
+                 quantize_bits: QuantBits = None):
         super().__init__()
         self.config = config
         self.final = final
-        self.img = Projections(config, 6, group_size=group_size)
+        self.img = Projections(config, 6, quantize_bits=quantize_bits)
         self.txt = Projections(config, 2 if final else 6, with_mlp=not final,
-                               group_size=group_size)
+                               quantize_bits=quantize_bits)
 
     def forward(
         self, img: torch.Tensor, txt: torch.Tensor, c: torch.Tensor, rope: Rope = None
@@ -220,9 +229,9 @@ class UnifiedBlock(Projections):
     the attention and, with the parallel MLP, the MLP (3 modulation vectors:
     shift, scale, gate); else a sequential MLP with its own site (6)."""
 
-    def __init__(self, config: MMDiTConfig, group_size: Optional[int] = None):
+    def __init__(self, config: MMDiTConfig, quantize_bits: QuantBits = None):
         n_mod = 3 if config.parallel_mlp_for_unified_blocks else 6
-        super().__init__(config, n_mod, group_size=group_size)
+        super().__init__(config, n_mod, quantize_bits=quantize_bits)
         self.config = config
 
     def forward(self, x: torch.Tensor, c: torch.Tensor, rope: Rope) -> torch.Tensor:
@@ -254,18 +263,20 @@ class MMDiT(nn.Module):
     """forward(latent NHWC, token embeddings, pooled, timestep[, guidance])
     -> velocity prediction NHWC.
 
-    ``quantize_group_size``: build the block linears as int4
-    ``QuantizedLinear``s with this group size (the embedders and the final
-    layer stay float, as in the reference's random int4 init)."""
+    ``quantize_bits``: build the block linears packed (4 or 8 bits, group
+    64) or as w8a8 ("w8a8"); the embedders and the final layer stay float,
+    as in the reference's random quantized init."""
 
-    def __init__(self, config: MMDiTConfig, quantize_group_size: Optional[int] = None):
+    def __init__(self, config: MMDiTConfig, quantize_bits: QuantBits = None):
         super().__init__()
         if config.upcast_multimodal_blocks or config.upcast_unified_blocks:
             raise NotImplementedError(
                 "the fp32-upcast block segments (SD3.5-large) are not ported yet"
             )
+        if quantize_bits not in (None, 4, 8, "w8a8"):
+            raise ValueError(f"quantize_bits={quantize_bits!r}: None, 4, 8 or 'w8a8'")
         self.config = config
-        H, dt, g = config.hidden_size, config.dtype, quantize_group_size
+        H, dt, g = config.hidden_size, config.dtype, quantize_bits
         patch_in = config.vae_latent_dim * config.patch_size**2
         self.x_embedder = nn.Linear(patch_in, H, dtype=dt)
         self.context_embedder = nn.Linear(config.token_level_text_embed_dim, H, dtype=dt)
@@ -281,10 +292,10 @@ class MMDiT(nn.Module):
         )
         flux = config.depth_unified > 0
         n_uniform = config.depth_multimodal - (0 if flux else 1)
-        self.mm_blocks = nn.ModuleList(MMBlock(config, group_size=g) for _ in range(n_uniform))
-        self.mm_final = None if flux else MMBlock(config, final=True, group_size=g)
+        self.mm_blocks = nn.ModuleList(MMBlock(config, quantize_bits=g) for _ in range(n_uniform))
+        self.mm_final = None if flux else MMBlock(config, final=True, quantize_bits=g)
         self.uni_blocks = nn.ModuleList(
-            UnifiedBlock(config, group_size=g) for _ in range(config.depth_unified)
+            UnifiedBlock(config, quantize_bits=g) for _ in range(config.depth_unified)
         )
         self.final_layer = FinalLayer(config)
 
@@ -337,7 +348,7 @@ class MMDiT(nn.Module):
 
         fl = self.final_layer
         shift, scale = (m[:, None, :] for m in linear(fl.ada, F.silu(c)).chunk(2, dim=-1))
-        x = _mod_ln_maybe_fused(x, shift, scale, cfg.layer_norm_eps)
+        x = _mod_ln_maybe_quant(fl.linear, x, shift, scale, cfg.layer_norm_eps)
         x = linear(fl.linear, x)
         if cfg.patchify_via_reshape:
             return unpack_flux(x, (lh, lw), p)
@@ -346,24 +357,25 @@ class MMDiT(nn.Module):
 
 @torch.no_grad()
 def init_mmdit(
-    config: MMDiTConfig, generator: torch.Generator, device="cpu", std: float = 0.02,
-    quantize_bits: Optional[int] = None,
+    config: MMDiTConfig, generator: torch.Generator, device="cuda", std: float = 0.02,
+    quantize_bits: QuantBits = None,
 ) -> MMDiT:
     """Random MMDiT with checkpoint-compatible shapes, built directly on
     ``device`` from ``generator`` (which must live on that device): float
     weights ~ N(0, std), biases zero, QK-norm scales one. With
-    ``quantize_bits=4`` the block linears are drawn directly in the packed
-    int4 format at group 64 (``random_quantized_linear_``), as the
-    reference's ``init_mmdit_params(quantize_bits=4)`` does, so a 12B model
-    never exists in float."""
-    if quantize_bits not in (None, 4):
-        raise NotImplementedError(f"quantize_bits={quantize_bits}: only int4 is ported")
+    ``quantize_bits`` 4 or 8 the block linears are drawn directly in the
+    packed format at group 64 (``random_quantized_linear_``), with "w8a8" in
+    the w8a8 format (``random_w8a8_linear_``), as the reference's
+    ``init_mmdit_params(quantize_bits=...)`` does, so a 12B model never
+    exists in float."""
     with torch.device("meta"):
-        model = MMDiT(config, quantize_group_size=64 if quantize_bits else None)
+        model = MMDiT(config, quantize_bits=quantize_bits)
     model.to_empty(device=device)
     for module in model.modules():
         if isinstance(module, QuantizedLinear):
             random_quantized_linear_(module, generator, std)
+        elif isinstance(module, W8A8Linear):
+            random_w8a8_linear_(module, generator, std)
         elif isinstance(module, QKNorm):
             module.q_scale.fill_(1.0)
             module.k_scale.fill_(1.0)

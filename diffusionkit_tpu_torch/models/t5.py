@@ -6,7 +6,10 @@ One relative-position bias is computed from the shared bucket table and
 added to every layer's scores. T5 conventions kept: no 1/sqrt(d) scaling,
 softmax in fp32, an fp32 residual stream with the matmul inputs cast to the
 weight dtype, and the gated FFN ``wo(gelu_tanh(wi_0 x) * wi_1 x)`` (t5-v1_1's
-NewGELU).
+NewGELU). A w8a8 T5 (``quantize_t5``, ``W8A8Linear``s) quantizes the normed
+input once for q/k/v and once for wi_0/wi_1 (kernel D on the card), as the
+reference does; ``out_proj`` and ``wo`` quantize their float inputs
+themselves.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from torch import nn
 from ..config import T5Config
 from ..ops.common import linear
 from ..ops.norms import rms_norm
+from ..ops.w8a8 import needs_act_quant, quantize_shared
 
 
 def relative_position_bucket(
@@ -63,9 +67,10 @@ class T5Layer(nn.Module):
     def _attention(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
         nh = self.config.num_heads
+        xq = quantize_shared(x) if needs_act_quant(self.query_proj) else x
 
         def heads(layer):
-            return linear(layer, x).reshape(b, s, nh, -1).transpose(1, 2)
+            return linear(layer, xq).reshape(b, s, nh, -1).transpose(1, 2)
 
         q, k, v = heads(self.query_proj), heads(self.key_proj), heads(self.value_proj)
         scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) + bias[None]
@@ -80,7 +85,8 @@ class T5Layer(nn.Module):
         y = rms_norm(x, self.ln1.weight, eps).to(wdtype)
         x = x + self._attention(y, bias).float()
         y = rms_norm(x, self.ln2.weight, eps).to(wdtype)
-        h = F.gelu(linear(self.wi_0, y), approximate="tanh") * linear(self.wi_1, y)
+        yq = quantize_shared(y) if needs_act_quant(self.wi_0) else y
+        h = F.gelu(linear(self.wi_0, yq), approximate="tanh") * linear(self.wi_1, yq)
         return x + linear(self.wo, h).float()
 
 
@@ -121,7 +127,7 @@ class T5Encoder(nn.Module):
 
 @torch.no_grad()
 def init_t5(
-    config: T5Config, generator: torch.Generator, device="cpu",
+    config: T5Config, generator: torch.Generator, device="cuda",
     dtype: torch.dtype = torch.float32, std: float = 0.02,
 ) -> T5Encoder:
     """Random T5 encoder on ``device``, as the reference's ``init_t5_params``:

@@ -130,7 +130,7 @@ class VAEDecoder(nn.Module):
 
 @torch.no_grad()
 def init_vae_decoder(
-    config: VAEDecoderConfig, generator: torch.Generator, device="cpu",
+    config: VAEDecoderConfig, generator: torch.Generator, device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> VAEDecoder:
     """Random decoder on ``device`` from ``generator``: variance-preserving

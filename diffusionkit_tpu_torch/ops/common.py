@@ -2,9 +2,10 @@
 
 Counterpart of ``diffusionkit_tpu/ops/common.py``. Float weights live in
 ``nn.Linear`` modules in torch's (out, in) layout and their GEMMs go to
-``F.linear``, as the reference left them to XLA; int4 weights live in
-``ops/quantized.QuantizedLinear`` and go to kernel C, or with a w4a8
-``wscale`` to kernel E.
+``F.linear``, as the reference left them to XLA; int4 and int8 weights live
+in ``ops/quantized.QuantizedLinear`` and go to kernels C and #13, or with a
+w4a8 ``wscale`` to kernel E; w8a8 weights live in ``ops/w8a8.W8A8Linear``
+and go to kernel #11.
 """
 
 from __future__ import annotations
@@ -16,20 +17,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .int4_matmul import int4_linear
+from .fused_quant import gelu_quantize
+from .int4_matmul import int4_linear, int8_linear
 from .quantized import QuantizedLinear
 from .w4a8_matmul import w4a8_ffn_eligible, w4a8_ffn_gelu, w4a8_linear
-from .w8a8 import ActQuant, needs_act_quant
+from .w8a8 import ActQuant, W8A8Linear, needs_act_quant, w8a8_linear
 
 
 def linear(layer: nn.Module, x, act: Optional[str] = None) -> torch.Tensor:
     """y = act(x @ W^T (+ b)), rounded to x's dtype BEFORE the activation.
 
-    A ``QuantizedLinear`` with a w4a8 ``wscale`` goes to ``w4a8_linear``
-    (kernel E on the card), which takes an ``ActQuant`` as it is; one
-    without goes to ``int4_linear`` (kernel C), as the reference's ``linear``
-    hands quantized params to ``quantized_linear``. Every other consumer of
-    an ``ActQuant`` uses its ``to_float()``.
+    A ``W8A8Linear`` goes to ``w8a8_linear`` (kernel #11 on the card) and a
+    ``QuantizedLinear`` with a w4a8 ``wscale`` to ``w4a8_linear`` (kernel
+    E), both taking an ``ActQuant`` as it is; one without goes to
+    ``int4_linear`` (kernel C), or at int8 ``int8_linear`` (#13), as the reference's
+    ``linear`` hands quantized params to ``w8a8_linear`` and
+    ``quantized_linear``. Every other consumer of an ``ActQuant`` uses its
+    ``to_float()``.
 
     The product runs in the promoted dtype of x and the weight (as the
     reference's ``jnp.dot`` does for a bf16 activation against fp32
@@ -37,12 +41,14 @@ def linear(layer: nn.Module, x, act: Optional[str] = None) -> torch.Tensor:
     both casts are no-ops. ``act="gelu"`` is the exact erf GELU, applied to
     the rounded value.
     """
+    if isinstance(layer, W8A8Linear):
+        return w8a8_linear(layer, x, act)
     if needs_act_quant(layer):
         return w4a8_linear(layer, x, act)
     if isinstance(x, ActQuant):
         x = x.to_float()
     if isinstance(layer, QuantizedLinear):
-        return int4_linear(layer, x, act)
+        return (int8_linear if layer.bits == 8 else int4_linear)(layer, x, act)
     w = layer.weight
     ct = torch.promote_types(x.dtype, w.dtype)
     b = layer.bias.to(ct) if layer.bias is not None else None
@@ -65,20 +71,19 @@ class MLPSiLU(nn.Module):
 
 
 def ffn_gelu(fc1: nn.Module, fc2: nn.Module, x) -> torch.Tensor:
-    """Transformer FFN with exact (erf) GELU; float, int4 or w4a8 layers.
+    """Transformer FFN with exact (erf) GELU; float, int4, int8, w4a8 or
+    w8a8 layers.
 
     When fc2 quantizes its activations and fc1's width is a multiple of 128
-    (the reference's ``fused_eligible``), the hidden never exists in float:
-    both legs w4a8 take ``w4a8_ffn_gelu`` (kernel E's gelu_quant then
-    grouped_xs). Any other such FFN would take the reference's
-    ``gelu_quantize`` kernel, which is not ported: it raises rather than
-    take a float path."""
+    (the reference's ``fused_eligible``), the hidden never exists in float
+    after the GELU: both legs w4a8 take ``w4a8_ffn_gelu`` (kernel E's
+    gelu_quant then grouped_xs); any other such FFN (w8a8, or a w4a8 pair
+    the fused chain does not take) runs ``fc2(gelu_quantize(fc1(x)))``,
+    kernel #4 between the two products."""
     if needs_act_quant(fc2) and fc1.out_features % 128 == 0:
         if w4a8_ffn_eligible(fc1, fc2):
             return w4a8_ffn_gelu(fc1, fc2, x)
-        raise NotImplementedError(
-            "this FFN needs fused_quant.gelu_quantize (the GELU -> int8 kernel of the "
-            "w8a8 mode), which is not ported yet")
+        return linear(fc2, gelu_quantize(linear(fc1, x)))
     return linear(fc2, linear(fc1, x, act="gelu"))
 
 

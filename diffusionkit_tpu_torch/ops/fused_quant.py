@@ -1,6 +1,6 @@
 """Row-wise fused kernels: AdaLN LayerNorm and per-row int8 quantization.
 
-Three kernels of ``csrc/mod_ln.cu``, each replacing a Pallas kernel of
+Four kernels of ``csrc/mod_ln.cu``, each replacing a Pallas kernel of
 ``diffusionkit_tpu/ops/fused_quant.py``:
 
 - kernel A ``mod_ln`` (``_mod_ln_kernel`` -> ``_ln_modulate``): the float
@@ -9,14 +9,17 @@ Three kernels of ``csrc/mod_ln.cu``, each replacing a Pallas kernel of
   LayerNorm and modulation in fp32, NOT rounded to x's dtype, quantized per
   row to int8 for the w4a8 linears that read it (q/k/v, fc1);
 - kernel D ``quantize`` (``_quant_kernel``): the per-row absmax -> int8
-  pass in front of a w4a8 linear whose input is float (``ada``, ``o``).
+  pass in front of a w4a8 or w8a8 linear whose input is float (``ada``,
+  ``o``, the embedders, T5's ``out_proj`` and ``wo``);
+- kernel #4 ``gelu_quantize`` (``_gelu_quant_kernel``): the A&S-erf (or
+  tanh) GELU of fc1's output quantized per row for fc2, in every w8a8 FFN
+  and any w4a8 FFN the fused kernel-E chain does not take.
 
-All three are memory-bound single passes: one block per row with the row in
+All four are memory-bound single passes: one block per row with the row in
 registers and 16-byte accesses; see the note in the source. Each wrapper
 launches its kernel for a CUDA tensor and raises on what the kernel does not
 take; a CPU tensor goes to the plain torch version beside it. The quantizers
-return an ``ActQuant`` with ``orig=None``. ``gelu_quantize`` (the w8a8 mode
-and FFNs the fused w4a8 chain does not take) waits for the w8a8 slice.
+return an ``ActQuant`` with ``orig=None``.
 """
 
 from __future__ import annotations
@@ -24,12 +27,19 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .w4a8_matmul import gelu_as
 from .w8a8 import ActQuant, quantize_activations
 
 _KERNELS = {torch.bfloat16: "dk_mod_ln_bf16", torch.float32: "dk_mod_ln_f32"}
 _QUANT_KERNELS = {torch.bfloat16: "dk_quantize_bf16", torch.float32: "dk_quantize_f32"}
 _MOD_LN_QUANT_KERNELS = {torch.bfloat16: "dk_mod_ln_quant_bf16",
                          torch.float32: "dk_mod_ln_quant_f32"}
+_GELU_QUANT_KERNELS = {torch.bfloat16: "dk_gelu_quantize_bf16",
+                       torch.float32: "dk_gelu_quantize_f32"}
+GELU_FORMS = {"erf": 0, "tanh": 1}
+# Widest row kernels D and #4 take: 16 floats of the row per thread, at
+# most 1024 threads.
+MAX_ROW = 16384
 
 
 def _ln_modulate_f32(x, shift, scale, eps: float) -> torch.Tensor:
@@ -65,6 +75,22 @@ def quantize_plain(y: torch.Tensor) -> ActQuant:
     """Plain torch ``quantize``: the per-row int8 grid of
     ``w8a8.quantize_activations``."""
     x8, xscale = quantize_activations(y)
+    return ActQuant(x8, xscale, None, out_dtype=y.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-form GELU, op for op as the reference's ``_gelu_tanh``."""
+    return 0.5 * x * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x * x * x)))
+
+
+def gelu_quantize_plain(y: torch.Tensor, form: str = "erf") -> ActQuant:
+    """Plain torch ``gelu_quantize``: the fp32 GELU of y (``gelu_as``, the
+    reference's A&S erf op for op, or ``gelu_tanh``), then the per-row
+    int8 grid of ``quantize_activations``."""
+    if form not in GELU_FORMS:
+        raise ValueError(f"gelu_quantize: unknown GELU form {form!r}")
+    g = (gelu_as if form == "erf" else gelu_tanh)(y.float())
+    x8, xscale = quantize_activations(g)
     return ActQuant(x8, xscale, None, out_dtype=y.dtype)
 
 
@@ -140,33 +166,60 @@ def mod_ln_quantize(
 mod_ln_quantize.launches = 0
 
 
-def quantize(y: torch.Tensor) -> ActQuant:
-    """Per-row absmax int8 quantization of y (..., K): ``ActQuant(x8,
-    xscale (..., 1), None, y.dtype)``. On the card y is bf16 or fp32,
-    contiguous and 16-byte aligned, K a multiple of the 16-byte vector and
-    at most 1024 vectors."""
-    if y.device.type == "cpu":
-        return quantize_plain(y)
+def _quantize_rows(name: str, symbol: str, y: torch.Tensor, *extra) -> ActQuant:
+    """Launch kernel D or #4 (``symbol``) over the rows of y (..., K): y bf16
+    or fp32, contiguous and 16-byte aligned, K a multiple of the 16-byte
+    vector and at most ``MAX_ROW``."""
     if y.device.type != "cuda":
-        raise ValueError(f"quantize: unsupported device {y.device}")
+        raise ValueError(f"{name}: unsupported device {y.device}")
     if y.dtype not in _QUANT_KERNELS:
-        raise TypeError(f"quantize: dtype {y.dtype} not supported (bf16, fp32)")
+        raise TypeError(f"{name}: dtype {y.dtype} not supported (bf16, fp32)")
     if not y.is_contiguous() or y.data_ptr() % 16:
-        raise ValueError("quantize: y must be contiguous and 16-byte aligned")
+        raise ValueError(f"{name}: y must be contiguous and 16-byte aligned")
     k = y.shape[-1]
     vec = 16 // y.element_size()
-    if k % vec or k // vec > 1024:
-        raise ValueError(f"quantize: K={k} must be a multiple of {vec} and <= {1024 * vec}")
+    if k == 0 or k % vec or k > MAX_ROW:
+        raise ValueError(f"{name}: K={k} must be a multiple of {vec} and <= {MAX_ROW}")
     m = y.numel() // k
     x8 = torch.empty(y.shape, dtype=torch.int8, device=y.device)
     xscale = torch.empty((*y.shape[:-1], 1), dtype=torch.float32, device=y.device)
     if m:
-        fn = getattr(kernels.library(), _QUANT_KERNELS[y.dtype])
-        err = fn(y.data_ptr(), x8.data_ptr(), xscale.data_ptr(), m, k,
+        fn = getattr(kernels.library(), symbol)
+        err = fn(y.data_ptr(), x8.data_ptr(), xscale.data_ptr(), m, k, *extra,
                  kernels.stream_ptr(y.device))
-        kernels.check(err, "quantize")
-        quantize.launches += 1
+        kernels.check(err, name)
     return ActQuant(x8, xscale, None, out_dtype=y.dtype)
 
 
+def quantize(y: torch.Tensor) -> ActQuant:
+    """Per-row absmax int8 quantization of y (..., K): ``ActQuant(x8,
+    xscale (..., 1), None, y.dtype)``. On the card y is bf16 or fp32,
+    contiguous and 16-byte aligned, K a multiple of the 16-byte vector and
+    at most 16384."""
+    if y.device.type == "cpu":
+        return quantize_plain(y)
+    aq = _quantize_rows("quantize", _QUANT_KERNELS.get(y.dtype), y)
+    if y.numel():
+        quantize.launches += 1
+    return aq
+
+
 quantize.launches = 0
+
+
+def gelu_quantize(y: torch.Tensor, form: str = "erf") -> ActQuant:
+    """GELU fused with per-row int8 quantization: ``ActQuant(x8 (..., N),
+    xscale (..., 1), None, y.dtype)`` for the quantized fc2 that follows.
+    ``form`` is the reference's ``_gelu_form``: "erf" (the A&S erf, its
+    default) or "tanh". Takes on the card what ``quantize`` takes."""
+    if form not in GELU_FORMS:
+        raise ValueError(f"gelu_quantize: unknown GELU form {form!r}")
+    if y.device.type == "cpu":
+        return gelu_quantize_plain(y, form)
+    aq = _quantize_rows("gelu_quantize", _GELU_QUANT_KERNELS.get(y.dtype), y, GELU_FORMS[form])
+    if y.numel():
+        gelu_quantize.launches += 1
+    return aq
+
+
+gelu_quantize.launches = 0

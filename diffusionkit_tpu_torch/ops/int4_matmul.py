@@ -1,4 +1,4 @@
-"""Kernel C: matmul with fused int4 dequantisation.
+"""Kernels C and #13: matmuls with fused int4 / int8 dequantisation.
 
 Replaces the Pallas kernel ``diffusionkit_tpu/ops/int4_matmul.py:int4_matmul``
 (``_kernel``), which runs every block linear of the int4 MMDiT (FLUX.1-schnell
@@ -15,6 +15,12 @@ of 64); a CPU tensor goes to ``int4_matmul_plain``, the same math in plain
 torch. The reference's TPU tile pickers (``pick_k_block``, ``pick_m_block``,
 ``_maybe_pad_n``) and its padding of M are not carried over: the kernel
 masks the ragged M edge itself.
+
+Kernel #13 ``int8_matmul`` replaces the reference's ``int8_matmul``
+(``_kernel8``), the int8 weight-only mode's product: the same with ``q8``
+uint8 (K, N) bytes, values 0..255, in place of the nibbles (``int8_linear``
+applies it as ``int4_linear`` applies C). Its CUDA source is C's, with the
+byte tile loader (``csrc/int4_matmul.cu``).
 """
 
 from __future__ import annotations
@@ -65,57 +71,121 @@ def int4_matmul(
     """
     if x.device.type == "cpu":
         return int4_matmul_plain(x, q4, scales, zeros)
+    if q4.dtype != torch.int32 or q4.ndim != 2:
+        raise TypeError(f"int4_matmul: q4 must be int32 (K/8, N), got {q4.dtype} "
+                        f"{tuple(q4.shape)}")
+    y = _launch("int4_matmul", "dk_int4_matmul_bf16", x, q4, q4.shape[0] * 8, q4.shape[1],
+                scales, zeros)
+    if y.shape[0]:
+        int4_matmul.launches += 1
+    return y
+
+
+def _launch(name: str, symbol: str, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
+            scales: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
+    """Check what kernels C and #13 take and launch ``symbol``: x bf16 (M, K)
+    with a contiguous last axis and 16-byte aligned rows, K = ``k_w`` a
+    multiple of 64, N of 128, group 32 or a multiple of 64; the packed
+    weight ``qw``, scales and zeros (K/g, N) fp32, contiguous."""
     if x.device.type != "cuda":
-        raise ValueError(f"int4_matmul: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"int4_matmul: x must be bf16 on the card, got {x.dtype}")
-    if x.ndim != 2 or q4.ndim != 2:
-        raise ValueError(f"int4_matmul: x (M, K) and q4 (K/8, N), got {tuple(x.shape)}, "
-                         f"{tuple(q4.shape)}")
+        raise TypeError(f"{name}: x must be bf16 on the card, got {x.dtype}")
+    if x.ndim != 2:
+        raise ValueError(f"{name}: x must be (M, K), got {tuple(x.shape)}")
     m, k = x.shape
-    k8, n = q4.shape
-    if k8 * 8 != k or k % K_TILE or n % N_TILE:
-        raise ValueError(f"int4_matmul: K={k} must be 8 * {k8} and a multiple of {K_TILE}, "
-                         f"N={n} a multiple of {N_TILE}")
+    if k_w != k or k % K_TILE or n % N_TILE:
+        raise ValueError(f"{name}: K={k} must match the weight's {k_w} and be a multiple of "
+                         f"{K_TILE}, N={n} a multiple of {N_TILE}")
     groups = scales.shape[0]
     if groups == 0 or k % groups:
-        raise ValueError(f"int4_matmul: {groups} scale rows do not divide K={k}")
+        raise ValueError(f"{name}: {groups} scale rows do not divide K={k}")
     group = k // groups
     if not (group == 32 or group % 64 == 0):
-        raise ValueError(f"int4_matmul: group size {group} must be 32 or a multiple of 64")
-    if q4.dtype != torch.int32 or scales.dtype != torch.float32 or zeros.dtype != torch.float32:
-        raise TypeError("int4_matmul: q4 int32, scales and zeros fp32")
-    for name, t in (("q4", q4), ("scales", scales), ("zeros", zeros)):
+        raise ValueError(f"{name}: group size {group} must be 32 or a multiple of 64")
+    if scales.dtype != torch.float32 or zeros.dtype != torch.float32:
+        raise TypeError(f"{name}: scales and zeros must be fp32")
+    for arg, t in (("weight", qw), ("scales", scales), ("zeros", zeros)):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"int4_matmul: {name} must be contiguous and 16-byte aligned on "
+            raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned on "
                              f"{x.device}")
     if scales.shape != (groups, n) or zeros.shape != (groups, n):
-        raise ValueError(f"int4_matmul: scales and zeros must be ({groups}, {n})")
+        raise ValueError(f"{name}: scales and zeros must be ({groups}, {n})")
     if x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
-        raise ValueError(f"int4_matmul: x needs a contiguous last axis and 16-byte aligned rows, "
+        raise ValueError(f"{name}: x needs a contiguous last axis and 16-byte aligned rows, "
                          f"got strides {x.stride()}")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m == 0:
-        return y
-    err = kernels.library().dk_int4_matmul_bf16(
-        x.data_ptr(), q4.data_ptr(), scales.data_ptr(), zeros.data_ptr(), y.data_ptr(),
-        m, n, k, group, x.stride(0), kernels.stream_ptr(x.device),
-    )
-    kernels.check(err, "int4_matmul")
-    int4_matmul.launches += 1
+    if m:
+        err = getattr(kernels.library(), symbol)(
+            x.data_ptr(), qw.data_ptr(), scales.data_ptr(), zeros.data_ptr(), y.data_ptr(),
+            m, n, k, group, x.stride(0), kernels.stream_ptr(x.device),
+        )
+        kernels.check(err, name)
     return y
 
 
 int4_matmul.launches = 0
 
 
+def dequantize_int8(
+    q8: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, dtype: torch.dtype
+) -> torch.Tensor:
+    """(K, N) uint8 -> (K, N) weights: ``q * scale + zero`` in fp32 (a
+    product and a sum, each rounded), then one rounding to ``dtype``."""
+    q = q8.float()
+    g = q.shape[0] // scales.shape[0]
+    s = scales.float().repeat_interleave(g, dim=0)
+    z = zeros.float().repeat_interleave(g, dim=0)
+    return (q * s + z).to(dtype)
+
+
+def int8_matmul_plain(
+    x: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor
+) -> torch.Tensor:
+    """Plain torch ``int8_matmul``: the weight dequantised and rounded to x's
+    dtype, then one matmul (fp32 accumulation, one rounding)."""
+    return torch.matmul(x, dequantize_int8(q8, scales, zeros, x.dtype))
+
+
+def int8_matmul(
+    x: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor
+) -> torch.Tensor:
+    """y[M, N] = x[M, K] @ dequant(q8, scales, zeros), in x's dtype.
+
+    On CUDA: as ``int4_matmul``, with q8 uint8 (K, N) contiguous.
+    """
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, q8, scales, zeros)
+    if q8.dtype != torch.uint8 or q8.ndim != 2:
+        raise TypeError(f"int8_matmul: q8 must be uint8 (K, N), got {q8.dtype} {tuple(q8.shape)}")
+    y = _launch("int8_matmul", "dk_int8_matmul_bf16", x, q8, q8.shape[0], q8.shape[1],
+                scales, zeros)
+    if y.shape[0]:
+        int8_matmul.launches += 1
+    return y
+
+
+int8_matmul.launches = 0
+
+
 def int4_linear(layer, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
-    """Apply a ``QuantizedLinear`` to x (..., K) -> (..., N), as the
-    reference's ``int4_linear``: the product rounded to x's dtype, then the
-    bias added in fp32 and rounded again, then the exact (erf) GELU in x's
-    dtype."""
+    """Apply an int4 ``QuantizedLinear`` to x (..., K) -> (..., N), as the
+    reference's ``int4_linear``: the product (kernel C) rounded to x's
+    dtype, then the bias added in fp32 and rounded again, then the exact
+    (erf) GELU in x's dtype."""
+    return _weight_only_linear(int4_matmul, layer.q4, layer, x, act)
+
+
+def int8_linear(layer, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+    """``int4_linear`` for an int8 ``QuantizedLinear`` (kernel #13), as the
+    reference's ``int8_linear``."""
+    return _weight_only_linear(int8_matmul, layer.q8, layer, x, act)
+
+
+def _weight_only_linear(matmul, qw: torch.Tensor, layer, x: torch.Tensor,
+                        act: Optional[str]) -> torch.Tensor:
     lead, k = x.shape[:-1], x.shape[-1]
-    y = int4_matmul(x.reshape(-1, k), layer.q4, layer.scales, layer.zeros)
+    y = matmul(x.reshape(-1, k), qw, layer.scales, layer.zeros)
     y = y.reshape(*lead, y.shape[-1])
     if layer.bias is not None:
         y = (y.float() + layer.bias.float()).to(x.dtype)

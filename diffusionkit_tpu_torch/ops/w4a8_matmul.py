@@ -26,6 +26,12 @@ mode) and raises on what it does not take; a CPU tensor goes to
 computed exactly. The reference's TPU tile pickers (``_pick_kn_blocks``,
 ``pick_m_block``) and its N padding (``_maybe_pad_n``, bit-identical by its
 own account and a no-op at FLUX's shapes) are not carried over.
+
+Kernel #11 ``w8_matmul`` (the reference's ``w8_matmul``, ``_kernel_w8``) is
+the w8a8 linear's product: an int8 (N, K) weight grid, ``y = (x8 @ w8^T) *
+xscale * wscale + bias``, the epilogue in that order with the int32
+accumulator kept on chip (``csrc/w8_matmul.cu``); ``w8_matmul_plain`` is
+its plain version.
 """
 
 from __future__ import annotations
@@ -142,12 +148,13 @@ def w4a8_matmul_plain(
     raise ValueError(f"w4a8_matmul: unknown mode {mode!r}")
 
 
-def _contiguous_on(name: str, t: torch.Tensor, device, dtype, shape) -> None:
+def _contiguous_on(name: str, t: torch.Tensor, device, dtype, shape,
+                   fn: str = "w4a8_matmul") -> None:
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"w4a8_matmul: {name} must be {dtype} {tuple(shape)} on {device}, got "
+        raise ValueError(f"{fn}: {name} must be {dtype} {tuple(shape)} on {device}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"w4a8_matmul: {name} must be contiguous and 16-byte aligned")
+        raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
 
 
 def w4a8_matmul(
@@ -240,14 +247,79 @@ w4a8_matmul.launches = 0
 w4a8_matmul.mode_launches = dict.fromkeys(MODES, 0)
 
 
+def w8_matmul_plain(
+    x8: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, xscale: torch.Tensor,
+    bias: Optional[torch.Tensor], out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Plain torch ``w8_matmul``: the exact int32 product ``x8 @ w8^T``
+    (``_int_dot``: ``torch._int_mm`` where its shape rules allow, else in
+    float64), then ``(acc * xscale) * wscale + bias``, each step rounded in
+    fp32, and one rounding to ``out_dtype``."""
+    y = _int_dot(x8, w8.t()) * xscale.reshape(-1, 1).float() * wscale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
+
+
+_W8_KERNELS = {torch.bfloat16: "dk_w8_matmul_bf16", torch.float32: "dk_w8_matmul_f32"}
+
+
+def w8_matmul(
+    x8: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, xscale: torch.Tensor,
+    bias: Optional[torch.Tensor], out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """``((x8 @ w8^T) * xscale) * wscale + bias`` -> (M, N) in ``out_dtype``.
+
+    x8 int8 (M, K); w8 int8 (N, K); wscale fp32 (N,); xscale fp32 (M, 1);
+    bias (N,) or None. On CUDA: everything contiguous and 16-byte aligned,
+    K a multiple of 64, N of 8, the output bf16 or fp32 and the bias in the
+    output dtype.
+    """
+    if x8.device.type == "cpu":
+        return w8_matmul_plain(x8, w8, wscale, xscale, bias, out_dtype)
+    if x8.device.type != "cuda":
+        raise ValueError(f"w8_matmul: unsupported device {x8.device}")
+    if x8.dtype != torch.int8 or x8.ndim != 2 or w8.ndim != 2:
+        raise TypeError(f"w8_matmul: x8 must be int8 (M, K) and w8 (N, K), got {x8.dtype} "
+                        f"{tuple(x8.shape)}, {tuple(w8.shape)}")
+    if out_dtype not in _W8_KERNELS:
+        raise TypeError(f"w8_matmul: output {out_dtype} not supported (bf16, fp32)")
+    m, k = x8.shape
+    n = w8.shape[0]
+    if k % 64 or n % 8:
+        raise ValueError(f"w8_matmul: K={k} must be a multiple of 64 and N={n} of 8")
+    dev = x8.device
+    _contiguous_on("x8", x8, dev, torch.int8, (m, k), "w8_matmul")
+    _contiguous_on("w8", w8, dev, torch.int8, (n, k), "w8_matmul")
+    _contiguous_on("wscale", wscale, dev, torch.float32, (n,), "w8_matmul")
+    if xscale.device != dev or xscale.dtype != torch.float32 or xscale.numel() != m \
+            or not xscale.is_contiguous():
+        raise ValueError(f"w8_matmul: xscale must be contiguous fp32 ({m}, 1) on {dev}")
+    if bias is not None:
+        _contiguous_on("bias", bias, dev, out_dtype, (n,), "w8_matmul")
+    y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if m:
+        err = getattr(kernels.library(), _W8_KERNELS[out_dtype])(
+            x8.data_ptr(), w8.data_ptr(), wscale.data_ptr(), xscale.data_ptr(),
+            0 if bias is None else bias.data_ptr(), y.data_ptr(), m, n, k,
+            kernels.stream_ptr(dev),
+        )
+        kernels.check(err, "w8_matmul")
+        w8_matmul.launches += 1
+    return y
+
+
+w8_matmul.launches = 0
+
+
 def _act(x) -> ActQuant:
     """x as an ``ActQuant``: passed through, or quantized per row by
     ``fused_quant.quantize`` (kernel D on the card)."""
     if isinstance(x, ActQuant):
         return x
-    from .fused_quant import quantize
+    from .w8a8 import quantize_float
 
-    return quantize(x)
+    return quantize_float(x)
 
 
 def w4a8_linear(layer, x, act: Optional[str] = None) -> torch.Tensor:

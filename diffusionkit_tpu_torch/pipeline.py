@@ -10,12 +10,24 @@ starting latents in both packages.
 
 Models are plain attributes (``mmdit``, ``decoder``, ``clip_l``, ``clip_g``,
 ``t5`` and the tokenizers), set by the caller: the checkpoint loaders wait,
-and ``models.init_*`` build random ones. ``quantize_mmdit`` (int4 or w4a8)
-packs the float linears of an assigned MMDiT with the min/max host
-quantizer; an already packed model passes through; w4a8 then gives every
-packed linear its per-channel ``wscale``. Every model stays resident; the
-reference's phase-lazy loading, ``use_scan``, mesh, batch chunking, T5 for
-SD3 and img2img wait for later slices.
+and ``models.init_*`` build random ones. ``quantize_mmdit`` converts an
+assigned MMDiT on its own device, as the reference's quantize-at-load does:
+
+  "int4" (or True), "int8"  weight-only, the min/max grid (GPTQ waits); an
+                            already packed model passes through
+  "w4a8"                    int4, then every int4 linear's per-channel
+                            ``wscale``
+  "w8a8"                    every eligible linear to ``W8A8Linear``, float
+                            or packed (``w8a8_module_``)
+  "<mode>-mixed"            ``MIXED_OVERRIDES`` on a float model: ``ada``
+                            at int8, the final layer and embedders float
+
+``FluxPipeline(quantize_t5=True)`` gives an assigned T5 the SmoothQuant
+fold (``ops/smoothquant.smooth_t5``, calibrated with ``t5_tokenizer`` if it
+is set by then) and converts it to w8a8. Every model stays resident; the
+reference's phase-lazy loading, quantized-tree disk cache,
+``DIFFUSIONKIT_TPU_T5_SMOOTH`` switch, ``use_scan``, mesh, batch chunking,
+T5 for SD3 and img2img wait for later slices.
 """
 
 from __future__ import annotations
@@ -32,7 +44,9 @@ from .models.clip import CLIPTextModel
 from .models.mmdit import MMDiT
 from .models.t5 import T5Encoder
 from .models.vae import VAEDecoder
-from .ops.quantized import QuantizedLinear, add_wscale_, quantize_module_
+from .ops.quantized import MIXED_OVERRIDES, QuantizedLinear, add_wscale_, quantize_module_
+from .ops.smoothquant import smooth_t5
+from .ops.w8a8 import W8A8Linear, w8a8_module_
 from .sampler import FlowSchedule, FluxSampler, ModelSamplingDiscreteFlow
 from .tokenizer import tokenize_batch
 from .utils import bytes2gigabytes, device_memory_stats, get_logger
@@ -51,6 +65,29 @@ class LatentFormat:
 
 SD3LatentFormat = partial(LatentFormat, 1.5305, 0.0609)
 FluxLatentFormat = partial(LatentFormat, 0.3611, 0.1159)
+
+
+QUANT_MODES = ("int4", "int8", "w4a8", "w8a8")
+
+
+def parse_quant_mode(mode) -> Tuple[Optional[str], bool]:
+    """``quantize_mmdit`` -> (base mode or None, mixed): False -> (None,
+    False), True -> ("int4", False), "w4a8-mixed" -> ("w4a8", True). An
+    unknown mode raises."""
+    if mode is False or mode is None:
+        return None, False
+    if mode is True:
+        return "int4", False
+    if isinstance(mode, str):
+        base = mode[: -len("-mixed")] if mode.endswith("-mixed") else mode
+        if base in QUANT_MODES:
+            return base, base != mode
+    raise ValueError(f"quantize_mmdit={mode!r}: one of False, True, "
+                     f"{', '.join(QUANT_MODES)}, or one of those with '-mixed'")
+
+
+def _holds(model: torch.nn.Module, types) -> bool:
+    return any(isinstance(m, types) for m in model.modules())
 
 
 def _sync(device: torch.device) -> None:
@@ -121,10 +158,10 @@ class DiffusionPipeline:
     latent_size, seed, verbose)`` plus the ``encode_text`` /
     ``denoise_latents`` phase methods. The models carry their own weight
     dtypes; ``a16`` selects bf16 VAE activations; ``shift=3.0`` is the SD3
-    production schedule. ``quantize_mmdit`` (True or "int4") packs the
-    assigned MMDiT's eligible float linears at group ``quantize_group_size``
-    (the reference's int4 quantize-at-load, with the min/max grid until GPTQ
-    is ported)."""
+    production schedule. ``quantize_mmdit`` (module docstring) converts the
+    assigned MMDiT; weight-only modes pack at group ``quantize_group_size``
+    (the reference's quantize-at-load, with the min/max grid until GPTQ is
+    ported)."""
 
     def __init__(
         self,
@@ -134,14 +171,11 @@ class DiffusionPipeline:
         quantize_mmdit=False,
         quantize_group_size: int = 32,
     ):
-        if quantize_mmdit not in (False, True, "int4", "w4a8"):
-            raise NotImplementedError(
-                f"quantize_mmdit={quantize_mmdit!r}: only int4 and w4a8 are ported")
+        self.quant_mode, self.quant_mixed = parse_quant_mode(quantize_mmdit)
         self.device = torch.device(device)
         self.activation_dtype = torch.bfloat16 if a16 else torch.float32
         self.sampler: FlowSchedule = ModelSamplingDiscreteFlow(shift=shift)
         self.latent_format = SD3LatentFormat()
-        self.quantize_mmdit = "int4" if quantize_mmdit is True else quantize_mmdit
         self.quantize_group_size = quantize_group_size
         self._mmdit: Optional[MMDiT] = None
         self.decoder: Optional[VAEDecoder] = None
@@ -156,13 +190,20 @@ class DiffusionPipeline:
 
     @mmdit.setter
     def mmdit(self, model: Optional[MMDiT]) -> None:
-        if model is not None and self.quantize_mmdit:
+        mode = self.quant_mode
+        if model is not None and mode == "w8a8":
+            # Float and packed linears alike (the reference's w8a8_tree also
+            # re-expresses a 4-bit checkpoint); the -mixed overrides do not
+            # apply to w8a8, as in the reference.
+            w8a8_module_(model)
+        elif model is not None and mode:
             # A model that holds packed linears is a pre-quantized one (the
             # MLX 4-bit file, or a random packed init): it passes through,
             # as the reference skips quantize_tree for such checkpoints.
-            if not any(isinstance(m, QuantizedLinear) for m in model.modules()):
-                quantize_module_(model, self.quantize_group_size)
-            if self.quantize_mmdit == "w4a8":
+            if not _holds(model, (QuantizedLinear, W8A8Linear)):
+                quantize_module_(model, self.quantize_group_size, bits=8 if mode == "int8" else 4,
+                                 overrides=MIXED_OVERRIDES if self.quant_mixed else None)
+            if mode == "w4a8":
                 add_wscale_(model)
         self._mmdit = model
 
@@ -325,7 +366,8 @@ class FluxPipeline(DiffusionPipeline):
     """FLUX.1 txt2img: CLIP-L pooled output and T5 token embeddings (no
     CLIP-G), positive row only, T5 tokens zero-padded to ``t5_max_length``
     (256 for FLUX.1-schnell, 512 for FLUX.1-dev); the FLUX sigma schedule
-    (``shift=1.0``) and latent format."""
+    (``shift=1.0``) and latent format. ``quantize_t5``: the w8a8 T5 with
+    its SmoothQuant fold (module docstring)."""
 
     def __init__(
         self,
@@ -335,14 +377,29 @@ class FluxPipeline(DiffusionPipeline):
         quantize_mmdit=False,
         quantize_group_size: int = 32,
         t5_max_length: int = 256,
+        quantize_t5: bool = False,
     ):
         super().__init__(shift=shift, a16=a16, device=device, quantize_mmdit=quantize_mmdit,
                          quantize_group_size=quantize_group_size)
         self.sampler = FluxSampler(shift=shift)
         self.latent_format = FluxLatentFormat()
         self.t5_max_length = t5_max_length
-        self.t5: Optional[T5Encoder] = None
+        self.quantize_t5 = quantize_t5
         self.t5_tokenizer = None
+        self._t5: Optional[T5Encoder] = None
+
+    @property
+    def t5(self) -> Optional[T5Encoder]:
+        return self._t5
+
+    @t5.setter
+    def t5(self, model: Optional[T5Encoder]) -> None:
+        if model is not None and self.quantize_t5 and not _holds(model, W8A8Linear):
+            # In place on the model's device: the SmoothQuant fold first
+            # (exact in float), then every eligible linear to w8a8.
+            smooth_t5(model, self.t5_tokenizer)
+            w8a8_module_(model)
+        self._t5 = model
 
     @torch.inference_mode()
     def encode_text(self, text: str, cfg_weight: float = 7.5, negative_text: str = ""):

@@ -115,7 +115,7 @@ def test_t5_encoder_matches_jax():
     params = randomize(init_t5_params(jax.random.PRNGKey(0), jcfg), seed=1)
     for ln in (params["layers"]["ln1"], params["layers"]["ln2"], params["final_ln"]):
         ln["weight"] = ln["weight"] + 1.0  # RMSNorm weights around one
-    model = t5_from_jax(params, torch_config(jcfg, tcfg.T5Config))
+    model = t5_from_jax(params, torch_config(jcfg, tcfg.T5Config), device="cpu")
     # 70 tokens: offsets up to 69 reach the logarithmic buckets.
     tokens = np.random.RandomState(2).randint(0, 64, size=(2, 70)).astype(np.int32)
     want = np.asarray(apply_t5_encoder(params, jnp.asarray(tokens), jcfg))
@@ -196,7 +196,7 @@ def test_flux_mmdit_matches_jax(variant, monkeypatch):
         params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=4)
     if variant != "sd3-rope":
         params = with_unit_qk_scales(params)
-    model = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig))
+    model = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu")
     if variant == "sd3-rope":
         assert len(model.mm_blocks) == 1 and model.mm_final is not None and not model.uni_blocks
     else:
@@ -233,11 +233,13 @@ def flux_pipelines():
     jp.mmdit_params = with_unit_qk_scales(randomize(jp.mmdit_params, 3))
     jp.decoder_params = randomize(jp.decoder_params, 4)
     tp = FluxPipeline(a16=False, device="cpu")
-    tp.clip_l = clip_from_jax(jp.clip_l, torch_config(jp.clip_l_config, tcfg.CLIPTextModelConfig))
-    tp.t5 = t5_from_jax(jp.t5_params, torch_config(jp.t5_config, tcfg.T5Config))
-    tp.mmdit = mmdit_from_jax(jp.mmdit_params, torch_config(jp.mmdit_config, tcfg.MMDiTConfig))
+    tp.clip_l = clip_from_jax(
+        jp.clip_l, torch_config(jp.clip_l_config, tcfg.CLIPTextModelConfig), device="cpu")
+    tp.t5 = t5_from_jax(jp.t5_params, torch_config(jp.t5_config, tcfg.T5Config), device="cpu")
+    tp.mmdit = mmdit_from_jax(
+        jp.mmdit_params, torch_config(jp.mmdit_config, tcfg.MMDiTConfig), device="cpu")
     tp.decoder = vae_decoder_from_jax(
-        jp.decoder_params, torch_config(jp.decoder_config, tcfg.VAEDecoderConfig))
+        jp.decoder_params, torch_config(jp.decoder_config, tcfg.VAEDecoderConfig), device="cpu")
     jtok = make_tiny_clip_tokenizer()
     tp.tokenizer_l = CLIPTokenizer({}, jtok.vocab, pad_with_eos=jtok.pad_with_eos)
     tp.tokenizer_l.max_length = jtok.max_length
@@ -286,7 +288,7 @@ def test_flux_dev_guidance_moves_the_latents():
     jp = build_flux_pipeline(guidance_embed=True)
     tp = FluxPipeline(a16=False, device="cpu")
     tp.mmdit = mmdit_from_jax(randomize(jp.mmdit_params, 5),
-                              torch_config(jp.mmdit_config, tcfg.MMDiTConfig))
+                              torch_config(jp.mmdit_config, tcfg.MMDiTConfig), device="cpu")
     cond = torch.from_numpy(np.random.RandomState(6).randn(1, 256, 8).astype(np.float32))
     pooled = torch.from_numpy(np.random.RandomState(7).randn(1, 8).astype(np.float32))
     kw = dict(num_steps=2, cfg_weight=0.0, latent_size=(8, 8), seed=5)

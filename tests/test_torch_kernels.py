@@ -21,6 +21,8 @@ from diffusionkit_tpu_torch.ops.flash_attention import (
     flash_attention_bshd_plain,
 )
 from diffusionkit_tpu_torch.ops.fused_quant import (
+    gelu_quantize,
+    gelu_quantize_plain,
     mod_ln,
     mod_ln_plain,
     mod_ln_quantize,
@@ -28,9 +30,19 @@ from diffusionkit_tpu_torch.ops.fused_quant import (
     quantize,
     quantize_plain,
 )
-from diffusionkit_tpu_torch.ops.int4_matmul import dequantize_int4, int4_matmul
+from diffusionkit_tpu_torch.ops.int4_matmul import (
+    dequantize_int4,
+    dequantize_int8,
+    int4_matmul,
+    int8_matmul,
+)
 from diffusionkit_tpu_torch.ops.quantized import QuantizedLinear, wscale_from_q4
-from diffusionkit_tpu_torch.ops.w4a8_matmul import w4a8_matmul, w4a8_matmul_plain
+from diffusionkit_tpu_torch.ops.w4a8_matmul import (
+    w4a8_matmul,
+    w4a8_matmul_plain,
+    w8_matmul,
+    w8_matmul_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -82,7 +94,8 @@ def test_kernel_library_is_keyed_by_source_hash():
     assert path.parent == kernels.BUILD_DIR
     assert kernels.source_hash() in path.name
     assert {p.name for p in kernels.CSRC.glob("*.cu")} >= {"mod_ln.cu", "flash_attention.cu",
-                                                             "int4_matmul.cu", "w4a8_matmul.cu"}
+                                                             "int4_matmul.cu", "w4a8_matmul.cu",
+                                                             "w8_matmul.cu"}
 
 
 @pytest.fixture
@@ -391,3 +404,149 @@ def test_w4a8_wrapper_raises_on_unsupported_input(cuda):
         w4a8_matmul(*args[:-1], layer.bias.float())
     with pytest.raises(TypeError):
         w4a8_matmul(*args, out_dtype=torch.float32)
+
+
+# Kernel D on rows wider than 8192 (T5-XXL's wo input, a FLUX w8a8 FFN
+# hidden) and kernel #4 at the SD3 w8a8 FFN hiddens (image and text rows),
+# T5-XXL's and a ragged row count.
+WIDE_ROWS = [(256, 10240), (4352, 12288), (3, 16384), (77, 1032)]
+GELU_SHAPES = [(2048, 6144), (308, 6144), (256, 10240), (77, 1536)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WIDE_ROWS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_kernel_takes_wide_rows(cuda, shape, dtype):
+    """Kernel D at 1, 2 and 4 vectors a thread: bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    y = (torch.randn(shape, generator=g, device=cuda) * 3).to(dtype)
+    got, want = quantize(y), quantize_plain(y)
+    assert torch.equal(got.x8, want.x8) and torch.equal(got.xscale, want.xscale)
+    with pytest.raises(ValueError, match="16384"):
+        quantize(torch.zeros(2, 16384 + 128, device=cuda, dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GELU_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form", ["erf", "tanh"])
+def test_gelu_quantize_kernel_matches_plain(cuda, shape, dtype, form):
+    """Kernel #4: y8 one step apart on at most 0.1 % of the elements (exp's
+    and tanh's last bits), scales within 1e-6."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    y = (torch.randn(shape, generator=g, device=cuda) * 2).to(dtype)
+    launches = gelu_quantize.launches
+    got = gelu_quantize(y, form)
+    torch.cuda.synchronize()
+    assert gelu_quantize.launches == launches + 1
+    want = gelu_quantize_plain(y, form)
+    assert got.x8.shape == shape and got.xscale.shape == (shape[0], 1) and got.dtype == dtype
+    assert_int8_close(got.x8, want.x8, share=1e-3)
+    torch.testing.assert_close(got.xscale, want.xscale, rtol=1e-6, atol=0)
+
+
+def random_w8(m, k, n, gen, device, bias=True, dtype=torch.bfloat16):
+    x8 = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (n, k), generator=gen, device=device, dtype=torch.int8)
+    xs = (torch.rand(m, 1, generator=gen, device=device) + 0.5) / (127 * k**0.5)
+    ws = (torch.rand(n, generator=gen, device=device) + 0.5) / 127
+    b = (0.1 * torch.randn(n, generator=gen, device=device)).to(dtype) if bias else None
+    return x8, w8, ws, xs, b
+
+
+# (M, K, N) of kernel #11 on the SD3 w8a8 and T5-XXL w8a8 paths: q/k/v/o,
+# fc1, fc2 of the image and text rows, the `ada` and embedder GEMVs, the
+# x_embedder (K = 64), the context embedder, the final linear (N = 64),
+# T5-XXL's projections; a ragged M.
+W8_SHAPES = [(2048, 1536, 1536), (308, 1536, 6144), (2048, 6144, 1536), (2, 1536, 9216),
+             (2, 256, 1536), (2048, 64, 1536), (308, 4096, 1536), (2048, 1536, 64),
+             (256, 4096, 10240), (256, 10240, 4096), (77, 512, 200)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", W8_SHAPES)
+def test_w8_kernel_matches_plain(cuda, shape):
+    """Kernel #11 against its plain version on the same card: bit-identical
+    (exact int32 products, the fp32 epilogue in the same order)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    args = random_w8(*shape, g, cuda)
+    launches = w8_matmul.launches
+    got = w8_matmul(*args)
+    torch.cuda.synchronize()
+    assert w8_matmul.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (shape[0], shape[2])
+    assert torch.equal(got, w8_matmul_plain(*args))
+
+
+@pytest.mark.gpu
+def test_w8_kernel_fp32_and_no_bias(cuda):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    args = random_w8(300, 1024, 512, g, cuda, dtype=torch.float32)
+    assert torch.equal(w8_matmul(*args, out_dtype=torch.float32),
+                       w8_matmul_plain(*args, out_dtype=torch.float32))
+    args = random_w8(5, 1024, 512, g, cuda, bias=False)
+    assert torch.equal(w8_matmul(*args), w8_matmul_plain(*args))
+
+
+@pytest.mark.gpu
+def test_w8_wrapper_raises_on_unsupported_input(cuda):
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x8, w8, ws, xs, b = random_w8(8, 256, 128, g, cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        w8_matmul(x8[:, :96].contiguous(), w8[:, :96].contiguous(), ws, xs, b)
+    with pytest.raises(ValueError, match="bias"):
+        w8_matmul(x8, w8, ws, xs, b.float())
+    with pytest.raises(TypeError):
+        w8_matmul(x8.float(), w8, ws, xs, b)
+    with pytest.raises(TypeError):
+        w8_matmul(x8, w8, ws, xs, b, out_dtype=torch.float16)
+
+
+def random_int8(k, n, group, gen, device):
+    """Random bytes over the whole 0..255 range, and scales/zeros giving
+    weights of about +-1/sqrt(K)."""
+    q8 = torch.randint(0, 256, (k, n), generator=gen, device=device, dtype=torch.uint8)
+    scales = (torch.rand(k // group, n, generator=gen, device=device) + 0.5) * (2 / 255 / k**0.5)
+    zeros = -(torch.rand(k // group, n, generator=gen, device=device) + 0.5) / k**0.5
+    return q8, scales, zeros
+
+
+# (M, K, N, group) of kernel #13 on the SD3 int8 path: q/k/v/o, fc1, fc2,
+# an `ada` GEMV, the context embedder, at the quantize-at-load group 32 and
+# the random init's 64; a ragged M.
+INT8_SHAPES = [(2048, 1536, 1536, 32), (2048, 1536, 6144, 32), (2048, 6144, 1536, 32),
+               (308, 1536, 1536, 64), (2, 1536, 9216, 32), (308, 4096, 1536, 32),
+               (77, 512, 256, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_kernel_matches_plain(cuda, shape):
+    """Kernel #13 against fp32 math on the same bf16-rounded weights, as
+    kernel C: one bf16 ulp + 2K 2^-24 (|x| @ |w|) per element."""
+    m, k, n, group = shape
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q8, scales, zeros = random_int8(k, n, group, g, cuda)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    launches = int8_matmul.launches
+    got = int8_matmul(x, q8, scales, zeros)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    w = dequantize_int8(q8, scales, zeros, torch.bfloat16).float()
+    want = x.float() @ w
+    slack = 2 * k * 2.0**-24 * (x.float().abs() @ w.abs())
+    diff = (got.float() - want).abs()
+    assert torch.all(diff <= bf16_ulp(want) + slack), (diff / (bf16_ulp(want) + slack)).max().item()
+
+
+@pytest.mark.gpu
+def test_int8_wrapper_raises_on_unsupported_input(cuda):
+    g = torch.Generator(device=cuda).manual_seed(18)
+    q8, scales, zeros = random_int8(512, 256, 64, g, cuda)
+    x = torch.randn(8, 512, generator=g, device=cuda).bfloat16()
+    with pytest.raises(TypeError):
+        int8_matmul(x, q8.to(torch.int8), scales, zeros)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int8_matmul(x, q8[:, :200].contiguous(), scales[:, :200].contiguous(),
+                    zeros[:, :200].contiguous())

@@ -72,7 +72,7 @@ def test_mmdit_matches_jax_with_pallas_mod_ln(monkeypatch):
     monkeypatch.setenv("DIFFUSIONKIT_TPU_FUSED_QUANT", "interpret")
     jcfg = TINY_MMDIT
     params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=1)
-    model = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig))
+    model = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu")
     assert len(model.mm_blocks) == 1
 
     rs = np.random.RandomState(2)
@@ -95,7 +95,7 @@ def test_clip_matches_jax(act, proj):
     jcfg = JaxCLIPConfig(num_layers=3, model_dims=32, num_heads=2, max_length=16,
                          vocab_size=64, projection_dim=proj, hidden_act=act)
     params = randomize(init_clip_params(jax.random.PRNGKey(3), jcfg), seed=4)
-    model = clip_from_jax(params, torch_config(jcfg, tcfg.CLIPTextModelConfig))
+    model = clip_from_jax(params, torch_config(jcfg, tcfg.CLIPTextModelConfig), device="cpu")
 
     rs = np.random.RandomState(5)
     tokens = rs.randint(1, 62, size=(2, 16)).astype(np.int32)
@@ -118,7 +118,7 @@ def test_vae_decoder_matches_jax():
     jcfg = JaxVAEDecoderConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=2,
                                resnet_groups=4)
     params = randomize(init_vae_decoder_params(jax.random.PRNGKey(6), jcfg), seed=7)
-    model = vae_decoder_from_jax(params, torch_config(jcfg, tcfg.VAEDecoderConfig))
+    model = vae_decoder_from_jax(params, torch_config(jcfg, tcfg.VAEDecoderConfig), device="cpu")
     assert model.up_blocks[1].resnets[0].conv_shortcut is not None
 
     latent = np.random.RandomState(8).randn(1, 8, 8, 16).astype(np.float32)
@@ -138,24 +138,24 @@ def test_convert_is_strict():
     del params["final_layer_norm"]
     with pytest.raises(RuntimeError, match="final_layer_norm"):
         clip_from_jax(params, tcfg.CLIPTextModelConfig(
-            num_layers=1, model_dims=8, num_heads=2, max_length=4, vocab_size=8))
+            num_layers=1, model_dims=8, num_heads=2, max_length=4, vocab_size=8), device="cpu")
 
 
 def test_random_initialisers_are_seeded():
     cfg = torch_config(TINY_MMDIT, tcfg.MMDiTConfig)
-    a = init_mmdit(cfg, torch.Generator().manual_seed(0))
-    b = init_mmdit(cfg, torch.Generator().manual_seed(0))
+    a = init_mmdit(cfg, torch.Generator().manual_seed(0), device="cpu")
+    b = init_mmdit(cfg, torch.Generator().manual_seed(0), device="cpu")
     for (name, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(pa, pb), name
     assert a.mm_blocks[0].img.q.bias.abs().sum() == 0
     clip = init_clip(tcfg.CLIPTextModelConfig(num_layers=1, model_dims=8, num_heads=2,
                                               max_length=4, vocab_size=8),
-                     torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+                     torch.Generator().manual_seed(0), dtype=torch.bfloat16, device="cpu")
     assert clip.final_layer_norm.weight.dtype == torch.bfloat16
     assert torch.all(clip.final_layer_norm.weight == 1)
     vae = init_vae_decoder(tcfg.VAEDecoderConfig(block_out_channels=(8, 8), layers_per_block=1,
                                                  resnet_groups=4),
-                           torch.Generator().manual_seed(0))
+                           torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
         img = vae(torch.randn(1, 4, 4, 16, generator=torch.Generator().manual_seed(1)))
     assert img.shape == (1, 8, 8, 3) and torch.isfinite(img).all() and img.std() > 0.05

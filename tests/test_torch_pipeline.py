@@ -43,8 +43,8 @@ def tiny_vocab():
     return vocab
 
 
-@pytest.fixture(scope="module")
-def pipelines():
+def build_pipelines():
+    """The tiny JAX SD3 pipeline and the port's, on the same weights."""
     # a16=False: the VAE decodes in fp32 on both sides, where the point on
     # the CPU is the algorithm (bf16 rounds at different places in XLA's
     # fused CPU code and in torch's per-op kernels).
@@ -68,15 +68,23 @@ def pipelines():
         setattr(jp, name, tok)
 
     tp = DiffusionPipeline(shift=3.0, a16=False, device="cpu")
-    tp.clip_l = clip_from_jax(jp.clip_l, torch_config(clip_l, tcfg.CLIPTextModelConfig))
-    tp.clip_g = clip_from_jax(jp.clip_g, torch_config(clip_g, tcfg.CLIPTextModelConfig))
-    tp.mmdit = mmdit_from_jax(jp.mmdit_params, torch_config(mmdit, tcfg.MMDiTConfig))
-    tp.decoder = vae_decoder_from_jax(jp.decoder_params, torch_config(vae, tcfg.VAEDecoderConfig))
+    tp.clip_l = clip_from_jax(
+        jp.clip_l, torch_config(clip_l, tcfg.CLIPTextModelConfig), device="cpu")
+    tp.clip_g = clip_from_jax(
+        jp.clip_g, torch_config(clip_g, tcfg.CLIPTextModelConfig), device="cpu")
+    tp.mmdit = mmdit_from_jax(jp.mmdit_params, torch_config(mmdit, tcfg.MMDiTConfig), device="cpu")
+    tp.decoder = vae_decoder_from_jax(
+        jp.decoder_params, torch_config(vae, tcfg.VAEDecoderConfig), device="cpu")
     for name, pad in (("tokenizer_l", True), ("tokenizer_g", False)):
         tok = CLIPTokenizer({}, tiny_vocab(), pad_with_eos=pad)
         tok.max_length = 16
         setattr(tp, name, tok)
     return jp, tp
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    return build_pipelines()
 
 
 def test_text_conditioning_matches_jax(pipelines):

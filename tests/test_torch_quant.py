@@ -159,8 +159,8 @@ def test_quantize_at_load_matches_quantize_tree():
     params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=7)
     jax_q = jq.quantize_tree(params, bits=4, group_size=32)  # refine off via the env below
     pipe = FluxPipeline(device="cpu", quantize_mmdit=True, quantize_group_size=32)
-    pipe.mmdit = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig))
-    want = mmdit_from_jax(jax_q, torch_config(jcfg, tcfg.MMDiTConfig)).state_dict()
+    pipe.mmdit = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu")
+    want = mmdit_from_jax(jax_q, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu").state_dict()
     got = pipe.mmdit.state_dict()
     assert set(got) == set(want)
     assert isinstance(pipe.mmdit.context_embedder, tq.QuantizedLinear)
@@ -179,7 +179,7 @@ def test_init_mmdit_int4_builds_packed_blocks_only():
     cfg = torch_config(dataclasses.replace(
         JAX_FLUX, depth_multimodal=1, depth_unified=1, num_heads=2, hidden_size_override=128,
         rope_axes_dim=(8, 28, 28), dtype=jnp.float32), tcfg.MMDiTConfig)
-    model = init_mmdit(cfg, torch.Generator().manual_seed(0), quantize_bits=4)
+    model = init_mmdit(cfg, torch.Generator().manual_seed(0), quantize_bits=4, device="cpu")
     packed = {n for n, m in model.named_modules() if isinstance(m, tq.QuantizedLinear)}
     assert packed == {f"{b}.{p}" for b in ("mm_blocks.0.img", "mm_blocks.0.txt", "uni_blocks.0")
                       for p in ("q", "k", "v", "ada", "o", "fc1", "fc2")}

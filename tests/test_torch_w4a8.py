@@ -26,6 +26,7 @@ import torch
 from diffusionkit_tpu.config import FLUX_SCHNELL as JAX_FLUX
 from diffusionkit_tpu.models import init_mmdit_params
 from diffusionkit_tpu.models import mmdit as jax_mmdit
+from diffusionkit_tpu.ops import common as jax_common
 from diffusionkit_tpu.ops import fused_quant as jfq
 from diffusionkit_tpu.ops import w4a8_matmul as jw
 from diffusionkit_tpu.ops.quantized import quantize_kernel_host as jax_quantize_kernel_host
@@ -273,10 +274,25 @@ def test_w4a8_linears_match_jax(monkeypatch):
     assert torch.equal(ffn_gelu(l1, l2, t(x)), got)
 
 
-def test_ineligible_w4a8_ffn_raises_rather_than_taking_a_float_path():
-    fc1, fc2 = layer_of(packed(256, 384, 64, seed=10)), layer_of(packed(384, 256, 64, seed=11))
-    with pytest.raises(NotImplementedError, match="gelu_quantize"):
-        ffn_gelu(fc1, fc2, torch.zeros(3, 256))
+def test_ineligible_w4a8_ffn_raises_rather_than_taking_a_float_path(jax_tpu_dispatch,
+                                                                   monkeypatch):
+    """A w4a8 FFN whose hidden (384) is not a multiple of the 512 scale tile
+    takes the reference's ``fc2(gelu_quantize(fc1(x)))`` branch, never a
+    float path: kernel E's plain mode twice with kernel #4 between, against
+    the JAX ``ffn_gelu`` under its TPU dispatch. Tolerance as the w4a8
+    linears' plus gelu_quantize's one-step flips: 1e-4 of the output."""
+    p1, p2 = packed(256, 384, 64, seed=10), packed(384, 256, 64, seed=11)
+    fc1, fc2 = layer_of(p1), layer_of(p2)
+    assert not tw.w4a8_ffn_eligible(fc1, fc2)
+    x = np.random.RandomState(12).randn(3, 256).astype(np.float32)
+    plain, seen = tfq.gelu_quantize_plain, []
+    monkeypatch.setattr(tfq, "gelu_quantize_plain",
+                        lambda *a, **kw: seen.append(1) or plain(*a, **kw))
+    got = ffn_gelu(fc1, fc2, t(x))
+    want = jax_common.ffn_gelu({"fc1": {k: jnp.asarray(v) for k, v in p1.items()},
+                                "fc2": {k: jnp.asarray(v) for k, v in p2.items()}}, jnp.asarray(x))
+    assert seen == [1] and jax_tpu_dispatch == ["plain", "plain"]
+    assert got.shape == (3, 256) and relative(got, want) < 1e-4
 
 
 def test_wscale_helpers_match_jax():
@@ -295,8 +311,14 @@ def test_wscale_helpers_match_jax():
 
 
 def test_quantize_mmdit_mode_gate():
-    for mode in ("w8a8", "int8", "w4a8-mixed", "int4-mixed"):
-        with pytest.raises(NotImplementedError):
+    """Every mode of the reference's quantize-at-load is accepted, alone and
+    with "-mixed"; an unknown mode raises."""
+    for mode in (True, "int4", "int8", "w4a8", "w8a8", "w4a8-mixed", "int4-mixed"):
+        pipe = FluxPipeline(device="cpu", quantize_mmdit=mode)
+        assert pipe.quant_mode in ("int4", "int8", "w4a8", "w8a8")
+        assert pipe.quant_mixed == (isinstance(mode, str) and mode.endswith("-mixed"))
+    for mode in ("int2", "w8a16", "mixed"):
+        with pytest.raises(ValueError):
             FluxPipeline(device="cpu", quantize_mmdit=mode)
 
 
@@ -363,7 +385,7 @@ def test_flux_w4a8_blocks_and_model_match_jax(jax_tpu_dispatch, monkeypatch):
     move an int8 activation one step (``assert_close_up_to_flips``)."""
     jcfg = tiny_w4a8_flux()
     params = w4a8_params(jcfg, seed=20)
-    model = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig))
+    model = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu")
     assert all(layer.wscale is not None for layer in model.modules()
                if isinstance(layer, tq.QuantizedLinear))
     port_modes = record_port_modes(monkeypatch)
@@ -421,11 +443,12 @@ def test_flux_w4a8_pipeline_matches_jax(jax_tpu_dispatch):
     jp.clip_l, jp.t5_params = randomize(jp.clip_l, 1), randomize(jp.t5_params, 2)
     jp.decoder_params = randomize(jp.decoder_params, 4)
     tp = FluxPipeline(a16=False, device="cpu", quantize_mmdit="w4a8")
-    tp.clip_l = clip_from_jax(jp.clip_l, torch_config(jp.clip_l_config, tcfg.CLIPTextModelConfig))
-    tp.t5 = t5_from_jax(jp.t5_params, torch_config(jp.t5_config, tcfg.T5Config))
-    tp.mmdit = mmdit_from_jax(jp.mmdit_params, torch_config(jcfg, tcfg.MMDiTConfig))
+    tp.clip_l = clip_from_jax(
+        jp.clip_l, torch_config(jp.clip_l_config, tcfg.CLIPTextModelConfig), device="cpu")
+    tp.t5 = t5_from_jax(jp.t5_params, torch_config(jp.t5_config, tcfg.T5Config), device="cpu")
+    tp.mmdit = mmdit_from_jax(jp.mmdit_params, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu")
     tp.decoder = vae_decoder_from_jax(
-        jp.decoder_params, torch_config(jp.decoder_config, tcfg.VAEDecoderConfig))
+        jp.decoder_params, torch_config(jp.decoder_config, tcfg.VAEDecoderConfig), device="cpu")
     jtok = make_tiny_clip_tokenizer()
     tp.tokenizer_l = CLIPTokenizer({}, jtok.vocab, pad_with_eos=jtok.pad_with_eos)
     tp.tokenizer_l.max_length = jtok.max_length
