@@ -24,6 +24,15 @@ Phases, each raising on failure (the script then exits non-zero):
      D on 10240- and 12288-wide rows, each with a ragged M; their device
      times beside the plain versions' (w8_matmul beside torch._int_mm's
      int32 product alone, int8_matmul beside kernel C's);
+  3-4d. the (B, H, S, D) flash kernels: #15 flash_attention at the SD3,
+     VAE and FLUX 1024² shapes, #14 flash_attention_stats at FLUX 2048²'s
+     one-rank ring call, its four-rank chunk at three valid lengths and
+     SD3's padded four-rank chunk, against their plain versions on fp32
+     upcasts (head by head where all heads' scores would not fit), and
+     their device times; then the four-rank ring's arithmetic on one card:
+     each query slice against every key chunk through #14 in the ring's
+     order, merged by merge_chunk_stats, against kernel B over the whole
+     sequence (FLUX 2048² and SD3 512² CFG);
   every kernel's time is printed beside its bound (the larger of its
   operations over the card's peak for their type and its bytes over
   3.35 TB/s) and, for flash attention, beside F.scaled_dot_product_attention
@@ -57,8 +66,17 @@ Phases, each raising on failure (the script then exits non-zero):
         w4a8 MMDiT with FluxPipeline(quantize_mmdit="w4a8",
         quantize_t5=True), which smooths b's bf16 T5-XXL and converts it to
         w8a8 on the card; c's settings;
-     (run in the order a, d, e, b, c, f, so d and e share a's encoders and
-     f c's models);
+     a'. after a, one request of a's first prompt and seed under
+        DIFFUSIONKIT_TPU_ATTN_LAYOUT=bhsd: every attention on #15, none on
+        kernel B, its image within 3e-2 relative L2 of a's;
+     g. FLUX.1-schnell w4a8 at 2048² (16384 image + 256 text tokens), c's
+        models behind FluxPipeline(quantize_mmdit="w4a8", sdpa_impl="ring",
+        mesh=local_mesh()), one NCCL rank: every joint attention on #14
+        through the ring, kernel B only in the VAE mid-block (65536
+        positions); then request 0 through the default dispatch, on kernel
+        B only, its latents within 3e-2 relative L2 of the ring's;
+     (run in the order a, a', d, e, b, c, g, f, so d and e share a's
+     encoders, g c's models and f g's, before f converts the T5);
   7. two denoise steps of each path under torch.profiler: device-busy time
      per step by kernel family and the device's idle share; for FLUX also
      the text encoding (T5-XXL and CLIP-L).
@@ -72,6 +90,8 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
+import re
 import statistics
 import subprocess
 import time
@@ -94,8 +114,13 @@ from diffusionkit_tpu_torch.models.mmdit import MMDiT
 from diffusionkit_tpu_torch.models.t5 import T5Encoder
 from diffusionkit_tpu_torch.ops import kernels
 from diffusionkit_tpu_torch.ops.flash_attention import (
+    NEG_INF,
+    flash_attention,
     flash_attention_bshd,
     flash_attention_bshd_plain,
+    flash_attention_plain,
+    flash_attention_stats,
+    flash_attention_stats_plain,
 )
 from diffusionkit_tpu_torch.ops.fused_quant import (
     gelu_quantize,
@@ -130,6 +155,7 @@ from diffusionkit_tpu_torch.ops.w4a8_matmul import (
     w8_matmul_plain,
 )
 from diffusionkit_tpu_torch.ops.w8a8 import W8A8Linear, w8a8_module_
+from diffusionkit_tpu_torch.parallel import local_mesh, merge_chunk_stats
 from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline
 from diffusionkit_tpu_torch.tokenizer import (
     CLIPTokenizer,
@@ -157,16 +183,24 @@ KERNELS = {
                   "diffusionkit_tpu/ops/w4a8_matmul.py:530"),
     "int8_matmul": ("diffusionkit_tpu_torch/csrc/int4_matmul.cu",
                     "diffusionkit_tpu/ops/int4_matmul.py:244"),
+    "flash_attention_stats": ("diffusionkit_tpu_torch/csrc/flash_attention.cu",
+                              "diffusionkit_tpu/ops/flash_attention.py:432"),
+    "flash_attention": ("diffusionkit_tpu_torch/csrc/flash_attention.cu",
+                        "diffusionkit_tpu/ops/flash_attention.py:513"),
 }
 COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "int4_matmul": int4_matmul, "mod_ln_quantize": mod_ln_quantize,
            "quantize": quantize, "gelu_quantize": gelu_quantize, "w8_matmul": w8_matmul,
-           "int8_matmul": int8_matmul}
+           "int8_matmul": int8_matmul, "flash_attention_stats": flash_attention_stats,
+           "flash_attention": flash_attention}
 # The path whose launches the kernels line reports for each kernel: the
 # slice that brought it, or for kernel C, which the w4a8 path must not run,
 # the FLUX int4 path.
 MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flux",
-             "gelu_quantize": "sd3-w8a8", "w8_matmul": "sd3-w8a8", "int8_matmul": "sd3-int8"}
+             "gelu_quantize": "sd3-w8a8", "w8_matmul": "sd3-w8a8", "int8_matmul": "sd3-int8",
+             "flash_attention_stats": "flux-w4a8-2048-ring", "flash_attention": "sd3-bhsd"}
+# Per-request launches the attention kernels must match exactly.
+EXACT = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +227,15 @@ FLUX_W4A8 = dataclasses.replace(FLUX, name="flux-w4a8")
 SD3_W8A8 = dataclasses.replace(SD3, name="sd3-w8a8")
 SD3_INT8 = dataclasses.replace(SD3, name="sd3-int8")
 FLUX_E2E = dataclasses.replace(FLUX, name="flux-w4a8-t5w8a8")
+# bench.py's flux-2048: 16384 image + 256 text tokens; and its request 0
+# through the default dispatch, the ring's flash twin.
+FLUX_RING = dataclasses.replace(FLUX, name="flux-w4a8-2048-ring", latent=(256, 256))
+FLUX_RING_TWIN = "flux-w4a8-2048-flash"
+SD3_BHSD = dataclasses.replace(SD3, name="sd3-bhsd", requests=SD3.requests[:1])
+LAYOUT_ENV = "DIFFUSIONKIT_TPU_ATTN_LAYOUT"
+# Relative L2 between two runs of one request that differ only in the
+# attention's numerics (a' against a, g's flash twin against g).
+TWIN_RTOL = 3e-2
 T5_LAYERS = T5_XXL.num_layers
 
 MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536)]  # SD3 image / text stream sites
@@ -293,6 +336,16 @@ def kernel_bound(name: str, shape) -> tuple:
     if name == "flash_attention_bshd":
         b, s_, h, d = shape
         return bound(4 * b * h * s_ * s_ * d, "bf16", 8 * b * s_ * h * d)
+    if name == "flash_attention":
+        b, h, s_, d = shape
+        return bound(4 * b * h * s_ * s_ * d, "bf16", 8 * b * s_ * h * d)
+    if name == "flash_attention_stats":
+        # This run's data needs the vlen valid keys only: the products over
+        # them, q and k/v's valid rows read once (nothing at vlen 0), the
+        # fp32 o and the fp32 m and l written.
+        b, h, sq, skv, d, vlen = shape
+        reads = 2 * b * h * (sq + 2 * vlen) * d if vlen else 0
+        return bound(4 * b * h * sq * vlen * d, "bf16", reads + 4 * b * h * sq * (d + 2))
     if name == "w8_matmul":
         m, k, n = shape
         return bound(2 * m * k * n, "int8", m * k + n * k + 4 * m + 6 * n + 2 * m * n)
@@ -772,6 +825,177 @@ def w8a8_kernels(gen, tag: str):
     return errs, times
 
 
+# #14 at path g's one-rank ring call (FLUX.1-schnell 2048²: 16384 image +
+# 256 text tokens), at a four-rank chunk of the same sequence and at SD3
+# 512² CFG's four-rank chunk (1178 tokens padded to 1180): (B, H, Sq, Skv,
+# D) and the valid lengths checked and timed at each.
+STATS_SHAPES = [((1, 24, 16640, 16640, 128), (16640,)),
+                ((1, 24, 4160, 4160, 128), (4160, 1000, 0)),
+                ((2, 24, 295, 295, 64), (295, 293))]
+# #15 in (B, H, S, D): SD3's joint attention, the VAE mid-block at 512² and
+# FLUX's joint attention at 1024² (path a' runs the first two).
+BHSD_SHAPES = [(2, 24, 1178, 64), (1, 1, 4096, 512), (1, 24, 4352, 128)]
+# A plain version whose fp32 scores over all heads would exceed this runs
+# head by head (16640 tokens x 24 heads: 26.6 GB).
+PLAIN_SCORE_BYTES = 4 << 30
+# The ring whose arithmetic phase 3-4d runs chunk by chunk on one card, and
+# the (B, H, S, D) sequences it splits: FLUX 2048² and SD3 512² CFG.
+RING_N = 4
+COMBINE_SHAPES = [(1, 24, 16640, 128), (2, 24, 1178, 64)]
+
+
+def stats_plain_by_heads(q, k, v, scale: float, vlen: int):
+    """#14's plain version on all heads at once, or head by head (outputs
+    joined on the head axis) where the scores would exceed
+    PLAIN_SCORE_BYTES."""
+    b, h, sq, _ = q.shape
+    if 4 * b * h * sq * k.shape[2] <= PLAIN_SCORE_BYTES:
+        return flash_attention_stats_plain(q, k, v, scale, vlen)
+    parts = [flash_attention_stats_plain(q[:, i:i + 1], k[:, i:i + 1], v[:, i:i + 1], scale, vlen)
+             for i in range(h)]
+    return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+
+def check_stats(got, want, label: str) -> float:
+    """#14 against its plain version on fp32 upcasts: o within 2^-8 max|o| +
+    1e-6 (P rounded to bf16 at other running maxima), m within 1e-5 and l
+    within 1e-4 relative (fp32 sums in another order); with no valid key
+    exactly o = 0, l = 0, m = -1e30. Returns o's max abs error."""
+    o, m, l = got
+    finite = all(bool(torch.isfinite(t).all()) for t in (o, l))
+    if want is None:
+        ok = finite and bool((o == 0).all() and (l == 0).all() and (m == NEG_INF).all())
+        log(f"  flash_attention_stats {label}: no valid key, exactly o = 0, l = 0, m = -1e30: "
+            f"{'ok' if ok else 'FAIL'}")
+        err = 0.0
+    else:
+        ow, mw, lw = want
+        err = (o - ow).abs().max().item()
+        ratios = [((o - ow).abs() / (2.0**-8 * ow.abs().max() + 1e-6)).max().item(),
+                  ((m - mw).abs() / (1e-5 * mw.abs() + 1e-6)).max().item(),
+                  ((l - lw).abs() / (1e-4 * lw)).max().item()]
+        ok = finite and max(ratios) <= 1
+        log(f"  flash_attention_stats {label}: o max_abs_err {err!r} (max |o| "
+            f"{ow.abs().max().item()!r}), worst element of o, m, l at {ratios!r} of "
+            f"2^-8 max|o| + 1e-6, 1e-5 |m| + 1e-6, 1e-4 l: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_attention_stats {label} disagrees with its plain version")
+    return err
+
+
+def bhsd_kernels(gen, tag: str):
+    """Phase 3-4d: #15 and #14 against their plain versions on fp32 upcasts
+    of the same bf16 inputs, then each one's device time beside its plain
+    version's, its bound and a yardstick: F.scaled_dot_product_attention
+    on the same (B, H, S, D) tensors, #15's function (its library_ms); for
+    #14, which no single PyTorch call computes, the same call's time on its
+    q/k/v at vlen = Skv, the attention-work yardstick."""
+    dev = torch.device("cuda")
+    errs = {"flash_attention": [], "flash_attention_stats": []}
+    times = {name: [] for name in errs}
+    for shape in BHSD_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
+        scale = shape[-1] ** -0.5
+        got = flash_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q.float(), k.float(), v.float(), scale)
+        diff = (got.float() - want).abs()
+        bnd = bf16_ulp(want) + FLASH_SLACK * want.abs().max()
+        err, ratio = diff.max().item(), (diff / bnd).max().item()
+        ok = ratio <= 1 and bool(torch.isfinite(got).all())
+        log(f"  flash_attention (B, H, S, D) {shape}: max_abs_err {err!r}, max |want| "
+            f"{want.abs().max().item()!r}; tolerance one bf16 ulp + 2^-8 max|want| per element, "
+            f"worst element at {ratio!r} of it: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention {shape} disagrees")
+        errs["flash_attention"].append(err)
+        del got, want, diff
+        ms = device_ms(lambda: flash_attention(q, k, v, scale))
+        plain = device_ms(lambda: flash_attention_plain(q, k, v, scale), reps=5)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        b, h, s_, d = shape
+        t = timing("flash_attention", shape, ms, plain, library_ms=lib)
+        log(f"  flash_attention (B, H, S, D) {shape}: kernel {ms!r} ms "
+            f"({4 * b * h * s_ * s_ * d / (ms / 1e3) / 1e12!r} TFLOP/s), plain {plain!r} ms, "
+            f"F.scaled_dot_product_attention {lib!r} ms, {bound_note(t)} [{tag}]")
+        times["flash_attention"].append(t)
+        torch.cuda.empty_cache()
+    for (b, h, sq, skv, d), vlens in STATS_SHAPES:
+        q = torch.randn(b, h, sq, d, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(b, h, skv, d, generator=gen, device=dev).bfloat16() for _ in range(2))
+        scale = d**-0.5
+        for vlen in vlens:
+            label = f"(B, H, Sq, Skv, D) {(b, h, sq, skv, d)} vlen {vlen}"
+            got = flash_attention_stats(q, k, v, scale, vlen)
+            torch.cuda.synchronize()
+            want = None if vlen == 0 else stats_plain_by_heads(
+                q.float(), k.float(), v.float(), scale, vlen)
+            errs["flash_attention_stats"].append(check_stats(got, want, label))
+            del got, want
+            torch.cuda.empty_cache()
+            big = 4 * b * h * sq * skv > PLAIN_SCORE_BYTES
+            ms = device_ms(lambda: flash_attention_stats(q, k, v, scale, vlen))
+            plain = device_ms(lambda: stats_plain_by_heads(q, k, v, scale, vlen),
+                              reps=1 if big else 5)
+            extra = {}
+            if vlen == skv:
+                extra["sdpa_yardstick_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            t = timing("flash_attention_stats", (b, h, sq, skv, d, vlen), ms, plain,
+                       library_ms=None, **extra)
+            rate = 4 * b * h * sq * vlen * d / (ms / 1e3) / 1e12
+            log(f"  flash_attention_stats {label}: kernel {ms!r} ms ({rate!r} TFLOP/s), plain "
+                f"{plain!r} ms{' (head by head)' if big else ''}, no single PyTorch call "
+                f"(attention-work yardstick, F.scaled_dot_product_attention on the same q/k/v: "
+                f"{extra.get('sdpa_yardstick_ms')!r} ms), {bound_note(t)} [{tag}]")
+            times["flash_attention_stats"].append(t)
+            torch.cuda.empty_cache()
+        del q, k, v
+    return errs, times
+
+
+def ring_combine_checks(gen) -> None:
+    """Phase 3-4d: the RING_N-rank ring's arithmetic on one card, the only
+    check of #14's m and l across chunks. Each rank's query slice against
+    every key chunk in the ring's rotation order, with the ring's
+    vlen_local, through #14, merged by merge_chunk_stats; the joined output
+    against kernel B over the whole sequence, within kernel B's bound."""
+    for shape in COMBINE_SHAPES:
+        b, h, s, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
+        scale = d**-0.5
+        want = flash_attention_bshd(*(t.transpose(1, 2) for t in (q, k, v)), scale)
+        want = want.transpose(1, 2).float()
+        pad = (-s) % RING_N
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        s_local = (s + pad) // RING_N
+        outs, vlens = [], []
+        for me in range(RING_N):
+            rows = slice(me * s_local, (me + 1) * s_local)
+            m = torch.full((b, h, s_local, 1), NEG_INF, device="cuda")
+            l, acc = torch.zeros_like(m), torch.zeros(b, h, s_local, d, device="cuda")
+            for step in range(RING_N):
+                src = (me - step) % RING_N
+                cols = slice(src * s_local, (src + 1) * s_local)
+                vlen = min(max(s - src * s_local, 0), s_local)
+                vlens.append(vlen)
+                m, l, acc = merge_chunk_stats(m, l, acc, *flash_attention_stats(
+                    q[:, :, rows], k[:, :, cols], v[:, :, cols], scale, vlen))
+            outs.append((acc / l.clamp_min(1e-30)).bfloat16())
+        got = torch.cat(outs, dim=2)[:, :, :s].float()
+        diff = (got - want).abs()
+        ratio = (diff / (bf16_ulp(want) + FLASH_SLACK * want.abs().max())).max().item()
+        ok = ratio <= 1 and bool(torch.isfinite(got).all())
+        log(f"  {RING_N}-rank ring on one card, (B, H, S, D) {shape}: {RING_N}x{RING_N} #14 chunks "
+            f"(vlen_local {sorted(set(vlens))}) merged, against kernel B over the whole sequence: "
+            f"max_abs_err {diff.max().item()!r}, worst element at {ratio!r} of one bf16 ulp + "
+            f"2^-8 max|out|: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the chunk-by-chunk ring at {shape} disagrees with kernel B")
+        del q, k, v, want, got, diff, outs
+        torch.cuda.empty_cache()
+
+
 def fp32_cpu_mirror(model: torch.nn.Module, make) -> torch.nn.Module:
     """An fp32 copy of ``model`` on the CPU: ``make()`` builds the float
     structure, every packed or w8a8 linear of ``model`` is mirrored by a
@@ -946,12 +1170,17 @@ def per_request_launches(path: Path, cfg) -> dict:
     (q, k, v, o, fc1, fc2, ada); for the w4a8 model per_block_w4a8 and
     kernel A in the final layer only; for SD3 per_forward_sd3 by mode; plus
     the VAE mid-block's attention, and with the w8a8 T5 its 7 products and
-    4 quantizations a layer. A kernel a path must not run has 0 (kernel C on
-    the w4a8 paths, C, E and #13 on SD3 w8a8, #11, C and E on SD3 int8)."""
+    4 quantizations a layer. Under the bhsd switch (a') every attention
+    takes #15 instead of kernel B; through the ring (g) every joint
+    attention takes #14 and kernel B runs only in the VAE. A kernel a path
+    must not run has 0 (kernel C on the w4a8 paths, C, E and #13 on SD3
+    w8a8, #11, C and E on SD3 int8, #14 and #15 off their paths)."""
     if path.name.startswith("sd3"):
-        mode = {"sd3": None, "sd3-w8a8": "w8a8", "sd3-int8": "int8"}[path.name]
+        mode = {"sd3": None, "sd3-w8a8": "w8a8", "sd3-int8": "int8", "sd3-bhsd": None}[path.name]
         per = {k: path.steps * v for k, v in per_forward_sd3(cfg.depth_multimodal, mode).items()}
         per["flash_attention_bshd"] += 1
+        if path.name == SD3_BHSD.name:
+            per["flash_attention"] = per.pop("flash_attention_bshd")
         return per
     dual, uni = cfg.depth_multimodal, cfg.depth_unified
     if path.name == FLUX.name:
@@ -964,7 +1193,31 @@ def per_request_launches(path: Path, cfg) -> dict:
     if path.name == FLUX_E2E.name:
         per["w8_matmul"] = 7 * T5_LAYERS
         per["quantize"] += 4 * T5_LAYERS
+    if path.name == FLUX_RING.name:
+        per["flash_attention_stats"] = path.steps * (dual + uni)
+        per["flash_attention_bshd"] = 1
     return per
+
+
+def check_launches(launches: dict, per: dict, n: int, label: str) -> None:
+    """Each kernel's launches in ``n`` requests against ``per`` request:
+    the attention kernels (EXACT) and every kernel the path must not run
+    exactly, the others at least (a kernel may also run outside the
+    denoiser)."""
+    need = {name: n * per.get(name, 0) for name in launches}
+    log(f"  launches during {label}: {launches} (needed {need}; exactly for "
+        f"{', '.join(EXACT)} and the zeros)")
+    for name in need:
+        exact = name in EXACT or need[name] == 0
+        if launches[name] < need[name] or (exact and launches[name] != need[name]):
+            raise AssertionError(f"{name} launched {launches[name]} times during {label}, "
+                                 f"expected {'' if exact else '>= '}{need[name]}")
+
+
+def rel_l2(got, want) -> float:
+    got, want = (np.asarray(t.cpu() if torch.is_tensor(t) else t, dtype=np.float64)
+                 for t in (got, want))
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
 def build_sd3(gen, _prev) -> DiffusionPipeline:
@@ -1076,15 +1329,8 @@ def serve(pipe, path: Path, tag: str):
     repeat = pipe.decode_latents_to_u8(latents).cpu().numpy()[0]
     torch.cuda.synchronize()
     launches = counts()
-    n = len(path.requests) + 1
-    per = per_request_launches(path, pipe.mmdit.config)
-    need = {name: n * per.get(name, 0) for name in launches}
-    log(f"  launches during the {path.name} main path: {launches} (at least {need})")
-    for name in need:
-        if launches[name] < need[name] or (need[name] == 0 and launches[name]):
-            raise AssertionError(f"{name} launched {launches[name]} times on the {path.name} "
-                                 f"path, expected {'0' if need[name] == 0 else '>= '}"
-                                 f"{need[name] or ''}")
+    check_launches(launches, per_request_launches(path, pipe.mmdit.config),
+                   len(path.requests) + 1, f"the {path.name} main path")
 
     finite = bool(torch.isfinite(latents).all())
     log(f"  latents {tuple(latents.shape)} finite: {finite}, "
@@ -1107,7 +1353,7 @@ def serve(pipe, path: Path, tag: str):
     flops = mmdit_step_flops(cfg, path.latent, path.txt_tokens, cfg=path.cfg > 1)["total"]
     peak = device_peak_flops(torch.cuda.get_device_name(0))
     rate, peak_name = "TFLOP/s", "bf16"
-    if path.name in (FLUX_W4A8.name, FLUX_E2E.name, SD3_W8A8.name):
+    if path.name in (FLUX_W4A8.name, FLUX_E2E.name, SD3_W8A8.name, FLUX_RING.name):
         rate, peak_name, peak = "TOP/s", "int8", 2 * peak  # the int8 tensor cores
     for i, lg in enumerate(logs):
         it = lg["denoising"]["iter_time"]
@@ -1121,10 +1367,98 @@ def serve(pipe, path: Path, tag: str):
             f"median ({flops / 1e12!r} T ops/step), {tflops * 1e12 / peak if peak else None!r} "
             f"of the {peak / 1e12!r} {rate} {peak_name} peak [{tag}]")
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB [{tag}]")
-    return launches, 1e3 * statistics.median(logs[1]["denoising"]["iter_time"])
+    return {"launches": launches, "latents": latents, "image": images[0],
+            "step_ms": 1e3 * statistics.median(logs[1]["denoising"]["iter_time"])}
+
+
+def serve_bhsd(pipe, ref_image, tag: str) -> dict:
+    """Path a': path a's first request again, with
+    DIFFUSIONKIT_TPU_ATTN_LAYOUT=bhsd set around it only; every attention
+    on #15, none on kernel B; its image against a's."""
+    path = SD3_BHSD
+    text, seed = path.requests[0]
+    saved = os.environ.get(LAYOUT_ENV)
+    os.environ[LAYOUT_ENV] = "bhsd"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        image, lg = pipe.generate_image(text, seed=seed, num_steps=path.steps, cfg_weight=path.cfg,
+                                        latent_size=path.latent, verbose=False)
+        torch.cuda.synchronize()
+        launches = counts()
+        check_launches(launches, per_request_launches(path, pipe.mmdit.config), 1,
+                       f"the {path.name} request")
+        rel = rel_l2(np.asarray(image), ref_image)
+        it = lg["denoising"]["iter_time"]
+        step_ms = 1e3 * statistics.median(it)
+        log(f"  {path.name}: image relative L2 against path a's request 0 {rel!r} (tolerance "
+            f"{TWIN_RTOL}); denoise median {step_ms!r} ms/step, total {lg['total_time']!r} "
+            f"s/image, peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB [{tag}]")
+        if not rel < TWIN_RTOL:
+            raise AssertionError(f"{path.name}: the bhsd request's image is off path a's")
+        log(f"phase 7a': where a {path.name} step's device time goes (torch.profiler)")
+        families = profile_steps(pipe, path, step_ms, tag)
+    finally:
+        if saved is None:
+            os.environ.pop(LAYOUT_ENV)
+        else:
+            os.environ[LAYOUT_ENV] = saved
+    return {"launches": launches, "families": families}
+
+
+def flash_twin(pipe, ring_latents, ring_step_ms: float, tag: str) -> dict:
+    """Path g's request 0 through the default dispatch (no ring), on the
+    same models: kernel B at every attention, #14 never; its latents against
+    the ring request's."""
+    path = FLUX_RING
+    twin = FluxPipeline(device="cuda", quantize_mmdit="w4a8")
+    for name in ("mmdit", "t5", "clip_l", "decoder", "tokenizer_l", "t5_tokenizer"):
+        setattr(twin, name, getattr(pipe, name))
+    text, seed = path.requests[0]
+    reset_counts()
+    cond, pooled = twin.encode_text(text, path.cfg)
+    latents, it = twin.denoise_latents(cond, pooled, num_steps=path.steps, cfg_weight=path.cfg,
+                                       latent_size=path.latent, seed=seed)
+    twin.decode_latents_to_u8(latents)
+    torch.cuda.synchronize()
+    launches = counts()
+    per = per_request_launches(FLUX_W4A8, twin.mmdit.config)
+    check_launches(launches, per, 1, f"{path.name}'s request 0 without the ring")
+    rel = rel_l2(latents, ring_latents)
+    step_ms = 1e3 * statistics.median(it)
+    log(f"  {FLUX_RING_TWIN}: final latents relative L2 against the ring request's {rel!r} "
+        f"(tolerance {TWIN_RTOL}); denoise median {step_ms!r} ms/step against the ring's "
+        f"{ring_step_ms!r} [{tag}]")
+    if not rel < TWIN_RTOL:
+        raise AssertionError("the ring's latents are off the default dispatch's")
+    return launches
+
+
+def build_flux_ring(gen, prev: FluxPipeline) -> FluxPipeline:
+    """Path g: c's models (the packed w4a8 MMDiT with its wscale, T5-XXL,
+    CLIP-L, the VAE decoder) behind FluxPipeline(quantize_mmdit="w4a8",
+    sdpa_impl="ring", mesh=local_mesh()), a one-rank NCCL mesh."""
+    mesh = local_mesh()
+    log(f"  local_mesh(): {mesh}, backend {torch.distributed.get_backend()}")
+    pipe = FluxPipeline(device="cuda", quantize_mmdit="w4a8", sdpa_impl="ring", mesh=mesh)
+    for name in ("mmdit", "t5", "clip_l", "decoder", "tokenizer_l", "t5_tokenizer"):
+        setattr(pipe, name, getattr(prev, name))
+    return pipe
+
+
+# The flash kernels as the profiler names them, demangled or not: #14 is
+# flash_fwd_bhsd_small<D, true>, #15 flash_fwd_bhsd_small<D, false> and
+# flash_fwd_wide<512, true>, kernel B flash_fwd_small<D> and
+# flash_fwd_wide<512, false>.
+STATS_KERNEL = re.compile(r"flash_fwd_bhsd_small(?:<\d+, true>|ILi\d+ELb1E)")
+SCALE_FIRST_WIDE = re.compile(r"flash_fwd_wide(?:<\d+, true>|ILi\d+ELb1E)")
 
 
 def family(name: str) -> str:
+    if "flash_fwd_bhsd" in name:
+        return "flash_attention_stats" if STATS_KERNEL.search(name) else "flash_attention"
+    if SCALE_FIRST_WIDE.search(name):
+        return "flash_attention"
     if "flash_fwd" in name:
         return "flash_attention_bshd"
     if "w4a8_mm" in name:
@@ -1241,6 +1575,14 @@ def main() -> None:
         errs.setdefault(name, []).extend(w_errs[name])
         times.setdefault(name, []).extend(w_times[name])
     torch.cuda.empty_cache()
+    log("phase 3-4d: the (B, H, S, D) flash kernels (flash_attention, flash_attention_stats) "
+        "against their plain versions on the card, their device times, and the 4-rank ring's "
+        "chunks merged on one card")
+    w_errs, w_times = bhsd_kernels(gen, tag)
+    errs.update(w_errs)
+    times.update(w_times)
+    ring_combine_checks(gen)
+    torch.cuda.empty_cache()
 
     log("phase 5: reference checks")
     reference_checks(gen)
@@ -1249,10 +1591,12 @@ def main() -> None:
 
     launches, families = {}, {}
     pipe = None
-    # d and e reuse a's encoders and decoder, c b's, f c's models.
+    # d and e reuse a's encoders and decoder, c b's, g c's models, f g's
+    # (f converts the T5 to w8a8 in place, so g, with the bf16 T5, comes first).
     plan = (("a", SD3, build_sd3, False), ("d", SD3_W8A8, build_sd3_quantized("w8a8"), True),
             ("e", SD3_INT8, build_sd3_quantized("int8"), True), ("b", FLUX, build_flux, False),
-            ("c", FLUX_W4A8, build_flux_w4a8, True), ("f", FLUX_E2E, build_flux_e2e, True))
+            ("c", FLUX_W4A8, build_flux_w4a8, True), ("g", FLUX_RING, build_flux_ring, True),
+            ("f", FLUX_E2E, build_flux_e2e, True))
     for letter, path, build, reuse in plan:
         if not reuse:
             pipe = None
@@ -1265,9 +1609,19 @@ def main() -> None:
         torch.cuda.synchronize()
         log(f"  random {path.name} models on the card in {time.perf_counter() - t0!r} s, "
             f"{torch.cuda.memory_allocated() / 2**30!r} GiB allocated")
-        launches[path.name], step_ms = serve(pipe, path, tag)
+        served = serve(pipe, path, tag)
+        launches[path.name] = served["launches"]
         log(f"phase 7{letter}: where a {path.name} step's device time goes (torch.profiler)")
-        families[path.name] = profile_steps(pipe, path, step_ms, tag)
+        families[path.name] = profile_steps(pipe, path, served["step_ms"], tag)
+        if path is SD3:
+            log(f"phase 6a': main path {SD3_BHSD.name} (path a's request 0 under "
+                f"{LAYOUT_ENV}=bhsd)")
+            bhsd = serve_bhsd(pipe, served["image"], tag)
+            launches[SD3_BHSD.name], families[SD3_BHSD.name] = bhsd["launches"], bhsd["families"]
+        if path is FLUX_RING:
+            log(f"phase 6g': {FLUX_RING.name}'s request 0 through the default dispatch")
+            launches[FLUX_RING_TWIN] = flash_twin(pipe, served["latents"], served["step_ms"], tag)
+        del served
     log(f"  elementwise 'other' per FLUX step: w4a8 {families['flux-w4a8']['other']!r} ms, "
         f"int4 {families['flux']['other']!r} ms (the int4 path's fp32 bias and "
         f"QK-norm+RoPE chains ride kernel E's epilogues on the w4a8 path) [{tag}]")

@@ -14,7 +14,8 @@ loop. Same math and sequence order:
   FLUX-dev adds a guidance embedding to the modulation input.
 
 The AdaLN LayerNorm sites go to kernel A (``ops/fused_quant.mod_ln``), the
-joint attention to kernel B through ``ops/attention.sdpa``, and the block
+joint attention to kernel B through ``ops/attention.sdpa`` (to #14 under
+``sdpa_impl="ring"``, to #15 under ``DIFFUSIONKIT_TPU_ATTN_LAYOUT=bhsd``), and the block
 linears of an int4 or int8 model (``QuantizedLinear``) to kernels C and #13
 through ``ops/common.linear``. The fp32-upcast block segments of SD3.5-large
 wait; building such a config raises.
@@ -182,7 +183,8 @@ class MMBlock(nn.Module):
                                quantize_bits=quantize_bits)
 
     def forward(
-        self, img: torch.Tensor, txt: torch.Tensor, c: torch.Tensor, rope: Rope = None
+        self, img: torch.Tensor, txt: torch.Tensor, c: torch.Tensor, rope: Rope = None,
+        sdpa_impl: Optional[str] = None, mesh=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
         eps = cfg.layer_norm_eps
@@ -203,7 +205,8 @@ class MMBlock(nn.Module):
             if rope is not None:
                 cos, sin = (t[:, None, :] for t in rope)
                 q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        o = sdpa(q, k, v, scale=1.0 / (cfg.head_dim**0.5), layout="bshd").flatten(2)
+        o = sdpa(q, k, v, scale=1.0 / (cfg.head_dim**0.5), impl=sdpa_impl, mesh=mesh,
+                 layout="bshd").flatten(2)
         if flux:
             o_txt, o_img = o[:, :txt_len], o[:, txt_len:]
         else:
@@ -234,13 +237,15 @@ class UnifiedBlock(Projections):
         super().__init__(config, n_mod, quantize_bits=quantize_bits)
         self.config = config
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor, rope: Rope) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor, rope: Rope,
+                sdpa_impl: Optional[str] = None, mesh=None) -> torch.Tensor:
         cfg = self.config
         eps = cfg.layer_norm_eps
         mods = self.modulation(c)
         h = _mod_ln_maybe_quant(self.q, x, mods[0], mods[1], eps)
         q, k, v = self.qkv(h, cfg.num_heads, rope)
-        o = sdpa(q, k, v, scale=1.0 / (cfg.head_dim**0.5), layout="bshd").flatten(2)
+        o = sdpa(q, k, v, scale=1.0 / (cfg.head_dim**0.5), impl=sdpa_impl, mesh=mesh,
+                 layout="bshd").flatten(2)
         if cfg.parallel_mlp_for_unified_blocks:
             return x + mods[2] * (linear(self.o, o) + ffn_gelu(self.fc1, self.fc2, h))
         x = x + mods[2] * linear(self.o, o)
@@ -306,7 +311,15 @@ class MMDiT(nn.Module):
         pooled_text_embeddings: torch.Tensor,
         timestep: torch.Tensor,
         guidance: Optional[torch.Tensor] = None,
+        sdpa_impl: Optional[str] = None,
+        mesh=None,
     ) -> torch.Tensor:
+        """``sdpa_impl`` and ``mesh`` go to every joint attention's ``sdpa``
+        (``ops/attention.py``): ``sdpa_impl="ring"`` with a mesh from
+        ``parallel`` runs context-parallel ring attention. The weights stay
+        replicated on every rank (tensor parallelism comes later), and the
+        reference's ``fused_quant.disable_scope``, a GSPMD workaround, has
+        no counterpart: the quantize kernels run under a mesh too."""
         cfg = self.config
         b, lh, lw, _ = latent.shape
         dt, p = cfg.dtype, cfg.patch_size
@@ -336,14 +349,15 @@ class MMDiT(nn.Module):
                 timestep_embedding(guidance, cfg.frequency_embed_dim, cfg.max_period).to(dt)
             )
 
+        attn = dict(sdpa_impl=sdpa_impl, mesh=mesh)
         for block in self.mm_blocks:
-            x, txt = block(x, txt, c, rope)
+            x, txt = block(x, txt, c, rope, **attn)
         if self.mm_final is not None:
-            x, _ = self.mm_final(x, txt, c, rope)
+            x, _ = self.mm_final(x, txt, c, rope, **attn)
         else:
             u = torch.cat([txt, x], dim=1)
             for block in self.uni_blocks:
-                u = block(u, c, rope)
+                u = block(u, c, rope, **attn)
             x = u[:, txt.shape[1]:].contiguous()
 
         fl = self.final_layer

@@ -1,21 +1,33 @@
-"""Kernel B: non-causal flash attention over (B, S, H, D).
+"""Non-causal flash attention: kernel B and kernels #14 and #15.
 
-Replaces the Pallas kernel
-``diffusionkit_tpu/ops/flash_attention.py:flash_attention_bshd``, which runs
-the SD3 joint attention (24 heads of d=64 over 1024 + 154 tokens at 512²),
-FLUX's joint attention (24 heads of d=128 over 256 + 4096 tokens at 1024²)
-and the VAE mid-block attention (one head of d=512).
-The CUDA source is ``csrc/flash_attention.cu``: compute-bound at the SD3
-shape, tensor-core (mma.sync) products with an in-register online softmax,
-the bshd layout read in place through strides; see the note there.
+Replace the Pallas kernels of ``diffusionkit_tpu/ops/flash_attention.py``:
 
-``flash_attention_bshd`` launches the kernel for a CUDA tensor and raises on
-what the kernel does not take (bf16, d in ``SUPPORTED_HEAD_DIMS``); a CPU
-tensor goes to ``flash_attention_bshd_plain``, the same numerics in plain
-torch with the score matrix materialised.
+- kernel B, ``flash_attention_bshd``: (B, S, H, D), the row max unscaled
+  with the scale folded into the exponent. It runs the SD3 joint attention
+  (24 heads of d=64 over 1024 + 154 tokens at 512²), FLUX's joint attention
+  (24 heads of d=128 over 256 + 4096 tokens at 1024²) and the VAE
+  mid-block attention (one head of d=512);
+- #15, ``flash_attention``: (B, H, S, D) with ``_flash_kernel``'s numerics
+  (the scale before the max); ``ops/attention.sdpa`` reaches it for
+  ``layout="bhsd"`` and under ``DIFFUSIONKIT_TPU_ATTN_LAYOUT=bhsd``;
+- #14, ``flash_attention_stats``: #15 against a key chunk with ``vlen``
+  valid leading keys, returning fp32 o, m and l for the ring attention's
+  combiner (``parallel/ring_attention.py``).
+
+One CUDA source, ``csrc/flash_attention.cu``: compute-bound, tensor-core
+(mma.sync) products with an in-register online softmax, any strides read in
+place; see the note there.
+
+Each wrapper launches its kernel for a CUDA tensor and raises on what the
+kernel does not take (bf16 only; d in ``SUPPORTED_HEAD_DIMS``, 64 and 128
+for #14; a contiguous head dim and 16-byte aligned rows); a CPU tensor goes
+to its plain version, the same numerics in plain torch with the score
+matrix materialised.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -23,12 +35,13 @@ from . import kernels
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (64, 128, 512)
+STATS_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_bshd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
 ) -> torch.Tensor:
-    """Plain torch version of the kernel's math: fp32 scores, the row max
+    """Plain torch version of kernel B's math: fp32 scores, the row max
     unscaled with ``scale`` folded into the exponent, P rounded to v's dtype
     before P.V with fp32 accumulation, divided by the fp32 row sum and
     rounded once."""
@@ -42,6 +55,69 @@ def flash_attention_bshd_plain(
     return (pv / l).permute(0, 2, 1, 3).to(q.dtype).contiguous()
 
 
+def flash_attention_stats_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, vlen: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch version of #14, and the ring's chunk body (the
+    reference's ``_chunk_stats_xla``): s = (q k^T) * scale in fp32, keys at
+    or past ``vlen`` at -1e30, m = max s, p = exp(s - m) zeroed on masked
+    keys (a fully masked chunk has s == m there), l = sum p, and
+    o = (p in v's dtype) . v / max(l, 1e-30) in fp32. Returns (o, m, l)
+    with m and l (B, H, Sq, 1)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    valid = torch.arange(k.shape[-2], device=q.device) < vlen
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return o / l.clamp_min(1e-30), m, l
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> torch.Tensor:
+    """Plain torch version of #15: #14's math with every key valid, rounded
+    once to q's dtype; a contiguous (B, H, S, D) tensor."""
+    o, _, _ = flash_attention_stats_plain(q, k, v, scale, k.shape[-2])
+    return o.to(q.dtype).contiguous()
+
+
+def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, head_dims) -> None:
+    """What the CUDA kernels take: 4-d bf16 tensors on q's device, a head
+    dim in ``head_dims``, a contiguous head dim and 16-byte aligned rows."""
+    if not scale > 0:
+        raise ValueError(f"{name} requires scale > 0, got {scale}")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"{name}: q, k, v must be 4-d, got {q.ndim}, {k.ndim}, {v.ndim}")
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} not in {head_dims}")
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or t.device != q.device:
+            raise TypeError(f"{name}: {label} must be bf16 on {q.device}, got {t.dtype}")
+        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: {label} needs a contiguous head dim and 16-byte "
+                f"aligned rows, got strides {t.stride()}"
+            )
+
+
+def _on_cuda(name: str, q: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one (the plain version);
+    raises on any other device."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return q.device.type == "cuda"
+
+
+def _bshd_strides(t: torch.Tensor, layout: str):
+    """(batch, sequence, head) strides of a (B, S, H, D) or (B, H, S, D)
+    tensor, the order the C entry points take."""
+    st = t.stride()
+    return (st[0], st[1], st[2]) if layout == "bshd" else (st[0], st[2], st[1])
+
+
 def flash_attention_bshd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
 ) -> torch.Tensor:
@@ -51,30 +127,17 @@ def flash_attention_bshd(
     On CUDA: bf16, D in SUPPORTED_HEAD_DIMS, a contiguous head dim and
     16-byte aligned rows; other strides are read in place.
     """
-    if q.device.type == "cpu":
+    if not _on_cuda("flash_attention_bshd", q):
         return flash_attention_bshd_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bshd: unsupported device {q.device}")
-    if not scale > 0:
-        raise ValueError(f"flash_attention_bshd requires scale > 0, got {scale}")
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+    _check_inputs("flash_attention_bshd", q, k, v, scale, SUPPORTED_HEAD_DIMS)
+    if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"flash_attention_bshd: q, k, v must share one (B, S, H, D) shape, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     b, s, h, d = q.shape
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bshd: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or t.device != q.device:
-            raise TypeError(f"flash_attention_bshd: {name} must be bf16 on {q.device}")
-        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(
-                f"flash_attention_bshd: {name} needs a contiguous head dim and 16-byte "
-                f"aligned rows, got strides {t.stride()}"
-            )
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    strides = [st for t in (q, k, v, out) for st in _bshd_strides(t, "bshd")]
     err = kernels.library().dk_flash_attn_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
         *strides, float(scale), kernels.stream_ptr(q.device),
@@ -85,3 +148,77 @@ def flash_attention_bshd(
 
 
 flash_attention_bshd.launches = 0
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> torch.Tensor:
+    """#15: softmax((q k^T) * scale) v over (B, H, S, D) inputs, the scale
+    applied before the row max; returns a contiguous (B, H, S, D) tensor in
+    q's dtype.
+
+    On CUDA: bf16, D in SUPPORTED_HEAD_DIMS, a contiguous head dim and
+    16-byte aligned rows; other strides (a transposed (B, S, H, D) view) are
+    read in place.
+    """
+    if not _on_cuda("flash_attention", q):
+        return flash_attention_plain(q, k, v, scale)
+    _check_inputs("flash_attention", q, k, v, scale, SUPPORTED_HEAD_DIMS)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"flash_attention: q, k, v must share one (B, H, S, D) shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, h, s, d = q.shape
+    out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
+    strides = [st for t in (q, k, v, out) for st in _bshd_strides(t, "bhsd")]
+    err = kernels.library().dk_flash_attn_bhsd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
+        *strides, float(scale), kernels.stream_ptr(q.device),
+    )
+    kernels.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_stats(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, vlen: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """#14: q (B, H, Sq, D) against a key chunk k/v (B, H, Skv, D) whose
+    first ``vlen`` keys are valid (a host int, clamped to [0, Skv]).
+
+    Returns (o, m, l): o fp32 (B, H, Sq, D) normalised over the chunk, m the
+    row max of the scaled scores and l the row sum, fp32 (B, H, Sq, 1). A
+    fully masked chunk gives o = 0, l = 0 and m = -1e30.
+
+    On CUDA: bf16, D in STATS_HEAD_DIMS (the MMDiT head dims), a contiguous
+    head dim and 16-byte aligned rows; other strides are read in place.
+    """
+    vlen = max(0, min(int(vlen), k.shape[-2]))
+    if not _on_cuda("flash_attention_stats", q):
+        return flash_attention_stats_plain(q, k, v, scale, vlen)
+    _check_inputs("flash_attention_stats", q, k, v, scale, STATS_HEAD_DIMS)
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if k.shape != (b, h, skv, d) or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention_stats: q (B, H, Sq, D) and k, v (B, H, Skv, D) must agree, "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    o = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    strides = [st for t in (q, k, v, o) for st in _bshd_strides(t, "bhsd")]
+    err = kernels.library().dk_flash_attn_stats_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
+        b, h, sq, skv, d, vlen, *strides, float(scale), kernels.stream_ptr(q.device),
+    )
+    kernels.check(err, "flash_attention_stats")
+    flash_attention_stats.launches += 1
+    return o, m, l
+
+
+flash_attention_stats.launches = 0

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "dk_mod_ln_bf16": [_P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
     "dk_mod_ln_f32": [_P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
     "dk_flash_attn_bf16": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
+    "dk_flash_attn_bhsd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
+    "dk_flash_attn_stats_bf16": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P],
     "dk_int4_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "dk_int8_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "dk_gelu_quantize_bf16": [_P, _P, _P, _I, _I, _I, _P],

@@ -26,8 +26,9 @@ assigned MMDiT on its own device, as the reference's quantize-at-load does:
 fold (``ops/smoothquant.smooth_t5``, calibrated with ``t5_tokenizer`` if it
 is set by then) and converts it to w8a8. Every model stays resident; the
 reference's phase-lazy loading, quantized-tree disk cache,
-``DIFFUSIONKIT_TPU_T5_SMOOTH`` switch, ``use_scan``, mesh, batch chunking,
-T5 for SD3 and img2img wait for later slices.
+``DIFFUSIONKIT_TPU_T5_SMOOTH`` switch, ``use_scan``, tensor-parallel
+loading and the data-parallel batch under a mesh, batch chunking, T5 for
+SD3 and img2img wait for later slices.
 """
 
 from __future__ import annotations
@@ -105,12 +106,15 @@ def _cfg_euler_step(
     cfg_weight: float,
     cfg_on: bool,
     guidance: Optional[float] = None,
+    sdpa_impl: Optional[str] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """One CFG + Euler step on fp32 latents x (N, H, W, C).
 
     With CFG the model batch is [x, x] against conditioning rows
     [positive, negative]. All scalars are fp32 values, as on the reference's
-    device. ``guidance`` (FLUX-dev) is broadcast over the model batch.
+    device. ``guidance`` (FLUX-dev) is broadcast over the model batch;
+    ``sdpa_impl`` and ``mesh`` go to the model's attention.
     """
     n = x.shape[0]
     xin = torch.cat([x, x]) if cfg_on else x
@@ -120,7 +124,7 @@ def _cfg_euler_step(
     )
     g = None if guidance is None else torch.full(
         (xin.shape[0],), float(np.float32(guidance)), dtype=torch.float32, device=x.device)
-    out = model(xin, conditioning, pooled, timestep, g).float()
+    out = model(xin, conditioning, pooled, timestep, g, sdpa_impl=sdpa_impl, mesh=mesh).float()
     denoised = xin - out * float(sigma)
     if cfg_on:
         eps_text, eps_neg = denoised[:n], denoised[n:]
@@ -161,7 +165,15 @@ class DiffusionPipeline:
     production schedule. ``quantize_mmdit`` (module docstring) converts the
     assigned MMDiT; weight-only modes pack at group ``quantize_group_size``
     (the reference's quantize-at-load, with the min/max grid until GPTQ is
-    ported)."""
+    ported).
+
+    ``sdpa_impl`` (None/'auto', 'xla', 'flash' or 'ring') and ``mesh`` (a
+    ``parallel.create_mesh`` / ``local_mesh`` DeviceMesh) go to every MMDiT
+    attention, as in the reference: ``sdpa_impl="ring"`` runs context-
+    parallel ring attention over the mesh's model axis. Every model stays
+    replicated on each rank, so the denoised result is the reference's
+    tensor-parallel one up to the order of sums; tensor-parallel loading and
+    the data-parallel split of the image batch come in a later slice."""
 
     def __init__(
         self,
@@ -170,8 +182,12 @@ class DiffusionPipeline:
         device="cuda",
         quantize_mmdit=False,
         quantize_group_size: int = 32,
+        sdpa_impl: Optional[str] = None,
+        mesh=None,
     ):
         self.quant_mode, self.quant_mixed = parse_quant_mode(quantize_mmdit)
+        self.sdpa_impl = sdpa_impl
+        self.mesh = mesh
         self.device = torch.device(device)
         self.activation_dtype = torch.bfloat16 if a16 else torch.float32
         self.sampler: FlowSchedule = ModelSamplingDiscreteFlow(shift=shift)
@@ -278,7 +294,7 @@ class DiffusionPipeline:
             t0 = time.perf_counter()
             x = _cfg_euler_step(
                 self.mmdit, x, sigmas[i], sigmas[i + 1], conditioning,
-                pooled_conditioning, cfg_weight, cfg_on, g,
+                pooled_conditioning, cfg_weight, cfg_on, g, self.sdpa_impl, self.mesh,
             )
             _sync(self.device)
             iter_time.append(time.perf_counter() - t0)
@@ -378,9 +394,12 @@ class FluxPipeline(DiffusionPipeline):
         quantize_group_size: int = 32,
         t5_max_length: int = 256,
         quantize_t5: bool = False,
+        sdpa_impl: Optional[str] = None,
+        mesh=None,
     ):
         super().__init__(shift=shift, a16=a16, device=device, quantize_mmdit=quantize_mmdit,
-                         quantize_group_size=quantize_group_size)
+                         quantize_group_size=quantize_group_size, sdpa_impl=sdpa_impl,
+                         mesh=mesh)
         self.sampler = FluxSampler(shift=shift)
         self.latent_format = FluxLatentFormat()
         self.t5_max_length = t5_max_length

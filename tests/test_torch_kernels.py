@@ -17,8 +17,13 @@ import torch
 from diffusionkit_tpu_torch.ops import kernels
 from diffusionkit_tpu_torch.ops.attention import sdpa, xla_sdpa
 from diffusionkit_tpu_torch.ops.flash_attention import (
+    NEG_INF,
+    flash_attention,
     flash_attention_bshd,
     flash_attention_bshd_plain,
+    flash_attention_plain,
+    flash_attention_stats,
+    flash_attention_stats_plain,
 )
 from diffusionkit_tpu_torch.ops.fused_quant import (
     gelu_quantize,
@@ -81,12 +86,18 @@ def test_cpu_tensors_take_the_plain_versions():
     x = torch.randn(1, 5, 128, generator=g)
     m = torch.randn(1, 1, 128, generator=g)
     q, k, v = (torch.randn(1, 1100, 1, 64, generator=g) for _ in range(3))
-    counts = (mod_ln.launches, flash_attention_bshd.launches)
+    wrappers = (mod_ln, flash_attention_bshd, flash_attention, flash_attention_stats)
+    counts = [fn.launches for fn in wrappers]
     assert torch.equal(mod_ln(x, m, m), mod_ln_plain(x, m, m))
     assert torch.equal(flash_attention_bshd(q, k, v, 0.125), flash_attention_bshd_plain(q, k, v, 0.125))
     # Above the flash threshold, but on the CPU 'auto' keeps the reference path.
-    assert torch.equal(sdpa(q, k, v, 0.125), xla_sdpa(q, k, v, 0.125))
-    assert (mod_ln.launches, flash_attention_bshd.launches) == counts
+    assert torch.equal(sdpa(q, k, v, 0.125, layout="bshd"), xla_sdpa(q, k, v, 0.125, layout="bshd"))
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    assert torch.equal(flash_attention(qh, kh, vh, 0.125), flash_attention_plain(qh, kh, vh, 0.125))
+    for got, want in zip(flash_attention_stats(qh, kh, vh, 0.125, 700),
+                         flash_attention_stats_plain(qh, kh, vh, 0.125, 700)):
+        assert torch.equal(got, want)
+    assert [fn.launches for fn in wrappers] == counts
 
 
 def test_kernel_library_is_keyed_by_source_hash():
@@ -188,26 +199,146 @@ def test_sdpa_auto_takes_the_kernel_on_the_card(cuda):
     long_q = torch.randn(1, 1100, 2, 64, generator=g, device=cuda).bfloat16()
     short_q = long_q[:, :500].contiguous()
     launches = flash_attention_bshd.launches
-    sdpa(short_q, short_q, short_q, 0.125)
+    sdpa(short_q, short_q, short_q, 0.125, layout="bshd")
     assert flash_attention_bshd.launches == launches
-    sdpa(long_q, long_q, long_q, 0.125)
+    sdpa(long_q, long_q, long_q, 0.125, layout="bshd")
     assert flash_attention_bshd.launches == launches + 1
     # fp32 on the card is the kernel's to take: it raises until the kernel
     # supports fp32, rather than quietly materialising the scores.
     with pytest.raises(TypeError):
-        sdpa(long_q.float(), long_q.float(), long_q.float(), 0.125)
+        sdpa(long_q.float(), long_q.float(), long_q.float(), 0.125, layout="bshd")
     assert_flash_close(
-        sdpa(short_q, short_q, short_q, 0.125, impl="flash"),
-        xla_sdpa(short_q.float(), short_q.float(), short_q.float(), 0.125),
+        sdpa(short_q, short_q, short_q, 0.125, impl="flash", layout="bshd"),
+        xla_sdpa(short_q.float(), short_q.float(), short_q.float(), 0.125, layout="bshd"),
     )
     # d=128 (FLUX) takes the kernel; d=256 passes the reference's flash
     # predicate but kernel B does not take it: it raises, never falls back.
     q128 = torch.randn(1, 1100, 2, 128, generator=g, device=cuda).bfloat16()
-    sdpa(q128, q128, q128, 0.1)
+    sdpa(q128, q128, q128, 0.1, layout="bshd")
     assert flash_attention_bshd.launches == launches + 3
     q256 = torch.zeros(1, 1100, 1, 256, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        sdpa(q256, q256, q256, 0.1)
+        sdpa(q256, q256, q256, 0.1, layout="bshd")
+
+
+# (B, H, S, D) shapes of #15: SD3-medium 512² CFG, the VAE mid-block at 512²,
+# FLUX.1-schnell at 1024², and small ragged ones.
+BHSD_SHAPES = [(2, 24, 1178, 64), (1, 1, 4096, 512), (1, 24, 4352, 128), (1, 3, 77, 64),
+               (2, 1, 300, 512), (1, 3, 77, 128)]
+# (B, H, Sq, Skv, D) of #14: FLUX 2048² at one rank and one of four, SD3's
+# padded 1178 tokens at four ranks, and small ragged chunks with Sq != Skv.
+STATS_SHAPES = [(1, 24, 4160, 4160, 128), (2, 24, 295, 295, 64), (1, 3, 77, 130, 64),
+                (2, 2, 150, 61, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BHSD_SHAPES)
+@pytest.mark.parametrize("view", ["contiguous", "transposed"])
+def test_flash_bhsd_kernel_matches_plain(cuda, shape, view):
+    """#15 within kernel B's bound of fp32 math, on contiguous (B, H, S, D)
+    tensors and on transposed views of (B, S, H, D) ones (the layout switch's
+    input), which the kernel reads in place."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, h, s, d = shape
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).bfloat16() for _ in range(3))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    if view == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == shape and got.is_contiguous()
+    assert_flash_close(got, flash_attention_plain(q.float(), k.float(), v.float(), d**-0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", STATS_SHAPES)
+@pytest.mark.parametrize("part", ["full", "partial", "none"])
+def test_flash_stats_kernel_matches_plain(cuda, shape, part):
+    """#14 against its plain version on fp32 upcasts: o within 2^-8 max|o| +
+    1e-6 (P rounded to bf16 at other running maxima), m within 1e-5 and l
+    within 1e-4 relative (fp32 sums in another order); a fully masked chunk
+    exactly o = 0, l = 0, m = -1e30."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    b, h, sq, skv, d = shape
+    q = torch.randn(b, h, sq, d, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(b, h, skv, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    vlen = {"full": skv, "partial": skv * 2 // 3, "none": 0}[part]
+    launches = flash_attention_stats.launches
+    o, m, l = flash_attention_stats(q, k, v, d**-0.5, vlen)
+    torch.cuda.synchronize()
+    assert flash_attention_stats.launches == launches + 1
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    assert o.shape == (b, h, sq, d) and m.shape == l.shape == (b, h, sq, 1)
+    if vlen == 0:
+        assert torch.all(o == 0) and torch.all(l == 0) and torch.all(m == NEG_INF)
+        return
+    ow, mw, lw = flash_attention_stats_plain(q.float(), k.float(), v.float(), d**-0.5, vlen)
+    assert torch.all((o - ow).abs() <= 2.0**-8 * ow.abs().max() + 1e-6)
+    assert torch.all((m - mw).abs() <= 1e-5 * mw.abs() + 1e-6)
+    assert torch.all((l - lw).abs() <= 1e-4 * lw)
+
+
+@pytest.mark.gpu
+def test_flash_bhsd_and_stats_raise_on_unsupported_input(cuda):
+    q = torch.zeros(1, 2, 8, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q, 0.1)
+    q512 = torch.zeros(1, 1, 8, 512, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_stats(q512, q512, q512, 0.1, 8)
+    for dtype in (torch.float32, torch.float16):
+        q = torch.zeros(1, 2, 8, 64, device=cuda, dtype=dtype)
+        with pytest.raises(TypeError):
+            flash_attention(q, q, q, 0.1)
+        with pytest.raises(TypeError):
+            flash_attention_stats(q, q, q, 0.1, 8)
+
+
+@pytest.mark.gpu
+def test_sdpa_layout_switch_takes_the_bhsd_kernel(cuda, monkeypatch):
+    """Under DIFFUSIONKIT_TPU_ATTN_LAYOUT=bhsd a bshd attention that would
+    take kernel B takes #15 through transposed views; a bhsd call takes #15
+    whatever the switch."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(2, 1100, 3, 64, generator=g, device=cuda).bfloat16() for _ in range(3))
+    b_launches, launches = flash_attention_bshd.launches, flash_attention.launches
+    want = sdpa(q, k, v, 0.125, layout="bshd")
+    monkeypatch.setenv("DIFFUSIONKIT_TPU_ATTN_LAYOUT", "bhsd")
+    got = sdpa(q, k, v, 0.125, layout="bshd")
+    assert (flash_attention_bshd.launches, flash_attention.launches) == (b_launches + 1,
+                                                                         launches + 1)
+    assert got.shape == q.shape
+    assert_flash_close(got, xla_sdpa(q.float(), k.float(), v.float(), 0.125, layout="bshd"))
+    assert_flash_close(want, xla_sdpa(q.float(), k.float(), v.float(), 0.125, layout="bshd"))
+    monkeypatch.delenv("DIFFUSIONKIT_TPU_ATTN_LAYOUT")
+    sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), 0.125)
+    assert flash_attention.launches == launches + 2
+
+
+@pytest.mark.gpu
+def test_ring_on_one_nccl_rank_takes_the_stats_kernel(cuda):
+    """The ring on the card's 1x1 mesh (one NCCL rank): one #14 call over
+    the whole sequence, merged, within kernel B's bound of fp32 math; the
+    plain chunk body only when asked for."""
+    from diffusionkit_tpu_torch.parallel import local_mesh, ring_attention
+
+    mesh = local_mesh()
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        g = torch.Generator(device=cuda).manual_seed(8)
+        q, k, v = (torch.randn(2, 3, 1200, 128, generator=g, device=cuda).bfloat16()
+                   for _ in range(3))
+        want = flash_attention_plain(q.float(), k.float(), v.float(), 128**-0.5)
+        launches = flash_attention_stats.launches
+        assert_flash_close(sdpa(q, k, v, 128**-0.5, impl="ring", mesh=mesh), want)
+        assert flash_attention_stats.launches == launches + 1
+        plain = ring_attention(q, k, v, 128**-0.5, mesh, use_flash=False)
+        assert flash_attention_stats.launches == launches + 1
+        assert_flash_close(plain, want)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def random_int4(k, n, group, gen, device):

@@ -15,16 +15,24 @@ import jax.numpy as jnp
 
 from diffusionkit_tpu.ops import common as jcommon
 from diffusionkit_tpu.ops import norms as jnorms
+from diffusionkit_tpu.ops import attention as jax_attention
+from diffusionkit_tpu.ops import flash_attention as jax_flash
 from diffusionkit_tpu.ops.attention import xla_sdpa as jax_xla_sdpa
 from diffusionkit_tpu.ops.flash_attention import flash_attention_bshd as jax_flash_bshd
+from diffusionkit_tpu.parallel.ring_attention import _chunk_stats_xla as jax_chunk_stats_xla
 from diffusionkit_tpu.ops.fused_quant import mod_ln as jax_mod_ln
 from diffusionkit_tpu.sampler import FluxSampler as JaxFluxSampler
 from diffusionkit_tpu.sampler import ModelSamplingDiscreteFlow as JaxSD3Sampler
 from diffusionkit_tpu_torch.ops import common, norms
 from diffusionkit_tpu_torch.ops.attention import sdpa, xla_sdpa
 from diffusionkit_tpu_torch.ops.flash_attention import (
+    NEG_INF,
+    flash_attention,
     flash_attention_bshd,
     flash_attention_bshd_plain,
+    flash_attention_plain,
+    flash_attention_stats,
+    flash_attention_stats_plain,
 )
 from diffusionkit_tpu_torch.ops.fused_quant import mod_ln, mod_ln_plain
 from diffusionkit_tpu_torch.sampler import FluxSampler, ModelSamplingDiscreteFlow
@@ -171,27 +179,106 @@ def test_flash_plain_rejects_nonpositive_scale():
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture
+def jax_flash_interpret(monkeypatch):
+    """The JAX sdpa's Pallas flash kernels in interpret mode, so that its
+    impl='flash' runs on the CPU."""
+    for name in ("flash_attention", "flash_attention_bshd"):
+        fn = getattr(jax_flash, name)
+        monkeypatch.setattr(jax_attention, name,
+                            lambda *a, _fn=fn, **kw: _fn(*a, interpret=True, **kw))
+
+
 @pytest.mark.parametrize("impl", [None, "xla", "flash"])
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
-def test_sdpa_matches_jax_xla_sdpa(impl, layout):
+def test_sdpa_matches_jax_xla_sdpa(impl, layout, jax_flash_interpret):
+    """The port's sdpa against the JAX sdpa's dispatch (its flash kernels in
+    interpret mode) and against the JAX xla_sdpa, in both layouts: (B, S, H,
+    D) for bshd and its (B, H, S, D) transpose for bhsd."""
     rs = np.random.RandomState(4)
     q, k, v = (rs.randn(2, 40, 3, 64).astype(np.float32) for _ in range(3))
     if layout == "bhsd":
-        # Only bshd is ported (every caller passes it); bhsd must not be
-        # silently read as bshd.
-        tq = torch.from_numpy(q.transpose(0, 2, 1, 3).copy())
-        with pytest.raises(ValueError, match="bshd"):
-            sdpa(tq, tq, tq, scale=0.125, impl=impl, layout=layout)
-        with pytest.raises(ValueError, match="bshd"):
-            xla_sdpa(tq, tq, tq, 0.125, layout=layout)
-        return
-    want = _np(jax_xla_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.125, layout=layout))
+        q, k, v = (a.transpose(0, 2, 1, 3).copy() for a in (q, k, v))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = _np(jax_xla_sdpa(jq, jk, jv, 0.125, layout=layout))
+    np.testing.assert_allclose(
+        _np(jax_attention.sdpa(jq, jk, jv, 0.125, impl=impl, layout=layout)), want,
+        atol=2e-5, rtol=1e-4)
     got = sdpa(*map(torch.from_numpy, (q, k, v)), scale=0.125, impl=impl, layout=layout)
     np.testing.assert_allclose(_np(got), want, atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(
         _np(xla_sdpa(*map(torch.from_numpy, (q, k, v)), 0.125, layout=layout)),
         want, atol=2e-5, rtol=1e-4,
     )
+
+
+def test_sdpa_default_layout_is_the_references():
+    """Called with no layout, both packages' sdpa and xla_sdpa read a
+    (B, H, S, D) input, attending over S (H != S here, so reading it as
+    (B, S, H, D) would attend over the heads)."""
+    q, k, v = (np.random.RandomState(17).randn(2, 3, 40, 64).astype(np.float32)
+               for _ in range(3))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    want = _np(jax_attention.sdpa(jq, jk, jv, 0.125))
+    np.testing.assert_allclose(_np(sdpa(tq, tk, tv, 0.125)), want, atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(_np(jax_xla_sdpa(jq, jk, jv, 0.125)), want, atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(_np(xla_sdpa(tq, tk, tv, 0.125)), want, atol=2e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# #14 and #15's plain versions against the Pallas flash_attention_stats and
+# flash_attention (interpret mode) and the ring's XLA chunk body
+# ---------------------------------------------------------------------------
+
+# (B, H, Sq, Skv, D): one square chunk, one with Sq != Skv.
+STATS_CASES = [(1, 2, 128, 128, 64), (2, 3, 70, 100, 128)]
+
+
+@pytest.mark.parametrize("case", STATS_CASES)
+@pytest.mark.parametrize("part", ["full", "partial", "none"])
+def test_flash_stats_plain_matches_pallas_interpret(case, part):
+    b, h, sq, skv, d = case
+    rs = np.random.RandomState(18)
+    q = rs.randn(b, h, sq, d).astype(np.float32)
+    k, v = (rs.randn(b, h, skv, d).astype(np.float32) for _ in range(2))
+    vlen = {"full": skv, "partial": skv * 2 // 3, "none": 0}[part]
+    scale = d**-0.5
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = [_np(t) for t in flash_attention_stats_plain(tq, tk, tv, scale, vlen)]
+    assert got[0].shape == (b, h, sq, d) and got[1].shape == got[2].shape == (b, h, sq, 1)
+    # The CPU wrapper takes the plain version: the same result, no launch.
+    launches = flash_attention_stats.launches
+    for a, w in zip(flash_attention_stats(tq, tk, tv, scale, vlen), got):
+        np.testing.assert_array_equal(_np(a), w)
+    assert flash_attention_stats.launches == launches
+    for ref in (jax_flash.flash_attention_stats(jq, jk, jv, scale, jnp.int32(vlen), interpret=True),
+                jax_chunk_stats_xla(jq, jk, jv, jnp.int32(vlen), scale)):
+        o, m, l = (np.asarray(t) for t in ref)
+        # The tolerances of tests/test_parallel.py's stats test.
+        np.testing.assert_allclose(got[0], o, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got[1], m, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got[2], l, rtol=1e-5, atol=1e-6)
+    if vlen == 0:  # a fully masked chunk: exactly o = 0, l = 0, m = -1e30
+        assert np.all(got[0] == 0) and np.all(got[2] == 0)
+        assert np.all(got[1] == np.float32(NEG_INF))
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 200, 64), (2, 2, 150, 128), (1, 1, 300, 512)])
+def test_flash_bhsd_plain_matches_pallas_interpret(shape):
+    rs = np.random.RandomState(19)
+    q, k, v = (rs.randn(*shape).astype(np.float32) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    want = _np(jax_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         scale=scale, interpret=True))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = flash_attention_plain(tq, tk, tv, scale)
+    assert got.shape == shape and got.is_contiguous()
+    np.testing.assert_allclose(_np(got), want, atol=2e-5, rtol=2e-5)
+    launches = flash_attention.launches
+    np.testing.assert_array_equal(_np(flash_attention(tq, tk, tv, scale)), _np(got))
+    assert flash_attention.launches == launches
 
 
 # ---------------------------------------------------------------------------

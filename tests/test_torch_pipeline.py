@@ -169,6 +169,8 @@ def test_port_never_imports_jax():
         "from diffusionkit_tpu_torch.models import clip, mmdit, t5, vae\n"
         "from diffusionkit_tpu_torch.ops import attention, common, flash_attention, "
         "fused_quant, int4_matmul, kernels, norms, quantized, rope\n"
+        "from diffusionkit_tpu_torch import parallel\n"
+        "from diffusionkit_tpu_torch.parallel import mesh, ring_attention\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'diffusionkit_tpu.')))\n"
         "assert not bad, bad\n"
     )
