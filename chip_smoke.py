@@ -32,7 +32,21 @@ Phases, each raising on failure (the script then exits non-zero):
      their device times; then the four-rank ring's arithmetic on one card:
      each query slice against every key chunk through #14 in the ring's
      order, merged by merge_chunk_stats, against kernel B over the whole
-     sequence (FLUX 2048² and SD3 512² CFG);
+     sequence (FLUX 2048² and SD3 512² CFG); and the fp32 instantiations of
+     kernel B, #15 and #14 (B and #15 at the SD3, VAE and FLUX 1024² shapes,
+     #14 at SD3's padded chunk and a FLUX 2048² four-rank chunk) against
+     their fp32 plain versions within 2^-16 of the largest |output|, timed
+     beside F.scaled_dot_product_attention on the same fp32 inputs (TF32
+     off);
+  3-4e. #10 dequant_w8 (bit-identical at FLUX fc1, fc2, q and q at group
+     32), #10 then #11 against kernel E on the same layer (bit-identical at
+     M = 4352 and a ragged M) and #16 int8_dot (bit-identical to the exact
+     int32 product at the microbench's shape, M = 1 and a ragged M), timed
+     beside their bounds (#16 beside torch._int_mm); then the two tool
+     paths, bench-w4a8-mat and microbench-int8, through their ``run`` at
+     the reference's default shape: every row timed, mat_pl and mat_xla
+     equal to kernel and int8_dot to torch._int_mm bit for bit, each
+     counter rising by exactly the launches one run makes;
   every kernel's time is printed beside its bound (the larger of its
   operations over the card's peak for their type and its bytes over
   3.35 TB/s) and, for flash attention, beside F.scaled_dot_product_attention
@@ -41,7 +55,8 @@ Phases, each raising on failure (the script then exits non-zero):
      against the same weights in fp32 on the CPU (plain path): SD3-medium
      in bf16, w8a8 and int8 (2 blocks each), FLUX.1-schnell int4 and w4a8
      (1 dual-stream + 2 single-stream blocks each), and T5-XXL in w8a8 after
-     SmoothQuant (2 layers);
+     SmoothQuant (2 layers); and SD3-medium in fp32 on the card (every joint
+     attention on kernel B's fp32 instantiation) against fp32 on the CPU;
   6. the main paths, with random weights from a seed, each serving two
      requests through generate_image and repeating the first through the
      phase methods (the repeat must give the identical image, the two
@@ -69,6 +84,11 @@ Phases, each raising on failure (the script then exits non-zero):
      a'. after a, one request of a's first prompt and seed under
         DIFFUSIONKIT_TPU_ATTN_LAYOUT=bhsd: every attention on #15, none on
         kernel B, its image within 3e-2 relative L2 of a's;
+     a''. a's first request's latents decoded by DiffusionPipeline(
+        a16=False) with the decoder's weights in fp32: the mid-block
+        attention on kernel B's fp32 instantiation (one launch), the image's
+        shape, and the fp32 output against the same latents decoded in fp32
+        on the CPU;
      g. FLUX.1-schnell w4a8 at 2048² (16384 image + 256 text tokens), c's
         models behind FluxPipeline(quantize_mmdit="w4a8", sdpa_impl="ring",
         mesh=local_mesh()), one NCCL rank: every joint attention on #14
@@ -87,6 +107,7 @@ kernels' summary as JSON, and before that the card's name and power limit.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
@@ -149,6 +170,11 @@ from diffusionkit_tpu_torch.ops.quantized import (
 from diffusionkit_tpu_torch.ops.smoothquant import smooth_t5
 from diffusionkit_tpu_torch.ops.w4a8_matmul import (
     MODES,
+    dequant_w8,
+    dequant_w8_plain,
+    int8_dot,
+    int8_dot_plain,
+    scaled_affine,
     w4a8_matmul,
     w4a8_matmul_plain,
     w8_matmul,
@@ -162,6 +188,7 @@ from diffusionkit_tpu_torch.tokenizer import (
     SyntheticT5Tokenizer,
     synthetic_clip_vocab,
 )
+from diffusionkit_tpu_torch.tools import DEFAULT_ITERS, DEFAULT_SHAPE, bench_w4a8_mat, microbench_int8
 
 KERNELS = {
     "mod_ln": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
@@ -187,18 +214,27 @@ KERNELS = {
                               "diffusionkit_tpu/ops/flash_attention.py:432"),
     "flash_attention": ("diffusionkit_tpu_torch/csrc/flash_attention.cu",
                         "diffusionkit_tpu/ops/flash_attention.py:513"),
+    "dequant_w8": ("diffusionkit_tpu_torch/csrc/w8_matmul.cu",
+                   "diffusionkit_tpu/ops/w4a8_matmul.py:453"),
+    "int8_dot": ("diffusionkit_tpu_torch/csrc/w8_matmul.cu", "tools/microbench_pallas_int8.py:42"),
 }
+# The fp32 instantiations of the flash kernels live in their own source.
+FP32_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_f32.cu"
+FLASH_KERNELS = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "int4_matmul": int4_matmul, "mod_ln_quantize": mod_ln_quantize,
            "quantize": quantize, "gelu_quantize": gelu_quantize, "w8_matmul": w8_matmul,
            "int8_matmul": int8_matmul, "flash_attention_stats": flash_attention_stats,
-           "flash_attention": flash_attention}
+           "flash_attention": flash_attention, "dequant_w8": dequant_w8, "int8_dot": int8_dot}
 # The path whose launches the kernels line reports for each kernel: the
 # slice that brought it, or for kernel C, which the w4a8 path must not run,
 # the FLUX int4 path.
 MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flux",
              "gelu_quantize": "sd3-w8a8", "w8_matmul": "sd3-w8a8", "int8_matmul": "sd3-int8",
-             "flash_attention_stats": "flux-w4a8-2048-ring", "flash_attention": "sd3-bhsd"}
+             "flash_attention_stats": "flux-w4a8-2048-ring", "flash_attention": "sd3-bhsd",
+             "dequant_w8": "bench-w4a8-mat", "int8_dot": "microbench-int8"}
+# The two tool paths: each tool's run at the reference's default shape.
+TOOLS = {"bench-w4a8-mat": bench_w4a8_mat, "microbench-int8": microbench_int8}
 # Per-request launches the attention kernels must match exactly.
 EXACT = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 
@@ -293,6 +329,16 @@ INT8_FLIP_SHARE = {"gelu_quant": 1e-3, "mod_ln_quantize": 1e-2}
 # in plain torch on the CPU reach 0.31-0.40 of this bound at these shapes;
 # leaving the 38 pad keys of (2, 1178, 24, 64) unmasked reaches 2.
 FLASH_SLACK = 2.0**-8
+# The fp32 flash kernels against their fp32 plain versions on the card, per
+# element: 2^-16 of the largest |output| (each of #14's o, m, l to its own
+# largest magnitude). fp32 sums in another order: the plain version against
+# the Pallas kernels' tiled order reaches 0.008-0.13 of it on the CPU
+# (tests/test_torch_ops.py); a TF32 product or P rounded to bf16 would
+# exceed it by 100x or more.
+FP32_FLASH_SLACK = 2.0**-16
+# Relative L2 of an fp32 model on the card (kernels on, TF32 off) against
+# the same weights in fp32 on the CPU: the order of fp32 sums only.
+FP32_RTOL = 1e-4
 # Kernel C against fp32 math on the same bf16-rounded weights, per element:
 # one bf16 ulp (the output rounding, across a binade edge) plus twice the
 # worst-case fp32 summation error of K terms, K * 2^-24 * (|x| @ |w|): the
@@ -321,9 +367,11 @@ def bound(ops: float, peak: str, nbytes: float) -> tuple:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_bound(name: str, shape) -> tuple:
+def kernel_bound(name: str, shape, dtype: str = "bf16") -> tuple:
     """The bound of one call of kernel ``name`` at ``shape`` (bf16
-    activations), in the layout each phase times it."""
+    activations; the flash kernels also in fp32, their products then at the
+    fp32 FMA peak), in the layout each phase times it."""
+    size = 4 if dtype == "fp32" else 2  # bytes an element of q, k, v
     if name == "mod_ln":
         b, s_, h = shape
         return bound(ROW_OPS[name] * b * s_ * h, "fp32", 4 * b * s_ * h + 4 * b * h)
@@ -335,20 +383,28 @@ def kernel_bound(name: str, shape) -> tuple:
         return bound(ROW_OPS[name] * m * k, "fp32", 3 * m * k + 4 * m)
     if name == "flash_attention_bshd":
         b, s_, h, d = shape
-        return bound(4 * b * h * s_ * s_ * d, "bf16", 8 * b * s_ * h * d)
+        return bound(4 * b * h * s_ * s_ * d, dtype, 4 * size * b * s_ * h * d)
     if name == "flash_attention":
         b, h, s_, d = shape
-        return bound(4 * b * h * s_ * s_ * d, "bf16", 8 * b * s_ * h * d)
+        return bound(4 * b * h * s_ * s_ * d, dtype, 4 * size * b * s_ * h * d)
     if name == "flash_attention_stats":
         # This run's data needs the vlen valid keys only: the products over
         # them, q and k/v's valid rows read once (nothing at vlen 0), the
         # fp32 o and the fp32 m and l written.
         b, h, sq, skv, d, vlen = shape
-        reads = 2 * b * h * (sq + 2 * vlen) * d if vlen else 0
-        return bound(4 * b * h * sq * vlen * d, "bf16", reads + 4 * b * h * sq * (d + 2))
+        reads = size * b * h * (sq + 2 * vlen) * d if vlen else 0
+        return bound(4 * b * h * sq * vlen * d, dtype, reads + 4 * b * h * sq * (d + 2))
     if name == "w8_matmul":
         m, k, n = shape
         return bound(2 * m * k * n, "int8", m * k + n * k + 4 * m + 6 * n + 2 * m * n)
+    if name == "int8_dot":
+        m, k, n = shape
+        return bound(2 * m * k * n, "int8", m * k + n * k + 4 * m * n)
+    if name == "dequant_w8":
+        # (K, N, group): a product and a sum an element; words, s8 and z8
+        # read once, the (N, K) grid written once.
+        k, n, g = shape
+        return bound(2 * k * n, "fp32", k * n // 2 + 8 * (k // g) * n + k * n)
     m, k, n, g = shape
     affine = 8 * (k // g) * n  # scales and zeros
     if name == "int4_matmul":
@@ -362,12 +418,12 @@ def kernel_bound(name: str, shape) -> tuple:
     return bound(2 * m * k * n, "int8", m * k + k * n // 2 + affine + 6 * n + xs + out + extra)
 
 
-def timing(name: str, shape, ms: float, plain: float, **extra) -> dict:
+def timing(name: str, shape, ms: float, plain: float, dtype: str = "bf16", **extra) -> dict:
     """One timed shape of a kernel: its time, its plain version's, its bound
     and any yardstick (``library_ms``, kernel C's time)."""
-    b_ms, b_by = kernel_bound(name, shape)
+    b_ms, b_by = kernel_bound(name, shape, dtype)
     return {"shape": list(shape), "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-            "bound_by": b_by, **extra}
+            "bound_by": b_by, **({"dtype": dtype} if dtype != "bf16" else {}), **extra}
 
 
 def bound_note(t: dict) -> str:
@@ -996,6 +1052,217 @@ def ring_combine_checks(gen) -> None:
         torch.cuda.empty_cache()
 
 
+# #14 in fp32 at SD3 512² CFG's four-rank chunk and at a FLUX 2048²
+# four-rank chunk: (B, H, Sq, Skv, D) and the valid lengths checked and timed.
+FP32_STATS_SHAPES = [((2, 24, 295, 295, 64), (295, 293)), ((1, 24, 4160, 4160, 128), (4160,))]
+
+
+def check_fp32(got, want, label: str) -> float:
+    """An fp32 flash result (a tensor or #14's (o, m, l)) against its fp32
+    plain version within FP32_FLASH_SLACK of each output's largest
+    magnitude; returns the largest abs error."""
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    ratios = [((g - w).abs().max() / (FP32_FLASH_SLACK * w.abs().max())).item() for g, w in pairs]
+    ok = max(ratios) <= 1 and all(bool(torch.isfinite(g).all()) for g, _ in pairs)
+    err = max((g - w).abs().max().item() for g, w in pairs)
+    log(f"  {label} fp32: max_abs_err {err!r}, worst element at {ratios!r} of 2^-16 of the "
+        f"largest |output| (o{', m, l' if len(pairs) > 1 else ''}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} in fp32 disagrees with its fp32 plain version")
+    return err
+
+
+def fp32_flash_kernels(gen, tag: str):
+    """Phase 3-4d, fp32: kernel B and #15 at FLASH_SHAPES and #14 at
+    FP32_STATS_SHAPES on fp32 inputs, each counted as a launch of its
+    kernel, against its fp32 plain version on the card (TF32 off), then
+    timed beside its plain version and F.scaled_dot_product_attention on the
+    same fp32 tensors (#14: at vlen = Skv, the attention-work yardstick)."""
+    dev = torch.device("cuda")
+    errs = {name: [] for name in FLASH_KERNELS}
+    times = {name: [] for name in FLASH_KERNELS}
+    for shape in FLASH_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
+        scale = shape[-1] ** -0.5
+        b, s_, h, d = shape
+        for name, fn, plain_fn, args in (
+                ("flash_attention_bshd", flash_attention_bshd, flash_attention_bshd_plain,
+                 (q, k, v)),
+                ("flash_attention", flash_attention, flash_attention_plain,
+                 tuple(t.transpose(1, 2).contiguous() for t in (q, k, v)))):
+            before = fn.launches
+            got = fn(*args, scale)
+            torch.cuda.synchronize()
+            if fn.launches != before + 1:
+                raise AssertionError(f"{name} fp32 did not launch its kernel")
+            errs[name].append(check_fp32(got, plain_fn(*args, scale),
+                                         f"{name} {tuple(args[0].shape)}"))
+            del got
+            ms = device_ms(lambda: fn(*args, scale))
+            plain = device_ms(lambda: plain_fn(*args, scale), reps=5)
+            lib_args = args if name == "flash_attention" else tuple(t.transpose(1, 2) for t in args)
+            lib = device_ms(lambda: F.scaled_dot_product_attention(*lib_args, scale=scale))
+            t = timing(name, tuple(args[0].shape), ms, plain, "fp32", library_ms=lib)
+            log(f"  {name} {tuple(args[0].shape)} fp32: kernel {ms!r} ms "
+                f"({4 * b * h * s_ * s_ * d / (ms / 1e3) / 1e12!r} TFLOP/s), plain {plain!r} ms, "
+                f"F.scaled_dot_product_attention (fp32, TF32 off) {lib!r} ms, {bound_note(t)} "
+                f"[{tag}]")
+            times[name].append(t)
+        del q, k, v, args, lib_args
+        torch.cuda.empty_cache()
+    name = "flash_attention_stats"
+    for (b, h, sq, skv, d), vlens in FP32_STATS_SHAPES:
+        q = torch.randn(b, h, sq, d, generator=gen, device=dev)
+        k, v = (torch.randn(b, h, skv, d, generator=gen, device=dev) for _ in range(2))
+        scale = d**-0.5
+        for vlen in vlens:
+            label = f"{name} (B, H, Sq, Skv, D) {(b, h, sq, skv, d)} vlen {vlen}"
+            before = flash_attention_stats.launches
+            got = flash_attention_stats(q, k, v, scale, vlen)
+            torch.cuda.synchronize()
+            if flash_attention_stats.launches != before + 1:
+                raise AssertionError(f"{name} fp32 did not launch its kernel")
+            errs[name].append(check_fp32(got, flash_attention_stats_plain(q, k, v, scale, vlen),
+                                         label))
+            del got
+            ms = device_ms(lambda: flash_attention_stats(q, k, v, scale, vlen))
+            plain = device_ms(lambda: flash_attention_stats_plain(q, k, v, scale, vlen), reps=5)
+            extra = {}
+            if vlen == skv:
+                extra["sdpa_yardstick_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            t = timing(name, (b, h, sq, skv, d, vlen), ms, plain, "fp32", library_ms=None, **extra)
+            log(f"  {label} fp32: kernel {ms!r} ms "
+                f"({4 * b * h * sq * vlen * d / (ms / 1e3) / 1e12!r} TFLOP/s), plain {plain!r} ms, "
+                f"no single PyTorch call (F.scaled_dot_product_attention on the same fp32 q/k/v: "
+                f"{extra.get('sdpa_yardstick_ms')!r} ms), {bound_note(t)} [{tag}]")
+            times[name].append(t)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+# (K, N, group) of #10: FLUX fc1, fc2 and q/k/v/o at group 64, and q/k/v/o
+# at the quantize-at-load group 32.
+DEQUANT_SHAPES = [(3072, 12288, 64), (12288, 3072, 64), (3072, 3072, 64), (3072, 3072, 32)]
+# #10 then #11 against kernel E on FLUX fc1's layer, at the unified blocks'
+# 4352 rows and a ragged M.
+MATERIALIZED_M = (4352, 77)
+# (M, K, N) of #16: the microbench's default (timed), M = 1 (timed) and a
+# ragged M (checked, not timed).
+INT8_DOT_SHAPES = [(4352, 3072, 12288), (1, 3072, 12288)]
+INT8_DOT_RAGGED = [(77, 3072, 12288)]
+
+
+def w8_tool_kernels(gen, tag: str):
+    """Phase 3-4e: #10 and #16 against their plain versions on the card
+    (bit-identical), #10 then #11 against kernel E, and each one's device
+    time beside its plain version's and its bound (#16 beside
+    torch._int_mm, which computes the same function)."""
+    dev = torch.device("cuda")
+    errs = {"dequant_w8": [], "int8_dot": []}
+    times = {name: [] for name in errs}
+    for shape in DEQUANT_SHAPES:
+        k, n, group = shape
+        layer = random_w4a8(k, n, group, gen)
+        s8, z8 = scaled_affine(layer.scales, layer.zeros, layer.wscale)
+        got, want = dequant_w8(layer.q4, s8, z8), dequant_w8_plain(layer.q4, s8, z8)
+        torch.cuda.synchronize()
+        ok = got.shape == (n, k) and torch.equal(got, want)
+        log(f"  dequant_w8 (K, N, group) {shape}: (N, K) grid bit-identical to its plain "
+            f"version: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"dequant_w8 {shape} disagrees with its plain version")
+        errs["dequant_w8"].append(0.0)
+        if shape == DEQUANT_SHAPES[0]:
+            bias = layer.bias
+            for m in MATERIALIZED_M:
+                x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+                xs = (torch.rand(m, 1, generator=gen, device=dev) + 0.5) / (127 * k**0.5)
+                args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, bias)
+                fused, fused_plain = w4a8_matmul(*args), w4a8_matmul_plain(*args)
+                mat = w8_matmul(x8, got, layer.wscale, xs, bias)
+                torch.cuda.synchronize()
+                ok = torch.equal(mat, fused) and torch.equal(mat, fused_plain)
+                log(f"  dequant_w8 then w8_matmul, M {m} on (K, N, group) {shape}: bit-identical "
+                    f"to kernel E (plain) and to its plain version: {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"#10 then #11 at M {m} disagrees with kernel E")
+                del x8, xs, args, fused, fused_plain, mat
+        ms = device_ms(lambda: dequant_w8(layer.q4, s8, z8))
+        plain = device_ms(lambda: dequant_w8_plain(layer.q4, s8, z8), reps=5)
+        t = timing("dequant_w8", shape, ms, plain, library_ms=None)
+        moved = k * n // 2 + 8 * (k // group) * n + k * n
+        log(f"  dequant_w8 (K, N, group) {shape}: kernel {ms!r} ms ({moved / ms / 1e9!r} TB/s), "
+            f"plain {plain!r} ms, no single PyTorch call, {bound_note(t)} [{tag}]")
+        times["dequant_w8"].append(t)
+        del layer, got, want
+        torch.cuda.empty_cache()
+    for shape in INT8_DOT_SHAPES + INT8_DOT_RAGGED:
+        m, k, n = shape
+        x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        got, want = int8_dot(x8, w8), int8_dot_plain(x8, w8)
+        torch.cuda.synchronize()
+        ok = got.dtype == torch.int32 and torch.equal(got, want)
+        log(f"  int8_dot (M, K, N) {shape}: bit-identical to the exact int32 product: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"int8_dot {shape} disagrees with its plain version")
+        errs["int8_dot"].append(0.0)
+        del got, want
+        if shape in INT8_DOT_SHAPES:
+            ms = device_ms(lambda: int8_dot(x8, w8))
+            plain = device_ms(lambda: int8_dot_plain(x8, w8), reps=5)
+            w8t = w8.t()
+            lib = device_ms(lambda: torch._int_mm(x8, w8t)) if m > 16 else None
+            t = timing("int8_dot", shape, ms, plain, library_ms=lib)
+            log(f"  int8_dot (M, K, N) {shape}: kernel {ms!r} ms "
+                f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TOP/s), plain (float64) {plain!r} ms, "
+                f"torch._int_mm {lib!r} ms{'' if lib else ' (it takes M > 16 only)'}, "
+                f"{bound_note(t)} [{tag}]")
+            times["int8_dot"].append(t)
+        del x8, w8
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def tool_paths(tag: str) -> dict:
+    """The two tool paths: each tool's run at the reference's default shape
+    and iteration count, counters zeroed right before and read right after;
+    each counter must rise by exactly the launches one run makes (the
+    others stay at 0), every row must print a time, mat_pl and mat_xla must
+    equal kernel and int8_dot torch._int_mm, bit for bit."""
+    m, k, n = DEFAULT_SHAPE
+    launches = {}
+    for path, tool in TOOLS.items():
+        reset_counts()
+        rows = tool.run(m, k, n, DEFAULT_ITERS)
+        torch.cuda.synchronize()
+        launches[path] = counts()
+        want = tool.launches(DEFAULT_ITERS)
+        for name, got in launches[path].items():
+            if got != want.get(name, 0):
+                raise AssertionError(f"{path}: {name} launched {got} times in one run, expected "
+                                     f"{want.get(name, 0)}")
+        for r in rows:
+            log(f"  {path} (M, K, N) {(m, k, n)} {r['name']}: {r['ms']!r} ms, {r['rate']!r} "
+                f"{r['unit']} ({DEFAULT_ITERS} chained calls) [{tag}]")
+        by = {r["name"]: r for r in rows}
+        pairs = ([("mat_pl", "kernel"), ("mat_xla", "kernel")] if path == "bench-w4a8-mat"
+                 else [("int8_dot", "int_mm")])
+        for a, b in pairs:
+            same = all(torch.equal(by[a][key], by[b][key]) for key in ("y0", "y"))
+            log(f"  {path}: {a} bit-identical to {b} (first and last call): "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"{path}: {a} disagrees with {b}")
+        log(f"  {path}: launches in one run {launches[path]} (exactly {want})")
+        del rows, by
+        torch.cuda.empty_cache()
+    return launches
+
+
 def fp32_cpu_mirror(model: torch.nn.Module, make) -> torch.nn.Module:
     """An fp32 copy of ``model`` on the CPU: ``make()`` builds the float
     structure, every packed or w8a8 linear of ``model`` is mirrored by a
@@ -1020,10 +1287,12 @@ def fp32_cpu_mirror(model: torch.nn.Module, make) -> torch.nn.Module:
     return ref.eval()
 
 
-def reference_check(model, ref, inputs, want_counts: dict, label: str) -> None:
-    """Phase 5: a full-width, reduced-depth model in bf16 with the kernels on
-    the card against the same weights in fp32 on the CPU (plain path). A
-    counter the check does not name must stay at 0."""
+def reference_check(model, ref, inputs, want_counts: dict, label: str,
+                    rtol: float = REF_RTOL) -> None:
+    """Phase 5: a full-width, reduced-depth model in bf16 (or fp32) with the
+    kernels on the card against the same weights in fp32 on the CPU (plain
+    path), within ``rtol`` relative L2. A counter the check does not name
+    must stay at 0."""
     reset_counts()
     with torch.inference_mode():
         got = model(*(t.cuda() for t in inputs)).float().cpu()
@@ -1034,14 +1303,14 @@ def reference_check(model, ref, inputs, want_counts: dict, label: str) -> None:
             raise AssertionError(f"{label}: {name} launched {have[name]} times, expected "
                                  f"{want_counts.get(name, 0)}")
     rel = ((got - want).norm() / want.norm()).item()
-    log(f"  {label}: bf16+kernels vs fp32 CPU: relative L2 error {rel!r} "
-        f"(tolerance {REF_RTOL}), finite {bool(torch.isfinite(got).all())}, launches {have}")
-    if not (rel < REF_RTOL and torch.isfinite(got).all()):
-        raise AssertionError(f"{label}: the bf16 model on the card disagrees with fp32")
+    log(f"  {label}: kernels on the card vs fp32 CPU: relative L2 error {rel!r} "
+        f"(tolerance {rtol}), finite {bool(torch.isfinite(got).all())}, launches {have}")
+    if not (rel < rtol and torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: the model on the card disagrees with fp32 on the CPU")
 
 
 def mmdit_check(cfg, inputs, want_counts: dict, label: str, gen, quantize_bits=None,
-                convert=None) -> None:
+                convert=None, rtol: float = REF_RTOL) -> None:
     """``reference_check`` of a random MMDiT drawn on the card (packed
     blocks with ``quantize_bits``), then converted in place by
     ``convert``."""
@@ -1049,7 +1318,7 @@ def mmdit_check(cfg, inputs, want_counts: dict, label: str, gen, quantize_bits=N
     if convert is not None:
         convert(model)
     ref = fp32_cpu_mirror(model, lambda: MMDiT(dataclasses.replace(cfg, dtype=torch.float32)))
-    reference_check(model, ref, inputs, want_counts, label)
+    reference_check(model, ref, inputs, want_counts, label, rtol)
 
 
 def per_forward_sd3(depth: int, mode=None) -> dict:
@@ -1084,6 +1353,10 @@ def reference_checks(gen) -> None:
               torch.tensor([900.0, 900.0])]
     mmdit_check(sd3, inputs, per_forward_sd3(2),
                 "SD3 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen)
+    # The same in fp32 on the card: every joint attention (1178 tokens) on
+    # kernel B's fp32 instantiation, kernel A in fp32.
+    mmdit_check(dataclasses.replace(sd3, dtype=torch.float32), inputs, per_forward_sd3(2),
+                "SD3 MMDiT fp32 2 blocks x hidden 1536, 512² CFG batch", gen, rtol=FP32_RTOL)
     # SD3 w8a8 as the reference's random w8a8 init draws it (block linears
     # in w8a8; embedders and final layer float, so kernel A runs once, in
     # the final layer): per block #11 for 14 linears (11 in the last), D
@@ -1406,6 +1679,36 @@ def serve_bhsd(pipe, ref_image, tag: str) -> dict:
     return {"launches": launches, "families": families}
 
 
+def decode_fp32(pipe, latents, tag: str) -> dict:
+    """Path a'': ``latents`` decoded by DiffusionPipeline(a16=False) with an
+    fp32 copy of ``pipe``'s decoder: the mid-block attention (4096
+    positions, one head of 512) on kernel B's fp32 instantiation, launched
+    once, nothing else counted; the fp32 output against the same latents
+    decoded by the same weights in fp32 on the CPU within FP32_RTOL."""
+    pipe32 = DiffusionPipeline(device="cuda", a16=False)
+    pipe32.decoder = copy.deepcopy(pipe.decoder).float()
+    reset_counts()
+    t0 = time.perf_counter()
+    pixels = pipe32.decode_latents_to_u8(latents)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    check_launches(launches, {"flash_attention_bshd": 1}, 1, "the a16=False decode")
+    side = 8 * latents.shape[1]
+    if pixels.shape != (1, side, side, 3) or pixels.float().std() == 0:
+        raise AssertionError("the a16=False decode gave a wrong shape or a constant image")
+    with torch.inference_mode():
+        got = pipe32.decoder(latents.float()).cpu()
+        want = pipe32.decoder.cpu()(latents.float().cpu())
+    rel = rel_l2(got, want)
+    log(f"  a16=False decode: image {tuple(pixels.shape)}, fp32 output relative L2 against the "
+        f"CPU's {rel!r} (tolerance {FP32_RTOL}), decoding {seconds!r} s, launches {launches} "
+        f"[{tag}]")
+    if not (rel < FP32_RTOL and torch.isfinite(got).all()):
+        raise AssertionError("the a16=False decode on the card disagrees with fp32 on the CPU")
+    return launches
+
+
 def flash_twin(pipe, ring_latents, ring_step_ms: float, tag: str) -> dict:
     """Path g's request 0 through the default dispatch (no ring), on the
     same models: kernel B at every attention, #14 never; its latents against
@@ -1452,9 +1755,21 @@ def build_flux_ring(gen, prev: FluxPipeline) -> FluxPipeline:
 # flash_fwd_wide<512, false>.
 STATS_KERNEL = re.compile(r"flash_fwd_bhsd_small(?:<\d+, true>|ILi\d+ELb1E)")
 SCALE_FIRST_WIDE = re.compile(r"flash_fwd_wide(?:<\d+, true>|ILi\d+ELb1E)")
+# The fp32 instantiations, flash_fwd_f32<D, mode>: 0 kernel B, 1 #15, 2 #14;
+# #16 is w8_mm<int, ...>.
+FP32_MODE = re.compile(r"flash_fwd_f32(?:<\d+, (\d)>|ILi\d+ELi(\d)E)")
+INT8_DOT_KERNEL = re.compile(r"w8_mm(?:<int,|IiLi)")
 
 
 def family(name: str) -> str:
+    fp32 = FP32_MODE.search(name)
+    if fp32:
+        return ("flash_attention_bshd", "flash_attention",
+                "flash_attention_stats")[int(fp32.group(1) or fp32.group(2))]
+    if "dequant_w8" in name:
+        return "dequant_w8"
+    if INT8_DOT_KERNEL.search(name):
+        return "int8_dot"
     if "flash_fwd_bhsd" in name:
         return "flash_attention_stats" if STATS_KERNEL.search(name) else "flash_attention"
     if SCALE_FIRST_WIDE.search(name):
@@ -1583,13 +1898,27 @@ def main() -> None:
     times.update(w_times)
     ring_combine_checks(gen)
     torch.cuda.empty_cache()
+    log("phase 3-4d, fp32: kernel B, flash_attention and flash_attention_stats on fp32 inputs "
+        "against their fp32 plain versions on the card, and their device times")
+    w_errs, w_times = fp32_flash_kernels(gen, tag)
+    for name in w_errs:
+        errs[name].extend(w_errs[name])
+        times[name].extend(w_times[name])
+    torch.cuda.empty_cache()
+    log("phase 3-4e: dequant_w8 (#10) and int8_dot (#16) against their plain versions on the "
+        "card, #10 then #11 against kernel E, their device times; the two tool paths")
+    w_errs, w_times = w8_tool_kernels(gen, tag)
+    errs.update(w_errs)
+    times.update(w_times)
+    launches = tool_paths(tag)
+    torch.cuda.empty_cache()
 
     log("phase 5: reference checks")
     reference_checks(gen)
     gc.collect()
     torch.cuda.empty_cache()
 
-    launches, families = {}, {}
+    families = {}
     pipe = None
     # d and e reuse a's encoders and decoder, c b's, g c's models, f g's
     # (f converts the T5 to w8a8 in place, so g, with the bf16 T5, comes first).
@@ -1618,6 +1947,8 @@ def main() -> None:
                 f"{LAYOUT_ENV}=bhsd)")
             bhsd = serve_bhsd(pipe, served["image"], tag)
             launches[SD3_BHSD.name], families[SD3_BHSD.name] = bhsd["launches"], bhsd["families"]
+            log("phase 6a'': path a's request 0 latents decoded by DiffusionPipeline(a16=False)")
+            launches["sd3-decode-fp32"] = decode_fp32(pipe, served["latents"], tag)
         if path is FLUX_RING:
             log(f"phase 6g': {FLUX_RING.name}'s request 0 through the default dispatch")
             launches[FLUX_RING_TWIN] = flash_twin(pipe, served["latents"], served["step_ms"], tag)
@@ -1635,6 +1966,7 @@ def main() -> None:
         main_path = MAIN_PATH.get(name, FLUX_W4A8.name)
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            **({"fp32_source": FP32_SOURCE} if name in FLASH_KERNELS else {}),
             "launches": launches[main_path][name], "launches_path": main_path,
             "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": max(errs[name]),

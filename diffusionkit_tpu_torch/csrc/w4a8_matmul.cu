@@ -100,24 +100,6 @@ struct Layout {
   static constexpr size_t bytes = a + q + 2 * s + b + v;
 };
 
-// clip(round_half_even(y), -127, 127) in the low byte: adding 1.5 * 2^23 to
-// a value in [-127, 127] rounds it (to nearest, ties to even) to an integer
-// held in the low mantissa bits, two's complement in the low byte.
-__device__ __forceinline__ uint32_t rne_i8_bits(float y) {
-  return __float_as_uint(__fadd_rn(fminf(fmaxf(y, -127.f), 127.f), 12582912.f));
-}
-
-// One packed word (8 consecutive k of one column) -> 8 int8 in k order.
-__device__ __forceinline__ uint2 requant_word(uint32_t w, float s8, float z8) {
-  uint32_t b[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float q = __fsub_rn(__uint_as_float(0x4B000000u | ((w >> (4 * j)) & 0xFu)), 8388608.f);
-    b[j] = rne_i8_bits(__fadd_rn(__fmul_rn(q, s8), z8));
-  }
-  return make_uint2(dk::pack_i8x4(b[0], b[1], b[2], b[3]), dk::pack_i8x4(b[4], b[5], b[6], b[7]));
-}
-
 // Blocks of one gelu_quant cluster: together they span one 512-column tile.
 template <int BN>
 constexpr int kCluster = SCALE_TILE / BN;
@@ -218,7 +200,7 @@ __global__ void __launch_bounds__(NTHREADS, MODE != GROUPED_XS && MT * NT <= 16 
         const int n = nq + 16 * i;
         const float rw = Rs[n];
         *reinterpret_cast<uint2*>(&Bs[n * LDB + 8 * rq]) =
-            requant_word(qrow[n], __fmul_rn(sp[n], rw), __fmul_rn(zp[n], rw));
+            dk::requant_word(qrow[n], __fmul_rn(sp[n], rw), __fmul_rn(zp[n], rw));
       }
     }
     __syncthreads();

@@ -14,15 +14,18 @@ Replace the Pallas kernels of ``diffusionkit_tpu/ops/flash_attention.py``:
   valid leading keys, returning fp32 o, m and l for the ring attention's
   combiner (``parallel/ring_attention.py``).
 
-One CUDA source, ``csrc/flash_attention.cu``: compute-bound, tensor-core
+bf16 inputs run ``csrc/flash_attention.cu``: compute-bound, tensor-core
 (mma.sync) products with an in-register online softmax, any strides read in
-place; see the note there.
+place; see the note there. fp32 inputs run ``csrc/flash_attention_f32.cu``,
+what the reference computes in fp32 (fp32 scores, softmax and P.V, P not
+rounded): fp32 FMA products, within 2^-16 of the largest |output| of the
+fp32 plain version.
 
 Each wrapper launches its kernel for a CUDA tensor and raises on what the
-kernel does not take (bf16 only; d in ``SUPPORTED_HEAD_DIMS``, 64 and 128
-for #14; a contiguous head dim and 16-byte aligned rows); a CPU tensor goes
-to its plain version, the same numerics in plain torch with the score
-matrix materialised.
+kernel does not take (bf16 or fp32, one dtype for q, k and v; d in
+``SUPPORTED_HEAD_DIMS``, 64 and 128 for #14; a contiguous head dim and
+16-byte aligned rows); a CPU tensor goes to its plain version, the same
+numerics in plain torch with the score matrix materialised.
 """
 
 from __future__ import annotations
@@ -83,24 +86,43 @@ def flash_attention_plain(
     return o.to(q.dtype).contiguous()
 
 
+# The C entry points of each wrapper by input dtype.
+_ENTRIES = {
+    "flash_attention_bshd": {torch.bfloat16: "dk_flash_attn_bf16",
+                             torch.float32: "dk_flash_attn_f32"},
+    "flash_attention": {torch.bfloat16: "dk_flash_attn_bhsd_bf16",
+                        torch.float32: "dk_flash_attn_bhsd_f32"},
+    "flash_attention_stats": {torch.bfloat16: "dk_flash_attn_stats_bf16",
+                              torch.float32: "dk_flash_attn_stats_f32"},
+}
+
+
 def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  scale: float, head_dims) -> None:
-    """What the CUDA kernels take: 4-d bf16 tensors on q's device, a head
-    dim in ``head_dims``, a contiguous head dim and 16-byte aligned rows."""
+                  scale: float, head_dims) -> str:
+    """What the CUDA kernels take: 4-d bf16 or fp32 tensors of one dtype on
+    q's device, a head dim in ``head_dims``, a contiguous head dim and
+    16-byte aligned rows (strides in elements a multiple of 16 bytes).
+    Returns the C entry point for the dtype."""
     if not scale > 0:
         raise ValueError(f"{name} requires scale > 0, got {scale}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"{name}: q, k, v must be 4-d, got {q.ndim}, {k.ndim}, {v.ndim}")
     if q.shape[-1] not in head_dims:
         raise ValueError(f"{name}: head dim {q.shape[-1]} not in {head_dims}")
+    entries = _ENTRIES[name]
+    if q.dtype not in entries:
+        raise TypeError(f"{name}: q must be bf16 or fp32, got {q.dtype}")
+    per_row = 16 // q.element_size()
     for label, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or t.device != q.device:
-            raise TypeError(f"{name}: {label} must be bf16 on {q.device}, got {t.dtype}")
-        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"{name}: {label} must be {q.dtype} on {q.device}, got {t.dtype} "
+                            f"on {t.device}")
+        if t.stride(3) != 1 or any(st % per_row for st in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(
                 f"{name}: {label} needs a contiguous head dim and 16-byte "
                 f"aligned rows, got strides {t.stride()}"
             )
+    return entries[q.dtype]
 
 
 def _on_cuda(name: str, q: torch.Tensor) -> bool:
@@ -124,12 +146,12 @@ def flash_attention_bshd(
     """softmax(q k^T * scale) v over (B, S, H, D) inputs; returns a
     contiguous (B, S, H, D) tensor in q's dtype.
 
-    On CUDA: bf16, D in SUPPORTED_HEAD_DIMS, a contiguous head dim and
-    16-byte aligned rows; other strides are read in place.
+    On CUDA: bf16 or fp32, D in SUPPORTED_HEAD_DIMS, a contiguous head dim
+    and 16-byte aligned rows; other strides are read in place.
     """
     if not _on_cuda("flash_attention_bshd", q):
         return flash_attention_bshd_plain(q, k, v, scale)
-    _check_inputs("flash_attention_bshd", q, k, v, scale, SUPPORTED_HEAD_DIMS)
+    entry = _check_inputs("flash_attention_bshd", q, k, v, scale, SUPPORTED_HEAD_DIMS)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"flash_attention_bshd: q, k, v must share one (B, S, H, D) shape, got "
@@ -138,7 +160,7 @@ def flash_attention_bshd(
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     strides = [st for t in (q, k, v, out) for st in _bshd_strides(t, "bshd")]
-    err = kernels.library().dk_flash_attn_bf16(
+    err = getattr(kernels.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
         *strides, float(scale), kernels.stream_ptr(q.device),
     )
@@ -157,13 +179,13 @@ def flash_attention(
     applied before the row max; returns a contiguous (B, H, S, D) tensor in
     q's dtype.
 
-    On CUDA: bf16, D in SUPPORTED_HEAD_DIMS, a contiguous head dim and
-    16-byte aligned rows; other strides (a transposed (B, S, H, D) view) are
-    read in place.
+    On CUDA: bf16 or fp32, D in SUPPORTED_HEAD_DIMS, a contiguous head dim
+    and 16-byte aligned rows; other strides (a transposed (B, S, H, D) view)
+    are read in place.
     """
     if not _on_cuda("flash_attention", q):
         return flash_attention_plain(q, k, v, scale)
-    _check_inputs("flash_attention", q, k, v, scale, SUPPORTED_HEAD_DIMS)
+    entry = _check_inputs("flash_attention", q, k, v, scale, SUPPORTED_HEAD_DIMS)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"flash_attention: q, k, v must share one (B, H, S, D) shape, got "
@@ -172,7 +194,7 @@ def flash_attention(
     b, h, s, d = q.shape
     out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     strides = [st for t in (q, k, v, out) for st in _bshd_strides(t, "bhsd")]
-    err = kernels.library().dk_flash_attn_bhsd_bf16(
+    err = getattr(kernels.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
         *strides, float(scale), kernels.stream_ptr(q.device),
     )
@@ -194,13 +216,14 @@ def flash_attention_stats(
     row max of the scaled scores and l the row sum, fp32 (B, H, Sq, 1). A
     fully masked chunk gives o = 0, l = 0 and m = -1e30.
 
-    On CUDA: bf16, D in STATS_HEAD_DIMS (the MMDiT head dims), a contiguous
-    head dim and 16-byte aligned rows; other strides are read in place.
+    On CUDA: bf16 or fp32, D in STATS_HEAD_DIMS (the MMDiT head dims), a
+    contiguous head dim and 16-byte aligned rows; other strides are read in
+    place.
     """
     vlen = max(0, min(int(vlen), k.shape[-2]))
     if not _on_cuda("flash_attention_stats", q):
         return flash_attention_stats_plain(q, k, v, scale, vlen)
-    _check_inputs("flash_attention_stats", q, k, v, scale, STATS_HEAD_DIMS)
+    entry = _check_inputs("flash_attention_stats", q, k, v, scale, STATS_HEAD_DIMS)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if k.shape != (b, h, skv, d) or v.shape != k.shape:
@@ -212,7 +235,7 @@ def flash_attention_stats(
     m = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     strides = [st for t in (q, k, v, o) for st in _bshd_strides(t, "bhsd")]
-    err = kernels.library().dk_flash_attn_stats_bf16(
+    err = getattr(kernels.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
         b, h, sq, skv, d, vlen, *strides, float(scale), kernels.stream_ptr(q.device),
     )

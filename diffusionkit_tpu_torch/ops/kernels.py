@@ -43,12 +43,17 @@ _SIGNATURES = {
     "dk_flash_attn_bf16": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
     "dk_flash_attn_bhsd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
     "dk_flash_attn_stats_bf16": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    "dk_flash_attn_f32": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
+    "dk_flash_attn_bhsd_f32": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
+    "dk_flash_attn_stats_f32": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P],
     "dk_int4_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "dk_int8_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "dk_gelu_quantize_bf16": [_P, _P, _P, _I, _I, _I, _P],
     "dk_gelu_quantize_f32": [_P, _P, _P, _I, _I, _I, _P],
     "dk_w8_matmul_bf16": [_P] * 6 + [_I, _I, _I, _P],
     "dk_w8_matmul_f32": [_P] * 6 + [_I, _I, _I, _P],
+    "dk_int8_dot": [_P, _P, _P, _I, _I, _I, _P],
+    "dk_dequant_w8": [_P] * 4 + [_I, _I, _I, _P],
     "dk_mod_ln_quant_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
     "dk_mod_ln_quant_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
     "dk_quantize_bf16": [_P, _P, _P, _I, _I, _P],

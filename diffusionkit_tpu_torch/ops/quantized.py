@@ -159,7 +159,7 @@ class QuantizedLinear(nn.Module):
 
     @classmethod
     def from_host(cls, packed: Dict[str, Optional[np.ndarray]], dtype: torch.dtype,
-                  device="cpu") -> "QuantizedLinear":
+                  device="cuda") -> "QuantizedLinear":
         """From host arrays in the execution format (``quantize_kernel_host``,
         ``mlx_q4_to_exec``); ``q4`` is carried as a bit view, ``q8`` as
         uint8."""

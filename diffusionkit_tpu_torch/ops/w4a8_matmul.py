@@ -32,6 +32,14 @@ the w8a8 linear's product: an int8 (N, K) weight grid, ``y = (x8 @ w8^T) *
 xscale * wscale + bias``, the epilogue in that order with the int32
 accumulator kept on chip (``csrc/w8_matmul.cu``); ``w8_matmul_plain`` is
 its plain version.
+
+Kernel #10 ``dequant_w8`` (the reference's ``dequant_w8_pallas``)
+materialises the int8 grid of a packed layer once, as (N, K), the layout
+``w8_matmul`` reads; ``dequant_w8_plain`` is ``requant_w8_plain``
+transposed. Kernel #16 ``int8_dot`` (the reference's bare
+``tools/microbench_pallas_int8.py:pallas_int8_matmul``) is ``w8_matmul``'s
+main loop storing the exact int32 product; ``int8_dot_plain`` computes it
+exactly. The two tools that run them are ``diffusionkit_tpu_torch.tools``.
 """
 
 from __future__ import annotations
@@ -310,6 +318,91 @@ def w8_matmul(
 
 
 w8_matmul.launches = 0
+
+
+def dequant_w8_plain(q4: torch.Tensor, s8: torch.Tensor, z8: torch.Tensor) -> torch.Tensor:
+    """Plain torch ``dequant_w8``: the (K, N) grid of ``requant_w8_plain``,
+    transposed to (N, K)."""
+    return requant_w8_plain(q4, s8, z8).t().contiguous()
+
+
+def dequant_w8(q4: torch.Tensor, s8: torch.Tensor, z8: torch.Tensor) -> torch.Tensor:
+    """#10: packed int4 words q4 (K/8, N) (int32 bit views) and the group
+    affine on the int8 grid, s8 and z8 fp32 (K/g, N) (``scaled_affine``),
+    -> the int8 weight grid ``clip(round_half_even(q * s8 + z8), -127, 127)``
+    as (N, K), kernel E's in-tile grid bit for bit.
+
+    On CUDA: every tensor contiguous and 16-byte aligned, K a multiple of 8,
+    N of 8, a group g that divides K.
+    """
+    if q4.device.type == "cpu":
+        return dequant_w8_plain(q4, s8, z8)
+    if q4.device.type != "cuda":
+        raise ValueError(f"dequant_w8: unsupported device {q4.device}")
+    if q4.dtype != torch.int32 or q4.ndim != 2 or s8.ndim != 2:
+        raise TypeError(f"dequant_w8: q4 must be int32 words (K/8, N) and s8 (K/g, N), got "
+                        f"{q4.dtype} {tuple(q4.shape)}, {tuple(s8.shape)}")
+    k8, n = q4.shape
+    k, groups = 8 * k8, s8.shape[0]
+    if n % 8 or groups == 0 or k % groups:
+        raise ValueError(f"dequant_w8: N={n} must be a multiple of 8 and the {groups} groups "
+                         f"must divide K={k}")
+    dev = q4.device
+    _contiguous_on("q4", q4, dev, torch.int32, (k8, n), "dequant_w8")
+    _contiguous_on("s8", s8, dev, torch.float32, (groups, n), "dequant_w8")
+    _contiguous_on("z8", z8, dev, torch.float32, (groups, n), "dequant_w8")
+    w8 = torch.empty((n, k), dtype=torch.int8, device=dev)
+    if k8:
+        err = kernels.library().dk_dequant_w8(q4.data_ptr(), s8.data_ptr(), z8.data_ptr(),
+                                              w8.data_ptr(), k, n, k // groups,
+                                              kernels.stream_ptr(dev))
+        kernels.check(err, "dequant_w8")
+        dequant_w8.launches += 1
+    return w8
+
+
+dequant_w8.launches = 0
+
+
+def int8_dot_plain(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """Plain torch ``int8_dot``: the exact int32 product ``x8 @ w8^T``, in
+    int64 on the CPU, in float64 on the card (which has no integer matmul
+    but ``torch._int_mm``), where every partial sum below 2^53 is exact."""
+    if x8.device.type == "cpu":
+        return (x8.long() @ w8.long().t()).int()
+    return (x8.double() @ w8.double().t()).int()
+
+
+def int8_dot(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """#16: x8 int8 (M, K) @ w8 int8 (N, K)^T -> int32 (M, N), exact.
+
+    On CUDA: both contiguous and 16-byte aligned, K a multiple of 64, N of
+    8, any M (ragged M by predication, no padded copy).
+    """
+    if x8.device.type == "cpu":
+        return int8_dot_plain(x8, w8)
+    if x8.device.type != "cuda":
+        raise ValueError(f"int8_dot: unsupported device {x8.device}")
+    if x8.dtype != torch.int8 or x8.ndim != 2 or w8.ndim != 2:
+        raise TypeError(f"int8_dot: x8 must be int8 (M, K) and w8 (N, K), got {x8.dtype} "
+                        f"{tuple(x8.shape)}, {tuple(w8.shape)}")
+    m, k = x8.shape
+    n = w8.shape[0]
+    if k % 64 or n % 8:
+        raise ValueError(f"int8_dot: K={k} must be a multiple of 64 and N={n} of 8")
+    dev = x8.device
+    _contiguous_on("x8", x8, dev, torch.int8, (m, k), "int8_dot")
+    _contiguous_on("w8", w8, dev, torch.int8, (n, k), "int8_dot")
+    y = torch.empty((m, n), dtype=torch.int32, device=dev)
+    if m:
+        err = kernels.library().dk_int8_dot(x8.data_ptr(), w8.data_ptr(), y.data_ptr(), m, n, k,
+                                            kernels.stream_ptr(dev))
+        kernels.check(err, "int8_dot")
+        int8_dot.launches += 1
+    return y
+
+
+int8_dot.launches = 0
 
 
 def _act(x) -> ActQuant:

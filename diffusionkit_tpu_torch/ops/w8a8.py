@@ -122,7 +122,7 @@ class W8A8Linear(nn.Module):
 
     @classmethod
     def from_host(cls, packed: Dict[str, Optional[np.ndarray]], dtype: torch.dtype,
-                  device="cpu") -> "W8A8Linear":
+                  device="cuda") -> "W8A8Linear":
         """From the reference's host format: ``w8`` int8 (in, out),
         transposed here bit for bit, ``wscale`` (out,), ``bias`` or None."""
         in_dim, out_dim = packed["w8"].shape

@@ -61,7 +61,9 @@ class LatentFormat:
     shift_factor: float = 0.0
 
     def process_out(self, latent):
-        return (latent / self.scale_factor) + self.shift_factor
+        # A tensor divisor: torch computes a scalar one on CUDA as a product
+        # with its reciprocal, which is not the reference's IEEE division.
+        return (latent / torch.full_like(latent, self.scale_factor)) + self.shift_factor
 
 
 SD3LatentFormat = partial(LatentFormat, 1.5305, 0.0609)
@@ -129,8 +131,10 @@ def _cfg_euler_step(
     if cfg_on:
         eps_text, eps_neg = denoised[:n], denoised[n:]
         denoised = eps_neg + float(np.float32(cfg_weight)) * (eps_text - eps_neg)
-    # Euler: d = (x - denoised) / sigma; x += d * (sigma_next - sigma).
-    d = (x - denoised) / float(sigma)
+    # Euler: d = (x - denoised) / sigma; x += d * (sigma_next - sigma). The
+    # divisor is a tensor, so the card divides (as the reference does)
+    # rather than multiplying by a rounded reciprocal.
+    d = (x - denoised) / torch.full_like(x, float(sigma))
     return x + d * float(np.float32(sigma_next) - np.float32(sigma))
 
 

@@ -108,7 +108,7 @@ def test_int8_linear_bias_gelu_matches_jax(dtype):
     jp = {k: jnp.asarray(v) for k, v in p.items()}
     jp["bias"] = jp["bias"].astype(jdt)
     want = jax_int8_linear(jp, jnp.asarray(x, jdt), bm=32, act="gelu", interpret=True)
-    layer = tq.QuantizedLinear.from_host(p, dtype)
+    layer = tq.QuantizedLinear.from_host(p, dtype, device="cpu")
     got = linear(layer, torch.from_numpy(x).to(dtype), act="gelu")
     assert got.shape == (2, 35, N) and got.dtype == dtype
     tol = TOLS[dtype] if dtype == torch.float32 else dict(atol=3e-2, rtol=2**-6)

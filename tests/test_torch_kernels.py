@@ -81,6 +81,17 @@ def assert_flash_close(got: torch.Tensor, want: torch.Tensor) -> None:
     assert torch.all(diff <= bound), (diff / bound).max().item()
 
 
+def assert_fp32_flash_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    """An fp32 flash kernel against its fp32 plain version, per element:
+    2^-16 of the largest |output| (the plain version in another order lands
+    at 0.008-0.13 of it on the CPU, tests/test_torch_ops.py; a TF32 product
+    or P rounded to bf16 exceeds it by far)."""
+    assert got.dtype == want.dtype == torch.float32
+    diff = (got - want).abs()
+    bound = 2.0**-16 * want.abs().max()
+    assert torch.isfinite(got).all() and torch.all(diff <= bound), (diff.max() / bound).item()
+
+
 def test_cpu_tensors_take_the_plain_versions():
     g = torch.Generator().manual_seed(0)
     x = torch.randn(1, 5, 128, generator=g)
@@ -203,10 +214,12 @@ def test_sdpa_auto_takes_the_kernel_on_the_card(cuda):
     assert flash_attention_bshd.launches == launches
     sdpa(long_q, long_q, long_q, 0.125, layout="bshd")
     assert flash_attention_bshd.launches == launches + 1
-    # fp32 on the card is the kernel's to take: it raises until the kernel
-    # supports fp32, rather than quietly materialising the scores.
-    with pytest.raises(TypeError):
-        sdpa(long_q.float(), long_q.float(), long_q.float(), 0.125, layout="bshd")
+    # fp32 on the card is the kernel's to take too (its fp32 instantiation),
+    # never the materialised scores.
+    q32 = long_q.float()
+    assert_fp32_flash_close(sdpa(q32, q32, q32, 0.125, layout="bshd"),
+                            xla_sdpa(q32, q32, q32, 0.125, layout="bshd"))
+    assert flash_attention_bshd.launches == launches + 2
     assert_flash_close(
         sdpa(short_q, short_q, short_q, 0.125, impl="flash", layout="bshd"),
         xla_sdpa(short_q.float(), short_q.float(), short_q.float(), 0.125, layout="bshd"),
@@ -215,7 +228,7 @@ def test_sdpa_auto_takes_the_kernel_on_the_card(cuda):
     # predicate but kernel B does not take it: it raises, never falls back.
     q128 = torch.randn(1, 1100, 2, 128, generator=g, device=cuda).bfloat16()
     sdpa(q128, q128, q128, 0.1, layout="bshd")
-    assert flash_attention_bshd.launches == launches + 3
+    assert flash_attention_bshd.launches == launches + 4
     q256 = torch.zeros(1, 1100, 1, 256, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         sdpa(q256, q256, q256, 0.1, layout="bshd")
@@ -288,12 +301,24 @@ def test_flash_bhsd_and_stats_raise_on_unsupported_input(cuda):
     q512 = torch.zeros(1, 1, 8, 512, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_stats(q512, q512, q512, 0.1, 8)
-    for dtype in (torch.float32, torch.float16):
-        q = torch.zeros(1, 2, 8, 64, device=cuda, dtype=dtype)
-        with pytest.raises(TypeError):
-            flash_attention(q, q, q, 0.1)
-        with pytest.raises(TypeError):
-            flash_attention_stats(q, q, q, 0.1, 8)
+    q = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q, 0.1)
+    with pytest.raises(TypeError):
+        flash_attention_stats(q, q, q, 0.1, 8)
+    # q, k and v share one dtype; fp32 rows must be 16-byte aligned too.
+    q32, k16 = torch.zeros(1, 2, 8, 64, device=cuda), torch.zeros(1, 2, 8, 64, device=cuda,
+                                                                   dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_attention(q32, k16, k16, 0.1)
+    with pytest.raises(TypeError):
+        flash_attention_stats(q32, q32, k16, 0.1, 8)
+    odd = torch.zeros(1, 2, 8, 66, device=cuda)[..., :64]  # rows 264 bytes apart
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(odd, odd, odd, 0.1)
+    q512 = torch.zeros(1, 1, 8, 512, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_stats(q512, q512, q512, 0.1, 8)
 
 
 @pytest.mark.gpu
@@ -681,3 +706,222 @@ def test_int8_wrapper_raises_on_unsupported_input(cuda):
     with pytest.raises(ValueError, match="multiple of 128"):
         int8_matmul(x, q8[:, :200].contiguous(), scales[:, :200].contiguous(),
                     zeros[:, :200].contiguous())
+
+
+# fp32 flash: kernel B (B, S, H, D) at the SD3, VAE-at-512² and FLUX 1024²
+# shapes, #15 (B, H, S, D) at the same, and small ragged ones; #14 at SD3's
+# padded four-rank chunk, a FLUX 2048² four-rank chunk and a ragged one.
+FP32_FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512), (1, 4352, 24, 128), (1, 77, 3, 64),
+                     (2, 300, 1, 512), (1, 77, 3, 128)]
+FP32_STATS_SHAPES = [(2, 24, 295, 295, 64), (1, 24, 4160, 4160, 128), (2, 2, 150, 61, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FP32_FLASH_SHAPES)
+@pytest.mark.parametrize("kind", ["bshd", "bhsd"])
+def test_flash_fp32_kernels_match_plain(cuda, shape, kind):
+    """Kernel B and #15 on fp32 inputs: the fp32 kernel, counted, within
+    2^-16 of the largest |output| of the fp32 plain version on the card
+    (TF32 off); #15 reads transposed (B, S, H, D) views in place."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    fn, plain = flash_attention_bshd, flash_attention_bshd_plain
+    if kind == "bhsd":
+        fn, plain = flash_attention, flash_attention_plain
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    launches = fn.launches
+    got = fn(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    assert_fp32_flash_close(got, plain(q, k, v, scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FP32_STATS_SHAPES)
+@pytest.mark.parametrize("part", ["full", "partial", "none"])
+def test_flash_stats_fp32_kernel_matches_plain(cuda, shape, part):
+    """#14 on fp32 inputs: o within 2^-16 of its largest |o|, m of its
+    largest |m|, l of its largest l, against the fp32 plain version; a
+    fully masked chunk exactly o = 0, l = 0, m = -1e30."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    b, h, sq, skv, d = shape
+    q = torch.randn(b, h, sq, d, generator=g, device=cuda)
+    k, v = (torch.randn(b, h, skv, d, generator=g, device=cuda) for _ in range(2))
+    vlen = {"full": skv, "partial": skv * 2 // 3, "none": 0}[part]
+    launches = flash_attention_stats.launches
+    got = flash_attention_stats(q, k, v, d**-0.5, vlen)
+    torch.cuda.synchronize()
+    assert flash_attention_stats.launches == launches + 1
+    if vlen == 0:
+        o, m, l = got
+        assert torch.all(o == 0) and torch.all(l == 0) and torch.all(m == NEG_INF)
+        return
+    for a, w in zip(got, flash_attention_stats_plain(q, k, v, d**-0.5, vlen)):
+        assert_fp32_flash_close(a, w)
+
+
+@pytest.mark.gpu
+def test_flash_fp32_kernel_reads_strided_heads_in_place(cuda):
+    g = torch.Generator(device=cuda).manual_seed(21)
+    qkv = torch.randn(2, 333, 3 * 4, 128, generator=g, device=cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
+    got = flash_attention_bshd(q, k, v, 0.1)
+    assert torch.equal(got, flash_attention_bshd(q.contiguous(), k.contiguous(), v.contiguous(), 0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 4096, 1, 512), (2, 1178, 24, 64)])
+def test_sdpa_fp32_takes_the_kernel(cuda, shape):
+    """fp32 attention above the flash threshold (the VAE mid-block of an
+    a16=False decode at 512², an fp32 SD3 MMDiT) runs kernel B's fp32
+    instantiation, counted, within the fp32 bound of xla_sdpa."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    launches = flash_attention_bshd.launches
+    got = sdpa(q, k, v, scale, layout="bshd")
+    torch.cuda.synchronize()
+    assert flash_attention_bshd.launches == launches + 1
+    assert_fp32_flash_close(got, xla_sdpa(q, k, v, scale, layout="bshd"))
+
+
+# -- the IEEE divisions of the denoise loop ------------------------------------
+
+
+@pytest.mark.gpu
+def test_euler_step_and_latent_unscaling_divide_as_on_the_cpu(cuda):
+    """_cfg_euler_step (with a stub model that only moves data) and
+    LatentFormat.process_out give the CPU's result bit for bit on the card:
+    both divide by a tensor, which torch divides in IEEE on CUDA too (a
+    scalar divisor there is a product with its rounded reciprocal)."""
+    import numpy as np
+
+    from diffusionkit_tpu_torch.pipeline import FluxLatentFormat, SD3LatentFormat, _cfg_euler_step
+
+    def stub(x, cond, pooled, t, g, sdpa_impl=None, mesh=None):
+        return x.flip(-1)
+
+    x = torch.from_numpy(np.random.RandomState(23).randn(1, 64, 64, 16).astype(np.float32))
+    for sigma, nxt in ((np.float32(0.9372), np.float32(0.8711)), (np.float32(0.3), np.float32(0.0))):
+        for cfg_on in (False, True):
+            want = _cfg_euler_step(stub, x, sigma, nxt, None, None, 5.0, cfg_on)
+            got = _cfg_euler_step(stub, x.to(cuda), sigma, nxt, None, None, 5.0, cfg_on)
+            assert torch.equal(got.cpu(), want)
+    for fmt in (SD3LatentFormat(), FluxLatentFormat()):
+        assert torch.equal(fmt.process_out(x.to(cuda)).cpu(), fmt.process_out(x))
+
+
+# -- #10 dequant_w8 and #16 int8_dot ---------------------------------------------
+
+# (K, N, group) of #10: FLUX fc1, fc2 and q at group 64, q at the
+# quantize-at-load group 32, a group of 128, a K that ends in a partial
+# 128-k tile and an N that ends in a partial 64-column tile, and groups that
+# split a packed word.
+DEQUANT_SHAPES = [(3072, 12288, 64), (12288, 3072, 64), (3072, 3072, 64), (3072, 3072, 32),
+                  (1024, 512, 128), (1000, 200, 40), (96, 64, 12), (64, 24, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", DEQUANT_SHAPES)
+def test_dequant_w8_kernel_matches_plain(cuda, shape):
+    """#10 against its plain version on the card: bit-identical (N, K)."""
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import dequant_w8, dequant_w8_plain, scaled_affine
+
+    k, n, group = shape
+    g = torch.Generator(device=cuda).manual_seed(24)
+    q4, scales, zeros = random_int4(k, n, group, g, cuda)
+    ws = (torch.rand(n, generator=g, device=cuda) + 0.5) * (2 / 127 / k**0.5)
+    s8, z8 = scaled_affine(scales, zeros, ws)
+    launches = dequant_w8.launches
+    got = dequant_w8(q4, s8, z8)
+    torch.cuda.synchronize()
+    assert dequant_w8.launches == launches + 1
+    assert got.dtype == torch.int8 and got.shape == (n, k) and got.is_contiguous()
+    assert torch.equal(got, dequant_w8_plain(q4, s8, z8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4352, 77, 1])
+def test_dequant_w8_then_w8_matmul_is_kernel_e(cuda, m):
+    """#10's grid fed to #11 equals kernel E (mode plain) bit for bit on the
+    same layer: the two dataflows share the requant grid."""
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import dequant_w8, scaled_affine
+
+    g = torch.Generator(device=cuda).manual_seed(25)
+    layer, x8, xs, _ = w4a8_inputs("plain", m, 3072, 1536, 64, g, cuda)
+    s8, z8 = scaled_affine(layer.scales, layer.zeros, layer.wscale)
+    fused = w4a8_matmul(x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias)
+    mat = w8_matmul(x8, dequant_w8(layer.q4, s8, z8), layer.wscale, xs, layer.bias)
+    assert torch.equal(mat, fused)
+
+
+# (M, K, N) of #16: the microbench default, M = 1, a ragged M, K = 64 (the
+# 64-deep k tile) and an N that ends in a partial tile.
+INT8_DOT_SHAPES = [(4352, 3072, 12288), (1, 3072, 12288), (77, 3072, 3072), (300, 64, 200),
+                   (16, 512, 136)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", INT8_DOT_SHAPES)
+def test_int8_dot_kernel_matches_plain(cuda, shape):
+    """#16 against the exact int32 product (float64 on the card), and
+    against torch._int_mm where its shape rules allow."""
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import int8_dot, int8_dot_plain
+
+    m, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(26)
+    x8 = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8)
+    launches = int8_dot.launches
+    got = int8_dot(x8, w8)
+    torch.cuda.synchronize()
+    assert int8_dot.launches == launches + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, int8_dot_plain(x8, w8))
+    if m > 16:
+        assert torch.equal(got, torch._int_mm(x8, w8.t()))
+
+
+@pytest.mark.gpu
+def test_dequant_w8_and_int8_dot_raise_on_unsupported_input(cuda):
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import dequant_w8, int8_dot
+
+    g = torch.Generator(device=cuda).manual_seed(27)
+    q4, scales, zeros = random_int4(256, 64, 64, g, cuda)
+    with pytest.raises(TypeError):
+        dequant_w8(q4.float(), scales, zeros)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dequant_w8(q4[:, :60].contiguous(), scales[:, :60].contiguous(), zeros[:, :60].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        dequant_w8(q4, scales.t().contiguous().t(), zeros)
+    x8 = torch.zeros(8, 96, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        int8_dot(x8, x8)
+    with pytest.raises(TypeError):
+        int8_dot(x8.float(), x8)
+
+
+@pytest.mark.gpu
+def test_tools_run_on_the_card(cuda):
+    """Both tools at a small shape: a time on every row, mat_pl and mat_xla
+    equal to kernel and int8_dot to torch._int_mm, and each counter rising
+    by exactly the launches a run makes."""
+    from diffusionkit_tpu_torch.ops import w4a8_matmul as tw
+    from diffusionkit_tpu_torch.tools import bench_w4a8_mat, microbench_int8
+
+    counters = {"dequant_w8": tw.dequant_w8, "w8_matmul": tw.w8_matmul, "int8_dot": tw.int8_dot,
+                "quantize": quantize}
+    before = {name: fn.launches for name, fn in counters.items()}
+    plain_e = w4a8_matmul.mode_launches["plain"]
+    rows = {r["name"]: r for r in bench_w4a8_mat.run(256, 512, 1024, iters=3)}
+    rows.update({r["name"]: r for r in microbench_int8.run(256, 512, 1024, iters=3)})
+    assert all(r["ms"] > 0 for r in rows.values())
+    for key in ("y0", "y"):
+        assert torch.equal(rows["mat_pl"][key], rows["kernel"][key])
+        assert torch.equal(rows["mat_xla"][key], rows["kernel"][key])
+        assert torch.equal(rows["int8_dot"][key], rows["int_mm"][key])
+    want = {**bench_w4a8_mat.launches(3), **microbench_int8.launches(3)}
+    assert w4a8_matmul.mode_launches["plain"] - plain_e == want.pop("w4a8_matmul[plain]")
+    assert {name: fn.launches - before[name] for name, fn in counters.items()} == want

@@ -281,6 +281,55 @@ def test_flash_bhsd_plain_matches_pallas_interpret(shape):
     assert flash_attention.launches == launches
 
 
+# The fp32 bound the card holds each fp32 flash kernel to against its plain
+# version: per element, 2^-16 of the largest |output|.
+FP32_FLASH_BOUND = 2.0**-16
+# (function, shape[, vlen]): kernel B (B, S, H, D), #15 (B, H, S, D) at the
+# three head dims, #14 (B, H, Sq, Skv, D) at a vlen short of Skv.
+FP32_FLASH_CASES = [("bshd", (1, 200, 3, 64)), ("bshd", (2, 150, 2, 128)),
+                    ("bshd", (1, 300, 1, 512)), ("bhsd", (1, 3, 200, 64)),
+                    ("bhsd", (2, 2, 150, 128)), ("bhsd", (1, 1, 300, 512)),
+                    ("stats", (2, 3, 70, 100, 128), 66), ("stats", (1, 2, 128, 128, 64), 85)]
+
+
+@pytest.mark.parametrize("case", FP32_FLASH_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_flash_fp32_plain_within_bound_of_pallas_interpret(case):
+    """The fp32 plain versions of kernel B, #15 and #14 against the Pallas
+    kernels in fp32 (interpret mode), which sum in tiles with an online
+    softmax: a reordered fp32 computation of the same function, held to the
+    card's fp32 bound, 2^-16 of the largest |output| per element (m of #14
+    to 2^-16 of its largest |m|, l to 2^-16 of its largest l)."""
+    kind, shape = case[0], case[1]
+    rs = np.random.RandomState(20)
+    if kind == "stats":
+        b, h, sq, skv, d = shape
+        q = rs.randn(b, h, sq, d).astype(np.float32)
+        k, v = (rs.randn(b, h, skv, d).astype(np.float32) for _ in range(2))
+    else:
+        q, k, v = (rs.randn(*shape).astype(np.float32) for _ in range(3))
+        d = shape[-1]
+    scale = d**-0.5
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    if kind == "bshd":
+        want = [jax_flash_bshd(jq, jk, jv, scale=scale, interpret=True)]
+        got = [flash_attention_bshd_plain(tq, tk, tv, scale)]
+    elif kind == "bhsd":
+        want = [jax_flash.flash_attention(jq, jk, jv, scale=scale, interpret=True)]
+        got = [flash_attention_plain(tq, tk, tv, scale)]
+    else:
+        vlen = case[2]
+        want = jax_flash.flash_attention_stats(jq, jk, jv, scale, jnp.int32(vlen), interpret=True)
+        got = flash_attention_stats_plain(tq, tk, tv, scale, vlen)
+    ratios = []
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        w = np.asarray(w)
+        ratios.append(float(np.abs(_np(g) - w).max() / (FP32_FLASH_BOUND * np.abs(w).max())))
+    print(f"fp32 {kind} {shape}: worst element at {ratios} of 2^-16 max|out|")
+    assert max(ratios) <= 1, ratios
+
+
 # ---------------------------------------------------------------------------
 # common.py and norms.py
 # ---------------------------------------------------------------------------

@@ -171,6 +171,8 @@ def test_port_never_imports_jax():
         "fused_quant, int4_matmul, kernels, norms, quantized, rope\n"
         "from diffusionkit_tpu_torch import parallel\n"
         "from diffusionkit_tpu_torch.parallel import mesh, ring_attention\n"
+        "from diffusionkit_tpu_torch.ops import w4a8_matmul, w8a8\n"
+        "from diffusionkit_tpu_torch.tools import bench_w4a8_mat, microbench_int8\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'diffusionkit_tpu.')))\n"
         "assert not bad, bad\n"
     )

@@ -84,10 +84,22 @@ def test_mlx_q4_to_exec_is_bit_identical():
 def test_quantized_linear_carries_the_words_bit_for_bit():
     p = packed_weights(64)
     p["bias"] = np.arange(N, dtype=np.float32)
-    layer = tq.QuantizedLinear.from_host(p, torch.bfloat16)
+    layer = tq.QuantizedLinear.from_host(p, torch.bfloat16, device="cpu")
     assert layer.q4.dtype == torch.int32 and layer.group_size == 64
     assert np.array_equal(layer.q4.numpy().view(np.uint32), p["q4"])
     assert layer.bias.dtype == torch.bfloat16 and layer.scales.dtype == torch.float32
+
+
+@pytest.mark.parametrize("loader", ["QuantizedLinear", "W8A8Linear"])
+def test_from_host_loaders_default_to_the_card(loader):
+    """Like the model builders and ``convert.*_from_jax``, the two host
+    loaders put a layer on the card unless the caller asks for the CPU."""
+    import inspect
+
+    from diffusionkit_tpu_torch.ops import w8a8
+
+    cls = tq.QuantizedLinear if loader == "QuantizedLinear" else w8a8.W8A8Linear
+    assert inspect.signature(cls.from_host).parameters["device"].default == "cuda"
 
 
 # int4_matmul_plain against the Pallas kernel in interpret mode. fp32: the
@@ -126,7 +138,7 @@ def test_int4_linear_bias_gelu_matches_jax(dtype):
     jp["bias"] = jp["bias"].astype(jdt)
     want = jax_int4_linear(jp, jnp.asarray(x, jdt), bm=32, bk=256, bn=128, act="gelu",
                            interpret=True)
-    layer = tq.QuantizedLinear.from_host(p, dtype)
+    layer = tq.QuantizedLinear.from_host(p, dtype, device="cpu")
     got = int4_linear(layer, torch.from_numpy(x).to(dtype), act="gelu")
     assert got.shape == (2, 35, N) and got.dtype == dtype
     # bf16: the product, the bias sum and the GELU each round once on both

@@ -1,0 +1,191 @@
+"""Kernels #10 and #16 and the two tools that run them, against the JAX
+package on the CPU.
+
+#10 ``dequant_w8``'s plain version against the Pallas ``dequant_w8_pallas``
+(interpret mode); #16 ``int8_dot``'s plain version against the reference
+tool's ``pallas_int8_matmul``, imported by its file path and run under
+``force_tpu_interpret_mode``; #10 then #11 against kernel E's plain
+version on a layer drawn by the reference's ``random_quantized_linear``;
+the tools' ``run`` on the CPU, where every wrapper takes its plain version.
+Inputs come from numpy seeds; every comparison is exact.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from diffusionkit_tpu.ops import w4a8_matmul as jw
+from diffusionkit_tpu.ops.quantized import random_quantized_linear as jax_random_quantized_linear
+from diffusionkit_tpu_torch.ops import quantized as tq
+from diffusionkit_tpu_torch.ops import w4a8_matmul as tw
+from diffusionkit_tpu_torch.tools import bench_w4a8_mat, microbench_int8
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def reference_tool(name: str):
+    """A module of the reference's ``tools/`` directory, by its file path."""
+    spec = importlib.util.spec_from_file_location(f"reference_{name}", REPO / "tools" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def random_w4a8_host(k: int, n: int, group: int, seed: int):
+    """The reference's random packed layer (``random_quantized_linear``)
+    with its bound wscale (``add_wscale_bound_tree``), as host arrays."""
+    p = jax_random_quantized_linear(jax.random.PRNGKey(seed), k, n, bits=4, group_size=group,
+                                    bias=False)
+    p = jw.add_wscale_bound_tree({key: v for key, v in p.items() if v is not None})
+    return {key: np.asarray(v) for key, v in p.items()}
+
+
+# -- #10 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("group", [32, 64])
+def test_dequant_w8_plain_matches_pallas_interpret(group):
+    """#10's plain version is the transpose of ``dequant_w8_pallas``'s (K, N)
+    grid, bit for bit, on the reference's s8/z8 (wscale-divided affine)."""
+    p = random_w4a8_host(256, 256, group, seed=1)
+    s8, z8, _, _ = jw._scaled_affine({key: jnp.asarray(v) for key, v in p.items()})
+    want = np.asarray(jw.dequant_w8_pallas(jnp.asarray(p["q4"]), s8, z8, bk=128, bn=128,
+                                           interpret=True))
+    ts8, tz8 = tw.scaled_affine(t(p["scales"]), t(p["zeros"]), t(p["wscale"]))
+    np.testing.assert_array_equal(ts8.numpy(), np.asarray(s8))
+    np.testing.assert_array_equal(tz8.numpy(), np.asarray(z8))
+    q4 = t(p["q4"].view(np.int32))
+    launches = tw.dequant_w8.launches
+    got = tw.dequant_w8(q4, ts8, tz8)
+    assert tw.dequant_w8.launches == launches  # a CPU tensor takes the plain version
+    assert got.dtype == torch.int8 and got.shape == (256, 256) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want.T)
+    np.testing.assert_array_equal(tw.dequant_w8_plain(q4, ts8, tz8).numpy(), want.T)
+
+
+def test_dequant_w8_plain_takes_groups_that_straddle_a_word():
+    """A group of 4 splits each packed word between two groups: the plain
+    version requantises each nibble with its own group's affine."""
+    rs = np.random.RandomState(2)
+    k, n = 64, 24
+    q = rs.randint(0, 16, (k, n)).astype(np.uint8)
+    s8 = (rs.rand(k // 4, n) * 20).astype(np.float32)
+    z8 = (-rs.rand(k // 4, n) * 120).astype(np.float32)
+    q4 = t(tq.pack_int4_host(q).view(np.int32))
+    got = tw.dequant_w8(q4, t(s8), t(z8)).numpy()
+    y = q.astype(np.float32) * np.repeat(s8, 4, 0) + np.repeat(z8, 4, 0)
+    np.testing.assert_array_equal(got, np.clip(np.round(y), -127, 127).astype(np.int8).T)
+
+
+# -- #16 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [64, 100])
+def test_int8_dot_plain_matches_pallas_int8_matmul(m):
+    """#16's plain version against the reference tool's bare Pallas int8
+    matmul in TPU interpret mode (blocks 64/128/128, so M = 100 is ragged
+    and the reference pads it), and against the exact int64 product."""
+    tool = reference_tool("microbench_pallas_int8")
+    rs = np.random.RandomState(3)
+    x8 = rs.randint(-127, 128, (m, 256)).astype(np.int8)
+    w8 = rs.randint(-127, 128, (256, 256)).astype(np.int8)  # the reference's (K, N)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(tool.pallas_int8_matmul(jnp.asarray(x8), jnp.asarray(w8),
+                                                  bm=64, bk=128, bn=128))
+    np.testing.assert_array_equal(want, x8.astype(np.int64) @ w8.astype(np.int64))
+    launches = tw.int8_dot.launches
+    got = tw.int8_dot(t(x8), t(w8.T))  # the port's (N, K)
+    assert tw.int8_dot.launches == launches
+    assert got.dtype == torch.int32 and got.shape == (m, 256)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tw.int8_dot_plain(t(x8), t(w8.T)).numpy(), want)
+
+
+# -- #10 then #11 against kernel E ---------------------------------------------
+
+
+@pytest.mark.parametrize("m", [1, 48])
+def test_materialized_w8_path_matches_fused_w4a8(m):
+    """The port's version of the reference's
+    ``test_materialized_w8_path_bit_identical``: #10's plain grid fed to
+    #11's plain version equals kernel E's plain version (``plain`` mode)
+    bit for bit, on the reference's random packed layer carried over by
+    ``QuantizedLinear.from_host``; and #10's grid is the reference's
+    ``dequant_w8`` grid."""
+    p = random_w4a8_host(256, 384, 64, seed=4)
+    p["bias"] = (0.1 * np.random.RandomState(5).randn(384)).astype(np.float32)
+    layer = tq.QuantizedLinear.from_host(p, torch.float32, device="cpu")
+    s8, z8 = tw.scaled_affine(layer.scales, layer.zeros, layer.wscale)
+    w8 = tw.dequant_w8(layer.q4, s8, z8)
+    js8, jz8, _, _ = jw._scaled_affine({key: jnp.asarray(v) for key, v in p.items()})
+    np.testing.assert_array_equal(w8.numpy().T, np.asarray(jw.dequant_w8(jnp.asarray(p["q4"]),
+                                                                         js8, jz8)))
+    rs = np.random.RandomState(6)
+    x8 = t(rs.randint(-127, 128, (m, 256)).astype(np.int8))
+    xs = t((rs.rand(m, 1) + 0.5).astype(np.float32) / (127 * 16))
+    for dtype in (torch.float32, torch.bfloat16):
+        bias = layer.bias.to(dtype)
+        fused = tw.w4a8_matmul(x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, bias,
+                               out_dtype=dtype)
+        mat = tw.w8_matmul(x8, w8, layer.wscale, xs, bias, out_dtype=dtype)
+        assert mat.dtype == dtype and torch.equal(mat, fused)
+
+
+# -- the tools -----------------------------------------------------------------
+
+
+def test_bench_w4a8_mat_runs_on_the_cpu():
+    """Every row of the port's bench_w4a8_mat at a tiny shape: a time, and
+    mat_pl and mat_xla equal to kernel, first call and last, bit for bit;
+    no kernel launches on the CPU."""
+    launches = (tw.dequant_w8.launches, tw.w8_matmul.launches, tw.w4a8_matmul.launches)
+    rows = bench_w4a8_mat.run(40, 256, 128, iters=2, device="cpu")
+    assert [r["name"] for r in rows] == ["kernel", "mat_xla", "mat_pl", "mxu8", "mxubf16"]
+    assert all(r["ms"] > 0 and r["rate"] > 0 for r in rows)
+    by = {r["name"]: r for r in rows}
+    for key in ("y0", "y"):
+        assert by["kernel"][key].dtype == torch.bfloat16 and by["kernel"][key].shape == (40, 128)
+        assert torch.equal(by["mat_pl"][key], by["kernel"][key])
+        assert torch.equal(by["mat_xla"][key], by["mat_pl"][key])
+    assert by["mxu8"]["y0"].dtype == torch.int32
+    assert (tw.dequant_w8.launches, tw.w8_matmul.launches, tw.w4a8_matmul.launches) == launches
+    assert bench_w4a8_mat.launches(16) == {"dequant_w8": 35, "w8_matmul": 17,
+                                           "w4a8_matmul[plain]": 17, "quantize": 1}
+
+
+def test_microbench_int8_runs_on_the_cpu():
+    """Both rows of the port's microbench_int8 at a tiny shape (a ragged M
+    of 40): a time each, and int8_dot equal to torch._int_mm, first call
+    and last."""
+    launches = tw.int8_dot.launches
+    rows = microbench_int8.run(40, 128, 256, iters=2, device="cpu")
+    assert [r["name"] for r in rows] == ["int_mm", "int8_dot"]
+    assert all(r["ms"] > 0 and r["rate"] > 0 for r in rows)
+    for key in ("y0", "y"):
+        assert rows[1][key].dtype == torch.int32 and rows[1][key].shape == (40, 256)
+        assert torch.equal(rows[1][key], rows[0][key])
+    assert tw.int8_dot.launches == launches
+    assert microbench_int8.launches(16) == {"int8_dot": 17}
+
+
+def test_tool_arguments_default_to_the_references():
+    from diffusionkit_tpu_torch.tools import parse_args, widen
+
+    assert parse_args([]) == (4352, 3072, 12288, 16)
+    assert parse_args(["8", "64", "32"]) == (8, 64, 32, 16)
+    assert parse_args(["8", "64", "32", "3"]) == (8, 64, 32, 3)
+    y = torch.arange(6).reshape(2, 3)
+    assert torch.equal(widen(y, 5), torch.tensor([[0, 1, 2, 0, 1], [3, 4, 5, 3, 4]]))
+    assert torch.equal(widen(y, 2), y[:, :2])

@@ -60,7 +60,7 @@ def packed(k, n, group=64, seed=0, bias=True):
 
 
 def layer_of(p):
-    return tq.QuantizedLinear.from_host(p, torch.float32)
+    return tq.QuantizedLinear.from_host(p, torch.float32, device="cpu")
 
 
 def t(a):
@@ -307,7 +307,7 @@ def test_wscale_helpers_match_jax():
     w = np.random.RandomState(13).randn(128, 64).astype(np.float32)
     host = tq.quantize_kernel_host(w, 32, with_wscale=True)
     np.testing.assert_allclose(host["wscale"], np.asarray(jw.wscale_from_q4_host(host)), rtol=2e-6)
-    assert tq.QuantizedLinear.from_host(host, torch.float32).wscale is not None
+    assert tq.QuantizedLinear.from_host(host, torch.float32, device="cpu").wscale is not None
 
 
 def test_quantize_mmdit_mode_gate():

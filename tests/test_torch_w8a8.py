@@ -211,7 +211,7 @@ def test_w8a8_module_matches_w8a8_tree():
 
     packed = {key: np.asarray(v) for key, v in jq.quantize_kernel_host(
         np.random.RandomState(10).randn(256, 256).astype(np.float32), 4, 64, refine=False).items()}
-    layer = tw8.w8a8_layer(tq.QuantizedLinear.from_host(packed, torch.float32))
+    layer = tw8.w8a8_layer(tq.QuantizedLinear.from_host(packed, torch.float32, device="cpu"))
     want = jw8.w8a8_from_quantized_host(packed)
     np.testing.assert_array_equal(layer.w8.numpy().T, want["w8"])
     np.testing.assert_array_equal(layer.wscale.numpy(), want["wscale"])
@@ -236,7 +236,7 @@ def test_convert_carries_integer_leaves_bit_for_bit():
     q8 = {key: np.asarray(v) for key, v in jq.quantize_kernel_host(
         np.random.RandomState(12).randn(256, 256).astype(np.float32), 8, 32, refine=False).items()}
     assert q8["q8"].max() == 255 and q8["q8"].dtype == np.uint8
-    layer = tq.QuantizedLinear.from_host(q8, torch.float32)
+    layer = tq.QuantizedLinear.from_host(q8, torch.float32, device="cpu")
     assert layer.bits == 8 and layer.q8.dtype == torch.uint8
     np.testing.assert_array_equal(layer.q8.numpy(), q8["q8"])
 
