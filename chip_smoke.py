@@ -10,9 +10,12 @@ Phases, each raising on failure (the script then exits non-zero):
   3. each kernel against its plain torch version at the main paths' shapes,
      in bf16, against the plain math run in fp32 on the same bf16 inputs:
      mod_ln and flash attention at the SD3 shapes, flash attention at d=128
-     and the int4 dequant-matmul at the FLUX shapes;
+     and the int4 dequant-matmul at the FLUX shapes, kernel B also at
+     ragged tile edges and, head by head, at FLUX 2048²'s 16640 tokens;
   4. each kernel's device time against its plain version's (CUDA graph
-     replays timed with CUDA events);
+     replays timed with CUDA events; kernel B's plain version on one head at
+     16640 tokens), the flash kernels' with their TFLOP/s and their ratio to
+     F.scaled_dot_product_attention's time;
   3-4b. the w4a8 kernels (mod_ln_quantize, quantize and w4a8_matmul in its
      four modes) against their plain versions run on the card on the same
      inputs, at the FLUX w4a8 shapes plus M=1, a ragged M and group 32, and
@@ -188,12 +191,18 @@ from diffusionkit_tpu_torch.tokenizer import (
     SyntheticT5Tokenizer,
     synthetic_clip_vocab,
 )
-from diffusionkit_tpu_torch.tools import DEFAULT_ITERS, DEFAULT_SHAPE, bench_w4a8_mat, microbench_int8
+from diffusionkit_tpu_torch.tools import (
+    DEFAULT_ITERS,
+    DEFAULT_SHAPE,
+    bench_w4a8_mat,
+    device_ms,
+    microbench_int8,
+)
 
 KERNELS = {
     "mod_ln": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
                "diffusionkit_tpu/ops/fused_quant.py:284"),
-    "flash_attention_bshd": ("diffusionkit_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bshd": ("diffusionkit_tpu_torch/csrc/flash_attention_sm90.cu",
                              "diffusionkit_tpu/ops/flash_attention.py:343"),
     "int4_matmul": ("diffusionkit_tpu_torch/csrc/int4_matmul.cu",
                     "diffusionkit_tpu/ops/int4_matmul.py:74"),
@@ -212,14 +221,16 @@ KERNELS = {
                     "diffusionkit_tpu/ops/int4_matmul.py:244"),
     "flash_attention_stats": ("diffusionkit_tpu_torch/csrc/flash_attention.cu",
                               "diffusionkit_tpu/ops/flash_attention.py:432"),
-    "flash_attention": ("diffusionkit_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention": ("diffusionkit_tpu_torch/csrc/flash_attention_sm90.cu",
                         "diffusionkit_tpu/ops/flash_attention.py:513"),
     "dequant_w8": ("diffusionkit_tpu_torch/csrc/w8_matmul.cu",
                    "diffusionkit_tpu/ops/w4a8_matmul.py:453"),
     "int8_dot": ("diffusionkit_tpu_torch/csrc/w8_matmul.cu", "tools/microbench_pallas_int8.py:42"),
 }
-# The fp32 instantiations of the flash kernels live in their own source.
+# The fp32 instantiations of the flash kernels live in their own source, and
+# kernel B and #15 at d = 512 in #14's.
 FP32_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_f32.cu"
+WIDE_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention.cu"
 FLASH_KERNELS = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "int4_matmul": int4_matmul, "mod_ln_quantize": mod_ln_quantize,
@@ -277,9 +288,15 @@ T5_LAYERS = T5_XXL.num_layers
 MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536)]  # SD3 image / text stream sites
 # SD3 joint attention / VAE mid-block at 512² / FLUX joint attention at 1024².
 FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512), (1, 4352, 24, 128)]
-# Checked but not timed: kv edges 51 keys short of the 64-key tile, where an
-# unmasked pad would move the outputs by far more than the bound.
-FLASH_RAGGED = [(1, 77, 3, 64), (1, 77, 3, 128)]
+# Checked but not timed: kv edges short of a key tile (77: 51 keys short of
+# 128), one key past one (129) and one past nine (1153), where an unmasked
+# pad would move the outputs by far more than the bound.
+FLASH_RAGGED = [(1, s, 3, d) for s in (77, 129, 1153) for d in (64, 128)]
+# Kernel B at path g′'s shape (FLUX.1-schnell 2048²: 16384 image + 256 text
+# tokens, 24 heads of 128): checked head by head (all heads' fp32 scores
+# would take 26.6 GB), timed beside F.scaled_dot_product_attention, its
+# plain version timed on one head.
+FLASH_LONG = (1, 16640, 24, 128)
 # (M, K, N, group) of kernel C on the FLUX path: the unified blocks' q/k/v/o
 # and fc1, the dual blocks' fc2 (image stream), the text stream, and a
 # dual block's `ada` GEMV; the same q shape at the quantize-at-load group
@@ -446,33 +463,6 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0**-126))) - 7)
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time of one call: ``reps`` calls captured in one CUDA graph and
-    replayed between two CUDA events, so no host launch cost sits between
-    the launches (a short kernel launched from Python would otherwise be
-    timed at the host's pace). Median of 5 replays, divided by ``reps``.
-    Inputs stay resident in L2 where they fit, as right after their
-    producer in the model."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
 def reset_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
@@ -592,8 +582,8 @@ def time_kernels(mod, flash, int4, tag: str) -> dict:
         tflops = 4 * b * h * s * s * d / (ms / 1e3) / 1e12
         t = timing("flash_attention_bshd", tuple(q.shape), ms, plain, library_ms=lib)
         log(f"  flash_attention_bshd {tuple(q.shape)}: kernel {ms!r} ms ({tflops!r} TFLOP/s), "
-            f"plain {plain!r} ms, F.scaled_dot_product_attention {lib!r} ms, {bound_note(t)} "
-            f"[{tag}]")
+            f"plain {plain!r} ms, F.scaled_dot_product_attention {lib!r} ms (kernel at "
+            f"{ms / lib!r}x its time), {bound_note(t)} [{tag}]")
         times["flash_attention_bshd"].append(t)
     for shape, (x, q4, s, z) in zip(INT4_SHAPES, int4):
         m, k, n, _ = shape
@@ -607,6 +597,47 @@ def time_kernels(mod, flash, int4, tag: str) -> dict:
             f"[{tag}]")
         times["int4_matmul"].append(t)
     return times
+
+
+def flash_long(gen, tag: str):
+    """Phase 3-4, kernel B at FLASH_LONG: against its plain version on fp32
+    upcasts head by head, within one bf16 ulp + 2^-8 max|want| (the largest
+    over all heads), then its device time beside F.scaled_dot_product_attention
+    and its bound; the plain version's time on one head (all heads at once
+    do not fit). Returns (max abs error, the timing row)."""
+    b, s, h, d = FLASH_LONG
+    q, k, v = (torch.randn(FLASH_LONG, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    scale = d**-0.5
+    got = flash_attention_bshd(q, k, v, scale)
+    torch.cuda.synchronize()
+    want = torch.cat([flash_attention_bshd_plain(q[:, :, i:i + 1].float(), k[:, :, i:i + 1].float(),
+                                                 v[:, :, i:i + 1].float(), scale)
+                      for i in range(h)], dim=2)
+    diff = (got.float() - want).abs()
+    bnd = bf16_ulp(want) + FLASH_SLACK * want.abs().max()
+    err, ratio = diff.max().item(), (diff / bnd).max().item()
+    ok = ratio <= 1 and bool(torch.isfinite(got).all())
+    log(f"  flash_attention_bshd {FLASH_LONG} (head by head): max_abs_err {err!r}, max |want| "
+        f"{want.abs().max().item()!r}; tolerance one bf16 ulp + 2^-8 max|want| per element, "
+        f"worst element at {ratio!r} of it: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_attention_bshd {FLASH_LONG} disagrees")
+    del got, want, diff, bnd
+    torch.cuda.empty_cache()
+    ms = device_ms(lambda: flash_attention_bshd(q, k, v, scale))
+    head = tuple(t[:, :, :1] for t in (q, k, v))
+    plain_head = device_ms(lambda: flash_attention_bshd_plain(*head, scale), reps=2)
+    qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+    t = timing("flash_attention_bshd", FLASH_LONG, ms, None, library_ms=lib,
+               plain_one_head_ms=plain_head)
+    log(f"  flash_attention_bshd {FLASH_LONG}: kernel {ms!r} ms "
+        f"({4 * b * h * s * s * d / (ms / 1e3) / 1e12!r} TFLOP/s), plain on one of the {h} "
+        f"heads {plain_head!r} ms, F.scaled_dot_product_attention {lib!r} ms (kernel at "
+        f"{ms / lib!r}x its time), {bound_note(t)} [{tag}]")
+    del q, k, v, qh, kh, vh, head
+    torch.cuda.empty_cache()
+    return err, t
 
 
 def random_w4a8(k, n, group, gen) -> QuantizedLinear:
@@ -973,7 +1004,8 @@ def bhsd_kernels(gen, tag: str):
         t = timing("flash_attention", shape, ms, plain, library_ms=lib)
         log(f"  flash_attention (B, H, S, D) {shape}: kernel {ms!r} ms "
             f"({4 * b * h * s_ * s_ * d / (ms / 1e3) / 1e12!r} TFLOP/s), plain {plain!r} ms, "
-            f"F.scaled_dot_product_attention {lib!r} ms, {bound_note(t)} [{tag}]")
+            f"F.scaled_dot_product_attention {lib!r} ms (kernel at {ms / lib!r}x its time), "
+            f"{bound_note(t)} [{tag}]")
         times["flash_attention"].append(t)
         torch.cuda.empty_cache()
     for (b, h, sq, skv, d), vlens in STATS_SHAPES:
@@ -1750,11 +1782,11 @@ def build_flux_ring(gen, prev: FluxPipeline) -> FluxPipeline:
 
 
 # The flash kernels as the profiler names them, demangled or not: #14 is
-# flash_fwd_bhsd_small<D, true>, #15 flash_fwd_bhsd_small<D, false> and
-# flash_fwd_wide<512, true>, kernel B flash_fwd_small<D> and
+# flash_fwd_bhsd_small<D, true>, #15 flash_fwd_sm90<D, true> and
+# flash_fwd_wide<512, true>, kernel B flash_fwd_sm90<D, false> and
 # flash_fwd_wide<512, false>.
 STATS_KERNEL = re.compile(r"flash_fwd_bhsd_small(?:<\d+, true>|ILi\d+ELb1E)")
-SCALE_FIRST_WIDE = re.compile(r"flash_fwd_wide(?:<\d+, true>|ILi\d+ELb1E)")
+SCALE_FIRST = re.compile(r"flash_fwd_(?:wide|sm90)(?:<\d+, true>|ILi\d+ELb1E)")
 # The fp32 instantiations, flash_fwd_f32<D, mode>: 0 kernel B, 1 #15, 2 #14;
 # #16 is w8_mm<int, ...>.
 FP32_MODE = re.compile(r"flash_fwd_f32(?:<\d+, (\d)>|ILi\d+ELi(\d)E)")
@@ -1772,7 +1804,7 @@ def family(name: str) -> str:
         return "int8_dot"
     if "flash_fwd_bhsd" in name:
         return "flash_attention_stats" if STATS_KERNEL.search(name) else "flash_attention"
-    if SCALE_FIRST_WIDE.search(name):
+    if SCALE_FIRST.search(name):
         return "flash_attention"
     if "flash_fwd" in name:
         return "flash_attention_bshd"
@@ -1866,7 +1898,7 @@ def main() -> None:
     ptxas = kernels.library_path().with_suffix(".log")
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "C75" in line:
                 log(f"  {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1877,6 +1909,9 @@ def main() -> None:
     times = time_kernels(mod, flash, int4, tag)
     del mod, flash, int4
     torch.cuda.empty_cache()
+    err, t = flash_long(gen, tag)
+    errs["flash_attention_bshd"].append(err)
+    times["flash_attention_bshd"].append(t)
     log("phase 3-4b: the w4a8 kernels against their plain versions on the card, and their "
         "device times")
     w_errs, w_times = w4a8_kernels(gen, tag)
@@ -1967,6 +2002,7 @@ def main() -> None:
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **({"fp32_source": FP32_SOURCE} if name in FLASH_KERNELS else {}),
+            **({"d512_source": WIDE_SOURCE} if name in FLASH_KERNELS[:2] else {}),
             "launches": launches[main_path][name], "launches_path": main_path,
             "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": max(errs[name]),

@@ -1,5 +1,7 @@
 // Non-causal flash attention over bf16 q/k/v read in place through strides:
-// kernel B and kernels #14 and #15.
+// #14 at d = 64 and 128, kernel B and #15 at d = 512, and the C entry points
+// of all three (kernel B and #15 at d = 64 and 128 run the Hopper kernel of
+// flash_attention_sm90.cu, which has its own note).
 //
 // Replaces the Pallas kernels of diffusionkit_tpu/ops/flash_attention.py:
 //  * kernel B, flash_attention_bshd (_flash_kernel_bshd): (B, S, H, D),
@@ -19,50 +21,53 @@
 // -1e30, P rounded to bf16 before P.V, an fp32 accumulator divided by l at
 // the end and rounded once (#14: by max(l, 1e-30), not rounded).
 //
-// Bound on the H100: at the SD3-medium 512^2 shape (2 x 1178 x 24 heads,
-// d=64) the two products are ~17 GFLOP per call against ~14 MB of q/k/v/o;
-// at FLUX.1-schnell 2048^2 through the ring on one rank (#14, 24 heads x
-// 16640 tokens, d=128, vlen = Skv) 4 B H Sq Skv D = 3.4 TFLOP of
-// tensor-core work against ~0.5 GB (bf16 q/k/v 0.31 GB, the fp32 o 0.20 GB).
-// Every kernel here is compute-bound: products on the tensor cores, the
-// score matrix never in device memory. Design: the layout is read in place
-// through strides (one head per blockIdx.y, no transposes, no padded
-// copies); q/k/v tiles are staged in shared memory with rows padded by 8
-// elements so every fragment load is bank-conflict free; products are
+// Bound on the H100: at FLUX.1-schnell 2048^2 through the ring on one rank
+// (#14, 24 heads x 16640 tokens, d=128, vlen = Skv) 4 B H Sq Skv D = 3.4
+// TFLOP of tensor-core work against ~0.5 GB (bf16 q/k/v 0.31 GB, the fp32 o
+// 0.20 GB); at the VAE mid-block (d = 512, one head of 4096 positions at
+// 512^2) 34 GFLOP against 17 MB. Both compute-bound: products on the tensor
+// cores, the score matrix never in device memory. Design: the layout is read
+// in place through strides (one head per blockIdx.y, no transposes, no
+// padded copies); q/k/v tiles are staged in shared memory with rows padded
+// by 8 elements so every fragment load is bank-conflict free; products are
 // mma.sync m16n8k16 (bf16 in, fp32 out); the online softmax runs on the
 // accumulator fragments in registers, and the ragged kv edge is masked
 // in-kernel. The TPU kernels' two-heads-per-lane-tile packing, sequence
 // padding, (..., 128) lane-broadcast m/l and v5e-specific tile
-// specialisations are not carried over. wgmma/TMA pipelines come later.
-//
-// At d = 64 and 128, kernel B's kernel and #14/#15's are separate templates
-// of the same tiles: folding B into #14/#15's template moved ptxas's
-// register allocation and made B 20-28 % slower on the card. At d = 512 one
-// template serves B and #15 (`kScaleFirst`).
+// specialisations are not carried over. #14 is the next to move to
+// flash_attention_sm90.cu's design (TMA-fed wgmma, sm90.cuh); d = 512 needs
+// one of its own (a 64 x 512 fp32 wgmma accumulator does not fit a
+// warpgroup's registers).
 //
 // Two tilings:
-//  * d = 64 and d = 128 (`flash_fwd_small`, `flash_fwd_bhsd_small`): 4
-//    warps x 16 query rows; each warp keeps its q fragments, scores and
-//    output accumulator (16 x d fp32) in registers, FlashAttention-2 style.
-//    The q/k/v tiles live in dynamic shared memory: 52 KB at d = 128 (FLUX's
-//    joint attention, 24 heads over 256 text + 4096 image tokens at 1024^2),
-//    over the 48 KB static limit. At d = 128 a thread holds 32 q-fragment
-//    and 64 accumulator registers besides the 32 scores; the ptxas report in
+//  * #14 at d = 64 and d = 128 (`flash_fwd_bhsd_small<D, true>`): 4 warps x
+//    16 query rows; each warp keeps its q fragments, scores and output
+//    accumulator (16 x d fp32) in registers, FlashAttention-2 style. The
+//    q/k/v tiles live in dynamic shared memory: 52 KB at d = 128, over the
+//    48 KB static limit. At d = 128 a thread holds 32 q-fragment and 64
+//    accumulator registers besides the 32 scores; the ptxas report in
 //    _build/ shows the registers (168 or fewer keep 3 blocks an SM) and
 //    spills. #14 skips the key tiles at or past vlen: they would change
 //    nothing (their p are 0 and their alpha 1), so a fully masked chunk
 //    (vlen = 0) runs no tile and writes o = 0, l = 0 and m = -1e30 exactly.
+//    (The template's kStats = false branch, #15's until the Hopper kernel,
+//    is no longer instantiated.)
 //  * d = 512 (`flash_fwd_wide<512, kScaleFirst>`: the VAE mid-block's
-//    single head): a 16 x 512 fp32 accumulator per warp would need 256
-//    registers a thread, so the block shares one 16-row query tile among 4
-//    warps. Each warp computes an 8-column slice of the scores over the full
-//    d, the softmax runs once per tile from shared memory, and each warp
-//    accumulates its own 128-column slice of the output. ~87 KB of dynamic
-//    shared memory, 2 blocks per SM.
+//    single head, kernel B and #15): a 16 x 512 fp32 accumulator per warp
+//    would need 256 registers a thread, so the block shares one 16-row query
+//    tile among 4 warps. Each warp computes an 8-column slice of the scores
+//    over the full d, the softmax runs once per tile from shared memory, and
+//    each warp accumulates its own 128-column slice of the output. ~87 KB of
+//    dynamic shared memory, 2 blocks per SM.
 
 #include <type_traits>
 
 #include "common.cuh"
+
+// Kernel B and #15 at d = 64 and 128: csrc/flash_attention_sm90.cu.
+int dk_flash_attn_sm90_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
+                            int H, int D, const long long (&strides)[12], float sc,
+                            bool scale_first, void* stream);
 
 namespace {
 
@@ -93,144 +98,6 @@ struct SmallTile {
   static constexpr int BQ = 64, BK = 64, LD = D + 8;
   static constexpr size_t kBytes = (size_t)(BQ + 2 * BK) * LD * 2;
 };
-
-template <int D>
-__global__ void __launch_bounds__(128)
-    flash_fwd_small(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int S, Strides qs,
-                    Strides ks, Strides vs, Strides os, float scale_log2) {
-  constexpr int BQ = SmallTile<D>::BQ, BK = SmallTile<D>::BK, LD = SmallTile<D>::LD, NT = 128;
-  // Dynamic: at D = 128 the three tiles take 52 KB, over the 48 KB static limit.
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;
-
-  load_tile<BQ, D, LD, NT>(Qs, q + b * qs.b + q0 * qs.s + h * qs.h, qs.s, S - q0);
-  __syncthreads();
-
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = dk::lds32(&Qs[(r0 + g) * LD + kk * 16 + 2 * t]);
-    qa[kk][1] = dk::lds32(&Qs[(r0 + g + 8) * LD + kk * 16 + 2 * t]);
-    qa[kk][2] = dk::lds32(&Qs[(r0 + g) * LD + kk * 16 + 8 + 2 * t]);
-    qa[kk][3] = dk::lds32(&Qs[(r0 + g + 8) * LD + kk * 16 + 8 + 2 * t]);
-  }
-
-  float oacc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  // Rows g and g+8 of this warp's 16; l is this thread's partial row sum.
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb_ = v + b * vs.b + h * vs.h;
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();  // the previous tile is fully consumed
-    load_tile<BK, D, LD, NT>(Ks, kb + k0 * ks.s, ks.s, S - k0);
-    load_tile<BK, D, LD, NT>(Vs, vb_ + k0 * vs.s, vs.s, S - k0);
-    __syncthreads();
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = dk::lds32(&Ks[(j * 8 + g) * LD + kk * 16 + 2 * t]);
-        const uint32_t b1 = dk::lds32(&Ks[(j * 8 + g) * LD + kk * 16 + 8 + 2 * t]);
-        dk::mma_bf16_16816(s[j], qa[kk], b0, b1);
-      }
-    }
-    if (k0 + BK > S) {  // ragged kv edge
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const int col = k0 + j * 8 + 2 * t;
-        if (col >= S) s[j][0] = s[j][2] = kNegInf;
-        if (col + 1 >= S) s[j][1] = s[j][3] = kNegInf;
-      }
-    }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // Both operands are finite (m starts at -1e30, never -inf), so no
-    // inf - inf; masked columns and the first tile's alpha underflow to 0.
-    const float alpha0 = exp2f((m0 - mx0) * scale_log2);
-    const float alpha1 = exp2f((m1 - mx1) * scale_log2);
-    m0 = mx0;
-    m1 = mx1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = exp2f((s[j][0] - mx0) * scale_log2);
-      s[j][1] = exp2f((s[j][1] - mx0) * scale_log2);
-      s[j][2] = exp2f((s[j][2] - mx1) * scale_log2);
-      s[j][3] = exp2f((s[j][3] - mx1) * scale_log2);
-      rs0 += s[j][0] + s[j][1];
-      rs1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      oacc[n][0] *= alpha0;
-      oacc[n][1] *= alpha0;
-      oacc[n][2] *= alpha1;
-      oacc[n][3] *= alpha1;
-    }
-
-    // P (rounded to bf16) . V; the score fragments of n-tiles 2c and 2c+1
-    // are exactly the A fragment of k-step c.
-    const int mi = lane >> 3, mr = lane & 7;
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      const uint32_t pa[4] = {dk::pack_bf16(s[2 * c][0], s[2 * c][1]),
-                              dk::pack_bf16(s[2 * c][2], s[2 * c][3]),
-                              dk::pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
-                              dk::pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        dk::ldmatrix_x4_trans(vf, &Vs[(c * 16 + (mi & 1) * 8 + mr) * LD + dp * 16 + (mi >> 1) * 8]);
-        dk::mma_bf16_16816(oacc[2 * dp], pa, vf[0], vf[1]);
-        dk::mma_bf16_16816(oacc[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const int row0 = q0 + r0 + g, row1 = row0 + 8;
-  bf16* ob = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(ob + row0 * os.s + col) =
-          dk::pack_bf16(oacc[n][0] / l0, oacc[n][1] / l0);
-    if (row1 < S)
-      *reinterpret_cast<uint32_t*>(ob + row1 * os.s + col) =
-          dk::pack_bf16(oacc[n][2] / l1, oacc[n][3] / l1);
-  }
-}
 
 template <int D>
 struct WideTile {
@@ -383,19 +250,6 @@ __global__ void __launch_bounds__(128)
       *reinterpret_cast<uint32_t*>(ob + row1 * os.s + col) =
           dk::pack_bf16(oacc[n][2] / l1, oacc[n][3] / l1);
   }
-}
-
-template <int D>
-int launch_small(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
-                 Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
-                 cudaStream_t st) {
-  const size_t smem = SmallTile<D>::kBytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_small<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + SmallTile<D>::BQ - 1) / SmallTile<D>::BQ, H, B);
-  flash_fwd_small<D><<<grid, 128, smem, st>>>(q, k, v, o, S, qs, ks, vs, os, scale_log2);
-  return (int)cudaGetLastError();
 }
 
 template <bool kScaleFirst>
@@ -618,9 +472,9 @@ extern "C" int dk_flash_attn_bf16(const void* q, const void* k, const void* v, v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_small<64>(qp, kp, vp, op, B, S, H, qs, ks, vs, os, scale_log2, st);
     case 128:
-      return launch_small<128>(qp, kp, vp, op, B, S, H, qs, ks, vs, os, scale_log2, st);
+      return dk_flash_attn_sm90_bf16(q, k, v, o, B, S, H, D, {qsb, qss, qsh, ksb, kss, ksh, vsb,
+                                     vss, vsh, osb, oss, osh}, scale_log2, false, stream);
     case 512:
       return launch_wide<false>(qp, kp, vp, op, B, S, H, qs, ks, vs, os, scale_log2, st);
     default:
@@ -645,11 +499,9 @@ extern "C" int dk_flash_attn_bhsd_bf16(const void* q, const void* k, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_bhsd_small<64, false>(qp, kp, vp, op, nullptr, nullptr, B, H, S, S, qs, ks,
-                                          vs, os, scale, st);
     case 128:
-      return launch_bhsd_small<128, false>(qp, kp, vp, op, nullptr, nullptr, B, H, S, S, qs, ks,
-                                           vs, os, scale, st);
+      return dk_flash_attn_sm90_bf16(q, k, v, o, B, S, H, D, {qsb, qss, qsh, ksb, kss, ksh, vsb,
+                                     vss, vsh, osb, oss, osh}, scale, true, stream);
     case 512:
       return launch_wide<true>(qp, kp, vp, op, B, S, H, qs, ks, vs, os, scale, st);
     default:

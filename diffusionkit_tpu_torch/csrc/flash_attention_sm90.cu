@@ -1,0 +1,429 @@
+// Non-causal flash attention for Hopper at d = 64 and 128, bf16: kernel B
+// and #15, one template, `flash_fwd_sm90<D, kScaleFirst>`.
+//
+// Replaces the Pallas kernels of diffusionkit_tpu/ops/flash_attention.py at
+// these head dims (the C entry points in flash_attention.cu route here):
+//  * kernel B, flash_attention_bshd (_flash_kernel_bshd), kScaleFirst false:
+//    (B, S, H, D), the row max m kept UNSCALED and the scale folded into the
+//    exponent, p = exp((s - m) * scale);
+//  * #15, flash_attention (_flash_kernel), kScaleFirst true: (B, H, S, D),
+//    the scale first, s = (q.k) * scale, m = max s, p = exp(s - m).
+// Both numerics as flash_attention.cu keeps them: fp32 scores, m and l;
+// key columns past S at the finite -1e30 before the max; P rounded to bf16
+// before P.V; an fp32 accumulator divided by l at the end (one reciprocal a
+// row) and rounded once. Both kernels take the max of the raw q.k (a
+// positive scale commutes with it exactly) and form the exponent with one
+// FMA, q.k * scale log2(e) - m', then ex2.approx: B keeps m unscaled (m' = m
+// scale log2 e), #15 keeps m of the scaled scores (m' = m log2 e). That is
+// an fp32 rounding of the argument away from (s - m) * c, far inside the
+// one-ulp-plus-2^-8 tolerance.
+//
+// Bound on the H100: 4 B H S^2 D operations on the bf16 tensor cores
+// against 8 B S H D bytes of q, k, v and o, e.g. 233 GFLOP (0.235 ms at
+// 989 TFLOP/s) against 0.11 GB (0.032 ms) at FLUX's (1, 4352, 24, 128):
+// compute-bound at every shape the model runs, so the design keeps the
+// tensor cores fed and takes the softmax off their path.
+//
+// Design (one block = 128 query rows of one (batch, head); grid (S/128, H, B)):
+//  * 3 warpgroups, 384 threads. Warpgroup 0 is the producer: setmaxnreg
+//    lowers it to 24 registers and one thread issues every TMA load. The
+//    two consumer warpgroups raise theirs to 240 and each owns 64 query
+//    rows: a 64 x D fp32 output accumulator and a 64 x 128 fp32 score tile
+//    a warpgroup (64 + 64 registers a thread at d = 128).
+//  * TMA: one 4-d tensor map per operand, dims (D, S, H, B) innermost first
+//    with the byte strides the wrapper passes, so bshd, bhsd, a packed
+//    qkv's head slices and transposed views are the same code and are read
+//    in place. 128-byte swizzle; a box is 64 columns (128 bytes) x 128 rows,
+//    so a d = 128 tile is two boxes. The hardware zero-fills rows past S.
+//    Q is loaded once; K and V go through a ring of stages (3 at d = 128:
+//    32 + 3 x 64 KB; 4 at d = 64: 16 + 4 x 32 KB; either way over half the
+//    SM, so one block runs an SM, as setmaxnreg's register split assumes),
+//    with a full barrier for K, one for V and an empty barrier a stage; the
+//    consumers' 8 warps release a stage once its P.V has completed.
+//  * Products: S = Q K^T is wgmma m64n128k16 with both operands in shared
+//    memory, K-major (d contiguous in both). O += P V is wgmma m64nDk16
+//    with A = P from registers: the score fragments of 8-column chunks 2c
+//    and 2c+1, packed to bf16, are the A fragment of k-step c. V is read
+//    MN-major (the transpose bit), never transposed.
+//  * Softmax on the accumulator fragments: a warp owns 16 rows, each quad a
+//    row pair, so the row max and sum are two quad shuffles; the last key
+//    tile masks columns >= S to -1e30 (TMA's zero rows would otherwise
+//    score 0). The epilogue scales by 1/l, rounds once and stores rows < S.
+//  * Keeping the tensor cores busy through the softmax, chosen by head dim
+//    (both measured on the card, the numbers in PERF.md):
+//    - d = 64: each consumer issues tile j's scores and tile j-1's P.V
+//      together and runs tile j's softmax under them (FlashAttention-3's
+//      in-warpgroup overlap); ~5 % faster than the ping-pong below.
+//    - d = 128: that overlap keeps the scores, O and P in flight at once
+//      (160 registers); ptxas spills and serialises the wgmmas (1.6x
+//      slower). So each consumer runs a tile's scores, softmax and P.V in
+//      turn, and the two consumers take turns issuing their products on
+//      named barriers (ping-pong): one's softmax runs under the other's
+//      products (~3 % faster than without the turns).
+
+#include "common.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace dk::sm90;
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kConsumerWarps = 8;
+
+// A block's tiles: BQ = 128 query rows (64 a consumer warpgroup), BK = 128
+// keys a tile, in a ring of kStages: 4 at d = 64 (16 + 4 x 32 KB), 3 at
+// d = 128 (32 + 3 x 64 KB); either way over half the SM, so one block runs
+// an SM, as setmaxnreg's register split assumes. kOverlap: a consumer
+// overlaps its softmax with its own products (d = 64) instead of taking
+// turns with the other consumer (d = 128); see the note above.
+template <int D>
+struct Sm90Tile {
+  static constexpr int BQ = 128, BK = 128, kStages = D == 64 ? 4 : 3;
+  static constexpr bool kOverlap = D == 64;
+  static constexpr int kBoxes = D / 64;            // 64-column (128-byte) boxes a row
+  static constexpr uint32_t kBoxBytes = 128 * 128;  // 128 rows x 128 bytes
+  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;
+  // Q, the K ring, the V ring, then the barriers: q_full, k_full[kStages],
+  // v_full[kStages], empty[kStages].
+  static constexpr uint32_t kBarOffset = (1 + 2 * kStages) * kTileBytes;
+  static constexpr size_t kSmem = kBarOffset + 8 * (1 + 3 * kStages) + 1024;  // + alignment
+  static_assert(kSmem > 232448 / 2 && kSmem <= 232448, "one block an SM");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T of one 128-key tile into sacc, D / 16 k-steps committed as one
+// group; `dq`, `dk` describe the tile's first k-step.
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&sacc)[64], uint64_t dq, uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = ((kk / 4) * Sm90Tile<D>::kBoxBytes + (kk % 4) * 32) >> 4;
+    wgmma_ss_n128(sacc, dq + off, dk + off, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V of one 128-key tile, 8 k-steps (16 keys, 2048 bytes of V each)
+// committed as one group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2], const uint32_t (&pa)[8][4],
+                                         uint64_t dv) {
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc) {
+    if constexpr (D == 64)
+      wgmma_rs_n64(oacc, pa[kc], dv + kc * (2048 >> 4), 1);
+    else
+      wgmma_rs_n128(oacc, pa[kc], dv + kc * (2048 >> 4), 1);
+  }
+  wgmma_commit();
+}
+
+// One consumer warpgroup's online softmax state: rows g and g+8 of each
+// warp's 16, m in the kernel's units (unscaled for B, scaled for #15), l
+// this thread's partial row sum.
+struct RowState {
+  float m0, m1, l0, l1;
+};
+
+// Scores (raw q.k) of key tile j -> p in place, m and l updated; returns
+// the rows' alpha = exp(m_old - m_new) in `al0`, `al1`. `cexp` multiplies a
+// raw score in the exponent (scale log2 e for both kernels), `mscale` takes
+// a raw max to m's units (B: 1; #15: scale) and `malpha` m's units to the
+// exponent's (B: scale log2 e; #15: log2 e).
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[BK / 2], RowState& st, int j, int S,
+                                             int t, float cexp, float mscale, float malpha,
+                                             float& al0, float& al1) {
+  if ((j + 1) * BK > S) {  // the ragged kv edge: TMA's zero rows score 0
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      const int col = j * BK + n * 8 + 2 * t;
+      if (col >= S) sacc[4 * n] = sacc[4 * n + 2] = kNegInf;
+      if (col + 1 >= S) sacc[4 * n + 1] = sacc[4 * n + 3] = kNegInf;
+    }
+  }
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+    mx0 = fmaxf(mx0, fmaxf(sacc[4 * n], sacc[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sacc[4 * n + 2], sacc[4 * n + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // A positive scale commutes with the max: max(s * scale) = max(s) * scale
+  // exactly. Every tile holds a valid key, so the max is a real score:
+  // masked columns and the first tile's alpha underflow to 0.
+  mx0 = fmaxf(st.m0, mx0 * mscale);
+  mx1 = fmaxf(st.m1, mx1 * mscale);
+  al0 = ex2((st.m0 - mx0) * malpha);
+  al1 = ex2((st.m1 - mx1) * malpha);
+  st.m0 = mx0;
+  st.m1 = mx1;
+  const float mc0 = mx0 * malpha, mc1 = mx1 * malpha;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+    sacc[4 * n] = ex2(fmaf(sacc[4 * n], cexp, -mc0));
+    sacc[4 * n + 1] = ex2(fmaf(sacc[4 * n + 1], cexp, -mc0));
+    sacc[4 * n + 2] = ex2(fmaf(sacc[4 * n + 2], cexp, -mc1));
+    sacc[4 * n + 3] = ex2(fmaf(sacc[4 * n + 3], cexp, -mc1));
+    rs0 += sacc[4 * n] + sacc[4 * n + 1];
+    rs1 += sacc[4 * n + 2] + sacc[4 * n + 3];
+  }
+  st.l0 = st.l0 * al0 + rs0;
+  st.l1 = st.l1 * al1 + rs1;
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&oacc)[D / 2], float al0, float al1) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    oacc[4 * n] *= al0;
+    oacc[4 * n + 1] *= al0;
+    oacc[4 * n + 2] *= al1;
+    oacc[4 * n + 3] *= al1;
+  }
+}
+
+// P (rounded to bf16) as the A fragments of the BK / 16 k-steps: the score
+// fragments of 8-column chunks 2c and 2c+1 are the A fragment of k-step c.
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&sacc)[BK / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc) {
+    pa[kc][0] = dk::pack_bf16(sacc[8 * kc], sacc[8 * kc + 1]);
+    pa[kc][1] = dk::pack_bf16(sacc[8 * kc + 2], sacc[8 * kc + 3]);
+    pa[kc][2] = dk::pack_bf16(sacc[8 * kc + 4], sacc[8 * kc + 5]);
+    pa[kc][3] = dk::pack_bf16(sacc[8 * kc + 6], sacc[8 * kc + 7]);
+  }
+}
+
+// kScaleFirst false (kernel B): `sc` is scale * log2(e), m unscaled. True
+// (#15): `sc` is the scale, m of the scaled scores.
+template <int D, bool kScaleFirst>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int S,
+                   long long osb, long long oss, long long osh, float sc) {
+  using T = Sm90Tile<D>;
+  constexpr int BK = T::BK, NS = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle atoms' alignment
+  const uint32_t sQ = base, sK = base + T::kTileBytes, sV = sK + NS * T::kTileBytes;
+  const uint32_t q_full = base + T::kBarOffset;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * NS, empty = v_full + 8 * NS;
+
+  const int q0 = blockIdx.x * T::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int nk = (S + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // The warpgroup index, uniform to the compiler (setmaxnreg needs the roles
+  // in one if/else that never reconverges).
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // Producer warpgroup: one thread keeps the ring full.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, T::kTileBytes);
+      for (int x = 0; x < T::kBoxes; ++x)
+        tma_load_4d(sQ + x * T::kBoxBytes, &tq, q_full, 64 * x, q0, h, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % NS;
+        mbar_wait(empty + 8 * s, ((j / NS) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full + 8 * s, T::kTileBytes);
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_load_4d(sK + s * T::kTileBytes + x * T::kBoxBytes, &tk, k_full + 8 * s, 64 * x,
+                      j * BK, h, b);
+        mbar_arrive_expect_tx(v_full + 8 * s, T::kTileBytes);
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_load_4d(sV + s * T::kTileBytes + x * T::kBoxBytes, &tv, v_full + 8 * s, 64 * x,
+                      j * BK, h, b);
+      }
+    }
+  } else {
+    // Consumer warpgroup c: query rows 64c .. 64c + 63 of the block's 128.
+    setmaxnreg_inc<240>();
+    const int c = wg - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const float cexp = kScaleFirst ? sc * kLog2e : sc;
+    const float mscale = kScaleFirst ? sc : 1.f, malpha = kScaleFirst ? kLog2e : sc;
+
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    RowState st{kNegInf, kNegInf, 0.f, 0.f};
+    float sacc[BK / 2];
+    uint32_t pa[BK / 16][4];
+    float al0, al1;
+    // Descriptors of the consumer's Q rows and of stage 0's K and V; a
+    // stage or a k-step adds its byte offset / 16 to the start address.
+    const uint64_t desc_q = desc_sw128(sQ + c * 64 * 128, 16, 1024);
+    const uint64_t desc_k = desc_sw128(sK, 16, 1024);
+    const uint64_t desc_v = desc_sw128(sV, T::kBoxBytes, 1024);
+    constexpr uint32_t kStage = T::kTileBytes >> 4;
+    auto wait_k = [&](int j) { mbar_wait(k_full + 8 * (j % NS), (j / NS) & 1); };
+    auto wait_v = [&](int j) { mbar_wait(v_full + 8 * (j % NS), (j / NS) & 1); };
+    auto release = [&](int j) {
+      if (lane == 0) mbar_arrive(empty + 8 * (j % NS));
+    };
+    // Ping-pong (d = 128): the two warpgroups take turns issuing their
+    // products (a tile's scores, then its P.V), each waiting on its named
+    // barrier 1 + c
+    // for the other's previous turn, so one's softmax runs under the other's
+    // products instead of beside them. Warpgroup 0 goes first; warpgroup 1's
+    // last turn wakes no one.
+    auto turn_begin = [&] { named_bar_sync(1 + c, 256); };
+    auto turn_end = [&](bool last) {
+      if (c == 0 || !last) named_bar_arrive(2 - c, 256);
+    };
+
+    mbar_wait(q_full, 0);
+    if constexpr (T::kOverlap) {
+      // Tile j's scores and tile j-1's P.V are in flight together, so the
+      // tensor cores run P.V while this warpgroup's softmax of tile j runs.
+      wait_k(0);
+      wgmma_fence();
+      issue_scores<D>(sacc, desc_q, desc_k);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      softmax_tile<BK>(sacc, st, 0, S, t, cexp, mscale, malpha, al0, al1);
+      pack_p<BK>(pa, sacc);
+      for (int j = 1; j < nk; ++j) {
+        wait_k(j);
+        wait_v(j - 1);
+        fence_regs(oacc);
+        wgmma_fence();
+        issue_scores<D>(sacc, desc_q, desc_k + (j % NS) * kStage);
+        issue_pv<D>(oacc, pa, desc_v + ((j - 1) % NS) * kStage);
+        wgmma_wait<1>();  // the scores; P.V may still run
+        fence_regs(sacc);
+        softmax_tile<BK>(sacc, st, j, S, t, cexp, mscale, malpha, al0, al1);
+        wgmma_wait<0>();
+        fence_regs(oacc);
+        release(j - 1);
+        rescale<D>(oacc, al0, al1);
+        pack_p<BK>(pa, sacc);
+      }
+      wait_v(nk - 1);
+      fence_regs(oacc);
+      wgmma_fence();
+      issue_pv<D>(oacc, pa, desc_v + ((nk - 1) % NS) * kStage);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      release(nk - 1);
+    } else {
+      if (c == 1) named_bar_arrive(1, 256);
+      for (int j = 0; j < nk; ++j) {
+        wait_k(j);
+        turn_begin();
+        wgmma_fence();
+        issue_scores<D>(sacc, desc_q, desc_k + (j % NS) * kStage);
+        turn_end(false);
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        softmax_tile<BK>(sacc, st, j, S, t, cexp, mscale, malpha, al0, al1);
+        rescale<D>(oacc, al0, al1);
+        pack_p<BK>(pa, sacc);
+        wait_v(j);
+        fence_regs(oacc);
+        turn_begin();
+        wgmma_fence();
+        issue_pv<D>(oacc, pa, desc_v + (j % NS) * kStage);
+        turn_end(j == nk - 1);
+        wgmma_wait<0>();
+        fence_regs(oacc);
+        release(j);
+      }
+    }
+
+    float l0 = st.l0, l1 = st.l1;
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float r0 = 1.f / l0, r1 = 1.f / l1;
+    const int row0 = q0 + 64 * c + 16 * warp + g, row1 = row0 + 8;
+    bf16* ob = o + b * osb + h * osh;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (row0 < S)
+        *reinterpret_cast<uint32_t*>(ob + row0 * oss + col) =
+            dk::pack_bf16(oacc[4 * n] * r0, oacc[4 * n + 1] * r0);
+      if (row1 < S)
+        *reinterpret_cast<uint32_t*>(ob + row1 * oss + col) =
+            dk::pack_bf16(oacc[4 * n + 2] * r1, oacc[4 * n + 3] * r1);
+    }
+  }
+}
+
+// The tensor map of one (B, S, H, D) operand read through its strides (in
+// elements, batch / sequence / head), a box of 64 columns x 128 rows; a dim
+// of size 1 takes a stride of 16 bytes, which TMA accepts whatever torch
+// reports for it.
+int encode_operand(CUtensorMap* map, const void* p, int B, int S, int H, int D, long long sb,
+                   long long ss, long long sh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {S == 1 ? 16 : 2 * (cuuint64_t)ss,
+                                 H == 1 ? 16 : 2 * (cuuint64_t)sh,
+                                 B == 1 ? 16 : 2 * (cuuint64_t)sb};
+  const cuuint32_t box[4] = {64, 128, 1, 1};
+  return encode_tmap_bf16_4d(map, p, dims, strides, box);
+}
+
+template <int D, bool kScaleFirst>
+int launch_sm90(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                const long long (&st)[12], float sc, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  using T = Sm90Tile<D>;
+  int e = encode_operand(&tq, q, B, S, H, D, st[0], st[1], st[2]);
+  if (e == 0) e = encode_operand(&tk, k, B, S, H, D, st[3], st[4], st[5]);
+  if (e == 0) e = encode_operand(&tv, v, B, S, H, D, st[6], st[7], st[8]);
+  if (e != 0) return e;
+  const size_t smem = T::kSmem;
+  const cudaError_t a = cudaFuncSetAttribute(
+      flash_fwd_sm90<D, kScaleFirst>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (a != cudaSuccess) return (int)a;
+  const dim3 grid((S + T::BQ - 1) / T::BQ, H, B);
+  flash_fwd_sm90<D, kScaleFirst><<<grid, 384, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), S, st[9], st[10], st[11], sc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel B (scale_first false, `sc` = scale * log2(e)) or #15 (true, `sc` =
+// scale) at d = 64 or 128; strides in elements, (batch, sequence, head) for
+// q, k, v and o in turn. Called by flash_attention.cu's entry points.
+int dk_flash_attn_sm90_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
+                            int H, int D, const long long (&strides)[12], float sc,
+                            bool scale_first, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return scale_first ? launch_sm90<64, true>(q, k, v, o, B, S, H, strides, sc, st)
+                       : launch_sm90<64, false>(q, k, v, o, B, S, H, strides, sc, st);
+  if (D == 128)
+    return scale_first ? launch_sm90<128, true>(q, k, v, o, B, S, H, strides, sc, st)
+                       : launch_sm90<128, false>(q, k, v, o, B, S, H, strides, sc, st);
+  return (int)cudaErrorInvalidValue;
+}

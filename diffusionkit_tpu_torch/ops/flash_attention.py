@@ -14,9 +14,13 @@ Replace the Pallas kernels of ``diffusionkit_tpu/ops/flash_attention.py``:
   valid leading keys, returning fp32 o, m and l for the ring attention's
   combiner (``parallel/ring_attention.py``).
 
-bf16 inputs run ``csrc/flash_attention.cu``: compute-bound, tensor-core
-(mma.sync) products with an in-register online softmax, any strides read in
-place; see the note there. fp32 inputs run ``csrc/flash_attention_f32.cu``,
+bf16 inputs are compute-bound and run on the tensor cores with an
+in-register online softmax, any strides read in place. Kernel B and #15 at
+d=64 and 128 run ``csrc/flash_attention_sm90.cu``, one Hopper kernel: TMA
+loads into a ring of shared-memory stages fed by a producer warp, and two
+consumer warpgroups issuing ``wgmma``. #14, and B and #15 at d=512, run
+``csrc/flash_attention.cu`` (``mma.sync`` products). The note in each
+source has the details. fp32 inputs run ``csrc/flash_attention_f32.cu``,
 what the reference computes in fp32 (fp32 scores, softmax and P.V, P not
 rounded): fp32 FMA products, within 2^-16 of the largest |output| of the
 fp32 plain version.

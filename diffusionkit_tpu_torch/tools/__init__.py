@@ -6,7 +6,12 @@ Counterparts of the reference's ``tools/bench_w4a8_mat.py`` and
     python -m diffusionkit_tpu_torch.tools.bench_w4a8_mat [M K N [iters]]
     python -m diffusionkit_tpu_torch.tools.microbench_int8 [M K N [iters]]
 
-Each has ``run(M, K, N, iters, device="cuda")``, which returns its rows,
+and ``bench_flash`` (the flash kernels beside the library's attention, timed
+by ``device_ms``):
+
+    python -m diffusionkit_tpu_torch.tools.bench_flash [B,S,H,D ...]
+
+The first two have ``run(M, K, N, iters, device="cuda")``, which returns its rows,
 and ``main``, which prints them. A row is timed as the reference times it:
 a chain of ``iters`` calls, each fed the previous call's output through
 the tool's ``feed`` (clipped to int8), after one untimed call. On the card
@@ -17,6 +22,7 @@ A row that fails raises.
 
 from __future__ import annotations
 
+import statistics
 import sys
 import time
 from typing import Callable, List, Optional, Tuple
@@ -69,6 +75,33 @@ def row(name: str, step: Callable, x0: torch.Tensor, iters: int, feed: Callable,
     y0, y, ms = chain(step, x0, iters, feed)
     return {"name": name, "ms": ms, "rate": ops / (ms / 1e3) / 1e12, "unit": unit,
             "y0": y0, "y": y}
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph and
+    replayed between two CUDA events, so no host launch cost sits between
+    the launches (a short kernel launched from Python would otherwise be
+    timed at the host's pace). Median of 5 replays, divided by ``reps``.
+    Inputs stay resident in L2 where they fit, as right after their
+    producer in the model."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 def device_label(device: torch.device) -> str:

@@ -55,10 +55,14 @@ torch.set_num_threads(1)
 # the image (1024 tokens) and text (154 tokens) streams, the joint attention
 # (1024 + 154 tokens, 24 heads of 64) and the VAE mid-block (64x64 positions,
 # one head of 512); FLUX.1 at 1024²: the joint attention (256 + 4096 tokens,
-# 24 heads of 128). Plus small ragged shapes.
+# 24 heads of 128). Plus small ragged shapes, and at d=64 and 128 the Hopper
+# kernel's tile edges: S one past and one short of its 128-row / 128-key
+# tiles, and S = 16, below one box.
 MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536), (1, 37, 256)]
+TILE_EDGES = (128, 129, 255, 1153, 16)
 FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512), (1, 77, 3, 64), (2, 300, 1, 512),
-                (1, 4352, 24, 128), (1, 77, 3, 128)]
+                (1, 4352, 24, 128), (1, 77, 3, 128)] + [
+                    (1, s, 2, d) for d in (64, 128) for s in TILE_EDGES]
 # (M, K, N, group) of kernel C: FLUX's unified-block q and fc2, an `ada`
 # GEMV, the text stream at group 32, and ragged M at two tile heights.
 INT4_SHAPES = [(4352, 3072, 3072, 64), (4352, 12288, 3072, 64), (1, 3072, 18432, 64),
@@ -172,15 +176,27 @@ def test_flash_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.gpu
-def test_flash_kernel_reads_strided_heads_in_place(cuda):
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["bshd", "bhsd", "repeat"])
+def test_flash_kernel_reads_strided_heads_in_place(cuda, case, d):
     """q/k/v as head slices of one packed (B, S, 3H, D) projection, as a
-    fused qkv would give them: the kernel reads the strides directly."""
+    fused qkv would give them: kernel B reads the strides directly and #15
+    the slices' transposed (B, H, S, D) views, each bit-identical to its
+    call on contiguous copies; and ("repeat") two calls of each kernel on
+    the same inputs are bit-identical."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    qkv = torch.randn(2, 333, 3 * 4, 64, generator=g, device=cuda).bfloat16()
+    qkv = torch.randn(2, 333, 3 * 4, d, generator=g, device=cuda).bfloat16()
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
     assert not q.is_contiguous()
-    got = flash_attention_bshd(q, k, v, 0.125)
-    want = flash_attention_bshd(q.contiguous(), k.contiguous(), v.contiguous(), 0.125)
+    views = {"bshd": (flash_attention_bshd, (q, k, v)),
+             "bhsd": (flash_attention, tuple(t.transpose(1, 2) for t in (q, k, v)))}
+    if case == "repeat":
+        for fn, args in views.values():
+            assert torch.equal(fn(*args, 0.125), fn(*args, 0.125))
+        return
+    fn, args = views[case]
+    got = fn(*args, 0.125)
+    want = fn(*(t.contiguous() for t in args), 0.125)
     assert torch.equal(got, want)
 
 
@@ -237,7 +253,8 @@ def test_sdpa_auto_takes_the_kernel_on_the_card(cuda):
 # (B, H, S, D) shapes of #15: SD3-medium 512² CFG, the VAE mid-block at 512²,
 # FLUX.1-schnell at 1024², and small ragged ones.
 BHSD_SHAPES = [(2, 24, 1178, 64), (1, 1, 4096, 512), (1, 24, 4352, 128), (1, 3, 77, 64),
-               (2, 1, 300, 512), (1, 3, 77, 128)]
+               (2, 1, 300, 512), (1, 3, 77, 128)] + [
+                   (1, 2, s, d) for d in (64, 128) for s in TILE_EDGES]
 # (B, H, Sq, Skv, D) of #14: FLUX 2048² at one rank and one of four, SD3's
 # padded 1178 tokens at four ranks, and small ragged chunks with Sq != Skv.
 STATS_SHAPES = [(1, 24, 4160, 4160, 128), (2, 24, 295, 295, 64), (1, 3, 77, 130, 64),

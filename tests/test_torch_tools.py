@@ -180,6 +180,26 @@ def test_microbench_int8_runs_on_the_cpu():
     assert microbench_int8.launches(16) == {"int8_dot": 17}
 
 
+def test_bench_flash_runs_on_the_cpu():
+    """bench_flash at a tiny ragged shape on the CPU: one row per kernel and
+    the library's attention, no time taken, the plain versions of kernel B
+    (its output transposed), #15, #14 and the library's attention agreeing
+    within bf16 rounding; no kernel launches on the CPU."""
+    from diffusionkit_tpu_torch.ops import flash_attention as fa
+    from diffusionkit_tpu_torch.tools import bench_flash
+
+    wrappers = (fa.flash_attention_bshd, fa.flash_attention, fa.flash_attention_stats)
+    launches = [fn.launches for fn in wrappers]
+    rows = bench_flash.run([(1, 40, 2, 64)], device="cpu")
+    assert [r["name"] for r in rows] == list(bench_flash.NAMES)
+    assert all(r["ms"] is None and r["tflops"] is None for r in rows)
+    out = {r["name"]: r["out"].float() for r in rows}
+    want = out["flash_attention_bshd"].transpose(1, 2)
+    assert want.shape == (1, 2, 40, 64)
+    for name in ("flash_attention", "flash_attention_stats", "sdpa"):
+        assert torch.allclose(out[name], want, atol=2e-2, rtol=0), name
+    assert [fn.launches for fn in wrappers] == launches
+
 def test_tool_arguments_default_to_the_references():
     from diffusionkit_tpu_torch.tools import parse_args, widen
 
