@@ -215,23 +215,47 @@ KERNELS = {
        for mode in MODES},
     "gelu_quantize": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
                       "diffusionkit_tpu/ops/fused_quant.py:229"),
-    "w8_matmul": ("diffusionkit_tpu_torch/csrc/w8_matmul.cu",
+    "w8_matmul": ("diffusionkit_tpu_torch/csrc/w8_matmul_sm90.cu",
                   "diffusionkit_tpu/ops/w4a8_matmul.py:530"),
     "int8_matmul": ("diffusionkit_tpu_torch/csrc/int4_matmul.cu",
                     "diffusionkit_tpu/ops/int4_matmul.py:244"),
-    "flash_attention_stats": ("diffusionkit_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_stats": ("diffusionkit_tpu_torch/csrc/flash_attention_sm90.cu",
                               "diffusionkit_tpu/ops/flash_attention.py:432"),
     "flash_attention": ("diffusionkit_tpu_torch/csrc/flash_attention_sm90.cu",
                         "diffusionkit_tpu/ops/flash_attention.py:513"),
     "dequant_w8": ("diffusionkit_tpu_torch/csrc/w8_matmul.cu",
                    "diffusionkit_tpu/ops/w4a8_matmul.py:453"),
-    "int8_dot": ("diffusionkit_tpu_torch/csrc/w8_matmul.cu", "tools/microbench_pallas_int8.py:42"),
+    "int8_dot": ("diffusionkit_tpu_torch/csrc/w8_matmul_sm90.cu",
+                 "tools/microbench_pallas_int8.py:42"),
 }
-# The fp32 instantiations of the flash kernels live in their own source, and
-# kernel B and #15 at d = 512 in #14's.
+# The kernel (template) that runs each function's main-path shapes in bf16;
+# the fp32 flash instantiations and the other tiles are in the sources the
+# summary names beside it.
+SYMBOLS = {
+    "mod_ln": "mod_ln_kernel", "flash_attention_bshd": "flash_fwd_sm90<D, false>",
+    "int4_matmul": "int4_mm", "mod_ln_quantize": "mod_ln_quant_kernel",
+    "quantize": "quantize_kernel",
+    **{f"w4a8_matmul[{mode}]": "w4a8_mm" for mode in MODES},
+    "gelu_quantize": "gelu_quantize_kernel", "w8_matmul": "w8_mm_sm90<bf16|float, BN>",
+    "int8_matmul": "int8_mm", "flash_attention_stats": "flash_fwd_sm90_stats<128>",
+    "flash_attention": "flash_fwd_sm90<D, true>", "dequant_w8": "dequant_w8_kernel",
+    "int8_dot": "w8_mm_sm90<int, BN>",
+}
+# The sources of each function's other kernels: the fp32 flash
+# instantiations; kernel B and #15 at d = 512 and #14 at d = 64
+# (flash_fwd_wide<512, .>, flash_fwd_bhsd_small<64, true>); #11 and #16 at
+# M <= 16 and at K % 128 != 0 (w8_mm, the mma.sync main loop).
 FP32_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_f32.cu"
 WIDE_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention.cu"
+W8_SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/w8_matmul.cu"
 FLASH_KERNELS = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
+OTHER_SOURCES = {
+    "flash_attention_bshd": {"fp32_source": FP32_SOURCE, "d512_source": WIDE_SOURCE},
+    "flash_attention": {"fp32_source": FP32_SOURCE, "d512_source": WIDE_SOURCE},
+    "flash_attention_stats": {"fp32_source": FP32_SOURCE, "d64_source": WIDE_SOURCE},
+    "w8_matmul": {"small_m_source": W8_SMALL_SOURCE},
+    "int8_dot": {"small_m_source": W8_SMALL_SOURCE},
+}
 COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "int4_matmul": int4_matmul, "mod_ln_quantize": mod_ln_quantize,
            "quantize": quantize, "gelu_quantize": gelu_quantize, "w8_matmul": w8_matmul,
@@ -870,9 +894,10 @@ def w8a8_kernels(gen, tag: str):
             w8t = w8.t()
             int_mm = device_ms(lambda: torch._int_mm(x8, w8t)) if m > 16 else None
             t = timing("w8_matmul", shape, ms, plain, int32_product_only_ms=int_mm)
+            ratio = f" (kernel at {ms / int_mm!r}x its time)" if int_mm else ""
             log(f"  w8_matmul (M, K, N) {shape}: kernel {ms!r} ms "
                 f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TOP/s, {n * k / ms / 1e9!r} TB/s of w8), "
-                f"plain {plain!r} ms, torch._int_mm's int32 product alone {int_mm!r} ms, "
+                f"plain {plain!r} ms, torch._int_mm's int32 product alone {int_mm!r} ms{ratio}, "
                 f"{bound_note(t)} [{tag}]")
             times["w8_matmul"].append(t)
         del args, x8, w8, got, want
@@ -1032,10 +1057,12 @@ def bhsd_kernels(gen, tag: str):
             t = timing("flash_attention_stats", (b, h, sq, skv, d, vlen), ms, plain,
                        library_ms=None, **extra)
             rate = 4 * b * h * sq * vlen * d / (ms / 1e3) / 1e12
+            sdpa = extra.get("sdpa_yardstick_ms")
+            ratio = f", kernel at {ms / sdpa!r}x its time" if sdpa else ""
             log(f"  flash_attention_stats {label}: kernel {ms!r} ms ({rate!r} TFLOP/s), plain "
                 f"{plain!r} ms{' (head by head)' if big else ''}, no single PyTorch call "
                 f"(attention-work yardstick, F.scaled_dot_product_attention on the same q/k/v: "
-                f"{extra.get('sdpa_yardstick_ms')!r} ms), {bound_note(t)} [{tag}]")
+                f"{sdpa!r} ms{ratio}), {bound_note(t)} [{tag}]")
             times["flash_attention_stats"].append(t)
             torch.cuda.empty_cache()
         del q, k, v
@@ -1249,10 +1276,11 @@ def w8_tool_kernels(gen, tag: str):
             w8t = w8.t()
             lib = device_ms(lambda: torch._int_mm(x8, w8t)) if m > 16 else None
             t = timing("int8_dot", shape, ms, plain, library_ms=lib)
+            lib_note = (f" ({2 * m * k * n / (lib / 1e3) / 1e12!r} TOP/s; kernel at "
+                        f"{ms / lib!r}x its time)" if lib else " (it takes M > 16 only)")
             log(f"  int8_dot (M, K, N) {shape}: kernel {ms!r} ms "
                 f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TOP/s), plain (float64) {plain!r} ms, "
-                f"torch._int_mm {lib!r} ms{'' if lib else ' (it takes M > 16 only)'}, "
-                f"{bound_note(t)} [{tag}]")
+                f"torch._int_mm {lib!r} ms{lib_note}, {bound_note(t)} [{tag}]")
             times["int8_dot"].append(t)
         del x8, w8
         torch.cuda.empty_cache()
@@ -1782,15 +1810,16 @@ def build_flux_ring(gen, prev: FluxPipeline) -> FluxPipeline:
 
 
 # The flash kernels as the profiler names them, demangled or not: #14 is
-# flash_fwd_bhsd_small<D, true>, #15 flash_fwd_sm90<D, true> and
+# flash_fwd_sm90_stats<128> and flash_fwd_bhsd_small<64, true>, #15
+# flash_fwd_sm90<D, true> and
 # flash_fwd_wide<512, true>, kernel B flash_fwd_sm90<D, false> and
 # flash_fwd_wide<512, false>.
-STATS_KERNEL = re.compile(r"flash_fwd_bhsd_small(?:<\d+, true>|ILi\d+ELb1E)")
 SCALE_FIRST = re.compile(r"flash_fwd_(?:wide|sm90)(?:<\d+, true>|ILi\d+ELb1E)")
 # The fp32 instantiations, flash_fwd_f32<D, mode>: 0 kernel B, 1 #15, 2 #14;
-# #16 is w8_mm<int, ...>.
+# #16 is w8_mm_sm90<int, BN> (M > 16) or w8_mm<int, ...>, #11 the same
+# templates with a bf16 or float output.
 FP32_MODE = re.compile(r"flash_fwd_f32(?:<\d+, (\d)>|ILi\d+ELi(\d)E)")
-INT8_DOT_KERNEL = re.compile(r"w8_mm(?:<int,|IiLi)")
+INT8_DOT_KERNEL = re.compile(r"w8_mm(?:_sm90)?(?:<int,|IiLi)")
 
 
 def family(name: str) -> str:
@@ -1802,8 +1831,8 @@ def family(name: str) -> str:
         return "dequant_w8"
     if INT8_DOT_KERNEL.search(name):
         return "int8_dot"
-    if "flash_fwd_bhsd" in name:
-        return "flash_attention_stats" if STATS_KERNEL.search(name) else "flash_attention"
+    if "flash_fwd_sm90_stats" in name or "flash_fwd_bhsd_small" in name:
+        return "flash_attention_stats"
     if SCALE_FIRST.search(name):
         return "flash_attention"
     if "flash_fwd" in name:
@@ -2000,9 +2029,9 @@ def main() -> None:
         first = times[name][0]  # the main path's first shape
         main_path = MAIN_PATH.get(name, FLUX_W4A8.name)
         summary.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            **({"fp32_source": FP32_SOURCE} if name in FLASH_KERNELS else {}),
-            **({"d512_source": WIDE_SOURCE} if name in FLASH_KERNELS[:2] else {}),
+            "name": name, "route": "cuda", "source": source, "symbol": SYMBOLS[name],
+            "replaces": replaces,
+            **OTHER_SOURCES.get(name, {}),
             "launches": launches[main_path][name], "launches_path": main_path,
             "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": max(errs[name]),

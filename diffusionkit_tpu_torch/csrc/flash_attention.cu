@@ -1,7 +1,7 @@
 // Non-causal flash attention over bf16 q/k/v read in place through strides:
-// #14 at d = 64 and 128, kernel B and #15 at d = 512, and the C entry points
-// of all three (kernel B and #15 at d = 64 and 128 run the Hopper kernel of
-// flash_attention_sm90.cu, which has its own note).
+// #14 at d = 64, kernel B and #15 at d = 512, and the C entry points of all
+// three (kernel B and #15 at d = 64 and 128, and #14 at d = 128, run the
+// Hopper kernels of flash_attention_sm90.cu, which has its own note).
 //
 // Replaces the Pallas kernels of diffusionkit_tpu/ops/flash_attention.py:
 //  * kernel B, flash_attention_bshd (_flash_kernel_bshd): (B, S, H, D),
@@ -21,37 +21,36 @@
 // -1e30, P rounded to bf16 before P.V, an fp32 accumulator divided by l at
 // the end and rounded once (#14: by max(l, 1e-30), not rounded).
 //
-// Bound on the H100: at FLUX.1-schnell 2048^2 through the ring on one rank
-// (#14, 24 heads x 16640 tokens, d=128, vlen = Skv) 4 B H Sq Skv D = 3.4
-// TFLOP of tensor-core work against ~0.5 GB (bf16 q/k/v 0.31 GB, the fp32 o
-// 0.20 GB); at the VAE mid-block (d = 512, one head of 4096 positions at
-// 512^2) 34 GFLOP against 17 MB. Both compute-bound: products on the tensor
-// cores, the score matrix never in device memory. Design: the layout is read
-// in place through strides (one head per blockIdx.y, no transposes, no
-// padded copies); q/k/v tiles are staged in shared memory with rows padded
-// by 8 elements so every fragment load is bank-conflict free; products are
-// mma.sync m16n8k16 (bf16 in, fp32 out); the online softmax runs on the
-// accumulator fragments in registers, and the ragged kv edge is masked
-// in-kernel. The TPU kernels' two-heads-per-lane-tile packing, sequence
-// padding, (..., 128) lane-broadcast m/l and v5e-specific tile
-// specialisations are not carried over. #14 is the next to move to
-// flash_attention_sm90.cu's design (TMA-fed wgmma, sm90.cuh); d = 512 needs
-// one of its own (a 64 x 512 fp32 wgmma accumulator does not fit a
-// warpgroup's registers).
+// Bound on the H100: at SD3 512² CFG's four-rank ring chunk (#14, 2 x 24
+// heads x 295 tokens, d = 64) 0.33 GFLOP against ~5 MB, 0.0027 ms either
+// way at 989 TFLOP/s and 3.35 TB/s; at the VAE mid-block (d = 512, one
+// head of 4096 positions at 512²) 34 GFLOP against 17 MB, compute-bound.
+// Products on the tensor cores, the score matrix never in device memory.
+// Design: the layout is read in place through strides (one head per
+// blockIdx.y, no transposes, no padded copies); q/k/v tiles are staged in
+// shared memory with rows padded by 8 elements so every fragment load is
+// bank-conflict free; products are mma.sync m16n8k16 (bf16 in, fp32 out);
+// the online softmax runs on the accumulator fragments in registers, and
+// the ragged kv edge is masked in-kernel. The TPU kernels' two-heads-per-
+// lane-tile packing, sequence padding, (..., 128) lane-broadcast m/l and
+// v5e-specific tile specialisations are not carried over. #14 at d = 64
+// stays here because its chunks are small: 64-row blocks fill the card
+// where the Hopper kernel's 128-row blocks leave a second wave (the times
+// are in flash_attention_sm90.cu's note). d = 512 needs a design of its own
+// (a 64 x 512 fp32 wgmma accumulator does not fit a warpgroup's
+// registers).
 //
 // Two tilings:
-//  * #14 at d = 64 and d = 128 (`flash_fwd_bhsd_small<D, true>`): 4 warps x
-//    16 query rows; each warp keeps its q fragments, scores and output
-//    accumulator (16 x d fp32) in registers, FlashAttention-2 style. The
-//    q/k/v tiles live in dynamic shared memory: 52 KB at d = 128, over the
-//    48 KB static limit. At d = 128 a thread holds 32 q-fragment and 64
-//    accumulator registers besides the 32 scores; the ptxas report in
-//    _build/ shows the registers (168 or fewer keep 3 blocks an SM) and
-//    spills. #14 skips the key tiles at or past vlen: they would change
-//    nothing (their p are 0 and their alpha 1), so a fully masked chunk
-//    (vlen = 0) runs no tile and writes o = 0, l = 0 and m = -1e30 exactly.
-//    (The template's kStats = false branch, #15's until the Hopper kernel,
-//    is no longer instantiated.)
+//  * #14 at d = 64 (`flash_fwd_bhsd_small<64, true>`): 4 warps x 16 query
+//    rows; each warp keeps its q fragments, scores and output accumulator
+//    (16 x d fp32) in registers, FlashAttention-2 style. The q/k/v tiles
+//    live in dynamic shared memory (27 KB). ptxas: 128 registers (4 blocks
+//    an SM) and an 8-byte spill (the report is in _build/).
+//    #14 skips the key tiles at or past vlen: they would change nothing
+//    (their p are 0 and their alpha 1), so a fully masked chunk (vlen = 0)
+//    runs no tile and writes o = 0, l = 0 and m = -1e30 exactly. (The
+//    template's kStats = false branch, #15's until the Hopper kernel, is
+//    not instantiated.)
 //  * d = 512 (`flash_fwd_wide<512, kScaleFirst>`: the VAE mid-block's
 //    single head, kernel B and #15): a 16 x 512 fp32 accumulator per warp
 //    would need 256 registers a thread, so the block shares one 16-row query
@@ -68,6 +67,11 @@
 int dk_flash_attn_sm90_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
                             int H, int D, const long long (&strides)[12], float sc,
                             bool scale_first, void* stream);
+// #14 at d = 128: csrc/flash_attention_sm90.cu.
+int dk_flash_attn_stats_sm90_bf16(const void* q, const void* k, const void* v, float* o,
+                                  float* m, float* l, int B, int H, int Sq, int Skv, int D,
+                                  int vlen, const long long (&strides)[12], float scale,
+                                  void* stream);
 
 namespace {
 
@@ -521,22 +525,17 @@ extern "C" int dk_flash_attn_stats_bf16(const void* q, const void* k, const void
                                         float scale, void* stream) {
   if (bad_dims(B, H, scale) || Sq <= 0 || Skv <= 0 || vlen < 0 || vlen > Skv)
     return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return dk_flash_attn_stats_sm90_bf16(q, k, v, static_cast<float*>(o),
+                                         static_cast<float*>(m), static_cast<float*>(l), B, H, Sq,
+                                         Skv, D, vlen,
+                                         {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss,
+                                          osh},
+                                         scale, stream);
+  if (D != 64) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  float* op = static_cast<float*>(o);
-  float* mp = static_cast<float*>(m);
-  float* lp = static_cast<float*>(l);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch_bhsd_small<64, true>(qp, kp, vp, op, mp, lp, B, H, Sq, vlen, qs, ks, vs, os,
-                                         scale, st);
-    case 128:
-      return launch_bhsd_small<128, true>(qp, kp, vp, op, mp, lp, B, H, Sq, vlen, qs, ks, vs, os,
-                                          scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_bhsd_small<64, true>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l), B, H, Sq, vlen, qs,
+      ks, vs, os, scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,7 @@
-// Non-causal flash attention for Hopper at d = 64 and 128, bf16: kernel B
-// and #15, one template, `flash_fwd_sm90<D, kScaleFirst>`.
+// Non-causal flash attention for Hopper, bf16: kernel B and #15 at d = 64
+// and 128 (`flash_fwd_sm90<D, kScaleFirst>`) and #14 at d = 128
+// (`flash_fwd_sm90_stats<128>`), one block body in compile-time modes
+// (`flash_sm90_block`), so each kernel is its own function.
 //
 // Replaces the Pallas kernels of diffusionkit_tpu/ops/flash_attention.py at
 // these head dims (the C entry points in flash_attention.cu route here):
@@ -7,24 +9,40 @@
 //    (B, S, H, D), the row max m kept UNSCALED and the scale folded into the
 //    exponent, p = exp((s - m) * scale);
 //  * #15, flash_attention (_flash_kernel), kScaleFirst true: (B, H, S, D),
-//    the scale first, s = (q.k) * scale, m = max s, p = exp(s - m).
-// Both numerics as flash_attention.cu keeps them: fp32 scores, m and l;
-// key columns past S at the finite -1e30 before the max; P rounded to bf16
-// before P.V; an fp32 accumulator divided by l at the end (one reciprocal a
-// row) and rounded once. Both kernels take the max of the raw q.k (a
-// positive scale commutes with it exactly) and form the exponent with one
-// FMA, q.k * scale log2(e) - m', then ex2.approx: B keeps m unscaled (m' = m
-// scale log2 e), #15 keeps m of the scaled scores (m' = m log2 e). That is
-// an fp32 rounding of the argument away from (s - m) * c, far inside the
-// one-ulp-plus-2^-8 tolerance.
+//    the scale first, s = (q.k) * scale, m = max s, p = exp(s - m);
+//  * #14, flash_attention_stats (_flash_kernel with emit_stats): #15's
+//    numerics for q (B, H, Sq, D) against a key chunk (B, H, Skv, D) whose
+//    first vlen keys are valid (the k and v tensor maps hold vlen rows, so
+//    TMA zero-fills the last tile past them and its columns >= vlen are
+//    masked); o in fp32 divided by max(l, 1e-30), m (of the scaled scores)
+//    and l in fp32 for the ring's merge; with no valid key nothing is
+//    loaded and the block writes o = 0, l = 0, m = -1e30 exactly.
+// All three numerics as flash_attention.cu keeps them: fp32 scores, m and
+// l; key columns past S (vlen) at the finite -1e30 before the max; P
+// rounded to bf16 before P.V; an fp32 accumulator divided by l at the end
+// (one reciprocal a row) and rounded once (#14: not rounded). The kernels
+// take the max of the raw q.k (a positive scale commutes with it exactly)
+// and form the exponent with one FMA, q.k * scale log2(e) - m', then
+// ex2.approx: B keeps m unscaled (m' = m scale log2 e), #15 and #14 keep m
+// of the scaled scores (m' = m log2 e). That is an fp32 rounding of the
+// argument away from (s - m) * c, far inside the one-ulp-plus-2^-8
+// tolerance (and #14's l within 1e-4).
 //
-// Bound on the H100: 4 B H S^2 D operations on the bf16 tensor cores
-// against 8 B S H D bytes of q, k, v and o, e.g. 233 GFLOP (0.235 ms at
-// 989 TFLOP/s) against 0.11 GB (0.032 ms) at FLUX's (1, 4352, 24, 128):
-// compute-bound at every shape the model runs, so the design keeps the
-// tensor cores fed and takes the softmax off their path.
+// Bound on the H100: 4 B H Sq Skv D operations on the bf16 tensor cores
+// against the bytes of q, k, v and o, e.g. 233 GFLOP (0.235 ms at 989
+// TFLOP/s) against 0.11 GB (0.032 ms) at FLUX's (1, 4352, 24, 128), and
+// for #14 at FLUX 2048²'s one-rank ring call (1, 24, 16640, 16640, 128)
+// 3.40 TFLOP (3.44 ms) against 0.51 GB (0.31 GB of bf16 q/k/v, 0.20 GB of
+// fp32 o): compute-bound at every shape the models run, so the design
+// keeps the tensor cores fed and takes the softmax off their path.
+// #14 at d = 64 (only a multi-rank SD3 ring's chunk runs it) stays on
+// flash_attention.cu's flash_fwd_bhsd_small<64, true>: at SD3's four-rank
+// chunk (2, 24, 295, 295, 64) this design's 128-row blocks leave a 12-block
+// second wave (144 blocks on 132 SMs) and ran 0.0153 / 0.0152 ms against
+// that kernel's 0.0141 / 0.0128 (tools/bench_flash on an NVIDIA H100 80GB
+// HBM3 at 700 W, the two timed in turns in one run).
 //
-// Design (one block = 128 query rows of one (batch, head); grid (S/128, H, B)):
+// Design (one block = 128 query rows of one (batch, head); grid (Sq/128, H, B)):
 //  * 3 warpgroups, 384 threads. Warpgroup 0 is the producer: setmaxnreg
 //    lowers it to 24 registers and one thread issues every TMA load. The
 //    two consumer warpgroups raise theirs to 240 and each owns 64 query
@@ -48,7 +66,8 @@
 //  * Softmax on the accumulator fragments: a warp owns 16 rows, each quad a
 //    row pair, so the row max and sum are two quad shuffles; the last key
 //    tile masks columns >= S to -1e30 (TMA's zero rows would otherwise
-//    score 0). The epilogue scales by 1/l, rounds once and stores rows < S.
+//    score 0). The epilogue scales by 1/l, rounds once and stores rows < S
+//    (#14: float2 stores of o, then each quad's m and l).
 //  * Keeping the tensor cores busy through the softmax, chosen by head dim
 //    (both measured on the card, the numbers in PERF.md):
 //    - d = 64: each consumer issues tile j's scores and tile j-1's P.V
@@ -60,6 +79,8 @@
 //      turn, and the two consumers take turns issuing their products on
 //      named barriers (ping-pong): one's softmax runs under the other's
 //      products (~3 % faster than without the turns).
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -208,13 +229,19 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (
   }
 }
 
+// The block's work, shared by the kernels below (compile-time modes, so
+// each instantiation is its own function): q rows [0, Sq) of one (batch,
+// head) against keys [0, Skv), the k and v maps holding Skv rows.
 // kScaleFirst false (kernel B): `sc` is scale * log2(e), m unscaled. True
-// (#15): `sc` is the scale, m of the scaled scores.
-template <int D, bool kScaleFirst>
-__global__ void __launch_bounds__(384, 1)
-    flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int S,
-                   long long osb, long long oss, long long osh, float sc) {
+// (#15, #14): `sc` is the scale, m of the scaled scores. kStats (#14): o in
+// fp32 divided by max(l, 1e-30), m and l written at (b H + h) Sq + row, and
+// Skv may be 0 (no valid key: no load, o = 0, l = 0, m = -1e30).
+template <int D, bool kScaleFirst, bool kStats>
+__device__ __forceinline__ void flash_sm90_block(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    typename std::conditional<kStats, float, bf16>::type* __restrict__ o,
+    float* __restrict__ m_out, float* __restrict__ l_out, int Sq, int Skv, long long osb,
+    long long oss, long long osh, float sc) {
   using T = Sm90Tile<D>;
   constexpr int BK = T::BK, NS = T::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -224,7 +251,9 @@ __global__ void __launch_bounds__(384, 1)
   const uint32_t k_full = q_full + 8, v_full = k_full + 8 * NS, empty = v_full + 8 * NS;
 
   const int q0 = blockIdx.x * T::BQ, h = blockIdx.y, b = blockIdx.z;
-  const int nk = (S + BK - 1) / BK;
+  const int nk = (Skv + BK - 1) / BK;
+  // Kernel B and #15 always have a key; #14 skips every load without one.
+  const bool any_key = !kStats || nk > 0;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < NS; ++s) {
@@ -242,7 +271,7 @@ __global__ void __launch_bounds__(384, 1)
   if (wg == 0) {
     // Producer warpgroup: one thread keeps the ring full.
     setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
+    if (threadIdx.x == 0 && any_key) {
       mbar_arrive_expect_tx(q_full, T::kTileBytes);
       for (int x = 0; x < T::kBoxes; ++x)
         tma_load_4d(sQ + x * T::kBoxBytes, &tq, q_full, 64 * x, q0, h, b);
@@ -297,62 +326,64 @@ __global__ void __launch_bounds__(384, 1)
       if (c == 0 || !last) named_bar_arrive(2 - c, 256);
     };
 
-    mbar_wait(q_full, 0);
-    if constexpr (T::kOverlap) {
-      // Tile j's scores and tile j-1's P.V are in flight together, so the
-      // tensor cores run P.V while this warpgroup's softmax of tile j runs.
-      wait_k(0);
-      wgmma_fence();
-      issue_scores<D>(sacc, desc_q, desc_k);
-      wgmma_wait<0>();
-      fence_regs(sacc);
-      softmax_tile<BK>(sacc, st, 0, S, t, cexp, mscale, malpha, al0, al1);
-      pack_p<BK>(pa, sacc);
-      for (int j = 1; j < nk; ++j) {
-        wait_k(j);
-        wait_v(j - 1);
-        fence_regs(oacc);
+    if (any_key) {
+      mbar_wait(q_full, 0);
+      if constexpr (T::kOverlap) {
+        // Tile j's scores and tile j-1's P.V are in flight together, so the
+        // tensor cores run P.V while this warpgroup's softmax of tile j runs.
+        wait_k(0);
         wgmma_fence();
-        issue_scores<D>(sacc, desc_q, desc_k + (j % NS) * kStage);
-        issue_pv<D>(oacc, pa, desc_v + ((j - 1) % NS) * kStage);
-        wgmma_wait<1>();  // the scores; P.V may still run
-        fence_regs(sacc);
-        softmax_tile<BK>(sacc, st, j, S, t, cexp, mscale, malpha, al0, al1);
-        wgmma_wait<0>();
-        fence_regs(oacc);
-        release(j - 1);
-        rescale<D>(oacc, al0, al1);
-        pack_p<BK>(pa, sacc);
-      }
-      wait_v(nk - 1);
-      fence_regs(oacc);
-      wgmma_fence();
-      issue_pv<D>(oacc, pa, desc_v + ((nk - 1) % NS) * kStage);
-      wgmma_wait<0>();
-      fence_regs(oacc);
-      release(nk - 1);
-    } else {
-      if (c == 1) named_bar_arrive(1, 256);
-      for (int j = 0; j < nk; ++j) {
-        wait_k(j);
-        turn_begin();
-        wgmma_fence();
-        issue_scores<D>(sacc, desc_q, desc_k + (j % NS) * kStage);
-        turn_end(false);
+        issue_scores<D>(sacc, desc_q, desc_k);
         wgmma_wait<0>();
         fence_regs(sacc);
-        softmax_tile<BK>(sacc, st, j, S, t, cexp, mscale, malpha, al0, al1);
-        rescale<D>(oacc, al0, al1);
+        softmax_tile<BK>(sacc, st, 0, Skv, t, cexp, mscale, malpha, al0, al1);
         pack_p<BK>(pa, sacc);
-        wait_v(j);
+        for (int j = 1; j < nk; ++j) {
+          wait_k(j);
+          wait_v(j - 1);
+          fence_regs(oacc);
+          wgmma_fence();
+          issue_scores<D>(sacc, desc_q, desc_k + (j % NS) * kStage);
+          issue_pv<D>(oacc, pa, desc_v + ((j - 1) % NS) * kStage);
+          wgmma_wait<1>();  // the scores; P.V may still run
+          fence_regs(sacc);
+          softmax_tile<BK>(sacc, st, j, Skv, t, cexp, mscale, malpha, al0, al1);
+          wgmma_wait<0>();
+          fence_regs(oacc);
+          release(j - 1);
+          rescale<D>(oacc, al0, al1);
+          pack_p<BK>(pa, sacc);
+        }
+        wait_v(nk - 1);
         fence_regs(oacc);
-        turn_begin();
         wgmma_fence();
-        issue_pv<D>(oacc, pa, desc_v + (j % NS) * kStage);
-        turn_end(j == nk - 1);
+        issue_pv<D>(oacc, pa, desc_v + ((nk - 1) % NS) * kStage);
         wgmma_wait<0>();
         fence_regs(oacc);
-        release(j);
+        release(nk - 1);
+      } else {
+        if (c == 1) named_bar_arrive(1, 256);
+        for (int j = 0; j < nk; ++j) {
+          wait_k(j);
+          turn_begin();
+          wgmma_fence();
+          issue_scores<D>(sacc, desc_q, desc_k + (j % NS) * kStage);
+          turn_end(false);
+          wgmma_wait<0>();
+          fence_regs(sacc);
+          softmax_tile<BK>(sacc, st, j, Skv, t, cexp, mscale, malpha, al0, al1);
+          rescale<D>(oacc, al0, al1);
+          pack_p<BK>(pa, sacc);
+          wait_v(j);
+          fence_regs(oacc);
+          turn_begin();
+          wgmma_fence();
+          issue_pv<D>(oacc, pa, desc_v + (j % NS) * kStage);
+          turn_end(j == nk - 1);
+          wgmma_wait<0>();
+          fence_regs(oacc);
+          release(j);
+        }
       }
     }
 
@@ -361,20 +392,67 @@ __global__ void __launch_bounds__(384, 1)
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float r0 = 1.f / l0, r1 = 1.f / l1;
+    // #14: l >= 1 wherever a key is valid, 0 only with none (o = 0 then).
+    const float r0 = 1.f / (kStats ? fmaxf(l0, 1e-30f) : l0);
+    const float r1 = 1.f / (kStats ? fmaxf(l1, 1e-30f) : l1);
     const int row0 = q0 + 64 * c + 16 * warp + g, row1 = row0 + 8;
-    bf16* ob = o + b * osb + h * osh;
+    auto* ob = o + b * osb + h * osh;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int col = n * 8 + 2 * t;
-      if (row0 < S)
-        *reinterpret_cast<uint32_t*>(ob + row0 * oss + col) =
-            dk::pack_bf16(oacc[4 * n] * r0, oacc[4 * n + 1] * r0);
-      if (row1 < S)
-        *reinterpret_cast<uint32_t*>(ob + row1 * oss + col) =
-            dk::pack_bf16(oacc[4 * n + 2] * r1, oacc[4 * n + 3] * r1);
+      if constexpr (kStats) {
+        if (row0 < Sq)
+          *reinterpret_cast<float2*>(ob + row0 * oss + col) =
+              make_float2(oacc[4 * n] * r0, oacc[4 * n + 1] * r0);
+        if (row1 < Sq)
+          *reinterpret_cast<float2*>(ob + row1 * oss + col) =
+              make_float2(oacc[4 * n + 2] * r1, oacc[4 * n + 3] * r1);
+      } else {
+        if (row0 < Sq)
+          *reinterpret_cast<uint32_t*>(ob + row0 * oss + col) =
+              dk::pack_bf16(oacc[4 * n] * r0, oacc[4 * n + 1] * r0);
+        if (row1 < Sq)
+          *reinterpret_cast<uint32_t*>(ob + row1 * oss + col) =
+              dk::pack_bf16(oacc[4 * n + 2] * r1, oacc[4 * n + 3] * r1);
+      }
+    }
+    if constexpr (kStats) {
+      if (t == 0) {  // m is quad-uniform (the softmax's shuffles), l reduced above
+        const long long rows = ((long long)b * gridDim.y + h) * Sq;
+        if (row0 < Sq) {
+          m_out[rows + row0] = st.m0;
+          l_out[rows + row0] = l0;
+        }
+        if (row1 < Sq) {
+          m_out[rows + row1] = st.m1;
+          l_out[rows + row1] = l1;
+        }
+      }
     }
   }
+}
+
+// Kernel B (kScaleFirst false) and #15 (true) over S queries and keys.
+template <int D, bool kScaleFirst>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int S,
+                   long long osb, long long oss, long long osh, float sc) {
+  flash_sm90_block<D, kScaleFirst, false>(tq, tk, tv, o, nullptr, nullptr, S, S, osb, oss, osh,
+                                          sc);
+}
+
+// #14: Sq queries against the chunk's vlen valid keys (the k and v maps
+// hold vlen rows, so TMA zero-fills the rest of the last tile); `sc` is the
+// scale.
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_sm90_stats(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+                         float* __restrict__ m, float* __restrict__ l, int Sq, int vlen,
+                         long long osb, long long oss, long long osh, float sc) {
+  flash_sm90_block<D, true, true>(tq, tk, tv, o, m, l, Sq, vlen, osb, oss, osh, sc);
 }
 
 // The tensor map of one (B, S, H, D) operand read through its strides (in
@@ -410,6 +488,29 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, int B, int
   return (int)cudaGetLastError();
 }
 
+// #14: the q map holds Sq rows, the k and v maps the vlen valid keys (Skv
+// rows where vlen is 0: no tile is loaded then).
+template <int D>
+int launch_sm90_stats(const void* q, const void* k, const void* v, float* o, float* m, float* l,
+                      int B, int H, int Sq, int Skv, int vlen, const long long (&st)[12],
+                      float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  using T = Sm90Tile<D>;
+  const int rows = vlen > 0 ? vlen : Skv;
+  int e = encode_operand(&tq, q, B, Sq, H, D, st[0], st[1], st[2]);
+  if (e == 0) e = encode_operand(&tk, k, B, rows, H, D, st[3], st[4], st[5]);
+  if (e == 0) e = encode_operand(&tv, v, B, rows, H, D, st[6], st[7], st[8]);
+  if (e != 0) return e;
+  const size_t smem = T::kSmem;
+  const cudaError_t a = cudaFuncSetAttribute(
+      flash_fwd_sm90_stats<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (a != cudaSuccess) return (int)a;
+  const dim3 grid((Sq + T::BQ - 1) / T::BQ, H, B);
+  flash_fwd_sm90_stats<D><<<grid, 384, smem, stream>>>(tq, tk, tv, o, m, l, Sq, vlen, st[9],
+                                                       st[10], st[11], scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Kernel B (scale_first false, `sc` = scale * log2(e)) or #15 (true, `sc` =
@@ -426,4 +527,16 @@ int dk_flash_attn_sm90_bf16(const void* q, const void* k, const void* v, void* o
     return scale_first ? launch_sm90<128, true>(q, k, v, o, B, S, H, strides, sc, st)
                        : launch_sm90<128, false>(q, k, v, o, B, S, H, strides, sc, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// #14 at d = 128: q (B, H, Sq, D) against k/v (B, H, Skv, D) with `vlen`
+// valid leading keys; strides as above (o's in fp32 elements), m and l
+// contiguous (B, H, Sq). Called by flash_attention.cu's entry point.
+int dk_flash_attn_stats_sm90_bf16(const void* q, const void* k, const void* v, float* o,
+                                  float* m, float* l, int B, int H, int Sq, int Skv, int D,
+                                  int vlen, const long long (&strides)[12], float scale,
+                                  void* stream) {
+  if (D != 128) return (int)cudaErrorInvalidValue;
+  return launch_sm90_stats<128>(q, k, v, o, m, l, B, H, Sq, Skv, vlen, strides, scale,
+                                static_cast<cudaStream_t>(stream));
 }

@@ -13,9 +13,8 @@
 // separate torch ops are, then one rounding to the output dtype.
 //
 // #16 replaces tools/microbench_pallas_int8.py:pallas_int8_matmul: #11's
-// main loop (the same template) with an epilogue that stores the int32
-// accumulators. Any M >= 1 by predication (the reference pads M to its
-// block); K and N as #11.
+// main loop with an epilogue that stores the int32 accumulators. Any M >= 1
+// by predication (the reference pads M to its block); K and N as #11.
 //
 // Bound on the H100: at M >= 256 (SD3's 2048 image rows, 308 text rows,
 // T5-XXL's 256 tokens) int8 tensor-core work: (2048, 1536, 6144) is 38.7
@@ -27,15 +26,22 @@
 // 3072, 12288): 329 GOP, 0.166 ms, above the 214 MB of int32 it writes
 // (0.064 ms).
 //
-// Tiling: kernel E's `plain` main loop without the requantisation. 256
-// threads (8 warps), warp tiles of 32 x 64 (BM = BN = 128), 16 x 64 (BM =
-// 64) or 16 x 16 (M <= 16: BM = 16); BK = 128 k per tile (64 where K is not
-// a multiple of 128: the SD3 x_embedder's K = 64). cp.async stages the x8
-// and w8 tiles (16-byte chunks; rows past M and N zero-filled, so no padded
-// copies) into a double buffer of [row][k] tiles padded to BK + 16 bytes,
-// bank-conflict free for ldmatrix, which gives the m16n8k32 s8 fragments
-// of both operands directly (both are k-contiguous). The ragged M and N
-// edges are masked at the store. wgmma, TMA and deeper pipelines come later.
+// Main loops, by shape (`dispatch`):
+//  * M > 16 and K % 128 == 0, every main-path shape but the GEMVs and the
+//    SD3 x_embedder: w8_matmul_sm90.cu's `w8_mm_sm90` (TMA, int8 wgmma,
+//    warp-specialised; its own note).
+//  * M <= 16 (the GEMVs) and K % 128 != 0 (the x_embedder's K = 64):
+//    `w8_mm` here, kernel E's `plain` main loop without the
+//    requantisation. 256 threads (8 warps), warp tiles of 16 x 16 (M <= 16:
+//    BM = 16), 16 x 64 (BM = 64) or 32 x 64 (BM = BN = 128); BK = 128 k per
+//    tile (64 where K is not a multiple of 128). cp.async stages the x8 and
+//    w8 tiles (16-byte chunks; rows past M and N zero-filled, so no padded
+//    copies) into a double buffer of [row][k] tiles padded to BK + 16
+//    bytes, bank-conflict free for ldmatrix, which gives the m16n8k32 s8
+//    fragments of both operands directly (both are k-contiguous). The
+//    ragged M and N edges are masked at the store. At M <= 16 the tile
+//    reads w8 once at about half the memory rate; the wgmma kernel's
+//    64-row products would waste 3/4 of their work there.
 //
 // #10 replaces diffusionkit_tpu/ops/w4a8_matmul.py:dequant_w8_pallas: packed
 // int4 words (K/8, N) (int32 bit views, shifted as unsigned) and the group
@@ -58,22 +64,16 @@
 
 #include "common.cuh"
 
+// #11 and #16 at M > 16, K % 128 == 0: csrc/w8_matmul_sm90.cu.
+int dk_w8_mm_sm90(int out_type, const void* x8, const void* w8, const void* wscale,
+                  const void* xscale, const void* bias, void* y, int M, int N, int K,
+                  cudaStream_t st);
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int NTHREADS = 256;
-
-template <typename OutT>
-__device__ __forceinline__ void store2(OutT* dst, float v0, float v1);
-template <>
-__device__ __forceinline__ void store2<bf16>(bf16* dst, float v0, float v1) {
-  *reinterpret_cast<uint32_t*>(dst) = dk::pack_bf16(v0, v1);
-}
-template <>
-__device__ __forceinline__ void store2<float>(float* dst, float v0, float v1) {
-  *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-}
 
 template <int BK, int BM, int BN>
 constexpr size_t smem_bytes() {
@@ -182,7 +182,7 @@ __global__ void __launch_bounds__(NTHREADS, MT * NT <= 16 ? 2 : 1)
                              wscale[col + e]);
             if (bias) v[e] = __fadd_rn(v[e], dk::to_float(bias[col + e]));
           }
-          store2<OutT>(y + (long long)row * N + col, v[0], v[1]);
+          dk::store2<OutT>(y + (long long)row * N + col, v[0], v[1]);
         }
       }
     }
@@ -215,12 +215,21 @@ int dispatch_m(const void* x8, const void* w8, const void* wscale, const void* x
   return launch<OutT, BK, 4, 2, 8>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
 }
 
+// The Hopper main loop's output type code (w8_matmul_sm90.cu).
+template <typename OutT>
+constexpr int sm90_out_type() {
+  return std::is_same<OutT, bf16>::value ? 0 : std::is_same<OutT, float>::value ? 1 : 2;
+}
+
 template <typename OutT>
 int dispatch(const void* x8, const void* w8, const void* wscale, const void* xscale,
              const void* bias, void* y, int M, int N, int K, void* stream) {
   if (M <= 0 || N <= 0 || N % 8 || K <= 0 || K % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K % 128 == 0) return dispatch_m<OutT, 128>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
+  if (K % 128 == 0) {
+    if (M <= 16) return launch<OutT, 128, 1, 1, 2>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
+    return dk_w8_mm_sm90(sm90_out_type<OutT>(), x8, w8, wscale, xscale, bias, y, M, N, K, st);
+  }
   return dispatch_m<OutT, 64>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
 }
 

@@ -16,11 +16,11 @@ Replace the Pallas kernels of ``diffusionkit_tpu/ops/flash_attention.py``:
 
 bf16 inputs are compute-bound and run on the tensor cores with an
 in-register online softmax, any strides read in place. Kernel B and #15 at
-d=64 and 128 run ``csrc/flash_attention_sm90.cu``, one Hopper kernel: TMA
-loads into a ring of shared-memory stages fed by a producer warp, and two
-consumer warpgroups issuing ``wgmma``. #14, and B and #15 at d=512, run
-``csrc/flash_attention.cu`` (``mma.sync`` products). The note in each
-source has the details. fp32 inputs run ``csrc/flash_attention_f32.cu``,
+d=64 and 128, and #14 at d=128, run ``csrc/flash_attention_sm90.cu``, one
+Hopper design: TMA loads into a ring of shared-memory stages fed by a
+producer warp, and two consumer warpgroups issuing ``wgmma``. #14 at d=64,
+and B and #15 at d=512, run ``csrc/flash_attention.cu`` (``mma.sync``
+products). The note in each source has the details. fp32 inputs run ``csrc/flash_attention_f32.cu``,
 what the reference computes in fp32 (fp32 scores, softmax and P.V, P not
 rounded): fp32 FMA products, within 2^-16 of the largest |output| of the
 fp32 plain version.

@@ -30,8 +30,9 @@ own account and a no-op at FLUX's shapes) are not carried over.
 Kernel #11 ``w8_matmul`` (the reference's ``w8_matmul``, ``_kernel_w8``) is
 the w8a8 linear's product: an int8 (N, K) weight grid, ``y = (x8 @ w8^T) *
 xscale * wscale + bias``, the epilogue in that order with the int32
-accumulator kept on chip (``csrc/w8_matmul.cu``); ``w8_matmul_plain`` is
-its plain version.
+accumulator kept on chip (``csrc/w8_matmul_sm90.cu``, TMA-fed int8
+``wgmma``, at M > 16 and K % 128 == 0; ``csrc/w8_matmul.cu`` otherwise);
+``w8_matmul_plain`` is its plain version.
 
 Kernel #10 ``dequant_w8`` (the reference's ``dequant_w8_pallas``)
 materialises the int8 grid of a packed layer once, as (N, K), the layout

@@ -3,8 +3,10 @@
     python -m diffusionkit_tpu_torch.tools.bench_flash [B,S,H,D ...]
 
 At each (B, S, H, D) (by default FLUX.1 1024²'s and SD3-medium 512²'s joint
-attention), on the same random bf16 q, k, v: kernel B on (B, S, H, D), #15
-and #14 (every key valid) on contiguous (B, H, S, D) copies, and
+attention, and FLUX.1 2048²'s 16640 tokens, where the one-rank ring runs #14
+on every joint attention), on the same random bf16 q, k, v: kernel B on
+(B, S, H, D), #15 and #14 (every key valid) on contiguous (B, H, S, D)
+copies, and
 ``F.scaled_dot_product_attention`` on those copies, the yardstick the port
 never calls. Each is timed by ``device_ms`` (calls captured in one CUDA
 graph, as ``chip_smoke.py`` times kernels) and given its rate in TFLOP/s of
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 from ..ops.flash_attention import flash_attention, flash_attention_bshd, flash_attention_stats
 from . import device_ms, device_label
 
-DEFAULT_FLASH_SHAPES = ((1, 4352, 24, 128), (2, 1178, 24, 64))
+DEFAULT_FLASH_SHAPES = ((1, 4352, 24, 128), (2, 1178, 24, 64), (1, 16640, 24, 128))
 NAMES = ("flash_attention_bshd", "flash_attention", "flash_attention_stats", "sdpa")
 
 

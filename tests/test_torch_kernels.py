@@ -175,21 +175,29 @@ def test_flash_kernel_matches_plain(cuda, shape):
     assert_flash_close(got, flash_attention_bshd_plain(q.float(), k.float(), v.float(), scale))
 
 
+def _stats_at_300(q, k, v, scale):
+    """#14 with the first 300 keys valid, its (o, m, l) joined into one
+    tensor so a call compares with torch.equal."""
+    return torch.cat([t.flatten() for t in flash_attention_stats(q, k, v, scale, 300)])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("case", ["bshd", "bhsd", "repeat"])
+@pytest.mark.parametrize("case", ["bshd", "bhsd", "stats", "repeat"])
 def test_flash_kernel_reads_strided_heads_in_place(cuda, case, d):
     """q/k/v as head slices of one packed (B, S, 3H, D) projection, as a
-    fused qkv would give them: kernel B reads the strides directly and #15
-    the slices' transposed (B, H, S, D) views, each bit-identical to its
-    call on contiguous copies; and ("repeat") two calls of each kernel on
-    the same inputs are bit-identical."""
+    fused qkv would give them: kernel B reads the strides directly, and #15
+    and #14 the slices' transposed (B, H, S, D) views (the ring's input),
+    each bit-identical to its call on contiguous copies; and ("repeat") two
+    calls of each kernel on the same inputs are bit-identical."""
     g = torch.Generator(device=cuda).manual_seed(3)
     qkv = torch.randn(2, 333, 3 * 4, d, generator=g, device=cuda).bfloat16()
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
     assert not q.is_contiguous()
+    bhsd = tuple(t.transpose(1, 2) for t in (q, k, v))
     views = {"bshd": (flash_attention_bshd, (q, k, v)),
-             "bhsd": (flash_attention, tuple(t.transpose(1, 2) for t in (q, k, v)))}
+             "bhsd": (flash_attention, bhsd),
+             "stats": (_stats_at_300, bhsd)}
     if case == "repeat":
         for fn, args in views.values():
             assert torch.equal(fn(*args, 0.125), fn(*args, 0.125))
@@ -257,8 +265,12 @@ BHSD_SHAPES = [(2, 24, 1178, 64), (1, 1, 4096, 512), (1, 24, 4352, 128), (1, 3, 
                    (1, 2, s, d) for d in (64, 128) for s in TILE_EDGES]
 # (B, H, Sq, Skv, D) of #14: FLUX 2048² at one rank and one of four, SD3's
 # padded 1178 tokens at four ranks, and small ragged chunks with Sq != Skv.
+# Plus, at d = 64 and 128, the Hopper kernel's tile edges with Sq != Skv:
+# one query or key past a 128-row tile, one short of two, and nine tiles.
+STATS_EDGES = [(1, 2, sq, skv, d) for d in (64, 128)
+               for sq, skv in ((128, 129), (129, 255), (255, 1153), (1153, 128))]
 STATS_SHAPES = [(1, 24, 4160, 4160, 128), (2, 24, 295, 295, 64), (1, 3, 77, 130, 64),
-                (2, 2, 150, 61, 128)]
+                (2, 2, 150, 61, 128)] + STATS_EDGES
 
 
 @pytest.mark.gpu
@@ -301,13 +313,37 @@ def test_flash_stats_kernel_matches_plain(cuda, shape, part):
     assert flash_attention_stats.launches == launches + 1
     assert o.dtype == m.dtype == l.dtype == torch.float32
     assert o.shape == (b, h, sq, d) and m.shape == l.shape == (b, h, sq, 1)
+    assert_stats_close((o, m, l), q, k, v, d**-0.5, vlen)
+
+
+def assert_stats_close(got, q, k, v, scale, vlen):
+    """#14's (o, m, l) against its plain version on fp32 upcasts (see
+    test_flash_stats_kernel_matches_plain); with no valid key exactly
+    o = 0, l = 0, m = -1e30."""
+    o, m, l = got
     if vlen == 0:
         assert torch.all(o == 0) and torch.all(l == 0) and torch.all(m == NEG_INF)
         return
-    ow, mw, lw = flash_attention_stats_plain(q.float(), k.float(), v.float(), d**-0.5, vlen)
+    ow, mw, lw = flash_attention_stats_plain(q.float(), k.float(), v.float(), scale, vlen)
     assert torch.all((o - ow).abs() <= 2.0**-8 * ow.abs().max() + 1e-6)
     assert torch.all((m - mw).abs() <= 1e-5 * mw.abs() + 1e-6)
     assert torch.all((l - lw).abs() <= 1e-4 * lw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", STATS_EDGES)
+def test_flash_stats_kernel_at_key_tile_edges(cuda, shape):
+    """#14 at valid lengths around the 128-key tile: one key, one short of a
+    tile, a tile, one past it, and every key; each within
+    test_flash_stats_kernel_matches_plain's bounds."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    b, h, sq, skv, d = shape
+    q = torch.randn(b, h, sq, d, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(b, h, skv, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    for vlen in sorted({1, 127, 128, 129, skv} & set(range(1, skv + 1))):
+        got = flash_attention_stats(q, k, v, d**-0.5, vlen)
+        torch.cuda.synchronize()
+        assert_stats_close(got, q, k, v, d**-0.5, vlen)
 
 
 @pytest.mark.gpu
@@ -631,9 +667,15 @@ def random_w8(m, k, n, gen, device, bias=True, dtype=torch.bfloat16):
 # fc1, fc2 of the image and text rows, the `ada` and embedder GEMVs, the
 # x_embedder (K = 64), the context embedder, the final linear (N = 64),
 # T5-XXL's projections; a ragged M.
+# Plus the Hopper main loop's edges (M > 16, K % 128 == 0): M one past the
+# small-M tile, at and around one and two 128-row tiles and at the
+# microbench's 4352; N short of a 128-column tile, ragged and 12288 wide
+# (two 256-wide tiles' grids); K one 128-deep stage, 24 and 80 of them.
+INT8_EDGES = [(m, k, n) for m in (17, 64, 65, 128, 129, 4352)
+              for k, n in ((128, 64), (3072, 200), (10240, 12288))]
 W8_SHAPES = [(2048, 1536, 1536), (308, 1536, 6144), (2048, 6144, 1536), (2, 1536, 9216),
              (2, 256, 1536), (2048, 64, 1536), (308, 4096, 1536), (2048, 1536, 64),
-             (256, 4096, 10240), (256, 10240, 4096), (77, 512, 200)]
+             (256, 4096, 10240), (256, 10240, 4096), (77, 512, 200)] + INT8_EDGES
 
 
 @pytest.mark.gpu
@@ -877,7 +919,7 @@ def test_dequant_w8_then_w8_matmul_is_kernel_e(cuda, m):
 # (M, K, N) of #16: the microbench default, M = 1, a ragged M, K = 64 (the
 # 64-deep k tile) and an N that ends in a partial tile.
 INT8_DOT_SHAPES = [(4352, 3072, 12288), (1, 3072, 12288), (77, 3072, 3072), (300, 64, 200),
-                   (16, 512, 136)]
+                   (16, 512, 136)] + INT8_EDGES
 
 
 @pytest.mark.gpu

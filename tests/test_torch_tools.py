@@ -11,6 +11,7 @@ Inputs come from numpy seeds; every comparison is exact.
 """
 
 import importlib.util
+import sys
 from pathlib import Path
 
 import jax
@@ -199,6 +200,127 @@ def test_bench_flash_runs_on_the_cpu():
     for name in ("flash_attention", "flash_attention_stats", "sdpa"):
         assert torch.allclose(out[name], want, atol=2e-2, rtol=0), name
     assert [fn.launches for fn in wrappers] == launches
+
+# Kernel names as torch.profiler reports them, demangled and mangled, and
+# the family chip_smoke.py's device-time split files each under.
+PROFILER_NAMES = [
+    ("void (anonymous namespace)::flash_fwd_sm90<128, false>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, __nv_bfloat16*, int, long long, long long, long long, float)",
+     "flash_attention_bshd"),
+    ("_ZN12_GLOBAL__N_114flash_fwd_sm90ILi64ELb0EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16ixxxf",
+     "flash_attention_bshd"),
+    ("void (anonymous namespace)::flash_fwd_sm90<64, true>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, __nv_bfloat16*, int, long long, long long, long long, float)",
+     "flash_attention"),
+    ("_ZN12_GLOBAL__N_114flash_fwd_sm90ILi128ELb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16ixxxf",
+     "flash_attention"),
+    ("void (anonymous namespace)::flash_fwd_sm90_stats<128>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, float*, float*, float*, int, int, long long, long long, long long, float)",
+     "flash_attention_stats"),
+    ("_ZN12_GLOBAL__N_120flash_fwd_sm90_statsILi128EEEv14CUtensorMap_stS1_S1_PfS2_S2_iixxxf",
+     "flash_attention_stats"),
+    ("void (anonymous namespace)::flash_fwd_bhsd_small<64, true>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, std::conditional<true, float, "
+     "__nv_bfloat16>::type*, float*, float*, int, int, (anonymous namespace)::Strides, "
+     "(anonymous namespace)::Strides, (anonymous namespace)::Strides, "
+     "(anonymous namespace)::Strides, float)", "flash_attention_stats"),
+    ("_ZN12_GLOBAL__N_120flash_fwd_bhsd_smallILi64ELb1EEEvPK13__nv_bfloat16S3_S3_PNSt11conditional"
+     "IXT0_EfS1_E4typeEPfS8_iiNS_7StridesES9_S9_S9_f", "flash_attention_stats"),
+    ("void (anonymous namespace)::flash_fwd_wide<512, false>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, int, "
+     "(anonymous namespace)::Strides, (anonymous namespace)::Strides, "
+     "(anonymous namespace)::Strides, (anonymous namespace)::Strides, float)",
+     "flash_attention_bshd"),
+    ("_ZN12_GLOBAL__N_114flash_fwd_wideILi512ELb1EEEvPK13__nv_bfloat16S3_S3_PS1_iNS_7StridesES5_"
+     "S5_S5_f", "flash_attention"),
+    ("void (anonymous namespace)::flash_fwd_f32<128, 0>(float const*, float const*, float const*, "
+     "float*, float*, float*, int, int)", "flash_attention_bshd"),
+    ("_ZN12_GLOBAL__N_113flash_fwd_f32ILi64ELi1EEEvPKfS2_S2_PfS3_S3_ii", "flash_attention"),
+    ("void (anonymous namespace)::flash_fwd_f32<64, 2>(float const*, float const*, float const*, "
+     "float*, float*, float*, int, int)", "flash_attention_stats"),
+    ("void (anonymous namespace)::w8_mm_sm90<int, 256>(CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float const*, int const*, int*, int, int, int)", "int8_dot"),
+    ("_ZN12_GLOBAL__N_110w8_mm_sm90IiLi128EEEv14CUtensorMap_stS1_PKfS3_PKT_PS4_iii", "int8_dot"),
+    ("void (anonymous namespace)::w8_mm_sm90<__nv_bfloat16, 128>(CUtensorMap_st, "
+     "CUtensorMap_st, float const*, float const*, __nv_bfloat16 const*, __nv_bfloat16*, int, "
+     "int, int)", "w8_matmul"),
+    ("_ZN12_GLOBAL__N_110w8_mm_sm90IfLi256EEEv14CUtensorMap_stS1_PKfS3_PKT_PS4_iii",
+     "w8_matmul"),
+    ("void (anonymous namespace)::w8_mm<int, 128, 1, 1, 2>(signed char const*, "
+     "signed char const*, float const*, float const*, int const*, int*, int, int, int)",
+     "int8_dot"),
+    ("_ZN12_GLOBAL__N_15w8_mmIiLi64ELi4ELi2ELi8EEEvPKaS2_PKfS4_PKT_PS5_iii", "int8_dot"),
+    ("void (anonymous namespace)::w8_mm<__nv_bfloat16, 128, 1, 1, 2>(signed char const*, "
+     "signed char const*, float const*, float const*, __nv_bfloat16 const*, __nv_bfloat16*, "
+     "int, int, int)", "w8_matmul"),
+    ("_ZN12_GLOBAL__N_15w8_mmIfLi64ELi4ELi1ELi8EEEvPKaS2_PKfS4_PKT_PS5_iii", "w8_matmul"),
+    ("void (anonymous namespace)::w4a8_mm<2, 4, 2, 8>((anonymous namespace)::Params)",
+     "w4a8_matmul"),
+    ("void (anonymous namespace)::dequant_w8_kernel(unsigned int const*, float const*, "
+     "float const*, signed char*, int, int, int)", "dequant_w8"),
+]
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    """chip_smoke.py loaded by its path (registered while it runs: its
+    dataclasses look their module up)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        del sys.modules[spec.name]
+    return module
+
+
+@pytest.mark.parametrize("name,family", PROFILER_NAMES)
+def test_chip_smoke_files_each_kernel_under_its_family(chip_smoke, name, family):
+    """chip_smoke.family, which splits a profiled step's device time by
+    kernel, on each flash and int8 GEMM instantiation's name (#14 on the
+    Hopper kernel is not #15 or kernel B, #16 on the Hopper GEMM not #11)."""
+    assert chip_smoke.family(name) == family
+
+
+SASS_OLD = """
+code for sm_90a
+        Function : _ZN45_GLOBAL__N__5112a248_12_w8_matmul_cu_00cd03175w8_mmIiLi128EEEv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+                                                                 /* 0x000fe20000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;            /* 0x0000000000007919 */
+        Function : _ZN45_GLOBAL__N__5112a248_12_w8_matmul_cu_00cd031717dequant_w8_kernelEv
+        /*0000*/                   EXIT ;                        /* 0x000000000000794d */
+"""
+SASS_NEW = """
+code for sm_90a
+        Function : _ZN45_GLOBAL__N__81d0dac6_12_w8_matmul_cu_00cd03175w8_mmIiLi128EEEv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+                                                                 /* 0x000fe20000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;            /* 0x0000000000007919 */
+        Function : _ZN45_GLOBAL__N__81d0dac6_12_w8_matmul_cu_00cd031717dequant_w8_kernelEv
+        /*0000*/                   NOP ;                         /* 0x0000000000007918 */
+        /*0010*/                   EXIT ;                        /* 0x000000000000794d */
+        Function : _ZN45_GLOBAL__N__81d0dac6_12_w8_matmul_cu_00cd031710w8_mm_sm90Ev
+        /*0000*/                   EXIT ;                        /* 0x000000000000794d */
+"""
+
+
+def test_sass_diff_matches_kernels_across_builds():
+    """sass_diff on two disassemblies of one source: a kernel matches its
+    counterpart whatever the translation unit's hash, its addresses and
+    encodings; a changed body DIFFERS; a new kernel is "only new"."""
+    from diffusionkit_tpu_torch.tools.sass_diff import compare, sass_functions
+
+    old, new = sass_functions(SASS_OLD), sass_functions(SASS_NEW)
+    assert old["_ZN45_GLOBAL__N__12_w8_matmul_cu_00cd03175w8_mmIiLi128EEEv"] == [
+        "LDC R1, c[0x0][0x28] ;", "S2R R0, SR_TID.X ;"]
+    assert compare(old, new) == [  # by name
+        ("only new", "_ZN45_GLOBAL__N__12_w8_matmul_cu_00cd031710w8_mm_sm90Ev", 0, 1),
+        ("DIFFERS", "_ZN45_GLOBAL__N__12_w8_matmul_cu_00cd031717dequant_w8_kernelEv", 1, 2),
+        ("IDENTICAL", "_ZN45_GLOBAL__N__12_w8_matmul_cu_00cd03175w8_mmIiLi128EEEv", 2, 2),
+    ]
+
 
 def test_tool_arguments_default_to_the_references():
     from diffusionkit_tpu_torch.tools import parse_args, widen
