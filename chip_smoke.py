@@ -6,16 +6,22 @@
 Phases, each raising on failure (the script then exits non-zero):
   1. the card: name and power limit, TF32 off;
   2. build the hand-written kernels from csrc/ (one nvcc per source, in
-     parallel; sm_90a);
+     parallel; sm_90a) and print each kernel's registers and spill bytes
+     from ptxas's report, failing on a C7512 ("wgmma serialized") or on a
+     spill in the d=512 and 3xTF32 flash kernels;
   3. each kernel against its plain torch version at the main paths' shapes,
      in bf16, against the plain math run in fp32 on the same bf16 inputs:
      mod_ln and flash attention at the SD3 shapes, flash attention at d=128
      and the int4 dequant-matmul at the FLUX shapes, kernel B also at
-     ragged tile edges and, head by head, at FLUX 2048²'s 16640 tokens;
+     ragged tile edges, at the VAE mid-block of a 1024² decode (16384
+     positions, d=512) and, head by head, at FLUX 2048²'s 16640 tokens;
   4. each kernel's device time against its plain version's (CUDA graph
      replays timed with CUDA events; kernel B's plain version on one head at
      16640 tokens), the flash kernels' with their TFLOP/s and their ratio to
-     F.scaled_dot_product_attention's time;
+     F.scaled_dot_product_attention's time; kernel B and #15 also at the VAE
+     mid-block of a 2048² decode (65536 positions), checked against their
+     plain version 4096 query rows at a time (all its scores would take 17
+     GB) and timed beside F.scaled_dot_product_attention;
   3-4b. the w4a8 kernels (mod_ln_quantize, quantize and w4a8_matmul in its
      four modes) against their plain versions run on the card on the same
      inputs, at the FLUX w4a8 shapes plus M=1, a ragged M and group 32, and
@@ -40,7 +46,8 @@ Phases, each raising on failure (the script then exits non-zero):
      #14 at SD3's padded chunk and a FLUX 2048² four-rank chunk) against
      their fp32 plain versions within 2^-16 of the largest |output|, timed
      beside F.scaled_dot_product_attention on the same fp32 inputs (TF32
-     off);
+     off), each bound at the 3xTF32 rate (495 / 3 TFLOP/s) with the fp32
+     FMA rate's bound beside it;
   3-4e. #10 dequant_w8 (bit-identical at FLUX fc1, fc2, q and q at group
      32), #10 then #11 against kernel E on the same layer (bit-identical at
      M = 4352 and a ragged M) and #16 int8_dot (bit-identical to the exact
@@ -64,7 +71,8 @@ Phases, each raising on failure (the script then exits non-zero):
      requests through generate_image and repeating the first through the
      phase methods (the repeat must give the identical image, the two
      requests different ones, and every kernel's launch counter must rise by
-     the path's launch count):
+     the path's launch count; each request's decoding time is printed
+     beside its steps):
      a. SD3-medium (24 blocks, hidden 1536), CLIP-L/G and the VAE decoder in
         bf16: 512², 50 Euler steps, CFG 5.0;
      b. FLUX.1-schnell int4 (19 + 38 blocks, hidden 3072, int4 block linears
@@ -241,18 +249,28 @@ SYMBOLS = {
     "flash_attention": "flash_fwd_sm90<D, true>", "dequant_w8": "dequant_w8_kernel",
     "int8_dot": "w8_mm_sm90<int, BN>",
 }
-# The sources of each function's other kernels: the fp32 flash
-# instantiations; kernel B and #15 at d = 512 and #14 at d = 64
-# (flash_fwd_wide<512, .>, flash_fwd_bhsd_small<64, true>); #11 and #16 at
+# The sources and kernels of each function's other shapes: the fp32 flash
+# kernels (3xTF32 on wgmma at d = 64 and 128, on mma.sync at d = 512);
+# kernel B and #15 at d = 512 (the split-KV wgmma kernel and its
+# merge); #14 at d = 64 (flash_fwd_bhsd_small<64, true>); #11 and #16 at
 # M <= 16 and at K % 128 != 0 (w8_mm, the mma.sync main loop).
 FP32_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_f32.cu"
-WIDE_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention.cu"
+FP32_SYMBOLS = ("flash_fwd_3xtf32_sm90<64 | 128, mode> (d = 64, 128), "
+                "flash_fwd_3xtf32<mode> (d = 512)")
+WIDE_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_wide_sm90.cu"
+SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention.cu"
 W8_SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/w8_matmul.cu"
 FLASH_KERNELS = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 OTHER_SOURCES = {
-    "flash_attention_bshd": {"fp32_source": FP32_SOURCE, "d512_source": WIDE_SOURCE},
-    "flash_attention": {"fp32_source": FP32_SOURCE, "d512_source": WIDE_SOURCE},
-    "flash_attention_stats": {"fp32_source": FP32_SOURCE, "d64_source": WIDE_SOURCE},
+    "flash_attention_bshd": {"fp32_source": FP32_SOURCE, "fp32_symbols": FP32_SYMBOLS,
+                             "d512_source": WIDE_SOURCE,
+                             "d512_symbols": "flash_fwd_wide_sm90<false>, flash_wide_merge<false>"},
+    "flash_attention": {"fp32_source": FP32_SOURCE, "fp32_symbols": FP32_SYMBOLS,
+                        "d512_source": WIDE_SOURCE,
+                        "d512_symbols": "flash_fwd_wide_sm90<true>, flash_wide_merge<true>"},
+    "flash_attention_stats": {"fp32_source": FP32_SOURCE, "fp32_symbols": FP32_SYMBOLS,
+                              "d64_source": SMALL_SOURCE,
+                              "d64_symbols": "flash_fwd_bhsd_small<64, true>"},
     "w8_matmul": {"small_m_source": W8_SMALL_SOURCE},
     "int8_dot": {"small_m_source": W8_SMALL_SOURCE},
 }
@@ -310,8 +328,18 @@ TWIN_RTOL = 3e-2
 T5_LAYERS = T5_XXL.num_layers
 
 MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536)]  # SD3 image / text stream sites
-# SD3 joint attention / VAE mid-block at 512² / FLUX joint attention at 1024².
-FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512), (1, 4352, 24, 128)]
+# SD3 joint attention / VAE mid-block at 512² / FLUX joint attention at
+# 1024² / VAE mid-block at 1024² (FLUX's decode).
+FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512), (1, 4352, 24, 128), (1, 16384, 1, 512)]
+# The fp32 kernels' shapes: the first three (the a16=False decode at 512²,
+# fp32 MMDiTs).
+FP32_FLASH_SHAPES = FLASH_SHAPES[:3]
+# The VAE mid-block at 2048² (path g's decode): kernel B and #15 checked
+# against their plain version in blocks of PLAIN_ROWS query rows (all 65536²
+# fp32 scores would take 17 GB; each block's, 1 GB) and timed beside
+# F.scaled_dot_product_attention.
+FLASH_VAE_2048 = (1, 65536, 1, 512)
+PLAIN_ROWS = 4096
 # Checked but not timed: kv edges short of a key tile (77: 51 keys short of
 # 128), one key past one (129) and one past nine (1153), where an unmasked
 # pad would move the outputs by far more than the bound.
@@ -391,8 +419,10 @@ FP32_RTOL = 1e-4
 REF_RTOL = 3e-2
 
 # The H100 SXM's published dense peaks and memory rate (NVIDIA's data
-# sheet), against which each kernel's bound is computed.
-PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# sheet), against which each kernel's bound is computed. fp32-accurate
+# products on the tensor cores are 3xTF32: three passes at the 495 TFLOP/s
+# TF32 rate; "fp32" is the CUDA cores' FMA rate.
+PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "tf32x3": 495e12 / 3}
 HBM = 3.35e12
 # Non-tensor fp32 operations an element of the row kernels: mod_ln's sums,
 # centring, squares and modulation; A' adds the absmax and the rounding;
@@ -408,11 +438,14 @@ def bound(ops: float, peak: str, nbytes: float) -> tuple:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_bound(name: str, shape, dtype: str = "bf16") -> tuple:
+def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3") -> tuple:
     """The bound of one call of kernel ``name`` at ``shape`` (bf16
-    activations; the flash kernels also in fp32, their products then at the
-    fp32 FMA peak), in the layout each phase times it."""
+    activations; the flash kernels also in fp32, their products then at
+    ``fp32_peak``: the 3xTF32 rate, or "fp32" for the FMA rate), in the
+    layout each phase times it."""
     size = 4 if dtype == "fp32" else 2  # bytes an element of q, k, v
+    if dtype == "fp32":
+        dtype = fp32_peak
     if name == "mod_ln":
         b, s_, h = shape
         return bound(ROW_OPS[name] * b * s_ * h, "fp32", 4 * b * s_ * h + 4 * b * h)
@@ -463,6 +496,8 @@ def timing(name: str, shape, ms: float, plain: float, dtype: str = "bf16", **ext
     """One timed shape of a kernel: its time, its plain version's, its bound
     and any yardstick (``library_ms``, kernel C's time)."""
     b_ms, b_by = kernel_bound(name, shape, dtype)
+    if dtype == "fp32":  # the FMA-rate bound of earlier runs, beside it
+        extra["bound_fma_ms"] = kernel_bound(name, shape, dtype, fp32_peak="fp32")[0]
     return {"shape": list(shape), "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, **({"dtype": dtype} if dtype != "bf16" else {}), **extra}
 
@@ -662,6 +697,54 @@ def flash_long(gen, tag: str):
     del q, k, v, qh, kh, vh, head
     torch.cuda.empty_cache()
     return err, t
+
+
+def flash_vae_2048(gen, tag: str) -> dict:
+    """Phase 3-4, kernel B and #15 at FLASH_VAE_2048 (the VAE mid-block of
+    a 2048² decode): each against its plain version on fp32 upcasts,
+    PLAIN_ROWS query rows at a time against every key, within one bf16 ulp
+    + 2^-8 max|want|; then their device times beside
+    F.scaled_dot_product_attention on the same tensors and their bounds.
+    Returns each function's (max abs error, timing row)."""
+    b, s, h, d = FLASH_VAE_2048
+    q, k, v = (torch.randn(FLASH_VAE_2048, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    scale = d**-0.5
+    qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))  # (B, H, S, D) views
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), reps=2)
+    rows = {}
+    for name, fn, plain, args, axis in (
+            ("flash_attention_bshd", flash_attention_bshd, flash_attention_bshd_plain,
+             (q, k, v), 1),
+            ("flash_attention", flash_attention, flash_attention_plain, (qh, kh, vh), 2)):
+        shape = tuple(args[0].shape)
+        got = fn(*args, scale)
+        torch.cuda.synchronize()
+        kf, vf = args[1].float(), args[2].float()
+        want = torch.cat([plain(args[0].narrow(axis, r, min(PLAIN_ROWS, s - r)).float(), kf, vf,
+                                scale) for r in range(0, s, PLAIN_ROWS)], dim=axis)
+        del kf, vf
+        diff = (got.float() - want).abs()
+        bnd = bf16_ulp(want) + FLASH_SLACK * want.abs().max()
+        err, ratio = diff.max().item(), (diff / bnd).max().item()
+        ok = ratio <= 1 and bool(torch.isfinite(got).all())
+        log(f"  {name} {shape} ({PLAIN_ROWS} query rows at a time): max_abs_err {err!r}, "
+            f"max |want| {want.abs().max().item()!r}; tolerance one bf16 ulp + 2^-8 max|want| "
+            f"per element, worst element at {ratio!r} of it: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {shape} disagrees")
+        del got, want, diff, bnd
+        torch.cuda.empty_cache()
+        ms = device_ms(lambda: fn(*args, scale), reps=5)
+        t = timing(name, shape, ms, None, library_ms=lib,
+                   plain_note=f"not timed (run {PLAIN_ROWS} query rows at a time)")
+        log(f"  {name} {shape}: kernel {ms!r} ms ({4 * b * h * s * s * d / (ms / 1e3) / 1e12!r} "
+            f"TFLOP/s), F.scaled_dot_product_attention {lib!r} ms (kernel at {ms / lib!r}x its "
+            f"time), {bound_note(t)} [{tag}]")
+        rows[name] = (err, t)
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return rows
 
 
 def random_w4a8(k, n, group, gen) -> QuantizedLinear:
@@ -944,9 +1027,10 @@ def w8a8_kernels(gen, tag: str):
 STATS_SHAPES = [((1, 24, 16640, 16640, 128), (16640,)),
                 ((1, 24, 4160, 4160, 128), (4160, 1000, 0)),
                 ((2, 24, 295, 295, 64), (295, 293))]
-# #15 in (B, H, S, D): SD3's joint attention, the VAE mid-block at 512² and
-# FLUX's joint attention at 1024² (path a' runs the first two).
-BHSD_SHAPES = [(2, 24, 1178, 64), (1, 1, 4096, 512), (1, 24, 4352, 128)]
+# #15 in (B, H, S, D): SD3's joint attention, the VAE mid-block at 512²,
+# FLUX's joint attention at 1024² and the VAE mid-block at 1024² (path a'
+# runs the first two).
+BHSD_SHAPES = [(2, 24, 1178, 64), (1, 1, 4096, 512), (1, 24, 4352, 128), (1, 1, 16384, 512)]
 # A plain version whose fp32 scores over all heads would exceed this runs
 # head by head (16640 tokens x 24 heads: 26.6 GB).
 PLAIN_SCORE_BYTES = 4 << 30
@@ -1140,7 +1224,7 @@ def fp32_flash_kernels(gen, tag: str):
     dev = torch.device("cuda")
     errs = {name: [] for name in FLASH_KERNELS}
     times = {name: [] for name in FLASH_KERNELS}
-    for shape in FLASH_SHAPES:
+    for shape in FP32_FLASH_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
         scale = shape[-1] ** -0.5
         b, s_, h, d = shape
@@ -1696,7 +1780,8 @@ def serve(pipe, path: Path, tag: str):
             f"denoising {lg['denoising']['time']!r} s, decoding {lg['decoding']['time']!r} s, "
             f"total {lg['total_time']!r} s/image [{tag}]")
         log(f"  request {i}: denoise mean {1e3 * statistics.mean(it)!r} ms/step, median "
-            f"{median_ms!r} ms/step, first step {1e3 * it[0]!r} ms; {tflops!r} {rate} at the "
+            f"{median_ms!r} ms/step, first step {1e3 * it[0]!r} ms, decoding "
+            f"{1e3 * lg['decoding']['time']!r} ms; {tflops!r} {rate} at the "
             f"median ({flops / 1e12!r} T ops/step), {tflops * 1e12 / peak if peak else None!r} "
             f"of the {peak / 1e12!r} {rate} {peak_name} peak [{tag}]")
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB [{tag}]")
@@ -1811,14 +1896,17 @@ def build_flux_ring(gen, prev: FluxPipeline) -> FluxPipeline:
 
 # The flash kernels as the profiler names them, demangled or not: #14 is
 # flash_fwd_sm90_stats<128> and flash_fwd_bhsd_small<64, true>, #15
-# flash_fwd_sm90<D, true> and
-# flash_fwd_wide<512, true>, kernel B flash_fwd_sm90<D, false> and
-# flash_fwd_wide<512, false>.
-SCALE_FIRST = re.compile(r"flash_fwd_(?:wide|sm90)(?:<\d+, true>|ILi\d+ELb1E)")
-# The fp32 instantiations, flash_fwd_f32<D, mode>: 0 kernel B, 1 #15, 2 #14;
+# flash_fwd_sm90<D, true> and at d = 512 flash_fwd_wide_sm90<true> with
+# flash_wide_merge<true>, kernel B the same with false (and the d = 512
+# kernel of earlier builds, flash_fwd_wide<512, .>).
+SCALE_FIRST = re.compile(r"flash_fwd_(?:wide|sm90)(?:<\d+, true>|ILi\d+ELb1E)"
+                         r"|flash_(?:fwd_wide_sm90|wide_merge)(?:<true>|ILb1E)")
+# The fp32 kernels, flash_fwd_3xtf32_sm90<D, mode> and flash_fwd_3xtf32<mode>
+# (and flash_fwd_f32<D, mode> of earlier builds): 0 kernel B, 1 #15, 2 #14;
 # #16 is w8_mm_sm90<int, BN> (M > 16) or w8_mm<int, ...>, #11 the same
 # templates with a bf16 or float output.
-FP32_MODE = re.compile(r"flash_fwd_f32(?:<\d+, (\d)>|ILi\d+ELi(\d)E)")
+FP32_MODE = re.compile(r"flash_fwd_(?:f32|3xtf32(?:_sm90)?)"
+                       r"(?:<(?:\d+, )?(\d)>|I(?:Li\d+E)?Li(\d)E)")
 INT8_DOT_KERNEL = re.compile(r"w8_mm(?:_sm90)?(?:<int,|IiLi)")
 
 
@@ -1835,7 +1923,7 @@ def family(name: str) -> str:
         return "flash_attention_stats"
     if SCALE_FIRST.search(name):
         return "flash_attention"
-    if "flash_fwd" in name:
+    if "flash_fwd" in name or "flash_wide_merge" in name:
         return "flash_attention_bshd"
     if "w4a8_mm" in name:
         return "w4a8_matmul"
@@ -1908,6 +1996,43 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
     return families
 
 
+# The kernels this slice wrote, held to 0 spill bytes (and, with the rest,
+# to no C7512, "wgmma serialized"): the d = 512 wgmma kernel and its merge,
+# and the 3xTF32 fp32 flash kernels.
+NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32")
+PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(path) -> None:
+    """Phase 2: each kernel's registers and spill bytes from ptxas's report
+    (``-Xptxas -v``, the build's log); raises on a C7512 warning anywhere or
+    on a spill in a NO_SPILL kernel."""
+    entry, spill = None, None
+    bad = []
+    for line in path.read_text().splitlines():
+        if "C7512" in line:
+            bad.append(line.strip())
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = PTXAS_SPILL.search(line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = PTXAS_REGS.search(line)
+        if m and entry:
+            log(f"  ptxas: {entry}: {m.group(1)} registers, {spill} spill bytes")
+            if spill and any(k in entry for k in NO_SPILL):
+                bad.append(f"{entry} spills {spill} bytes")
+            entry, spill = None, None
+    if bad:
+        raise AssertionError(f"ptxas: {bad}")
+    log(f"  ptxas: no C7512; no spill in {', '.join(NO_SPILL)}")
+
+
 def main() -> None:
     log("phase 1: card")
     if not torch.cuda.is_available():
@@ -1924,11 +2049,7 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels.library()
     log(f"  {kernels.library_path().name}: built and loaded in {time.perf_counter() - t0!r} s")
-    ptxas = kernels.library_path().with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "Used" in line or "spill" in line or "C75" in line:
-                log(f"  {line.strip()}")
+    ptxas_report(kernels.library_path().with_suffix(".log"))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     mod, flash, int4 = kernel_inputs(gen)
@@ -1941,6 +2062,9 @@ def main() -> None:
     err, t = flash_long(gen, tag)
     errs["flash_attention_bshd"].append(err)
     times["flash_attention_bshd"].append(t)
+    vae_2048 = flash_vae_2048(gen, tag)
+    errs["flash_attention_bshd"].append(vae_2048["flash_attention_bshd"][0])
+    times["flash_attention_bshd"].append(vae_2048["flash_attention_bshd"][1])
     log("phase 3-4b: the w4a8 kernels against their plain versions on the card, and their "
         "device times")
     w_errs, w_times = w4a8_kernels(gen, tag)
@@ -1960,6 +2084,8 @@ def main() -> None:
     w_errs, w_times = bhsd_kernels(gen, tag)
     errs.update(w_errs)
     times.update(w_times)
+    errs["flash_attention"].append(vae_2048["flash_attention"][0])
+    times["flash_attention"].append(vae_2048["flash_attention"][1])
     ring_combine_checks(gen)
     torch.cuda.empty_cache()
     log("phase 3-4d, fp32: kernel B, flash_attention and flash_attention_stats on fp32 inputs "

@@ -1,7 +1,9 @@
 // Non-causal flash attention over bf16 q/k/v read in place through strides:
-// #14 at d = 64, kernel B and #15 at d = 512, and the C entry points of all
-// three (kernel B and #15 at d = 64 and 128, and #14 at d = 128, run the
-// Hopper kernels of flash_attention_sm90.cu, which has its own note).
+// #14 at d = 64, and the C entry points of kernel B, #14 and #15 (kernel B
+// and #15 at d = 64 and 128, and #14 at d = 128, run the Hopper kernels of
+// flash_attention_sm90.cu; kernel B and #15 at d = 512 have their own entry
+// point and kernel in flash_attention_wide_sm90.cu; each source has its own
+// note).
 //
 // Replaces the Pallas kernels of diffusionkit_tpu/ops/flash_attention.py:
 //  * kernel B, flash_attention_bshd (_flash_kernel_bshd): (B, S, H, D),
@@ -23,8 +25,7 @@
 //
 // Bound on the H100: at SD3 512² CFG's four-rank ring chunk (#14, 2 x 24
 // heads x 295 tokens, d = 64) 0.33 GFLOP against ~5 MB, 0.0027 ms either
-// way at 989 TFLOP/s and 3.35 TB/s; at the VAE mid-block (d = 512, one
-// head of 4096 positions at 512²) 34 GFLOP against 17 MB, compute-bound.
+// way at 989 TFLOP/s and 3.35 TB/s.
 // Products on the tensor cores, the score matrix never in device memory.
 // Design: the layout is read in place through strides (one head per
 // blockIdx.y, no transposes, no padded copies); q/k/v tiles are staged in
@@ -36,11 +37,9 @@
 // v5e-specific tile specialisations are not carried over. #14 at d = 64
 // stays here because its chunks are small: 64-row blocks fill the card
 // where the Hopper kernel's 128-row blocks leave a second wave (the times
-// are in flash_attention_sm90.cu's note). d = 512 needs a design of its own
-// (a 64 x 512 fp32 wgmma accumulator does not fit a warpgroup's
-// registers).
+// are in flash_attention_sm90.cu's note).
 //
-// Two tilings:
+// Tiling:
 //  * #14 at d = 64 (`flash_fwd_bhsd_small<64, true>`): 4 warps x 16 query
 //    rows; each warp keeps its q fragments, scores and output accumulator
 //    (16 x d fp32) in registers, FlashAttention-2 style. The q/k/v tiles
@@ -51,13 +50,6 @@
 //    runs no tile and writes o = 0, l = 0 and m = -1e30 exactly. (The
 //    template's kStats = false branch, #15's until the Hopper kernel, is
 //    not instantiated.)
-//  * d = 512 (`flash_fwd_wide<512, kScaleFirst>`: the VAE mid-block's
-//    single head, kernel B and #15): a 16 x 512 fp32 accumulator per warp
-//    would need 256 registers a thread, so the block shares one 16-row query
-//    tile among 4 warps. Each warp computes an 8-column slice of the scores
-//    over the full d, the softmax runs once per tile from shared memory, and
-//    each warp accumulates its own 128-column slice of the output. ~87 KB of
-//    dynamic shared memory, 2 blocks per SM.
 
 #include <type_traits>
 
@@ -102,171 +94,6 @@ struct SmallTile {
   static constexpr int BQ = 64, BK = 64, LD = D + 8;
   static constexpr size_t kBytes = (size_t)(BQ + 2 * BK) * LD * 2;
 };
-
-template <int D>
-struct WideTile {
-  static constexpr int BQ = 16, BK = 32, LD = D + 8, LDS = BK + 4, LDP = BK + 8;
-  static constexpr size_t kBytes = (size_t)BQ * LD * 2 + 2 * (size_t)BK * LD * 2 +
-                                   (size_t)BQ * LDS * 4 + (size_t)BQ * LDP * 2 + 3 * BQ * 4;
-};
-
-// kScaleFirst false (kernel B): `sc` is scale * log2(e), m unscaled and the
-// scale folded into the exponent. True (#15): `sc` is the scale, applied to
-// the scores where the softmax reads them (a masked -1e30 becomes
-// -1e30 * scale, which still gives p = 0: every tile holds a valid key).
-template <int D, bool kScaleFirst>
-__global__ void __launch_bounds__(128)
-    flash_fwd_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o, int S, Strides qs,
-                   Strides ks, Strides vs, Strides os, float sc) {
-  using T = WideTile<D>;
-  constexpr int BQ = T::BQ, BK = T::BK, LD = T::LD, LDS = T::LDS, LDP = T::LDP, NT = 128;
-  constexpr int DW = D / 4;  // output columns per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  float* Ss = reinterpret_cast<float*>(Vs + BK * LD);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + BQ * LDS);
-  float* m_s = reinterpret_cast<float*>(Ps + BQ * LDP);
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  load_tile<BQ, D, LD, NT>(Qs, q + b * qs.b + q0 * qs.s + h * qs.h, qs.s, S - q0);
-  if (tid < BQ) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-
-  float oacc[DW / 8][4];
-#pragma unroll
-  for (int n = 0; n < DW / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb_ = v + b * vs.b + h * vs.h;
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();
-    load_tile<BK, D, LD, NT>(Ks, kb + k0 * ks.s, ks.s, S - k0);
-    load_tile<BK, D, LD, NT>(Vs, vb_ + k0 * vs.s, vs.s, S - k0);
-    __syncthreads();
-
-    // Scores: this warp's 8 key columns over the full head dim.
-    float sacc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t a[4] = {dk::lds32(&Qs[g * LD + kk * 16 + 2 * t]),
-                             dk::lds32(&Qs[(g + 8) * LD + kk * 16 + 2 * t]),
-                             dk::lds32(&Qs[g * LD + kk * 16 + 8 + 2 * t]),
-                             dk::lds32(&Qs[(g + 8) * LD + kk * 16 + 8 + 2 * t])};
-      const uint32_t b0 = dk::lds32(&Ks[(warp * 8 + g) * LD + kk * 16 + 2 * t]);
-      const uint32_t b1 = dk::lds32(&Ks[(warp * 8 + g) * LD + kk * 16 + 8 + 2 * t]);
-      dk::mma_bf16_16816(sacc, a, b0, b1);
-    }
-    const int col = k0 + warp * 8 + 2 * t;
-    if (col >= S) sacc[0] = sacc[2] = kNegInf;
-    if (col + 1 >= S) sacc[1] = sacc[3] = kNegInf;
-    Ss[g * LDS + warp * 8 + 2 * t] = sacc[0];
-    Ss[g * LDS + warp * 8 + 2 * t + 1] = sacc[1];
-    Ss[(g + 8) * LDS + warp * 8 + 2 * t] = sacc[2];
-    Ss[(g + 8) * LDS + warp * 8 + 2 * t + 1] = sacc[3];
-    __syncthreads();
-
-    // Online softmax: 8 threads per query row, 4 columns each.
-    {
-      const int row = tid >> 3, c = (tid & 7) * 4;
-      const float e2 = kScaleFirst ? kLog2e : sc;
-      float sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sv[i] = Ss[row * LDS + c + i];
-        if (kScaleFirst) sv[i] *= sc;
-      }
-      float mx = fmaxf(fmaxf(sv[0], sv[1]), fmaxf(sv[2], sv[3]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_prev = m_s[row];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = exp2f((sv[i] - m_new) * e2);
-        sum += p;
-        Ps[row * LDP + c + i] = __float2bfloat16(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      if ((tid & 7) == 0) {
-        const float alpha = exp2f((m_prev - m_new) * e2);
-        m_s[row] = m_new;
-        l_s[row] = l_s[row] * alpha + sum;
-        a_s[row] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // P . V into this warp's DW output columns.
-    const float al0 = a_s[g], al1 = a_s[g + 8];
-#pragma unroll
-    for (int n = 0; n < DW / 8; ++n) {
-      oacc[n][0] *= al0;
-      oacc[n][1] *= al0;
-      oacc[n][2] *= al1;
-      oacc[n][3] *= al1;
-    }
-    const int mi = lane >> 3, mr = lane & 7;
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      const uint32_t pa[4] = {dk::lds32(&Ps[g * LDP + c * 16 + 2 * t]),
-                              dk::lds32(&Ps[(g + 8) * LDP + c * 16 + 2 * t]),
-                              dk::lds32(&Ps[g * LDP + c * 16 + 8 + 2 * t]),
-                              dk::lds32(&Ps[(g + 8) * LDP + c * 16 + 8 + 2 * t])};
-#pragma unroll
-      for (int dp = 0; dp < DW / 16; ++dp) {
-        uint32_t vf[4];
-        dk::ldmatrix_x4_trans(
-            vf, &Vs[(c * 16 + (mi & 1) * 8 + mr) * LD + warp * DW + dp * 16 + (mi >> 1) * 8]);
-        dk::mma_bf16_16816(oacc[2 * dp], pa, vf[0], vf[1]);
-        dk::mma_bf16_16816(oacc[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
-  }
-  __syncthreads();
-
-  const float l0 = l_s[g], l1 = l_s[g + 8];
-  const int row0 = q0 + g, row1 = row0 + 8;
-  bf16* ob = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int n = 0; n < DW / 8; ++n) {
-    const int col = warp * DW + n * 8 + 2 * t;
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(ob + row0 * os.s + col) =
-          dk::pack_bf16(oacc[n][0] / l0, oacc[n][1] / l0);
-    if (row1 < S)
-      *reinterpret_cast<uint32_t*>(ob + row1 * os.s + col) =
-          dk::pack_bf16(oacc[n][2] / l1, oacc[n][3] / l1);
-  }
-}
-
-template <bool kScaleFirst>
-int launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
-                Strides qs, Strides ks, Strides vs, Strides os, float sc, cudaStream_t st) {
-  const size_t smem = WideTile<512>::kBytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wide<512, kScaleFirst>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + WideTile<512>::BQ - 1) / WideTile<512>::BQ, H, B);
-  flash_fwd_wide<512, kScaleFirst><<<grid, 128, smem, st>>>(q, k, v, o, S, qs, ks, vs, os, sc);
-  return (int)cudaGetLastError();
-}
 
 // #14 (kStats) and #15: q rows [0, Sq) of (B, H, Sq, D) against keys
 // [0, vlen). #14 writes o in fp32 and the rows' m and l at
@@ -459,58 +286,33 @@ bool bad_dims(int B, int H, float scale) {
 
 }  // namespace
 
-// Kernel B over (B, S, H, D); strides in elements, (batch, sequence, head).
+// Kernel B over (B, S, H, D) at d = 64 or 128; strides in elements, (batch,
+// sequence, head). d = 512: dk_flash_attn_wide_bf16.
 extern "C" int dk_flash_attn_bf16(const void* q, const void* k, const void* v, void* o, int B,
                                   int S, int H, int D, long long qsb, long long qss,
                                   long long qsh, long long ksb, long long kss, long long ksh,
                                   long long vsb, long long vss, long long vsh, long long osb,
                                   long long oss, long long osh, float scale, void* stream) {
-  if (!(scale > 0.f) || B <= 0 || S <= 0 || H <= 0 || H > 65535 || B > 65535)
+  if (bad_dims(B, H, scale) || S <= 0 || (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
-  const float scale_log2 = scale * kLog2e;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-    case 128:
-      return dk_flash_attn_sm90_bf16(q, k, v, o, B, S, H, D, {qsb, qss, qsh, ksb, kss, ksh, vsb,
-                                     vss, vsh, osb, oss, osh}, scale_log2, false, stream);
-    case 512:
-      return launch_wide<false>(qp, kp, vp, op, B, S, H, qs, ks, vs, os, scale_log2, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dk_flash_attn_sm90_bf16(q, k, v, o, B, S, H, D,
+                                 {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh},
+                                 scale * kLog2e, false, stream);
 }
 
-// #15 over (B, H, S, D): the same arguments as dk_flash_attn_bf16, the
-// strides in (batch, sequence, head) order.
+// #15 over (B, H, S, D) at d = 64 or 128: the same arguments as
+// dk_flash_attn_bf16, the strides in (batch, sequence, head) order.
 extern "C" int dk_flash_attn_bhsd_bf16(const void* q, const void* k, const void* v, void* o,
                                        int B, int S, int H, int D, long long qsb, long long qss,
                                        long long qsh, long long ksb, long long kss,
                                        long long ksh, long long vsb, long long vss,
                                        long long vsh, long long osb, long long oss,
                                        long long osh, float scale, void* stream) {
-  if (bad_dims(B, H, scale) || S <= 0) return (int)cudaErrorInvalidValue;
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-    case 128:
-      return dk_flash_attn_sm90_bf16(q, k, v, o, B, S, H, D, {qsb, qss, qsh, ksb, kss, ksh, vsb,
-                                     vss, vsh, osb, oss, osh}, scale, true, stream);
-    case 512:
-      return launch_wide<true>(qp, kp, vp, op, B, S, H, qs, ks, vs, os, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (bad_dims(B, H, scale) || S <= 0 || (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  return dk_flash_attn_sm90_bf16(q, k, v, o, B, S, H, D,
+                                 {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh},
+                                 scale, true, stream);
 }
 
 // #14: q (B, H, Sq, D) against k/v (B, H, Skv, D) with `vlen` valid leading

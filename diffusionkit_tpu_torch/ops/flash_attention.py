@@ -18,12 +18,16 @@ bf16 inputs are compute-bound and run on the tensor cores with an
 in-register online softmax, any strides read in place. Kernel B and #15 at
 d=64 and 128, and #14 at d=128, run ``csrc/flash_attention_sm90.cu``, one
 Hopper design: TMA loads into a ring of shared-memory stages fed by a
-producer warp, and two consumer warpgroups issuing ``wgmma``. #14 at d=64,
-and B and #15 at d=512, run ``csrc/flash_attention.cu`` (``mma.sync``
-products). The note in each source has the details. fp32 inputs run ``csrc/flash_attention_f32.cu``,
+producer warp, and two consumer warpgroups issuing ``wgmma``. Kernel B and
+#15 at d=512 run ``csrc/flash_attention_wide_sm90.cu``: TMA and ``wgmma``
+too, two consumer warpgroups sharing 64 query rows, and the keys split
+into chunks (``wide_split``) whose fp32 partials a merge kernel combines,
+from scratch this module allocates. #14 at d=64 runs
+``csrc/flash_attention.cu`` (``mma.sync`` products). The note in each
+source has the details. fp32 inputs run ``csrc/flash_attention_f32.cu``,
 what the reference computes in fp32 (fp32 scores, softmax and P.V, P not
-rounded): fp32 FMA products, within 2^-16 of the largest |output| of the
-fp32 plain version.
+rounded): 3xTF32 products on the tensor cores at every head dim, within
+2^-16 of the largest |output| of the fp32 plain version.
 
 Each wrapper launches its kernel for a CUDA tensor and raises on what the
 kernel does not take (bf16 or fp32, one dtype for q, k and v; d in
@@ -34,7 +38,7 @@ numerics in plain torch with the score matrix materialised.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,6 +47,9 @@ from . import kernels
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (64, 128, 512)
 STATS_HEAD_DIMS = (64, 128)
+# The d=512 bf16 kernel's head dim and its query / key tile.
+WIDE_HEAD_DIM = 512
+WIDE_TILE = 64
 
 
 def flash_attention_bshd_plain(
@@ -88,6 +95,64 @@ def flash_attention_plain(
     once to q's dtype; a contiguous (B, H, S, D) tensor."""
     o, _, _ = flash_attention_stats_plain(q, k, v, scale, k.shape[-2])
     return o.to(q.dtype).contiguous()
+
+
+def wide_chunk(s: int, n_split: int) -> int:
+    """Keys a chunk when ``s`` keys are split ``n_split`` ways in whole
+    WIDE_TILE-key tiles: the first chunks take this many, the last the
+    rest."""
+    tiles = -(-s // WIDE_TILE)
+    return -(-tiles // n_split) * WIDE_TILE
+
+
+def wide_split(b: int, h: int, s: int, sms: int) -> Tuple[int, int]:
+    """(n_split, chunk) of the d=512 kernel: enough key chunks that the
+    b * h * ceil(s / 64) query tiles fill ``sms`` SMs at least once (two
+    chunks at the VAE's 4096 positions on 132 SMs, one at 16384), at least
+    two key tiles a chunk, every chunk holding a key."""
+    tiles = -(-s // WIDE_TILE)
+    n = max(1, min(sms // (b * h * tiles), tiles // 2))
+    chunk = wide_chunk(s, n)
+    return -(-s // chunk), chunk
+
+
+def flash_wide_partials_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, scale_first: bool,
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch version of the d=512 kernel's split-KV blocks on (B, H,
+    S, D) inputs: for each chunk of ``chunk`` keys, kernel B's (or with
+    ``scale_first`` #15's) numerics over the chunk alone. Returns the
+    unnormalised fp32 accumulators (n, B, H, S, D), the row maxima in the
+    exponent's units, m * scale (B) or m (#15), and the row sums l (n, B,
+    H, S)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    c = 1.0
+    if scale_first:
+        s = s * scale
+    else:
+        c = scale
+    outs, ms, ls = [], [], []
+    for k0 in range(0, k.shape[-2], chunk):
+        si = s[..., k0:k0 + chunk]
+        m = si.amax(dim=-1, keepdim=True)
+        p = torch.exp((si - m) * c)
+        ls.append(p.sum(dim=-1))
+        ms.append(m[..., 0] * c)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                                 v[..., k0:k0 + chunk, :].float()))
+    return torch.stack(outs), torch.stack(ms), torch.stack(ls)
+
+
+def flash_wide_merge_plain(
+    o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, dtype: torch.dtype
+) -> torch.Tensor:
+    """Plain torch version of the merge kernel: chunk i weighted by
+    exp(m_i - max m), the weighted accumulators over the weighted l, rounded
+    once to ``dtype``; (n, B, H, S, D) partials -> (B, H, S, D)."""
+    w = torch.exp(m - m.amax(dim=0))
+    out = (w[..., None] * o).sum(dim=0) / (w * l).sum(dim=0)[..., None]
+    return out.to(dtype)
 
 
 # The C entry points of each wrapper by input dtype.
@@ -144,6 +209,37 @@ def _bshd_strides(t: torch.Tensor, layout: str):
     return (st[0], st[1], st[2]) if layout == "bshd" else (st[0], st[2], st[1])
 
 
+def _launch_wide(q, k, v, out, layout: str, scale: float,
+                 n_split: Optional[int] = None) -> None:
+    """Kernel B ("bshd") or #15 ("bhsd") at d=512 in bf16: the split-KV
+    kernel, then (with more than one chunk) the merge kernel, from one C
+    entry, into ``out``.
+    The chunks' fp32 scratch is allocated here; ``n_split`` defaults to
+    ``wide_split`` for the card's SM count."""
+    b, s = q.shape[0], q.shape[1 if layout == "bshd" else 2]
+    h = q.shape[2 if layout == "bshd" else 1]
+    if n_split is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_split, chunk = wide_split(b, h, s, sms)
+    else:
+        chunk = wide_chunk(s, n_split)
+        if -(-s // chunk) != n_split:
+            raise ValueError(f"{s} keys do not split into {n_split} chunks of whole tiles")
+    scratch = [None, None, None]
+    if n_split > 1:
+        scratch = [torch.empty((n_split, b, h, s, WIDE_HEAD_DIM), dtype=torch.float32,
+                               device=q.device),
+                   *(torch.empty((n_split, b, h, s), dtype=torch.float32, device=q.device)
+                     for _ in range(2))]
+    strides = [st for t in (q, k, v, out) for st in _bshd_strides(t, layout)]
+    err = kernels.library().dk_flash_attn_wide_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in scratch), b, s, h, *strides,
+        float(scale), int(layout == "bhsd"), n_split, chunk, kernels.stream_ptr(q.device),
+    )
+    kernels.check(err, "flash_attention_bshd" if layout == "bshd" else "flash_attention")
+
+
 def flash_attention_bshd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
 ) -> torch.Tensor:
@@ -163,12 +259,15 @@ def flash_attention_bshd(
         )
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    strides = [st for t in (q, k, v, out) for st in _bshd_strides(t, "bshd")]
-    err = getattr(kernels.library(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
-        *strides, float(scale), kernels.stream_ptr(q.device),
-    )
-    kernels.check(err, "flash_attention_bshd")
+    if q.dtype == torch.bfloat16 and d == WIDE_HEAD_DIM:
+        _launch_wide(q, k, v, out, "bshd", scale)
+    else:
+        strides = [st for t in (q, k, v, out) for st in _bshd_strides(t, "bshd")]
+        err = getattr(kernels.library(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
+            *strides, float(scale), kernels.stream_ptr(q.device),
+        )
+        kernels.check(err, "flash_attention_bshd")
     flash_attention_bshd.launches += 1
     return out
 
@@ -197,12 +296,15 @@ def flash_attention(
         )
     b, h, s, d = q.shape
     out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
-    strides = [st for t in (q, k, v, out) for st in _bshd_strides(t, "bhsd")]
-    err = getattr(kernels.library(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
-        *strides, float(scale), kernels.stream_ptr(q.device),
-    )
-    kernels.check(err, "flash_attention")
+    if q.dtype == torch.bfloat16 and d == WIDE_HEAD_DIM:
+        _launch_wide(q, k, v, out, "bhsd", scale)
+    else:
+        strides = [st for t in (q, k, v, out) for st in _bshd_strides(t, "bhsd")]
+        err = getattr(kernels.library(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
+            *strides, float(scale), kernels.stream_ptr(q.device),
+        )
+        kernels.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
 

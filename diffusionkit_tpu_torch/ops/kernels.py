@@ -43,6 +43,7 @@ _SIGNATURES = {
     "dk_flash_attn_bf16": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
     "dk_flash_attn_bhsd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
     "dk_flash_attn_stats_bf16": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    "dk_flash_attn_wide_bf16": [_P] * 7 + [_I] * 3 + [_L] * 12 + [_F, _I, _I, _I, _P],
     "dk_flash_attn_f32": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
     "dk_flash_attn_bhsd_f32": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _P],
     "dk_flash_attn_stats_f32": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P],

@@ -24,6 +24,7 @@ from diffusionkit_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
     flash_attention_stats,
     flash_attention_stats_plain,
+    wide_split,
 )
 from diffusionkit_tpu_torch.ops.fused_quant import (
     gelu_quantize,
@@ -256,6 +257,90 @@ def test_sdpa_auto_takes_the_kernel_on_the_card(cuda):
     q256 = torch.zeros(1, 1100, 1, 256, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         sdpa(q256, q256, q256, 0.1, layout="bshd")
+
+
+# The d=512 kernel (B and #15 in bf16): split-KV chunks that end unevenly
+# (1100 keys: 6 chunks of 192 on 132 SMs, the last 140), a ragged kv edge
+# with two batches (4100: one chunk), FLUX 1024²'s decode (16384), and
+# several heads at a ragged length.
+WIDE_SHAPES = [(1, 1100, 1, 512), (2, 4100, 1, 512), (1, 16384, 1, 512), (3, 77, 2, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("kind", ["bshd", "bhsd"])
+def test_flash_wide_kernel_matches_plain(cuda, shape, kind):
+    """Kernel B and #15 at d=512, one counted launch each (the merge kernel
+    behind the same entry), within kernel B's bound of fp32 math."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).bfloat16() for _ in range(3))
+    fn, plain = flash_attention_bshd, flash_attention_bshd_plain
+    if kind == "bhsd":
+        fn, plain = flash_attention, flash_attention_plain
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    launches = fn.launches
+    got = fn(q, k, v, 512**-0.5)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape and got.is_contiguous()
+    assert_flash_close(got, plain(q.float(), k.float(), v.float(), 512**-0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [1, 2, 3, 6, 18])
+@pytest.mark.parametrize("kind", ["bshd", "bhsd"])
+def test_flash_wide_kernel_at_every_split(cuda, n_split, kind):
+    """1100 keys in 1, 2, 3, 6 and 18 chunks of whole 64-key tiles (the last
+    one ragged), each merged result within kernel B's bound of fp32 math."""
+    from diffusionkit_tpu_torch.ops.flash_attention import _launch_wide
+
+    g = torch.Generator(device=cuda).manual_seed(24)
+    q, k, v = (torch.randn(1, 1100, 2, 512, generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    plain = flash_attention_bshd_plain
+    if kind == "bhsd":
+        plain = flash_attention_plain
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out = torch.empty_like(q)
+    _launch_wide(q, k, v, out, kind, 512**-0.5, n_split)
+    torch.cuda.synchronize()
+    assert_flash_close(out, plain(q.float(), k.float(), v.float(), 512**-0.5))
+
+
+@pytest.mark.gpu
+def test_flash_wide_kernel_reads_strided_heads_in_place(cuda):
+    """d=512 q/k/v as head slices of one packed projection: kernel B reads
+    the strides, #15 the transposed views, each bit-identical to its call
+    on contiguous copies (the same chunks, so the same sums)."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    qkv = torch.randn(1, 1100, 3 * 2, 512, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :2], qkv[:, :, 2:4], qkv[:, :, 4:]
+    assert not q.is_contiguous()
+    assert wide_split(1, 2, 1100, torch.cuda.get_device_properties(cuda).multi_processor_count)[0] > 1
+    for fn, args in ((flash_attention_bshd, (q, k, v)),
+                     (flash_attention, tuple(t.transpose(1, 2) for t in (q, k, v)))):
+        assert torch.equal(fn(*args, 0.05), fn(*(t.contiguous() for t in args), 0.05))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bshd", "bhsd"])
+def test_flash_wide_kernel_at_a_2048_decode(cuda, kind):
+    """Kernel B and #15 at the VAE mid-block of a 2048² decode (65536
+    positions, one split, 1024 key tiles a block), within kernel B's bound
+    of fp32 math; the plain version runs 4096 query rows at a time (all its
+    scores would take 17 GB)."""
+    g = torch.Generator(device=cuda).manual_seed(27)
+    q, k, v = (torch.randn(1, 65536, 1, 512, generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    fn, plain, axis = flash_attention_bshd, flash_attention_bshd_plain, 1
+    if kind == "bhsd":
+        fn, plain, axis = flash_attention, flash_attention_plain, 2
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    got = fn(q, k, v, 512**-0.5)
+    kf, vf = k.float(), v.float()
+    want = torch.cat([plain(q.narrow(axis, r, 4096).float(), kf, vf, 512**-0.5)
+                      for r in range(0, 65536, 4096)], dim=axis)
+    assert_flash_close(got, want)
 
 
 # (B, H, S, D) shapes of #15: SD3-medium 512² CFG, the VAE mid-block at 512²,
@@ -770,9 +855,13 @@ def test_int8_wrapper_raises_on_unsupported_input(cuda):
 # fp32 flash: kernel B (B, S, H, D) at the SD3, VAE-at-512² and FLUX 1024²
 # shapes, #15 (B, H, S, D) at the same, and small ragged ones; #14 at SD3's
 # padded four-rank chunk, a FLUX 2048² four-rank chunk and a ragged one.
+# Plus, for the 3xTF32 kernels, odd lengths around their 64-row (d = 64
+# and 128) and 32-row (d = 512) query blocks and their key tiles.
 FP32_FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512), (1, 4352, 24, 128), (1, 77, 3, 64),
-                     (2, 300, 1, 512), (1, 77, 3, 128)]
-FP32_STATS_SHAPES = [(2, 24, 295, 295, 64), (1, 24, 4160, 4160, 128), (2, 2, 150, 61, 128)]
+                     (2, 300, 1, 512), (1, 77, 3, 128), (1, 129, 2, 128), (2, 1025, 3, 128),
+                     (1, 33, 1, 512), (1, 1100, 2, 512), (1, 129, 2, 64), (2, 1025, 3, 64)]
+FP32_STATS_SHAPES = [(2, 24, 295, 295, 64), (1, 24, 4160, 4160, 128), (2, 2, 150, 61, 128),
+                     (2, 2, 150, 61, 64)]
 
 
 @pytest.mark.gpu
@@ -818,6 +907,26 @@ def test_flash_stats_fp32_kernel_matches_plain(cuda, shape, part):
         assert torch.all(o == 0) and torch.all(l == 0) and torch.all(m == NEG_INF)
         return
     for a, w in zip(got, flash_attention_stats_plain(q, k, v, d**-0.5, vlen)):
+        assert_fp32_flash_close(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vlen", [0, 1, 31, 33, 4159])
+def test_flash_stats_fp32_kernel_at_odd_lengths(cuda, vlen):
+    """#14 in fp32 at d = 128 (the 3xTF32 kernel) over a FLUX 2048²
+    four-rank chunk's 4160 keys with 0, 1, 31, 33 and 4159 valid: within
+    2^-16 of each output's largest magnitude of the fp32 plain version; no
+    valid key exactly o = 0, l = 0, m = -1e30."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    q = torch.randn(1, 2, 4160, 128, generator=g, device=cuda)
+    k, v = (torch.randn(1, 2, 4160, 128, generator=g, device=cuda) for _ in range(2))
+    got = flash_attention_stats(q, k, v, 128**-0.5, vlen)
+    torch.cuda.synchronize()
+    if vlen == 0:
+        o, m, l = got
+        assert torch.all(o == 0) and torch.all(l == 0) and torch.all(m == NEG_INF)
+        return
+    for a, w in zip(got, flash_attention_stats_plain(q, k, v, 128**-0.5, vlen)):
         assert_fp32_flash_close(a, w)
 
 

@@ -33,6 +33,10 @@ from diffusionkit_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
     flash_attention_stats,
     flash_attention_stats_plain,
+    flash_wide_merge_plain,
+    flash_wide_partials_plain,
+    wide_chunk,
+    wide_split,
 )
 from diffusionkit_tpu_torch.ops.fused_quant import mod_ln, mod_ln_plain
 from diffusionkit_tpu_torch.sampler import FluxSampler, ModelSamplingDiscreteFlow
@@ -279,6 +283,53 @@ def test_flash_bhsd_plain_matches_pallas_interpret(shape):
     launches = flash_attention.launches
     np.testing.assert_array_equal(_np(flash_attention(tq, tk, tv, scale)), _np(got))
     assert flash_attention.launches == launches
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("n_split", [1, 2, 3])
+def test_flash_wide_split_kv_matches_pallas_interpret(layout, n_split):
+    """The d=512 kernel's split-KV arithmetic in plain torch: the keys in
+    n_split chunks of whole 64-key tiles (300 keys: 320 / 192 + 108 /
+    128 + 128 + 44), each chunk's partials with kernel B's numerics (bshd)
+    or #15's (bhsd), merged as the merge kernel merges them; against the
+    Pallas kernel B and flash_attention in interpret mode, within
+    test_flash_bhsd_plain_matches_pallas_interpret's tolerance."""
+    shape = (1, 300, 1, 512) if layout == "bshd" else (1, 1, 300, 512)
+    rs = np.random.RandomState(23)
+    q, k, v = (rs.randn(*shape).astype(np.float32) for _ in range(3))
+    scale = 512**-0.5
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    if layout == "bshd":
+        want = _np(jax_flash_bshd(jq, jk, jv, scale=scale, interpret=True))
+        tq, tk, tv = (t.transpose(1, 2) for t in (tq, tk, tv))
+    else:
+        want = _np(jax_flash.flash_attention(jq, jk, jv, scale=scale, interpret=True))
+    chunk = wide_chunk(300, n_split)
+    o, m, l = flash_wide_partials_plain(tq, tk, tv, scale, layout == "bhsd", chunk)
+    assert o.shape == (n_split, 1, 1, 300, 512) and m.shape == l.shape == (n_split, 1, 1, 300)
+    got = flash_wide_merge_plain(o, m, l, torch.float32)
+    if layout == "bshd":
+        got = got.transpose(1, 2)
+    np.testing.assert_allclose(_np(got), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("s", [40, 300, 1100, 4096, 4100, 16384, 65536])
+@pytest.mark.parametrize("b", [1, 2])
+def test_wide_split_fills_the_card_with_whole_tiles(s, b):
+    """wide_split on 132 SMs: two chunks at the VAE's 4096 positions, one
+    at 16384 and 65536; chunks of whole 64-key tiles, at least two tiles a
+    chunk where there are two, every chunk holding a key, and at least the
+    SMs' worth of blocks where the keys allow it."""
+    n, chunk = wide_split(b, 1, s, 132)
+    tiles = -(-s // 64)
+    assert chunk % 64 == 0 and (n - 1) * chunk < s <= n * chunk
+    assert n == 1 or chunk >= 128
+    assert b * tiles * n <= 132 or n == 1
+    if s == 4096 and b == 1:
+        assert (n, chunk) == (2, 2048)
+    if s >= 16384:
+        assert n == 1
 
 
 # The fp32 bound the card holds each fp32 flash kernel to against its plain

@@ -181,25 +181,58 @@ def test_microbench_int8_runs_on_the_cpu():
     assert microbench_int8.launches(16) == {"int8_dot": 17}
 
 
-def test_bench_flash_runs_on_the_cpu():
-    """bench_flash at a tiny ragged shape on the CPU: one row per kernel and
-    the library's attention, no time taken, the plain versions of kernel B
-    (its output transposed), #15, #14 and the library's attention agreeing
-    within bf16 rounding; no kernel launches on the CPU."""
+@pytest.mark.parametrize("shape,dtype", [((1, 40, 2, 64), torch.bfloat16),
+                                         ((1, 40, 1, 512), torch.bfloat16),
+                                         ((1, 40, 2, 64), torch.float32),
+                                         ((1, 40, 2, 128), torch.float32),
+                                         ((1, 40, 1, 512), torch.float32)])
+def test_bench_flash_runs_on_the_cpu(shape, dtype):
+    """bench_flash at a tiny ragged shape on the CPU, in bf16 and fp32 and
+    at d=512: one row per kernel (#14 not at d=512) and the library's
+    attention, no time taken, the plain versions of kernel B (its output
+    transposed), #15, #14 and the library's attention agreeing within bf16
+    rounding (fp32: 1e-5); no kernel launches on the CPU."""
     from diffusionkit_tpu_torch.ops import flash_attention as fa
     from diffusionkit_tpu_torch.tools import bench_flash
 
     wrappers = (fa.flash_attention_bshd, fa.flash_attention, fa.flash_attention_stats)
     launches = [fn.launches for fn in wrappers]
-    rows = bench_flash.run([(1, 40, 2, 64)], device="cpu")
-    assert [r["name"] for r in rows] == list(bench_flash.NAMES)
+    rows = bench_flash.run([shape], device="cpu", dtype=dtype)
+    names = [n for n in bench_flash.NAMES if shape[-1] != 512 or n != "flash_attention_stats"]
+    assert [r["name"] for r in rows] == names
     assert all(r["ms"] is None and r["tflops"] is None for r in rows)
     out = {r["name"]: r["out"].float() for r in rows}
     want = out["flash_attention_bshd"].transpose(1, 2)
-    assert want.shape == (1, 2, 40, 64)
-    for name in ("flash_attention", "flash_attention_stats", "sdpa"):
-        assert torch.allclose(out[name], want, atol=2e-2, rtol=0), name
+    b, s, h, d = shape
+    assert want.shape == (b, h, s, d)
+    assert all(r["out"].dtype == (torch.float32 if r["name"] == "flash_attention_stats" else dtype)
+               for r in rows)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for name in names[1:]:
+        assert torch.allclose(out[name], want, atol=tol, rtol=0), name
     assert [fn.launches for fn in wrappers] == launches
+
+
+@pytest.mark.parametrize("setting", [True, False])
+def test_bench_flash_leaves_the_tf32_setting_as_it_found_it(setting, monkeypatch):
+    """bench_flash turns TF32 matmuls off for an fp32 run only, and puts the
+    caller's setting back after it."""
+    from diffusionkit_tpu_torch.tools import bench_flash
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", setting)
+    seen = []
+    real = bench_flash._rows
+
+    def rows(*args):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(*args)
+
+    monkeypatch.setattr(bench_flash, "_rows", rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        bench_flash.run([(1, 8, 1, 64)], device="cpu", dtype=dtype)
+        assert torch.backends.cuda.matmul.allow_tf32 == setting
+    assert seen == [False, setting]
+
 
 # Kernel names as torch.profiler reports them, demangled and mangled, and
 # the family chip_smoke.py's device-time split files each under.
@@ -258,6 +291,28 @@ PROFILER_NAMES = [
      "w4a8_matmul"),
     ("void (anonymous namespace)::dequant_w8_kernel(unsigned int const*, float const*, "
      "float const*, signed char*, int, int, int)", "dequant_w8"),
+    ("void (anonymous namespace)::flash_fwd_wide_sm90<false>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, __nv_bfloat16*, float*, float*, float*, int, int, int, long long, "
+     "long long, long long, float)", "flash_attention_bshd"),
+    ("_ZN12_GLOBAL__N_119flash_fwd_wide_sm90ILb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16PfS4_"
+     "S4_iiixxxf", "flash_attention"),
+    ("void (anonymous namespace)::flash_wide_merge<false>(float const*, float const*, "
+     "float const*, __nv_bfloat16*, int, long long, long long, long long)",
+     "flash_attention_bshd"),
+    ("_ZN12_GLOBAL__N_116flash_wide_mergeILb1EEEvPKfS2_S2_P13__nv_bfloat16ixxx",
+     "flash_attention"),
+    ("void (anonymous namespace)::flash_fwd_3xtf32<0>(float const*, float const*, float const*, "
+     "float*, int, (anonymous namespace)::Strides, (anonymous namespace)::Strides, "
+     "(anonymous namespace)::Strides, (anonymous namespace)::Strides, float)",
+     "flash_attention_bshd"),
+    ("_ZN12_GLOBAL__N_116flash_fwd_3xtf32ILi1EEEvPKfS2_S2_PfiNS_7StridesES4_S4_S4_f",
+     "flash_attention"),
+    ("void (anonymous namespace)::flash_fwd_3xtf32_sm90<64, 2>(float const*, float const*, "
+     "float const*, float*, float*, float*, int, int, (anonymous namespace)::Strides, "
+     "(anonymous namespace)::Strides, (anonymous namespace)::Strides, "
+     "(anonymous namespace)::Strides, float)", "flash_attention_stats"),
+    ("_ZN12_GLOBAL__N_121flash_fwd_3xtf32_sm90ILi128ELi0EEEvPKfS2_S2_PfS3_S3_iiNS_7StridesES4_S4_"
+     "S4_S4_f", "flash_attention_bshd"),
 ]
 
 
@@ -281,6 +336,38 @@ def test_chip_smoke_files_each_kernel_under_its_family(chip_smoke, name, family)
     kernel, on each flash and int8 GEMM instantiation's name (#14 on the
     Hopper kernel is not #15 or kernel B, #16 on the Hopper GEMM not #11)."""
     assert chip_smoke.family(name) == family
+
+
+PTXAS_LOG = """
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_fwd_wide_sm90ILb0EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_fwd_wide_sm90ILb0EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 203 registers, used 2 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_fwd_bhsd_smallILi64ELb1EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_fwd_bhsd_smallILi64ELb1EEEv
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size
+"""
+
+
+@pytest.mark.parametrize("bad", [None, "spill", "C7512"])
+def test_chip_smoke_ptxas_report_holds_the_new_kernels_to_no_spill(chip_smoke, tmp_path, bad):
+    """chip_smoke's phase-2 report on a ptxas log: an older kernel's spill is
+    reported and allowed, a spill in the d=512 or 3xTF32 flash kernels or a
+    C7512 line anywhere fails the phase."""
+    log = PTXAS_LOG
+    if bad == "spill":
+        log = log.replace("0 bytes spill stores", "16 bytes spill stores")
+    elif bad == "C7512":
+        log += ("ptxas /tmp/x.ptx, line 9; warning : (C7512) Potential Performance Loss: "
+                "wgmma.mma_async instructions are serialized\n")
+    path = tmp_path / "lib.log"
+    path.write_text(log)
+    if bad is None:
+        chip_smoke.ptxas_report(path)
+    else:
+        with pytest.raises(AssertionError, match="ptxas"):
+            chip_smoke.ptxas_report(path)
 
 
 SASS_OLD = """
