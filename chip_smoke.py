@@ -8,7 +8,8 @@ Phases, each raising on failure (the script then exits non-zero):
   2. build the hand-written kernels from csrc/ (one nvcc per source, in
      parallel; sm_90a) and print each kernel's registers and spill bytes
      from ptxas's report, failing on a C7512 ("wgmma serialized") or on a
-     spill in the d=512 and 3xTF32 flash kernels;
+     spill in the d=512 and 3xTF32 flash kernels or the Hopper main loops of
+     kernels E, C and #13;
   3. each kernel against its plain torch version at the main paths' shapes,
      in bf16, against the plain math run in fp32 on the same bf16 inputs:
      mod_ln and flash attention at the SD3 shapes, flash attention at d=128
@@ -26,7 +27,8 @@ Phases, each raising on failure (the script then exits non-zero):
      four modes) against their plain versions run on the card on the same
      inputs, at the FLUX w4a8 shapes plus M=1, a ragged M and group 32, and
      their device times beside the plain versions' and kernel C's at the
-     same (M, K, N);
+     same (M, K, N), and kernel E's in mode plain at M >= 256 beside #10
+     then #11 (mat_pl, checked bit-identical to E), its yardstick;
   3-4c. the kernels of the w8a8 and int8 modes against their plain versions
      on the card: gelu_quantize and w8_matmul at the SD3-medium w8a8 and
      T5-XXL w8a8 shapes, int8_matmul at the SD3-medium int8 shapes, kernel
@@ -212,20 +214,20 @@ KERNELS = {
                "diffusionkit_tpu/ops/fused_quant.py:284"),
     "flash_attention_bshd": ("diffusionkit_tpu_torch/csrc/flash_attention_sm90.cu",
                              "diffusionkit_tpu/ops/flash_attention.py:343"),
-    "int4_matmul": ("diffusionkit_tpu_torch/csrc/int4_matmul.cu",
+    "int4_matmul": ("diffusionkit_tpu_torch/csrc/int4_matmul_sm90.cu",
                     "diffusionkit_tpu/ops/int4_matmul.py:74"),
     "mod_ln_quantize": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
                         "diffusionkit_tpu/ops/fused_quant.py:313"),
     "quantize": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
                  "diffusionkit_tpu/ops/fused_quant.py:246"),
-    **{f"w4a8_matmul[{mode}]": ("diffusionkit_tpu_torch/csrc/w4a8_matmul.cu",
+    **{f"w4a8_matmul[{mode}]": ("diffusionkit_tpu_torch/csrc/w4a8_matmul_sm90.cu",
                                 "diffusionkit_tpu/ops/w4a8_matmul.py:268")
        for mode in MODES},
     "gelu_quantize": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
                       "diffusionkit_tpu/ops/fused_quant.py:229"),
     "w8_matmul": ("diffusionkit_tpu_torch/csrc/w8_matmul_sm90.cu",
                   "diffusionkit_tpu/ops/w4a8_matmul.py:530"),
-    "int8_matmul": ("diffusionkit_tpu_torch/csrc/int4_matmul.cu",
+    "int8_matmul": ("diffusionkit_tpu_torch/csrc/int4_matmul_sm90.cu",
                     "diffusionkit_tpu/ops/int4_matmul.py:244"),
     "flash_attention_stats": ("diffusionkit_tpu_torch/csrc/flash_attention_sm90.cu",
                               "diffusionkit_tpu/ops/flash_attention.py:432"),
@@ -241,11 +243,11 @@ KERNELS = {
 # summary names beside it.
 SYMBOLS = {
     "mod_ln": "mod_ln_kernel", "flash_attention_bshd": "flash_fwd_sm90<D, false>",
-    "int4_matmul": "int4_mm", "mod_ln_quantize": "mod_ln_quant_kernel",
+    "int4_matmul": "int4_mm_sm90<BN>", "mod_ln_quantize": "mod_ln_quant_kernel",
     "quantize": "quantize_kernel",
-    **{f"w4a8_matmul[{mode}]": "w4a8_mm" for mode in MODES},
+    **{f"w4a8_matmul[{mode}]": "w4a8_mm_sm90<MODE, BN>" for mode in MODES},
     "gelu_quantize": "gelu_quantize_kernel", "w8_matmul": "w8_mm_sm90<bf16|float, BN>",
-    "int8_matmul": "int8_mm", "flash_attention_stats": "flash_fwd_sm90_stats<128>",
+    "int8_matmul": "int8_mm_sm90<BN>", "flash_attention_stats": "flash_fwd_sm90_stats<128>",
     "flash_attention": "flash_fwd_sm90<D, true>", "dequant_w8": "dequant_w8_kernel",
     "int8_dot": "w8_mm_sm90<int, BN>",
 }
@@ -253,13 +255,16 @@ SYMBOLS = {
 # kernels (3xTF32 on wgmma at d = 64 and 128, on mma.sync at d = 512);
 # kernel B and #15 at d = 512 (the split-KV wgmma kernel and its
 # merge); #14 at d = 64 (flash_fwd_bhsd_small<64, true>); #11 and #16 at
-# M <= 16 and at K % 128 != 0 (w8_mm, the mma.sync main loop).
+# M <= 16 and at K % 128 != 0 (w8_mm, the mma.sync main loop); C and #13
+# at M <= 16 and E's mode plain there (the mma.sync tiles int4_mm,
+# int8_mm and w4a8_mm).
 FP32_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_f32.cu"
 FP32_SYMBOLS = ("flash_fwd_3xtf32_sm90<64 | 128, mode> (d = 64, 128), "
                 "flash_fwd_3xtf32<mode> (d = 512)")
 WIDE_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_wide_sm90.cu"
 SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention.cu"
 W8_SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/w8_matmul.cu"
+C_SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/int4_matmul.cu"
 FLASH_KERNELS = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 OTHER_SOURCES = {
     "flash_attention_bshd": {"fp32_source": FP32_SOURCE, "fp32_symbols": FP32_SYMBOLS,
@@ -273,6 +278,10 @@ OTHER_SOURCES = {
                               "d64_symbols": "flash_fwd_bhsd_small<64, true>"},
     "w8_matmul": {"small_m_source": W8_SMALL_SOURCE},
     "int8_dot": {"small_m_source": W8_SMALL_SOURCE},
+    "int4_matmul": {"small_m_source": C_SMALL_SOURCE, "small_m_symbol": "int4_mm<1, 1, 2>"},
+    "int8_matmul": {"small_m_source": C_SMALL_SOURCE, "small_m_symbol": "int8_mm<1, 1, 2>"},
+    "w4a8_matmul[plain]": {"small_m_source": "diffusionkit_tpu_torch/csrc/w4a8_matmul.cu",
+                           "small_m_symbol": "w4a8_mm<PLAIN, 1, 1, 2>"},
 }
 COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "int4_matmul": int4_matmul, "mod_ln_quantize": mod_ln_quantize,
@@ -812,6 +821,21 @@ def check_w4a8_result(mode, got, want, label) -> float:
     return err
 
 
+def materialised_ms(args, label: str) -> float:
+    """Kernel E's yardstick at one plain shape: #10 dequant_w8 materialising
+    the int8 grid, then #11 w8_matmul on it, per call (the tool's mat_pl row,
+    with E's bias), checked bit-identical to E first; its device time."""
+    x8, q4, scales, zeros, ws, xs, bias = args
+    s8, z8 = scaled_affine(scales, zeros, ws)
+    run = lambda: w8_matmul(x8, dequant_w8(q4, s8, z8), ws, xs, bias)  # noqa: E731
+    ok = torch.equal(run(), w4a8_matmul(*args))
+    log(f"  dequant_w8 then w8_matmul (mat_pl) {label}: bit-identical to kernel E: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"mat_pl {label} disagrees with kernel E")
+    return device_ms(run)
+
+
 def w4a8_kernels(gen, tag: str):
     """Phases 3-4b: kernels A', D and E against their plain versions on the
     card, then each one's device time beside its plain version's (and, for
@@ -871,11 +895,16 @@ def w4a8_kernels(gen, tag: str):
             plain = device_ms(lambda: w4a8_matmul_plain(*args, mode=mode, **extra), reps=5)
             x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
             c_ms = device_ms(lambda: int4_matmul(x, *args[1:4]))
+            more = {}
+            if mode == "plain" and m >= 256:
+                more["mat_pl_ms"] = materialised_ms(args, label=f"{shape}")
             tops = 2 * m * k * n / (ms / 1e3) / 1e12
-            t = timing(name, shape, ms, plain, int4_matmul_ms=c_ms)
+            t = timing(name, shape, ms, plain, int4_matmul_ms=c_ms, **more)
+            mat = (f", #10 then #11 (mat_pl) {more['mat_pl_ms']!r} ms (kernel at "
+                   f"{ms / more['mat_pl_ms']!r}x its time)" if more else "")
             log(f"  {name} (M, K, N, group) {shape}: kernel {ms!r} ms ({tops!r} TOP/s, "
                 f"{args[1].numel() * 4 / ms / 1e9!r} TB/s of packed weight), plain {plain!r} ms, "
-                f"kernel C at this shape {c_ms!r} ms, {bound_note(t)} [{tag}]")
+                f"kernel C at this shape {c_ms!r} ms{mat}, {bound_note(t)} [{tag}]")
             times[name].append(t)
             del args, extra, x
         torch.cuda.empty_cache()
@@ -1996,10 +2025,11 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
     return families
 
 
-# The kernels this slice wrote, held to 0 spill bytes (and, with the rest,
-# to no C7512, "wgmma serialized"): the d = 512 wgmma kernel and its merge,
-# and the 3xTF32 fp32 flash kernels.
-NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32")
+# The redesigned kernels, held to 0 spill bytes (and, with the rest, to no
+# C7512, "wgmma serialized"): the d = 512 wgmma kernel and its merge, the
+# 3xTF32 fp32 flash kernels, and the Hopper main loops of E, C and #13.
+NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32", "w4a8_mm_sm90",
+            "int4_mm_sm90", "int8_mm_sm90")
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")

@@ -8,21 +8,15 @@
 // each rounded: no FMA), ROUNDED TO BF16 before the product, the product is
 // accumulated in fp32 and the output rounded to bf16 once.
 //
-// Bound on the H100: at M >= 256 (the FLUX image stream, 4096 tokens; the
-// unified blocks, 4352; the text stream, 256) the kernel is tensor-core
-// bound: a (BM x 64) x (64 x 128) step is 2*BM*8192 flops against 4 KB of
-// packed weight and BM*128 bytes of x. The design dequantises each weight
-// tile ONCE per block into a bf16 (128 x 64) shared tile that every row of
-// the block's M tile reuses, so the dequantisation costs 1/BM of the
-// products. At M = 1 (the AdaLN `ada` GEMVs) it is bound by reading the
-// 4-bit weights (28 MB per dual-block `ada`); a 16-row tile keeps the wasted
-// tensor-core work small there. Split-K for the GEMV and wgmma/TMA
-// pipelining come later.
+// Two main loops run it: at M > 16 int4_matmul_sm90.cu (TMA, bf16 wgmma,
+// warp specialisation; its note), and here the AdaLN `ada` GEMVs (M <= 16,
+// ops/int4_matmul.py routes by M), bound by reading the 4-bit weights (28
+// MB per dual-block `ada`); a 16-row tile keeps the wasted tensor-core work
+// small there.
 //
 // Tiling: 256 threads (8 warps), BN = 128 columns, BK = 64 (a multiple of
 // every group size taken: 32, or a multiple of 64, so a tile never straddles
-// a group boundary it cannot see). BM = 128 (2 x 4 warps of 64 x 32), 64
-// (2 x 4 warps of 32 x 32) or 16 (1 x 8 warps of 16 x 16), picked by M.
+// a group boundary it cannot see), BM = 16 (1 x 8 warps of 16 x 16).
 // Per k tile: cp.async stages the x tile (16-byte chunks, rows past M
 // zero-filled: no padded copy of x), the packed (8 x 128) words and their
 // scale/zero rows into a double buffer, coalesced along N; the words of the
@@ -40,7 +34,7 @@
 // consecutive bytes: conflict-free) and writes them dequantised as one
 // 16-byte store into Bs[n][k]. One byte a weight instead of half: at the
 // M = 2 `ada` GEMVs it reads 14 MB (SD3 medium's 1536 x 9216) and is bound
-// by that; at M >= 256 it is tensor-core bound like C.
+// by that.
 
 #include "common.cuh"
 
@@ -249,14 +243,15 @@ int dispatch(const void* x, const void* qw, const void* scales, const void* zero
   if (M <= 0 || N <= 0 || K <= 0 || N % BN || K % BK || group <= 0 || K % group ||
       !(group == 32 || group % BK == 0) || lda < K || lda % 8 || M > 65535 * 128)
     return (int)cudaErrorInvalidValue;
+  if (M > 16) return (int)cudaErrorInvalidValue;  // int4_matmul_sm90.cu's
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 16) return launch<BITS, 1, 1, 2>(x, qw, scales, zeros, y, M, N, K, group, lda, st);
-  if (M <= 1024) return launch<BITS, 2, 2, 4>(x, qw, scales, zeros, y, M, N, K, group, lda, st);
-  return launch<BITS, 2, 4, 4>(x, qw, scales, zeros, y, M, N, K, group, lda, st);
+  return launch<BITS, 1, 1, 2>(x, qw, scales, zeros, y, M, N, K, group, lda, st);
 }
 
 }  // namespace
 
+// At M <= 16; the wrappers send M > 16 to the _sm90 entries
+// (int4_matmul_sm90.cu), which take the same arguments.
 extern "C" int dk_int4_matmul_bf16(const void* x, const void* q4, const void* scales,
                                    const void* zeros, void* y, int M, int N, int K, int group,
                                    long long lda, void* stream) {

@@ -88,6 +88,14 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// ---- ordinary shared-memory store (an operand a thread writes itself) -----
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
 // ---- named barriers -------------------------------------------------------
 
 // Barrier `id` (1..15; 0 is __syncthreads') over `n` threads, a multiple of
@@ -395,6 +403,26 @@ __device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t
 // bf16 forms above. s8 wgmma reads both operands K-major only; with
 // 128-byte rows a k32 step adds 32 bytes to `addr`, as a bf16 k16 step.
 
+// D (64 x 64) (+)= A (64 x 32) * B (32 x 64), int8 in, int32 out; A and B in
+// shared memory, both K-major; D is overwritten where scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_s8_n64(int (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 128) (+)= A (64 x 32) * B (32 x 128), int8 in, int32 out; A and B
 // in shared memory, both K-major; D is overwritten where scale_d is 0.
 __device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[64], uint64_t da, uint64_t db,
@@ -471,12 +499,14 @@ __device__ __forceinline__ void wgmma_ss_s8_n256(int (&d)[128], uint64_t da, uin
 
 // A tensor map of `rank` (<= 5) dims over `base`: dims innermost first, byte
 // strides of dims 1..rank-1 (multiples of 16), a box of `box` elements,
-// 128-byte swizzle (box[0] elements of 128 bytes at most).
+// 128-byte swizzle (box[0] elements of 128 bytes at most) unless `swizzle`
+// says otherwise (CU_TENSOR_MAP_SWIZZLE_NONE: the box lands row-major).
 // cuTensorMapEncodeTiled comes from the runtime's driver entry point.
 // Returns a cudaError_t.
 inline int encode_tmap(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank,
                        const void* base, const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box) {
+                       const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static const PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -495,7 +525,7 @@ inline int encode_tmap(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t ra
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
                             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }

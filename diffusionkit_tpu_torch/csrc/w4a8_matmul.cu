@@ -23,37 +23,26 @@
 // The reference's (M, 128) lane-broadcast scale tensors and its
 // [cos|cos|-sin|sin] table are TPU layouts and are not carried over.
 //
-// Bound on the H100: at M >= 256 (the FLUX image stream, 4096 rows; the
-// unified blocks, 4352; the text stream, 256) the products are
-// tensor-core work at the int8 rate, less what mma.sync loses against
-// wgmma; the requantisation of each packed tile (about eight ALU operations
-// per weight) costs 1/BM of that work per row, so the tiles are as tall as
-// the registers allow (128 or 256 rows). gelu_quant's row reduction spans
-// 512 columns: four 128-column blocks of one thread-block cluster exchange
-// their per-row partial absmax through distributed shared memory, so it
-// keeps the 128 x 128 tile of the plain mode. At M = 1 (the AdaLN `ada`
-// GEMVs) it is bound by reading the packed weight (28 MB for a dual block's
-// `ada`), in 16-row tiles. The nibble -> float and float -> int8 steps use
-// exact bit tricks (2^23 + q, and adding 1.5 * 2^23, which rounds half to
-// even), not the slow conversion instructions.
+// Two main loops run it. At M > 16, w4a8_matmul_sm90.cu (TMA, int8
+// wgmma, warp specialisation; every mode). Here, the `ada` GEMVs (mode
+// plain at M <= 16, ops/w4a8_matmul.py routes by M and mode): bound by
+// reading the packed weight (28 MB for a dual block's `ada`), in 16-row
+// tiles. The nibble -> float and float -> int8 steps use exact bit tricks
+// (2^23 + q, and adding 1.5 * 2^23, which rounds half to even), not the
+// slow conversion instructions.
 //
 // Tiling: 256 threads (8 warps), BK = 128 k per tile (four m16n8k32 steps
-// between barriers), warp tiles of 32 rows (16 at M <= 16) by 64 or 128
-// columns. Per k tile: cp.async stages the x8 tile (16-byte chunks, rows
-// past M zero-filled: no padded copy), the packed (16 x BN) words and their
-// scale/zero rows into a double buffer; each word (8 consecutive k of one
-// column) is requantised from shared memory into one 8-byte store of an
-// int8 tile Bs[n][k], rows padded to 144 bytes and lanes split over two
-// word rows so both those stores and the ldmatrix fragment loads are
-// bank-conflict free; then mma.sync m16n8k32 (s8 in, s32 out). Groups of
-// 32, 64 or a multiple of 128 (a tile never straddles a group it cannot
-// see). wgmma, TMA and warp specialisation come later.
-
-#include <cooperative_groups.h>
+// between barriers), warp tiles of 16 rows by 16 columns. Per k tile:
+// cp.async stages the x8 tile (16-byte chunks, rows past M zero-filled: no
+// padded copy), the packed (16 x BN) words and their scale/zero rows into a
+// double buffer; each word (8 consecutive k of one column) is requantised
+// from shared memory into one 8-byte store of an int8 tile Bs[n][k], rows
+// padded to 144 bytes and lanes split over two word rows so both those
+// stores and the ldmatrix fragment loads are bank-conflict free; then
+// mma.sync m16n8k32 (s8 in, s32 out). Groups of 32, 64 or a multiple of
+// 128 (a tile never straddles a group it cannot see).
 
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -66,8 +55,6 @@ constexpr int SROWS = BK / 32;               // scale rows per k tile (group 32 
 // The activation-scale tile of the FFN hidden: gelu_quant's column tile and
 // grouped_xs's k group. The reference's fc1 n block at every FLUX shape on
 // the CPU and on a v5e (its CPU tests hold this value); fixed here.
-constexpr int SCALE_TILE = 512;
-constexpr int HEAD = 128;                    // norm_rope head width
 
 enum Mode { PLAIN = 0, GELU_QUANT = 1, GROUPED_XS = 2, NORM_ROPE = 3 };
 
@@ -100,21 +87,14 @@ struct Layout {
   static constexpr size_t bytes = a + q + 2 * s + b + v;
 };
 
-// Blocks of one gelu_quant cluster: together they span one 512-column tile.
-template <int BN>
-constexpr int kCluster = SCALE_TILE / BN;
-
-// A 32 x 64 warp tile with int32 accumulators alone (plain, gelu_quant)
-// asks for two blocks an SM (registers <= 128 a thread).
+// Two blocks an SM (registers <= 128 a thread).
 template <int MODE, int WARPS_M, int MT, int NT>
-__global__ void __launch_bounds__(NTHREADS, MODE != GROUPED_XS && MT * NT <= 16 ? 2 : 1)
+__global__ void __launch_bounds__(NTHREADS, 2)
     w4a8_mm(const Params p) {
   constexpr int WARPS_N = 8 / WARPS_M;
   constexpr int BM = WARPS_M * MT * 16;
   constexpr int BN = WARPS_N * NT * 8;
   static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
-  static_assert(MODE != NORM_ROPE || NT * 8 == HEAD, "a warp spans one head");
-  static_assert(MODE != GELU_QUANT || SCALE_TILE % BN == 0, "a cluster spans one scale tile");
   using L = Layout<BM, BN>;
   constexpr int QLD = L::QLD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -126,7 +106,6 @@ __global__ void __launch_bounds__(NTHREADS, MODE != GROUPED_XS && MT * NT <= 16 
   float* Rs = reinterpret_cast<float*>(smem + L::a + L::q + 2 * L::s + L::b);
   float* Ws = Rs + BN;
   float* Bv = Ws + BN;
-  float* Nw = Bv + BN;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
@@ -140,9 +119,6 @@ __global__ void __launch_bounds__(NTHREADS, MODE != GROUPED_XS && MT * NT <= 16 
     Rs[n] = __fdiv_rn(1.f, ws);
     Ws[n] = ws;
     Bv[n] = p.bias ? __bfloat162float(p.bias[n0 + n]) : 0.f;
-    if constexpr (MODE == NORM_ROPE) {
-      if (n < HEAD) Nw[n] = __bfloat162float(p.norm_w[n]);
-    }
   }
 
   auto load_stage = [&](int kt, int buf) {
@@ -177,8 +153,6 @@ __global__ void __launch_bounds__(NTHREADS, MODE != GROUPED_XS && MT * NT <= 16 
   const int g = lane >> 2, t = lane & 3;
 
   int acc[MT][NT][4] = {};
-  constexpr int FM = MODE == GROUPED_XS ? MT : 1, FN = MODE == GROUPED_XS ? NT : 1;
-  float accf[FM][FN][4] = {};
 
   load_stage(0, 0);
   for (int kt = 0; kt < KT; ++kt) {
@@ -226,32 +200,10 @@ __global__ void __launch_bounds__(NTHREADS, MODE != GROUPED_XS && MT * NT <= 16 
       }
     }
 
-    if constexpr (MODE == GROUPED_XS) {
-      constexpr int PER = SCALE_TILE / BK;
-      if ((kt + 1) % PER == 0) {  // fold this 512-wide k group's exact partial
-        const int kg = kt / PER, KG = K / SCALE_TILE;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = m0 + wm * MT * 16 + mt * 16 + g + 8 * h;
-            const float xs = row < M ? p.xscale[(long long)row * KG + kg] : 0.f;
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                int& part = acc[mt][nt][2 * h + e];
-                float& f = accf[mt][nt][2 * h + e];
-                f = __fadd_rn(f, __fmul_rn(__int2float_rn(part), xs));
-                part = 0;
-              }
-          }
-      }
-    }
     __syncthreads();  // As[buf] and Bs are free for the next tile
   }
 
-  if constexpr (MODE == PLAIN || MODE == GROUPED_XS) {
+  {
     bf16* y = static_cast<bf16*>(p.y);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -259,17 +211,14 @@ __global__ void __launch_bounds__(NTHREADS, MODE != GROUPED_XS && MT * NT <= 16 
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + wm * MT * 16 + mt * 16 + g + 8 * h;
         if (row >= M) continue;
-        const float xs = MODE == PLAIN ? p.xscale[row] : 0.f;
+        const float xs = p.xscale[row];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const int cl = wn * NT * 8 + nt * 8 + 2 * t;
           float v[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            if constexpr (MODE == PLAIN)
-              v[e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h + e]), xs), Ws[cl + e]);
-            else
-              v[e] = __fmul_rn(accf[mt][nt][2 * h + e], Ws[cl + e]);
+            v[e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h + e]), xs), Ws[cl + e]);
             v[e] = __fadd_rn(v[e], Bv[cl + e]);
           }
           *reinterpret_cast<uint32_t*>(y + (long long)row * N + n0 + cl) = dk::pack_bf16(v[0], v[1]);
@@ -277,123 +226,6 @@ __global__ void __launch_bounds__(NTHREADS, MODE != GROUPED_XS && MT * NT <= 16 
       }
   }
 
-  if constexpr (MODE == NORM_ROPE) {
-    bf16* y = static_cast<bf16*>(p.y);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * MT * 16 + mt * 16 + g + 8 * h;
-        const bool live = row < M;
-        const float xs = live ? p.xscale[row] : 0.f;
-        float v[NT][2];
-        float ss = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int cl = wn * NT * 8 + nt * 8 + 2 * t + e;
-            v[nt][e] = __fadd_rn(
-                __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h + e]), xs), Ws[cl]), Bv[cl]);
-            ss += v[nt][e] * v[nt][e];
-          }
-        // The head's 128 columns sit in the 4 lanes of this row (t = 0..3).
-        ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-        ss += __shfl_xor_sync(0xffffffffu, ss, 2);
-        const float inv = __frsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)HEAD), p.eps));
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            v[nt][e] = __fmul_rn(__fmul_rn(v[nt][e], inv), Nw[nt * 8 + 2 * t + e]);
-        if (!live) continue;
-        const long long cs = (long long)(row % p.S) * (HEAD / 2);
-        bf16* out = y + (long long)row * N + n0 + wn * HEAD;
-#pragma unroll
-        for (int nt = 0; nt < NT / 2; ++nt) {
-          float lo[2], hi[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = nt * 8 + 2 * t + e;
-            const float c = p.cos[cs + j], s = p.sin[cs + j];
-            const float x1 = v[nt][e], x2 = v[nt + NT / 2][e];
-            lo[e] = __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s));
-            hi[e] = __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s));
-          }
-          const int j0 = nt * 8 + 2 * t;
-          *reinterpret_cast<uint32_t*>(out + j0) = dk::pack_bf16(lo[0], lo[1]);
-          *reinterpret_cast<uint32_t*>(out + HEAD / 2 + j0) = dk::pack_bf16(hi[0], hi[1]);
-        }
-      }
-  }
-
-  if constexpr (MODE == GELU_QUANT) {
-    // Per-row partial absmax of this block's columns: [WARPS_N][BM] floats
-    // over As (free after the loop), read by the cluster's other blocks.
-    constexpr int CL = kCluster<BN>;
-    float* red = reinterpret_cast<float*>(smem);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rl = wm * MT * 16 + mt * 16 + g + 8 * h;
-        const int row = m0 + rl;
-        const float xs = row < M ? p.xscale[row] : 0.f;
-        float mx = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int cl = wn * NT * 8 + nt * 8 + 2 * t + e;
-            int& a = acc[mt][nt][2 * h + e];
-            const float y = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(a), xs), Ws[cl]), Bv[cl]);
-            const float gv = dk::gelu_as(y);
-            a = __float_as_int(gv);  // the accumulator register now holds GELU(y)
-            mx = fmaxf(mx, fabsf(gv));
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        if (t == 0) red[wn * BM + rl] = mx;
-      }
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();  // every block's partials are written
-    float amax[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rl = wm * MT * 16 + mt * 16 + g + 8 * h;
-        float a = 0.f;
-#pragma unroll
-        for (int r = 0; r < CL; ++r) {
-          const float* rr = cluster.map_shared_rank(red, r);
-#pragma unroll
-          for (int w = 0; w < WARPS_N; ++w) a = fmaxf(a, rr[w * BM + rl]);
-        }
-        amax[mt][h] = fmaxf(a, 1e-8f);
-      }
-    cluster.sync();  // no block leaves while another still reads its partials
-    int8_t* y8 = static_cast<int8_t*>(p.y);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * MT * 16 + mt * 16 + g + 8 * h;
-        if (row >= M) continue;
-        const float r127 = __fdiv_rn(127.f, amax[mt][h]);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int cl = wn * NT * 8 + nt * 8 + 2 * t;
-          const int q0 = dk::round_clip_i8(__fmul_rn(__int_as_float(acc[mt][nt][2 * h]), r127));
-          const int q1 = dk::round_clip_i8(__fmul_rn(__int_as_float(acc[mt][nt][2 * h + 1]), r127));
-          *reinterpret_cast<uint16_t*>(y8 + (long long)row * N + n0 + cl) =
-              (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
-        }
-        if (cluster.block_rank() == 0 && wn == 0 && t == 0)
-          p.yscale[(long long)row * (N / SCALE_TILE) + blockIdx.x / CL] =
-              __fdiv_rn(amax[mt][h], 127.f);
-      }
-  }
 }
 
 template <int MODE, int WARPS_M, int MT, int NT>
@@ -407,29 +239,14 @@ int launch(const Params& p, cudaStream_t st) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
-  if constexpr (MODE == GELU_QUANT) {  // kCluster blocks along N share one scale tile
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(NTHREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = kCluster<BN>;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, p);
-    if (le != cudaSuccess) return (int)le;
-  } else {
-    kernel<<<grid, NTHREADS, smem, st>>>(p);
-  }
+  kernel<<<grid, NTHREADS, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Mode plain at M <= 16; the wrapper sends every other call to
+// dk_w4a8_matmul_sm90 (w4a8_matmul_sm90.cu), which takes the same arguments.
 extern "C" int dk_w4a8_matmul(const void* x8, const void* q4, const void* scales,
                               const void* zeros, const void* wscale, const void* xscale,
                               const void* bias, const void* norm_w, const void* cos,
@@ -438,9 +255,7 @@ extern "C" int dk_w4a8_matmul(const void* x8, const void* q4, const void* scales
   if (M <= 0 || N <= 0 || K <= 0 || K % BK || group <= 0 || K % group ||
       !(group == 32 || group == 64 || group % BK == 0) || lda < K || lda % 16)
     return (int)cudaErrorInvalidValue;
-  if (mode == GROUPED_XS && K % SCALE_TILE) return (int)cudaErrorInvalidValue;
-  if (mode == GELU_QUANT && (N % SCALE_TILE || !yscale)) return (int)cudaErrorInvalidValue;
-  if (mode == NORM_ROPE && (S <= 0 || !norm_w || !cos || !sin)) return (int)cudaErrorInvalidValue;
+  if (mode != PLAIN || M > 16) return (int)cudaErrorInvalidValue;
   Params p;
   p.x8 = static_cast<const int8_t*>(x8);
   p.q4 = static_cast<const uint32_t*>(q4);
@@ -462,16 +277,5 @@ extern "C" int dk_w4a8_matmul(const void* x8, const void* q4, const void* scales
   p.group = group;
   p.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case PLAIN:
-      return M <= 16 ? launch<PLAIN, 1, 1, 2>(p, st) : launch<PLAIN, 4, 2, 8>(p, st);
-    case NORM_ROPE:
-      return launch<NORM_ROPE, 8, 2, 16>(p, st);
-    case GELU_QUANT:
-      return launch<GELU_QUANT, 4, 2, 8>(p, st);
-    case GROUPED_XS:
-      return launch<GROUPED_XS, 4, 2, 8>(p, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch<PLAIN, 1, 1, 2>(p, st);
 }

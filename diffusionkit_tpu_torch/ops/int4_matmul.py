@@ -6,8 +6,11 @@ Replaces the Pallas kernel ``diffusionkit_tpu/ops/int4_matmul.py:int4_matmul``
 and 38 single-stream blocks). It computes ``y[M, N] = x[M, K] @ W`` where
 ``W = q * scale + zero`` is dequantised in fp32 from the packed words of
 ``ops/quantized.py``, ROUNDED TO x's DTYPE before the product, accumulated
-in fp32 and rounded once. The CUDA source is ``csrc/int4_matmul.cu``; the
-note there says what bounds it and how it is tiled.
+in fp32 and rounded once. Two CUDA main loops run it, picked by
+``dequant_route``: at M > 16 ``csrc/int4_matmul_sm90.cu`` (TMA, bf16
+``wgmma``, the dequantisation beside the products), at M <= 16 (the ``ada``
+GEMVs) the ``mma.sync`` tile of ``csrc/int4_matmul.cu``; the notes there say
+what bounds each and how it is tiled.
 
 ``int4_matmul`` launches the kernel for a CUDA tensor and raises on what it
 does not take (bf16 x, K a multiple of 64, N of 128, group 32 or a multiple
@@ -19,8 +22,8 @@ masks the ragged M edge itself.
 Kernel #13 ``int8_matmul`` replaces the reference's ``int8_matmul``
 (``_kernel8``), the int8 weight-only mode's product: the same with ``q8``
 uint8 (K, N) bytes, values 0..255, in place of the nibbles (``int8_linear``
-applies it as ``int4_linear`` applies C). Its CUDA source is C's, with the
-byte tile loader (``csrc/int4_matmul.cu``).
+applies it as ``int4_linear`` applies C). Its CUDA sources are C's, with
+the byte tile loader, routed the same way.
 """
 
 from __future__ import annotations
@@ -32,8 +35,35 @@ import torch.nn.functional as F
 
 from . import kernels
 
-# Kernel tiling constraints (csrc/int4_matmul.cu).
+# Kernel tiling constraints (csrc/int4_matmul.cu, csrc/int4_matmul_sm90.cu).
 K_TILE, N_TILE = 64, 128
+# Rows at or below which C and #13 run their 16-row mma.sync tile (the
+# `ada` GEMVs); above, the Hopper main loop's 256-row blocks.
+SMALL_M = 16
+
+
+def dequant_route(m: int) -> str:
+    """The main loop of kernels C and #13 for ``m`` rows: ``"sm90"``
+    (csrc/int4_matmul_sm90.cu) above ``SMALL_M``, else ``"tile"``
+    (csrc/int4_matmul.cu)."""
+    return "sm90" if m > SMALL_M else "tile"
+
+
+def dequant_kernel(name: str, m: int, k: int, k_w: int, n: int, groups: int) -> str:
+    """The C entry that runs kernel C (``name`` int4_matmul) or #13
+    (int8_matmul) at these sizes, on the main loop ``dequant_route`` picks,
+    or ValueError for what neither loop takes: K = ``k_w`` a multiple of
+    64, N of 128, group K / groups 32 or a multiple of 64, at any M."""
+    if k_w != k or k % K_TILE or n % N_TILE:
+        raise ValueError(f"{name}: K={k} must match the weight's {k_w} and be a multiple of "
+                         f"{K_TILE}, N={n} a multiple of {N_TILE}")
+    if groups == 0 or k % groups:
+        raise ValueError(f"{name}: {groups} scale rows do not divide K={k}")
+    group = k // groups
+    if not (group == 32 or group % 64 == 0):
+        raise ValueError(f"{name}: group size {group} must be 32 or a multiple of 64")
+    route = "_sm90" if dequant_route(m) == "sm90" else ""
+    return f"dk_{name}{route}_bf16"
 
 
 def dequantize_int4(
@@ -74,19 +104,19 @@ def int4_matmul(
     if q4.dtype != torch.int32 or q4.ndim != 2:
         raise TypeError(f"int4_matmul: q4 must be int32 (K/8, N), got {q4.dtype} "
                         f"{tuple(q4.shape)}")
-    y = _launch("int4_matmul", "dk_int4_matmul_bf16", x, q4, q4.shape[0] * 8, q4.shape[1],
-                scales, zeros)
+    y = _launch("int4_matmul", x, q4, q4.shape[0] * 8, q4.shape[1], scales, zeros)
     if y.shape[0]:
         int4_matmul.launches += 1
     return y
 
 
-def _launch(name: str, symbol: str, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
+def _launch(name: str, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
             scales: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
-    """Check what kernels C and #13 take and launch ``symbol``: x bf16 (M, K)
-    with a contiguous last axis and 16-byte aligned rows, K = ``k_w`` a
-    multiple of 64, N of 128, group 32 or a multiple of 64; the packed
-    weight ``qw``, scales and zeros (K/g, N) fp32, contiguous."""
+    """Check what kernels C and #13 take and launch ``name``'s entry for
+    this M (``dequant_kernel``): x bf16 (M, K) with a contiguous last axis
+    and 16-byte aligned rows, K = ``k_w`` a multiple of 64, N of 128, group
+    32 or a multiple of 64; the packed weight ``qw``, scales and zeros
+    (K/g, N) fp32, contiguous."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
@@ -94,15 +124,9 @@ def _launch(name: str, symbol: str, x: torch.Tensor, qw: torch.Tensor, k_w: int,
     if x.ndim != 2:
         raise ValueError(f"{name}: x must be (M, K), got {tuple(x.shape)}")
     m, k = x.shape
-    if k_w != k or k % K_TILE or n % N_TILE:
-        raise ValueError(f"{name}: K={k} must match the weight's {k_w} and be a multiple of "
-                         f"{K_TILE}, N={n} a multiple of {N_TILE}")
     groups = scales.shape[0]
-    if groups == 0 or k % groups:
-        raise ValueError(f"{name}: {groups} scale rows do not divide K={k}")
+    symbol = dequant_kernel(name, m, k, k_w, n, groups)
     group = k // groups
-    if not (group == 32 or group % 64 == 0):
-        raise ValueError(f"{name}: group size {group} must be 32 or a multiple of 64")
     if scales.dtype != torch.float32 or zeros.dtype != torch.float32:
         raise TypeError(f"{name}: scales and zeros must be fp32")
     for arg, t in (("weight", qw), ("scales", scales), ("zeros", zeros)):
@@ -158,8 +182,7 @@ def int8_matmul(
         return int8_matmul_plain(x, q8, scales, zeros)
     if q8.dtype != torch.uint8 or q8.ndim != 2:
         raise TypeError(f"int8_matmul: q8 must be uint8 (K, N), got {q8.dtype} {tuple(q8.shape)}")
-    y = _launch("int8_matmul", "dk_int8_matmul_bf16", x, q8, q8.shape[0], q8.shape[1],
-                scales, zeros)
+    y = _launch("int8_matmul", x, q8, q8.shape[0], q8.shape[1], scales, zeros)
     if y.shape[0]:
         int8_matmul.launches += 1
     return y

@@ -17,8 +17,11 @@ The packed int4 weight is requantised per tile onto the per-channel int8
 grid ``w8 = clip(round_half_even(q * s8 + z8), -127, 127)``, with
 ``s8 = scales * (1 / wscale)`` and ``z8 = zeros * (1 / wscale)``, each a
 separately rounded fp32 operation (``requant_w8_plain`` is the reference's
-``dequant_w8``). The CUDA source is ``csrc/w4a8_matmul.cu``; the note there
-says what bounds it and how it is tiled.
+``dequant_w8``). Two CUDA main loops run it, picked by ``w4a8_route``: mode
+plain at M <= 16 (the ``ada`` GEMVs) the ``mma.sync`` tile of
+``csrc/w4a8_matmul.cu``, everything else ``csrc/w4a8_matmul_sm90.cu``
+(TMA, int8 ``wgmma``, the requantisation beside the products); the notes
+there say what bounds each and how it is tiled.
 
 ``w4a8_matmul`` launches the kernel for a CUDA tensor (counting launches per
 mode) and raises on what it does not take; a CPU tensor goes to
@@ -63,6 +66,33 @@ K_TILE = 128
 MODES = {"plain": 0, "gelu_quant": 1, "grouped_xs": 2, "norm_rope": 3}
 # Column tile of each mode's kernel configuration (csrc/w4a8_matmul.cu).
 N_TILE = {"plain": 128, "gelu_quant": SCALE_TILE, "grouped_xs": 128, "norm_rope": HEAD_DIM}
+# Rows at or below which kernel E's mode plain runs its 16-row mma.sync
+# tile (the `ada` GEMVs); every other call, the Hopper main loop.
+SMALL_M = 16
+_E_SYMBOLS = {"sm90": "dk_w4a8_matmul_sm90", "tile": "dk_w4a8_matmul"}
+
+
+def w4a8_route(m: int, mode: str) -> str:
+    """Kernel E's main loop for ``m`` rows in ``mode``: ``"tile"`` (csrc/
+    w4a8_matmul.cu) for mode plain at M <= ``SMALL_M``, else ``"sm90"``
+    (csrc/w4a8_matmul_sm90.cu)."""
+    return "tile" if m <= SMALL_M and mode == "plain" else "sm90"
+
+
+def w4a8_kernel(m: int, k: int, k8: int, n: int, groups: int, mode: str) -> str:
+    """The C entry that runs kernel E at these sizes (``w4a8_route``), or
+    ValueError for what neither main loop takes: K = 8 * k8 a multiple of
+    128, N of the mode's column tile, group K / groups 32, 64 or a multiple
+    of 128, K a multiple of 512 for grouped_xs, at any M."""
+    if k8 * 8 != k or k % K_TILE or n % N_TILE[mode]:
+        raise ValueError(f"w4a8_matmul: K={k} must be 8 * {k8} and a multiple of {K_TILE}, "
+                         f"N={n} a multiple of {N_TILE[mode]} ({mode})")
+    if groups == 0 or k % groups or not (k // groups in (32, 64) or (k // groups) % K_TILE == 0):
+        raise ValueError(f"w4a8_matmul: group size K/{groups} must be 32, 64 or a multiple of "
+                         f"{K_TILE}")
+    if mode == "grouped_xs" and k % SCALE_TILE:
+        raise ValueError(f"w4a8_matmul: grouped_xs needs K a multiple of {SCALE_TILE}, got {k}")
+    return _E_SYMBOLS[w4a8_route(m, mode)]
 
 
 def _div(num: float, t: torch.Tensor) -> torch.Tensor:
@@ -197,15 +227,8 @@ def w4a8_matmul(
                         f"{tuple(x8.shape)}, {tuple(q4.shape)}")
     m, k = x8.shape
     k8, n = q4.shape
-    if k8 * 8 != k or k % K_TILE or n % N_TILE[mode]:
-        raise ValueError(f"w4a8_matmul: K={k} must be 8 * {k8} and a multiple of {K_TILE}, "
-                         f"N={n} a multiple of {N_TILE[mode]} ({mode})")
     groups = scales.shape[0]
-    if groups == 0 or k % groups or not (k // groups in (32, 64) or (k // groups) % K_TILE == 0):
-        raise ValueError(f"w4a8_matmul: group size K/{groups} must be 32, 64 or a multiple of "
-                         f"{K_TILE}")
-    if mode == "grouped_xs" and k % SCALE_TILE:
-        raise ValueError(f"w4a8_matmul: grouped_xs needs K a multiple of {SCALE_TILE}, got {k}")
+    symbol = w4a8_kernel(m, k, k8, n, groups, mode)
     if out_dtype != torch.bfloat16:
         raise TypeError(f"w4a8_matmul: the card's output is bf16, got {out_dtype}")
     dev = x8.device
@@ -240,7 +263,7 @@ def w4a8_matmul(
         yscale = None
     if m:
         ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-        err = kernels.library().dk_w4a8_matmul(
+        err = getattr(kernels.library(), symbol)(
             x8.data_ptr(), q4.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
             wscale.data_ptr(), xscale.data_ptr(), ptr(bias), ptr(norm_w), ptr(cos), ptr(sin),
             s_rows, y.data_ptr(), ptr(yscale), MODES[mode], m, n, k, k // groups, k, float(eps),

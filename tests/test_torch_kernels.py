@@ -542,11 +542,13 @@ def test_int4_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.gpu
-def test_int4_kernel_reads_strided_rows_in_place(cuda):
-    """x as the image rows of a wider activation (a row stride above K)."""
+@pytest.mark.parametrize("m", [300, 9])
+def test_int4_kernel_reads_strided_rows_in_place(cuda, m):
+    """x as the image rows of a wider activation (a row stride above K), on
+    the Hopper loop (300 rows) and the GEMV tile (9)."""
     g = torch.Generator(device=cuda).manual_seed(6)
     q4, scales, zeros = random_int4(512, 256, 64, g, cuda)
-    wide = torch.randn(300, 640, generator=g, device=cuda).bfloat16()
+    wide = torch.randn(m, 640, generator=g, device=cuda).bfloat16()
     x = wide[:, 64:576]
     assert x.stride(0) == 640
     assert torch.equal(int4_matmul(x, q4, scales, zeros), int4_matmul(x.contiguous(), q4, scales, zeros))
@@ -631,8 +633,11 @@ def random_w4a8(k, n, group, gen, device):
 
 
 # (mode, M, K, N, group): FLUX's shapes of each mode (the text stream, the
-# `ada` GEMV, a ragged M, group 32) at reduced N where N does not matter.
+# `ada` GEMV, a ragged M, group 32) at reduced N where N does not matter;
+# the modes but plain at M <= 16 (the Hopper loop with one short block).
 W4A8_CASES = [("plain", 1, 3072, 18432, 64), ("plain", 256, 3072, 3072, 64),
+              ("norm_rope", 3, 1024, 512, 64), ("gelu_quant", 9, 1024, 1024, 32),
+              ("grouped_xs", 16, 1024, 512, 128),
               ("plain", 77, 3072, 1024, 32), ("plain", 4352, 3072, 3072, 64),
               ("norm_rope", 4352, 3072, 3072, 64), ("norm_rope", 77, 3072, 512, 32),
               ("gelu_quant", 4352, 3072, 12288, 64), ("gelu_quant", 77, 3072, 1024, 32),
@@ -1093,3 +1098,87 @@ def test_tools_run_on_the_card(cuda):
     want = {**bench_w4a8_mat.launches(3), **microbench_int8.launches(3)}
     assert w4a8_matmul.mode_launches["plain"] - plain_e == want.pop("w4a8_matmul[plain]")
     assert {name: fn.launches - before[name] for name, fn in counters.items()} == want
+
+
+# Kernels E, C and #13 on their two main loops. The routes: the 16-row
+# mma.sync tile at M <= 16 (the `ada` GEMVs; for E mode plain only), the
+# Hopper loop otherwise; every shape the wrappers took before takes one.
+ROUTE_ROWS = [1, 2, 16, 17, 77, 255, 256, 257, 4352]
+E_ACCEPTED = [(k, n, group, mode) for mode in ("plain", "gelu_quant", "grouped_xs", "norm_rope")
+              for k in (512, 3072) for n in (512, 3072) for group in (32, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("m", ROUTE_ROWS)
+def test_w4a8_route_takes_every_accepted_shape(m):
+    """Every (K, N, group, mode) the wrapper takes goes to the tile in mode
+    plain at M <= 16 and to the Hopper loop otherwise, and what it refused
+    it still refuses."""
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import w4a8_kernel, w4a8_route
+
+    for k, n, group, mode in E_ACCEPTED:
+        tile = m <= 16 and mode == "plain"
+        assert w4a8_route(m, mode) == ("tile" if tile else "sm90")
+        want = "dk_w4a8_matmul" if tile else "dk_w4a8_matmul_sm90"
+        assert w4a8_kernel(m, k, k // 8, n, k // group, mode) == want
+    for k, n, group, mode in [(3072, 3072, 48, "plain"), (3072, 3072, 96, "plain"),
+                              (384, 3072, 64, "grouped_xs"), (3072, 384, 64, "gelu_quant"),
+                              (3072, 3072 + 64, 64, "plain"), (3072 + 64, 3072, 64, "plain")]:
+        with pytest.raises(ValueError):
+            w4a8_kernel(m, k, k // 8, n, k // group, mode)
+
+
+@pytest.mark.parametrize("m", ROUTE_ROWS)
+@pytest.mark.parametrize("name", ["int4_matmul", "int8_matmul"])
+def test_dequant_route_takes_every_accepted_shape(m, name):
+    """As for kernel E: C and #13 at every (K, N, group) they take."""
+    from diffusionkit_tpu_torch.ops.int4_matmul import dequant_kernel, dequant_route
+
+    suffix = "_bf16" if m <= 16 else "_sm90_bf16"
+    assert dequant_route(m) == ("tile" if m <= 16 else "sm90")
+    for k in (64, 512, 1536, 3072, 12288):
+        for n in (128, 384, 3072):
+            for group in (32, 64, 128, 192):
+                if k % group == 0:
+                    assert dequant_kernel(name, m, k, k, n, k // group) == f"dk_{name}{suffix}"
+    for k, n, group in [(3072, 3072, 16), (3072, 3072, 96), (3072 + 32, 3072, 32),
+                        (3072, 3072 + 64, 64)]:
+        with pytest.raises(ValueError):
+            dequant_kernel(name, m, k, k, n, k // group)
+
+
+# The Hopper loops' edges: M one past the GEMV tile, short of, at and one
+# past a 256-row block, the unified blocks' 4352; groups 32, 64 and 128.
+EDGE_ROWS = (17, 77, 255, 256, 257, 4352)
+EDGE_GROUPS = (32, 64, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", EDGE_ROWS)
+@pytest.mark.parametrize("group", EDGE_GROUPS)
+@pytest.mark.parametrize("mode", ["plain", "gelu_quant", "grouped_xs", "norm_rope"])
+def test_w4a8_hopper_loop_at_its_edges(cuda, m, group, mode):
+    """Kernel E on the Hopper loop at its row-block edges and every group
+    size, each mode held to its plain version as in
+    test_w4a8_kernel_matches_plain."""
+    test_w4a8_kernel_matches_plain(cuda, (mode, m, 1024, 512, group))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", EDGE_ROWS)
+@pytest.mark.parametrize("group", EDGE_GROUPS)
+def test_int4_and_int8_hopper_loop_at_its_edges(cuda, m, group):
+    test_int4_kernel_matches_plain(cuda, (m, 1024, 384, group))
+    test_int8_kernel_matches_plain(cuda, (m, 1024, 384, group))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [300, 9])
+def test_int8_kernel_reads_strided_rows_in_place(cuda, m):
+    """#13 on x as the image rows of a wider activation, on either loop."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    q8, scales, zeros = random_int8(512, 256, 64, g, cuda)
+    wide = torch.randn(m, 640, generator=g, device=cuda).bfloat16()
+    x = wide[:, 64:576]
+    assert x.stride(0) == 640
+    assert torch.equal(int8_matmul(x, q8, scales, zeros),
+                       int8_matmul(x.contiguous(), q8, scales, zeros))

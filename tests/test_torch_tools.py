@@ -313,6 +313,26 @@ PROFILER_NAMES = [
      "(anonymous namespace)::Strides, float)", "flash_attention_stats"),
     ("_ZN12_GLOBAL__N_121flash_fwd_3xtf32_sm90ILi128ELi0EEEvPKfS2_S2_PfS3_S3_iiNS_7StridesES4_S4_"
      "S4_S4_f", "flash_attention_bshd"),
+    ("void (anonymous namespace)::w4a8_mm_sm90<0, 128>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Params)", "w4a8_matmul"),
+    ("_ZN12_GLOBAL__N_112w4a8_mm_sm90ILi2ELi64EEEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE",
+     "w4a8_matmul"),
+    ("_ZN52_GLOBAL__N__3dfd659d_19_w4a8_matmul_sm90_cu_815f210f12w4a8_mm_sm90ILi3ELi128EEE"
+     "v14CUtensorMap_stS1_S1_S1_NS_6ParamsE", "w4a8_matmul"),
+    ("void (anonymous namespace)::int4_mm_sm90<128>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, int, int, int, int)", "int4_matmul"),
+    ("_ZN52_GLOBAL__N__78b407cf_19_int4_matmul_sm90_cu_5c6450d012int4_mm_sm90ILi64EEEv14CUte"
+     "nsorMap_stS1_S1_S1_P13__nv_bfloat16iiii", "int4_matmul"),
+    ("void (anonymous namespace)::int8_mm_sm90<64>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, int, int, int, int)", "int8_matmul"),
+    ("_ZN52_GLOBAL__N__78b407cf_19_int4_matmul_sm90_cu_5c6450d012int8_mm_sm90ILi128EEEv14CUt"
+     "ensorMap_stS1_S1_S1_P13__nv_bfloat16iiii", "int8_matmul"),
+    ("void (anonymous namespace)::int4_mm<1, 1, 2>(__nv_bfloat16 const*, void const*, "
+     "float const*, float const*, __nv_bfloat16*, int, int, int, int, long long)",
+     "int4_matmul"),
+    ("void (anonymous namespace)::int8_mm<1, 1, 2>(__nv_bfloat16 const*, void const*, "
+     "float const*, float const*, __nv_bfloat16*, int, int, int, int, long long)",
+     "int8_matmul"),
 ]
 
 
@@ -368,6 +388,31 @@ def test_chip_smoke_ptxas_report_holds_the_new_kernels_to_no_spill(chip_smoke, t
     else:
         with pytest.raises(AssertionError, match="ptxas"):
             chip_smoke.ptxas_report(path)
+
+
+HOPPER_MATMULS = [
+    "_ZN52_GLOBAL__N__3dfd659d_19_w4a8_matmul_sm90_cu_815f210f12w4a8_mm_sm90ILi1ELi64EEEv",
+    "_ZN52_GLOBAL__N__78b407cf_19_int4_matmul_sm90_cu_5c6450d012int4_mm_sm90ILi128EEEv",
+    "_ZN52_GLOBAL__N__78b407cf_19_int4_matmul_sm90_cu_5c6450d012int8_mm_sm90ILi64EEEv",
+]
+
+
+@pytest.mark.parametrize("entry", HOPPER_MATMULS)
+@pytest.mark.parametrize("spill", [0, 8])
+def test_chip_smoke_ptxas_report_holds_the_hopper_matmuls_to_no_spill(chip_smoke, tmp_path, entry,
+                                                                       spill):
+    """The Hopper main loops of kernels E, C and #13 fail phase 2 on any
+    spill, as the flash kernels redesigned before them."""
+    log = (f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'\n"
+           f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n")
+    path = tmp_path / "lib.log"
+    path.write_text(PTXAS_LOG + log)
+    if spill:
+        with pytest.raises(AssertionError, match="spills"):
+            chip_smoke.ptxas_report(path)
+    else:
+        chip_smoke.ptxas_report(path)
 
 
 SASS_OLD = """
