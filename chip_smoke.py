@@ -8,8 +8,8 @@ Phases, each raising on failure (the script then exits non-zero):
   2. build the hand-written kernels from csrc/ (one nvcc per source, in
      parallel; sm_90a) and print each kernel's registers and spill bytes
      from ptxas's report, failing on a C7512 ("wgmma serialized") or on a
-     spill in the d=512 and 3xTF32 flash kernels or the Hopper main loops of
-     kernels E, C and #13;
+     spill in the d=512 and 3xTF32 flash kernels, the Hopper main loops of
+     kernels E, C and #13 or their M <= 16 GEMVs;
   3. each kernel against its plain torch version at the main paths' shapes,
      in bf16, against the plain math run in fp32 on the same bf16 inputs:
      mod_ln and flash attention at the SD3 shapes, flash attention at d=128
@@ -18,7 +18,9 @@ Phases, each raising on failure (the script then exits non-zero):
      positions, d=512) and, head by head, at FLUX 2048²'s 16640 tokens;
   4. each kernel's device time against its plain version's (CUDA graph
      replays timed with CUDA events; kernel B's plain version on one head at
-     16640 tokens), the flash kernels' with their TFLOP/s and their ratio to
+     16640 tokens; the M <= 16 GEMVs of C, #13 and E, each its own entry of
+     the kernels line, also with the weight cold in L2, over copies of it
+     that pass 100 MB, the time held against their bound), the flash kernels' with their TFLOP/s and their ratio to
      F.scaled_dot_product_attention's time; kernel B and #15 also at the VAE
      mid-block of a 2048² decode (65536 positions), checked against their
      plain version 4096 query rows at a time (all its scores would take 17
@@ -204,11 +206,14 @@ from diffusionkit_tpu_torch.tokenizer import (
 from diffusionkit_tpu_torch.tools import (
     DEFAULT_ITERS,
     DEFAULT_SHAPE,
+    bench_gemv,
     bench_w4a8_mat,
     device_ms,
+    device_ms_cold,
     microbench_int8,
 )
 
+GEMV_SOURCE = "diffusionkit_tpu_torch/csrc/gemv_sm90.cu"
 KERNELS = {
     "mod_ln": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
                "diffusionkit_tpu/ops/fused_quant.py:284"),
@@ -237,7 +242,15 @@ KERNELS = {
                    "diffusionkit_tpu/ops/w4a8_matmul.py:453"),
     "int8_dot": ("diffusionkit_tpu_torch/csrc/w8_matmul_sm90.cu",
                  "tools/microbench_pallas_int8.py:42"),
+    # The M <= 16 `ada` GEMVs of C, #13 and E (mode plain): one split-K source.
+    "int4_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/int4_matmul.py:74"),
+    "int8_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/int4_matmul.py:244"),
+    "w4a8_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/w4a8_matmul.py:268"),
 }
+# Each GEMV's entry in the line and that of its function at M > 16 (the same
+# bound; that entry points here as `small_m`).
+GEMVS = {"int4_matmul[gemv]": "int4_matmul", "int8_matmul[gemv]": "int8_matmul",
+         "w4a8_matmul[gemv]": "w4a8_matmul[plain]"}
 # The kernel (template) that runs each function's main-path shapes in bf16;
 # the fp32 flash instantiations and the other tiles are in the sources the
 # summary names beside it.
@@ -249,22 +262,21 @@ SYMBOLS = {
     "gelu_quantize": "gelu_quantize_kernel", "w8_matmul": "w8_mm_sm90<bf16|float, BN>",
     "int8_matmul": "int8_mm_sm90<BN>", "flash_attention_stats": "flash_fwd_sm90_stats<128>",
     "flash_attention": "flash_fwd_sm90<D, true>", "dequant_w8": "dequant_w8_kernel",
-    "int8_dot": "w8_mm_sm90<int, BN>",
+    "int8_dot": "w8_mm_sm90<int, BN>", "int4_matmul[gemv]": "int4_gemv",
+    "int8_matmul[gemv]": "int8_gemv", "w4a8_matmul[gemv]": "w4a8_gemv",
 }
 # The sources and kernels of each function's other shapes: the fp32 flash
 # kernels (3xTF32 on wgmma at d = 64 and 128, on mma.sync at d = 512);
 # kernel B and #15 at d = 512 (the split-KV wgmma kernel and its
 # merge); #14 at d = 64 (flash_fwd_bhsd_small<64, true>); #11 and #16 at
 # M <= 16 and at K % 128 != 0 (w8_mm, the mma.sync main loop); C and #13
-# at M <= 16 and E's mode plain there (the mma.sync tiles int4_mm,
-# int8_mm and w4a8_mm).
+# at M <= 16 and E's mode plain there: the GEMV entries of the line.
 FP32_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_f32.cu"
 FP32_SYMBOLS = ("flash_fwd_3xtf32_sm90<64 | 128, mode> (d = 64, 128), "
                 "flash_fwd_3xtf32<mode> (d = 512)")
 WIDE_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_wide_sm90.cu"
 SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention.cu"
 W8_SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/w8_matmul.cu"
-C_SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/int4_matmul.cu"
 FLASH_KERNELS = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 OTHER_SOURCES = {
     "flash_attention_bshd": {"fp32_source": FP32_SOURCE, "fp32_symbols": FP32_SYMBOLS,
@@ -278,10 +290,7 @@ OTHER_SOURCES = {
                               "d64_symbols": "flash_fwd_bhsd_small<64, true>"},
     "w8_matmul": {"small_m_source": W8_SMALL_SOURCE},
     "int8_dot": {"small_m_source": W8_SMALL_SOURCE},
-    "int4_matmul": {"small_m_source": C_SMALL_SOURCE, "small_m_symbol": "int4_mm<1, 1, 2>"},
-    "int8_matmul": {"small_m_source": C_SMALL_SOURCE, "small_m_symbol": "int8_mm<1, 1, 2>"},
-    "w4a8_matmul[plain]": {"small_m_source": "diffusionkit_tpu_torch/csrc/w4a8_matmul.cu",
-                           "small_m_symbol": "w4a8_mm<PLAIN, 1, 1, 2>"},
+    **{base: {"small_m": name} for name, base in GEMVS.items()},
 }
 COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "int4_matmul": int4_matmul, "mod_ln_quantize": mod_ln_quantize,
@@ -292,6 +301,7 @@ COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
 # slice that brought it, or for kernel C, which the w4a8 path must not run,
 # the FLUX int4 path.
 MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flux",
+             "int4_matmul[gemv]": "flux", "int8_matmul[gemv]": "sd3-int8",
              "gelu_quantize": "sd3-w8a8", "w8_matmul": "sd3-w8a8", "int8_matmul": "sd3-int8",
              "flash_attention_stats": "flux-w4a8-2048-ring", "flash_attention": "sd3-bhsd",
              "dequant_w8": "bench-w4a8-mat", "int8_dot": "microbench-int8"}
@@ -359,17 +369,22 @@ FLASH_RAGGED = [(1, s, 3, d) for s in (77, 129, 1153) for d in (64, 128)]
 # plain version timed on one head.
 FLASH_LONG = (1, 16640, 24, 128)
 # (M, K, N, group) of kernel C on the FLUX path: the unified blocks' q/k/v/o
-# and fc1, the dual blocks' fc2 (image stream), the text stream, and a
-# dual block's `ada` GEMV; the same q shape at the quantize-at-load group
-# 32; and a ragged M (checked, not timed).
+# and fc1, the dual blocks' fc2 (image stream), the text stream, a dual and
+# a single block's `ada` GEMV; the same q shape at the quantize-at-load
+# group 32; and a ragged M (checked, not timed).
 INT4_SHAPES = [(4352, 3072, 3072, 64), (4352, 3072, 12288, 64), (4352, 12288, 3072, 64),
-               (256, 3072, 3072, 64), (1, 3072, 18432, 64), (4352, 3072, 3072, 32)]
+               (256, 3072, 3072, 64), (1, 3072, 18432, 64), (1, 3072, 9216, 64),
+               (4352, 3072, 3072, 32)]
 INT4_RAGGED = [(77, 3072, 3072, 64)]
 # Kernels A' (B, S, H) and D (M, K) at the FLUX w4a8 shapes: the AdaLN sites
 # of the image stream, the text stream and the unified blocks; the `ada`
-# input silu(c) and the `o` inputs. A ragged S of 77 is checked, not timed.
-MOD_LN_QUANT_SHAPES = [(1, 4096, 3072), (1, 256, 3072), (1, 4352, 3072)]
-QUANTIZE_SHAPES = [(1, 3072), (4096, 3072), (256, 3072), (4352, 3072)]
+# input silu(c) and the `o` inputs; then at SD3-medium w8a8's (path d, 512²
+# CFG): the image and text stream sites, the `o` inputs. A ragged S of 77
+# is checked, not timed.
+MOD_LN_QUANT_SHAPES = [(1, 4096, 3072), (1, 256, 3072), (1, 4352, 3072), (2, 1024, 1536),
+                       (2, 154, 1536)]
+QUANTIZE_SHAPES = [(1, 3072), (4096, 3072), (256, 3072), (4352, 3072), (2048, 1536),
+                   (308, 1536)]
 QUANT_RAGGED = [(1, 77, 3072)]
 # (M, K, N, group) of kernel E by mode on the FLUX w4a8 path: `ada` GEMVs
 # (dual and single), v/o of the image stream and the unified blocks, the
@@ -432,6 +447,8 @@ REF_RTOL = 3e-2
 # products on the tensor cores are 3xTF32: three passes at the 495 TFLOP/s
 # TF32 rate; "fp32" is the CUDA cores' FMA rate.
 PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "tf32x3": 495e12 / 3}
+# Weight bytes the cold GEMV timings rotate through: twice the 50 MB L2.
+COLD_BYTES = bench_gemv.COLD_BYTES
 HBM = 3.35e12
 # Non-tensor fp32 operations an element of the row kernels: mod_ln's sums,
 # centring, squares and modulation; A' adds the absmax and the rounding;
@@ -488,6 +505,7 @@ def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3
         # read once, the (N, K) grid written once.
         k, n, g = shape
         return bound(2 * k * n, "fp32", k * n // 2 + 8 * (k // g) * n + k * n)
+    name = GEMVS.get(name, name)  # a GEMV's bound is its function's
     m, k, n, g = shape
     affine = 8 * (k // g) * n  # scales and zeros
     if name == "int4_matmul":
@@ -536,12 +554,31 @@ def reset_counts() -> None:
         fn.launches = 0
     w4a8_matmul.launches = 0
     w4a8_matmul.mode_launches = dict.fromkeys(MODES, 0)
+    for fn in (int4_matmul, int8_matmul, w4a8_matmul):
+        fn.gemv_launches = 0
 
 
 def counts() -> dict:
     out = {name: fn.launches for name, fn in COUNTED.items()}
     out.update({f"w4a8_matmul[{m}]": n for m, n in w4a8_matmul.mode_launches.items()})
+    out.update({"int4_matmul[gemv]": int4_matmul.gemv_launches,
+                "int8_matmul[gemv]": int8_matmul.gemv_launches,
+                "w4a8_matmul[gemv]": w4a8_matmul.gemv_launches})
     return out
+
+
+def gemv_cold_ms(name: str, shape) -> tuple:
+    """A GEMV's device time as the path finds it, its weight cold in L2:
+    one call on each of enough weight copies to pass COLD_BYTES
+    (``device_ms_cold``); and the copies."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m, k, n, group = shape
+    copies = -(-int(COLD_BYTES) // bench_gemv.weight_bytes(name, k, n, group)) + 1
+    fns = bench_gemv.calls(name, shape, copies, gen, torch.device("cuda"))
+    ms = device_ms_cold(fns)
+    del fns
+    torch.cuda.empty_cache()
+    return ms, copies
 
 
 def random_int4(shape, gen):
@@ -624,7 +661,7 @@ def check_kernels(mod, flash, int4) -> dict:
             f"element, worst element at {ratio!r} of it: {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"int4_matmul {shape} disagrees")
-        errs["int4_matmul"].append(err)
+        errs["int4_matmul[gemv]" if shape[0] <= 16 else "int4_matmul"].append(err)
         del w, want, bound, diff
     return errs
 
@@ -659,12 +696,28 @@ def time_kernels(mod, flash, int4, tag: str) -> dict:
         plain = device_ms(lambda: int4_matmul_plain(x, q4, s, z))
         tflops = 2 * m * k * n / (ms / 1e3) / 1e12
         wbytes = q4.numel() * 4 + 2 * s.numel() * 4
+        if m <= 16:
+            times["int4_matmul[gemv]"].append(gemv_timing("int4_matmul[gemv]", shape, ms, plain,
+                                                          wbytes, tag))
+            continue
         t = timing("int4_matmul", shape, ms, plain)
         log(f"  int4_matmul (M, K, N, group) {shape}: kernel {ms!r} ms ({tflops!r} TFLOP/s, "
             f"{wbytes / ms / 1e9!r} TB/s of packed weight), plain {plain!r} ms, {bound_note(t)} "
             f"[{tag}]")
         times["int4_matmul"].append(t)
     return times
+
+
+def gemv_timing(name: str, shape, warm: float, plain: float, wbytes: int, tag: str,
+                **extra) -> dict:
+    """One GEMV shape's timing: cold (``gemv_cold_ms``, the number held
+    against the bound) beside warm (``device_ms``: the weight stays in L2)."""
+    cold, copies = gemv_cold_ms(GEMVS[name].split("[")[0], shape)
+    t = timing(name, shape, cold, plain, warm_ms=warm, cold_copies=copies, **extra)
+    log(f"  {name} (M, K, N, group) {shape}: kernel cold {cold!r} ms ({wbytes / cold / 1e9!r} "
+        f"TB/s of weight, scales and zeros; {copies} weight copies), warm {warm!r} ms, plain "
+        f"{plain!r} ms, {bound_note(t)} [{tag}]")
+    return t
 
 
 def flash_long(gen, tag: str):
@@ -886,7 +939,9 @@ def w4a8_kernels(gen, tag: str):
             got = w4a8_matmul(*args, mode=mode, **extra)
             torch.cuda.synchronize()
             want = w4a8_matmul_plain(*args, mode=mode, **extra)
-            errs[name].append(check_w4a8_result(mode, got, want, f"(M, K, N, group) {shape}"))
+            gemv = mode == "plain" and shape[0] <= 16
+            errs["w4a8_matmul[gemv]" if gemv else name].append(
+                check_w4a8_result(mode, got, want, f"(M, K, N, group) {shape}"))
             del got, want
             if shape not in W4A8_SHAPES[mode]:
                 continue
@@ -898,6 +953,12 @@ def w4a8_kernels(gen, tag: str):
             more = {}
             if mode == "plain" and m >= 256:
                 more["mat_pl_ms"] = materialised_ms(args, label=f"{shape}")
+            if gemv:
+                times["w4a8_matmul[gemv]"].append(gemv_timing(
+                    "w4a8_matmul[gemv]", shape, ms, plain, args[1].numel() * 4 + 8 * n * (k // group),
+                    tag, int4_matmul_ms=c_ms))
+                del args, extra, x
+                continue
             tops = 2 * m * k * n / (ms / 1e3) / 1e12
             t = timing(name, shape, ms, plain, int4_matmul_ms=c_ms, **more)
             mat = (f", #10 then #11 (mat_pl) {more['mat_pl_ms']!r} ms (kernel at "
@@ -947,7 +1008,8 @@ def w8a8_kernels(gen, tag: str):
     C's at the same shape). Tolerances: D and #11 bit-identical; #4 one
     step on <= 0.1 %, scales within 1e-6; #13 kernel C's bound."""
     dev = torch.device("cuda")
-    errs = {"quantize": [], "gelu_quantize": [], "w8_matmul": [], "int8_matmul": []}
+    errs = {"quantize": [], "gelu_quantize": [], "w8_matmul": [], "int8_matmul": [],
+            "int8_matmul[gemv]": []}
     times = {name: [] for name in errs}
     for shape in WIDE_ROWS:
         y = (torch.randn(shape, generator=gen, device=dev) * 3).bfloat16()
@@ -1032,13 +1094,19 @@ def w8a8_kernels(gen, tag: str):
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"int8_matmul {shape} disagrees")
-        errs["int8_matmul"].append(err)
+        name = "int8_matmul[gemv]" if m <= 16 else "int8_matmul"
+        errs[name].append(err)
         del w, want, bnd, diff
         if shape in INT8_SHAPES:
             ms = device_ms(lambda: int8_matmul(x, q8, sc, zr))
             plain = device_ms(lambda: int8_matmul_plain(x, q8, sc, zr))
             _, q4, s4, z4 = random_int4(shape, gen)
             c_ms = device_ms(lambda: int4_matmul(x, q4, s4, z4))
+            if m <= 16:
+                times[name].append(gemv_timing(name, shape, ms, plain, k * n + 8 * n * (k // group),
+                                               tag, int4_matmul_ms=c_ms))
+                torch.cuda.empty_cache()
+                continue
             t = timing("int8_matmul", shape, ms, plain, int4_matmul_ms=c_ms)
             log(f"  int8_matmul (M, K, N, group) {shape}: kernel {ms!r} ms "
                 f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TFLOP/s, "
@@ -1514,6 +1582,9 @@ def per_forward_sd3(depth: int, mode=None) -> dict:
     per["mod_ln"] = 4 * dual + 4
     if mode == "int8":
         per["int8_matmul"] = 14 * dual + 17
+        # Of them at M = 2, the GEMV: each block's two `ada`, the y/t
+        # embedders' four, the final `ada`.
+        per["int8_matmul[gemv]"] = 2 * depth + 5
     return per
 
 
@@ -1553,7 +1624,7 @@ def reference_checks(gen) -> None:
               torch.from_numpy(rs.randn(1, 768).astype(np.float32)),
               torch.tensor([1000.0])]
     mmdit_check(flux, inputs, {"mod_ln": 4 + 2 + 1, "flash_attention_bshd": 3,
-                               "int4_matmul": 2 * 7 + 2 * 7},
+                               "int4_matmul": 2 * 7 + 2 * 7, "int4_matmul[gemv]": 2 + 2},
                 "FLUX.1-schnell int4 MMDiT 1 dual + 2 single blocks x hidden 3072, 512²",
                 gen, quantize_bits=4)
     # The same at w4a8: per dual block plain 8 (ada x2, v and o of the image
@@ -1602,8 +1673,10 @@ def t5_trained_scales_(model: T5Encoder, gen) -> None:
 
 
 def per_block_w4a8(dual: int, uni: int) -> dict:
-    """Launches of the w4a8 kernels in one forward of dual + uni blocks."""
-    return {"w4a8_matmul[plain]": 8 * dual + 3 * uni, "w4a8_matmul[norm_rope]": 2 * dual + 2 * uni,
+    """Launches of the w4a8 kernels in one forward of dual + uni blocks (of
+    mode plain's, the `ada` GEMVs at M = 1: two a dual block, one a single)."""
+    return {"w4a8_matmul[plain]": 8 * dual + 3 * uni, "w4a8_matmul[gemv]": 2 * dual + uni,
+            "w4a8_matmul[norm_rope]": 2 * dual + 2 * uni,
             "w4a8_matmul[gelu_quant]": 2 * dual + uni, "w4a8_matmul[grouped_xs]": 2 * dual + uni,
             "quantize": 4 * dual + 2 * uni, "mod_ln_quantize": 4 * dual + uni}
 
@@ -1632,7 +1705,8 @@ def per_request_launches(path: Path, cfg) -> dict:
     if path.name == FLUX.name:
         return {"mod_ln": path.steps * (4 * dual + uni + 1),
                 "flash_attention_bshd": path.steps * (dual + uni) + 1,
-                "int4_matmul": path.steps * (2 * 7 * dual + 7 * uni)}
+                "int4_matmul": path.steps * (2 * 7 * dual + 7 * uni),
+                "int4_matmul[gemv]": path.steps * (2 * dual + uni)}
     per = {k: path.steps * v for k, v in per_block_w4a8(dual, uni).items()}
     per.update({"mod_ln": path.steps, "int4_matmul": 0,
                 "flash_attention_bshd": path.steps * (dual + uni) + 1})
@@ -1937,9 +2011,14 @@ SCALE_FIRST = re.compile(r"flash_fwd_(?:wide|sm90)(?:<\d+, true>|ILi\d+ELb1E)"
 FP32_MODE = re.compile(r"flash_fwd_(?:f32|3xtf32(?:_sm90)?)"
                        r"(?:<(?:\d+, )?(\d)>|I(?:Li\d+E)?Li(\d)E)")
 INT8_DOT_KERNEL = re.compile(r"w8_mm(?:_sm90)?(?:<int,|IiLi)")
+# The M <= 16 GEMVs of C, #13 and E: int4_gemv, int8_gemv, w4a8_gemv.
+GEMV_KERNEL = re.compile(r"(int4|int8|w4a8)_gemv")
 
 
 def family(name: str) -> str:
+    gemv = GEMV_KERNEL.search(name)
+    if gemv:
+        return f"{gemv.group(1)}_matmul[gemv]"
     fp32 = FP32_MODE.search(name)
     if fp32:
         return ("flash_attention_bshd", "flash_attention",
@@ -2027,9 +2106,10 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
 
 # The redesigned kernels, held to 0 spill bytes (and, with the rest, to no
 # C7512, "wgmma serialized"): the d = 512 wgmma kernel and its merge, the
-# 3xTF32 fp32 flash kernels, and the Hopper main loops of E, C and #13.
+# 3xTF32 fp32 flash kernels, the Hopper main loops of E, C and #13 and
+# their M <= 16 GEMVs.
 NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32", "w4a8_mm_sm90",
-            "int4_mm_sm90", "int8_mm_sm90")
+            "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv")
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")
@@ -2191,7 +2271,8 @@ def main() -> None:
             "launches": launches[main_path][name], "launches_path": main_path,
             "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": max(errs[name]),
-            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "ms": first["ms"], **({"ms_warm": first["warm_ms"]} if "warm_ms" in first else {}),
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first.get("library_ms"),
             "shape": first["shape"], "shapes": times[name],
         })

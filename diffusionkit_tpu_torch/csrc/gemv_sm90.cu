@@ -1,0 +1,511 @@
+// Kernels C, #13 and E (mode plain) at M <= 16: the AdaLN `ada` GEMVs,
+// split along K.
+//
+// Replaces, at the rows these projections have (M = 1 for FLUX, 2 for SD3
+// with CFG; ops/int4_matmul.py and ops/w4a8_matmul.py route M <= 16 here),
+// the Pallas kernels diffusionkit_tpu/ops/int4_matmul.py:int4_matmul
+// (_kernel, kernel C), :int8_matmul (_kernel8, #13) and
+// diffusionkit_tpu/ops/w4a8_matmul.py:w4a8_matmul in mode plain (_kernel,
+// kernel E). What each computes (int4_matmul_sm90.cu and
+// w4a8_matmul_sm90.cu, which run M > 16, say it in full):
+//   C, #13  y = x @ W, W = bf16(q * s + z) (the product and the sum each
+//           rounded in fp32), the products summed in fp32, y rounded to
+//           bf16 once;
+//   E       w8 = clip(rne(q * s8 + z8)), s8 = s * (1 / ws), z8 = z * (1 /
+//           ws); acc = x8 @ w8, exact in int32; y = ((acc * xs[m]) * ws[n])
+//           + b[n] -> bf16, every step rounded.
+//
+// Bound: bytes. At M <= 16 the products are a small share of the tensor
+// cores' time; what has to move is the packed weight and its scale and zero
+// rows, each read once: 35.4 MB at FLUX's dual-block `ada` (K 3072, N 18432,
+// group 64), 10.6 us at 3.35 TB/s; 17.7 MB for #13 at SD3's (1536 x 9216,
+// group 32), 5.3 us. A 16-row mma.sync tile that walked all of K in each of
+// N / 128 blocks, ~6 KB of weight in flight a block and a shared-memory
+// round trip (dequantise into a tile, ldmatrix it back, two barriers) every
+// k tile, reached 11-16 % of that.
+//
+// Design:
+// * Split K: grid (S, N / 128), S <= 8 picked by ops/int4_matmul.py:
+//   gemv_splits for the card's waves of resident blocks (2 a SM); each
+//   block takes one (K / S) x 128 slab, whole groups.
+// * No shared tile: each lane streams its own weights straight into
+//   registers, 16 bytes a row (4 columns' words, or 8 columns' bytes for
+//   #13) with no L1 allocation, a ring of 2-4 chunks in flight.
+// * Dequantise in registers, straight into mma.sync's B fragments. Lane
+//   (g, t) supplies column g at the k positions that t names; a sum over k
+//   does not care which physical k stands at which position, as long as x's
+//   A fragment uses the same map. So lane t walks its own contiguous quarter
+//   of the warp's k range, and a packed word (8 consecutive k of one column)
+//   is two k16 steps' B fragments for C, one k32 step's for E, with no data
+//   exchanged between lanes. x's A fragment is then 16 (C) or 8 bytes a row
+//   and word row, read from global memory (the slab's x stays in L1). A
+//   chunk is two word rows (C, E) or four byte rows (#13).
+// * Warps: 4 x 32 columns x 2 k halves (C, E), 2 x 64 columns x 4 k
+//   quarters (#13). A block sums its warps' partials in shared memory in
+//   warp order and stores them to an fp32 (int32 for E) workspace; the last
+//   of a column tile's S blocks to arrive (an integer counter a tile, reset
+//   by that block) sums the S partials in split order and applies the
+//   epilogue. One launch, no float atomics, the order of every sum fixed.
+// * C and #13 dequantise in fp32 as the reference does: q * s as one FMA,
+//   f * s - 2^23 s on f = 2^23 + q (exact: the product is q * s before the
+//   one rounding), then + z rounded; the high nibble of a byte is read in
+//   place as f = 2^23 + 16 q against s / 16 and -2^23 s / 16 (exact unless
+//   s / 16 is subnormal; quantised scales are >= 1e-8). #13's byte becomes f
+//   by one byte_perm. E requantises by a per-(group, column) table of its 16
+//   grid values (common.cuh requant_lut, built with the exact fp32 steps)
+//   and byte_perm lookups (lut_word), as w4a8_matmul_sm90.cu does.
+//
+// Tried and dropped on the H100 (variant builds timed as tools/bench_gemv.py
+// times, not kept): every lane's weights through cp.async into its own
+// 12-deep shared ring (slower than plain loads even with no arithmetic, and
+// slower still with a deeper ring); a TMA producer warp with bulk copies on
+// full/empty mbarriers (copies of 128-512 bytes issue too slowly: #13's
+// small shapes ran slower than the old tile); the splits of a tile as a
+// thread-block cluster summed through distributed shared memory (blocks
+// idled at the cluster barrier); x prefetched a chunk ahead in registers
+// (C then spilled). What bounds the kernel now is its issue rate: with the
+// memory traffic taken out, the dequantisation alone took most of C's time.
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int NTHREADS = 256, BN = 128, MAX_M = 16, MAX_SPLITS = 8, MAX_TILES = 65536;
+enum Kind { INT4 = 0, INT8 = 1, W4A8 = 2 };
+
+// Per kernel and column tile, the splits that have stored their partial in
+// the current launch: zero between launches (the last split of a tile resets
+// it), so a CUDA graph may replay a launch. One stream at a time.
+__device__ int g_arrivals[3][MAX_TILES];
+
+// Per kind: columns a lane (CPT) and a warp (8 CPT), k a chunk (KC), rows
+// of a lane's chunk (ROWS; KR k a row: two packed word rows of 16 bytes, or
+// four byte rows of 8; a part of C or E may end in a chunk of one row),
+// column warps (CW) and k groups of warps (H), k parts of a block's slab
+// (P: one a lane quarter of each k group), and chunks in flight (D).
+template <int KIND>
+struct Cfg {
+  static constexpr bool kBytes = KIND == INT8;
+  static constexpr int CPT = kBytes ? 8 : 4;
+  static constexpr int KC = kBytes ? 4 : 16;
+  static constexpr int ROWS = kBytes ? 4 : 2;
+  static constexpr int KR = KC / ROWS;
+  static constexpr int CW = BN / (8 * CPT);
+  static constexpr int H = 8 / CW;
+  static constexpr int P = 4 * H;
+  static constexpr int D = KIND == INT8 ? 2 : (KIND == INT4 ? 3 : 4);
+  static constexpr size_t bytes = (size_t)H * MAX_M * BN * 4 + 16;  // partials, the last flag
+};
+
+struct Params {
+  const void* x;        // (M, K) rows, lda apart: bf16 (C, #13) or int8 (E)
+  const void* qw;       // int32 words (K / 8, N), or uint8 (K, N) for #13
+  const float* scales;  // (K / group, N)
+  const float* zeros;
+  const float* wscale;  // E: (N,)
+  const float* xscale;  // E: (M,)
+  const bf16* bias;     // E: (N,) or null
+  bf16* y;              // (M, N)
+  void* partials;       // (N / 128, S, M, 128) fp32 (C, #13) or int32 (E)
+  int* arrivals;        // (N / 128,), this kernel's row of g_arrivals
+  long long lda;
+  int M, N, K, group;
+};
+
+// A lane's weights of one chunk: a 16-byte run of 4 columns' words a word
+// row (C, E), or 8 columns' bytes a byte row (#13).
+template <int KIND>
+struct WChunk {
+  using V = typename std::conditional<KIND == INT8, uint2, uint4>::type;
+  V v[Cfg<KIND>::ROWS];
+};
+
+// x's A-fragment bytes of one row and chunk, a vector a packed word row: 8 k
+// of bf16 (C) or int8 (E); for #13 one vector of its 4 k of bf16.
+template <int KIND>
+struct XChunk {
+  using V = typename std::conditional<KIND == INT4, uint4, uint2>::type;
+  V v[KIND == INT8 ? 1 : 2];
+};
+
+// The first `n` vectors of a chunk, rows `stride` bytes apart from `src`
+// (read once: no L1 allocation), zeros past them.
+template <typename T>
+__device__ __forceinline__ T load_rows(const unsigned char* src, long long stride, int n) {
+  using V = typename std::remove_reference<decltype(T{}.v[0])>::type;
+  T c{};
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(c.v) / sizeof(V)); ++i) {
+    if (i >= n) break;
+    if constexpr (sizeof(V) == 16) {
+      uint4 r;
+      asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];"
+                   : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(src + i * stride));
+      c.v[i] = r;
+    } else {
+      uint2 r;
+      asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0,%1}, [%2];"
+                   : "=r"(r.x), "=r"(r.y) : "l"(src + i * stride));
+      c.v[i] = r;
+    }
+  }
+  return c;
+}
+
+// One x row's chunk from `src`: its first `n` vectors, zeros past them (x
+// stays in L1: every column warp of the block reads it).
+template <int KIND>
+__device__ __forceinline__ XChunk<KIND> load_x(const unsigned char* src, int n) {
+  using V = typename XChunk<KIND>::V;
+  XChunk<KIND> c{};
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(c.v) / sizeof(V)); ++i)
+    if (i < n) c.v[i] = __ldg(reinterpret_cast<const V*>(src) + i);
+  return c;
+}
+
+// A group's scale and zero values of a lane's CPT columns.
+template <int KIND>
+struct Affine {
+  float4 s[Cfg<KIND>::CPT / 4], z[Cfg<KIND>::CPT / 4];
+};
+
+template <int KIND>
+__device__ __forceinline__ Affine<KIND> load_affine(const Params& p, int gi, int col) {
+  Affine<KIND> a;
+  const long long off = (long long)gi * p.N + col;
+#pragma unroll
+  for (int i = 0; i < Cfg<KIND>::CPT / 4; ++i) {
+    a.s[i] = __ldg(reinterpret_cast<const float4*>(p.scales + off) + i);
+    a.z[i] = __ldg(reinterpret_cast<const float4*>(p.zeros + off) + i);
+  }
+  return a;
+}
+
+// (w & MASK) | magic in one LOP3 (written as two operations, ptxas keeps
+// both constants as immediates and issues two).
+template <uint32_t MASK>
+__device__ __forceinline__ float nibble_f(uint32_t w, uint32_t magic) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(d) : "r"(w), "n"(MASK), "r"(magic));
+  return __uint_as_float(d);
+}
+
+// Nibbles 2i and 2i + 1 of `w` (q at bits 0 and 4 of one byte) -> one bf16
+// pair of bf16(q * s + z), the product and the sum each rounded in fp32.
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t w, uint32_t magic, float s, float c,
+                                                 float s16, float c16, float z) {
+  const float lo = nibble_f<0xFu>(w, magic);   // 2^23 + q0
+  const float hi = nibble_f<0xF0u>(w, magic);  // 2^23 + 16 q1
+  return dk::pack_bf16(__fadd_rn(__fmaf_rn(lo, s, c), z), __fadd_rn(__fmaf_rn(hi, s16, c16), z));
+}
+
+template <int KIND>
+__device__ __forceinline__ void gemv(const Params& p) {
+  using C = Cfg<KIND>;
+  using Acc = typename std::conditional<KIND == W4A8, int, float>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Acc* red = reinterpret_cast<Acc*>(smem);  // [H][M][BN]
+  int* last_flag = reinterpret_cast<int*>(smem + (size_t)C::H * MAX_M * BN * 4);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int S = gridDim.x, tile = blockIdx.y, n0 = tile * BN;
+  const int M = p.M, N = p.N, group = p.group;
+  const int kslab = p.K / S, kp = kslab / C::P;
+  const int L = (kp + C::KC - 1) / C::KC;                // chunks of each part
+  const int last_rows = (kp - (L - 1) * C::KC) / C::KR;  // rows of its last chunk
+
+  // Warp (cw, h), lane (g, t): part 4h + t of the block's slab, CPT columns.
+  const int g = lane >> 2, t = lane & 3;
+  const int cw = warp % C::CW, h = warp / C::CW, part = 4 * h + t;
+  const int k0 = blockIdx.x * kslab + part * kp;  // this lane's k range [k0, k0 + kp)
+  const int cb = cw * 8 * C::CPT + C::CPT * g;    // its first column in the block
+  const int col = n0 + cb;
+  const uint32_t magic = 0x4B000000u;             // 2^23: f = magic | q is 2^23 + q
+
+  // The lane's weights, a register ring of D chunks in flight.
+  const long long wstride = KIND == INT8 ? N : 4LL * N;  // bytes a row
+  const unsigned char* wp = static_cast<const unsigned char*>(p.qw) +
+                            (KIND == INT8 ? (long long)k0 * N + col : 4 * ((long long)(k0 / 8) * N + col));
+  auto chunk_rows = [&](int r) { return r + 1 < L ? C::ROWS : (r + 1 == L ? last_rows : 0); };
+  WChunk<KIND> ring[C::D];
+#pragma unroll
+  for (int i = 0; i < C::D; ++i)
+    ring[i] = load_rows<WChunk<KIND>>(wp + i * C::ROWS * wstride, wstride, chunk_rows(i));
+
+  // The group affine: C and E load the first group's now and each next
+  // one's a group ahead; #13 (8 chunks a group, and 8 columns' worth of
+  // registers) loads each at its start.
+  int next = k0;
+  Affine<KIND> pend;
+  if constexpr (KIND != INT8) pend = load_affine<KIND>(p, k0 / group, col);
+
+  // x rows g and g + 8 of this part, a chunk of KC k at a time.
+  const int esize = KIND == W4A8 ? 1 : 2;
+  const unsigned char* xpa = static_cast<const unsigned char*>(p.x) + ((long long)g * p.lda + k0) * esize;
+  const unsigned char* xpb = xpa + 8 * p.lda * esize;
+  const bool va = g < M, vb = g + 8 < M;
+
+  // Per-column constants of the current group: s, -2^23 s and z (and
+  // s / 16, -2^23 s / 16 for C's high nibbles); E's 16-value tables and
+  // 1 / ws.
+  float cs[C::CPT], cc[C::CPT], cz[C::CPT], cs16[4], cc16[4];
+  uint4 lut[4];
+  float rw[4];
+  if constexpr (KIND == W4A8) {
+    const float4 w4 = __ldg(reinterpret_cast<const float4*>(p.wscale + col));
+    rw[0] = __fdiv_rn(1.f, w4.x), rw[1] = __fdiv_rn(1.f, w4.y);
+    rw[2] = __fdiv_rn(1.f, w4.z), rw[3] = __fdiv_rn(1.f, w4.w);
+  }
+  Acc acc[C::CPT][4];
+#pragma unroll
+  for (int j = 0; j < C::CPT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+
+  // Where a group starts at k `ki`: its constants from `pend`, and the next
+  // group's affine loaded a group ahead.
+  auto group_at = [&](int ki) {
+    if (ki != next) return;
+    if constexpr (KIND == INT8) pend = load_affine<KIND>(p, ki / group, col);
+    float s[C::CPT], z[C::CPT];
+#pragma unroll
+    for (int i = 0; i < C::CPT / 4; ++i) {
+      s[4 * i] = pend.s[i].x, s[4 * i + 1] = pend.s[i].y, s[4 * i + 2] = pend.s[i].z;
+      s[4 * i + 3] = pend.s[i].w;
+      z[4 * i] = pend.z[i].x, z[4 * i + 1] = pend.z[i].y, z[4 * i + 2] = pend.z[i].z;
+      z[4 * i + 3] = pend.z[i].w;
+    }
+#pragma unroll
+    for (int j = 0; j < C::CPT; ++j) {
+      if constexpr (KIND == W4A8) {
+        lut[j] = dk::requant_lut(__fmul_rn(s[j], rw[j]), __fmul_rn(z[j], rw[j]));
+      } else {
+        cs[j] = s[j];
+        cc[j] = -8388608.f * s[j];
+        cz[j] = z[j];
+        if constexpr (KIND == INT4) {
+          cs16[j] = 0.0625f * s[j];
+          cc16[j] = -8388608.f * cs16[j];
+        }
+      }
+    }
+    const int gi = ki / group + 1;
+    next = gi * group;
+    if constexpr (KIND != INT8)
+      if (next < k0 + kp) pend = load_affine<KIND>(p, gi, col);
+  };
+
+#pragma unroll 1
+  for (int r0 = 0; r0 < L; r0 += C::D) {
+#pragma unroll
+    for (int i = 0; i < C::D; ++i) {
+      const int r = r0 + i;
+      if (r >= L) break;
+      const int k = k0 + r * C::KC;
+      const int rows = chunk_rows(r);
+      const XChunk<KIND> xa = load_x<KIND>(xpa, va ? rows : 0);
+      const XChunk<KIND> xb = load_x<KIND>(xpb, vb ? rows : 0);
+      xpa += C::KC * esize;
+      xpb += C::KC * esize;
+      const WChunk<KIND> w = ring[i];
+      ring[i] = load_rows<WChunk<KIND>>(wp + (r + C::D) * C::ROWS * wstride, wstride,
+                                        chunk_rows(r + C::D));
+
+      if constexpr (KIND == INT4) {
+        // Word row q: k + 8q + 0..3 at positions 2t, 2t+1, 2t+8, 2t+9 of
+        // step 2q, k + 8q + 4..7 of step 2q + 1.
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (q == rows) break;
+          group_at(k + 8 * q);
+          const uint32_t wq[4] = {w.v[q].x, w.v[q].y, w.v[q].z, w.v[q].w};
+          const uint4 u = xa.v[q], v = xb.v[q];
+          const uint32_t a0[4] = {u.x, v.x, u.y, v.y}, a1[4] = {u.z, v.z, u.w, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t b0 = dequant_pair(wq[j], magic, cs[j], cc[j], cs16[j], cc16[j], cz[j]);
+            const uint32_t b1 = dequant_pair(wq[j] >> 8, magic, cs[j], cc[j], cs16[j], cc16[j], cz[j]);
+            const uint32_t b2 = dequant_pair(wq[j] >> 16, magic, cs[j], cc[j], cs16[j], cc16[j], cz[j]);
+            const uint32_t b3 = dequant_pair(wq[j] >> 24, magic, cs[j], cc[j], cs16[j], cc16[j], cz[j]);
+            dk::mma_bf16_16816(acc[j], a0, b0, b1);
+            dk::mma_bf16_16816(acc[j], a1, b2, b3);
+          }
+        }
+      } else if constexpr (KIND == INT8) {
+        group_at(k);  // groups start at multiples of 32 k, so at a chunk's first row
+        // k + 0, 1 at positions 2t, 2t+1; k + 2, 3 at 2t+8, 2t+9.
+        const uint32_t a[4] = {xa.v[0].x, xb.v[0].x, xa.v[0].y, xb.v[0].y};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const uint32_t src = j < 4 ? w.v[q].x : w.v[q].y;
+            const float f = __uint_as_float(__byte_perm(src, magic, 0x7440 | (j & 3)));
+            v[q] = __fadd_rn(__fmaf_rn(f, cs[j], cc[j]), cz[j]);
+          }
+          dk::mma_bf16_16816(acc[j], a, dk::pack_bf16(v[0], v[1]), dk::pack_bf16(v[2], v[3]));
+        }
+      } else {
+        // Word row q: k + 8q + 0..3 at positions 4t..4t+3, k + 8q + 4..7 at
+        // 16+4t..16+4t+3.
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (q == rows) break;
+          group_at(k + 8 * q);
+          const uint32_t wq[4] = {w.v[q].x, w.v[q].y, w.v[q].z, w.v[q].w};
+          const uint32_t a[4] = {xa.v[q].x, xb.v[q].x, xa.v[q].y, xb.v[q].y};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint2 b = dk::lut_word(lut[j], wq[j]);
+            dk::mma_s8_16832(acc[j], a, b.x, b.y);
+          }
+        }
+      }
+    }
+  }
+
+  // The warps' partials, [H][M][BN], then the block's, summed in warp order,
+  // to the workspace.
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int m = g + 8 * hf;
+    if (m >= M) continue;
+    Acc* dst = red + (h * M + m) * BN + cw * 8 * C::CPT;
+#pragma unroll
+    for (int j = 0; j < C::CPT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)  // D fragment column 2t + e of n8 tile j
+        dst[KIND == INT8 ? 16 * t + 8 * e + j : 8 * t + 4 * e + j] = acc[j][2 * hf + e];
+  }
+  __syncthreads();
+  const int total = M * BN;
+  Acc* parts = static_cast<Acc*>(p.partials) + (long long)tile * S * total;
+  for (int i = tid; i < total; i += NTHREADS) {
+    Acc v = red[i];
+#pragma unroll
+    for (int q = 1; q < C::H; ++q) v += red[q * total + i];
+    __stcg(parts + blockIdx.x * total + i, v);
+  }
+  // The last of the tile's S blocks to arrive sums the partials in split
+  // order and applies the epilogue; the others are done.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int arrived = atomicAdd(p.arrivals + tile, 1);
+    *last_flag = arrived == S - 1;
+    if (arrived == S - 1) p.arrivals[tile] = 0;  // for the next launch
+  }
+  __syncthreads();
+  if (!*last_flag) return;
+  __threadfence();
+  for (int i = tid; i < total; i += NTHREADS) {
+    Acc v = __ldcg(parts + i);
+    for (int q = 1; q < S; ++q) v += __ldcg(parts + q * total + i);
+    const int m = i / BN, n = n0 + i % BN;
+    float out;
+    if constexpr (KIND == W4A8) {
+      const float b = p.bias ? __bfloat162float(p.bias[n]) : 0.f;
+      out = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v), p.xscale[m]), p.wscale[n]), b);
+    } else {
+      out = v;
+    }
+    p.y[(long long)m * N + n] = __float2bfloat16(out);
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 2) int4_gemv(const Params p) { gemv<INT4>(p); }
+__global__ void __launch_bounds__(NTHREADS, 2) int8_gemv(const Params p) { gemv<INT8>(p); }
+__global__ void __launch_bounds__(NTHREADS, 2) w4a8_gemv(const Params p) { gemv<W4A8>(p); }
+
+template <int KIND>
+int launch(void (*kernel)(const Params), Params p, int splits, void* stream) {
+  const size_t smem = Cfg<KIND>::bytes;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int* arrivals;
+  const cudaError_t ea = cudaGetSymbolAddress(reinterpret_cast<void**>(&arrivals), g_arrivals);
+  if (ea != cudaSuccess) return (int)ea;
+  p.arrivals = arrivals + KIND * MAX_TILES;
+  kernel<<<dim3(splits, p.N / BN), NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// What every GEMV takes: 1 <= M <= 16, N a multiple of 128, S <= 8 splits of
+// K, each a multiple of 64 k (8 parts of whole word rows, or 16 of 4-k
+// chunks) and of the group.
+bool takes(int M, int N, int K, int group, int splits) {
+  return M > 0 && M <= MAX_M && N > 0 && N % BN == 0 && N / BN <= MAX_TILES && K > 0 &&
+         group > 0 && splits > 0 && splits <= MAX_SPLITS && K % (64 * splits) == 0 &&
+         (K / splits) % group == 0;
+}
+
+Params params(const void* x, long long lda, const void* qw, const void* scales,
+              const void* zeros, void* y, void* partials, int M, int N, int K, int group) {
+  Params p = {};
+  p.partials = partials;
+  p.x = x;
+  p.lda = lda;
+  p.qw = qw;
+  p.scales = static_cast<const float*>(scales);
+  p.zeros = static_cast<const float*>(zeros);
+  p.y = static_cast<bf16*>(y);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.group = group;
+  return p;
+}
+
+template <int KIND>
+int dequant_entry(const void* x, const void* qw, const void* scales, const void* zeros, void* y,
+                  int M, int N, int K, int group, long long lda, int splits, void* partials,
+                  void* stream) {
+  if (!takes(M, N, K, group, splits) || !(group == 32 || group % 64 == 0) || lda < K || lda % 8)
+    return (int)cudaErrorInvalidValue;
+  return launch<KIND>(KIND == INT4 ? int4_gemv : int8_gemv,
+                      params(x, lda, qw, scales, zeros, y, partials, M, N, K, group), splits,
+                      stream);
+}
+
+}  // namespace
+
+// Kernel C at M <= 16; the wrapper sends M > 16 to dk_int4_matmul_sm90_bf16
+// (int4_matmul_sm90.cu), which takes the same arguments but `splits` and
+// `partials`: `splits` blocks along K, fp32 (N / 128, splits, M, 128)
+// scratch for their partial sums.
+extern "C" int dk_int4_matmul_bf16(const void* x, const void* q4, const void* scales,
+                                   const void* zeros, void* y, int M, int N, int K, int group,
+                                   long long lda, int splits, void* partials, void* stream) {
+  return dequant_entry<INT4>(x, q4, scales, zeros, y, M, N, K, group, lda, splits, partials,
+                             stream);
+}
+
+// Kernel #13 at M <= 16, as dk_int4_matmul_bf16 with uint8 (K, N) weights.
+extern "C" int dk_int8_matmul_bf16(const void* x, const void* q8, const void* scales,
+                                   const void* zeros, void* y, int M, int N, int K, int group,
+                                   long long lda, int splits, void* partials, void* stream) {
+  return dequant_entry<INT8>(x, q8, scales, zeros, y, M, N, K, group, lda, splits, partials,
+                             stream);
+}
+
+// Kernel E in mode plain at M <= 16; the wrapper sends every other call to
+// dk_w4a8_matmul_sm90 (w4a8_matmul_sm90.cu). x8 int8 (M, K) rows lda apart;
+// wscale (N,), xscale (M,), bias (N,) bf16 or null; int32 partials as C's.
+extern "C" int dk_w4a8_matmul(const void* x8, const void* q4, const void* scales,
+                              const void* zeros, const void* wscale, const void* xscale,
+                              const void* bias, void* y, int M, int N, int K, int group,
+                              long long lda, int splits, void* partials, void* stream) {
+  if (!takes(M, N, K, group, splits) || K % 128 ||
+      !(group == 32 || group == 64 || group % 128 == 0) || lda < K || lda % 16)
+    return (int)cudaErrorInvalidValue;
+  Params p = params(x8, lda, q4, scales, zeros, y, partials, M, N, K, group);
+  p.wscale = static_cast<const float*>(wscale);
+  p.xscale = static_cast<const float*>(xscale);
+  p.bias = static_cast<const bf16*>(bias);
+  return launch<W4A8>(w4a8_gemv, p, splits, stream);
+}

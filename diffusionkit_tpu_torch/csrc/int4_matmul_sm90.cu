@@ -2,10 +2,10 @@
 // (int8_matmul) for Hopper at M > 16: `int4_mm_sm90<BN>` and
 // `int8_mm_sm90<BN>`, one body (`dequant_mm_sm90<BITS, BN>`), TMA-fed,
 // warp-specialised bf16 wgmma with the weight dequantised by a producer
-// warpgroup. int4_matmul.cu's note has the functions; its M <= 16 GEMV tile
-// stays there (ops/int4_matmul.py routes by M).
+// warpgroup. At M <= 16 the split-K GEMV of gemv_sm90.cu runs them
+// (ops/int4_matmul.py routes by M).
 //
-// Replaces, with int4_matmul.cu, the Pallas kernels
+// Replaces, with gemv_sm90.cu, the Pallas kernels
 // diffusionkit_tpu/ops/int4_matmul.py:int4_matmul (_kernel, C) and
 // int8_matmul (_kernel8, #13): y = x @ W with W = q * s + z in fp32 (a
 // product and a sum, each rounded: no FMA), rounded to bf16 once before the
@@ -344,8 +344,9 @@ int dispatch(const void* x, const void* qw, const void* scales, const void* zero
 
 }  // namespace
 
-// Kernels C and #13 at any M (the wrappers send M > 16 here); the
-// arguments of int4_matmul.cu's entries. K % 64 == 0, N % 128 == 0, group
+// Kernels C and #13 at any M (the wrappers send M > 16 here): q4 int32
+// words (K / 8, N) (nibble j of word r is row 8r + j) or q8 uint8 (K, N),
+// scales and zeros fp32 (K / group, N). K % 64 == 0, N % 128 == 0, group
 // 32 or a multiple of 64, x rows `lda` elements apart (a multiple of 8),
 // every pointer 16-byte aligned.
 extern "C" int dk_int4_matmul_sm90_bf16(const void* x, const void* q4, const void* scales,

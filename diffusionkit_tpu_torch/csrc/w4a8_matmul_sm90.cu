@@ -1,13 +1,32 @@
-// Kernel E's main loop for Hopper at M > 16: `w4a8_mm_sm90<MODE, BN>`,
-// TMA-fed, warp-specialised int8 wgmma with the packed int4 weight
-// requantised by a producer warpgroup, and the four epilogues of
-// w4a8_matmul.cu (its note has the functions and the numerics; the
-// M <= 16 `ada` GEMV tile stays there, ops/w4a8_matmul.py routes by M).
+// Kernel E's main loop for Hopper at M > 16 (and in every mode but plain at
+// M <= 16): `w4a8_mm_sm90<MODE, BN>`, TMA-fed, warp-specialised int8 wgmma
+// with the packed int4 weight requantised by a producer warpgroup, and the
+// four epilogues. Mode plain at M <= 16 (the `ada` GEMVs) runs the split-K
+// GEMV of gemv_sm90.cu; ops/w4a8_matmul.py routes by M and mode.
 //
-// Replaces, with w4a8_matmul.cu, the Pallas kernel
+// Replaces, with gemv_sm90.cu, the Pallas kernel
 // diffusionkit_tpu/ops/w4a8_matmul.py:w4a8_matmul (_kernel,
-// _kernel_gelu_quant, _kernel_norm_rope, _kernel_grouped_xs). Bit for bit
-// the mma.sync kernel's results: the same requantisation (common.cuh
+// _kernel_gelu_quant, _kernel_norm_rope, _kernel_grouped_xs):
+// Main loop, shared by all modes:
+//   s8 = scales * (1 / wscale), z8 = zeros * (1 / wscale)   (IEEE, in that order)
+//   w8 = clip(round_half_even(q * s8 + z8), -127, 127)     (a product and a sum,
+//        each rounded: no FMA contraction)
+//   acc = x8 @ w8                                           (exact int32)
+// Epilogues, every step separately rounded in the reference's order:
+//   plain       y = ((float(acc) * xs[m]) * ws[n]) + b[n] -> bf16
+//   grouped_xs  per 512-wide k group: accf = accf + float(part) * xs[m, kg];
+//               y = (accf * ws[n]) + b[n] -> bf16 (a 512-term int32 partial
+//               is exact: 512 * 127^2 < 2^24)
+//   gelu_quant  g = GELU(y) with the Abramowitz-Stegun erf of
+//               fused_quant.py:_erf; per (row, 512-column tile)
+//               amax = max(max|g|, 1e-8), y8 = clip(rne(g * (127 / amax))),
+//               yscale = amax / 127
+//   norm_rope   per 128-column head: yn = y * rsqrt(mean(y^2) + eps) * nw,
+//               then rotate-half RoPE with the (S, 64) cos/sin tables at row
+//               m mod S -> bf16
+// The reference's (M, 128) lane-broadcast scale tensors and its
+// [cos|cos|-sin|sin] table are TPU layouts and are not carried over.
+// Bit for bit in plain and grouped_xs: the same requantisation (common.cuh
 // requant_word), exact int32 products in any order, the same epilogue
 // chains of rounded steps, grouped_xs's 512-k partials folded in k order.
 //
@@ -24,7 +43,8 @@
 //  * Requantisation by table: a group's 16 grid values (q = 0..15, by
 //    common.cuh's exact float steps) are built once per word run and packed
 //    in four registers; a word (8 consecutive k of one column) then takes
-//    byte_perm lookups, about 13 operations instead of 70 (`lut_word`).
+//    byte_perm lookups, about 13 operations instead of 70 (common.cuh's
+//    `requant_lut` and `lut_word`).
 //  * Two rings. Per k tile of 128: the x8 tile (256 rows, 128-byte
 //    swizzle, rows past M zero-filled) and the requantised w8 tile (BN x
 //    128, K-major, the layout TMA would give the (N, K) grid), 4 stages;
@@ -122,37 +142,6 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da, uint64_t
     wgmma_ss_s8_n64(d, da, db, scale_d);
 }
 
-// The 16 grid values of one group and column, clip(rne(q * s8 + z8)) for
-// q = 0..15 as common.cuh's requant_nibble computes them, four int8 a
-// register (q = 0 in the low byte of .x).
-__device__ __forceinline__ uint4 requant_lut(float s8, float z8) {
-  uint32_t r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t b[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = dk::rne_i8_bits(__fadd_rn(__fmul_rn(static_cast<float>(4 * i + j), s8), z8));
-    r[i] = dk::pack_i8x4(b[0], b[1], b[2], b[3]);
-  }
-  return make_uint4(r[0], r[1], r[2], r[3]);
-}
-
-// Four nibbles (the low 16 bits of `nib`) -> their four grid values, nibble
-// i in byte i: byte_perm picks q & 7 from entries 0-7 and from 8-15, then
-// each byte from the one that bit 3 of q names.
-__device__ __forceinline__ uint32_t lut4(uint4 t, uint32_t nib) {
-  const uint32_t idx = nib & 0x7777u;
-  const uint32_t lo = __byte_perm(t.x, t.y, idx), hi = __byte_perm(t.z, t.w, idx);
-  return __byte_perm(lo, hi, ((nib >> 1) & 0x4444u) | 0x3210u);
-}
-
-// One packed word (8 consecutive k) -> 8 int8 in k order: requant_word's
-// bytes, from the group's table.
-__device__ __forceinline__ uint2 lut_word(uint4 t, uint32_t w) {
-  return make_uint2(lut4(t, w), lut4(t, w >> 16));
-}
-
 // y = ((float(acc) * xs) * ws) + b, each step rounded (plain's epilogue).
 __device__ __forceinline__ float affine(int acc, float xs, float ws, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws), b);
@@ -177,11 +166,11 @@ __device__ __forceinline__ void requant_rows(uint32_t b, const uint32_t* q, cons
   for (int wr = wr0; wr < wr0 + words; wr += 2) {
     const int gi = wr >> gshift;
     if (gi != gi_built) {
-      lut = requant_lut(__fmul_rn(sc[gi * BN + n], rw), __fmul_rn(zr[gi * BN + n], rw));
+      lut = dk::requant_lut(__fmul_rn(sc[gi * BN + n], rw), __fmul_rn(zr[gi * BN + n], rw));
       gi_built = gi;
     }
-    const uint2 lo = lut_word(lut, q[wr * BN + n]);
-    const uint2 hi = lut_word(lut, q[(wr + 1) * BN + n]);
+    const uint2 lo = dk::lut_word(lut, q[wr * BN + n]);
+    const uint2 hi = dk::lut_word(lut, q[(wr + 1) * BN + n]);
     st_shared_v4(b + n * BK + (((wr >> 1) ^ (n & 7)) << 4), make_uint4(lo.x, lo.y, hi.x, hi.y));
   }
 }
@@ -590,8 +579,8 @@ int sm_count() {
 
 }  // namespace
 
-// Kernel E at any M (the wrapper sends M > 16 here); the arguments of
-// w4a8_matmul.cu's dk_w4a8_matmul. K % 128 == 0; N % 128 (N % 512 for
+// Kernel E at any M (the wrapper sends every call but mode plain at M <= 16
+// here). K % 128 == 0; N % 128 (N % 512 for
 // gelu_quant); group 32, 64 or a multiple of 128; x8 rows `lda` bytes apart
 // (a multiple of 16), every pointer 16-byte aligned.
 extern "C" int dk_w4a8_matmul_sm90(const void* x8, const void* q4, const void* scales,

@@ -9,8 +9,10 @@ and 38 single-stream blocks). It computes ``y[M, N] = x[M, K] @ W`` where
 in fp32 and rounded once. Two CUDA main loops run it, picked by
 ``dequant_route``: at M > 16 ``csrc/int4_matmul_sm90.cu`` (TMA, bf16
 ``wgmma``, the dequantisation beside the products), at M <= 16 (the ``ada``
-GEMVs) the ``mma.sync`` tile of ``csrc/int4_matmul.cu``; the notes there say
-what bounds each and how it is tiled.
+GEMVs) the split-K GEMV of ``csrc/gemv_sm90.cu`` (``gemv_splits`` blocks
+along K, each streaming its slab of the weight once, their partial sums
+added in split order in a workspace); the notes there say what bounds each
+and how it is tiled.
 
 ``int4_matmul`` launches the kernel for a CUDA tensor and raises on what it
 does not take (bf16 x, K a multiple of 64, N of 128, group 32 or a multiple
@@ -23,11 +25,12 @@ Kernel #13 ``int8_matmul`` replaces the reference's ``int8_matmul``
 (``_kernel8``), the int8 weight-only mode's product: the same with ``q8``
 uint8 (K, N) bytes, values 0..255, in place of the nibbles (``int8_linear``
 applies it as ``int4_linear`` applies C). Its CUDA sources are C's, with
-the byte tile loader, routed the same way.
+bytes in place of words, routed the same way.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -35,18 +38,45 @@ import torch.nn.functional as F
 
 from . import kernels
 
-# Kernel tiling constraints (csrc/int4_matmul.cu, csrc/int4_matmul_sm90.cu).
+# Kernel tiling constraints (csrc/gemv_sm90.cu, csrc/int4_matmul_sm90.cu).
 K_TILE, N_TILE = 64, 128
-# Rows at or below which C and #13 run their 16-row mma.sync tile (the
-# `ada` GEMVs); above, the Hopper main loop's 256-row blocks.
+# Rows at or below which C and #13 (and E's mode plain) run the split-K GEMV
+# (the `ada` projections); above, the Hopper main loop's 256-row blocks.
 SMALL_M = 16
+# The GEMV's split of K (``gemv_splits``): at most 8 blocks a column tile,
+# each a whole number of 64-k parts and groups, chosen for the H100 SXM's
+# 132 SMs at the kernel's 2 resident blocks a SM.
+GEMV_PART_K, GEMV_MAX_SPLITS, GEMV_SLOTS = 64, 8, 2 * 132
+# The cost of one more split against a wave's, fitted to the card's times
+# of S = 2..8 at the paths' shapes (tools/bench_gemv.py).
+GEMV_SPLIT_COST = 0.015
 
 
 def dequant_route(m: int) -> str:
     """The main loop of kernels C and #13 for ``m`` rows: ``"sm90"``
-    (csrc/int4_matmul_sm90.cu) above ``SMALL_M``, else ``"tile"``
-    (csrc/int4_matmul.cu)."""
+    (csrc/int4_matmul_sm90.cu) above ``SMALL_M``, else ``"tile"``, the
+    split-K GEMV (csrc/gemv_sm90.cu)."""
     return "sm90" if m > SMALL_M else "tile"
+
+
+def gemv_splits(k: int, n: int, group: int) -> int:
+    """S, the blocks that split K for the M <= 16 GEMV of kernels C, #13 and
+    E (csrc/gemv_sm90.cu): among the S <= 8 for which each split is whole
+    64-k parts and groups, the one that minimises the waves of resident
+    blocks a split costs, ceil((N / 128) S / GEMV_SLOTS) / S, plus
+    ``GEMV_SPLIT_COST`` S for each split's own start and partial sum; the
+    smaller S on a tie. A pure function of the shape, so the CPU tests hold
+    it."""
+    unit = math.lcm(GEMV_PART_K, group)
+    tiles = n // N_TILE
+    best, best_cost = 1, math.inf
+    for s in range(1, GEMV_MAX_SPLITS + 1):
+        if k % (s * unit):
+            continue
+        cost = -(-tiles * s // GEMV_SLOTS) / s + GEMV_SPLIT_COST * s
+        if cost < best_cost - 1e-12:
+            best, best_cost = s, cost
+    return best
 
 
 def dequant_kernel(name: str, m: int, k: int, k_w: int, n: int, groups: int) -> str:
@@ -104,19 +134,18 @@ def int4_matmul(
     if q4.dtype != torch.int32 or q4.ndim != 2:
         raise TypeError(f"int4_matmul: q4 must be int32 (K/8, N), got {q4.dtype} "
                         f"{tuple(q4.shape)}")
-    y = _launch("int4_matmul", x, q4, q4.shape[0] * 8, q4.shape[1], scales, zeros)
-    if y.shape[0]:
-        int4_matmul.launches += 1
-    return y
+    return _launch(int4_matmul, x, q4, q4.shape[0] * 8, q4.shape[1], scales, zeros)
 
 
-def _launch(name: str, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
+def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
             scales: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
-    """Check what kernels C and #13 take and launch ``name``'s entry for
-    this M (``dequant_kernel``): x bf16 (M, K) with a contiguous last axis
-    and 16-byte aligned rows, K = ``k_w`` a multiple of 64, N of 128, group
-    32 or a multiple of 64; the packed weight ``qw``, scales and zeros
-    (K/g, N) fp32, contiguous."""
+    """Check what kernels C and #13 take and launch the entry of
+    ``wrapper`` (int4_matmul or int8_matmul) for this M (``dequant_kernel``;
+    the GEMV with ``gemv_splits``), counting it: x bf16 (M, K) with a
+    contiguous last axis and 16-byte aligned rows, K = ``k_w`` a multiple of
+    64, N of 128, group 32 or a multiple of 64; the packed weight ``qw``,
+    scales and zeros (K/g, N) fp32, contiguous."""
+    name = wrapper.__name__
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
@@ -140,15 +169,24 @@ def _launch(name: str, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
                          f"got strides {x.stride()}")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m:
+        gemv = dequant_route(m) == "tile"
+        split = ()
+        if gemv:  # S blocks along K and their fp32 partial sums
+            s = gemv_splits(k, n, group)
+            partials = torch.empty(s * m * n, dtype=torch.float32, device=x.device)
+            split = (s, partials.data_ptr())
         err = getattr(kernels.library(), symbol)(
             x.data_ptr(), qw.data_ptr(), scales.data_ptr(), zeros.data_ptr(), y.data_ptr(),
-            m, n, k, group, x.stride(0), kernels.stream_ptr(x.device),
+            m, n, k, group, x.stride(0), *split, kernels.stream_ptr(x.device),
         )
         kernels.check(err, name)
+        wrapper.launches += 1
+        wrapper.gemv_launches += gemv
     return y
 
 
 int4_matmul.launches = 0
+int4_matmul.gemv_launches = 0  # of them, the M <= 16 GEMV's
 
 
 def dequantize_int8(
@@ -182,13 +220,11 @@ def int8_matmul(
         return int8_matmul_plain(x, q8, scales, zeros)
     if q8.dtype != torch.uint8 or q8.ndim != 2:
         raise TypeError(f"int8_matmul: q8 must be uint8 (K, N), got {q8.dtype} {tuple(q8.shape)}")
-    y = _launch("int8_matmul", x, q8, q8.shape[0], q8.shape[1], scales, zeros)
-    if y.shape[0]:
-        int8_matmul.launches += 1
-    return y
+    return _launch(int8_matmul, x, q8, q8.shape[0], q8.shape[1], scales, zeros)
 
 
 int8_matmul.launches = 0
+int8_matmul.gemv_launches = 0
 
 
 def int4_linear(layer, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:

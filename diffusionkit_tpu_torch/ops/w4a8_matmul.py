@@ -18,10 +18,11 @@ grid ``w8 = clip(round_half_even(q * s8 + z8), -127, 127)``, with
 ``s8 = scales * (1 / wscale)`` and ``z8 = zeros * (1 / wscale)``, each a
 separately rounded fp32 operation (``requant_w8_plain`` is the reference's
 ``dequant_w8``). Two CUDA main loops run it, picked by ``w4a8_route``: mode
-plain at M <= 16 (the ``ada`` GEMVs) the ``mma.sync`` tile of
-``csrc/w4a8_matmul.cu``, everything else ``csrc/w4a8_matmul_sm90.cu``
-(TMA, int8 ``wgmma``, the requantisation beside the products); the notes
-there say what bounds each and how it is tiled.
+plain at M <= 16 (the ``ada`` GEMVs) the split-K GEMV of
+``csrc/gemv_sm90.cu`` (kernel C's, ``int4_matmul.gemv_splits`` blocks along
+K), everything else ``csrc/w4a8_matmul_sm90.cu`` (TMA, int8
+``wgmma``, the requantisation beside the products); the notes there say
+what bounds each and how it is tiled.
 
 ``w4a8_matmul`` launches the kernel for a CUDA tensor (counting launches per
 mode) and raises on what it does not take; a CPU tensor goes to
@@ -54,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
+from .int4_matmul import gemv_splits
 from .w8a8 import ActQuant
 
 # The activation-scale tile of the FFN hidden: fc1's gelu_quant column tile
@@ -64,18 +66,19 @@ SCALE_TILE = 512
 HEAD_DIM = 128  # norm_rope's head width
 K_TILE = 128
 MODES = {"plain": 0, "gelu_quant": 1, "grouped_xs": 2, "norm_rope": 3}
-# Column tile of each mode's kernel configuration (csrc/w4a8_matmul.cu).
+# Column tile of each mode's kernel configuration (csrc/w4a8_matmul_sm90.cu,
+# csrc/gemv_sm90.cu).
 N_TILE = {"plain": 128, "gelu_quant": SCALE_TILE, "grouped_xs": 128, "norm_rope": HEAD_DIM}
-# Rows at or below which kernel E's mode plain runs its 16-row mma.sync
-# tile (the `ada` GEMVs); every other call, the Hopper main loop.
+# Rows at or below which kernel E's mode plain runs the split-K GEMV (the
+# `ada` projections); every other call, the Hopper main loop.
 SMALL_M = 16
 _E_SYMBOLS = {"sm90": "dk_w4a8_matmul_sm90", "tile": "dk_w4a8_matmul"}
 
 
 def w4a8_route(m: int, mode: str) -> str:
-    """Kernel E's main loop for ``m`` rows in ``mode``: ``"tile"`` (csrc/
-    w4a8_matmul.cu) for mode plain at M <= ``SMALL_M``, else ``"sm90"``
-    (csrc/w4a8_matmul_sm90.cu)."""
+    """Kernel E's main loop for ``m`` rows in ``mode``: ``"tile"``, the
+    split-K GEMV (csrc/gemv_sm90.cu), for mode plain at M <= ``SMALL_M``,
+    else ``"sm90"`` (csrc/w4a8_matmul_sm90.cu)."""
     return "tile" if m <= SMALL_M and mode == "plain" else "sm90"
 
 
@@ -263,20 +266,33 @@ def w4a8_matmul(
         yscale = None
     if m:
         ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-        err = getattr(kernels.library(), symbol)(
-            x8.data_ptr(), q4.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-            wscale.data_ptr(), xscale.data_ptr(), ptr(bias), ptr(norm_w), ptr(cos), ptr(sin),
-            s_rows, y.data_ptr(), ptr(yscale), MODES[mode], m, n, k, k // groups, k, float(eps),
-            kernels.stream_ptr(dev),
-        )
+        group = k // groups
+        fn = getattr(kernels.library(), symbol)
+        if symbol == _E_SYMBOLS["tile"]:  # S blocks along K and their int32 partial sums
+            splits = gemv_splits(k, n, group)
+            partials = torch.empty(splits * m * n, dtype=torch.int32, device=dev)
+            err = fn(
+                x8.data_ptr(), q4.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+                wscale.data_ptr(), xscale.data_ptr(), ptr(bias), y.data_ptr(), m, n, k, group, k,
+                splits, partials.data_ptr(), kernels.stream_ptr(dev),
+            )
+        else:
+            err = fn(
+                x8.data_ptr(), q4.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+                wscale.data_ptr(), xscale.data_ptr(), ptr(bias), ptr(norm_w), ptr(cos), ptr(sin),
+                s_rows, y.data_ptr(), ptr(yscale), MODES[mode], m, n, k, group, k, float(eps),
+                kernels.stream_ptr(dev),
+            )
         kernels.check(err, f"w4a8_matmul ({mode})")
         w4a8_matmul.launches += 1
         w4a8_matmul.mode_launches[mode] += 1
+        w4a8_matmul.gemv_launches += symbol == _E_SYMBOLS["tile"]
     return (y, yscale) if mode == "gelu_quant" else y
 
 
 w4a8_matmul.launches = 0
 w4a8_matmul.mode_launches = dict.fromkeys(MODES, 0)
+w4a8_matmul.gemv_launches = 0  # of mode plain's, the M <= 16 GEMV's
 
 
 def w8_matmul_plain(

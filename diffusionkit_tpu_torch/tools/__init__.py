@@ -6,10 +6,12 @@ Counterparts of the reference's ``tools/bench_w4a8_mat.py`` and
     python -m diffusionkit_tpu_torch.tools.bench_w4a8_mat [M K N [iters]]
     python -m diffusionkit_tpu_torch.tools.microbench_int8 [M K N [iters]]
 
-and ``bench_flash`` (the flash kernels beside the library's attention, timed
-by ``device_ms``):
+``bench_flash`` (the flash kernels beside the library's attention, timed
+by ``device_ms``) and ``bench_gemv`` (the M <= 16 GEMVs of kernels C, #13
+and E, timed warm by ``device_ms`` and cold by ``device_ms_cold``):
 
     python -m diffusionkit_tpu_torch.tools.bench_flash [B,S,H,D ...]
+    python -m diffusionkit_tpu_torch.tools.bench_gemv [M,K,N,group ...]
 
 The first two have ``run(M, K, N, iters, device="cuda")``, which returns its rows,
 and ``main``, which prints them. A row is timed as the reference times it:
@@ -84,13 +86,31 @@ def device_ms(fn, reps: int = 20) -> float:
     timed at the host's pace). Median of 5 replays, divided by ``reps``.
     Inputs stay resident in L2 where they fit, as right after their
     producer in the model."""
-    for _ in range(3):
-        fn()
+    return _graph_ms([fn], reps, warmups=3)
+
+
+def device_ms_cold(fns: List[Callable], rounds: int = 2) -> float:
+    """Device time of one call with its inputs cold in L2: ``fns`` call one
+    function on distinct copies of its inputs, more bytes together than the
+    card's 50 MB L2 (callers give over 100 MB), so that the calls between
+    two calls of one copy evict it, as the 38-77 ``ada`` weights of a
+    denoise step are each read once. ``rounds`` passes over ``fns`` in one
+    CUDA graph, timed as ``device_ms``'s."""
+    return _graph_ms(fns, rounds, warmups=1)
+
+
+def _graph_ms(fns: List[Callable], rounds: int, warmups: int) -> float:
+    """``warmups`` eager passes over ``fns``, then ``rounds`` passes captured
+    in one CUDA graph; the median of 5 timed replays over the calls."""
+    for _ in range(warmups):
+        for fn in fns:
+            fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -100,7 +120,7 @@ def device_ms(fn, reps: int = 20) -> float:
         graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
+        times.append(start.elapsed_time(end) / (rounds * len(fns)))
     return statistics.median(times)
 
 

@@ -121,8 +121,7 @@ def test_kernel_library_is_keyed_by_source_hash():
     assert path.parent == kernels.BUILD_DIR
     assert kernels.source_hash() in path.name
     assert {p.name for p in kernels.CSRC.glob("*.cu")} >= {"mod_ln.cu", "flash_attention.cu",
-                                                             "int4_matmul.cu", "w4a8_matmul.cu",
-                                                             "w8_matmul.cu"}
+                                                             "gemv_sm90.cu", "w8_matmul.cu"}
 
 
 @pytest.fixture
@@ -545,7 +544,7 @@ def test_int4_kernel_matches_plain(cuda, shape):
 @pytest.mark.parametrize("m", [300, 9])
 def test_int4_kernel_reads_strided_rows_in_place(cuda, m):
     """x as the image rows of a wider activation (a row stride above K), on
-    the Hopper loop (300 rows) and the GEMV tile (9)."""
+    the Hopper loop (300 rows) and the GEMV (9)."""
     g = torch.Generator(device=cuda).manual_seed(6)
     q4, scales, zeros = random_int4(512, 256, 64, g, cuda)
     wide = torch.randn(m, 640, generator=g, device=cuda).bfloat16()
@@ -1100,8 +1099,8 @@ def test_tools_run_on_the_card(cuda):
     assert {name: fn.launches - before[name] for name, fn in counters.items()} == want
 
 
-# Kernels E, C and #13 on their two main loops. The routes: the 16-row
-# mma.sync tile at M <= 16 (the `ada` GEMVs; for E mode plain only), the
+# Kernels E, C and #13 on their two main loops. The routes: the split-K GEMV
+# ("tile") at M <= 16 (the `ada` projections; for E mode plain only), the
 # Hopper loop otherwise; every shape the wrappers took before takes one.
 ROUTE_ROWS = [1, 2, 16, 17, 77, 255, 256, 257, 4352]
 E_ACCEPTED = [(k, n, group, mode) for mode in ("plain", "gelu_quant", "grouped_xs", "norm_rope")
@@ -1146,7 +1145,7 @@ def test_dequant_route_takes_every_accepted_shape(m, name):
             dequant_kernel(name, m, k, k, n, k // group)
 
 
-# The Hopper loops' edges: M one past the GEMV tile, short of, at and one
+# The Hopper loops' edges: M one past the GEMV's, short of, at and one
 # past a 256-row block, the unified blocks' 4352; groups 32, 64 and 128.
 EDGE_ROWS = (17, 77, 255, 256, 257, 4352)
 EDGE_GROUPS = (32, 64, 128)
@@ -1182,3 +1181,177 @@ def test_int8_kernel_reads_strided_rows_in_place(cuda, m):
     assert x.stride(0) == 640
     assert torch.equal(int8_matmul(x, q8, scales, zeros),
                        int8_matmul(x.contiguous(), q8, scales, zeros))
+
+
+# -- the split-K GEMV of C, #13 and E at M <= 16 (csrc/gemv_sm90.cu) -----------
+
+# (K, N, group) of the `ada` GEMVs on the measured paths: FLUX's dual and
+# single blocks (C and E, group 64) and SD3's blocks at the quantize-at-load
+# group 32 (#13); then shapes where K caps S below the card's fill: SD3's
+# final layer, its t embedder and its y embedder.
+GEMV_PATH_SHAPES = [(3072, 18432, 64), (3072, 9216, 64), (1536, 9216, 32)]
+GEMV_NARROW_SHAPES = [(1536, 3072, 32), (256, 1536, 32), (2048, 1536, 32)]
+
+
+def _gemv_accepted(name):
+    if name == "w4a8_matmul":
+        return [(k, n, group) for k, n, group, mode in E_ACCEPTED if mode == "plain"]
+    return [(k, n, group) for k in (64, 512, 1536, 3072, 12288) for n in (128, 384, 3072)
+            for group in (32, 64, 128, 192) if k % group == 0]
+
+
+@pytest.mark.parametrize("name", ["int4_matmul", "int8_matmul", "w4a8_matmul"])
+def test_gemv_splits_cover_k_in_whole_parts_and_groups(name):
+    """At every (K, N, group) the route tests take at M <= 16, S splits K
+    exactly, each split a whole number of the GEMV's 64-k parts and of
+    groups, and S is at most 8."""
+    from diffusionkit_tpu_torch.ops.int4_matmul import gemv_splits
+
+    for k, n, group in _gemv_accepted(name):
+        s = gemv_splits(k, n, group)
+        assert 1 <= s <= 8 and k % s == 0, (k, n, group, s)
+        assert (k // s) % 64 == 0 and (k // s) % group == 0, (k, n, group, s)
+
+
+@pytest.mark.parametrize("shape", GEMV_PATH_SHAPES)
+def test_gemv_splits_fill_the_card_at_the_path_shapes(shape):
+    """The path's GEMVs put a block on every SM of the H100's 132 and more
+    than one on most: 216 or 432 blocks, in one or two waves of the
+    kernel's 264 resident blocks."""
+    from diffusionkit_tpu_torch.ops.int4_matmul import gemv_splits
+
+    k, n, group = shape
+    assert (n // 128) * gemv_splits(k, n, group) >= 1.5 * 132
+
+
+@pytest.mark.parametrize("shape", GEMV_NARROW_SHAPES)
+def test_gemv_splits_take_the_most_that_k_allows(shape):
+    """Where even the largest split that K allows leaves the card's
+    resident blocks short of one wave, S is that split."""
+    from diffusionkit_tpu_torch.ops.int4_matmul import gemv_splits
+
+    k, n, group = shape
+    allowed = [s for s in range(1, 9) if k % (s * 64) == 0 and (k // s) % group == 0]
+    assert (n // 128) * max(allowed) < 2 * 132
+    assert gemv_splits(k, n, group) == max(allowed)
+
+
+# (M, K, N, group) of the GPU GEMV cases: the path's `ada` shapes (FLUX at
+# M = 1, SD3 at M = 2), then M from 1 to 16 against groups 32 to 256, K
+# from 128 to 12288 and N from 128 to 18432. Every case runs C, #13 and E.
+GEMV_CASES = [(1, 3072, 18432, 64), (1, 3072, 9216, 64), (2, 1536, 9216, 32),
+              (2, 1536, 3072, 32), (2, 256, 1536, 32), (2, 2048, 1536, 64), (3, 128, 128, 32),
+              (8, 12288, 384, 128), (15, 4096, 640, 256), (16, 512, 18432, 64),
+              (1, 12288, 128, 256), (16, 128, 256, 64)]
+
+
+def _gemv_call(kind, m, k, n, group, gen, device, x_offset=0):
+    """One GEMV call of ``kind`` (int4, int8, w4a8) on random inputs; C and
+    #13 read x as a column slice of a wider activation when ``x_offset``.
+    Returns (the call, its wrapper, a check of an output)."""
+    if kind == "w4a8":
+        layer, x8, xs, _ = w4a8_inputs("plain", m, k, n, group, gen, device)
+        args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias)
+        want = w4a8_matmul_plain(*args)
+
+        def check(got):
+            assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        return (lambda: w4a8_matmul(*args)), w4a8_matmul, check
+    if kind == "int4":
+        qw, scales, zeros = random_int4(k, n, group, gen, device)
+        w = dequantize_int4(qw, scales, zeros, torch.bfloat16).float()
+        fn = int4_matmul
+    else:
+        qw, scales, zeros = random_int8(k, n, group, gen, device)
+        w = dequantize_int8(qw, scales, zeros, torch.bfloat16).float()
+        fn = int8_matmul
+    wide = torch.randn(m, k + 2 * x_offset, generator=gen, device=device).bfloat16()
+    x = wide[:, x_offset:x_offset + k]
+    want = x.float() @ w
+    slack = 2 * k * 2.0**-24 * (x.float().abs() @ w.abs())
+
+    def check(got):
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        diff = (got.float() - want).abs()
+        bound = bf16_ulp(want) + slack
+        assert torch.all(diff <= bound), (diff / bound).max().item()
+    return (lambda: fn(x, qw, scales, zeros)), fn, check
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GEMV_CASES)
+@pytest.mark.parametrize("kind", ["int4", "int8", "w4a8"])
+def test_gemv_matches_plain(cuda, kind, case):
+    """The GEMV against its plain version, one launch a call on the GEMV
+    route: E bit-identical; C and #13 within one bf16 ulp + 2K 2^-24
+    (|x| @ |w|) of fp32 math on the same bf16 weights, x read in place from
+    a wider row (C, #13); a repeat bit-identical."""
+    m, k, n, group = case
+    g = torch.Generator(device=cuda).manual_seed(31)
+    call, fn, check = _gemv_call(kind, m, k, n, group, g, cuda, x_offset=64)
+    launches, gemv = fn.launches, fn.gemv_launches
+    got = call()
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.gemv_launches) == (launches + 1, gemv + 1)
+    check(got)
+    assert torch.equal(call(), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 6, 8])
+@pytest.mark.parametrize("kind", ["int4", "int8", "w4a8"])
+def test_gemv_at_every_split(cuda, kind, splits, monkeypatch):
+    """Every split the GEMV can be given at K = 3072 (the last block of a
+    column tile adds the S partials in split order), M = 2 and M = 16."""
+    from diffusionkit_tpu_torch.ops import int4_matmul as c_ops
+    from diffusionkit_tpu_torch.ops import w4a8_matmul as e_ops
+
+    monkeypatch.setattr(c_ops, "gemv_splits", lambda k, n, group: splits)
+    monkeypatch.setattr(e_ops, "gemv_splits", lambda k, n, group: splits)
+    g = torch.Generator(device=cuda).manual_seed(32)
+    for m in (2, 16):
+        call, _, check = _gemv_call(kind, m, 3072, 384, 64, g, cuda)
+        check(call())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [64, 192, 320])
+@pytest.mark.parametrize("kind", ["int4", "int8"])
+def test_gemv_at_k_short_of_128(cuda, kind, k, monkeypatch):
+    """C and #13 at a K that is a multiple of 64 but not of 128, in one
+    block along K: C's parts then end in a chunk of one word row, and at
+    group 32 a group starts at a chunk's second row."""
+    from diffusionkit_tpu_torch.ops import int4_matmul as c_ops
+
+    monkeypatch.setattr(c_ops, "gemv_splits", lambda k, n, group: 1)
+    g = torch.Generator(device=cuda).manual_seed(34)
+    for m, group in ((1, 32), (16, 64)):
+        if k % group == 0:
+            call, _, check = _gemv_call(kind, m, k, 256, group, g, cuda)
+            check(call())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int4", "int8", "w4a8"])
+def test_gemv_graph_replays_are_bit_identical(cuda, kind):
+    """Two replays of one CUDA graph of the GEMV give the same output bit
+    for bit, equal to an eager call's: nothing in the kernel carries state
+    from one launch to the next."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    call, _, check = _gemv_call(kind, 2, 1536, 9216, 32, g, cuda)
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first) and torch.equal(first, eager)
+    check(first)

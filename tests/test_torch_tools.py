@@ -25,7 +25,7 @@ from diffusionkit_tpu.ops import w4a8_matmul as jw
 from diffusionkit_tpu.ops.quantized import random_quantized_linear as jax_random_quantized_linear
 from diffusionkit_tpu_torch.ops import quantized as tq
 from diffusionkit_tpu_torch.ops import w4a8_matmul as tw
-from diffusionkit_tpu_torch.tools import bench_w4a8_mat, microbench_int8
+from diffusionkit_tpu_torch.tools import bench_gemv, bench_w4a8_mat, microbench_int8
 
 torch.set_num_threads(1)
 
@@ -164,6 +164,35 @@ def test_bench_w4a8_mat_runs_on_the_cpu():
     assert (tw.dequant_w8.launches, tw.w8_matmul.launches, tw.w4a8_matmul.launches) == launches
     assert bench_w4a8_mat.launches(16) == {"dequant_w8": 35, "w8_matmul": 17,
                                            "w4a8_matmul[plain]": 17, "quantize": 1}
+
+
+def test_bench_gemv_runs_on_the_cpu():
+    """bench_gemv on the CPU: one row a kernel and shape, no time, one weight
+    copy, and each call's output that of the kernel's plain version on a
+    layer drawn the same way."""
+    shapes = {"int4_matmul": [(1, 128, 256, 32)], "int8_matmul": [(2, 128, 128, 32)],
+              "w4a8_matmul": [(2, 256, 128, 64)]}
+    rows = bench_gemv.run(shapes, device="cpu")
+    assert [(r["name"], r["shape"]) for r in rows] == [
+        (name, shape) for name, ss in shapes.items() for shape in ss]
+    gen = torch.Generator().manual_seed(0)  # run's draws, in run's order
+    for r in rows:
+        m, k, n, group = r["shape"]
+        assert r["warm_ms"] is None and r["cold_ms"] is None and r["copies"] == 1
+        assert r["y"].shape == (m, n) and r["y"].dtype == torch.bfloat16
+        assert r["weight_bytes"] == bench_gemv.weight_bytes(r["name"], k, n, group)
+        (call,) = bench_gemv.calls(r["name"], r["shape"], 1, gen, torch.device("cpu"))
+        assert torch.equal(call(), r["y"])
+
+
+def test_bench_gemv_shapes_go_to_every_kernel_that_takes_them():
+    """An ``M,K,N,group`` argument times C and #13, and E where its K and
+    group allow."""
+    got = bench_gemv.parse_shapes(["1,3072,18432,64", "2,192,256,32", "2,1536,384,192"])
+    assert got["int4_matmul"] == got["int8_matmul"] == [
+        (1, 3072, 18432, 64), (2, 192, 256, 32), (2, 1536, 384, 192)]
+    assert got["w4a8_matmul"] == [(1, 3072, 18432, 64)]
+    assert bench_gemv.parse_shapes([]) is None
 
 
 def test_microbench_int8_runs_on_the_cpu():
@@ -333,6 +362,12 @@ PROFILER_NAMES = [
     ("void (anonymous namespace)::int8_mm<1, 1, 2>(__nv_bfloat16 const*, void const*, "
      "float const*, float const*, __nv_bfloat16*, int, int, int, int, long long)",
      "int8_matmul"),
+    ("void (anonymous namespace)::int4_gemv((anonymous namespace)::Params)",
+     "int4_matmul[gemv]"),
+    ("_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc29int8_gemvENS_6ParamsE",
+     "int8_matmul[gemv]"),
+    ("void (anonymous namespace)::w4a8_gemv((anonymous namespace)::Params)",
+     "w4a8_matmul[gemv]"),
 ]
 
 
@@ -394,6 +429,9 @@ HOPPER_MATMULS = [
     "_ZN52_GLOBAL__N__3dfd659d_19_w4a8_matmul_sm90_cu_815f210f12w4a8_mm_sm90ILi1ELi64EEEv",
     "_ZN52_GLOBAL__N__78b407cf_19_int4_matmul_sm90_cu_5c6450d012int4_mm_sm90ILi128EEEv",
     "_ZN52_GLOBAL__N__78b407cf_19_int4_matmul_sm90_cu_5c6450d012int8_mm_sm90ILi64EEEv",
+    "_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc29int4_gemvENS_6ParamsE",
+    "_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc29int8_gemvENS_6ParamsE",
+    "_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc29w4a8_gemvENS_6ParamsE",
 ]
 
 
@@ -401,8 +439,9 @@ HOPPER_MATMULS = [
 @pytest.mark.parametrize("spill", [0, 8])
 def test_chip_smoke_ptxas_report_holds_the_hopper_matmuls_to_no_spill(chip_smoke, tmp_path, entry,
                                                                        spill):
-    """The Hopper main loops of kernels E, C and #13 fail phase 2 on any
-    spill, as the flash kernels redesigned before them."""
+    """The Hopper main loops of kernels E, C and #13 and their M <= 16
+    GEMVs fail phase 2 on any spill, as the flash kernels redesigned before
+    them."""
     log = (f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'\n"
            f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
            "ptxas info    : Used 168 registers, used 16 barriers\n")
