@@ -9,7 +9,7 @@ Phases, each raising on failure (the script then exits non-zero):
      parallel; sm_90a) and print each kernel's registers and spill bytes
      from ptxas's report, failing on a C7512 ("wgmma serialized") or on a
      spill in the d=512 and 3xTF32 flash kernels, the Hopper main loops of
-     kernels E, C and #13 or their M <= 16 GEMVs;
+     kernels E, C and #13, their M <= 16 GEMVs or the row kernels A' and #4;
   3. each kernel against its plain torch version at the main paths' shapes,
      in bf16, against the plain math run in fp32 on the same bf16 inputs:
      mod_ln and flash attention at the SD3 shapes, flash attention at d=128
@@ -27,10 +27,14 @@ Phases, each raising on failure (the script then exits non-zero):
      GB) and timed beside F.scaled_dot_product_attention;
   3-4b. the w4a8 kernels (mod_ln_quantize, quantize and w4a8_matmul in its
      four modes) against their plain versions run on the card on the same
-     inputs, at the FLUX w4a8 shapes plus M=1, a ragged M and group 32, and
-     their device times beside the plain versions' and kernel C's at the
-     same (M, K, N), and kernel E's in mode plain at M >= 256 beside #10
-     then #11 (mat_pl, checked bit-identical to E), its yardstick;
+     inputs, at the FLUX w4a8 shapes plus M=1, a ragged M and group 32
+     (mod_ln_quantize also at FLUX 2048²'s image rows, SD3-medium's and
+     SD3.5-large's hidden 2432), and their device times beside the plain
+     versions' and kernel C's at the same (M, K, N) (mod_ln_quantize, and
+     gelu_quantize in 3-4c, with the input cold in L2, over copies that
+     pass 100 MB, beside warm), and kernel E's in mode plain at M >= 256
+     beside #10 then #11 (mat_pl, checked bit-identical to E), its
+     yardstick;
   3-4c. the kernels of the w8a8 and int8 modes against their plain versions
      on the card: gelu_quantize and w8_matmul at the SD3-medium w8a8 and
      T5-XXL w8a8 shapes, int8_matmul at the SD3-medium int8 shapes, kernel
@@ -207,6 +211,7 @@ from diffusionkit_tpu_torch.tools import (
     DEFAULT_ITERS,
     DEFAULT_SHAPE,
     bench_gemv,
+    bench_rows,
     bench_w4a8_mat,
     device_ms,
     device_ms_cold,
@@ -379,13 +384,15 @@ INT4_RAGGED = [(77, 3072, 3072, 64)]
 # Kernels A' (B, S, H) and D (M, K) at the FLUX w4a8 shapes: the AdaLN sites
 # of the image stream, the text stream and the unified blocks; the `ada`
 # input silu(c) and the `o` inputs; then at SD3-medium w8a8's (path d, 512²
-# CFG): the image and text stream sites, the `o` inputs. A ragged S of 77
-# is checked, not timed.
+# CFG): the image and text stream sites, the `o` inputs; A' also at FLUX
+# 2048²'s image stream (path g). A ragged S of 77 and SD3.5-large's hidden
+# 2432 (304 bf16 vectors, not a multiple of 32 lanes) at a ragged S are
+# checked, not timed.
 MOD_LN_QUANT_SHAPES = [(1, 4096, 3072), (1, 256, 3072), (1, 4352, 3072), (2, 1024, 1536),
-                       (2, 154, 1536)]
+                       (2, 154, 1536), (1, 16384, 3072)]
 QUANTIZE_SHAPES = [(1, 3072), (4096, 3072), (256, 3072), (4352, 3072), (2048, 1536),
                    (308, 1536)]
-QUANT_RAGGED = [(1, 77, 3072)]
+QUANT_RAGGED = [(1, 77, 3072), (2, 333, 2432)]
 # (M, K, N, group) of kernel E by mode on the FLUX w4a8 path: `ada` GEMVs
 # (dual and single), v/o of the image stream and the unified blocks, the
 # text stream; q/k; fc1; fc2; the quantize-at-load group 32 at one shape of
@@ -579,6 +586,25 @@ def gemv_cold_ms(name: str, shape) -> tuple:
     del fns
     torch.cuda.empty_cache()
     return ms, copies
+
+
+def rows_timing(name: str, shape, warm: float, plain: float, tag: str) -> dict:
+    """One shape of kernel A' or #4: cold (``device_ms_cold`` over
+    ``bench_rows.calls`` on input copies that pass 100 MB: each call reads
+    its rows from device memory; the number held against the bound) beside
+    warm (``device_ms``: the input stays in L2 where it fits)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    copies = -(-int(COLD_BYTES) // bench_rows.input_bytes(shape)) + 1
+    fns = bench_rows.calls(name, shape, copies, gen, torch.device("cuda"))
+    cold = device_ms_cold(fns)
+    del fns
+    torch.cuda.empty_cache()
+    t = timing(name, shape, cold, plain, warm_ms=warm, cold_copies=copies)
+    moved = bench_rows.moved_bytes(name, shape)
+    log(f"  {name} {shape}: kernel cold {cold!r} ms ({moved / cold / 1e9!r} TB/s; {copies} input "
+        f"copies), warm {warm!r} ms ({moved / warm / 1e9!r} TB/s), plain {plain!r} ms, "
+        f"{bound_note(t)} [{tag}]")
+    return t
 
 
 def random_int4(shape, gen):
@@ -911,13 +937,9 @@ def w4a8_kernels(gen, tag: str):
             raise AssertionError(f"mod_ln_quantize {shape} disagrees with its plain version")
         errs["mod_ln_quantize"].append(float(worst))
         if shape in MOD_LN_QUANT_SHAPES:
-            ms = device_ms(lambda: mod_ln_quantize(x, sh, sc))
+            warm = device_ms(lambda: mod_ln_quantize(x, sh, sc))
             plain = device_ms(lambda: mod_ln_quantize_plain(x, sh, sc))
-            moved = x.numel() * 3
-            t = timing("mod_ln_quantize", shape, ms, plain)
-            log(f"  mod_ln_quantize {shape}: kernel {ms!r} ms ({moved / ms / 1e9!r} TB/s), "
-                f"plain {plain!r} ms, {bound_note(t)} [{tag}]")
-            times["mod_ln_quantize"].append(t)
+            times["mod_ln_quantize"].append(rows_timing("mod_ln_quantize", shape, warm, plain, tag))
     for shape in QUANTIZE_SHAPES:
         y = (torch.randn(shape, generator=gen, device="cuda") * 3).bfloat16()
         got, want = quantize(y), quantize_plain(y)
@@ -1039,12 +1061,9 @@ def w8a8_kernels(gen, tag: str):
             raise AssertionError(f"gelu_quantize {shape} disagrees with its plain version")
         errs["gelu_quantize"].append(float(worst))
         if shape in GELU_SHAPES:
-            ms = device_ms(lambda: gelu_quantize(y))
+            warm = device_ms(lambda: gelu_quantize(y))
             plain = device_ms(lambda: gelu_quantize_plain(y))
-            t = timing("gelu_quantize", shape, ms, plain)
-            log(f"  gelu_quantize {shape}: kernel {ms!r} ms ({y.numel() * 3 / ms / 1e9!r} TB/s), "
-                f"plain {plain!r} ms, {bound_note(t)} [{tag}]")
-            times["gelu_quantize"].append(t)
+            times["gelu_quantize"].append(rows_timing("gelu_quantize", shape, warm, plain, tag))
     for shape in W8_SHAPES + W8_RAGGED:
         m, k, n = shape
         x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
@@ -2106,10 +2125,11 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
 
 # The redesigned kernels, held to 0 spill bytes (and, with the rest, to no
 # C7512, "wgmma serialized"): the d = 512 wgmma kernel and its merge, the
-# 3xTF32 fp32 flash kernels, the Hopper main loops of E, C and #13 and
-# their M <= 16 GEMVs.
+# 3xTF32 fp32 flash kernels, the Hopper main loops of E, C and #13, their
+# M <= 16 GEMVs, and the row kernels A' and #4.
 NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32", "w4a8_mm_sm90",
-            "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv")
+            "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv",
+            "mod_ln_quant_kernel", "gelu_quantize_kernel")
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")

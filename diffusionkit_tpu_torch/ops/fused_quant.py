@@ -15,11 +15,15 @@ Four kernels of ``csrc/mod_ln.cu``, each replacing a Pallas kernel of
   tanh) GELU of fc1's output quantized per row for fc2, in every w8a8 FFN
   and any w4a8 FFN the fused kernel-E chain does not take.
 
-All four are memory-bound single passes: one block per row with the row in
-registers and 16-byte accesses; see the note in the source. Each wrapper
-launches its kernel for a CUDA tensor and raises on what the kernel does not
-take; a CPU tensor goes to the plain torch version beside it. The quantizers
-return an ``ActQuant`` with ``orig=None``.
+Each reads its rows once and keeps them in registers, with 16-byte
+accesses: A and D one block a row; A' a warp (or a few) a row, several rows
+a block, every load issued before the first reduction; #4, which is bound
+by its instruction issue rather than the memory, a block a row with
+several vectors a thread. A' and #4 quantize without a per-element
+division, bit for bit the reference's grid; see the note in the source.
+Each wrapper launches its kernel for a CUDA tensor and raises on what the
+kernel does not take; a CPU tensor goes to the plain torch version beside
+it. The quantizers return an ``ActQuant`` with ``orig=None``.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ _MOD_LN_QUANT_KERNELS = {torch.bfloat16: "dk_mod_ln_quant_bf16",
 _GELU_QUANT_KERNELS = {torch.bfloat16: "dk_gelu_quantize_bf16",
                        torch.float32: "dk_gelu_quantize_f32"}
 GELU_FORMS = {"erf": 0, "tanh": 1}
-# Widest row kernels D and #4 take: 16 floats of the row per thread, at
-# most 1024 threads.
+# Widest row kernels D and #4 take (D: 16 floats of the row per thread, at
+# most 1024 threads).
 MAX_ROW = 16384
 
 

@@ -11,6 +11,7 @@ seeded ``torch.Generator``; the reference is the plain version run on fp32
 upcasts of the same bf16 inputs.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -568,9 +569,12 @@ def test_int4_wrapper_raises_on_unsupported_input(cuda):
         int4_matmul(x, q16, s16, z16)
 
 
-# Kernels A' and D at FLUX's AdaLN-site and `ada`/`o` shapes, plus ragged
-# rows and fp32.
-QUANT_SHAPES = [(1, 4352, 3072), (1, 256, 3072), (1, 77, 3072), (2, 33, 1024)]
+# Kernels A' and D at FLUX's AdaLN-site and `ada`/`o` shapes, FLUX 2048²'s
+# image rows, SD3-medium's image and text rows with CFG, SD3.5-large's
+# hidden 2432 (304 bf16 vectors, not a multiple of a warp's 32 lanes) at a
+# ragged S, plus ragged rows and fp32.
+QUANT_SHAPES = [(1, 4352, 3072), (1, 256, 3072), (1, 77, 3072), (2, 33, 1024),
+                (1, 16384, 3072), (2, 154, 1536), (2, 1024, 1536), (1, 333, 2432)]
 
 
 def assert_int8_close(got8, want8, share: float = 1e-2):
@@ -617,6 +621,208 @@ def test_mod_ln_quantize_kernel_matches_plain(cuda, shape, dtype):
     assert got.x8.shape == shape and got.xscale.shape == (b, s, 1) and got.dtype == dtype
     assert_int8_close(got.x8, want.x8)
     torch.testing.assert_close(got.xscale, want.xscale, rtol=1e-5, atol=0)
+
+
+# Kernel A' at every split of a row: 1 to 6 warps a row and 1 to 6
+# vectors a lane, the same vector counts in bf16 (8 values a vector) and
+# fp32 (4), up to the widest row (1024 vectors).
+ROW_SPLIT_VECS = [32, 64, 96, 128, 160, 192, 200, 256, 304, 384, 600, 768, 1024]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nvec", ROW_SPLIT_VECS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mod_ln_quantize_kernel_at_every_row_split(cuda, nvec, dtype):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    h = nvec * (8 if dtype == torch.bfloat16 else 4)
+    b, s = 3, 13  # a prime S: one row a block
+    x = (torch.randn(b, s, h, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    mods = torch.randn(b, 6 * h, generator=g, device=cuda).to(dtype)
+    shift, scale = mods[:, None, 3 * h : 4 * h], mods[:, None, 4 * h : 5 * h]
+    got, want = mod_ln_quantize(x, shift, scale), mod_ln_quantize_plain(x, shift, scale)
+    assert_int8_close(got.x8, want.x8)
+    torch.testing.assert_close(got.xscale, want.xscale, rtol=1e-5, atol=0)
+
+
+def assert_graph_replays_bit_identical(call) -> None:
+    """Two replays of one CUDA graph of ``call`` give the same ActQuant
+    bit for bit, equal to an eager call's."""
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    first = (out.x8.clone(), out.xscale.clone())
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip((out.x8, out.xscale), first, (eager.x8, eager.xscale)):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.gpu
+def test_mod_ln_quantize_graph_replays_are_bit_identical(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn(2, 154, 1536, generator=g, device=cuda) * 2 + 0.5).bfloat16()
+    mods = torch.randn(2, 6 * 1536, generator=g, device=cuda).bfloat16()
+    shift, scale = mods[:, None, :1536], mods[:, None, 1536:3072]
+    assert_graph_replays_bit_identical(lambda: mod_ln_quantize(x, shift, scale))
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fl32(a * b + c) for float32 a, b, c, rounded once as an FMA rounds:
+    the product exact in float64 (48 bits), the sum an exact float64 pair
+    (two-sum), then one round-half-even to float32 (the pair's low part
+    decides where the high part is a float32 midpoint)."""
+    prod, c64 = a.double() * b.double(), c.double()
+    hi = prod + c64
+    back = hi - prod
+    lo = (prod - (hi - back)) + (c64 - back)
+    out = hi.float()
+    up, down = (torch.nextafter(out, torch.full_like(out, d)) for d in (np.inf, -np.inf))
+    mid_up = hi == (out.double() + up.double()) / 2  # hi halfway to the next float32 up
+    mid_down = hi == (out.double() + down.double()) / 2
+    out = torch.where(mid_up & (lo > 0), up, out)
+    return torch.where(mid_down & (lo < 0), down, out)
+
+
+def div_rn(a: torch.Tensor, b: torch.Tensor, rb: torch.Tensor) -> torch.Tensor:
+    """csrc/mod_ln.cu div_rn in float32: q0 = a * rb, then q0 + (a - q0 b)
+    rb in two FMAs."""
+    q0 = a * rb
+    return fma32(fma32(-q0, b, a), rb, q0)
+
+
+def quant_rule(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The quantize step of kernels A' and #4 (csrc/mod_ln.cu store_row_i8_rcp)
+    in float32: div_rn(v, s, r) with r = 1/s correctly rounded (s capped at
+    the largest float), rounded half-even by adding 1.5 * 2^23 after the
+    clip to +-127."""
+    magic = 12582912.0
+    q = div_rn(v, s.clamp(max=torch.finfo(torch.float32).max), torch.full_like(s, 1.0) / s)
+    return (q.clamp(-127.0, 127.0) + magic) - magic
+
+
+def stress_values(family: str):
+    """(v, s) pairs in float32 that stress the rule: s from 1e-8 / 127 (the
+    smallest scale a row gets) to 1e4 and on to 2.6e36 (a row near the
+    largest float); v at the half-integers k + 0.5 of the grid times s and
+    their float32 neighbours (``ties``), at +-127.5 and +-127 times s and
+    their neighbours (``edges``), uniform over the grid (``random``), down
+    to subnormal (``tiny``), or in a row holding an infinity, s = inf
+    (``inf``)."""
+    s64 = np.concatenate([np.geomspace(1e-8 / 127, 1e4, 3001), np.geomspace(1e4, 2.6e36, 301),
+                          [np.float32(1e-8) / np.float32(127), 1.0, 1 / 127]])
+    s = torch.from_numpy(s64.astype(np.float32))[:, None]
+    gen = torch.Generator().manual_seed(5)
+    if family == "random":
+        u = torch.rand(s.shape[0], 4096, generator=gen, dtype=torch.float64)
+        return ((u * 255 - 127.5) * s.double()).float(), s
+    if family == "tiny":
+        u = torch.rand(s.shape[0], 256, generator=gen, dtype=torch.float64) * 2 - 1
+        return (u * torch.logspace(-45, -20, 256, dtype=torch.float64)).float(), s
+    if family == "inf":
+        v = torch.randn(4096, generator=gen) * torch.logspace(-30, 30, 4096)
+        return v[None, :], torch.full((1, 1), np.inf)
+    k = np.arange(-128, 128) + 0.5 if family == "ties" else np.array([-127.5, -127, 127, 127.5])
+    v = (torch.from_numpy(k)[None, :].double() * s.double()).float()
+    steps = [v]
+    for _ in range(3):  # 1, 2 and 3 float32 steps either way
+        steps = [torch.nextafter(steps[0], torch.full_like(v, -np.inf))] + steps + [
+            torch.nextafter(steps[-1], torch.full_like(v, np.inf))]
+    return torch.cat(steps, dim=1), s
+
+
+@pytest.mark.parametrize("family", ["ties", "edges", "random", "tiny", "inf"])
+def test_division_free_rounding_rule_is_bit_exact(family):
+    """The rule A' and #4 quantize by equals clip(round_half_even(v / s))
+    bit for bit, v / s an IEEE division: the corrected product is fl(v / s)
+    itself. CPU float32 arithmetic is IEEE, as the kernels' __fmul_rn /
+    __fmaf_rn / __frcp_rn are; ``fma32`` rounds once, as the FMA does."""
+    v, s = stress_values(family)
+    want = torch.round(v / s).clamp(-127.0, 127.0)
+    got = quant_rule(v, s)
+    assert torch.equal(got, want), (got != want).sum().item()
+    if family == "ties":  # the product alone rounds many of them the other way
+        q0 = v * (torch.full_like(s, 1.0) / s)
+        assert not torch.equal(torch.round(q0).clamp(-127.0, 127.0), want)
+
+
+@pytest.mark.parametrize("b", [127.0, 1536.0, 2432.0, 3072.0, 6144.0])
+def test_division_by_a_rounded_reciprocal_is_ieee(b):
+    """div_rn, as the kernels take a row's scale (amax / 127, amax from
+    1e-8 to the largest float) and A' its mean and variance (a sum over H),
+    equals the IEEE quotient bit for bit."""
+    g = torch.Generator().manual_seed(8)
+    a = torch.exp(torch.rand(200000, generator=g, dtype=torch.float64) * 106 - 18.5).float()
+    a = torch.cat([a, -a, torch.tensor([1e-8, 0.0, torch.finfo(torch.float32).max])])
+    bt = torch.full_like(a, b)
+    assert torch.equal(div_rn(a, bt, torch.full_like(a, 1.0) / bt), a / bt)
+
+
+def test_fma32_rounds_once():
+    """fma32 against exact rational arithmetic, and where a float64 sum
+    rounded to float32 would round twice."""
+    from fractions import Fraction
+
+    def exact(a, b, c):  # round-half-even of the exact value to float32
+        x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+        lo = np.float32(float(x))
+        near = (lo, np.nextafter(lo, np.float32(np.inf)), np.nextafter(lo, np.float32(-np.inf)))
+        # the nearest, and of two as near the one with an even last bit
+        return min(near, key=lambda y: (abs(Fraction(float(y)) - x),
+                                        int(np.float32(y).view(np.int32)) & 1))
+
+    g = torch.Generator().manual_seed(7)
+    a = torch.randn(2000, generator=g)
+    b = torch.randn(2000, generator=g)
+    # c just off the product, so the sum spans more than float64's 53 bits.
+    c = (-(a.double() * b.double()) * (1 + 2.0**-30)).float()
+    c[::2] = torch.randn(1000, generator=g)
+    # Sums 2^-70 off a float32 midpoint m +- 2^-24 (m in [1, 2), either
+    # parity): float64 rounds them onto the midpoint, which then ties.
+    m = 1 + torch.randint(0, 2**23, (400,), generator=g).double() * 2.0**-23
+    below = torch.tensor([1 + 2.0**-23] * 400)  # a * b = 2^-24 (1 - 2^-46)
+    half = torch.tensor([2.0**-24 * (1 - 2.0**-23)] * 400)
+    a = torch.cat([a, below, -below])
+    b = torch.cat([b, half, half])
+    c = torch.cat([c, m.float(), (m + 2.0**-23).float()])
+    got = fma32(a, b, c)
+    want = torch.tensor([exact(x, y, z) for x, y, z in zip(a.tolist(), b.tolist(), c.tolist())])
+    assert torch.equal(got, want)
+
+
+def gelu_erf_sign_flip(x: torch.Tensor) -> torch.Tensor:
+    """csrc/mod_ln.cu gelu_erf in float32 torch: ``gelu_as`` with the sign
+    of z put on 1 - poly * e by a sign-bit flip, not a product with
+    sign(z), and 1 + p|z| capped at 2^100 before its reciprocal."""
+    a1, a2, a3, a4, a5 = 0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429
+    z = x * 0.7071067811865476
+    ax = z.abs()
+    t = torch.full_like(ax, 1.0) / (1.0 + 0.3275911 * ax).clamp(max=2.0**100)
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    w = 1.0 - poly * torch.exp(-ax * ax)
+    erf = (w.view(torch.int32) ^ (z.view(torch.int32) & -(2**31))).view(torch.float32)
+    return x * 0.5 * (1.0 + erf)
+
+
+def test_gelu_sign_flip_equals_gelu_as():
+    """Kernel #4's GELU (the sign as a bit flip, the reciprocal's argument
+    capped) equals the plain A&S GELU bit for bit, at +-0, subnormals,
+    values past 2^100, infinities and NaN too."""
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import gelu_as
+
+    g = torch.Generator().manual_seed(6)
+    x = torch.cat([torch.randn(1 << 16, generator=g) * 4,
+                   torch.randn(1 << 12, generator=g) * 1e-3,
+                   torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-39, -1e-39, 3e38, -3e38,
+                                 np.inf, -np.inf, np.nan])])
+    assert torch.equal(gelu_erf_sign_flip(x).view(torch.int32), gelu_as(x).view(torch.int32))
 
 
 def random_w4a8(k, n, group, gen, device):
@@ -706,9 +912,11 @@ def test_w4a8_wrapper_raises_on_unsupported_input(cuda):
 
 # Kernel D on rows wider than 8192 (T5-XXL's wo input, a FLUX w8a8 FFN
 # hidden) and kernel #4 at the SD3 w8a8 FFN hiddens (image and text rows),
-# T5-XXL's and a ragged row count.
+# T5-XXL's, SD3.5-large's (9728), FLUX's (12288) and the widest row (16384)
+# at ragged row counts, and at 1, 2, 3, 4, 6 and 8 vectors a thread.
 WIDE_ROWS = [(256, 10240), (4352, 12288), (3, 16384), (77, 1032)]
-GELU_SHAPES = [(2048, 6144), (308, 6144), (256, 10240), (77, 1536)]
+GELU_SHAPES = [(2048, 6144), (308, 6144), (256, 10240), (77, 1536), (77, 9728), (33, 12288),
+               (5, 16384), (9, 8192), (20, 3072)]
 
 
 @pytest.mark.gpu
@@ -741,6 +949,13 @@ def test_gelu_quantize_kernel_matches_plain(cuda, shape, dtype, form):
     assert got.x8.shape == shape and got.xscale.shape == (shape[0], 1) and got.dtype == dtype
     assert_int8_close(got.x8, want.x8, share=1e-3)
     torch.testing.assert_close(got.xscale, want.xscale, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_gelu_quantize_graph_replays_are_bit_identical(cuda):
+    g = torch.Generator(device=cuda).manual_seed(14)
+    y = (torch.randn(308, 6144, generator=g, device=cuda) * 2).bfloat16()
+    assert_graph_replays_bit_identical(lambda: gelu_quantize(y))
 
 
 def random_w8(m, k, n, gen, device, bias=True, dtype=torch.bfloat16):

@@ -25,7 +25,7 @@ from diffusionkit_tpu.ops import w4a8_matmul as jw
 from diffusionkit_tpu.ops.quantized import random_quantized_linear as jax_random_quantized_linear
 from diffusionkit_tpu_torch.ops import quantized as tq
 from diffusionkit_tpu_torch.ops import w4a8_matmul as tw
-from diffusionkit_tpu_torch.tools import bench_gemv, bench_w4a8_mat, microbench_int8
+from diffusionkit_tpu_torch.tools import bench_gemv, bench_rows, bench_w4a8_mat, microbench_int8
 
 torch.set_num_threads(1)
 
@@ -193,6 +193,33 @@ def test_bench_gemv_shapes_go_to_every_kernel_that_takes_them():
         (1, 3072, 18432, 64), (2, 192, 256, 32), (2, 1536, 384, 192)]
     assert got["w4a8_matmul"] == [(1, 3072, 18432, 64)]
     assert bench_gemv.parse_shapes([]) is None
+
+
+def test_bench_rows_runs_on_the_cpu():
+    """bench_rows on the CPU: one row a kernel and shape, no time, one input
+    copy, each call's output that of the kernel's plain version on inputs
+    drawn the same way, and the bytes a call moves."""
+    from diffusionkit_tpu_torch.ops.fused_quant import gelu_quantize_plain, mod_ln_quantize_plain
+
+    shapes = {"mod_ln_quantize": [(2, 5, 256)], "gelu_quantize": [(3, 512)]}
+    rows = bench_rows.run(shapes, device="cpu")
+    assert [(r["name"], r["shape"]) for r in rows] == [
+        ("mod_ln_quantize", (2, 5, 256)), ("gelu_quantize", (3, 512))]
+    assert [r["bytes"] for r in rows] == [3 * 2560 + 4 * 10 + 4 * 512, 3 * 1536 + 4 * 3]
+    gen = torch.Generator().manual_seed(0)  # run's draws, in run's order
+    vec = torch.randn(2, 6 * 256, generator=gen).bfloat16()
+    x = (torch.randn(2, 5, 256, generator=gen) * 2 + 0.5).bfloat16()
+    y = (torch.randn(3, 512, generator=gen) * 2).bfloat16()
+    wants = [mod_ln_quantize_plain(x, vec[:, None, :256], vec[:, None, 256:512]),
+             gelu_quantize_plain(y)]
+    for r, want in zip(rows, wants):
+        assert r["warm_ms"] is None and r["cold_ms"] is None and r["copies"] == 1
+        assert torch.equal(r["out"].x8, want.x8) and torch.equal(r["out"].xscale, want.xscale)
+    assert bench_rows.parse_shapes(["gelu_quantize:308,6144", "mod_ln_quantize:2,154,1536"]) == {
+        "gelu_quantize": [(308, 6144)], "mod_ln_quantize": [(2, 154, 1536)]}
+    assert bench_rows.parse_shapes([]) is None
+    with pytest.raises(ValueError, match="unknown kernel"):
+        bench_rows.parse_shapes(["quantize:2,64"])
 
 
 def test_microbench_int8_runs_on_the_cpu():
@@ -435,6 +462,30 @@ HOPPER_MATMULS = [
 ]
 
 
+ROW_KERNELS = [
+    "_ZN41_GLOBAL__N__7e71744e_9_mod_ln_cu_86424f8f19mod_ln_quant_kernelI13__nv_bfloat16Li6EEEvPKT_"
+    "S4_S4_PaPfiixf",
+    "_ZN41_GLOBAL__N__7e71744e_9_mod_ln_cu_86424f8f20gelu_quantize_kernelIfLi3ELi0EEEvPKT_PaPfi",
+]
+
+
+@pytest.mark.parametrize("entry", ROW_KERNELS)
+@pytest.mark.parametrize("spill", [0, 4])
+def test_chip_smoke_ptxas_report_holds_the_row_kernels_to_no_spill(chip_smoke, tmp_path, entry,
+                                                                   spill):
+    """The row kernels A' and #4 fail phase 2 on any spill."""
+    log = (f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'\n"
+           f"    8 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+           "ptxas info    : Used 48 registers, used 16 barriers\n")
+    path = tmp_path / "lib.log"
+    path.write_text(PTXAS_LOG + log)
+    if spill:
+        with pytest.raises(AssertionError, match="spills"):
+            chip_smoke.ptxas_report(path)
+    else:
+        chip_smoke.ptxas_report(path)
+
+
 @pytest.mark.parametrize("entry", HOPPER_MATMULS)
 @pytest.mark.parametrize("spill", [0, 8])
 def test_chip_smoke_ptxas_report_holds_the_hopper_matmuls_to_no_spill(chip_smoke, tmp_path, entry,
@@ -491,6 +542,41 @@ def test_sass_diff_matches_kernels_across_builds():
         ("DIFFERS", "_ZN45_GLOBAL__N__12_w8_matmul_cu_00cd031717dequant_w8_kernelEv", 1, 2),
         ("IDENTICAL", "_ZN45_GLOBAL__N__12_w8_matmul_cu_00cd03175w8_mmIiLi128EEEv", 2, 2),
     ]
+
+
+SASS_PATHS = """
+        Function : _ZN4rowsEv
+        /*0000*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0010*/                   FCHK P0, R4, R5 ;
+        /*0020*/              @!P0 BRA 0x50 ;
+        /*0030*/                   MOV R4, 0x50 ;
+        /*0040*/                   CALL.REL.NOINC 0x200 ;
+        /*0050*/               @P1 BRA P2, 0x90 ;
+        /*0060*/                   FCHK P0, R6, R5 ;
+        /*0070*/                   FFMA R6, R6, R5, RZ ;
+        /*0080*/                   NOP ;
+        /*0090*/              @!P2 BRA 0xd0 ;
+        /*00a0*/                   FCHK P0, R7, R5 ;
+        /*00b0*/                   STG.E desc[UR4][R2.64], R6 ;
+        /*00c0*/                   NOP ;
+        /*00d0*/                   EXIT ;
+        /*00e0*/                   CALL.REL.NOINC 0x200 ;
+        /*00f0*/                   BRA 0xf0;
+"""
+
+
+def test_sass_main_path_leaves_out_slow_path_calls():
+    """sass_diff's main path runs from the entry to the first EXIT, jumps
+    over a division's call of its slow path but not over other skipped
+    blocks (a masked block a row's active threads run), and counts no NOP
+    and nothing past the EXIT (the slow path itself)."""
+    from diffusionkit_tpu_torch.tools.sass_diff import listings, main_path, sass_functions
+
+    listing = listings(SASS_PATHS)["_ZN4rowsEv"]
+    assert len(listing) == len(sass_functions(SASS_PATHS)["_ZN4rowsEv"]) == 16
+    assert listing[2] == (0x20, "@!P0 BRA 0x50 ;")
+    # LDG, FCHK, BRA (over the call), BRA, FCHK, FFMA, BRA, FCHK, STG, EXIT
+    assert main_path(listing) == 10
 
 
 def test_tool_arguments_default_to_the_references():
