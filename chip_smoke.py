@@ -9,7 +9,8 @@ Phases, each raising on failure (the script then exits non-zero):
      parallel; sm_90a) and print each kernel's registers and spill bytes
      from ptxas's report, failing on a C7512 ("wgmma serialized") or on a
      spill in the d=512 and 3xTF32 flash kernels, the Hopper main loops of
-     kernels E, C and #13, their M <= 16 GEMVs or the row kernels A' and #4;
+     kernels E, C and #13, the M <= 16 GEMVs of C, #13, E and #11 or the row
+     kernels A', D and #4;
   3. each kernel against its plain torch version at the main paths' shapes,
      in bf16, against the plain math run in fp32 on the same bf16 inputs:
      mod_ln and flash attention at the SD3 shapes, flash attention at d=128
@@ -29,18 +30,24 @@ Phases, each raising on failure (the script then exits non-zero):
      four modes) against their plain versions run on the card on the same
      inputs, at the FLUX w4a8 shapes plus M=1, a ragged M and group 32
      (mod_ln_quantize also at FLUX 2048²'s image rows, SD3-medium's and
-     SD3.5-large's hidden 2432), and their device times beside the plain
-     versions' and kernel C's at the same (M, K, N) (mod_ln_quantize, and
+     SD3.5-large's hidden 2432; quantize also at FLUX 2048²'s rows, the
+     inputs of SD3-medium w8a8's GEMVs and embedders, T5-XXL's, in fp32,
+     at ragged M and on rows holding +-0, subnormals, 1e30, 3e38, +-inf and
+     NaN), and their device times beside the plain versions' and kernel
+     C's at the same (M, K, N) (mod_ln_quantize, quantize, and
      gelu_quantize in 3-4c, with the input cold in L2, over copies that
      pass 100 MB, beside warm), and kernel E's in mode plain at M >= 256
      beside #10 then #11 (mat_pl, checked bit-identical to E), its
      yardstick;
   3-4c. the kernels of the w8a8 and int8 modes against their plain versions
      on the card: gelu_quantize and w8_matmul at the SD3-medium w8a8 and
-     T5-XXL w8a8 shapes, int8_matmul at the SD3-medium int8 shapes, kernel
-     D on 10240- and 12288-wide rows, each with a ragged M; their device
-     times beside the plain versions' (w8_matmul beside torch._int_mm's
-     int32 product alone, int8_matmul beside kernel C's);
+     T5-XXL w8a8 shapes (at M <= 16 #11's GEMV, its int8 entry and its
+     quantizing entry, also at M = 1, 3 and 16), int8_matmul at the
+     SD3-medium int8 shapes, kernel D on 10240- and 12288-wide rows, each
+     with a ragged M; their device times beside the plain versions'
+     (w8_matmul beside torch._int_mm's int32 product alone, its GEMV's two
+     entries beside kernel D then #11, warm and with the weight cold in L2,
+     int8_matmul beside kernel C's);
   3-4d. the (B, H, S, D) flash kernels: #15 flash_attention at the SD3,
      VAE and FLUX 1024² shapes, #14 flash_attention_stats at FLUX 2048²'s
      one-rank ring call, its four-rank chunk at three valid lengths and
@@ -193,6 +200,8 @@ from diffusionkit_tpu_torch.ops.w4a8_matmul import (
     dequant_w8_plain,
     int8_dot,
     int8_dot_plain,
+    quantize_w8_matmul,
+    quantize_w8_matmul_plain,
     scaled_affine,
     w4a8_matmul,
     w4a8_matmul_plain,
@@ -251,31 +260,34 @@ KERNELS = {
     "int4_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/int4_matmul.py:74"),
     "int8_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/int4_matmul.py:244"),
     "w4a8_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/w4a8_matmul.py:268"),
+    # #11's M <= 16 GEMV, with its quantizing entry (kernel D in its prologue).
+    "w8_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/w4a8_matmul.py:530"),
 }
 # Each GEMV's entry in the line and that of its function at M > 16 (the same
 # bound; that entry points here as `small_m`).
 GEMVS = {"int4_matmul[gemv]": "int4_matmul", "int8_matmul[gemv]": "int8_matmul",
-         "w4a8_matmul[gemv]": "w4a8_matmul[plain]"}
+         "w4a8_matmul[gemv]": "w4a8_matmul[plain]", "w8_matmul[gemv]": "w8_matmul"}
 # The kernel (template) that runs each function's main-path shapes in bf16;
 # the fp32 flash instantiations and the other tiles are in the sources the
 # summary names beside it.
 SYMBOLS = {
     "mod_ln": "mod_ln_kernel", "flash_attention_bshd": "flash_fwd_sm90<D, false>",
     "int4_matmul": "int4_mm_sm90<BN>", "mod_ln_quantize": "mod_ln_quant_kernel",
-    "quantize": "quantize_kernel",
+    "quantize": "quantize_kernel<T, NV>",
     **{f"w4a8_matmul[{mode}]": "w4a8_mm_sm90<MODE, BN>" for mode in MODES},
     "gelu_quantize": "gelu_quantize_kernel", "w8_matmul": "w8_mm_sm90<bf16|float, BN>",
     "int8_matmul": "int8_mm_sm90<BN>", "flash_attention_stats": "flash_fwd_sm90_stats<128>",
     "flash_attention": "flash_fwd_sm90<D, true>", "dequant_w8": "dequant_w8_kernel",
     "int8_dot": "w8_mm_sm90<int, BN>", "int4_matmul[gemv]": "int4_gemv",
     "int8_matmul[gemv]": "int8_gemv", "w4a8_matmul[gemv]": "w4a8_gemv",
+    "w8_matmul[gemv]": "w8_gemv<XT, OutT>",
 }
 # The sources and kernels of each function's other shapes: the fp32 flash
 # kernels (3xTF32 on wgmma at d = 64 and 128, on mma.sync at d = 512);
 # kernel B and #15 at d = 512 (the split-KV wgmma kernel and its
-# merge); #14 at d = 64 (flash_fwd_bhsd_small<64, true>); #11 and #16 at
-# M <= 16 and at K % 128 != 0 (w8_mm, the mma.sync main loop); C and #13
-# at M <= 16 and E's mode plain there: the GEMV entries of the line.
+# merge); #14 at d = 64 (flash_fwd_bhsd_small<64, true>); #16 at M <= 16
+# and #11 and #16 at K % 128 != 0 (w8_mm, the mma.sync main loop); C, #13
+# and #11 at M <= 16 and E's mode plain there: the GEMV entries of the line.
 FP32_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_f32.cu"
 FP32_SYMBOLS = ("flash_fwd_3xtf32_sm90<64 | 128, mode> (d = 64, 128), "
                 "flash_fwd_3xtf32<mode> (d = 512)")
@@ -293,9 +305,9 @@ OTHER_SOURCES = {
     "flash_attention_stats": {"fp32_source": FP32_SOURCE, "fp32_symbols": FP32_SYMBOLS,
                               "d64_source": SMALL_SOURCE,
                               "d64_symbols": "flash_fwd_bhsd_small<64, true>"},
-    "w8_matmul": {"small_m_source": W8_SMALL_SOURCE},
     "int8_dot": {"small_m_source": W8_SMALL_SOURCE},
     **{base: {"small_m": name} for name, base in GEMVS.items()},
+    "w8_matmul": {"small_m": "w8_matmul[gemv]", "k64_source": W8_SMALL_SOURCE},
 }
 COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "int4_matmul": int4_matmul, "mod_ln_quantize": mod_ln_quantize,
@@ -307,6 +319,7 @@ COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
 # the FLUX int4 path.
 MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flux",
              "int4_matmul[gemv]": "flux", "int8_matmul[gemv]": "sd3-int8",
+             "w8_matmul[gemv]": "sd3-w8a8",
              "gelu_quantize": "sd3-w8a8", "w8_matmul": "sd3-w8a8", "int8_matmul": "sd3-int8",
              "flash_attention_stats": "flux-w4a8-2048-ring", "flash_attention": "sd3-bhsd",
              "dequant_w8": "bench-w4a8-mat", "int8_dot": "microbench-int8"}
@@ -390,8 +403,21 @@ INT4_RAGGED = [(77, 3072, 3072, 64)]
 # checked, not timed.
 MOD_LN_QUANT_SHAPES = [(1, 4096, 3072), (1, 256, 3072), (1, 4352, 3072), (2, 1024, 1536),
                        (2, 154, 1536), (1, 16384, 3072)]
+# D also at FLUX 2048²'s image and unified rows (path g), at the inputs of
+# SD3-medium w8a8's M = 2 GEMVs (path d runs them through #11's quantizing
+# GEMV instead), its context embedder (308 x 4096) and x_embedder (2048 x
+# 64), and T5-XXL w8a8's q/k/v and wi inputs (256 x 4096); fp32 rows and
+# ragged M (QUANTIZE_CHECKED) checked, not timed. Timed cold (bench_rows,
+# input copies past 100 MB) where the input is at least COLD_MIN_BYTES;
+# below that only warm: a few KB, in L2 from their producer.
 QUANTIZE_SHAPES = [(1, 3072), (4096, 3072), (256, 3072), (4352, 3072), (2048, 1536),
-                   (308, 1536)]
+                   (308, 1536), (16384, 3072), (16640, 3072), (2, 1536), (2, 256), (2, 2048),
+                   (308, 4096), (2048, 64), (256, 4096)]
+QUANTIZE_CHECKED = [((4352, 3072), torch.float32), ((2, 1536), torch.float32),
+                    ((256, 10240), torch.float32), ((16384, 3072), torch.float32),
+                    ((77, 3072), torch.bfloat16), ((701, 1536), torch.bfloat16),
+                    ((4099, 64), torch.bfloat16), ((3, 16384), torch.bfloat16)]
+COLD_MIN_BYTES = 1 << 18
 QUANT_RAGGED = [(1, 77, 3072), (2, 333, 2432)]
 # (M, K, N, group) of kernel E by mode on the FLUX w4a8 path: `ada` GEMVs
 # (dual and single), v/o of the image stream and the unified blocks, the
@@ -479,6 +505,10 @@ def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3
     size = 4 if dtype == "fp32" else 2  # bytes an element of q, k, v
     if dtype == "fp32":
         dtype = fp32_peak
+    if name == "w8_matmul[gemv]":  # the quantizing entry: bf16 x read once, no scales
+        m, k, n = shape
+        return bound(2 * m * k * n, "int8", 2 * m * k + n * k + 6 * n + 2 * m * n)
+    name = GEMVS.get(name, name)  # a GEMV's bound is its function's
     if name == "mod_ln":
         b, s_, h = shape
         return bound(ROW_OPS[name] * b * s_ * h, "fp32", 4 * b * s_ * h + 4 * b * h)
@@ -512,7 +542,6 @@ def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3
         # read once, the (N, K) grid written once.
         k, n, g = shape
         return bound(2 * k * n, "fp32", k * n // 2 + 8 * (k // g) * n + k * n)
-    name = GEMVS.get(name, name)  # a GEMV's bound is its function's
     m, k, n, g = shape
     affine = 8 * (k // g) * n  # scales and zeros
     if name == "int4_matmul":
@@ -561,8 +590,9 @@ def reset_counts() -> None:
         fn.launches = 0
     w4a8_matmul.launches = 0
     w4a8_matmul.mode_launches = dict.fromkeys(MODES, 0)
-    for fn in (int4_matmul, int8_matmul, w4a8_matmul):
+    for fn in (int4_matmul, int8_matmul, w4a8_matmul, w8_matmul):
         fn.gemv_launches = 0
+    w8_matmul.quantizing_launches = 0
 
 
 def counts() -> dict:
@@ -570,17 +600,20 @@ def counts() -> dict:
     out.update({f"w4a8_matmul[{m}]": n for m, n in w4a8_matmul.mode_launches.items()})
     out.update({"int4_matmul[gemv]": int4_matmul.gemv_launches,
                 "int8_matmul[gemv]": int8_matmul.gemv_launches,
-                "w4a8_matmul[gemv]": w4a8_matmul.gemv_launches})
+                "w4a8_matmul[gemv]": w4a8_matmul.gemv_launches,
+                "w8_matmul[gemv]": w8_matmul.gemv_launches,
+                # of #11's GEMV launches, those of its quantizing entry
+                "w8_matmul[quantizing]": w8_matmul.quantizing_launches})
     return out
 
 
 def gemv_cold_ms(name: str, shape) -> tuple:
     """A GEMV's device time as the path finds it, its weight cold in L2:
     one call on each of enough weight copies to pass COLD_BYTES
-    (``device_ms_cold``); and the copies."""
+    (``device_ms_cold``); and the copies. ``shape`` (M, K, N, group), or
+    (M, K, N) for #11's names."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    m, k, n, group = shape
-    copies = -(-int(COLD_BYTES) // bench_gemv.weight_bytes(name, k, n, group)) + 1
+    copies = -(-int(COLD_BYTES) // bench_gemv.weight_bytes(name, *shape[1:])) + 1
     fns = bench_gemv.calls(name, shape, copies, gen, torch.device("cuda"))
     ms = device_ms_cold(fns)
     del fns
@@ -915,6 +948,57 @@ def materialised_ms(args, label: str) -> float:
     return device_ms(run)
 
 
+def quantize_rule(y: torch.Tensor):
+    """Kernel D's x8 and scale on any input, the plain version's where the
+    rows are finite: amax the largest |y| that is not NaN, s = max(amax,
+    1e-8) / 127 (inf in a row holding an infinity), x8 = clip(rne(y / s))
+    with a NaN quotient at -127, both divisions IEEE."""
+    v = y.float()
+    a = torch.where(torch.isnan(v), torch.zeros_like(v), v.abs()).amax(dim=-1, keepdim=True)
+    s = a.clamp_min(1e-8) / torch.full_like(a, 127.0)
+    q = v / s
+    q = torch.where(torch.isnan(q), torch.full_like(q, -127.0), q)
+    return torch.round(q.clamp(-127.0, 127.0)).to(torch.int8), s
+
+
+def quantize_special_values(gen) -> None:
+    """Kernel D on nine rows (K = 1536 and 10240, bf16 and fp32): random
+    values with +-0 and subnormals set in them, all zeros, one 1e30, one
+    -3e38, +inf, -inf, NaN, subnormals only and NaN only; its x8 and scales
+    bit for bit ``quantize_rule`` (the plain version on the finite rows),
+    and #11's quantizing GEMV on the same rows equal to D then #11 bit for
+    bit, NaN and inf outputs included."""
+    for k in (1536, 10240):
+        for dtype in (torch.bfloat16, torch.float32):
+            rows = torch.randn(9, k, generator=gen, device="cuda") * 3
+            rows[0, :6] = torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1e-39, -3e-39])
+            rows[1] = 0.0
+            rows[2, 5] = 1e30
+            rows[3, 7] = -3e38
+            rows[4, 1] = float("inf")
+            rows[5, k - 1] = float("-inf")
+            rows[6, 3] = float("nan")
+            rows[7] = rows[7].sign() * 1e-39
+            rows[8] = float("nan")
+            y = rows.to(dtype)
+            got = quantize(y)
+            x8, s = quantize_rule(y)
+            ok = torch.equal(got.x8, x8) and torch.equal(got.xscale.view(torch.int32),
+                                                         s.view(torch.int32))
+            w8 = torch.randint(-127, 128, (256, k), generator=gen, device="cuda", dtype=torch.int8)
+            ws = (torch.rand(256, generator=gen, device="cuda") + 0.5) / (127 * k**0.5)
+            b = (0.1 * torch.randn(256, generator=gen, device="cuda")).to(dtype)
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            fused = quantize_w8_matmul(y, w8, ws, b, out_dtype=dtype)
+            staged = w8_matmul(got.x8, w8, ws, got.xscale, b, out_dtype=dtype)
+            same = torch.equal(fused.view(bits), staged.view(bits))
+            log(f"  quantize (9, {k}) {dtype} on +-0, subnormals, 1e30, 3e38, +-inf, zeros, NaN: "
+                f"bit-identical to its rule: {'ok' if ok else 'FAIL'}; #11's quantizing GEMV on "
+                f"them bit-identical to D then #11: {'ok' if same else 'FAIL'}")
+            if not (ok and same):
+                raise AssertionError(f"quantize on special values (K {k}, {dtype}) disagrees")
+
+
 def w4a8_kernels(gen, tag: str):
     """Phases 3-4b: kernels A', D and E against their plain versions on the
     card, then each one's device time beside its plain version's (and, for
@@ -940,20 +1024,28 @@ def w4a8_kernels(gen, tag: str):
             warm = device_ms(lambda: mod_ln_quantize(x, sh, sc))
             plain = device_ms(lambda: mod_ln_quantize_plain(x, sh, sc))
             times["mod_ln_quantize"].append(rows_timing("mod_ln_quantize", shape, warm, plain, tag))
-    for shape in QUANTIZE_SHAPES:
-        y = (torch.randn(shape, generator=gen, device="cuda") * 3).bfloat16()
+    for shape, dtype in [(s, torch.bfloat16) for s in QUANTIZE_SHAPES] + QUANTIZE_CHECKED:
+        y = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
         got, want = quantize(y), quantize_plain(y)
         torch.cuda.synchronize()
         ok = torch.equal(got.x8, want.x8) and torch.equal(got.xscale, want.xscale)
-        log(f"  quantize {shape}: bit-identical to its plain version: {'ok' if ok else 'FAIL'}")
+        log(f"  quantize {shape} {dtype}: bit-identical to its plain version: "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"quantize {shape} disagrees with its plain version")
+            raise AssertionError(f"quantize {shape} {dtype} disagrees with its plain version")
         errs["quantize"].append(0.0)
-        ms, plain = device_ms(lambda: quantize(y)), device_ms(lambda: quantize_plain(y))
-        t = timing("quantize", shape, ms, plain)
-        log(f"  quantize {shape}: kernel {ms!r} ms ({y.numel() * 3 / ms / 1e9!r} TB/s), "
-            f"plain {plain!r} ms, {bound_note(t)} [{tag}]")
+        if (shape, dtype) in QUANTIZE_CHECKED:
+            continue
+        warm, plain = device_ms(lambda: quantize(y)), device_ms(lambda: quantize_plain(y))
+        if bench_rows.input_bytes(shape) >= COLD_MIN_BYTES:
+            times["quantize"].append(rows_timing("quantize", shape, warm, plain, tag))
+            continue
+        t = timing("quantize", shape, warm, plain, warm_ms=warm,
+                   cold_note=f"not timed ({bench_rows.input_bytes(shape)} bytes of input)")
+        log(f"  quantize {shape}: kernel warm {warm!r} ms, plain {plain!r} ms, {bound_note(t)} "
+            f"[{tag}]")
         times["quantize"].append(t)
+    quantize_special_values(gen)
     for mode in MODES:
         name = f"w4a8_matmul[{mode}]"
         for shape in W4A8_SHAPES[mode] + W4A8_RAGGED[mode]:
@@ -1012,6 +1104,9 @@ W8_SHAPES = [(2048, 1536, 1536), (308, 1536, 1536), (2048, 1536, 6144), (308, 15
              (308, 4096, 1536), (2048, 1536, 64), (256, 4096, 4096), (256, 4096, 10240),
              (256, 10240, 4096)]
 W8_RAGGED = [(77, 1536, 1536)]
+# #11's GEMV also at M = 1, 3 and 16 on the blocks' `ada` (checked, both
+# entries, not timed).
+W8_GEMV_ROWS = [(1, 1536, 9216), (3, 1536, 9216), (16, 1536, 9216)]
 # (M, K, N, group) of kernel #13: SD3-medium int8 at the quantize-at-load
 # group 32 (the x_embedder and final linear stay float: MIN_DIM). A ragged
 # M checked, not timed.
@@ -1022,16 +1117,50 @@ INT8_SHAPES = [(2048, 1536, 1536, 32), (308, 1536, 1536, 32), (2048, 1536, 6144,
 INT8_RAGGED = [(77, 1536, 1536, 32)]
 
 
+def w8_gemv_timing(shape, x, args, tag: str) -> dict:
+    """One shape of #11's GEMV: its quantizing entry on bf16 x (what path d
+    runs; the row's ``ms``, cold, held against the bound), its int8 entry,
+    and kernel D then #11 (what path d ran before), each warm (``device_ms``)
+    and cold (``gemv_cold_ms``: bench_gemv's calls on weight copies past
+    100 MB); the plain version's time warm."""
+    _, w8, ws, _, b = args
+
+    def staged():
+        aq = quantize(x)
+        return w8_matmul(aq.x8, w8, ws, aq.xscale, b)
+
+    warm = {"quantize_w8_matmul": device_ms(lambda: quantize_w8_matmul(x, w8, ws, b)),
+            "w8_matmul": device_ms(lambda: w8_matmul(*args)), "quantize+w8_matmul": device_ms(staged)}
+    plain = device_ms(lambda: quantize_w8_matmul_plain(x, w8, ws, b), reps=5)
+    cold, copies = {}, 0
+    for name in bench_gemv.W8_NAMES:
+        cold[name], copies = gemv_cold_ms(name, shape)
+    t = timing("w8_matmul[gemv]", shape, cold["quantize_w8_matmul"], plain,
+               warm_ms=warm["quantize_w8_matmul"], cold_copies=copies,
+               int8_entry_ms=cold["w8_matmul"], int8_entry_warm_ms=warm["w8_matmul"],
+               d_then_gemv_ms=cold["quantize+w8_matmul"],
+               d_then_gemv_warm_ms=warm["quantize+w8_matmul"])
+    wbytes = bench_gemv.weight_bytes("w8_matmul", *shape[1:])
+    log(f"  w8_matmul[gemv] (M, K, N) {shape}: quantizing entry cold {cold['quantize_w8_matmul']!r} "
+        f"ms ({wbytes / cold['quantize_w8_matmul'] / 1e9!r} TB/s of w8 and wscale; {copies} weight "
+        f"copies), warm {warm['quantize_w8_matmul']!r} ms; int8 entry cold {cold['w8_matmul']!r} / "
+        f"warm {warm['w8_matmul']!r} ms; kernel D then #11 cold {cold['quantize+w8_matmul']!r} / "
+        f"warm {warm['quantize+w8_matmul']!r} ms; plain {plain!r} ms, {bound_note(t)} [{tag}]")
+    return t
+
+
 def w8a8_kernels(gen, tag: str):
     """Phase 3-4c: kernel D on wide rows and kernels #4, #11 and #13 against
     their plain versions on the card, then each one's device time beside its
     plain version's and its bound (and #11's beside the int32 product of
-    ``torch._int_mm`` alone, where its shape rules allow; #13's beside kernel
-    C's at the same shape). Tolerances: D and #11 bit-identical; #4 one
-    step on <= 0.1 %, scales within 1e-6; #13 kernel C's bound."""
+    ``torch._int_mm`` alone, where its shape rules allow; #11's GEMV, both
+    entries, beside kernel D then #11; #13's beside kernel C's at the same
+    shape). Tolerances: D and #11 bit-identical (the quantizing GEMV to
+    ``quantize_plain`` then ``w8_matmul_plain``); #4 one step on <= 0.1 %,
+    scales within 1e-6; #13 kernel C's bound."""
     dev = torch.device("cuda")
-    errs = {"quantize": [], "gelu_quantize": [], "w8_matmul": [], "int8_matmul": [],
-            "int8_matmul[gemv]": []}
+    errs = {"quantize": [], "gelu_quantize": [], "w8_matmul": [], "w8_matmul[gemv]": [],
+            "int8_matmul": [], "int8_matmul[gemv]": []}
     times = {name: [] for name in errs}
     for shape in WIDE_ROWS:
         y = (torch.randn(shape, generator=gen, device=dev) * 3).bfloat16()
@@ -1064,7 +1193,7 @@ def w8a8_kernels(gen, tag: str):
             warm = device_ms(lambda: gelu_quantize(y))
             plain = device_ms(lambda: gelu_quantize_plain(y))
             times["gelu_quantize"].append(rows_timing("gelu_quantize", shape, warm, plain, tag))
-    for shape in W8_SHAPES + W8_RAGGED:
+    for shape in W8_SHAPES + W8_RAGGED + W8_GEMV_ROWS:
         m, k, n = shape
         x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
         w8 = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
@@ -1080,8 +1209,23 @@ def w8a8_kernels(gen, tag: str):
             f"{'ok' if ok else 'FAIL'} (max_abs_err {err!r})")
         if not ok:
             raise AssertionError(f"w8_matmul {shape} disagrees with its plain version")
-        errs["w8_matmul"].append(err)
-        if shape in W8_SHAPES:
+        gemv = m <= 16
+        if gemv:
+            x = (2 * torch.randn(m, k, generator=gen, device=dev)).bfloat16()
+            aq = quantize_plain(x)
+            fused = quantize_w8_matmul(x, w8, ws, b)
+            torch.cuda.synchronize()
+            fwant = w8_matmul_plain(aq.x8, w8, ws, aq.xscale, b)
+            ok = torch.equal(fused, fwant) and torch.equal(
+                quantize_w8_matmul_plain(x, w8, ws, b), fwant)
+            log(f"  quantize_w8_matmul (M, K, N) {shape}: bit-identical to quantize_plain then "
+                f"w8_matmul_plain: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"quantize_w8_matmul {shape} disagrees with its plain version")
+        errs["w8_matmul[gemv]" if gemv else "w8_matmul"].append(err)
+        if shape in W8_SHAPES and gemv:
+            times["w8_matmul[gemv]"].append(w8_gemv_timing(shape, x, args, tag))
+        elif shape in W8_SHAPES:
             ms = device_ms(lambda: w8_matmul(*args))
             plain = device_ms(lambda: w8_matmul_plain(*args), reps=5)
             w8t = w8.t()
@@ -1589,14 +1733,18 @@ def per_forward_sd3(depth: int, mode=None) -> dict:
     o/fc1/fc2), the context embedder, the y/t embedders' four and the final
     ``ada`` (the x_embedder and final linear are below MIN_DIM). w8a8 (every
     linear converted, min_dim 0): #11 for those and the x_embedder and final
-    linear (14 a block, 11 in the last, 8 outside); kernel D before each
-    float input (ada x2 and o x2 a block, ada x2 and o in the last, the
-    six embedder linears and the final ada); A' at every AdaLN site and the
-    final layer's; #4 in each FFN."""
+    linear (14 a block, 11 in the last, 8 outside), of them at M = 2 each
+    block's two `ada`, the final `ada` and the y/t embedders' four on #11's
+    GEMV, which quantizes their float input itself; kernel D before every
+    other float input (o x2 a block, o in the last, the x_embedder and the
+    context embedder); A' at every AdaLN site and the final layer's; #4 in
+    each FFN."""
     dual = depth - 1
     per = {"flash_attention_bshd": depth}
     if mode == "w8a8":
-        return {**per, "w8_matmul": 14 * dual + 19, "quantize": 4 * dual + 10,
+        gemv = 2 * depth + 5
+        return {**per, "w8_matmul": 14 * dual + 19, "w8_matmul[gemv]": gemv,
+                "w8_matmul[quantizing]": gemv, "quantize": 2 * dual + 3,
                 "mod_ln_quantize": 4 * dual + 4, "gelu_quantize": 2 * dual + 1}
     per["mod_ln"] = 4 * dual + 4
     if mode == "int8":
@@ -1622,14 +1770,17 @@ def reference_checks(gen) -> None:
                 "SD3 MMDiT fp32 2 blocks x hidden 1536, 512² CFG batch", gen, rtol=FP32_RTOL)
     # SD3 w8a8 as the reference's random w8a8 init draws it (block linears
     # in w8a8; embedders and final layer float, so kernel A runs once, in
-    # the final layer): per block #11 for 14 linears (11 in the last), D
-    # before ada x2 and o x2 (ada x2 and o), A' at 4 sites (3), #4 per FFN.
+    # the final layer): per block #11 for 14 linears (11 in the last), of
+    # them ada x2 on its quantizing GEMV, D before o x2 (o), A' at 4 sites
+    # (3), #4 per FFN.
     # Converting every linear of a float model, as path d does, puts the
     # bf16-vs-fp32 difference at the w8a8 grid's own error (3.35e-2 in
     # bf16 vs fp32 on the CPU at this size): the int8 steps that bf16
     # rounding flips are as large as the quantization noise.
-    mmdit_check(sd3, inputs, {"w8_matmul": 14 + 11, "quantize": 4 + 3, "mod_ln_quantize": 4 + 3,
-                              "gelu_quantize": 2 + 1, "mod_ln": 1, "flash_attention_bshd": 2},
+    mmdit_check(sd3, inputs, {"w8_matmul": 14 + 11, "w8_matmul[gemv]": 2 + 2,
+                              "w8_matmul[quantizing]": 2 + 2, "quantize": 2 + 1,
+                              "mod_ln_quantize": 4 + 3, "gelu_quantize": 2 + 1, "mod_ln": 1,
+                              "flash_attention_bshd": 2},
                 "SD3 w8a8 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen,
                 quantize_bits="w8a8")
     # SD3 int8: a float model quantized at load on the card at group 32.
@@ -2030,8 +2181,9 @@ SCALE_FIRST = re.compile(r"flash_fwd_(?:wide|sm90)(?:<\d+, true>|ILi\d+ELb1E)"
 FP32_MODE = re.compile(r"flash_fwd_(?:f32|3xtf32(?:_sm90)?)"
                        r"(?:<(?:\d+, )?(\d)>|I(?:Li\d+E)?Li(\d)E)")
 INT8_DOT_KERNEL = re.compile(r"w8_mm(?:_sm90)?(?:<int,|IiLi)")
-# The M <= 16 GEMVs of C, #13 and E: int4_gemv, int8_gemv, w4a8_gemv.
-GEMV_KERNEL = re.compile(r"(int4|int8|w4a8)_gemv")
+# The M <= 16 GEMVs of C, #13, E and #11: int4_gemv, int8_gemv, w4a8_gemv,
+# w8_gemv<XT, OutT>.
+GEMV_KERNEL = re.compile(r"(int4|int8|w4a8|w8)_gemv")
 
 
 def family(name: str) -> str:
@@ -2062,10 +2214,10 @@ def family(name: str) -> str:
         return "gelu_quantize"
     if "mod_ln_quant" in name:
         return "mod_ln_quantize"
+    if "quantize_kernel" in name:  # before mod_ln: a mangled name holds "mod_ln_cu"
+        return "quantize"
     if "mod_ln" in name:
         return "mod_ln"
-    if "quantize_kernel" in name:
-        return "quantize"
     if "int4_mm" in name:
         return "int4_matmul"
     if "nvjet" in name or "gemm" in name:
@@ -2125,11 +2277,11 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
 
 # The redesigned kernels, held to 0 spill bytes (and, with the rest, to no
 # C7512, "wgmma serialized"): the d = 512 wgmma kernel and its merge, the
-# 3xTF32 fp32 flash kernels, the Hopper main loops of E, C and #13, their
-# M <= 16 GEMVs, and the row kernels A' and #4.
+# 3xTF32 fp32 flash kernels, the Hopper main loops of E, C and #13, the
+# M <= 16 GEMVs of C, #13, E and #11, and the row kernels A', D and #4.
 NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32", "w4a8_mm_sm90",
-            "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv",
-            "mod_ln_quant_kernel", "gelu_quantize_kernel")
+            "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv", "w8_gemv",
+            "mod_ln_quant_kernel", "quantize_kernel", "gelu_quantize_kernel")
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")

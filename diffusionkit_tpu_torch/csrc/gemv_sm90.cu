@@ -1,19 +1,23 @@
-// Kernels C, #13 and E (mode plain) at M <= 16: the AdaLN `ada` GEMVs,
-// split along K.
+// Kernels C, #13, E (mode plain) and #11 at M <= 16: the AdaLN `ada` and
+// embedder GEMVs, split along K.
 //
 // Replaces, at the rows these projections have (M = 1 for FLUX, 2 for SD3
 // with CFG; ops/int4_matmul.py and ops/w4a8_matmul.py route M <= 16 here),
 // the Pallas kernels diffusionkit_tpu/ops/int4_matmul.py:int4_matmul
-// (_kernel, kernel C), :int8_matmul (_kernel8, #13) and
+// (_kernel, kernel C), :int8_matmul (_kernel8, #13),
 // diffusionkit_tpu/ops/w4a8_matmul.py:w4a8_matmul in mode plain (_kernel,
-// kernel E). What each computes (int4_matmul_sm90.cu and
-// w4a8_matmul_sm90.cu, which run M > 16, say it in full):
+// kernel E) and :w8_matmul (_kernel_w8, #11). What each computes
+// (int4_matmul_sm90.cu, w4a8_matmul_sm90.cu and w8_matmul.cu, which run
+// M > 16, say it in full):
 //   C, #13  y = x @ W, W = bf16(q * s + z) (the product and the sum each
 //           rounded in fp32), the products summed in fp32, y rounded to
 //           bf16 once;
 //   E       w8 = clip(rne(q * s8 + z8)), s8 = s * (1 / ws), z8 = z * (1 /
 //           ws); acc = x8 @ w8, exact in int32; y = ((acc * xs[m]) * ws[n])
-//           + b[n] -> bf16, every step rounded.
+//           + b[n] -> bf16, every step rounded;
+//   #11     the same epilogue on an int8 w8 (N, K) (the bias added only
+//           where there is one), to bf16 or fp32; its quantizing entry
+//           first quantizes float x per row as kernel D does.
 //
 // Bound: bytes. At M <= 16 the products are a small share of the tensor
 // cores' time; what has to move is the packed weight and its scale and zero
@@ -65,7 +69,29 @@
 // idled at the cluster barrier); x prefetched a chunk ahead in registers
 // (C then spilled). What bounds the kernel now is its issue rate: with the
 // memory traffic taken out, the dequantisation alone took most of C's time.
+//
+// #11 (w8_gemv, at the end) has no dequantisation and another layout: its
+// 14.2 MB `ada` weight at SD3's (1536 x 9216) is 4.2 us at 3.35 TB/s, and
+// the old 16-row tile (w8_matmul.cu w8_mm, 72 blocks each walking all of K
+// through a cp.async double buffer) took 10.6 us with the weight cold. A
+// lane's 16-byte load of w8 (N, K) is 16 consecutive k of one column: by
+// the same k-permutation argument, two m16n8k32 steps' B fragments with no
+// exchange between lanes, the 4 lanes of a column reading 64 consecutive
+// bytes. Measured on the H100 and kept: 64-column blocks, 4 warps along K,
+// and K split only past 2048 k a block (ops/w4a8_matmul.py
+// w8_gemv_splits), the splits of a column tile then one thread-block
+// cluster that sums its blocks' partials through distributed shared
+// memory. A split cost ~2 us (the workspace's fence, counter and second
+// read as much as the cluster's barriers), more than 64-column blocks
+// streaming all of K gave back; x's slab is copied to shared memory once,
+// and the epilogue's wscale, bias and xscale are loaded at the start (each
+// had been a round trip after the main loop). Its quantizing entry takes
+// float x, so kernel D's launch before each of these GEMVs goes: each block
+// reads all of x's M <= 16 rows (a few KB, from L2) for their absmax and
+// quantizes its slab into shared memory, D's arithmetic bit for bit, while
+// its first weights load.
 
+#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "common.cuh"
@@ -472,6 +498,283 @@ int dequant_entry(const void* x, const void* qw, const void* scales, const void*
                       stream);
 }
 
+// -- #11 at M <= 16: w8 int8 in (N, K), K-contiguous per column ----------------
+
+// Columns a block (W8_BN), a lane (W8_CPT) and a warp (8 W8_CPT), column
+// warps (W8_CW) and k parts (W8_H) of a block, k a warp's chunk (W8_KC: 16
+// a lane of its 4 lanes t), chunks in flight (W8_D), and the bytes of pad
+// past each row of the block's int8 slab of x (its rows 16 banks apart).
+constexpr int W8_BN = 64, W8_CPT = 4, W8_CW = W8_BN / (8 * W8_CPT), W8_H = 8 / W8_CW;
+constexpr int W8_KC = 64, W8_D = 4;
+constexpr int W8_PAD = 64;
+
+struct W8Params {
+  const void* x;        // (M, K) rows: int8 x8, or bf16 / fp32 to quantize
+  const int8_t* w8;     // (N, K)
+  const float* wscale;  // (N,)
+  const float* xscale;  // (M,), the int8 entry's
+  const void* bias;     // (N,) in the output type, or null
+  void* y;              // (M, N)
+  int M, N, K;
+};
+
+// A lane's weights of one chunk: 16 consecutive k of each of its columns.
+struct W8Chunk {
+  uint4 v[W8_CPT];
+};
+
+// Shared memory of the W8 GEMV: the warps' int32 partials [W8_H][M][W8_BN],
+// each warp's absmax of each row [MAX_M][8] (the quantizing entry's), the
+// epilogue's wscale and bias of the block's columns and xscale [2 W8_BN +
+// MAX_M], and the block's int8 slab of x, [M][K / S + W8_PAD].
+size_t w8_smem(int M, int K, int splits) {
+  return (size_t)W8_H * M * W8_BN * 4 + MAX_M * 8 * 4 + (2 * W8_BN + MAX_M) * 4 +
+         (size_t)M * (K / splits + W8_PAD);
+}
+
+// Row m's absmax from its warps' (max is exact in any order).
+__device__ __forceinline__ float row_amax(const float* wmax, int m) {
+  float a = wmax[8 * m];
+#pragma unroll
+  for (int i = 1; i < 8; ++i) a = fmaxf(a, wmax[8 * m + i]);
+  return a;
+}
+
+// Kernel #11 at M <= 16, y = ((x8 @ w8^T) * xs[m]) * ws[n] (+ b[n]). Block
+// (split, tile) takes k [split K / S, (split + 1) K / S) of W8_BN columns;
+// warp (cw, h) its k part h and 32 columns, lane (g, t) columns cb + j (j <
+// 4) at k h kh + 64 r + 16 t .. + 15 of chunk r: one 16-byte load of each
+// column's w8 row, two m16n8k32 steps of B fragments (bytes 0-7, 8-15),
+// x's A fragment from the same 16 bytes of x rows g and g + 8, so the 4
+// lanes t of a column read 64 consecutive bytes of it. The block's slab of
+// x8 sits in shared memory, copied there once while the weights' first
+// chunks are in flight (not a global load a chunk: each was a round trip
+// to L2). With XT a float type, the block instead takes the absmax of each
+// of x's rows over all K (four rows' loads in flight together), the scale
+// and its reciprocal by dk::row_scale, and quantizes its own slab by
+// dk::store_row_i8_rcp: kernel D's x8 and scale bit for bit.
+template <typename XT, typename OutT>
+__global__ void __launch_bounds__(NTHREADS, 2) w8_gemv(const W8Params p) {
+  constexpr bool kQuant = !std::is_same<XT, int8_t>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int M = p.M, N = p.N, K = p.K;
+  int* red = reinterpret_cast<int*>(smem);  // [W8_H][M][W8_BN]
+  float* wmax = reinterpret_cast<float*>(smem + (size_t)W8_H * M * W8_BN * 4);
+  float* ep = wmax + MAX_M * 8;  // wscale [W8_BN], bias [W8_BN], xscale [MAX_M]
+  int8_t* slab = reinterpret_cast<int8_t*>(ep + 2 * W8_BN + MAX_M);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int S = gridDim.x, tile = blockIdx.y, n0 = tile * W8_BN;
+  const int kslab = K / S, kh = kslab / W8_H, L = kh / W8_KC;  // L chunks a lane
+  const int g = lane >> 2, t = lane & 3;
+  const int cw = warp % W8_CW, h = warp / W8_CW;
+  const int kw = h * kh + 16 * t;  // the lane's first k in the block's slab
+  const int cb = cw * 8 * W8_CPT + W8_CPT * g;
+  const int pitch = kslab + W8_PAD;
+
+  // The lane's weights, a register ring of W8_D chunks in flight.
+  const unsigned char* wp = reinterpret_cast<const unsigned char*>(p.w8) +
+                            (long long)(n0 + cb) * K + blockIdx.x * kslab + kw;
+  W8Chunk ring[W8_D];
+#pragma unroll
+  for (int i = 0; i < W8_D; ++i)
+    ring[i] = load_rows<W8Chunk>(wp + i * W8_KC, K, i < L ? W8_CPT : 0);
+  // The epilogue's operands, loaded now and kept in shared memory from the
+  // end of the prologue: after the main loop each would be one more round
+  // trip to device memory.
+  const OutT* bias = static_cast<const OutT*>(p.bias);
+  float ws_col = 0.f, b_col = 0.f, xs_row = 0.f;
+  if (tid < W8_BN) {
+    ws_col = p.wscale[n0 + tid];
+    if (bias) b_col = dk::to_float(bias[n0 + tid]);
+  }
+  if constexpr (!kQuant) {
+    if (tid < M) xs_row = p.xscale[tid];
+  }
+
+  if constexpr (kQuant) {
+    constexpr int V = dk::Vec<XT>::N;
+    const XT* x = static_cast<const XT*>(p.x);
+    // Where the block's slab is all of x and a thread's share of it is one
+    // vector of each of at most 2 rows (S = 1, M <= 2, K / V <= NTHREADS:
+    // the paths' GEMVs), the absmax pass keeps its loads for the quantize.
+    const bool one_pass = S == 1 && M <= 2 && K / V <= NTHREADS;
+    uint4 keep[2];
+    for (int m0 = 0; m0 < M; m0 += 4) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = tid; c < K / V; c += NTHREADS) {
+        uint4 raw[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (m0 + q < M)
+            raw[q] = __ldg(reinterpret_cast<const uint4*>(x + (long long)(m0 + q) * K) + c);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (m0 + q >= M) break;
+          if (q < 2) keep[q] = raw[q];
+          const XT* e = reinterpret_cast<const XT*>(&raw[q]);
+#pragma unroll
+          for (int k = 0; k < V; ++k) a[q] = fmaxf(a[q], fabsf(dk::to_float(e[k])));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (m0 + q >= M) break;
+        const float w = dk::warp_max(a[q]);
+        if (lane == 0) wmax[8 * (m0 + q) + warp] = w;
+      }
+    }
+    __syncthreads();
+    const int svec = kslab / V;  // vectors of a row's slab
+    if (one_pass) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (q >= M || tid >= svec) break;
+        const XT* e = reinterpret_cast<const XT*>(&keep[q]);
+        float v[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[k] = dk::to_float(e[k]);
+        const float2 sr = dk::row_scale(row_amax(wmax, q));
+        dk::store_row_i8_rcp<V>(slab + q * pitch + tid * V, v, sr.x, sr.y);
+      }
+    }
+    for (int i = one_pass ? M * svec : tid; i < M * svec; i += NTHREADS) {
+      const int m = i / svec, c = i - m * svec;
+      const uint4 raw = __ldg(
+          reinterpret_cast<const uint4*>(x + (long long)m * K + blockIdx.x * kslab) + c);
+      const XT* e = reinterpret_cast<const XT*>(&raw);
+      float v[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] = dk::to_float(e[k]);
+      const float2 sr = dk::row_scale(row_amax(wmax, m));
+      dk::store_row_i8_rcp<V>(slab + m * pitch + c * V, v, sr.x, sr.y);
+    }
+  } else {
+    const int8_t* x8 = static_cast<const int8_t*>(p.x) + blockIdx.x * kslab;
+    const int svec = kslab / 16;  // 16-byte vectors of a row's slab
+    for (int i = tid; i < M * svec; i += NTHREADS) {
+      const int m = i / svec, c = i - m * svec;
+      *reinterpret_cast<uint4*>(slab + m * pitch + 16 * c) =
+          __ldg(reinterpret_cast<const uint4*>(x8 + (long long)m * K) + c);
+    }
+  }
+  if (tid < W8_BN) ep[tid] = ws_col, ep[W8_BN + tid] = b_col;
+  if (tid < M) ep[2 * W8_BN + tid] = xs_row;
+  __syncthreads();
+
+  const bool va = g < M, vb = g + 8 < M;
+  int acc[W8_CPT][4];
+#pragma unroll
+  for (int j = 0; j < W8_CPT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+#pragma unroll 1
+  for (int r0 = 0; r0 < L; r0 += W8_D) {
+#pragma unroll
+    for (int i = 0; i < W8_D; ++i) {
+      const int r = r0 + i;
+      if (r >= L) break;
+      const int k = kw + r * W8_KC;
+      uint4 xa = make_uint4(0u, 0u, 0u, 0u), xb = xa;
+      if (va) xa = *reinterpret_cast<const uint4*>(slab + g * pitch + k);
+      if (vb) xb = *reinterpret_cast<const uint4*>(slab + (g + 8) * pitch + k);
+      // Bytes 0-7 of the 16: k positions 4t..4t+3 and 16+4t..16+4t+3 of
+      // the first step, bytes 8-15 of the second.
+      const uint32_t a0[4] = {xa.x, xb.x, xa.y, xb.y}, a1[4] = {xa.z, xb.z, xa.w, xb.w};
+#pragma unroll
+      for (int j = 0; j < W8_CPT; ++j) {
+        dk::mma_s8_16832(acc[j], a0, ring[i].v[j].x, ring[i].v[j].y);
+        dk::mma_s8_16832(acc[j], a1, ring[i].v[j].z, ring[i].v[j].w);
+      }
+      // The slot's next chunk once its products are issued: a ring of W8_D
+      // registers sets, not W8_D + 1 (which spilled at 128 registers).
+      ring[i] = load_rows<W8Chunk>(wp + (r + W8_D) * W8_KC, K, r + W8_D < L ? W8_CPT : 0);
+    }
+  }
+
+  // The warps' partials, [W8_H][M][W8_BN], then the block's, summed in
+  // place.
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int m = g + 8 * hf;
+    if (m >= M) continue;
+    int* dst = red + (h * M + m) * W8_BN + cw * 8 * W8_CPT;
+#pragma unroll
+    for (int j = 0; j < W8_CPT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)  // D fragment column 2t + e of n8 tile j
+        dst[8 * t + 4 * e + j] = acc[j][2 * hf + e];
+  }
+  __syncthreads();
+  const int total = M * W8_BN;
+  for (int i = tid; i < total; i += NTHREADS) {
+    int v = red[i];
+#pragma unroll
+    for (int q = 1; q < W8_H; ++q) v += red[q * total + i];
+    red[i] = v;
+  }
+  // Row m's output at column n0 + c from its exact int32 sum, each step
+  // rounded as the plain version's torch ops.
+  auto store = [&](int i, int v) {
+    const int m = i / W8_BN, c = i % W8_BN;
+    float xs;
+    if constexpr (kQuant) {
+      xs = dk::row_scale(row_amax(wmax, m)).x;
+    } else {
+      xs = ep[2 * W8_BN + m];
+    }
+    float out = __fmul_rn(__fmul_rn(__int2float_rn(v), xs), ep[c]);
+    if (bias) out = __fadd_rn(out, ep[W8_BN + c]);
+    static_cast<OutT*>(p.y)[(long long)m * N + n0 + c] = dk::from_float<OutT>(out);
+  };
+  if (S == 1) {  // the block holds all of K
+    __syncthreads();
+    for (int i = tid; i < total; i += NTHREADS) store(i, red[i]);
+    return;
+  }
+  // The tile's S blocks are one cluster: each sums its share of the
+  // outputs over the S blocks' shared memory and applies the epilogue.
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();  // every block's sums are in its shared memory
+  const int share = (total + S - 1) / S, i0 = (int)cluster.block_rank() * share;
+  for (int i = i0 + tid; i < min(total, i0 + share); i += NTHREADS) {
+    int v = 0;
+    for (int q = 0; q < S; ++q) v += cluster.map_shared_rank(red, q)[i];
+    store(i, v);
+  }
+  cluster.sync();  // no block leaves while another still reads its sums
+}
+
+// The W8 GEMV's launch: grid (S, N / 128), the S blocks of a column tile
+// one thread-block cluster (S <= 8, the portable cluster size).
+template <typename XT, typename OutT>
+int launch_w8(W8Params p, int splits, void* stream) {
+  const size_t smem = w8_smem(p.M, p.K, splits);
+  auto kernel = w8_gemv<XT, OutT>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, p.N / W8_BN);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (le != cudaSuccess) return (int)le;
+  return (int)cudaGetLastError();
+}
+
+template <typename XT>
+int launch_w8_out(W8Params p, int out_type, int splits, void* stream) {
+  return out_type ? launch_w8<XT, float>(p, splits, stream)
+                  : launch_w8<XT, bf16>(p, splits, stream);
+}
+
 }  // namespace
 
 // Kernel C at M <= 16; the wrapper sends M > 16 to dk_int4_matmul_sm90_bf16
@@ -508,4 +811,33 @@ extern "C" int dk_w4a8_matmul(const void* x8, const void* q4, const void* scales
   p.xscale = static_cast<const float*>(xscale);
   p.bias = static_cast<const bf16*>(bias);
   return launch<W4A8>(w4a8_gemv, p, splits, stream);
+}
+
+// Kernel #11 at M <= 16 (the wrapper routes M > 16 and the other shapes to
+// dk_w8_matmul_bf16 / _f32, w8_matmul.cu): x (M, K) contiguous, x_type 0
+// int8 x8 with fp32 xscale (M,), 1 bf16 or 2 fp32 rows quantized in the
+// kernel (xscale unused); w8 int8 (N, K); wscale fp32 (N,); bias (N,) in
+// the output type or null; y (M, N), out_type 0 bf16 or 1 fp32; S splits
+// of K (a cluster of S blocks a column tile), each a multiple of 128 k.
+extern "C" int dk_w8_gemv(const void* x, int x_type, const void* w8, const void* wscale,
+                          const void* xscale, const void* bias, void* y, int out_type, int M,
+                          int N, int K, int splits, void* stream) {
+  if (!(M > 0 && M <= MAX_M && N > 0 && N % W8_BN == 0 && N / W8_BN <= MAX_TILES && K > 0 &&
+        splits > 0 && splits <= MAX_SPLITS && K % (W8_H * W8_KC * splits) == 0) ||
+      x_type < 0 || x_type > 2 || out_type < 0 || out_type > 1 ||
+      w8_smem(M, K, splits) > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  W8Params p = {};
+  p.x = x;
+  p.w8 = static_cast<const int8_t*>(w8);
+  p.wscale = static_cast<const float*>(wscale);
+  p.xscale = static_cast<const float*>(xscale);
+  p.bias = bias;
+  p.y = y;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  if (x_type == 1) return launch_w8_out<bf16>(p, out_type, splits, stream);
+  if (x_type == 2) return launch_w8_out<float>(p, out_type, splits, stream);
+  return launch_w8_out<int8_t>(p, out_type, splits, stream);
 }

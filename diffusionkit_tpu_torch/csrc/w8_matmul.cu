@@ -30,9 +30,12 @@
 //  * M > 16 and K % 128 == 0, every main-path shape but the GEMVs and the
 //    SD3 x_embedder: w8_matmul_sm90.cu's `w8_mm_sm90` (TMA, int8 wgmma,
 //    warp-specialised; its own note).
-//  * M <= 16 (the GEMVs) and K % 128 != 0 (the x_embedder's K = 64):
-//    `w8_mm` here, kernel E's `plain` main loop without the
-//    requantisation. 256 threads (8 warps), warp tiles of 16 x 16 (M <= 16:
+//  * #11 at M <= 16 with K and N multiples of 128 (the `ada` and embedder
+//    GEMVs): the wrapper sends them to gemv_sm90.cu's split-K `w8_gemv`
+//    instead, and the calls whose x is float there too, quantized in it.
+//  * M <= 16 (#16, and #11's other shapes) and K % 128 != 0 (the
+//    x_embedder's K = 64): `w8_mm` here, kernel E's `plain` main loop
+//    without the requantisation. 256 threads (8 warps), warp tiles of 16 x 16 (M <= 16:
 //    BM = 16), 16 x 64 (BM = 64) or 32 x 64 (BM = BN = 128); BK = 128 k per
 //    tile (64 where K is not a multiple of 128). cp.async stages the x8 and
 //    w8 tiles (16-byte chunks; rows past M and N zero-filled, so no padded
@@ -40,8 +43,8 @@
 //    bytes, bank-conflict free for ldmatrix, which gives the m16n8k32 s8
 //    fragments of both operands directly (both are k-contiguous). The
 //    ragged M and N edges are masked at the store. At M <= 16 the tile
-//    reads w8 once at about half the memory rate; the wgmma kernel's
-//    64-row products would waste 3/4 of their work there.
+//    reads w8 once at about half the memory rate (L2 warm); the wgmma
+//    kernel's 64-row products would waste 3/4 of their work there.
 //
 // #10 replaces diffusionkit_tpu/ops/w4a8_matmul.py:dequant_w8_pallas: packed
 // int4 words (K/8, N) (int32 bit views, shifted as unsigned) and the group

@@ -10,16 +10,17 @@ Four kernels of ``csrc/mod_ln.cu``, each replacing a Pallas kernel of
   row to int8 for the w4a8 linears that read it (q/k/v, fc1);
 - kernel D ``quantize`` (``_quant_kernel``): the per-row absmax -> int8
   pass in front of a w4a8 or w8a8 linear whose input is float (``ada``,
-  ``o``, the embedders, T5's ``out_proj`` and ``wo``);
+  ``o``, the embedders, T5's ``out_proj`` and ``wo``; a w8a8 linear of at
+  most 16 rows quantizes inside #11's GEMV instead, bit for bit as D);
 - kernel #4 ``gelu_quantize`` (``_gelu_quant_kernel``): the A&S-erf (or
   tanh) GELU of fc1's output quantized per row for fc2, in every w8a8 FFN
   and any w4a8 FFN the fused kernel-E chain does not take.
 
 Each reads its rows once and keeps them in registers, with 16-byte
-accesses: A and D one block a row; A' a warp (or a few) a row, several rows
-a block, every load issued before the first reduction; #4, which is bound
-by its instruction issue rather than the memory, a block a row with
-several vectors a thread. A' and #4 quantize without a per-element
+accesses: A one block a row; A' and D a warp (or a few) a row, several
+rows a block, every load issued before the first reduction; #4, which is
+bound by its instruction issue rather than the memory, a block a row with
+several vectors a thread. A', D and #4 quantize without a per-element
 division, bit for bit the reference's grid; see the note in the source.
 Each wrapper launches its kernel for a CUDA tensor and raises on what the
 kernel does not take; a CPU tensor goes to the plain torch version beside
@@ -41,8 +42,8 @@ _MOD_LN_QUANT_KERNELS = {torch.bfloat16: "dk_mod_ln_quant_bf16",
 _GELU_QUANT_KERNELS = {torch.bfloat16: "dk_gelu_quantize_bf16",
                        torch.float32: "dk_gelu_quantize_f32"}
 GELU_FORMS = {"erf": 0, "tanh": 1}
-# Widest row kernels D and #4 take (D: 16 floats of the row per thread, at
-# most 1024 threads).
+# Widest row kernels D and #4 take (D: 8 warps of 8 bf16 or 16 fp32
+# vectors a lane).
 MAX_ROW = 16384
 
 

@@ -34,9 +34,14 @@ own account and a no-op at FLUX's shapes) are not carried over.
 Kernel #11 ``w8_matmul`` (the reference's ``w8_matmul``, ``_kernel_w8``) is
 the w8a8 linear's product: an int8 (N, K) weight grid, ``y = (x8 @ w8^T) *
 xscale * wscale + bias``, the epilogue in that order with the int32
-accumulator kept on chip (``csrc/w8_matmul_sm90.cu``, TMA-fed int8
-``wgmma``, at M > 16 and K % 128 == 0; ``csrc/w8_matmul.cu`` otherwise);
-``w8_matmul_plain`` is its plain version.
+accumulator kept on chip. ``w8_route`` picks its main loop: at M <= 16
+with K a multiple of 256 and N of 64 (the `ada` and embedder projections)
+the GEMV of ``csrc/gemv_sm90.cu``; at M > 16 and K % 128 == 0
+``csrc/w8_matmul_sm90.cu`` (TMA-fed int8 ``wgmma``); ``csrc/w8_matmul.cu``
+otherwise. ``quantize_w8_matmul`` is the GEMV's quantizing entry: a float x
+quantized in the kernel, bit for bit kernel D then #11, so the `ada`
+projections of a w8a8 model need no launch of D. ``w8_matmul_plain`` and
+``quantize_w8_matmul_plain`` are their plain versions.
 
 Kernel #10 ``dequant_w8`` (the reference's ``dequant_w8_pallas``)
 materialises the int8 grid of a packed layer once, as (N, K), the layout
@@ -310,6 +315,54 @@ def w8_matmul_plain(
 
 
 _W8_KERNELS = {torch.bfloat16: "dk_w8_matmul_bf16", torch.float32: "dk_w8_matmul_f32"}
+# Kernel #11's M <= 16 GEMV (csrc/gemv_sm90.cu w8_gemv): K in splits of
+# whole 256-k parts (four warps' parts of 64-k chunks), N in 64-column
+# tiles; a block keeps its int8 slab of x, M x (K / S + 64) bytes, in
+# shared memory beside its partials and the epilogue's operands.
+W8_GEMV_PART_K, W8_GEMV_N_TILE = 256, 64
+# The most of K a block streams before K is split: at 2048 the split (the
+# cluster's sum of its blocks' partials, ~2 us) and one block a tile took
+# the same time on the H100 at (2, 2048, 1536) (PERF.md, section 6).
+W8_GEMV_BLOCK_K = 2048
+_W8_GEMV_SMEM = 227 * 1024
+_W8_X_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+_W8_OUT_TYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def w8_route(m: int, k: int, n: int) -> str:
+    """Kernel #11's main loop for (M, K, N): ``"gemv"``, the GEMV
+    (csrc/gemv_sm90.cu), at M <= ``SMALL_M`` with K a multiple of 256 and N
+    of 64 (the `ada` and embedder projections) where a block's slab of x
+    fits in its shared memory; ``"sm90"`` (csrc/w8_matmul_sm90.cu) above
+    ``SMALL_M`` with K a multiple of 128; else ``"tile"`` (csrc/w8_matmul.cu
+    ``w8_mm``). ValueError for what none of them takes: K not a multiple of
+    64 or N not of 8."""
+    if k <= 0 or k % 64 or n <= 0 or n % 8:
+        raise ValueError(f"w8_matmul: K={k} must be a multiple of 64 and N={n} of 8")
+    if (m <= SMALL_M and k % W8_GEMV_PART_K == 0 and n % W8_GEMV_N_TILE == 0
+            and 16 * m * W8_GEMV_N_TILE + 16 * 8 * 4 + (2 * W8_GEMV_N_TILE + 16) * 4
+            + m * (k // w8_gemv_splits(k) + 64) <= _W8_GEMV_SMEM):
+        return "gemv"
+    return "sm90" if m > SMALL_M and k % K_TILE == 0 else "tile"
+
+
+def w8_quantizes_in_gemv(m: int, k: int, n: int) -> bool:
+    """True where a float x (M, K) against an (N, K) w8 takes the GEMV's
+    quantizing entry (``quantize_w8_matmul``) in place of kernel D then
+    #11: the GEMV's route, at 1 <= M."""
+    return m >= 1 and k > 0 and k % 64 == 0 and n > 0 and n % 8 == 0 and (
+        w8_route(m, k, n) == "gemv")
+
+
+def w8_gemv_splits(k: int) -> int:
+    """S, the blocks that split K for #11's GEMV (a thread-block cluster a
+    column tile, at most 8): the fewest, each a whole number of 256-k
+    parts, that leave a block at most ``W8_GEMV_BLOCK_K`` of K; one where
+    no split does."""
+    for s in range(1, 9):
+        if k % (s * W8_GEMV_PART_K) == 0 and k // s <= W8_GEMV_BLOCK_K:
+            return s
+    return 1
 
 
 def w8_matmul(
@@ -321,7 +374,8 @@ def w8_matmul(
     x8 int8 (M, K); w8 int8 (N, K); wscale fp32 (N,); xscale fp32 (M, 1);
     bias (N,) or None. On CUDA: everything contiguous and 16-byte aligned,
     K a multiple of 64, N of 8, the output bf16 or fp32 and the bias in the
-    output dtype.
+    output dtype; the main loop ``w8_route`` picks (the GEMV's launches also
+    counted in ``w8_matmul.gemv_launches``).
     """
     if x8.device.type == "cpu":
         return w8_matmul_plain(x8, w8, wscale, xscale, bias, out_dtype)
@@ -334,8 +388,7 @@ def w8_matmul(
         raise TypeError(f"w8_matmul: output {out_dtype} not supported (bf16, fp32)")
     m, k = x8.shape
     n = w8.shape[0]
-    if k % 64 or n % 8:
-        raise ValueError(f"w8_matmul: K={k} must be a multiple of 64 and N={n} of 8")
+    route = w8_route(m, k, n)
     dev = x8.device
     _contiguous_on("x8", x8, dev, torch.int8, (m, k), "w8_matmul")
     _contiguous_on("w8", w8, dev, torch.int8, (n, k), "w8_matmul")
@@ -347,17 +400,92 @@ def w8_matmul(
         _contiguous_on("bias", bias, dev, out_dtype, (n,), "w8_matmul")
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m:
-        err = getattr(kernels.library(), _W8_KERNELS[out_dtype])(
-            x8.data_ptr(), w8.data_ptr(), wscale.data_ptr(), xscale.data_ptr(),
-            0 if bias is None else bias.data_ptr(), y.data_ptr(), m, n, k,
-            kernels.stream_ptr(dev),
-        )
+        bias_ptr = 0 if bias is None else bias.data_ptr()
+        if route == "gemv":
+            err = _w8_gemv(x8, w8, wscale, xscale.data_ptr(), bias_ptr, y)
+        else:
+            err = getattr(kernels.library(), _W8_KERNELS[out_dtype])(
+                x8.data_ptr(), w8.data_ptr(), wscale.data_ptr(), xscale.data_ptr(), bias_ptr,
+                y.data_ptr(), m, n, k, kernels.stream_ptr(dev),
+            )
         kernels.check(err, "w8_matmul")
         w8_matmul.launches += 1
+        w8_matmul.gemv_launches += route == "gemv"
     return y
 
 
 w8_matmul.launches = 0
+w8_matmul.gemv_launches = 0  # of them, the M <= 16 GEMV's (either entry)
+w8_matmul.quantizing_launches = 0  # of those, the quantizing entry's
+
+
+def _w8_gemv(x: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, xscale_ptr: int,
+             bias_ptr: int, y: torch.Tensor) -> int:
+    """Launch the GEMV of #11 (csrc/gemv_sm90.cu ``dk_w8_gemv``) on x
+    (M, K) int8, or bf16 / fp32 to quantize in it, with ``w8_gemv_splits``
+    blocks along K (one thread-block cluster a column tile, which sums its
+    blocks' partials in their shared memory); its CUDA error."""
+    (m, k), n = x.shape, w8.shape[0]
+    return kernels.library().dk_w8_gemv(
+        x.data_ptr(), _W8_X_TYPES[x.dtype], w8.data_ptr(), wscale.data_ptr(), xscale_ptr,
+        bias_ptr, y.data_ptr(), _W8_OUT_TYPES[y.dtype], m, n, k, w8_gemv_splits(k),
+        kernels.stream_ptr(x.device),
+    )
+
+
+def quantize_w8_matmul_plain(
+    x: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, bias: Optional[torch.Tensor],
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Plain torch ``quantize_w8_matmul``: kernel D's plain version
+    (``fused_quant.quantize_plain``), then ``w8_matmul_plain``."""
+    from .fused_quant import quantize_plain
+
+    aq = quantize_plain(x)
+    return w8_matmul_plain(aq.x8, w8, wscale, aq.xscale, bias, out_dtype)
+
+
+def quantize_w8_matmul(
+    x: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, bias: Optional[torch.Tensor],
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """#11 on a float x (M, K): x quantized per row as kernel D quantizes
+    it, then ``((x8 @ w8^T) * xscale) * wscale + bias`` -> (M, N) in
+    ``out_dtype``, in one launch of the M <= 16 GEMV's quantizing entry:
+    bit for bit ``quantize`` then ``w8_matmul``. Counted as a launch of
+    ``w8_matmul`` and of its GEMV.
+
+    On CUDA: x bf16 or fp32, contiguous and 16-byte aligned, at an (M, K, N)
+    where ``w8_quantizes_in_gemv`` holds; w8, wscale and bias as
+    ``w8_matmul`` takes them.
+    """
+    if x.device.type == "cpu":
+        return quantize_w8_matmul_plain(x, w8, wscale, bias, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_w8_matmul: unsupported device {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.ndim != 2 or w8.ndim != 2:
+        raise TypeError(f"quantize_w8_matmul: x must be bf16 or fp32 (M, K) and w8 (N, K), got "
+                        f"{x.dtype} {tuple(x.shape)}, {tuple(w8.shape)}")
+    if out_dtype not in _W8_OUT_TYPES:
+        raise TypeError(f"quantize_w8_matmul: output {out_dtype} not supported (bf16, fp32)")
+    m, k = x.shape
+    n = w8.shape[0]
+    if not w8_quantizes_in_gemv(m, k, n):
+        raise ValueError(f"quantize_w8_matmul: (M, K, N) = {(m, k, n)} needs 1 <= M <= "
+                         f"{SMALL_M}, K a multiple of 256 and N of 64")
+    dev = x.device
+    _contiguous_on("x", x, dev, x.dtype, (m, k), "quantize_w8_matmul")
+    _contiguous_on("w8", w8, dev, torch.int8, (n, k), "quantize_w8_matmul")
+    _contiguous_on("wscale", wscale, dev, torch.float32, (n,), "quantize_w8_matmul")
+    if bias is not None:
+        _contiguous_on("bias", bias, dev, out_dtype, (n,), "quantize_w8_matmul")
+    y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    err = _w8_gemv(x, w8, wscale, 0, 0 if bias is None else bias.data_ptr(), y)
+    kernels.check(err, "quantize_w8_matmul")
+    w8_matmul.launches += 1
+    w8_matmul.gemv_launches += 1
+    w8_matmul.quantizing_launches += 1
+    return y
 
 
 def dequant_w8_plain(q4: torch.Tensor, s8: torch.Tensor, z8: torch.Tensor) -> torch.Tensor:

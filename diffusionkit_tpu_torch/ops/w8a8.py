@@ -17,14 +17,17 @@ layout (the reference's ``(in, out)`` leaf transposed bit for bit), a
 per-channel symmetric fp32 ``wscale`` ``max_k |w[k, n]| / 127`` and an
 optional bias in the model dtype. ``w8a8_linear`` quantizes a float input
 with kernel D (``fused_quant.quantize``) and runs the product and its
-epilogue in kernel #11 (``w4a8_matmul.w8_matmul``). ``w8a8_module_`` is the
-reference's ``w8a8_tree``: it converts every eligible ``nn.Linear`` and
+epilogue in kernel #11 (``w4a8_matmul.w8_matmul``); at M <= 16 #11's
+GEMV quantizes the float input itself (``w4a8_matmul.quantize_w8_matmul``).
+``w8a8_module_`` is the reference's ``w8a8_tree``: it converts every
+eligible ``nn.Linear`` and
 packed ``QuantizedLinear`` on the layer's own device; the host numpy
 functions are the reference's, for loaders and tests.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -194,21 +197,28 @@ def w8a8_linear(layer: W8A8Linear, x, act: Optional[str] = None) -> torch.Tensor
     """y = act(x @ w (+ bias)) with both operands in int8: x (..., K) float,
     quantized per row by kernel D, or an ``ActQuant`` used as it is; the
     product and the fp32 epilogue ``(acc * xscale) * wscale + bias`` in
-    kernel #11; the result in x's dtype. ``act="gelu"`` applies the exact
-    erf GELU to the fp32 epilogue value before that rounding, as the
-    reference does."""
-    from .w4a8_matmul import w8_matmul
+    kernel #11; the result in x's dtype. A float x of at most 16 rows (the
+    `ada` and embedder projections) goes to #11's GEMV, which quantizes it
+    itself, bit for bit as D (``w4a8_matmul.quantize_w8_matmul``).
+    ``act="gelu"`` applies the exact erf GELU to the fp32 epilogue value
+    before that rounding, as the reference does."""
+    from .w4a8_matmul import quantize_w8_matmul, w8_matmul, w8_quantizes_in_gemv
 
-    aq = x if isinstance(x, ActQuant) else quantize_float(x)
-    lead, k = aq.shape[:-1], aq.shape[-1]
-    out_dtype = torch.float32 if act == "gelu" else aq.dtype
+    lead, k = x.shape[:-1], x.shape[-1]
+    out_dtype = torch.float32 if act == "gelu" else x.dtype
     bias = layer.bias
     if bias is not None and bias.dtype != out_dtype:
         bias = bias.to(out_dtype)
-    y = w8_matmul(aq.x8.reshape(-1, k), layer.w8, layer.wscale, aq.xscale.reshape(-1, 1), bias,
-                  out_dtype)
+    if (not isinstance(x, ActQuant) and x.dtype in (torch.bfloat16, torch.float32)
+            and w8_quantizes_in_gemv(math.prod(lead), k, layer.out_features)):
+        y = quantize_w8_matmul(x.reshape(-1, k).contiguous(), layer.w8, layer.wscale, bias,
+                               out_dtype)
+    else:
+        aq = x if isinstance(x, ActQuant) else quantize_float(x)
+        y = w8_matmul(aq.x8.reshape(-1, k), layer.w8, layer.wscale, aq.xscale.reshape(-1, 1),
+                      bias, out_dtype)
     if act == "gelu":
-        y = F.gelu(y).to(aq.dtype)
+        y = F.gelu(y).to(x.dtype)
     return y.reshape(*lead, y.shape[-1])
 
 

@@ -7,12 +7,12 @@ Counterparts of the reference's ``tools/bench_w4a8_mat.py`` and
     python -m diffusionkit_tpu_torch.tools.microbench_int8 [M K N [iters]]
 
 ``bench_flash`` (the flash kernels beside the library's attention, timed
-by ``device_ms``), ``bench_gemv`` (the M <= 16 GEMVs of kernels C, #13
-and E, timed warm by ``device_ms`` and cold by ``device_ms_cold``) and
-``bench_rows`` (the row kernels A' and #4, timed the same way):
+by ``device_ms``), ``bench_gemv`` (the M <= 16 GEMVs of kernels C, #13, E
+and #11, timed warm by ``device_ms`` and cold by ``device_ms_cold``) and
+``bench_rows`` (the row kernels A', D and #4, timed the same way):
 
     python -m diffusionkit_tpu_torch.tools.bench_flash [B,S,H,D ...]
-    python -m diffusionkit_tpu_torch.tools.bench_gemv [M,K,N,group ...]
+    python -m diffusionkit_tpu_torch.tools.bench_gemv [M,K,N[,group] ...]
     python -m diffusionkit_tpu_torch.tools.bench_rows [name:d0,d1[,d2] ...]
 
 The first two have ``run(M, K, N, iters, device="cuda")``, which returns its rows,

@@ -1,14 +1,18 @@
-"""Device times of the row kernels A' (mod_ln_quantize) and #4
-(gelu_quantize), warm and cold.
+"""Device times of the row kernels A' (mod_ln_quantize), D (quantize) and
+#4 (gelu_quantize), warm and cold.
 
     python -m diffusionkit_tpu_torch.tools.bench_rows [name:shape ...]
 
-e.g. ``mod_ln_quantize:1,4352,3072 gelu_quantize:2048,6144``. By default
-the measured paths' shapes: A' at FLUX.1's image, joint and 2048² rows
-(hidden 3072) and SD3-medium's image and text rows with CFG (hidden 1536);
-#4 at SD3-medium w8a8's FFN hidden (6144 wide), image and text rows. Inputs
-are bf16 from a seeded generator, shift and scale strided views of one
-modulation vector as the model passes them; #4 in its erf form. Each shape
+e.g. ``mod_ln_quantize:1,4352,3072 quantize:2048,1536
+gelu_quantize:2048,6144``. By default the measured paths' shapes: A' at
+FLUX.1's image, joint and 2048² rows (hidden 3072) and SD3-medium's image
+and text rows with CFG (hidden 1536); D at FLUX.1's `o` inputs (its
+joint, image and 2048² unified rows, 3072 wide), a FLUX w8a8 FFN hidden
+(12288 wide), T5-XXL's `wo` input (10240 wide) and SD3-medium w8a8's `o`
+inputs (image and text rows, 1536 wide); #4 at SD3-medium w8a8's FFN
+hidden (6144 wide), image and text rows. Inputs are bf16 from a seeded
+generator, shift and scale strided views of one modulation vector as the
+model passes them; #4 in its erf form. Each shape
 is timed warm by ``device_ms`` (20 calls on one input, which stays in the
 L2 where it fits) and cold by ``device_ms_cold`` (one call on each of
 enough copies of the input to pass 100 MB, so each call reads its row from
@@ -28,12 +32,14 @@ from typing import Callable, List, Optional
 
 import torch
 
-from ..ops.fused_quant import gelu_quantize, mod_ln_quantize
+from ..ops.fused_quant import gelu_quantize, mod_ln_quantize, quantize
 from . import device_label, device_ms, device_ms_cold
 
 DEFAULT_ROW_SHAPES = {
     "mod_ln_quantize": ((1, 4352, 3072), (1, 4096, 3072), (1, 16384, 3072), (2, 1024, 1536),
                         (2, 154, 1536)),
+    "quantize": ((4352, 3072), (4096, 3072), (16384, 3072), (16640, 3072), (4352, 12288),
+                 (256, 10240), (2048, 1536), (308, 1536)),
     "gelu_quantize": ((2048, 6144), (308, 6144)),
 }
 COLD_BYTES = 100e6  # the copies' inputs together, twice the L2
@@ -41,7 +47,7 @@ HBM = 3.35e12  # the H100 SXM's memory rate, bytes a second
 
 
 def input_bytes(shape) -> int:
-    """The bytes of one bf16 input row block (x for A', y for #4)."""
+    """The bytes of one bf16 input row block (x for A', y for D and #4)."""
     return 2 * math.prod(shape)
 
 
@@ -65,9 +71,10 @@ def calls(name: str, shape, copies: int, gen, dev) -> List[Callable]:
             x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).bfloat16()
             out.append(lambda x=x: mod_ln_quantize(x, sh, sc))
         return out
+    fn = quantize if name == "quantize" else gelu_quantize
     for _ in range(copies):
         y = (torch.randn(shape, generator=gen, device=dev) * 2).bfloat16()
-        out.append(lambda y=y: gelu_quantize(y))
+        out.append(lambda y=y: fn(y))
     return out
 
 

@@ -45,6 +45,8 @@ from diffusionkit_tpu_torch.ops.int4_matmul import (
 )
 from diffusionkit_tpu_torch.ops.quantized import QuantizedLinear, wscale_from_q4
 from diffusionkit_tpu_torch.ops.w4a8_matmul import (
+    quantize_w8_matmul,
+    quantize_w8_matmul_plain,
     w4a8_matmul,
     w4a8_matmul_plain,
     w8_matmul,
@@ -1570,3 +1572,276 @@ def test_gemv_graph_replays_are_bit_identical(cuda, kind):
     torch.cuda.synchronize()
     assert torch.equal(out, first) and torch.equal(first, eager)
     check(first)
+
+
+# -- kernel D's rows, and #11's split-K GEMV at M <= 16 ---------------------------
+
+# Kernel D at every split of a row: 1 to 8 warps a row and 1 to 16 vectors
+# a lane (vector counts from 8 to the widest fp32 row's 4096), at a few
+# rows (more warps a row), at 701 rows (two rows a block, the last block
+# half empty) and at 4099 (up to eight rows a block, ragged).
+QUANT_SPLIT_VECS = [8, 32, 96, 192, 200, 384, 600, 1024, 1536, 2048, 3072, 4096]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nvec", QUANT_SPLIT_VECS)
+@pytest.mark.parametrize("m", [2, 13, 701, 4099])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_kernel_at_every_row_split(cuda, nvec, m, dtype):
+    k = nvec * (8 if dtype == torch.bfloat16 else 4)
+    if k > 16384:
+        pytest.skip(f"K={k} is past the widest row kernel D takes (16384)")
+    g = torch.Generator(device=cuda).manual_seed(40)
+    y = (torch.randn(m, k, generator=g, device=cuda) * 3).to(dtype)
+    got, want = quantize(y), quantize_plain(y)
+    assert torch.equal(got.x8, want.x8) and torch.equal(got.xscale, want.xscale)
+
+
+def special_rows(k: int, dtype, gen, device) -> torch.Tensor:
+    """Nine rows of width k: random values with +-0 and subnormals set in
+    them; all zeros; one 1e30; one 3e38 (a scale near the largest float);
+    one +inf; one -inf; one NaN; subnormals only (amax below 1e-8); NaN
+    only."""
+    rows = torch.randn(9, k, generator=gen, device=device) * 3
+    rows[0, :6] = torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1e-39, -3e-39])
+    rows[1] = 0.0
+    rows[2, 5] = 1e30
+    rows[3, 7] = -3e38
+    rows[4, 1] = float("inf")
+    rows[5, k - 1] = float("-inf")
+    rows[6, 3] = float("nan")
+    rows[7] = rows[7].sign() * 1e-39
+    rows[8] = float("nan")
+    return rows.to(dtype)
+
+
+def quantize_rule(y: torch.Tensor):
+    """Kernel D's x8 and scale on any input (the plain version's where the
+    rows are finite): amax the largest |y| that is not NaN (fmaxf from 0),
+    s = max(amax, 1e-8) / 127 (inf in a row holding an infinity), x8 =
+    clip(rne(y / s)) with a NaN quotient at -127 (fmaxf(NaN, -127) is
+    -127), both divisions IEEE."""
+    v = y.float()
+    a = torch.where(torch.isnan(v), torch.zeros_like(v), v.abs()).amax(dim=-1, keepdim=True)
+    s = a.clamp_min(1e-8) / torch.full_like(a, 127.0)
+    q = v / s
+    q = torch.where(torch.isnan(q), torch.full_like(q, -127.0), q)
+    return torch.round(q.clamp(-127.0, 127.0)).to(torch.int8), s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1536, 3072, 10240])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_kernel_on_special_values(cuda, k, dtype):
+    """Kernel D at +-0, subnormals, 1e30, 3e38, +-inf, an all-zero row and
+    NaN: its rule bit for bit (the IEEE division, NaN to -127, as the
+    per-element division of its earlier form gave), the plain version
+    itself on the finite rows; and #11's
+    quantizing GEMV on the same rows equals D then #11, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    y = special_rows(k, dtype, g, cuda)
+    got = quantize(y)
+    x8, s = quantize_rule(y)
+    assert torch.equal(got.x8, x8) and torch.equal(got.xscale.view(torch.int32),
+                                                   s.view(torch.int32))
+    finite = [0, 1, 2, 3, 7]
+    want = quantize_plain(y[finite])
+    assert torch.equal(got.x8[finite], want.x8) and torch.equal(got.xscale[finite], want.xscale)
+    _, w8, ws, _, b = random_w8(9, k, 256, g, cuda, dtype=dtype)
+    fused = quantize_w8_matmul(y, w8, ws, b, out_dtype=dtype)
+    staged = w8_matmul(got.x8, w8, ws, got.xscale, b, out_dtype=dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(fused.view(bits), staged.view(bits))
+
+
+@pytest.mark.gpu
+def test_quantize_graph_replays_are_bit_identical(cuda):
+    g = torch.Generator(device=cuda).manual_seed(42)
+    y = (torch.randn(2048, 1536, generator=g, device=cuda) * 3).bfloat16()
+    assert_graph_replays_bit_identical(lambda: quantize(y))
+
+
+# (M, K, N) of #11's GEMV: the five shapes of the SD3 w8a8 path's `ada` and
+# embedder projections (the blocks' `ada`, the final layer's, the t
+# embedder's two, the y embedder's first), then M = 1, 3 and 16 at the
+# blocks' `ada`, N past one wave of column tiles, one 64-column tile, and
+# K split 2 and 6 ways (a cluster of blocks a tile).
+W8_GEMV_CASES = [(2, 1536, 9216), (2, 1536, 3072), (2, 256, 1536), (2, 1536, 1536),
+                 (2, 2048, 1536), (1, 1536, 9216), (3, 1536, 9216), (16, 1536, 9216),
+                 (5, 4096, 18432), (16, 256, 64), (2, 12288, 128)]
+
+
+def w8_gemv_args(m, k, n, gen, device, x_dtype, out_dtype, bias=True):
+    """#11's inputs: x bf16 or fp32 (quantized by kernel D for the int8
+    entry), w8, wscale and the bias in the output dtype."""
+    x = (torch.randn(m, k, generator=gen, device=device) * 2).to(x_dtype)
+    w8 = torch.randint(-127, 128, (n, k), generator=gen, device=device, dtype=torch.int8)
+    ws = (torch.rand(n, generator=gen, device=device) + 0.5) / (127 * k**0.5)
+    b = (0.1 * torch.randn(n, generator=gen, device=device)).to(out_dtype) if bias else None
+    return x, w8, ws, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", W8_GEMV_CASES)
+@pytest.mark.parametrize("x_dtype,out_dtype,bias", [
+    (torch.bfloat16, torch.bfloat16, True), (torch.float32, torch.float32, True),
+    (torch.bfloat16, torch.float32, False)])
+def test_w8_gemv_matches_plain(cuda, case, x_dtype, out_dtype, bias):
+    """#11's GEMV, int8 entry and quantizing entry, one launch each on the
+    GEMV route: the int8 entry equals ``w8_matmul_plain`` and the
+    quantizing one ``quantize_plain`` then ``w8_matmul_plain``, bit for
+    bit; a repeat bit-identical."""
+    m, k, n = case
+    g = torch.Generator(device=cuda).manual_seed(43)
+    x, w8, ws, b = w8_gemv_args(m, k, n, g, cuda, x_dtype, out_dtype, bias)
+    aq = quantize_plain(x)
+    launches = (w8_matmul.launches, w8_matmul.gemv_launches, w8_matmul.quantizing_launches)
+    got = w8_matmul(aq.x8, w8, ws, aq.xscale, b, out_dtype)
+    fused = quantize_w8_matmul(x, w8, ws, b, out_dtype)
+    torch.cuda.synchronize()
+    assert (w8_matmul.launches, w8_matmul.gemv_launches, w8_matmul.quantizing_launches) == (
+        launches[0] + 2, launches[1] + 2, launches[2] + 1)
+    want = w8_matmul_plain(aq.x8, w8, ws, aq.xscale, b, out_dtype)
+    assert got.dtype == fused.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, want) and torch.equal(fused, want)
+    assert torch.equal(quantize_w8_matmul_plain(x, w8, ws, b, out_dtype), want)
+    assert torch.equal(quantize_w8_matmul(x, w8, ws, b, out_dtype), fused)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 6, 8])
+def test_w8_gemv_at_every_split(cuda, splits, monkeypatch):
+    """Every split the GEMV can be given at K = 6144, M = 1, 2 and 16, both
+    entries: the S blocks of a column tile's cluster add their partials."""
+    from diffusionkit_tpu_torch.ops import w4a8_matmul as e_ops
+
+    monkeypatch.setattr(e_ops, "w8_gemv_splits", lambda k: splits)
+    g = torch.Generator(device=cuda).manual_seed(44)
+    for m in (1, 2, 16):
+        x, w8, ws, b = w8_gemv_args(m, 6144, 384, g, cuda, torch.bfloat16, torch.bfloat16)
+        aq = quantize_plain(x)
+        want = w8_matmul_plain(aq.x8, w8, ws, aq.xscale, b)
+        assert torch.equal(w8_matmul(aq.x8, w8, ws, aq.xscale, b), want)
+        assert torch.equal(quantize_w8_matmul(x, w8, ws, b), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["int8", "quantizing"])
+def test_w8_gemv_graph_replays_are_bit_identical(cuda, entry):
+    """Two replays of one CUDA graph of the GEMV give the same output bit
+    for bit, equal to an eager call's: the arrival counters are back at 0
+    after every launch."""
+    g = torch.Generator(device=cuda).manual_seed(45)
+    x, w8, ws, b = w8_gemv_args(2, 1536, 9216, g, cuda, torch.bfloat16, torch.bfloat16)
+    aq = quantize(x)
+    if entry == "int8":
+        call = lambda: w8_matmul(aq.x8, w8, ws, aq.xscale, b)  # noqa: E731
+    else:
+        call = lambda: quantize_w8_matmul(x, w8, ws, b)  # noqa: E731
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first) and torch.equal(first, eager)
+
+
+@pytest.mark.gpu
+def test_w8a8_linear_takes_the_quantizing_gemv(cuda):
+    """A w8a8 linear on a float x of 2 rows launches #11's quantizing GEMV
+    and no kernel D; on 17 rows, D then #11's Hopper loop; an ActQuant of
+    2 rows the GEMV's int8 entry. Each equals the plain path bit for bit."""
+    from diffusionkit_tpu_torch.ops.w8a8 import W8A8Linear, quantize_shared, w8a8_linear
+
+    g = torch.Generator(device=cuda).manual_seed(46)
+    layer = W8A8Linear(1536, 3072, device=cuda)
+    layer.w8.random_(-127, 128, generator=g)
+    layer.wscale.copy_((torch.rand(3072, generator=g, device=cuda) + 0.5) / 127 / 40)
+    layer.bias.copy_(0.1 * torch.randn(3072, generator=g, device=cuda))
+    plain = W8A8Linear(1536, 3072, device="cpu")
+    plain.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+    for m, d_launches, quantizing in ((2, 0, 1), (17, 1, 0)):
+        x = torch.randn(m, 1536, generator=g, device=cuda).bfloat16()
+        before = (quantize.launches, w8_matmul.quantizing_launches)
+        got = w8a8_linear(layer, x)
+        torch.cuda.synchronize()
+        assert (quantize.launches - before[0], w8_matmul.quantizing_launches - before[1]) == (
+            d_launches, quantizing)
+        assert torch.equal(got.cpu(), w8a8_linear(plain, x.cpu()))
+    x = torch.randn(2, 1536, generator=g, device=cuda).bfloat16()
+    aq = quantize_shared(x)
+    gemv = w8_matmul.gemv_launches
+    assert torch.equal(w8a8_linear(layer, aq), w8a8_linear(layer, x))
+    assert w8_matmul.gemv_launches == gemv + 2
+
+
+W8_ACCEPTED = [(k, n) for k in (64, 192, 256, 1536, 2048, 3072, 10240)
+               for n in (8, 64, 128, 200, 1536, 3072, 9216)]
+
+
+@pytest.mark.parametrize("m", ROUTE_ROWS)
+def test_w8_route_takes_every_accepted_shape(m):
+    """#11 at every (K, N) its wrapper takes goes to a main loop that takes
+    it: the GEMV at M <= 16 with K a multiple of 256 and N of 64 (its S
+    splits of K each whole 256-k parts), the Hopper loop above 16 rows
+    with K a multiple of 128, the mma.sync tile otherwise (any K a multiple
+    of 64, N of 8); the quantizing entry only on the GEMV's route; what
+    the wrapper refused it still refuses."""
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import (
+        w8_gemv_splits,
+        w8_quantizes_in_gemv,
+        w8_route,
+    )
+
+    for k, n in W8_ACCEPTED:
+        route = w8_route(m, k, n)
+        if m <= 16 and k % 256 == 0 and n % 64 == 0:  # every slab here fits
+            assert route == "gemv"
+            s = w8_gemv_splits(k)
+            assert 1 <= s <= 8 and k % (s * 256) == 0, (k, n, s)
+            assert w8_quantizes_in_gemv(m, k, n)
+        else:
+            assert route == ("sm90" if m > 16 and k % 128 == 0 else "tile")
+            assert not w8_quantizes_in_gemv(m, k, n)
+    for k, n in [(96, 128), (1536, 100), (0, 128), (1536 + 32, 1536)]:
+        with pytest.raises(ValueError):
+            w8_route(m, k, n)
+        assert not w8_quantizes_in_gemv(m, k, n)
+
+
+@pytest.mark.parametrize("shape", [(1536, 9216), (1536, 3072), (256, 1536), (1536, 1536),
+                                   (2048, 1536)])
+def test_gemv_splits_cover_k_in_whole_parts_at_w8_shapes(shape):
+    """At #11's five GEMV shapes of the SD3 w8a8 path, S covers K in whole
+    256-k parts (four warps' parts of 64-k chunks) and is one: no block
+    streams more than 2048 k, so no cluster sums partials (at the blocks'
+    `ada`, 1536 x 9216, 144 blocks of 64 columns); wider K splits into the
+    fewest parts of at most 2048 k."""
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import w8_gemv_splits
+
+    k, n = shape
+    s = w8_gemv_splits(k)
+    assert s == 1 and k % (s * 256) == 0
+    assert [w8_gemv_splits(k) for k in (2304, 4096, 10240, 12288, 256 * 13)] == [3, 2, 5, 6, 1]
+
+
+def test_quantizing_gemv_route_is_bounded_by_its_shared_memory():
+    """The GEMV holds its block's M x (K / S + 64) bytes of x beside the
+    partials in the card's 227 KB a block: the route leaves wider slabs to
+    the tile (and a float x to kernel D then the tile)."""
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import w8_quantizes_in_gemv, w8_route
+
+    assert w8_quantizes_in_gemv(16, 10240, 128)  # S = 5: slabs of 2048 k
+    assert not w8_quantizes_in_gemv(16, 256 * 79, 128)  # S = 1: 16 x 20288 bytes
+    assert w8_route(16, 256 * 79, 128) == "tile"
+    assert w8_quantizes_in_gemv(2, 256 * 79, 128)
+    assert not w8_quantizes_in_gemv(0, 1536, 1536)

@@ -185,6 +185,33 @@ def test_bench_gemv_runs_on_the_cpu():
         assert torch.equal(call(), r["y"])
 
 
+def test_bench_gemv_runs_w8_on_the_cpu():
+    """bench_gemv's #11 rows on the CPU: the int8 entry, the quantizing
+    entry and kernel D then #11, each output that of the plain versions on
+    a layer drawn the same way, the weight's bytes K N + 4 N (w8 and its
+    fp32 wscale); ``M,K,N`` arguments time the three."""
+    from diffusionkit_tpu_torch.ops.fused_quant import quantize_plain
+
+    shape = (2, 256, 128)
+    shapes = {name: [shape] for name in bench_gemv.W8_NAMES}
+    rows = bench_gemv.run(shapes, device="cpu")
+    assert [r["name"] for r in rows] == list(bench_gemv.W8_NAMES)
+    gen = torch.Generator().manual_seed(0)  # run's draws, in run's order
+    for r in rows:
+        assert r["weight_bytes"] == 256 * 128 + 4 * 128 and r["copies"] == 1
+        x = (2 * torch.randn(2, 256, generator=gen)).bfloat16()
+        w8 = torch.randint(-127, 128, (128, 256), generator=gen, dtype=torch.int8)
+        ws = (torch.rand(128, generator=gen) + 0.5) / (127 * 256**0.5)
+        b = (0.1 * torch.randn(128, generator=gen)).bfloat16()
+        aq = quantize_plain(x)
+        assert torch.equal(r["y"], tw.w8_matmul_plain(aq.x8, w8, ws, aq.xscale, b))
+    got = bench_gemv.parse_shapes(["2,1536,9216", "1,3072,18432,64"])
+    assert all(got[name] == [(2, 1536, 9216)] for name in bench_gemv.W8_NAMES)
+    assert got["int4_matmul"] == [(1, 3072, 18432, 64)]
+    assert bench_gemv.DEFAULT_GEMV_SHAPES["w8_matmul"] == (
+        (2, 1536, 9216), (2, 1536, 3072), (2, 2048, 1536), (2, 256, 1536), (2, 1536, 1536))
+
+
 def test_bench_gemv_shapes_go_to_every_kernel_that_takes_them():
     """An ``M,K,N,group`` argument times C and #13, and E where its K and
     group allow."""
@@ -219,7 +246,28 @@ def test_bench_rows_runs_on_the_cpu():
         "gelu_quantize": [(308, 6144)], "mod_ln_quantize": [(2, 154, 1536)]}
     assert bench_rows.parse_shapes([]) is None
     with pytest.raises(ValueError, match="unknown kernel"):
-        bench_rows.parse_shapes(["quantize:2,64"])
+        bench_rows.parse_shapes(["mod_ln:2,64"])
+
+
+def test_bench_rows_times_kernel_d_on_the_cpu():
+    """bench_rows' kernel D rows on the CPU: each output that of D's plain
+    version on inputs drawn the same way, the bytes a call moves (the bf16
+    row read, the int8 row and its fp32 scale written), and D's path shapes
+    among the defaults."""
+    from diffusionkit_tpu_torch.ops.fused_quant import quantize_plain
+
+    shapes = {"quantize": [(3, 512), (2, 64)]}
+    rows = bench_rows.run(shapes, device="cpu")
+    assert [r["bytes"] for r in rows] == [3 * 1536 + 4 * 3, 3 * 128 + 4 * 2]
+    gen = torch.Generator().manual_seed(0)
+    for r in rows:
+        y = (torch.randn(r["shape"], generator=gen) * 2).bfloat16()
+        want = quantize_plain(y)
+        assert r["warm_ms"] is None and r["copies"] == 1
+        assert torch.equal(r["out"].x8, want.x8) and torch.equal(r["out"].xscale, want.xscale)
+    assert {(4352, 3072), (16384, 3072), (16640, 3072), (4352, 12288), (2048, 1536)} <= set(
+        bench_rows.DEFAULT_ROW_SHAPES["quantize"])
+    assert bench_rows.parse_shapes(["quantize:2048,1536"]) == {"quantize": [(2048, 1536)]}
 
 
 def test_microbench_int8_runs_on_the_cpu():
@@ -395,6 +443,16 @@ PROFILER_NAMES = [
      "int8_matmul[gemv]"),
     ("void (anonymous namespace)::w4a8_gemv((anonymous namespace)::Params)",
      "w4a8_matmul[gemv]"),
+    ("void (anonymous namespace)::w8_gemv<__nv_bfloat16, __nv_bfloat16>("
+     "(anonymous namespace)::W8Params)", "w8_matmul[gemv]"),
+    ("void (anonymous namespace)::w8_gemv<signed char, float>((anonymous namespace)::W8Params)",
+     "w8_matmul[gemv]"),
+    ("_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc27w8_gemvIfS1_EEvNS_8W8ParamsE",
+     "w8_matmul[gemv]"),
+    ("void (anonymous namespace)::quantize_kernel<__nv_bfloat16, 6>(__nv_bfloat16 const*, "
+     "signed char*, float*, int, int)", "quantize"),
+    ("_ZN41_GLOBAL__N__7e71744e_9_mod_ln_cu_86424f8f15quantize_kernelIfLi16EEEvPKT_PaPfii",
+     "quantize"),
 ]
 
 
@@ -459,6 +517,7 @@ HOPPER_MATMULS = [
     "_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc29int4_gemvENS_6ParamsE",
     "_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc29int8_gemvENS_6ParamsE",
     "_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc29w4a8_gemvENS_6ParamsE",
+    "_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc27w8_gemvIaS1_EEvNS_8W8ParamsE",
 ]
 
 
@@ -466,6 +525,8 @@ ROW_KERNELS = [
     "_ZN41_GLOBAL__N__7e71744e_9_mod_ln_cu_86424f8f19mod_ln_quant_kernelI13__nv_bfloat16Li6EEEvPKT_"
     "S4_S4_PaPfiixf",
     "_ZN41_GLOBAL__N__7e71744e_9_mod_ln_cu_86424f8f20gelu_quantize_kernelIfLi3ELi0EEEvPKT_PaPfi",
+    "_ZN41_GLOBAL__N__7e71744e_9_mod_ln_cu_86424f8f15quantize_kernelI13__nv_bfloat16Li6EEEvPKT_"
+    "PaPfii",
 ]
 
 
@@ -473,7 +534,7 @@ ROW_KERNELS = [
 @pytest.mark.parametrize("spill", [0, 4])
 def test_chip_smoke_ptxas_report_holds_the_row_kernels_to_no_spill(chip_smoke, tmp_path, entry,
                                                                    spill):
-    """The row kernels A' and #4 fail phase 2 on any spill."""
+    """The row kernels A', D and #4 fail phase 2 on any spill."""
     log = (f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'\n"
            f"    8 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
            "ptxas info    : Used 48 registers, used 16 barriers\n")
@@ -490,9 +551,9 @@ def test_chip_smoke_ptxas_report_holds_the_row_kernels_to_no_spill(chip_smoke, t
 @pytest.mark.parametrize("spill", [0, 8])
 def test_chip_smoke_ptxas_report_holds_the_hopper_matmuls_to_no_spill(chip_smoke, tmp_path, entry,
                                                                        spill):
-    """The Hopper main loops of kernels E, C and #13 and their M <= 16
-    GEMVs fail phase 2 on any spill, as the flash kernels redesigned before
-    them."""
+    """The Hopper main loops of kernels E, C and #13 and the M <= 16 GEMVs
+    of C, #13, E and #11 fail phase 2 on any spill, as the flash kernels
+    redesigned before them."""
     log = (f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'\n"
            f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
            "ptxas info    : Used 168 registers, used 16 barriers\n")

@@ -169,6 +169,56 @@ def test_w8a8_linear_matches_jax(m, k):
     assert tw8.needs_act_quant(layer) and tw8.is_w8a8(layer)
 
 
+@pytest.mark.parametrize("m,k,n", [(1, 1536, 384), (2, 256, 1536), (16, 2048, 128),
+                                   (3, 128, 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_w8_matmul_plain_is_quantize_then_w8_matmul(m, k, n, dtype):
+    """The plain version of #11's quantizing GEMV is kernel D's plain
+    version then #11's, bit for bit, with and without a bias; on the CPU the
+    wrapper runs it and launches nothing."""
+    rs = np.random.RandomState(8)
+    x = t((rs.randn(m, k) * 3).astype(np.float32)).to(dtype)
+    p = w8a8_weights(k, n, seed=9)
+    w8, ws = t(np.ascontiguousarray(p["w8"].T)), t(p["wscale"])
+    launches = tw.w8_matmul.launches
+    for bias in (t(p["bias"]).to(dtype), None):
+        aq = tfq.quantize_plain(x)
+        want = tw.w8_matmul_plain(aq.x8, w8, ws, aq.xscale, bias, dtype)
+        for got in (tw.quantize_w8_matmul_plain(x, w8, ws, bias, dtype),
+                    tw.quantize_w8_matmul(x, w8, ws, bias, dtype)):
+            assert got.dtype == dtype and torch.equal(got, want)
+    assert tw.w8_matmul.launches == launches
+
+
+@pytest.mark.parametrize("m", [1, 2, 16])
+def test_w8a8_linear_at_gemv_rows_matches_jax(m):
+    """``w8a8_linear`` at the rows of the `ada` and embedder projections
+    (M = 1 without CFG, 2 with it, 16 the most the GEMV takes), where a
+    float input goes to #11's quantizing GEMV, against the JAX
+    ``w8a8_linear`` on the same numpy-seeded weights: one fp32 rounding
+    apart (1e-6), and in bf16 one bf16 rounding of the exact fp32 value."""
+    k, n = 1536, 384
+    assert tw.w8_quantizes_in_gemv(m, k, n)
+    p = w8a8_weights(k, n, seed=10)
+    x = (np.random.RandomState(11).randn(m, k) * 2).astype(np.float32)
+    jp = {key: jnp.asarray(v) for key, v in p.items()}
+    layer = tw8.W8A8Linear.from_host(p, torch.float32, device="cpu")
+    assert relative(linear(layer, t(x)), jw8.w8a8_linear(jp, jnp.asarray(x))) < 1e-6
+    assert relative(linear(layer, t(x), act="gelu"),
+                    jw8.w8a8_linear(jp, jnp.asarray(x), act="gelu")) < 1e-6
+    layer16 = tw8.W8A8Linear.from_host(p, torch.bfloat16, device="cpu")
+    xb = t(x).bfloat16()
+    got = linear(layer16, xb)
+    jp["bias"] = jnp.asarray(layer16.bias.float().numpy())  # the bias in the model dtype
+    want = np.asarray(jw8.w8a8_linear(jp, jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)),
+                      np.float32)
+    aq = tfq.quantize_plain(xb)
+    exact = tw.w8_matmul_plain(aq.x8, layer16.w8, layer16.wscale, aq.xscale,
+                               layer16.bias.float(), torch.float32).numpy()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert np.all(np.abs(got.float().numpy() - want) <= bf16_ulp(exact))
+
+
 # -- host and device conversions ------------------------------------------------
 
 
