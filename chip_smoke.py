@@ -9,8 +9,8 @@ Phases, each raising on failure (the script then exits non-zero):
      parallel; sm_90a) and print each kernel's registers and spill bytes
      from ptxas's report, failing on a C7512 ("wgmma serialized") or on a
      spill in the d=512 and 3xTF32 flash kernels, the Hopper main loops of
-     kernels E, C and #13, the M <= 16 GEMVs of C, #13, E and #11 or the row
-     kernels A', D and #4;
+     kernels E, C and #13, the M <= 16 GEMVs of C, #13, E and #11, the row
+     kernels A', D and #4, #11's 64-deep Hopper loop or #10;
   3. each kernel against its plain torch version at the main paths' shapes,
      in bf16, against the plain math run in fp32 on the same bf16 inputs:
      mod_ln and flash attention at the SD3 shapes, flash attention at d=128
@@ -36,9 +36,13 @@ Phases, each raising on failure (the script then exits non-zero):
      NaN), and their device times beside the plain versions' and kernel
      C's at the same (M, K, N) (mod_ln_quantize, quantize, and
      gelu_quantize in 3-4c, with the input cold in L2, over copies that
-     pass 100 MB, beside warm), and kernel E's in mode plain at M >= 256
-     beside #10 then #11 (mat_pl, checked bit-identical to E), its
-     yardstick;
+     pass 100 MB, beside warm), and mode plain above 16 rows (FLUX's text,
+     image and unified rows at 1024² and 2048², and group 32): kernel E's
+     Hopper loop held against its plain version, then the A/B of E against
+     #10 then #11, the reference's materialised dataflow, warm and with the
+     weights cold in L2, the routed call (w4a8_route) bit-identical to E
+     and the route required to have taken the faster dataflow, cold and
+     warm;
   3-4c. the kernels of the w8a8 and int8 modes against their plain versions
      on the card: gelu_quantize and w8_matmul at the SD3-medium w8a8 and
      T5-XXL w8a8 shapes (at M <= 16 #11's GEMV, its int8 entry and its
@@ -64,8 +68,9 @@ Phases, each raising on failure (the script then exits non-zero):
      off), each bound at the 3xTF32 rate (495 / 3 TFLOP/s) with the fp32
      FMA rate's bound beside it;
   3-4e. #10 dequant_w8 (bit-identical at FLUX fc1, fc2, q and q at group
-     32), #10 then #11 against kernel E on the same layer (bit-identical at
-     M = 4352 and a ragged M) and #16 int8_dot (bit-identical to the exact
+     32; timed with the weights cold in L2 and warm), #10 then #11 against
+     kernel E on the same layer (bit-identical at M = 4352 and a ragged M)
+     and #16 int8_dot (bit-identical to the exact
      int32 product at the microbench's shape, M = 1 and a ragged M), timed
      beside their bounds (#16 beside torch._int_mm); then the two tool
      paths, bench-w4a8-mat and microbench-int8, through their ``run`` at
@@ -205,6 +210,7 @@ from diffusionkit_tpu_torch.ops.w4a8_matmul import (
     scaled_affine,
     w4a8_matmul,
     w4a8_matmul_plain,
+    w4a8_route,
     w8_matmul,
     w8_matmul_plain,
 )
@@ -220,6 +226,7 @@ from diffusionkit_tpu_torch.tools import (
     DEFAULT_ITERS,
     DEFAULT_SHAPE,
     bench_gemv,
+    bench_mat,
     bench_rows,
     bench_w4a8_mat,
     device_ms,
@@ -277,7 +284,7 @@ SYMBOLS = {
     **{f"w4a8_matmul[{mode}]": "w4a8_mm_sm90<MODE, BN>" for mode in MODES},
     "gelu_quantize": "gelu_quantize_kernel", "w8_matmul": "w8_mm_sm90<bf16|float, BN>",
     "int8_matmul": "int8_mm_sm90<BN>", "flash_attention_stats": "flash_fwd_sm90_stats<128>",
-    "flash_attention": "flash_fwd_sm90<D, true>", "dequant_w8": "dequant_w8_kernel",
+    "flash_attention": "flash_fwd_sm90<D, true>", "dequant_w8": "dequant_w8_kernel<G>",
     "int8_dot": "w8_mm_sm90<int, BN>", "int4_matmul[gemv]": "int4_gemv",
     "int8_matmul[gemv]": "int8_gemv", "w4a8_matmul[gemv]": "w4a8_gemv",
     "w8_matmul[gemv]": "w8_gemv<XT, OutT>",
@@ -286,8 +293,9 @@ SYMBOLS = {
 # kernels (3xTF32 on wgmma at d = 64 and 128, on mma.sync at d = 512);
 # kernel B and #15 at d = 512 (the split-KV wgmma kernel and its
 # merge); #14 at d = 64 (flash_fwd_bhsd_small<64, true>); #16 at M <= 16
-# and #11 and #16 at K % 128 != 0 (w8_mm, the mma.sync main loop); C, #13
-# and #11 at M <= 16 and E's mode plain there: the GEMV entries of the line.
+# (w8_mm, the mma.sync main loop); #11 and #16 at M > 16 and K % 128 != 0
+# (w8_mm_sm90_k64, the 64-deep Hopper loop); C, #13 and #11 at M <= 16 and
+# E's mode plain there: the GEMV entries of the line.
 FP32_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_f32.cu"
 FP32_SYMBOLS = ("flash_fwd_3xtf32_sm90<64 | 128, mode> (d = 64, 128), "
                 "flash_fwd_3xtf32<mode> (d = 512)")
@@ -307,7 +315,9 @@ OTHER_SOURCES = {
                               "d64_symbols": "flash_fwd_bhsd_small<64, true>"},
     "int8_dot": {"small_m_source": W8_SMALL_SOURCE},
     **{base: {"small_m": name} for name, base in GEMVS.items()},
-    "w8_matmul": {"small_m": "w8_matmul[gemv]", "k64_source": W8_SMALL_SOURCE},
+    "w8_matmul": {"small_m": "w8_matmul[gemv]",
+                  "k64_source": "diffusionkit_tpu_torch/csrc/w8_matmul_sm90.cu",
+                  "k64_symbols": "w8_mm_sm90_k64<bf16|float>"},
 }
 COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "int4_matmul": int4_matmul, "mod_ln_quantize": mod_ln_quantize,
@@ -316,13 +326,15 @@ COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "flash_attention": flash_attention, "dequant_w8": dequant_w8, "int8_dot": int8_dot}
 # The path whose launches the kernels line reports for each kernel: the
 # slice that brought it, or for kernel C, which the w4a8 path must not run,
-# the FLUX int4 path.
+# the FLUX int4 path; #10 the FLUX w4a8 path (mode plain above 16 rows).
+# Kernel E's mode plain Hopper loop runs on no model path since that route
+# (0 launches on each, in launches_by_path): the tool path's kernel row.
 MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flux",
              "int4_matmul[gemv]": "flux", "int8_matmul[gemv]": "sd3-int8",
              "w8_matmul[gemv]": "sd3-w8a8",
              "gelu_quantize": "sd3-w8a8", "w8_matmul": "sd3-w8a8", "int8_matmul": "sd3-int8",
              "flash_attention_stats": "flux-w4a8-2048-ring", "flash_attention": "sd3-bhsd",
-             "dequant_w8": "bench-w4a8-mat", "int8_dot": "microbench-int8"}
+             "int8_dot": "microbench-int8", "w4a8_matmul[plain]": "bench-w4a8-mat"}
 # The two tool paths: each tool's run at the reference's default shape.
 TOOLS = {"bench-w4a8-mat": bench_w4a8_mat, "microbench-int8": microbench_int8}
 # Per-request launches the attention kernels must match exactly.
@@ -422,10 +434,14 @@ QUANT_RAGGED = [(1, 77, 3072), (2, 333, 2432)]
 # (M, K, N, group) of kernel E by mode on the FLUX w4a8 path: `ada` GEMVs
 # (dual and single), v/o of the image stream and the unified blocks, the
 # text stream; q/k; fc1; fc2; the quantize-at-load group 32 at one shape of
-# each mode. Ragged M (checked, not timed) in W4A8_RAGGED.
+# each mode; mode plain also at 2048²'s image and unified rows (path g).
+# Ragged M (checked, not timed) in W4A8_RAGGED. Mode plain above 16 rows:
+# kernel E's Hopper loop held against its plain version and timed, beside
+# #10 then #11, the route those shapes take (plain_ab).
 W4A8_SHAPES = {
     "plain": [(1, 3072, 18432, 64), (1, 3072, 9216, 64), (4096, 3072, 3072, 64),
-              (4352, 3072, 3072, 64), (256, 3072, 3072, 64), (4352, 3072, 3072, 32)],
+              (4352, 3072, 3072, 64), (256, 3072, 3072, 64), (4352, 3072, 3072, 32),
+              (16384, 3072, 3072, 64), (16640, 3072, 3072, 64)],
     "norm_rope": [(4096, 3072, 3072, 64), (4352, 3072, 3072, 64), (4352, 3072, 3072, 32)],
     "gelu_quant": [(4096, 3072, 12288, 64), (256, 3072, 12288, 64), (4352, 3072, 12288, 64),
                    (4352, 3072, 12288, 32)],
@@ -590,6 +606,7 @@ def reset_counts() -> None:
         fn.launches = 0
     w4a8_matmul.launches = 0
     w4a8_matmul.mode_launches = dict.fromkeys(MODES, 0)
+    w4a8_matmul.mat_launches = 0
     for fn in (int4_matmul, int8_matmul, w4a8_matmul, w8_matmul):
         fn.gemv_launches = 0
     w8_matmul.quantizing_launches = 0
@@ -598,10 +615,14 @@ def reset_counts() -> None:
 def counts() -> dict:
     out = {name: fn.launches for name, fn in COUNTED.items()}
     out.update({f"w4a8_matmul[{m}]": n for m, n in w4a8_matmul.mode_launches.items()})
+    # Mode plain's entry is kernel E's Hopper loop alone; its GEMV is [gemv].
+    out["w4a8_matmul[plain]"] -= w4a8_matmul.gemv_launches
     out.update({"int4_matmul[gemv]": int4_matmul.gemv_launches,
                 "int8_matmul[gemv]": int8_matmul.gemv_launches,
                 "w4a8_matmul[gemv]": w4a8_matmul.gemv_launches,
                 "w8_matmul[gemv]": w8_matmul.gemv_launches,
+                # mode plain's calls run as #10 then #11 (not kernel E's)
+                "w4a8_matmul[mat]": w4a8_matmul.mat_launches,
                 # of #11's GEMV launches, those of its quantizing entry
                 "w8_matmul[quantizing]": w8_matmul.quantizing_launches})
     return out
@@ -933,19 +954,64 @@ def check_w4a8_result(mode, got, want, label) -> float:
     return err
 
 
-def materialised_ms(args, label: str) -> float:
-    """Kernel E's yardstick at one plain shape: #10 dequant_w8 materialising
-    the int8 grid, then #11 w8_matmul on it, per call (the tool's mat_pl row,
-    with E's bias), checked bit-identical to E first; its device time."""
-    x8, q4, scales, zeros, ws, xs, bias = args
-    s8, z8 = scaled_affine(scales, zeros, ws)
-    run = lambda: w8_matmul(x8, dequant_w8(q4, s8, z8), ws, xs, bias)  # noqa: E731
-    ok = torch.equal(run(), w4a8_matmul(*args))
-    log(f"  dequant_w8 then w8_matmul (mat_pl) {label}: bit-identical to kernel E: "
-        f"{'ok' if ok else 'FAIL'}")
+def plain_ab(args, shape, tag: str) -> dict:
+    """Mode plain's two dataflows at one shape above 16 rows: kernel E's
+    Hopper loop (``_route="sm90"``) and #10 then #11 (``"mat"``), the routed
+    call (``w4a8_route``) checked bit-identical to E and counted as its
+    route's first; each timed warm (``device_ms`` on these inputs) and cold
+    (``bench_w4a8_mat.dataflows``: one call on each of enough layers to pass
+    100 MB, as a denoise step reads each layer once). The route must have
+    taken the faster dataflow, cold and warm."""
+    m = shape[0]
+    route = w4a8_route(m, "plain")
+    e = w4a8_matmul(*args, _route="sm90")
+    mat = w4a8_matmul.mat_launches
+    routed = w4a8_matmul(*args)
+    torch.cuda.synchronize()
+    ok = torch.equal(routed, e) and w4a8_matmul.mat_launches - mat == (route == "mat")
+    log(f"  w4a8_matmul[plain] (M, K, N, group) {shape}: routed call ({route}) bit-identical to "
+        f"kernel E's Hopper loop: {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"mat_pl {label} disagrees with kernel E")
-    return device_ms(run)
+        raise AssertionError(f"w4a8_matmul[plain] {shape}: route {route} disagrees with kernel E")
+    warm = {flow: device_ms(lambda flow=flow: w4a8_matmul(*args, _route=flow))
+            for flow in ("sm90", "mat")}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    copies = -(-int(COLD_BYTES) // bench_w4a8_mat.weight_bytes(*shape[1:])) + 1
+    fns = bench_w4a8_mat.dataflows(shape, copies, gen, torch.device("cuda"))
+    cold = {flow: device_ms_cold(fns[flow]) for flow in ("sm90", "mat")}
+    del fns
+    torch.cuda.empty_cache()
+    other = "mat" if route == "sm90" else "sm90"
+    wins = cold[route] < cold[other] and warm[route] < warm[other]
+    log(f"  w4a8_matmul[plain] (M, K, N, group) {shape} A/B: kernel E cold {cold['sm90']!r} / "
+        f"warm {warm['sm90']!r} ms, #10 then #11 cold {cold['mat']!r} / warm {warm['mat']!r} ms "
+        f"(E at {cold['sm90'] / cold['mat']!r}x / {warm['sm90'] / warm['mat']!r}x its time; "
+        f"{copies} weight copies); route {route}: "
+        f"{'the faster, ok' if wins else 'NOT the faster, FAIL'} [{tag}]")
+    if not wins:
+        raise AssertionError(f"w4a8_route sends {shape} to {route}, the slower dataflow")
+    return {"route": route, "cold_ms": cold["sm90"], "mat_ms": warm["mat"],
+            "mat_cold_ms": cold["mat"], "cold_copies": copies}
+
+
+def plain_ab_edges(tag: str) -> None:
+    """Mode plain's A/B off the FLUX paths, where ``w4a8_route``'s rule
+    reaches beyond their shapes (``bench_w4a8_mat.AB_EDGES``: 17 to 128
+    rows, groups of 128 and 256): the two dataflows' outputs bit-identical
+    and the route's the faster, cold and warm."""
+    for r in bench_w4a8_mat.ab(bench_w4a8_mat.AB_EDGES):
+        shape = r["shape"]
+        route = w4a8_route(shape[0], "plain")
+        other = "mat" if route == "sm90" else "sm90"
+        wins = all(r[f"{route}_{t}_ms"] < r[f"{other}_{t}_ms"] for t in ("cold", "warm"))
+        log(f"  w4a8_matmul[plain] (M, K, N, group) {shape} A/B: kernel E cold "
+            f"{r['sm90_cold_ms']!r} / warm {r['sm90_warm_ms']!r} ms, #10 then #11 cold "
+            f"{r['mat_cold_ms']!r} / warm {r['mat_warm_ms']!r} ms ({r['copies']} layers); outputs "
+            f"{'bit-identical' if r['same'] else 'DIFFER'}; route {route}: "
+            f"{'the faster, ok' if wins else 'NOT the faster, FAIL'} [{tag}]")
+        if not (r["same"] and wins):
+            raise AssertionError(f"w4a8_matmul[plain] {shape}: the dataflows differ or the route "
+                                 f"{route} is the slower")
 
 
 def quantize_rule(y: torch.Tensor):
@@ -1050,23 +1116,31 @@ def w4a8_kernels(gen, tag: str):
         name = f"w4a8_matmul[{mode}]"
         for shape in W4A8_SHAPES[mode] + W4A8_RAGGED[mode]:
             args, extra = w4a8_case(mode, shape, gen)
-            got = w4a8_matmul(*args, mode=mode, **extra)
+            gemv = mode == "plain" and shape[0] <= 16
+            # Kernel E's own loop: above 16 rows mode plain is routed elsewhere.
+            route = {} if gemv else {"_route": "sm90"}
+            got = w4a8_matmul(*args, mode=mode, **extra, **route)
             torch.cuda.synchronize()
             want = w4a8_matmul_plain(*args, mode=mode, **extra)
-            gemv = mode == "plain" and shape[0] <= 16
             errs["w4a8_matmul[gemv]" if gemv else name].append(
                 check_w4a8_result(mode, got, want, f"(M, K, N, group) {shape}"))
+            if mode == "plain" and not gemv and shape not in W4A8_SHAPES[mode]:
+                routed = w4a8_matmul(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(routed, got):
+                    raise AssertionError(f"w4a8_matmul[plain] {shape}: its route disagrees with E")
+                log(f"  w4a8_matmul[plain] (M, K, N, group) {shape}: routed call "
+                    f"({w4a8_route(shape[0], mode)}) bit-identical to kernel E's Hopper loop: ok")
+                del routed
             del got, want
             if shape not in W4A8_SHAPES[mode]:
                 continue
             m, k, n, group = shape
-            ms = device_ms(lambda: w4a8_matmul(*args, mode=mode, **extra))
+            ms = device_ms(lambda: w4a8_matmul(*args, mode=mode, **extra, **route))
             plain = device_ms(lambda: w4a8_matmul_plain(*args, mode=mode, **extra), reps=5)
             x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
             c_ms = device_ms(lambda: int4_matmul(x, *args[1:4]))
-            more = {}
-            if mode == "plain" and m >= 256:
-                more["mat_pl_ms"] = materialised_ms(args, label=f"{shape}")
+            more = plain_ab(args, shape, tag) if mode == "plain" and not gemv else {}
             if gemv:
                 times["w4a8_matmul[gemv]"].append(gemv_timing(
                     "w4a8_matmul[gemv]", shape, ms, plain, args[1].numel() * 4 + 8 * n * (k // group),
@@ -1075,14 +1149,15 @@ def w4a8_kernels(gen, tag: str):
                 continue
             tops = 2 * m * k * n / (ms / 1e3) / 1e12
             t = timing(name, shape, ms, plain, int4_matmul_ms=c_ms, **more)
-            mat = (f", #10 then #11 (mat_pl) {more['mat_pl_ms']!r} ms (kernel at "
-                   f"{ms / more['mat_pl_ms']!r}x its time)" if more else "")
+            mat = (f", #10 then #11 {more['mat_ms']!r} ms (kernel at {ms / more['mat_ms']!r}x "
+                   f"its time)" if more else "")
             log(f"  {name} (M, K, N, group) {shape}: kernel {ms!r} ms ({tops!r} TOP/s, "
                 f"{args[1].numel() * 4 / ms / 1e9!r} TB/s of packed weight), plain {plain!r} ms, "
                 f"kernel C at this shape {c_ms!r} ms{mat}, {bound_note(t)} [{tag}]")
             times[name].append(t)
             del args, extra, x
         torch.cuda.empty_cache()
+    plain_ab_edges(tag)
     return errs, times
 
 
@@ -1546,10 +1621,12 @@ def fp32_flash_kernels(gen, tag: str):
 
 
 # (K, N, group) of #10: FLUX fc1, fc2 and q/k/v/o at group 64, and q/k/v/o
-# at the quantize-at-load group 32.
+# at the quantize-at-load group 32. Timed cold (one call on each of enough
+# weight copies to pass 100 MB, the number held against the bound: the path
+# reads each layer's words once a step) and warm.
 DEQUANT_SHAPES = [(3072, 12288, 64), (12288, 3072, 64), (3072, 3072, 64), (3072, 3072, 32)]
-# #10 then #11 against kernel E on FLUX fc1's layer, at the unified blocks'
-# 4352 rows and a ragged M.
+# #10 then #11 against kernel E's Hopper loop on FLUX fc1's layer, at the
+# unified blocks' 4352 rows and a ragged M.
 MATERIALIZED_M = (4352, 77)
 # (M, K, N) of #16: the microbench's default (timed), M = 1 (timed) and a
 # ragged M (checked, not timed).
@@ -1583,7 +1660,8 @@ def w8_tool_kernels(gen, tag: str):
                 x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
                 xs = (torch.rand(m, 1, generator=gen, device=dev) + 0.5) / (127 * k**0.5)
                 args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, bias)
-                fused, fused_plain = w4a8_matmul(*args), w4a8_matmul_plain(*args)
+                fused = w4a8_matmul(*args, _route="sm90")
+                fused_plain = w4a8_matmul_plain(*args)
                 mat = w8_matmul(x8, got, layer.wscale, xs, bias)
                 torch.cuda.synchronize()
                 ok = torch.equal(mat, fused) and torch.equal(mat, fused_plain)
@@ -1592,11 +1670,18 @@ def w8_tool_kernels(gen, tag: str):
                 if not ok:
                     raise AssertionError(f"#10 then #11 at M {m} disagrees with kernel E")
                 del x8, xs, args, fused, fused_plain, mat
-        ms = device_ms(lambda: dequant_w8(layer.q4, s8, z8))
+        warm = device_ms(lambda: dequant_w8(layer.q4, s8, z8))
         plain = device_ms(lambda: dequant_w8_plain(layer.q4, s8, z8), reps=5)
-        t = timing("dequant_w8", shape, ms, plain, library_ms=None)
-        moved = k * n // 2 + 8 * (k // group) * n + k * n
-        log(f"  dequant_w8 (K, N, group) {shape}: kernel {ms!r} ms ({moved / ms / 1e9!r} TB/s), "
+        copies = -(-int(COLD_BYTES) // bench_mat.weight_bytes("dequant", shape)) + 1
+        fns = bench_mat.calls("dequant", shape, copies, torch.Generator(device="cuda").manual_seed(3),
+                              dev)["dequant_w8"]
+        ms = device_ms_cold(fns)
+        del fns
+        t = timing("dequant_w8", shape, ms, plain, library_ms=None, warm_ms=warm,
+                   cold_copies=copies)
+        moved = bench_mat.moved_bytes("dequant", shape)
+        log(f"  dequant_w8 (K, N, group) {shape}: kernel cold {ms!r} ms ({moved / ms / 1e9!r} "
+            f"TB/s; {copies} weight copies), warm {warm!r} ms ({moved / warm / 1e9!r} TB/s), "
             f"plain {plain!r} ms, no single PyTorch call, {bound_note(t)} [{tag}]")
         times["dequant_w8"].append(t)
         del layer, got, want
@@ -1799,10 +1884,11 @@ def reference_checks(gen) -> None:
                 gen, quantize_bits=4)
     # The same at w4a8: per dual block plain 8 (ada x2, v and o of the image
     # stream, the text stream's q/k/v/o), norm_rope 2, gelu_quant 2,
-    # grouped_xs 2; per single block 3 (ada, v, o), 2, 1, 1; kernel D before
-    # each ada and o; kernel A' at each quantizing AdaLN site; kernel A in
-    # the final layer only; no kernel C.
-    want = per_block_w4a8(1, 2)
+    # grouped_xs 2; per single block 3 (ada, v, o), 2, 1, 1; mode plain
+    # above 16 rows on #10 then #11; kernel D before each ada and o; kernel
+    # A' at each quantizing AdaLN site; kernel A in the final layer only; no
+    # kernel C.
+    want = per_block_w4a8(1, 2, 1024, 256)
     want.update({"mod_ln": 1, "flash_attention_bshd": 3})
     mmdit_check(flux, inputs, want,
                 "FLUX.1-schnell w4a8 MMDiT 1 dual + 2 single blocks x hidden 3072, 512²",
@@ -1842,10 +1928,18 @@ def t5_trained_scales_(model: T5Encoder, gen) -> None:
     model.relative_attention_bias.weight.normal_(0.0, c.d_model**-0.5, generator=gen)
 
 
-def per_block_w4a8(dual: int, uni: int) -> dict:
-    """Launches of the w4a8 kernels in one forward of dual + uni blocks (of
-    mode plain's, the `ada` GEMVs at M = 1: two a dual block, one a single)."""
-    return {"w4a8_matmul[plain]": 8 * dual + 3 * uni, "w4a8_matmul[gemv]": 2 * dual + uni,
+def per_block_w4a8(dual: int, uni: int, img: int, txt: int) -> dict:
+    """Launches of the w4a8 kernels in one forward of dual + uni blocks over
+    img image and txt text rows (batch 1). Mode plain's calls: the `ada`
+    GEMVs at M = 1 (two a dual block, one a single), v and o of the image
+    stream (img rows), the text stream's q/k/v/o (txt), a single block's v
+    and o (img + txt); each on its ``w4a8_route``: kernel E's GEMV, its
+    Hopper loop (``w4a8_matmul[plain]``) or #10 then #11
+    (``w4a8_matmul[mat]``, one launch of each)."""
+    calls = ((img, 2 * dual), (txt, 4 * dual), (img + txt, 2 * uni))
+    mat = sum(n for m, n in calls if w4a8_route(m, "plain") == "mat")
+    return {"w4a8_matmul[plain]": 6 * dual + 2 * uni - mat, "w4a8_matmul[gemv]": 2 * dual + uni,
+            "w4a8_matmul[mat]": mat, "dequant_w8": mat, "w8_matmul": mat,
             "w4a8_matmul[norm_rope]": 2 * dual + 2 * uni,
             "w4a8_matmul[gelu_quant]": 2 * dual + uni, "w4a8_matmul[grouped_xs]": 2 * dual + uni,
             "quantize": 4 * dual + 2 * uni, "mod_ln_quantize": 4 * dual + uni}
@@ -1856,8 +1950,9 @@ def per_request_launches(path: Path, cfg) -> dict:
     one flash call per block, the AdaLN sites (4 a dual block with a text
     MLP, 3 in SD3's K/V-only last block, 1 a single-stream block, 1 the final
     layer), and for the int4 model the 7 block linears of each stream
-    (q, k, v, o, fc1, fc2, ada); for the w4a8 model per_block_w4a8 and
-    kernel A in the final layer only; for SD3 per_forward_sd3 by mode; plus
+    (q, k, v, o, fc1, fc2, ada); for the w4a8 model per_block_w4a8 (mode
+    plain above 16 rows on #10 then #11) and kernel A in the final layer
+    only; for SD3 per_forward_sd3 by mode; plus
     the VAE mid-block's attention, and with the w8a8 T5 its 7 products and
     4 quantizations a layer. Under the bhsd switch (a') every attention
     takes #15 instead of kernel B; through the ring (g) every joint
@@ -1877,11 +1972,12 @@ def per_request_launches(path: Path, cfg) -> dict:
                 "flash_attention_bshd": path.steps * (dual + uni) + 1,
                 "int4_matmul": path.steps * (2 * 7 * dual + 7 * uni),
                 "int4_matmul[gemv]": path.steps * (2 * dual + uni)}
-    per = {k: path.steps * v for k, v in per_block_w4a8(dual, uni).items()}
+    img = (path.latent[0] // 2) * (path.latent[1] // 2)  # 2 x 2 latent patches a token
+    per = {k: path.steps * v for k, v in per_block_w4a8(dual, uni, img, path.txt_tokens).items()}
     per.update({"mod_ln": path.steps, "int4_matmul": 0,
                 "flash_attention_bshd": path.steps * (dual + uni) + 1})
     if path.name == FLUX_E2E.name:
-        per["w8_matmul"] = 7 * T5_LAYERS
+        per["w8_matmul"] += 7 * T5_LAYERS
         per["quantize"] += 4 * T5_LAYERS
     if path.name == FLUX_RING.name:
         per["flash_attention_stats"] = path.steps * (dual + uni)
@@ -2176,11 +2272,11 @@ SCALE_FIRST = re.compile(r"flash_fwd_(?:wide|sm90)(?:<\d+, true>|ILi\d+ELb1E)"
                          r"|flash_(?:fwd_wide_sm90|wide_merge)(?:<true>|ILb1E)")
 # The fp32 kernels, flash_fwd_3xtf32_sm90<D, mode> and flash_fwd_3xtf32<mode>
 # (and flash_fwd_f32<D, mode> of earlier builds): 0 kernel B, 1 #15, 2 #14;
-# #16 is w8_mm_sm90<int, BN> (M > 16) or w8_mm<int, ...>, #11 the same
-# templates with a bf16 or float output.
+# #16 is w8_mm_sm90<int, BN> or w8_mm_sm90_k64<int> (M > 16) or
+# w8_mm<int, ...>, #11 the same templates with a bf16 or float output.
 FP32_MODE = re.compile(r"flash_fwd_(?:f32|3xtf32(?:_sm90)?)"
                        r"(?:<(?:\d+, )?(\d)>|I(?:Li\d+E)?Li(\d)E)")
-INT8_DOT_KERNEL = re.compile(r"w8_mm(?:_sm90)?(?:<int,|IiLi)")
+INT8_DOT_KERNEL = re.compile(r"w8_mm(?:_sm90)?(?:_k64)?(?:<int[,>]|Ii[LE])")
 # The M <= 16 GEMVs of C, #13, E and #11: int4_gemv, int8_gemv, w4a8_gemv,
 # w8_gemv<XT, OutT>.
 GEMV_KERNEL = re.compile(r"(int4|int8|w4a8|w8)_gemv")
@@ -2278,10 +2374,12 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
 # The redesigned kernels, held to 0 spill bytes (and, with the rest, to no
 # C7512, "wgmma serialized"): the d = 512 wgmma kernel and its merge, the
 # 3xTF32 fp32 flash kernels, the Hopper main loops of E, C and #13, the
-# M <= 16 GEMVs of C, #13, E and #11, and the row kernels A', D and #4.
+# M <= 16 GEMVs of C, #13, E and #11, the row kernels A', D and #4, #11's
+# 64-deep Hopper loop and #10.
 NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32", "w4a8_mm_sm90",
             "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv", "w8_gemv",
-            "mod_ln_quant_kernel", "quantize_kernel", "gelu_quantize_kernel")
+            "mod_ln_quant_kernel", "quantize_kernel", "gelu_quantize_kernel", "w8_mm_sm90_k64",
+            "dequant_w8_kernel")
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")
@@ -2347,8 +2445,8 @@ def main() -> None:
     vae_2048 = flash_vae_2048(gen, tag)
     errs["flash_attention_bshd"].append(vae_2048["flash_attention_bshd"][0])
     times["flash_attention_bshd"].append(vae_2048["flash_attention_bshd"][1])
-    log("phase 3-4b: the w4a8 kernels against their plain versions on the card, and their "
-        "device times")
+    log("phase 3-4b: the w4a8 kernels against their plain versions on the card, their device "
+        "times, and mode plain's two dataflows at the paths' shapes and off them")
     w_errs, w_times = w4a8_kernels(gen, tag)
     errs.update(w_errs)
     times.update(w_times)
@@ -2436,6 +2534,8 @@ def main() -> None:
     for name, (source, replaces) in KERNELS.items():
         first = times[name][0]  # the main path's first shape
         main_path = MAIN_PATH.get(name, FLUX_W4A8.name)
+        if launches[main_path][name] == 0:
+            raise AssertionError(f"{name} was launched no time on its main path {main_path}")
         summary.append({
             "name": name, "route": "cuda", "source": source, "symbol": SYMBOLS[name],
             "replaces": replaces,

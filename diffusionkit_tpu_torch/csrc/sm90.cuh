@@ -172,6 +172,15 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// The same for an operand stored as TMA's 64-byte swizzle writes it: 64-byte
+// rows, 8-row atoms of 512 bytes, the tile's base 512-byte aligned; K-major:
+// sbo = 512 between 8-row groups, lbo unused; a k32 step of int8 adds 32
+// bytes to `addr`.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
+
 // m64nNk16, bf16 inputs, fp32 accumulators. Accumulator fragment of thread
 // l of warp w (g = l / 4, t = l % 4): d[4j], d[4j+1] are row 16w + g,
 // columns 8j + 2t and 8j + 2t + 1; d[4j+2], d[4j+3] row 16w + g + 8.

@@ -27,47 +27,66 @@
 // (0.064 ms).
 //
 // Main loops, by shape (`dispatch`):
-//  * M > 16 and K % 128 == 0, every main-path shape but the GEMVs and the
-//    SD3 x_embedder: w8_matmul_sm90.cu's `w8_mm_sm90` (TMA, int8 wgmma,
-//    warp-specialised; its own note).
+//  * M > 16: w8_matmul_sm90.cu (TMA, int8 wgmma; its own note): at K %
+//    128 == 0, every main-path shape but the GEMVs and the SD3 x_embedder,
+//    the warp-specialised `w8_mm_sm90`; at K % 128 == 64 (the x_embedder's
+//    K = 64) `w8_mm_sm90_k64`, 64-deep k stages and the output tile stored
+//    from shared memory.
 //  * #11 at M <= 16 with K and N multiples of 128 (the `ada` and embedder
 //    GEMVs): the wrapper sends them to gemv_sm90.cu's split-K `w8_gemv`
 //    instead, and the calls whose x is float there too, quantized in it.
-//  * M <= 16 (#16, and #11's other shapes) and K % 128 != 0 (the
-//    x_embedder's K = 64): `w8_mm` here, kernel E's `plain` main loop
-//    without the requantisation. 256 threads (8 warps), warp tiles of 16 x 16 (M <= 16:
-//    BM = 16), 16 x 64 (BM = 64) or 32 x 64 (BM = BN = 128); BK = 128 k per
-//    tile (64 where K is not a multiple of 128). cp.async stages the x8 and
-//    w8 tiles (16-byte chunks; rows past M and N zero-filled, so no padded
-//    copies) into a double buffer of [row][k] tiles padded to BK + 16
-//    bytes, bank-conflict free for ldmatrix, which gives the m16n8k32 s8
-//    fragments of both operands directly (both are k-contiguous). The
-//    ragged M and N edges are masked at the store. At M <= 16 the tile
-//    reads w8 once at about half the memory rate (L2 warm); the wgmma
-//    kernel's 64-row products would waste 3/4 of their work there.
+//  * M <= 16 otherwise (#16, and #11's other shapes): `w8_mm` here, kernel
+//    E's old `plain` main loop without the requantisation. 256 threads (8
+//    warps), warp tiles of 16 x 16; BK = 128 k per tile (64 where K is not
+//    a multiple of 128). cp.async stages the x8 and w8 tiles (16-byte
+//    chunks; rows past M and N zero-filled, so no padded copies) into a
+//    double buffer of [row][k] tiles padded to BK + 16 bytes, bank-conflict
+//    free for ldmatrix, which gives the m16n8k32 s8 fragments of both
+//    operands directly (both are k-contiguous). The ragged N edge is masked
+//    at the store. The tile reads w8 once at about half the memory rate (L2
+//    warm); the wgmma kernel's 64-row products would waste 3/4 of their
+//    work there.
 //
 // #10 replaces diffusionkit_tpu/ops/w4a8_matmul.py:dequant_w8_pallas: packed
 // int4 words (K/8, N) (int32 bit views, shifted as unsigned) and the group
 // affine already divided by wscale, s8 and z8 fp32 (K/g, N), to the int8
 // grid clip(rne(q * s8 + z8), -127, 127), written as (N, K), the layout #11,
 // #16 and torch._int_mm(x8, w8.t()) read. The grid is kernel E's in-tile
-// requantisation bit for bit: the same device function (common.cuh
-// requant_word, __fmul_rn then __fadd_rn; nvcc's default -fmad=true would
-// contract a plain q * s8 + z8 into one FMA and round ties differently).
-// Memory-bound: at FLUX fc1 (K, N, g) = (3072, 12288, 64) it reads 18.9 MB
-// of words and 4.7 MB of s8/z8 and writes 37.7 MB, 0.018 ms at 3.35 TB/s.
-// A block takes 16 word rows (128 k) x 64 columns: words are read along N
-// (two 64-byte rows a warp), requantised into a shared [n][k] tile (144-byte
-// rows, lanes alternating between two word rows as in kernel E, so the
-// 8-byte stores are conflict free), then written along K, 16 lanes to one
-// 128-byte row segment. Any group that divides K (a word straddling two
-// groups is requantised nibble by nibble); K % 8 == 0.
+// requantisation bit for bit: its table (common.cuh requant_lut, the 16
+// values requant_nibble gives q = 0..15, __fmul_rn then __fadd_rn; nvcc's
+// default -fmad=true would contract a plain q * s8 + z8 into one FMA and
+// round ties differently), or requant_word and requant_nibble themselves.
+// The FLUX w4a8 path runs it before #11 on every plain linear of more than
+// 16 rows (ops/w4a8_matmul.py w4a8_route), as the reference's tool
+// materialises it.
+// Bound by its bytes: at FLUX fc1 (K, N, g) = (3072, 12288, 64) it reads
+// 18.9 MB of words and 4.7 MB of s8/z8 and writes 37.7 MB, 0.018 ms at 3.35
+// TB/s; about 3 instructions a grid byte by table, a fifth of that time at
+// the card's issue rate. So the design keeps the memory busy both ways:
+//  * a block of 128 threads takes 256 k x 128 columns: a warp 8 word rows
+//    (one 64-k slot), a lane 4 columns, so each word load is 16 bytes and
+//    a warp's 512 contiguous; the slot's s8 and z8 (one 16-byte load each
+//    per group and 4 columns: once per (group, column) at a group of 64 or
+//    more), then all 8 of a lane's word loads, are issued before the first
+//    requantisation. 32 KB of shared memory and ~20 KB of loads in
+//    flight a block, several blocks an SM;
+//  * a group's 16 grid values are computed once per lane and column
+//    (requant_lut), each word then looked up (lut_word); groups of 32 take
+//    two tables a slot, other groups requant_word (and requant_nibble where
+//    a group straddles a word) with the affine read per word;
+//  * the tile goes through shared memory, [n][k] with an XOR swizzle of its
+//    16-byte chunks, and leaves as whole 256-byte row segments, 16 lanes a
+//    segment, in 16-byte stores (8-byte where K % 16 == 8), a column of
+//    the lanes' 4 at a time, so the stores start after a quarter of the
+//    requantisation (at 3072², one wave of 288 blocks, the loads, tables
+//    and stores would otherwise run in series).
+// Any group that divides K; K and N multiples of 8.
 
 #include <type_traits>
 
 #include "common.cuh"
 
-// #11 and #16 at M > 16, K % 128 == 0: csrc/w8_matmul_sm90.cu.
+// #11 and #16 at M > 16: csrc/w8_matmul_sm90.cu.
 int dk_w8_mm_sm90(int out_type, const void* x8, const void* w8, const void* wscale,
                   const void* xscale, const void* bias, void* y, int M, int N, int K,
                   cudaStream_t st);
@@ -210,15 +229,7 @@ int launch(const void* x8, const void* w8, const void* wscale, const void* xscal
   return (int)cudaGetLastError();
 }
 
-template <typename OutT, int BK>
-int dispatch_m(const void* x8, const void* w8, const void* wscale, const void* xscale,
-               const void* bias, void* y, int M, int N, int K, cudaStream_t st) {
-  if (M <= 16) return launch<OutT, BK, 1, 1, 2>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
-  if (M <= 512) return launch<OutT, BK, 4, 1, 8>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
-  return launch<OutT, BK, 4, 2, 8>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
-}
-
-// The Hopper main loop's output type code (w8_matmul_sm90.cu).
+// The Hopper main loops' output type code (w8_matmul_sm90.cu).
 template <typename OutT>
 constexpr int sm90_out_type() {
   return std::is_same<OutT, bf16>::value ? 0 : std::is_same<OutT, float>::value ? 1 : 2;
@@ -229,60 +240,146 @@ int dispatch(const void* x8, const void* w8, const void* wscale, const void* xsc
              const void* bias, void* y, int M, int N, int K, void* stream) {
   if (M <= 0 || N <= 0 || N % 8 || K <= 0 || K % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K % 128 == 0) {
-    if (M <= 16) return launch<OutT, 128, 1, 1, 2>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
+  if (M > 16)
     return dk_w8_mm_sm90(sm90_out_type<OutT>(), x8, w8, wscale, xscale, bias, y, M, N, K, st);
-  }
-  return dispatch_m<OutT, 64>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
+  if (K % 128 == 0)
+    return launch<OutT, 128, 1, 1, 2>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
+  return launch<OutT, 64, 1, 1, 2>(x8, w8, wscale, xscale, bias, y, M, N, K, st);
 }
 
-// #10: a tile of DQ_KW word rows (8 * DQ_KW k) x DQ_N columns.
-constexpr int DQ_KW = 16, DQ_N = 64;
-constexpr int DQ_LD = 8 * DQ_KW + 16;  // padded shared [n][k] rows (bytes)
+// #10: a block of DQ_THREADS threads takes DQ_KW word rows (8 * DQ_KW k)
+// x DQ_N columns; warp w the slot of 8 word rows (64 k) at 8w, lane l the 4
+// columns at 4l, one column c at a time. The requantised tile is staged in
+// shared memory as [n][k], 8 * DQ_KW bytes a row in 16-byte chunks, chunk
+// ch of row r at ch ^ ((r / 4) % 8): a lane's 16-byte stores (rows 4l + c)
+// and a quarter-warp's 16-byte reads (8 chunks of one row) then each meet
+// 8 distinct bank groups. Column c's 32 rows leave while column c + 1 is
+// requantised.
+constexpr int DQ_THREADS = 128, DQ_SLOT = 8;     // word rows a warp
+constexpr int DQ_KW = DQ_THREADS / 32 * DQ_SLOT;  // 32 word rows: 256 k
+constexpr int DQ_N = 4 * 32;                      // 128 columns
+constexpr int DQ_CHUNKS = 8 * DQ_KW / 16;         // 16-byte chunks of a grid row
 
-__global__ void __launch_bounds__(NTHREADS)
+// How the group affine falls on a slot's word rows: one group (the group a
+// multiple of the slot's 8 * DQ_SLOT k), two (half of it), or looked up word
+// by word, nibble by nibble where a group straddles a word (any other group
+// that divides K).
+enum DqGroups { kDqOneGroup, kDqTwoGroups, kDqAnyGroup };
+
+// `wscale` null: s8 and z8 are the affine on the int8 grid. Else they are
+// the layer's group scales and zeros, put on the grid here as
+// scaled_affine does it: s * (1 / wscale), the reciprocal and the product
+// each correctly rounded (x * 1 is x, so one code path serves both).
+template <int G>
+__global__ void __launch_bounds__(DQ_THREADS)
     dequant_w8_kernel(const uint32_t* __restrict__ q4, const float* __restrict__ s8,
-                      const float* __restrict__ z8, int8_t* __restrict__ w8, int N, int K,
-                      int group) {
-  static_assert(DQ_KW == 2 * (NTHREADS / 32), "8 warps x 2 word rows");
-  __shared__ __align__(16) int8_t tile[DQ_N * DQ_LD];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kw0 = blockIdx.y * DQ_KW, n0 = blockIdx.x * DQ_N;
+                      const float* __restrict__ z8, const float* __restrict__ wscale,
+                      int8_t* __restrict__ w8, int N, int K, int group) {
+  __shared__ uint4 tile[DQ_N * DQ_CHUNKS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int KW = K / 8;
-  const int r = 2 * warp + (lane & 1);  // this lane's word row in the tile
-  const int kw = kw0 + r;
+  const int kwt = blockIdx.y * DQ_KW;  // the tile's first word row
+  const int kw0 = kwt + DQ_SLOT * warp;
+  const int n0 = blockIdx.x * DQ_N, n = n0 + 4 * lane;
+  const bool live = n < N && kw0 < KW;  // N % 8 == 0: the 4 columns are whole
+
+  // Every load first: the affine of the slot's groups (its tables can be
+  // built while the words arrive), then the slot's 8 words of 4 columns
+  // (16 bytes a row, a warp 512 contiguous bytes).
+  constexpr int NG = G == kDqOneGroup ? 1 : 2;
+  float4 s[NG], z[NG];
 #pragma unroll
-  for (int c = lane >> 1; c < DQ_N; c += 16) {
-    const int n = n0 + c;
-    uint2 bytes = make_uint2(0u, 0u);
-    if (kw < KW && n < N) {
-      const uint32_t w = q4[(long long)kw * N + n];
-      const int k = 8 * kw;
-      if (k / group == (k + 7) / group) {  // one group: kernel E's requant_word
-        const long long s = (long long)(k / group) * N + n;
-        bytes = dk::requant_word(w, s8[s], z8[s]);
-      } else {
-        uint32_t b[8];
+  for (int i = 0; i < NG; ++i) {
+    const int kw = kw0 + DQ_SLOT / 2 * i;  // kDqTwoGroups: the slot's halves
+    const bool on = G != kDqAnyGroup && live && kw < KW;
+    const long long at = on ? (long long)(8 * kw / group) * N + n : 0;
+    s[i] = on ? __ldg(reinterpret_cast<const float4*>(s8 + at)) : make_float4(0, 0, 0, 0);
+    z[i] = on ? __ldg(reinterpret_cast<const float4*>(z8 + at)) : make_float4(0, 0, 0, 0);
+  }
+  const float4 ws = wscale != nullptr && live ? __ldg(reinterpret_cast<const float4*>(wscale + n))
+                                              : make_float4(1.f, 1.f, 1.f, 1.f);
+  uint4 w[DQ_SLOT];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const long long s = (long long)((k + j) / group) * N + n;
-          b[j] = dk::requant_nibble(w, j, s8[s], z8[s]);
+  for (int j = 0; j < DQ_SLOT; ++j)
+    w[j] = live && kw0 + j < KW
+               ? __ldg(reinterpret_cast<const uint4*>(q4 + (long long)(kw0 + j) * N + n))
+               : make_uint4(0u, 0u, 0u, 0u);
+
+  const int bytes = min(8 * DQ_KW, 8 * (KW - kwt));  // of each grid row in the tile
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint2 b[DQ_SLOT];  // column n + c's 8 words: 64 bytes of grid row n + c
+    const float rw = wscale != nullptr ? __fdiv_rn(1.f, (&ws.x)[c]) : 1.f;
+    if constexpr (G == kDqAnyGroup) {
+#pragma unroll
+      for (int j = 0; j < DQ_SLOT; ++j) {
+        const int k = 8 * (kw0 + j);
+        const uint32_t wj = (&w[j].x)[c];
+        b[j] = make_uint2(0u, 0u);
+        if (!live || kw0 + j >= KW) continue;
+        if (k / group == (k + 7) / group) {  // one group: kernel E's requant_word
+          const long long at = (long long)(k / group) * N + n + c;
+          b[j] = dk::requant_word(wj, __fmul_rn(s8[at], rw), __fmul_rn(z8[at], rw));
+        } else {
+          uint32_t v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const long long at = (long long)((k + e) / group) * N + n + c;
+            v[e] = dk::requant_nibble(wj, e, __fmul_rn(s8[at], rw), __fmul_rn(z8[at], rw));
+          }
+          b[j] = make_uint2(dk::pack_i8x4(v[0], v[1], v[2], v[3]),
+                            dk::pack_i8x4(v[4], v[5], v[6], v[7]));
         }
-        bytes = make_uint2(dk::pack_i8x4(b[0], b[1], b[2], b[3]),
-                           dk::pack_i8x4(b[4], b[5], b[6], b[7]));
+      }
+    } else {
+      // The group's 16 grid values once (requant_lut: requant_nibble's
+      // bytes), then each word by table.
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        const uint4 t =
+            dk::requant_lut(__fmul_rn((&s[i].x)[c], rw), __fmul_rn((&z[i].x)[c], rw));
+#pragma unroll
+        for (int j = i * DQ_SLOT / NG; j < (i + 1) * DQ_SLOT / NG; ++j)
+          b[j] = dk::lut_word(t, (&w[j].x)[c]);
       }
     }
-    *reinterpret_cast<uint2*>(&tile[c * DQ_LD + 8 * r]) = bytes;
+    const int r = 4 * lane + c;
+#pragma unroll
+    for (int h = 0; h < DQ_SLOT / 2; ++h)
+      tile[r * DQ_CHUNKS + ((DQ_SLOT / 2 * warp + h) ^ (lane & 7))] =
+          make_uint4(b[2 * h].x, b[2 * h].y, b[2 * h + 1].x, b[2 * h + 1].y);
+    __syncthreads();
+
+    // Column c's grid rows (4l + c) out while the next column is
+    // requantised: 16 lanes a row segment of 8 * DQ_KW contiguous bytes
+    // (16-byte stores; 8-byte where K % 16 == 8), the ragged edges masked.
+#pragma unroll
+    for (int it = 0; it < 32 * DQ_CHUNKS / DQ_THREADS; ++it) {
+      const int idx = it * DQ_THREADS + threadIdx.x;
+      const int l = idx / DQ_CHUNKS, ch = idx % DQ_CHUNKS, rr = 4 * l + c;
+      if (n0 + rr >= N || 16 * ch >= bytes) continue;
+      const uint4 v = tile[rr * DQ_CHUNKS + (ch ^ (l & 7))];
+      int8_t* dst = w8 + (long long)(n0 + rr) * K + 8 * kwt + 16 * ch;
+      if ((K & 15) == 0) {
+        *reinterpret_cast<uint4*>(dst) = v;
+      } else {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(v.x, v.y);
+        if (16 * ch + 8 < bytes) *reinterpret_cast<uint2*>(dst + 8) = make_uint2(v.z, v.w);
+      }
+    }
   }
-  __syncthreads();
-  const int chunks = min(DQ_KW, KW - kw0);  // valid 8-byte chunks of each row
-  for (int c = tid; c < DQ_N * DQ_KW; c += NTHREADS) {
-    const int row = c / DQ_KW, ch = c % DQ_KW;
-    const int n = n0 + row;
-    if (n < N && ch < chunks)
-      *reinterpret_cast<uint2*>(w8 + (long long)n * K + 8 * (kw0 + ch)) =
-          *reinterpret_cast<const uint2*>(&tile[row * DQ_LD + 8 * ch]);
-  }
+}
+
+template <int G>
+int launch_dequant(const void* q4, const void* s8, const void* z8, const void* wscale, void* w8,
+                   int K, int N, int group, cudaStream_t st) {
+  const dim3 grid((N + DQ_N - 1) / DQ_N, (K / 8 + DQ_KW - 1) / DQ_KW);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  dequant_w8_kernel<G><<<grid, DQ_THREADS, 0, st>>>(
+      static_cast<const uint32_t*>(q4), static_cast<const float*>(s8),
+      static_cast<const float*>(z8), static_cast<const float*>(wscale),
+      static_cast<int8_t*>(w8), N, K, group);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -305,15 +402,18 @@ extern "C" int dk_int8_dot(const void* x8, const void* w8, void* y, int M, int N
   return dispatch<int>(x8, w8, nullptr, nullptr, nullptr, y, M, N, K, stream);
 }
 
-// #10: q4 (K/8, N) words, s8/z8 (K/g, N) fp32 -> w8 (N, K) int8;
-// g divides K, K % 8 == 0.
-extern "C" int dk_dequant_w8(const void* q4, const void* s8, const void* z8, void* w8, int K,
-                             int N, int group, void* stream) {
-  if (K <= 0 || N <= 0 || K % 8 || group <= 0 || K % group) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + DQ_N - 1) / DQ_N, (K / 8 + DQ_KW - 1) / DQ_KW);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  dequant_w8_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(q4), static_cast<const float*>(s8),
-      static_cast<const float*>(z8), static_cast<int8_t*>(w8), N, K, group);
-  return (int)cudaGetLastError();
+// #10: q4 (K/8, N) words, s8/z8 (K/g, N) fp32 -> w8 (N, K) int8; with
+// wscale (N,) not null, s8/z8 are the layer's scales and zeros, divided by
+// wscale here. g divides K, K % 8 == 0, N % 8 == 0, every pointer 16-byte
+// aligned.
+extern "C" int dk_dequant_w8(const void* q4, const void* s8, const void* z8, const void* wscale,
+                             void* w8, int K, int N, int group, void* stream) {
+  if (K <= 0 || N <= 0 || K % 8 || N % 8 || group <= 0 || K % group)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group % (8 * DQ_SLOT) == 0)
+    return launch_dequant<kDqOneGroup>(q4, s8, z8, wscale, w8, K, N, group, st);
+  if (group == 4 * DQ_SLOT)
+    return launch_dequant<kDqTwoGroups>(q4, s8, z8, wscale, w8, K, N, group, st);
+  return launch_dequant<kDqAnyGroup>(q4, s8, z8, wscale, w8, K, N, group, st);
 }

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "dk_w8_matmul_f32": [_P] * 6 + [_I, _I, _I, _P],
     "dk_w8_gemv": [_P, _I] + [_P] * 5 + [_I] * 5 + [_P],
     "dk_int8_dot": [_P, _P, _P, _I, _I, _I, _P],
-    "dk_dequant_w8": [_P] * 4 + [_I, _I, _I, _P],
+    "dk_dequant_w8": [_P] * 5 + [_I, _I, _I, _P],
     "dk_mod_ln_quant_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
     "dk_mod_ln_quant_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
     "dk_quantize_bf16": [_P, _P, _P, _I, _I, _P],

@@ -17,15 +17,21 @@ The packed int4 weight is requantised per tile onto the per-channel int8
 grid ``w8 = clip(round_half_even(q * s8 + z8), -127, 127)``, with
 ``s8 = scales * (1 / wscale)`` and ``z8 = zeros * (1 / wscale)``, each a
 separately rounded fp32 operation (``requant_w8_plain`` is the reference's
-``dequant_w8``). Two CUDA main loops run it, picked by ``w4a8_route``: mode
-plain at M <= 16 (the ``ada`` GEMVs) the split-K GEMV of
-``csrc/gemv_sm90.cu`` (kernel C's, ``int4_matmul.gemv_splits`` blocks along
-K), everything else ``csrc/w4a8_matmul_sm90.cu`` (TMA, int8
-``wgmma``, the requantisation beside the products); the notes there say
-what bounds each and how it is tiled.
+``dequant_w8``). ``w4a8_route`` picks the dataflow: mode plain at M <= 16
+(the ``ada`` GEMVs) the split-K GEMV of ``csrc/gemv_sm90.cu`` (kernel C's,
+``int4_matmul.gemv_splits`` blocks along K); mode plain above 16 rows the
+reference's materialised dataflow, #10 ``dequant_w8`` then #11
+``w8_matmul`` (the grid written once a call, then a requant-free int8
+product), which the card's A/B found faster at every shape it timed
+(``w4a8_route``); the other three modes ``csrc/w4a8_matmul_sm90.cu`` (TMA, int8
+``wgmma``, the requantisation beside the products), which also still
+takes mode plain at any M when asked (the private ``_route="sm90"``, by
+which the tests and tools hold it); the notes in the sources say what
+bounds each and how it is tiled.
 
-``w4a8_matmul`` launches the kernel for a CUDA tensor (counting launches per
-mode) and raises on what it does not take; a CPU tensor goes to
+``w4a8_matmul`` launches the kernel for a CUDA tensor (counting kernel E's
+launches per mode, and the calls it routes to #10 then #11 in
+``mat_launches``) and raises on what it does not take; a CPU tensor goes to
 ``w4a8_matmul_plain``, the same math in plain torch with the int32 product
 computed exactly. The reference's TPU tile pickers (``_pick_kn_blocks``,
 ``pick_m_block``) and its N padding (``_maybe_pad_n``, bit-identical by its
@@ -36,16 +42,17 @@ the w8a8 linear's product: an int8 (N, K) weight grid, ``y = (x8 @ w8^T) *
 xscale * wscale + bias``, the epilogue in that order with the int32
 accumulator kept on chip. ``w8_route`` picks its main loop: at M <= 16
 with K a multiple of 256 and N of 64 (the `ada` and embedder projections)
-the GEMV of ``csrc/gemv_sm90.cu``; at M > 16 and K % 128 == 0
-``csrc/w8_matmul_sm90.cu`` (TMA-fed int8 ``wgmma``); ``csrc/w8_matmul.cu``
-otherwise. ``quantize_w8_matmul`` is the GEMV's quantizing entry: a float x
-quantized in the kernel, bit for bit kernel D then #11, so the `ada`
-projections of a w8a8 model need no launch of D. ``w8_matmul_plain`` and
+the GEMV of ``csrc/gemv_sm90.cu``; at M > 16 ``csrc/w8_matmul_sm90.cu``
+(TMA-fed int8 ``wgmma``; 64-deep k stages where K % 128 == 64);
+``csrc/w8_matmul.cu`` otherwise. ``quantize_w8_matmul`` is the GEMV's
+quantizing entry: a float x quantized in the kernel, bit for bit kernel D
+then #11, so the `ada` projections of a w8a8 model need no launch of D. ``w8_matmul_plain`` and
 ``quantize_w8_matmul_plain`` are their plain versions.
 
 Kernel #10 ``dequant_w8`` (the reference's ``dequant_w8_pallas``)
-materialises the int8 grid of a packed layer once, as (N, K), the layout
-``w8_matmul`` reads; ``dequant_w8_plain`` is ``requant_w8_plain``
+materialises the int8 grid of a packed layer, as (N, K), the layout
+``w8_matmul`` reads (mode plain's route above 16 rows, once a call: the
+weights stay int4 at rest); ``dequant_w8_plain`` is ``requant_w8_plain``
 transposed. Kernel #16 ``int8_dot`` (the reference's bare
 ``tools/microbench_pallas_int8.py:pallas_int8_matmul``) is ``w8_matmul``'s
 main loop storing the exact int32 product; ``int8_dot_plain`` computes it
@@ -75,23 +82,41 @@ MODES = {"plain": 0, "gelu_quant": 1, "grouped_xs": 2, "norm_rope": 3}
 # csrc/gemv_sm90.cu).
 N_TILE = {"plain": 128, "gelu_quant": SCALE_TILE, "grouped_xs": 128, "norm_rope": HEAD_DIM}
 # Rows at or below which kernel E's mode plain runs the split-K GEMV (the
-# `ada` projections); every other call, the Hopper main loop.
+# `ada` projections); above them mode plain runs #10 then #11, the other
+# modes the Hopper main loop.
 SMALL_M = 16
-_E_SYMBOLS = {"sm90": "dk_w4a8_matmul_sm90", "tile": "dk_w4a8_matmul"}
+# The C entry each route runs first: kernel E's two main loops, and #10's
+# (then #11's, ``w8_matmul``) for the materialised dataflow.
+_E_SYMBOLS = {"sm90": "dk_w4a8_matmul_sm90", "tile": "dk_w4a8_matmul", "mat": "dk_dequant_w8"}
 
 
 def w4a8_route(m: int, mode: str) -> str:
-    """Kernel E's main loop for ``m`` rows in ``mode``: ``"tile"``, the
-    split-K GEMV (csrc/gemv_sm90.cu), for mode plain at M <= ``SMALL_M``,
-    else ``"sm90"`` (csrc/w4a8_matmul_sm90.cu)."""
-    return "tile" if m <= SMALL_M and mode == "plain" else "sm90"
+    """The dataflow of ``w4a8_matmul`` for ``m`` rows in ``mode``. Mode
+    plain: ``"tile"``, kernel E's split-K GEMV (csrc/gemv_sm90.cu), at M <=
+    ``SMALL_M``; ``"mat"``, #10 ``dequant_w8`` then #11 ``w8_matmul``, above
+    it. The other modes: ``"sm90"`` (csrc/w4a8_matmul_sm90.cu) at every M.
+
+    "mat" rests on the A/B of ``tools/bench_w4a8_mat.py ab`` on an H100 (E
+    at 1.40-1.83x its time, cold and warm) at K = N = 3072, every plain
+    shape of the FLUX w4a8 paths (M = 256, 4096, 4352, 16384 and 16640 at
+    group 64, 4352 at 32) and off them at M = 17, 32, 64, 128 and 192
+    (group 64) and groups 128 and 256 (M = 256, 4352); chip_smoke.py
+    checks the paths' shapes and ``AB_EDGES`` each run. Other K and N
+    (no FLUX w4a8 plain linear has them) take "mat" unmeasured."""
+    if mode != "plain":
+        return "sm90"
+    return "tile" if m <= SMALL_M else "mat"
 
 
-def w4a8_kernel(m: int, k: int, k8: int, n: int, groups: int, mode: str) -> str:
-    """The C entry that runs kernel E at these sizes (``w4a8_route``), or
-    ValueError for what neither main loop takes: K = 8 * k8 a multiple of
-    128, N of the mode's column tile, group K / groups 32, 64 or a multiple
-    of 128, K a multiple of 512 for grouped_xs, at any M."""
+def w4a8_kernel(m: int, k: int, k8: int, n: int, groups: int, mode: str,
+                route: Optional[str] = None) -> str:
+    """The C entry that runs ``route`` (by default ``w4a8_route``'s) at
+    these sizes, or ValueError for a route that does not take ``m`` rows in
+    ``mode`` (``"tile"`` and ``"mat"`` are mode plain's, ``"tile"`` at M <=
+    ``SMALL_M`` only) or a shape that kernel E does not take: K = 8 * k8 a
+    multiple of 128, N of the mode's column tile, group K / groups 32, 64 or
+    a multiple of 128, K a multiple of 512 for grouped_xs, at any M (#10
+    then #11 take every such shape)."""
     if k8 * 8 != k or k % K_TILE or n % N_TILE[mode]:
         raise ValueError(f"w4a8_matmul: K={k} must be 8 * {k8} and a multiple of {K_TILE}, "
                          f"N={n} a multiple of {N_TILE[mode]} ({mode})")
@@ -100,7 +125,11 @@ def w4a8_kernel(m: int, k: int, k8: int, n: int, groups: int, mode: str) -> str:
                          f"{K_TILE}")
     if mode == "grouped_xs" and k % SCALE_TILE:
         raise ValueError(f"w4a8_matmul: grouped_xs needs K a multiple of {SCALE_TILE}, got {k}")
-    return _E_SYMBOLS[w4a8_route(m, mode)]
+    route = route or w4a8_route(m, mode)
+    if route not in _E_SYMBOLS or (route != "sm90" and mode != "plain") or (
+            route == "tile" and m > SMALL_M):
+        raise ValueError(f"w4a8_matmul: route {route!r} does not take M={m} in mode {mode}")
+    return _E_SYMBOLS[route]
 
 
 def _div(num: float, t: torch.Tensor) -> torch.Tensor:
@@ -209,10 +238,12 @@ def w4a8_matmul(
     wscale: torch.Tensor, xscale: torch.Tensor, bias: Optional[torch.Tensor],
     mode: str = "plain", out_dtype: torch.dtype = torch.bfloat16,
     norm_w: Optional[torch.Tensor] = None, cos: Optional[torch.Tensor] = None,
-    sin: Optional[torch.Tensor] = None, eps: float = 1e-6,
+    sin: Optional[torch.Tensor] = None, eps: float = 1e-6, _route: Optional[str] = None,
 ):
     """``(x8 @ requant(q4)) * xscale * wscale + bias`` with ``mode``'s
-    epilogue (module docstring). x8 int8 (M, K); q4 int32 (K/8, N); scales,
+    epilogue (module docstring), on ``w4a8_route``'s dataflow (``_route``
+    overrides it: ``"sm90"`` holds kernel E's Hopper loop at a plain shape
+    in the tests and tools). x8 int8 (M, K); q4 int32 (K/8, N); scales,
     zeros fp32 (K/g, N); wscale fp32 (N,); xscale fp32 (M, 1), or (M, K/512)
     for grouped_xs; bias (N,) or None. norm_rope takes norm_w (128,) and the
     (S, 64) fp32 cos/sin tables, row m using table row m mod S. Returns y
@@ -236,7 +267,8 @@ def w4a8_matmul(
     m, k = x8.shape
     k8, n = q4.shape
     groups = scales.shape[0]
-    symbol = w4a8_kernel(m, k, k8, n, groups, mode)
+    route = _route or w4a8_route(m, mode)
+    symbol = w4a8_kernel(m, k, k8, n, groups, mode, route)
     if out_dtype != torch.bfloat16:
         raise TypeError(f"w4a8_matmul: the card's output is bf16, got {out_dtype}")
     dev = x8.device
@@ -263,6 +295,8 @@ def w4a8_matmul(
                     or not t.is_contiguous():
                 raise ValueError(f"w4a8_matmul: {name} must be contiguous fp32 "
                                  f"(S, {HEAD_DIM // 2}) on {dev}")
+    if route == "mat":
+        return _mat(x8, q4, scales, zeros, wscale, xscale, bias, k // groups)
     if mode == "gelu_quant":
         y = torch.empty((m, n), dtype=torch.int8, device=dev)
         yscale = torch.empty((m, n // SCALE_TILE), dtype=torch.float32, device=dev)
@@ -273,7 +307,7 @@ def w4a8_matmul(
         ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
         group = k // groups
         fn = getattr(kernels.library(), symbol)
-        if symbol == _E_SYMBOLS["tile"]:  # S blocks along K and their int32 partial sums
+        if route == "tile":  # S blocks along K and their int32 partial sums
             splits = gemv_splits(k, n, group)
             partials = torch.empty(splits * m * n, dtype=torch.int32, device=dev)
             err = fn(
@@ -291,13 +325,14 @@ def w4a8_matmul(
         kernels.check(err, f"w4a8_matmul ({mode})")
         w4a8_matmul.launches += 1
         w4a8_matmul.mode_launches[mode] += 1
-        w4a8_matmul.gemv_launches += symbol == _E_SYMBOLS["tile"]
+        w4a8_matmul.gemv_launches += route == "tile"
     return (y, yscale) if mode == "gelu_quant" else y
 
 
-w4a8_matmul.launches = 0
+w4a8_matmul.launches = 0  # kernel E's
 w4a8_matmul.mode_launches = dict.fromkeys(MODES, 0)
 w4a8_matmul.gemv_launches = 0  # of mode plain's, the M <= 16 GEMV's
+w4a8_matmul.mat_launches = 0  # mode plain's calls run as #10 then #11 (not E's)
 
 
 def w8_matmul_plain(
@@ -333,17 +368,20 @@ def w8_route(m: int, k: int, n: int) -> str:
     """Kernel #11's main loop for (M, K, N): ``"gemv"``, the GEMV
     (csrc/gemv_sm90.cu), at M <= ``SMALL_M`` with K a multiple of 256 and N
     of 64 (the `ada` and embedder projections) where a block's slab of x
-    fits in its shared memory; ``"sm90"`` (csrc/w8_matmul_sm90.cu) above
-    ``SMALL_M`` with K a multiple of 128; else ``"tile"`` (csrc/w8_matmul.cu
-    ``w8_mm``). ValueError for what none of them takes: K not a multiple of
-    64 or N not of 8."""
+    fits in its shared memory; above ``SMALL_M`` csrc/w8_matmul_sm90.cu,
+    ``"sm90"`` (``w8_mm_sm90``) with K a multiple of 128, ``"sm90_k64"``
+    (``w8_mm_sm90_k64``, 64-deep k stages: the SD3 x_embedder's K = 64)
+    otherwise; else ``"tile"`` (csrc/w8_matmul.cu ``w8_mm``). ValueError
+    for what none of them takes: K not a multiple of 64 or N not of 8."""
     if k <= 0 or k % 64 or n <= 0 or n % 8:
         raise ValueError(f"w8_matmul: K={k} must be a multiple of 64 and N={n} of 8")
     if (m <= SMALL_M and k % W8_GEMV_PART_K == 0 and n % W8_GEMV_N_TILE == 0
             and 16 * m * W8_GEMV_N_TILE + 16 * 8 * 4 + (2 * W8_GEMV_N_TILE + 16) * 4
             + m * (k // w8_gemv_splits(k) + 64) <= _W8_GEMV_SMEM):
         return "gemv"
-    return "sm90" if m > SMALL_M and k % K_TILE == 0 else "tile"
+    if m <= SMALL_M:
+        return "tile"
+    return "sm90" if k % K_TILE == 0 else "sm90_k64"
 
 
 def w8_quantizes_in_gemv(m: int, k: int, n: int) -> bool:
@@ -400,17 +438,41 @@ def w8_matmul(
         _contiguous_on("bias", bias, dev, out_dtype, (n,), "w8_matmul")
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m:
-        bias_ptr = 0 if bias is None else bias.data_ptr()
-        if route == "gemv":
-            err = _w8_gemv(x8, w8, wscale, xscale.data_ptr(), bias_ptr, y)
-        else:
-            err = getattr(kernels.library(), _W8_KERNELS[out_dtype])(
-                x8.data_ptr(), w8.data_ptr(), wscale.data_ptr(), xscale.data_ptr(), bias_ptr,
-                y.data_ptr(), m, n, k, kernels.stream_ptr(dev),
-            )
-        kernels.check(err, "w8_matmul")
-        w8_matmul.launches += 1
-        w8_matmul.gemv_launches += route == "gemv"
+        _w8_launch(x8, w8, wscale, xscale, bias, y, route == "gemv")
+    return y
+
+
+def _w8_launch(x8: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, xscale: torch.Tensor,
+               bias: Optional[torch.Tensor], y: torch.Tensor, gemv: bool) -> None:
+    """#11 into ``y`` on checked operands: the GEMV or the output dtype's
+    C entry (its main loop picked there as ``w8_route``'s), counted."""
+    (m, k), n = x8.shape, w8.shape[0]
+    bias_ptr = 0 if bias is None else bias.data_ptr()
+    if gemv:
+        err = _w8_gemv(x8, w8, wscale, xscale.data_ptr(), bias_ptr, y)
+    else:
+        err = getattr(kernels.library(), _W8_KERNELS[y.dtype])(
+            x8.data_ptr(), w8.data_ptr(), wscale.data_ptr(), xscale.data_ptr(), bias_ptr,
+            y.data_ptr(), m, n, k, kernels.stream_ptr(x8.device),
+        )
+    kernels.check(err, "w8_matmul")
+    w8_matmul.launches += 1
+    w8_matmul.gemv_launches += gemv
+
+
+def _mat(x8: torch.Tensor, q4: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+         wscale: torch.Tensor, xscale: torch.Tensor, bias: Optional[torch.Tensor],
+         group: int) -> torch.Tensor:
+    """Mode plain as #10 then #11 on operands ``w4a8_matmul`` has checked:
+    the layer's (N, K) int8 grid, transient, from its scales, zeros and
+    wscale (#10's C entry puts the affine on the grid itself), then #11 on
+    it (above 16 rows, never its GEMV), bf16 out; counted in
+    ``w4a8_matmul.mat_launches`` besides #10's and #11's own counts. It
+    skips the two wrappers' checks, which ``w4a8_matmul``'s cover."""
+    y = torch.empty((x8.shape[0], q4.shape[1]), dtype=torch.bfloat16, device=x8.device)
+    w8 = _dequant_launch(q4, scales, zeros, wscale.data_ptr(), group)
+    _w8_launch(x8, w8, wscale, xscale, bias, y, gemv=False)
+    w4a8_matmul.mat_launches += 1
     return y
 
 
@@ -498,7 +560,9 @@ def dequant_w8(q4: torch.Tensor, s8: torch.Tensor, z8: torch.Tensor) -> torch.Te
     """#10: packed int4 words q4 (K/8, N) (int32 bit views) and the group
     affine on the int8 grid, s8 and z8 fp32 (K/g, N) (``scaled_affine``),
     -> the int8 weight grid ``clip(round_half_even(q * s8 + z8), -127, 127)``
-    as (N, K), kernel E's in-tile grid bit for bit.
+    as (N, K), kernel E's in-tile grid bit for bit. (Mode plain's "mat"
+    route launches the kernel on the layer's scales, zeros and wscale:
+    ``_mat``.)
 
     On CUDA: every tensor contiguous and 16-byte aligned, K a multiple of 8,
     N of 8, a group g that divides K.
@@ -519,13 +583,24 @@ def dequant_w8(q4: torch.Tensor, s8: torch.Tensor, z8: torch.Tensor) -> torch.Te
     _contiguous_on("q4", q4, dev, torch.int32, (k8, n), "dequant_w8")
     _contiguous_on("s8", s8, dev, torch.float32, (groups, n), "dequant_w8")
     _contiguous_on("z8", z8, dev, torch.float32, (groups, n), "dequant_w8")
-    w8 = torch.empty((n, k), dtype=torch.int8, device=dev)
-    if k8:
-        err = kernels.library().dk_dequant_w8(q4.data_ptr(), s8.data_ptr(), z8.data_ptr(),
-                                              w8.data_ptr(), k, n, k // groups,
-                                              kernels.stream_ptr(dev))
-        kernels.check(err, "dequant_w8")
-        dequant_w8.launches += 1
+    if not k8:
+        return torch.empty((n, 0), dtype=torch.int8, device=dev)
+    return _dequant_launch(q4, s8, z8, 0, k // groups)
+
+
+def _dequant_launch(q4: torch.Tensor, a: torch.Tensor, b: torch.Tensor, wscale_ptr: int,
+                    group: int) -> torch.Tensor:
+    """#10's kernel on checked operands, counted: the (N, K) int8 grid of
+    q4 with the affine (a, b) = (s8, z8), or with a wscale pointer the
+    layer's (scales, zeros), divided by wscale on the card as
+    ``scaled_affine`` divides them."""
+    k8, n = q4.shape
+    w8 = torch.empty((n, 8 * k8), dtype=torch.int8, device=q4.device)
+    err = kernels.library().dk_dequant_w8(q4.data_ptr(), a.data_ptr(), b.data_ptr(), wscale_ptr,
+                                          w8.data_ptr(), 8 * k8, n, group,
+                                          kernels.stream_ptr(q4.device))
+    kernels.check(err, "dequant_w8")
+    dequant_w8.launches += 1
     return w8
 
 

@@ -879,10 +879,13 @@ def test_w4a8_kernel_matches_plain(cuda, case):
     g = torch.Generator(device=cuda).manual_seed(10)
     layer, x8, xs, extra = w4a8_inputs(mode, m, k, n, group, g, cuda)
     args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias)
+    if mode == "plain" and m > 16:  # mode plain's own route there is #10 then #11
+        extra["_route"] = "sm90"
     launches = w4a8_matmul.mode_launches[mode]
     got = w4a8_matmul(*args, mode=mode, **extra)
     torch.cuda.synchronize()
     assert w4a8_matmul.mode_launches[mode] == launches + 1
+    extra.pop("_route", None)
     want = w4a8_matmul_plain(*args, mode=mode, **extra)
     if mode == "gelu_quant":
         assert got[0].shape == (m, n) and got[1].shape == (m, n // 512)
@@ -1007,6 +1010,36 @@ def test_w8_kernel_fp32_and_no_bias(cuda):
                        w8_matmul_plain(*args, out_dtype=torch.float32))
     args = random_w8(5, 1024, 512, g, cuda, bias=False)
     assert torch.equal(w8_matmul(*args), w8_matmul_plain(*args))
+
+
+# #11 and #16 at M > 16 with K % 128 == 64 (w8_mm_sm90_k64): the SD3
+# x_embedder's (2048, 64, 1536), M one past the small-M tile and one past a
+# 128-row tile, K of three 64-deep stages (the ring's slot reused), N short
+# of a 128-column tile and ragged.
+K64_SHAPES = [(2048, 64, 1536), (17, 64, 1536), (129, 192, 200), (300, 64, 8),
+              (4352, 320, 3072)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K64_SHAPES)
+@pytest.mark.parametrize("out_dtype,bias", [(torch.bfloat16, True), (torch.float32, True),
+                                            (torch.bfloat16, False)])
+def test_w8_k64_kernel_matches_plain(cuda, shape, out_dtype, bias):
+    """#11 on its 64-deep Hopper loop against its plain version:
+    bit-identical in bf16 and fp32, with and without a bias; and #16 there
+    against the exact int32 product."""
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import int8_dot, int8_dot_plain, w8_route
+
+    m, k, n = shape
+    assert w8_route(m, k, n) == "sm90_k64"
+    g = torch.Generator(device=cuda).manual_seed(17)
+    args = random_w8(m, k, n, g, cuda, dtype=out_dtype, bias=bias)
+    launches = w8_matmul.launches
+    got = w8_matmul(*args, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert w8_matmul.launches == launches + 1
+    assert got.dtype == out_dtype and torch.equal(got, w8_matmul_plain(*args, out_dtype=out_dtype))
+    assert torch.equal(int8_dot(args[0], args[1]), int8_dot_plain(args[0], args[1]))
 
 
 @pytest.mark.gpu
@@ -1206,10 +1239,12 @@ def test_euler_step_and_latent_unscaling_divide_as_on_the_cpu(cuda):
 
 # (K, N, group) of #10: FLUX fc1, fc2 and q at group 64, q at the
 # quantize-at-load group 32, a group of 128, a K that ends in a partial
-# 128-k tile and an N that ends in a partial 64-column tile, and groups that
-# split a packed word.
+# 256-k tile and an N that ends in a partial 128-column tile, groups that
+# split a packed word, a K of 8 mod 16 (8-byte stores) at group 8, group 32
+# with a ragged K and N, and a group of 192 (a multiple of 64, not of 128).
 DEQUANT_SHAPES = [(3072, 12288, 64), (12288, 3072, 64), (3072, 3072, 64), (3072, 3072, 32),
-                  (1024, 512, 128), (1000, 200, 40), (96, 64, 12), (64, 24, 4)]
+                  (1024, 512, 128), (1000, 200, 40), (96, 64, 12), (64, 24, 4),
+                  (520, 136, 8), (800, 392, 32), (3072, 4352, 192)]
 
 
 @pytest.mark.gpu
@@ -1241,9 +1276,33 @@ def test_dequant_w8_then_w8_matmul_is_kernel_e(cuda, m):
     g = torch.Generator(device=cuda).manual_seed(25)
     layer, x8, xs, _ = w4a8_inputs("plain", m, 3072, 1536, 64, g, cuda)
     s8, z8 = scaled_affine(layer.scales, layer.zeros, layer.wscale)
-    fused = w4a8_matmul(x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias)
+    fused = w4a8_matmul(x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias,
+                        _route="sm90" if m > 16 else "tile")
     mat = w8_matmul(x8, dequant_w8(layer.q4, s8, z8), layer.wscale, xs, layer.bias)
     assert torch.equal(mat, fused)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,group", [(17, 64), (256, 64), (4352, 64), (4352, 32)])
+def test_w4a8_linear_takes_the_materialised_route(cuda, m, group):
+    """Above 16 rows a w4a8 layer's mode plain runs #10 then #11: one launch
+    of each and none of kernel E, counted in ``mat_launches``; the output
+    is kernel E's Hopper loop's on the same layer, bit for bit."""
+    from diffusionkit_tpu_torch.ops.w4a8_matmul import dequant_w8, w4a8_linear, w4a8_route
+    from diffusionkit_tpu_torch.ops.w8a8 import ActQuant
+
+    assert w4a8_route(m, "plain") == "mat"
+    g = torch.Generator(device=cuda).manual_seed(28)
+    layer, x8, xs, _ = w4a8_inputs("plain", m, 3072, 1536, group, g, cuda)
+    counters = (dequant_w8, w8_matmul, w4a8_matmul)
+    before = [fn.launches for fn in counters] + [w4a8_matmul.mat_launches]
+    got = w4a8_linear(layer, ActQuant(x8, xs, out_dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    after = [fn.launches for fn in counters] + [w4a8_matmul.mat_launches]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 1]
+    want = w4a8_matmul(x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias,
+                       _route="sm90")
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
 # (M, K, N) of #16: the microbench default, M = 1, a ragged M, K = 64 (the
@@ -1316,10 +1375,12 @@ def test_tools_run_on_the_card(cuda):
     assert {name: fn.launches - before[name] for name, fn in counters.items()} == want
 
 
-# Kernels E, C and #13 on their two main loops. The routes: the split-K GEMV
-# ("tile") at M <= 16 (the `ada` projections; for E mode plain only), the
-# Hopper loop otherwise; every shape the wrappers took before takes one.
-ROUTE_ROWS = [1, 2, 16, 17, 77, 255, 256, 257, 4352]
+# Kernels E, C and #13 on their two main loops, and w4a8's mode plain above
+# 16 rows on #10 then #11. The routes: the split-K GEMV ("tile") at M <= 16
+# (the `ada` projections; for E mode plain only), for mode plain above it
+# the materialised dataflow ("mat"), the Hopper loop otherwise; every shape
+# the wrappers took before takes one.
+ROUTE_ROWS = [1, 2, 16, 17, 77, 255, 256, 257, 4352, 16384, 16640]
 E_ACCEPTED = [(k, n, group, mode) for mode in ("plain", "gelu_quant", "grouped_xs", "norm_rope")
               for k in (512, 3072) for n in (512, 3072) for group in (32, 64, 128, 256)]
 
@@ -1327,20 +1388,33 @@ E_ACCEPTED = [(k, n, group, mode) for mode in ("plain", "gelu_quant", "grouped_x
 @pytest.mark.parametrize("m", ROUTE_ROWS)
 def test_w4a8_route_takes_every_accepted_shape(m):
     """Every (K, N, group, mode) the wrapper takes goes to the tile in mode
-    plain at M <= 16 and to the Hopper loop otherwise, and what it refused
-    it still refuses."""
+    plain at M <= 16, to #10 then #11 in mode plain above it, and to the
+    Hopper loop in the other modes; the Hopper loop also takes mode plain
+    at any M when asked, the tile and "mat" no other mode, the tile no M
+    above 16; and what the wrapper refused it still refuses."""
     from diffusionkit_tpu_torch.ops.w4a8_matmul import w4a8_kernel, w4a8_route
 
     for k, n, group, mode in E_ACCEPTED:
-        tile = m <= 16 and mode == "plain"
-        assert w4a8_route(m, mode) == ("tile" if tile else "sm90")
-        want = "dk_w4a8_matmul" if tile else "dk_w4a8_matmul_sm90"
-        assert w4a8_kernel(m, k, k // 8, n, k // group, mode) == want
+        want = ("tile" if m <= 16 else "mat") if mode == "plain" else "sm90"
+        assert w4a8_route(m, mode) == want
+        symbol = {"tile": "dk_w4a8_matmul", "mat": "dk_dequant_w8", "sm90": "dk_w4a8_matmul_sm90"}
+        assert w4a8_kernel(m, k, k // 8, n, k // group, mode) == symbol[want]
+        assert w4a8_kernel(m, k, k // 8, n, k // group, mode, "sm90") == symbol["sm90"]
+        for route in ("tile", "mat"):
+            if mode == "plain" and (route == "mat" or m <= 16):
+                assert w4a8_kernel(m, k, k // 8, n, k // group, mode, route) == symbol[route]
+            else:
+                with pytest.raises(ValueError, match="route"):
+                    w4a8_kernel(m, k, k // 8, n, k // group, mode, route)
     for k, n, group, mode in [(3072, 3072, 48, "plain"), (3072, 3072, 96, "plain"),
                               (384, 3072, 64, "grouped_xs"), (3072, 384, 64, "gelu_quant"),
                               (3072, 3072 + 64, 64, "plain"), (3072 + 64, 3072, 64, "plain")]:
         with pytest.raises(ValueError):
             w4a8_kernel(m, k, k // 8, n, k // group, mode)
+        with pytest.raises(ValueError):
+            w4a8_kernel(m, k, k // 8, n, k // group, mode, "mat")
+    with pytest.raises(ValueError, match="route"):
+        w4a8_kernel(m, 3072, 384, 3072, 48, "plain", "gemv")
 
 
 @pytest.mark.parametrize("m", ROUTE_ROWS)
@@ -1793,9 +1867,10 @@ def test_w8_route_takes_every_accepted_shape(m):
     """#11 at every (K, N) its wrapper takes goes to a main loop that takes
     it: the GEMV at M <= 16 with K a multiple of 256 and N of 64 (its S
     splits of K each whole 256-k parts), the Hopper loop above 16 rows
-    with K a multiple of 128, the mma.sync tile otherwise (any K a multiple
-    of 64, N of 8); the quantizing entry only on the GEMV's route; what
-    the wrapper refused it still refuses."""
+    with K a multiple of 128, its 64-deep loop above 16 rows with K % 128
+    == 64 (the x_embedder's K = 64; K = 192), the mma.sync tile otherwise
+    (M <= 16, any K a multiple of 64, N of 8); the quantizing entry only on
+    the GEMV's route; what the wrapper refused it still refuses."""
     from diffusionkit_tpu_torch.ops.w4a8_matmul import (
         w8_gemv_splits,
         w8_quantizes_in_gemv,
@@ -1810,7 +1885,8 @@ def test_w8_route_takes_every_accepted_shape(m):
             assert 1 <= s <= 8 and k % (s * 256) == 0, (k, n, s)
             assert w8_quantizes_in_gemv(m, k, n)
         else:
-            assert route == ("sm90" if m > 16 and k % 128 == 0 else "tile")
+            want = ("sm90" if k % 128 == 0 else "sm90_k64") if m > 16 else "tile"
+            assert route == want
             assert not w8_quantizes_in_gemv(m, k, n)
     for k, n in [(96, 128), (1536, 100), (0, 128), (1536 + 32, 1536)]:
         with pytest.raises(ValueError):

@@ -25,7 +25,13 @@ from diffusionkit_tpu.ops import w4a8_matmul as jw
 from diffusionkit_tpu.ops.quantized import random_quantized_linear as jax_random_quantized_linear
 from diffusionkit_tpu_torch.ops import quantized as tq
 from diffusionkit_tpu_torch.ops import w4a8_matmul as tw
-from diffusionkit_tpu_torch.tools import bench_gemv, bench_rows, bench_w4a8_mat, microbench_int8
+from diffusionkit_tpu_torch.tools import (
+    bench_gemv,
+    bench_mat,
+    bench_rows,
+    bench_w4a8_mat,
+    microbench_int8,
+)
 
 torch.set_num_threads(1)
 
@@ -53,6 +59,18 @@ def random_w4a8_host(k: int, n: int, group: int, seed: int):
     return {key: np.asarray(v) for key, v in p.items()}
 
 
+def epilogue_orders(acc: np.ndarray, xs: np.ndarray, ws: np.ndarray, bias: np.ndarray,
+                    out: torch.dtype):
+    """The two values an XLA epilogue ``acc * xs * ws + bias`` may give in
+    ``out``: every product and the sum rounded in fp32 (the port's order),
+    or ``* ws + bias`` contracted into one FMA (the product exact in
+    float64, one rounding to fp32)."""
+    t1 = acc.astype(np.float32) * xs
+    two = t1 * ws + bias
+    fma = (t1.astype(np.float64) * ws + bias).astype(np.float32)
+    return (torch.from_numpy(v).to(out).float().numpy() for v in (two, fma))
+
+
 # -- #10 ---------------------------------------------------------------------
 
 
@@ -76,18 +94,23 @@ def test_dequant_w8_plain_matches_pallas_interpret(group):
     np.testing.assert_array_equal(tw.dequant_w8_plain(q4, ts8, tz8).numpy(), want.T)
 
 
-def test_dequant_w8_plain_takes_groups_that_straddle_a_word():
-    """A group of 4 splits each packed word between two groups: the plain
-    version requantises each nibble with its own group's affine."""
+@pytest.mark.parametrize("group", [4, 12])
+def test_dequant_w8_plain_takes_groups_that_straddle_a_word(group):
+    """Groups of 4 and 12 split packed words between two groups: the plain
+    version requantises each nibble with its own group's affine, as a
+    numpy emulation of the two roundings and the reference's XLA
+    ``dequant_w8`` do, bit for bit."""
     rs = np.random.RandomState(2)
-    k, n = 64, 24
+    k, n = 96, 24
     q = rs.randint(0, 16, (k, n)).astype(np.uint8)
-    s8 = (rs.rand(k // 4, n) * 20).astype(np.float32)
-    z8 = (-rs.rand(k // 4, n) * 120).astype(np.float32)
-    q4 = t(tq.pack_int4_host(q).view(np.int32))
-    got = tw.dequant_w8(q4, t(s8), t(z8)).numpy()
-    y = q.astype(np.float32) * np.repeat(s8, 4, 0) + np.repeat(z8, 4, 0)
+    s8 = (rs.rand(k // group, n) * 20).astype(np.float32)
+    z8 = (-rs.rand(k // group, n) * 120).astype(np.float32)
+    packed = tq.pack_int4_host(q)
+    got = tw.dequant_w8(t(packed.view(np.int32)), t(s8), t(z8)).numpy()
+    y = q.astype(np.float32) * np.repeat(s8, group, 0) + np.repeat(z8, group, 0)
     np.testing.assert_array_equal(got, np.clip(np.round(y), -127, 127).astype(np.int8).T)
+    want = np.asarray(jw.dequant_w8(jnp.asarray(packed), jnp.asarray(s8), jnp.asarray(z8)))
+    np.testing.assert_array_equal(got, want.T)
 
 
 # -- #16 ---------------------------------------------------------------------
@@ -144,6 +167,70 @@ def test_materialized_w8_path_matches_fused_w4a8(m):
         assert mat.dtype == dtype and torch.equal(mat, fused)
 
 
+@pytest.mark.parametrize("m", [17, 48, 256])
+@pytest.mark.parametrize("group", [32, 64])
+def test_materialised_route_is_w4a8_plain_and_the_reference(m, group):
+    """Mode plain's route above 16 rows ("mat"): #10's plain grid fed to
+    #11's plain version with a bf16 bias equals kernel E's plain version
+    (mode plain), the port's wrapper on the CPU and a numpy emulation of
+    the kernels' epilogue order, bit for bit, on the reference's random
+    packed layer at (K, N) = (512, 256); the reference's Pallas
+    ``w4a8_matmul`` in interpret mode (bf16 out) equals, element by
+    element, that order or the one whose ``* ws + bias`` XLA contracts into
+    an FMA (``epilogue_orders``), bit for bit."""
+    assert tw.w4a8_route(m, "plain") == "mat"
+    p = random_w4a8_host(512, 256, group, seed=8)
+    bias = torch.from_numpy((0.1 * np.random.RandomState(9).randn(256)).astype(np.float32))
+    p["bias"] = bias.bfloat16().float().numpy()  # the model's bf16 bias, on both sides
+    layer = tq.QuantizedLinear.from_host(p, torch.bfloat16, device="cpu")
+    rs = np.random.RandomState(10)
+    x8 = rs.randint(-127, 128, (m, 512)).astype(np.int8)
+    xs = ((rs.rand(m, 1) + 0.5) / (127 * 512**0.5)).astype(np.float32)
+    args = (t(x8), layer.q4, layer.scales, layer.zeros, layer.wscale, t(xs), layer.bias)
+    s8, z8 = tw.scaled_affine(layer.scales, layer.zeros, layer.wscale)
+    mat = tw.w8_matmul_plain(t(x8), tw.dequant_w8_plain(layer.q4, s8, z8), layer.wscale, t(xs),
+                             layer.bias)
+    assert mat.dtype == torch.bfloat16 and mat.shape == (m, 256)
+    assert torch.equal(mat, tw.w4a8_matmul_plain(*args, mode="plain"))
+    assert torch.equal(mat, tw.w4a8_matmul(*args))
+    js8, jz8, jws, jbias = jw._scaled_affine({key: jnp.asarray(v) for key, v in p.items()})
+    want = np.asarray(jw.w4a8_matmul(jnp.asarray(x8), jnp.asarray(p["q4"]), js8, jz8, jws,
+                                     jnp.asarray(xs), jbias, bm=16, bk=512, bn=256,
+                                     out_dtype=jnp.bfloat16, interpret=True).astype(jnp.float32))
+    w8 = tw.dequant_w8_plain(layer.q4, s8, z8).numpy().astype(np.int64)
+    two, fma = epilogue_orders(x8.astype(np.int64) @ w8.T, xs, p["wscale"], p["bias"],
+                               torch.bfloat16)
+    np.testing.assert_array_equal(mat.float().numpy(), two)
+    assert np.all((want == two) | (want == fma))
+
+
+@pytest.mark.parametrize("out", ["bf16", "fp32"])
+def test_w8_matmul_plain_at_k64_matches_pallas_interpret(out):
+    """#11's plain version at K = 64 (the SD3 x_embedder's depth, which the
+    card runs on its 64-deep Hopper loop) at (48, 64, 256), bf16 and fp32
+    out: bit for bit the numpy emulation of the kernel's epilogue order,
+    and the reference's Pallas ``w8_matmul`` in interpret mode equal,
+    element by element, to that order or to its FMA-contracted one, bit
+    for bit."""
+    tdt, jdt = {"bf16": (torch.bfloat16, jnp.bfloat16), "fp32": (torch.float32, jnp.float32)}[out]
+    assert tw.w8_route(48, 64, 256) == "sm90_k64"
+    rs = np.random.RandomState(11)
+    x8 = rs.randint(-127, 128, (48, 64)).astype(np.int8)
+    w8 = rs.randint(-127, 128, (64, 256)).astype(np.int8)  # the reference's (K, N)
+    xs = ((rs.rand(48, 1) + 0.5) / (127 * 8)).astype(np.float32)
+    ws = ((rs.rand(256) + 0.5) / 127).astype(np.float32)
+    bias = torch.from_numpy((0.1 * rs.randn(256)).astype(np.float32)).to(tdt)
+    want = np.asarray(jw.w8_matmul(jnp.asarray(x8), jnp.asarray(w8), jnp.asarray(ws),
+                                   jnp.asarray(xs), jnp.asarray(bias.float().numpy()), bm=16,
+                                   bk=64, bn=128, out_dtype=jdt, interpret=True
+                                   ).astype(jnp.float32))
+    got = tw.w8_matmul(t(x8), t(np.ascontiguousarray(w8.T)), t(ws), t(xs), bias, tdt)
+    assert got.dtype == tdt and got.shape == (48, 256)
+    two, fma = epilogue_orders(x8.astype(np.int64) @ w8, xs, ws, bias.float().numpy(), tdt)
+    np.testing.assert_array_equal(got.float().numpy(), two)
+    assert np.all((want == two) | (want == fma))
+
+
 # -- the tools -----------------------------------------------------------------
 
 
@@ -164,6 +251,33 @@ def test_bench_w4a8_mat_runs_on_the_cpu():
     assert (tw.dequant_w8.launches, tw.w8_matmul.launches, tw.w4a8_matmul.launches) == launches
     assert bench_w4a8_mat.launches(16) == {"dequant_w8": 35, "w8_matmul": 17,
                                            "w4a8_matmul[plain]": 17, "quantize": 1}
+
+
+def test_bench_mat_runs_on_the_cpu():
+    """bench_mat on the CPU: one weight copy, no time, #10's grid that of
+    its plain version on the layer drawn the same way, #11 at K = 64 that
+    of its plain version, and each call's bytes counted by hand."""
+    shapes = {"dequant": [(256, 128, 32)], "w8": [(40, 64, 128)]}
+    rows = bench_mat.run(shapes, device="cpu")
+    assert [(r["name"], r["shape"], r["copies"]) for r in rows] == [
+        ("dequant", (256, 128, 32), 1), ("w8", (40, 64, 128), 1)]
+    assert all(f["warm_ms"] is None and f["cold_ms"] is None
+               for r in rows for f in r["flows"].values())
+    assert list(rows[1]["flows"]) == ["w8_matmul"]  # torch._int_mm on the card only
+    gen = torch.Generator().manual_seed(0)  # run's draws, in run's order
+    q4, sc, z, ws, _ = bench_gemv.layer("w4a8_matmul", 256, 128, 32, gen, torch.device("cpu"))
+    s8, z8 = tw.scaled_affine(sc, z, ws)
+    assert torch.equal(rows[0]["flows"]["dequant_w8"]["out"], tw.dequant_w8_plain(q4, s8, z8))
+    x8 = torch.randint(-127, 128, (40, 64), generator=gen, dtype=torch.int8)
+    xs = (torch.rand(40, 1, generator=gen) + 0.5) / (127 * 64**0.5)
+    w8 = torch.randint(-127, 128, (128, 64), generator=gen, dtype=torch.int8)
+    wsc = (torch.rand(128, generator=gen) + 0.5) / 127
+    b = (0.1 * torch.randn(128, generator=gen)).bfloat16()
+    assert torch.equal(rows[1]["flows"]["w8_matmul"]["out"], tw.w8_matmul_plain(x8, w8, wsc, xs, b))
+    # words K*N/2, scales and zeros 8 * groups * N, the int8 grid K*N
+    assert rows[0]["bytes"] == 256 * 128 // 2 + 8 * 8 * 128 + 256 * 128
+    # x8, w8, xscale, wscale and bf16 bias, bf16 y
+    assert rows[1]["bytes"] == 40 * 64 + 128 * 64 + 4 * 40 + 4 * 128 + 2 * 128 + 2 * 40 * 128
 
 
 def test_bench_gemv_runs_on_the_cpu():
@@ -395,6 +509,17 @@ PROFILER_NAMES = [
      "w4a8_matmul"),
     ("void (anonymous namespace)::dequant_w8_kernel(unsigned int const*, float const*, "
      "float const*, signed char*, int, int, int)", "dequant_w8"),
+    ("void (anonymous namespace)::dequant_w8_kernel<0>(unsigned int const*, float const*, "
+     "float const*, float const*, signed char*, int, int, int)", "dequant_w8"),
+    ("_ZN45_GLOBAL__N__5112a248_12_w8_matmul_cu_00cd031717dequant_w8_kernelILi1EEEvPKjPKfS4_S4_"
+     "Paiii", "dequant_w8"),
+    ("void (anonymous namespace)::w8_mm_sm90_k64<__nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float const*, __nv_bfloat16 const*, __nv_bfloat16*, int, int, int)",
+     "w8_matmul"),
+    ("_ZN12_GLOBAL__N_114w8_mm_sm90_k64IfEEv14CUtensorMap_stS1_PKfS3_PKT_PS4_iii", "w8_matmul"),
+    ("void (anonymous namespace)::w8_mm_sm90_k64<int>(CUtensorMap_st, CUtensorMap_st, "
+     "float const*, float const*, int const*, int*, int, int, int)", "int8_dot"),
+    ("_ZN12_GLOBAL__N_114w8_mm_sm90_k64IiEEv14CUtensorMap_stS1_PKfS3_PKT_PS4_iii", "int8_dot"),
     ("void (anonymous namespace)::flash_fwd_wide_sm90<false>(CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, __nv_bfloat16*, float*, float*, float*, int, int, int, long long, "
      "long long, long long, float)", "flash_attention_bshd"),
@@ -518,6 +643,9 @@ HOPPER_MATMULS = [
     "_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc29int8_gemvENS_6ParamsE",
     "_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc29w4a8_gemvENS_6ParamsE",
     "_ZN45_GLOBAL__N__35495323_12_gemv_sm90_cu_138d6bc27w8_gemvIaS1_EEvNS_8W8ParamsE",
+    "_ZN12_GLOBAL__N_114w8_mm_sm90_k64I13__nv_bfloat16EEv14CUtensorMap_stS2_PKfS4_PKT_PS5_iii",
+    "_ZN45_GLOBAL__N__5112a248_12_w8_matmul_cu_00cd031717dequant_w8_kernelILi0EEEvPKjPKfS4_S4_"
+    "Paiii",
 ]
 
 
@@ -551,9 +679,9 @@ def test_chip_smoke_ptxas_report_holds_the_row_kernels_to_no_spill(chip_smoke, t
 @pytest.mark.parametrize("spill", [0, 8])
 def test_chip_smoke_ptxas_report_holds_the_hopper_matmuls_to_no_spill(chip_smoke, tmp_path, entry,
                                                                        spill):
-    """The Hopper main loops of kernels E, C and #13 and the M <= 16 GEMVs
-    of C, #13, E and #11 fail phase 2 on any spill, as the flash kernels
-    redesigned before them."""
+    """The Hopper main loops of kernels E, C and #13, the M <= 16 GEMVs of
+    C, #13, E and #11, #11's 64-deep Hopper loop and #10 fail phase 2 on
+    any spill, as the flash kernels redesigned before them."""
     log = (f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'\n"
            f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
            "ptxas info    : Used 168 registers, used 16 barriers\n")
@@ -564,6 +692,47 @@ def test_chip_smoke_ptxas_report_holds_the_hopper_matmuls_to_no_spill(chip_smoke
             chip_smoke.ptxas_report(path)
     else:
         chip_smoke.ptxas_report(path)
+
+
+@pytest.mark.parametrize("path,dual,uni,img,txt", [
+    ("flux-w4a8", 19, 38, 4096, 256), ("flux-w4a8-2048-ring", 19, 38, 16384, 256),
+    ("flux-w4a8-t5w8a8", 19, 38, 4096, 256)])
+def test_chip_smoke_counts_the_materialised_route_on_the_flux_paths(chip_smoke, path, dual, uni,
+                                                                    img, txt):
+    """A FLUX w4a8 request's launches: mode plain's 8 calls a dual block and
+    3 a single block, the `ada` GEMVs (M = 1) on kernel E, every other
+    (v/o of the image stream and the single blocks, the text stream's
+    q/k/v/o: 190 a step at 19 + 38 blocks) on #10 then #11, 4 steps; the
+    w8a8 T5's 7 products a layer on #11 besides (path f)."""
+    from diffusionkit_tpu_torch.config import FLUX_SCHNELL
+
+    p = {q.name: q for q in (chip_smoke.FLUX_W4A8, chip_smoke.FLUX_RING, chip_smoke.FLUX_E2E)}[path]
+    per = chip_smoke.per_request_launches(p, FLUX_SCHNELL)
+    mat = p.steps * (6 * dual + 2 * uni)
+    assert (p.steps, (p.latent[0] // 2) ** 2, p.txt_tokens) == (4, img, txt)
+    assert per["w4a8_matmul[mat]"] == per["dequant_w8"] == mat == 760
+    t5 = 7 * chip_smoke.T5_LAYERS if path == "flux-w4a8-t5w8a8" else 0
+    assert per["w8_matmul"] == mat + t5
+    assert per["w4a8_matmul[gemv]"] == p.steps * (2 * dual + uni)
+    assert per["w4a8_matmul[plain]"] == 0  # kernel E's Hopper loop, apart from its GEMV
+
+
+def test_chip_smoke_counts_kernel_e_plain_apart_from_its_gemv(chip_smoke):
+    """The kernels line's mode plain entry counts kernel E's Hopper loop
+    alone, not the M <= 16 GEMV counted in its own entry; since mode plain
+    above 16 rows runs #10 then #11, that loop's launches are read from the
+    tool path whose kernel row still runs it."""
+    chip_smoke.reset_counts()
+    try:
+        tw.w4a8_matmul.mode_launches["plain"] = 5
+        tw.w4a8_matmul.gemv_launches = 3
+        got = chip_smoke.counts()
+    finally:
+        chip_smoke.reset_counts()
+    assert (got["w4a8_matmul[plain]"], got["w4a8_matmul[gemv]"]) == (2, 3)
+    assert chip_smoke.MAIN_PATH["w4a8_matmul[plain]"] in chip_smoke.TOOLS
+    tool = chip_smoke.TOOLS[chip_smoke.MAIN_PATH["w4a8_matmul[plain]"]]
+    assert tool.launches(chip_smoke.DEFAULT_ITERS)["w4a8_matmul[plain]"] > 0
 
 
 SASS_OLD = """
