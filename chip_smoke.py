@@ -13,7 +13,8 @@ Phases, each raising on failure (the script then exits non-zero):
      kernels A', D and #4, #11's 64-deep Hopper loop or #10;
   3. each kernel against its plain torch version at the main paths' shapes,
      in bf16, against the plain math run in fp32 on the same bf16 inputs:
-     mod_ln and flash attention at the SD3 shapes, flash attention at d=128
+     mod_ln at the SD3 and FLUX shapes, flash attention at the SD3 shapes,
+     flash attention at d=128
      and the int4 dequant-matmul at the FLUX shapes, kernel B also at
      ragged tile edges, at the VAE mid-block of a 1024² decode (16384
      positions, d=512) and, head by head, at FLUX 2048²'s 16640 tokens;
@@ -54,13 +55,16 @@ Phases, each raising on failure (the script then exits non-zero):
      int8_matmul beside kernel C's);
   3-4d. the (B, H, S, D) flash kernels: #15 flash_attention at the SD3,
      VAE and FLUX 1024² shapes, #14 flash_attention_stats at FLUX 2048²'s
-     one-rank ring call, its four-rank chunk at three valid lengths and
-     SD3's padded four-rank chunk, against their plain versions on fp32
-     upcasts (head by head where all heads' scores would not fit), and
-     their device times; then the four-rank ring's arithmetic on one card:
-     each query slice against every key chunk through #14 in the ring's
-     order, merged by merge_chunk_stats, against kernel B over the whole
-     sequence (FLUX 2048² and SD3 512² CFG); and the fp32 instantiations of
+     one-rank ring call and its four-rank chunk at three valid lengths, and
+     at d=64 SD3 512²'s padded four-rank chunk (three valid lengths, none
+     among them), SD3 1024²'s (two) and SD3 1024²'s one-rank ring call (path
+     h), against their plain versions on fp32 upcasts (head by head where
+     all heads' scores would not fit), and their device times beside
+     F.scaled_dot_product_attention on the same q/k/v; then the four-rank
+     ring's arithmetic on one card: each query slice against every key
+     chunk through #14 in the ring's order, merged by merge_chunk_stats,
+     against kernel B over the whole sequence (FLUX 2048², SD3 512² CFG and
+     SD3 1024² CFG); and the fp32 instantiations of
      kernel B, #15 and #14 (B and #15 at the SD3, VAE and FLUX 1024² shapes,
      #14 at SD3's padded chunk and a FLUX 2048² four-rank chunk) against
      their fp32 plain versions within 2^-16 of the largest |output|, timed
@@ -95,6 +99,12 @@ Phases, each raising on failure (the script then exits non-zero):
      beside its steps):
      a. SD3-medium (24 blocks, hidden 1536), CLIP-L/G and the VAE decoder in
         bf16: 512², 50 Euler steps, CFG 5.0;
+     h. a's models at SD3-medium's native 1024² (4096 image + 154 text
+        tokens) behind DiffusionPipeline(sdpa_impl="ring", mesh=local_mesh()),
+        one NCCL rank: every joint attention one #14 call at d=64 (2, 24,
+        4250, 4250, 64), kernel B only in the VAE mid-block (16384
+        positions); then request 0 through the default dispatch, on kernel
+        B only, its latents within 3e-2 relative L2 of the ring's (h');
      b. FLUX.1-schnell int4 (19 + 38 blocks, hidden 3072, int4 block linears
         at group 64), T5-XXL, CLIP-L and the VAE decoder in bf16: 1024²,
         4 Euler steps, no CFG;
@@ -126,8 +136,9 @@ Phases, each raising on failure (the script then exits non-zero):
         through the ring, kernel B only in the VAE mid-block (65536
         positions); then request 0 through the default dispatch, on kernel
         B only, its latents within 3e-2 relative L2 of the ring's;
-     (run in the order a, a', d, e, b, c, g, f, so d and e share a's
-     encoders, g c's models and f g's, before f converts the T5);
+     (run in the order a, a', a'', h, h', d, e, b, c, g, g', f, so h, d
+     and e share a's encoders, h a's MMDiT, g c's models and f g's, before f
+     converts the T5);
   7. two denoise steps of each path under torch.profiler: device-busy time
      per step by kernel family and the device's idle share; for FLUX also
      the text encoding (T5-XXL and CLIP-L).
@@ -292,7 +303,8 @@ SYMBOLS = {
 # The sources and kernels of each function's other shapes: the fp32 flash
 # kernels (3xTF32 on wgmma at d = 64 and 128, on mma.sync at d = 512);
 # kernel B and #15 at d = 512 (the split-KV wgmma kernel and its
-# merge); #14 at d = 64 (flash_fwd_bhsd_small<64, true>); #16 at M <= 16
+# merge); #14 at d = 64 (flash_fwd_sm90_stats64, 64-row blocks; its launches
+# on path h); #16 at M <= 16
 # (w8_mm, the mma.sync main loop); #11 and #16 at M > 16 and K % 128 != 0
 # (w8_mm_sm90_k64, the 64-deep Hopper loop); C, #13 and #11 at M <= 16 and
 # E's mode plain there: the GEMV entries of the line.
@@ -300,7 +312,6 @@ FP32_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_f32.cu"
 FP32_SYMBOLS = ("flash_fwd_3xtf32_sm90<64 | 128, mode> (d = 64, 128), "
                 "flash_fwd_3xtf32<mode> (d = 512)")
 WIDE_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention_wide_sm90.cu"
-SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/flash_attention.cu"
 W8_SMALL_SOURCE = "diffusionkit_tpu_torch/csrc/w8_matmul.cu"
 FLASH_KERNELS = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 OTHER_SOURCES = {
@@ -311,8 +322,8 @@ OTHER_SOURCES = {
                         "d512_source": WIDE_SOURCE,
                         "d512_symbols": "flash_fwd_wide_sm90<true>, flash_wide_merge<true>"},
     "flash_attention_stats": {"fp32_source": FP32_SOURCE, "fp32_symbols": FP32_SYMBOLS,
-                              "d64_source": SMALL_SOURCE,
-                              "d64_symbols": "flash_fwd_bhsd_small<64, true>"},
+                              "d64_source": "diffusionkit_tpu_torch/csrc/flash_attention_sm90.cu",
+                              "d64_symbols": "flash_fwd_sm90_stats64"},
     "int8_dot": {"small_m_source": W8_SMALL_SOURCE},
     **{base: {"small_m": name} for name, base in GEMVS.items()},
     "w8_matmul": {"small_m": "w8_matmul[gemv]",
@@ -368,15 +379,24 @@ FLUX_E2E = dataclasses.replace(FLUX, name="flux-w4a8-t5w8a8")
 # bench.py's flux-2048: 16384 image + 256 text tokens; and its request 0
 # through the default dispatch, the ring's flash twin.
 FLUX_RING = dataclasses.replace(FLUX, name="flux-w4a8-2048-ring", latent=(256, 256))
-FLUX_RING_TWIN = "flux-w4a8-2048-flash"
+FLUX_RING_TWIN = dataclasses.replace(FLUX_RING, name="flux-w4a8-2048-flash",
+                                     requests=FLUX.requests[:1])
 SD3_BHSD = dataclasses.replace(SD3, name="sd3-bhsd", requests=SD3.requests[:1])
+# SD3-medium at its native 1024² (4096 image + 154 text tokens) through the
+# ring on one rank (path h: #14 at d=64), and its request 0 through the
+# default dispatch, the ring's flash twin (h').
+SD3_RING = dataclasses.replace(SD3, name="sd3-1024-ring", latent=(128, 128))
+SD3_RING_TWIN = dataclasses.replace(SD3_RING, name="sd3-1024-flash", requests=SD3.requests[:1])
 LAYOUT_ENV = "DIFFUSIONKIT_TPU_ATTN_LAYOUT"
 # Relative L2 between two runs of one request that differ only in the
-# attention's numerics (a' against a, g's flash twin against g).
+# attention's numerics (a' against a, the flash twins g' and h' against g
+# and h).
 TWIN_RTOL = 3e-2
 T5_LAYERS = T5_XXL.num_layers
 
-MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536)]  # SD3 image / text stream sites
+# SD3 image / text stream sites; FLUX.1-schnell 1024²'s image / text stream
+# sites (path b; its 38 single blocks' sites are 4352 rows).
+MOD_LN_SHAPES = [(2, 1024, 1536), (2, 154, 1536), (1, 4096, 3072), (1, 256, 3072)]
 # SD3 joint attention / VAE mid-block at 512² / FLUX joint attention at
 # 1024² / VAE mid-block at 1024² (FLUX's decode).
 FLASH_SHAPES = [(2, 1178, 24, 64), (1, 4096, 1, 512), (1, 4352, 24, 128), (1, 16384, 1, 512)]
@@ -1356,12 +1376,15 @@ def w8a8_kernels(gen, tag: str):
 
 
 # #14 at path g's one-rank ring call (FLUX.1-schnell 2048²: 16384 image +
-# 256 text tokens), at a four-rank chunk of the same sequence and at SD3
-# 512² CFG's four-rank chunk (1178 tokens padded to 1180): (B, H, Sq, Skv,
-# D) and the valid lengths checked and timed at each.
+# 256 text tokens), at a four-rank chunk of the same sequence; at d=64 SD3
+# 512² CFG's four-rank chunk (1178 tokens padded to 1180), SD3 1024² CFG's
+# (4250 tokens padded to 4252) and path h's one-rank ring call: (B, H, Sq,
+# Skv, D) and the valid lengths checked and timed at each.
 STATS_SHAPES = [((1, 24, 16640, 16640, 128), (16640,)),
                 ((1, 24, 4160, 4160, 128), (4160, 1000, 0)),
-                ((2, 24, 295, 295, 64), (295, 293))]
+                ((2, 24, 295, 295, 64), (295, 293, 0)),
+                ((2, 24, 1063, 1063, 64), (1063, 1061)),
+                ((2, 24, 4250, 4250, 64), (4250,))]
 # #15 in (B, H, S, D): SD3's joint attention, the VAE mid-block at 512²,
 # FLUX's joint attention at 1024² and the VAE mid-block at 1024² (path a'
 # runs the first two).
@@ -1370,9 +1393,10 @@ BHSD_SHAPES = [(2, 24, 1178, 64), (1, 1, 4096, 512), (1, 24, 4352, 128), (1, 1, 
 # head by head (16640 tokens x 24 heads: 26.6 GB).
 PLAIN_SCORE_BYTES = 4 << 30
 # The ring whose arithmetic phase 3-4d runs chunk by chunk on one card, and
-# the (B, H, S, D) sequences it splits: FLUX 2048² and SD3 512² CFG.
+# the (B, H, S, D) sequences it splits: FLUX 2048², SD3 512² CFG and SD3
+# 1024² CFG.
 RING_N = 4
-COMBINE_SHAPES = [(1, 24, 16640, 128), (2, 24, 1178, 64)]
+COMBINE_SHAPES = [(1, 24, 16640, 128), (2, 24, 1178, 64), (2, 24, 4250, 64)]
 
 
 def stats_plain_by_heads(q, k, v, scale: float, vlen: int):
@@ -1955,16 +1979,19 @@ def per_request_launches(path: Path, cfg) -> dict:
     only; for SD3 per_forward_sd3 by mode; plus
     the VAE mid-block's attention, and with the w8a8 T5 its 7 products and
     4 quantizations a layer. Under the bhsd switch (a') every attention
-    takes #15 instead of kernel B; through the ring (g) every joint
+    takes #15 instead of kernel B; through the ring (g, h) every joint
     attention takes #14 and kernel B runs only in the VAE. A kernel a path
     must not run has 0 (kernel C on the w4a8 paths, C, E and #13 on SD3
     w8a8, #11, C and E on SD3 int8, #14 and #15 off their paths)."""
     if path.name.startswith("sd3"):
-        mode = {"sd3": None, "sd3-w8a8": "w8a8", "sd3-int8": "int8", "sd3-bhsd": None}[path.name]
+        mode = {"sd3-w8a8": "w8a8", "sd3-int8": "int8"}.get(path.name)
         per = {k: path.steps * v for k, v in per_forward_sd3(cfg.depth_multimodal, mode).items()}
         per["flash_attention_bshd"] += 1
         if path.name == SD3_BHSD.name:
             per["flash_attention"] = per.pop("flash_attention_bshd")
+        if path.name == SD3_RING.name:
+            per["flash_attention_stats"] = per["flash_attention_bshd"] - 1
+            per["flash_attention_bshd"] = 1
         return per
     dual, uni = cfg.depth_multimodal, cfg.depth_unified
     if path.name == FLUX.name:
@@ -2223,32 +2250,44 @@ def decode_fp32(pipe, latents, tag: str) -> dict:
     return launches
 
 
-def flash_twin(pipe, ring_latents, ring_step_ms: float, tag: str) -> dict:
-    """Path g's request 0 through the default dispatch (no ring), on the
-    same models: kernel B at every attention, #14 never; its latents against
-    the ring request's."""
-    path = FLUX_RING
-    twin = FluxPipeline(device="cuda", quantize_mmdit="w4a8")
-    for name in ("mmdit", "t5", "clip_l", "decoder", "tokenizer_l", "t5_tokenizer"):
-        setattr(twin, name, getattr(pipe, name))
+def flash_twin(pipe, path: Path, twin: Path, ring_latents, ring_step_ms: float,
+               tag: str) -> dict:
+    """A ring path's request 0 through the default dispatch (no ring), on
+    the same models (a shallow copy of ``pipe`` without ``sdpa_impl`` and
+    ``mesh``): kernel B at every attention, #14 never, each kernel launched
+    as on ``twin``; its latents against the ring request's."""
+    plain = copy.copy(pipe)
+    plain.sdpa_impl, plain.mesh = None, None
     text, seed = path.requests[0]
     reset_counts()
-    cond, pooled = twin.encode_text(text, path.cfg)
-    latents, it = twin.denoise_latents(cond, pooled, num_steps=path.steps, cfg_weight=path.cfg,
-                                       latent_size=path.latent, seed=seed)
-    twin.decode_latents_to_u8(latents)
+    cond, pooled = plain.encode_text(text, path.cfg)
+    latents, it = plain.denoise_latents(cond, pooled, num_steps=path.steps, cfg_weight=path.cfg,
+                                        latent_size=path.latent, seed=seed)
+    plain.decode_latents_to_u8(latents)
     torch.cuda.synchronize()
     launches = counts()
-    per = per_request_launches(FLUX_W4A8, twin.mmdit.config)
-    check_launches(launches, per, 1, f"{path.name}'s request 0 without the ring")
+    check_launches(launches, per_request_launches(twin, plain.mmdit.config), 1,
+                   f"{path.name}'s request 0 without the ring")
     rel = rel_l2(latents, ring_latents)
     step_ms = 1e3 * statistics.median(it)
-    log(f"  {FLUX_RING_TWIN}: final latents relative L2 against the ring request's {rel!r} "
+    log(f"  {twin.name}: final latents relative L2 against the ring request's {rel!r} "
         f"(tolerance {TWIN_RTOL}); denoise median {step_ms!r} ms/step against the ring's "
         f"{ring_step_ms!r} [{tag}]")
     if not rel < TWIN_RTOL:
         raise AssertionError("the ring's latents are off the default dispatch's")
     return launches
+
+
+def build_sd3_ring(gen, prev: DiffusionPipeline) -> DiffusionPipeline:
+    """Path h: a's models (SD3-medium, CLIP-L/G, the VAE decoder and the
+    tokenizers) behind DiffusionPipeline(sdpa_impl="ring",
+    mesh=local_mesh()), a one-rank NCCL mesh."""
+    mesh = local_mesh()
+    log(f"  local_mesh(): {mesh}, backend {torch.distributed.get_backend()}")
+    pipe = DiffusionPipeline(device="cuda", sdpa_impl="ring", mesh=mesh)
+    for name in ("mmdit", "clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g"):
+        setattr(pipe, name, getattr(prev, name))
+    return pipe
 
 
 def build_flux_ring(gen, prev: FluxPipeline) -> FluxPipeline:
@@ -2264,7 +2303,8 @@ def build_flux_ring(gen, prev: FluxPipeline) -> FluxPipeline:
 
 
 # The flash kernels as the profiler names them, demangled or not: #14 is
-# flash_fwd_sm90_stats<128> and flash_fwd_bhsd_small<64, true>, #15
+# flash_fwd_sm90_stats<128> and flash_fwd_sm90_stats64 (flash_fwd_bhsd_small
+# <64, true> in earlier builds), #15
 # flash_fwd_sm90<D, true> and at d = 512 flash_fwd_wide_sm90<true> with
 # flash_wide_merge<true>, kernel B the same with false (and the d = 512
 # kernel of earlier builds, flash_fwd_wide<512, .>).
@@ -2373,13 +2413,13 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
 
 # The redesigned kernels, held to 0 spill bytes (and, with the rest, to no
 # C7512, "wgmma serialized"): the d = 512 wgmma kernel and its merge, the
-# 3xTF32 fp32 flash kernels, the Hopper main loops of E, C and #13, the
-# M <= 16 GEMVs of C, #13, E and #11, the row kernels A', D and #4, #11's
-# 64-deep Hopper loop and #10.
-NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32", "w4a8_mm_sm90",
-            "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv", "w8_gemv",
-            "mod_ln_quant_kernel", "quantize_kernel", "gelu_quantize_kernel", "w8_mm_sm90_k64",
-            "dequant_w8_kernel")
+# 3xTF32 fp32 flash kernels, #14's 64-row kernel at d = 64, the Hopper main
+# loops of E, C and #13, the M <= 16 GEMVs of C, #13, E and #11, the row
+# kernels A', D and #4, #11's 64-deep Hopper loop and #10.
+NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32", "flash_fwd_sm90_stats64",
+            "w4a8_mm_sm90", "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv",
+            "w8_gemv", "mod_ln_quant_kernel", "quantize_kernel", "gelu_quantize_kernel",
+            "w8_mm_sm90_k64", "dequant_w8_kernel")
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")
@@ -2490,9 +2530,11 @@ def main() -> None:
 
     families = {}
     pipe = None
-    # d and e reuse a's encoders and decoder, c b's, g c's models, f g's
-    # (f converts the T5 to w8a8 in place, so g, with the bf16 T5, comes first).
-    plan = (("a", SD3, build_sd3, False), ("d", SD3_W8A8, build_sd3_quantized("w8a8"), True),
+    # h reuses a's models, d and e a's encoders and decoder, c b's, g c's
+    # models, f g's (f converts the T5 to w8a8 in place, so g, with the bf16
+    # T5, comes first).
+    plan = (("a", SD3, build_sd3, False), ("h", SD3_RING, build_sd3_ring, True),
+            ("d", SD3_W8A8, build_sd3_quantized("w8a8"), True),
             ("e", SD3_INT8, build_sd3_quantized("int8"), True), ("b", FLUX, build_flux, False),
             ("c", FLUX_W4A8, build_flux_w4a8, True), ("g", FLUX_RING, build_flux_ring, True),
             ("f", FLUX_E2E, build_flux_e2e, True))
@@ -2519,9 +2561,11 @@ def main() -> None:
             launches[SD3_BHSD.name], families[SD3_BHSD.name] = bhsd["launches"], bhsd["families"]
             log("phase 6a'': path a's request 0 latents decoded by DiffusionPipeline(a16=False)")
             launches["sd3-decode-fp32"] = decode_fp32(pipe, served["latents"], tag)
-        if path is FLUX_RING:
-            log(f"phase 6g': {FLUX_RING.name}'s request 0 through the default dispatch")
-            launches[FLUX_RING_TWIN] = flash_twin(pipe, served["latents"], served["step_ms"], tag)
+        twin = {SD3_RING.name: SD3_RING_TWIN, FLUX_RING.name: FLUX_RING_TWIN}.get(path.name)
+        if twin is not None:
+            log(f"phase 6{letter}': {path.name}'s request 0 through the default dispatch")
+            launches[twin.name] = flash_twin(pipe, path, twin, served["latents"],
+                                             served["step_ms"], tag)
         del served
     log(f"  elementwise 'other' per FLUX step: w4a8 {families['flux-w4a8']['other']!r} ms, "
         f"int4 {families['flux']['other']!r} ms (the int4 path's fp32 bias and "

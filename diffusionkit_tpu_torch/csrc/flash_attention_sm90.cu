@@ -1,7 +1,9 @@
 // Non-causal flash attention for Hopper, bf16: kernel B and #15 at d = 64
 // and 128 (`flash_fwd_sm90<D, kScaleFirst>`) and #14 at d = 128
 // (`flash_fwd_sm90_stats<128>`), one block body in compile-time modes
-// (`flash_sm90_block`), so each kernel is its own function.
+// (`flash_sm90_block`), so each kernel is its own function; and #14 at
+// d = 64 (`flash_fwd_sm90_stats64`), a block shaped for short ring chunks
+// that shares the body's helpers.
 //
 // Replaces the Pallas kernels of diffusionkit_tpu/ops/flash_attention.py at
 // these head dims (the C entry points in flash_attention.cu route here):
@@ -35,12 +37,18 @@
 // 3.40 TFLOP (3.44 ms) against 0.51 GB (0.31 GB of bf16 q/k/v, 0.20 GB of
 // fp32 o): compute-bound at every shape the models run, so the design
 // keeps the tensor cores fed and takes the softmax off their path.
-// #14 at d = 64 (only a multi-rank SD3 ring's chunk runs it) stays on
-// flash_attention.cu's flash_fwd_bhsd_small<64, true>: at SD3's four-rank
-// chunk (2, 24, 295, 295, 64) this design's 128-row blocks leave a 12-block
-// second wave (144 blocks on 132 SMs) and ran 0.0153 / 0.0152 ms against
-// that kernel's 0.0141 / 0.0128 (tools/bench_flash on an NVIDIA H100 80GB
-// HBM3 at 700 W, the two timed in turns in one run).
+// #14 at d = 64 runs its own kernel, flash_fwd_sm90_stats64 (its design
+// below). Its bound: 4 B H Sq vlen 64 operations against q, k, v read once
+// and o (fp32), m and l written; at SD3 512² CFG's four-rank ring chunk
+// (2, 24, 295, 295, 64) 1.07 GFLOP (0.0011 ms) against 9.2 MB (0.0027 ms),
+// bytes-bound; at SD3 1024² CFG's one-rank ring call (2, 24, 4250, 4250,
+// 64) 222 GFLOP (0.224 ms) against 0.13 GB (0.039 ms), compute-bound. This
+// body's 128-row blocks (flash_fwd_sm90_stats<64>) leave a 12-block second
+// wave at the 295 chunk (144 blocks on 132 SMs) and were slower than the
+// 64-row kernel at all three SD3 shapes, 295, 1063 and 4250 tokens: 0.0145,
+// 0.0578-0.0585 and 0.576-0.579 ms against 0.0070, 0.0481-0.0482 and
+// 0.525-0.544 (tools/bench_flash on an NVIDIA H100 80GB HBM3 at 700 W, the
+// two in turns in one run), so it is not instantiated.
 //
 // Design (one block = 128 query rows of one (batch, head); grid (Sq/128, H, B)):
 //  * 3 warpgroups, 384 threads. Warpgroup 0 is the producer: setmaxnreg
@@ -79,6 +87,22 @@
 //      turn, and the two consumers take turns issuing their products on
 //      named barriers (ping-pong): one's softmax runs under the other's
 //      products (~3 % faster than without the turns).
+//
+// Design of #14 at d = 64 (flash_fwd_sm90_stats64; one block = 64 query rows
+// of one (batch, head); grid (Sq/64, H, B), 240 blocks at the 295 chunk):
+//  * 160 threads: one consumer warpgroup (warps 0-3) and one producer warp
+//    (warp 4), no setmaxnreg; 105 KB of shared memory and __launch_bounds__
+//    (160, 2), so two blocks share an SM and the 295 chunk runs in one wave.
+//  * TMA as above: Q in one 64-row box, K and V in 128-key boxes through a
+//    ring of 3 stages (384 keys), so a chunk up to 384 keys long is asked
+//    for at once and the block waits on one memory latency, not one a tile;
+//    longer chunks cycle the ring on its empty barriers.
+//  * Products and softmax as the d = 64 path above: S = Q K^T by wgmma
+//    m64n128k16 (SS), O += P V by m64n64k16 with P from registers and V
+//    MN-major, tile j's scores overlapping tile j-1's P.V.
+//  * Epilogue: o scaled by 1 / max(l, 1e-30) into K stage 0 in TMA's
+//    128-byte swizzle (two boxes of 32 fp32 columns), then two TMA stores
+//    write whole row segments and clip rows past Sq; m and l once a row.
 
 #include <type_traits>
 
@@ -455,17 +479,186 @@ __global__ void __launch_bounds__(384, 1)
   flash_sm90_block<D, true, true>(tq, tk, tv, o, m, l, Sq, vlen, osb, oss, osh, sc);
 }
 
+// #14 at d = 64: a block is 64 query rows of one (batch, head), one
+// consumer warpgroup (warps 0-3) and a producer warp (warp 4); 128-key
+// tiles in a ring of 3 stages, so a chunk of up to 384 keys is asked for
+// at once. Q (8 KB), the K and V rings (3 x 16 KB each) and the barriers
+// take 105 KB, so two blocks share an SM; registers are not rebalanced.
+struct Stats64Tile {
+  static constexpr int BQ = 64, BK = 128, kStages = 3, kThreads = 160;
+  static constexpr uint32_t kQBytes = 64 * 128;    // 64 rows x 128 bytes
+  static constexpr uint32_t kKVBytes = 128 * 128;  // 128 keys x 128 bytes
+  static constexpr uint32_t kOBoxBytes = 64 * 128;  // 64 rows x 32 fp32 columns
+  // Q, the K ring, the V ring, then the barriers: q_full, k_full[kStages],
+  // v_full[kStages], empty[kStages].
+  static constexpr uint32_t kBarOffset = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr size_t kSmem = kBarOffset + 8 * (1 + 3 * kStages) + 1024;  // + alignment
+  // 228 KB an SM, 1 KB of it reserved for each block.
+  static_assert(2 * (kSmem + 1024) <= 233472, "two blocks an SM");
+  static_assert(2 * kOBoxBytes <= kKVBytes, "the o tile fits K stage 0");
+};
+
+// #14 at d = 64 (see Stats64Tile): q rows [0, Sq) of one (batch, head)
+// against the chunk's vlen valid keys (the k and v maps hold vlen rows); `sc`
+// is the scale. The consumer overlaps tile j's scores with tile j-1's P.V,
+// as the d = 64 kOverlap path of flash_sm90_block does, with #14's numerics.
+// o goes out through shared memory (K stage 0, free once the last tile's
+// products are done) by two TMA stores of 64 rows x 32 fp32 columns, whole
+// 128-byte row segments; m and l are written once a row.
+__global__ void __launch_bounds__(Stats64Tile::kThreads, 2)
+    flash_fwd_sm90_stats64(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to, float* __restrict__ m_out,
+                           float* __restrict__ l_out, int Sq, int vlen, float sc) {
+  using T = Stats64Tile;
+  constexpr int BK = T::BK, NS = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle atoms' alignment
+  const uint32_t sQ = base, sK = base + T::kQBytes, sV = sK + NS * T::kKVBytes;
+  const uint32_t q_full = base + T::kBarOffset;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * NS, empty = v_full + 8 * NS;
+
+  const int q0 = blockIdx.x * T::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int nk = (vlen + BK - 1) / BK;  // 0 with no valid key: nothing is loaded
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);  // the consumer's 4 warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // Producer: one thread asks for Q and every K / V tile as soon as its
+    // stage is free; a chunk of up to NS tiles goes out at once.
+    if (lane == 0 && nk > 0) {
+      mbar_arrive_expect_tx(q_full, T::kQBytes);
+      tma_load_4d(sQ, &tq, q_full, 0, q0, h, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % NS;
+        mbar_wait(empty + 8 * s, ((j / NS) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full + 8 * s, T::kKVBytes);
+        tma_load_4d(sK + s * T::kKVBytes, &tk, k_full + 8 * s, 0, j * BK, h, b);
+        mbar_arrive_expect_tx(v_full + 8 * s, T::kKVBytes);
+        tma_load_4d(sV + s * T::kKVBytes, &tv, v_full + 8 * s, 0, j * BK, h, b);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup: the block's 64 query rows, 16 a warp.
+  const int g = lane >> 2, t = lane & 3;
+  const float cexp = sc * kLog2e, mscale = sc, malpha = kLog2e;
+  float oacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+  RowState st{kNegInf, kNegInf, 0.f, 0.f};
+  float sacc[BK / 2];
+  uint32_t pa[BK / 16][4];
+  float al0, al1;
+  const uint64_t desc_q = desc_sw128(sQ, 16, 1024);
+  const uint64_t desc_k = desc_sw128(sK, 16, 1024);
+  const uint64_t desc_v = desc_sw128(sV, T::kKVBytes, 1024);
+  constexpr uint32_t kStage = T::kKVBytes >> 4;
+  auto wait_k = [&](int j) { mbar_wait(k_full + 8 * (j % NS), (j / NS) & 1); };
+  auto wait_v = [&](int j) { mbar_wait(v_full + 8 * (j % NS), (j / NS) & 1); };
+  auto release = [&](int j) {
+    if (lane == 0) mbar_arrive(empty + 8 * (j % NS));
+  };
+  if (nk > 0) {
+    mbar_wait(q_full, 0);
+    wait_k(0);
+    wgmma_fence();
+    issue_scores<64>(sacc, desc_q, desc_k);
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    softmax_tile<BK>(sacc, st, 0, vlen, t, cexp, mscale, malpha, al0, al1);
+    pack_p<BK>(pa, sacc);
+    for (int j = 1; j < nk; ++j) {
+      wait_k(j);
+      wait_v(j - 1);
+      fence_regs(oacc);
+      wgmma_fence();
+      issue_scores<64>(sacc, desc_q, desc_k + (j % NS) * kStage);
+      issue_pv<64>(oacc, pa, desc_v + ((j - 1) % NS) * kStage);
+      wgmma_wait<1>();  // the scores; P.V may still run
+      fence_regs(sacc);
+      softmax_tile<BK>(sacc, st, j, vlen, t, cexp, mscale, malpha, al0, al1);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      release(j - 1);
+      rescale<64>(oacc, al0, al1);
+      pack_p<BK>(pa, sacc);
+    }
+    wait_v(nk - 1);
+    fence_regs(oacc);
+    wgmma_fence();
+    issue_pv<64>(oacc, pa, desc_v + ((nk - 1) % NS) * kStage);
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    release(nk - 1);
+  }
+
+  float l0 = st.l0, l1 = st.l1;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // l >= 1 wherever a key is valid, 0 only with none (o = 0 then).
+  const float r0 = 1.f / fmaxf(l0, 1e-30f), r1 = 1.f / fmaxf(l1, 1e-30f);
+  // o into K stage 0 as TMA's 128-byte swizzle lays a box out: row r's
+  // 16-byte chunk c at r * 128 + ((c ^ (r % 8)) * 16), box x holding columns
+  // 32x .. 32x + 31. A warp's float2 stores then fill every bank twice.
+  named_bar_sync(1, 128);  // every product of the warpgroup has read its K tiles
+  const uint32_t sO = sK;
+  const int r = 16 * warp + g;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const uint32_t box = sO + (n >> 2) * T::kOBoxBytes;
+    const uint32_t chunk = 2 * (n & 3) + (t >> 1), off = (t & 1) * 8;
+    st_shared_v2f(box + r * 128 + ((chunk ^ (r & 7)) << 4) + off, oacc[4 * n] * r0,
+                  oacc[4 * n + 1] * r0);
+    st_shared_v2f(box + (r + 8) * 128 + ((chunk ^ ((r + 8) & 7)) << 4) + off,
+                  oacc[4 * n + 2] * r1, oacc[4 * n + 3] * r1);
+  }
+  fence_proxy_async();
+  named_bar_sync(1, 128);
+  if (threadIdx.x == 0) {  // rows past Sq are not written
+    tma_store_4d(&to, sO, 0, q0, h, b);
+    tma_store_4d(&to, sO + T::kOBoxBytes, 32, q0, h, b);
+    bulk_commit_group();
+  }
+  if (t == 0) {  // m is quad-uniform (the softmax's shuffles), l reduced above
+    const long long rows = ((long long)b * gridDim.y + h) * Sq;
+    const int row0 = q0 + r, row1 = row0 + 8;
+    if (row0 < Sq) {
+      m_out[rows + row0] = st.m0;
+      l_out[rows + row0] = l0;
+    }
+    if (row1 < Sq) {
+      m_out[rows + row1] = st.m1;
+      l_out[rows + row1] = l1;
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait_group_read0();  // the tile stays until TMA has read it
+}
+
 // The tensor map of one (B, S, H, D) operand read through its strides (in
-// elements, batch / sequence / head), a box of 64 columns x 128 rows; a dim
-// of size 1 takes a stride of 16 bytes, which TMA accepts whatever torch
-// reports for it.
+// elements, batch / sequence / head), a box of 64 columns x `rows` rows; a
+// dim of size 1 takes a stride of 16 bytes, which TMA accepts whatever
+// torch reports for it.
 int encode_operand(CUtensorMap* map, const void* p, int B, int S, int H, int D, long long sb,
-                   long long ss, long long sh) {
+                   long long ss, long long sh, cuuint32_t rows = 128) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {S == 1 ? 16 : 2 * (cuuint64_t)ss,
                                  H == 1 ? 16 : 2 * (cuuint64_t)sh,
                                  B == 1 ? 16 : 2 * (cuuint64_t)sb};
-  const cuuint32_t box[4] = {64, 128, 1, 1};
+  const cuuint32_t box[4] = {64, rows, 1, 1};
   return encode_tmap_bf16_4d(map, p, dims, strides, box);
 }
 
@@ -511,6 +704,37 @@ int launch_sm90_stats(const void* q, const void* k, const void* v, float* o, flo
   return (int)cudaGetLastError();
 }
 
+// #14 at d = 64: q read in 64-row boxes, the k and v maps holding the vlen
+// valid keys (Skv rows where vlen is 0: no tile is loaded then) in 128-row
+// boxes, and o (fp32, its strides in elements) written through a map of
+// 64-row x 32-column boxes, 128-byte swizzle.
+int launch_sm90_stats64(const void* q, const void* k, const void* v, float* o, float* m,
+                        float* l, int B, int H, int Sq, int Skv, int vlen,
+                        const long long (&st)[12], float scale, cudaStream_t stream) {
+  using T = Stats64Tile;
+  CUtensorMap tq, tk, tv, to;
+  const int rows = vlen > 0 ? vlen : Skv;
+  int e = encode_operand(&tq, q, B, Sq, H, 64, st[0], st[1], st[2], T::BQ);
+  if (e == 0) e = encode_operand(&tk, k, B, rows, H, 64, st[3], st[4], st[5], T::BK);
+  if (e == 0) e = encode_operand(&tv, v, B, rows, H, 64, st[6], st[7], st[8], T::BK);
+  if (e == 0) {
+    const cuuint64_t dims[4] = {64, (cuuint64_t)Sq, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {Sq == 1 ? 16 : 4 * (cuuint64_t)st[10],
+                                   H == 1 ? 16 : 4 * (cuuint64_t)st[11],
+                                   B == 1 ? 16 : 4 * (cuuint64_t)st[9]};
+    const cuuint32_t box[4] = {32, (cuuint32_t)T::BQ, 1, 1};
+    e = encode_tmap(&to, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, o, dims, strides, box);
+  }
+  if (e != 0) return e;
+  const cudaError_t a = cudaFuncSetAttribute(
+      flash_fwd_sm90_stats64, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  if (a != cudaSuccess) return (int)a;
+  const dim3 grid((Sq + T::BQ - 1) / T::BQ, H, B);
+  flash_fwd_sm90_stats64<<<grid, T::kThreads, T::kSmem, stream>>>(tq, tk, tv, to, m, l, Sq, vlen,
+                                                                  scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Kernel B (scale_first false, `sc` = scale * log2(e)) or #15 (true, `sc` =
@@ -529,14 +753,17 @@ int dk_flash_attn_sm90_bf16(const void* q, const void* k, const void* v, void* o
   return (int)cudaErrorInvalidValue;
 }
 
-// #14 at d = 128: q (B, H, Sq, D) against k/v (B, H, Skv, D) with `vlen`
-// valid leading keys; strides as above (o's in fp32 elements), m and l
-// contiguous (B, H, Sq). Called by flash_attention.cu's entry point.
+// #14 at d = 64 or 128: q (B, H, Sq, D) against k/v (B, H, Skv, D) with
+// `vlen` valid leading keys; strides as above (o's in fp32 elements), m and
+// l contiguous (B, H, Sq). Called by flash_attention.cu's entry point.
 int dk_flash_attn_stats_sm90_bf16(const void* q, const void* k, const void* v, float* o,
                                   float* m, float* l, int B, int H, int Sq, int Skv, int D,
                                   int vlen, const long long (&strides)[12], float scale,
                                   void* stream) {
-  if (D != 128) return (int)cudaErrorInvalidValue;
-  return launch_sm90_stats<128>(q, k, v, o, m, l, B, H, Sq, Skv, vlen, strides, scale,
-                                static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_sm90_stats64(q, k, v, o, m, l, B, H, Sq, Skv, vlen, strides, scale, st);
+  if (D == 128)
+    return launch_sm90_stats<128>(q, k, v, o, m, l, B, H, Sq, Skv, vlen, strides, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tensor loads, wgmma (bf16 and int8) and its shared-memory
+// TMA tensor loads and stores, wgmma (bf16 and int8) and its shared-memory
 // descriptors, setmaxnreg. Inline PTX, no CUTLASS/CuTe. The one host helper
 // encodes a tensor map through the runtime's driver entry point, so the
 // library needs no -lcuda.
@@ -88,12 +88,39 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// ---- ordinary shared-memory store (an operand a thread writes itself) -----
+// Shared memory at `src` into one box of a 4-d tensor map (coordinates
+// innermost first), tracked by this thread's bulk groups; elements outside
+// the tensor are not written. Threads that wrote `src` call
+// fence_proxy_async() before the barrier that precedes the store.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit_group() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's committed bulk stores have read their shared
+// memory (it may then be reused, or the block exit).
+__device__ __forceinline__ void bulk_wait_group_read0() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ---- ordinary shared-memory stores (an operand a thread writes itself) ----
 
 __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
                "r"(v.z), "r"(v.w)
                : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v2f(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
 }
 
 // ---- named barriers -------------------------------------------------------

@@ -18,16 +18,18 @@ bf16 inputs are compute-bound and run on the tensor cores with an
 in-register online softmax, any strides read in place. Kernel B and #15 at
 d=64 and 128, and #14 at d=128, run ``csrc/flash_attention_sm90.cu``, one
 Hopper design: TMA loads into a ring of shared-memory stages fed by a
-producer warp, and two consumer warpgroups issuing ``wgmma``. Kernel B and
-#15 at d=512 run ``csrc/flash_attention_wide_sm90.cu``: TMA and ``wgmma``
-too, two consumer warpgroups sharing 64 query rows, and the keys split
-into chunks (``wide_split``) whose fp32 partials a merge kernel combines,
-from scratch this module allocates. #14 at d=64 runs
-``csrc/flash_attention.cu`` (``mma.sync`` products). The note in each
-source has the details. fp32 inputs run ``csrc/flash_attention_f32.cu``,
-what the reference computes in fp32 (fp32 scores, softmax and P.V, P not
-rounded): 3xTF32 products on the tensor cores at every head dim, within
-2^-16 of the largest |output| of the fp32 plain version.
+producer warp, and two consumer warpgroups issuing ``wgmma``. #14 at d=64
+runs the same file's kernel for short ring chunks: 64-row blocks of one
+consumer warpgroup, two blocks an SM, a chunk's keys fetched at once, o
+stored by TMA. Kernel B and #15 at d=512 run
+``csrc/flash_attention_wide_sm90.cu``: TMA and ``wgmma`` too, two consumer
+warpgroups sharing 64 query rows, and the keys split into chunks
+(``wide_split``) whose fp32 partials a merge kernel combines, from scratch
+this module allocates. The note in each source has the details. fp32
+inputs run ``csrc/flash_attention_f32.cu``, what the reference computes in
+fp32 (fp32 scores, softmax and P.V, P not rounded): 3xTF32 products on the
+tensor cores at every head dim, within 2^-16 of the largest |output| of the
+fp32 plain version.
 
 Each wrapper launches its kernel for a CUDA tensor and raises on what the
 kernel does not take (bf16 or fp32, one dtype for q, k and v; d in

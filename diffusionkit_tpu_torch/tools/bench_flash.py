@@ -4,8 +4,10 @@
 
 At each (B, S, H, D) (by default FLUX.1 1024²'s and SD3-medium 512²'s joint
 attention, FLUX.1 2048²'s 16640 tokens, where the one-rank ring runs #14 on
-every joint attention, and the VAE decoder's mid-block at 512² and 1024²,
-one head of 512 over 4096 and 16384 positions), on the same random q, k, v
+every joint attention, the VAE decoder's mid-block at 512² and 1024², one
+head of 512 over 4096 and 16384 positions, and #14's three d=64 shapes:
+SD3-medium 512² CFG's four-rank ring chunk (295 tokens), 1024² CFG's (1063)
+and 1024²'s one-rank ring call (4250)), on the same random q, k, v
 (bf16, or fp32 with ``--fp32``): kernel B on (B, S, H, D), #15 and #14
 (every key valid; not at d=512, which no ring runs) on contiguous (B, H, S,
 D) copies, and ``F.scaled_dot_product_attention`` on those copies, the
@@ -33,7 +35,8 @@ from ..ops.flash_attention import (
 from . import device_label, device_ms
 
 DEFAULT_FLASH_SHAPES = ((1, 4352, 24, 128), (2, 1178, 24, 64), (1, 16640, 24, 128),
-                        (1, 4096, 1, 512), (1, 16384, 1, 512))
+                        (1, 4096, 1, 512), (1, 16384, 1, 512), (2, 295, 24, 64),
+                        (2, 1063, 24, 64), (2, 4250, 24, 64))
 NAMES = ("flash_attention_bshd", "flash_attention", "flash_attention_stats", "sdpa")
 
 

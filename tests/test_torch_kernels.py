@@ -352,12 +352,17 @@ BHSD_SHAPES = [(2, 24, 1178, 64), (1, 1, 4096, 512), (1, 24, 4352, 128), (1, 3, 
                    (1, 2, s, d) for d in (64, 128) for s in TILE_EDGES]
 # (B, H, Sq, Skv, D) of #14: FLUX 2048² at one rank and one of four, SD3's
 # padded 1178 tokens at four ranks, and small ragged chunks with Sq != Skv.
-# Plus, at d = 64 and 128, the Hopper kernel's tile edges with Sq != Skv:
-# one query or key past a 128-row tile, one short of two, and nine tiles.
+# Plus, at d = 64 and 128, the Hopper kernels' tile edges with Sq != Skv:
+# one query or key past a 128-row tile, one short of two, and nine tiles;
+# and at d = 64 the 64-row blocks' edges (Sq 1, 63, 64, 65 and SD3 512²'s
+# 295-row chunk) against key chunks of other lengths, one of them past the
+# 3-stage ring's 384 keys. SD3 1024² CFG's four-rank chunk besides.
 STATS_EDGES = [(1, 2, sq, skv, d) for d in (64, 128)
-               for sq, skv in ((128, 129), (129, 255), (255, 1153), (1153, 128))]
-STATS_SHAPES = [(1, 24, 4160, 4160, 128), (2, 24, 295, 295, 64), (1, 3, 77, 130, 64),
-                (2, 2, 150, 61, 128)] + STATS_EDGES
+               for sq, skv in ((128, 129), (129, 255), (255, 1153), (1153, 128))] + [
+                   (1, 3, sq, skv, 64)
+                   for sq, skv in ((1, 130), (63, 385), (64, 65), (65, 64), (295, 1063))]
+STATS_SHAPES = [(1, 24, 4160, 4160, 128), (2, 24, 295, 295, 64), (2, 24, 1063, 1063, 64),
+                (1, 3, 77, 130, 64), (2, 2, 150, 61, 128)] + STATS_EDGES
 
 
 @pytest.mark.gpu
@@ -420,17 +425,39 @@ def assert_stats_close(got, q, k, v, scale, vlen):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", STATS_EDGES)
 def test_flash_stats_kernel_at_key_tile_edges(cuda, shape):
-    """#14 at valid lengths around the 128-key tile: one key, one short of a
-    tile, a tile, one past it, and every key; each within
-    test_flash_stats_kernel_matches_plain's bounds."""
+    """#14 at valid lengths around its key tiles: none, one key, one short
+    of 64, 64, one past it, one short of a 128-key tile, a tile, one past
+    it, two short of every key and every key; each within
+    test_flash_stats_kernel_matches_plain's bounds (none exactly)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     b, h, sq, skv, d = shape
     q = torch.randn(b, h, sq, d, generator=g, device=cuda).bfloat16()
     k, v = (torch.randn(b, h, skv, d, generator=g, device=cuda).bfloat16() for _ in range(2))
-    for vlen in sorted({1, 127, 128, 129, skv} & set(range(1, skv + 1))):
+    for vlen in sorted({0, 1, 63, 64, 65, 127, 128, 129, skv - 2, skv} & set(range(skv + 1))):
         got = flash_attention_stats(q, k, v, d**-0.5, vlen)
         torch.cuda.synchronize()
         assert_stats_close(got, q, k, v, d**-0.5, vlen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 24, 295, 295, 64), (1, 3, 65, 385, 64),
+                                   (2, 4, 1063, 1063, 64), (1, 2, 129, 255, 128)])
+@pytest.mark.parametrize("vlen_less", [0, 2])
+def test_flash_stats_kernel_on_bshd_views_repeats_bit_for_bit(cuda, shape, vlen_less):
+    """#14 on strided (B, H, S, D) views of (B, S, H, D) tensors, as the
+    ring reads the MMDiT's q/k/v: within test_flash_stats_kernel_matches_plain's
+    bounds, and a second call on the same inputs bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    b, h, sq, skv, d = shape
+    q = torch.randn(b, sq, h, d, generator=g, device=cuda).bfloat16().transpose(1, 2)
+    k, v = (torch.randn(b, skv, h, d, generator=g, device=cuda).bfloat16().transpose(1, 2)
+            for _ in range(2))
+    vlen = skv - vlen_less
+    first = flash_attention_stats(q, k, v, d**-0.5, vlen)
+    again = flash_attention_stats(q, k, v, d**-0.5, vlen)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+    assert_stats_close(first, q, k, v, d**-0.5, vlen)
 
 
 @pytest.mark.gpu

@@ -28,11 +28,13 @@ from diffusionkit_tpu_torch.ops.attention import sdpa, xla_sdpa
 from diffusionkit_tpu_torch.ops.flash_attention import flash_attention_plain, flash_attention_stats
 from diffusionkit_tpu_torch.parallel import create_mesh, local_mesh, merge_chunk_stats
 from diffusionkit_tpu_torch.parallel.ring_attention import ring_attention
-from diffusionkit_tpu_torch.pipeline import FluxPipeline
+from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline
 
 from test_torch_flux import flux_pipelines  # noqa: F401 (a fixture)
 from test_torch_flux import flux_inputs, tiny_flux, with_unit_qk_scales
 from test_torch_models import randomize, torch_config
+from test_torch_pipeline import NEGATIVE, PROMPT, SEED
+from test_torch_pipeline import pipelines as sd3_pipelines  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -275,3 +277,44 @@ def test_flux_pipeline_ring_matches_jax(flux_pipelines, one_rank):  # noqa: F811
     a, b = np.asarray(jimg).astype(int), np.asarray(timg).astype(int)
     assert a.shape == b.shape == (64, 64, 3) and b.std() > 5
     assert np.abs(a - b).max() <= 1
+
+
+def test_sd3_pipeline_ring_matches_jax(sd3_pipelines, one_rank, monkeypatch):  # noqa: F811
+    """The tiny SD3 DiffusionPipeline with sdpa_impl="ring" on
+    local_mesh("cpu") (every joint attention one #14 chunk at d = 64)
+    against the JAX pipeline with sdpa_impl="ring" on a 1x1 mesh, CFG 5.0,
+    with tests/test_torch_pipeline.py's tolerances."""
+    # JAX runs its Pallas mod_ln in interpret mode at the eligible sites.
+    monkeypatch.setenv("DIFFUSIONKIT_TPU_FUSED_QUANT", "interpret")
+    chunks = []
+
+    def chunk(q, *args):
+        chunks.append(tuple(q.shape))
+        return flash_attention_stats(q, *args)
+
+    monkeypatch.setattr(sys.modules[ring_attention.__module__], "flash_attention_stats", chunk)
+    jp, tp = sd3_pipelines
+    ring = DiffusionPipeline(shift=3.0, a16=False, device="cpu", sdpa_impl="ring", mesh=one_rank)
+    for name in ("clip_l", "clip_g", "mmdit", "decoder", "tokenizer_l", "tokenizer_g"):
+        setattr(ring, name, getattr(tp, name))
+    assert ring.mmdit.config.head_dim == 64
+    jp.sdpa_impl, jp.mesh = "ring", jax_create_mesh(1, 1, devices=jax.devices()[:1])
+    try:
+        kw = dict(num_steps=2, cfg_weight=5.0, latent_size=(8, 8), seed=SEED)
+        jc, jpool = jp.encode_text(PROMPT, 5.0, NEGATIVE)
+        tc, tpool = ring.encode_text(PROMPT, 5.0, NEGATIVE)
+        jlat, _ = jp.denoise_latents(jc, jpool, **kw)
+        tlat, _ = ring.denoise_latents(tc, tpool, **kw)
+        jlat = np.asarray(jlat)
+        assert np.abs(jlat).max() > 1.0
+        np.testing.assert_allclose(tlat.numpy(), jlat, atol=1e-3, rtol=1e-3)
+        jimg, _ = jp.generate_image(PROMPT, negative_text=NEGATIVE, verbose=False, **kw)
+        timg, _ = ring.generate_image(PROMPT, negative_text=NEGATIVE, verbose=False, **kw)
+    finally:
+        jp.sdpa_impl, jp.mesh = None, None
+    a, b = np.asarray(jimg).astype(int), np.asarray(timg).astype(int)
+    assert a.shape == b.shape == (64, 64, 3) and b.std() > 5
+    assert np.abs(a - b).max() <= 1
+    # One chunk a joint attention: 2 blocks x 2 steps, twice; the CFG batch
+    # of 2, 2 heads, 16 image + 32 text tokens.
+    assert chunks == [(2, 2, 48, 64)] * 8

@@ -470,6 +470,10 @@ PROFILER_NAMES = [
      "flash_attention_stats"),
     ("_ZN12_GLOBAL__N_120flash_fwd_sm90_statsILi128EEEv14CUtensorMap_stS1_S1_PfS2_S2_iixxxf",
      "flash_attention_stats"),
+    ("void (anonymous namespace)::flash_fwd_sm90_stats64(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float*, float*, int, int, float)", "flash_attention_stats"),
+    ("_ZN56_GLOBAL__N__d4f5b339_23_flash_attention_sm90_cu_b995789c22flash_fwd_sm90_stats64E"
+     "14CUtensorMap_stS0_S0_S0_PfS1_iif", "flash_attention_stats"),
     ("void (anonymous namespace)::flash_fwd_bhsd_small<64, true>(__nv_bfloat16 const*, "
      "__nv_bfloat16 const*, __nv_bfloat16 const*, std::conditional<true, float, "
      "__nv_bfloat16>::type*, float*, float*, int, int, (anonymous namespace)::Strides, "
@@ -692,6 +696,41 @@ def test_chip_smoke_ptxas_report_holds_the_hopper_matmuls_to_no_spill(chip_smoke
             chip_smoke.ptxas_report(path)
     else:
         chip_smoke.ptxas_report(path)
+
+
+@pytest.mark.parametrize("spill", [0, 8])
+def test_chip_smoke_ptxas_report_holds_the_d64_stats_kernel_to_no_spill(chip_smoke, tmp_path,
+                                                                         spill):
+    """#14's 64-row kernel at d = 64 fails phase 2 on any spill (the
+    mma.sync kernel it replaced spilled 8 bytes)."""
+    entry = ("_ZN56_GLOBAL__N__d4f5b339_23_flash_attention_sm90_cu_b995789c"
+             "22flash_fwd_sm90_stats64E14CUtensorMap_stS0_S0_S0_PfS1_iif")
+    log = (f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'\n"
+           f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+           "ptxas info    : Used 154 registers, used 2 barriers\n")
+    path = tmp_path / "lib.log"
+    path.write_text(PTXAS_LOG + log)
+    if spill:
+        with pytest.raises(AssertionError, match="spills"):
+            chip_smoke.ptxas_report(path)
+    else:
+        chip_smoke.ptxas_report(path)
+
+
+def test_chip_smoke_counts_the_sd3_ring_path(chip_smoke):
+    """Path h (SD3-medium 1024² through the one-rank ring): every joint
+    attention one #14 call, 24 blocks x 50 steps, kernel B only in the VAE
+    mid-block, kernel A as path a; its flash twin h' launches as path a."""
+    from diffusionkit_tpu_torch.config import SD3_2b
+
+    ring = chip_smoke.per_request_launches(chip_smoke.SD3_RING, SD3_2b)
+    plain = chip_smoke.per_request_launches(chip_smoke.SD3, SD3_2b)
+    assert chip_smoke.SD3_RING.latent == (128, 128) and chip_smoke.SD3_RING.steps == 50
+    assert ring == {"flash_attention_stats": 1200, "flash_attention_bshd": 1,
+                    "mod_ln": plain["mod_ln"]}
+    assert chip_smoke.per_request_launches(chip_smoke.SD3_RING_TWIN, SD3_2b) == plain
+    assert plain["flash_attention_bshd"] == 1201
+    assert len(chip_smoke.SD3_RING_TWIN.requests) == 1
 
 
 @pytest.mark.parametrize("path,dual,uni,img,txt", [
