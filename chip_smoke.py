@@ -93,10 +93,22 @@ Phases, each raising on failure (the script then exits non-zero):
      attention on kernel B's fp32 instantiation) against fp32 on the CPU;
   6. the main paths, with random weights from a seed, each serving two
      requests through generate_image and repeating the first through the
-     phase methods (the repeat must give the identical image, the two
-     requests different ones, and every kernel's launch counter must rise by
-     the path's launch count; each request's decoding time is printed
-     beside its steps):
+     phase methods, all under the default use_scan=True, the denoise loop a
+     CUDA graph of one step replayed once a step (the repeat must give the
+     identical image, the two requests different ones, and every kernel's
+     launch counter must rise by the path's launch count, a replay counting
+     the capture's launches; each request's decoding time is printed beside
+     its steps); then request 0's denoise again through the synced loop
+     (use_scan=False), whose latents must be the graph's bit for bit with
+     the same launches (on a difference one step of each is profiled and
+     the kernels that differ named), its median ms/step logged beside the
+     graph's (total / n); on a's and c's models also the batch phase:
+     request 0 through generate_image(num_images=4) and the two requests
+     through generate_images_batched, each against the same batch split
+     into chunks of one image (DIFFUSIONKIT_TPU_DENOISE_BATCH=1): image 0's
+     noise and a chunk of one bit for bit the single run's, each image's
+     latents within 3e-2 relative L2 of its single run, the images
+     distinct:
      a. SD3-medium (24 blocks, hidden 1536), CLIP-L/G and the VAE decoder in
         bf16: 512², 50 Euler steps, CFG 5.0;
      h. a's models at SD3-medium's native 1024² (4096 image + 154 text
@@ -139,9 +151,12 @@ Phases, each raising on failure (the script then exits non-zero):
      (run in the order a, a', a'', h, h', d, e, b, c, g, g', f, so h, d
      and e share a's encoders, h a's MMDiT, g c's models and f g's, before f
      converts the T5);
-  7. two denoise steps of each path under torch.profiler: device-busy time
-     per step by kernel family and the device's idle share; for FLUX also
-     the text encoding (T5-XXL and CLIP-L).
+  7. two denoise steps of each path (the graph's replays; the synced
+     loop's if the profiler sees no kernel inside a replay) under
+     torch.profiler: device-busy time per step by kernel family and the
+     device's idle share against the graph's ms/step and the loop's; for
+     FLUX also the text encoding (T5-XXL and CLIP-L); and a summary line of
+     each path's graph and loop ms/step, busy time and idle shares.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' summary as JSON, and before that the card's name and power limit.
@@ -149,6 +164,8 @@ kernels' summary as JSON, and before that the card's name and power limit.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -392,6 +409,10 @@ LAYOUT_ENV = "DIFFUSIONKIT_TPU_ATTN_LAYOUT"
 # attention's numerics (a' against a, the flash twins g' and h' against g
 # and h).
 TWIN_RTOL = 3e-2
+# Phase 6 batch: images of one request (path a's and c's models), one
+# denoise chunk under the auto-split; and its override, one image a chunk.
+NUM_IMAGES = 4
+SPLIT_ENV = "DIFFUSIONKIT_TPU_DENOISE_BATCH"
 T5_LAYERS = T5_XXL.num_layers
 
 # SD3 image / text stream sites; FLUX.1-schnell 1024²'s image / text stream
@@ -2124,9 +2145,71 @@ def build_flux_w4a8(gen, prev: FluxPipeline) -> FluxPipeline:
     return pipe
 
 
+def denoise_request(pipe, path: Path, use_scan: bool, num_steps=None):
+    """Request 0's denoise through the phase methods, under the graph
+    (``use_scan=True``, the default) or the synced loop: its latents, the
+    median of its ``iter_time`` in ms (under the graph the reference's
+    total / n, which every entry holds; in the loop the median step) and
+    the launches its denoise made."""
+    text, seed = path.requests[0]
+    cond, pooled = pipe.encode_text(text, path.cfg)
+    torch.cuda.synchronize()
+    before = counts()
+    saved, pipe.use_scan = pipe.use_scan, use_scan
+    try:
+        latents, it = pipe.denoise_latents(cond, pooled, num_steps=num_steps or path.steps,
+                                           cfg_weight=path.cfg, latent_size=path.latent,
+                                           seed=seed)
+        torch.cuda.synchronize()
+    finally:
+        pipe.use_scan = saved
+    after = counts()
+    return latents, 1e3 * statistics.median(it), {k: after[k] - before[k] for k in after}
+
+
+def device_kernels(pipe, path: Path, use_scan: bool) -> collections.Counter:
+    """The device kernels (by the profiler's name) of one denoise step of
+    request 0, under the graph or in the loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        denoise_request(pipe, path, use_scan, num_steps=1)
+    return collections.Counter({ev.key: ev.count for ev in prof.key_averages()
+                                if ev.device_type == DeviceType.CUDA})
+
+
+def loop_beside(pipe, path: Path, graph_latents, graph_launches: dict, graph_ms: float,
+                tag: str) -> float:
+    """Phase 6, the synced loop beside the graph: request 0's denoise
+    through ``use_scan=False`` must give the graph's latents bit for bit
+    with the graph's launches (the same kernels in the same order). On a
+    difference, one step of each is profiled and the kernels that differ
+    are named. Returns the loop's median ms/step."""
+    latents, loop_ms, launches = denoise_request(pipe, path, use_scan=False)
+    log(f"  {path.name}: denoise {graph_ms!r} ms/step under the CUDA graph (a warm request's "
+        f"total / n), median {loop_ms!r} ms/step in the synced loop (use_scan=False) [{tag}]")
+    if launches != graph_launches:
+        diff = {k: (graph_launches[k], launches[k]) for k in launches
+                if launches[k] != graph_launches[k]}
+        raise AssertionError(f"{path.name}: the loop's launches differ from the graph's "
+                             f"(graph, loop): {diff}")
+    if not torch.equal(latents, graph_latents):
+        graph_k, loop_k = device_kernels(pipe, path, True), device_kernels(pipe, path, False)
+        raise AssertionError(
+            f"{path.name}: the synced loop's latents differ from the graph's (max abs "
+            f"{(latents - graph_latents).abs().max().item()!r}); kernels of one step only under "
+            f"the graph: {dict(graph_k - loop_k)}, only in the loop: {dict(loop_k - graph_k)}")
+    log(f"  {path.name}: the synced loop's latents are the graph's bit for bit, with the same "
+        f"launches")
+    return loop_ms
+
+
 def serve(pipe, path: Path, tag: str):
-    """Phase 6: the two requests, then the first again through the phase
-    methods. Counters are zeroed right before and read right after."""
+    """Phase 6: the two requests under the default (the CUDA graph), then
+    the first again through the phase methods, and then through the synced
+    loop (``loop_beside``). Counters are zeroed right before the requests
+    and read right after the repeat."""
     kw = dict(num_steps=path.steps, cfg_weight=path.cfg, latent_size=path.latent, verbose=False)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2135,10 +2218,7 @@ def serve(pipe, path: Path, tag: str):
         image, phase_log = pipe.generate_image(text, seed=seed, **kw)
         images.append(np.asarray(image))
         logs.append(phase_log)
-    text, seed = path.requests[0]
-    cond, pooled = pipe.encode_text(text, path.cfg)
-    latents, _ = pipe.denoise_latents(cond, pooled, num_steps=path.steps, cfg_weight=path.cfg,
-                                      latent_size=path.latent, seed=seed)
+    latents, graph_ms, graph_launches = denoise_request(pipe, path, use_scan=True)
     repeat = pipe.decode_latents_to_u8(latents).cpu().numpy()[0]
     torch.cuda.synchronize()
     launches = counts()
@@ -2175,14 +2255,28 @@ def serve(pipe, path: Path, tag: str):
         log(f"  request {i}: text_encoding {lg['text_encoding']['time']!r} s, "
             f"denoising {lg['denoising']['time']!r} s, decoding {lg['decoding']['time']!r} s, "
             f"total {lg['total_time']!r} s/image [{tag}]")
-        log(f"  request {i}: denoise mean {1e3 * statistics.mean(it)!r} ms/step, median "
-            f"{median_ms!r} ms/step, first step {1e3 * it[0]!r} ms, decoding "
+        log(f"  request {i}: denoise {1e3 * lg['denoising']['time']!r} ms, median "
+            f"{median_ms!r} ms/step (the graph's total / n), decoding "
             f"{1e3 * lg['decoding']['time']!r} ms; {tflops!r} {rate} at the "
             f"median ({flops / 1e12!r} T ops/step), {tflops * 1e12 / peak if peak else None!r} "
             f"of the {peak / 1e12!r} {rate} {peak_name} peak [{tag}]")
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB [{tag}]")
+    loop_ms = loop_beside(pipe, path, latents, graph_launches, graph_ms, tag)
     return {"launches": launches, "latents": latents, "image": images[0],
-            "step_ms": 1e3 * statistics.median(logs[1]["denoising"]["iter_time"])}
+            "step_ms": graph_ms, "loop_ms": loop_ms}
+
+
+@contextlib.contextmanager
+def env_set(name: str, value: str):
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = saved
 
 
 def serve_bhsd(pipe, ref_image, tag: str) -> dict:
@@ -2191,9 +2285,7 @@ def serve_bhsd(pipe, ref_image, tag: str) -> dict:
     on #15, none on kernel B; its image against a's."""
     path = SD3_BHSD
     text, seed = path.requests[0]
-    saved = os.environ.get(LAYOUT_ENV)
-    os.environ[LAYOUT_ENV] = "bhsd"
-    try:
+    with env_set(LAYOUT_ENV, "bhsd"):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         image, lg = pipe.generate_image(text, seed=seed, num_steps=path.steps, cfg_weight=path.cfg,
@@ -2203,21 +2295,17 @@ def serve_bhsd(pipe, ref_image, tag: str) -> dict:
         check_launches(launches, per_request_launches(path, pipe.mmdit.config), 1,
                        f"the {path.name} request")
         rel = rel_l2(np.asarray(image), ref_image)
-        it = lg["denoising"]["iter_time"]
-        step_ms = 1e3 * statistics.median(it)
+        # The request captured the bhsd graph; its repeat is warm.
+        latents, step_ms, graph_launches = denoise_request(pipe, path, use_scan=True)
+        loop_ms = loop_beside(pipe, path, latents, graph_launches, step_ms, tag)
         log(f"  {path.name}: image relative L2 against path a's request 0 {rel!r} (tolerance "
-            f"{TWIN_RTOL}); denoise median {step_ms!r} ms/step, total {lg['total_time']!r} "
+            f"{TWIN_RTOL}); denoise {step_ms!r} ms/step (warm), total {lg['total_time']!r} "
             f"s/image, peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB [{tag}]")
         if not rel < TWIN_RTOL:
             raise AssertionError(f"{path.name}: the bhsd request's image is off path a's")
         log(f"phase 7a': where a {path.name} step's device time goes (torch.profiler)")
-        families = profile_steps(pipe, path, step_ms, tag)
-    finally:
-        if saved is None:
-            os.environ.pop(LAYOUT_ENV)
-        else:
-            os.environ[LAYOUT_ENV] = saved
-    return {"launches": launches, "families": families}
+        families = profile_steps(pipe, path, step_ms, loop_ms, tag)
+    return {"launches": launches, "families": families, "step_ms": step_ms, "loop_ms": loop_ms}
 
 
 def decode_fp32(pipe, latents, tag: str) -> dict:
@@ -2258,24 +2346,92 @@ def flash_twin(pipe, path: Path, twin: Path, ring_latents, ring_step_ms: float,
     as on ``twin``; its latents against the ring request's."""
     plain = copy.copy(pipe)
     plain.sdpa_impl, plain.mesh = None, None
-    text, seed = path.requests[0]
+    denoise_request(plain, path, use_scan=True)  # captures the twin's graph
     reset_counts()
-    cond, pooled = plain.encode_text(text, path.cfg)
-    latents, it = plain.denoise_latents(cond, pooled, num_steps=path.steps, cfg_weight=path.cfg,
-                                        latent_size=path.latent, seed=seed)
+    latents, step_ms, graph_launches = denoise_request(plain, path, use_scan=True)
     plain.decode_latents_to_u8(latents)
     torch.cuda.synchronize()
     launches = counts()
     check_launches(launches, per_request_launches(twin, plain.mmdit.config), 1,
                    f"{path.name}'s request 0 without the ring")
     rel = rel_l2(latents, ring_latents)
-    step_ms = 1e3 * statistics.median(it)
     log(f"  {twin.name}: final latents relative L2 against the ring request's {rel!r} "
-        f"(tolerance {TWIN_RTOL}); denoise median {step_ms!r} ms/step against the ring's "
+        f"(tolerance {TWIN_RTOL}); denoise {step_ms!r} ms/step against the ring's "
         f"{ring_step_ms!r} [{tag}]")
     if not rel < TWIN_RTOL:
         raise AssertionError("the ring's latents are off the default dispatch's")
+    loop_beside(plain, twin, latents, graph_launches, step_ms, tag)
     return launches
+
+
+def serve_batch(pipe, path: Path, single_latents, tag: str) -> None:
+    """Phase 6 batch, on path a's and path c's models: request 0 with
+    ``generate_image(num_images=NUM_IMAGES)`` and the path's two requests
+    through ``generate_images_batched``, each denoise batch in one chunk
+    (the auto-split's budget), against the same batch split into chunks of
+    one image (``DIFFUSIONKIT_TPU_DENOISE_BATCH=1``), each image's single
+    run. Image 0's noise must be the single run's bit for bit, a chunk of
+    one the single request's latents bit for bit, each batched image's
+    latents within TWIN_RTOL relative L2 of its single run (a larger GEMM M
+    may take another cuBLAS kernel), and the images distinct. The latents
+    are read where the pipeline hands them to ``_decode_batched_u8``. A
+    first call of each entry captures its batch's graph; the logged times
+    are the second's."""
+    kw = dict(num_steps=path.steps, cfg_weight=path.cfg, latent_size=path.latent)
+    text, seed = path.requests[0]
+    texts, seeds = (list(v) for v in zip(*path.requests))
+    per = pipe._denoise_chunk_images(path.latent)
+    if per < NUM_IMAGES:
+        raise AssertionError(f"{path.name}: the auto-split takes {per} images a chunk, "
+                             f"under {NUM_IMAGES}")
+    x_t = pipe.get_empty_latent(*path.latent)
+    if not np.array_equal(pipe.get_noise(seed, np.tile(x_t, (NUM_IMAGES, 1, 1, 1)))[:1],
+                          pipe.get_noise(seed, x_t)):
+        raise AssertionError("image 0's noise differs from the single run's")
+    pipe.generate_image(text, seed=seed, num_images=NUM_IMAGES, verbose=False, **kw)
+    pipe.generate_images_batched(texts, seeds=seeds, **kw)
+    seen = []
+    decode = pipe._decode_batched_u8
+    pipe._decode_batched_u8 = lambda latents: (seen.append(latents), decode(latents))[1]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        images, lg = pipe.generate_image(text, seed=seed, num_images=NUM_IMAGES, verbose=False,
+                                         **kw)
+        with env_set(SPLIT_ENV, "1"):
+            pipe.generate_image(text, seed=seed, num_images=NUM_IMAGES, verbose=False, **kw)
+        t0 = time.perf_counter()
+        batched = pipe.generate_images_batched(texts, seeds=seeds, **kw)
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t0
+        with env_set(SPLIT_ENV, "1"):
+            pipe.generate_images_batched(texts, seeds=seeds, **kw)
+    finally:
+        del pipe._decode_batched_u8
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for label, imgs, (whole, single) in (("num_images", images, seen[:2]),
+                                         ("generate_images_batched", batched, seen[2:])):
+        n = len(imgs)
+        side = 8 * path.latent[0]
+        arrays = [np.asarray(im) for im in imgs]
+        if any(a.shape != (side, side, 3) for a in arrays) or whole.shape[0] != n:
+            raise AssertionError(f"{path.name} {label}: wrong shapes")
+        if any(np.array_equal(arrays[i], arrays[j]) for i in range(n) for j in range(i)):
+            raise AssertionError(f"{path.name} {label}: two images are the same")
+        if not torch.equal(single[:1], single_latents):
+            raise AssertionError(f"{path.name} {label}: a chunk of one is not request 0's "
+                                 f"single run")
+        rels = [rel_l2(whole[i], single[i]) for i in range(n)]
+        log(f"  {path.name} {label} ({n} images, one chunk): latents relative L2 against each "
+            f"image's single run {rels!r} (tolerance {TWIN_RTOL}); images distinct; a chunk of "
+            f"one is request 0's single run bit for bit [{tag}]")
+        if not max(rels) < TWIN_RTOL:
+            raise AssertionError(f"{path.name} {label}: batched latents off their single runs")
+    it = lg["denoising"]["iter_time"]
+    log(f"  {path.name} num_images={NUM_IMAGES}: denoise {1e3 * lg['denoising']['time']!r} ms, "
+        f"{1e3 * statistics.median(it)!r} ms/step for {NUM_IMAGES} images, decoding "
+        f"{1e3 * lg['decoding']['time']!r} ms, total {lg['total_time']!r} s; "
+        f"generate_images_batched of {len(texts)} prompts {batched_s!r} s; peak memory "
+        f"{peak!r} GiB [{tag}]")
 
 
 def build_sd3_ring(gen, prev: DiffusionPipeline) -> DiffusionPipeline:
@@ -2379,11 +2535,14 @@ def device_split(prof, div: int):
     return families, other
 
 
-def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
-    """Phase 7: two denoise steps under torch.profiler: device-busy time per
-    step by kernel family, the largest kernels outside the named families,
-    and the idle share against a step's wall time; for FLUX the text
-    encoding's device time too."""
+def profile_steps(pipe, path: Path, step_ms: float, loop_ms: float, tag: str) -> dict:
+    """Phase 7: two denoise steps (the CUDA graph's replays) under
+    torch.profiler: device-busy time per step by kernel family, the largest
+    kernels outside the named families, and the idle share against the
+    graph's ms/step (``step_ms``, a warm request's total / n) and the
+    synced loop's (``loop_ms``); for FLUX the text encoding's device time
+    too. If the profiler sees no kernel inside the replays, it says so and
+    the synced loop's two steps are profiled instead."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2395,20 +2554,34 @@ def profile_steps(pipe, path: Path, step_ms: float, tag: str) -> None:
         fams, _ = device_split(prof, 1)
         log(f"  text encoding (T5-XXL + CLIP-L): device busy {sum(fams.values())!r} ms "
             f"{dict(sorted(fams.items()))} [{tag}]")
-    with profile(activities=acts) as prof:
-        _, it = pipe.denoise_latents(cond, pooled, num_steps=2, cfg_weight=path.cfg,
-                                     latent_size=path.latent, seed=1)
-        torch.cuda.synchronize()
-    families, other = device_split(prof, 2)
+    what = "the CUDA graph's replays"
+    for use_scan in (True, False):
+        saved, pipe.use_scan = pipe.use_scan, use_scan
+        try:
+            with profile(activities=acts) as prof:
+                _, it = pipe.denoise_latents(cond, pooled, num_steps=2, cfg_weight=path.cfg,
+                                             latent_size=path.latent, seed=1)
+                torch.cuda.synchronize()
+        finally:
+            pipe.use_scan = saved
+        families, other = device_split(prof, 2)
+        if any(fam != "other" for fam in families):
+            break
+        log(f"  the profiler saw no kernel inside {what}: profiling the synced loop instead")
+        what = "the synced loop"
     busy = sum(families.values())
-    log(f"  {path.name} device busy {busy!r} ms/step: {dict(sorted(families.items()))} [{tag}]")
+    log(f"  {path.name} device busy {busy!r} ms/step ({what}): "
+        f"{dict(sorted(families.items()))} [{tag}]")
     for ms, count, name in sorted(other, reverse=True)[:6]:
         log(f"    other: {ms!r} ms/step in {count} launches/step of {name[:90]}")
     profiled_ms = 1e3 * statistics.mean(it)
-    log(f"  {path.name} idle share: {1 - busy / step_ms!r} at the median step of request 1 "
-        f"({step_ms!r} ms, unprofiled); {1 - busy / profiled_ms!r} at the profiled "
+    log(f"  {path.name} idle share: {1 - busy / step_ms!r} at the graph's ms/step (a warm "
+        f"request's total / n, {step_ms!r} ms, unprofiled); {1 - busy / loop_ms!r} at the "
+        f"synced loop's median step of request 0 ({loop_ms!r} ms); "
+        f"{1 - busy / profiled_ms!r} at the profiled "
         f"steps' own mean ({profiled_ms!r} ms, profiler overhead included) [{tag}]")
-    return families
+    return {"families": families, "busy_ms": busy, "profiled": what,
+            "idle_graph": 1 - busy / step_ms, "idle_loop": 1 - busy / loop_ms}
 
 
 # The redesigned kernels, held to 0 spill bytes (and, with the rest, to no
@@ -2528,7 +2701,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    families = {}
+    families, walls = {}, {}
     pipe = None
     # h reuses a's models, d and e a's encoders and decoder, c b's, g c's
     # models, f g's (f converts the T5 to w8a8 in place, so g, with the bf16
@@ -2553,12 +2726,18 @@ def main() -> None:
         served = serve(pipe, path, tag)
         launches[path.name] = served["launches"]
         log(f"phase 7{letter}: where a {path.name} step's device time goes (torch.profiler)")
-        families[path.name] = profile_steps(pipe, path, served["step_ms"], tag)
+        families[path.name] = profile_steps(pipe, path, served["step_ms"], served["loop_ms"], tag)
+        walls[path.name] = (served["step_ms"], served["loop_ms"])
+        if path in (SD3, FLUX_W4A8):
+            log(f"phase 6{letter}, batch: generate_image(num_images={NUM_IMAGES}) and "
+                f"generate_images_batched on {path.name}'s models")
+            serve_batch(pipe, path, served["latents"], tag)
         if path is SD3:
             log(f"phase 6a': main path {SD3_BHSD.name} (path a's request 0 under "
                 f"{LAYOUT_ENV}=bhsd)")
             bhsd = serve_bhsd(pipe, served["image"], tag)
             launches[SD3_BHSD.name], families[SD3_BHSD.name] = bhsd["launches"], bhsd["families"]
+            walls[SD3_BHSD.name] = (bhsd["step_ms"], bhsd["loop_ms"])
             log("phase 6a'': path a's request 0 latents decoded by DiffusionPipeline(a16=False)")
             launches["sd3-decode-fp32"] = decode_fp32(pipe, served["latents"], tag)
         twin = {SD3_RING.name: SD3_RING_TWIN, FLUX_RING.name: FLUX_RING_TWIN}.get(path.name)
@@ -2567,8 +2746,14 @@ def main() -> None:
             launches[twin.name] = flash_twin(pipe, path, twin, served["latents"],
                                              served["step_ms"], tag)
         del served
-    log(f"  elementwise 'other' per FLUX step: w4a8 {families['flux-w4a8']['other']!r} ms, "
-        f"int4 {families['flux']['other']!r} ms (the int4 path's fp32 bias and "
+    for name, (graph_ms, loop_ms) in walls.items():
+        prof = families[name]
+        log(f"  {name}: graph {graph_ms!r} ms/step, loop {loop_ms!r} ms/step, busy "
+            f"{prof['busy_ms']!r} ms/step ({prof['profiled']}), idle {prof['idle_graph']!r} "
+            f"(graph) / {prof['idle_loop']!r} (loop) [{tag}]")
+    log(f"  elementwise 'other' per FLUX step: w4a8 "
+        f"{families['flux-w4a8']['families']['other']!r} ms, "
+        f"int4 {families['flux']['families']['other']!r} ms (the int4 path's fp32 bias and "
         f"QK-norm+RoPE chains ride kernel E's epilogues on the w4a8 path) [{tag}]")
     del pipe
     gc.collect()

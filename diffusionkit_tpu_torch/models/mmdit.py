@@ -40,7 +40,7 @@ between fc1 and fc2.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -303,6 +303,18 @@ class MMDiT(nn.Module):
             UnifiedBlock(config, quantize_bits=g) for _ in range(config.depth_unified)
         )
         self.final_layer = FinalLayer(config)
+        self._rope: Dict[tuple, Rope] = {}
+
+    def rope_tables(self, hw: Tuple[int, int], txt_len: int, device) -> Rope:
+        """The RoPE (cos, sin) tables of a sequence, made once per shape:
+        they are host numpy copied to the device, a copy that a CUDA graph
+        capture cannot take, so a captured forward finds them here."""
+        key = (hw, txt_len, torch.device(device))
+        if key not in self._rope:
+            with torch.inference_mode(False):
+                self._rope[key] = rope_frequencies(hw, txt_len, self.config.rope_axes_dim,
+                                                   device=device)
+        return self._rope[key]
 
     def forward(
         self,
@@ -337,7 +349,7 @@ class MMDiT(nn.Module):
             pos = self.pos_embed.reshape(maxhw, maxhw, cfg.hidden_size)
             x = x + pos[y0 : y0 + h, x0 : x0 + w].reshape(1, h * w, -1).to(dt)
         else:
-            rope = rope_frequencies((h, w), txt.shape[1], cfg.rope_axes_dim, device=x.device)
+            rope = self.rope_tables((h, w), txt.shape[1], x.device)
 
         c = self.t_embedder(
             timestep_embedding(timestep, cfg.frequency_embed_dim, cfg.max_period).to(dt)

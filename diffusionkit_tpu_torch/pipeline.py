@@ -2,11 +2,41 @@
 
 Counterparts of ``diffusionkit_tpu/pipeline.py:DiffusionPipeline`` (SD3,
 txt2img) and ``FluxPipeline`` (FLUX.1: CLIP-L pooled + T5 tokens, the FLUX
-schedule and latent format, FLUX-dev's guidance). The denoise loop is a
-per-step Python loop that synchronises the device after each step, so
-``iter_time`` holds real per-step times. Noise is drawn with numpy in NCHW
-and transposed to NHWC, as in the reference, so one seed gives the same
-starting latents in both packages.
+schedule and latent format, FLUX-dev's guidance). Noise is drawn with numpy
+in NCHW and transposed to NHWC, as in the reference, so one seed gives the
+same starting latents in both packages; ``num_images`` draws the batch's
+noise in one seeded call, so image 0 is the single-image run's.
+
+The denoise loop, as in the reference, runs in one of two ways:
+
+  use_scan=True (default)   the reference's ``_denoise_scan``. On a CUDA
+                            device one CFG + Euler step is captured as a
+                            CUDA graph (``graphs.StepGraph``) whose step
+                            reads its sigmas at a device step index that it
+                            advances itself; the host issues one replay a
+                            step and synchronises once a request. Graphs are
+                            cached by what the capture baked in (the model
+                            config, CFG, ``sdpa_impl``, the mesh, the
+                            shapes and dtypes of the latents and the
+                            conditioning, whether ``guidance`` is given,
+                            ``DIFFUSIONKIT_TPU_SDPA``,
+                            ``DIFFUSIONKIT_TPU_ATTN_LAYOUT`` and TF32); the
+                            ``mmdit`` setter drops them. ``iter_time`` is
+                            the schedule's time over n, as in the
+                            reference. On the CPU the same step runs in a
+                            Python loop with no synchronisation.
+  use_scan=False            a Python loop that synchronises after every step,
+                            so ``iter_time`` holds real per-step times.
+
+Both run one step body (``_scan_step``) on the same buffers, so on the card
+they launch the same kernels in the same order. A mesh of more than one
+rank runs the step uncaptured and logs it: NCCL inside a capture waits for
+a machine with two cards. A denoise batch larger than the activation budget
+(``_denoise_chunk_images``: ``utils.hbm_scale`` of 512² images at 64x64
+latents, ``DIFFUSIONKIT_TPU_DENOISE_BATCH`` overrides it) runs in chunks
+(``_run_denoise_chunks``), and a batch decodes in chunks
+(``_decode_batched_u8``). ``generate_images_batched`` runs N prompts in one
+schedule, the serving fast path.
 
 Models are plain attributes (``mmdit``, ``decoder``, ``clip_l``, ``clip_g``,
 ``t5`` and the tokenizers), set by the caller: the checkpoint loaders wait,
@@ -26,13 +56,14 @@ assigned MMDiT on its own device, as the reference's quantize-at-load does:
 fold (``ops/smoothquant.smooth_t5``, calibrated with ``t5_tokenizer`` if it
 is set by then) and converts it to w8a8. Every model stays resident; the
 reference's phase-lazy loading, quantized-tree disk cache,
-``DIFFUSIONKIT_TPU_T5_SMOOTH`` switch, ``use_scan``, tensor-parallel
-loading and the data-parallel batch under a mesh, batch chunking, T5 for
-SD3 and img2img wait for later slices.
+``DIFFUSIONKIT_TPU_T5_SMOOTH`` switch, tensor-parallel loading and the
+data-parallel batch under a mesh, T5 for SD3 and img2img wait for later
+slices.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from functools import partial
@@ -41,6 +72,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .graphs import StepGraph
 from .models.clip import CLIPTextModel
 from .models.mmdit import MMDiT
 from .models.t5 import T5Encoder
@@ -50,7 +82,7 @@ from .ops.smoothquant import smooth_t5
 from .ops.w8a8 import W8A8Linear, w8a8_module_
 from .sampler import FlowSchedule, FluxSampler, ModelSamplingDiscreteFlow
 from .tokenizer import tokenize_batch
-from .utils import bytes2gigabytes, device_memory_stats, get_logger
+from .utils import bytes2gigabytes, device_memory_stats, get_logger, hbm_scale
 
 logger = get_logger(__name__)
 
@@ -101,41 +133,94 @@ def _sync(device: torch.device) -> None:
 def _cfg_euler_step(
     model: MMDiT,
     x: torch.Tensor,
-    sigma: np.float32,
-    sigma_next: np.float32,
+    sigma: torch.Tensor,
+    sigma_next: torch.Tensor,
     conditioning: torch.Tensor,
     pooled: torch.Tensor,
-    cfg_weight: float,
+    cfg_weight: torch.Tensor,
     cfg_on: bool,
-    guidance: Optional[float] = None,
+    guidance: Optional[torch.Tensor] = None,
     sdpa_impl: Optional[str] = None,
     mesh=None,
 ) -> torch.Tensor:
     """One CFG + Euler step on fp32 latents x (N, H, W, C).
 
     With CFG the model batch is [x, x] against conditioning rows
-    [positive, negative]. All scalars are fp32 values, as on the reference's
-    device. ``guidance`` (FLUX-dev) is broadcast over the model batch;
-    ``sdpa_impl`` and ``mesh`` go to the model's attention.
+    [positive*N, negative*N]. ``sigma``, ``sigma_next``, ``cfg_weight`` and
+    ``guidance`` (FLUX-dev, broadcast over the model batch) are fp32 0-d
+    tensors on x's device, as the reference's traced arrays are, so one
+    captured step takes any step's sigmas. ``sdpa_impl`` and ``mesh`` go to
+    the model's attention.
     """
     n = x.shape[0]
     xin = torch.cat([x, x]) if cfg_on else x
-    timestep = torch.full(
-        (xin.shape[0],), float(np.float32(sigma) * np.float32(1000.0)),
-        dtype=torch.float32, device=x.device,
-    )
-    g = None if guidance is None else torch.full(
-        (xin.shape[0],), float(np.float32(guidance)), dtype=torch.float32, device=x.device)
+    timestep = (sigma * 1000.0).expand(xin.shape[0])
+    g = None if guidance is None else guidance.expand(xin.shape[0])
     out = model(xin, conditioning, pooled, timestep, g, sdpa_impl=sdpa_impl, mesh=mesh).float()
-    denoised = xin - out * float(sigma)
+    denoised = xin - out * sigma
     if cfg_on:
         eps_text, eps_neg = denoised[:n], denoised[n:]
-        denoised = eps_neg + float(np.float32(cfg_weight)) * (eps_text - eps_neg)
+        denoised = eps_neg + cfg_weight * (eps_text - eps_neg)
     # Euler: d = (x - denoised) / sigma; x += d * (sigma_next - sigma). The
-    # divisor is a tensor, so the card divides (as the reference does)
-    # rather than multiplying by a rounded reciprocal.
-    d = (x - denoised) / torch.full_like(x, float(sigma))
-    return x + d * float(np.float32(sigma_next) - np.float32(sigma))
+    # divisor is a device tensor, not a CPU scalar, so the card divides (as
+    # the reference does) rather than multiplying by a rounded reciprocal.
+    d = (x - denoised) / sigma
+    return x + d * (sigma_next - sigma)
+
+
+def _scan_step(model, x, sigmas, idx, conditioning, pooled, cfg_weight, cfg_on, guidance,
+               sdpa_impl, mesh) -> None:
+    """The scan body, in place: step i of the schedule, where ``idx`` is
+    the int64 device pair (i, i + 1) into the fp32 ``sigmas``; x becomes
+    the step's output and idx advances. It reads nothing on the host, so a
+    CUDA graph of one call replays as the next step."""
+    sigma, sigma_next = sigmas.index_select(0, idx).unbind()
+    x.copy_(_cfg_euler_step(model, x, sigma, sigma_next, conditioning, pooled, cfg_weight,
+                            cfg_on, guidance, sdpa_impl, mesh))
+    idx.add_(1)
+
+
+class _Scan:
+    """A denoise schedule's static buffers (latents, conditioning, the
+    scalars, the sigmas and the step index) and its step on them; on the
+    card, unless ``capture`` is off, the step's CUDA graph. ``n_sigmas`` is
+    the longest schedule (steps + 1) the buffers take."""
+
+    def __init__(self, model, x, conditioning, pooled, guidance, n_sigmas: int, cfg_on: bool,
+                 sdpa_impl, mesh, capture: bool):
+        dev = x.device
+        self.n_sigmas = n_sigmas
+        self.x = torch.empty_like(x, memory_format=torch.contiguous_format)
+        self.conditioning = torch.empty_like(conditioning, memory_format=torch.contiguous_format)
+        self.pooled = torch.empty_like(pooled, memory_format=torch.contiguous_format)
+        self.cfg_weight = torch.zeros((), dtype=torch.float32, device=dev)
+        self.guidance = None if guidance is None else torch.zeros((), dtype=torch.float32,
+                                                                   device=dev)
+        self.sigmas = torch.zeros(n_sigmas, dtype=torch.float32, device=dev)
+        self.idx = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.step = partial(_scan_step, model, self.x, self.sigmas, self.idx, self.conditioning,
+                            self.pooled, self.cfg_weight, cfg_on, self.guidance, sdpa_impl, mesh)
+        self.graph = StepGraph(self.step, dev) if capture and dev.type == "cuda" else None
+
+    def load(self, x, conditioning, pooled, cfg_weight: float, guidance, sigmas: np.ndarray):
+        """The request's inputs into the buffers; the index back to step 0."""
+        self.x.copy_(x)
+        self.conditioning.copy_(conditioning)
+        self.pooled.copy_(pooled)
+        self.cfg_weight.fill_(float(np.float32(cfg_weight)))
+        if self.guidance is not None:
+            self.guidance.fill_(float(np.float32(guidance)))
+        self.sigmas[: len(sigmas)].copy_(torch.from_numpy(np.asarray(sigmas, np.float32)))
+        self.idx.copy_(torch.arange(2))
+
+    def run(self, steps: int) -> None:
+        """``steps`` steps with no host synchronisation: the graph's
+        replays on the card, the step in a loop elsewhere."""
+        if self.graph is not None:
+            self.graph.run(steps)
+        else:
+            for _ in range(steps):
+                self.step()
 
 
 def _assemble_sd3_conditioning(h_l, h_g, p_l, p_g) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -149,22 +234,43 @@ def _assemble_sd3_conditioning(h_l, h_g, p_l, p_g) -> Tuple[torch.Tensor, torch.
     return torch.cat([conditioning, torch.zeros_like(conditioning)], dim=1), pooled
 
 
-def _prep_conditioning(conditioning, pooled, cfg_on: bool, dtype):
-    """Rows [positive, negative] with CFG, the positive row alone without."""
+def _prep_conditioning(conditioning, pooled, cfg_on: bool, num_images: int, dtype):
+    """The denoise batch's conditioning rows: with CFG [positive*N,
+    negative*N], matching the [x, x] latent doubling; without, the positive
+    row N times."""
     if cfg_on:
         if conditioning.shape[0] == 1:
             conditioning = conditioning.repeat(2, 1, 1)
             pooled = pooled.repeat(2, 1)
+        if num_images > 1:
+            conditioning = conditioning.repeat_interleave(num_images, dim=0)
+            pooled = pooled.repeat_interleave(num_images, dim=0)
     else:
         conditioning, pooled = conditioning[:1], pooled[:1]
+        if num_images > 1:
+            conditioning = conditioning.repeat(num_images, 1, 1)
+            pooled = pooled.repeat(num_images, 1)
     return conditioning.to(dtype), pooled.to(dtype)
+
+
+def _chunk_cond(cond, pooled, i: int, j: int, n: int, cfg_on: bool):
+    """Images i..j of an n-image batch's conditioning rows, the CFG layout
+    [positive, negative] kept within the chunk."""
+    if cfg_on:
+        return (torch.cat([cond[i:j], cond[n + i : n + j]]),
+                torch.cat([pooled[i:j], pooled[n + i : n + j]]))
+    return cond[i:j], pooled[i:j]
 
 
 class DiffusionPipeline:
     """SD3-family txt2img with the reference's public surface:
     ``generate_image(text, num_steps, cfg_weight, negative_text,
-    latent_size, seed, verbose)`` plus the ``encode_text`` /
-    ``denoise_latents`` phase methods. The models carry their own weight
+    latent_size, seed, verbose, num_images, guidance, profile_dir)``,
+    ``generate_images_batched`` and the ``encode_text`` /
+    ``denoise_latents`` phase methods. ``use_scan`` (default True) runs the
+    denoise schedule as the reference's scan, a CUDA graph of one step on
+    the card; ``use_scan=False`` the per-step synced loop (module
+    docstring). The models carry their own weight
     dtypes; ``a16`` selects bf16 VAE activations; ``shift=3.0`` is the SD3
     production schedule. ``quantize_mmdit`` (module docstring) converts the
     assigned MMDiT; weight-only modes pack at group ``quantize_group_size``
@@ -188,10 +294,13 @@ class DiffusionPipeline:
         quantize_group_size: int = 32,
         sdpa_impl: Optional[str] = None,
         mesh=None,
+        use_scan: bool = True,
     ):
         self.quant_mode, self.quant_mixed = parse_quant_mode(quantize_mmdit)
         self.sdpa_impl = sdpa_impl
         self.mesh = mesh
+        self.use_scan = use_scan
+        self._scans: Dict[tuple, _Scan] = {}
         self.device = torch.device(device)
         self.activation_dtype = torch.bfloat16 if a16 else torch.float32
         self.sampler: FlowSchedule = ModelSamplingDiscreteFlow(shift=shift)
@@ -225,6 +334,7 @@ class DiffusionPipeline:
                                  overrides=MIXED_OVERRIDES if self.quant_mixed else None)
             if mode == "w4a8":
                 add_wscale_(model)
+        self._scans.clear()  # the graphs captured the old model's weights
         self._mmdit = model
 
     # -- text encoding -------------------------------------------------------
@@ -270,13 +380,19 @@ class DiffusionPipeline:
         cfg_weight: float = 0.0,
         latent_size: Tuple[int, int] = (64, 64),
         seed=None,
+        num_images: int = 1,
         guidance: Optional[float] = None,
     ) -> Tuple[torch.Tensor, List[float]]:
-        """``guidance``: FLUX-dev's distilled guidance scale (3.5 when not
+        """The denoised latents (num_images, H, W, C) and ``iter_time``.
+        ``guidance``: FLUX-dev's distilled guidance scale (3.5 when not
         given); ignored by models without a guidance embedding."""
         seed = int(time.time()) if seed is None else int(seed)
         logger.info("Seed: %s", seed)
         x_T = self.get_empty_latent(*latent_size)
+        if num_images > 1:
+            x_T = np.tile(x_T, (num_images, 1, 1, 1))
+        # The batch's noise in one seeded call: numpy fills C-order, so
+        # image 0's noise is the num_images=1 run's.
         noise = self.get_noise(seed, x_T)
         sigmas = self.get_sigmas(num_steps)
         noise_scaled = np.asarray(
@@ -287,22 +403,106 @@ class DiffusionPipeline:
         )
         cfg_on = cfg_weight > 1
         conditioning, pooled_conditioning = _prep_conditioning(
-            conditioning, pooled_conditioning, cfg_on, self.mmdit.config.dtype
+            conditioning, pooled_conditioning, cfg_on, num_images, self.mmdit.config.dtype
         )
         g = None
         if self.mmdit.config.guidance_embed:
             g = 3.5 if guidance is None else guidance
-        x = torch.from_numpy(noise_scaled).to(self.device)
-        iter_time: List[float] = []
-        for i in range(len(sigmas) - 1):
+        x0 = torch.from_numpy(noise_scaled).to(self.device)
+        n_iter = len(sigmas) - 1
+        if self.use_scan:
             t0 = time.perf_counter()
-            x = _cfg_euler_step(
-                self.mmdit, x, sigmas[i], sigmas[i + 1], conditioning,
-                pooled_conditioning, cfg_weight, cfg_on, g, self.sdpa_impl, self.mesh,
+            x = self._run_denoise_chunks(
+                lambda x, c, p: self._denoise_scan(x, sigmas, c, p, cfg_weight, g, cfg_on),
+                x0, conditioning, pooled_conditioning, num_images,
+                self._denoise_chunk_images(latent_size), cfg_on,
             )
             _sync(self.device)
-            iter_time.append(time.perf_counter() - t0)
+            iter_time = [round((time.perf_counter() - t0) / max(n_iter, 1), 4)] * n_iter
+        else:
+            x, iter_time = self._denoise_loop(x0, sigmas, conditioning, pooled_conditioning,
+                                              cfg_weight, g, cfg_on)
         return self.latent_format.process_out(x), iter_time
+
+    def _scan(self, x, conditioning, pooled, guidance, n_sigmas: int, cfg_on: bool) -> _Scan:
+        """The cached schedule for these inputs, made (and on the card
+        captured at its first run) when none fits."""
+        key = (
+            self.mmdit.config, cfg_on, self.sdpa_impl, id(self.mesh),
+            tuple(x.shape), x.dtype, tuple(conditioning.shape), conditioning.dtype,
+            tuple(pooled.shape), pooled.dtype, guidance is not None,
+            os.environ.get("DIFFUSIONKIT_TPU_SDPA"), os.environ.get("DIFFUSIONKIT_TPU_ATTN_LAYOUT"),
+            torch.backends.cuda.matmul.allow_tf32,
+        )
+        scan = self._scans.get(key)
+        if scan is None or scan.n_sigmas < n_sigmas:
+            capture = self.mesh is None or self.mesh.size() == 1
+            if not capture and x.device.type == "cuda":
+                logger.info("mesh of %d ranks: the denoise step runs uncaptured (NCCL inside a "
+                            "CUDA graph capture waits for a machine with two cards)",
+                            self.mesh.size())
+            scan = _Scan(self.mmdit, x, conditioning, pooled, guidance, n_sigmas, cfg_on,
+                         self.sdpa_impl, self.mesh, capture)
+            self._scans[key] = scan
+        return scan
+
+    def _denoise_scan(self, x, sigmas: np.ndarray, conditioning, pooled, cfg_weight: float,
+                      guidance: Optional[float], cfg_on: bool) -> torch.Tensor:
+        """The reference's ``_denoise_scan``: the whole schedule with no
+        host synchronisation; on the card the cached step graph replayed
+        once a step. Returns new latents (the buffers stay the graph's)."""
+        scan = self._scan(x, conditioning, pooled, guidance, len(sigmas), cfg_on)
+        scan.load(x, conditioning, pooled, cfg_weight, guidance, sigmas)
+        scan.run(len(sigmas) - 1)
+        return scan.x.clone()
+
+    def _denoise_loop(self, x, sigmas: np.ndarray, conditioning, pooled, cfg_weight: float,
+                      guidance: Optional[float], cfg_on: bool) -> Tuple[torch.Tensor, List[float]]:
+        """``use_scan=False``: the same step body, uncaptured, the whole
+        batch at once, with a device synchronisation and a time each step."""
+        scan = _Scan(self.mmdit, x, conditioning, pooled, guidance, len(sigmas), cfg_on,
+                     self.sdpa_impl, self.mesh, capture=False)
+        scan.load(x, conditioning, pooled, cfg_weight, guidance, sigmas)
+        iter_time: List[float] = []
+        for _ in range(len(sigmas) - 1):
+            t0 = time.perf_counter()
+            scan.step()
+            _sync(self.device)
+            iter_time.append(time.perf_counter() - t0)
+        return scan.x, iter_time
+
+    def _denoise_chunk_images(self, latent_size: Tuple[int, int]) -> int:
+        """Images per denoise sub-batch (the activation-budget auto-split):
+        the reference's budget of 4 512² images on a 16 GB chip, scaled by
+        the card's memory (``utils.hbm_scale``): 21 images at 512² and 5 at
+        1024² on an 80 GB H100. Under a mesh no split (the reference shards
+        the batch there). ``DIFFUSIONKIT_TPU_DENOISE_BATCH`` overrides it;
+        the chunks run the same step, so the result does not depend on it
+        beyond the GEMMs' batch size."""
+        env = os.environ.get("DIFFUSIONKIT_TPU_DENOISE_BATCH")
+        if env:
+            return max(1, int(env))
+        if self.mesh is not None:
+            return 1 << 30
+        h, w = latent_size
+        return max(1, int(128 * 128 * hbm_scale(self.device)) // (h * w))
+
+    def _run_denoise_chunks(self, run_chunk, x0, cond, pooled, n: int, per: int, cfg_on: bool):
+        """Sub-batches of ``per`` images through ``run_chunk`` in turn, each
+        with its conditioning rows (``_chunk_cond``); a ragged last chunk
+        runs at its own shape."""
+        if n <= per:
+            return run_chunk(x0, cond, pooled)
+        logger.info(
+            "denoise batch %d exceeds the %d-image activation budget; "
+            "splitting into %d chunks", n, per, -(-n // per),
+        )
+        outs = []
+        for i in range(0, n, per):
+            j = min(i + per, n)
+            c, p = _chunk_cond(cond, pooled, i, j, n, cfg_on)
+            outs.append(run_chunk(x0[i:j], c, p))
+        return torch.cat(outs)
 
     # -- decoding ------------------------------------------------------------
 
@@ -313,6 +513,17 @@ class DiffusionPipeline:
         x = self.decoder(latents.to(self.activation_dtype))
         x = torch.clamp(x / 2 + 0.5, 0.0, 1.0)
         return torch.floor(x * 255.0).to(torch.uint8)
+
+    def _decode_batched_u8(self, latents: torch.Tensor) -> np.ndarray:
+        """A batch decoded in chunks of one 1024² image's area (the VAE's
+        activations grow with batch x resolution); a ragged last chunk
+        decodes at its own shape. Host uint8 (N, H, W, 3)."""
+        n, h, w, _ = latents.shape
+        per = max(1, (128 * 128) // (h * w))
+        if n <= per:
+            return self.decode_latents_to_u8(latents).cpu().numpy()
+        return np.concatenate([self.decode_latents_to_u8(latents[i : i + per]).cpu().numpy()
+                               for i in range(0, n, per)])
 
     # -- end to end ----------------------------------------------------------
 
@@ -332,8 +543,13 @@ class DiffusionPipeline:
         latent_size: Tuple[int, int] = (64, 64),
         seed=None,
         verbose: bool = True,
+        num_images: int = 1,
+        guidance: Optional[float] = None,
+        profile_dir: Optional[str] = None,
     ):
-        """txt2img; returns (PIL image, phase log)."""
+        """txt2img; returns (PIL image, phase log), or with ``num_images`` >
+        1 (a list of PIL images, phase log). ``profile_dir``: a
+        ``torch.profiler`` trace of the denoise phase written there."""
         from PIL import Image
 
         start_time = time.perf_counter()
@@ -346,6 +562,7 @@ class DiffusionPipeline:
             "peak_memory": 0.0,
         }
 
+        # The memory snapshots stay outside the timed windows.
         def phase_end(name: str, t0: float) -> None:
             _sync(self.device)
             log[name]["time"] = time.perf_counter() - t0
@@ -362,24 +579,100 @@ class DiffusionPipeline:
 
         log["denoising"]["pre"] = self._mem()
         t0 = time.perf_counter()
+        prof = self._start_profile(profile_dir)
         latents, iter_time = self.denoise_latents(
             conditioning, pooled, num_steps=num_steps, cfg_weight=cfg_weight,
-            latent_size=latent_size, seed=seed,
+            latent_size=latent_size, seed=seed, num_images=num_images, guidance=guidance,
         )
+        if prof is not None:
+            _sync(self.device)
+            prof.stop()
+            logger.info("Profiler trace written to %s", profile_dir)
         log["denoising"]["iter_time"] = iter_time
         phase_end("denoising", t0)
 
         log["decoding"]["pre"] = self._mem()
         t0 = time.perf_counter()
-        pixels = self.decode_latents_to_u8(latents)
+        x = self._decode_batched_u8(latents)
         phase_end("decoding", t0)
 
-        x = pixels.cpu().numpy()
         log["total_time"] = time.perf_counter() - start_time
         if verbose:
             logger.info("Total time: %.3fs, peak memory %.3f GB",
                         log["total_time"], log["peak_memory"])
-        return Image.fromarray(x[0]), log
+        if x.shape[0] == 1:
+            return Image.fromarray(x[0]), log
+        return [Image.fromarray(im) for im in x], log
+
+    def _start_profile(self, profile_dir: Optional[str]):
+        """A started ``torch.profiler`` that writes its trace into
+        ``profile_dir`` when stopped (the host, and the card's kernels on
+        CUDA), or None."""
+        if not profile_dir:
+            return None
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts, on_trace_ready=tensorboard_trace_handler(profile_dir))
+        prof.start()
+        return prof
+
+    # -- multi-prompt batched generation (serving) -----------------------------
+
+    @torch.inference_mode()
+    def generate_images_batched(
+        self,
+        texts: List[str],
+        num_steps: int = 4,
+        cfg_weight: float = 0.0,
+        negative_texts: Optional[List[str]] = None,
+        latent_size: Tuple[int, int] = (64, 64),
+        seeds: Optional[List[Optional[int]]] = None,
+        guidance: Optional[float] = None,
+    ):
+        """N different prompts in one denoise schedule (the model batch
+        [pos*N, neg*N], as the CFG layout), each with its own seed: the
+        serving fast path. The batch auto-splits as ``denoise_latents``
+        does and decodes in chunks. Returns a list of N PIL images."""
+        from PIL import Image
+
+        n = len(texts)
+        negative_texts = negative_texts or [""] * n
+        seeds = seeds if seeds is not None else [None] * n
+        seeds = [int(time.time()) + i if s is None else int(s) for i, s in enumerate(seeds)]
+        conds, pooleds = zip(*(self.encode_text(t, cfg_weight, neg)
+                               for t, neg in zip(texts, negative_texts)))
+        cfg_on = cfg_weight > 1
+        if cfg_on:
+            # [pos rows..., neg rows...] to match the [x, x] latent doubling.
+            conditioning = torch.cat([c[:1] for c in conds] + [c[1:2] for c in conds])
+            pooled = torch.cat([p[:1] for p in pooleds] + [p[1:2] for p in pooleds])
+        else:
+            conditioning = torch.cat([c[:1] for c in conds])
+            pooled = torch.cat([p[:1] for p in pooleds])
+
+        x_T1 = self.get_empty_latent(*latent_size)
+        noise = np.concatenate([self.get_noise(s, x_T1) for s in seeds])
+        sigmas = self.get_sigmas(num_steps)
+        noise_scaled = np.asarray(
+            self.sampler.noise_scaling(
+                sigmas[0], noise, np.tile(x_T1, (n, 1, 1, 1)), self.sampler.max_denoise(sigmas)
+            ),
+            np.float32,
+        )
+        g = None
+        if self.mmdit.config.guidance_embed:
+            g = 3.5 if guidance is None else guidance
+        dtype = self.mmdit.config.dtype
+        x = self._run_denoise_chunks(
+            lambda x0, c, p: self._denoise_scan(x0, sigmas, c, p, cfg_weight, g, cfg_on),
+            torch.from_numpy(noise_scaled).to(self.device), conditioning.to(dtype),
+            pooled.to(dtype), n, self._denoise_chunk_images(latent_size), cfg_on,
+        )
+        latents = self.latent_format.process_out(x)
+        return [Image.fromarray(im) for im in self._decode_batched_u8(latents)]
 
 
 class FluxPipeline(DiffusionPipeline):
@@ -400,10 +693,11 @@ class FluxPipeline(DiffusionPipeline):
         quantize_t5: bool = False,
         sdpa_impl: Optional[str] = None,
         mesh=None,
+        use_scan: bool = True,
     ):
         super().__init__(shift=shift, a16=a16, device=device, quantize_mmdit=quantize_mmdit,
                          quantize_group_size=quantize_group_size, sdpa_impl=sdpa_impl,
-                         mesh=mesh)
+                         mesh=mesh, use_scan=use_scan)
         self.sampler = FluxSampler(shift=shift)
         self.latent_format = FluxLatentFormat()
         self.t5_max_length = t5_max_length

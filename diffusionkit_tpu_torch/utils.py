@@ -1,4 +1,4 @@
-"""Logging, device memory statistics and image metrics."""
+"""Logging, device memory statistics and budgets, and image metrics."""
 
 from __future__ import annotations
 
@@ -49,6 +49,19 @@ def device_memory_stats(device=None) -> Dict[str, Optional[int]]:
         "peak_memory": torch.cuda.max_memory_allocated(device),
         "active_memory": torch.cuda.memory_allocated(device),
     }
+
+
+def hbm_scale(device=None) -> float:
+    """The card's memory over the 16 GB chip on which the reference sized
+    its memory-derived budgets (the denoise batch auto-split), never below
+    1; ``DIFFUSIONKIT_TPU_HBM_SCALE`` overrides it. 1 off a CUDA device."""
+    env = os.environ.get("DIFFUSIONKIT_TPU_HBM_SCALE")
+    if env:
+        return float(env)
+    device = torch.device(device) if device is not None else None
+    if (device is not None and device.type != "cuda") or not torch.cuda.is_available():
+        return 1.0
+    return max(1.0, torch.cuda.get_device_properties(device).total_memory / 16e9)
 
 
 def compute_psnr(reference: np.ndarray, proxy: np.ndarray) -> float:

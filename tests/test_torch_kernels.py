@@ -1243,8 +1243,9 @@ def test_sdpa_fp32_takes_the_kernel(cuda, shape):
 def test_euler_step_and_latent_unscaling_divide_as_on_the_cpu(cuda):
     """_cfg_euler_step (with a stub model that only moves data) and
     LatentFormat.process_out give the CPU's result bit for bit on the card:
-    both divide by a tensor, which torch divides in IEEE on CUDA too (a
-    scalar divisor there is a product with its rounded reciprocal)."""
+    both divide by a tensor (the step by its 0-d device sigma), which torch
+    divides in IEEE on CUDA too (a CPU scalar divisor there is a product
+    with its rounded reciprocal)."""
     import numpy as np
 
     from diffusionkit_tpu_torch.pipeline import FluxLatentFormat, SD3LatentFormat, _cfg_euler_step
@@ -1252,11 +1253,16 @@ def test_euler_step_and_latent_unscaling_divide_as_on_the_cpu(cuda):
     def stub(x, cond, pooled, t, g, sdpa_impl=None, mesh=None):
         return x.flip(-1)
 
+    def scalars(device, *values):
+        return [torch.tensor(np.float32(v), device=device) for v in values]
+
     x = torch.from_numpy(np.random.RandomState(23).randn(1, 64, 64, 16).astype(np.float32))
     for sigma, nxt in ((np.float32(0.9372), np.float32(0.8711)), (np.float32(0.3), np.float32(0.0))):
         for cfg_on in (False, True):
-            want = _cfg_euler_step(stub, x, sigma, nxt, None, None, 5.0, cfg_on)
-            got = _cfg_euler_step(stub, x.to(cuda), sigma, nxt, None, None, 5.0, cfg_on)
+            s, n, w = scalars("cpu", sigma, nxt, 5.0)
+            want = _cfg_euler_step(stub, x, s, n, None, None, w, cfg_on)
+            s, n, w = scalars(cuda, sigma, nxt, 5.0)
+            got = _cfg_euler_step(stub, x.to(cuda), s, n, None, None, w, cfg_on)
             assert torch.equal(got.cpu(), want)
     for fmt in (SD3LatentFormat(), FluxLatentFormat()):
         assert torch.equal(fmt.process_out(x.to(cuda)).cpu(), fmt.process_out(x))
@@ -1948,3 +1954,58 @@ def test_quantizing_gemv_route_is_bounded_by_its_shared_memory():
     assert w8_route(16, 256 * 79, 128) == "tile"
     assert w8_quantizes_in_gemv(2, 256 * 79, 128)
     assert not w8_quantizes_in_gemv(0, 1536, 1536)
+
+
+# -- the denoise loop as a CUDA graph -----------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["sd3", "flux-dev"])
+def test_denoise_graph_is_the_synced_loop(cuda, model):
+    """The default scan (one step captured as a CUDA graph, replayed once a
+    step) against the synced loop on a small bf16 MMDiT on the card:
+    bit-identical latents, and the wrappers' counters rising by the same
+    launches (a replay adds the capture's delta); a second request reuses
+    the graph. FLUX-dev exercises RoPE's cached tables and the guidance
+    scalar."""
+    import dataclasses
+
+    from diffusionkit_tpu_torch.config import FLUX_DEV, SD3_2b
+    from diffusionkit_tpu_torch.models import init_mmdit
+    from diffusionkit_tpu_torch.ops import launches
+    from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline
+
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    if model == "sd3":
+        cfg = dataclasses.replace(SD3_2b, depth_multimodal=2, num_heads=4,
+                                  hidden_size_override=256, max_latent_resolution=32)
+        pipe, cfg_weight, text_dim, pooled_dim = DiffusionPipeline(device=cuda), 5.0, 4096, 2048
+    else:
+        cfg = dataclasses.replace(FLUX_DEV, depth_multimodal=1, depth_unified=2, num_heads=4,
+                                  hidden_size_override=512, rope_axes_dim=(16, 56, 56))
+        pipe, cfg_weight, text_dim, pooled_dim = FluxPipeline(device=cuda), 0.0, 4096, 768
+    pipe.mmdit = init_mmdit(cfg, gen, cuda)
+    rows = 2 if cfg_weight > 1 else 1
+    cond = torch.randn(rows, 77, text_dim, generator=gen, device=cuda)
+    pooled = torch.randn(rows, pooled_dim, generator=gen, device=cuda)
+    # 1024 image + 77 text tokens: past the flash threshold.
+    kw = dict(num_steps=4, cfg_weight=cfg_weight, latent_size=(64, 64), seed=3, guidance=4.0)
+
+    def run(use_scan):
+        pipe.use_scan = use_scan
+        before = launches.snapshot()
+        lat, it = pipe.denoise_latents(cond, pooled, **kw)
+        torch.cuda.synchronize()
+        return lat, it, launches.delta(before, launches.snapshot())
+
+    graph, it, counted = run(True)
+    again, _, counted_again = run(True)
+    loop, it_loop, counted_loop = run(False)
+    assert len(pipe._scans) == 1 and next(iter(pipe._scans.values())).graph.graph is not None
+    assert torch.isfinite(graph).all() and graph.shape == (1, 64, 64, 16)
+    assert torch.equal(graph, loop) and torch.equal(again, graph)
+    assert counted == counted_again == counted_loop
+    assert counted[("mod_ln", "launches")] > 0
+    assert counted[("flash_attention_bshd", "launches")] == 4 * (len(pipe.mmdit.mm_blocks) + (
+        len(pipe.mmdit.uni_blocks) or 1))
+    assert len(it) == len(it_loop) == 4 and len(set(it)) == 1

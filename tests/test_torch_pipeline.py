@@ -164,11 +164,11 @@ def test_port_never_imports_jax():
     code = (
         "import sys\n"
         "import diffusionkit_tpu_torch\n"
-        "from diffusionkit_tpu_torch import config, convert, flops, pipeline, sampler, "
+        "from diffusionkit_tpu_torch import config, convert, flops, graphs, pipeline, sampler, "
         "tokenizer, utils\n"
         "from diffusionkit_tpu_torch.models import clip, mmdit, t5, vae\n"
         "from diffusionkit_tpu_torch.ops import attention, common, flash_attention, "
-        "fused_quant, int4_matmul, kernels, norms, quantized, rope\n"
+        "fused_quant, int4_matmul, kernels, launches, norms, quantized, rope\n"
         "from diffusionkit_tpu_torch import parallel\n"
         "from diffusionkit_tpu_torch.parallel import mesh, ring_attention\n"
         "from diffusionkit_tpu_torch.ops import w4a8_matmul, w8a8\n"
