@@ -81,6 +81,20 @@ Phases, each raising on failure (the script then exits non-zero):
      the reference's default shape: every row timed, mat_pl and mat_xla
      equal to kernel and int8_dot to torch._int_mm bit for bit, each
      counter rising by exactly the launches one run makes;
+  3-4f. SD3.5-large's kernels: C and #13 on fp32 x (csrc/dequant_f32.cu:
+     3xTF32 wgmma above 16 rows, an FMA tile at M <= 16; block 35's
+     linears, image and text rows and the
+     `ada` shape) within one fp32 ulp + 2K 2^-24 (|x| @ |w|) of fp32 math,
+     kernel E with block 35's fp32 bias (and fp32 output) in the GEMV, on
+     #10 then #11, in gelu_quant and grouped_xs, bit-identical to its plain
+     version (gelu_quant as in bf16), each timed beside its bound (fp32
+     products at the 3xTF32 rate, the FMA rate's bound beside it); then
+     every kernel of the SD3.5 paths at the 19 x 128 widths (hidden 2432,
+     FFN 9728, `ada` 14592 / 4864, 38 heads of 64): A and A' (bf16 and
+     fp32), D, #4, E by mode (mode plain above 16 rows also on E's own
+     loop), #10, #11 (a ragged BN = 256 edge; M = 2 at K = 2432 on the
+     mma.sync tile), C and #13 with their GEMVs, kernel B in bf16 and fp32
+     at 4250 and 4685 tokens, the first of each timed;
   every kernel's time is printed beside its bound (the larger of its
   operations over the card's peak for their type and its bytes over
   3.35 TB/s) and, for flash attention, beside F.scaled_dot_product_attention
@@ -89,8 +103,11 @@ Phases, each raising on failure (the script then exits non-zero):
      against the same weights in fp32 on the CPU (plain path): SD3-medium
      in bf16, w8a8 and int8 (2 blocks each), FLUX.1-schnell int4 and w4a8
      (1 dual-stream + 2 single-stream blocks each), and T5-XXL in w8a8 after
-     SmoothQuant (2 layers); and SD3-medium in fp32 on the card (every joint
+     SmoothQuant (2 layers); SD3-medium in fp32 on the card (every joint
      attention on kernel B's fp32 instantiation) against fp32 on the CPU;
+     and SD3.5-large at full width, 3 blocks with block 1 upcast to fp32
+     (its calls on the fp32 entries, counted apart), in bf16, int4 and w4a8
+     against fp32 on the CPU;
   6. the main paths, with random weights from a seed, each serving two
      requests through generate_image and repeating the first through the
      phase methods, all under the default use_scan=True, the denoise loop a
@@ -148,9 +165,22 @@ Phases, each raising on failure (the script then exits non-zero):
         through the ring, kernel B only in the VAE mid-block (65536
         positions); then request 0 through the default dispatch, on kernel
         B only, its latents within 3e-2 relative L2 of the ring's;
-     (run in the order a, a', a'', h, h', d, e, b, c, g, g', f, so h, d
-     and e share a's encoders, h a's MMDiT, g c's models and f g's, before f
-     converts the T5);
+     i. SD3.5-large w4a8 (38 blocks, hidden 2432, block 35 fp32), bench.py's
+        bench_sd35_w4a8: a random packed model (group 64) given to
+        DiffusionPipeline(model_version=...-3.5-large, use_t5=False,
+        quantize_mmdit="w4a8"), which adds the wscale; 1024², 8 steps, CFG
+        5.0; f's CLIP-L and VAE, a CLIP-G drawn anew;
+     i'. the 4-bit release (...-3.5-large-4bit-quantized): the same settings
+        on a packed int4 model, weight-only (kernel C; block 35 on C's fp32
+        tile);
+     k. SD3.5-large bf16 with use_t5=True: T5-XXL at 512 tokens (4685 joint
+        tokens), block 35 in fp32 (kernel A and B's fp32 kernels);
+     j. FLUX.1-dev bf16 (its guidance embedder, guidance 3.5) through
+        FluxPipeline(model_version=...FLUX.1-dev), T5 at 512 tokens (4608
+        joint tokens), 1024², 4 steps; k's T5, CLIP-L and VAE;
+     (run in the order a, a', a'', h, h', d, e, b, c, g, g', f, i, i', k, j,
+     so h, d and e share a's encoders, h a's MMDiT, g c's models and f g's,
+     before f converts the T5; each later path frees the previous MMDiT);
   7. two denoise steps of each path (the graph's replays; the synced
      loop's if the profiler sees no kernel inside a replay) under
      torch.profiler: device-busy time per step by kernel family and the
@@ -183,8 +213,13 @@ import torch.nn.functional as F
 from diffusionkit_tpu_torch.config import (
     CLIP_G,
     CLIP_L,
+    FLUX_DEV,
+    FLUX_DEV_VERSION,
     FLUX_SCHNELL,
+    SD35_LARGE,
+    SD35_LARGE_4BIT,
     SD3_2b,
+    SD3_8b,
     T5_XXL,
     VAEDecoderConfig,
 )
@@ -263,6 +298,7 @@ from diffusionkit_tpu_torch.tools import (
 )
 
 GEMV_SOURCE = "diffusionkit_tpu_torch/csrc/gemv_sm90.cu"
+F32_DEQUANT_SOURCE = "diffusionkit_tpu_torch/csrc/dequant_f32.cu"
 KERNELS = {
     "mod_ln": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
                "diffusionkit_tpu/ops/fused_quant.py:284"),
@@ -297,6 +333,9 @@ KERNELS = {
     "w4a8_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/w4a8_matmul.py:268"),
     # #11's M <= 16 GEMV, with its quantizing entry (kernel D in its prologue).
     "w8_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/w4a8_matmul.py:530"),
+    # Kernel C on fp32 x (SD3.5-large's block 35): 3xTF32 wgmma above 16
+    # rows, an FMA tile at M <= 16.
+    "int4_matmul[f32]": (F32_DEQUANT_SOURCE, "diffusionkit_tpu/ops/int4_matmul.py:74"),
 }
 # Each GEMV's entry in the line and that of its function at M > 16 (the same
 # bound; that entry points here as `small_m`).
@@ -316,6 +355,7 @@ SYMBOLS = {
     "int8_dot": "w8_mm_sm90<int, BN>", "int4_matmul[gemv]": "int4_gemv",
     "int8_matmul[gemv]": "int8_gemv", "w4a8_matmul[gemv]": "w4a8_gemv",
     "w8_matmul[gemv]": "w8_gemv<XT, OutT>",
+    "int4_matmul[f32]": "dequant_mm_3xtf32<4> (M > 16), dequant_mm_f32<4> (M <= 16)",
 }
 # The sources and kernels of each function's other shapes: the fp32 flash
 # kernels (3xTF32 on wgmma at d = 64 and 128, on mma.sync at d = 512);
@@ -342,7 +382,11 @@ OTHER_SOURCES = {
                               "d64_source": "diffusionkit_tpu_torch/csrc/flash_attention_sm90.cu",
                               "d64_symbols": "flash_fwd_sm90_stats64"},
     "int8_dot": {"small_m_source": W8_SMALL_SOURCE},
-    **{base: {"small_m": name} for name, base in GEMVS.items()},
+    # #13 on fp32 x: C's fp32 tile with bytes (its rows in the int8_matmul line).
+    "int8_matmul": {"small_m": "int8_matmul[gemv]", "fp32_source": F32_DEQUANT_SOURCE,
+                    "fp32_symbols": "dequant_mm_3xtf32<8> (M > 16), "
+                                    "dequant_mm_f32<8> (M <= 16)"},
+    **{base: {"small_m": name} for name, base in GEMVS.items() if base != "int8_matmul"},
     "w8_matmul": {"small_m": "w8_matmul[gemv]",
                   "k64_source": "diffusionkit_tpu_torch/csrc/w8_matmul_sm90.cu",
                   "k64_symbols": "w8_mm_sm90_k64<bf16|float>"},
@@ -352,6 +396,10 @@ COUNTED = {"mod_ln": mod_ln, "flash_attention_bshd": flash_attention_bshd,
            "quantize": quantize, "gelu_quantize": gelu_quantize, "w8_matmul": w8_matmul,
            "int8_matmul": int8_matmul, "flash_attention_stats": flash_attention_stats,
            "flash_attention": flash_attention, "dequant_w8": dequant_w8, "int8_dot": int8_dot}
+# The wrappers that count their fp32 launches apart (``f32_launches``).
+F32_COUNTED = {"mod_ln": mod_ln, "mod_ln_quantize": mod_ln_quantize, "quantize": quantize,
+               "flash_attention_bshd": flash_attention_bshd, "int4_matmul": int4_matmul,
+               "int8_matmul": int8_matmul, "w4a8_matmul": w4a8_matmul, "w8_matmul": w8_matmul}
 # The path whose launches the kernels line reports for each kernel: the
 # slice that brought it, or for kernel C, which the w4a8 path must not run,
 # the FLUX int4 path; #10 the FLUX w4a8 path (mode plain above 16 rows).
@@ -362,7 +410,8 @@ MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flu
              "w8_matmul[gemv]": "sd3-w8a8",
              "gelu_quantize": "sd3-w8a8", "w8_matmul": "sd3-w8a8", "int8_matmul": "sd3-int8",
              "flash_attention_stats": "flux-w4a8-2048-ring", "flash_attention": "sd3-bhsd",
-             "int8_dot": "microbench-int8", "w4a8_matmul[plain]": "bench-w4a8-mat"}
+             "int8_dot": "microbench-int8", "w4a8_matmul[plain]": "bench-w4a8-mat",
+             "int4_matmul[f32]": "sd35-4bit"}
 # The two tool paths: each tool's run at the reference's default shape.
 TOOLS = {"bench-w4a8-mat": bench_w4a8_mat, "microbench-int8": microbench_int8}
 # Per-request launches the attention kernels must match exactly.
@@ -404,6 +453,17 @@ SD3_BHSD = dataclasses.replace(SD3, name="sd3-bhsd", requests=SD3.requests[:1])
 # default dispatch, the ring's flash twin (h').
 SD3_RING = dataclasses.replace(SD3, name="sd3-1024-ring", latent=(128, 128))
 SD3_RING_TWIN = dataclasses.replace(SD3_RING, name="sd3-1024-flash", requests=SD3.requests[:1])
+# SD3.5-large at its native 1024² (4096 image + 154 text tokens), CFG 5.0,
+# T5 off, bench.py's bench_sd35_w4a8 (8 steps, its n): i, w4a8 (a random
+# packed init given to quantize_mmdit="w4a8", which adds the wscale); i',
+# the 4-bit release (int4 weight-only, packed at group 64: kernel C); k,
+# bf16 with T5-XXL at 512 tokens (77 + 512 = 589 text tokens, 4685 joint).
+# j: FLUX.1-dev bf16 at 1024², guidance 3.5 (the default), T5 at 512 tokens
+# (4608 joint), 4 steps.
+SD35 = Path("sd35-w4a8", 8, 5.0, (128, 128), 154, SD3.requests)
+SD35_4BIT = dataclasses.replace(SD35, name="sd35-4bit")
+SD35_T5 = dataclasses.replace(SD35, name="sd35-t5", txt_tokens=589)
+FLUX_DEV_PATH = Path("flux-dev", 4, 0.0, (128, 128), 512, FLUX.requests)
 LAYOUT_ENV = "DIFFUSIONKIT_TPU_ATTN_LAYOUT"
 # Relative L2 between two runs of one request that differ only in the
 # attention's numerics (a' against a, the flash twins g' and h' against g
@@ -559,19 +619,21 @@ def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3
     activations; the flash kernels also in fp32, their products then at
     ``fp32_peak``: the 3xTF32 rate, or "fp32" for the FMA rate), in the
     layout each phase times it."""
-    size = 4 if dtype == "fp32" else 2  # bytes an element of q, k, v
+    size = 4 if dtype == "fp32" else 2  # bytes an element of q, k, v (x, y)
     if dtype == "fp32":
         dtype = fp32_peak
+    name = name.replace("[f32]", "")  # C / #13's fp32 tile: the same function
     if name == "w8_matmul[gemv]":  # the quantizing entry: bf16 x read once, no scales
         m, k, n = shape
         return bound(2 * m * k * n, "int8", 2 * m * k + n * k + 6 * n + 2 * m * n)
     name = GEMVS.get(name, name)  # a GEMV's bound is its function's
     if name == "mod_ln":
         b, s_, h = shape
-        return bound(ROW_OPS[name] * b * s_ * h, "fp32", 4 * b * s_ * h + 4 * b * h)
+        return bound(ROW_OPS[name] * b * s_ * h, "fp32", 2 * size * (b * s_ * h + b * h))
     if name == "mod_ln_quantize":
         b, s_, h = shape
-        return bound(ROW_OPS[name] * b * s_ * h, "fp32", 3 * b * s_ * h + 4 * b * s_ + 4 * b * h)
+        return bound(ROW_OPS[name] * b * s_ * h, "fp32",
+                     (size + 1) * b * s_ * h + 4 * b * s_ + 2 * size * b * h)
     if name in ("quantize", "gelu_quantize"):
         m, k = shape
         return bound(ROW_OPS[name] * m * k, "fp32", 3 * m * k + 4 * m)
@@ -602,14 +664,16 @@ def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3
     m, k, n, g = shape
     affine = 8 * (k // g) * n  # scales and zeros
     if name == "int4_matmul":
-        return bound(2 * m * k * n, "bf16", 2 * m * k + k * n // 2 + affine + 2 * m * n)
+        return bound(2 * m * k * n, dtype, size * m * k + k * n // 2 + affine + size * m * n)
     if name == "int8_matmul":
-        return bound(2 * m * k * n, "bf16", 2 * m * k + k * n + affine + 2 * m * n)
+        return bound(2 * m * k * n, dtype, size * m * k + k * n + affine + size * m * n)
     mode = name[len("w4a8_matmul["):-1]
-    out = m * n + 4 * m * (n // 512) if mode == "gelu_quant" else 2 * m * n
+    # An fp32 row of kernel E (block 35's): the bias and the output in fp32.
+    out = m * n + 4 * m * (n // 512) if mode == "gelu_quant" else size * m * n
     xs = 4 * m * (k // 512 if mode == "grouped_xs" else 1)
     extra = 2 * m * 64 * 4 + 256 if mode == "norm_rope" else 0  # cos/sin tables, norm weight
-    return bound(2 * m * k * n, "int8", m * k + k * n // 2 + affine + 6 * n + xs + out + extra)
+    return bound(2 * m * k * n, "int8",
+                 m * k + k * n // 2 + affine + (4 + size) * n + xs + out + extra)
 
 
 def timing(name: str, shape, ms: float, plain: float, dtype: str = "bf16", **extra) -> dict:
@@ -651,6 +715,8 @@ def reset_counts() -> None:
     for fn in (int4_matmul, int8_matmul, w4a8_matmul, w8_matmul):
         fn.gemv_launches = 0
     w8_matmul.quantizing_launches = 0
+    for fn in F32_COUNTED.values():
+        fn.f32_launches = 0
 
 
 def counts() -> dict:
@@ -666,6 +732,10 @@ def counts() -> dict:
                 "w4a8_matmul[mat]": w4a8_matmul.mat_launches,
                 # of #11's GEMV launches, those of its quantizing entry
                 "w8_matmul[quantizing]": w8_matmul.quantizing_launches})
+    # Of each wrapper's launches, those on fp32 (an fp32-upcast block's, an
+    # fp32 model's or decoder's): fp32 inputs, or for E and #11 an fp32 bias
+    # or output.
+    out.update({f"{name}[f32]": fn.f32_launches for name, fn in F32_COUNTED.items()})
     return out
 
 
@@ -1761,6 +1831,343 @@ def w8_tool_kernels(gen, tag: str):
     return errs, times
 
 
+# -- SD3.5-large: the fp32 forms and the 19 x 128 widths ---------------------
+
+# SD3.5-large at 1024² with CFG: 2 x 4096 image rows, 2 x 154 text rows (2 x
+# 589 with T5), hidden 2432 = 19 x 128, FFN 9728 = 19 x 512, 38 heads of 64,
+# `ada` 14592 (4864 in the last block's text stream), group 64.
+# Kernels C and #13 in fp32 (block 35's linears; csrc/dequant_f32.cu): q/k/v/o,
+# fc1 and fc2 at the image rows, q/k/v/o at the text rows, and the `ada`
+# shape at M = 2 (an fp32 model's: block 35's own `ada` takes the bf16 c).
+# Timed: every C shape, #13's image-row shapes and its GEMV shape.
+F32_DEQUANT_SHAPES = [(8192, 2432, 2432, 64), (8192, 2432, 9728, 64), (8192, 9728, 2432, 64),
+                      (308, 2432, 2432, 64), (2, 2432, 14592, 64)]
+# Kernel E with block 35's fp32 bias (and fp32 output but for gelu_quant's
+# int8): the `ada` GEMV with a bf16 output (its input is the bf16 c) and
+# with an fp32 one, mode plain above 16 rows on #10 then #11 ("mat", fp32
+# out), gelu_quant at fc1 and grouped_xs at fc2, image and text rows.
+W4A8_F32_CASES = [("plain", (2, 2432, 14592, 64), torch.bfloat16),
+                  ("plain", (2, 2432, 14592, 64), torch.float32),
+                  ("plain", (8192, 2432, 2432, 64), torch.float32),
+                  ("plain", (308, 2432, 2432, 64), torch.float32),
+                  ("gelu_quant", (8192, 2432, 9728, 64), None),
+                  ("gelu_quant", (308, 2432, 9728, 64), None),
+                  ("grouped_xs", (8192, 9728, 2432, 64), torch.float32),
+                  ("grouped_xs", (308, 9728, 2432, 64), torch.float32)]
+# The 19 x 128 widths in bf16 on every kernel of the SD3.5 paths (checked;
+# the first of each timed): A and A' at the image, text and T5-on text
+# sites ((B, S, H), A' also in fp32, block 35's), D at the `o` inputs and
+# the `ada` input (fp32 too), #4 at w8a8's FFN hidden, E by mode, #10 at
+# each layer shape, #11 at M > 16 (a ragged BN = 256 edge: 2432 = 9.5 x 256)
+# and at M = 2 (K = 2432: the mma.sync tile, off the GEMV's K % 256), C and
+# #13 at the paths' shapes and their `ada` GEMVs.
+SD35_MOD_LN = [(2, 4096, 2432), (2, 154, 2432), (2, 589, 2432)]
+SD35_QUANT = [(8192, 2432), (308, 2432), (2, 2432)]
+SD35_GELU = [(8192, 9728), (308, 9728)]
+SD35_W4A8_SHAPES = {"plain": [(2, 2432, 14592, 64), (2, 2432, 4864, 64), (8192, 2432, 2432, 64),
+                       (308, 2432, 2432, 64)],
+             "gelu_quant": [(8192, 2432, 9728, 64), (308, 2432, 9728, 64)],
+             "grouped_xs": [(8192, 9728, 2432, 64), (308, 9728, 2432, 64)]}
+SD35_DEQUANT = [(2432, 2432, 64), (2432, 9728, 64), (9728, 2432, 64)]
+SD35_W8 = [(8192, 2432, 2432), (308, 2432, 9728), (2, 2432, 14592)]
+SD35_C = [(8192, 2432, 9728, 64), (8192, 2432, 2432, 64), (8192, 9728, 2432, 64),
+          (308, 2432, 2432, 64), (2, 2432, 14592, 64), (2, 2432, 4864, 64)]
+# Kernel B at SD3.5's joint attention, 1024² CFG: 4096 + 154 and, with T5,
+# 4096 + 589 tokens, 38 heads of 64; bf16 and fp32 (block 35). The plain
+# version runs 19 heads at a time (all 38 heads' fp32 scores: 6.7 GB).
+SD35_FLASH = [(2, 4250, 38, 64), (2, 4685, 38, 64)]
+
+
+def fp32_ulp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0**-126))) - 23)
+
+
+def random_int8(shape, gen, dtype):
+    m, k, n, group = shape
+    q8 = torch.randint(0, 256, (k, n), generator=gen, device="cuda", dtype=torch.uint8)
+    sc = (torch.rand(k // group, n, generator=gen, device="cuda") + 0.5) * (2 / 255 / k**0.5)
+    zr = -(torch.rand(k // group, n, generator=gen, device="cuda") + 0.5) / k**0.5
+    return torch.randn(m, k, generator=gen, device="cuda").to(dtype), q8, sc, zr
+
+
+def check_dequant(name: str, shape, x, qw, sc, zr, got) -> float:
+    """Kernel C or #13 against fp32 math on the same weights rounded to x's
+    dtype: one ulp of the output dtype + 2K 2^-24 (|x| @ |w|) per element
+    (the fp32 sums in another order; TF32 off). Returns the max abs error."""
+    deq = dequantize_int4 if name.startswith("int4") else dequantize_int8
+    w = deq(qw, sc, zr, x.dtype).float()
+    want = x.float() @ w
+    ulp = fp32_ulp(want) if x.dtype == torch.float32 else bf16_ulp(want)
+    bnd = ulp + 2 * shape[1] * 2.0**-24 * (x.float().abs() @ w.abs())
+    diff = (got.float() - want).abs()
+    err, ratio = diff.max().item(), (diff / bnd).max().item()
+    ok = ratio <= 1 and bool(torch.isfinite(got).all()) and got.dtype == x.dtype
+    kind = "fp32" if x.dtype == torch.float32 else "bf16"
+    log(f"  {name} {kind} (M, K, N, group) {shape}: max_abs_err {err!r}; tolerance one {kind} "
+        f"ulp + 2K 2^-24 (|x|@|w|) per element, worst element at {ratio!r} of it: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {kind} {shape} disagrees with fp32 math")
+    return err
+
+
+def sd35_f32_kernels(gen, tag: str, errs: dict, times: dict) -> None:
+    """Phase 3-4f, fp32: kernels C and #13 on fp32 x (csrc/dequant_f32.cu,
+    counted as fp32 launches) at F32_DEQUANT_SHAPES,
+    and kernel E with block 35's fp32 bias and output (W4A8_F32_CASES; mode
+    plain above 16 rows on #10 then #11) against their plain versions (E:
+    bit-identical in plain and grouped_xs, gelu_quant as in bf16), timed
+    beside their bounds (fp32 products at the 3xTF32 rate, the FMA rate's
+    bound beside it)."""
+    for bits, fn, plain_fn in ((4, int4_matmul, int4_matmul_plain),
+                               (8, int8_matmul, int8_matmul_plain)):
+        name = fn.__name__
+        for shape in F32_DEQUANT_SHAPES:
+            m, k, n, group = shape
+            if bits == 4:
+                x, qw, sc, zr = random_int4(shape, gen)
+                x = x.float()
+            else:
+                x, qw, sc, zr = random_int8(shape, gen, torch.float32)
+            before = (fn.launches, fn.f32_launches)
+            got = fn(x, qw, sc, zr)
+            torch.cuda.synchronize()
+            if (fn.launches, fn.f32_launches) != (before[0] + 1, before[1] + 1):
+                raise AssertionError(f"{name} fp32 did not launch its fp32 kernel")
+            key = "int4_matmul[f32]" if bits == 4 else "int8_matmul"
+            errs[key].append(check_dequant(name, shape, x, qw, sc, zr, got))
+            del got
+            if bits == 8 and m == 308:
+                continue
+            reps = 5 if m > 16 else 20
+            ms = device_ms(lambda: fn(x, qw, sc, zr), reps=reps)
+            plain = device_ms(lambda: plain_fn(x, qw, sc, zr), reps=reps)
+            t = timing(f"{name}[f32]", shape, ms, plain, "fp32", library_ms=None)
+            log(f"  {name} fp32 (M, K, N, group) {shape}: kernel {ms!r} ms "
+                f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TFLOP/s), plain {plain!r} ms, "
+                f"{bound_note(t)}; the FMA rate's bound {t['bound_fma_ms']!r} ms [{tag}]")
+            times[key].append(t)
+            del x, qw, sc, zr
+            torch.cuda.empty_cache()
+    for mode, shape, out in W4A8_F32_CASES:
+        args, extra = w4a8_case(mode, shape, gen)
+        bias = args[6].float() + 1e-3 * torch.randn(shape[2], generator=gen, device="cuda")
+        args = (*args[:6], bias)
+        kw = dict(mode=mode, **({"out_dtype": out} if out is not None else {}))
+        route = w4a8_route(shape[0], mode)
+        before = (w4a8_matmul.f32_launches, w4a8_matmul.mat_launches)
+        got = w4a8_matmul(*args, **kw)
+        torch.cuda.synchronize()
+        grew = (w4a8_matmul.f32_launches - before[0], w4a8_matmul.mat_launches - before[1])
+        if grew != ((0, 1) if route == "mat" else (1, 0)):
+            raise AssertionError(f"w4a8_matmul[{mode}] {shape}: fp32 launches {grew}")
+        want = w4a8_matmul_plain(*args, **kw)
+        label = (f"(M, K, N, group) {shape}, fp32 bias, {out or 'int8'} out, "
+                 f"route {route}")
+        if mode == "gelu_quant":
+            err = check_w4a8_result(mode, got, want, label)
+        else:
+            ok = got.dtype == out and torch.equal(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            log(f"  w4a8_matmul[{mode}] {label}: bit-identical to its plain version: "
+                f"{'ok' if ok else 'FAIL'} (max_abs_err {err!r})")
+            if not ok:
+                raise AssertionError(f"w4a8_matmul[{mode}] {label} disagrees with its plain version")
+        # Mode plain's "mat" route (#10 then #11) is filed under mode plain.
+        key = "w4a8_matmul[gemv]" if route == "tile" else f"w4a8_matmul[{mode}]"
+        errs[key].append(err)
+        del got, want
+        m, k, n, group = shape
+        ms = device_ms(lambda: w4a8_matmul(*args, **kw))
+        plain = device_ms(lambda: w4a8_matmul_plain(*args, **kw), reps=5)
+        t = timing(key, shape, ms, plain, "fp32" if out == torch.float32 else "bf16",
+                   library_ms=None, bias="fp32", route=route, out=str(out or torch.int8))
+        log(f"  w4a8_matmul[{mode}] {label}: {ms!r} ms ({2 * m * k * n / (ms / 1e3) / 1e12!r} "
+            f"TOP/s), plain {plain!r} ms, {bound_note(t)} [{tag}]")
+        times[key].append(t)
+        del args, extra
+        torch.cuda.empty_cache()
+
+
+def sd35_width_kernels(gen, tag: str, errs: dict, times: dict) -> None:
+    """Phase 3-4f: every kernel of the SD3.5 paths at the 19 x 128 widths
+    against its plain version (the bounds of phases 3-4 to 3-4e), the first
+    shape of each timed: A, A' (bf16 and fp32), D, #4, E by mode, #10,
+    #11, C, #13 and kernel B in bf16 and fp32."""
+    dev = torch.device("cuda")
+    for shape in SD35_MOD_LN:
+        b, s_, h = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+            vec = torch.randn(b, 6 * h, generator=gen, device=dev).to(dtype)
+            sh, sc = vec[:, None, :h], vec[:, None, h : 2 * h]
+            got = mod_ln(x, sh, sc)
+            want = mod_ln_plain(x.float(), sh.float(), sc.float())
+            ulp = bf16_ulp(want) if dtype == torch.bfloat16 else fp32_ulp(want)
+            diff = (got.float() - want).abs()
+            ok = bool((diff <= 0.5 * ulp + 1e-5).all())
+            aq, aw = mod_ln_quantize(x, sh, sc), mod_ln_quantize_plain(x, sh, sc)
+            torch.cuda.synchronize()
+            worst, share = int8_flips(aq.x8, aw.x8)
+            srel = ((aq.xscale - aw.xscale).abs() / aw.xscale).max().item()
+            ok_q = worst <= 1 and share <= INT8_FLIP_SHARE["mod_ln_quantize"] and srel <= 1e-5
+            log(f"  mod_ln {shape} {dtype}: max_abs_err {diff.max().item()!r} (half an ulp + "
+                f"1e-5): {'ok' if ok else 'FAIL'}; mod_ln_quantize: x8 max step {worst} on "
+                f"{share!r} (<= 1 on <= 0.01), scales max rel {srel!r}: "
+                f"{'ok' if ok_q else 'FAIL'}")
+            if not (ok and ok_q):
+                raise AssertionError(f"mod_ln / mod_ln_quantize {shape} {dtype} disagree")
+            errs["mod_ln"].append(diff.max().item())
+            errs["mod_ln_quantize"].append(float(worst))
+            if shape == SD35_MOD_LN[0]:
+                for name, fn, pfn in (("mod_ln", mod_ln, mod_ln_plain),
+                                      ("mod_ln_quantize", mod_ln_quantize, mod_ln_quantize_plain)):
+                    ms, plain = device_ms(lambda: fn(x, sh, sc)), device_ms(lambda: pfn(x, sh, sc))
+                    kind = "fp32" if dtype == torch.float32 else "bf16"
+                    t = timing(name, shape, ms, plain, kind, library_ms=None)
+                    log(f"  {name} {shape} {kind}: kernel {ms!r} ms, plain {plain!r} ms, "
+                        f"{bound_note(t)} [{tag}]")
+                    times[name].append(t)
+    for shape in SD35_QUANT:
+        for dtype in (torch.bfloat16, torch.float32):
+            y = (torch.randn(shape, generator=gen, device=dev) * 3).to(dtype)
+            got, want = quantize(y), quantize_plain(y)
+            torch.cuda.synchronize()
+            ok = torch.equal(got.x8, want.x8) and torch.equal(got.xscale, want.xscale)
+            log(f"  quantize {shape} {dtype}: bit-identical: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"quantize {shape} {dtype} disagrees with its plain version")
+            errs["quantize"].append(0.0)
+    for shape in SD35_GELU:
+        y = (torch.randn(shape, generator=gen, device=dev) * 2).bfloat16()
+        got, want = gelu_quantize(y), gelu_quantize_plain(y)
+        torch.cuda.synchronize()
+        worst, share = int8_flips(got.x8, want.x8)
+        srel = ((got.xscale - want.xscale).abs() / want.xscale).max().item()
+        ok = worst <= 1 and share <= 1e-3 and srel <= 1e-6
+        log(f"  gelu_quantize {shape}: x8 max step {worst} on {share!r} (<= 1 on <= 1e-3), "
+            f"scales max rel {srel!r}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"gelu_quantize {shape} disagrees with its plain version")
+        errs["gelu_quantize"].append(float(worst))
+    for mode, shapes in SD35_W4A8_SHAPES.items():
+        for shape in shapes:
+            args, extra = w4a8_case(mode, shape, gen)
+            route = w4a8_route(shape[0], mode)
+            got = w4a8_matmul(*args, mode=mode)
+            torch.cuda.synchronize()
+            want = w4a8_matmul_plain(*args, mode=mode)
+            key = "w4a8_matmul[gemv]" if route == "tile" else f"w4a8_matmul[{mode}]"
+            errs[key].append(check_w4a8_result(mode, got, want,
+                                               f"(M, K, N, group) {shape}, route {route}"))
+            if route == "mat":  # and kernel E's own Hopper loop at the same shape
+                e = w4a8_matmul(*args, mode=mode, _route="sm90")
+                torch.cuda.synchronize()
+                errs["w4a8_matmul[plain]"].append(
+                    check_w4a8_result(mode, e, want, f"(M, K, N, group) {shape}, route sm90"))
+                del e
+            if shape == shapes[0] or (mode == "plain" and shape[0] > 16 and shape[0] == 8192):
+                m, k, n, _ = shape
+                ms = device_ms(lambda: w4a8_matmul(*args, mode=mode))
+                plain = device_ms(lambda: w4a8_matmul_plain(*args, mode=mode), reps=5)
+                t = timing(key, shape, ms, plain, library_ms=None, route=route)
+                log(f"  w4a8_matmul[{mode}] (M, K, N, group) {shape} ({route}): kernel {ms!r} ms "
+                    f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TOP/s), plain {plain!r} ms, "
+                    f"{bound_note(t)} [{tag}]")
+                times[key].append(t)
+            del args, extra, got, want
+            torch.cuda.empty_cache()
+    for k, n, g in SD35_DEQUANT:
+        _, q4, sc, zr = random_int4((1, k, n, g), gen)
+        s8, z8 = scaled_affine(sc, zr, torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4)
+        ok = torch.equal(dequant_w8(q4, s8, z8), dequant_w8_plain(q4, s8, z8))
+        log(f"  dequant_w8 (K, N, group) {(k, n, g)}: bit-identical: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"dequant_w8 {(k, n, g)} disagrees with its plain version")
+        errs["dequant_w8"].append(0.0)
+    for shape in SD35_W8:
+        m, k, n = shape
+        x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        ws = torch.rand(n, generator=gen, device=dev) * 1e-3
+        xs = torch.rand(m, 1, generator=gen, device=dev) * 1e-2
+        for out in (torch.bfloat16, torch.float32):
+            b = torch.randn(n, generator=gen, device=dev).to(out)
+            got = w8_matmul(x8, w8, ws, xs, b, out)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, w8_matmul_plain(x8, w8, ws, xs, b, out))
+            log(f"  w8_matmul (M, K, N) {shape} {out} out (route "
+                f"{'gemv' if m <= 16 and k % 256 == 0 else 'tile' if m <= 16 else 'sm90'}): "
+                f"bit-identical: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"w8_matmul {shape} {out} disagrees with its plain version")
+            errs["w8_matmul"].append(0.0)
+    for shape in SD35_C:
+        m, k, n, group = shape
+        x, q4, sc, zr = random_int4(shape, gen)
+        got = int4_matmul(x, q4, sc, zr)
+        torch.cuda.synchronize()
+        key = "int4_matmul[gemv]" if m <= 16 else "int4_matmul"
+        errs[key].append(check_dequant("int4_matmul", shape, x, q4, sc, zr, got))
+        x8_, q8, s8_, z8_ = random_int8(shape, gen, torch.bfloat16)
+        got8 = int8_matmul(x8_, q8, s8_, z8_)
+        torch.cuda.synchronize()
+        errs["int8_matmul[gemv]" if m <= 16 else "int8_matmul"].append(
+            check_dequant("int8_matmul", shape, x8_, q8, s8_, z8_, got8))
+        if shape in (SD35_C[0], SD35_C[4]):
+            ms = device_ms(lambda: int4_matmul(x, q4, sc, zr))
+            plain = device_ms(lambda: int4_matmul_plain(x, q4, sc, zr))
+            if m <= 16:
+                times[key].append(gemv_timing(key, shape, ms, plain,
+                                              q4.numel() * 4 + 8 * n * (k // group), tag))
+            else:
+                t = timing("int4_matmul", shape, ms, plain)
+                log(f"  int4_matmul (M, K, N, group) {shape}: kernel {ms!r} ms "
+                    f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TFLOP/s), plain {plain!r} ms, "
+                    f"{bound_note(t)} [{tag}]")
+                times[key].append(t)
+        del x, q4, sc, zr, got, x8_, q8, s8_, z8_, got8
+        torch.cuda.empty_cache()
+    for shape in SD35_FLASH:
+        b, s_, h, d = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+            scale = d**-0.5
+            before = flash_attention_bshd.f32_launches
+            got = flash_attention_bshd(q, k, v, scale)
+            torch.cuda.synchronize()
+            if flash_attention_bshd.f32_launches != before + (dtype == torch.float32):
+                raise AssertionError("flash_attention_bshd fp32 did not count its fp32 launch")
+            want = torch.cat([flash_attention_bshd_plain(q[:, :, i:i + 19].float(),
+                                                         k[:, :, i:i + 19].float(),
+                                                         v[:, :, i:i + 19].float(), scale)
+                              for i in range(0, h, 19)], dim=2)
+            if dtype == torch.float32:
+                err = check_fp32(got, want, f"flash_attention_bshd {shape}")
+            else:
+                diff = (got.float() - want).abs()
+                bnd = bf16_ulp(want) + FLASH_SLACK * want.abs().max()
+                err, ratio = diff.max().item(), (diff / bnd).max().item()
+                log(f"  flash_attention_bshd {shape}: max_abs_err {err!r}, worst element at "
+                    f"{ratio!r} of one bf16 ulp + 2^-8 max|want|: {'ok' if ratio <= 1 else 'FAIL'}")
+                if ratio > 1:
+                    raise AssertionError(f"flash_attention_bshd {shape} disagrees")
+            errs["flash_attention_bshd"].append(err)
+            del got, want
+            ms = device_ms(lambda: flash_attention_bshd(q, k, v, scale), reps=5)
+            qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
+            lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), reps=5)
+            kind = "fp32" if dtype == torch.float32 else "bf16"
+            t = timing("flash_attention_bshd", shape, ms, None, kind, library_ms=lib,
+                       plain_note="the plain version runs 19 heads at a time; not timed")
+            log(f"  flash_attention_bshd {shape} {kind}: kernel {ms!r} ms "
+                f"({4 * b * h * s_ * s_ * d / (ms / 1e3) / 1e12!r} TFLOP/s), "
+                f"F.scaled_dot_product_attention {lib!r} ms, {bound_note(t)} [{tag}]")
+            times["flash_attention_bshd"].append(t)
+            del q, k, v, qh, kh, vh
+            torch.cuda.empty_cache()
+
+
 def tool_paths(tag: str) -> dict:
     """The two tool paths: each tool's run at the reference's default shape
     and iteration count, counters zeroed right before and read right after;
@@ -1885,6 +2292,37 @@ def per_forward_sd3(depth: int, mode=None) -> dict:
     return per
 
 
+def per_forward_sd35(depth: int, upcast: int, mode=None) -> dict:
+    """Launches of one SD3.5 forward (CFG batch, a text stream of more than
+    16 rows) with ``depth`` dual blocks, the last K/V-only, ``upcast`` of
+    them fp32 (their calls also counted on the fp32 entries: ``[f32]``), by
+    mode. Float: per_forward_sd3's. int4 (block linears packed): kernel C for
+    the 14 block linears of a block (11 in the last), of them at M = 2 the
+    two `ada` a block on the bf16 GEMV (an upcast block's too: c stays bf16),
+    the 12 others of an upcast block on the fp32 tile. w4a8: a block's two
+    `ada` on E's GEMV (an fp32 bias in an upcast block), q/k/v/o on #10 then
+    #11 (8 a block, 7 in the last; fp32 out in an upcast block), gelu_quant
+    and grouped_xs per FFN (an fp32 bias, grouped_xs fp32 out), D before each
+    `ada` and `o` (the `o` inputs fp32), A' at every site, kernel A in the
+    final layer only (its linear is float)."""
+    dual = depth - 1
+    per = {"flash_attention_bshd": depth, "flash_attention_bshd[f32]": upcast}
+    if mode == "w4a8":
+        mat = 8 * dual + 7
+        per.update({"w4a8_matmul[gemv]": 2 * depth, "w4a8_matmul[mat]": mat, "dequant_w8": mat,
+                    "w8_matmul": mat, "w4a8_matmul[gelu_quant]": 2 * dual + 1,
+                    "w4a8_matmul[grouped_xs]": 2 * dual + 1, "quantize": 4 * dual + 3,
+                    "mod_ln_quantize": 4 * dual + 3, "mod_ln": 1,
+                    "w4a8_matmul[f32]": 6 * upcast, "w8_matmul[f32]": 8 * upcast,
+                    "quantize[f32]": 2 * upcast, "mod_ln_quantize[f32]": 4 * upcast})
+        return per
+    per.update({"mod_ln": 4 * dual + 4, "mod_ln[f32]": 4 * upcast})
+    if mode == "int4":
+        per.update({"int4_matmul": 14 * dual + 11, "int4_matmul[gemv]": 2 * depth,
+                    "int4_matmul[f32]": 12 * upcast})
+    return per
+
+
 def reference_checks(gen) -> None:
     rs = np.random.RandomState(0)
     sd3 = dataclasses.replace(SD3_2b, depth_multimodal=2, hidden_size_override=1536)
@@ -1896,8 +2334,23 @@ def reference_checks(gen) -> None:
                 "SD3 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen)
     # The same in fp32 on the card: every joint attention (1178 tokens) on
     # kernel B's fp32 instantiation, kernel A in fp32.
-    mmdit_check(dataclasses.replace(sd3, dtype=torch.float32), inputs, per_forward_sd3(2),
+    per = per_forward_sd3(2)
+    mmdit_check(dataclasses.replace(sd3, dtype=torch.float32), inputs,
+                {**per, **{f"{k}[f32]": v for k, v in per.items() if k in F32_COUNTED}},
                 "SD3 MMDiT fp32 2 blocks x hidden 1536, 512² CFG batch", gen, rtol=FP32_RTOL)
+    # SD3.5-large at full width (hidden 2432 = 19 x 128, 38 heads of 64), 3
+    # blocks with block 1 upcast to fp32 (the reference's block 35; its
+    # calls on the fp32 entries), at the same 512² CFG batch: bf16, the
+    # 4-bit release's int4 (block linears drawn packed at group 64) and w4a8
+    # (the same with each layer's wscale).
+    sd35 = dataclasses.replace(SD3_8b, depth_multimodal=3, upcast_multimodal_blocks=(1,),
+                               hidden_size_override=SD3_8b.hidden_size)
+    label = "SD3.5-large MMDiT 3 blocks (block 1 fp32) x hidden 2432, 512² CFG batch"
+    mmdit_check(sd35, inputs, per_forward_sd35(3, 1), label, gen)
+    mmdit_check(sd35, inputs, per_forward_sd35(3, 1, "int4"), f"{label}, int4", gen,
+                quantize_bits=4)
+    mmdit_check(sd35, inputs, per_forward_sd35(3, 1, "w4a8"), f"{label}, w4a8", gen,
+                quantize_bits=4, convert=add_wscale_)
     # SD3 w8a8 as the reference's random w8a8 init draws it (block linears
     # in w8a8; embedders and final layer float, so kernel A runs once, in
     # the final layer): per block #11 for 14 linears (11 in the last), of
@@ -2004,6 +2457,12 @@ def per_request_launches(path: Path, cfg) -> dict:
     attention takes #14 and kernel B runs only in the VAE. A kernel a path
     must not run has 0 (kernel C on the w4a8 paths, C, E and #13 on SD3
     w8a8, #11, C and E on SD3 int8, #14 and #15 off their paths)."""
+    if path.name.startswith("sd35"):
+        mode = {SD35.name: "w4a8", SD35_4BIT.name: "int4"}.get(path.name)
+        per = {k: path.steps * v for k, v in per_forward_sd35(
+            cfg.depth_multimodal, len(cfg.upcast_multimodal_blocks), mode).items()}
+        per["flash_attention_bshd"] += 1  # the VAE mid-block, bf16
+        return per
     if path.name.startswith("sd3"):
         mode = {"sd3-w8a8": "w8a8", "sd3-int8": "int8"}.get(path.name)
         per = {k: path.steps * v for k, v in per_forward_sd3(cfg.depth_multimodal, mode).items()}
@@ -2015,6 +2474,9 @@ def per_request_launches(path: Path, cfg) -> dict:
             per["flash_attention_bshd"] = 1
         return per
     dual, uni = cfg.depth_multimodal, cfg.depth_unified
+    if path.name == FLUX_DEV_PATH.name:  # bf16: kernels A and B only
+        return {"mod_ln": path.steps * (4 * dual + uni + 1),
+                "flash_attention_bshd": path.steps * (dual + uni) + 1}
     if path.name == FLUX.name:
         return {"mod_ln": path.steps * (4 * dual + uni + 1),
                 "flash_attention_bshd": path.steps * (dual + uni) + 1,
@@ -2055,7 +2517,7 @@ def rel_l2(got, want) -> float:
 
 
 def build_sd3(gen, _prev) -> DiffusionPipeline:
-    pipe = DiffusionPipeline(device="cuda")
+    pipe = DiffusionPipeline(device="cuda", use_t5=False)
     pipe.mmdit = init_mmdit(SD3_2b, gen, "cuda")
     pipe.clip_l = init_clip(CLIP_L, gen, "cuda", dtype=torch.bfloat16)
     pipe.clip_g = init_clip(CLIP_G, gen, "cuda", dtype=torch.bfloat16)
@@ -2090,7 +2552,7 @@ def build_sd3_quantized(mode: str):
         prev.mmdit = None
         gc.collect()
         torch.cuda.empty_cache()
-        pipe = DiffusionPipeline(device="cuda", quantize_mmdit=mode)
+        pipe = DiffusionPipeline(device="cuda", use_t5=False, quantize_mmdit=mode)
         for name in ("clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g"):
             setattr(pipe, name, getattr(prev, name))
         t0 = time.perf_counter()
@@ -2246,7 +2708,7 @@ def serve(pipe, path: Path, tag: str):
     flops = mmdit_step_flops(cfg, path.latent, path.txt_tokens, cfg=path.cfg > 1)["total"]
     peak = device_peak_flops(torch.cuda.get_device_name(0))
     rate, peak_name = "TFLOP/s", "bf16"
-    if path.name in (FLUX_W4A8.name, FLUX_E2E.name, SD3_W8A8.name, FLUX_RING.name):
+    if path.name in (FLUX_W4A8.name, FLUX_E2E.name, SD3_W8A8.name, FLUX_RING.name, SD35.name):
         rate, peak_name, peak = "TOP/s", "int8", 2 * peak  # the int8 tensor cores
     for i, lg in enumerate(logs):
         it = lg["denoising"]["iter_time"]
@@ -2314,7 +2776,7 @@ def decode_fp32(pipe, latents, tag: str) -> dict:
     positions, one head of 512) on kernel B's fp32 instantiation, launched
     once, nothing else counted; the fp32 output against the same latents
     decoded by the same weights in fp32 on the CPU within FP32_RTOL."""
-    pipe32 = DiffusionPipeline(device="cuda", a16=False)
+    pipe32 = DiffusionPipeline(device="cuda", use_t5=False, a16=False)
     pipe32.decoder = copy.deepcopy(pipe.decoder).float()
     reset_counts()
     t0 = time.perf_counter()
@@ -2322,7 +2784,8 @@ def decode_fp32(pipe, latents, tag: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = counts()
-    check_launches(launches, {"flash_attention_bshd": 1}, 1, "the a16=False decode")
+    check_launches(launches, {"flash_attention_bshd": 1, "flash_attention_bshd[f32]": 1}, 1,
+                   "the a16=False decode")
     side = 8 * latents.shape[1]
     if pixels.shape != (1, side, side, 3) or pixels.float().std() == 0:
         raise AssertionError("the a16=False decode gave a wrong shape or a constant image")
@@ -2434,13 +2897,80 @@ def serve_batch(pipe, path: Path, single_latents, tag: str) -> None:
         f"{peak!r} GiB [{tag}]")
 
 
+def upcast_block_check(model: MMDiT) -> None:
+    """Block 35 holds its float leaves in fp32, every other block bf16."""
+    for i, block in enumerate(model.mm_blocks):
+        want = torch.float32 if i in model.config.upcast_multimodal_blocks else torch.bfloat16
+        if {p.dtype for p in block.parameters()} != {want}:
+            raise AssertionError(f"SD3.5 block {i}: float leaves not all {want}")
+
+
+def build_sd35(mode):
+    """Paths i (``mode`` "w4a8"), i' ("4bit") and k (None: bf16 with T5):
+    SD3.5-large on the card through DiffusionPipeline(model_version=...),
+    T5 off but on k. i and i' draw the block linears packed at group 64 (the
+    4-bit release's layout), i gives them to quantize_mmdit="w4a8", which
+    adds each layer's wscale; k draws the float model and a T5-XXL in bf16,
+    its tokenizer at the version's 512 tokens. CLIP-L, the VAE decoder and
+    CLIP-L's tokenizer come from the previous path (FLUX's first), CLIP-G is
+    drawn for the first; the previous MMDiT (and a FLUX path's T5) is freed
+    first."""
+
+    def build(gen, prev) -> DiffusionPipeline:
+        prev.mmdit = None
+        if isinstance(prev, FluxPipeline):
+            prev.t5 = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        version = SD35_LARGE_4BIT if mode == "4bit" else SD35_LARGE
+        quant = "w4a8" if mode == "w4a8" else False
+        pipe = DiffusionPipeline(device="cuda", model_version=version, use_t5=mode is None,
+                                 quantize_mmdit=quant)
+        for name in ("clip_l", "decoder", "tokenizer_l"):
+            setattr(pipe, name, getattr(prev, name))
+        if isinstance(prev, FluxPipeline):
+            pipe.clip_g = init_clip(CLIP_G, gen, "cuda", dtype=torch.bfloat16)
+            pipe.tokenizer_g = CLIPTokenizer({}, synthetic_clip_vocab(), pad_with_eos=False)
+        else:
+            pipe.clip_g, pipe.tokenizer_g = prev.clip_g, prev.tokenizer_g
+        if mode is None:
+            pipe.t5_tokenizer = SyntheticT5Tokenizer(max_length=pipe.t5_max_length)
+            pipe.t5 = init_t5(T5_XXL, gen, "cuda", dtype=torch.bfloat16)
+        pipe.mmdit = init_mmdit(SD3_8b, gen, "cuda", quantize_bits=4 if mode else None)
+        upcast_block_check(pipe.mmdit)
+        packed = [m for m in pipe.mmdit.modules() if isinstance(m, QuantizedLinear)]
+        if mode and (not packed or (mode == "w4a8") != all(m.wscale is not None for m in packed)):
+            raise AssertionError(f"SD3.5 {mode}: the packed linears' wscale is not as the mode")
+        return pipe
+
+    return build
+
+
+def build_flux_dev(gen, prev: DiffusionPipeline) -> FluxPipeline:
+    """Path j: FLUX.1-dev in bf16 (its guidance embedder) through
+    FluxPipeline(model_version=FLUX.1-dev), T5 at the version's 512 tokens;
+    path k's T5-XXL, CLIP-L, VAE decoder and tokenizers, whose SD3.5 is
+    freed first."""
+    prev.mmdit = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = FluxPipeline(device="cuda", model_version=FLUX_DEV_VERSION)
+    for name in ("t5", "clip_l", "decoder", "tokenizer_l"):
+        setattr(pipe, name, getattr(prev, name))
+    pipe.t5_tokenizer = SyntheticT5Tokenizer(max_length=pipe.t5_max_length)
+    pipe.mmdit = init_mmdit(FLUX_DEV, gen, "cuda")
+    if pipe.t5_max_length != 512 or pipe.mmdit.guidance_embedder is None:
+        raise AssertionError("FLUX.1-dev: 512 T5 tokens and the guidance embedder expected")
+    return pipe
+
+
 def build_sd3_ring(gen, prev: DiffusionPipeline) -> DiffusionPipeline:
     """Path h: a's models (SD3-medium, CLIP-L/G, the VAE decoder and the
     tokenizers) behind DiffusionPipeline(sdpa_impl="ring",
     mesh=local_mesh()), a one-rank NCCL mesh."""
     mesh = local_mesh()
     log(f"  local_mesh(): {mesh}, backend {torch.distributed.get_backend()}")
-    pipe = DiffusionPipeline(device="cuda", sdpa_impl="ring", mesh=mesh)
+    pipe = DiffusionPipeline(device="cuda", use_t5=False, sdpa_impl="ring", mesh=mesh)
     for name in ("mmdit", "clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g"):
         setattr(pipe, name, getattr(prev, name))
     return pipe
@@ -2476,12 +3006,17 @@ INT8_DOT_KERNEL = re.compile(r"w8_mm(?:_sm90)?(?:_k64)?(?:<int[,>]|Ii[LE])")
 # The M <= 16 GEMVs of C, #13, E and #11: int4_gemv, int8_gemv, w4a8_gemv,
 # w8_gemv<XT, OutT>.
 GEMV_KERNEL = re.compile(r"(int4|int8|w4a8|w8)_gemv")
+# C and #13 on fp32 x: dequant_mm_3xtf32<BITS> and dequant_mm_f32<BITS>.
+F32_TILE = re.compile(r"dequant_mm_(?:f32|3xtf32)(?:<|ILi)(\d)")
 
 
 def family(name: str) -> str:
     gemv = GEMV_KERNEL.search(name)
     if gemv:
         return f"{gemv.group(1)}_matmul[gemv]"
+    tile = F32_TILE.search(name)
+    if tile:
+        return f"int{tile.group(1)}_matmul[f32]"
     fp32 = FP32_MODE.search(name)
     if fp32:
         return ("flash_attention_bshd", "flash_attention",
@@ -2592,7 +3127,7 @@ def profile_steps(pipe, path: Path, step_ms: float, loop_ms: float, tag: str) ->
 NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32", "flash_fwd_sm90_stats64",
             "w4a8_mm_sm90", "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv",
             "w8_gemv", "mod_ln_quant_kernel", "quantize_kernel", "gelu_quantize_kernel",
-            "w8_mm_sm90_k64", "dequant_w8_kernel")
+            "w8_mm_sm90_k64", "dequant_w8_kernel", "dequant_mm_3xtf32", "dequant_mm_f32")
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")
@@ -2695,6 +3230,12 @@ def main() -> None:
     times.update(w_times)
     launches = tool_paths(tag)
     torch.cuda.empty_cache()
+    log("phase 3-4f: SD3.5-large's kernels: C and #13 on fp32 x, kernel E with an fp32 bias and "
+        "output, and every kernel of the SD3.5 paths at the 19 x 128 widths, against their "
+        "plain versions on the card, and their device times")
+    sd35_f32_kernels(gen, tag, errs, times)
+    sd35_width_kernels(gen, tag, errs, times)
+    torch.cuda.empty_cache()
 
     log("phase 5: reference checks")
     reference_checks(gen)
@@ -2710,7 +3251,9 @@ def main() -> None:
             ("d", SD3_W8A8, build_sd3_quantized("w8a8"), True),
             ("e", SD3_INT8, build_sd3_quantized("int8"), True), ("b", FLUX, build_flux, False),
             ("c", FLUX_W4A8, build_flux_w4a8, True), ("g", FLUX_RING, build_flux_ring, True),
-            ("f", FLUX_E2E, build_flux_e2e, True))
+            ("f", FLUX_E2E, build_flux_e2e, True), ("i", SD35, build_sd35("w4a8"), True),
+            ("i'", SD35_4BIT, build_sd35("4bit"), True), ("k", SD35_T5, build_sd35(None), True),
+            ("j", FLUX_DEV_PATH, build_flux_dev, True))
     for letter, path, build, reuse in plan:
         if not reuse:
             pipe = None

@@ -2,8 +2,15 @@
 
 Counterpart of ``diffusionkit_tpu/config.py``: the numeric values are the
 checkpoint-compatibility spec and are identical; only ``dtype`` is a torch
-dtype. SD3-medium and FLUX.1 (schnell and dev) build; SD3.5-large waits for
-its fp32-upcast block segments.
+dtype. Every preset builds: SD3-medium, SD3.5-large (with its fp32-upcast
+block 35) and FLUX.1 (schnell and dev).
+
+Below the presets, the port's own copy of the reference's per-version
+tables (``diffusionkit_tpu/model_io.py``'s ``MMDIT_CONFIG``,
+``QUANTIZED_CKPT``, ``T5_MAX_LENGTH``, ``DEPTH``, ``MAX_LATENT_RESOLUTION``)
+and of its CLI's per-version ``HEIGHT`` / ``WIDTH`` / ``SHIFT``
+(``diffusionkit_tpu/scripts/generate_images.py``): values only, keyed by
+``model_version``; the checkpoint loaders come with their slice.
 """
 
 from __future__ import annotations
@@ -162,3 +169,62 @@ class T5Config:
 
 
 T5_XXL = T5Config()
+
+
+# -- per-version tables (values of the reference's model_io.py and CLI) ---------
+
+SD3_MEDIUM = "argmaxinc/mlx-stable-diffusion-3-medium"
+SD35_LARGE = "argmaxinc/mlx-stable-diffusion-3.5-large"
+SD35_LARGE_4BIT = "argmaxinc/mlx-stable-diffusion-3.5-large-4bit-quantized"
+FLUX_SCHNELL_VERSION = "argmaxinc/mlx-FLUX.1-schnell"
+FLUX_SCHNELL_4BIT = "argmaxinc/mlx-FLUX.1-schnell-4bit-quantized"
+FLUX_DEV_VERSION = "argmaxinc/mlx-FLUX.1-dev"
+
+MMDIT_CONFIG = {
+    SD3_MEDIUM: SD3_2b,
+    SD35_LARGE: SD3_8b,
+    SD35_LARGE_4BIT: SD3_8b,
+    FLUX_SCHNELL_VERSION: FLUX_SCHNELL,
+    FLUX_SCHNELL_4BIT: FLUX_SCHNELL,
+    # FLUX.1-dev gets its own config (guidance embedding on), as in the
+    # reference's table (its upstream loads dev with schnell's).
+    FLUX_DEV_VERSION: FLUX_DEV,
+}
+
+# Versions whose checkpoint is already packed at 4 bits (group 64): a
+# quantize mode passes their packed linears through.
+QUANTIZED_CKPT = {SD35_LARGE_4BIT, FLUX_SCHNELL_4BIT}
+
+# T5 token rows by version: FLUX pads its T5 tokens to this length; SD3's
+# T5 tokenizer is built with it.
+T5_MAX_LENGTH = {
+    SD3_MEDIUM: 512,
+    SD35_LARGE: 512,
+    SD35_LARGE_4BIT: 512,
+    FLUX_SCHNELL_VERSION: 256,
+    FLUX_SCHNELL_4BIT: 256,
+    FLUX_DEV_VERSION: 512,
+}
+
+DEPTH = {SD3_MEDIUM: 24, SD35_LARGE: 38, SD35_LARGE_4BIT: 38}
+
+MAX_LATENT_RESOLUTION = {SD3_MEDIUM: 96, SD35_LARGE: 192, SD35_LARGE_4BIT: 192}
+
+# The CLI's per-version image size and schedule shift.
+HEIGHT = {
+    SD3_MEDIUM: 512,
+    SD35_LARGE: 1024,
+    SD35_LARGE_4BIT: 1024,
+    FLUX_SCHNELL_VERSION: 512,
+    FLUX_SCHNELL_4BIT: 512,
+    FLUX_DEV_VERSION: 512,
+}
+WIDTH = dict(HEIGHT)
+SHIFT = {
+    SD3_MEDIUM: 3.0,
+    SD35_LARGE: 3.0,
+    SD35_LARGE_4BIT: 3.0,
+    FLUX_SCHNELL_VERSION: 1.0,
+    FLUX_SCHNELL_4BIT: 1.0,
+    FLUX_DEV_VERSION: 1.0,
+}

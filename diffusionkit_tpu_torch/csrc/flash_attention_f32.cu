@@ -85,18 +85,7 @@ struct Tf32Tile {
   static constexpr size_t kBytes = ((size_t)(BQ + 2 * BK) * LD + 8 * 16 * 32) * 4;
 };
 
-// x as a tf32 (round to nearest, ties away: cvt.rna), its low 13 bits zero.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo to ~2^-22 relative, both tf32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
+using dk::sm90::split_tf32;
 
 // D += A(16x8, row) * B(8x8, col), tf32 in, fp32 out. Fragments (g = lane
 // / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,

@@ -14,7 +14,8 @@
 //           bf16 once;
 //   E       w8 = clip(rne(q * s8 + z8)), s8 = s * (1 / ws), z8 = z * (1 /
 //           ws); acc = x8 @ w8, exact in int32; y = ((acc * xs[m]) * ws[n])
-//           + b[n] -> bf16, every step rounded;
+//           + b[n] -> bf16 or fp32, every step rounded (the bias bf16 or
+//           fp32: an fp32-upcast block's `ada` has an fp32 bias);
 //   #11     the same epilogue on an int8 w8 (N, K) (the bias added only
 //           where there is one), to bf16 or fp32; its quantizing entry
 //           first quantizes float x per row as kernel D does.
@@ -134,12 +135,13 @@ struct Params {
   const float* zeros;
   const float* wscale;  // E: (N,)
   const float* xscale;  // E: (M,)
-  const bf16* bias;     // E: (N,) or null
-  bf16* y;              // (M, N)
+  const void* bias;     // E: (N,) bf16, or fp32 with bias_f32, or null
+  void* y;              // (M, N) bf16, or fp32 with out_f32 (E)
   void* partials;       // (N / 128, S, M, 128) fp32 (C, #13) or int32 (E)
   int* arrivals;        // (N / 128,), this kernel's row of g_arrivals
   long long lda;
   int M, N, K, group;
+  int bias_f32, out_f32;  // E
 };
 
 // A lane's weights of one chunk: a 16-byte run of 4 columns' words a word
@@ -434,12 +436,17 @@ __device__ __forceinline__ void gemv(const Params& p) {
     const int m = i / BN, n = n0 + i % BN;
     float out;
     if constexpr (KIND == W4A8) {
-      const float b = p.bias ? __bfloat162float(p.bias[n]) : 0.f;
+      const float b = !p.bias      ? 0.f
+                      : p.bias_f32 ? static_cast<const float*>(p.bias)[n]
+                                   : __bfloat162float(static_cast<const bf16*>(p.bias)[n]);
       out = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v), p.xscale[m]), p.wscale[n]), b);
     } else {
       out = v;
     }
-    p.y[(long long)m * N + n] = __float2bfloat16(out);
+    if (p.out_f32)
+      static_cast<float*>(p.y)[(long long)m * N + n] = out;
+    else
+      static_cast<bf16*>(p.y)[(long long)m * N + n] = __float2bfloat16(out);
   }
 }
 
@@ -479,7 +486,7 @@ Params params(const void* x, long long lda, const void* qw, const void* scales,
   p.qw = qw;
   p.scales = static_cast<const float*>(scales);
   p.zeros = static_cast<const float*>(zeros);
-  p.y = static_cast<bf16*>(y);
+  p.y = y;
   p.M = M;
   p.N = N;
   p.K = K;
@@ -798,18 +805,22 @@ extern "C" int dk_int8_matmul_bf16(const void* x, const void* q8, const void* sc
 
 // Kernel E in mode plain at M <= 16; the wrapper sends every other call to
 // dk_w4a8_matmul_sm90 (w4a8_matmul_sm90.cu). x8 int8 (M, K) rows lda apart;
-// wscale (N,), xscale (M,), bias (N,) bf16 or null; int32 partials as C's.
+// wscale (N,), xscale (M,), bias (N,) bf16 (fp32 with bias_f32) or null; y
+// bf16 (fp32 with out_f32); int32 partials as C's.
 extern "C" int dk_w4a8_matmul(const void* x8, const void* q4, const void* scales,
                               const void* zeros, const void* wscale, const void* xscale,
-                              const void* bias, void* y, int M, int N, int K, int group,
-                              long long lda, int splits, void* partials, void* stream) {
+                              const void* bias, int bias_f32, void* y, int out_f32, int M,
+                              int N, int K, int group, long long lda, int splits,
+                              void* partials, void* stream) {
   if (!takes(M, N, K, group, splits) || K % 128 ||
       !(group == 32 || group == 64 || group % 128 == 0) || lda < K || lda % 16)
     return (int)cudaErrorInvalidValue;
   Params p = params(x8, lda, q4, scales, zeros, y, partials, M, N, K, group);
   p.wscale = static_cast<const float*>(wscale);
   p.xscale = static_cast<const float*>(xscale);
-  p.bias = static_cast<const bf16*>(bias);
+  p.bias = bias;
+  p.bias_f32 = bias_f32 != 0;
+  p.out_f32 = out_f32 != 0;
   return launch<W4A8>(w4a8_gemv, p, splits, stream);
 }
 

@@ -142,6 +142,22 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---- tf32 ------------------------------------------------------------------
+
+// x as a tf32 (round to nearest, ties away: cvt.rna), its low 13 bits zero.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~2^-22 relative, both tf32 (3xTF32 sums lo.hi + hi.lo +
+// hi.hi, dropping lo.lo).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
 // ---- register reallocation between warpgroups -----------------------------
 
 template <int N>

@@ -13,9 +13,9 @@
 //        each rounded: no FMA contraction)
 //   acc = x8 @ w8                                           (exact int32)
 // Epilogues, every step separately rounded in the reference's order:
-//   plain       y = ((float(acc) * xs[m]) * ws[n]) + b[n] -> bf16
+//   plain       y = ((float(acc) * xs[m]) * ws[n]) + b[n] -> bf16 or fp32
 //   grouped_xs  per 512-wide k group: accf = accf + float(part) * xs[m, kg];
-//               y = (accf * ws[n]) + b[n] -> bf16 (a 512-term int32 partial
+//               y = (accf * ws[n]) + b[n] -> bf16 or fp32 (a 512-term int32 partial
 //               is exact: 512 * 127^2 < 2^24)
 //   gelu_quant  g = GELU(y) with the Abramowitz-Stegun erf of
 //               fused_quant.py:_erf; per (row, 512-column tile)
@@ -23,7 +23,14 @@
 //               yscale = amax / 127
 //   norm_rope   per 128-column head: yn = y * rsqrt(mean(y^2) + eps) * nw,
 //               then rotate-half RoPE with the (S, 64) cos/sin tables at row
-//               m mod S -> bf16
+//               m mod S -> bf16 or fp32
+// The bias of plain, gelu_quant and grouped_xs is bf16 or fp32, and the
+// output of plain and grouped_xs bf16 or fp32, each by a flag (fp32 in an
+// fp32-upcast block: SD3.5-large's block 35, whose fc1 and fc2 run
+// gelu_quant and grouped_xs with fp32 out): the reference reads any bias
+// as fp32 and writes its output dtype. norm_rope keeps its bf16 bias and
+// output (no upcast block has RoPE, and the flags there slowed it on the
+// H100).
 // The reference's (M, 128) lane-broadcast scale tensors and its
 // [cos|cos|-sin|sin] table are TPU layouts and are not carried over.
 // Bit for bit in plain and grouped_xs: the same requantisation (common.cuh
@@ -98,13 +105,14 @@ enum Mode { PLAIN = 0, GELU_QUANT = 1, GROUPED_XS = 2, NORM_ROPE = 3 };
 struct Params {
   const float* wscale;
   const float* xscale;  // (M,) or, for grouped_xs, (M, K / 512)
-  const bf16* bias;     // (N,) or null
+  const void* bias;     // (N,) bf16, or fp32 with bias_f32, or null
   const bf16* norm_w;   // (128,) norm_rope only
   const float* cos;     // (S, 64) norm_rope only
   const float* sin;
-  void* y;              // bf16 (M, N), or int8 (M, N) for gelu_quant
+  void* y;              // bf16 (M, N), fp32 with out_f32, or int8 (M, N) for gelu_quant
   float* yscale;        // gelu_quant: (M, N / 512)
   int S, M, N, K, group;
+  int bias_f32, out_f32;
   float eps;
 };
 
@@ -147,8 +155,26 @@ __device__ __forceinline__ float affine(int acc, float xs, float ws, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws), b);
 }
 
-__device__ __forceinline__ float bias_at(const bf16* bias, int col) {
-  return bias ? __bfloat162float(bias[col]) : 0.f;
+// norm_rope's bias, bf16 only (a flag per element slowed it on the H100).
+__device__ __forceinline__ float bias_bf16(const Params& p, int col) {
+  return p.bias ? __bfloat162float(static_cast<const bf16*>(p.bias)[col]) : 0.f;
+}
+
+__device__ __forceinline__ float bias_at(const Params& p, int col) {
+  if (!p.bias) return 0.f;
+  return p.bias_f32 ? static_cast<const float*>(p.bias)[col]
+                    : __bfloat162float(static_cast<const bf16*>(p.bias)[col]);
+}
+
+// Two adjacent outputs of row `row` at column `col`: a bf16 pair, or with
+// out_f32 a float2.
+__device__ __forceinline__ void store_pair(const Params& p, int row, int col, float v0,
+                                           float v1) {
+  const long long at = (long long)row * p.N + col;
+  if (p.out_f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(p.y) + at) = make_float2(v0, v1);
+  else
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.y) + at) = dk::pack_bf16(v0, v1);
 }
 
 // Requantise `words` consecutive word rows from `wr0` (even) of column n of
@@ -191,7 +217,7 @@ __device__ __forceinline__ void gelu_quant_epilogue(float* ep, float* red, const
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     ws[e] = p.wscale[col0 + e];
-    b[e] = bias_at(p.bias, col0 + e);
+    b[e] = bias_at(p, col0 + e);
   }
   for (int rr = r0; rr < BM; rr += RPP) {
     const int row = m0 + rr;
@@ -417,7 +443,6 @@ __global__ void __launch_bounds__(384, 1)
     fence_regs(acc[1]);
 
     if constexpr (MODE == PLAIN || MODE == GROUPED_XS) {
-      bf16* y = static_cast<bf16*>(p.y);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -433,17 +458,17 @@ __global__ void __launch_bounds__(384, 1)
             for (int e = 0; e < 2; ++e) {
               const int a = 4 * j + 2 * hh + e;
               if constexpr (MODE == PLAIN)
-                v[e] = affine(acc[i][a], xs, p.wscale[col + e], bias_at(p.bias, col + e));
+                v[e] = affine(acc[i][a], xs, p.wscale[col + e], bias_at(p, col + e));
               else
                 v[e] = __fadd_rn(__fmul_rn(accf[i][a % FA], p.wscale[col + e]),
-                                 bias_at(p.bias, col + e));
+                                 bias_at(p, col + e));
             }
-            *reinterpret_cast<uint32_t*>(y + (long long)row * N + col) = dk::pack_bf16(v[0], v[1]);
+            store_pair(p, row, col, v[0], v[1]);
           }
         }
     }
 
-    if constexpr (MODE == NORM_ROPE) {
+    if constexpr (MODE == NORM_ROPE) {  // bf16 out only (no fp32-upcast block has RoPE)
       bf16* y = static_cast<bf16*>(p.y);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -460,7 +485,7 @@ __global__ void __launch_bounds__(384, 1)
             for (int e = 0; e < 2; ++e) {
               int& a = acc[i][4 * j + 2 * hh + e];
               const int col = n0 + 8 * j + 2 * t + e;
-              const float v = affine(a, xs, p.wscale[col], bias_at(p.bias, col));
+              const float v = affine(a, xs, p.wscale[col], bias_bf16(p, col));
               ss += v * v;
               a = __float_as_int(v);
             }
@@ -582,13 +607,15 @@ int sm_count() {
 // Kernel E at any M (the wrapper sends every call but mode plain at M <= 16
 // here). K % 128 == 0; N % 128 (N % 512 for
 // gelu_quant); group 32, 64 or a multiple of 128; x8 rows `lda` bytes apart
-// (a multiple of 16), every pointer 16-byte aligned.
+// (a multiple of 16), every pointer 16-byte aligned; the bias bf16, or fp32
+// with bias_f32 (not for norm_rope); y bf16, or fp32 with out_f32 (plain and
+// grouped_xs).
 extern "C" int dk_w4a8_matmul_sm90(const void* x8, const void* q4, const void* scales,
                                    const void* zeros, const void* wscale, const void* xscale,
-                                   const void* bias, const void* norm_w, const void* cos,
-                                   const void* sin, int S, void* y, void* yscale, int mode,
-                                   int M, int N, int K, int group, long long lda, float eps,
-                                   void* stream) {
+                                   const void* bias, int bias_f32, const void* norm_w,
+                                   const void* cos, const void* sin, int S, void* y,
+                                   int out_f32, void* yscale, int mode, int M, int N, int K,
+                                   int group, long long lda, float eps, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % BK || N % 128 || group <= 0 || K % group ||
       !(group == 32 || group == 64 || group % BK == 0) || lda < K || lda % 16 ||
       (M + BM - 1) / BM > 65535)
@@ -596,10 +623,14 @@ extern "C" int dk_w4a8_matmul_sm90(const void* x8, const void* q4, const void* s
   if (mode == GROUPED_XS && K % SCALE_TILE) return (int)cudaErrorInvalidValue;
   if (mode == GELU_QUANT && (N % SCALE_TILE || !yscale)) return (int)cudaErrorInvalidValue;
   if (mode == NORM_ROPE && (S <= 0 || !norm_w || !cos || !sin)) return (int)cudaErrorInvalidValue;
+  if ((mode == GELU_QUANT || mode == NORM_ROPE) && out_f32) return (int)cudaErrorInvalidValue;
+  if (mode == NORM_ROPE && bias_f32) return (int)cudaErrorInvalidValue;
   Params p;
   p.wscale = static_cast<const float*>(wscale);
   p.xscale = static_cast<const float*>(xscale);
-  p.bias = static_cast<const bf16*>(bias);
+  p.bias = bias;
+  p.bias_f32 = bias_f32 != 0;
+  p.out_f32 = out_f32 != 0;
   p.norm_w = static_cast<const bf16*>(norm_w);
   p.cos = static_cast<const float*>(cos);
   p.sin = static_cast<const float*>(sin);

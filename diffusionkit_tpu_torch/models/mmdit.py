@@ -17,8 +17,20 @@ The AdaLN LayerNorm sites go to kernel A (``ops/fused_quant.mod_ln``), the
 joint attention to kernel B through ``ops/attention.sdpa`` (to #14 under
 ``sdpa_impl="ring"``, to #15 under ``DIFFUSIONKIT_TPU_ATTN_LAYOUT=bhsd``), and the block
 linears of an int4 or int8 model (``QuantizedLinear``) to kernels C and #13
-through ``ops/common.linear``. The fp32-upcast block segments of SD3.5-large
-wait; building such a config raises.
+through ``ops/common.linear``.
+
+SD3.5-large's fp32-upcast blocks (``config.upcast_multimodal_blocks``, and
+``upcast_unified_blocks`` likewise) are the reference's ``_segments``: such
+a block holds every float leaf in fp32 (its linears' weights and biases,
+QK-norm scales; quantized scales and zeros are fp32 anyway, packed integer
+leaves are untouched), the reference's per-forward ``_upcast_leaf`` done
+once at build time (bf16 to fp32 is exact). The stream runs through it in
+fp32 and back to the model dtype after it; the modulation input c stays in
+the model dtype, so its ``ada`` projection returns the model dtype, as the
+reference's promotion does. Its linears take the fp32 forms of kernels C,
+#13 and E, its attention kernel B's fp32 kernel, and on the card its AdaLN
+sites take the (model-dtype) modulation upcast to fp32, as the reference's
+kernels read it.
 
 A w4a8 model (``QuantizedLinear``s carrying ``wscale``) takes the
 reference's w4a8 dispatch: each AdaLN site whose consumers quantize runs
@@ -40,6 +52,7 @@ between fc1 and fc2.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
@@ -77,7 +90,7 @@ def _mod_ln_maybe_fused(
     and the tensor is on the card; else the plain ``modulated_layer_norm``.
     (The float branch of the reference's ``_mod_ln_maybe_quant``.)"""
     if x.is_cuda and x.ndim == 3 and x.shape[-1] % 128 == 0:
-        return mod_ln(x, shift, scale, eps)
+        return mod_ln(x, shift.to(x.dtype), scale.to(x.dtype), eps)
     return modulated_layer_norm(x, shift, scale, eps)
 
 
@@ -91,7 +104,7 @@ def _mod_ln_maybe_quant(consumer: nn.Module, x: torch.Tensor, shift: torch.Tenso
     consumers get ``_mod_ln_maybe_fused``."""
     if needs_act_quant(consumer):
         if x.ndim == 3 and x.shape[-1] % 128 == 0:
-            return mod_ln_quantize(x, shift, scale, eps)
+            return mod_ln_quantize(x, shift.to(x.dtype), scale.to(x.dtype), eps)
         return quantize_shared(modulated_layer_norm(x, shift, scale, eps))
     return _mod_ln_maybe_fused(x, shift, scale, eps)
 
@@ -274,10 +287,6 @@ class MMDiT(nn.Module):
 
     def __init__(self, config: MMDiTConfig, quantize_bits: QuantBits = None):
         super().__init__()
-        if config.upcast_multimodal_blocks or config.upcast_unified_blocks:
-            raise NotImplementedError(
-                "the fp32-upcast block segments (SD3.5-large) are not ported yet"
-            )
         if quantize_bits not in (None, 4, 8, "w8a8"):
             raise ValueError(f"quantize_bits={quantize_bits!r}: None, 4, 8 or 'w8a8'")
         self.config = config
@@ -297,10 +306,15 @@ class MMDiT(nn.Module):
         )
         flux = config.depth_unified > 0
         n_uniform = config.depth_multimodal - (0 if flux else 1)
-        self.mm_blocks = nn.ModuleList(MMBlock(config, quantize_bits=g) for _ in range(n_uniform))
+        # The fp32-upcast blocks are built from an fp32 copy of the config.
+        up_mm, up_uni = set(config.upcast_multimodal_blocks), set(config.upcast_unified_blocks)
+        cfg32 = dataclasses.replace(config, dtype=torch.float32)
+        self.mm_blocks = nn.ModuleList(
+            MMBlock(cfg32 if i in up_mm else config, quantize_bits=g) for i in range(n_uniform))
         self.mm_final = None if flux else MMBlock(config, final=True, quantize_bits=g)
         self.uni_blocks = nn.ModuleList(
-            UnifiedBlock(config, quantize_bits=g) for _ in range(config.depth_unified)
+            UnifiedBlock(cfg32 if i in up_uni else config, quantize_bits=g)
+            for i in range(config.depth_unified)
         )
         self.final_layer = FinalLayer(config)
         self._rope: Dict[tuple, Rope] = {}
@@ -363,13 +377,19 @@ class MMDiT(nn.Module):
 
         attn = dict(sdpa_impl=sdpa_impl, mesh=mesh)
         for block in self.mm_blocks:
-            x, txt = block(x, txt, c, rope, **attn)
+            if block.config.dtype != dt:  # an fp32-upcast block: the streams in fp32
+                x, txt = (t.to(dt) for t in block(x.float(), txt.float(), c, rope, **attn))
+            else:
+                x, txt = block(x, txt, c, rope, **attn)
         if self.mm_final is not None:
             x, _ = self.mm_final(x, txt, c, rope, **attn)
         else:
             u = torch.cat([txt, x], dim=1)
             for block in self.uni_blocks:
-                u = block(u, c, rope, **attn)
+                if block.config.dtype != dt:
+                    u = block(u.float(), c, rope, **attn).to(dt)
+                else:
+                    u = block(u, c, rope, **attn)
             x = u[:, txt.shape[1]:].contiguous()
 
         fl = self.final_layer
@@ -388,7 +408,9 @@ def init_mmdit(
 ) -> MMDiT:
     """Random MMDiT with checkpoint-compatible shapes, built directly on
     ``device`` from ``generator`` (which must live on that device): float
-    weights ~ N(0, std), biases zero, QK-norm scales one. With
+    weights ~ N(0, std), biases zero, QK-norm scales one; an fp32-upcast
+    block's float weights are drawn in the model dtype and held in fp32, as
+    the reference draws them in the model dtype and upcasts them. With
     ``quantize_bits`` 4 or 8 the block linears are drawn directly in the
     packed format at group 64 (``random_quantized_linear_``), with "w8a8" in
     the w8a8 format (``random_w8a8_linear_``), as the reference's
@@ -410,4 +432,6 @@ def init_mmdit(
             p.zero_()
         elif not name.endswith(("q_scale", "k_scale")):
             p.normal_(0.0, std, generator=generator)
+            if p.dtype != config.dtype:  # an upcast block: the model dtype's values
+                p.copy_(p.to(config.dtype))
     return model.eval()

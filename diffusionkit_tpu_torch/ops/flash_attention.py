@@ -271,10 +271,12 @@ def flash_attention_bshd(
         )
         kernels.check(err, "flash_attention_bshd")
     flash_attention_bshd.launches += 1
+    flash_attention_bshd.f32_launches += q.dtype == torch.float32
     return out
 
 
 flash_attention_bshd.launches = 0
+flash_attention_bshd.f32_launches = 0  # of them, on fp32 inputs
 
 
 def flash_attention(

@@ -142,10 +142,12 @@ def mod_ln(
              b, s, h, shift.stride(0), float(eps), kernels.stream_ptr(x.device))
     kernels.check(err, "mod_ln")
     mod_ln.launches += 1
+    mod_ln.f32_launches += x.dtype == torch.float32
     return out
 
 
 mod_ln.launches = 0
+mod_ln.f32_launches = 0  # of them, on fp32 rows
 
 
 def mod_ln_quantize(
@@ -165,10 +167,12 @@ def mod_ln_quantize(
              b, s, h, shift.stride(0), float(eps), kernels.stream_ptr(x.device))
     kernels.check(err, "mod_ln_quantize")
     mod_ln_quantize.launches += 1
+    mod_ln_quantize.f32_launches += x.dtype == torch.float32
     return ActQuant(x8, xscale, None, out_dtype=x.dtype)
 
 
 mod_ln_quantize.launches = 0
+mod_ln_quantize.f32_launches = 0
 
 
 def _quantize_rows(name: str, symbol: str, y: torch.Tensor, *extra) -> ActQuant:
@@ -206,10 +210,12 @@ def quantize(y: torch.Tensor) -> ActQuant:
     aq = _quantize_rows("quantize", _QUANT_KERNELS.get(y.dtype), y)
     if y.numel():
         quantize.launches += 1
+        quantize.f32_launches += y.dtype == torch.float32
     return aq
 
 
 quantize.launches = 0
+quantize.f32_launches = 0
 
 
 def gelu_quantize(y: torch.Tensor, form: str = "erf") -> ActQuant:

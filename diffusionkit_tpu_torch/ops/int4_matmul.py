@@ -6,18 +6,22 @@ Replaces the Pallas kernel ``diffusionkit_tpu/ops/int4_matmul.py:int4_matmul``
 and 38 single-stream blocks). It computes ``y[M, N] = x[M, K] @ W`` where
 ``W = q * scale + zero`` is dequantised in fp32 from the packed words of
 ``ops/quantized.py``, ROUNDED TO x's DTYPE before the product, accumulated
-in fp32 and rounded once. Two CUDA main loops run it, picked by
+in fp32 and rounded once. Two CUDA main loops run it in bf16, picked by
 ``dequant_route``: at M > 16 ``csrc/int4_matmul_sm90.cu`` (TMA, bf16
 ``wgmma``, the dequantisation beside the products), at M <= 16 (the ``ada``
 GEMVs) the split-K GEMV of ``csrc/gemv_sm90.cu`` (``gemv_splits`` blocks
 along K, each streaming its slab of the weight once, their partial sums
 added in split order in a workspace); the notes there say what bounds each
-and how it is tiled.
+and how it is tiled. An fp32 x (the linears of an fp32-upcast block, as
+SD3.5-large's block 35, or an fp32 model) takes ``csrc/dequant_f32.cu``:
+the weight dequantised in fp32 and not rounded further, the products as
+3xTF32 ``wgmma`` above 16 rows and on an FMA tile at M <= 16, fp32 out
+(counted in ``f32_launches`` too).
 
 ``int4_matmul`` launches the kernel for a CUDA tensor and raises on what it
-does not take (bf16 x, K a multiple of 64, N of 128, group 32 or a multiple
-of 64); a CPU tensor goes to ``int4_matmul_plain``, the same math in plain
-torch. The reference's TPU tile pickers (``pick_k_block``, ``pick_m_block``,
+does not take (bf16 or fp32 x, K a multiple of 64, N of 128, group 32 or a
+multiple of 64); a CPU tensor goes to ``int4_matmul_plain``, the same math
+in plain torch. The reference's TPU tile pickers (``pick_k_block``, ``pick_m_block``,
 ``_maybe_pad_n``) and its padding of M are not carried over: the kernel
 masks the ragged M edge itself.
 
@@ -79,11 +83,14 @@ def gemv_splits(k: int, n: int, group: int) -> int:
     return best
 
 
-def dequant_kernel(name: str, m: int, k: int, k_w: int, n: int, groups: int) -> str:
+def dequant_kernel(name: str, m: int, k: int, k_w: int, n: int, groups: int,
+                   dtype: torch.dtype = torch.bfloat16) -> str:
     """The C entry that runs kernel C (``name`` int4_matmul) or #13
-    (int8_matmul) at these sizes, on the main loop ``dequant_route`` picks,
-    or ValueError for what neither loop takes: K = ``k_w`` a multiple of
-    64, N of 128, group K / groups 32 or a multiple of 64, at any M."""
+    (int8_matmul) at these sizes for x of ``dtype``: in bf16 on the main
+    loop ``dequant_route`` picks, in fp32 ``csrc/dequant_f32.cu`` at any M;
+    or ValueError for what none takes: K
+    = ``k_w`` a multiple of 64, N of 128, group K / groups 32 or a multiple
+    of 64, at any M; TypeError for another dtype."""
     if k_w != k or k % K_TILE or n % N_TILE:
         raise ValueError(f"{name}: K={k} must match the weight's {k_w} and be a multiple of "
                          f"{K_TILE}, N={n} a multiple of {N_TILE}")
@@ -92,6 +99,10 @@ def dequant_kernel(name: str, m: int, k: int, k_w: int, n: int, groups: int) -> 
     group = k // groups
     if not (group == 32 or group % 64 == 0):
         raise ValueError(f"{name}: group size {group} must be 32 or a multiple of 64")
+    if dtype == torch.float32:
+        return f"dk_{name}_f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{name}: x must be bf16 or fp32 on the card, got {dtype}")
     route = "_sm90" if dequant_route(m) == "sm90" else ""
     return f"dk_{name}{route}_bf16"
 
@@ -125,9 +136,10 @@ def int4_matmul(
 ) -> torch.Tensor:
     """y[M, N] = x[M, K] @ dequant(q4, scales, zeros), in x's dtype.
 
-    On CUDA: x bf16 with a contiguous last axis and 16-byte aligned rows
-    (other row strides, such as a slice of a wider activation, are read in
-    place); q4 int32 (K/8, N), scales and zeros fp32 (K/g, N), contiguous.
+    On CUDA: x bf16 or fp32 with a contiguous last axis and 16-byte aligned
+    rows (other row strides, such as a slice of a wider activation, are
+    read in place); q4 int32 (K/8, N), scales and zeros fp32 (K/g, N),
+    contiguous.
     """
     if x.device.type == "cpu":
         return int4_matmul_plain(x, q4, scales, zeros)
@@ -141,20 +153,18 @@ def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
             scales: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
     """Check what kernels C and #13 take and launch the entry of
     ``wrapper`` (int4_matmul or int8_matmul) for this M (``dequant_kernel``;
-    the GEMV with ``gemv_splits``), counting it: x bf16 (M, K) with a
-    contiguous last axis and 16-byte aligned rows, K = ``k_w`` a multiple of
+    the GEMV with ``gemv_splits``), counting it: x bf16 or fp32 (M, K) with
+    a contiguous last axis and 16-byte aligned rows, K = ``k_w`` a multiple of
     64, N of 128, group 32 or a multiple of 64; the packed weight ``qw``,
     scales and zeros (K/g, N) fp32, contiguous."""
     name = wrapper.__name__
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: x must be bf16 on the card, got {x.dtype}")
     if x.ndim != 2:
         raise ValueError(f"{name}: x must be (M, K), got {tuple(x.shape)}")
     m, k = x.shape
     groups = scales.shape[0]
-    symbol = dequant_kernel(name, m, k, k_w, n, groups)
+    symbol = dequant_kernel(name, m, k, k_w, n, groups, x.dtype)
     group = k // groups
     if scales.dtype != torch.float32 or zeros.dtype != torch.float32:
         raise TypeError(f"{name}: scales and zeros must be fp32")
@@ -164,12 +174,13 @@ def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
                              f"{x.device}")
     if scales.shape != (groups, n) or zeros.shape != (groups, n):
         raise ValueError(f"{name}: scales and zeros must be ({groups}, {n})")
-    if x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
+    if x.stride(1) != 1 or (x.stride(0) * x.element_size()) % 16 or x.data_ptr() % 16:
         raise ValueError(f"{name}: x needs a contiguous last axis and 16-byte aligned rows, "
                          f"got strides {x.stride()}")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m:
-        gemv = dequant_route(m) == "tile"
+        f32 = x.dtype == torch.float32
+        gemv = not f32 and dequant_route(m) == "tile"
         split = ()
         if gemv:  # S blocks along K and their fp32 partial sums
             s = gemv_splits(k, n, group)
@@ -182,11 +193,13 @@ def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
         kernels.check(err, name)
         wrapper.launches += 1
         wrapper.gemv_launches += gemv
+        wrapper.f32_launches += f32
     return y
 
 
 int4_matmul.launches = 0
-int4_matmul.gemv_launches = 0  # of them, the M <= 16 GEMV's
+int4_matmul.gemv_launches = 0  # of them, the bf16 M <= 16 GEMV's
+int4_matmul.f32_launches = 0  # of them, on fp32 x (csrc/dequant_f32.cu)
 
 
 def dequantize_int8(
@@ -225,6 +238,7 @@ def int8_matmul(
 
 int8_matmul.launches = 0
 int8_matmul.gemv_launches = 0
+int8_matmul.f32_launches = 0
 
 
 def int4_linear(layer, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:

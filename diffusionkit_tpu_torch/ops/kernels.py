@@ -51,6 +51,8 @@ _SIGNATURES = {
     "dk_int8_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P, _P],
     "dk_int4_matmul_sm90_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "dk_int8_matmul_sm90_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
+    "dk_int4_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
+    "dk_int8_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "dk_gelu_quantize_bf16": [_P, _P, _P, _I, _I, _I, _P],
     "dk_gelu_quantize_f32": [_P, _P, _P, _I, _I, _I, _P],
     "dk_w8_matmul_bf16": [_P] * 6 + [_I, _I, _I, _P],
@@ -62,8 +64,8 @@ _SIGNATURES = {
     "dk_mod_ln_quant_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
     "dk_quantize_bf16": [_P, _P, _P, _I, _I, _P],
     "dk_quantize_f32": [_P, _P, _P, _I, _I, _P],
-    "dk_w4a8_matmul": [_P] * 8 + [_I] * 4 + [_L, _I, _P, _P],
-    "dk_w4a8_matmul_sm90": [_P] * 10 + [_I, _P, _P] + [_I] * 5 + [_L, _F, _P],
+    "dk_w4a8_matmul": [_P] * 7 + [_I, _P] + [_I] * 5 + [_L, _I, _P, _P],
+    "dk_w4a8_matmul_sm90": [_P] * 7 + [_I] + [_P] * 3 + [_I, _P, _I, _P] + [_I] * 5 + [_L, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

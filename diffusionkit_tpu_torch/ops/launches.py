@@ -3,7 +3,8 @@
 Every wrapper of a hand-written kernel counts its launches in attributes
 of its own function object: ``launches`` and, where a wrapper has more
 than one kernel, ``gemv_launches``, ``mat_launches``,
-``quantizing_launches`` or the per-mode dict ``mode_launches``. The
+``quantizing_launches`` or the per-mode dict ``mode_launches``, and where
+it has an fp32 form, ``f32_launches`` (an fp32-upcast block's calls). The
 wrappers count in Python, where they launch, so a CUDA graph's replay,
 which launches the captured kernels without running Python, counts
 nothing. ``snapshot`` reads every counter, ``delta`` takes the difference

@@ -252,7 +252,10 @@ def w4a8_matmul(
 
     On CUDA: K a multiple of 128, group 32, 64 or a multiple of 128, N a multiple
     of the mode's column tile (128; 512 for gelu_quant), K a multiple of 512
-    for grouped_xs; bias and norm_w bf16, the output bf16.
+    for grouped_xs; norm_w bf16; the bias bf16 or fp32 and the output bf16
+    or fp32, norm_rope's both bf16 (an fp32-upcast block's linears have
+    both in fp32, its `ada` an fp32 bias and a bf16 output), except that
+    mode plain's "mat" route (#11) takes its bias in the output dtype.
     """
     if mode not in MODES:
         raise ValueError(f"w4a8_matmul: unknown mode {mode!r}")
@@ -269,8 +272,9 @@ def w4a8_matmul(
     groups = scales.shape[0]
     route = _route or w4a8_route(m, mode)
     symbol = w4a8_kernel(m, k, k8, n, groups, mode, route)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"w4a8_matmul: the card's output is bf16, got {out_dtype}")
+    if out_dtype not in _W8_OUT_TYPES or (mode == "norm_rope" and out_dtype != torch.bfloat16):
+        raise TypeError(f"w4a8_matmul: the card's output is bf16 or fp32 (norm_rope: bf16), "
+                        f"got {out_dtype}")
     dev = x8.device
     if q4.dtype != torch.int32:
         raise TypeError("w4a8_matmul: q4 must be int32 words")
@@ -283,7 +287,11 @@ def w4a8_matmul(
             or not xscale.is_contiguous():
         raise ValueError(f"w4a8_matmul: xscale must be contiguous fp32 ({m}, {xs_cols}) on {dev}")
     if bias is not None:
-        _contiguous_on("bias", bias, dev, torch.bfloat16, (n,))
+        if bias.dtype not in _W8_OUT_TYPES or (route == "mat" and bias.dtype != out_dtype) or (
+                mode == "norm_rope" and bias.dtype != torch.bfloat16):
+            raise TypeError(f"w4a8_matmul: bias {bias.dtype}: bf16 or fp32 (norm_rope: bf16), "
+                            f"and on the 'mat' route (#11) the output dtype {out_dtype}")
+        _contiguous_on("bias", bias, dev, bias.dtype, (n,))
     if not x8.is_contiguous() or x8.data_ptr() % 16:
         raise ValueError("w4a8_matmul: x8 must be contiguous and 16-byte aligned")
     s_rows = 0
@@ -296,42 +304,46 @@ def w4a8_matmul(
                 raise ValueError(f"w4a8_matmul: {name} must be contiguous fp32 "
                                  f"(S, {HEAD_DIM // 2}) on {dev}")
     if route == "mat":
-        return _mat(x8, q4, scales, zeros, wscale, xscale, bias, k // groups)
+        return _mat(x8, q4, scales, zeros, wscale, xscale, bias, k // groups, out_dtype)
     if mode == "gelu_quant":
         y = torch.empty((m, n), dtype=torch.int8, device=dev)
         yscale = torch.empty((m, n // SCALE_TILE), dtype=torch.float32, device=dev)
     else:
-        y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+        y = torch.empty((m, n), dtype=out_dtype, device=dev)
         yscale = None
     if m:
         ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
         group = k // groups
+        bias_f32 = int(bias is not None and bias.dtype == torch.float32)
+        out_f32 = int(y.dtype == torch.float32)
         fn = getattr(kernels.library(), symbol)
         if route == "tile":  # S blocks along K and their int32 partial sums
             splits = gemv_splits(k, n, group)
             partials = torch.empty(splits * m * n, dtype=torch.int32, device=dev)
             err = fn(
                 x8.data_ptr(), q4.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                wscale.data_ptr(), xscale.data_ptr(), ptr(bias), y.data_ptr(), m, n, k, group, k,
-                splits, partials.data_ptr(), kernels.stream_ptr(dev),
+                wscale.data_ptr(), xscale.data_ptr(), ptr(bias), bias_f32, y.data_ptr(), out_f32,
+                m, n, k, group, k, splits, partials.data_ptr(), kernels.stream_ptr(dev),
             )
         else:
             err = fn(
                 x8.data_ptr(), q4.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                wscale.data_ptr(), xscale.data_ptr(), ptr(bias), ptr(norm_w), ptr(cos), ptr(sin),
-                s_rows, y.data_ptr(), ptr(yscale), MODES[mode], m, n, k, group, k, float(eps),
-                kernels.stream_ptr(dev),
+                wscale.data_ptr(), xscale.data_ptr(), ptr(bias), bias_f32, ptr(norm_w), ptr(cos),
+                ptr(sin), s_rows, y.data_ptr(), out_f32, ptr(yscale), MODES[mode], m, n, k, group,
+                k, float(eps), kernels.stream_ptr(dev),
             )
         kernels.check(err, f"w4a8_matmul ({mode})")
         w4a8_matmul.launches += 1
         w4a8_matmul.mode_launches[mode] += 1
         w4a8_matmul.gemv_launches += route == "tile"
+        w4a8_matmul.f32_launches += bool(bias_f32 or out_f32)
     return (y, yscale) if mode == "gelu_quant" else y
 
 
 w4a8_matmul.launches = 0  # kernel E's
 w4a8_matmul.mode_launches = dict.fromkeys(MODES, 0)
 w4a8_matmul.gemv_launches = 0  # of mode plain's, the M <= 16 GEMV's
+w4a8_matmul.f32_launches = 0  # of kernel E's, those with an fp32 bias or output
 w4a8_matmul.mat_launches = 0  # mode plain's calls run as #10 then #11 (not E's)
 
 
@@ -458,18 +470,19 @@ def _w8_launch(x8: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, xscale:
     kernels.check(err, "w8_matmul")
     w8_matmul.launches += 1
     w8_matmul.gemv_launches += gemv
+    w8_matmul.f32_launches += y.dtype == torch.float32
 
 
 def _mat(x8: torch.Tensor, q4: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
          wscale: torch.Tensor, xscale: torch.Tensor, bias: Optional[torch.Tensor],
-         group: int) -> torch.Tensor:
+         group: int, out_dtype: torch.dtype) -> torch.Tensor:
     """Mode plain as #10 then #11 on operands ``w4a8_matmul`` has checked:
     the layer's (N, K) int8 grid, transient, from its scales, zeros and
     wscale (#10's C entry puts the affine on the grid itself), then #11 on
-    it (above 16 rows, never its GEMV), bf16 out; counted in
+    it (above 16 rows, never its GEMV), out in ``out_dtype``; counted in
     ``w4a8_matmul.mat_launches`` besides #10's and #11's own counts. It
     skips the two wrappers' checks, which ``w4a8_matmul``'s cover."""
-    y = torch.empty((x8.shape[0], q4.shape[1]), dtype=torch.bfloat16, device=x8.device)
+    y = torch.empty((x8.shape[0], q4.shape[1]), dtype=out_dtype, device=x8.device)
     w8 = _dequant_launch(q4, scales, zeros, wscale.data_ptr(), group)
     _w8_launch(x8, w8, wscale, xscale, bias, y, gemv=False)
     w4a8_matmul.mat_launches += 1
@@ -478,6 +491,7 @@ def _mat(x8: torch.Tensor, q4: torch.Tensor, scales: torch.Tensor, zeros: torch.
 
 w8_matmul.launches = 0
 w8_matmul.gemv_launches = 0  # of them, the M <= 16 GEMV's (either entry)
+w8_matmul.f32_launches = 0  # of them, with an fp32 output
 w8_matmul.quantizing_launches = 0  # of those, the quantizing entry's
 
 
@@ -546,6 +560,7 @@ def quantize_w8_matmul(
     kernels.check(err, "quantize_w8_matmul")
     w8_matmul.launches += 1
     w8_matmul.gemv_launches += 1
+    w8_matmul.f32_launches += y.dtype == torch.float32
     w8_matmul.quantizing_launches += 1
     return y
 

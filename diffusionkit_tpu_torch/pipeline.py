@@ -1,8 +1,11 @@
 """txt2img pipelines: text encoding, CFG + Euler denoising, VAE decoding.
 
-Counterparts of ``diffusionkit_tpu/pipeline.py:DiffusionPipeline`` (SD3,
-txt2img) and ``FluxPipeline`` (FLUX.1: CLIP-L pooled + T5 tokens, the FLUX
-schedule and latent format, FLUX-dev's guidance). Noise is drawn with numpy
+Counterparts of ``diffusionkit_tpu/pipeline.py:DiffusionPipeline`` (SD3 and
+SD3.5, txt2img: CLIP-L/G and, with ``use_t5``, T5 tokens) and
+``FluxPipeline`` (FLUX.1: CLIP-L pooled + T5 tokens, the FLUX schedule and
+latent format, FLUX-dev's guidance). ``model_version`` names the reference's
+model version (``config.MMDIT_CONFIG``'s keys; the reference's defaults),
+which sets the T5 length (``config.T5_MAX_LENGTH``). Noise is drawn with numpy
 in NCHW and transposed to NHWC, as in the reference, so one seed gives the
 same starting latents in both packages; ``num_images`` draws the batch's
 noise in one seeded call, so image 0 is the single-image run's.
@@ -52,13 +55,12 @@ assigned MMDiT on its own device, as the reference's quantize-at-load does:
   "<mode>-mixed"            ``MIXED_OVERRIDES`` on a float model: ``ada``
                             at int8, the final layer and embedders float
 
-``FluxPipeline(quantize_t5=True)`` gives an assigned T5 the SmoothQuant
-fold (``ops/smoothquant.smooth_t5``, calibrated with ``t5_tokenizer`` if it
-is set by then) and converts it to w8a8. Every model stays resident; the
+``quantize_t5=True`` gives an assigned T5 the SmoothQuant fold
+(``ops/smoothquant.smooth_t5``, calibrated with ``t5_tokenizer`` if it is
+set by then) and converts it to w8a8. Every model stays resident; the
 reference's phase-lazy loading, quantized-tree disk cache,
 ``DIFFUSIONKIT_TPU_T5_SMOOTH`` switch, tensor-parallel loading and the
-data-parallel batch under a mesh, T5 for SD3 and img2img wait for later
-slices.
+data-parallel batch under a mesh, and img2img wait for later slices.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .config import FLUX_SCHNELL_VERSION, SD3_MEDIUM, T5_MAX_LENGTH
 from .graphs import StepGraph
 from .models.clip import CLIPTextModel
 from .models.mmdit import MMDiT
@@ -223,15 +226,24 @@ class _Scan:
                 self.step()
 
 
-def _assemble_sd3_conditioning(h_l, h_g, p_l, p_g) -> Tuple[torch.Tensor, torch.Tensor]:
+def _assemble_sd3_conditioning(h_l, h_g, p_l, p_g, t5_cond=None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Penultimate CLIP-L/G hidden states concatenated and zero-padded to
-    4096 features, followed by the (zero, T5 off) T5 rows; pooled outputs
-    concatenated."""
+    4096 features, followed by the T5 rows (in the CLIP rows' dtype, their
+    features zero-padded to 4096 where a small T5 has fewer; with T5 off,
+    as many zero rows as CLIP's); pooled outputs concatenated."""
     conditioning = torch.cat([h_l, h_g], dim=-1)
     pooled = torch.cat([p_l, p_g], dim=-1)
     b, s, d = conditioning.shape
     conditioning = torch.cat([conditioning, conditioning.new_zeros(b, s, 4096 - d)], dim=-1)
-    return torch.cat([conditioning, torch.zeros_like(conditioning)], dim=1), pooled
+    if t5_cond is None:
+        t5c = torch.zeros_like(conditioning)
+    else:
+        t5c = t5_cond.to(conditioning.dtype)
+        pad = conditioning.shape[-1] - t5c.shape[-1]
+        if pad > 0:
+            t5c = torch.cat([t5c, t5c.new_zeros(*t5c.shape[:-1], pad)], dim=-1)
+    return torch.cat([conditioning, t5c], dim=1), pooled
 
 
 def _prep_conditioning(conditioning, pooled, cfg_on: bool, num_images: int, dtype):
@@ -263,7 +275,8 @@ def _chunk_cond(cond, pooled, i: int, j: int, n: int, cfg_on: bool):
 
 
 class DiffusionPipeline:
-    """SD3-family txt2img with the reference's public surface:
+    """SD3-family (SD3-medium, SD3.5-large) txt2img with the reference's
+    public surface:
     ``generate_image(text, num_steps, cfg_weight, negative_text,
     latent_size, seed, verbose, num_images, guidance, profile_dir)``,
     ``generate_images_batched`` and the ``encode_text`` /
@@ -275,7 +288,11 @@ class DiffusionPipeline:
     production schedule. ``quantize_mmdit`` (module docstring) converts the
     assigned MMDiT; weight-only modes pack at group ``quantize_group_size``
     (the reference's quantize-at-load, with the min/max grid until GPTQ is
-    ported).
+    ported). ``model_version`` (default SD3-medium) and ``use_t5`` (default
+    on, as the reference's; ``t5`` and ``t5_tokenizer`` must then be
+    assigned, the tokenizer built with ``t5_max_length`` tokens) add the T5
+    rows to the conditioning: 77 CLIP + 512 T5 tokens for SD3 and SD3.5.
+    ``quantize_t5``: the w8a8 T5 (module docstring).
 
     ``sdpa_impl`` (None/'auto', 'xla', 'flash' or 'ring') and ``mesh`` (a
     ``parallel.create_mesh`` / ``local_mesh`` DeviceMesh) go to every MMDiT
@@ -285,17 +302,27 @@ class DiffusionPipeline:
     tensor-parallel one up to the order of sums; tensor-parallel loading and
     the data-parallel split of the image batch come in a later slice."""
 
+    t5_forced = False
+
     def __init__(
         self,
         shift: float = 3.0,
+        use_t5: bool = True,
+        model_version: str = SD3_MEDIUM,
         a16: bool = True,
         device="cuda",
         quantize_mmdit=False,
+        quantize_t5: bool = False,
         quantize_group_size: int = 32,
         sdpa_impl: Optional[str] = None,
         mesh=None,
         use_scan: bool = True,
     ):
+        if model_version not in T5_MAX_LENGTH:
+            raise ValueError(f"model_version={model_version!r}: one of {sorted(T5_MAX_LENGTH)}")
+        self.model_version = model_version
+        self.use_t5 = use_t5 or self.t5_forced
+        self.quantize_t5 = quantize_t5
         self.quant_mode, self.quant_mixed = parse_quant_mode(quantize_mmdit)
         self.sdpa_impl = sdpa_impl
         self.mesh = mesh
@@ -312,6 +339,26 @@ class DiffusionPipeline:
         self.clip_g: Optional[CLIPTextModel] = None
         self.tokenizer_l = None
         self.tokenizer_g = None
+        self.t5_tokenizer = None
+        self._t5: Optional[T5Encoder] = None
+
+    @property
+    def t5_max_length(self) -> int:
+        """The T5 token rows of this model version (``T5_MAX_LENGTH``)."""
+        return T5_MAX_LENGTH[self.model_version]
+
+    @property
+    def t5(self) -> Optional[T5Encoder]:
+        return self._t5
+
+    @t5.setter
+    def t5(self, model: Optional[T5Encoder]) -> None:
+        if model is not None and self.quantize_t5 and not _holds(model, W8A8Linear):
+            # In place on the model's device: the SmoothQuant fold first
+            # (exact in float), then every eligible linear to w8a8.
+            smooth_t5(model, self.t5_tokenizer)
+            w8a8_module_(model)
+        self._t5 = model
 
     @property
     def mmdit(self) -> Optional[MMDiT]:
@@ -342,6 +389,8 @@ class DiffusionPipeline:
     @torch.inference_mode()
     def encode_text(self, text: str, cfg_weight: float = 7.5, negative_text: str = ""):
         neg = negative_text if cfg_weight > 1 else None
+        if self.use_t5 and (self.t5 is None or self.t5_tokenizer is None):
+            raise ValueError("use_t5=True: assign t5 and t5_tokenizer (or pass use_t5=False)")
         outs = []
         for tokenizer, clip in ((self.tokenizer_l, self.clip_l), (self.tokenizer_g, self.clip_g)):
             tokens = torch.from_numpy(tokenize_batch(tokenizer, text, neg)).to(
@@ -349,9 +398,13 @@ class DiffusionPipeline:
             )
             outs.append(clip(tokens))
         out_l, out_g = outs
+        t5_cond = None
+        if self.use_t5:
+            tokens = tokenize_batch(self.t5_tokenizer, text, neg)
+            t5_cond = self.t5(torch.from_numpy(tokens).to(self.device, torch.long))
         return _assemble_sd3_conditioning(
             out_l.hidden_states[-2], out_g.hidden_states[-2],
-            out_l.pooled_output, out_g.pooled_output,
+            out_l.pooled_output, out_g.pooled_output, t5_cond,
         )
 
     # -- noise / sigma helpers -----------------------------------------------
@@ -677,46 +730,34 @@ class DiffusionPipeline:
 
 class FluxPipeline(DiffusionPipeline):
     """FLUX.1 txt2img: CLIP-L pooled output and T5 token embeddings (no
-    CLIP-G), positive row only, T5 tokens zero-padded to ``t5_max_length``
-    (256 for FLUX.1-schnell, 512 for FLUX.1-dev); the FLUX sigma schedule
-    (``shift=1.0``) and latent format. ``quantize_t5``: the w8a8 T5 with
-    its SmoothQuant fold (module docstring)."""
+    CLIP-G, T5 always on), positive row only, T5 tokens zero-padded to
+    ``t5_max_length`` (by ``model_version``: 256 for FLUX.1-schnell, the
+    default, 512 for FLUX.1-dev); the FLUX sigma schedule (``shift=1.0``)
+    and latent format. ``quantize_t5``: the w8a8 T5 with its SmoothQuant
+    fold (module docstring)."""
+
+    t5_forced = True
 
     def __init__(
         self,
         shift: float = 1.0,
+        use_t5: bool = True,
+        model_version: str = FLUX_SCHNELL_VERSION,
         a16: bool = True,
         device="cuda",
         quantize_mmdit=False,
-        quantize_group_size: int = 32,
-        t5_max_length: int = 256,
         quantize_t5: bool = False,
+        quantize_group_size: int = 32,
         sdpa_impl: Optional[str] = None,
         mesh=None,
         use_scan: bool = True,
     ):
-        super().__init__(shift=shift, a16=a16, device=device, quantize_mmdit=quantize_mmdit,
+        super().__init__(shift=shift, use_t5=True, model_version=model_version, a16=a16,
+                         device=device, quantize_mmdit=quantize_mmdit, quantize_t5=quantize_t5,
                          quantize_group_size=quantize_group_size, sdpa_impl=sdpa_impl,
                          mesh=mesh, use_scan=use_scan)
         self.sampler = FluxSampler(shift=shift)
         self.latent_format = FluxLatentFormat()
-        self.t5_max_length = t5_max_length
-        self.quantize_t5 = quantize_t5
-        self.t5_tokenizer = None
-        self._t5: Optional[T5Encoder] = None
-
-    @property
-    def t5(self) -> Optional[T5Encoder]:
-        return self._t5
-
-    @t5.setter
-    def t5(self, model: Optional[T5Encoder]) -> None:
-        if model is not None and self.quantize_t5 and not _holds(model, W8A8Linear):
-            # In place on the model's device: the SmoothQuant fold first
-            # (exact in float), then every eligible linear to w8a8.
-            smooth_t5(model, self.t5_tokenizer)
-            w8a8_module_(model)
-        self._t5 = model
 
     @torch.inference_mode()
     def encode_text(self, text: str, cfg_weight: float = 7.5, negative_text: str = ""):

@@ -217,9 +217,17 @@ def test_flux_mmdit_matches_jax(variant, monkeypatch):
 
 
 def test_mmdit_guard_names_what_is_missing():
-    with pytest.raises(NotImplementedError, match="upcast"):
-        with torch.device("meta"):
-            MMDiT(tcfg.SD3_8b)
+    """Nothing is missing any more: SD3.5-large builds, its block 35 (the
+    reference's fp32-upcast block) with every float leaf in fp32, the other
+    blocks and the embedders in bf16."""
+    with torch.device("meta"):
+        model = MMDiT(tcfg.SD3_8b)
+    assert len(model.mm_blocks) == 37 and model.mm_final is not None
+    for i, block in enumerate(model.mm_blocks):
+        want = torch.float32 if i == 35 else torch.bfloat16
+        assert {p.dtype for p in block.parameters()} == {want}, i
+    assert {p.dtype for p in model.mm_final.parameters()} == {torch.bfloat16}
+    assert model.x_embedder.weight.dtype == torch.bfloat16
 
 
 @pytest.fixture(scope="module")

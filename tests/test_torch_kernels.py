@@ -589,7 +589,7 @@ def test_int4_wrapper_raises_on_unsupported_input(cuda):
     q4, scales, zeros = random_int4(512, 256, 64, g, cuda)
     x = torch.randn(8, 512, generator=g, device=cuda)
     with pytest.raises(TypeError):
-        int4_matmul(x, q4, scales, zeros)  # fp32 x
+        int4_matmul(x.half(), q4, scales, zeros)  # fp16 x: bf16 or fp32 only
     x = x.bfloat16()
     with pytest.raises(ValueError, match="multiple of 128"):
         int4_matmul(x, q4[:, :200], scales[:, :200], zeros[:, :200])
@@ -936,10 +936,116 @@ def test_w4a8_wrapper_raises_on_unsupported_input(cuda):
         w4a8_matmul(*args, mode="gelu_quant")
     with pytest.raises(TypeError):
         w4a8_matmul(x8.float(), *args[1:])
-    with pytest.raises(ValueError, match="bias"):
-        w4a8_matmul(*args[:-1], layer.bias.float())
+    with pytest.raises(TypeError, match="bias"):
+        w4a8_matmul(*args[:-1], layer.bias.half())
     with pytest.raises(TypeError):
-        w4a8_matmul(*args, out_dtype=torch.float32)
+        w4a8_matmul(*args, out_dtype=torch.float16)
+    with pytest.raises(TypeError, match="'mat' route"):  # #11 takes the output's dtype
+        w4a8_matmul(x8.repeat(4, 1), *args[1:5], xs.repeat(4, 1), layer.bias.float())
+    layer, x8, xs, extra = w4a8_inputs("norm_rope", 8, 512, 256, 64, g, cuda)
+    args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias)
+    with pytest.raises(TypeError, match="norm_rope"):  # no fp32-upcast block has RoPE
+        w4a8_matmul(*args, mode="norm_rope", out_dtype=torch.float32, **extra)
+    with pytest.raises(TypeError, match="norm_rope"):
+        w4a8_matmul(*args[:-1], layer.bias.float(), mode="norm_rope", **extra)
+
+
+# C and #13 on fp32 x (csrc/dequant_f32.cu: 3xTF32 wgmma above 16 rows, an
+# FMA tile at M <= 16): SD3.5-large's
+# block 35 at 1024² with CFG (image rows 2 x 4096, text rows 2 x 154) at
+# q/k/v/o, fc1 and fc2; its `ada` shape at M = 2; ragged M, N a multiple of
+# 64 but not 128 inside the kernel's reach, group 32 and 128.
+F32_DEQUANT_SHAPES = [(8192, 2432, 2432, 64), (308, 2432, 9728, 64), (308, 9728, 2432, 64),
+                      (2, 2432, 14592, 64), (77, 512, 256, 32), (9, 1024, 384, 128),
+                      (16, 512, 128, 64), (17, 512, 128, 64)]
+
+
+def fp32_ulp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0**-126))) - 23)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", F32_DEQUANT_SHAPES)
+def test_dequant_kernels_take_fp32(cuda, bits, shape):
+    """Kernels C and #13 on fp32 x against fp32 math on the same fp32
+    weights (TF32 off): one fp32 ulp + 2K 2^-24 (|x| @ |w|) per element, the
+    kernel and cuBLAS summing in other orders; counted as fp32 launches."""
+    m, k, n, group = shape
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device=cuda).manual_seed(30)
+    if bits == 4:
+        qw, scales, zeros = random_int4(k, n, group, g, cuda)
+        fn, w = int4_matmul, dequantize_int4(qw, scales, zeros, torch.float32)
+    else:
+        qw, scales, zeros = random_int8(k, n, group, g, cuda)
+        fn, w = int8_matmul, dequantize_int8(qw, scales, zeros, torch.float32)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    launches, f32 = fn.launches, fn.f32_launches
+    got = fn(x, qw, scales, zeros)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.f32_launches) == (launches + 1, f32 + 1)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    want = x @ w
+    bound = fp32_ulp(want) + 2 * k * 2.0**-24 * (x.abs() @ w.abs())
+    diff = (got - want).abs()
+    assert torch.all(diff <= bound), (diff / bound).max().item()
+
+
+@pytest.mark.gpu
+def test_dequant_fp32_reads_strided_rows_in_place(cuda):
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q4, scales, zeros = random_int4(512, 256, 64, g, cuda)
+    for m in (300, 9):
+        wide = torch.randn(m, 640, generator=g, device=cuda)
+        x = wide[:, 64:576]
+        assert torch.equal(int4_matmul(x, q4, scales, zeros),
+                           int4_matmul(x.contiguous(), q4, scales, zeros))
+
+
+# Kernel E with an fp32 bias and output, in the modes an fp32-upcast block
+# runs (SD3.5-large's block 35 at 1024² with CFG): the `ada` GEMV (M = 2,
+# K = 2432, N = 14592; its input is the model-dtype c, so bf16 out with an
+# fp32 bias, and fp32 out), mode plain above 16 rows on #10 then #11 and
+# on E's Hopper loop, gelu_quant at fc1 and grouped_xs at fc2 (image rows
+# and text rows); (mode, M, K, N, group, out). norm_rope (no upcast block
+# has RoPE) refuses an fp32 bias or output.
+W4A8_F32_CASES = [("plain", 2, 2432, 14592, 64, torch.bfloat16),
+                  ("plain", 2, 2432, 14592, 64, torch.float32),
+                  ("plain", 8192, 2432, 2432, 64, torch.float32),
+                  ("plain-sm90", 308, 2432, 2432, 64, torch.float32),
+                  ("gelu_quant", 8192, 2432, 9728, 64, torch.float32),
+                  ("gelu_quant", 308, 2432, 9728, 64, torch.float32),
+                  ("grouped_xs", 8192, 9728, 2432, 64, torch.float32),
+                  ("grouped_xs", 308, 9728, 2432, 64, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", W4A8_F32_CASES)
+def test_w4a8_kernel_fp32_bias_and_output(cuda, case):
+    """Kernel E (and #10 then #11 on mode plain's "mat" route) with an fp32
+    bias against its plain version: plain and grouped_xs bit-identical in
+    the output dtype, gelu_quant as in bf16; counted as fp32 launches."""
+    mode, m, k, n, group, out_dtype = case
+    g = torch.Generator(device=cuda).manual_seed(32)
+    route = "sm90" if mode == "plain-sm90" else None
+    mode = mode.split("-")[0]
+    layer, x8, xs, extra = w4a8_inputs(mode, m, k, n, group, g, cuda)
+    bias = layer.bias.float() + 1e-3 * torch.randn(n, generator=g, device=cuda)
+    args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, bias)
+    f32, mat = w4a8_matmul.f32_launches, w4a8_matmul.mat_launches
+    got = w4a8_matmul(*args, mode=mode, out_dtype=out_dtype, _route=route, **extra)
+    torch.cuda.synchronize()
+    want = w4a8_matmul_plain(*args, mode=mode, out_dtype=out_dtype, **extra)
+    if mode == "plain" and m > 16 and route is None:
+        assert w4a8_matmul.mat_launches == mat + 1
+    else:
+        assert w4a8_matmul.f32_launches == f32 + 1
+    if mode == "gelu_quant":
+        assert_int8_close(got[0], want[0], share=1e-3)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    else:
+        assert got.dtype == out_dtype and torch.equal(got, want)
 
 
 # Kernel D on rows wider than 8192 (T5-XXL's wo input, a FLUX w8a8 FFN
@@ -1960,17 +2066,18 @@ def test_quantizing_gemv_route_is_bounded_by_its_shared_memory():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("model", ["sd3", "flux-dev"])
+@pytest.mark.parametrize("model", ["sd3", "flux-dev", "sd35", "sd35-int4", "sd35-w4a8"])
 def test_denoise_graph_is_the_synced_loop(cuda, model):
     """The default scan (one step captured as a CUDA graph, replayed once a
     step) against the synced loop on a small bf16 MMDiT on the card:
     bit-identical latents, and the wrappers' counters rising by the same
     launches (a replay adds the capture's delta); a second request reuses
     the graph. FLUX-dev exercises RoPE's cached tables and the guidance
-    scalar."""
+    scalar; SD3.5 (3 blocks, block 1 upcast to fp32) its fp32 block on the
+    fp32 kernels, in bf16 and with int4 or w4a8 block linears."""
     import dataclasses
 
-    from diffusionkit_tpu_torch.config import FLUX_DEV, SD3_2b
+    from diffusionkit_tpu_torch.config import FLUX_DEV, SD3_2b, SD3_8b
     from diffusionkit_tpu_torch.models import init_mmdit
     from diffusionkit_tpu_torch.ops import launches
     from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline
@@ -1979,7 +2086,15 @@ def test_denoise_graph_is_the_synced_loop(cuda, model):
     if model == "sd3":
         cfg = dataclasses.replace(SD3_2b, depth_multimodal=2, num_heads=4,
                                   hidden_size_override=256, max_latent_resolution=32)
-        pipe, cfg_weight, text_dim, pooled_dim = DiffusionPipeline(device=cuda), 5.0, 4096, 2048
+        pipe, cfg_weight, text_dim, pooled_dim = (DiffusionPipeline(device=cuda, use_t5=False),
+                                                  5.0, 4096, 2048)
+    elif model.startswith("sd35"):
+        cfg = dataclasses.replace(SD3_8b, depth_multimodal=3, num_heads=4, hidden_size_override=256,
+                                  max_latent_resolution=32, upcast_multimodal_blocks=(1,))
+        mode = {"sd35-int4": "int4", "sd35-w4a8": "w4a8"}.get(model, False)
+        pipe = DiffusionPipeline(device=cuda, use_t5=False, quantize_mmdit=mode,
+                                 quantize_group_size=64)
+        cfg_weight, text_dim, pooled_dim = 5.0, 4096, 2048
     else:
         cfg = dataclasses.replace(FLUX_DEV, depth_multimodal=1, depth_unified=2, num_heads=4,
                                   hidden_size_override=512, rope_axes_dim=(16, 56, 56))
@@ -2008,4 +2123,10 @@ def test_denoise_graph_is_the_synced_loop(cuda, model):
     assert counted[("mod_ln", "launches")] > 0
     assert counted[("flash_attention_bshd", "launches")] == 4 * (len(pipe.mmdit.mm_blocks) + (
         len(pipe.mmdit.uni_blocks) or 1))
+    upcast = len(cfg.upcast_multimodal_blocks)
+    assert counted[("flash_attention_bshd", "f32_launches")] == 4 * upcast
+    if model == "sd35-int4":  # block 1's six linears a stream on the fp32 tile
+        assert counted[("int4_matmul", "f32_launches")] == 4 * 2 * 6
+    if model == "sd35-w4a8":  # its fc1 / fc2 and `ada` GEMVs with fp32 bias or output
+        assert counted[("w4a8_matmul", "f32_launches")] == 4 * 2 * 3
     assert len(it) == len(it_loop) == 4 and len(set(it)) == 1

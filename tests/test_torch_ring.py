@@ -294,7 +294,8 @@ def test_sd3_pipeline_ring_matches_jax(sd3_pipelines, one_rank, monkeypatch):  #
 
     monkeypatch.setattr(sys.modules[ring_attention.__module__], "flash_attention_stats", chunk)
     jp, tp = sd3_pipelines
-    ring = DiffusionPipeline(shift=3.0, a16=False, device="cpu", sdpa_impl="ring", mesh=one_rank)
+    ring = DiffusionPipeline(shift=3.0, use_t5=False, a16=False, device="cpu", sdpa_impl="ring",
+                             mesh=one_rank)
     for name in ("clip_l", "clip_g", "mmdit", "decoder", "tokenizer_l", "tokenizer_g"):
         setattr(ring, name, getattr(tp, name))
     assert ring.mmdit.config.head_dim == 64

@@ -52,7 +52,8 @@ def flux_pipelines(guidance_embed: bool):
     jp.t5_params = randomize(jp.t5_params, 2)
     jp.mmdit_params = with_unit_qk_scales(randomize(jp.mmdit_params, 3))
     jp.decoder_params = randomize(jp.decoder_params, 4)
-    tp = FluxPipeline(a16=False, device="cpu", t5_max_length=512 if guidance_embed else 256)
+    tp = FluxPipeline(a16=False, device="cpu", model_version=(
+        "argmaxinc/mlx-FLUX.1-dev" if guidance_embed else "argmaxinc/mlx-FLUX.1-schnell"))
     tp.clip_l = clip_from_jax(
         jp.clip_l, torch_config(jp.clip_l_config, tcfg.CLIPTextModelConfig), device="cpu")
     tp.t5 = t5_from_jax(jp.t5_params, torch_config(jp.t5_config, tcfg.T5Config), device="cpu")
@@ -415,7 +416,7 @@ def test_hbm_scale_floor_and_override(monkeypatch, sd3):
     monkeypatch.delenv("DIFFUSIONKIT_TPU_HBM_SCALE")
 
     _, tp = sd3
-    card = DiffusionPipeline(device="cuda")
+    card = DiffusionPipeline(device="cuda", use_t5=False)
     assert card._denoise_chunk_images((64, 64)) == 21
     assert card._denoise_chunk_images((128, 128)) == 5
     assert tp._denoise_chunk_images((64, 64)) == 4  # the CPU: the reference's 16 GB budget

@@ -373,7 +373,8 @@ def test_sd3_w8a8_pipeline_matches_jax(jax_fused):
     jcfg = tiny_sd3(pooled_text_embed_dim=16)
     float_params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=15)
     jp.mmdit_params, jp.mmdit_config = jw8.w8a8_tree(float_params), jcfg
-    qp = DiffusionPipeline(shift=3.0, a16=False, device="cpu", quantize_mmdit="w8a8")
+    qp = DiffusionPipeline(shift=3.0, use_t5=False, a16=False, device="cpu",
+                           quantize_mmdit="w8a8")
     for name in ("clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g"):
         setattr(qp, name, getattr(tp, name))
     qp.mmdit = mmdit_from_jax(float_params, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu")
