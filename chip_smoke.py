@@ -70,7 +70,9 @@ Phases, each raising on failure (the script then exits non-zero):
      their fp32 plain versions within 2^-16 of the largest |output|, timed
      beside F.scaled_dot_product_attention on the same fp32 inputs (TF32
      off), each bound at the 3xTF32 rate (495 / 3 TFLOP/s) with the fp32
-     FMA rate's bound beside it;
+     FMA rate's bound beside it; kernel B's fp32 form also at the VAE
+     encoder's mid-block of a 1024² img2img request (1, 16384, 1, 512),
+     checked 4096 query rows at a time;
   3-4e. #10 dequant_w8 (bit-identical at FLUX fc1, fc2, q and q at group
      32; timed with the weights cold in L2 and warm), #10 then #11 against
      kernel E on the same layer (bit-identical at M = 4352 and a ragged M)
@@ -107,7 +109,11 @@ Phases, each raising on failure (the script then exits non-zero):
      attention on kernel B's fp32 instantiation) against fp32 on the CPU;
      and SD3.5-large at full width, 3 blocks with block 1 upcast to fp32
      (its calls on the fp32 entries, counted apart), in bf16, int4 and w4a8
-     against fp32 on the CPU;
+     against fp32 on the CPU; then the generic Autoencoder: a full-width one
+     written as an HF diffusers mirror (config.json and weights, by the
+     smoke's own safetensors writer) under DIFFUSIONKIT_TPU_CKPT_DIR, read
+     back by model_io.load_autoencoder bit for bit, a 256² image encoded
+     and decoded on the card against fp32 on the CPU;
   6. the main paths, with random weights from a seed, each serving two
      requests through generate_image and repeating the first through the
      phase methods, all under the default use_scan=True, the denoise loop a
@@ -178,7 +184,21 @@ Phases, each raising on failure (the script then exits non-zero):
      j. FLUX.1-dev bf16 (its guidance embedder, guidance 3.5) through
         FluxPipeline(model_version=...FLUX.1-dev), T5 at 512 tokens (4608
         joint tokens), 1024², 4 steps; k's T5, CLIP-L and VAE;
-     (run in the order a, a', a'', h, h', d, e, b, c, g, g', f, i, i', k, j,
+     l. img2img on a's models: a's request-1 image (a 530 x 520 copy, so
+        read_image's LANCZOS resize runs) through DiffusionPipeline(
+        local_ckpt=...) at 512², 50 steps at denoise 0.6 (the last 30 run),
+        CFG 5.0; the fp32 VAE encoder loaded at the first request by
+        model_io.load_vae_encoder from a full-width file the smoke writes in
+        SD3's namespace (first_stage_model.encoder.*, F16); its mid-block on
+        kernel B's fp32 form (4096 positions) once an encode; the encode
+        against fp32 on the CPU; the graph against the synced loop; the
+        img2img latents after a txt2img request on the same pipeline (a
+        longer cached schedule) the first request's bit for bit;
+     m. the same on c's models (FLUX.1-schnell w4a8) from c's request-0
+        image at 1024², 4 steps at denoise 0.5 (2 run), the encoder from a
+        FLUX ae.safetensors (encoder.*, BF16), kernel B's fp32 form at
+        16384 positions; no CPU encode (4 TFLOP on the host);
+     (run in the order a, a', a'', l, h, h', d, e, b, c, m, g, g', f, i, i', k, j,
      so h, d and e share a's encoders, h a's MMDiT, g c's models and f g's,
      before f converts the T5; each later path frees the previous MMDiT);
   7. two denoise steps of each path (the graph's replays; the synced
@@ -204,6 +224,7 @@ import os
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -221,10 +242,22 @@ from diffusionkit_tpu_torch.config import (
     SD3_2b,
     SD3_8b,
     T5_XXL,
+    AutoencoderConfig,
     VAEDecoderConfig,
+    VAEEncoderConfig,
 )
+from diffusionkit_tpu_torch import model_io
 from diffusionkit_tpu_torch.flops import device_peak_flops, mmdit_step_flops
-from diffusionkit_tpu_torch.models import init_clip, init_mmdit, init_t5, init_vae_decoder
+from diffusionkit_tpu_torch.models import (
+    Autoencoder,
+    VAEEncoder,
+    init_autoencoder,
+    init_clip,
+    init_mmdit,
+    init_t5,
+    init_vae_decoder,
+    init_vae_encoder,
+)
 from diffusionkit_tpu_torch.models.mmdit import MMDiT
 from diffusionkit_tpu_torch.models.t5 import T5Encoder
 from diffusionkit_tpu_torch.ops import kernels
@@ -279,7 +312,7 @@ from diffusionkit_tpu_torch.ops.w4a8_matmul import (
 )
 from diffusionkit_tpu_torch.ops.w8a8 import W8A8Linear, w8a8_module_
 from diffusionkit_tpu_torch.parallel import local_mesh, merge_chunk_stats
-from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline
+from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline, _encode_step
 from diffusionkit_tpu_torch.tokenizer import (
     CLIPTokenizer,
     SyntheticT5Tokenizer,
@@ -464,6 +497,17 @@ SD35 = Path("sd35-w4a8", 8, 5.0, (128, 128), 154, SD3.requests)
 SD35_4BIT = dataclasses.replace(SD35, name="sd35-4bit")
 SD35_T5 = dataclasses.replace(SD35, name="sd35-t5", txt_tokens=589)
 FLUX_DEV_PATH = Path("flux-dev", 4, 0.0, (128, 128), 512, FLUX.requests)
+# img2img: l, SD3-medium 512² on a's models from a's request-1 image (a
+# 530 x 520 copy, so read_image's LANCZOS resize runs), 50 steps at denoise
+# 0.6, so the last 30 run, CFG 5.0; m, FLUX.1-schnell w4a8 1024² on c's
+# models from c's request-0 image, 4 steps at denoise 0.5, so 2 run. Each
+# path's encoder is loaded from a checkpoint file the smoke writes, at the
+# first img2img request: SD3's namespace (first_stage_model.encoder.*, F16)
+# for l, FLUX's ae.safetensors (encoder.*, BF16) for m.
+SD3_IMG2IMG = dataclasses.replace(SD3, name="sd3-img2img", requests=SD3.requests[:1])
+FLUX_IMG2IMG = dataclasses.replace(FLUX, name="flux-w4a8-img2img", requests=FLUX.requests[:1])
+DENOISE = {SD3_IMG2IMG.name: 0.6, FLUX_IMG2IMG.name: 0.5}
+IMG2IMG_SOURCE_SIZE = (530, 520)
 LAYOUT_ENV = "DIFFUSIONKIT_TPU_ATTN_LAYOUT"
 # Relative L2 between two runs of one request that differ only in the
 # attention's numerics (a' against a, the flash twins g' and h' against g
@@ -1648,6 +1692,10 @@ def ring_combine_checks(gen) -> None:
 # #14 in fp32 at SD3 512² CFG's four-rank chunk and at a FLUX 2048²
 # four-rank chunk: (B, H, Sq, Skv, D) and the valid lengths checked and timed.
 FP32_STATS_SHAPES = [((2, 24, 295, 295, 64), (295, 293)), ((1, 24, 4160, 4160, 128), (4160,))]
+# Kernel B's fp32 form at the VAE encoder's mid-block of a 1024² img2img
+# request (path m: one head of 512 over 16384 positions), checked against
+# its plain version PLAIN_ROWS query rows at a time.
+FP32_VAE_1024 = (1, 16384, 1, 512)
 
 
 def check_fp32(got, want, label: str) -> float:
@@ -1703,6 +1751,9 @@ def fp32_flash_kernels(gen, tag: str):
             times[name].append(t)
         del q, k, v, args, lib_args
         torch.cuda.empty_cache()
+    err, t = fp32_vae_1024(gen, tag)
+    errs["flash_attention_bshd"].append(err)
+    times["flash_attention_bshd"].append(t)
     name = "flash_attention_stats"
     for (b, h, sq, skv, d), vlens in FP32_STATS_SHAPES:
         q = torch.randn(b, h, sq, d, generator=gen, device=dev)
@@ -1733,6 +1784,40 @@ def fp32_flash_kernels(gen, tag: str):
         del q, k, v
         torch.cuda.empty_cache()
     return errs, times
+
+
+def fp32_vae_1024(gen, tag: str):
+    """Phase 3-4d, fp32: kernel B at FP32_VAE_1024, counted as one launch,
+    against its fp32 plain version PLAIN_ROWS query rows at a time against
+    every key (TF32 off), within 2^-16 of the largest |output|; then timed
+    beside its plain version on the whole shape and
+    F.scaled_dot_product_attention on the same fp32 tensors. Returns (max
+    abs error, the timing row)."""
+    b, s_, h, d = FP32_VAE_1024
+    q, k, v = (torch.randn(FP32_VAE_1024, generator=gen, device="cuda") for _ in range(3))
+    scale = d**-0.5
+    before = flash_attention_bshd.launches
+    got = flash_attention_bshd(q, k, v, scale)
+    torch.cuda.synchronize()
+    if flash_attention_bshd.launches != before + 1:
+        raise AssertionError("flash_attention_bshd fp32 did not launch its kernel")
+    want = torch.cat([flash_attention_bshd_plain(q[:, r:r + PLAIN_ROWS], k, v, scale)
+                      for r in range(0, s_, PLAIN_ROWS)], dim=1)
+    err = check_fp32(got, want, f"flash_attention_bshd {FP32_VAE_1024} ({PLAIN_ROWS} query rows "
+                                f"at a time)")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = device_ms(lambda: flash_attention_bshd(q, k, v, scale))
+    plain = device_ms(lambda: flash_attention_bshd_plain(q, k, v, scale), reps=2)
+    qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), reps=2)
+    t = timing("flash_attention_bshd", FP32_VAE_1024, ms, plain, "fp32", library_ms=lib)
+    log(f"  flash_attention_bshd {FP32_VAE_1024} fp32: kernel {ms!r} ms "
+        f"({4 * b * h * s_ * s_ * d / (ms / 1e3) / 1e12!r} TFLOP/s), plain {plain!r} ms, "
+        f"F.scaled_dot_product_attention (fp32, TF32 off) {lib!r} ms, {bound_note(t)} [{tag}]")
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return err, t
 
 
 # (K, N, group) of #10: FLUX fc1, fc2 and q/k/v/o at group 64, and q/k/v/o
@@ -2607,12 +2692,13 @@ def build_flux_w4a8(gen, prev: FluxPipeline) -> FluxPipeline:
     return pipe
 
 
-def denoise_request(pipe, path: Path, use_scan: bool, num_steps=None):
+def denoise_request(pipe, path: Path, use_scan: bool, num_steps=None, **img2img):
     """Request 0's denoise through the phase methods, under the graph
     (``use_scan=True``, the default) or the synced loop: its latents, the
     median of its ``iter_time`` in ms (under the graph the reference's
     total / n, which every entry holds; in the loop the median step) and
-    the launches its denoise made."""
+    the launches its denoise made (with ``img2img``'s ``image_path`` and
+    ``denoise``, the encode's too)."""
     text, seed = path.requests[0]
     cond, pooled = pipe.encode_text(text, path.cfg)
     torch.cuda.synchronize()
@@ -2621,7 +2707,7 @@ def denoise_request(pipe, path: Path, use_scan: bool, num_steps=None):
     try:
         latents, it = pipe.denoise_latents(cond, pooled, num_steps=num_steps or path.steps,
                                            cfg_weight=path.cfg, latent_size=path.latent,
-                                           seed=seed)
+                                           seed=seed, **img2img)
         torch.cuda.synchronize()
     finally:
         pipe.use_scan = saved
@@ -2642,13 +2728,13 @@ def device_kernels(pipe, path: Path, use_scan: bool) -> collections.Counter:
 
 
 def loop_beside(pipe, path: Path, graph_latents, graph_launches: dict, graph_ms: float,
-                tag: str) -> float:
+                tag: str, **img2img) -> float:
     """Phase 6, the synced loop beside the graph: request 0's denoise
     through ``use_scan=False`` must give the graph's latents bit for bit
     with the graph's launches (the same kernels in the same order). On a
     difference, one step of each is profiled and the kernels that differ
     are named. Returns the loop's median ms/step."""
-    latents, loop_ms, launches = denoise_request(pipe, path, use_scan=False)
+    latents, loop_ms, launches = denoise_request(pipe, path, use_scan=False, **img2img)
     log(f"  {path.name}: denoise {graph_ms!r} ms/step under the CUDA graph (a warm request's "
         f"total / n), median {loop_ms!r} ms/step in the synced loop (use_scan=False) [{tag}]")
     if launches != graph_launches:
@@ -2724,7 +2810,7 @@ def serve(pipe, path: Path, tag: str):
             f"of the {peak / 1e12!r} {rate} {peak_name} peak [{tag}]")
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB [{tag}]")
     loop_ms = loop_beside(pipe, path, latents, graph_launches, graph_ms, tag)
-    return {"launches": launches, "latents": latents, "image": images[0],
+    return {"launches": launches, "latents": latents, "image": images[0], "images": images,
             "step_ms": graph_ms, "loop_ms": loop_ms}
 
 
@@ -2895,6 +2981,275 @@ def serve_batch(pipe, path: Path, single_latents, tag: str) -> None:
         f"{1e3 * lg['decoding']['time']!r} ms, total {lg['total_time']!r} s; "
         f"generate_images_batched of {len(texts)} prompts {batched_s!r} s; peak memory "
         f"{peak!r} GiB [{tag}]")
+
+
+# -- img2img (paths l and m) and the generic Autoencoder ----------------------
+
+ST_TAGS = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """A safetensors file of ``tensors`` (the card's machine has no
+    safetensors package): an 8-byte little-endian header length, the JSON
+    header padded to 8 bytes, then each tensor's bytes in turn."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        data = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": ST_TAGS[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for data in blobs:
+            f.write(data)
+
+
+def renamed(sd: dict, rules) -> dict:
+    """``sd`` with each key rewritten by ``rules`` ((pattern, replacement)
+    in turn) and every 2-d weight but those ``rules`` keep as linears
+    stored as a 1x1 convolution."""
+    out = {}
+    for key, t in sd.items():
+        for pattern, repl in rules:
+            key = re.sub(pattern, repl, key)
+        if t.ndim == 2 and not re.search(r"\.(to_[qkv]|to_out\.0)\.weight$", key):
+            t = t[:, :, None, None]
+        out[key] = t
+    return out
+
+
+# The port's VAEEncoder state-dict names -> the raw sgm namespace (the
+# inverse of model_io.vae_encoder_from_ckpt).
+SGM_ATTN = {"group_norm": "norm", "query_proj": "q", "key_proj": "k", "value_proj": "v",
+            "out_proj": "proj_out"}
+SGM_ENCODER = [(r"^down_blocks\.(\d+)\.resnets\.(\d+)\.", r"down.\1.block.\2."),
+               (r"^down_blocks\.(\d+)\.downsample\.", r"down.\1.downsample.conv."),
+               (r"^mid_blocks\.([02])\.", lambda m: f"mid.block_{int(m[1]) // 2 + 1}."),
+               (r"^mid_blocks\.1\.(\w+)\.", lambda m: f"mid.attn_1.{SGM_ATTN[m[1]]}."),
+               (r"\.conv_shortcut\.", ".nin_shortcut."), (r"^conv_norm_out\.", "norm_out.")]
+DIFFUSERS_ATTN = {"group_norm": "group_norm", "query_proj": "to_q", "key_proj": "to_k",
+                  "value_proj": "to_v", "out_proj": "to_out.0"}
+
+
+def diffusers_rules(n_blocks: int):
+    """The port's Autoencoder names -> HF diffusers AutoencoderKL (the
+    inverse of model_io.autoencoder_from_diffusers_ckpt): the decoder's
+    up_blocks flipped into application order, the modern attention names
+    (linears), the quant projections as 1x1 convolutions."""
+    return [(r"^(encoder|decoder)\.mid_blocks\.([02])\.",
+             lambda m: f"{m[1]}.mid_block.resnets.{int(m[2]) // 2}."),
+            (r"^(encoder|decoder)\.mid_blocks\.1\.(\w+)\.",
+             lambda m: f"{m[1]}.mid_block.attentions.0.{DIFFUSERS_ATTN[m[2]]}."),
+            (r"^encoder\.down_blocks\.(\d+)\.downsample\.",
+             r"encoder.down_blocks.\1.downsamplers.0.conv."),
+            (r"^decoder\.up_blocks\.(\d+)\.",
+             lambda m: f"decoder.up_blocks.{n_blocks - 1 - int(m[1])}."),
+            (r"\.upsample\.", ".upsamplers.0.conv."),
+            (r"^quant_proj\.", "quant_conv."), (r"^post_quant_proj\.", "post_quant_conv.")]
+
+
+def write_encoder_ckpt(gen, path, prefix: str, dtype) -> dict:
+    """A full-width SD3 / FLUX VAE encoder drawn on the card, written to
+    ``path`` in the raw sgm namespace under ``prefix`` in ``dtype``;
+    returns its weights as a loader must give them back in fp32 (rounded
+    to ``dtype``), on the card."""
+    encoder = init_vae_encoder(VAEEncoderConfig(), gen, "cuda")
+    sd = {k: v.to(dtype) for k, v in encoder.state_dict().items()}
+    write_safetensors(path, {prefix + "encoder." + k: v
+                             for k, v in renamed(sd, SGM_ENCODER).items()})
+    return {k: v.float() for k, v in sd.items()}
+
+
+def autoencoder_check(gen, scratch: str, tag: str) -> dict:
+    """Phase 5, the generic Autoencoder: a full-width one ((128, 256, 512,
+    512), SD3's 16 latent channels) drawn on the card and written as a
+    diffusers mirror (``config.json`` and F32 weights) under
+    DIFFUSIONKIT_TPU_CKPT_DIR; ``model_io.load_autoencoder`` must read back
+    its config and its weights bit for bit on the card; a 256² image
+    encoded (mean, logvar) and the mean decoded on the card against the
+    same weights in fp32 on the CPU within FP32_RTOL."""
+    config = AutoencoderConfig(latent_channels_out=32, latent_channels_in=16,
+                               scaling_factor=1.5305)
+    src = init_autoencoder(config, gen, "cuda")
+    vae_dir = os.path.join(scratch, "mirror", model_io.AUX_REPO, "vae")
+    os.makedirs(vae_dir)
+    with open(os.path.join(vae_dir, "config.json"), "w") as f:
+        json.dump({"in_channels": 3, "out_channels": 3, "latent_channels": 16,
+                   "block_out_channels": list(config.block_out_channels),
+                   "layers_per_block": config.layers_per_block,
+                   "norm_num_groups": config.norm_num_groups,
+                   "scaling_factor": config.scaling_factor}, f)
+    rules = diffusers_rules(len(config.block_out_channels))
+    write_safetensors(os.path.join(vae_dir, "diffusion_pytorch_model.safetensors"),
+                      renamed(src.state_dict(), rules))
+    t0 = time.perf_counter()
+    with env_set("DIFFUSIONKIT_TPU_CKPT_DIR", os.path.join(scratch, "mirror")):
+        model, loaded = model_io.load_autoencoder()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same = all(torch.equal(v, src.state_dict()[k]) for k, v in model.state_dict().items())
+    if loaded != config or not same or not isinstance(model, Autoencoder):
+        raise AssertionError("load_autoencoder did not give back the mirror's config and weights")
+    del src
+    x = torch.rand(1, 256, 256, 3, generator=gen, device="cuda") * 2 - 1
+    reset_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        mean, logvar = model.encode(x)
+        x_hat = model.decode(mean)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = counts()
+        ref = copy.deepcopy(model).cpu()
+        want_mean, want_logvar = ref.encode(x.cpu())
+        want_x = ref.decode(want_mean)
+    rels = [rel_l2(a, b) for a, b in ((mean, want_mean), (logvar, want_logvar), (x_hat, want_x))]
+    finite = all(bool(torch.isfinite(t).all()) for t in (mean, logvar, x_hat))
+    log(f"  Autoencoder (128, 256, 512, 512), 16 latent channels: load_autoencoder from the "
+        f"diffusers mirror in {load_s!r} s (config and weights bit for bit); a 256² image's "
+        f"mean {tuple(mean.shape)}, logvar, and the mean's decode {tuple(x_hat.shape)} on the "
+        f"card in {ms!r} ms (first call), relative L2 against fp32 on the CPU {rels!r} "
+        f"(tolerance {FP32_RTOL}), finite {finite}, launches "
+        f"{ {k: v for k, v in launches.items() if v} } [{tag}]")
+    if not (max(rels) < FP32_RTOL and finite and tuple(x_hat.shape) == (1, 256, 256, 3)):
+        raise AssertionError("the Autoencoder on the card disagrees with fp32 on the CPU")
+    return launches
+
+
+def img2img_source(image: np.ndarray, scratch: str, name: str, size=None) -> str:
+    """``image`` written as a PNG (resized to ``size`` (w, h) first)."""
+    from PIL import Image
+
+    img = Image.fromarray(image)
+    if size is not None:
+        img = img.resize(size, Image.BICUBIC)
+    path = os.path.join(scratch, f"{name}.png")
+    img.save(path)
+    return path
+
+
+def serve_img2img(pipe, path: Path, src: str, source: np.ndarray, want_encoder: dict, tag: str,
+                  cpu_check: bool) -> dict:
+    """Paths l and m: request 0 through ``generate_image(image_path=src,
+    denoise=...)`` twice (the first loads the encoder from the pipeline's
+    ``local_ckpt`` through ``model_io.load_vae_encoder`` and captures the
+    graph; the repeat is warm and must give the identical image, unlike
+    ``source``), ``int(num_steps * denoise)`` steps each, every kernel's
+    launches the config's count for those steps plus the decode's and the
+    encode's (kernel B's fp32 form, once); the encoder fp32 on the card
+    with the file's weights; one encode alone (B's fp32 form once, timed
+    warm) and, with ``cpu_check``, against the same weights in fp32 on the
+    CPU within FP32_RTOL; the graph's latents the synced loop's bit for
+    bit; and after a txt2img request on the same pipeline (which caches a
+    longer schedule) the img2img latents the first ones bit for bit."""
+    text, seed = path.requests[0]
+    img2img = dict(image_path=src, denoise=DENOISE[path.name])
+    ran = path.steps - int(path.steps * (1 - img2img["denoise"]))
+    per = per_request_launches(dataclasses.replace(path, steps=ran), pipe.mmdit.config)
+    per["flash_attention_bshd"] += 1  # the encoder's mid-block, on B's fp32 form
+    per["flash_attention_bshd[f32]"] = 1
+    if pipe.encoder is not None:
+        raise AssertionError(f"{path.name}: the encoder must load at the first request")
+    kw = dict(num_steps=path.steps, cfg_weight=path.cfg, latent_size=path.latent, verbose=False)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    images, logs = [], []
+    for _ in range(2):
+        image, lg = pipe.generate_image(text, seed=seed, **kw, **img2img)
+        images.append(np.asarray(image))
+        logs.append(lg)
+    torch.cuda.synchronize()
+    launches = counts()
+    check_launches(launches, per, 2, f"the {path.name} requests")
+    enc = pipe.encoder
+    state = enc.state_dict() if isinstance(enc, VAEEncoder) else {}
+    if not (state.keys() == want_encoder.keys() and all(
+            v.dtype == torch.float32 and v.is_cuda and torch.equal(v, want_encoder[k])
+            for k, v in state.items())):
+        raise AssertionError(f"{path.name}: the lazily loaded encoder is not the file's, in fp32 "
+                             f"on the card")
+    steps = [len(lg["denoising"]["iter_time"]) for lg in logs]
+    side = 8 * path.latent[0]
+    log(f"  {path.name}: encoder loaded from {pipe.local_ckpt} at the first request; "
+        f"{steps} steps of {path.steps} at denoise {img2img['denoise']}; image "
+        f"{images[0].shape}, pixel std {images[0].std()!r}, relative L2 against the source "
+        f"{rel_l2(images[0], source)!r}")
+    if steps != [ran, ran] or images[0].shape != (side, side, 3) or images[0].std() == 0:
+        raise AssertionError(f"{path.name}: wrong step count, shape or a constant image")
+    if not np.array_equal(images[0], images[1]):
+        raise AssertionError(f"{path.name}: repeating the request gave a different image")
+    if np.array_equal(images[0], source):
+        raise AssertionError(f"{path.name}: the image is the source")
+    log("  repeat of request 0: bit-identical image, not the source")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    latents = pipe.encode_image_to_latents(src, seed=seed)
+    torch.cuda.synchronize()
+    encode_ms = 1e3 * (time.perf_counter() - t0)
+    check_launches(counts(), {"flash_attention_bshd": 1, "flash_attention_bshd[f32]": 1}, 1,
+                   f"one {path.name} encode")
+    if cpu_check:
+        with torch.inference_mode():
+            image = torch.from_numpy(pipe.read_image(src))
+            b, h, w, _ = image.shape
+            noise = torch.from_numpy(pipe.get_noise(seed, np.zeros((b, h // 8, w // 8, 16),
+                                                                  np.float32)))
+            want = _encode_step(copy.deepcopy(enc).cpu(), image, noise)
+        rel = rel_l2(latents, want)
+        log(f"  {path.name}: encoded latents {tuple(latents.shape)} against the same weights "
+            f"in fp32 on the CPU: relative L2 {rel!r} (tolerance {FP32_RTOL})")
+        if not (rel < FP32_RTOL and torch.isfinite(latents).all()):
+            raise AssertionError(f"{path.name}: the encode on the card disagrees with the CPU's")
+
+    latents, graph_ms, graph_launches = denoise_request(pipe, path, True, **img2img)
+    loop_ms = loop_beside(pipe, path, latents, graph_launches, graph_ms, tag, **img2img)
+    pipe.generate_image(text, seed=seed, **kw)  # txt2img: all path.steps steps, cached
+    scans = [scan.n_sigmas for scan in pipe._scans.values()]
+    again, _, _ = denoise_request(pipe, path, True, **img2img)
+    if scans != [len(pipe.get_sigmas(path.steps))] or not torch.equal(again, latents):
+        raise AssertionError(f"{path.name}: img2img after txt2img (its cached schedule "
+                             f"{scans}) is not the first request's")
+    log(f"  {path.name}: after a txt2img request ({scans[0]} sigmas cached) the img2img latents "
+        f"reuse its schedule and are the first request's bit for bit")
+    lg = logs[1]
+    log(f"  {path.name}: denoise {graph_ms!r} ms/step under the CUDA graph, {loop_ms!r} in the "
+        f"synced loop; encode {encode_ms!r} ms (warm, host clock); request 1: denoising "
+        f"{lg['denoising']['time']!r} s (encode included), decoding {lg['decoding']['time']!r} "
+        f"s, total {lg['total_time']!r} s/image; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB [{tag}]")
+    return {"launches": launches, "step_ms": graph_ms, "loop_ms": loop_ms,
+            "encode_ms": encode_ms}
+
+
+def img2img_path(prev, path: Path, source: np.ndarray, gen, scratch: str, tag: str) -> dict:
+    """Path l (``prev`` is a's pipeline) or m (c's): a new pipeline on
+    ``prev``'s models with ``local_ckpt`` a freshly written encoder file and
+    no encoder, served by ``serve_img2img``; freed after."""
+    sd3 = path is SD3_IMG2IMG
+    name, prefix, dtype = (("sd3_medium.safetensors", "first_stage_model.", torch.float16) if sd3
+                           else ("ae.safetensors", "", torch.bfloat16))
+    ckpt = os.path.join(scratch, name)
+    want = write_encoder_ckpt(gen, ckpt, prefix, dtype)
+    if sd3:
+        pipe = DiffusionPipeline(device="cuda", use_t5=False, local_ckpt=ckpt)
+        shared = ("mmdit", "clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g")
+        src = img2img_source(source, scratch, path.name, IMG2IMG_SOURCE_SIZE)
+    else:
+        pipe = FluxPipeline(device="cuda", quantize_mmdit="w4a8", local_ckpt=ckpt)
+        shared = ("mmdit", "t5", "clip_l", "decoder", "tokenizer_l", "t5_tokenizer")
+        src = img2img_source(source, scratch, path.name)
+    for attr in shared:
+        setattr(pipe, attr, getattr(prev, attr))
+    served = serve_img2img(pipe, path, src, source, want, tag, cpu_check=sd3)
+    del pipe, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return served
 
 
 def upcast_block_check(model: MMDiT) -> None:
@@ -3167,6 +3522,10 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
     tag = card()
     log(f"  {tag}")
+    # Every checkpoint the smoke loads is a file it writes itself (under
+    # ``scratch``): no loader may reach for the hub.
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -3241,6 +3600,10 @@ def main() -> None:
     reference_checks(gen)
     gc.collect()
     torch.cuda.empty_cache()
+    log("phase 5, Autoencoder: the generic SD autoencoder through model_io.load_autoencoder")
+    launches["autoencoder"] = autoencoder_check(gen, scratch.name, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     families, walls = {}, {}
     pipe = None
@@ -3283,6 +3646,16 @@ def main() -> None:
             walls[SD3_BHSD.name] = (bhsd["step_ms"], bhsd["loop_ms"])
             log("phase 6a'': path a's request 0 latents decoded by DiffusionPipeline(a16=False)")
             launches["sd3-decode-fp32"] = decode_fp32(pipe, served["latents"], tag)
+        img2img = {SD3.name: SD3_IMG2IMG, FLUX_W4A8.name: FLUX_IMG2IMG}.get(path.name)
+        if img2img is not None:
+            side = 8 * img2img.latent[0]
+            log(f"phase 6{'l' if img2img is SD3_IMG2IMG else 'm'}: main path {img2img.name} "
+                f"({side}², {img2img.steps} steps at denoise {DENOISE[img2img.name]}, CFG "
+                f"{img2img.cfg}, path {letter}'s models, the encoder from a file)")
+            source = served["images"][1 if img2img is SD3_IMG2IMG else 0]
+            done = img2img_path(pipe, img2img, source, gen, scratch.name, tag)
+            launches[img2img.name] = done["launches"]
+            walls[img2img.name] = (done["step_ms"], done["loop_ms"])
         twin = {SD3_RING.name: SD3_RING_TWIN, FLUX_RING.name: FLUX_RING_TWIN}.get(path.name)
         if twin is not None:
             log(f"phase 6{letter}': {path.name}'s request 0 through the default dispatch")
@@ -3290,6 +3663,9 @@ def main() -> None:
                                              served["step_ms"], tag)
         del served
     for name, (graph_ms, loop_ms) in walls.items():
+        if name not in families:  # the img2img paths: not profiled
+            log(f"  {name}: graph {graph_ms!r} ms/step, loop {loop_ms!r} ms/step [{tag}]")
+            continue
         prof = families[name]
         log(f"  {name}: graph {graph_ms!r} ms/step, loop {loop_ms!r} ms/step, busy "
             f"{prof['busy_ms']!r} ms/step ({prof['profiled']}), idle {prof['idle_graph']!r} "
@@ -3320,6 +3696,7 @@ def main() -> None:
             "bound_by": first["bound_by"], "library_ms": first.get("library_ms"),
             "shape": first["shape"], "shapes": times[name],
         })
+    scratch.cleanup()
     log(tag)
     log(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,15 @@ int8 quantizers (``ops/fused_quant.py``), the int4 and int8 dequant-matmuls
 w8a8 linears (``ops/w4a8_matmul.py``). ``parallel/`` holds the
 ``torch.distributed`` meshes and the context-parallel ring attention
 (``sdpa_impl="ring"``), whose chunk kernel sits beside the flash attention.
+``model_io`` reads safetensors checkpoints into the VAE modules (the
+decoder, img2img's encoder and the generic ``Autoencoder``).
 """
 
 __version__ = "0.1.0"
 
 from .config import (  # noqa: F401
-    CLIP_G, CLIP_L, FLUX_DEV, FLUX_SCHNELL, SD3_2b, T5_XXL, MMDiTConfig, T5Config,
-    VAEDecoderConfig,
+    CLIP_G, CLIP_L, FLUX_DEV, FLUX_SCHNELL, SD3_2b, T5_XXL, AutoencoderConfig, MMDiTConfig,
+    T5Config, VAEDecoderConfig, VAEEncoderConfig,
 )
 from .parallel import create_mesh, init_distributed, local_mesh  # noqa: F401
 from .pipeline import DiffusionPipeline, FluxLatentFormat, FluxPipeline, SD3LatentFormat  # noqa: F401

@@ -10,7 +10,8 @@ tables (``diffusionkit_tpu/model_io.py``'s ``MMDIT_CONFIG``,
 ``QUANTIZED_CKPT``, ``T5_MAX_LENGTH``, ``DEPTH``, ``MAX_LATENT_RESOLUTION``)
 and of its CLI's per-version ``HEIGHT`` / ``WIDTH`` / ``SHIFT``
 (``diffusionkit_tpu/scripts/generate_images.py``): values only, keyed by
-``model_version``; the checkpoint loaders come with their slice.
+``model_version``. The VAE checkpoint tables and loaders are in
+``model_io.py``; the MMDiT, CLIP and T5 loaders come with their slice.
 """
 
 from __future__ import annotations
@@ -111,6 +112,20 @@ FLUX_DEV = MMDiTConfig(
 
 
 @dataclass(frozen=True)
+class AutoencoderConfig:
+    """Generic SD VAE (the ``models/vae.Autoencoder``)."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels_out: int = 8
+    latent_channels_in: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.18215
+
+
+@dataclass(frozen=True)
 class VAEDecoderConfig:
     """SD3/FLUX 16-channel VAE decoder."""
 
@@ -118,6 +133,17 @@ class VAEDecoderConfig:
     out_channels: int = 3
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
     layers_per_block: int = 3
+    resnet_groups: int = 32
+
+
+@dataclass(frozen=True)
+class VAEEncoderConfig:
+    """SD3/FLUX VAE encoder, 3 -> 32 channels (mean and logvar)."""
+
+    in_channels: int = 3
+    out_channels: int = 32
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
     resnet_groups: int = 32
 
 

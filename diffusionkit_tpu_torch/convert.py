@@ -24,11 +24,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .config import CLIPTextModelConfig, MMDiTConfig, T5Config, VAEDecoderConfig
+from .config import (
+    AutoencoderConfig, CLIPTextModelConfig, MMDiTConfig, T5Config, VAEDecoderConfig,
+    VAEEncoderConfig,
+)
 from .models.clip import CLIPTextModel
 from .models.mmdit import MMDiT
 from .models.t5 import T5Encoder
-from .models.vae import VAEDecoder
+from .models.vae import Autoencoder, VAEDecoder, VAEEncoder
 from .ops.quantized import QuantizedLinear
 from .ops.w8a8 import W8A8Linear
 
@@ -156,4 +159,22 @@ def vae_decoder_from_jax(
     """``init_vae_decoder_params``-style tree -> VAEDecoder."""
     with torch.device("meta"):
         model = VAEDecoder(config, dtype)
+    return _load(model, _state_dict(tree), device)
+
+
+def vae_encoder_from_jax(
+    tree: Dict[str, Any], config: VAEEncoderConfig, dtype=torch.float32, device="cuda"
+) -> VAEEncoder:
+    """``init_vae_encoder_params``-style tree -> VAEEncoder."""
+    with torch.device("meta"):
+        model = VAEEncoder(config, dtype)
+    return _load(model, _state_dict(tree), device)
+
+
+def autoencoder_from_jax(
+    tree: Dict[str, Any], config: AutoencoderConfig, dtype=torch.float32, device="cuda"
+) -> Autoencoder:
+    """``init_autoencoder_params``-style tree -> Autoencoder."""
+    with torch.device("meta"):
+        model = Autoencoder(config, dtype)
     return _load(model, _state_dict(tree), device)

@@ -1,14 +1,28 @@
-"""txt2img pipelines: text encoding, CFG + Euler denoising, VAE decoding.
+"""txt2img and img2img pipelines: text encoding, VAE encoding of a source
+image, CFG + Euler denoising, VAE decoding.
 
 Counterparts of ``diffusionkit_tpu/pipeline.py:DiffusionPipeline`` (SD3 and
-SD3.5, txt2img: CLIP-L/G and, with ``use_t5``, T5 tokens) and
-``FluxPipeline`` (FLUX.1: CLIP-L pooled + T5 tokens, the FLUX schedule and
-latent format, FLUX-dev's guidance). ``model_version`` names the reference's
+SD3.5: CLIP-L/G and, with ``use_t5``, T5 tokens) and ``FluxPipeline``
+(FLUX.1: CLIP-L pooled + T5 tokens, the FLUX schedule and latent format,
+FLUX-dev's guidance). ``model_version`` names the reference's
 model version (``config.MMDIT_CONFIG``'s keys; the reference's defaults),
 which sets the T5 length (``config.T5_MAX_LENGTH``). Noise is drawn with numpy
 in NCHW and transposed to NHWC, as in the reference, so one seed gives the
 same starting latents in both packages; ``num_images`` draws the batch's
 noise in one seeded call, so image 0 is the single-image run's.
+
+img2img, as in the reference: ``generate_image(..., image_path=...,
+denoise=...)`` reads the image (``read_image``: LANCZOS down to a multiple
+of 64, [-1, 1] in fp32 on the host), encodes it on the device in fp32
+(``encode_image_to_latents``: the VAE encoder's mean plus its clipped
+standard deviation times noise drawn with the request's seed), takes the
+latents back to the host for ``LatentFormat.process_in`` and the noise
+scaling, and runs the schedule from its sigma ``int(num_steps * (1 -
+denoise))`` on: about the last ``num_steps * denoise`` steps. The
+encoder is the ``encoder`` attribute; when it is None at the first img2img
+request it is loaded from the model's checkpoint
+(``model_io.load_vae_encoder``, through ``local_ckpt``,
+``DIFFUSIONKIT_TPU_CKPT_DIR`` or the hub), as the reference loads it.
 
 The denoise loop, as in the reference, runs in one of two ways:
 
@@ -41,10 +55,11 @@ latents, ``DIFFUSIONKIT_TPU_DENOISE_BATCH`` overrides it) runs in chunks
 (``_decode_batched_u8``). ``generate_images_batched`` runs N prompts in one
 schedule, the serving fast path.
 
-Models are plain attributes (``mmdit``, ``decoder``, ``clip_l``, ``clip_g``,
-``t5`` and the tokenizers), set by the caller: the checkpoint loaders wait,
-and ``models.init_*`` build random ones. ``quantize_mmdit`` converts an
-assigned MMDiT on its own device, as the reference's quantize-at-load does:
+The other models are plain attributes (``mmdit``, ``decoder``, ``clip_l``,
+``clip_g``, ``t5`` and the tokenizers), set by the caller: their checkpoint
+loaders wait, and ``models.init_*`` build random ones. ``quantize_mmdit``
+converts an assigned MMDiT on its own device, as the reference's
+quantize-at-load does:
 
   "int4" (or True), "int8"  weight-only, the min/max grid (GPTQ waits); an
                             already packed model passes through
@@ -60,7 +75,7 @@ assigned MMDiT on its own device, as the reference's quantize-at-load does:
 set by then) and converts it to w8a8. Every model stays resident; the
 reference's phase-lazy loading, quantized-tree disk cache,
 ``DIFFUSIONKIT_TPU_T5_SMOOTH`` switch, tensor-parallel loading and the
-data-parallel batch under a mesh, and img2img wait for later slices.
+data-parallel batch under a mesh wait for later slices.
 """
 
 from __future__ import annotations
@@ -74,12 +89,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import model_io
 from .config import FLUX_SCHNELL_VERSION, SD3_MEDIUM, T5_MAX_LENGTH
 from .graphs import StepGraph
 from .models.clip import CLIPTextModel
 from .models.mmdit import MMDiT
 from .models.t5 import T5Encoder
-from .models.vae import VAEDecoder
+from .models.vae import VAEDecoder, VAEEncoder
 from .ops.quantized import MIXED_OVERRIDES, QuantizedLinear, add_wscale_, quantize_module_
 from .ops.smoothquant import smooth_t5
 from .ops.w8a8 import W8A8Linear, w8a8_module_
@@ -94,6 +110,11 @@ logger = get_logger(__name__)
 class LatentFormat:
     scale_factor: float = 1.0
     shift_factor: float = 0.0
+
+    def process_in(self, latent: np.ndarray) -> np.ndarray:
+        """Host numpy, as in the reference: the encoded latents into the
+        denoiser's space."""
+        return (latent - self.shift_factor) * self.scale_factor
 
     def process_out(self, latent):
         # A tensor divisor: torch computes a scalar one on CUDA as a product
@@ -169,6 +190,15 @@ def _cfg_euler_step(
     # the reference does) rather than multiplying by a rounded reciprocal.
     d = (x - denoised) / sigma
     return x + d * (sigma_next - sigma)
+
+
+def _encode_step(encoder: VAEEncoder, image: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The encoder's (mean, logvar) of ``image`` (NHWC in [-1, 1]) and a
+    sample from it: mean + exp(logvar / 2) * ``noise``, the logvar clipped
+    to [-30, 20]."""
+    mean, logvar = encoder(image).chunk(2, dim=-1)
+    logvar = torch.clamp(logvar, -30.0, 20.0)
+    return mean + torch.exp(0.5 * logvar) * noise
 
 
 def _scan_step(model, x, sigmas, idx, conditioning, pooled, cfg_weight, cfg_on, guidance,
@@ -275,24 +305,27 @@ def _chunk_cond(cond, pooled, i: int, j: int, n: int, cfg_on: bool):
 
 
 class DiffusionPipeline:
-    """SD3-family (SD3-medium, SD3.5-large) txt2img with the reference's
-    public surface:
+    """SD3-family (SD3-medium, SD3.5-large) txt2img and img2img with the
+    reference's public surface:
     ``generate_image(text, num_steps, cfg_weight, negative_text,
-    latent_size, seed, verbose, num_images, guidance, profile_dir)``,
-    ``generate_images_batched`` and the ``encode_text`` /
-    ``denoise_latents`` phase methods. ``use_scan`` (default True) runs the
-    denoise schedule as the reference's scan, a CUDA graph of one step on
-    the card; ``use_scan=False`` the per-step synced loop (module
-    docstring). The models carry their own weight
-    dtypes; ``a16`` selects bf16 VAE activations; ``shift=3.0`` is the SD3
-    production schedule. ``quantize_mmdit`` (module docstring) converts the
-    assigned MMDiT; weight-only modes pack at group ``quantize_group_size``
-    (the reference's quantize-at-load, with the min/max grid until GPTQ is
+    latent_size, seed, verbose, image_path, denoise, num_images, guidance,
+    profile_dir)``, ``generate_images_batched`` and the ``encode_text`` /
+    ``encode_image_to_latents`` / ``denoise_latents`` phase methods.
+    ``use_scan`` (default True) runs the denoise schedule as the
+    reference's scan, a CUDA graph of one step on the card;
+    ``use_scan=False`` the per-step synced loop (module docstring). The
+    models carry their own weight dtypes; ``a16`` selects bf16 VAE
+    activations; ``shift=3.0`` is the SD3 production schedule.
+    ``quantize_mmdit`` (module docstring) converts the assigned MMDiT;
+    weight-only modes pack at group ``quantize_group_size`` (the
+    reference's quantize-at-load, with the min/max grid until GPTQ is
     ported). ``model_version`` (default SD3-medium) and ``use_t5`` (default
     on, as the reference's; ``t5`` and ``t5_tokenizer`` must then be
     assigned, the tokenizer built with ``t5_max_length`` tokens) add the T5
     rows to the conditioning: 77 CLIP + 512 T5 tokens for SD3 and SD3.5.
-    ``quantize_t5``: the w8a8 T5 (module docstring).
+    ``quantize_t5``: the w8a8 T5 (module docstring). ``local_ckpt``: the
+    checkpoint file the VAE encoder is loaded from at the first img2img
+    request (module docstring), as the reference's ``local_ckpt``.
 
     ``sdpa_impl`` (None/'auto', 'xla', 'flash' or 'ring') and ``mesh`` (a
     ``parallel.create_mesh`` / ``local_mesh`` DeviceMesh) go to every MMDiT
@@ -317,10 +350,12 @@ class DiffusionPipeline:
         sdpa_impl: Optional[str] = None,
         mesh=None,
         use_scan: bool = True,
+        local_ckpt: Optional[str] = None,
     ):
         if model_version not in T5_MAX_LENGTH:
             raise ValueError(f"model_version={model_version!r}: one of {sorted(T5_MAX_LENGTH)}")
         self.model_version = model_version
+        self.local_ckpt = local_ckpt
         self.use_t5 = use_t5 or self.t5_forced
         self.quantize_t5 = quantize_t5
         self.quant_mode, self.quant_mixed = parse_quant_mode(quantize_mmdit)
@@ -335,6 +370,7 @@ class DiffusionPipeline:
         self.quantize_group_size = quantize_group_size
         self._mmdit: Optional[MMDiT] = None
         self.decoder: Optional[VAEDecoder] = None
+        self.encoder: Optional[VAEEncoder] = None
         self.clip_l: Optional[CLIPTextModel] = None
         self.clip_g: Optional[CLIPTextModel] = None
         self.tokenizer_l = None
@@ -433,21 +469,34 @@ class DiffusionPipeline:
         cfg_weight: float = 0.0,
         latent_size: Tuple[int, int] = (64, 64),
         seed=None,
+        image_path: Optional[str] = None,
+        denoise: float = 1.0,
         num_images: int = 1,
         guidance: Optional[float] = None,
     ) -> Tuple[torch.Tensor, List[float]]:
         """The denoised latents (num_images, H, W, C) and ``iter_time``.
+        With ``image_path`` (img2img) the latents start from the image's
+        (``encode_image_to_latents``, at the image's size) and the schedule
+        runs from its sigma ``int(num_steps * (1 - denoise))`` on; without,
+        ``denoise`` is 1.
         ``guidance``: FLUX-dev's distilled guidance scale (3.5 when not
         given); ignored by models without a guidance embedding."""
         seed = int(time.time()) if seed is None else int(seed)
         logger.info("Seed: %s", seed)
-        x_T = self.get_empty_latent(*latent_size)
+        # The starting latents in host numpy, as in the reference: the
+        # encoded image comes back from the device once.
+        if image_path is None:
+            denoise = 1.0
+            x_T = self.get_empty_latent(*latent_size)
+        else:
+            x_T = self.encode_image_to_latents(image_path, seed=seed).cpu().numpy()
+            x_T = self.latent_format.process_in(x_T)
         if num_images > 1:
             x_T = np.tile(x_T, (num_images, 1, 1, 1))
         # The batch's noise in one seeded call: numpy fills C-order, so
         # image 0's noise is the num_images=1 run's.
         noise = self.get_noise(seed, x_T)
-        sigmas = self.get_sigmas(num_steps)
+        sigmas = self.get_sigmas(num_steps)[int(num_steps * (1 - denoise)):]
         noise_scaled = np.asarray(
             self.sampler.noise_scaling(
                 sigmas[0], noise, x_T, self.sampler.max_denoise(sigmas)
@@ -465,6 +514,8 @@ class DiffusionPipeline:
         n_iter = len(sigmas) - 1
         if self.use_scan:
             t0 = time.perf_counter()
+            # The chunk size follows the latent_size argument, not an
+            # img2img image's own size, as in the reference.
             x = self._run_denoise_chunks(
                 lambda x, c, p: self._denoise_scan(x, sigmas, c, p, cfg_weight, g, cfg_on),
                 x0, conditioning, pooled_conditioning, num_images,
@@ -557,6 +608,37 @@ class DiffusionPipeline:
             outs.append(run_chunk(x0[i:j], c, p))
         return torch.cat(outs)
 
+    # -- encoding a source image (img2img) ------------------------------------
+
+    def read_image(self, image_path: str) -> np.ndarray:
+        """The image as host fp32 (1, H, W, 3) in [-1, 1], its sides cut
+        down to a multiple of 64 by a LANCZOS resize, alpha dropped."""
+        from PIL import Image
+
+        img = Image.open(image_path)
+        w, h = (dim - dim % 64 for dim in (img.width, img.height))
+        if w != img.width or h != img.height:
+            logger.warning("Image shape not divisible by 64, downsampling to %dx%d", w, h)
+            img = img.resize((w, h), Image.LANCZOS)
+        arr = np.asarray(img)[:, :, :3].astype(np.float32) / 255 * 2 - 1
+        return arr[None]
+
+    @torch.inference_mode()
+    def encode_image_to_latents(self, image_path: str, seed: int) -> torch.Tensor:
+        """A sample of the encoder's latent distribution of the image, on
+        the device in fp32, (1, H/8, W/8, 16). The encoder runs in fp32
+        whatever ``a16`` says; it is loaded from the model's checkpoint
+        when none is assigned. The noise is drawn with ``seed``, the seed of
+        the denoise noise, as in the reference."""
+        if self.encoder is None:
+            self.encoder = model_io.load_vae_encoder(self.model_version, torch.float32,
+                                                     self.local_ckpt, device=self.device)
+        image = self.read_image(image_path)
+        b, h, w, _ = image.shape
+        noise = self.get_noise(seed, np.zeros((b, h // 8, w // 8, 16), np.float32))
+        return _encode_step(self.encoder, torch.from_numpy(image).to(self.device),
+                            torch.from_numpy(noise).to(self.device))
+
     # -- decoding ------------------------------------------------------------
 
     @torch.inference_mode()
@@ -596,13 +678,18 @@ class DiffusionPipeline:
         latent_size: Tuple[int, int] = (64, 64),
         seed=None,
         verbose: bool = True,
+        image_path: Optional[str] = None,
+        denoise: float = 1.0,
         num_images: int = 1,
         guidance: Optional[float] = None,
         profile_dir: Optional[str] = None,
     ):
-        """txt2img; returns (PIL image, phase log), or with ``num_images`` >
-        1 (a list of PIL images, phase log). ``profile_dir``: a
-        ``torch.profiler`` trace of the denoise phase written there."""
+        """txt2img, or img2img from ``image_path`` with ``denoise`` (the
+        share of the schedule that runs; the encode is part of the
+        denoising phase, as in the reference); returns (PIL image, phase
+        log), or with ``num_images`` > 1 (a list of PIL images, phase log).
+        ``profile_dir``: a ``torch.profiler`` trace of the denoise phase
+        written there."""
         from PIL import Image
 
         start_time = time.perf_counter()
@@ -635,7 +722,8 @@ class DiffusionPipeline:
         prof = self._start_profile(profile_dir)
         latents, iter_time = self.denoise_latents(
             conditioning, pooled, num_steps=num_steps, cfg_weight=cfg_weight,
-            latent_size=latent_size, seed=seed, num_images=num_images, guidance=guidance,
+            latent_size=latent_size, seed=seed, image_path=image_path, denoise=denoise,
+            num_images=num_images, guidance=guidance,
         )
         if prof is not None:
             _sync(self.device)
@@ -729,7 +817,7 @@ class DiffusionPipeline:
 
 
 class FluxPipeline(DiffusionPipeline):
-    """FLUX.1 txt2img: CLIP-L pooled output and T5 token embeddings (no
+    """FLUX.1 txt2img and img2img: CLIP-L pooled output and T5 token embeddings (no
     CLIP-G, T5 always on), positive row only, T5 tokens zero-padded to
     ``t5_max_length`` (by ``model_version``: 256 for FLUX.1-schnell, the
     default, 512 for FLUX.1-dev); the FLUX sigma schedule (``shift=1.0``)
@@ -751,11 +839,12 @@ class FluxPipeline(DiffusionPipeline):
         sdpa_impl: Optional[str] = None,
         mesh=None,
         use_scan: bool = True,
+        local_ckpt: Optional[str] = None,
     ):
         super().__init__(shift=shift, use_t5=True, model_version=model_version, a16=a16,
                          device=device, quantize_mmdit=quantize_mmdit, quantize_t5=quantize_t5,
                          quantize_group_size=quantize_group_size, sdpa_impl=sdpa_impl,
-                         mesh=mesh, use_scan=use_scan)
+                         mesh=mesh, use_scan=use_scan, local_ckpt=local_ckpt)
         self.sampler = FluxSampler(shift=shift)
         self.latent_format = FluxLatentFormat()
 

@@ -2130,3 +2130,59 @@ def test_denoise_graph_is_the_synced_loop(cuda, model):
     if model == "sd35-w4a8":  # its fc1 / fc2 and `ada` GEMVs with fp32 bias or output
         assert counted[("w4a8_matmul", "f32_launches")] == 4 * 2 * 3
     assert len(it) == len(it_loop) == 4 and len(set(it)) == 1
+
+
+@pytest.mark.gpu
+def test_img2img_encoder_on_the_card(cuda, tmp_path):
+    """img2img on a small bf16 SD3 MMDiT with a small fp32 VAE encoder on
+    the card: the encoder's mid-block (48 x 48 positions, one head of 64)
+    on kernel B's fp32 form, once an encode, the encode within 1e-4
+    relative L2 of the same weights in fp32 on the CPU; the graph's latents
+    the synced loop's bit for bit; after a txt2img request (a longer cached
+    schedule) the img2img latents the first request's bit for bit."""
+    import dataclasses
+
+    from PIL import Image
+
+    from diffusionkit_tpu_torch.config import SD3_2b, VAEEncoderConfig
+    from diffusionkit_tpu_torch.models import init_mmdit, init_vae_encoder
+    from diffusionkit_tpu_torch.ops import launches
+    from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, _encode_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    cfg = dataclasses.replace(SD3_2b, depth_multimodal=2, num_heads=4, hidden_size_override=256,
+                              max_latent_resolution=64)
+    pipe = DiffusionPipeline(device=cuda, use_t5=False)
+    pipe.mmdit = init_mmdit(cfg, gen, cuda)
+    pipe.encoder = init_vae_encoder(VAEEncoderConfig(block_out_channels=(64,) * 4,
+                                                     resnet_groups=32), gen, cuda)
+    src = tmp_path / "src.png"
+    Image.fromarray(np.random.RandomState(0).randint(0, 256, (384, 384, 3)).astype(np.uint8)
+                    ).save(src)
+    cond = torch.randn(2, 77, 4096, generator=gen, device=cuda)
+    pooled = torch.randn(2, 2048, generator=gen, device=cuda)
+    kw = dict(num_steps=4, cfg_weight=5.0, latent_size=(48, 48), seed=3)
+    img2img = dict(kw, image_path=str(src), denoise=0.5)
+
+    before = launches.snapshot()
+    latents = pipe.encode_image_to_latents(str(src), seed=3)
+    torch.cuda.synchronize()
+    counted = launches.delta(before, launches.snapshot())
+    assert counted[("flash_attention_bshd", "f32_launches")] == 1
+    with torch.inference_mode():
+        image = torch.from_numpy(pipe.read_image(str(src)))
+        noise = torch.from_numpy(pipe.get_noise(3, np.zeros((1, 48, 48, 16), np.float32)))
+        want = _encode_step(pipe.encoder.cpu(), image, noise)
+    pipe.encoder.to(cuda)
+    rel = ((latents.cpu() - want).norm() / want.norm()).item()
+    assert latents.shape == (1, 48, 48, 16) and rel < 1e-4
+
+    first, it = pipe.denoise_latents(cond, pooled, **img2img)
+    pipe.use_scan = False
+    loop, _ = pipe.denoise_latents(cond, pooled, **img2img)
+    pipe.use_scan = True
+    pipe.denoise_latents(cond, pooled, **kw)  # txt2img: 5 sigmas cached
+    again, _ = pipe.denoise_latents(cond, pooled, **img2img)
+    assert len(it) == 2 and torch.isfinite(first).all()
+    assert torch.equal(loop, first) and torch.equal(again, first)

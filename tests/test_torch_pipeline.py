@@ -164,15 +164,16 @@ def test_port_never_imports_jax():
     code = (
         "import sys\n"
         "import diffusionkit_tpu_torch\n"
-        "from diffusionkit_tpu_torch import config, convert, flops, graphs, pipeline, sampler, "
-        "tokenizer, utils\n"
+        "from diffusionkit_tpu_torch import config, convert, flops, graphs, model_io, pipeline, "
+        "sampler, tokenizer, utils\n"
         "from diffusionkit_tpu_torch.models import clip, mmdit, t5, vae\n"
         "from diffusionkit_tpu_torch.ops import attention, common, flash_attention, "
-        "fused_quant, int4_matmul, kernels, launches, norms, quantized, rope\n"
+        "fused_quant, int4_matmul, kernels, launches, norms, quantized, rope, smoothquant\n"
         "from diffusionkit_tpu_torch import parallel\n"
         "from diffusionkit_tpu_torch.parallel import mesh, ring_attention\n"
         "from diffusionkit_tpu_torch.ops import w4a8_matmul, w8a8\n"
-        "from diffusionkit_tpu_torch.tools import bench_w4a8_mat, microbench_int8\n"
+        "from diffusionkit_tpu_torch.tools import bench_flash, bench_gemv, bench_mat, bench_rows, "
+        "bench_w4a8_mat, microbench_int8, sass_diff\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'diffusionkit_tpu.')))\n"
         "assert not bad, bad\n"
     )
