@@ -113,7 +113,12 @@ Phases, each raising on failure (the script then exits non-zero):
      written as an HF diffusers mirror (config.json and weights, by the
      smoke's own safetensors writer) under DIFFUSIONKIT_TPU_CKPT_DIR, read
      back by model_io.load_autoencoder bit for bit, a 256² image encoded
-     and decoded on the card against fp32 on the CPU;
+     and decoded on the card against fp32 on the CPU; then loading: an F16
+     file of every 16-bit pattern read by the loader into a bf16 module on
+     the card, bit for bit the CPU's cast, and the 4-bit releases' packed
+     final layer ((4096, 3072) and (8192, 2432) -> 64, group 64, int4 and
+     w4a8) through ops/common.linear on the dequantise path, with no
+     kernel launched, against fp32 math;
   6. the main paths, with random weights from a seed, each serving two
      requests through generate_image and repeating the first through the
      phase methods, all under the default use_scan=True, the denoise loop a
@@ -198,7 +203,26 @@ Phases, each raising on failure (the script then exits non-zero):
         image at 1024², 4 steps at denoise 0.5 (2 run), the encoder from a
         FLUX ae.safetensors (encoder.*, BF16), kernel B's fp32 form at
         16384 positions; no CPU encode (4 TFLOP on the host);
-     (run in the order a, a', a'', l, h, h', d, e, b, c, m, g, g', f, i, i', k, j,
+     n. a's two requests through DiffusionPipeline(use_t5=False,
+        load=True, low_memory_mode=True) from a's models written (BF16) as
+        SD3-medium's files under a temporary DIFFUSIONKIT_TPU_CKPT_DIR
+        (sd3_medium.safetensors: the MMDiT in the sgm namespace and the
+        decoder under first_stage_model.; the HF CLIP-L/G directories; the
+        tokenizers' vocab.json and a merges.txt of the header line): the
+        text encoders loaded at construction (a's bit for bit), every other
+        model before its phase and each dropped after it, the graph
+        captured anew each request; the images a's bit for bit, each
+        request's launches a's per-request count, the peak above the
+        starting allocation below a's peak; load and capture times printed;
+     o. b's two requests through FluxPipeline(model_version=
+        ...-schnell-4bit-quantized, load=False, low_memory_mode=False) with
+        SyntheticT5Tokenizer(256) assigned, then check_and_load_models(),
+        from b's models written as the 4-bit release's files (the MMDiT in
+        the MLX namespace: words transposed back, q/k columns in the
+        interleaved RoPE order, scales and biases F32; ae.safetensors;
+        T5-XXL's and CLIP-L's HF files): every loaded model b's bit for bit,
+        the images b's, the launches b's;
+     (run in the order a, a', a'', l, n, h, h', d, e, b, o, c, m, g, g', f, i, i', k, j,
      so h, d and e share a's encoders, h a's MMDiT, g c's models and f g's,
      before f converts the T5; each later path frees the previous MMDiT);
   7. two denoise steps of each path (the graph's replays; the synced
@@ -222,6 +246,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -237,9 +262,11 @@ from diffusionkit_tpu_torch.config import (
     FLUX_DEV,
     FLUX_DEV_VERSION,
     FLUX_SCHNELL,
+    FLUX_SCHNELL_4BIT,
     SD35_LARGE,
     SD35_LARGE_4BIT,
     SD3_2b,
+    SD3_MEDIUM,
     SD3_8b,
     T5_XXL,
     AutoencoderConfig,
@@ -505,6 +532,12 @@ FLUX_DEV_PATH = Path("flux-dev", 4, 0.0, (128, 128), 512, FLUX.requests)
 # first img2img request: SD3's namespace (first_stage_model.encoder.*, F16)
 # for l, FLUX's ae.safetensors (encoder.*, BF16) for m.
 SD3_IMG2IMG = dataclasses.replace(SD3, name="sd3-img2img", requests=SD3.requests[:1])
+# Loading every model from its files: n, a's requests through
+# DiffusionPipeline(load=True, low_memory_mode=True) from a's models written
+# as SD3-medium's files; o, b's requests through the FLUX.1-schnell 4-bit
+# release's files (the MLX namespace) written from b's models.
+SD3_LOADED = dataclasses.replace(SD3, name="sd3-loaded")
+FLUX_LOADED = dataclasses.replace(FLUX, name="flux-4bit-loaded")
 FLUX_IMG2IMG = dataclasses.replace(FLUX, name="flux-w4a8-img2img", requests=FLUX.requests[:1])
 DENOISE = {SD3_IMG2IMG.name: 0.6, FLUX_IMG2IMG.name: 0.5}
 IMG2IMG_SOURCE_SIZE = (530, 520)
@@ -2602,7 +2635,7 @@ def rel_l2(got, want) -> float:
 
 
 def build_sd3(gen, _prev) -> DiffusionPipeline:
-    pipe = DiffusionPipeline(device="cuda", use_t5=False)
+    pipe = DiffusionPipeline(load=False, low_memory_mode=False, device="cuda", use_t5=False)
     pipe.mmdit = init_mmdit(SD3_2b, gen, "cuda")
     pipe.clip_l = init_clip(CLIP_L, gen, "cuda", dtype=torch.bfloat16)
     pipe.clip_g = init_clip(CLIP_G, gen, "cuda", dtype=torch.bfloat16)
@@ -2616,7 +2649,7 @@ def build_sd3(gen, _prev) -> DiffusionPipeline:
 def build_flux(gen, _prev) -> FluxPipeline:
     """FLUX.1-schnell with int4 block linears drawn packed (group 64, as the
     MLX 4-bit file), T5-XXL, CLIP-L and the VAE decoder, all in bf16."""
-    pipe = FluxPipeline(device="cuda")
+    pipe = FluxPipeline(load=False, low_memory_mode=False, device="cuda")
     pipe.mmdit = init_mmdit(FLUX_SCHNELL, gen, "cuda", quantize_bits=4)
     pipe.t5 = init_t5(T5_XXL, gen, "cuda", dtype=torch.bfloat16)
     pipe.clip_l = init_clip(CLIP_L, gen, "cuda", dtype=torch.bfloat16)
@@ -2637,7 +2670,8 @@ def build_sd3_quantized(mode: str):
         prev.mmdit = None
         gc.collect()
         torch.cuda.empty_cache()
-        pipe = DiffusionPipeline(device="cuda", use_t5=False, quantize_mmdit=mode)
+        pipe = DiffusionPipeline(load=False, low_memory_mode=False,
+                                 device="cuda", use_t5=False, quantize_mmdit=mode)
         for name in ("clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g"):
             setattr(pipe, name, getattr(prev, name))
         t0 = time.perf_counter()
@@ -2658,10 +2692,33 @@ def build_flux_e2e(gen, prev: FluxPipeline) -> FluxPipeline:
     MMDiT (with its wscale: it passes through) and FluxPipeline(
     quantize_mmdit="w4a8", quantize_t5=True), whose T5 setter smooths the
     int4 path's bf16 T5-XXL with the synthetic tokenizer's calibration
-    tokens and converts it to w8a8 on the card; CLIP-L and the VAE shared."""
-    pipe = FluxPipeline(device="cuda", quantize_mmdit="w4a8", quantize_t5=True)
+    tokens and converts it to w8a8 on the card; CLIP-L and the VAE shared.
+    Both conversions are timed, as what a ``low_memory_mode`` request of
+    this pipeline from float checkpoints does again each time: first a
+    float bf16 FLUX.1-schnell MMDiT (drawn from its own seed) through the
+    setter's min/max w4a8 conversion, then freed."""
+    pipe = FluxPipeline(load=False, low_memory_mode=False,
+                        device="cuda", quantize_mmdit="w4a8", quantize_t5=True)
     for name in ("clip_l", "decoder", "tokenizer_l", "t5_tokenizer"):
         setattr(pipe, name, getattr(prev, name))
+    model = init_mmdit(FLUX_SCHNELL, torch.Generator(device="cuda").manual_seed(19), "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.mmdit = model
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    block = model.mm_blocks[0].img
+    if not all(isinstance(getattr(block, n), QuantizedLinear) and getattr(block, n).wscale
+               is not None for n in ("q", "ada", "fc1", "fc2")):
+        raise AssertionError("quantize_mmdit='w4a8' left a block linear of the float FLUX "
+                             "MMDiT unconverted")
+    packed = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    log(f"  float FLUX.1-schnell MMDiT converted to w4a8 on the card in {seconds!r} s "
+        f"({packed} linears)")
+    del model, block
+    pipe.mmdit = None
+    gc.collect()
+    torch.cuda.empty_cache()
     pipe.mmdit = prev.mmdit
     t0 = time.perf_counter()
     pipe.t5 = prev.t5
@@ -2682,7 +2739,7 @@ def build_flux_w4a8(gen, prev: FluxPipeline) -> FluxPipeline:
     prev.mmdit = None
     gc.collect()
     torch.cuda.empty_cache()
-    pipe = FluxPipeline(device="cuda", quantize_mmdit="w4a8")
+    pipe = FluxPipeline(load=False, low_memory_mode=False, device="cuda", quantize_mmdit="w4a8")
     for name in ("t5", "clip_l", "decoder", "tokenizer_l", "t5_tokenizer"):
         setattr(pipe, name, getattr(prev, name))
     pipe.mmdit = init_mmdit(FLUX_SCHNELL, gen, "cuda", quantize_bits=4)
@@ -2808,10 +2865,11 @@ def serve(pipe, path: Path, tag: str):
             f"{1e3 * lg['decoding']['time']!r} ms; {tflops!r} {rate} at the "
             f"median ({flops / 1e12!r} T ops/step), {tflops * 1e12 / peak if peak else None!r} "
             f"of the {peak / 1e12!r} {rate} {peak_name} peak [{tag}]")
-    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB [{tag}]")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  peak memory {peak!r} GiB [{tag}]")
     loop_ms = loop_beside(pipe, path, latents, graph_launches, graph_ms, tag)
     return {"launches": launches, "latents": latents, "image": images[0], "images": images,
-            "step_ms": graph_ms, "loop_ms": loop_ms}
+            "step_ms": graph_ms, "loop_ms": loop_ms, "peak": peak}
 
 
 @contextlib.contextmanager
@@ -2862,7 +2920,8 @@ def decode_fp32(pipe, latents, tag: str) -> dict:
     positions, one head of 512) on kernel B's fp32 instantiation, launched
     once, nothing else counted; the fp32 output against the same latents
     decoded by the same weights in fp32 on the CPU within FP32_RTOL."""
-    pipe32 = DiffusionPipeline(device="cuda", use_t5=False, a16=False)
+    pipe32 = DiffusionPipeline(load=False, low_memory_mode=False,
+                               device="cuda", use_t5=False, a16=False)
     pipe32.decoder = copy.deepcopy(pipe.decoder).float()
     reset_counts()
     t0 = time.perf_counter()
@@ -2985,41 +3044,48 @@ def serve_batch(pipe, path: Path, single_latents, tag: str) -> None:
 
 # -- img2img (paths l and m) and the generic Autoencoder ----------------------
 
-ST_TAGS = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+ST_TAGS = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+           torch.uint32: "U32"}
 
 
 def write_safetensors(path, tensors: dict) -> None:
     """A safetensors file of ``tensors`` (the card's machine has no
     safetensors package): an 8-byte little-endian header length, the JSON
-    header padded to 8 bytes, then each tensor's bytes in turn."""
-    header, blobs, offset = {}, [], 0
+    header padded to 8 bytes, then each tensor's bytes in turn. The header
+    comes from the shapes, and each tensor is moved to the host and written
+    on its own, so the file never exists whole in memory (T5-XXL alone is
+    9.5 GB)."""
+    header, offset = {}, 0
     for name, t in tensors.items():
-        data = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+        n = t.numel() * t.element_size()
         header[name] = {"dtype": ST_TAGS[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(data)]}
-        blobs.append(data)
-        offset += len(data)
+                        "data_offsets": [offset, offset + n]}
+        offset += n
     raw = json.dumps(header).encode()
     raw += b" " * (-len(raw) % 8)
     with open(path, "wb") as f:
         f.write(len(raw).to_bytes(8, "little"))
         f.write(raw)
-        for data in blobs:
-            f.write(data)
+        for t in tensors.values():
+            f.write(memoryview(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()))
 
 
-def renamed(sd: dict, rules) -> dict:
+def rename(sd: dict, rules) -> dict:
     """``sd`` with each key rewritten by ``rules`` ((pattern, replacement)
-    in turn) and every 2-d weight but those ``rules`` keep as linears
-    stored as a 1x1 convolution."""
+    in turn)."""
     out = {}
     for key, t in sd.items():
         for pattern, repl in rules:
             key = re.sub(pattern, repl, key)
-        if t.ndim == 2 and not re.search(r"\.(to_[qkv]|to_out\.0)\.weight$", key):
-            t = t[:, :, None, None]
         out[key] = t
     return out
+
+
+def renamed(sd: dict, rules) -> dict:
+    """A VAE's ``sd`` renamed by ``rules``, every 2-d weight but those the
+    diffusers names keep as linears stored as a 1x1 convolution."""
+    return {k: t[:, :, None, None] if t.ndim == 2 and not re.search(
+        r"\.(to_[qkv]|to_out\.0)\.weight$", k) else t for k, t in rename(sd, rules).items()}
 
 
 # The port's VAEEncoder state-dict names -> the raw sgm namespace (the
@@ -3031,6 +3097,9 @@ SGM_ENCODER = [(r"^down_blocks\.(\d+)\.resnets\.(\d+)\.", r"down.\1.block.\2."),
                (r"^mid_blocks\.([02])\.", lambda m: f"mid.block_{int(m[1]) // 2 + 1}."),
                (r"^mid_blocks\.1\.(\w+)\.", lambda m: f"mid.attn_1.{SGM_ATTN[m[1]]}."),
                (r"\.conv_shortcut\.", ".nin_shortcut."), (r"^conv_norm_out\.", "norm_out.")]
+SGM_DECODER = [(r"^up_blocks\.(\d+)\.resnets\.(\d+)\.", r"up.\1.block.\2."),
+               (r"^up_blocks\.(\d+)\.upsample\.", r"up.\1.upsample.conv."),
+               *SGM_ENCODER[2:]]
 DIFFUSERS_ATTN = {"group_norm": "group_norm", "query_proj": "to_q", "key_proj": "to_k",
                   "value_proj": "to_v", "out_proj": "to_out.0"}
 
@@ -3236,11 +3305,13 @@ def img2img_path(prev, path: Path, source: np.ndarray, gen, scratch: str, tag: s
     ckpt = os.path.join(scratch, name)
     want = write_encoder_ckpt(gen, ckpt, prefix, dtype)
     if sd3:
-        pipe = DiffusionPipeline(device="cuda", use_t5=False, local_ckpt=ckpt)
+        pipe = DiffusionPipeline(load=False, low_memory_mode=False,
+                                 device="cuda", use_t5=False, local_ckpt=ckpt)
         shared = ("mmdit", "clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g")
         src = img2img_source(source, scratch, path.name, IMG2IMG_SOURCE_SIZE)
     else:
-        pipe = FluxPipeline(device="cuda", quantize_mmdit="w4a8", local_ckpt=ckpt)
+        pipe = FluxPipeline(load=False, low_memory_mode=False,
+                            device="cuda", quantize_mmdit="w4a8", local_ckpt=ckpt)
         shared = ("mmdit", "t5", "clip_l", "decoder", "tokenizer_l", "t5_tokenizer")
         src = img2img_source(source, scratch, path.name)
     for attr in shared:
@@ -3250,6 +3321,366 @@ def img2img_path(prev, path: Path, source: np.ndarray, gen, scratch: str, tag: s
     gc.collect()
     torch.cuda.empty_cache()
     return served
+
+
+# -- loading every model from its files (paths n and o) -------------------------
+
+# The port's names -> the HF CLIPTextModel's, and the HF T5 encoder's (the
+# inverses of model_io.clip_from_hf_ckpt and model_io.t5_from_ckpt).
+HF_CLIP = [(r"^(token|position)_embedding\.", r"text_model.embeddings.\1_embedding."),
+           (r"^layers\.(\d+)\.ln(\d)\.", r"text_model.encoder.layers.\1.layer_norm\2."),
+           (r"^layers\.(\d+)\.(q|k|v)\w+_proj\.", r"text_model.encoder.layers.\1.self_attn.\2_proj."),
+           (r"^layers\.(\d+)\.out_proj\.", r"text_model.encoder.layers.\1.self_attn.out_proj."),
+           (r"^layers\.(\d+)\.linear(\d)\.", r"text_model.encoder.layers.\1.mlp.fc\2."),
+           (r"^final_layer_norm\.", "text_model.final_layer_norm.")]
+HF_T5 = [(r"^wte\.", "encoder.embed_tokens."),
+         (r"^relative_attention_bias\.",
+          "encoder.block.0.layer.0.SelfAttention.relative_attention_bias."),
+         (r"^final_ln\.", "encoder.final_layer_norm."),
+         (r"^layers\.(\d+)\.ln(\d)\.", lambda m: f"encoder.block.{m[1]}.layer.{int(m[2]) - 1}"
+                                                 f".layer_norm."),
+         (r"^layers\.(\d+)\.(\w)\w*_proj\.", r"encoder.block.\1.layer.0.SelfAttention.\2."),
+         (r"^layers\.(\d+)\.(wi_0|wi_1|wo)\.", r"encoder.block.\1.layer.1.DenseReluDense.\2.")]
+# The port's MMDiT projections -> the MLX module tree of the 4-bit releases.
+MLX_PROJ = {"q": "attn.q_proj", "k": "attn.k_proj", "v": "attn.v_proj", "o": "attn.o_proj",
+            "fc1": "mlp.fc1", "fc2": "mlp.fc2", "ada": "adaLN_modulation.layers.1"}
+
+
+def sgm_mmdit_ckpt(model: MMDiT) -> dict:
+    """An SD3 MMDiT in the raw sgm namespace (``model.diffusion_model.``),
+    the inverse of model_io.mmdit_from_sd3_ckpt: q, k, v fused into qkv
+    (the key's bias zero), the x_embedder as its patch convolution, the
+    position table (1, R*R, H)."""
+    sd, cfg, out = model.state_dict(), model.config, {}
+    pre = "model.diffusion_model."
+
+    def block(src: str, dst: str, final: bool) -> None:
+        q, k, v = (sd[f"{src}.{n}.weight"] for n in "qkv")
+        out[dst + ".attn.qkv.weight"] = torch.cat([q, k, v])
+        out[dst + ".attn.qkv.bias"] = torch.cat([sd[src + ".q.bias"],
+                                                 torch.zeros_like(sd[src + ".q.bias"]),
+                                                 sd[src + ".v.bias"]])
+        names = [("ada", "adaLN_modulation.1")]
+        if not final:
+            names += [("o", "attn.proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")]
+        for a, b in names:
+            for leaf in ("weight", "bias"):
+                out[f"{dst}.{b}.{leaf}"] = sd[f"{src}.{a}.{leaf}"]
+        if cfg.use_qk_norm:
+            out[dst + ".attn.ln_q.weight"] = sd[src + ".qk_norm.q_scale"]
+            out[dst + ".attn.ln_k.weight"] = sd[src + ".qk_norm.k_scale"]
+
+    n = cfg.depth_multimodal
+    for i in range(n):
+        src = f"mm_blocks.{i}" if i < n - 1 else "mm_final"
+        block(f"{src}.img", f"{pre}joint_blocks.{i}.x_block", False)
+        block(f"{src}.txt", f"{pre}joint_blocks.{i}.context_block", i == n - 1)
+    H, p = cfg.hidden_size, cfg.patch_size
+    out[pre + "x_embedder.proj.weight"] = sd["x_embedder.weight"].reshape(H, -1, p, p)
+    out[pre + "x_embedder.proj.bias"] = sd["x_embedder.bias"]
+    out[pre + "pos_embed"] = sd["pos_embed"][None]
+    for a, b in (("context_embedder", "context_embedder"), ("t_embedder.fc1", "t_embedder.mlp.0"),
+                 ("t_embedder.fc2", "t_embedder.mlp.2"), ("y_embedder.fc1", "y_embedder.mlp.0"),
+                 ("y_embedder.fc2", "y_embedder.mlp.2"),
+                 ("final_layer.ada", "final_layer.adaLN_modulation.1"),
+                 ("final_layer.linear", "final_layer.linear")):
+        for leaf in ("weight", "bias"):
+            out[f"{pre}{b}.{leaf}"] = sd[f"{a}.{leaf}"]
+    return out
+
+
+def mlx_mmdit_ckpt(model: MMDiT) -> dict:
+    """A FLUX MMDiT in the MLX module namespace of the 4-bit release, the
+    inverse of model_io.mmdit_from_mlx_ckpt: a packed linear's (K/8, N)
+    words transposed back to MLX's (N, K/8) uint32, its scales and zeros
+    as F32 ``scales`` / ``biases`` (N, K/g); the q/k columns (and the
+    QK-norm scales) put back into the checkpoint's interleaved RoPE order;
+    the shared bias copied onto each unified block's fc2, as the release
+    carries it; the x_embedder as an OHWI 1x1 convolution."""
+    from diffusionkit_tpu_torch.ops.rope import rope_head_permutation
+
+    cfg, out = model.config, {}
+    d, dev = cfg.head_dim, model.x_embedder.weight.device
+    perm = torch.from_numpy(rope_head_permutation(d)).to(dev)
+    col = (torch.arange(cfg.num_heads, device=dev)[:, None] * d + perm[None, :]).reshape(-1)
+    inv, inv_col = torch.argsort(perm), torch.argsort(col)
+
+    def lin(layer, dst: str, rope: bool = False) -> None:
+        if isinstance(layer, QuantizedLinear):
+            cols = inv_col if rope else slice(None)
+            out[dst + ".weight"] = layer.q4[:, cols].t().contiguous().view(torch.uint32)
+            out[dst + ".scales"] = layer.scales[:, cols].t().contiguous()
+            out[dst + ".biases"] = layer.zeros[:, cols].t().contiguous()
+        else:
+            out[dst + ".weight"] = layer.weight[inv_col] if rope else layer.weight
+        if layer.bias is not None:
+            out[dst + ".bias"] = layer.bias[inv_col] if rope else layer.bias
+
+    def block(proj, dst: str, shared_bias: bool = False) -> None:
+        for name, mlx in MLX_PROJ.items():
+            lin(getattr(proj, name), f"{dst}.{mlx}", rope=name in ("q", "k"))
+        out[dst + ".qk_norm.q_norm.weight"] = proj.qk_norm.q_scale[inv]
+        out[dst + ".qk_norm.k_norm.weight"] = proj.qk_norm.k_scale[inv]
+        if shared_bias:
+            out[dst + ".mlp.fc2.bias"] = proj.o.bias
+
+    for i, blk in enumerate(model.mm_blocks):
+        block(blk.img, f"multimodal_transformer_blocks.{i}.image_transformer_block")
+        block(blk.txt, f"multimodal_transformer_blocks.{i}.text_transformer_block")
+    for i, blk in enumerate(model.uni_blocks):
+        block(blk, f"unified_transformer_blocks.{i}.transformer_block", shared_bias=True)
+    H = cfg.hidden_size
+    out["x_embedder.proj.weight"] = model.x_embedder.weight.reshape(H, 1, 1, -1)
+    out["x_embedder.proj.bias"] = model.x_embedder.bias
+    lin(model.context_embedder, "context_embedder")
+    for name in ("t_embedder", "y_embedder"):
+        lin(getattr(model, name).fc1, f"{name}.mlp.layers.0")
+        lin(getattr(model, name).fc2, f"{name}.mlp.layers.2")
+    lin(model.final_layer.ada, "final_layer.adaLN_modulation.layers.1")
+    lin(model.final_layer.linear, "final_layer.linear")
+    return out
+
+
+def write_clip_dir(root: str, which: str, clip, vocab: dict) -> None:
+    """An HF CLIP text model under the auxiliary repo (``config.json`` and
+    ``model.fp16.safetensors``, here holding the model's BF16 weights), and
+    its tokenizer's ``vocab.json`` and a ``merges.txt`` of the header line
+    alone."""
+    c = clip.config
+    base = os.path.join(root, model_io.AUX_REPO)
+    os.makedirs(os.path.join(base, which), exist_ok=True)
+    cfg = {"num_hidden_layers": c.num_layers, "hidden_size": c.model_dims,
+           "num_attention_heads": c.num_heads, "max_position_embeddings": c.max_length,
+           "vocab_size": c.vocab_size, "hidden_act": c.hidden_act}
+    if c.projection_dim is not None:
+        cfg["projection_dim"] = c.projection_dim
+    with open(os.path.join(base, model_io.AUX_FILES[which + "_config"]), "w") as f:
+        json.dump(cfg, f)
+    write_safetensors(os.path.join(base, model_io.AUX_FILES[which]),
+                      rename(clip.state_dict(), HF_CLIP))
+    tok = "tokenizer_" + which[-1]
+    os.makedirs(os.path.join(base, tok), exist_ok=True)
+    with open(os.path.join(base, model_io.AUX_FILES[tok + "_vocab"]), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(base, model_io.AUX_FILES[tok + "_merges"]), "w") as f:
+        f.write("#version: 0.2\n")
+
+
+def same_state(got: torch.nn.Module, want: torch.nn.Module) -> bool:
+    g, w = got.state_dict(), want.state_dict()
+    return g.keys() == w.keys() and all(
+        g[k].dtype == w[k].dtype and g[k].device == w[k].device and torch.equal(g[k], w[k])
+        for k in g)
+
+
+def serve_loaded(pipe, path: Path, counted_as: Path, cfg, want: dict, models: tuple,
+                 tag: str) -> dict:
+    """Paths n and o: ``path``'s requests through ``generate_image`` of a
+    pipeline that loads its models from files. Counters are zeroed before
+    each request and read after it: each request's launches must be the
+    served path's per-request count (its three requests' counts / 3) and
+    the config's, and each image the served path's bit for bit. Under
+    low_memory_mode every model in ``models`` must be None after its
+    request. Prints each request's load, capture and phase times."""
+    kw = dict(num_steps=path.steps, cfg_weight=path.cfg, latent_size=path.latent, verbose=False)
+    per = per_request_launches(counted_as, cfg)
+    out = {"images": [], "launches": collections.Counter(), "step_ms": [], "replay_ms": []}
+    for i, (text, seed) in enumerate(path.requests):
+        reset_counts()
+        image, lg = pipe.generate_image(text, seed=seed, **kw)
+        torch.cuda.synchronize()
+        launches = counts()
+        check_launches(launches, per, 1, f"{path.name} request {i} (loaded)")
+        served = {k: n // 3 for k, n in want["launches"].items()}
+        if launches != served or any(n % 3 for n in want["launches"].values()):
+            raise AssertionError(f"{path.name} request {i}: launches {launches} are not the "
+                                 f"served path's per request {served}")
+        image = np.asarray(image)
+        if not np.array_equal(image, want["images"][i]):
+            raise AssertionError(f"{path.name} request {i}: the image differs from the served "
+                                 f"path's (max {np.abs(image.astype(int) - want['images'][i]).max()})")
+        if pipe.low_memory_mode and any(getattr(pipe, m) is not None for m in models):
+            raise AssertionError(f"{path.name}: low_memory_mode kept a model after its phase")
+        den = lg["denoising"]
+        step_ms = 1e3 * statistics.median(den["iter_time"])
+        replays = path.steps - 1 if den["capture_time"] else path.steps
+        replay_ms = 1e3 * (den["time"] - den["capture_time"]) / replays
+        out["images"].append(image)
+        out["launches"] += collections.Counter(launches)
+        out["step_ms"].append(step_ms)
+        out["replay_ms"].append(replay_ms)
+        log(f"  request {i}: image the served path's bit for bit, launches its per-request count; "
+            f"load: text encoders {lg['text_encoding']['load_time']!r} s, MMDiT "
+            f"{den['load_time']!r} s, decoder {lg['decoding']['load_time']!r} s; graph capture "
+            f"(warm-up step and capture) {den['capture_time']!r} s; denoising {den['time']!r} s, "
+            f"{step_ms!r} ms/step (total / n), {replay_ms!r} ms/step over the replays; "
+            f"text_encoding {lg['text_encoding']['time']!r} s, decoding "
+            f"{lg['decoding']['time']!r} s, total {lg['total_time']!r} s [{tag}]")
+    return out
+
+
+def loaded_sd3_path(prev: DiffusionPipeline, served: dict, scratch: str, tag: str) -> dict:
+    """Path n: a's models written as SD3-medium's files (``sd3_medium.
+    safetensors``: the MMDiT in the sgm namespace and the decoder under
+    ``first_stage_model.``; the HF CLIP-L/G directories; the tokenizers'
+    vocabulary and merges), all BF16, under a temporary
+    DIFFUSIONKIT_TPU_CKPT_DIR; then ``DiffusionPipeline(use_t5=False)``
+    with ``load=True`` and ``low_memory_mode=True`` serves a's two requests,
+    loading the text encoders at construction and every other model before
+    its phase, dropping each after: the images a's bit for bit, the
+    launches a's, the peak above the starting allocation below a's peak."""
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=scratch)
+    t0 = time.perf_counter()
+    d = os.path.join(root, SD3_MEDIUM)
+    os.makedirs(d)
+    decoder = {"first_stage_model.decoder." + k: v
+               for k, v in renamed(prev.decoder.state_dict(), SGM_DECODER).items()}
+    write_safetensors(os.path.join(d, model_io.MMDIT_CKPT[SD3_MEDIUM]),
+                      {**sgm_mmdit_ckpt(prev.mmdit), **decoder})
+    for which in ("clip_l", "clip_g"):
+        write_clip_dir(root, which, getattr(prev, which), prev.tokenizer_l.vocab)
+    log(f"  SD3-medium's files written (BF16) in {time.perf_counter() - t0!r} s")
+    try:
+        with env_set("DIFFUSIONKIT_TPU_CKPT_DIR", root):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pipe = DiffusionPipeline(device="cuda", use_t5=False, load=True, low_memory_mode=True)
+            torch.cuda.synchronize()
+            log(f"  DiffusionPipeline(load=True, low_memory_mode=True): text encoders loaded in "
+                f"{time.perf_counter() - t0!r} s")
+            if not (same_state(pipe.clip_l, prev.clip_l) and same_state(pipe.clip_g, prev.clip_g)
+                    and pipe.mmdit is None and pipe.decoder is None):
+                raise AssertionError("path n: the loaded CLIP-L/G are not a's, or a model loaded "
+                                     "before its phase")
+            for name in ("tokenizer_l", "tokenizer_g"):
+                if getattr(pipe, name).tokenize(SD3.requests[0][0]) != getattr(
+                        prev, name).tokenize(SD3.requests[0][0]):
+                    raise AssertionError(f"path n: {name} tokenizes differently")
+            got = serve_loaded(pipe, SD3_LOADED, SD3, SD3_2b, served,
+                               ("mmdit", "decoder", "clip_l", "clip_g"), tag)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"  {SD3_LOADED.name}: peak {peak!r} GiB above the {base / 2**30!r} GiB allocated "
+            f"before it (a's peak {served['peak']!r} GiB) [{tag}]")
+        if peak >= served["peak"]:
+            raise AssertionError("path n: low_memory_mode's peak is not below a's")
+        got["peak"] = peak
+        return got
+    finally:
+        shutil.rmtree(root)
+
+
+def loaded_flux_path(prev: FluxPipeline, served: dict, scratch: str, tag: str) -> dict:
+    """Path o: b's models written as the FLUX.1-schnell 4-bit release's
+    files (the MMDiT in the MLX namespace, ``ae.safetensors``, T5-XXL's
+    HF file, CLIP-L's directory and tokenizer) under a temporary
+    DIFFUSIONKIT_TPU_CKPT_DIR; ``FluxPipeline(model_version=...-4bit-
+    quantized, load=False, low_memory_mode=False)`` with the synthetic T5
+    tokenizer assigned, then ``check_and_load_models()``: every loaded
+    model b's bit for bit, the images b's, the launches b's."""
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=scratch)
+    t0 = time.perf_counter()
+    d = os.path.join(root, FLUX_SCHNELL_4BIT)
+    os.makedirs(d)
+    write_safetensors(os.path.join(d, model_io.MMDIT_CKPT[FLUX_SCHNELL_4BIT]),
+                      mlx_mmdit_ckpt(prev.mmdit))
+    decoder = {"decoder." + k: v for k, v in renamed(prev.decoder.state_dict(), SGM_DECODER).items()}
+    write_safetensors(os.path.join(d, model_io.VAE_CKPT[FLUX_SCHNELL_4BIT]), decoder)
+    t5 = os.path.join(root, model_io.AUX_REPO, model_io.AUX_FILES["t5"])
+    os.makedirs(os.path.dirname(t5))
+    write_safetensors(t5, rename(prev.t5.state_dict(), HF_T5))
+    write_clip_dir(root, "clip_l", prev.clip_l, prev.tokenizer_l.vocab)
+    written = time.perf_counter() - t0
+    log(f"  the FLUX.1-schnell 4-bit release's files written in {written!r} s")
+    try:
+        with env_set("DIFFUSIONKIT_TPU_CKPT_DIR", root):
+            pipe = FluxPipeline(device="cuda", model_version=FLUX_SCHNELL_4BIT, load=False,
+                                low_memory_mode=False)
+            pipe.t5_tokenizer = SyntheticT5Tokenizer(max_length=256)
+            t0 = time.perf_counter()
+            pipe.check_and_load_models()
+            pipe.ensure_models_are_loaded()
+            load_s = time.perf_counter() - t0
+            log(f"  check_and_load_models(): MMDiT (MLX namespace), T5-XXL, CLIP-L, the decoder "
+                f"loaded in {load_s!r} s [{tag}]")
+            for name in ("mmdit", "t5", "clip_l", "decoder"):
+                if not same_state(getattr(pipe, name), getattr(prev, name)):
+                    raise AssertionError(f"path o: the loaded {name} is not b's bit for bit")
+            packed = sum(isinstance(m, QuantizedLinear) for m in pipe.mmdit.modules())
+            log(f"  every loaded model b's bit for bit ({packed} packed linears)")
+            got = serve_loaded(pipe, FLUX_LOADED, FLUX, FLUX_SCHNELL, served, (), tag)
+        got["load_s"] = load_s
+        del pipe
+        return got
+    finally:
+        shutil.rmtree(root)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def f16_cast_check(scratch: str) -> None:
+    """An F16 file of every 16-bit pattern, read by the loader into a bf16
+    module on the card: every value the CPU's cast of the same tensor bit
+    for bit (round to nearest even, as the reference's host cast; NaNs
+    NaN)."""
+    path = os.path.join(scratch, "f16_patterns.safetensors")
+    write_safetensors(path, {"weight": torch.arange(-32768, 32768, dtype=torch.int32)
+                             .to(torch.int16).view(torch.float16).reshape(256, 256)})
+    sd = model_io.load_safetensors(path)
+    with torch.device("meta"):
+        layer = torch.nn.Linear(256, 256, bias=False, dtype=torch.bfloat16)
+    got = model_io._build(layer, sd, "cuda").weight.detach().cpu()
+    want = sd["weight"].to(torch.bfloat16)
+    nan = torch.isnan(want)
+    same = torch.equal(got[~nan].view(torch.int16), want[~nan].view(torch.int16)) and bool(
+        torch.isnan(got[nan]).all())
+    log(f"  F16 -> bf16 on the card against the CPU cast: {65536 - int(nan.sum())} values bit "
+        f"for bit, {int(nan.sum())} NaNs NaN: {same}")
+    if not same:
+        raise AssertionError("the F16 file's cast on the card differs from the CPU's")
+    os.remove(path)
+
+
+# The releases' final layers: FLUX.1-schnell 4-bit at 1024² (4096 image
+# rows) and SD3.5-large 4-bit at 1024² with CFG (2 x 4096), K -> 64 at
+# group 64, int4 and with a w4a8 wscale.
+FINAL_LAYER_SHAPES = [(4096, 3072), (8192, 2432)]
+
+
+def packed_final_layer_check(gen) -> None:
+    """The packed (K -> 64) final layer of the 4-bit releases: no kernel
+    takes N = 64, so ``ops/common.linear`` runs it on the reference's
+    dequantise path (``dequant_linear``), decided by shape; on the card it
+    must not raise, launch no kernel (every counter 0), and match fp32 math
+    on the bf16-rounded weight within one bf16 ulp + 2K 2^-24 (|x| @ |w|)."""
+    from diffusionkit_tpu_torch.ops.common import linear
+
+    for m, k in FINAL_LAYER_SHAPES:
+        for w4a8 in (False, True):
+            x, q4, scales, zeros = random_int4((m, k, 64, 64), gen)
+            layer = QuantizedLinear(k, 64, 64, dtype=torch.bfloat16, device="cuda")
+            with torch.no_grad():
+                for name, t in (("q4", q4), ("scales", scales), ("zeros", zeros)):
+                    getattr(layer, name).copy_(t)
+                layer.bias.normal_(0.0, 0.1, generator=gen)
+            if w4a8:
+                add_wscale_(layer)
+            reset_counts()
+            y = linear(layer, x)
+            torch.cuda.synchronize()
+            launched = {n: c for n, c in counts().items() if c}
+            w = dequantize_int4(layer.q4, layer.scales, layer.zeros, torch.bfloat16).double()
+            ref = x.double() @ w + layer.bias.double()
+            err = (y.double() - ref).abs()
+            tol = bf16_ulp(ref.float()).double() + 2 * k * 2.0**-24 * (x.double().abs() @ w.abs())
+            ok = bool((err <= tol).all()) and not launched and y.dtype == torch.bfloat16
+            log(f"  packed final layer ({m}, {k}) -> 64, group 64{', w4a8' if w4a8 else ''}: "
+                f"max abs err {err.max().item()!r} against fp32 math, launches {launched or 0}: "
+                f"{ok}")
+            if not ok:
+                raise AssertionError("the packed final layer left the dequantise path or "
+                                     "disagrees with fp32 math")
 
 
 def upcast_block_check(model: MMDiT) -> None:
@@ -3279,7 +3710,8 @@ def build_sd35(mode):
         torch.cuda.empty_cache()
         version = SD35_LARGE_4BIT if mode == "4bit" else SD35_LARGE
         quant = "w4a8" if mode == "w4a8" else False
-        pipe = DiffusionPipeline(device="cuda", model_version=version, use_t5=mode is None,
+        pipe = DiffusionPipeline(load=False, low_memory_mode=False,
+                                 device="cuda", model_version=version, use_t5=mode is None,
                                  quantize_mmdit=quant)
         for name in ("clip_l", "decoder", "tokenizer_l"):
             setattr(pipe, name, getattr(prev, name))
@@ -3309,7 +3741,8 @@ def build_flux_dev(gen, prev: DiffusionPipeline) -> FluxPipeline:
     prev.mmdit = None
     gc.collect()
     torch.cuda.empty_cache()
-    pipe = FluxPipeline(device="cuda", model_version=FLUX_DEV_VERSION)
+    pipe = FluxPipeline(load=False, low_memory_mode=False,
+                        device="cuda", model_version=FLUX_DEV_VERSION)
     for name in ("t5", "clip_l", "decoder", "tokenizer_l"):
         setattr(pipe, name, getattr(prev, name))
     pipe.t5_tokenizer = SyntheticT5Tokenizer(max_length=pipe.t5_max_length)
@@ -3325,7 +3758,8 @@ def build_sd3_ring(gen, prev: DiffusionPipeline) -> DiffusionPipeline:
     mesh=local_mesh()), a one-rank NCCL mesh."""
     mesh = local_mesh()
     log(f"  local_mesh(): {mesh}, backend {torch.distributed.get_backend()}")
-    pipe = DiffusionPipeline(device="cuda", use_t5=False, sdpa_impl="ring", mesh=mesh)
+    pipe = DiffusionPipeline(load=False, low_memory_mode=False,
+                             device="cuda", use_t5=False, sdpa_impl="ring", mesh=mesh)
     for name in ("mmdit", "clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g"):
         setattr(pipe, name, getattr(prev, name))
     return pipe
@@ -3337,7 +3771,8 @@ def build_flux_ring(gen, prev: FluxPipeline) -> FluxPipeline:
     sdpa_impl="ring", mesh=local_mesh()), a one-rank NCCL mesh."""
     mesh = local_mesh()
     log(f"  local_mesh(): {mesh}, backend {torch.distributed.get_backend()}")
-    pipe = FluxPipeline(device="cuda", quantize_mmdit="w4a8", sdpa_impl="ring", mesh=mesh)
+    pipe = FluxPipeline(load=False, low_memory_mode=False,
+                        device="cuda", quantize_mmdit="w4a8", sdpa_impl="ring", mesh=mesh)
     for name in ("mmdit", "t5", "clip_l", "decoder", "tokenizer_l", "t5_tokenizer"):
         setattr(pipe, name, getattr(prev, name))
     return pipe
@@ -3604,6 +4039,11 @@ def main() -> None:
     launches["autoencoder"] = autoencoder_check(gen, scratch.name, tag)
     gc.collect()
     torch.cuda.empty_cache()
+    log("phase 5, loading: an F16 file cast on the card, and the 4-bit releases' packed final "
+        "layer (N = 64) on the dequantise path")
+    f16_cast_check(scratch.name)
+    packed_final_layer_check(gen)
+    torch.cuda.empty_cache()
 
     families, walls = {}, {}
     pipe = None
@@ -3656,6 +4096,15 @@ def main() -> None:
             done = img2img_path(pipe, img2img, source, gen, scratch.name, tag)
             launches[img2img.name] = done["launches"]
             walls[img2img.name] = (done["step_ms"], done["loop_ms"])
+        loaded = {SD3.name: ("n", loaded_sd3_path, SD3_LOADED),
+                  FLUX.name: ("o", loaded_flux_path, FLUX_LOADED)}.get(path.name)
+        if loaded is not None:
+            mark, run, lpath = loaded
+            log(f"phase 6{mark}: main path {lpath.name}: path {letter}'s requests, every model "
+                f"loaded from files written from path {letter}'s models")
+            done = run(pipe, served, scratch.name, tag)
+            launches[lpath.name] = done["launches"]
+            walls[lpath.name] = (statistics.median(done["replay_ms"]), None)
         twin = {SD3_RING.name: SD3_RING_TWIN, FLUX_RING.name: FLUX_RING_TWIN}.get(path.name)
         if twin is not None:
             log(f"phase 6{letter}': {path.name}'s request 0 through the default dispatch")

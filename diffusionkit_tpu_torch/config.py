@@ -10,8 +10,8 @@ tables (``diffusionkit_tpu/model_io.py``'s ``MMDIT_CONFIG``,
 ``QUANTIZED_CKPT``, ``T5_MAX_LENGTH``, ``DEPTH``, ``MAX_LATENT_RESOLUTION``)
 and of its CLI's per-version ``HEIGHT`` / ``WIDTH`` / ``SHIFT``
 (``diffusionkit_tpu/scripts/generate_images.py``): values only, keyed by
-``model_version``. The VAE checkpoint tables and loaders are in
-``model_io.py``; the MMDiT, CLIP and T5 loaders come with their slice.
+``model_version``. The checkpoint file tables and the loaders are in
+``model_io.py``.
 """
 
 from __future__ import annotations

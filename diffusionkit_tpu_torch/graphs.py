@@ -21,10 +21,15 @@ no silent fallback to the eager loop.
 The wrappers count launches in Python, which a replay does not run, so
 the counters' delta over the capture (``ops/launches``) is taken back
 after it (nothing ran) and added once for each replay.
+
+``StepGraph.capture_s`` sums the seconds of every warm-up and capture in
+the process (the capture's start waits for the warm-up), so a caller reads
+its change over a call: the pipelines' ``capture_time``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import torch
@@ -36,6 +41,8 @@ class StepGraph:
     """``step``, a function of no arguments that works in place on static
     tensors of one CUDA device, captured once and replayed."""
 
+    capture_s = 0.0  # every StepGraph's warm-ups and captures, in seconds
+
     def __init__(self, step: Callable[[], None], device: torch.device):
         self.step = step
         self.device = device
@@ -43,6 +50,7 @@ class StepGraph:
         self.counts: Optional[launches.Counts] = None
 
     def _capture(self) -> None:
+        t0 = time.perf_counter()
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
@@ -55,6 +63,7 @@ class StepGraph:
         launches.add(self.counts, -1)  # the capture launched nothing
         torch.cuda.current_stream(self.device).wait_stream(stream)
         self.graph = graph
+        StepGraph.capture_s += time.perf_counter() - t0
 
     def run(self, steps: int) -> None:
         """Take ``steps`` steps: on the first call the eager warm-up is the

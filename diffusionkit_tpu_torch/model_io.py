@@ -1,25 +1,38 @@
-"""Checkpoint I/O, the VAE half: safetensors -> the port's VAE modules.
+"""Checkpoint I/O: safetensors -> the port's modules.
 
-Counterpart of the VAE parts of ``diffusionkit_tpu/model_io.py``: the
-per-version file and prefix tables, a safetensors reader, the hub download
-with its offline error, the resolver (``local_ckpt``, then
-``DIFFUSIONKIT_TPU_CKPT_DIR``, then the hub), and the VAE mappers with
-their loaders:
+Counterpart of ``diffusionkit_tpu/model_io.py``: the per-version file and
+prefix tables, a safetensors reader, the hub download with its offline
+error, the resolver (``local_ckpt``, then ``DIFFUSIONKIT_TPU_CKPT_DIR``,
+then the hub), and the mappers with their loaders:
 
-  vae_decoder_from_ckpt / vae_encoder_from_ckpt   the raw sgm namespace
+  mmdit_from_sd3_ckpt     SD3 / SD3.5 in the raw sgm namespace
+      (``model.diffusion_model.joint_blocks.N``): the fused qkv rows split
+      three ways, the patch convolution folded into a linear, the last
+      block's K/V-only text branch to ``mm_final.txt``, SD3.5's QK-norm
+  mmdit_from_flux_ckpt    FLUX in the BFL namespace (``double_blocks`` /
+      ``single_blocks``): ``linear1`` rows split at (H, 2H, 3H),
+      ``linear2`` columns split into (o | fc2), the shared bias on o
+  mmdit_from_mlx_ckpt     the MLX module namespace of the two 4-bit
+      releases: packed linears (anywhere, embedders and the final layer
+      included) repacked by a transpose of their word matrix
+  clip_from_hf_ckpt / t5_from_ckpt    the HF CLIP text model and T5 encoder
+  vae_decoder_from_ckpt / vae_encoder_from_ckpt   the raw sgm VAE
       (``decoder.up.N`` / ``encoder.down.N``, under ``first_stage_model.``
       in the SD3 files, unprefixed in FLUX's ``ae.safetensors``)
-  autoencoder_from_diffusers_ckpt                 HF diffusers AutoencoderKL
-      (``to_q`` or the legacy ``query`` spellings, projections stored as
-      linears or 1x1 convolutions, ``up_blocks`` in application order)
+  autoencoder_from_diffusers_ckpt     HF diffusers AutoencoderKL
 
-The checkpoints are torch-layout already (OIHW convolutions, (out, in)
-linears), so a mapper renames keys and squeezes 1x1 convolutions into
-linears; the module is then loaded with ``strict=True``, so a missing or
-extra leaf raises. A loader copies every tensor onto ``device`` (the card
-unless the caller asks for the CPU) in the module's dtype. Nothing falls
-back to random weights: a file that cannot be resolved raises. The MMDiT,
-CLIP and T5 mappers come with their slice.
+The checkpoints are torch-layout already ((out, in) linears, OIHW
+convolutions), so a mapper renames keys, splits fused projections, squeezes
+1x1 convolutions into linears and, for FLUX, permutes the q/k output
+columns into the half-rotation RoPE layout (``_permute_qk_for_rope``). It
+keeps each float tensor in the file's dtype, as a view of the file's
+mapping where no split or permutation needs a copy, and the module is then
+loaded with ``strict=True``, so a missing or extra leaf raises; the copy
+into the module casts to its dtype (round to nearest even, as the
+reference's host cast). The MMDiT holds a ``QuantizedLinear`` wherever the
+file holds packed leaves. Loaders build on ``device`` (the card unless the
+caller asks for the CPU). Nothing falls back to random weights: a file that
+cannot be resolved raises.
 """
 
 from __future__ import annotations
@@ -33,18 +46,31 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from torch import nn
+
 from .config import (
     FLUX_DEV_VERSION,
     FLUX_SCHNELL_4BIT,
     FLUX_SCHNELL_VERSION,
+    MMDIT_CONFIG,
     SD35_LARGE,
     SD35_LARGE_4BIT,
     SD3_MEDIUM,
+    T5_XXL,
     AutoencoderConfig,
+    CLIPTextModelConfig,
+    MMDiTConfig,
+    PositionalEncoding,
+    T5Config,
     VAEDecoderConfig,
     VAEEncoderConfig,
 )
+from .models.clip import CLIPTextModel
+from .models.mmdit import MMDiT
+from .models.t5 import T5Encoder
 from .models.vae import Autoencoder, VAEDecoder, VAEEncoder
+from .ops.quantized import QuantizedLinear
+from .ops.rope import rope_head_permutation
 from .utils import get_logger
 
 logger = get_logger(__name__)
@@ -52,6 +78,15 @@ logger = get_logger(__name__)
 StateDict = Dict[str, torch.Tensor]
 
 # -- registry (the reference's tables, by model version) ----------------------
+
+MMDIT_CKPT = {
+    SD3_MEDIUM: "sd3_medium.safetensors",
+    SD35_LARGE: "sd3.5_large.safetensors",
+    SD35_LARGE_4BIT: "sd3.5_large_4bit_quantized.safetensors",
+    FLUX_SCHNELL_VERSION: "flux-schnell.safetensors",
+    FLUX_SCHNELL_4BIT: "flux-schnell-4bit-quantized.safetensors",
+    FLUX_DEV_VERSION: "flux1-dev.safetensors",
+}
 
 VAE_CKPT = {
     SD3_MEDIUM: "sd3_medium.safetensors",
@@ -72,10 +107,18 @@ VAE_PREFIX = {
     FLUX_DEV_VERSION: "",
 }
 
-# The auxiliary models' files live in one hub repo; the generic
-# autoencoder's rows (the VAE half of the reference's table).
+# The auxiliary models' files live in one hub repo.
 AUX_REPO = "argmaxinc/stable-diffusion"
 AUX_FILES = {
+    "clip_l_config": "clip_l/config.json",
+    "clip_l": "clip_l/model.fp16.safetensors",
+    "clip_g_config": "clip_g/config.json",
+    "clip_g": "clip_g/model.fp16.safetensors",
+    "tokenizer_l_vocab": "tokenizer_l/vocab.json",
+    "tokenizer_l_merges": "tokenizer_l/merges.txt",
+    "tokenizer_g_vocab": "tokenizer_g/vocab.json",
+    "tokenizer_g_merges": "tokenizer_g/merges.txt",
+    "t5": "t5/t5xxl.safetensors",
     "vae_config": "vae/config.json",
     "vae": "vae/diffusion_pytorch_model.safetensors",
 }
@@ -193,6 +236,95 @@ def _build(model: torch.nn.Module, sd: StateDict, device) -> torch.nn.Module:
     model.to_empty(device=device)
     model.load_state_dict(sd, strict=True)
     return model.eval()
+
+
+# -- MLX 4-bit affine storage ------------------------------------------------------
+
+
+def _words(packed: torch.Tensor) -> torch.Tensor:
+    """32-bit packed words (the file's uint32, or int32) as an int32 bit
+    view."""
+    return packed.view(torch.int32) if packed.dtype == torch.uint32 else packed
+
+
+def dequantize_mlx_4bit(
+    packed: torch.Tensor, scales: torch.Tensor, biases: torch.Tensor,
+    group_size: Optional[int] = None,
+) -> torch.Tensor:
+    """MLX ``nn.quantize`` 4-bit affine weights -> fp32 (out, in): 8
+    nibbles a 32-bit word along the input axis, value j of word w at bits
+    [4j, 4j+4) and column 8w + j; ``w = scale * q + bias`` per (out, group),
+    a product and a sum, each rounded. ``group_size`` defaults to the one
+    the shapes give."""
+    out_dim, packed_in = packed.shape
+    if group_size is None:
+        group_size = (packed_in * 8) // scales.shape[1]
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=packed.device)
+    q = ((_words(packed)[..., None] >> shifts) & 0xF).reshape(out_dim, packed_in * 8)
+    s = scales.float().repeat_interleave(group_size, dim=1)
+    b = biases.float().repeat_interleave(group_size, dim=1)
+    return q.float() * s + b
+
+
+def _is_packed(sd: StateDict, key: str) -> bool:
+    return key + ".scales" in sd and sd[key + ".weight"].dtype in (torch.uint32, torch.int32)
+
+
+def _maybe_dequantize(sd: StateDict) -> StateDict:
+    """Collapse each MLX triple (``k.weight`` packed words, ``k.scales``,
+    ``k.biases``) into an fp32 ``k.weight``; every other tensor passes
+    through."""
+    out: StateDict = {}
+    for k, v in sd.items():
+        if k.endswith((".scales", ".biases")):
+            continue
+        base = k[: -len(".weight")]
+        if k.endswith(".weight") and _is_packed(sd, base):
+            out[k] = dequantize_mlx_4bit(v, sd[base + ".scales"], sd[base + ".biases"])
+        else:
+            out[k] = v
+    return out
+
+
+class _Mapped:
+    """A state dict under construction in the port's names, the linears it
+    holds packed, and the device the packed words are repacked on."""
+
+    def __init__(self, device):
+        self.sd: StateDict = {}
+        self.packed: Dict[str, Tuple[int, int, int, bool]] = {}
+        self.device = torch.device(device)
+
+    def lin(self, dst: str, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> None:
+        """A float (out, in) linear."""
+        self.sd[dst + ".weight"] = w
+        if b is not None:
+            self.sd[dst + ".bias"] = b
+
+    def raw(self, sd: StateDict, src: str, dst: str, bias: bool = True) -> None:
+        """The torch linear ``src`` as ``dst``, its bias where it has one."""
+        self.lin(dst, sd[src + ".weight"], sd.get(src + ".bias") if bias else None)
+
+    def mlx(self, sd: StateDict, src: str, dst: str, bias: bool = True) -> None:
+        """MLX ``src`` (a Linear, or a QuantizedLinear: packed words with
+        ``scales`` and ``biases``) as ``dst``. A packed one becomes the
+        execution format of ``ops/quantized.py`` on the target device: the
+        (out, in/8) word matrix transposed, bit for bit, to (in/8, out); the
+        scales and affine biases in fp32, transposed; the layer bias, if
+        kept, as it is."""
+        b = sd.get(src + ".bias") if bias else None
+        if not _is_packed(sd, src):
+            self.lin(dst, sd[src + ".weight"], b)
+            return
+        words = _words(sd[src + ".weight"]).to(self.device)
+        n, k = words.shape[0], words.shape[1] * 8
+        scales = sd[src + ".scales"]
+        self.sd[dst + ".q4"] = words.t().contiguous()
+        for leaf, t in ((".scales", scales), (".zeros", sd[src + ".biases"])):
+            self.sd[dst + leaf] = t.to(self.device, torch.float32).t().contiguous()
+        if b is not None:
+            self.sd[dst + ".bias"] = b
+        self.packed[dst] = (k, n, k // scales.shape[1], b is not None)
 
 
 # -- VAE mappers (raw sgm namespace) ---------------------------------------------
@@ -328,6 +460,321 @@ def autoencoder_from_diffusers_ckpt(
     return _build(model, out, device)
 
 
+# -- MMDiT mappers -------------------------------------------------------------------
+
+
+def _qkv_split(m: _Mapped, sd: StateDict, src: str, dst: str,
+               qk_norm: Optional[Tuple[str, str]] = None) -> None:
+    """Fused qkv rows -> q, k, v (the k bias dropped: softmax is invariant
+    to it); the QK-norm scales from the keys ``qk_norm`` names."""
+    wq, wk, wv = sd[src + ".weight"].chunk(3)
+    b = sd.get(src + ".bias")
+    bq, _, bv = b.chunk(3) if b is not None else (None, None, None)
+    m.lin(dst + ".q", wq, bq)
+    m.lin(dst + ".k", wk)
+    m.lin(dst + ".v", wv, bv)
+    if qk_norm is not None:
+        m.sd[dst + ".qk_norm.q_scale"] = sd[qk_norm[0]]
+        m.sd[dst + ".qk_norm.k_scale"] = sd[qk_norm[1]]
+
+
+def _fold_patch_conv(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (H, C, p, p) patch convolution -> the (H, C*p*p) weight of a
+    linear over ``ops/common.patchify``'s (c, ph, pw) features."""
+    return w.reshape(w.shape[0], -1)
+
+
+def _permute_qk_for_rope(m: _Mapped, config: MMDiTConfig) -> None:
+    """Fold the checkpoint's interleaved RoPE pairs into the half-rotation
+    layout (``ops/rope.rope_head_permutation``): every q and k projection's
+    output columns are permuted head by head (a float weight's rows; a
+    packed one's words, scales and zeros by column: the nibbles run along
+    the input axis, so the gather is exact), and so are the q bias and the
+    QK-norm scales. Attention scores are invariant under a permutation
+    shared by q and k. FLUX trees only."""
+    d = config.hidden_size // config.num_heads
+    perm = torch.from_numpy(rope_head_permutation(d))
+    col_perm = (torch.arange(config.num_heads)[:, None] * d + perm[None, :]).reshape(-1)
+    perm, col_perm = perm.to(m.device), col_perm.to(m.device)
+    blocks = {k.rsplit(".", 2)[0] for k in m.sd if k.startswith(("mm_blocks.", "uni_blocks."))
+              and k.rsplit(".", 2)[1] == "q"}
+    for pre in blocks:
+        for lin in (pre + ".q", pre + ".k"):
+            for leaf, dim in ((".weight", 0), (".bias", 0), (".q4", 1), (".scales", 1),
+                              (".zeros", 1)):
+                t = m.sd.get(lin + leaf)
+                if t is not None:
+                    m.sd[lin + leaf] = t.to(m.device).index_select(dim, col_perm)
+        for leaf in (".qk_norm.q_scale", ".qk_norm.k_scale"):
+            if pre + leaf in m.sd:
+                m.sd[pre + leaf] = m.sd[pre + leaf].to(m.device)[perm]
+
+
+def _build_mmdit(config: MMDiTConfig, m: _Mapped, dtype) -> MMDiT:
+    """The MMDiT of ``config`` with ``m`` loaded strictly on ``m.device``:
+    its float leaves in ``dtype`` (the fp32-upcast blocks' in fp32
+    whatever it is, holding values rounded to ``dtype`` as the reference
+    upcasts its leaves at run time), a ``QuantizedLinear`` wherever ``m``
+    holds a packed linear (its bias in the dtype of the linear it
+    replaces), the learned position table at the file's size."""
+    dtype = dtype or config.dtype
+    with torch.device("meta"):
+        model = MMDiT(config)
+        upcast = [blocks[i] for blocks, ids in ((model.mm_blocks, config.upcast_multimodal_blocks),
+                                                (model.uni_blocks, config.upcast_unified_blocks))
+                  for i in ids]
+        if dtype != config.dtype:
+            model.to(dtype)
+            for block in upcast:
+                block.float()
+        pos = m.sd.get("pos_embed")
+        if model.pos_embed is not None and pos is not None and pos.shape != model.pos_embed.shape:
+            model.pos_embed = nn.Parameter(torch.empty(tuple(pos.shape),
+                                                       dtype=model.pos_embed.dtype))
+        for name, (k, n, group, bias) in m.packed.items():
+            parent, _, attr = name.rpartition(".")
+            owner = model.get_submodule(parent)
+            dt = getattr(owner, attr).weight.dtype
+            setattr(owner, attr, QuantizedLinear(k, n, group, bias=bias, dtype=dt))
+    model = _build(model, m.sd, m.device)
+    with torch.no_grad():
+        for p in (p for block in upcast for p in block.parameters() if p.dtype != dtype):
+            p.copy_(p.to(dtype))
+    return model
+
+
+def mmdit_from_sd3_ckpt(sd: StateDict, config: MMDiTConfig, dtype=None, device="cuda") -> MMDiT:
+    """A raw SD3 / SD3.5 checkpoint (``model.diffusion_model.`` namespace;
+    MLX triples are dequantised) -> MMDiT. The last joint block's text
+    branch has no o / MLP (``mm_final.txt``); SD3.5 adds QK-norm
+    (``ln_q`` / ``ln_k``)."""
+    sd = _maybe_dequantize(_strip_prefix(sd, "model.diffusion_model."))
+    m = _Mapped(device)
+
+    def block(src: str, dst: str, skip_post: bool) -> None:
+        qk = ((src + ".attn.ln_q.weight", src + ".attn.ln_k.weight")
+              if config.use_qk_norm else None)
+        _qkv_split(m, sd, src + ".attn.qkv", dst, qk)
+        m.raw(sd, src + ".adaLN_modulation.1", dst + ".ada")
+        if not skip_post:
+            m.raw(sd, src + ".attn.proj", dst + ".o")
+            m.raw(sd, src + ".mlp.fc1", dst + ".fc1")
+            m.raw(sd, src + ".mlp.fc2", dst + ".fc2")
+
+    depth = config.depth_multimodal
+    for i in range(depth - 1):
+        block(f"joint_blocks.{i}.x_block", f"mm_blocks.{i}.img", False)
+        block(f"joint_blocks.{i}.context_block", f"mm_blocks.{i}.txt", False)
+    block(f"joint_blocks.{depth - 1}.x_block", "mm_final.img", False)
+    block(f"joint_blocks.{depth - 1}.context_block", "mm_final.txt", True)
+    m.lin("x_embedder", _fold_patch_conv(sd["x_embedder.proj.weight"]), sd["x_embedder.proj.bias"])
+    pos = sd["pos_embed"]  # (1, R*R, H)
+    m.sd["pos_embed"] = pos.reshape(pos.shape[-2], pos.shape[-1])
+    m.raw(sd, "context_embedder", "context_embedder")
+    for name in ("t_embedder", "y_embedder"):
+        m.raw(sd, f"{name}.mlp.0", f"{name}.fc1")
+        m.raw(sd, f"{name}.mlp.2", f"{name}.fc2")
+    m.raw(sd, "final_layer.adaLN_modulation.1", "final_layer.ada")
+    m.raw(sd, "final_layer.linear", "final_layer.linear")
+    return _build_mmdit(config, m, dtype)
+
+
+def mmdit_from_flux_ckpt(sd: StateDict, config: MMDiTConfig, dtype=None, device="cuda") -> MMDiT:
+    """A raw FLUX checkpoint (BFL namespace; MLX triples are dequantised)
+    -> MMDiT. A single block's ``linear1`` rows are (q | k | v | fc1), its
+    ``linear2`` columns (o | fc2) with one shared bias: it goes to o and
+    fc2's is zero (the sum is unchanged). ``guidance_in`` for FLUX.1-dev.
+    The q/k columns are permuted for RoPE (``_permute_qk_for_rope``)."""
+    sd = _maybe_dequantize(sd)
+    m = _Mapped(device)
+    H = config.hidden_size
+    for i in range(config.depth_multimodal):
+        for tag, side in (("img", "img"), ("txt", "txt")):
+            src, dst = f"double_blocks.{i}.{tag}", f"mm_blocks.{i}.{side}"
+            qk = ((f"{src}_attn.norm.query_norm.scale", f"{src}_attn.norm.key_norm.scale")
+                  if config.use_qk_norm else None)
+            _qkv_split(m, sd, f"{src}_attn.qkv", dst, qk)
+            m.raw(sd, f"{src}_attn.proj", dst + ".o")
+            m.raw(sd, f"{src}_mlp.0", dst + ".fc1")
+            m.raw(sd, f"{src}_mlp.2", dst + ".fc2")
+            m.raw(sd, f"{src}_mod.lin", dst + ".ada")
+    for i in range(config.depth_unified):
+        src, dst = f"single_blocks.{i}", f"uni_blocks.{i}"
+        wq, wk, wv, wf1 = sd[src + ".linear1.weight"].split([H, H, H, H * config.mlp_ratio])
+        bq, _, bv, bf1 = sd[src + ".linear1.bias"].split([H, H, H, H * config.mlp_ratio])
+        w2, b2 = sd[src + ".linear2.weight"], sd[src + ".linear2.bias"]
+        m.lin(dst + ".q", wq, bq)
+        m.lin(dst + ".k", wk)
+        m.lin(dst + ".v", wv, bv)
+        m.lin(dst + ".fc1", wf1, bf1)
+        m.lin(dst + ".o", w2[:, :H], b2)
+        m.lin(dst + ".fc2", w2[:, H:], torch.zeros_like(b2))
+        m.raw(sd, src + ".modulation.lin", dst + ".ada")
+        if config.use_qk_norm:
+            m.sd[dst + ".qk_norm.q_scale"] = sd[src + ".norm.query_norm.scale"]
+            m.sd[dst + ".qk_norm.k_scale"] = sd[src + ".norm.key_norm.scale"]
+    m.raw(sd, "img_in", "x_embedder")
+    m.raw(sd, "txt_in", "context_embedder")
+    embedders = [("time_in", "t_embedder"), ("vector_in", "y_embedder")]
+    if config.guidance_embed:
+        embedders.append(("guidance_in", "guidance_embedder"))
+    for src, dst in embedders:
+        m.raw(sd, src + ".in_layer", dst + ".fc1")
+        m.raw(sd, src + ".out_layer", dst + ".fc2")
+    m.raw(sd, "final_layer.adaLN_modulation.1", "final_layer.ada")
+    m.raw(sd, "final_layer.linear", "final_layer.linear")
+    _permute_qk_for_rope(m, config)
+    return _build_mmdit(config, m, dtype)
+
+
+def mmdit_from_mlx_ckpt(sd: StateDict, config: MMDiTConfig, dtype=None, device="cuda") -> MMDiT:
+    """An MLX-module-namespace checkpoint (how the two 4-bit releases ship:
+    q/k/v split, ``multimodal_transformer_blocks.N.image_transformer_block``)
+    -> MMDiT. Any linear may be packed (``_Mapped.mlx``). FLUX-style files
+    have unified blocks, whose fc2 carries a copy of the shared bias that is
+    dropped (zero: o keeps it); SD3.5-style ones a K/V-only last text block
+    (``mm_final``). ``x_embedder`` is stored OHWI. FLUX trees get the RoPE
+    column permutation."""
+    if any(k.startswith("model.diffusion_model.") for k in sd):
+        sd = _strip_prefix(sd, "model.diffusion_model.")
+    m = _Mapped(device)
+
+    def block(src: str, dst: str, skip_post: bool = False, shared_post_bias: bool = False) -> None:
+        m.mlx(sd, src + ".attn.q_proj", dst + ".q")
+        m.mlx(sd, src + ".attn.k_proj", dst + ".k", bias=False)
+        m.mlx(sd, src + ".attn.v_proj", dst + ".v")
+        m.mlx(sd, src + ".adaLN_modulation.layers.1", dst + ".ada")
+        if not skip_post:
+            m.mlx(sd, src + ".attn.o_proj", dst + ".o")
+            m.mlx(sd, src + ".mlp.fc1", dst + ".fc1")
+            m.mlx(sd, src + ".mlp.fc2", dst + ".fc2", bias=not shared_post_bias)
+            if shared_post_bias:
+                o_bias = m.sd[dst + ".o.bias"]
+                m.sd[dst + ".fc2.bias"] = torch.zeros_like(o_bias)
+                if dst + ".fc2" in m.packed:
+                    m.packed[dst + ".fc2"] = m.packed[dst + ".fc2"][:3] + (True,)
+        if config.use_qk_norm:
+            m.sd[dst + ".qk_norm.q_scale"] = sd[src + ".qk_norm.q_norm.weight"]
+            m.sd[dst + ".qk_norm.k_scale"] = sd[src + ".qk_norm.k_norm.weight"]
+
+    n_mm = config.depth_multimodal
+    flux = config.depth_unified > 0
+    for i in range(n_mm - (0 if flux else 1)):
+        pre = f"multimodal_transformer_blocks.{i}"
+        block(pre + ".image_transformer_block", f"mm_blocks.{i}.img")
+        block(pre + ".text_transformer_block", f"mm_blocks.{i}.txt")
+    if flux:
+        for i in range(config.depth_unified):
+            block(f"unified_transformer_blocks.{i}.transformer_block", f"uni_blocks.{i}",
+                  shared_post_bias=True)
+    else:
+        pre = f"multimodal_transformer_blocks.{n_mm - 1}"
+        block(pre + ".image_transformer_block", "mm_final.img")
+        block(pre + ".text_transformer_block", "mm_final.txt", skip_post=True)
+    xw = sd["x_embedder.proj.weight"]  # MLX Conv2d: OHWI
+    m.lin("x_embedder", _fold_patch_conv(xw.permute(0, 3, 1, 2)), sd["x_embedder.proj.bias"])
+    if "x_pos_embedder.pos_embed.weight" in sd:
+        m.sd["pos_embed"] = sd["x_pos_embedder.pos_embed.weight"]
+    m.mlx(sd, "context_embedder", "context_embedder")
+    embedders = [("t_embedder", "t_embedder"), ("y_embedder", "y_embedder")]
+    if config.guidance_embed and "guidance_in.mlp.layers.0.weight" in sd:
+        embedders.append(("guidance_in", "guidance_embedder"))
+    for src, dst in embedders:
+        m.mlx(sd, f"{src}.mlp.layers.0", dst + ".fc1")
+        m.mlx(sd, f"{src}.mlp.layers.2", dst + ".fc2")
+    m.mlx(sd, "final_layer.adaLN_modulation.layers.1", "final_layer.ada")
+    m.mlx(sd, "final_layer.linear", "final_layer.linear")
+    if config.pos_embed_type == PositionalEncoding.PreSDPARope:
+        _permute_qk_for_rope(m, config)
+    return _build_mmdit(config, m, dtype)
+
+
+def detect_mmdit_namespace(sd: StateDict) -> str:
+    """The key namespace of an MMDiT checkpoint: "mlx" (the MLX module tree
+    of the 4-bit releases), "flux_raw" (BFL ``double_blocks`` /
+    ``single_blocks``) or "sd3_raw" (sgm ``joint_blocks``)."""
+    for k in sd:
+        if "multimodal_transformer_blocks" in k or "unified_transformer_blocks" in k:
+            return "mlx"
+        if k.startswith(("double_blocks", "single_blocks")):
+            return "flux_raw"
+    return "sd3_raw"
+
+
+# -- text encoder mappers ------------------------------------------------------------
+
+
+def clip_from_hf_ckpt(
+    sd: StateDict, config: CLIPTextModelConfig, dtype=torch.float32, device="cuda",
+) -> CLIPTextModel:
+    """An HF ``CLIPTextModel`` checkpoint (the ``text_model.`` prefix
+    optional) -> CLIPTextModel; ``text_projection`` only where the config
+    has a projection dimension and the file the weight, as the reference
+    reads it (without it the pooled output is not projected)."""
+    sd = {k[len("text_model."):] if k.startswith("text_model.") else k: v for k, v in sd.items()}
+    out: StateDict = {
+        "token_embedding.weight": sd["embeddings.token_embedding.weight"],
+        "position_embedding.weight": sd["embeddings.position_embedding.weight"],
+    }
+    _copy(sd, "final_layer_norm", "final_layer_norm", out)
+    for i in range(config.num_layers):
+        src, dst = f"encoder.layers.{i}", f"layers.{i}"
+        for raw, name in (("layer_norm1", "ln1"), ("layer_norm2", "ln2"),
+                          ("self_attn.q_proj", "query_proj"), ("self_attn.k_proj", "key_proj"),
+                          ("self_attn.v_proj", "value_proj"), ("self_attn.out_proj", "out_proj"),
+                          ("mlp.fc1", "linear1"), ("mlp.fc2", "linear2")):
+            _copy(sd, f"{src}.{raw}", f"{dst}.{name}", out)
+    with torch.device("meta"):
+        model = CLIPTextModel(config, dtype)
+    if config.projection_dim is not None and "text_projection.weight" in sd:
+        out["text_projection.weight"] = sd["text_projection.weight"]
+    else:
+        model.text_projection = None
+    return _build(model, out, device)
+
+
+def clip_config_from_hf_json(path: Union[str, Path]) -> CLIPTextModelConfig:
+    """A CLIP text config from an HF ``config.json``."""
+    with open(path) as f:
+        cfg = json.load(f)
+    return CLIPTextModelConfig(
+        num_layers=cfg["num_hidden_layers"],
+        model_dims=cfg["hidden_size"],
+        num_heads=cfg["num_attention_heads"],
+        max_length=cfg["max_position_embeddings"],
+        vocab_size=cfg["vocab_size"],
+        projection_dim=cfg.get("projection_dim"),
+        hidden_act=cfg.get("hidden_act", "quick_gelu"),
+    )
+
+
+def t5_from_ckpt(
+    sd: StateDict, config: T5Config = T5_XXL, dtype=torch.bfloat16, device="cuda",
+) -> T5Encoder:
+    """An HF T5 encoder checkpoint (``encoder.block.N``) -> T5Encoder: the
+    embedding from ``encoder.embed_tokens.weight`` or else
+    ``shared.weight``, the bucket table from block 0."""
+    wte = "encoder.embed_tokens.weight" if "encoder.embed_tokens.weight" in sd else "shared.weight"
+    out: StateDict = {
+        "wte.weight": sd[wte],
+        "relative_attention_bias.weight":
+            sd["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"],
+        "final_ln.weight": sd["encoder.final_layer_norm.weight"],
+    }
+    for i in range(config.num_layers):
+        src, dst = f"encoder.block.{i}.layer", f"layers.{i}"
+        out[dst + ".ln1.weight"] = sd[src + ".0.layer_norm.weight"]
+        out[dst + ".ln2.weight"] = sd[src + ".1.layer_norm.weight"]
+        for raw, name in (("0.SelfAttention.q", "query_proj"), ("0.SelfAttention.k", "key_proj"),
+                          ("0.SelfAttention.v", "value_proj"), ("0.SelfAttention.o", "out_proj"),
+                          ("1.DenseReluDense.wi_0", "wi_0"), ("1.DenseReluDense.wi_1", "wi_1"),
+                          ("1.DenseReluDense.wo", "wo")):
+            out[f"{dst}.{name}.weight"] = sd[f"{src}.{raw}.weight"]
+    with torch.device("meta"):
+        model = T5Encoder(config, dtype)
+    return _build(model, out, device)
+
+
 # -- loaders -----------------------------------------------------------------------
 
 
@@ -373,3 +820,62 @@ def load_autoencoder(
     )
     sd = load_safetensors(_resolve(key, AUX_FILES["vae"], None))
     return autoencoder_from_diffusers_ckpt(sd, config, dtype, device=device), config
+
+
+def load_mmdit(
+    model_version: str, dtype=None, local_ckpt: Optional[str] = None, device="cuda",
+) -> Tuple[MMDiT, MMDiTConfig]:
+    """The MMDiT of ``model_version`` (``MMDIT_CONFIG``) from its
+    checkpoint, in whichever namespace the file is (``detect_mmdit_namespace``);
+    float leaves in ``dtype`` (the config's by default). The 4-bit releases'
+    packed linears are repacked bit for bit, with no float round trip."""
+    config = MMDIT_CONFIG[model_version]
+    path = _resolve(model_version, MMDIT_CKPT[model_version], local_ckpt)
+    sd = load_safetensors(path)
+    mapper = {"mlx": mmdit_from_mlx_ckpt, "flux_raw": mmdit_from_flux_ckpt,
+              "sd3_raw": mmdit_from_sd3_ckpt}[detect_mmdit_namespace(sd)]
+    model = mapper(sd, config, dtype, device=device)
+    del sd
+    n = sum(t.numel() for t in model.state_dict().values())
+    logger.info("Loaded MMDiT %s (%.2fB parameters) from %s", model_version, n / 1e9, path)
+    return model, config
+
+
+def load_text_encoder(
+    which: str, dtype=torch.float32, device="cuda",
+) -> Tuple[CLIPTextModel, CLIPTextModelConfig]:
+    """``which``: "clip_l" or "clip_g", from the auxiliary repo's HF files."""
+    config = clip_config_from_hf_json(_resolve_aux(AUX_FILES[which + "_config"]))
+    sd = load_safetensors(_resolve_aux(AUX_FILES[which]))
+    return clip_from_hf_ckpt(sd, config, dtype, device=device), config
+
+
+def load_t5_encoder(dtype=torch.bfloat16, device="cuda") -> T5Encoder:
+    """The T5-XXL encoder (``T5_XXL``) from the auxiliary repo's file."""
+    sd = load_safetensors(_resolve_aux(AUX_FILES["t5"]))
+    return t5_from_ckpt(sd, T5_XXL, dtype, device=device)
+
+
+def load_tokenizer(which: str, pad_with_eos: bool = False):
+    """``which``: "l" or "g": the CLIP BPE tokenizer from its
+    ``vocab.json`` and ``merges.txt``."""
+    from .tokenizer import CLIPTokenizer
+
+    return CLIPTokenizer.from_files(
+        _resolve_aux(AUX_FILES[f"tokenizer_{which}_vocab"]),
+        _resolve_aux(AUX_FILES[f"tokenizer_{which}_merges"]),
+        pad_with_eos=pad_with_eos,
+    )
+
+
+def load_t5_tokenizer(max_length: int = 256):
+    """The T5 sentencepiece tokenizer through ``transformers``: from
+    ``<DIFFUSIONKIT_TPU_CKPT_DIR>/google/t5-v1_1-xxl`` if it exists, else
+    the hub's ``google/t5-v1_1-xxl``."""
+    from .tokenizer import T5TokenizerWrapper
+
+    root = os.environ.get("DIFFUSIONKIT_TPU_CKPT_DIR")
+    path = "google/t5-v1_1-xxl"
+    if root and (Path(root) / path).exists():
+        path = str(Path(root) / path)
+    return T5TokenizerWrapper(path, max_length=max_length)

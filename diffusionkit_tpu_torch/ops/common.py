@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .fused_quant import gelu_quantize
-from .int4_matmul import int4_linear, int8_linear
+from .int4_matmul import dequant_linear, int4_linear, int8_linear, kernel_takes
 from .quantized import QuantizedLinear
 from .w4a8_matmul import w4a8_ffn_eligible, w4a8_ffn_gelu, w4a8_linear
 from .w8a8 import ActQuant, W8A8Linear, needs_act_quant, w8a8_linear
@@ -32,8 +32,11 @@ def linear(layer: nn.Module, x, act: Optional[str] = None) -> torch.Tensor:
     E), both taking an ``ActQuant`` as it is; one without goes to
     ``int4_linear`` (kernel C), or at int8 ``int8_linear`` (#13), as the reference's
     ``linear`` hands quantized params to ``w8a8_linear`` and
-    ``quantized_linear``. Every other consumer of an ``ActQuant`` uses its
-    ``to_float()``.
+    ``quantized_linear``. A packed linear of a shape its kernels do not
+    take (``kernel_takes``, the rule their wrappers raise on: the MLX
+    releases' N = 64 final layer) goes, w4a8 or not, to ``dequant_linear``,
+    decided before any launch. Every other consumer of an ``ActQuant`` uses
+    its ``to_float()``.
 
     The product runs in the promoted dtype of x and the weight (as the
     reference's ``jnp.dot`` does for a bf16 activation against fp32
@@ -43,6 +46,9 @@ def linear(layer: nn.Module, x, act: Optional[str] = None) -> torch.Tensor:
     """
     if isinstance(layer, W8A8Linear):
         return w8a8_linear(layer, x, act)
+    if isinstance(layer, QuantizedLinear) and not kernel_takes(
+            x.shape[-1], layer.out_features, layer.scales.shape[0], layer.wscale is not None):
+        return dequant_linear(layer, x.to_float() if isinstance(x, ActQuant) else x, act)
     if needs_act_quant(layer):
         return w4a8_linear(layer, x, act)
     if isinstance(x, ActQuant):

@@ -22,8 +22,18 @@ the weight dequantised in fp32 and not rounded further, the products as
 does not take (bf16 or fp32 x, K a multiple of 64, N of 128, group 32 or a
 multiple of 64); a CPU tensor goes to ``int4_matmul_plain``, the same math
 in plain torch. The reference's TPU tile pickers (``pick_k_block``, ``pick_m_block``,
-``_maybe_pad_n``) and its padding of M are not carried over: the kernel
-masks the ragged M edge itself.
+``_maybe_pad_n``) and its padding of M are not carried over as tilings: the
+kernel masks the ragged M edge itself.
+
+Which packed linears reach a kernel at all is the kernels' own shape
+rule, ``kernel_takes``: the K, N and group that ``dequant_kernel`` (C, #13)
+and ``w4a8_matmul.w4a8_kernel`` (E, and #10 then #11) raise on. Any other
+packed linear (the MLX 4-bit releases' ``final_layer.linear``, N = 64)
+takes ``dequant_linear``, the reference's path off its kernel: the weight
+dequantised and rounded to x's dtype, one product with fp32 accumulation,
+the bias added and the GELU applied in fp32, one rounding.
+``ops/common.linear`` decides it before any launch, for int4, int8 and
+w4a8 layers alike.
 
 Kernel #13 ``int8_matmul`` replaces the reference's ``int8_matmul``
 (``_kernel8``), the int8 weight-only mode's product: the same with ``q8``
@@ -42,8 +52,9 @@ import torch.nn.functional as F
 
 from . import kernels
 
-# Kernel tiling constraints (csrc/gemv_sm90.cu, csrc/int4_matmul_sm90.cu).
-K_TILE, N_TILE = 64, 128
+# Kernel tiling constraints (csrc/gemv_sm90.cu, csrc/int4_matmul_sm90.cu),
+# and kernel E's K tile (csrc/w4a8_matmul_sm90.cu).
+K_TILE, N_TILE, W4A8_K_TILE = 64, 128, 128
 # Rows at or below which C and #13 (and E's mode plain) run the split-K GEMV
 # (the `ada` projections); above, the Hopper main loop's 256-row blocks.
 SMALL_M = 16
@@ -54,6 +65,39 @@ GEMV_PART_K, GEMV_MAX_SPLITS, GEMV_SLOTS = 64, 8, 2 * 132
 # The cost of one more split against a wave's, fitted to the card's times
 # of S = 2..8 at the paths' shapes (tools/bench_gemv.py).
 GEMV_SPLIT_COST = 0.015
+
+
+def kernel_takes(k: int, n: int, groups: int, wscale: bool = False) -> bool:
+    """Whether the kernels take a packed weight of K = ``k`` and N = ``n``
+    in ``groups`` scale rows, at any M: for C and #13 K a multiple of 64, N
+    of 128 and the group K / groups 32 or a multiple of 64; with a w4a8
+    ``wscale`` (E, and #10 then #11) K a multiple of 128, N of 128 and the
+    group 32, 64 or a multiple of 128. ``dequant_kernel`` and
+    ``w4a8_matmul.w4a8_kernel`` raise on what it refuses, and
+    ``ops/common.linear`` sends it to ``dequant_linear``."""
+    if groups <= 0 or k % groups or n % N_TILE:
+        return False
+    group = k // groups
+    if wscale:
+        return k % W4A8_K_TILE == 0 and (group in (32, 64) or group % W4A8_K_TILE == 0)
+    return k % K_TILE == 0 and (group == 32 or group % 64 == 0)
+
+
+def dequant_linear(layer, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+    """A packed linear (int4 or int8, a w4a8 ``wscale`` unused) off the
+    kernels, as the reference's ``quantized_linear`` computes one that
+    ``kernel_takes`` turns away: the weight dequantised in fp32 and
+    rounded to x's dtype, the product accumulated in fp32, the bias added
+    in fp32, the exact (erf) GELU in fp32, then one rounding to x's dtype.
+    Plain torch on every device."""
+    deq = dequantize_int4 if layer.bits == 4 else dequantize_int8
+    w = deq(layer.q4 if layer.bits == 4 else layer.q8, layer.scales, layer.zeros, x.dtype)
+    y = torch.matmul(x.float(), w.float())
+    if layer.bias is not None:
+        y = y + layer.bias.float()
+    if act == "gelu":
+        y = F.gelu(y)
+    return y.to(x.dtype)
 
 
 def dequant_route(m: int) -> str:
@@ -91,14 +135,10 @@ def dequant_kernel(name: str, m: int, k: int, k_w: int, n: int, groups: int,
     or ValueError for what none takes: K
     = ``k_w`` a multiple of 64, N of 128, group K / groups 32 or a multiple
     of 64, at any M; TypeError for another dtype."""
-    if k_w != k or k % K_TILE or n % N_TILE:
+    if k_w != k or not kernel_takes(k, n, groups):
         raise ValueError(f"{name}: K={k} must match the weight's {k_w} and be a multiple of "
-                         f"{K_TILE}, N={n} a multiple of {N_TILE}")
-    if groups == 0 or k % groups:
-        raise ValueError(f"{name}: {groups} scale rows do not divide K={k}")
-    group = k // groups
-    if not (group == 32 or group % 64 == 0):
-        raise ValueError(f"{name}: group size {group} must be 32 or a multiple of 64")
+                         f"{K_TILE}, N={n} a multiple of {N_TILE}, the group size K/{groups} "
+                         f"32 or a multiple of 64")
     if dtype == torch.float32:
         return f"dk_{name}_f32"
     if dtype != torch.bfloat16:

@@ -67,7 +67,8 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
-from .int4_matmul import gemv_splits
+from .int4_matmul import W4A8_K_TILE as K_TILE
+from .int4_matmul import gemv_splits, kernel_takes
 from .w8a8 import ActQuant
 
 # The activation-scale tile of the FFN hidden: fc1's gelu_quant column tile
@@ -76,7 +77,6 @@ from .w8a8 import ActQuant
 # v6e), the value its CPU tests hold; fixed here.
 SCALE_TILE = 512
 HEAD_DIM = 128  # norm_rope's head width
-K_TILE = 128
 MODES = {"plain": 0, "gelu_quant": 1, "grouped_xs": 2, "norm_rope": 3}
 # Column tile of each mode's kernel configuration (csrc/w4a8_matmul_sm90.cu,
 # csrc/gemv_sm90.cu).
@@ -117,12 +117,10 @@ def w4a8_kernel(m: int, k: int, k8: int, n: int, groups: int, mode: str,
     multiple of 128, N of the mode's column tile, group K / groups 32, 64 or
     a multiple of 128, K a multiple of 512 for grouped_xs, at any M (#10
     then #11 take every such shape)."""
-    if k8 * 8 != k or k % K_TILE or n % N_TILE[mode]:
+    if k8 * 8 != k or not kernel_takes(k, n, groups, wscale=True) or n % N_TILE[mode]:
         raise ValueError(f"w4a8_matmul: K={k} must be 8 * {k8} and a multiple of {K_TILE}, "
-                         f"N={n} a multiple of {N_TILE[mode]} ({mode})")
-    if groups == 0 or k % groups or not (k // groups in (32, 64) or (k // groups) % K_TILE == 0):
-        raise ValueError(f"w4a8_matmul: group size K/{groups} must be 32, 64 or a multiple of "
-                         f"{K_TILE}")
+                         f"N={n} a multiple of {N_TILE[mode]} ({mode}), the group size "
+                         f"K/{groups} 32, 64 or a multiple of {K_TILE}")
     if mode == "grouped_xs" and k % SCALE_TILE:
         raise ValueError(f"w4a8_matmul: grouped_xs needs K a multiple of {SCALE_TILE}, got {k}")
     route = route or w4a8_route(m, mode)
@@ -688,11 +686,18 @@ def w4a8_linear(layer, x, act: Optional[str] = None) -> torch.Tensor:
 
 def w4a8_qk_eligible(layer, head_dim: int) -> bool:
     """A q/k projection takes the fused QK-RMSNorm + RoPE epilogue when it
-    is a w4a8 ``QuantizedLinear`` and the head is 128 wide."""
+    is a w4a8 ``QuantizedLinear`` of a shape kernel E takes and the head is
+    128 wide."""
+    return _takes_w4a8(layer) and head_dim == HEAD_DIM
+
+
+def _takes_w4a8(layer) -> bool:
+    """A w4a8 ``QuantizedLinear`` of a shape kernel E takes
+    (``int4_matmul.kernel_takes``)."""
     from .quantized import QuantizedLinear
 
-    return isinstance(layer, QuantizedLinear) and layer.wscale is not None \
-        and head_dim == HEAD_DIM
+    return isinstance(layer, QuantizedLinear) and layer.wscale is not None and kernel_takes(
+        layer.in_features, layer.out_features, layer.scales.shape[0], wscale=True)
 
 
 def w4a8_qk_linear(layer, x, norm_w: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -711,13 +716,11 @@ def w4a8_qk_linear(layer, x, norm_w: torch.Tensor, cos: torch.Tensor, sin: torch
 
 def w4a8_ffn_eligible(fc1, fc2) -> bool:
     """fc1 -> GELU -> fc2 runs as two fused w4a8 kernels with an int8
-    hidden when both are w4a8 ``QuantizedLinear``s, fc1's N (fc2's K) is a
-    multiple of the 512 scale tile, and fc2's group divides it."""
-    from .quantized import QuantizedLinear
-
-    for layer in (fc1, fc2):
-        if not (isinstance(layer, QuantizedLinear) and layer.wscale is not None):
-            return False
+    hidden when both are w4a8 ``QuantizedLinear``s of shapes kernel E
+    takes, fc1's N (fc2's K) is a multiple of the 512 scale tile, and fc2's
+    group divides it."""
+    if not (_takes_w4a8(fc1) and _takes_w4a8(fc2)):
+        return False
     n1 = fc1.out_features
     return fc2.in_features == n1 and n1 % SCALE_TILE == 0 and SCALE_TILE % fc2.group_size == 0
 

@@ -55,14 +55,28 @@ latents, ``DIFFUSIONKIT_TPU_DENOISE_BATCH`` overrides it) runs in chunks
 (``_decode_batched_u8``). ``generate_images_batched`` runs N prompts in one
 schedule, the serving fast path.
 
-The other models are plain attributes (``mmdit``, ``decoder``, ``clip_l``,
-``clip_g``, ``t5`` and the tokenizers), set by the caller: their checkpoint
-loaders wait, and ``models.init_*`` build random ones. ``quantize_mmdit``
-converts an assigned MMDiT on its own device, as the reference's
-quantize-at-load does:
+Models are loaded from their checkpoints as in the reference
+(``model_io``: the MMDiT in its sgm, BFL or MLX 4-bit namespace, CLIP-L/G
+and T5-XXL from the HF files, the VAE; ``local_ckpt``, then
+``DIFFUSIONKIT_TPU_CKPT_DIR``, then the hub), with every float weight in
+``w16``'s dtype (bf16, or fp32 with ``w16=False``; ``a16`` is the VAE's
+activation dtype). ``load=True`` loads at construction: the text encoders
+under ``low_memory_mode`` (the default), everything without it. Each
+request then loads what is missing before its phase (``load_text_encoders``,
+``load_mmdit``, ``load_decoder``; ``check_and_load_models`` all of them)
+and, under ``low_memory_mode``, drops each model after its phase, so the
+device holds one phase's models at a time. A model or tokenizer is loaded
+only where its attribute is None: a caller may assign any of them (the
+T5 tokenizer, say, where its sentencepiece model is not on the machine)
+and the loaders fetch the rest. Reloading the MMDiT goes through the
+``mmdit`` setter, which drops the captured graphs, so under
+``low_memory_mode`` every request captures its graph again; the phase log
+holds the load and capture times. ``quantize_mmdit`` converts the MMDiT
+on its own device, as the reference's quantize-at-load does:
 
   "int4" (or True), "int8"  weight-only, the min/max grid (GPTQ waits); an
-                            already packed model passes through
+                            already packed model (the 4-bit releases)
+                            passes through
   "w4a8"                    int4, then every int4 linear's per-channel
                             ``wscale``
   "w8a8"                    every eligible linear to ``W8A8Linear``, float
@@ -70,16 +84,17 @@ quantize-at-load does:
   "<mode>-mixed"            ``MIXED_OVERRIDES`` on a float model: ``ada``
                             at int8, the final layer and embedders float
 
-``quantize_t5=True`` gives an assigned T5 the SmoothQuant fold
+``quantize_t5=True`` gives the T5 the SmoothQuant fold
 (``ops/smoothquant.smooth_t5``, calibrated with ``t5_tokenizer`` if it is
-set by then) and converts it to w8a8. Every model stays resident; the
-reference's phase-lazy loading, quantized-tree disk cache,
-``DIFFUSIONKIT_TPU_T5_SMOOTH`` switch, tensor-parallel loading and the
-data-parallel batch under a mesh wait for later slices.
+set by then) and converts it to w8a8 on the device. The reference's
+quantized-tree disk cache, ``DIFFUSIONKIT_TPU_T5_SMOOTH`` switch,
+tensor-parallel loading and the data-parallel batch under a mesh wait for
+later slices.
 """
 
 from __future__ import annotations
 
+import gc
 import os
 import time
 from dataclasses import dataclass
@@ -313,9 +328,12 @@ class DiffusionPipeline:
     ``encode_image_to_latents`` / ``denoise_latents`` phase methods.
     ``use_scan`` (default True) runs the denoise schedule as the
     reference's scan, a CUDA graph of one step on the card;
-    ``use_scan=False`` the per-step synced loop (module docstring). The
-    models carry their own weight dtypes; ``a16`` selects bf16 VAE
-    activations; ``shift=3.0`` is the SD3 production schedule.
+    ``use_scan=False`` the per-step synced loop (module docstring).
+    ``w16`` (default on) loads every model's float weights in bf16, else
+    fp32; ``a16`` selects bf16 VAE activations; ``shift=3.0`` is the SD3
+    production schedule. ``load`` and ``low_memory_mode`` (both on by
+    default, as in the reference) load the models from their checkpoints
+    and drop each after its phase (module docstring).
     ``quantize_mmdit`` (module docstring) converts the assigned MMDiT;
     weight-only modes pack at group ``quantize_group_size`` (the
     reference's quantize-at-load, with the min/max grid until GPTQ is
@@ -324,8 +342,9 @@ class DiffusionPipeline:
     assigned, the tokenizer built with ``t5_max_length`` tokens) add the T5
     rows to the conditioning: 77 CLIP + 512 T5 tokens for SD3 and SD3.5.
     ``quantize_t5``: the w8a8 T5 (module docstring). ``local_ckpt``: the
-    checkpoint file the VAE encoder is loaded from at the first img2img
-    request (module docstring), as the reference's ``local_ckpt``.
+    checkpoint file the MMDiT, the VAE decoder and the VAE encoder (at the
+    first img2img request) are loaded from, as the reference's
+    ``local_ckpt``.
 
     ``sdpa_impl`` (None/'auto', 'xla', 'flash' or 'ring') and ``mesh`` (a
     ``parallel.create_mesh`` / ``local_mesh`` DeviceMesh) go to every MMDiT
@@ -335,14 +354,18 @@ class DiffusionPipeline:
     tensor-parallel one up to the order of sums; tensor-parallel loading and
     the data-parallel split of the image batch come in a later slice."""
 
+    clip_g_needed = True
     t5_forced = False
 
     def __init__(
         self,
+        w16: bool = True,
         shift: float = 3.0,
         use_t5: bool = True,
         model_version: str = SD3_MEDIUM,
+        low_memory_mode: bool = True,
         a16: bool = True,
+        load: bool = True,
         device="cuda",
         quantize_mmdit=False,
         quantize_t5: bool = False,
@@ -364,6 +387,8 @@ class DiffusionPipeline:
         self.use_scan = use_scan
         self._scans: Dict[tuple, _Scan] = {}
         self.device = torch.device(device)
+        self.dtype = torch.bfloat16 if w16 else torch.float32
+        self.low_memory_mode = low_memory_mode
         self.activation_dtype = torch.bfloat16 if a16 else torch.float32
         self.sampler: FlowSchedule = ModelSamplingDiscreteFlow(shift=shift)
         self.latent_format = SD3LatentFormat()
@@ -377,6 +402,11 @@ class DiffusionPipeline:
         self.tokenizer_g = None
         self.t5_tokenizer = None
         self._t5: Optional[T5Encoder] = None
+        if load:
+            if low_memory_mode:
+                self.load_text_encoders()
+            else:
+                self.check_and_load_models()
 
     @property
     def t5_max_length(self) -> int:
@@ -419,6 +449,77 @@ class DiffusionPipeline:
                 add_wscale_(model)
         self._scans.clear()  # the graphs captured the old model's weights
         self._mmdit = model
+
+    # -- loading models ---------------------------------------------------------
+
+    def load_mmdit(self) -> None:
+        """The MMDiT from ``model_version``'s checkpoint (``local_ckpt``
+        first), in ``w16``'s dtype, on the device, through the ``mmdit``
+        setter (which quantizes it for ``quantize_mmdit``)."""
+        self.mmdit, _ = model_io.load_mmdit(self.model_version, self.dtype, self.local_ckpt,
+                                            device=self.device)
+
+    def load_decoder(self) -> None:
+        """The VAE decoder, in ``w16``'s dtype (its activations in ``a16``'s)."""
+        self.decoder = model_io.load_vae_decoder(self.model_version, self.dtype, self.local_ckpt,
+                                                 device=self.device)
+
+    def load_text_encoders(self) -> None:
+        """CLIP-L, CLIP-G (where the pipeline reads it), T5 with ``use_t5``
+        and their tokenizers, each where its attribute is None; the T5
+        tokenizer before the T5, whose setter may calibrate with it."""
+        if self.clip_l is None:
+            self.clip_l, _ = model_io.load_text_encoder("clip_l", self.dtype, device=self.device)
+        if self.tokenizer_l is None:
+            self.tokenizer_l = model_io.load_tokenizer("l", pad_with_eos=True)
+        if self.clip_g_needed:
+            if self.clip_g is None:
+                self.clip_g, _ = model_io.load_text_encoder("clip_g", self.dtype,
+                                                            device=self.device)
+            if self.tokenizer_g is None:
+                self.tokenizer_g = model_io.load_tokenizer("g", pad_with_eos=False)
+        if self.use_t5:
+            if self.t5_tokenizer is None:
+                self.t5_tokenizer = model_io.load_t5_tokenizer(self.t5_max_length)
+            if self.t5 is None:
+                self.t5 = model_io.load_t5_encoder(self.dtype, device=self.device)
+
+    def check_and_load_models(self) -> None:
+        """Every model the pipeline runs, where it is None."""
+        if self.mmdit is None:
+            self.load_mmdit()
+        if self.decoder is None:
+            self.load_decoder()
+        self.load_text_encoders()
+
+    def unload_t5(self) -> None:
+        """Drop the T5 and its tokenizer, and encode without T5 from now on."""
+        self.t5 = None
+        self.t5_tokenizer = None
+        gc.collect()
+        self.use_t5 = False
+
+    def ensure_models_are_loaded(self) -> None:
+        """Wait until every copy of weights to the device has finished."""
+        _sync(self.device)
+
+    def _drop(self, *names: str) -> None:
+        """Under ``low_memory_mode``, the named models set to None (their
+        device memory freed with the last reference)."""
+        if self.low_memory_mode:
+            for name in names:
+                setattr(self, name, None)
+            gc.collect()
+
+    def _load_for(self, name: str, load) -> float:
+        """``load()`` if the model ``name`` is None; its seconds (device
+        copies finished), or 0.0."""
+        if getattr(self, name) is not None:
+            return 0.0
+        t0 = time.perf_counter()
+        load()
+        _sync(self.device)
+        return time.perf_counter() - t0
 
     # -- text encoding -------------------------------------------------------
 
@@ -689,16 +790,28 @@ class DiffusionPipeline:
         denoising phase, as in the reference); returns (PIL image, phase
         log), or with ``num_images`` > 1 (a list of PIL images, phase log).
         ``profile_dir``: a ``torch.profiler`` trace of the denoise phase
-        written there."""
+        written there. Models are loaded before their phases and, under
+        ``low_memory_mode``, dropped after them (module docstring); each
+        phase's ``load_time`` and the denoise's ``capture_time`` (the
+        graph's warm-up step and capture, 0 when a cached graph ran) are in
+        the log, in seconds."""
         from PIL import Image
 
         start_time = time.perf_counter()
         if latent_size[0] % 2 or latent_size[1] % 2:
             raise ValueError("Latent sizes must be divisible by 2 (patch size)")
+        t0 = time.perf_counter()
+        if self.low_memory_mode:
+            self.load_text_encoders()
+        else:
+            self.check_and_load_models()
+        _sync(self.device)
         log: Dict[str, Any] = {
-            "text_encoding": {"pre": self._mem(), "post": {}, "time": None},
-            "denoising": {"pre": {}, "post": {}, "time": None, "iter_time": []},
-            "decoding": {"pre": {}, "post": {}, "time": None},
+            "text_encoding": {"pre": self._mem(), "post": {}, "time": None,
+                              "load_time": time.perf_counter() - t0},
+            "denoising": {"pre": {}, "post": {}, "time": None, "iter_time": [],
+                          "load_time": 0.0, "capture_time": 0.0},
+            "decoding": {"pre": {}, "post": {}, "time": None, "load_time": 0.0},
             "peak_memory": 0.0,
         }
 
@@ -716,8 +829,11 @@ class DiffusionPipeline:
         t0 = time.perf_counter()
         conditioning, pooled = self.encode_text(text, cfg_weight, negative_text)
         phase_end("text_encoding", t0)
+        self._drop("t5", "clip_l", "clip_g")
 
+        log["denoising"]["load_time"] = self._load_for("mmdit", self.load_mmdit)
         log["denoising"]["pre"] = self._mem()
+        capture_s = StepGraph.capture_s
         t0 = time.perf_counter()
         prof = self._start_profile(profile_dir)
         latents, iter_time = self.denoise_latents(
@@ -731,11 +847,15 @@ class DiffusionPipeline:
             logger.info("Profiler trace written to %s", profile_dir)
         log["denoising"]["iter_time"] = iter_time
         phase_end("denoising", t0)
+        log["denoising"]["capture_time"] = StepGraph.capture_s - capture_s
+        self._drop("mmdit")
 
+        log["decoding"]["load_time"] = self._load_for("decoder", self.load_decoder)
         log["decoding"]["pre"] = self._mem()
         t0 = time.perf_counter()
         x = self._decode_batched_u8(latents)
         phase_end("decoding", t0)
+        self._drop("decoder")
 
         log["total_time"] = time.perf_counter() - start_time
         if verbose:
@@ -776,15 +896,21 @@ class DiffusionPipeline:
         """N different prompts in one denoise schedule (the model batch
         [pos*N, neg*N], as the CFG layout), each with its own seed: the
         serving fast path. The batch auto-splits as ``denoise_latents``
-        does and decodes in chunks. Returns a list of N PIL images."""
+        does and decodes in chunks; models load and drop as in
+        ``generate_image``. Returns a list of N PIL images."""
         from PIL import Image
 
         n = len(texts)
         negative_texts = negative_texts or [""] * n
         seeds = seeds if seeds is not None else [None] * n
         seeds = [int(time.time()) + i if s is None else int(s) for i, s in enumerate(seeds)]
+        if self.low_memory_mode:
+            self.load_text_encoders()
+        else:
+            self.check_and_load_models()
         conds, pooleds = zip(*(self.encode_text(t, cfg_weight, neg)
                                for t, neg in zip(texts, negative_texts)))
+        self._drop("t5", "clip_l", "clip_g")
         cfg_on = cfg_weight > 1
         if cfg_on:
             # [pos rows..., neg rows...] to match the [x, x] latent doubling.
@@ -794,6 +920,7 @@ class DiffusionPipeline:
             conditioning = torch.cat([c[:1] for c in conds])
             pooled = torch.cat([p[:1] for p in pooleds])
 
+        self._load_for("mmdit", self.load_mmdit)
         x_T1 = self.get_empty_latent(*latent_size)
         noise = np.concatenate([self.get_noise(s, x_T1) for s in seeds])
         sigmas = self.get_sigmas(num_steps)
@@ -812,8 +939,12 @@ class DiffusionPipeline:
             torch.from_numpy(noise_scaled).to(self.device), conditioning.to(dtype),
             pooled.to(dtype), n, self._denoise_chunk_images(latent_size), cfg_on,
         )
+        self._drop("mmdit")
         latents = self.latent_format.process_out(x)
-        return [Image.fromarray(im) for im in self._decode_batched_u8(latents)]
+        self._load_for("decoder", self.load_decoder)
+        images = [Image.fromarray(im) for im in self._decode_batched_u8(latents)]
+        self._drop("decoder")
+        return images
 
 
 class FluxPipeline(DiffusionPipeline):
@@ -824,14 +955,18 @@ class FluxPipeline(DiffusionPipeline):
     and latent format. ``quantize_t5``: the w8a8 T5 with its SmoothQuant
     fold (module docstring)."""
 
+    clip_g_needed = False
     t5_forced = True
 
     def __init__(
         self,
+        w16: bool = True,
         shift: float = 1.0,
         use_t5: bool = True,
         model_version: str = FLUX_SCHNELL_VERSION,
+        low_memory_mode: bool = True,
         a16: bool = True,
+        load: bool = True,
         device="cuda",
         quantize_mmdit=False,
         quantize_t5: bool = False,
@@ -841,7 +976,8 @@ class FluxPipeline(DiffusionPipeline):
         use_scan: bool = True,
         local_ckpt: Optional[str] = None,
     ):
-        super().__init__(shift=shift, use_t5=True, model_version=model_version, a16=a16,
+        super().__init__(w16=w16, shift=shift, use_t5=True, model_version=model_version,
+                         low_memory_mode=low_memory_mode, a16=a16, load=load,
                          device=device, quantize_mmdit=quantize_mmdit, quantize_t5=quantize_t5,
                          quantize_group_size=quantize_group_size, sdpa_impl=sdpa_impl,
                          mesh=mesh, use_scan=use_scan, local_ckpt=local_ckpt)

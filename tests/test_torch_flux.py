@@ -240,7 +240,7 @@ def flux_pipelines():
     jp.t5_params = randomize(jp.t5_params, 2)
     jp.mmdit_params = with_unit_qk_scales(randomize(jp.mmdit_params, 3))
     jp.decoder_params = randomize(jp.decoder_params, 4)
-    tp = FluxPipeline(a16=False, device="cpu")
+    tp = FluxPipeline(load=False, low_memory_mode=False, a16=False, device="cpu")
     tp.clip_l = clip_from_jax(
         jp.clip_l, torch_config(jp.clip_l_config, tcfg.CLIPTextModelConfig), device="cpu")
     tp.t5 = t5_from_jax(jp.t5_params, torch_config(jp.t5_config, tcfg.T5Config), device="cpu")
@@ -294,7 +294,7 @@ def test_flux_pipeline_is_deterministic(flux_pipelines):
 
 def test_flux_dev_guidance_moves_the_latents():
     jp = build_flux_pipeline(guidance_embed=True)
-    tp = FluxPipeline(a16=False, device="cpu")
+    tp = FluxPipeline(load=False, low_memory_mode=False, a16=False, device="cpu")
     tp.mmdit = mmdit_from_jax(randomize(jp.mmdit_params, 5),
                               torch_config(jp.mmdit_config, tcfg.MMDiTConfig), device="cpu")
     cond = torch.from_numpy(np.random.RandomState(6).randn(1, 256, 8).astype(np.float32))

@@ -337,7 +337,8 @@ def test_missing_encoder_with_no_checkpoint_raises(sd3, src, monkeypatch):
     monkeypatch.delenv("DIFFUSIONKIT_TPU_CKPT_DIR", raising=False)
     monkeypatch.setattr(huggingface_hub, "hf_hub_download", offline)
     _, tp = sd3
-    pipe = DiffusionPipeline(use_t5=False, a16=False, device="cpu")
+    pipe = DiffusionPipeline(load=False, low_memory_mode=False,
+                             use_t5=False, a16=False, device="cpu")
     for name in ("clip_l", "clip_g", "mmdit", "decoder", "tokenizer_l", "tokenizer_g"):
         setattr(pipe, name, getattr(tp, name))
     assert pipe.encoder is None and pipe.local_ckpt is None
@@ -359,7 +360,8 @@ def test_encoder_loads_from_local_ckpt_at_the_first_request(sd3, src, tmp_path, 
 
     monkeypatch.setattr(model_io, "load_vae_encoder", load)
     ckpt = str(tmp_path / "sd3_medium.safetensors")
-    pipe = DiffusionPipeline(use_t5=False, a16=True, device="cpu", local_ckpt=ckpt)
+    pipe = DiffusionPipeline(load=False, low_memory_mode=False,
+                             use_t5=False, a16=True, device="cpu", local_ckpt=ckpt)
     got = pipe.encode_image_to_latents(src, seed=3)
     pipe.encode_image_to_latents(src, seed=3)
     assert calls == [(pipe.model_version, torch.float32, ckpt, torch.device("cpu"))]

@@ -166,7 +166,8 @@ def test_quantize_at_load_modes_match_quantize_tree(mode):
                              overrides=jq.MIXED_OVERRIDES if mixed else None)
     if base == "w4a8":
         jax_q = jw.add_wscale_tree(jax_q)
-    pipe = FluxPipeline(device="cpu", quantize_mmdit=mode, quantize_group_size=32)
+    pipe = FluxPipeline(load=False, low_memory_mode=False,
+                        device="cpu", quantize_mmdit=mode, quantize_group_size=32)
     pipe.mmdit = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu")
     want = mmdit_from_jax(jax_q, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu")
     assert kinds(pipe.mmdit) == kinds(want)
@@ -221,7 +222,8 @@ def test_sd3_int8_mmdit_matches_jax(monkeypatch):
     jcfg = tiny_sd3()
     params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=6)
     jax_q = jq.quantize_tree(params, bits=8, group_size=32)
-    pipe = DiffusionPipeline(device="cpu", quantize_mmdit="int8", use_t5=False)
+    pipe = DiffusionPipeline(load=False, low_memory_mode=False,
+                             device="cpu", quantize_mmdit="int8", use_t5=False)
     pipe.mmdit = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu")
     calls = []
     plain = ti.int8_matmul_plain
@@ -249,7 +251,8 @@ def test_sd3_int8_pipeline_matches_jax(monkeypatch):
     float_params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=8)
     jp.mmdit_params = jq.quantize_tree(float_params, bits=8, group_size=32)
     jp.mmdit_config = jcfg
-    qp = DiffusionPipeline(shift=3.0, use_t5=False, a16=False, device="cpu",
+    qp = DiffusionPipeline(load=False, low_memory_mode=False,
+                           shift=3.0, use_t5=False, a16=False, device="cpu",
                            quantize_mmdit="int8")
     for name in ("clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g"):
         setattr(qp, name, getattr(tp, name))

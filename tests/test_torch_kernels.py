@@ -2086,19 +2086,21 @@ def test_denoise_graph_is_the_synced_loop(cuda, model):
     if model == "sd3":
         cfg = dataclasses.replace(SD3_2b, depth_multimodal=2, num_heads=4,
                                   hidden_size_override=256, max_latent_resolution=32)
-        pipe, cfg_weight, text_dim, pooled_dim = (DiffusionPipeline(device=cuda, use_t5=False),
-                                                  5.0, 4096, 2048)
+        pipe = DiffusionPipeline(load=False, low_memory_mode=False, device=cuda, use_t5=False)
+        cfg_weight, text_dim, pooled_dim = 5.0, 4096, 2048
     elif model.startswith("sd35"):
         cfg = dataclasses.replace(SD3_8b, depth_multimodal=3, num_heads=4, hidden_size_override=256,
                                   max_latent_resolution=32, upcast_multimodal_blocks=(1,))
         mode = {"sd35-int4": "int4", "sd35-w4a8": "w4a8"}.get(model, False)
-        pipe = DiffusionPipeline(device=cuda, use_t5=False, quantize_mmdit=mode,
+        pipe = DiffusionPipeline(load=False, low_memory_mode=False,
+                                 device=cuda, use_t5=False, quantize_mmdit=mode,
                                  quantize_group_size=64)
         cfg_weight, text_dim, pooled_dim = 5.0, 4096, 2048
     else:
         cfg = dataclasses.replace(FLUX_DEV, depth_multimodal=1, depth_unified=2, num_heads=4,
                                   hidden_size_override=512, rope_axes_dim=(16, 56, 56))
-        pipe, cfg_weight, text_dim, pooled_dim = FluxPipeline(device=cuda), 0.0, 4096, 768
+        pipe = FluxPipeline(load=False, low_memory_mode=False, device=cuda)
+        cfg_weight, text_dim, pooled_dim = 0.0, 4096, 768
     pipe.mmdit = init_mmdit(cfg, gen, cuda)
     rows = 2 if cfg_weight > 1 else 1
     cond = torch.randn(rows, 77, text_dim, generator=gen, device=cuda)
@@ -2153,7 +2155,7 @@ def test_img2img_encoder_on_the_card(cuda, tmp_path):
     gen = torch.Generator(device=cuda).manual_seed(26)
     cfg = dataclasses.replace(SD3_2b, depth_multimodal=2, num_heads=4, hidden_size_override=256,
                               max_latent_resolution=64)
-    pipe = DiffusionPipeline(device=cuda, use_t5=False)
+    pipe = DiffusionPipeline(load=False, low_memory_mode=False, device=cuda, use_t5=False)
     pipe.mmdit = init_mmdit(cfg, gen, cuda)
     pipe.encoder = init_vae_encoder(VAEEncoderConfig(block_out_channels=(64,) * 4,
                                                      resnet_groups=32), gen, cuda)

@@ -67,7 +67,8 @@ def build_pipelines():
         tok.max_length = 16
         setattr(jp, name, tok)
 
-    tp = DiffusionPipeline(shift=3.0, use_t5=False, a16=False, device="cpu")
+    tp = DiffusionPipeline(load=False, low_memory_mode=False,
+                           shift=3.0, use_t5=False, a16=False, device="cpu")
     tp.clip_l = clip_from_jax(
         jp.clip_l, torch_config(clip_l, tcfg.CLIPTextModelConfig), device="cpu")
     tp.clip_g = clip_from_jax(

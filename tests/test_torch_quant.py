@@ -170,7 +170,8 @@ def test_quantize_at_load_matches_quantize_tree():
                                dtype=jnp.float32)
     params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=7)
     jax_q = jq.quantize_tree(params, bits=4, group_size=32)  # refine off via the env below
-    pipe = FluxPipeline(device="cpu", quantize_mmdit=True, quantize_group_size=32)
+    pipe = FluxPipeline(load=False, low_memory_mode=False,
+                        device="cpu", quantize_mmdit=True, quantize_group_size=32)
     pipe.mmdit = mmdit_from_jax(params, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu")
     want = mmdit_from_jax(jax_q, torch_config(jcfg, tcfg.MMDiTConfig), device="cpu").state_dict()
     got = pipe.mmdit.state_dict()

@@ -257,7 +257,8 @@ def test_flux_pipeline_ring_matches_jax(flux_pipelines, one_rank):  # noqa: F811
     against the JAX pipeline with sdpa_impl="ring" on a 1x1 mesh, with
     tests/test_torch_flux.py's tolerances."""
     jp, tp = flux_pipelines
-    ring = FluxPipeline(a16=False, device="cpu", sdpa_impl="ring", mesh=one_rank)
+    ring = FluxPipeline(load=False, low_memory_mode=False,
+                        a16=False, device="cpu", sdpa_impl="ring", mesh=one_rank)
     for name in ("clip_l", "t5", "mmdit", "decoder", "tokenizer_l", "t5_tokenizer"):
         setattr(ring, name, getattr(tp, name))
     jp.sdpa_impl, jp.mesh = "ring", jax_create_mesh(1, 1, devices=jax.devices()[:1])
@@ -294,7 +295,8 @@ def test_sd3_pipeline_ring_matches_jax(sd3_pipelines, one_rank, monkeypatch):  #
 
     monkeypatch.setattr(sys.modules[ring_attention.__module__], "flash_attention_stats", chunk)
     jp, tp = sd3_pipelines
-    ring = DiffusionPipeline(shift=3.0, use_t5=False, a16=False, device="cpu", sdpa_impl="ring",
+    ring = DiffusionPipeline(load=False, low_memory_mode=False,
+                             shift=3.0, use_t5=False, a16=False, device="cpu", sdpa_impl="ring",
                              mesh=one_rank)
     for name in ("clip_l", "clip_g", "mmdit", "decoder", "tokenizer_l", "tokenizer_g"):
         setattr(ring, name, getattr(tp, name))

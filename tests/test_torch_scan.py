@@ -52,7 +52,7 @@ def flux_pipelines(guidance_embed: bool):
     jp.t5_params = randomize(jp.t5_params, 2)
     jp.mmdit_params = with_unit_qk_scales(randomize(jp.mmdit_params, 3))
     jp.decoder_params = randomize(jp.decoder_params, 4)
-    tp = FluxPipeline(a16=False, device="cpu", model_version=(
+    tp = FluxPipeline(load=False, low_memory_mode=False, a16=False, device="cpu", model_version=(
         "argmaxinc/mlx-FLUX.1-dev" if guidance_embed else "argmaxinc/mlx-FLUX.1-schnell"))
     tp.clip_l = clip_from_jax(
         jp.clip_l, torch_config(jp.clip_l_config, tcfg.CLIPTextModelConfig), device="cpu")
@@ -86,7 +86,8 @@ def tap_decode(monkeypatch, tp):
 
 
 def test_use_scan_is_the_default():
-    assert DiffusionPipeline(device="cpu").use_scan and FluxPipeline(device="cpu").use_scan
+    off = dict(load=False, low_memory_mode=False, device="cpu")
+    assert DiffusionPipeline(**off).use_scan and FluxPipeline(**off).use_scan
 
 
 def test_scan_matches_the_jax_scan(sd3, monkeypatch):
@@ -416,7 +417,7 @@ def test_hbm_scale_floor_and_override(monkeypatch, sd3):
     monkeypatch.delenv("DIFFUSIONKIT_TPU_HBM_SCALE")
 
     _, tp = sd3
-    card = DiffusionPipeline(device="cuda", use_t5=False)
+    card = DiffusionPipeline(load=False, low_memory_mode=False, device="cuda", use_t5=False)
     assert card._denoise_chunk_images((64, 64)) == 21
     assert card._denoise_chunk_images((128, 128)) == 5
     assert tp._denoise_chunk_images((64, 64)) == 4  # the CPU: the reference's 16 GB budget

@@ -117,14 +117,17 @@ def test_version_tables_are_the_references():
 def test_pipelines_take_the_references_model_versions():
     from diffusionkit_tpu_torch.pipeline import FluxPipeline
 
-    sd3 = DiffusionPipeline(device="cpu")
+    sd3 = DiffusionPipeline(load=False, low_memory_mode=False, device="cpu")
     assert (sd3.model_version, sd3.use_t5, sd3.t5_max_length) == (tcfg.SD3_MEDIUM, True, 512)
-    flux = FluxPipeline(device="cpu", use_t5=False)  # FLUX forces T5 on, as the reference
+    flux = FluxPipeline(load=False, low_memory_mode=False,
+                        device="cpu", use_t5=False)  # FLUX forces T5 on, as the reference
     assert (flux.model_version, flux.use_t5, flux.t5_max_length) == (
         tcfg.FLUX_SCHNELL_VERSION, True, 256)
-    assert FluxPipeline(device="cpu", model_version=tcfg.FLUX_DEV_VERSION).t5_max_length == 512
+    assert FluxPipeline(load=False, low_memory_mode=False,
+                        device="cpu", model_version=tcfg.FLUX_DEV_VERSION).t5_max_length == 512
     with pytest.raises(ValueError, match="model_version"):
-        DiffusionPipeline(device="cpu", model_version="argmaxinc/unknown")
+        DiffusionPipeline(load=False, low_memory_mode=False,
+                          device="cpu", model_version="argmaxinc/unknown")
     with pytest.raises(ValueError, match="use_t5"):
         sd3.encode_text(PROMPT)  # T5 on, but no T5 assigned
 
@@ -269,7 +272,8 @@ def test_quantize_at_load_upcasts_after_quantizing():
 
     cfg = port_config(WIDE_SD35, torch.bfloat16)
     for mode in ("int4", "w4a8", "w8a8"):
-        pipe = DiffusionPipeline(device="cpu", use_t5=False, quantize_mmdit=mode,
+        pipe = DiffusionPipeline(load=False, low_memory_mode=False,
+                                 device="cpu", use_t5=False, quantize_mmdit=mode,
                                  quantize_group_size=64)
         model = init_mmdit(cfg, torch.Generator().manual_seed(1), device="cpu")
         w = model.mm_blocks[1].img.fc1.weight.detach().clone()
@@ -330,7 +334,8 @@ def t5_pipelines():
     jp.t5_params = randomize(jp.t5_params, 3)
     jp.mmdit_params = randomize(jp.mmdit_params, 4)
     jp.decoder_params = randomize(jp.decoder_params, 5)
-    tp = DiffusionPipeline(shift=3.0, use_t5=True, a16=False, device="cpu")
+    tp = DiffusionPipeline(load=False, low_memory_mode=False,
+                           shift=3.0, use_t5=True, a16=False, device="cpu")
     for name in ("clip_l", "clip_g"):
         setattr(tp, name, clip_from_jax(getattr(jp, name), torch_config(
             getattr(jp, f"{name}_config"), tcfg.CLIPTextModelConfig), device="cpu"))

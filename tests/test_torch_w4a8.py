@@ -314,12 +314,12 @@ def test_quantize_mmdit_mode_gate():
     """Every mode of the reference's quantize-at-load is accepted, alone and
     with "-mixed"; an unknown mode raises."""
     for mode in (True, "int4", "int8", "w4a8", "w8a8", "w4a8-mixed", "int4-mixed"):
-        pipe = FluxPipeline(device="cpu", quantize_mmdit=mode)
+        pipe = FluxPipeline(load=False, low_memory_mode=False, device="cpu", quantize_mmdit=mode)
         assert pipe.quant_mode in ("int4", "int8", "w4a8", "w8a8")
         assert pipe.quant_mixed == (isinstance(mode, str) and mode.endswith("-mixed"))
     for mode in ("int2", "w8a16", "mixed"):
         with pytest.raises(ValueError):
-            FluxPipeline(device="cpu", quantize_mmdit=mode)
+            FluxPipeline(load=False, low_memory_mode=False, device="cpu", quantize_mmdit=mode)
 
 
 # -- the tiny FLUX w4a8 model and pipeline -------------------------------------
@@ -442,7 +442,8 @@ def test_flux_w4a8_pipeline_matches_jax(jax_tpu_dispatch):
         init_mmdit_params(jax.random.PRNGKey(0), jcfg, quantize_bits=4))
     jp.clip_l, jp.t5_params = randomize(jp.clip_l, 1), randomize(jp.t5_params, 2)
     jp.decoder_params = randomize(jp.decoder_params, 4)
-    tp = FluxPipeline(a16=False, device="cpu", quantize_mmdit="w4a8")
+    tp = FluxPipeline(load=False, low_memory_mode=False,
+                      a16=False, device="cpu", quantize_mmdit="w4a8")
     tp.clip_l = clip_from_jax(
         jp.clip_l, torch_config(jp.clip_l_config, tcfg.CLIPTextModelConfig), device="cpu")
     tp.t5 = t5_from_jax(jp.t5_params, torch_config(jp.t5_config, tcfg.T5Config), device="cpu")

@@ -373,7 +373,8 @@ def test_sd3_w8a8_pipeline_matches_jax(jax_fused):
     jcfg = tiny_sd3(pooled_text_embed_dim=16)
     float_params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=15)
     jp.mmdit_params, jp.mmdit_config = jw8.w8a8_tree(float_params), jcfg
-    qp = DiffusionPipeline(shift=3.0, use_t5=False, a16=False, device="cpu",
+    qp = DiffusionPipeline(load=False, low_memory_mode=False,
+                           shift=3.0, use_t5=False, a16=False, device="cpu",
                            quantize_mmdit="w8a8")
     for name in ("clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g"):
         setattr(qp, name, getattr(tp, name))
@@ -487,7 +488,7 @@ def test_flux_pipeline_quantize_t5_matches_jax(jax_fused):
     jp.t5_config = T5_TINY
     jp.t5_params = jw8.w8a8_tree(jsq.smooth_t5(t5_float, T5_TINY, TinyT5Tokenizer()))
 
-    tp = FluxPipeline(a16=False, device="cpu", quantize_t5=True)
+    tp = FluxPipeline(load=False, low_memory_mode=False, a16=False, device="cpu", quantize_t5=True)
     tp.t5_tokenizer = TinyT5Tokenizer()
     tp.t5 = t5_from_jax(t5_float, torch_config(T5_TINY, tcfg.T5Config), device="cpu")
     assert isinstance(tp.t5.layers[1].wo, tw8.W8A8Linear)
