@@ -33,6 +33,11 @@ reference's host cast). The MMDiT holds a ``QuantizedLinear`` wherever the
 file holds packed leaves. Loaders build on ``device`` (the card unless the
 caller asks for the CPU). Nothing falls back to random weights: a file that
 cannot be resolved raises.
+
+The reference's disk cache of quantized models (``quant_cache_path``,
+``save_module_cache``, ``load_mmdit_cache``, ``load_t5_cache``, the section
+at the end) keeps a packed model's state dict, written by
+``save_safetensors``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from __future__ import annotations
 import json
 import mmap
 import os
+import re
 import warnings
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple, Union
@@ -71,6 +77,7 @@ from .models.t5 import T5Encoder
 from .models.vae import Autoencoder, VAEDecoder, VAEEncoder
 from .ops.quantized import QuantizedLinear
 from .ops.rope import rope_head_permutation
+from .ops.w8a8 import W8A8Linear
 from .utils import get_logger
 
 logger = get_logger(__name__)
@@ -510,6 +517,25 @@ def _permute_qk_for_rope(m: _Mapped, config: MMDiTConfig) -> None:
                 m.sd[pre + leaf] = m.sd[pre + leaf].to(m.device)[perm]
 
 
+def _mmdit_on_meta(config: MMDiTConfig, dtype, sd: StateDict) -> Tuple[MMDiT, list]:
+    """The MMDiT of ``config`` on the meta device (call inside a meta
+    device context), its float leaves in ``dtype`` but the fp32-upcast
+    blocks' in fp32, the learned position table at ``sd``'s size; and the
+    upcast blocks."""
+    model = MMDiT(config)
+    upcast = [blocks[i] for blocks, ids in ((model.mm_blocks, config.upcast_multimodal_blocks),
+                                            (model.uni_blocks, config.upcast_unified_blocks))
+              for i in ids]
+    if dtype != config.dtype:
+        model.to(dtype)
+        for block in upcast:
+            block.float()
+    pos = sd.get("pos_embed")
+    if model.pos_embed is not None and pos is not None and pos.shape != model.pos_embed.shape:
+        model.pos_embed = nn.Parameter(torch.empty(tuple(pos.shape), dtype=model.pos_embed.dtype))
+    return model, upcast
+
+
 def _build_mmdit(config: MMDiTConfig, m: _Mapped, dtype) -> MMDiT:
     """The MMDiT of ``config`` with ``m`` loaded strictly on ``m.device``:
     its float leaves in ``dtype`` (the fp32-upcast blocks' in fp32
@@ -519,18 +545,7 @@ def _build_mmdit(config: MMDiTConfig, m: _Mapped, dtype) -> MMDiT:
     replaces), the learned position table at the file's size."""
     dtype = dtype or config.dtype
     with torch.device("meta"):
-        model = MMDiT(config)
-        upcast = [blocks[i] for blocks, ids in ((model.mm_blocks, config.upcast_multimodal_blocks),
-                                                (model.uni_blocks, config.upcast_unified_blocks))
-                  for i in ids]
-        if dtype != config.dtype:
-            model.to(dtype)
-            for block in upcast:
-                block.float()
-        pos = m.sd.get("pos_embed")
-        if model.pos_embed is not None and pos is not None and pos.shape != model.pos_embed.shape:
-            model.pos_embed = nn.Parameter(torch.empty(tuple(pos.shape),
-                                                       dtype=model.pos_embed.dtype))
+        model, upcast = _mmdit_on_meta(config, dtype, m.sd)
         for name, (k, n, group, bias) in m.packed.items():
             parent, _, attr = name.rpartition(".")
             owner = model.get_submodule(parent)
@@ -879,3 +894,134 @@ def load_t5_tokenizer(max_length: int = 256):
     if root and (Path(root) / path).exists():
         path = str(Path(root) / path)
     return T5TokenizerWrapper(path, max_length=max_length)
+
+
+# -- the quantized-tree disk cache ----------------------------------------------------
+#
+# The reference's cache of quantized execution trees (model_io.py
+# quant_cache_path, save_params_atomic, load_params_cache), over the port's
+# modules: a packed model's state dict in a safetensors file, stamped with a
+# layout version of the port's own, under a name with the port's prefix (a
+# file the JAX package wrote, of its own layout, is never read).
+
+CACHE_PREFIX = "torch_"
+# Layout of the port's cache files; a file of another layout is deleted and
+# regenerated.
+CACHE_LAYOUT = 1
+CACHE_LAYOUT_KEY = "__dk_torch_cache_layout__"
+
+_ST_TAGS = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def save_safetensors(path: Union[str, Path], tensors: StateDict) -> None:
+    """A safetensors file of ``tensors``, written without the safetensors
+    package (the card's machine has none): an 8-byte little-endian header
+    length, the JSON header padded to 8 bytes, then each tensor's bytes in
+    turn, each moved to the host on its own, so the file never exists
+    whole in memory."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_TAGS[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(memoryview(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()))
+
+
+def quant_cache_path(tag: str, src_path: Union[str, Path]) -> Optional[Path]:
+    """The cache file of a quantized model made from ``src_path``: under
+    ``<DIFFUSIONKIT_TPU_CACHE_DIR>/params`` (default
+    ``~/.cache/diffusionkit_tpu/params``), named by ``CACHE_PREFIX``, the
+    caller's ``tag`` (mode, group, dtype, algorithm revision) and the source
+    file's size and mtime, so a rewritten source misses. None with
+    ``DIFFUSIONKIT_TPU_QUANT_CACHE=0`` or when the source is not there."""
+    if os.environ.get("DIFFUSIONKIT_TPU_QUANT_CACHE", "1") == "0":
+        return None
+    try:
+        st = os.stat(src_path)
+    except OSError:
+        return None
+    root = Path(os.environ.get("DIFFUSIONKIT_TPU_CACHE_DIR",
+                               Path.home() / ".cache" / "diffusionkit_tpu")) / "params"
+    root.mkdir(parents=True, exist_ok=True)
+    key = f"{CACHE_PREFIX}{tag}_{st.st_size}_{int(st.st_mtime)}"
+    return root / (re.sub(r"[^A-Za-z0-9._-]", "-", key) + ".safetensors")
+
+
+def save_module_cache(module: nn.Module, path: Path) -> None:
+    """``module``'s state dict to ``path`` through a temporary file and a
+    rename, so a crash or a full disk never leaves a truncated cache."""
+    tensors = dict(module.state_dict())
+    tensors[CACHE_LAYOUT_KEY] = torch.tensor([CACHE_LAYOUT], dtype=torch.int32)
+    tmp = path.with_name(path.name + f".{os.getpid()}.tmp")
+    try:
+        save_safetensors(tmp, tensors)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+    logger.info("Saved %d tensors to %s", len(tensors), path)
+
+
+def _packed_from_state(model: nn.Module, sd: StateDict) -> None:
+    """Replace each linear of ``model`` (on meta) whose leaves in ``sd`` are
+    packed by its packed form: ``q4`` or ``q8`` a ``QuantizedLinear`` (the
+    group from the scales, w4a8 where ``wscale`` is there), ``w8`` a
+    ``W8A8Linear``; the bias in the file's dtype."""
+    for key, t in sd.items():
+        prefix, _, leaf = key.rpartition(".")
+        if leaf not in ("q4", "q8", "w8"):
+            continue
+        parent, _, attr = prefix.rpartition(".")
+        owner = model.get_submodule(parent)
+        bias = sd.get(prefix + ".bias")
+        dt = bias.dtype if bias is not None else getattr(owner, attr).weight.dtype
+        if leaf == "w8":
+            layer = W8A8Linear(t.shape[1], t.shape[0], bias=bias is not None, dtype=dt)
+        else:
+            k = t.shape[0] * (8 if leaf == "q4" else 1)
+            layer = QuantizedLinear(k, t.shape[1], k // sd[prefix + ".scales"].shape[0],
+                                    bias=bias is not None, dtype=dt,
+                                    wscale=prefix + ".wscale" in sd, bits=4 if leaf == "q4" else 8)
+        setattr(owner, attr, layer)
+
+
+def _load_cache(path: Path, build, device) -> Optional[nn.Module]:
+    """The module ``build(sd)`` makes on meta from the cache file, loaded
+    strictly on ``device``; None, the file deleted, where it is corrupt or
+    of another layout."""
+    try:
+        sd = load_safetensors(path)
+        ver = sd.pop(CACHE_LAYOUT_KEY, None)
+        if ver is None or int(ver[0]) != CACHE_LAYOUT:
+            raise ValueError(f"cache layout {None if ver is None else int(ver[0])}, "
+                             f"expected {CACHE_LAYOUT}")
+        with torch.device("meta"):
+            model = build(sd)
+            _packed_from_state(model, sd)
+        return _build(model, sd, device)
+    except torch.OutOfMemoryError:
+        raise
+    except (OSError, ValueError, KeyError, RuntimeError, AttributeError) as e:
+        logger.warning("quant cache %s unreadable (%s); regenerating", path, e)
+        path.unlink(missing_ok=True)
+        return None
+
+
+def load_mmdit_cache(path: Path, model_version: str, dtype=None,
+                     device="cuda") -> Optional[MMDiT]:
+    """A cached quantized MMDiT of ``model_version`` (``save_module_cache``),
+    or None (``_load_cache``)."""
+    config = MMDIT_CONFIG[model_version]
+    return _load_cache(path, lambda sd: _mmdit_on_meta(config, dtype or config.dtype, sd)[0],
+                       device)
+
+
+def load_t5_cache(path: Path, dtype=torch.bfloat16, device="cuda") -> Optional[T5Encoder]:
+    """A cached w8a8 T5-XXL (``save_module_cache``), or None."""
+    return _load_cache(path, lambda sd: T5Encoder(T5_XXL, dtype), device)

@@ -66,9 +66,14 @@ _SIGNATURES = {
     "dk_quantize_f32": [_P, _P, _P, _I, _I, _P],
     "dk_w4a8_matmul": [_P] * 7 + [_I, _P] + [_I] * 5 + [_L, _I, _P, _P],
     "dk_w4a8_matmul_sm90": [_P] * 7 + [_I] + [_P] * 3 + [_I, _P, _I, _P] + [_I] * 5 + [_L, _F, _P],
+    "dk_gptq_group": [_P, _P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+class KernelError(RuntimeError):
+    """A kernel that does not build, load or launch."""
 
 
 def _sources():
@@ -95,7 +100,7 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+    raise KernelError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
 def _start(cmd) -> subprocess.Popen:
@@ -106,7 +111,7 @@ def _wait(cmd, proc: subprocess.Popen) -> str:
     """Wait for one nvcc command; its output, or raise with it on failure."""
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
     return out
 
 
@@ -135,7 +140,7 @@ def build() -> Path:
         for cmd, _, proc in jobs:
             try:
                 logs.append(_wait(cmd, proc))
-            except RuntimeError as e:
+            except KernelError as e:
                 failed = failed or e
         if failed:
             raise failed
@@ -155,7 +160,11 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelError(f"loading {path} failed: {e}") from e
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -170,7 +179,7 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:
         msg = library().dk_error_string(err).decode()
-        raise RuntimeError(f"{name} failed with CUDA error {err}: {msg}")
+        raise KernelError(f"{name} failed with CUDA error {err}: {msg}")
 
 
 def stream_ptr(device: torch.device) -> int:

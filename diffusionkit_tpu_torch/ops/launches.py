@@ -26,7 +26,7 @@ Counts = Dict[Tuple[str, str], object]
 
 def wrappers() -> dict:
     """The counting wrappers, by name."""
-    from . import flash_attention, fused_quant, int4_matmul, w4a8_matmul
+    from . import flash_attention, fused_quant, gptq, int4_matmul, w4a8_matmul
 
     return {
         "flash_attention_bshd": flash_attention.flash_attention_bshd,
@@ -42,6 +42,7 @@ def wrappers() -> dict:
         "w8_matmul": w4a8_matmul.w8_matmul,
         "dequant_w8": w4a8_matmul.dequant_w8,
         "int8_dot": w4a8_matmul.int8_dot,
+        "gptq_group": gptq.gptq_group,
     }
 
 

@@ -25,13 +25,17 @@ of ``quantize_kernel_host`` (4 and 8 bits) and ``mlx_q4_to_exec`` (the
 lossless repack of MLX 4-bit files). The w4a8 scales (``wscale_from_q4``,
 ``add_wscale_bound_``, ``add_wscale_``) are computed on the layer's own
 device, so a 12B model makes no host round trip. ``quantize_module_`` is
-the reference's ``quantize_tree`` with its ``MIXED_OVERRIDES``; the ALS and
-GPTQ quantizers wait for their slice.
+the reference's ``quantize_tree`` with its ``MIXED_OVERRIDES``, on the
+layer's device: int4 on the reference's ALS grid by default (f16 scales and
+zeros; ``ops/gptq.als_grid``, ``DIFFUSIONKIT_TPU_QUANT_REFINE=0`` gives the
+min/max grid), int8 on the min/max grid. GPTQ, the pipelines' default for
+4-bit quantize-at-load, is ``ops/gptq.gptq_quantize_mmdit``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -267,45 +271,84 @@ def _pack_int4(q: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def refine_default(bits: int, refine: Optional[bool] = None) -> bool:
+    """The reference's ``refine`` rule: int4 takes the ALS grid unless
+    ``DIFFUSIONKIT_TPU_QUANT_REFINE=0``; int8 always the min/max grid."""
+    if bits != 4:
+        return False
+    if refine is None:
+        return os.environ.get("DIFFUSIONKIT_TPU_QUANT_REFINE", "1") != "0"
+    return bool(refine)
+
+
+@torch.no_grad()
+def quantize_weight(w: torch.Tensor, group_size: int, bits: int = 4,
+                    refine: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The data-free grid of an (in, out) float kernel on its device, as
+    the reference's ``quantize_kernel_host(bits, refine=refine)``: (codes
+    (in, out) uint8, scales, zeros (in/g, out) fp32). int4 with refinement
+    (``refine_default``): the ALS grid (``ops/gptq.als_grid``, scales and
+    zeros on the f16 grid); else the min/max grid, ``scale = max((max -
+    min) / qmax, 1e-8)``, ``zero = min``, with IEEE divisions, so it is the
+    host function's bit for bit."""
+    if refine_default(bits, refine):
+        from .gptq import als_grid
+
+        return als_grid(w, group_size)
+    in_dim, out_dim = w.shape
+    g = w.float().reshape(in_dim // group_size, group_size, out_dim)
+    wmin, wmax = g.amin(dim=1), g.amax(dim=1)
+    qmax = float(2**bits - 1)
+    scale = ((wmax - wmin) / torch.full_like(wmin, qmax)).clamp_min(1e-8)
+    q = torch.round((g - wmin[:, None, :]) / scale[:, None, :]).clamp_(0, qmax)
+    return q.reshape(in_dim, out_dim).to(torch.uint8), scale, wmin
+
+
 @torch.no_grad()
 def quantize_linear(layer: nn.Linear, group_size: int, min_size: int = 1 << 16,
-                    min_dim: int = MIN_DIM, bits: int = 4) -> nn.Module:
+                    min_dim: int = MIN_DIM, bits: int = 4,
+                    refine: Optional[bool] = None) -> nn.Module:
     """Quantize-at-load of one float ``nn.Linear`` by the reference's rules
     (``quantize_linear_params``): layers with fewer than ``min_size`` weights,
     a dimension below ``min_dim`` or an input dim that the group does not
-    divide stay float; packed layers pass through. The min/max grid of
-    ``quantize_kernel_host`` is computed on the layer's own device, with
-    IEEE divisions, so it is the host function's bit for bit."""
+    divide stay float; packed layers pass through. The grid is
+    ``quantize_weight``'s, computed on the layer's own device."""
     if not isinstance(layer, nn.Linear):
         return layer
     out_dim, in_dim = layer.weight.shape
     if layer.weight.numel() < min_size or min(in_dim, out_dim) < min_dim or in_dim % group_size:
         return layer
-    w = layer.weight.float().t().reshape(in_dim // group_size, group_size, out_dim)
-    wmin, wmax = w.amin(dim=1), w.amax(dim=1)
-    qmax = float(2**bits - 1)
-    scale = ((wmax - wmin) / torch.full_like(wmin, qmax)).clamp_min(1e-8)
-    q = torch.round((w - wmin[:, None, :]) / scale[:, None, :]).clamp_(0, qmax)
-    q = q.reshape(in_dim, out_dim).to(torch.uint8)
-    out = QuantizedLinear(in_dim, out_dim, group_size, bias=layer.bias is not None,
-                          dtype=layer.weight.dtype, device=layer.weight.device, bits=bits)
+    return packed_linear(layer, *quantize_weight(layer.weight.t(), group_size, bits, refine),
+                         bits, group_size)
+
+
+@torch.no_grad()
+def packed_linear(like: nn.Linear, codes: torch.Tensor, scales: torch.Tensor,
+                  zeros: torch.Tensor, bits: int, group_size: int) -> QuantizedLinear:
+    """A ``QuantizedLinear`` of (codes (in, out) uint8, scales, zeros)
+    with ``like``'s bias, on its device, the bias in its dtype."""
+    k, n = codes.shape
+    out = QuantizedLinear(k, n, group_size, bias=like.bias is not None, dtype=like.weight.dtype,
+                          device=like.weight.device, bits=bits)
     if bits == 4:
-        out.q4.copy_(_pack_int4(q))
+        out.q4.copy_(_pack_int4(codes))
     else:
-        out.q8.copy_(q)
-    out.scales.copy_(scale)
-    out.zeros.copy_(wmin)
-    if layer.bias is not None:
-        out.bias.copy_(layer.bias)
+        out.q8.copy_(codes)
+    out.scales.copy_(scales)
+    out.zeros.copy_(zeros)
+    if like.bias is not None:
+        out.bias.copy_(like.bias)
     return out
 
 
 def quantize_module_(module: nn.Module, group_size: int = 32, bits: int = 4,
-                     overrides: Optional[Dict[str, Any]] = None) -> nn.Module:
+                     overrides: Optional[Dict[str, Any]] = None,
+                     refine: Optional[bool] = None) -> nn.Module:
     """Replace every eligible ``nn.Linear`` under ``module`` by its packed
-    form, in place (the reference's ``quantize_tree`` with the min/max grid;
-    GPTQ waits). ``overrides`` maps an attribute name to the bits of that
-    subtree, or None to leave it in its float dtype, wherever the name
+    form, in place (the reference's ``quantize_tree``: int4 on the ALS grid
+    unless refinement is off, int8 on the min/max grid; ``refine`` as in
+    ``refine_default``). ``overrides`` maps an attribute name to the bits of
+    that subtree, or None to leave it in its float dtype, wherever the name
     occurs (``MIXED_OVERRIDES``). Returns ``module``."""
     for name, child in list(module.named_children()):
         b = bits
@@ -314,7 +357,7 @@ def quantize_module_(module: nn.Module, group_size: int = 32, bits: int = 4,
                 continue
             b = overrides[name]
         if isinstance(child, nn.Linear):
-            setattr(module, name, quantize_linear(child, group_size, bits=b))
+            setattr(module, name, quantize_linear(child, group_size, bits=b, refine=refine))
         else:
-            quantize_module_(child, group_size, b, overrides)
+            quantize_module_(child, group_size, b, overrides, refine)
     return module

@@ -74,9 +74,16 @@ and the loaders fetch the rest. Reloading the MMDiT goes through the
 holds the load and capture times. ``quantize_mmdit`` converts the MMDiT
 on its own device, as the reference's quantize-at-load does:
 
-  "int4" (or True), "int8"  weight-only, the min/max grid (GPTQ waits); an
-                            already packed model (the 4-bit releases)
-                            passes through
+  "int4" (or True)          weight-only int4: a float model by GPTQ
+                            (``ops/gptq.gptq_quantize_mmdit``, calibrated
+                            on its own batch), or with
+                            ``DIFFUSIONKIT_TPU_GPTQ=0`` on the ALS grid
+                            (``DIFFUSIONKIT_TPU_QUANT_REFINE=0``: min/max);
+                            a failure of GPTQ itself falls back to that
+                            grid with a warning (a kernel or CUDA error
+                            propagates); an already packed model (the 4-bit
+                            releases) passes through
+  "int8"                    weight-only int8 on the min/max grid
   "w4a8"                    int4, then every int4 linear's per-channel
                             ``wscale``
   "w8a8"                    every eligible linear to ``W8A8Linear``, float
@@ -84,11 +91,20 @@ on its own device, as the reference's quantize-at-load does:
   "<mode>-mixed"            ``MIXED_OVERRIDES`` on a float model: ``ada``
                             at int8, the final layer and embedders float
 
+``quantizer`` records the last conversion: {"name": "gptq", "als",
+"minmax", "w8a8", "packed" (passed through) or "cached", "seconds"}; a
+request that loads the MMDiT logs it as ``quantizer`` and
+``quantize_time``. A quantized MMDiT loaded from its file is kept in the
+reference's disk cache (``model_io.quant_cache_path``; under
+``DIFFUSIONKIT_TPU_CACHE_DIR``, off with ``DIFFUSIONKIT_TPU_QUANT_CACHE=0``),
+read before the float file, so under ``low_memory_mode`` only the first
+request converts; an ALS or min/max model is never filed under a GPTQ tag.
+
 ``quantize_t5=True`` gives the T5 the SmoothQuant fold
 (``ops/smoothquant.smooth_t5``, calibrated with ``t5_tokenizer`` if it is
-set by then) and converts it to w8a8 on the device. The reference's
-quantized-tree disk cache, ``DIFFUSIONKIT_TPU_T5_SMOOTH`` switch,
-tensor-parallel loading and the data-parallel batch under a mesh wait for
+set by then; ``DIFFUSIONKIT_TPU_T5_SMOOTH=0`` skips it) and converts it to
+w8a8 on the device; a T5 loaded from its file is cached the same way.
+Tensor-parallel loading and the data-parallel batch under a mesh wait for
 later slices.
 """
 
@@ -99,6 +115,7 @@ import os
 import time
 from dataclasses import dataclass
 from functools import partial
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -111,7 +128,16 @@ from .models.clip import CLIPTextModel
 from .models.mmdit import MMDiT
 from .models.t5 import T5Encoder
 from .models.vae import VAEDecoder, VAEEncoder
-from .ops.quantized import MIXED_OVERRIDES, QuantizedLinear, add_wscale_, quantize_module_
+from .ops import kernels
+from .ops.gptq import gptq_quantize_mmdit
+from .ops.quantized import (
+    MIXED_OVERRIDES,
+    QUANT_VERSION,
+    QuantizedLinear,
+    add_wscale_,
+    quantize_module_,
+    refine_default,
+)
 from .ops.smoothquant import smooth_t5
 from .ops.w8a8 import W8A8Linear, w8a8_module_
 from .sampler import FlowSchedule, FluxSampler, ModelSamplingDiscreteFlow
@@ -167,6 +193,14 @@ def _holds(model: torch.nn.Module, types) -> bool:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _device_error(e: BaseException) -> bool:
+    """A kernel build or launch error, or an error of the CUDA runtime:
+    what the GPTQ fallback must not swallow."""
+    return isinstance(e, (kernels.KernelError, torch.OutOfMemoryError,
+                          getattr(torch, "AcceleratorError", ()))) or (
+        isinstance(e, RuntimeError) and "CUDA" in str(e))
 
 
 def _cfg_euler_step(
@@ -334,11 +368,11 @@ class DiffusionPipeline:
     production schedule. ``load`` and ``low_memory_mode`` (both on by
     default, as in the reference) load the models from their checkpoints
     and drop each after its phase (module docstring).
-    ``quantize_mmdit`` (module docstring) converts the assigned MMDiT;
-    weight-only modes pack at group ``quantize_group_size`` (the
-    reference's quantize-at-load, with the min/max grid until GPTQ is
-    ported). ``model_version`` (default SD3-medium) and ``use_t5`` (default
-    on, as the reference's; ``t5`` and ``t5_tokenizer`` must then be
+    ``quantize_mmdit`` (module docstring) converts the assigned or loaded
+    MMDiT; weight-only modes pack at group ``quantize_group_size`` (the
+    reference's quantize-at-load: GPTQ for int4 and w4a8 by default).
+    ``model_version`` (default SD3-medium) and ``use_t5`` (default on, as
+    the reference's; ``t5`` and ``t5_tokenizer`` must then be
     assigned, the tokenizer built with ``t5_max_length`` tokens) add the T5
     rows to the conditioning: 77 CLIP + 512 T5 tokens for SD3 and SD3.5.
     ``quantize_t5``: the w8a8 T5 (module docstring). ``local_ckpt``: the
@@ -402,6 +436,7 @@ class DiffusionPipeline:
         self.tokenizer_g = None
         self.t5_tokenizer = None
         self._t5: Optional[T5Encoder] = None
+        self.quantizer: Optional[Dict[str, Any]] = None
         if load:
             if low_memory_mode:
                 self.load_text_encoders()
@@ -422,7 +457,8 @@ class DiffusionPipeline:
         if model is not None and self.quantize_t5 and not _holds(model, W8A8Linear):
             # In place on the model's device: the SmoothQuant fold first
             # (exact in float), then every eligible linear to w8a8.
-            smooth_t5(model, self.t5_tokenizer)
+            if os.environ.get("DIFFUSIONKIT_TPU_T5_SMOOTH", "1") != "0":
+                smooth_t5(model, self.t5_tokenizer)
             w8a8_module_(model)
         self._t5 = model
 
@@ -432,32 +468,104 @@ class DiffusionPipeline:
 
     @mmdit.setter
     def mmdit(self, model: Optional[MMDiT]) -> None:
+        if model is not None and self.quant_mode:
+            t0 = time.perf_counter()
+            name = self._quantize(model)
+            _sync(self.device)
+            self.quantizer = {"name": name, "seconds": time.perf_counter() - t0}
+        self._scans.clear()  # the graphs captured the old model's weights
+        self._mmdit = model
+
+    def _quantize(self, model: MMDiT) -> str:
+        """``model`` converted in place for ``quantize_mmdit``; the name of
+        the quantizer that ran (``quantizer``)."""
         mode = self.quant_mode
-        if model is not None and mode == "w8a8":
+        if mode == "w8a8":
             # Float and packed linears alike (the reference's w8a8_tree also
             # re-expresses a 4-bit checkpoint); the -mixed overrides do not
             # apply to w8a8, as in the reference.
             w8a8_module_(model)
-        elif model is not None and mode:
-            # A model that holds packed linears is a pre-quantized one (the
-            # MLX 4-bit file, or a random packed init): it passes through,
-            # as the reference skips quantize_tree for such checkpoints.
-            if not _holds(model, (QuantizedLinear, W8A8Linear)):
-                quantize_module_(model, self.quantize_group_size, bits=8 if mode == "int8" else 4,
-                                 overrides=MIXED_OVERRIDES if self.quant_mixed else None)
-            if mode == "w4a8":
-                add_wscale_(model)
-        self._scans.clear()  # the graphs captured the old model's weights
-        self._mmdit = model
+            return "w8a8"
+        # A model that holds packed linears is a pre-quantized one (the MLX
+        # 4-bit file, a random packed init or the cache): it passes through,
+        # as the reference skips quantize_tree for such checkpoints.
+        name = "packed"
+        if not _holds(model, (QuantizedLinear, W8A8Linear)):
+            bits = 8 if mode == "int8" else 4
+            overrides = MIXED_OVERRIDES if self.quant_mixed else None
+            name = None
+            if bits == 4 and os.environ.get("DIFFUSIONKIT_TPU_GPTQ", "1") != "0":
+                try:
+                    gptq_quantize_mmdit(model, bits=4, group_size=self.quantize_group_size,
+                                        overrides=overrides)
+                    name = "gptq"
+                except Exception as e:
+                    if _device_error(e):
+                        raise
+                    # The layers GPTQ finished stay packed; the rest take
+                    # the data-free grid.
+                    logger.warning("GPTQ quantization failed (%s); falling back to the ALS grid",
+                                   e)
+                    gc.collect()
+            if name is None:
+                quantize_module_(model, self.quantize_group_size, bits=bits, overrides=overrides)
+                name = "als" if refine_default(bits) else "minmax"
+        if mode == "w4a8":
+            add_wscale_(model)
+        return name
 
     # -- loading models ---------------------------------------------------------
+
+    def _mode_tag(self) -> str:
+        return self.quant_mode + ("-mixed" if self.quant_mixed else "")
+
+    def _dtype_name(self) -> str:
+        return str(self.dtype).replace("torch.", "")
+
+    def _mmdit_cache(self) -> Optional[Path]:
+        """The quantized MMDiT's cache file (the reference's tag), or None
+        when nothing is quantized, the cache is off or the source is not
+        resolved."""
+        if not self.quant_mode:
+            return None
+        refine = os.environ.get("DIFFUSIONKIT_TPU_QUANT_REFINE", "1")
+        gptq = "1" if os.environ.get("DIFFUSIONKIT_TPU_GPTQ", "1") != "0" else "0"
+        tag = (f"mmdit_{self.model_version}_{self._mode_tag()}_g{self.quantize_group_size}"
+               f"_{self._dtype_name()}_q{QUANT_VERSION}_r{refine}_gptq{gptq}")
+        try:
+            src = model_io._resolve(self.model_version, model_io.MMDIT_CKPT[self.model_version],
+                                    self.local_ckpt)
+            return model_io.quant_cache_path(tag, src)
+        except Exception as e:
+            logger.info("no quantized-MMDiT cache (%s)", e)
+            return None
 
     def load_mmdit(self) -> None:
         """The MMDiT from ``model_version``'s checkpoint (``local_ckpt``
         first), in ``w16``'s dtype, on the device, through the ``mmdit``
-        setter (which quantizes it for ``quantize_mmdit``)."""
+        setter (which quantizes it for ``quantize_mmdit``). With
+        ``quantize_mmdit`` the cache is read first and written after a
+        conversion."""
+        cache = self._mmdit_cache()
+        if cache is not None and cache.exists():
+            logger.info("Loading quantized MMDiT from cache %s", cache)
+            t0 = time.perf_counter()
+            model = model_io.load_mmdit_cache(cache, self.model_version, self.dtype,
+                                              device=self.device)
+            if model is not None:
+                self.mmdit = model
+                _sync(self.device)
+                self.quantizer = {"name": "cached", "seconds": time.perf_counter() - t0}
+                return
         self.mmdit, _ = model_io.load_mmdit(self.model_version, self.dtype, self.local_ckpt,
                                             device=self.device)
+        if cache is not None:
+            if self.quantizer["name"] != "gptq" and "_gptq1_" in cache.name:
+                cache = cache.with_name(cache.name.replace("_gptq1_", "_gptq0_"))
+            try:
+                model_io.save_module_cache(self.mmdit, cache)
+            except OSError as e:  # a full disk: the cache is optional
+                logger.warning("quant cache write failed: %s", e)
 
     def load_decoder(self) -> None:
         """The VAE decoder, in ``w16``'s dtype (its activations in ``a16``'s)."""
@@ -482,7 +590,37 @@ class DiffusionPipeline:
             if self.t5_tokenizer is None:
                 self.t5_tokenizer = model_io.load_t5_tokenizer(self.t5_max_length)
             if self.t5 is None:
-                self.t5 = model_io.load_t5_encoder(self.dtype, device=self.device)
+                self.load_t5()
+
+    def _t5_cache(self) -> Optional[Path]:
+        """The w8a8 T5's cache file (the reference's tag), or None."""
+        if not self.quantize_t5:
+            return None
+        smooth = "smooth" if os.environ.get("DIFFUSIONKIT_TPU_T5_SMOOTH", "1") != "0" else "plain"
+        tag = f"t5_w8a8_{smooth}_{self._dtype_name()}_q{QUANT_VERSION}"
+        try:
+            return model_io.quant_cache_path(tag, model_io._resolve_aux(model_io.AUX_FILES["t5"]))
+        except Exception as e:
+            logger.info("no quantized-T5 cache (%s)", e)
+            return None
+
+    def load_t5(self) -> None:
+        """T5-XXL from its file through the ``t5`` setter; under
+        ``quantize_t5`` from the cache when it is there, else converted and
+        then cached."""
+        cache = self._t5_cache()
+        if cache is not None and cache.exists():
+            logger.info("Loading quantized T5 from cache %s", cache)
+            model = model_io.load_t5_cache(cache, self.dtype, device=self.device)
+            if model is not None:
+                self.t5 = model
+                return
+        self.t5 = model_io.load_t5_encoder(self.dtype, device=self.device)
+        if cache is not None:
+            try:
+                model_io.save_module_cache(self.t5, cache)
+            except OSError as e:
+                logger.warning("quant cache write failed: %s", e)
 
     def check_and_load_models(self) -> None:
         """Every model the pipeline runs, where it is None."""
@@ -831,7 +969,11 @@ class DiffusionPipeline:
         phase_end("text_encoding", t0)
         self._drop("t5", "clip_l", "clip_g")
 
+        self.quantizer = None
         log["denoising"]["load_time"] = self._load_for("mmdit", self.load_mmdit)
+        if self.quantizer is not None:
+            log["denoising"]["quantizer"] = self.quantizer["name"]
+            log["denoising"]["quantize_time"] = self.quantizer["seconds"]
         log["denoising"]["pre"] = self._mem()
         capture_s = StepGraph.capture_s
         t0 = time.perf_counter()

@@ -48,8 +48,10 @@ TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=2e-
 
 @pytest.fixture(autouse=True)
 def _minmax_grid(monkeypatch):
-    # The reference's quantize_tree takes the min/max int4 grid with this off.
+    # The reference's quantize_tree takes the min/max int4 grid with this off,
+    # and the pipelines take it (not GPTQ) with DIFFUSIONKIT_TPU_GPTQ=0.
     monkeypatch.setenv("DIFFUSIONKIT_TPU_QUANT_REFINE", "0")
+    monkeypatch.setenv("DIFFUSIONKIT_TPU_GPTQ", "0")
 
 
 def q8_weights(group, seed=0, k=K, n=N):

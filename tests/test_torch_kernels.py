@@ -2188,3 +2188,46 @@ def test_img2img_encoder_on_the_card(cuda, tmp_path):
     again, _ = pipe.denoise_latents(cond, pooled, **img2img)
     assert len(it) == 2 and torch.isfinite(first).all()
     assert torch.equal(loop, first) and torch.equal(again, first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("qmax", [15, 255])
+@pytest.mark.parametrize("identity", [False, True], ids=["gptq", "als"])
+def test_gptq_group_kernel_is_its_plain_version(cuda, gs, qmax, identity):
+    """The GPTQ group step (csrc/gptq.cu) against its plain version on the
+    card, bit for bit: codes, scales, zeros and err, over 3 groups of a
+    ragged width, with a block of U (rows of a wider matrix) or the
+    identity repeated (the ALS grid); and the ALS grid against the CPU's
+    (numpy's _als_refine_host there)."""
+    from diffusionkit_tpu_torch.ops.gptq import als_grid, gptq_group, gptq_group_plain
+
+    g = torch.Generator(device=cuda).manual_seed(gs + qmax)
+    w = 0.02 * torch.randn(3, gs, 333, generator=g, device=cuda)
+    w[0, :, :5] = 0.0
+    if identity:
+        u = torch.eye(gs, device=cuda).expand(3, gs, gs)
+    else:
+        wide = torch.triu(torch.rand(gs, 2 * gs, generator=g, device=cuda), 1) * 0.1
+        wide[:, :gs] += torch.eye(gs, device=cuda)
+        u = wide[:, :gs].unsqueeze(0).expand(3, gs, gs)
+    launches = gptq_group.launches
+    got = gptq_group(w, u, qmax)
+    want = gptq_group_plain(w, u, qmax)
+    torch.cuda.synchronize()
+    assert gptq_group.launches == launches + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if identity and qmax == 15:
+        k = 3 * gs
+        for a, b in zip(als_grid(w.reshape(k, 333), gs), als_grid(w.reshape(k, 333).cpu(), gs)):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_gptq_group_kernel_raises_on_other_group_sizes(cuda):
+    from diffusionkit_tpu_torch.ops.gptq import gptq_group
+
+    w = torch.zeros(1, 16, 128, device=cuda)
+    with pytest.raises(ValueError):
+        gptq_group(w, torch.eye(16, device=cuda)[None], 15)

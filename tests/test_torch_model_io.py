@@ -61,15 +61,16 @@ def to_torch(sd):
 
 
 @pytest.fixture(autouse=True)
-def no_hub(monkeypatch):
+def no_hub(monkeypatch, tmp_path):
     """The hub answers nothing: a loader that reaches it gets the error a
-    host with no network gets."""
+    host with no network gets. The quantized-model cache goes to the test's tmp dir."""
     import huggingface_hub
 
     def offline(repo, filename, *args, **kwargs):
         raise ConnectionError(f"offline: {repo}/{filename}")
 
     monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("DIFFUSIONKIT_TPU_CACHE_DIR", str(tmp_path / "cache"))
     monkeypatch.delenv("DIFFUSIONKIT_TPU_CKPT_DIR", raising=False)
     monkeypatch.setattr(huggingface_hub, "hf_hub_download", offline)
 

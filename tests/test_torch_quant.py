@@ -184,8 +184,10 @@ def test_quantize_at_load_matches_quantize_tree():
 
 @pytest.fixture(autouse=True)
 def _minmax_grid(monkeypatch):
-    # The reference's quantize_tree takes the min/max grid with this off.
+    # The reference's quantize_tree takes the min/max grid with this off, and
+    # the pipelines take it (not GPTQ) with DIFFUSIONKIT_TPU_GPTQ=0.
     monkeypatch.setenv("DIFFUSIONKIT_TPU_QUANT_REFINE", "0")
+    monkeypatch.setenv("DIFFUSIONKIT_TPU_GPTQ", "0")
 
 
 def test_init_mmdit_int4_builds_packed_blocks_only():

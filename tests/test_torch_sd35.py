@@ -263,12 +263,15 @@ def test_quantized_upcast_mmdit_matches_jax(mode, request, monkeypatch):
     assert rel_l2(got, want) < 3e-2, rel_l2(got, want)
 
 
-def test_quantize_at_load_upcasts_after_quantizing():
+def test_quantize_at_load_upcasts_after_quantizing(monkeypatch):
     """``DiffusionPipeline(quantize_mmdit=...)`` on a bf16 SD3.5: block 1's
     linears are quantized from its bf16 values (the same packed leaves as
     the bf16 block 0 would give them) and keep fp32 biases; w4a8 adds
-    fp32 ``wscale``."""
+    fp32 ``wscale``. The data-free grid (``DIFFUSIONKIT_TPU_GPTQ=0``), so
+    each linear's leaves are ``quantize_linear``'s."""
     from diffusionkit_tpu_torch.models import init_mmdit
+
+    monkeypatch.setenv("DIFFUSIONKIT_TPU_GPTQ", "0")
 
     cfg = port_config(WIDE_SD35, torch.bfloat16)
     for mode in ("int4", "w4a8", "w8a8"):
