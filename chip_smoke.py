@@ -239,6 +239,30 @@ Phases, each raising on failure (the script then exits non-zero):
         activations and in bf16, each error against the float output
         printed; then each model's block linears (q, k, v, o, fc1, fc2)
         alone in the float model, GPTQ's error at most 1.1x ALS's;
+     q. f's pipeline served over HTTP: GenerationServer(max_batch=8)
+        (diffusionkit_tpu_torch.serve) on a ThreadingHTTPServer at
+        127.0.0.1 in this process, at f's settings: /healthz 200 with
+        backend "cuda" and the card's name; /warmup to batch 8 (buckets 1,
+        2, 4, 8; the graphs it captured, their seconds and the memory
+        after printed), /healthz and /metrics polled meanwhile, every
+        answer 200; then SERVE_RUNS rounds each of 1, 4 and 8 concurrent
+        clients (bench_serving's prompts, round r's seeds shifted by r, as
+        the tool's timed runs shift them): each reply
+        a PNG equal bit for bit to the uint8 image the pipeline decoded
+        for that job (read at _decode_batched_u8), a round's images
+        distinct, each first round's latents within 3e-2 relative L2 of
+        the request's single run, no graph captured after /warmup; one
+        num_images=2 request on the JSON path, two distinct images;
+        /metrics served = the requests sent, no error, timeout or
+        rejection (batches, occupancy, latency p50 and p95 printed); the
+        kernels launched those of f's requests, every one of them;
+        images/min at batches 1, 4 and 8 through HTTP (first send to last
+        reply) beside bench_serving.run on the same pipeline; drain()
+        drains and a request after it gets 503. In path n, the CLI (python
+        -m diffusionkit_tpu_torch.scripts.generate_images) in a subprocess
+        on a's request 0 from n's files, with its default flags (low
+        memory) and with --benchmark-mode: each PNG a's image bit for bit,
+        each wall time printed;
      o. b's two requests through FluxPipeline(model_version=
         ...-schnell-4bit-quantized, load=False, low_memory_mode=False) with
         SyntheticT5Tokenizer(256) assigned, then check_and_load_models(),
@@ -247,8 +271,8 @@ Phases, each raising on failure (the script then exits non-zero):
         interleaved RoPE order, scales and biases F32; ae.safetensors;
         T5-XXL's and CLIP-L's HF files): every loaded model b's bit for bit,
         the images b's, the launches b's;
-     (run in the order a, a', a'', l, n, p, h, h', d, e, b, o, c, m, g, g', f, i, i',
-     k, j,
+     (run in the order a, a', a'', l, n (and the CLI), p, h, h', d, e, b, o, c, m, g,
+     g', f, q, i, i', k, j,
      so h, d and e share a's encoders, h a's MMDiT, g c's models and f g's,
      before f converts the T5; each later path frees the previous MMDiT);
   7. two denoise steps of each path (the graph's replays; the synced
@@ -264,19 +288,26 @@ kernels' summary as JSON, and before that the card's name and power limit.
 
 from __future__ import annotations
 
+import base64
 import collections
 import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -301,6 +332,7 @@ from diffusionkit_tpu_torch.config import (
 )
 from diffusionkit_tpu_torch import model_io
 from diffusionkit_tpu_torch.flops import device_peak_flops, mmdit_step_flops
+from diffusionkit_tpu_torch.graphs import StepGraph
 from diffusionkit_tpu_torch.models import (
     Autoencoder,
     VAEEncoder,
@@ -368,6 +400,7 @@ from diffusionkit_tpu_torch.ops.w4a8_matmul import (
 from diffusionkit_tpu_torch.ops.w8a8 import W8A8Linear, w8a8_module_
 from diffusionkit_tpu_torch.parallel import local_mesh, merge_chunk_stats
 from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline, _encode_step
+from diffusionkit_tpu_torch.serve import GenerationServer
 from diffusionkit_tpu_torch.tokenizer import (
     CLIPTokenizer,
     SyntheticT5Tokenizer,
@@ -379,6 +412,7 @@ from diffusionkit_tpu_torch.tools import (
     bench_gemv,
     bench_mat,
     bench_rows,
+    bench_serving,
     bench_w4a8_mat,
     device_ms,
     device_ms_cold,
@@ -537,6 +571,11 @@ FLUX_W4A8 = dataclasses.replace(FLUX, name="flux-w4a8")
 SD3_W8A8 = dataclasses.replace(SD3, name="sd3-w8a8")
 SD3_INT8 = dataclasses.replace(SD3, name="sd3-int8")
 FLUX_E2E = dataclasses.replace(FLUX, name="flux-w4a8-t5w8a8")
+# Path q: f's pipeline behind GenerationServer over HTTP, at f's settings;
+# its requests bench_serving's prompts and seeds.
+FLUX_SERVE = dataclasses.replace(FLUX_E2E, name="flux-w4a8-serve")
+SERVE_BATCHES = (1, 4, 8)
+SERVE_RUNS = 1  # rounds a batch, and bench_serving's timed runs; 1 keeps the smoke near 600 s
 # bench.py's flux-2048: 16384 image + 256 text tokens; and its request 0
 # through the default dispatch, the ring's flash twin.
 FLUX_RING = dataclasses.replace(FLUX, name="flux-w4a8-2048-ring", latent=(256, 256))
@@ -3172,6 +3211,253 @@ def serve_batch(pipe, path: Path, single_latents, tag: str) -> None:
         f"{peak!r} GiB [{tag}]")
 
 
+# -- serving over HTTP (path q) and the CLI (in path n) ------------------------
+
+
+def http_post(url: str, payload: dict, path: str = "/generate"):
+    """(status, headers, body) of a POST; an HTTP error's own status."""
+    req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def http_get(url: str, path: str):
+    with urllib.request.urlopen(url + path, timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def png_array(data: bytes) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)))
+
+
+def serve_round(url: str, jobs: list) -> tuple:
+    """``jobs`` ((prompt, seed) each) sent at once, one client thread a
+    job: (the replies in job order, seconds from the first send to the last
+    reply)."""
+    side = 8 * FLUX_SERVE.latent[0]
+    replies = [None] * len(jobs)
+
+    def send(i, text, seed):
+        replies[i] = http_post(url, {"prompt": text, "seed": seed, "height": side,
+                                     "width": side, "steps": FLUX_SERVE.steps,
+                                     "cfg": FLUX_SERVE.cfg})
+
+    threads = [threading.Thread(target=send, args=(i, *job)) for i, job in enumerate(jobs)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{FLUX_SERVE.name}: a client got no reply in 600 s")
+    return replies, seconds
+
+
+def http_path(pipe, f_launches: dict, tag: str) -> dict:
+    """Path q (module docstring): f's pipeline behind GenerationServer on a
+    ThreadingHTTPServer at 127.0.0.1, in this process. Returns its
+    launches."""
+    path = FLUX_SERVE
+    side = 8 * path.latent[0]
+    srv = GenerationServer(pipe, max_batch=8)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.handler_class())
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        status, health = http_get(url, "/healthz")
+        if not (status == 200 and health["backend"] == "cuda"
+                and health["device_kind"] == torch.cuda.get_device_name(0)):
+            raise AssertionError(f"{path.name}: /healthz said {status} {health}")
+        log(f"  /healthz: {health}")
+
+        # /warmup, with a client polling /healthz and /metrics meanwhile.
+        polls, warming = [], threading.Event()
+
+        def poll():
+            while not warming.is_set():
+                for probe in ("/healthz", "/metrics"):
+                    try:
+                        polls.append(http_get(url, probe)[0])
+                    except Exception as e:  # noqa: BLE001 - recorded as a failed poll
+                        polls.append(repr(e))
+                time.sleep(0.05)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        captures, capture_s = StepGraph.captures, StepGraph.capture_s
+        poller.start()
+        t0 = time.perf_counter()
+        try:
+            status, _, body = http_post(url, {"batch": 8, "height": side, "width": side,
+                                              "steps": path.steps, "cfg": path.cfg}, "/warmup")
+        finally:
+            warming.set()
+            poller.join(timeout=60)
+        seconds = time.perf_counter() - t0
+        body = json.loads(body)
+        log(f"  /warmup (batch 8): {status} {body}; {StepGraph.captures - captures} step graphs "
+            f"captured ({pipe._denoise_chunk_images(path.latent)} images a denoise chunk), "
+            f"capture {StepGraph.capture_s - capture_s!r} s, warmup {seconds!r} s, "
+            f"{torch.cuda.memory_allocated() / 2**30!r} GiB allocated after; "
+            f"{len(polls)} /healthz and /metrics polls meanwhile [{tag}]")
+        if status != 200 or body["compiled_buckets"] != [1, 2, 4, 8]:
+            raise AssertionError(f"{path.name}: /warmup said {status} {body}")
+        if not polls or any(p != 200 for p in polls):
+            raise AssertionError(f"{path.name}: a poll during /warmup failed: {polls}")
+
+        # The served requests: what the pipeline decoded for each batch is
+        # read where it hands the latents to _decode_batched_u8.
+        decoded, batches = [], []
+        decode, batched = pipe._decode_batched_u8, pipe.generate_images_batched
+
+        def decode_hook(latents):
+            u8 = decode(latents)
+            decoded.append((latents.clone(), u8))
+            return u8
+
+        def batched_hook(texts, **kw):
+            images = batched(texts, **kw)
+            batches.append((list(texts), list(kw["seeds"]), decoded[-1]))
+            return images
+
+        pipe._decode_batched_u8, pipe.generate_images_batched = decode_hook, batched_hook
+        try:
+            capture_s = StepGraph.capture_s
+            torch.cuda.synchronize()
+            reset_counts()
+            sent, http_rows, served = 0, [], []
+            for b in SERVE_BATCHES:
+                times = []
+                for r in range(SERVE_RUNS):
+                    jobs = [(bench_serving.PROMPTS[i], i + r) for i in range(b)]
+                    first = len(batches)
+                    replies, dt = serve_round(url, jobs)
+                    sent += b
+                    times.append(dt)
+                    images = []
+                    for (text, seed), (status, headers, data) in zip(jobs, replies):
+                        if status != 200 or headers["Content-Type"] != "image/png":
+                            raise AssertionError(f"{path.name}: {status} for {text!r}, seed {seed}")
+                        got = png_array(data)
+                        texts, seeds, (latents, u8) = next(
+                            c for c in batches[first:] if (text, seed) in zip(c[0], c[1]))
+                        i = list(zip(texts, seeds)).index((text, seed))
+                        if got.shape != (side, side, 3) or not np.array_equal(got, u8[i]):
+                            raise AssertionError(f"{path.name}: the PNG for {text!r}, seed {seed} "
+                                                 "is not what the pipeline decoded for it")
+                        images.append(got)
+                        if r == 0:
+                            served.append((text, seed, latents[i]))
+                    if any(np.array_equal(images[i], images[j])
+                           for i in range(b) for j in range(i)):
+                        raise AssertionError(f"{path.name}: two requests of a round of {b} "
+                                             "got the same image")
+                http_rows.append({"batch": b, "s_per_batch": statistics.mean(times),
+                                  "images_per_min": 60.0 * b / statistics.mean(times)})
+            status, _, data = http_post(url, {"prompt": bench_serving.PROMPTS[0], "seed": 0,
+                                              "height": side, "width": side,
+                                              "num_images": 2})
+            sent += 1
+            pair = [png_array(base64.b64decode(im)) for im in json.loads(data)["images"]]
+            if status != 200 or len(pair) != 2 or np.array_equal(*pair):
+                raise AssertionError(f"{path.name}: num_images=2 gave {status}, not two distinct "
+                                     "images")
+            if not all(np.array_equal(pair[i], decoded[-1][1][i]) for i in range(2)):
+                raise AssertionError(f"{path.name}: num_images=2's images are not what the "
+                                     "pipeline decoded")
+            torch.cuda.synchronize()
+            launches = counts()
+            if StepGraph.capture_s != capture_s:
+                raise AssertionError(f"{path.name}: a request after /warmup captured a graph")
+            log(f"  {sent} requests: every PNG the pipeline's decode bit for bit, the images of "
+                f"each round distinct; num_images=2 on the JSON path; no graph captured after "
+                f"/warmup")
+
+            # Each first round's latents against the request's single run.
+            singles, rels = {}, []
+            for text, seed, latents in served:
+                if (text, seed) not in singles:
+                    pipe.generate_image(text, seed=seed, num_steps=path.steps,
+                                        cfg_weight=path.cfg, latent_size=path.latent,
+                                        verbose=False)
+                    singles[(text, seed)] = decoded[-1][0][0]
+                rels.append(rel_l2(latents, singles[(text, seed)]))
+            log(f"  served latents (the first round at each batch) relative L2 against each "
+                f"request's single run {rels!r} (tolerance {TWIN_RTOL})")
+            if not max(rels) < TWIN_RTOL:
+                raise AssertionError(f"{path.name}: served latents off their single runs")
+        finally:
+            del pipe._decode_batched_u8, pipe.generate_images_batched
+
+        m = http_get(url, "/metrics")[1]
+        log(f"  /metrics: {m}")
+        if m["served"] != sent or any(m[k] for k in ("errors", "timeouts", "rejected")):
+            raise AssertionError(f"{path.name}: /metrics after {sent} requests: {m}")
+        log(f"  batches {m['batches']!r}, batch occupancy {m['batch_occupancy']!r}, latency "
+            f"p50 {m['latency_p50_s']!r} s, p95 {m['latency_p95_s']!r} s [{tag}]")
+
+        used = {k for k, n in launches.items() if n}
+        want = {k for k, n in f_launches.items() if n}
+        named = {"mod_ln", "flash_attention_bshd", "mod_ln_quantize", "quantize",
+                 "w4a8_matmul[gelu_quant]", "w4a8_matmul[grouped_xs]", "w4a8_matmul[norm_rope]",
+                 "w4a8_matmul[gemv]", "w8_matmul", "dequant_w8"}
+        log(f"  launches during {path.name}'s requests: {launches}")
+        if used != want or not named <= used:
+            raise AssertionError(f"{path.name}: kernels launched {sorted(used)}, path f's "
+                                 f"{sorted(want)}")
+
+        rows = bench_serving.run(pipe, side, SERVE_BATCHES, n_runs=SERVE_RUNS)
+        for http_row, row in zip(http_rows, rows):
+            log(f"  batch {row['batch']}: {http_row['images_per_min']!r} images/min through "
+                f"HTTP ({http_row['s_per_batch']!r} s a round, first send to last reply), "
+                f"{row['images_per_min']!r} images/min by bench_serving.run "
+                f"({row['s_per_batch']!r} s a batch) [{tag}]")
+
+        status = srv.drain(deadline_s=60.0)
+        late = http_post(url, {"prompt": "late", "height": side, "width": side})[0]
+        log(f"  drain: {status}; a request after it: {late}")
+        if status["drained"] is not True or late != 503:
+            raise AssertionError(f"{path.name}: drain said {status}, a late request {late}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.pipeline = None  # the idle worker thread keeps the server, not the models
+    return launches
+
+
+def cli_runs(want: np.ndarray, scratch: str, tag: str) -> None:
+    """In path n, under its DIFFUSIONKIT_TPU_CKPT_DIR: the CLI in a
+    subprocess on a's request 0, once with its default flags (low memory)
+    and once with --benchmark-mode; each PNG a's image bit for bit."""
+    text, seed = SD3.requests[0]
+    side = str(8 * SD3.latent[0])
+    for flags in ((), ("--benchmark-mode",)):
+        out = os.path.join(scratch, f"cli_{len(flags)}.png")
+        cmd = [sys.executable, "-m", "diffusionkit_tpu_torch.scripts.generate_images",
+               "--model-version", SD3_MEDIUM, "--prompt", text, "--seed", str(seed),
+               "--steps", str(SD3.steps), "--cfg", str(SD3.cfg), "--height", side,
+               "--width", side, "-o", out, *flags]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI {' '.join(flags)} exited {proc.returncode}: "
+                                 f"{proc.stderr[-4000:]}")
+        got = png_array(open(out, "rb").read())
+        log(f"  CLI {' '.join(cmd[3:])}: {wall!r} s wall [{tag}]")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"the CLI {' '.join(flags)}: its PNG is not path a's request-0 "
+                                 "image")
+    log("  both CLI PNGs are path a's request-0 image bit for bit")
+
+
 # -- img2img (paths l and m) and the generic Autoencoder ----------------------
 
 # The smoke's checkpoint files are written by the port's own writer (the
@@ -3670,6 +3956,9 @@ def loaded_sd3_path(prev: DiffusionPipeline, served: dict, scratch: str, tag: st
             got = serve_loaded(pipe, SD3_LOADED, SD3, SD3_2b, served,
                                ("mmdit", "decoder", "clip_l", "clip_g"), tag)
             peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            log("phase 6n, CLI: python -m diffusionkit_tpu_torch.scripts.generate_images on a's "
+                "request 0 from these files, in a subprocess")
+            cli_runs(served["images"][0], scratch, tag)
         log(f"  {SD3_LOADED.name}: peak {peak!r} GiB above the {base / 2**30!r} GiB allocated "
             f"before it (a's peak {served['peak']!r} GiB) [{tag}]")
         if peak >= served["peak"]:
@@ -4351,6 +4640,11 @@ def main() -> None:
         log(f"phase 7{letter}: where a {path.name} step's device time goes (torch.profiler)")
         families[path.name] = profile_steps(pipe, path, served["step_ms"], served["loop_ms"], tag)
         walls[path.name] = (served["step_ms"], served["loop_ms"])
+        if path is FLUX_E2E:
+            log(f"phase 6q: main path {FLUX_SERVE.name}: path f's pipeline behind "
+                f"GenerationServer(max_batch=8) on an HTTP server at 127.0.0.1 in this process "
+                f"({8 * FLUX_SERVE.latent[0]}², {FLUX_SERVE.steps} steps, CFG {FLUX_SERVE.cfg})")
+            launches[FLUX_SERVE.name] = http_path(pipe, served["launches"], tag)
         if path in (SD3, FLUX_W4A8):
             log(f"phase 6{letter}, batch: generate_image(num_images={NUM_IMAGES}) and "
                 f"generate_images_batched on {path.name}'s models")

@@ -24,7 +24,8 @@ after it (nothing ran) and added once for each replay.
 
 ``StepGraph.capture_s`` sums the seconds of every warm-up and capture in
 the process (the capture's start waits for the warm-up), so a caller reads
-its change over a call: the pipelines' ``capture_time``.
+its change over a call: the pipelines' ``capture_time``; ``captures``
+counts the captures.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ class StepGraph:
     tensors of one CUDA device, captured once and replayed."""
 
     capture_s = 0.0  # every StepGraph's warm-ups and captures, in seconds
+    captures = 0  # every StepGraph's captures
 
     def __init__(self, step: Callable[[], None], device: torch.device):
         self.step = step
@@ -64,6 +66,7 @@ class StepGraph:
         torch.cuda.current_stream(self.device).wait_stream(stream)
         self.graph = graph
         StepGraph.capture_s += time.perf_counter() - t0
+        StepGraph.captures += 1
 
     def run(self, steps: int) -> None:
         """Take ``steps`` steps: on the first call the eager warm-up is the

@@ -79,10 +79,12 @@ on its own device, as the reference's quantize-at-load does:
                             on its own batch), or with
                             ``DIFFUSIONKIT_TPU_GPTQ=0`` on the ALS grid
                             (``DIFFUSIONKIT_TPU_QUANT_REFINE=0``: min/max);
-                            a failure of GPTQ itself falls back to that
-                            grid with a warning (a kernel or CUDA error
-                            propagates); an already packed model (the 4-bit
-                            releases) passes through
+                            a failure of GPTQ itself, at any layer, puts
+                            the whole float model on that grid with a
+                            warning (the linears GPTQ may replace are kept
+                            on the host while it runs; a kernel or CUDA
+                            error propagates); an already packed model (the
+                            4-bit releases) passes through
   "int8"                    weight-only int8 on the min/max grid
   "w4a8"                    int4, then every int4 linear's per-channel
                             ``wscale``
@@ -129,7 +131,7 @@ from .models.mmdit import MMDiT
 from .models.t5 import T5Encoder
 from .models.vae import VAEDecoder, VAEEncoder
 from .ops import kernels
-from .ops.gptq import gptq_quantize_mmdit
+from .ops.gptq import eligible, gptq_quantize_mmdit
 from .ops.quantized import (
     MIXED_OVERRIDES,
     QUANT_VERSION,
@@ -201,6 +203,33 @@ def _device_error(e: BaseException) -> bool:
     return isinstance(e, (kernels.KernelError, torch.OutOfMemoryError,
                           getattr(torch, "AcceleratorError", ()))) or (
         isinstance(e, RuntimeError) and "CUDA" in str(e))
+
+
+def _host_linears(model: torch.nn.Module, group_size: int) -> list:
+    """(parent, attribute, weight, bias) of every linear of ``model`` that
+    GPTQ may replace (``ops.gptq.eligible``), its tensors copied to the
+    host."""
+    kept = []
+    for parent in model.modules():
+        for attr, layer in parent.named_children():
+            if eligible(layer, group_size):
+                bias = None if layer.bias is None else layer.bias.detach().cpu()
+                kept.append((parent, attr, layer.weight.detach().cpu(), bias))
+    return kept
+
+
+def _restore_linears(kept: list, device: torch.device) -> None:
+    """Each linear of ``kept`` that was replaced put back as the float
+    ``nn.Linear`` it was, on ``device``."""
+    for parent, attr, weight, bias in kept:
+        if isinstance(getattr(parent, attr), torch.nn.Linear):
+            continue
+        layer = torch.nn.Linear(weight.shape[1], weight.shape[0], bias=bias is not None,
+                                device="meta")
+        layer.weight = torch.nn.Parameter(weight.to(device))
+        if bias is not None:
+            layer.bias = torch.nn.Parameter(bias.to(device))
+        setattr(parent, attr, layer)
 
 
 def _cfg_euler_step(
@@ -495,6 +524,11 @@ class DiffusionPipeline:
             overrides = MIXED_OVERRIDES if self.quant_mixed else None
             name = None
             if bits == 4 and os.environ.get("DIFFUSIONKIT_TPU_GPTQ", "1") != "0":
+                # GPTQ swaps linears in place, layer by layer: the float
+                # ones it may replace are kept on the host, so a failure
+                # partway puts the whole float model on the ALS grid, as
+                # the reference's functional fallback does.
+                kept = _host_linears(model, self.quantize_group_size)
                 try:
                     gptq_quantize_mmdit(model, bits=4, group_size=self.quantize_group_size,
                                         overrides=overrides)
@@ -502,11 +536,11 @@ class DiffusionPipeline:
                 except Exception as e:
                     if _device_error(e):
                         raise
-                    # The layers GPTQ finished stay packed; the rest take
-                    # the data-free grid.
                     logger.warning("GPTQ quantization failed (%s); falling back to the ALS grid",
                                    e)
                     gc.collect()
+                    _restore_linears(kept, self.device)
+                del kept
             if name is None:
                 quantize_module_(model, self.quantize_group_size, bits=bits, overrides=overrides)
                 name = "als" if refine_default(bits) else "minmax"
@@ -881,12 +915,18 @@ class DiffusionPipeline:
     # -- decoding ------------------------------------------------------------
 
     @torch.inference_mode()
+    def decode_latents_to_image(self, x_t: torch.Tensor) -> torch.Tensor:
+        """Pixels in [0, 1] (N, H, W, 3) on the device: the VAE decoder in
+        the activation dtype, then ``clip(x / 2 + 0.5, 0, 1)`` (the
+        reference's ``_decode_step``)."""
+        x = self.decoder(x_t.to(self.activation_dtype))
+        return torch.clamp(x / 2 + 0.5, 0.0, 1.0)
+
+    @torch.inference_mode()
     def decode_latents_to_u8(self, latents: torch.Tensor) -> torch.Tensor:
-        """uint8 pixels (N, H, W, 3) decoded on the device: the VAE in the
-        activation dtype, then ``floor(clip(x/2 + 0.5, 0, 1) * 255)``."""
-        x = self.decoder(latents.to(self.activation_dtype))
-        x = torch.clamp(x / 2 + 0.5, 0.0, 1.0)
-        return torch.floor(x * 255.0).to(torch.uint8)
+        """uint8 pixels (N, H, W, 3) decoded on the device:
+        ``floor(decode_latents_to_image(latents) * 255)``."""
+        return torch.floor(self.decode_latents_to_image(latents) * 255.0).to(torch.uint8)
 
     def _decode_batched_u8(self, latents: torch.Tensor) -> np.ndarray:
         """A batch decoded in chunks of one 1024² image's area (the VAE's

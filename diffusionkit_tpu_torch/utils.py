@@ -1,4 +1,5 @@
-"""Logging, device memory statistics and budgets, and image metrics."""
+"""Logging, device memory statistics and budgets, the inference context, and
+image metrics."""
 
 from __future__ import annotations
 
@@ -62,6 +63,33 @@ def hbm_scale(device=None) -> float:
     if (device is not None and device.type != "cuda") or not torch.cuda.is_available():
         return 1.0
     return max(1.0, torch.cuda.get_device_properties(device).total_memory / 16e9)
+
+
+def inference_context(device=None) -> Dict[str, object]:
+    """OS and device report, the reference's ``utils.inference_context``
+    with ``torch`` in place of ``jax``: ``backend`` is the device's type,
+    "cuda" or "cpu" (``device`` None: "cuda" where a card is there);
+    ``process_index`` and ``num_processes`` are the ``torch.distributed``
+    rank and world size when it is initialised, else 0 and 1."""
+    import platform
+
+    import torch.distributed as dist
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    distributed = dist.is_available() and dist.is_initialized()
+    return {
+        "os": f"{platform.system()} {platform.release()}",
+        "python": platform.python_version(),
+        "torch": torch.__version__,
+        "backend": device.type,
+        "device_kind": torch.cuda.get_device_name(device) if cuda else "cpu",
+        "num_devices": torch.cuda.device_count() if cuda else 1,
+        "process_index": dist.get_rank() if distributed else 0,
+        "num_processes": dist.get_world_size() if distributed else 1,
+    }
 
 
 def compute_psnr(reference: np.ndarray, proxy: np.ndarray) -> float:

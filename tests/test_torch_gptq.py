@@ -28,7 +28,6 @@ The JAX reference trees are computed once per module.
 
 import copy
 import dataclasses
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -474,31 +473,53 @@ def test_pipeline_quantizer_switches(case, quiet_env, monkeypatch):
     assert same_state(pipe.mmdit, want)
 
 
-@pytest.mark.parametrize("error", ["gptq", "kernel"])
-def test_pipeline_gptq_fallback(error, quiet_env, monkeypatch, caplog):
-    """A failure of GPTQ itself falls back to the ALS grid with a warning;
-    a kernel error propagates."""
+@pytest.mark.parametrize("error", ["gptq@1", "gptq@6", "kernel"])
+def test_pipeline_gptq_fallback(error, quiet_env, monkeypatch):
+    """GPTQ failing at its 1st or 6th linear (after the earlier ones were
+    swapped for packed ones) falls back with a warning to the ALS grid on
+    the whole float model, as the reference's functional fallback: the
+    MMDiT equals ``quantize_module_`` of a float copy bit for bit, is named
+    "als" and is cached under the ``_gptq0_`` tag. A kernel error
+    propagates."""
     import diffusionkit_tpu_torch.pipeline as pl
 
-    exc = (NotImplementedError("an exotic config") if error == "gptq"
-           else kernels.KernelError("gptq_group failed with CUDA error 700"))
-
-    def fail(*args, **kwargs):
-        raise exc
-
-    monkeypatch.setattr(pl, "gptq_quantize_mmdit", fail)
-    pipe = FluxPipeline(load=False, low_memory_mode=False, device="cpu", quantize_mmdit="int4",
-                        quantize_group_size=32)
-    model = wide_flux()
     if error == "kernel":
+        def fail(*args, **kwargs):
+            raise kernels.KernelError("gptq_group failed with CUDA error 700")
+
+        monkeypatch.setattr(pl, "gptq_quantize_mmdit", fail)
+        pipe = FluxPipeline(load=False, low_memory_mode=False, device="cpu",
+                            quantize_mmdit="int4", quantize_group_size=32)
         with pytest.raises(kernels.KernelError):
-            pipe.mmdit = model
+            pipe.mmdit = wide_flux()
         return
+
+    fail_at = int(error.split("@")[1])
+    quantize_mat, calls, packed = tg.quantize_mat, [], []
+
+    def fail_at_call(layer, *args, **kwargs):
+        calls.append(layer)
+        if len(calls) == fail_at:
+            raise NotImplementedError("an exotic config")
+        out = quantize_mat(layer, *args, **kwargs)
+        packed.append(out is not layer)
+        return out
+
+    model = wide_flux()
     want = tq.quantize_module_(copy.deepcopy(model), 32)
-    with caplog.at_level(logging.WARNING):
-        pipe.mmdit = model
+    ckpt = quiet_env / "flux-schnell.safetensors"
+    ckpt.write_bytes(b"float weights")
+    monkeypatch.setattr(tg, "quantize_mat", fail_at_call)
+    monkeypatch.setattr(model_io, "load_mmdit", lambda *a, **k: (model, None))
+    pipe = FluxPipeline(load=False, low_memory_mode=False, device="cpu", quantize_mmdit="int4",
+                        quantize_group_size=32, local_ckpt=str(ckpt))
+    pipe.load_mmdit()
+    assert len(calls) == fail_at and any(packed) == (fail_at > 1)
     assert pipe.quantizer["name"] == "als"
+    assert kinds(pipe.mmdit) == kinds(want)
     assert same_state(pipe.mmdit, want)
+    (name,) = cache_files(quiet_env)
+    assert "_gptq0_" in name and "_gptq1_" not in name
 
 
 # -- the caches ---------------------------------------------------------------------------------

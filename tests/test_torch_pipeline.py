@@ -9,6 +9,7 @@ seed, CFG 5.0 and 2 Euler steps at latent 8x8.
 
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -172,11 +173,40 @@ def test_port_never_imports_jax():
         "fused_quant, int4_matmul, kernels, launches, norms, quantized, rope, smoothquant\n"
         "from diffusionkit_tpu_torch import parallel\n"
         "from diffusionkit_tpu_torch.parallel import mesh, ring_attention\n"
-        "from diffusionkit_tpu_torch.ops import w4a8_matmul, w8a8\n"
+        "from diffusionkit_tpu_torch.ops import gptq, w4a8_matmul, w8a8\n"
+        "from diffusionkit_tpu_torch import serve\n"
+        "from diffusionkit_tpu_torch.scripts import generate_images\n"
         "from diffusionkit_tpu_torch.tools import bench_flash, bench_gemv, bench_mat, bench_rows, "
-        "bench_w4a8_mat, microbench_int8, sass_diff\n"
+        "bench_serving, bench_w4a8_mat, microbench_int8, sass_diff\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'diffusionkit_tpu.')))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["-m diffusionkit_tpu_torch.serve",
+                                   "-m diffusionkit_tpu_torch.scripts.generate_images",
+                                   "examples/generate_torch.py"])
+def test_port_entry_points_run_without_jax(entry):
+    """``--help`` of the server, the CLI and the example exits 0 with no
+    ``jax`` or JAX-package module loaded."""
+    kind, target = entry.split(" ") if entry.startswith("-m") else ("path", entry)
+    root = Path(__file__).resolve().parent.parent
+    run = (f"runpy.run_module({target!r}, run_name='__main__')" if kind == "-m"
+           else f"runpy.run_path({str(root / target)!r}, run_name='__main__')")
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['prog', '--help']\n"
+        "try:\n"
+        f"    {run}\n"
+        "except SystemExit as e:\n"
+        "    code = e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'diffusionkit_tpu.')))\n"
+        "assert not bad, bad\n"
+        "sys.exit(code)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=root)
+    assert proc.returncode == 0, proc.stderr
+    assert "--help" in proc.stdout
