@@ -105,6 +105,10 @@ Phases, each raising on failure (the script then exits non-zero):
      kernel and with the plain version; the group step at SD3's q/k/v,
      those weights' and FLUX's q/k/v + fc1 widths timed beside its plain
      version and its bytes bound;
+  3-4h. the two-pass D and #4 (a row split over tensor-parallel ranks) at
+     the split paths' shapes, D at (256, 5120) and (4352, 1536), #4 at
+     (2048, 3072): on whole rows and over two halves (their absmaxes
+     combined by max), bit for bit the one-pass kernels, both forms timed;
   every kernel's time is printed beside its bound (the larger of its
   operations over the card's peak for their type and its bytes over
   3.35 TB/s) and, for flash attention, beside F.scaled_dot_product_attention
@@ -263,6 +267,31 @@ Phases, each raising on failure (the script then exits non-zero):
         on a's request 0 from n's files, with its default flags (low
         memory) and with --benchmark-mode: each PNG a's image bit for bit,
         each wall time printed;
+     r1. f's request 0 through a copy of f's pipeline under
+        FluxPipeline's mesh=local_mesh() (one NCCL rank): captured, its
+        latents f's bit for bit with f's launches;
+     r. f's models over create_mesh(1, 2, backend="gloo"): f's MMDiT and
+        T5 written once in the quantized-model cache format (CLIP-L, the
+        decoder and the tokenizers pickled), then this script started twice
+        as `--tp-rank i DIR`, two processes on the one card, each reading
+        the files to the host and keeping its shard on the card; f's
+        request 0 uncaptured: both ranks' latents and images bit for bit,
+        the latents within 3e-2 relative L2 of f's, the T5 output f's bit
+        for bit, each
+        rank's peak memory below f's, every kernel of the split path
+        launched (int8_dot and the two-pass D once for each row-parallel
+        linear: 76 a step and the T5's 48), C none; the ms a step, the load
+        and the collectives a step (calls, elements, host seconds) printed;
+        then in the same ranks SD3-medium w8a8 (24 blocks, random w8a8
+        weights) one CFG forward at 512² split over the same mesh, within
+        3e-2 of the whole model, and bit for bit with the split float
+        linears (the t / y embedders, the final layer's ada) kept whole; its
+        block-0 o and fc2 split bit for bit the whole ones (the two-pass
+        #4's path);
+     s. f's models whole on each rank over create_mesh(2, 1): num_images=2
+        and generate_images_batched of f's two prompts, an image a rank,
+        both ranks returning both images, latents and pixels bit for bit f's
+        pipeline with DIFFUSIONKIT_TPU_DENOISE_BATCH=1;
      o. b's two requests through FluxPipeline(model_version=
         ...-schnell-4bit-quantized, load=False, low_memory_mode=False) with
         SyntheticT5Tokenizer(256) assigned, then check_and_load_models(),
@@ -272,7 +301,7 @@ Phases, each raising on failure (the script then exits non-zero):
         T5-XXL's and CLIP-L's HF files): every loaded model b's bit for bit,
         the images b's, the launches b's;
      (run in the order a, a', a'', l, n (and the CLI), p, h, h', d, e, b, o, c, m, g,
-     g', f, q, i, i', k, j,
+     g', f, q, r1, r, s, i, i', k, j,
      so h, d and e share a's encoders, h a's MMDiT, g c's models and f g's,
      before f converts the T5; each later path frees the previous MMDiT);
   7. two denoise steps of each path (the graph's replays; the synced
@@ -297,6 +326,7 @@ import gc
 import io
 import json
 import os
+import pathlib
 import re
 import shutil
 import statistics
@@ -320,6 +350,7 @@ from diffusionkit_tpu_torch.config import (
     FLUX_DEV_VERSION,
     FLUX_SCHNELL,
     FLUX_SCHNELL_4BIT,
+    FLUX_SCHNELL_VERSION,
     SD35_LARGE,
     SD35_LARGE_4BIT,
     SD3_2b,
@@ -356,6 +387,7 @@ from diffusionkit_tpu_torch.ops.flash_attention import (
     flash_attention_stats,
     flash_attention_stats_plain,
 )
+from diffusionkit_tpu_torch.ops.common import linear
 from diffusionkit_tpu_torch.ops.gptq import gptq_group, gptq_group_plain
 from diffusionkit_tpu_torch.ops.fused_quant import (
     gelu_quantize,
@@ -365,7 +397,12 @@ from diffusionkit_tpu_torch.ops.fused_quant import (
     mod_ln_quantize,
     mod_ln_quantize_plain,
     quantize,
+    quantize_amax,
+    quantize_amax_plain,
     quantize_plain,
+    quantize_two_pass,
+    row_absmax,
+    row_absmax_plain,
 )
 from diffusionkit_tpu_torch.ops.int4_matmul import (
     dequantize_int4,
@@ -398,7 +435,14 @@ from diffusionkit_tpu_torch.ops.w4a8_matmul import (
     w8_matmul_plain,
 )
 from diffusionkit_tpu_torch.ops.w8a8 import W8A8Linear, w8a8_module_
-from diffusionkit_tpu_torch.parallel import local_mesh, merge_chunk_stats
+from diffusionkit_tpu_torch.parallel import (
+    collectives,
+    create_mesh,
+    init_distributed,
+    local_mesh,
+    merge_chunk_stats,
+    shard_module_,
+)
 from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline, _encode_step
 from diffusionkit_tpu_torch.serve import GenerationServer
 from diffusionkit_tpu_torch.tokenizer import (
@@ -461,6 +505,12 @@ KERNELS = {
     # The GPTQ group step: the body of the reference's lax.scan (gbody), which
     # XLA compiles there; no Pallas call.
     "gptq_group": ("diffusionkit_tpu_torch/csrc/gptq.cu", "diffusionkit_tpu/ops/gptq.py:313"),
+    # D's and #4's two-pass form (a row split over tensor-parallel ranks):
+    # pass 1 the rows' local absmax, pass 2 the quantization on the group's.
+    "quantize[two-pass]": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
+                           "diffusionkit_tpu/ops/fused_quant.py:246"),
+    "gelu_quantize[two-pass]": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
+                                "diffusionkit_tpu/ops/fused_quant.py:229"),
 }
 # Each GEMV's entry in the line and that of its function at M > 16 (the same
 # bound; that entry points here as `small_m`).
@@ -482,6 +532,8 @@ SYMBOLS = {
     "w8_matmul[gemv]": "w8_gemv<XT, OutT>",
     "int4_matmul[f32]": "dequant_mm_3xtf32<4> (M > 16), dequant_mm_f32<4> (M <= 16)",
     "gptq_group": "gptq_group_kernel<GS>",
+    "quantize[two-pass]": "row_absmax_kernel<T, ACT_NONE>, quantize_amax_kernel<T, ACT_NONE>",
+    "gelu_quantize[two-pass]": "row_absmax_kernel<T, GELU_ERF>, quantize_amax_kernel<T, GELU_ERF>",
 }
 # The sources and kernels of each function's other shapes: the fp32 flash
 # kernels (3xTF32 on wgmma at d = 64 and 128, on mma.sync at d = 512);
@@ -540,7 +592,9 @@ MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flu
              "gelu_quantize": "sd3-w8a8", "w8_matmul": "sd3-w8a8", "int8_matmul": "sd3-int8",
              "flash_attention_stats": "flux-w4a8-2048-ring", "flash_attention": "sd3-bhsd",
              "int8_dot": "microbench-int8", "w4a8_matmul[plain]": "bench-w4a8-mat",
-             "int4_matmul[f32]": "sd35-4bit", "gptq_group": "sd3-int4-gptq"}
+             "int4_matmul[f32]": "sd35-4bit", "gptq_group": "sd3-int4-gptq",
+             "quantize[two-pass]": "flux-w4a8-t5w8a8-tp2",
+             "gelu_quantize[two-pass]": "sd3-w8a8-tp2"}
 # The two tool paths: each tool's run at the reference's default shape.
 TOOLS = {"bench-w4a8-mat": bench_w4a8_mat, "microbench-int8": microbench_int8}
 # Per-request launches the attention kernels must match exactly.
@@ -776,6 +830,7 @@ def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3
     if dtype == "fp32":
         dtype = fp32_peak
     name = name.replace("[f32]", "")  # C / #13's fp32 tile: the same function
+    name = name.replace("[two-pass]", "")  # D / #4 in two passes: the same function
     if name == "w8_matmul[gemv]":  # the quantizing entry: bf16 x read once, no scales
         m, k, n = shape
         return bound(2 * m * k * n, "int8", 2 * m * k + n * k + 6 * n + 2 * m * n)
@@ -876,6 +931,8 @@ def reset_counts() -> None:
     w8_matmul.quantizing_launches = 0
     for fn in F32_COUNTED.values():
         fn.f32_launches = 0
+    for fn in (row_absmax, quantize_amax):
+        fn.launches = dict.fromkeys(fn.launches, 0)
 
 
 def counts() -> dict:
@@ -895,6 +952,11 @@ def counts() -> dict:
     # fp32 model's or decoder's): fp32 inputs, or for E and #11 an fp32 bias
     # or output.
     out.update({f"{name}[f32]": fn.f32_launches for name, fn in F32_COUNTED.items()})
+    # The two-pass D and #4: pass 2's launches (pass 1 runs as often).
+    if row_absmax.launches != quantize_amax.launches:
+        raise AssertionError(f"two-pass quantizers: pass 1 launched {row_absmax.launches}, "
+                             f"pass 2 {quantize_amax.launches}")
+    out.update({f"{name}[two-pass]": n for name, n in quantize_amax.launches.items()})
     return out
 
 
@@ -2790,7 +2852,7 @@ def check_launches(launches: dict, per: dict, n: int, label: str) -> None:
 
 
 def rel_l2(got, want) -> float:
-    got, want = (np.asarray(t.cpu() if torch.is_tensor(t) else t, dtype=np.float64)
+    got, want = (np.asarray(t.float().cpu() if torch.is_tensor(t) else t, dtype=np.float64)
                  for t in (got, want))
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
@@ -4214,8 +4276,6 @@ def packed_final_layer_check(gen) -> None:
     dequantise path (``dequant_linear``), decided by shape; on the card it
     must not raise, launch no kernel (every counter 0), and match fp32 math
     on the bf16-rounded weight within one bf16 ulp + 2K 2^-24 (|x| @ |w|)."""
-    from diffusionkit_tpu_torch.ops.common import linear
-
     for m, k in FINAL_LAYER_SHAPES:
         for w4a8 in (False, True):
             x, q4, scales, zeros = random_int4((m, k, 64, 64), gen)
@@ -4511,6 +4571,363 @@ def ptxas_report(path) -> None:
     log(f"  ptxas: no C7512; no spill in {', '.join(NO_SPILL)}")
 
 
+# -- tensor and data parallelism: the two-pass quantizers, paths r1, r and s --
+
+# The two-pass D and #4 at the shapes the sharded paths give them: D at the
+# T5's wo input over two ranks (256 tokens x 10240 / 2) and FLUX's o input
+# over two (the unified blocks' 4352 rows x 3072 / 2); #4 at SD3-medium
+# w8a8's fc1 hidden over two (2048 image rows x 6144 / 2).
+TWO_PASS_SHAPES = {"quantize": [(256, 5120), (4352, 1536)], "gelu_quantize": [(2048, 3072)]}
+TWO_PASS_FORM = {"quantize": None, "gelu_quantize": "erf"}
+# r1: f's pipeline under a one-rank NCCL mesh (captured); r: f's models over
+# a (1, 2) mesh of two gloo processes on the one card; s: over (2, 1), the
+# image batch split; and SD3-medium w8a8's sharded forward, the path of #4's
+# two-pass form.
+FLUX_LOCAL_MESH = dataclasses.replace(FLUX_E2E, name="flux-w4a8-t5w8a8-local-mesh")
+FLUX_TP = dataclasses.replace(FLUX_E2E, name="flux-w4a8-t5w8a8-tp2")
+FLUX_DP = dataclasses.replace(FLUX_E2E, name="flux-w4a8-t5w8a8-dp2")
+SD3_W8A8_TP = "sd3-w8a8-tp2"
+TP_RANKS = 2
+# r against f: the batch limit of relative L2 (PERF.md section 2); the CPU
+# tests hold the split w4a8 model within 1e-5 of the whole one in fp32, and
+# in bf16 the fp32 sums of fc2's and the embedders' partials in another
+# order flip roundings that four steps carry.
+TP_RTOL = REF_RTOL
+
+
+def two_pass_kernels(gen, tag: str):
+    """The kernel phase of the two-pass D and #4: at each shape, the two
+    passes on whole rows and over the row's two halves (two ranks' columns,
+    their absmaxes combined by max on the card) against the one-pass kernel,
+    bit for bit (x8 and xscale); both forms timed (``device_ms``) beside the
+    plain version's and the function's bound."""
+    errs, times = {}, {}
+    for name, shapes in TWO_PASS_SHAPES.items():
+        key, form = f"{name}[two-pass]", TWO_PASS_FORM[name]
+        one_pass = quantize if form is None else (lambda y: gelu_quantize(y, "erf"))
+        errs[key], times[key] = [], []
+        for m, k in shapes:
+            y = (torch.randn(m, k, generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+            y[m // 3, k // 5] = 60.0  # an outlier sets one row's scale
+            want = one_pass(y)
+            got = quantize_amax(y, row_absmax(y, form), form)
+            halves = [h.contiguous() for h in y.chunk(TP_RANKS, dim=-1)]
+            amax = torch.stack([row_absmax(h, form) for h in halves]).amax(dim=0)
+            split = [quantize_amax(h, amax, form) for h in halves]
+            plain = quantize_amax_plain(y, row_absmax_plain(y, form), form)
+            torch.cuda.synchronize()
+            for label, x8, xs in (("whole rows", got.x8, got.xscale),
+                                  ("two halves", torch.cat([a.x8 for a in split], dim=-1),
+                                   split[0].xscale)):
+                if not (torch.equal(x8, want.x8) and torch.equal(xs, want.xscale)):
+                    raise AssertionError(f"{key} {(m, k)} ({label}) differs from the one-pass "
+                                         f"kernel")
+            err = (plain.x8.int() - want.x8.int()).abs().max().item()
+            if err != 0 or not torch.equal(plain.xscale, want.xscale):
+                raise AssertionError(f"{key} {(m, k)}: the plain version differs from the "
+                                     f"one-pass kernel ({err} int8 steps)")
+            errs[key].append(float(err))
+            ms = device_ms(lambda: quantize_amax(y, row_absmax(y, form), form))
+            one_ms = device_ms(lambda: one_pass(y))
+            plain_ms = device_ms(lambda: quantize_amax_plain(y, row_absmax_plain(y, form), form))
+            t = timing(key, (m, k), ms, plain_ms, one_pass_ms=one_ms)
+            times[key].append(t)
+            log(f"  {key} {(m, k)}: bit-identical to the one-pass kernel on whole rows and over "
+                f"two halves, as is the plain version; two-pass {ms!r} ms, "
+                f"one-pass {one_ms!r} ms, plain {plain_ms!r} ms, {bound_note(t)} [{tag}]")
+    return errs, times
+
+
+def local_mesh_path(pipe, tag: str) -> dict:
+    """Path r1: f's request 0 through a copy of f's pipeline under
+    ``local_mesh()`` (one NCCL rank) with the default dispatch: captured,
+    its latents f's bit for bit with the same launches. Returns them."""
+    want, f_ms, want_launches = denoise_request(pipe, FLUX_E2E, use_scan=True)
+    r1 = copy.copy(pipe)
+    r1.mesh = local_mesh()
+    if any(hasattr(m, "tp") for m in r1.mmdit.modules()):
+        raise AssertionError("r1: a one-rank mesh marked a split linear")
+    denoise_request(r1, FLUX_LOCAL_MESH, use_scan=True)  # its capture
+    got, ms, launches = denoise_request(r1, FLUX_LOCAL_MESH, use_scan=True)
+    graphs = [sc.graph for key, sc in r1._scans.items() if key[3] == id(r1.mesh)]
+    if not graphs or any(g is None for g in graphs):
+        raise AssertionError("r1: the one-rank mesh's step was not captured")
+    if launches != want_launches:
+        diff = {k: (want_launches[k], launches[k]) for k in launches
+                if launches[k] != want_launches[k]}
+        raise AssertionError(f"r1: launches differ from f's (f, r1): {diff}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"r1: latents differ from f's (max abs "
+                             f"{(got - want).abs().max().item()!r})")
+    log(f"  {FLUX_LOCAL_MESH.name}: captured under local_mesh(); latents f's bit for bit with "
+        f"the same launches; {ms!r} ms/step (f: {f_ms!r}) [{tag}]")
+    return launches
+
+
+def _decoded_latents(pipe, run):
+    """``run()``'s result and the latents the pipeline handed to its
+    decoder."""
+    seen = []
+    decode = pipe._decode_batched_u8
+    pipe._decode_batched_u8 = lambda latents: (seen.append(latents), decode(latents))[1]
+    try:
+        return run(), seen[0]
+    finally:
+        del pipe._decode_batched_u8
+
+
+def tp_rank(rank: int, root: str) -> None:
+    """One of the two gloo ranks of paths r and s (and SD3-medium w8a8's
+    sharded forward) on the one card: the files ``tp_paths`` wrote, the
+    results saved to ``root/rank{rank}.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = pathlib.Path(root)
+    init_distributed(f"file://{root / 'rendezvous'}", TP_RANKS, rank, device="cuda",
+                     backend="gloo")
+    kernels.library()
+    small = torch.load(root / "small.pt", weights_only=False)
+    out = {}
+    text, seed = FLUX.requests[0]
+    kw = dict(num_steps=FLUX.steps, cfg_weight=FLUX.cfg, latent_size=FLUX.latent)
+
+    # r: f's models split over a (1, 2) mesh, read to the host and sharded.
+    mesh = create_mesh(1, TP_RANKS, device="cuda", backend="gloo")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = FluxPipeline(load=False, low_memory_mode=False, device="cuda", quantize_mmdit="w4a8",
+                        quantize_t5=True, mesh=mesh)
+    for name, value in small.items():
+        setattr(pipe, name, value)
+    pipe.t5 = model_io.load_t5_cache(root / "t5.safetensors", torch.bfloat16, device="cpu")
+    pipe.mmdit = model_io.load_mmdit_cache(root / "mmdit.safetensors", FLUX_SCHNELL_VERSION,
+                                           torch.bfloat16, device="cpu")
+    gc.collect()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded = torch.cuda.memory_allocated() / 2**30
+    reset_counts()
+    collectives.stats.reset()
+    t0 = time.perf_counter()
+    cond, pooled = pipe.encode_text(text, FLUX.cfg)
+    torch.cuda.synchronize()
+    encode_s, t5_coll = time.perf_counter() - t0, collectives.stats.snapshot()
+    collectives.stats.reset()
+    t0 = time.perf_counter()
+    latents, _ = pipe.denoise_latents(cond, pooled, seed=seed, **kw)
+    torch.cuda.synchronize()
+    denoise_s, step_coll = time.perf_counter() - t0, collectives.stats.snapshot()
+    image = pipe.decode_latents_to_u8(latents).cpu().numpy()[0]
+    log(f"  rank {rank}: r's request in {encode_s + denoise_s!r} s (T5 {encode_s!r} s)")
+    out["r"] = {"latents": latents.cpu(), "t5": cond.cpu(), "image": image, "launches": counts(),
+                "load_s": load_s, "loaded_gib": loaded, "encode_s": encode_s,
+                "step_ms": 1e3 * denoise_s / FLUX.steps,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "t5_collectives": t5_coll, "step_collectives": step_coll}
+    del pipe, cond, pooled, latents
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # SD3-medium w8a8 (24 blocks, random w8a8 weights) over the same mesh:
+    # one CFG forward at 512², the path of #4's two-pass form, against the
+    # whole model on the same inputs.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model = init_mmdit(SD3_2b, gen, "cuda", quantize_bits="w8a8")
+    inputs = (torch.randn(2, 64, 64, 16, generator=gen, device="cuda"),
+              torch.randn(2, 154, 4096, generator=gen, device="cuda"),
+              torch.randn(2, 2048, generator=gen, device="cuda"),
+              torch.full((2,), 700.0, device="cuda"))
+    # Block 0's image-stream o and fc2 at 512² CFG's rows, whole and split:
+    # the int32 reduction and the two-pass D and #4 make the split product
+    # the whole one bit for bit.
+    block = model.mm_blocks[0].img
+    o_whole, fc2_whole = copy.deepcopy(block.o), copy.deepcopy(block.fc2)
+    x = torch.randn(2048, 1536, generator=gen, device="cuda").to(torch.bfloat16)
+    h = torch.randn(2048, 6144, generator=gen, device="cuda").to(torch.bfloat16)
+    # The float linears the plan splits (the t / y embedders' fc1 and fc2,
+    # the final layer's ada), kept whole for a second sharded forward: the
+    # split model's only steps that are not exact (fp32 sums in another
+    # order, cuBLAS at another N).
+    floats = ("t_embedder", "y_embedder", "final_layer")
+    with torch.no_grad():
+        want = model(*inputs)
+        want_o, want_fc2 = linear(o_whole, x), linear(fc2_whole, gelu_quantize(h))
+        whole = {name: copy.deepcopy(getattr(model, name)) for name in floats}
+        shard_module_(model, mesh)
+        reset_counts()
+        got = model(*inputs, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = counts()
+        split = {name: getattr(model, name) for name in floats}
+        for name in floats:
+            setattr(model, name, whole[name])
+        got_floats_whole = model(*inputs, mesh=mesh)
+        for name in floats:
+            setattr(model, name, split[name])
+        grp = mesh.get_group("model")
+        x_l, h_l = (t.chunk(TP_RANKS, dim=-1)[rank].contiguous() for t in (x, h))
+        got_o = linear(block.o, x_l)
+        got_fc2 = linear(block.fc2, quantize_two_pass(h_l, grp, "erf"))
+    out["sd3"] = {"rel_l2": rel_l2(got, want), "launches": launches,
+                  "finite": bool(torch.isfinite(got).all()),
+                  "floats_whole_exact": torch.equal(got_floats_whole, want),
+                  "floats_whole_rel_l2": rel_l2(got_floats_whole, want),
+                  "rows_exact": torch.equal(got_o, want_o) and torch.equal(got_fc2, want_fc2)}
+    del model, want, got, got_floats_whole, whole, split, block, o_whole, fc2_whole
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # s: f's models whole on each rank, the image batch over a (2, 1) mesh.
+    mesh = create_mesh(TP_RANKS, 1, device="cuda", backend="gloo")
+    pipe = FluxPipeline(load=False, low_memory_mode=False, device="cuda", quantize_mmdit="w4a8",
+                        quantize_t5=True, mesh=mesh)
+    for name, value in small.items():
+        setattr(pipe, name, value)
+    pipe.t5 = model_io.load_t5_cache(root / "t5.safetensors", torch.bfloat16, device="cuda")
+    pipe.mmdit = model_io.load_mmdit_cache(root / "mmdit.safetensors", FLUX_SCHNELL_VERSION,
+                                           torch.bfloat16, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    cond, pooled = pipe.encode_text(text, FLUX.cfg)
+    latents, _ = pipe.denoise_latents(cond, pooled, seed=seed, num_images=TP_RANKS, **kw)
+    pixels = pipe.decode_latents_to_u8(latents).cpu().numpy()
+    texts, seeds = (list(v) for v in zip(*FLUX.requests))
+    images, batched = _decoded_latents(pipe, lambda: pipe.generate_images_batched(
+        texts, seeds=seeds, **kw))
+    torch.cuda.synchronize()
+    out["s"] = {"latents": latents.cpu(), "pixels": pixels, "batched_latents": batched.cpu(),
+                "batched": np.stack([np.asarray(im) for im in images]), "launches": counts(),
+                "seconds": time.perf_counter() - t0}
+    torch.save(out, root / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def tp_paths(pipe, served: dict, scratch: str, tag: str) -> dict:
+    """Paths r and s (and SD3-medium w8a8's sharded forward): f's models
+    written once (the quantized-model cache format; CLIP-L, the decoder and
+    the tokenizers pickled), two gloo ranks of this script started on the one
+    card (``tp_rank``), and their results held against f's: r's two ranks
+    agree bit for bit, r's latents within TP_RTOL relative L2 of f's and
+    its T5 output f's bit for bit, each rank's peak memory below f's; s's
+    images, latents and pixels bit for bit the one-rank run in chunks of one
+    image (DIFFUSIONKIT_TPU_DENOISE_BATCH=1). Returns each path's
+    launches."""
+    root = pathlib.Path(scratch) / "tp"
+    root.mkdir()
+    t0 = time.perf_counter()
+    model_io.save_module_cache(pipe.mmdit, root / "mmdit.safetensors")
+    model_io.save_module_cache(pipe.t5, root / "t5.safetensors")
+    torch.save({name: getattr(pipe, name) for name in ("clip_l", "decoder", "tokenizer_l",
+                                                        "t5_tokenizer")}, root / "small.pt")
+    write_s = time.perf_counter() - t0
+    # f's references: request 0's T5 output and latents, and s's chunks of one.
+    text, seed = FLUX.requests[0]
+    kw = dict(num_steps=FLUX.steps, cfg_weight=FLUX.cfg, latent_size=FLUX.latent)
+    cond, pooled = pipe.encode_text(text, FLUX.cfg)
+    texts, seeds = (list(v) for v in zip(*FLUX.requests))
+    with env_set(SPLIT_ENV, "1"):
+        lat_s, _ = pipe.denoise_latents(cond, pooled, seed=seed, num_images=TP_RANKS, **kw)
+        pix_s = pipe.decode_latents_to_u8(lat_s).cpu().numpy()
+        imgs_b, lat_b = _decoded_latents(pipe, lambda: pipe.generate_images_batched(
+            texts, seeds=seeds, **kw))
+    imgs_b = np.stack([np.asarray(im) for im in imgs_b])
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                               str(root)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(TP_RANKS)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    ranks_s = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"tp rank {r} failed (exit {p.returncode}):\n{out[-6000:]}")
+        for line in out.splitlines():
+            if line.startswith("  rank"):
+                log(line)
+    res = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(TP_RANKS)]
+    log(f"  f's models written in {write_s!r} s; two gloo ranks ran r, SD3-medium w8a8's "
+        f"forward and s in {ranks_s!r} s")
+
+    r0, r1 = res[0]["r"], res[1]["r"]
+    if not (torch.equal(r0["latents"], r1["latents"]) and np.array_equal(r0["image"],
+                                                                         r1["image"])):
+        raise AssertionError("r: the two ranks' latents or images differ")
+    f_lat, f_t5 = served["latents"].cpu(), cond.cpu()
+    rl, rt = rel_l2(r0["latents"], f_lat), rel_l2(r0["t5"], f_t5)
+    pix = np.abs(r0["image"].astype(int) - served["image"].astype(int))
+    log(f"  {FLUX_TP.name}: both ranks' latents and images bit for bit; latents relative L2 "
+        f"{rl!r} against f's (tolerance {TP_RTOL}), the T5 output {rt!r} (bit for bit: "
+        f"{torch.equal(r0['t5'], f_t5)}); the image against f's: max {pix.max()} levels, "
+        f"{(pix > 0).mean()!r} of the pixels moved")
+    if not rl < TP_RTOL:
+        raise AssertionError(f"r: the latents are off f's by more than {TP_RTOL}")
+    # The split T5 sums its row-parallel products in int32 and quantizes them
+    # with the whole rows' scales; every other step is per head or column.
+    if not torch.equal(r0["t5"], f_t5):
+        raise AssertionError("r: the T5 output is not f's bit for bit")
+    for r, rr in enumerate((r0, r1)):
+        log(f"  {FLUX_TP.name} rank {r}: models read and sharded in {rr['load_s']!r} s "
+            f"({rr['loaded_gib']!r} GiB on the card); T5 encode {rr['encode_s']!r} s; "
+            f"{rr['step_ms']!r} ms/step (4 steps, uncaptured, the schedule's total / n); "
+            f"peak memory {rr['peak_gib']!r} GiB (f: {served['peak']!r}) [{tag}]")
+        if not rr["peak_gib"] < served["peak"]:
+            raise AssertionError(f"r: rank {r}'s peak memory is not below f's")
+    for label, coll, n in (("a denoise step", r0["step_collectives"], FLUX.steps),
+                           ("the T5 encode", r0["t5_collectives"], 1)):
+        per = {k: {"calls": v["calls"] / n, "elements": v["elements"] / n,
+                   "seconds": v["seconds"] / n} for k, v in coll.items()}
+        log(f"  {FLUX_TP.name} rank 0, collectives of {label}: {per} [{tag}]")
+    launches = r0["launches"]
+    rows = FLUX.steps * (2 * FLUX_SCHNELL.depth_multimodal + FLUX_SCHNELL.depth_unified) \
+        + 2 * T5_LAYERS
+    want = {"int8_dot": rows, "quantize[two-pass]": rows, "int4_matmul": 0}
+    for name in ("w4a8_matmul[gelu_quant]", "w4a8_matmul[grouped_xs]", "w4a8_matmul[norm_rope]",
+                 "w4a8_matmul[gemv]", "w4a8_matmul[mat]", "dequant_w8", "w8_matmul", "quantize",
+                 "mod_ln_quantize", "flash_attention_bshd", "mod_ln"):
+        if launches[name] == 0:
+            raise AssertionError(f"r: {name} was launched no time")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"r: {name} launched {launches[name]} times, expected {n}")
+    log(f"  {FLUX_TP.name} launches (rank 0): {launches}")
+
+    sd3 = [rr["sd3"] for rr in res]
+    log(f"  {SD3_W8A8_TP}: the sharded forward against the whole model, relative L2 "
+        f"{[x['rel_l2'] for x in sd3]!r} (tolerance {TWIN_RTOL}); with the split float "
+        f"linears (the t / y embedders, the final layer's ada) whole: relative L2 "
+        f"{[x['floats_whole_rel_l2'] for x in sd3]!r}, bit for bit "
+        f"{[x['floats_whole_exact'] for x in sd3]}; block 0's o and fc2 split "
+        f"(two-pass D / #4, #16, the int32 sum) bit for bit the whole ones: "
+        f"{[x['rows_exact'] for x in sd3]}; launches (rank 0) {sd3[0]['launches']}")
+    # Every split w8a8 step is exact (int32 sums, the whole rows' scales,
+    # per-head attention), so with the float linears whole the forward is
+    # the whole model's bit for bit; the float linears' fp32 sums in another
+    # order move the last bits of the conditioning, which 24 random blocks
+    # carry as a batch's other GEMM M does (TWIN_RTOL).
+    if not all(x["finite"] and x["rel_l2"] < TWIN_RTOL and x["rows_exact"]
+               and x["floats_whole_exact"] for x in sd3):
+        raise AssertionError("SD3-medium w8a8 sharded forward off the whole model's")
+    if sd3[0]["launches"]["gelu_quantize[two-pass]"] == 0:
+        raise AssertionError("SD3-medium w8a8 sharded forward ran no two-pass #4")
+
+    for r, rr in enumerate(res):
+        s_ = rr["s"]
+        if not (torch.equal(s_["latents"], lat_s.cpu()) and np.array_equal(s_["pixels"], pix_s)
+                and torch.equal(s_["batched_latents"], lat_b.cpu())
+                and np.array_equal(s_["batched"], imgs_b)):
+            raise AssertionError(f"s: rank {r}'s images differ from the chunks of one")
+    log(f"  {FLUX_DP.name}: both ranks return both images of num_images={TP_RANKS} and of "
+        f"generate_images_batched({len(texts)} prompts), latents and pixels bit for bit the "
+        f"one-rank run in chunks of one; {res[0]['s']['seconds']!r} s on rank 0 [{tag}]")
+    return {FLUX_TP.name: launches, SD3_W8A8_TP: sd3[0]["launches"],
+            FLUX_DP.name: res[0]["s"]["launches"]}
+
+
 def main() -> None:
     log("phase 1: card")
     if not torch.cuda.is_available():
@@ -4597,6 +5014,13 @@ def main() -> None:
     times.update(w_times)
     torch.cuda.empty_cache()
 
+    log("phase 3-4h: the two-pass D and #4 (rows split over tensor-parallel ranks) against "
+        "their one-pass kernels on the card, and both forms' device times")
+    w_errs, w_times = two_pass_kernels(gen, tag)
+    errs.update(w_errs)
+    times.update(w_times)
+    torch.cuda.empty_cache()
+
     log("phase 5: reference checks")
     reference_checks(gen)
     gc.collect()
@@ -4645,6 +5069,12 @@ def main() -> None:
                 f"GenerationServer(max_batch=8) on an HTTP server at 127.0.0.1 in this process "
                 f"({8 * FLUX_SERVE.latent[0]}², {FLUX_SERVE.steps} steps, CFG {FLUX_SERVE.cfg})")
             launches[FLUX_SERVE.name] = http_path(pipe, served["launches"], tag)
+            log(f"phase 6r1: main path {FLUX_LOCAL_MESH.name}: f's request 0 under "
+                f"FluxPipeline(mesh=local_mesh()), one NCCL rank, captured")
+            launches[FLUX_LOCAL_MESH.name] = local_mesh_path(pipe, tag)
+            log(f"phase 6r/6s: main paths {FLUX_TP.name} (f's models over create_mesh(1, 2)) and "
+                f"{FLUX_DP.name} (over create_mesh(2, 1)), two gloo processes on the one card")
+            launches.update(tp_paths(pipe, served, scratch.name, tag))
         if path in (SD3, FLUX_W4A8):
             log(f"phase 6{letter}, batch: generate_image(num_images={NUM_IMAGES}) and "
                 f"generate_images_batched on {path.name}'s models")
@@ -4729,4 +5159,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-rank"]:  # a rank of paths r and s, started by tp_paths
+        tp_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -8,8 +8,11 @@ hand-written CUDA for sm_90a (``csrc/``): the flash attention
 int8 quantizers (``ops/fused_quant.py``), the int4 and int8 dequant-matmuls
 (``ops/int4_matmul.py``) and the int8 tensor-core matmuls of the w4a8 and
 w8a8 linears (``ops/w4a8_matmul.py``). ``parallel/`` holds the
-``torch.distributed`` meshes and the context-parallel ring attention
-(``sdpa_impl="ring"``), whose chunk kernel sits beside the flash attention.
+``torch.distributed`` meshes, the Megatron tensor-parallel shard plan of
+the MMDiT and the T5 and its collectives (the pipelines also split the
+image batch over a mesh's data axis), and the context-parallel ring
+attention (``sdpa_impl="ring"``), whose chunk kernel sits beside the flash
+attention.
 ``model_io`` reads safetensors checkpoints into the VAE modules (the
 decoder, img2img's encoder and the generic ``Autoencoder``).
 """

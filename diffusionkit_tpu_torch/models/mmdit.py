@@ -48,6 +48,18 @@ A w8a8 model (``W8A8Linear``s) takes the same dispatch with kernel #11 for
 every product: A' at each AdaLN site (the final layer's too, when its
 linear is w8a8), D before a float input, and kernel #4 (``gelu_quantize``)
 between fc1 and fc2.
+
+Sharded over a mesh's ``model`` axis (``parallel/sharding.shard_module_``,
+the reference's Megatron plan), each rank holds its columns of q/k/v, fc1
+and ``ada`` and its rows of o and fc2 (``ops/common.linear`` sums the row
+products over the group). The attention and the QK norm and RoPE run on
+the rank's heads; where the heads are not a whole number a rank (38 heads
+over 4), q/k/v are gathered whole first and the attention output is cut
+back to the rank's columns for o. The ``ada`` outputs are gathered back to
+every rank before they are split into the modulation vectors (the
+reference's ``_ada``): (B, n_mod H / n) a rank. The embedders' MLPs are
+split by the same rules; the rest (the patch and context embedders, the
+norms, the final linear) is whole on every rank.
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ from ..ops.attention import sdpa
 from ..ops.common import (
     MLPSiLU,
     ffn_gelu,
+    gather_output,
     linear,
     patchify,
     timestep_embedding,
@@ -76,6 +89,7 @@ from ..ops.quantized import QuantizedLinear, random_quantized_linear_
 from ..ops.rope import apply_rope, rms_norm_rope, rope_frequencies
 from ..ops.w4a8_matmul import w4a8_qk_eligible, w4a8_qk_linear
 from ..ops.w8a8 import W8A8Linear, needs_act_quant, quantize_shared, random_w8a8_linear_
+from ..parallel.collectives import all_gather
 
 QuantBits = Optional[Union[int, str]]  # None (float), 4, 8 or "w8a8"
 
@@ -149,15 +163,38 @@ class Projections(nn.Module):
         self.qk_norm = QKNorm(config.head_dim, dt) if config.use_qk_norm else None
 
     def modulation(self, c: torch.Tensor) -> List[torch.Tensor]:
-        """adaLN_modulation: SiLU -> Linear -> split into (B, 1, H) views."""
-        y = linear(self.ada, F.silu(c))
+        """adaLN_modulation: SiLU -> Linear -> split into (B, 1, H) views;
+        a column-parallel ``ada``'s output gathered whole first."""
+        y = gather_output(self.ada, linear(self.ada, F.silu(c)))
         return [p[:, None, :] for p in y.chunk(self.num_mod, dim=-1)]
+
+    def holds_heads(self, head_dim: int) -> bool:
+        """Whether q/k/v hold whole heads: unsplit, or split into a whole
+        number of heads a rank; else the attention gathers them."""
+        return getattr(self.q, "tp", None) is None or self.q.out_features % head_dim == 0
+
+    def head_group(self, head_dim: int):
+        """The group over which q/k/v hold this rank's heads, or None where
+        they hold every head (no split, or gathered: ``holds_heads``)."""
+        tp = getattr(self.q, "tp", None)
+        return tp.group if tp is not None and self.holds_heads(head_dim) else None
+
+    def attn_input(self, o: torch.Tensor, head_dim: int) -> torch.Tensor:
+        """o's input from the attention output (B, S, features): where the
+        heads were gathered whole, this rank's columns of it."""
+        tp = getattr(self.q, "tp", None)
+        if self.holds_heads(head_dim):
+            return o
+        w = o.shape[-1] // tp.n
+        return o.narrow(-1, tp.index * w, w)
 
     def qkv(self, x, num_heads: int, rope: Rope = None):
         """Per-head q, k, v (B, S, heads, d) from x (a tensor or a shared
         ``ActQuant``); QK-RMSNorm and RoPE when configured, fused in fp32
         with one rounding when both apply: in kernel E's epilogue when q
-        and k are w4a8 with 128-wide heads (``w4a8_qk_linear``)."""
+        and k are w4a8 with 128-wide heads (``w4a8_qk_linear``). Under
+        tensor parallelism the heads are this rank's (``head_group``), or
+        all of them gathered."""
         b, s, h = x.shape
         d = h // num_heads
         if rope is not None and self.qk_norm is not None and all(
@@ -165,9 +202,11 @@ class Projections(nn.Module):
             cos, sin = rope
             q = w4a8_qk_linear(self.q, x, self.qk_norm.q_scale, cos, sin)
             k = w4a8_qk_linear(self.k, x, self.qk_norm.k_scale, cos, sin)
-            return tuple(t.reshape(b, s, num_heads, d) for t in (q, k, linear(self.v, x)))
-        q, k, v = (linear(layer, x).reshape(b, s, num_heads, d)
-                   for layer in (self.q, self.k, self.v))
+            return tuple(t.reshape(b, s, -1, d) for t in (q, k, linear(self.v, x)))
+        tp = getattr(self.q, "tp", None)
+        gather = not self.holds_heads(d)
+        q, k, v = ((all_gather(y, -1, tp.group) if gather else y).reshape(b, s, -1, d)
+                   for y in (linear(layer, x) for layer in (self.q, self.k, self.v)))
         if rope is not None:
             cos, sin = (t[:, None, :] for t in rope)  # broadcast over heads
         if self.qk_norm is not None:
@@ -219,7 +258,8 @@ class MMBlock(nn.Module):
                 cos, sin = (t[:, None, :] for t in rope)
                 q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         o = sdpa(q, k, v, scale=1.0 / (cfg.head_dim**0.5), impl=sdpa_impl, mesh=mesh,
-                 layout="bshd").flatten(2)
+                 layout="bshd", head_group=self.img.head_group(cfg.head_dim)).flatten(2)
+        o = self.img.attn_input(o, cfg.head_dim)
         if flux:
             o_txt, o_img = o[:, :txt_len], o[:, txt_len:]
         else:
@@ -258,7 +298,8 @@ class UnifiedBlock(Projections):
         h = _mod_ln_maybe_quant(self.q, x, mods[0], mods[1], eps)
         q, k, v = self.qkv(h, cfg.num_heads, rope)
         o = sdpa(q, k, v, scale=1.0 / (cfg.head_dim**0.5), impl=sdpa_impl, mesh=mesh,
-                 layout="bshd").flatten(2)
+                 layout="bshd", head_group=self.head_group(cfg.head_dim)).flatten(2)
+        o = self.attn_input(o, cfg.head_dim)
         if cfg.parallel_mlp_for_unified_blocks:
             return x + mods[2] * (linear(self.o, o) + ffn_gelu(self.fc1, self.fc2, h))
         x = x + mods[2] * linear(self.o, o)
@@ -342,10 +383,12 @@ class MMDiT(nn.Module):
     ) -> torch.Tensor:
         """``sdpa_impl`` and ``mesh`` go to every joint attention's ``sdpa``
         (``ops/attention.py``): ``sdpa_impl="ring"`` with a mesh from
-        ``parallel`` runs context-parallel ring attention. The weights stay
-        replicated on every rank (tensor parallelism comes later), and the
-        reference's ``fused_quant.disable_scope``, a GSPMD workaround, has
-        no counterpart: the quantize kernels run under a mesh too."""
+        ``parallel`` runs context-parallel ring attention. A model sharded
+        over the mesh's ``model`` axis (``parallel/sharding``) runs its
+        split linears and its attention on this rank's part (module
+        docstring); the reference's ``fused_quant.disable_scope``, a GSPMD
+        workaround, has no counterpart: the quantize kernels run under a
+        mesh too, with the two-pass D and #4 where a row is split."""
         cfg = self.config
         b, lh, lw, _ = latent.shape
         dt, p = cfg.dtype, cfg.patch_size
@@ -393,7 +436,8 @@ class MMDiT(nn.Module):
             x = u[:, txt.shape[1]:].contiguous()
 
         fl = self.final_layer
-        shift, scale = (m[:, None, :] for m in linear(fl.ada, F.silu(c)).chunk(2, dim=-1))
+        shift, scale = (m[:, None, :] for m in
+                        gather_output(fl.ada, linear(fl.ada, F.silu(c))).chunk(2, dim=-1))
         x = _mod_ln_maybe_quant(fl.linear, x, shift, scale, cfg.layer_norm_eps)
         x = linear(fl.linear, x)
         if cfg.patchify_via_reshape:

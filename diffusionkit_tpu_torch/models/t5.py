@@ -10,6 +10,15 @@ NewGELU). A w8a8 T5 (``quantize_t5``, ``W8A8Linear``s) quantizes the normed
 input once for q/k/v and once for wi_0/wi_1 (kernel D on the card), as the
 reference does; ``out_proj`` and ``wo`` quantize their float inputs
 themselves.
+
+Sharded over a mesh's ``model`` axis (``parallel/sharding.shard_module_``,
+the reference's plan), the query/key/value projections and ``wi_0`` /
+``wi_1`` are column-parallel and ``out_proj`` and ``wo`` row-parallel
+(their w8a8 inputs quantized by the two-pass D, the products summed in
+int32): each rank runs its heads, with its heads of the shared
+relative-position bias, and its columns of the gated FFN. The heads must
+divide over the ranks (T5-XXL's 64 do at every power of two); the
+attention raises where they do not.
 """
 
 from __future__ import annotations
@@ -66,13 +75,16 @@ class T5Layer(nn.Module):
 
     def _attention(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        nh = self.config.num_heads
+        d = self.config.d_kv
         xq = quantize_shared(x) if needs_act_quant(self.query_proj) else x
-
-        def heads(layer):
-            return linear(layer, xq).reshape(b, s, nh, -1).transpose(1, 2)
-
-        q, k, v = heads(self.query_proj), heads(self.key_proj), heads(self.value_proj)
+        tp = getattr(self.query_proj, "tp", None)
+        if tp is not None and self.query_proj.out_features % d:
+            raise ValueError(f"T5 tensor parallelism needs whole heads a rank: "
+                             f"{self.config.num_heads} heads over {tp.n} ranks")
+        q, k, v = (linear(layer, xq).reshape(b, s, -1, d).transpose(1, 2)
+                   for layer in (self.query_proj, self.key_proj, self.value_proj))
+        if tp is not None:  # this rank's heads of the shared bias
+            bias = bias.narrow(0, tp.index * q.shape[1], q.shape[1])
         scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) + bias[None]
         p = torch.softmax(scores, dim=-1)
         o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()).to(x.dtype)

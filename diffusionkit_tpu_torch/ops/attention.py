@@ -9,10 +9,16 @@ axis (``parallel/ring_attention.py``).
 
 Under a mesh the reference wraps its flash kernel in ``shard_map`` over the
 head axis (``_flash_tp``), which the Megatron column plan has already
-sharded. This port does not shard heads yet: a mesh leaves the model
-replicated on every rank, and ``impl="flash"`` or auto runs the kernel on
-the full heads, which gives ``_flash_tp``'s result. The head split comes
-with tensor parallelism.
+sharded. Here a model sharded over the mesh's ``model`` axis
+(``parallel/sharding.py``) gives each rank q/k/v of its own heads
+(``head_group``, the group they are split over), and the same kernels B
+and #15 run on them as they are, with no wrapper and no collective. The
+reference takes the flash kernel under a mesh only where the model axis
+divides the heads; where it does not, the model gathers every head and
+this dispatch sends them to ``xla_sdpa``, as the reference's does. The
+ring (``impl="ring"``) splits the sequence over ``model`` with whole
+heads, as the reference's ``seq_spec`` does: split heads are gathered over
+the group before it and this rank's kept after it.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ def sdpa(
     impl: Optional[str] = None,
     mesh=None,
     layout: str = "bhsd",
+    head_group=None,
 ) -> torch.Tensor:
     """Dispatching SDPA, the reference's ``sdpa``.
 
@@ -77,8 +84,11 @@ def sdpa(
     'flash' always takes it (on the CPU its plain version). The kernels
     raise on what they do not take.
     ``mesh``: a ``torch.distributed`` DeviceMesh with a ``model`` axis
-    (``parallel.create_mesh``); enables 'ring'. The flash kernel runs on the
-    full, replicated heads under it (module docstring).
+    (``parallel.create_mesh``); enables 'ring'. ``head_group``: the
+    process group over which q/k/v hold this rank's heads, or None where
+    they hold every head; with whole heads under a mesh whose model axis
+    does not divide them, 'flash' and auto take ``xla_sdpa`` (module
+    docstring).
     ``layout``: 'bhsd' (B, H, S, D) or 'bshd' (B, S, H, D), the layout the
     model's head split yields, which kernel B reads in place. With
     ``DIFFUSIONKIT_TPU_ATTN_LAYOUT=bhsd`` (the reference's A/B switch) a
@@ -91,13 +101,23 @@ def sdpa(
     if impl == "ring":
         if mesh is None:
             raise ValueError("sdpa impl='ring' requires a mesh")
+        from ..parallel.collectives import all_gather, group_size
         from ..parallel.ring_attention import ring_attention
 
+        heads = 2 if bshd else 1
+        n = group_size(head_group)
+        if n > 1:  # the ring takes whole heads
+            q, k, v = (all_gather(t, heads, head_group) for t in (q, k, v))
         if bshd:
             # The ring shards the sequence axis of the (B, H, S, D) form.
-            return ring_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  scale, mesh).transpose(1, 2)
-        return ring_attention(q, k, v, scale, mesh)
+            out = ring_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 scale, mesh).transpose(1, 2)
+        else:
+            out = ring_attention(q, k, v, scale, mesh)
+        if n > 1:
+            local = out.shape[heads] // n
+            out = out.narrow(heads, torch.distributed.get_rank(head_group) * local, local)
+        return out
     seq = q.shape[1] if bshd else q.shape[-2]
     head_dim = q.shape[-1]
     want_flash = impl == "flash" or (
@@ -106,6 +126,12 @@ def sdpa(
         and seq > FLASH_ATTN_THRESHOLD
         and flash_eligible(head_dim)
     )
+    if want_flash and mesh is not None and head_group is None:
+        from ..parallel.mesh import axis_size
+
+        # The reference's rule: flash under a mesh only where the model
+        # axis divides the heads.
+        want_flash = q.shape[2 if bshd else 1] % axis_size(mesh, "model") == 0
     if not want_flash:
         return xla_sdpa(q, k, v, scale, layout)
     # The reference's bshd kernel takes head dims that divide 128 or that

@@ -42,6 +42,12 @@ _MOD_LN_QUANT_KERNELS = {torch.bfloat16: "dk_mod_ln_quant_bf16",
 _GELU_QUANT_KERNELS = {torch.bfloat16: "dk_gelu_quantize_bf16",
                        torch.float32: "dk_gelu_quantize_f32"}
 GELU_FORMS = {"erf": 0, "tanh": 1}
+_TWO_PASS_KERNELS = {torch.bfloat16: "dk_quantize_two_pass_bf16",
+                     torch.float32: "dk_quantize_two_pass_f32"}
+# The two-pass form's row value: the GELU forms (#4), or y itself (D).
+TWO_PASS_FORMS = {"erf": 0, "tanh": 1, None: 2}
+# The one-pass kernel each form is the two-pass form of.
+TWO_PASS_OF = {"erf": "gelu_quantize", "tanh": "gelu_quantize", None: "quantize"}
 # Widest row kernels D and #4 take (D: 8 warps of 8 bf16 or 16 fp32
 # vectors a lane).
 MAX_ROW = 16384
@@ -97,6 +103,108 @@ def gelu_quantize_plain(y: torch.Tensor, form: str = "erf") -> ActQuant:
     g = (gelu_as if form == "erf" else gelu_tanh)(y.float())
     x8, xscale = quantize_activations(g)
     return ActQuant(x8, xscale, None, out_dtype=y.dtype)
+
+
+def _row_values(y: torch.Tensor, form) -> torch.Tensor:
+    """The fp32 values a row quantizes: y, or its GELU in ``form``."""
+    if form not in TWO_PASS_FORMS:
+        raise ValueError(f"quantize_two_pass: unknown GELU form {form!r}")
+    if form is None:
+        return y.float()
+    return (gelu_as if form == "erf" else gelu_tanh)(y.float())
+
+
+def row_absmax_plain(y: torch.Tensor, form=None) -> torch.Tensor:
+    """Plain torch ``row_absmax``: each row's max |value|, fp32 (..., 1)."""
+    return _row_values(y, form).abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_amax_plain(y: torch.Tensor, amax: torch.Tensor, form=None) -> ActQuant:
+    """Plain torch ``quantize_amax``: the rows of y (or of their GELU) on the
+    grid of the given fp32 absmax (..., 1), ``quantize_activations``'
+    arithmetic: ``max(amax, 1e-8) / 127`` by IEEE division, round half to
+    even, clip."""
+    v = _row_values(y, form)
+    xscale = amax.float().clamp_min(1e-8)
+    xscale = xscale / torch.full_like(xscale, 127.0)
+    x8 = torch.round(v / xscale).clamp_(-127, 127).to(torch.int8)
+    return ActQuant(x8, xscale, None, out_dtype=y.dtype)
+
+
+def _two_pass_launch(name: str, n_pass: int, y: torch.Tensor, amax: torch.Tensor, form,
+                     x8=None, xscale=None) -> None:
+    """One pass of the two-pass kernel on checked rows: y contiguous and
+    16-byte aligned, bf16 or fp32, K a multiple of the 16-byte vector."""
+    if y.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {y.device}")
+    if y.dtype not in _TWO_PASS_KERNELS:
+        raise TypeError(f"{name}: dtype {y.dtype} not supported (bf16, fp32)")
+    if not y.is_contiguous() or y.data_ptr() % 16:
+        raise ValueError(f"{name}: y must be contiguous and 16-byte aligned")
+    k = y.shape[-1]
+    vec = 16 // y.element_size()
+    if k == 0 or k % vec:
+        raise ValueError(f"{name}: K={k} must be a multiple of {vec}")
+    m = y.numel() // k
+    if amax.dtype != torch.float32 or amax.numel() != m or not amax.is_contiguous() \
+            or amax.device != y.device:
+        raise ValueError(f"{name}: amax must be contiguous fp32 with one value a row on "
+                         f"{y.device}")
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    err = getattr(kernels.library(), _TWO_PASS_KERNELS[y.dtype])(
+        n_pass, TWO_PASS_FORMS[form], y.data_ptr(), amax.data_ptr(), ptr(x8), ptr(xscale), m, k,
+        kernels.stream_ptr(y.device))
+    kernels.check(err, name)
+
+
+def row_absmax(y: torch.Tensor, form=None) -> torch.Tensor:
+    """Pass 1 of the two-pass D (``form`` None) or #4 (``form`` "erf" or
+    "tanh"): each row's local max |value| (of the GELU for #4), fp32
+    (..., 1). Takes on the card y bf16 or fp32, contiguous and 16-byte
+    aligned, K a multiple of the 16-byte vector."""
+    if y.device.type == "cpu":
+        return row_absmax_plain(y, form)
+    if form not in TWO_PASS_FORMS:
+        raise ValueError(f"row_absmax: unknown GELU form {form!r}")
+    amax = torch.empty((*y.shape[:-1], 1), dtype=torch.float32, device=y.device)
+    if y.numel():
+        _two_pass_launch("row_absmax", 1, y, amax, form)
+        row_absmax.launches[TWO_PASS_OF[form]] += 1
+    return amax
+
+
+def quantize_amax(y: torch.Tensor, amax: torch.Tensor, form=None) -> ActQuant:
+    """Pass 2 of the two-pass D or #4: the rows of y (or of their GELU) on
+    the grid of ``amax`` (..., 1), the whole rows' absmax:
+    ``ActQuant(x8, xscale (..., 1), None, y.dtype)``, kernel D's or #4's
+    grid bit for bit. Takes on the card what ``row_absmax`` takes."""
+    if y.device.type == "cpu":
+        return quantize_amax_plain(y, amax, form)
+    if form not in TWO_PASS_FORMS:
+        raise ValueError(f"quantize_amax: unknown GELU form {form!r}")
+    x8 = torch.empty(y.shape, dtype=torch.int8, device=y.device)
+    xscale = torch.empty((*y.shape[:-1], 1), dtype=torch.float32, device=y.device)
+    if y.numel():
+        _two_pass_launch("quantize_amax", 2, y, amax, form, x8, xscale)
+        quantize_amax.launches[TWO_PASS_OF[form]] += 1
+    return ActQuant(x8, xscale, None, out_dtype=y.dtype)
+
+
+row_absmax.launches = {"quantize": 0, "gelu_quantize": 0}
+quantize_amax.launches = {"quantize": 0, "gelu_quantize": 0}
+
+
+def quantize_two_pass(y: torch.Tensor, group, form=None) -> ActQuant:
+    """Per-row int8 quantization of rows split over the ranks of ``group``
+    (each rank holds its K / n of every row): ``row_absmax``, the max
+    all-reduced over the group, then ``quantize_amax``; D's grid with
+    ``form`` None, #4's (the GELU first) with "erf" or "tanh". A strided y
+    is copied first, as the kernels read whole contiguous rows."""
+    from ..parallel.collectives import all_reduce_max
+
+    y = y.contiguous()
+    amax = all_reduce_max(row_absmax(y, form), group)
+    return quantize_amax(y, amax, form)
 
 
 def _check_mod_ln_args(name: str, x, shift, scale) -> None:

@@ -351,9 +351,17 @@ def w8_matmul_plain(
 ) -> torch.Tensor:
     """Plain torch ``w8_matmul``: the exact int32 product ``x8 @ w8^T``
     (``_int_dot``: ``torch._int_mm`` where its shape rules allow, else in
-    float64), then ``(acc * xscale) * wscale + bias``, each step rounded in
-    fp32, and one rounding to ``out_dtype``."""
-    y = _int_dot(x8, w8.t()) * xscale.reshape(-1, 1).float() * wscale.float()
+    float64), then ``w8_epilogue``."""
+    return w8_epilogue(_int_dot(x8, w8.t()), xscale, wscale, bias, out_dtype)
+
+
+def w8_epilogue(acc: torch.Tensor, xscale: torch.Tensor, wscale: torch.Tensor,
+                bias: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:
+    """The int8 products' epilogue, in the reference's order: ``(acc *
+    xscale) * wscale + bias``, each step rounded in fp32, one rounding to
+    ``out_dtype``. ``acc`` (M, N) is the exact int32 product, as int32 or
+    as its fp32 rounding (the same value); xscale (M, 1)."""
+    y = acc.float() * xscale.reshape(-1, 1).float() * wscale.float()
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype)
@@ -620,6 +628,26 @@ def _dequant_launch(q4: torch.Tensor, a: torch.Tensor, b: torch.Tensor, wscale_p
 dequant_w8.launches = 0
 
 
+def w4a8_w8(q4: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+            wscale: torch.Tensor) -> torch.Tensor:
+    """A w4a8 layer's (N, K) int8 weight grid, kernel E's in-tile grid bit
+    for bit: #10 on the layer's scales, zeros and wscale on the card (as
+    mode plain's "mat" route launches it), ``dequant_w8_plain`` of
+    ``scaled_affine`` on the CPU. A row-parallel w4a8 linear runs #16 on
+    it (``ops/common.linear``)."""
+    if q4.device.type == "cpu":
+        return dequant_w8_plain(q4, *scaled_affine(scales, zeros, wscale))
+    k8, n = q4.shape
+    groups = scales.shape[0]
+    w4a8_kernel(SMALL_M + 1, 8 * k8, k8, n, groups, "plain", "mat")  # raises on what #10 refuses
+    dev = q4.device
+    _contiguous_on("q4", q4, dev, torch.int32, (k8, n))
+    _contiguous_on("scales", scales, dev, torch.float32, (groups, n))
+    _contiguous_on("zeros", zeros, dev, torch.float32, (groups, n))
+    _contiguous_on("wscale", wscale, dev, torch.float32, (n,))
+    return _dequant_launch(q4, scales, zeros, wscale.data_ptr(), 8 * k8 // groups)
+
+
 def int8_dot_plain(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     """Plain torch ``int8_dot``: the exact int32 product ``x8 @ w8^T``, in
     int64 on the CPU, in float64 on the card (which has no integer matmul
@@ -725,15 +753,27 @@ def w4a8_ffn_eligible(fc1, fc2) -> bool:
     return fc2.in_features == n1 and n1 % SCALE_TILE == 0 and SCALE_TILE % fc2.group_size == 0
 
 
-def w4a8_ffn_gelu(fc1, fc2, x) -> torch.Tensor:
+def w4a8_ffn_gelu(fc1, fc2, x, group=None) -> torch.Tensor:
     """fc2(GELU(fc1(x))) with the hidden in int8 end to end: fc1 in mode
     gelu_quant (scales per (row, 512-column tile)), fc2 in mode grouped_xs
     on them. x (..., K) float or ``ActQuant``; returns (..., N2) in x's
-    dtype."""
+    dtype. With a tensor-parallel ``group`` (fc1 column-, fc2
+    row-parallel), fc2 writes its fp32 partial with no bias, the partials
+    are summed over the group, then the bias is added and the sum rounded
+    once."""
+    from ..parallel.collectives import all_reduce_sum, group_size
+
     aq = _act(x)
     lead, k = aq.shape[:-1], aq.shape[-1]
     h8, hs = w4a8_matmul(aq.x8.reshape(-1, k), fc1.q4, fc1.scales, fc1.zeros, fc1.wscale,
                          aq.xscale.reshape(-1, 1), fc1.bias, mode="gelu_quant")
-    y = w4a8_matmul(h8, fc2.q4, fc2.scales, fc2.zeros, fc2.wscale, hs, fc2.bias,
-                    mode="grouped_xs", out_dtype=aq.dtype)
+    if group_size(group) == 1:
+        y = w4a8_matmul(h8, fc2.q4, fc2.scales, fc2.zeros, fc2.wscale, hs, fc2.bias,
+                        mode="grouped_xs", out_dtype=aq.dtype)
+    else:
+        y = all_reduce_sum(w4a8_matmul(h8, fc2.q4, fc2.scales, fc2.zeros, fc2.wscale, hs, None,
+                                       mode="grouped_xs", out_dtype=torch.float32), group)
+        if fc2.bias is not None:
+            y = y + fc2.bias.float()
+        y = y.to(aq.dtype)
     return y.reshape(*lead, y.shape[-1])

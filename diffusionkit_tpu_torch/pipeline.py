@@ -106,8 +106,22 @@ request converts; an ALS or min/max model is never filed under a GPTQ tag.
 (``ops/smoothquant.smooth_t5``, calibrated with ``t5_tokenizer`` if it is
 set by then; ``DIFFUSIONKIT_TPU_T5_SMOOTH=0`` skips it) and converts it to
 w8a8 on the device; a T5 loaded from its file is cached the same way.
-Tensor-parallel loading and the data-parallel batch under a mesh wait for
-later slices.
+
+Under a mesh (``parallel.create_mesh``; the reference's ``mesh``) the MMDiT
+and the T5 are tensor-parallel over its ``model`` axis: every model that
+lands on either (the setters, ``load_mmdit`` from the file or the cache,
+``load_t5``) is sharded by the reference's Megatron plan
+(``parallel/sharding.shard_module_``) after any conversion, which runs on
+the whole model as the reference's does (a quantized model is filed in
+the cache whole). A model read from a file or the cache is read to the
+host and only this rank's slices go to the device. CLIP and the VAE stay
+whole on every rank. The image batch is data-parallel over its ``data``
+axis: ``denoise_latents(num_images=n)`` and ``generate_images_batched``
+give each data rank a contiguous chunk of the n images (ragged where the
+axis does not divide n, each with its CFG pair), every rank draws the whole
+batch's noise from the seeds and takes its rows, ``generate_images_batched``
+encodes a rank's own prompts only, and the latents are all-gathered over
+``data`` before decoding, so every rank returns all n images.
 """
 
 from __future__ import annotations
@@ -142,6 +156,9 @@ from .ops.quantized import (
 )
 from .ops.smoothquant import smooth_t5
 from .ops.w8a8 import W8A8Linear, w8a8_module_
+from .parallel.collectives import all_gather
+from .parallel.mesh import axis_index, axis_size, group
+from .parallel.sharding import shard_module_
 from .sampler import FlowSchedule, FluxSampler, ModelSamplingDiscreteFlow
 from .tokenizer import tokenize_batch
 from .utils import bytes2gigabytes, device_memory_stats, get_logger, hbm_scale
@@ -334,6 +351,15 @@ class _Scan:
                 self.step()
 
 
+def _save_cache(model: torch.nn.Module, cache: Path) -> None:
+    """``model`` filed in the quantized-model cache; a full disk only
+    warns (the cache is optional)."""
+    try:
+        model_io.save_module_cache(model, cache)
+    except OSError as e:
+        logger.warning("quant cache write failed: %s", e)
+
+
 def _assemble_sd3_conditioning(h_l, h_g, p_l, p_g, t5_cond=None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Penultimate CLIP-L/G hidden states concatenated and zero-padded to
@@ -412,10 +438,10 @@ class DiffusionPipeline:
     ``sdpa_impl`` (None/'auto', 'xla', 'flash' or 'ring') and ``mesh`` (a
     ``parallel.create_mesh`` / ``local_mesh`` DeviceMesh) go to every MMDiT
     attention, as in the reference: ``sdpa_impl="ring"`` runs context-
-    parallel ring attention over the mesh's model axis. Every model stays
-    replicated on each rank, so the denoised result is the reference's
-    tensor-parallel one up to the order of sums; tensor-parallel loading and
-    the data-parallel split of the image batch come in a later slice."""
+    parallel ring attention over the mesh's model axis. Under the mesh the
+    MMDiT and the T5 are sharded over its ``model`` axis and the image
+    batch split over its ``data`` axis (module docstring); a one-rank mesh
+    runs as no mesh does."""
 
     clip_g_needed = True
     t5_forced = False
@@ -483,12 +509,21 @@ class DiffusionPipeline:
 
     @t5.setter
     def t5(self, model: Optional[T5Encoder]) -> None:
+        self._set_t5(model)
+
+    def _set_t5(self, model: Optional[T5Encoder], cache: Optional[Path] = None) -> None:
+        """The T5, converted for ``quantize_t5``, filed whole in ``cache``
+        (if given) and sharded over the mesh's model axis."""
         if model is not None and self.quantize_t5 and not _holds(model, W8A8Linear):
             # In place on the model's device: the SmoothQuant fold first
             # (exact in float), then every eligible linear to w8a8.
             if os.environ.get("DIFFUSIONKIT_TPU_T5_SMOOTH", "1") != "0":
                 smooth_t5(model, self.t5_tokenizer)
             w8a8_module_(model)
+        if model is not None and cache is not None:
+            _save_cache(model, cache)
+        if model is not None:
+            self._shard(model)
         self._t5 = model
 
     @property
@@ -497,13 +532,66 @@ class DiffusionPipeline:
 
     @mmdit.setter
     def mmdit(self, model: Optional[MMDiT]) -> None:
+        self._set_mmdit(model)
+
+    def _set_mmdit(self, model: Optional[MMDiT], cache: Optional[Path] = None) -> None:
+        """The MMDiT, converted for ``quantize_mmdit``, filed whole in
+        ``cache`` (if given) and sharded over the mesh's model axis; the
+        captured graphs dropped."""
         if model is not None and self.quant_mode:
             t0 = time.perf_counter()
             name = self._quantize(model)
             _sync(self.device)
             self.quantizer = {"name": name, "seconds": time.perf_counter() - t0}
+        if model is not None and cache is not None:
+            if self.quantizer["name"] != "gptq" and "_gptq1_" in cache.name:
+                cache = cache.with_name(cache.name.replace("_gptq1_", "_gptq0_"))
+            _save_cache(model, cache)
+        if model is not None:
+            self._shard(model)
         self._scans.clear()  # the graphs captured the old model's weights
         self._mmdit = model
+
+    # -- the mesh -----------------------------------------------------------------
+
+    def _model_split(self) -> bool:
+        """Whether the mesh splits the MMDiT and the T5 (a model axis of
+        more than one rank)."""
+        return axis_size(self.mesh, "model") > 1
+
+    def _shard(self, model: torch.nn.Module) -> None:
+        """``model`` sharded over the mesh's model axis, on the device (in
+        place); nothing without such an axis."""
+        if self._model_split():
+            shard_module_(model, self.mesh, self.device)
+
+    def _host_or_device(self) -> torch.device:
+        """Where a model read from a file lands first: the host where the
+        mesh splits it (only the rank's slices go to the device), else
+        the device."""
+        return torch.device("cpu") if self._model_split() else self.device
+
+    def _data_rows(self, n: int) -> Tuple[int, int]:
+        """This data rank's contiguous chunk [lo, hi) of n images: the
+        first n mod d ranks one more (``np.array_split``'s chunks)."""
+        d, r = axis_size(self.mesh, "data"), axis_index(self.mesh, "data")
+        q, rem = divmod(n, d)
+        lo = r * q + min(r, rem)
+        return lo, lo + q + (r < rem)
+
+    def _gather_images(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """Every data rank's chunk of the n images (``_data_rows``)
+        gathered in order, on every rank; chunks padded to the largest
+        for the all-gather and cut after it."""
+        d = axis_size(self.mesh, "data")
+        if d == 1:
+            return x
+        per = -(-n // d)
+        if x.shape[0] < per:
+            x = torch.cat([x, x.new_zeros(per - x.shape[0], *x.shape[1:])])
+        parts = all_gather(x, 0, group(self.mesh, "data")).split(per)
+        sizes = [n // d + (r < n % d) for r in range(d)]
+        return torch.cat([part[:size] for part, size in zip(parts, sizes)])
 
     def _quantize(self, model: MMDiT) -> str:
         """``model`` converted in place for ``quantize_mmdit``; the name of
@@ -585,21 +673,17 @@ class DiffusionPipeline:
             logger.info("Loading quantized MMDiT from cache %s", cache)
             t0 = time.perf_counter()
             model = model_io.load_mmdit_cache(cache, self.model_version, self.dtype,
-                                              device=self.device)
+                                              device=self._host_or_device())
             if model is not None:
                 self.mmdit = model
                 _sync(self.device)
                 self.quantizer = {"name": "cached", "seconds": time.perf_counter() - t0}
                 return
-        self.mmdit, _ = model_io.load_mmdit(self.model_version, self.dtype, self.local_ckpt,
-                                            device=self.device)
-        if cache is not None:
-            if self.quantizer["name"] != "gptq" and "_gptq1_" in cache.name:
-                cache = cache.with_name(cache.name.replace("_gptq1_", "_gptq0_"))
-            try:
-                model_io.save_module_cache(self.mmdit, cache)
-            except OSError as e:  # a full disk: the cache is optional
-                logger.warning("quant cache write failed: %s", e)
+        # A conversion runs on the whole model on the device, then shards.
+        device = self.device if self.quant_mode else self._host_or_device()
+        model, _ = model_io.load_mmdit(self.model_version, self.dtype, self.local_ckpt,
+                                       device=device)
+        self._set_mmdit(model, cache)
 
     def load_decoder(self) -> None:
         """The VAE decoder, in ``w16``'s dtype (its activations in ``a16``'s)."""
@@ -645,16 +729,12 @@ class DiffusionPipeline:
         cache = self._t5_cache()
         if cache is not None and cache.exists():
             logger.info("Loading quantized T5 from cache %s", cache)
-            model = model_io.load_t5_cache(cache, self.dtype, device=self.device)
+            model = model_io.load_t5_cache(cache, self.dtype, device=self._host_or_device())
             if model is not None:
                 self.t5 = model
                 return
-        self.t5 = model_io.load_t5_encoder(self.dtype, device=self.device)
-        if cache is not None:
-            try:
-                model_io.save_module_cache(self.t5, cache)
-            except OSError as e:
-                logger.warning("quant cache write failed: %s", e)
+        device = self.device if self.quantize_t5 else self._host_or_device()
+        self._set_t5(model_io.load_t5_encoder(self.dtype, device=device), cache)
 
     def check_and_load_models(self) -> None:
         """Every model the pipeline runs, where it is None."""
@@ -777,21 +857,25 @@ class DiffusionPipeline:
             np.float32,
         )
         cfg_on = cfg_weight > 1
+        # This data rank's images; every rank drew the whole batch's noise.
+        lo, hi = self._data_rows(num_images)
         conditioning, pooled_conditioning = _prep_conditioning(
-            conditioning, pooled_conditioning, cfg_on, num_images, self.mmdit.config.dtype
+            conditioning, pooled_conditioning, cfg_on, hi - lo, self.mmdit.config.dtype
         )
         g = None
         if self.mmdit.config.guidance_embed:
             g = 3.5 if guidance is None else guidance
-        x0 = torch.from_numpy(noise_scaled).to(self.device)
+        x0 = torch.from_numpy(noise_scaled[lo:hi]).to(self.device)
         n_iter = len(sigmas) - 1
-        if self.use_scan:
+        if hi == lo:  # more data ranks than images: nothing to denoise here
+            x, iter_time = x0, [0.0] * n_iter
+        elif self.use_scan:
             t0 = time.perf_counter()
             # The chunk size follows the latent_size argument, not an
             # img2img image's own size, as in the reference.
             x = self._run_denoise_chunks(
                 lambda x, c, p: self._denoise_scan(x, sigmas, c, p, cfg_weight, g, cfg_on),
-                x0, conditioning, pooled_conditioning, num_images,
+                x0, conditioning, pooled_conditioning, hi - lo,
                 self._denoise_chunk_images(latent_size), cfg_on,
             )
             _sync(self.device)
@@ -799,7 +883,7 @@ class DiffusionPipeline:
         else:
             x, iter_time = self._denoise_loop(x0, sigmas, conditioning, pooled_conditioning,
                                               cfg_weight, g, cfg_on)
-        return self.latent_format.process_out(x), iter_time
+        return self.latent_format.process_out(self._gather_images(x, num_images)), iter_time
 
     def _scan(self, x, conditioning, pooled, guidance, n_sigmas: int, cfg_on: bool) -> _Scan:
         """The cached schedule for these inputs, made (and on the card
@@ -1090,17 +1174,15 @@ class DiffusionPipeline:
             self.load_text_encoders()
         else:
             self.check_and_load_models()
-        conds, pooleds = zip(*(self.encode_text(t, cfg_weight, neg)
-                               for t, neg in zip(texts, negative_texts)))
+        # This data rank's prompts (module docstring), encoded here only.
+        lo, hi = self._data_rows(n)
+        conds, pooleds = [], []
+        for t, neg in zip(texts[lo:hi], negative_texts[lo:hi]):
+            c, p = self.encode_text(t, cfg_weight, neg)
+            conds.append(c)
+            pooleds.append(p)
         self._drop("t5", "clip_l", "clip_g")
         cfg_on = cfg_weight > 1
-        if cfg_on:
-            # [pos rows..., neg rows...] to match the [x, x] latent doubling.
-            conditioning = torch.cat([c[:1] for c in conds] + [c[1:2] for c in conds])
-            pooled = torch.cat([p[:1] for p in pooleds] + [p[1:2] for p in pooleds])
-        else:
-            conditioning = torch.cat([c[:1] for c in conds])
-            pooled = torch.cat([p[:1] for p in pooleds])
 
         self._load_for("mmdit", self.load_mmdit)
         x_T1 = self.get_empty_latent(*latent_size)
@@ -1116,13 +1198,22 @@ class DiffusionPipeline:
         if self.mmdit.config.guidance_embed:
             g = 3.5 if guidance is None else guidance
         dtype = self.mmdit.config.dtype
-        x = self._run_denoise_chunks(
-            lambda x0, c, p: self._denoise_scan(x0, sigmas, c, p, cfg_weight, g, cfg_on),
-            torch.from_numpy(noise_scaled).to(self.device), conditioning.to(dtype),
-            pooled.to(dtype), n, self._denoise_chunk_images(latent_size), cfg_on,
-        )
+        x = torch.from_numpy(noise_scaled[lo:hi]).to(self.device)
+        if hi > lo:
+            if cfg_on:
+                # [pos rows..., neg rows...] to match the [x, x] latent doubling.
+                conditioning = torch.cat([c[:1] for c in conds] + [c[1:2] for c in conds])
+                pooled = torch.cat([p[:1] for p in pooleds] + [p[1:2] for p in pooleds])
+            else:
+                conditioning = torch.cat([c[:1] for c in conds])
+                pooled = torch.cat([p[:1] for p in pooleds])
+            x = self._run_denoise_chunks(
+                lambda x0, c, p: self._denoise_scan(x0, sigmas, c, p, cfg_weight, g, cfg_on),
+                x, conditioning.to(dtype), pooled.to(dtype), hi - lo,
+                self._denoise_chunk_images(latent_size), cfg_on,
+            )
         self._drop("mmdit")
-        latents = self.latent_format.process_out(x)
+        latents = self.latent_format.process_out(self._gather_images(x, n))
         self._load_for("decoder", self.load_decoder)
         images = [Image.fromarray(im) for im in self._decode_batched_u8(latents)]
         self._drop("decoder")

@@ -35,7 +35,9 @@ from diffusionkit_tpu_torch.ops.fused_quant import (
     mod_ln_quantize,
     mod_ln_quantize_plain,
     quantize,
+    quantize_amax,
     quantize_plain,
+    row_absmax,
 )
 from diffusionkit_tpu_torch.ops.int4_matmul import (
     dequantize_int4,
@@ -1865,6 +1867,37 @@ def test_quantize_kernel_on_special_values(cuda, k, dtype):
     staged = w8_matmul(got.x8, w8, ws, got.xscale, b, out_dtype=dtype)
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(fused.view(bits), staged.view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", [None, "erf", "tanh"])
+@pytest.mark.parametrize("shape", [(256, 5120), (4352, 1536), (2048, 3072), (13, 1000), (9, 200)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_two_pass_quantizers_are_the_one_pass_kernels(cuda, form, shape, dtype):
+    """The two-pass D (form None) and #4 on whole rows, and over the rows'
+    columns split in 2 and 4 with the pass-1 absmaxes combined by max: the
+    one-pass kernel's x8 and xscale bit for bit; also on D's special
+    values (+-0, subnormals, 1e30, 3e38, +-inf, NaN)."""
+    m, k = shape
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    g = torch.Generator(device=cuda).manual_seed(43)
+    y = (torch.randn(m, k, generator=g, device=cuda) * 3).to(dtype)
+    one = quantize if form is None else (lambda t: gelu_quantize(t, form))
+    want = one(y)
+    for n in (1, 2, 4):
+        if (k // n) % vec:
+            continue
+        parts = [t.contiguous() for t in y.chunk(n, dim=-1)]
+        amax = torch.stack([row_absmax(t, form) for t in parts]).amax(dim=0)
+        got = [quantize_amax(t, amax, form) for t in parts]
+        assert torch.equal(torch.cat([a.x8 for a in got], dim=-1), want.x8), n
+        assert all(torch.equal(a.xscale, want.xscale) for a in got), n
+    if form is None:
+        special = special_rows(k - k % vec, dtype, g, cuda)
+        got = quantize_amax(special, row_absmax(special))
+        want = quantize(special)
+        assert torch.equal(got.x8, want.x8)
+        assert torch.equal(got.xscale.view(torch.int32), want.xscale.view(torch.int32))
 
 
 @pytest.mark.gpu
