@@ -109,6 +109,12 @@ Phases, each raising on failure (the script then exits non-zero):
      the split paths' shapes, D at (256, 5120) and (4352, 1536), #4 at
      (2048, 3072): on whole rows and over two halves (their absmaxes
      combined by max), bit for bit the one-pass kernels, both forms timed;
+  3-4i. C and #13 on bf16 x with an fp32 output (a row-parallel linear's
+     partial product) at SD3-medium's o and fc2 split over two ranks ((M,
+     768, 1536) and (M, 3072, 1536) at M = 2048 and 308, a ragged M, and the
+     GEMV's M = 2): rounded to bf16, the bf16 form's output bit for bit;
+     within one fp32 ulp + 2K 2^-24 (|x| @ |w|) of the plain fp32 product;
+     timed beside the bf16 form and the plain version;
   every kernel's time is printed beside its bound (the larger of its
   operations over the card's peak for their type and its bytes over
   3.35 TB/s) and, for flash attention, beside F.scaled_dot_product_attention
@@ -120,8 +126,11 @@ Phases, each raising on failure (the script then exits non-zero):
      SmoothQuant (2 layers); SD3-medium in fp32 on the card (every joint
      attention on kernel B's fp32 instantiation) against fp32 on the CPU;
      and SD3.5-large at full width, 3 blocks with block 1 upcast to fp32
-     (its calls on the fp32 entries, counted apart), in bf16, int4 and w4a8
-     against fp32 on the CPU; then the generic Autoencoder: a full-width one
+     (its calls on the fp32 entries, counted apart), in bf16, int4, w4a8,
+     int8 (a float model quantized whole at group 32), w8a8 (random w8a8
+     block linears) and w4a8-mixed (a float model on the ALS grid with
+     MIXED_OVERRIDES, then the wscale) against fp32 on the CPU, every
+     counter at the forward's count; then the generic Autoencoder: a full-width one
      written as an HF diffusers mirror (config.json and weights, by
      model_io.save_safetensors) under DIFFUSIONKIT_TPU_CKPT_DIR, read back by
      model_io.load_autoencoder bit for bit, a 256² image encoded and
@@ -174,6 +183,7 @@ Phases, each raising on failure (the script then exits non-zero):
         w4a8 MMDiT with FluxPipeline(quantize_mmdit="w4a8",
         quantize_t5=True), which smooths b's bf16 T5-XXL and converts it to
         w8a8 on the card; c's settings; first a float FLUX.1-schnell MMDiT
+        at FLUX_GPTQ_DEPTH (full width; GPTQ at full size runs in path t)
         through the same setter, converted by GPTQ (the reference's
         default), timed by phase;
      a'. after a, one request of a's first prompt and seed under
@@ -200,6 +210,20 @@ Phases, each raising on failure (the script then exits non-zero):
         tile);
      k. SD3.5-large bf16 with use_t5=True: T5-XXL at 512 tokens (4685 joint
         tokens), block 35 in fp32 (kernel A and B's fp32 kernels);
+     t. SD3.5-large w4a8-mixed by GPTQ at 8B: a float bf16 SD3.5-large
+        (block 35 fp32) drawn on the card and given to DiffusionPipeline(
+        model_version=...-3.5-large, use_t5=False, quantize_mmdit=
+        "w4a8-mixed"): the quantizer "gptq" (no fallback), its seconds by
+        phase and the peak printed; every block linear w4a8 but the `ada`,
+        int8 on #13's GEMV; the embedders and the final layer float; i's
+        settings; k's CLIP-L/G, VAE and tokenizers (k's T5 carried along,
+        unused, for j);
+     u. the same float model drawn again with quantize_mmdit="int8": #13 on
+        every block linear, block 35's 12 others on its fp32 tile
+        (dequant_mm_3xtf32<8>); C, E and #11 do not run; one request (and
+        its repeat), for the smoke's time;
+     v. again with quantize_mmdit="w8a8", one request: #11 everywhere,
+        block 35 on its fp32 entries; D, A' and #4 run, C, E and #13 do not;
      j. FLUX.1-dev bf16 (its guidance embedder, guidance 3.5) through
         FluxPipeline(model_version=...FLUX.1-dev), T5 at 512 tokens (4608
         joint tokens), 1024², 4 steps; k's T5, CLIP-L and VAE;
@@ -243,6 +267,18 @@ Phases, each raising on failure (the script then exits non-zero):
         activations and in bf16, each error against the float output
         printed; then each model's block linears (q, k, v, o, fc1, fc2)
         alone in the float model, GPTQ's error at most 1.1x ALS's;
+     6t (the mode table). tools/quant_quality.run on n's files, bf16 and
+        each quantize mode (int8, int4, w8a8, w4a8, int4-mixed, w4a8-mixed)
+        at the JAX gate's config (256², 6 steps, CFG 5.0, seed 42), the
+        pipelines' default quantizers (GPTQ for the 4-bit modes), then the
+        4-bit modes again on the ALS grid (DIFFUSIONKIT_TPU_GPTQ=0), no
+        quantized-model cache: each mode's launches one request's count,
+        its PSNR against bf16, quantizer and conversion seconds printed,
+        int8 at least 38 dB and w8a8 31 (tests/test_quant_quality.py's
+        floors); then n's MMDiT file loaded onto the card from a cold page
+        cache (the smoke's own file, fsync then POSIX_FADV_DONTNEED) with
+        native.prefetch off, as it is and eager, and once warm, the seconds
+        printed (o's MLX file the same after o);
      q. f's pipeline served over HTTP: GenerationServer(max_batch=8)
         (diffusionkit_tpu_torch.serve) on a ThreadingHTTPServer at
         127.0.0.1 in this process, at f's settings: /healthz 200 with
@@ -287,7 +323,10 @@ Phases, each raising on failure (the script then exits non-zero):
         3e-2 of the whole model, and bit for bit with the split float
         linears (the t / y embedders, the final layer's ada) kept whole; its
         block-0 o and fc2 split bit for bit the whole ones (the two-pass
-        #4's path);
+        #4's path); then SD3-medium int4 and int8 (random packed block
+        linears) the same way, each within 3e-2 of the whole model, its 94
+        split o and fc2 on C / #13's fp32 output, printed beside the same
+        split forward with those partials rounded to bf16 before the sum;
      s. f's models whole on each rank over create_mesh(2, 1): num_images=2
         and generate_images_batched of f's two prompts, an image a rank,
         both ranks returning both images, latents and pixels bit for bit f's
@@ -300,8 +339,8 @@ Phases, each raising on failure (the script then exits non-zero):
         interleaved RoPE order, scales and biases F32; ae.safetensors;
         T5-XXL's and CLIP-L's HF files): every loaded model b's bit for bit,
         the images b's, the launches b's;
-     (run in the order a, a', a'', l, n (and the CLI), p, h, h', d, e, b, o, c, m, g,
-     g', f, q, r1, r, s, i, i', k, j,
+     (run in the order a, a', a'', l, n (and the CLI), p, the mode table,
+     h, h', d, e, b, o, c, m, g, g', f, q, r1, r, s, i, i', k, t, u, v, j,
      so h, d and e share a's encoders, h a's MMDiT, g c's models and f g's,
      before f converts the T5; each later path frees the previous MMDiT);
   7. two denoise steps of each path (the graph's replays; the synced
@@ -361,7 +400,7 @@ from diffusionkit_tpu_torch.config import (
     VAEDecoderConfig,
     VAEEncoderConfig,
 )
-from diffusionkit_tpu_torch import model_io
+from diffusionkit_tpu_torch import model_io, native
 from diffusionkit_tpu_torch.flops import device_peak_flops, mmdit_step_flops
 from diffusionkit_tpu_torch.graphs import StepGraph
 from diffusionkit_tpu_torch.models import (
@@ -376,7 +415,9 @@ from diffusionkit_tpu_torch.models import (
 )
 from diffusionkit_tpu_torch.models.mmdit import MMDiT
 from diffusionkit_tpu_torch.models.t5 import T5Encoder
+from diffusionkit_tpu_torch.ops import common as common_ops
 from diffusionkit_tpu_torch.ops import gptq as gptq_ops
+from diffusionkit_tpu_torch.ops.attention import FLASH_ATTN_THRESHOLD
 from diffusionkit_tpu_torch.ops import kernels
 from diffusionkit_tpu_torch.ops.flash_attention import (
     NEG_INF,
@@ -413,6 +454,7 @@ from diffusionkit_tpu_torch.ops.int4_matmul import (
     int8_matmul_plain,
 )
 from diffusionkit_tpu_torch.ops.quantized import (
+    MIXED_OVERRIDES,
     QuantizedLinear,
     add_wscale_,
     quantize_module_,
@@ -450,6 +492,7 @@ from diffusionkit_tpu_torch.tokenizer import (
     SyntheticT5Tokenizer,
     synthetic_clip_vocab,
 )
+from diffusionkit_tpu_torch.utils import image_psnr
 from diffusionkit_tpu_torch.tools import (
     DEFAULT_ITERS,
     DEFAULT_SHAPE,
@@ -461,6 +504,7 @@ from diffusionkit_tpu_torch.tools import (
     device_ms,
     device_ms_cold,
     microbench_int8,
+    quant_quality,
 )
 
 GEMV_SOURCE = "diffusionkit_tpu_torch/csrc/gemv_sm90.cu"
@@ -511,6 +555,15 @@ KERNELS = {
                            "diffusionkit_tpu/ops/fused_quant.py:246"),
     "gelu_quantize[two-pass]": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
                                 "diffusionkit_tpu/ops/fused_quant.py:229"),
+    # C and #13 on bf16 x with an fp32 output (a row-parallel linear's
+    # partial product, summed over the ranks and rounded once): the Hopper
+    # loop's fp32 store above 16 rows, the GEMV's at M <= 16.
+    "int4_matmul[f32out]": ("diffusionkit_tpu_torch/csrc/int4_matmul_sm90.cu",
+                            "diffusionkit_tpu/ops/int4_matmul.py:74"),
+    "int8_matmul[f32out]": ("diffusionkit_tpu_torch/csrc/int4_matmul_sm90.cu",
+                            "diffusionkit_tpu/ops/int4_matmul.py:244"),
+    # #13 on fp32 x (SD3.5-large int8's block 35): C's fp32 tile with bytes.
+    "int8_matmul[f32]": (F32_DEQUANT_SOURCE, "diffusionkit_tpu/ops/int4_matmul.py:244"),
 }
 # Each GEMV's entry in the line and that of its function at M > 16 (the same
 # bound; that entry points here as `small_m`).
@@ -521,11 +574,11 @@ GEMVS = {"int4_matmul[gemv]": "int4_matmul", "int8_matmul[gemv]": "int8_matmul",
 # summary names beside it.
 SYMBOLS = {
     "mod_ln": "mod_ln_kernel", "flash_attention_bshd": "flash_fwd_sm90<D, false>",
-    "int4_matmul": "int4_mm_sm90<BN>", "mod_ln_quantize": "mod_ln_quant_kernel",
+    "int4_matmul": "int4_mm_sm90<BN, bf16>", "mod_ln_quantize": "mod_ln_quant_kernel",
     "quantize": "quantize_kernel<T, NV>",
     **{f"w4a8_matmul[{mode}]": "w4a8_mm_sm90<MODE, BN>" for mode in MODES},
     "gelu_quantize": "gelu_quantize_kernel", "w8_matmul": "w8_mm_sm90<bf16|float, BN>",
-    "int8_matmul": "int8_mm_sm90<BN>", "flash_attention_stats": "flash_fwd_sm90_stats<128>",
+    "int8_matmul": "int8_mm_sm90<BN, bf16>", "flash_attention_stats": "flash_fwd_sm90_stats<128>",
     "flash_attention": "flash_fwd_sm90<D, true>", "dequant_w8": "dequant_w8_kernel<G>",
     "int8_dot": "w8_mm_sm90<int, BN>", "int4_matmul[gemv]": "int4_gemv",
     "int8_matmul[gemv]": "int8_gemv", "w4a8_matmul[gemv]": "w4a8_gemv",
@@ -534,6 +587,9 @@ SYMBOLS = {
     "gptq_group": "gptq_group_kernel<GS>",
     "quantize[two-pass]": "row_absmax_kernel<T, ACT_NONE>, quantize_amax_kernel<T, ACT_NONE>",
     "gelu_quantize[two-pass]": "row_absmax_kernel<T, GELU_ERF>, quantize_amax_kernel<T, GELU_ERF>",
+    "int4_matmul[f32out]": "int4_mm_sm90<BN, float> (M > 16), int4_gemv with out_f32 (M <= 16)",
+    "int8_matmul[f32out]": "int8_mm_sm90<BN, float> (M > 16), int8_gemv with out_f32 (M <= 16)",
+    "int8_matmul[f32]": "dequant_mm_3xtf32<8> (M > 16), dequant_mm_f32<8> (M <= 16)",
 }
 # The sources and kernels of each function's other shapes: the fp32 flash
 # kernels (3xTF32 on wgmma at d = 64 and 128, on mma.sync at d = 512);
@@ -560,11 +616,9 @@ OTHER_SOURCES = {
                               "d64_source": "diffusionkit_tpu_torch/csrc/flash_attention_sm90.cu",
                               "d64_symbols": "flash_fwd_sm90_stats64"},
     "int8_dot": {"small_m_source": W8_SMALL_SOURCE},
-    # #13 on fp32 x: C's fp32 tile with bytes (its rows in the int8_matmul line).
-    "int8_matmul": {"small_m": "int8_matmul[gemv]", "fp32_source": F32_DEQUANT_SOURCE,
-                    "fp32_symbols": "dequant_mm_3xtf32<8> (M > 16), "
-                                    "dequant_mm_f32<8> (M <= 16)"},
-    **{base: {"small_m": name} for name, base in GEMVS.items() if base != "int8_matmul"},
+    **{base: {"small_m": name} for name, base in GEMVS.items()},
+    **{f"{name}[f32out]": {"small_m_source": GEMV_SOURCE}
+       for name in ("int4_matmul", "int8_matmul")},
     "gptq_group": {"replaces_kind": "the body (gbody) of the reference's lax.scan over weight "
                                     "groups, compiled by XLA; not a Pallas call"},
     "w8_matmul": {"small_m": "w8_matmul[gemv]",
@@ -594,7 +648,9 @@ MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flu
              "int8_dot": "microbench-int8", "w4a8_matmul[plain]": "bench-w4a8-mat",
              "int4_matmul[f32]": "sd35-4bit", "gptq_group": "sd3-int4-gptq",
              "quantize[two-pass]": "flux-w4a8-t5w8a8-tp2",
-             "gelu_quantize[two-pass]": "sd3-w8a8-tp2"}
+             "gelu_quantize[two-pass]": "sd3-w8a8-tp2",
+             "int4_matmul[f32out]": "sd3-int4-tp2", "int8_matmul[f32out]": "sd3-int8-tp2",
+             "int8_matmul[f32]": "sd35-int8"}
 # The two tool paths: each tool's run at the reference's default shape.
 TOOLS = {"bench-w4a8-mat": bench_w4a8_mat, "microbench-int8": microbench_int8}
 # Per-request launches the attention kernels must match exactly.
@@ -625,6 +681,9 @@ FLUX_W4A8 = dataclasses.replace(FLUX, name="flux-w4a8")
 SD3_W8A8 = dataclasses.replace(SD3, name="sd3-w8a8")
 SD3_INT8 = dataclasses.replace(SD3, name="sd3-int8")
 FLUX_E2E = dataclasses.replace(FLUX, name="flux-w4a8-t5w8a8")
+# The dual + single blocks of f's float FLUX.1-schnell converted by GPTQ
+# (full width; all 19 + 38 took 48-61 s of the smoke on an H100).
+FLUX_GPTQ_DEPTH = (2, 4)
 # Path q: f's pipeline behind GenerationServer over HTTP, at f's settings;
 # its requests bench_serving's prompts and seeds.
 FLUX_SERVE = dataclasses.replace(FLUX_E2E, name="flux-w4a8-serve")
@@ -651,6 +710,20 @@ SD3_RING_TWIN = dataclasses.replace(SD3_RING, name="sd3-1024-flash", requests=SD
 SD35 = Path("sd35-w4a8", 8, 5.0, (128, 128), 154, SD3.requests)
 SD35_4BIT = dataclasses.replace(SD35, name="sd35-4bit")
 SD35_T5 = dataclasses.replace(SD35, name="sd35-t5", txt_tokens=589)
+# t, u, v: a float bf16 SD3.5-large drawn on the card and converted by
+# DiffusionPipeline(quantize_mmdit=...): w4a8-mixed by GPTQ (the first GPTQ
+# at 8B), int8 (#13 on every block linear, block 35's on its fp32 tile) and
+# w8a8 (#11 everywhere); i's settings.
+SD35_W4A8_MIXED = dataclasses.replace(SD35, name="sd35-w4a8-mixed")
+# u and v serve one request each (and its repeat), for the smoke's time.
+SD35_INT8 = dataclasses.replace(SD35, name="sd35-int8", requests=SD35.requests[:1])
+SD35_W8A8 = dataclasses.replace(SD35, name="sd35-w8a8", requests=SD35.requests[:1])
+# The quantize mode of each SD3.5 path, and whether its float model went
+# through the conversion whole (the embedders and the final layer too: a
+# float model given to the pipeline) or was drawn packed (block linears).
+SD35_MODES = {SD35.name: ("w4a8", False), SD35_4BIT.name: ("int4", False),
+              SD35_W4A8_MIXED.name: ("w4a8-mixed", True), SD35_INT8.name: ("int8", True),
+              SD35_W8A8.name: ("w8a8", True)}
 FLUX_DEV_PATH = Path("flux-dev", 4, 0.0, (128, 128), 512, FLUX.requests)
 # img2img: l, SD3-medium 512² on a's models from a's request-1 image (a
 # 530 x 520 copy, so read_image's LANCZOS resize runs), 50 steps at denoise
@@ -667,6 +740,15 @@ SD3_IMG2IMG = dataclasses.replace(SD3, name="sd3-img2img", requests=SD3.requests
 SD3_LOADED = dataclasses.replace(SD3, name="sd3-loaded")
 # Path p: a's request 0 twice, the second from the quantized-model cache.
 SD3_GPTQ = dataclasses.replace(SD3, name="sd3-int4-gptq", requests=(SD3.requests[0],) * 2)
+# Phase 6t, the mode table: quant_quality.run on path n's files at the JAX
+# gate's config (tests/test_quant_quality.py: 256², 6 steps, CFG 5.0, seed
+# 42), bf16 and each quantize mode, the pipelines' default quantizers; the
+# int8 family held to that gate's floors (:42-45).
+QUALITY_STEPS, QUALITY_LATENT = 6, (32, 32)
+QUALITY = {mode: Path(f"sd3-quality-{mode or 'bf16'}", QUALITY_STEPS, 5.0, QUALITY_LATENT, 154,
+                      ((quant_quality.PROMPT, 42),)) for mode in quant_quality.MODES}
+QUALITY_FLOORS = {"int8": 38.0, "w8a8": 31.0}
+GPTQ_MODES = ("int4", "w4a8", "int4-mixed", "w4a8-mixed")
 FLUX_LOADED = dataclasses.replace(FLUX, name="flux-4bit-loaded")
 FLUX_IMG2IMG = dataclasses.replace(FLUX, name="flux-w4a8-img2img", requests=FLUX.requests[:1])
 DENOISE = {SD3_IMG2IMG.name: 0.6, FLUX_IMG2IMG.name: 0.5}
@@ -830,6 +912,9 @@ def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3
     if dtype == "fp32":
         dtype = fp32_peak
     name = name.replace("[f32]", "")  # C / #13's fp32 tile: the same function
+    out_size = size
+    if "[f32out]" in name:  # C / #13 on bf16 x, the fp32 partial product written
+        name, out_size = name.replace("[f32out]", ""), 4
     name = name.replace("[two-pass]", "")  # D / #4 in two passes: the same function
     if name == "w8_matmul[gemv]":  # the quantizing entry: bf16 x read once, no scales
         m, k, n = shape
@@ -878,9 +963,9 @@ def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3
     m, k, n, g = shape
     affine = 8 * (k // g) * n  # scales and zeros
     if name == "int4_matmul":
-        return bound(2 * m * k * n, dtype, size * m * k + k * n // 2 + affine + size * m * n)
+        return bound(2 * m * k * n, dtype, size * m * k + k * n // 2 + affine + out_size * m * n)
     if name == "int8_matmul":
-        return bound(2 * m * k * n, dtype, size * m * k + k * n + affine + size * m * n)
+        return bound(2 * m * k * n, dtype, size * m * k + k * n + affine + out_size * m * n)
     mode = name[len("w4a8_matmul["):-1]
     # An fp32 row of kernel E (block 35's): the bias and the output in fp32.
     out = m * n + 4 * m * (n // 512) if mode == "gelu_quant" else size * m * n
@@ -928,6 +1013,7 @@ def reset_counts() -> None:
     w4a8_matmul.mat_launches = 0
     for fn in (int4_matmul, int8_matmul, w4a8_matmul, w8_matmul):
         fn.gemv_launches = 0
+    int4_matmul.f32out_launches = int8_matmul.f32out_launches = 0
     w8_matmul.quantizing_launches = 0
     for fn in F32_COUNTED.values():
         fn.f32_launches = 0
@@ -947,7 +1033,10 @@ def counts() -> dict:
                 # mode plain's calls run as #10 then #11 (not kernel E's)
                 "w4a8_matmul[mat]": w4a8_matmul.mat_launches,
                 # of #11's GEMV launches, those of its quantizing entry
-                "w8_matmul[quantizing]": w8_matmul.quantizing_launches})
+                "w8_matmul[quantizing]": w8_matmul.quantizing_launches,
+                # of C's and #13's, those on bf16 x with an fp32 output
+                "int4_matmul[f32out]": int4_matmul.f32out_launches,
+                "int8_matmul[f32out]": int8_matmul.f32out_launches})
     # Of each wrapper's launches, those on fp32 (an fp32-upcast block's, an
     # fp32 model's or decoder's): fp32 inputs, or for E and #11 an fp32 bias
     # or output.
@@ -2196,8 +2285,8 @@ def sd35_f32_kernels(gen, tag: str, errs: dict, times: dict) -> None:
             torch.cuda.synchronize()
             if (fn.launches, fn.f32_launches) != (before[0] + 1, before[1] + 1):
                 raise AssertionError(f"{name} fp32 did not launch its fp32 kernel")
-            key = "int4_matmul[f32]" if bits == 4 else "int8_matmul"
-            errs[key].append(check_dequant(name, shape, x, qw, sc, zr, got))
+            key = f"{name}[f32]"
+            errs.setdefault(key, []).append(check_dequant(name, shape, x, qw, sc, zr, got))
             del got
             if bits == 8 and m == 308:
                 continue
@@ -2208,7 +2297,7 @@ def sd35_f32_kernels(gen, tag: str, errs: dict, times: dict) -> None:
             log(f"  {name} fp32 (M, K, N, group) {shape}: kernel {ms!r} ms "
                 f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TFLOP/s), plain {plain!r} ms, "
                 f"{bound_note(t)}; the FMA rate's bound {t['bound_fma_ms']!r} ms [{tag}]")
-            times[key].append(t)
+            times.setdefault(key, []).append(t)
             del x, qw, sc, zr
             torch.cuda.empty_cache()
     for mode, shape, out in W4A8_F32_CASES:
@@ -2434,6 +2523,69 @@ def sd35_width_kernels(gen, tag: str, errs: dict, times: dict) -> None:
 # against its plain version; then the group step (G, gs, N) timed at SD3's
 # q/k/v (3 x 1536), those weights' widths and FLUX's q/k/v + fc1 (3 x 3072 +
 # 12288).
+# Phase 3-4i: C and #13 with an fp32 output at the row-parallel shapes of
+# SD3-medium over two ranks: o (K 768) and fc2 (K 3072) at N 1536, at the
+# 512² image rows (2048) and the text rows (308), a ragged M, and the GEMV's
+# M = 2 (the y / t embedders' fc2), at the quantize-at-load group 32.
+F32OUT_SHAPES = [(2048, 768, 1536, 32), (2048, 3072, 1536, 32), (308, 768, 1536, 32),
+                 (308, 3072, 1536, 32), (77, 3072, 1536, 32), (2, 768, 1536, 32)]
+
+
+def f32out_kernels(gen, tag: str):
+    """Phase 3-4i: kernels C and #13 on bf16 x with ``out_dtype=float32``
+    (the ``_f32out`` entries, counted in ``f32out_launches`` and not as fp32
+    launches) at F32OUT_SHAPES: the fp32 output rounded to bf16 is the bf16
+    form's output bit for bit (the same products, the last rounding left
+    out), and it is within one fp32 ulp + 2K 2^-24 (|x| @ |w|) of its plain
+    version on the card (the fp32 product of the bf16-rounded weights, TF32
+    off); each timed beside the bf16 form, the plain version and its bound
+    (the output's 4 bytes an element)."""
+    errs, times = {}, {}
+    for bits, fn, plain_fn in ((4, int4_matmul, int4_matmul_plain),
+                               (8, int8_matmul, int8_matmul_plain)):
+        key = f"{fn.__name__}[f32out]"
+        errs[key], times[key] = [], []
+        for shape in F32OUT_SHAPES:
+            m, k, n, group = shape
+            x, qw, sc, zr = (random_int4(shape, gen) if bits == 4
+                             else random_int8(shape, gen, torch.bfloat16))
+            before = (fn.launches, fn.f32out_launches, fn.f32_launches)
+            got = fn(x, qw, sc, zr, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            if (fn.launches, fn.f32out_launches, fn.f32_launches) != (
+                    before[0] + 1, before[1] + 1, before[2]):
+                raise AssertionError(f"{key} {shape}: launch counters {before} -> "
+                                     f"{(fn.launches, fn.f32out_launches, fn.f32_launches)}")
+            same = torch.equal(got.bfloat16(), fn(x, qw, sc, zr))
+            want = plain_fn(x, qw, sc, zr, torch.float32)
+            deq = dequantize_int4 if bits == 4 else dequantize_int8
+            w = deq(qw, sc, zr, torch.bfloat16).float()
+            bnd = fp32_ulp(want) + 2 * k * 2.0**-24 * (x.float().abs() @ w.abs())
+            diff = (got - want).abs()
+            err, ratio = diff.max().item(), (diff / bnd).max().item()
+            ok = (same and ratio <= 1 and got.dtype == torch.float32
+                  and bool(torch.isfinite(got).all()))
+            log(f"  {key} (M, K, N, group) {shape}: rounded to bf16 the bf16 form bit for bit: "
+                f"{same}; max_abs_err {err!r} against the plain fp32 product, worst element at "
+                f"{ratio!r} of one fp32 ulp + 2K 2^-24 (|x|@|w|): {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{key} {shape} disagrees with its plain version")
+            errs[key].append(err)
+            del got, want, w, bnd, diff
+            reps = 20 if m <= 16 else 10
+            ms = device_ms(lambda: fn(x, qw, sc, zr, out_dtype=torch.float32), reps=reps)
+            bf16_ms = device_ms(lambda: fn(x, qw, sc, zr), reps=reps)
+            plain = device_ms(lambda: plain_fn(x, qw, sc, zr, torch.float32), reps=reps)
+            t = timing(key, shape, ms, plain, library_ms=None, bf16_out_ms=bf16_ms)
+            log(f"  {key} (M, K, N, group) {shape}: {ms!r} ms "
+                f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TFLOP/s), the bf16 form {bf16_ms!r} ms, "
+                f"plain {plain!r} ms, {bound_note(t)} [{tag}]")
+            times[key].append(t)
+            del x, qw, sc, zr
+            torch.cuda.empty_cache()
+    return errs, times
+
+
 GPTQ_WEIGHTS = [(6144, 1536), (12288, 3072)]
 GPTQ_STEPS = [(1, 32, 4608), (1, 32, 1536), (1, 32, 3072), (1, 32, 21504)]
 GPTQ_CALIB_ROWS = 4096
@@ -2580,10 +2732,10 @@ def reference_check(model, ref, inputs, want_counts: dict, label: str,
         got = model(*(t.cuda() for t in inputs)).float().cpu()
         have = counts()
         want = ref(*inputs).float()
-    for name in have:
-        if have[name] != want_counts.get(name, 0):
-            raise AssertionError(f"{label}: {name} launched {have[name]} times, expected "
-                                 f"{want_counts.get(name, 0)}")
+    off = {name: (have[name], want_counts.get(name, 0)) for name in have
+           if have[name] != want_counts.get(name, 0)}
+    if off:
+        raise AssertionError(f"{label}: launches (got, expected) {off}; all launches {have}")
     rel = ((got - want).norm() / want.norm()).item()
     log(f"  {label}: kernels on the card vs fp32 CPU: relative L2 error {rel!r} "
         f"(tolerance {rtol}), finite {bool(torch.isfinite(got).all())}, launches {have}")
@@ -2605,18 +2757,29 @@ def mmdit_check(cfg, inputs, want_counts: dict, label: str, gen, quantize_bits=N
 
 def per_forward_sd3(depth: int, mode=None) -> dict:
     """Launches of one SD3 forward (CFG batch) with ``depth`` dual blocks,
-    the last K/V-only, by quantize mode. Float: kernel A at 4 AdaLN sites a
-    block (3 in the last) and the final layer. int8: the same, and #13 for
-    the 14 block linears of a block (11 in the last: its text stream has no
-    o/fc1/fc2), the context embedder, the y/t embedders' four and the final
-    ``ada`` (the x_embedder and final linear are below MIN_DIM). w8a8 (every
-    linear converted, min_dim 0): #11 for those and the x_embedder and final
-    linear (14 a block, 11 in the last, 8 outside), of them at M = 2 each
-    block's two `ada`, the final `ada` and the y/t embedders' four on #11's
-    GEMV, which quantizes their float input itself; kernel D before every
-    other float input (o x2 a block, o in the last, the x_embedder and the
-    context embedder); A' at every AdaLN site and the final layer's; #4 in
-    each FFN."""
+    the last K/V-only, by quantize mode, for a float model converted whole
+    (the pipelines' quantize-at-load). Float: kernel A at 4 AdaLN sites a
+    block (3 in the last) and the final layer. int8 and int4 (GPTQ): the
+    same, and #13 (C) for the 14 block linears of a block (11 in the last:
+    its text stream has no o/fc1/fc2), the context embedder, the y/t
+    embedders' four and the final ``ada`` (the x_embedder and final linear
+    are below MIN_DIM), of them at M = 2 each block's two ``ada``, the y/t
+    embedders' four and the final ``ada`` on the GEMV. int4-mixed: C for
+    the 12 q/k/v/o/fc1/fc2 of a block (9 in the last), every block ``ada``
+    on #13's GEMV (the embedders and the final layer float). w8a8 (every
+    linear converted, min_dim 0): #11 for those and the x_embedder and
+    final linear (14 a block, 11 in the last, 8 outside), of them at M = 2
+    each block's two `ada`, the final `ada` and the y/t embedders' four on
+    #11's GEMV, which quantizes their float input itself; kernel D before
+    every other float input (o x2 a block, o in the last, the x_embedder
+    and the context embedder); A' at every AdaLN site and the final
+    layer's; #4 in each FFN. w4a8: q/k/v/o on #10 then #11 (8 a block, 7 in
+    the last) and the context embedder, gelu_quant and grouped_xs per FFN,
+    the M = 2 linears (a block's two ``ada``, the y/t embedders', the final
+    ``ada``) on E's GEMV, kernel D before each of those and each ``o`` and
+    the context embedder, A' at every block site, kernel A in the final
+    layer (its linear is float). w4a8-mixed: the block linears as w4a8,
+    every ``ada`` on #13's GEMV, D before each ``o`` only."""
     dual = depth - 1
     per = {"flash_attention_bshd": depth}
     if mode == "w8a8":
@@ -2624,43 +2787,92 @@ def per_forward_sd3(depth: int, mode=None) -> dict:
         return {**per, "w8_matmul": 14 * dual + 19, "w8_matmul[gemv]": gemv,
                 "w8_matmul[quantizing]": gemv, "quantize": 2 * dual + 3,
                 "mod_ln_quantize": 4 * dual + 4, "gelu_quantize": 2 * dual + 1}
+    if mode in ("w4a8", "w4a8-mixed"):
+        mixed = mode == "w4a8-mixed"
+        mat = 8 * dual + 7 + (0 if mixed else 1)
+        per.update({"w4a8_matmul[mat]": mat, "dequant_w8": mat, "w8_matmul": mat,
+                    "w4a8_matmul[gelu_quant]": 2 * dual + 1,
+                    "w4a8_matmul[grouped_xs]": 2 * dual + 1,
+                    "quantize": 2 * dual + 1 if mixed else 4 * dual + 9,
+                    "mod_ln_quantize": 4 * dual + 3, "mod_ln": 1})
+        if mixed:
+            per.update({"int8_matmul": 2 * depth, "int8_matmul[gemv]": 2 * depth})
+        else:
+            per["w4a8_matmul[gemv]"] = 2 * depth + 5
+        return per
     per["mod_ln"] = 4 * dual + 4
-    if mode == "int8":
-        per["int8_matmul"] = 14 * dual + 17
-        # Of them at M = 2, the GEMV: each block's two `ada`, the y/t
-        # embedders' four, the final `ada`.
-        per["int8_matmul[gemv]"] = 2 * depth + 5
+    if mode in ("int8", "int4"):
+        name = f"{mode}_matmul"
+        per[name] = 14 * dual + 17
+        per[f"{name}[gemv]"] = 2 * depth + 5
+    if mode == "int4-mixed":
+        per.update({"int4_matmul": 12 * dual + 9, "int8_matmul": 2 * depth,
+                    "int8_matmul[gemv]": 2 * depth})
     return per
 
 
-def per_forward_sd35(depth: int, upcast: int, mode=None) -> dict:
+def per_forward_sd35(depth: int, upcast: int, mode=None, converted: bool = False) -> dict:
     """Launches of one SD3.5 forward (CFG batch, a text stream of more than
     16 rows) with ``depth`` dual blocks, the last K/V-only, ``upcast`` of
     them fp32 (their calls also counted on the fp32 entries: ``[f32]``), by
-    mode. Float: per_forward_sd3's. int4 (block linears packed): kernel C for
-    the 14 block linears of a block (11 in the last), of them at M = 2 the
-    two `ada` a block on the bf16 GEMV (an upcast block's too: c stays bf16),
-    the 12 others of an upcast block on the fp32 tile. w4a8: a block's two
-    `ada` on E's GEMV (an fp32 bias in an upcast block), q/k/v/o on #10 then
-    #11 (8 a block, 7 in the last; fp32 out in an upcast block), gelu_quant
-    and grouped_xs per FFN (an fp32 bias, grouped_xs fp32 out), D before each
+    mode; ``converted``: a float model converted whole (its embedders and
+    final layer too, as the pipelines' quantize-at-load does), else drawn
+    with packed (or w8a8) block linears. Float: per_forward_sd3's. int4
+    (block linears packed): kernel C for the 14 block linears of a block (11
+    in the last), of them at M = 2 the two `ada` a block on the bf16 GEMV (an
+    upcast block's too: c stays bf16), the 12 others of an upcast block on
+    the fp32 tile. int8: the same on #13, converted as per_forward_sd3's
+    int8 (the embedders' and the final ``ada``). w4a8: a block's two `ada`
+    on E's GEMV (an fp32 bias in an upcast block), q/k/v/o on #10 then #11
+    (8 a block, 7 in the last; fp32 out in an upcast block), gelu_quant and
+    grouped_xs per FFN (an fp32 bias, grouped_xs fp32 out), D before each
     `ada` and `o` (the `o` inputs fp32), A' at every site, kernel A in the
-    final layer only (its linear is float)."""
+    final layer only (its linear is float). w4a8-mixed: the same with every
+    `ada` on #13's bf16 GEMV and no D before it. w8a8: #11 for the block
+    linears (the `ada` on its quantizing GEMV, bf16 out; the 12 others of
+    an upcast block fp32 out), D before each `o`, A' at every site, #4 per
+    FFN; converted, per_forward_sd3's w8a8 (kernel A' in the final layer),
+    else kernel A in the final layer; the M = 2 rows of K 2432 on D then
+    #11's tile, not its quantizing GEMV (K is not a multiple of 256)."""
     dual = depth - 1
     per = {"flash_attention_bshd": depth, "flash_attention_bshd[f32]": upcast}
-    if mode == "w4a8":
+    if mode in ("w4a8", "w4a8-mixed"):
+        mixed = mode == "w4a8-mixed"
         mat = 8 * dual + 7
-        per.update({"w4a8_matmul[gemv]": 2 * depth, "w4a8_matmul[mat]": mat, "dequant_w8": mat,
+        per.update({"w4a8_matmul[mat]": mat, "dequant_w8": mat,
                     "w8_matmul": mat, "w4a8_matmul[gelu_quant]": 2 * dual + 1,
-                    "w4a8_matmul[grouped_xs]": 2 * dual + 1, "quantize": 4 * dual + 3,
+                    "w4a8_matmul[grouped_xs]": 2 * dual + 1,
+                    "quantize": 2 * dual + 1 if mixed else 4 * dual + 3,
                     "mod_ln_quantize": 4 * dual + 3, "mod_ln": 1,
-                    "w4a8_matmul[f32]": 6 * upcast, "w8_matmul[f32]": 8 * upcast,
+                    "w4a8_matmul[f32]": (4 if mixed else 6) * upcast, "w8_matmul[f32]": 8 * upcast,
                     "quantize[f32]": 2 * upcast, "mod_ln_quantize[f32]": 4 * upcast})
+        if mixed:
+            per.update({"int8_matmul": 2 * depth, "int8_matmul[gemv]": 2 * depth})
+        else:
+            per["w4a8_matmul[gemv]"] = 2 * depth
+        return per
+    if mode == "w8a8":
+        # #11's GEMV takes K a multiple of 256 (w8_route): at SD3.5's hidden
+        # 2432 the M = 2 rows of K 2432 (every `ada`; converted, the y / t
+        # embedders' fc2 too) take kernel D then #11's M <= 16 tile, and
+        # only the embedders' fc1 (K 2048 and 256) its quantizing GEMV.
+        gemv = 2 if converted else 0
+        tile = 2 * depth + (3 if converted else 0)
+        per.update({"w8_matmul": 14 * dual + (19 if converted else 11), "w8_matmul[gemv]": gemv,
+                    "w8_matmul[quantizing]": gemv,
+                    "quantize": 2 * dual + (3 if converted else 1) + tile,
+                    "mod_ln_quantize": 4 * dual + (4 if converted else 3),
+                    "gelu_quantize": 2 * dual + 1, "w8_matmul[f32]": 12 * upcast,
+                    "quantize[f32]": 2 * upcast, "mod_ln_quantize[f32]": 4 * upcast})
+        if not converted:
+            per["mod_ln"] = 1
         return per
     per.update({"mod_ln": 4 * dual + 4, "mod_ln[f32]": 4 * upcast})
-    if mode == "int4":
-        per.update({"int4_matmul": 14 * dual + 11, "int4_matmul[gemv]": 2 * depth,
-                    "int4_matmul[f32]": 12 * upcast})
+    if mode in ("int4", "int8"):
+        name = f"{mode}_matmul"
+        per.update({name: 14 * dual + (17 if converted else 11),
+                    f"{name}[gemv]": 2 * depth + (5 if converted else 0),
+                    f"{name}[f32]": 12 * upcast})
     return per
 
 
@@ -2692,6 +2904,19 @@ def reference_checks(gen) -> None:
                 quantize_bits=4)
     mmdit_check(sd35, inputs, per_forward_sd35(3, 1, "w4a8"), f"{label}, w4a8", gen,
                 quantize_bits=4, convert=add_wscale_)
+    # Paths u, v and t's modes: int8 converted whole from a float model at
+    # group 32 (the embedders' and the final ``ada`` too), w8a8 as the
+    # reference's random w8a8 init draws it (block linears; see the SD3
+    # w8a8 check below), w4a8-mixed from a float model on the ALS grid with
+    # MIXED_OVERRIDES (every ``ada`` int8, the embedders and final layer
+    # float), then each int4 layer's wscale.
+    mmdit_check(sd35, inputs, per_forward_sd35(3, 1, "int8", converted=True), f"{label}, int8",
+                gen, convert=lambda m: quantize_module_(m, 32, bits=8))
+    mmdit_check(sd35, inputs, per_forward_sd35(3, 1, "w8a8"), f"{label}, w8a8", gen,
+                quantize_bits="w8a8")
+    mmdit_check(sd35, inputs, per_forward_sd35(3, 1, "w4a8-mixed"), f"{label}, w4a8-mixed",
+                gen, convert=lambda m: add_wscale_(quantize_module_(m, 32,
+                                                                   overrides=MIXED_OVERRIDES)))
     # SD3 w8a8 as the reference's random w8a8 init draws it (block linears
     # in w8a8; embedders and final layer float, so kernel A runs once, in
     # the final layer): per block #11 for 14 linears (11 in the last), of
@@ -2799,15 +3024,21 @@ def per_request_launches(path: Path, cfg) -> dict:
     must not run has 0 (kernel C on the w4a8 paths, C, E and #13 on SD3
     w8a8, #11, C and E on SD3 int8, #14 and #15 off their paths)."""
     if path.name.startswith("sd35"):
-        mode = {SD35.name: "w4a8", SD35_4BIT.name: "int4"}.get(path.name)
+        mode, converted = SD35_MODES.get(path.name, (None, False))
         per = {k: path.steps * v for k, v in per_forward_sd35(
-            cfg.depth_multimodal, len(cfg.upcast_multimodal_blocks), mode).items()}
+            cfg.depth_multimodal, len(cfg.upcast_multimodal_blocks), mode, converted).items()}
         per["flash_attention_bshd"] += 1  # the VAE mid-block, bf16
         return per
     if path.name.startswith("sd3"):
-        mode = {"sd3-w8a8": "w8a8", "sd3-int8": "int8"}.get(path.name)
+        mode = {"sd3-w8a8": "w8a8", "sd3-int8": "int8",
+                **{p.name: m for m, p in QUALITY.items()}}.get(path.name)
         per = {k: path.steps * v for k, v in per_forward_sd3(cfg.depth_multimodal, mode).items()}
-        per["flash_attention_bshd"] += 1
+        # Kernel B runs where a sequence passes FLASH_ATTN_THRESHOLD: the
+        # joint attention (image + text tokens) and the VAE mid-block (the
+        # latent's positions); at 256² neither does.
+        if (path.latent[0] // 2) * (path.latent[1] // 2) + path.txt_tokens <= FLASH_ATTN_THRESHOLD:
+            per["flash_attention_bshd"] = 0
+        per["flash_attention_bshd"] += path.latent[0] * path.latent[1] > FLASH_ATTN_THRESHOLD
         if path.name == SD3_BHSD.name:
             per["flash_attention"] = per.pop("flash_attention_bshd")
         if path.name == SD3_RING.name:
@@ -2919,12 +3150,16 @@ def build_flux_e2e(gen, prev: FluxPipeline) -> FluxPipeline:
     Both conversions are timed, as what a ``low_memory_mode`` request of
     this pipeline from float checkpoints does again each time: first a
     float bf16 FLUX.1-schnell MMDiT (drawn from its own seed) through the
-    setter's w4a8 conversion, GPTQ by default, timed by phase, then freed."""
+    setter's w4a8 conversion, GPTQ by default, timed by phase, then freed
+    (at FLUX_GPTQ_DEPTH blocks, for the smoke's time: path t runs GPTQ on
+    a whole 8B model)."""
     pipe = FluxPipeline(load=False, low_memory_mode=False,
                         device="cuda", quantize_mmdit="w4a8", quantize_t5=True)
     for name in ("clip_l", "decoder", "tokenizer_l", "t5_tokenizer"):
         setattr(pipe, name, getattr(prev, name))
-    model = init_mmdit(FLUX_SCHNELL, torch.Generator(device="cuda").manual_seed(19), "cuda")
+    cfg = dataclasses.replace(FLUX_SCHNELL, depth_multimodal=FLUX_GPTQ_DEPTH[0],
+                              depth_unified=FLUX_GPTQ_DEPTH[1])
+    model = init_mmdit(cfg, torch.Generator(device="cuda").manual_seed(19), "cuda")
     torch.cuda.synchronize()
     gptq_ops.PHASE_SECONDS = {}
     try:
@@ -2943,7 +3178,8 @@ def build_flux_e2e(gen, prev: FluxPipeline) -> FluxPipeline:
         raise AssertionError("quantize_mmdit='w4a8' left a block linear of the float FLUX "
                              "MMDiT unconverted")
     packed = sum(isinstance(m, QuantizedLinear) for m in model.modules())
-    log(f"  float FLUX.1-schnell MMDiT converted to w4a8 by GPTQ on the card in {seconds!r} s "
+    log(f"  float FLUX.1-schnell MMDiT ({cfg.depth_multimodal} + {cfg.depth_unified} blocks) "
+        f"converted to w4a8 by GPTQ on the card in {seconds!r} s "
         f"({packed} linears; by phase {phases}; the min/max grid took 1.02 s in an earlier "
         f"run on an NVIDIA H100 80GB HBM3 at 700 W)")
     del model, block
@@ -3075,14 +3311,15 @@ def serve(pipe, path: Path, tag: str):
     if not np.array_equal(repeat, images[0]):
         raise AssertionError("repeating the first request gave a different image")
     log("  repeat of request 0: bit-identical image")
-    if np.array_equal(images[0], images[1]):
+    if len(images) > 1 and np.array_equal(images[0], images[1]):
         raise AssertionError("two different requests gave the same image")
 
     cfg = pipe.mmdit.config
     flops = mmdit_step_flops(cfg, path.latent, path.txt_tokens, cfg=path.cfg > 1)["total"]
     peak = device_peak_flops(torch.cuda.get_device_name(0))
     rate, peak_name = "TFLOP/s", "bf16"
-    if path.name in (FLUX_W4A8.name, FLUX_E2E.name, SD3_W8A8.name, FLUX_RING.name, SD35.name):
+    if path.name in (FLUX_W4A8.name, FLUX_E2E.name, SD3_W8A8.name, FLUX_RING.name, SD35.name,
+                     SD35_W4A8_MIXED.name, SD35_W8A8.name):
         rate, peak_name, peak = "TOP/s", "int8", 2 * peak  # the int8 tensor cores
     for i, lg in enumerate(logs):
         it = lg["denoising"]["iter_time"]
@@ -4034,6 +4271,13 @@ def loaded_sd3_path(prev: DiffusionPipeline, served: dict, scratch: str, tag: st
                                      tag)
         log("phase 6p, quality: a's float MMDiT against its GPTQ, ALS and min/max int4 models")
         gptq_quality(prev.mmdit, got["p"]["cache"], tag)
+        log("phase 6t: the mode table: tools/quant_quality.run on path n's files, bf16 and each "
+            "quantize mode (256², 6 steps, CFG 5.0, seed 42)")
+        with env_set("DIFFUSIONKIT_TPU_CKPT_DIR", root):
+            got["t"] = mode_table(tag)
+            log("phase 6n, cold loads: n's MMDiT file from a cold page cache")
+            got["cold"] = cold_loads(SD3_MEDIUM, os.path.join(d, model_io.MMDIT_CKPT[SD3_MEDIUM]),
+                                     tag)
         return got
     finally:
         shutil.rmtree(root)
@@ -4045,17 +4289,11 @@ def is_f16(t: torch.Tensor) -> bool:
 
 def check_gptq_model(model: MMDiT) -> None:
     """Every block linear packed, with scales and zeros on the f16 grid."""
-    blocks = [*model.mm_blocks, model.mm_final]
-    for block in blocks:
-        for stream in (block.img, block.txt):
-            for name in ("q", "k", "v", "ada", "o", "fc1", "fc2"):
-                layer = getattr(stream, name, None)
-                if layer is None and stream is block.txt and block.final:
-                    continue
-                if not isinstance(layer, QuantizedLinear) or layer.bits != 4:
-                    raise AssertionError(f"path p: a block's {name} is not an int4 QuantizedLinear")
-                if not (is_f16(layer.scales) and is_f16(layer.zeros)):
-                    raise AssertionError(f"path p: {name}'s scales are not f16 values")
+    for name, layer in block_linears(model):
+        if not isinstance(layer, QuantizedLinear) or layer.bits != 4:
+            raise AssertionError(f"path p: block linear {name} is not an int4 QuantizedLinear")
+        if not (is_f16(layer.scales) and is_f16(layer.zeros)):
+            raise AssertionError(f"path p: {name}'s scales are not f16 values")
 
 
 def gptq_sd3_path(ckpt: str, scratch: str, tag: str) -> dict:
@@ -4193,6 +4431,104 @@ def gptq_quality(float_model: MMDiT, cache: str, tag: str) -> None:
                              f"{blocks['als']}")
 
 
+def mode_table(tag: str) -> dict:
+    """Phase 6t (module docstring): ``quant_quality.run`` for bf16 and each
+    quantize mode on the SD3-medium files under DIFFUSIONKIT_TPU_CKPT_DIR,
+    with the pipelines' default quantizers and then, for the 4-bit modes,
+    the ALS grid (DIFFUSIONKIT_TPU_GPTQ=0); no quantized-model cache, so
+    every mode converts. Each run's launches (the conversion's GPTQ group
+    steps apart) are one request's count; each image's PSNR against bf16,
+    its conversion seconds and its quantizer are printed, and the int8
+    family held to the JAX gate's floors. Returns each mode's launches."""
+    base, table, out = None, {}, {}
+    runs = [(mode, "default") for mode in quant_quality.MODES]
+    runs += [(mode, "als") for mode in GPTQ_MODES]
+    with env_set("DIFFUSIONKIT_TPU_QUANT_CACHE", "0"):
+        for mode, grid in runs:
+            name = mode or "bf16"
+            stats = {}
+            reset_counts()
+            with env_set("DIFFUSIONKIT_TPU_GPTQ", "0" if grid == "als" else "1"):
+                image, wall = quant_quality.run(mode, QUALITY_STEPS, QUALITY_LATENT, stats=stats)
+            torch.cuda.synchronize()
+            launches = counts()
+            groups = launches.pop("gptq_group")
+            path = QUALITY[mode]
+            check_launches(launches, per_request_launches(path, SD3_2b), 1,
+                           f"{path.name} ({grid} grid)")
+            launches["gptq_group"] = groups
+            q = stats["quantizer"]
+            if base is None:
+                base = image
+            psnr = None if mode is None else image_psnr(base, image)
+            if grid == "default":
+                out[path.name] = launches
+                table[name] = psnr
+                want = "gptq" if mode in GPTQ_MODES else {"int8": "minmax"}.get(mode, mode)
+            else:
+                want = "als"
+            if (q and q["name"]) != want:
+                raise AssertionError(f"mode table {name}: quantizer {q}, expected {want}")
+            log(f"  {name} ({grid}): PSNR against bf16 {psnr!r} dB; quantizer "
+                f"{q and q['name']!r} in {q and q['seconds']!r} s ({groups} group steps); "
+                f"wall {wall!r} s, pipeline construction and loading included; image "
+                f"{image.shape}, pixel std {float(image.std())!r} [{tag}]")
+            if image.shape != (8 * QUALITY_LATENT[0], 8 * QUALITY_LATENT[1], 3) or image.std() == 0:
+                raise AssertionError(f"mode table {name}: wrong shape or constant image")
+    log(f"  the mode table, PSNR against bf16 (256², 6 steps, CFG 5.0, seed 42, the pipelines' "
+        f"default quantizers): {table} [{tag}]")
+    for mode, floor in QUALITY_FLOORS.items():
+        if not table[mode] >= floor:
+            raise AssertionError(f"mode table: {mode} at {table[mode]} dB, under the JAX "
+                                 f"gate's floor of {floor} dB")
+    return out
+
+
+def evict(paths) -> None:
+    """Drop ``paths`` (files this script wrote) from the page cache: their
+    dirty pages written back (``fsync``), then ``POSIX_FADV_DONTNEED``. Only
+    these files are touched."""
+    for path in paths:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def cold_loads(version: str, path: str, tag: str) -> dict:
+    """The MMDiT file load of ``version`` (``model_io.load_mmdit`` onto the
+    card, to a synchronise) from a cold page cache (``evict``), three ways:
+    ``native.prefetch`` replaced by a no-op, as it is (``madvise(
+    MADV_WILLNEED)``), and eager (one byte a page read first); then once
+    warm, as the cache holds it after the eager load. A measurement, not a
+    gate: the seconds printed and returned."""
+    real = native.prefetch
+    ways = {"off": lambda buf, eager=False: None, "madvise": real,
+            "eager": lambda buf, eager=False: real(buf, True), "warm": real}
+    size = os.path.getsize(path) / 2**30
+    seconds = {}
+    try:
+        for way, fn in ways.items():
+            native.prefetch = fn
+            gc.collect()
+            if way != "warm":
+                evict([path])
+            t0 = time.perf_counter()
+            model, _ = model_io.load_mmdit(version, torch.bfloat16, device="cuda")
+            torch.cuda.synchronize()
+            seconds[way] = time.perf_counter() - t0
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        native.prefetch = real
+    log(f"  cold load of {version}'s MMDiT file ({size!r} GiB): prefetch off "
+        f"{seconds['off']!r} s, madvise {seconds['madvise']!r} s, eager {seconds['eager']!r} s "
+        f"(page cache evicted before each); warm, right after, {seconds['warm']!r} s [{tag}]")
+    return seconds
+
+
 def loaded_flux_path(prev: FluxPipeline, served: dict, scratch: str, tag: str) -> dict:
     """Path o: b's models written as the FLUX.1-schnell 4-bit release's
     files (the MMDiT in the MLX namespace, ``ae.safetensors``, T5-XXL's
@@ -4232,8 +4568,11 @@ def loaded_flux_path(prev: FluxPipeline, served: dict, scratch: str, tag: str) -
             packed = sum(isinstance(m, QuantizedLinear) for m in pipe.mmdit.modules())
             log(f"  every loaded model b's bit for bit ({packed} packed linears)")
             got = serve_loaded(pipe, FLUX_LOADED, FLUX, FLUX_SCHNELL, served, (), tag)
+            del pipe
+            log("phase 6o, cold loads: o's MMDiT file (the MLX namespace) from a cold page cache")
+            got["cold"] = cold_loads(FLUX_SCHNELL_4BIT, os.path.join(
+                d, model_io.MMDIT_CKPT[FLUX_SCHNELL_4BIT]), tag)
         got["load_s"] = load_s
-        del pipe
         return got
     finally:
         shutil.rmtree(root)
@@ -4348,6 +4687,86 @@ def build_sd35(mode):
         packed = [m for m in pipe.mmdit.modules() if isinstance(m, QuantizedLinear)]
         if mode and (not packed or (mode == "w4a8") != all(m.wscale is not None for m in packed)):
             raise AssertionError(f"SD3.5 {mode}: the packed linears' wscale is not as the mode")
+        return pipe
+
+    return build
+
+
+def block_linears(model: MMDiT):
+    """(name, layer) of every dual-stream block linear of ``model``."""
+    for i, block in enumerate([*model.mm_blocks, model.mm_final]):
+        for side, stream in (("img", block.img), ("txt", block.txt)):
+            for name in ("q", "k", "v", "ada", "o", "fc1", "fc2"):
+                layer = getattr(stream, name, None)
+                if layer is not None:
+                    yield f"{i}.{side}.{name}", layer
+
+
+def quantized_as(mode: str, name: str, layer) -> bool:
+    """Whether a block linear is in ``mode``'s form: int8 weight-only,
+    w8a8, or for w4a8-mixed int4 with a wscale (the ``ada`` int8 without)."""
+    if mode == "w8a8":
+        return isinstance(layer, W8A8Linear)
+    if not isinstance(layer, QuantizedLinear):
+        return False
+    if mode == "int8" or name.endswith(".ada"):
+        return layer.bits == 8 and layer.wscale is None
+    return layer.bits == 4 and layer.wscale is not None
+
+
+def build_sd35_converted(mode: str):
+    """Paths t (``mode`` "w4a8-mixed"), u ("int8") and v ("w8a8"): a float
+    bf16 SD3.5-large (block 35 fp32) drawn on the card and given to
+    DiffusionPipeline(model_version=...-3.5-large, use_t5=False,
+    quantize_mmdit=mode), which converts it on the card: w4a8-mixed by GPTQ
+    (it must not fall back), int8 on the min/max grid, w8a8 per channel.
+    The conversion's seconds (GPTQ's by phase) and peak memory are printed,
+    and every block linear checked in the mode's form (under -mixed the
+    embedders and the final layer float). CLIP-L/G, the decoder and the
+    tokenizers come from the previous SD3.5 path, and k's T5-XXL rides
+    along unused (use_t5=False) for j; the previous MMDiT is freed first."""
+
+    def build(gen, prev) -> DiffusionPipeline:
+        t5, t5_tokenizer = prev.t5, prev.t5_tokenizer
+        prev.mmdit = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        pipe = DiffusionPipeline(load=False, low_memory_mode=False, device="cuda",
+                                 model_version=SD35_LARGE, use_t5=False, quantize_mmdit=mode)
+        for name in ("clip_l", "clip_g", "decoder", "tokenizer_l", "tokenizer_g"):
+            setattr(pipe, name, getattr(prev, name))
+        pipe.t5, pipe.t5_tokenizer = t5, t5_tokenizer
+        model = init_mmdit(SD3_8b, gen, "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gptq_ops.PHASE_SECONDS = {}
+        t0 = time.perf_counter()
+        try:
+            pipe.mmdit = model
+            torch.cuda.synchronize()
+        finally:
+            phases, gptq_ops.PHASE_SECONDS = gptq_ops.PHASE_SECONDS, None
+        wall = time.perf_counter() - t0
+        del model
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        q = pipe.quantizer
+        log(f"  SD3.5-large {mode}: quantizer {q['name']!r} in {q['seconds']!r} s (the setter "
+            f"{wall!r} s); by phase {phases} ({sum(phases.values())!r} s timed); peak "
+            f"{peak!r} GiB above the {base / 2**30!r} GiB allocated before it, "
+            f"{torch.cuda.memory_allocated() / 2**30!r} GiB after [{card()}]")
+        want = "gptq" if mode == "w4a8-mixed" else {"int8": "minmax"}.get(mode, mode)
+        if q["name"] != want:
+            raise AssertionError(f"SD3.5-large {mode}: quantizer {q['name']}, expected {want}")
+        upcast_block_check(pipe.mmdit)
+        wrong = [n for n, layer in block_linears(pipe.mmdit) if not quantized_as(mode, n, layer)]
+        if wrong:
+            raise AssertionError(f"SD3.5-large {mode}: block linears not in the mode's form: "
+                                 f"{wrong[:6]}")
+        if mode == "w4a8-mixed" and any(isinstance(m, (QuantizedLinear, W8A8Linear)) for m in (
+                pipe.mmdit.context_embedder, pipe.mmdit.final_layer.ada,
+                pipe.mmdit.y_embedder.fc1)):
+            raise AssertionError("SD3.5-large w4a8-mixed: an embedder or the final layer packed")
         return pipe
 
     return build
@@ -4587,6 +5006,9 @@ FLUX_LOCAL_MESH = dataclasses.replace(FLUX_E2E, name="flux-w4a8-t5w8a8-local-mes
 FLUX_TP = dataclasses.replace(FLUX_E2E, name="flux-w4a8-t5w8a8-tp2")
 FLUX_DP = dataclasses.replace(FLUX_E2E, name="flux-w4a8-t5w8a8-dp2")
 SD3_W8A8_TP = "sd3-w8a8-tp2"
+# SD3-medium int4 and int8 weight-only (random packed block linears) over the
+# same mesh: the row-parallel o and fc2 on C / #13's fp32 output.
+SD3_WEIGHT_ONLY_TP = {4: "sd3-int4-tp2", 8: "sd3-int8-tp2"}
 TP_RANKS = 2
 # r against f: the batch limit of relative L2 (PERF.md section 2); the CPU
 # tests hold the split w4a8 model within 1e-5 of the whole one in fp32, and
@@ -4777,6 +5199,8 @@ def tp_rank(rank: int, root: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    sd3_weight_only_split(mesh, out)
+
     # s: f's models whole on each rank, the image batch over a (2, 1) mesh.
     mesh = create_mesh(TP_RANKS, 1, device="cuda", backend="gloo")
     pipe = FluxPipeline(load=False, low_memory_mode=False, device="cuda", quantize_mmdit="w4a8",
@@ -4800,6 +5224,55 @@ def tp_rank(rank: int, root: str) -> None:
                 "seconds": time.perf_counter() - t0}
     torch.save(out, root / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
+
+
+def sd3_weight_only_split(mesh, out: dict) -> None:
+    """In a rank of ``tp_rank``: SD3-medium int4 and int8 (24 blocks, random
+    packed block linears at group 64) over ``mesh``: one CFG forward at 512²
+    against the whole model, each rank's o and fc2 partials from C / #13 in
+    fp32, summed and rounded once; then the same split forward with those
+    partials rounded to bf16 before the sum (the form before that repair,
+    kept here only as a measurement). Into ``out`` by path name."""
+    for bits in SD3_WEIGHT_ONLY_TP:
+        gen = torch.Generator(device="cuda").manual_seed(6 + bits)
+        model = init_mmdit(SD3_2b, gen, "cuda", quantize_bits=bits)
+        inputs = (torch.randn(2, 64, 64, 16, generator=gen, device="cuda"),
+                  torch.randn(2, 154, 4096, generator=gen, device="cuda"),
+                  torch.randn(2, 2048, generator=gen, device="cuda"),
+                  torch.full((2,), 700.0, device="cuda"))
+        with torch.no_grad():
+            want = model(*inputs)
+            shard_module_(model, mesh)
+            reset_counts()
+            got = model(*inputs, mesh=mesh)
+            torch.cuda.synchronize()
+            launches = counts()
+            with bf16_rounded_partials():
+                old = model(*inputs, mesh=mesh)
+        out[SD3_WEIGHT_ONLY_TP[bits]] = {
+            "rel_l2": rel_l2(got, want), "old_rel_l2": rel_l2(old, want), "launches": launches,
+            "finite": bool(torch.isfinite(got).all())}
+        del model, want, got, old
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def bf16_rounded_partials():
+    """Row-parallel int4 / int8 linears as they were before their partial
+    products were summed in fp32: ``ops/common``'s C and #13 calls asked for
+    x's dtype, so each rank's partial is rounded to bf16 before the fp32
+    sum."""
+    saved = common_ops.int4_matmul, common_ops.int8_matmul
+
+    def rounded(fn):
+        return lambda x, qw, scales, zeros, out_dtype=None: fn(x, qw, scales, zeros)
+
+    common_ops.int4_matmul, common_ops.int8_matmul = (rounded(fn) for fn in saved)
+    try:
+        yield
+    finally:
+        common_ops.int4_matmul, common_ops.int8_matmul = saved
 
 
 def tp_paths(pipe, served: dict, scratch: str, tag: str) -> dict:
@@ -4914,6 +5387,22 @@ def tp_paths(pipe, served: dict, scratch: str, tag: str) -> dict:
         raise AssertionError("SD3-medium w8a8 sharded forward off the whole model's")
     if sd3[0]["launches"]["gelu_quantize[two-pass]"] == 0:
         raise AssertionError("SD3-medium w8a8 sharded forward ran no two-pass #4")
+    # Each split o and fc2 of a block (the last block's text stream has
+    # neither): 4 a dual block, 2 in the last, on C / #13's fp32 output.
+    rows = 4 * (SD3_2b.depth_multimodal - 1) + 2
+    for bits, name in SD3_WEIGHT_ONLY_TP.items():
+        got = [rr[name] for rr in res]
+        key = f"int{bits}_matmul[f32out]"
+        log(f"  {name}: the sharded forward against the whole model, relative L2 "
+            f"{[x['rel_l2'] for x in got]!r} (tolerance {TP_RTOL}); with the partials rounded to "
+            f"bf16 before the sum (the form before the repair) {[x['old_rel_l2'] for x in got]!r}; "
+            f"{key} launches (rank 0) {got[0]['launches'][key]} (expected {rows}); launches "
+            f"{got[0]['launches']} [{tag}]")
+        if not all(x["finite"] and x["rel_l2"] < TP_RTOL for x in got):
+            raise AssertionError(f"{name}: the sharded forward is off the whole model's")
+        if got[0]["launches"][key] != rows:
+            raise AssertionError(f"{name}: {key} launched {got[0]['launches'][key]} times, "
+                                 f"expected {rows}")
 
     for r, rr in enumerate(res):
         s_ = rr["s"]
@@ -4925,7 +5414,8 @@ def tp_paths(pipe, served: dict, scratch: str, tag: str) -> dict:
         f"generate_images_batched({len(texts)} prompts), latents and pixels bit for bit the "
         f"one-rank run in chunks of one; {res[0]['s']['seconds']!r} s on rank 0 [{tag}]")
     return {FLUX_TP.name: launches, SD3_W8A8_TP: sd3[0]["launches"],
-            FLUX_DP.name: res[0]["s"]["launches"]}
+            FLUX_DP.name: res[0]["s"]["launches"],
+            **{name: res[0][name]["launches"] for name in SD3_WEIGHT_ONLY_TP.values()}}
 
 
 def main() -> None:
@@ -5020,6 +5510,12 @@ def main() -> None:
     errs.update(w_errs)
     times.update(w_times)
     torch.cuda.empty_cache()
+    log("phase 3-4i: C and #13 with an fp32 output (a row-parallel linear's partial product) "
+        "against their plain versions and their bf16 form on the card, and their device times")
+    w_errs, w_times = f32out_kernels(gen, tag)
+    errs.update(w_errs)
+    times.update(w_times)
+    torch.cuda.empty_cache()
 
     log("phase 5: reference checks")
     reference_checks(gen)
@@ -5046,6 +5542,9 @@ def main() -> None:
             ("c", FLUX_W4A8, build_flux_w4a8, True), ("g", FLUX_RING, build_flux_ring, True),
             ("f", FLUX_E2E, build_flux_e2e, True), ("i", SD35, build_sd35("w4a8"), True),
             ("i'", SD35_4BIT, build_sd35("4bit"), True), ("k", SD35_T5, build_sd35(None), True),
+            ("t", SD35_W4A8_MIXED, build_sd35_converted("w4a8-mixed"), True),
+            ("u", SD35_INT8, build_sd35_converted("int8"), True),
+            ("v", SD35_W8A8, build_sd35_converted("w8a8"), True),
             ("j", FLUX_DEV_PATH, build_flux_dev, True))
     for letter, path, build, reuse in plan:
         if not reuse:
@@ -5109,6 +5608,7 @@ def main() -> None:
             if "p" in done:
                 launches[SD3_GPTQ.name] = done["p"]["launches"]
                 walls[SD3_GPTQ.name] = (statistics.median(done["p"]["replay_ms"]), None)
+            launches.update(done.get("t", {}))
         twin = {SD3_RING.name: SD3_RING_TWIN, FLUX_RING.name: FLUX_RING_TWIN}.get(path.name)
         if twin is not None:
             log(f"phase 6{letter}': {path.name}'s request 0 through the default dispatch")

@@ -136,12 +136,12 @@ struct Params {
   const float* wscale;  // E: (N,)
   const float* xscale;  // E: (M,)
   const void* bias;     // E: (N,) bf16, or fp32 with bias_f32, or null
-  void* y;              // (M, N) bf16, or fp32 with out_f32 (E)
+  void* y;              // (M, N) bf16, or fp32 with out_f32
   void* partials;       // (N / 128, S, M, 128) fp32 (C, #13) or int32 (E)
   int* arrivals;        // (N / 128,), this kernel's row of g_arrivals
   long long lda;
   int M, N, K, group;
-  int bias_f32, out_f32;  // E
+  int bias_f32, out_f32;  // bias_f32: E
 };
 
 // A lane's weights of one chunk: a 16-byte run of 4 columns' words a word
@@ -497,12 +497,12 @@ Params params(const void* x, long long lda, const void* qw, const void* scales,
 template <int KIND>
 int dequant_entry(const void* x, const void* qw, const void* scales, const void* zeros, void* y,
                   int M, int N, int K, int group, long long lda, int splits, void* partials,
-                  void* stream) {
+                  bool out_f32, void* stream) {
   if (!takes(M, N, K, group, splits) || !(group == 32 || group % 64 == 0) || lda < K || lda % 8)
     return (int)cudaErrorInvalidValue;
-  return launch<KIND>(KIND == INT4 ? int4_gemv : int8_gemv,
-                      params(x, lda, qw, scales, zeros, y, partials, M, N, K, group), splits,
-                      stream);
+  Params p = params(x, lda, qw, scales, zeros, y, partials, M, N, K, group);
+  p.out_f32 = out_f32;
+  return launch<KIND>(KIND == INT4 ? int4_gemv : int8_gemv, p, splits, stream);
 }
 
 // -- #11 at M <= 16: w8 int8 in (N, K), K-contiguous per column ----------------
@@ -787,12 +787,21 @@ int launch_w8_out(W8Params p, int out_type, int splits, void* stream) {
 // Kernel C at M <= 16; the wrapper sends M > 16 to dk_int4_matmul_sm90_bf16
 // (int4_matmul_sm90.cu), which takes the same arguments but `splits` and
 // `partials`: `splits` blocks along K, fp32 (N / 128, splits, M, 128)
-// scratch for their partial sums.
+// scratch for their partial sums. y bf16; the _f32out entries write the
+// split sums to an fp32 y unrounded (a row-parallel linear's partial).
 extern "C" int dk_int4_matmul_bf16(const void* x, const void* q4, const void* scales,
                                    const void* zeros, void* y, int M, int N, int K, int group,
                                    long long lda, int splits, void* partials, void* stream) {
   return dequant_entry<INT4>(x, q4, scales, zeros, y, M, N, K, group, lda, splits, partials,
-                             stream);
+                             false, stream);
+}
+
+extern "C" int dk_int4_matmul_bf16_f32out(const void* x, const void* q4, const void* scales,
+                                          const void* zeros, void* y, int M, int N, int K,
+                                          int group, long long lda, int splits, void* partials,
+                                          void* stream) {
+  return dequant_entry<INT4>(x, q4, scales, zeros, y, M, N, K, group, lda, splits, partials,
+                             true, stream);
 }
 
 // Kernel #13 at M <= 16, as dk_int4_matmul_bf16 with uint8 (K, N) weights.
@@ -800,7 +809,15 @@ extern "C" int dk_int8_matmul_bf16(const void* x, const void* q8, const void* sc
                                    const void* zeros, void* y, int M, int N, int K, int group,
                                    long long lda, int splits, void* partials, void* stream) {
   return dequant_entry<INT8>(x, q8, scales, zeros, y, M, N, K, group, lda, splits, partials,
-                             stream);
+                             false, stream);
+}
+
+extern "C" int dk_int8_matmul_bf16_f32out(const void* x, const void* q8, const void* scales,
+                                          const void* zeros, void* y, int M, int N, int K,
+                                          int group, long long lda, int splits, void* partials,
+                                          void* stream) {
+  return dequant_entry<INT8>(x, q8, scales, zeros, y, M, N, K, group, lda, splits, partials,
+                             true, stream);
 }
 
 // Kernel E in mode plain at M <= 16; the wrapper sends every other call to

@@ -39,6 +39,13 @@
 //    stage's `ready`.
 // The fp32 accumulation over K stays within the kernels' tolerance (one
 // bf16 ulp + 2K 2^-24 (|x| @ |w|)) at K = 12288 without folding.
+//
+// OutT is y's type: bf16, or fp32 for a row-parallel linear's partial
+// product (ops/common.py), whose ranks' partials are summed in fp32 and
+// rounded once after the sum. Only the output store differs: the fp32 form
+// stores the accumulators the bf16 form rounds.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -121,10 +128,10 @@ __device__ __forceinline__ void dequant_rows(uint32_t b, const unsigned char* gq
   }
 }
 
-template <int BITS, int BN>
+template <int BITS, int BN, typename OutT>
 __device__ __forceinline__ void dequant_mm_sm90(const CUtensorMap* tx, const CUtensorMap* tq,
                                                 const CUtensorMap* ts, const CUtensorMap* tz,
-                                                bf16* __restrict__ y, int M, int N, int K,
+                                                OutT* __restrict__ y, int M, int N, int K,
                                                 int group) {
   using T = Tile<BITS, BN>;
   constexpr int NS = T::kStages, RS = T::kRawStages;
@@ -260,30 +267,35 @@ __device__ __forceinline__ void dequant_mm_sm90(const CUtensorMap* tx, const CUt
       for (int hh = 0; hh < 2; ++hh) {
         const int row = m0 + 128 * c + 64 * i + 16 * warp + g + 8 * hh;
         if (row >= M) continue;
-        bf16* yr = y + (long long)row * N + n0;
+        OutT* yr = y + (long long)row * N + n0;
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-          *reinterpret_cast<uint32_t*>(yr + 8 * j + 2 * t) =
-              dk::pack_bf16(acc[i][4 * j + 2 * hh], acc[i][4 * j + 2 * hh + 1]);
+        for (int j = 0; j < BN / 8; ++j) {
+          if constexpr (std::is_same<OutT, float>::value)
+            *reinterpret_cast<float2*>(yr + 8 * j + 2 * t) =
+                make_float2(acc[i][4 * j + 2 * hh], acc[i][4 * j + 2 * hh + 1]);
+          else
+            *reinterpret_cast<uint32_t*>(yr + 8 * j + 2 * t) =
+                dk::pack_bf16(acc[i][4 * j + 2 * hh], acc[i][4 * j + 2 * hh + 1]);
+        }
       }
   }
 }
 
 // Kernel C (int4 words) and kernel #13 (uint8 bytes): one body, two names.
-template <int BN>
+template <int BN, typename OutT>
 __global__ void __launch_bounds__(384, 1)
     int4_mm_sm90(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap ts, const __grid_constant__ CUtensorMap tz,
-                 bf16* __restrict__ y, int M, int N, int K, int group) {
-  dequant_mm_sm90<4, BN>(&tx, &tq, &ts, &tz, y, M, N, K, group);
+                 OutT* __restrict__ y, int M, int N, int K, int group) {
+  dequant_mm_sm90<4, BN, OutT>(&tx, &tq, &ts, &tz, y, M, N, K, group);
 }
 
-template <int BN>
+template <int BN, typename OutT>
 __global__ void __launch_bounds__(384, 1)
     int8_mm_sm90(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap ts, const __grid_constant__ CUtensorMap tz,
-                 bf16* __restrict__ y, int M, int N, int K, int group) {
-  dequant_mm_sm90<8, BN>(&tx, &tq, &ts, &tz, y, M, N, K, group);
+                 OutT* __restrict__ y, int M, int N, int K, int group) {
+  dequant_mm_sm90<8, BN, OutT>(&tx, &tq, &ts, &tz, y, M, N, K, group);
 }
 
 // A 2-d tensor map of a row-major (rows, cols) array, rows `pitch` elements
@@ -297,7 +309,7 @@ int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int esize, const void*
                      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <int BITS, int BN>
+template <int BITS, int BN, typename OutT>
 int launch(const void* x, const void* qw, const void* scales, const void* zeros, void* y, int M,
            int N, int K, int group, long long lda, cudaStream_t st) {
   using T = Tile<BITS, BN>;
@@ -314,16 +326,16 @@ int launch(const void* x, const void* qw, const void* scales, const void* zeros,
     e = encode_2d(&tz, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, zeros, K / group, N, N, BN, srows,
                   false);
   if (e != 0) return e;
-  auto kernel = BITS == 4 ? int4_mm_sm90<BN> : int8_mm_sm90<BN>;
+  auto kernel = BITS == 4 ? int4_mm_sm90<BN, OutT> : int8_mm_sm90<BN, OutT>;
   const cudaError_t a =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (a != cudaSuccess) return (int)a;
   const dim3 grid(N / BN, (M + BM - 1) / BM);
-  kernel<<<grid, 384, T::kSmem, st>>>(tx, tq, ts, tz, static_cast<bf16*>(y), M, N, K, group);
+  kernel<<<grid, 384, T::kSmem, st>>>(tx, tq, ts, tz, static_cast<OutT*>(y), M, N, K, group);
   return (int)cudaGetLastError();
 }
 
-template <int BITS>
+template <int BITS, typename OutT>
 int dispatch(const void* x, const void* qw, const void* scales, const void* zeros, void* y,
              int M, int N, int K, int group, long long lda, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 128 || K % BK || group <= 0 || K % group ||
@@ -338,8 +350,8 @@ int dispatch(const void* x, const void* qw, const void* scales, const void* zero
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // 128 columns a block where that grid fills the SMs at least once.
   if ((long long)(N / 128) * ((M + BM - 1) / BM) >= sms)
-    return launch<BITS, 128>(x, qw, scales, zeros, y, M, N, K, group, lda, st);
-  return launch<BITS, 64>(x, qw, scales, zeros, y, M, N, K, group, lda, st);
+    return launch<BITS, 128, OutT>(x, qw, scales, zeros, y, M, N, K, group, lda, st);
+  return launch<BITS, 64, OutT>(x, qw, scales, zeros, y, M, N, K, group, lda, st);
 }
 
 }  // namespace
@@ -348,15 +360,30 @@ int dispatch(const void* x, const void* qw, const void* scales, const void* zero
 // words (K / 8, N) (nibble j of word r is row 8r + j) or q8 uint8 (K, N),
 // scales and zeros fp32 (K / group, N). K % 64 == 0, N % 128 == 0, group
 // 32 or a multiple of 64, x rows `lda` elements apart (a multiple of 8),
-// every pointer 16-byte aligned.
+// every pointer 16-byte aligned. y bf16; the _f32out entries write y in fp32
+// (the same products, not rounded).
 extern "C" int dk_int4_matmul_sm90_bf16(const void* x, const void* q4, const void* scales,
                                         const void* zeros, void* y, int M, int N, int K,
                                         int group, long long lda, void* stream) {
-  return dispatch<4>(x, q4, scales, zeros, y, M, N, K, group, lda, stream);
+  return dispatch<4, bf16>(x, q4, scales, zeros, y, M, N, K, group, lda, stream);
 }
 
 extern "C" int dk_int8_matmul_sm90_bf16(const void* x, const void* q8, const void* scales,
                                         const void* zeros, void* y, int M, int N, int K,
                                         int group, long long lda, void* stream) {
-  return dispatch<8>(x, q8, scales, zeros, y, M, N, K, group, lda, stream);
+  return dispatch<8, bf16>(x, q8, scales, zeros, y, M, N, K, group, lda, stream);
+}
+
+extern "C" int dk_int4_matmul_sm90_bf16_f32out(const void* x, const void* q4,
+                                               const void* scales, const void* zeros, void* y,
+                                               int M, int N, int K, int group, long long lda,
+                                               void* stream) {
+  return dispatch<4, float>(x, q4, scales, zeros, y, M, N, K, group, lda, stream);
+}
+
+extern "C" int dk_int8_matmul_sm90_bf16_f32out(const void* x, const void* q8,
+                                               const void* scales, const void* zeros, void* y,
+                                               int M, int N, int K, int group, long long lda,
+                                               void* stream) {
+  return dispatch<8, float>(x, q8, scales, zeros, y, M, N, K, group, lda, stream);
 }

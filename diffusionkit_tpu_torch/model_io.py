@@ -54,6 +54,7 @@ import torch
 
 from torch import nn
 
+from . import native
 from .config import (
     FLUX_DEV_VERSION,
     FLUX_SCHNELL_4BIT,
@@ -150,9 +151,12 @@ def load_safetensors(path: Union[str, Path]) -> StateDict:
     {dtype, shape, data_offsets}}, then the raw bytes. Each tensor holds a
     reference to the mapping, which so lives as long as any of them. The
     tensors must not be written: torch warns that the buffer is not
-    writable, and that warning is silenced here."""
+    writable, and that warning is silenced here. The mapping is
+    prefetched (``native.prefetch``: ``madvise(MADV_WILLNEED)``, as the
+    reference's loader does) before its header is read."""
     with open(path, "rb") as f:
         m = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    native.prefetch(m)
     n = int.from_bytes(m[:8], "little")
     header = json.loads(m[8 : 8 + n].decode("utf-8"))
     base = 8 + n

@@ -25,9 +25,10 @@ result rounded once:
                                   output (a bf16 GEMM into fp32 on the
                                   card), summed in fp32, then the bias,
                                   one rounding
-  int4, int8                      kernel C or #13 in x's dtype (they
-                                  round their partial sums to it), summed
-                                  in fp32, then the bias, one rounding
+  int4, int8                      kernel C or #13 with an fp32 output
+                                  (the products' fp32 sums, unrounded),
+                                  summed in fp32, then the bias, one
+                                  rounding
   w4a8 FFN (fc2 grouped_xs)       E's fp32 output with no bias, summed in
                                   fp32, then the bias, one rounding
 
@@ -162,7 +163,8 @@ def _row_linear(layer: nn.Module, x, group) -> torch.Tensor:
     x2 = x.reshape(-1, k)
     if route in ("C", "#13"):
         matmul = int4_matmul if layer.bits == 4 else int8_matmul
-        part = matmul(x2, layer.q4 if layer.bits == 4 else layer.q8, layer.scales, layer.zeros)
+        part = matmul(x2, layer.q4 if layer.bits == 4 else layer.q8, layer.scales, layer.zeros,
+                      out_dtype=torch.float32)
     elif route == "dequant_linear":  # dequant_linear's product
         deq = dequantize_int4 if layer.bits == 4 else dequantize_int8
         w = deq(layer.q4 if layer.bits == 4 else layer.q8, layer.scales, layer.zeros, x.dtype)

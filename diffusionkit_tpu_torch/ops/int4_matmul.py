@@ -16,7 +16,10 @@ and how it is tiled. An fp32 x (the linears of an fp32-upcast block, as
 SD3.5-large's block 35, or an fp32 model) takes ``csrc/dequant_f32.cu``:
 the weight dequantised in fp32 and not rounded further, the products as
 3xTF32 ``wgmma`` above 16 rows and on an FMA tile at M <= 16, fp32 out
-(counted in ``f32_launches`` too).
+(counted in ``f32_launches`` too). ``out_dtype=torch.float32`` on bf16 x
+asks the bf16 loops for their fp32 sums unrounded (``_f32out`` entries,
+counted in ``f32out_launches``): a row-parallel linear's partial product,
+which ``ops/common.py`` sums over the ranks and rounds once.
 
 ``int4_matmul`` launches the kernel for a CUDA tensor and raises on what it
 does not take (bf16 or fp32 x, K a multiple of 64, N of 128, group 32 or a
@@ -128,23 +131,29 @@ def gemv_splits(k: int, n: int, group: int) -> int:
 
 
 def dequant_kernel(name: str, m: int, k: int, k_w: int, n: int, groups: int,
-                   dtype: torch.dtype = torch.bfloat16) -> str:
+                   dtype: torch.dtype = torch.bfloat16,
+                   out_dtype: Optional[torch.dtype] = None) -> str:
     """The C entry that runs kernel C (``name`` int4_matmul) or #13
-    (int8_matmul) at these sizes for x of ``dtype``: in bf16 on the main
-    loop ``dequant_route`` picks, in fp32 ``csrc/dequant_f32.cu`` at any M;
-    or ValueError for what none takes: K
-    = ``k_w`` a multiple of 64, N of 128, group K / groups 32 or a multiple
-    of 64, at any M; TypeError for another dtype."""
+    (int8_matmul) at these sizes for x of ``dtype`` and y of ``out_dtype``
+    (x's by default): in bf16 on the main loop ``dequant_route`` picks
+    (its ``_f32out`` form for an fp32 y), in fp32 ``csrc/dequant_f32.cu``
+    at any M; or ValueError for what none takes: K = ``k_w`` a multiple of
+    64, N of 128, group K / groups 32 or a multiple of 64, at any M;
+    TypeError for another dtype, or a bf16 y of fp32 x."""
     if k_w != k or not kernel_takes(k, n, groups):
         raise ValueError(f"{name}: K={k} must match the weight's {k_w} and be a multiple of "
                          f"{K_TILE}, N={n} a multiple of {N_TILE}, the group size K/{groups} "
                          f"32 or a multiple of 64")
+    out_dtype = dtype if out_dtype is None else out_dtype
+    if out_dtype not in (dtype, torch.float32):
+        raise TypeError(f"{name}: y must be x's dtype or fp32, got {out_dtype} for {dtype} x")
     if dtype == torch.float32:
         return f"dk_{name}_f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"{name}: x must be bf16 or fp32 on the card, got {dtype}")
     route = "_sm90" if dequant_route(m) == "sm90" else ""
-    return f"dk_{name}{route}_bf16"
+    out = "_f32out" if out_dtype == torch.float32 else ""
+    return f"dk_{name}{route}_bf16{out}"
 
 
 def dequantize_int4(
@@ -163,18 +172,34 @@ def dequantize_int4(
     return (q * s + z).to(dtype)
 
 
+def _plain(x: torch.Tensor, w: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """x @ w (w already dequantised and rounded to x's dtype): one matmul in
+    x's dtype (fp32 accumulation, one rounding), or for an fp32
+    ``out_dtype`` the fp32 matmul with no rounding (the products of 16-bit
+    values are exact in fp32)."""
+    if out_dtype is None or out_dtype == x.dtype:
+        return torch.matmul(x, w)
+    if out_dtype != torch.float32:
+        raise TypeError(f"y must be x's dtype or fp32, got {out_dtype} for {x.dtype} x")
+    return torch.matmul(x.float(), w.float())
+
+
 def int4_matmul_plain(
-    x: torch.Tensor, q4: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor
+    x: torch.Tensor, q4: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain torch ``int4_matmul``: the weight dequantised and rounded to x's
-    dtype, then one matmul (fp32 accumulation, one rounding)."""
-    return torch.matmul(x, dequantize_int4(q4, scales, zeros, x.dtype))
+    dtype, then one matmul (fp32 accumulation, one rounding to x's dtype,
+    or none for an fp32 ``out_dtype``)."""
+    return _plain(x, dequantize_int4(q4, scales, zeros, x.dtype), out_dtype)
 
 
 def int4_matmul(
-    x: torch.Tensor, q4: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor
+    x: torch.Tensor, q4: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """y[M, N] = x[M, K] @ dequant(q4, scales, zeros), in x's dtype.
+    """y[M, N] = x[M, K] @ dequant(q4, scales, zeros), in x's dtype, or in
+    fp32 unrounded with ``out_dtype=torch.float32``.
 
     On CUDA: x bf16 or fp32 with a contiguous last axis and 16-byte aligned
     rows (other row strides, such as a slice of a wider activation, are
@@ -182,21 +207,23 @@ def int4_matmul(
     contiguous.
     """
     if x.device.type == "cpu":
-        return int4_matmul_plain(x, q4, scales, zeros)
+        return int4_matmul_plain(x, q4, scales, zeros, out_dtype)
     if q4.dtype != torch.int32 or q4.ndim != 2:
         raise TypeError(f"int4_matmul: q4 must be int32 (K/8, N), got {q4.dtype} "
                         f"{tuple(q4.shape)}")
-    return _launch(int4_matmul, x, q4, q4.shape[0] * 8, q4.shape[1], scales, zeros)
+    return _launch(int4_matmul, x, q4, q4.shape[0] * 8, q4.shape[1], scales, zeros, out_dtype)
 
 
 def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
-            scales: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
+            scales: torch.Tensor, zeros: torch.Tensor,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Check what kernels C and #13 take and launch the entry of
     ``wrapper`` (int4_matmul or int8_matmul) for this M (``dequant_kernel``;
     the GEMV with ``gemv_splits``), counting it: x bf16 or fp32 (M, K) with
     a contiguous last axis and 16-byte aligned rows, K = ``k_w`` a multiple of
     64, N of 128, group 32 or a multiple of 64; the packed weight ``qw``,
-    scales and zeros (K/g, N) fp32, contiguous."""
+    scales and zeros (K/g, N) fp32, contiguous; y in ``out_dtype`` (x's
+    dtype by default, or fp32)."""
     name = wrapper.__name__
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -204,7 +231,8 @@ def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
         raise ValueError(f"{name}: x must be (M, K), got {tuple(x.shape)}")
     m, k = x.shape
     groups = scales.shape[0]
-    symbol = dequant_kernel(name, m, k, k_w, n, groups, x.dtype)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    symbol = dequant_kernel(name, m, k, k_w, n, groups, x.dtype, out_dtype)
     group = k // groups
     if scales.dtype != torch.float32 or zeros.dtype != torch.float32:
         raise TypeError(f"{name}: scales and zeros must be fp32")
@@ -217,7 +245,7 @@ def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
     if x.stride(1) != 1 or (x.stride(0) * x.element_size()) % 16 or x.data_ptr() % 16:
         raise ValueError(f"{name}: x needs a contiguous last axis and 16-byte aligned rows, "
                          f"got strides {x.stride()}")
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m:
         f32 = x.dtype == torch.float32
         gemv = not f32 and dequant_route(m) == "tile"
@@ -234,12 +262,14 @@ def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
         wrapper.launches += 1
         wrapper.gemv_launches += gemv
         wrapper.f32_launches += f32
+        wrapper.f32out_launches += not f32 and out_dtype == torch.float32
     return y
 
 
 int4_matmul.launches = 0
 int4_matmul.gemv_launches = 0  # of them, the bf16 M <= 16 GEMV's
 int4_matmul.f32_launches = 0  # of them, on fp32 x (csrc/dequant_f32.cu)
+int4_matmul.f32out_launches = 0  # of them, bf16 x to an fp32 y (the _f32out entries)
 
 
 def dequantize_int8(
@@ -255,30 +285,35 @@ def dequantize_int8(
 
 
 def int8_matmul_plain(
-    x: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor
+    x: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain torch ``int8_matmul``: the weight dequantised and rounded to x's
-    dtype, then one matmul (fp32 accumulation, one rounding)."""
-    return torch.matmul(x, dequantize_int8(q8, scales, zeros, x.dtype))
+    dtype, then one matmul (fp32 accumulation, one rounding to x's dtype,
+    or none for an fp32 ``out_dtype``)."""
+    return _plain(x, dequantize_int8(q8, scales, zeros, x.dtype), out_dtype)
 
 
 def int8_matmul(
-    x: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor
+    x: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """y[M, N] = x[M, K] @ dequant(q8, scales, zeros), in x's dtype.
+    """y[M, N] = x[M, K] @ dequant(q8, scales, zeros), in x's dtype (or fp32
+    unrounded with ``out_dtype=torch.float32``).
 
     On CUDA: as ``int4_matmul``, with q8 uint8 (K, N) contiguous.
     """
     if x.device.type == "cpu":
-        return int8_matmul_plain(x, q8, scales, zeros)
+        return int8_matmul_plain(x, q8, scales, zeros, out_dtype)
     if q8.dtype != torch.uint8 or q8.ndim != 2:
         raise TypeError(f"int8_matmul: q8 must be uint8 (K, N), got {q8.dtype} {tuple(q8.shape)}")
-    return _launch(int8_matmul, x, q8, q8.shape[0], q8.shape[1], scales, zeros)
+    return _launch(int8_matmul, x, q8, q8.shape[0], q8.shape[1], scales, zeros, out_dtype)
 
 
 int8_matmul.launches = 0
 int8_matmul.gemv_launches = 0
 int8_matmul.f32_launches = 0
+int8_matmul.f32out_launches = 0
 
 
 def int4_linear(layer, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:

@@ -51,6 +51,10 @@ _SIGNATURES = {
     "dk_int8_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P, _P],
     "dk_int4_matmul_sm90_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "dk_int8_matmul_sm90_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
+    "dk_int4_matmul_bf16_f32out": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P, _P],
+    "dk_int8_matmul_bf16_f32out": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P, _P],
+    "dk_int4_matmul_sm90_bf16_f32out": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
+    "dk_int8_matmul_sm90_bf16_f32out": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "dk_int4_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "dk_int8_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "dk_gelu_quantize_bf16": [_P, _P, _P, _I, _I, _I, _P],

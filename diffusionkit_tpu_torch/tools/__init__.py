@@ -15,6 +15,13 @@ and #11, timed warm by ``device_ms`` and cold by ``device_ms_cold``) and
     python -m diffusionkit_tpu_torch.tools.bench_gemv [M,K,N[,group] ...]
     python -m diffusionkit_tpu_torch.tools.bench_rows [name:d0,d1[,d2] ...]
 
+``quant_quality`` (the counterpart of the JAX repo's ``tools/quant_quality.py``:
+SD3-medium from ``DIFFUSIONKIT_TPU_CKPT_DIR`` once in bf16 and once per
+quantize mode, each image's PSNR against the bf16 one; on the card unless
+given ``--device cpu``):
+
+    python -m diffusionkit_tpu_torch.tools.quant_quality [--steps 10] [--size 512] [--modes ...]
+
 The first two have ``run(M, K, N, iters, device="cuda")``, which returns its rows,
 and ``main``, which prints them. A row is timed as the reference times it:
 a chain of ``iters`` calls, each fed the previous call's output through

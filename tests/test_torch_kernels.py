@@ -1571,6 +1571,8 @@ def test_dequant_route_takes_every_accepted_shape(m, name):
             for group in (32, 64, 128, 192):
                 if k % group == 0:
                     assert dequant_kernel(name, m, k, k, n, k // group) == f"dk_{name}{suffix}"
+                    assert dequant_kernel(name, m, k, k, n, k // group, torch.bfloat16,
+                                          torch.float32) == f"dk_{name}{suffix}_f32out"
     for k, n, group in [(3072, 3072, 16), (3072, 3072, 96), (3072 + 32, 3072, 32),
                         (3072, 3072 + 64, 64)]:
         with pytest.raises(ValueError):
@@ -1613,6 +1615,78 @@ def test_int8_kernel_reads_strided_rows_in_place(cuda, m):
     assert x.stride(0) == 640
     assert torch.equal(int8_matmul(x, q8, scales, zeros),
                        int8_matmul(x.contiguous(), q8, scales, zeros))
+
+
+# The fp32-output form of C and #13 (a row-parallel linear's partial
+# product): SD3-medium's o and fc2 split over two ranks (K 768 and 3072, N
+# 1536) at 2048 and 308 rows, a ragged M on the Hopper loop and the GEMV's
+# M <= 16 (the `ada`-width GEMV, an embedder's); groups 32 and 64.
+F32OUT_SHAPES = [(2048, 768, 1536, 32), (2048, 3072, 1536, 32), (308, 768, 1536, 32),
+                 (308, 3072, 1536, 64), (77, 1024, 384, 64), (2, 768, 1536, 32),
+                 (9, 3072, 1536, 64), (16, 1024, 384, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", F32OUT_SHAPES)
+def test_dequant_kernels_write_fp32_sums(cuda, bits, shape):
+    """C and #13 on bf16 x with ``out_dtype=torch.float32``: the bf16 form's
+    products before its last rounding, so the fp32 output rounded to bf16
+    is the bf16 form's output bit for bit, and it is within one fp32 ulp +
+    2K 2^-24 (|x| @ |w|) of fp32 math on the same bf16-rounded weights;
+    counted in ``f32out_launches`` (and not in ``f32_launches``)."""
+    m, k, n, group = shape
+    g = torch.Generator(device=cuda).manual_seed(33)
+    if bits == 4:
+        qw, scales, zeros = random_int4(k, n, group, g, cuda)
+        fn, deq = int4_matmul, dequantize_int4
+    else:
+        qw, scales, zeros = random_int8(k, n, group, g, cuda)
+        fn, deq = int8_matmul, dequantize_int8
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    counts = fn.launches, fn.f32out_launches, fn.f32_launches
+    got = fn(x, qw, scales, zeros, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.f32out_launches, fn.f32_launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2])
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert torch.equal(got.bfloat16(), fn(x, qw, scales, zeros))
+    w = deq(qw, scales, zeros, torch.bfloat16).float()
+    want = x.float() @ w
+    bound = fp32_ulp(want) + 2 * k * 2.0**-24 * (x.float().abs() @ w.abs())
+    diff = (got - want).abs()
+    assert torch.all(diff <= bound), (diff / bound).max().item()
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_plain_fp32_output_is_the_unrounded_product(bits):
+    """On the CPU: the plain C / #13 with an fp32 ``out_dtype`` (and the
+    wrapper, which takes it for a CPU tensor) is ``F.linear`` of the fp32
+    upcast of x on the weight dequantised in x's dtype, upcast: no rounding
+    of the sums; the default output is that product rounded to bf16 by
+    the bf16 matmul, at most one bf16 step from it."""
+    import torch.nn.functional as F
+
+    from diffusionkit_tpu_torch.ops.int4_matmul import int4_matmul_plain, int8_matmul_plain
+
+    g = torch.Generator().manual_seed(34)
+    k, n, group = 512, 256, 32
+    if bits == 4:
+        qw, scales, zeros = random_int4(k, n, group, g, "cpu")
+        fn, plain, deq = int4_matmul, int4_matmul_plain, dequantize_int4
+    else:
+        qw, scales, zeros = random_int8(k, n, group, g, "cpu")
+        fn, plain, deq = int8_matmul, int8_matmul_plain, dequantize_int8
+    x = torch.randn(37, k, generator=g).bfloat16()
+    w = deq(qw, scales, zeros, torch.bfloat16).float()
+    want = F.linear(x.float(), w.t())
+    for got in (plain(x, qw, scales, zeros, torch.float32),
+                fn(x, qw, scales, zeros, out_dtype=torch.float32)):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    rounded = plain(x, qw, scales, zeros)
+    assert rounded.dtype == torch.bfloat16
+    assert torch.all((rounded.float() - want).abs() <= want.abs() * 2.0**-8 + 1e-30)
+    assert not torch.equal(rounded.float(), want)
 
 
 # -- the split-K GEMV of C, #13 and E at M <= 16 (csrc/gemv_sm90.cu) -----------

@@ -50,6 +50,7 @@ from diffusionkit_tpu_torch import config as tcfg
 from diffusionkit_tpu_torch.convert import mmdit_from_jax, t5_from_jax
 from diffusionkit_tpu_torch.models.mmdit import MMDiT
 from diffusionkit_tpu_torch.ops import fused_quant as tfq
+from diffusionkit_tpu_torch.ops.int4_matmul import dequantize_int4, dequantize_int8
 from diffusionkit_tpu_torch.ops.quantized import QuantizedLinear
 from diffusionkit_tpu_torch.ops.w4a8_matmul import w4a8_linear
 from diffusionkit_tpu_torch.ops.w8a8 import W8A8Linear, w8a8_linear
@@ -268,8 +269,10 @@ def t5_tree(mode: str):
     return params
 
 
-# The rows case: a w8a8 and a w4a8 fan-in linear (K = 1024, N = 256) and an
-# activation, for the int32 reduction and the two-pass quantizers.
+# The rows case: a w8a8, a w4a8, a bf16 and an int4 / int8 weight-only fan-in
+# linear (K = 1024, N = 256; group 64, so each of 4 ranks holds 4 groups)
+# and an activation, for the int32 reduction, the fp32 partial sums and the
+# two-pass quantizers.
 ROWS_K, ROWS_N = 1024, 256
 
 
@@ -283,6 +286,15 @@ def rows_case(kind: str) -> dict:
         holder.o = W8A8Linear(ROWS_K, ROWS_N, dtype=torch.float32)
         holder.o.w8.random_(-127, 128, generator=gen)
         holder.o.wscale.uniform_(1e-3, 2e-3, generator=gen)
+    elif kind in ("int4", "int8"):
+        bits = int(kind[3])
+        holder.o = QuantizedLinear(ROWS_K, ROWS_N, 64, dtype=torch.bfloat16, bits=bits)
+        if bits == 4:
+            holder.o.q4.random_(-2**31, 2**31 - 1, generator=gen)
+        else:
+            holder.o.q8.random_(0, 256, generator=gen)
+        holder.o.scales.uniform_(5e-4, 1e-3, generator=gen).mul_(16 if bits == 4 else 1)
+        holder.o.zeros.uniform_(-8e-3, -4e-3, generator=gen).mul_(16 if bits == 4 else 32)
     else:
         holder.o = QuantizedLinear(ROWS_K, ROWS_N, 64, dtype=torch.float32, wscale=True)
         holder.o.q4.random_(-2**31, 2**31 - 1, generator=gen)
@@ -298,7 +310,8 @@ def rows_case(kind: str) -> dict:
 
 
 def rows_job(mesh) -> dict:
-    return {kind: {**rows_case(kind), "mesh": mesh} for kind in ("w8a8", "w4a8", "bf16")}
+    return {kind: {**rows_case(kind), "mesh": mesh}
+            for kind in ("w8a8", "w4a8", "bf16", "int4", "int8")}
 
 
 # -- the pipelines ---------------------------------------------------------------
@@ -686,6 +699,68 @@ def test_row_parallel_float_linear_rounds_once(ranks2, ranks4):
         assert int(moved.sum()) < 0.01 * got.numel()
         step = want.abs() * 2.0**-7
         assert bool(((got.float() - want).abs() <= step + 1e-30).all())
+
+
+def jax_row_parallel_linear(case: dict, n: int) -> np.ndarray:
+    """The JAX package's ``quantized_linear`` on the same packed weight
+    under GSPMD on a (1, ``n``) mesh of the conftest's CPU devices: the
+    weight's rows (and x's features) split over ``model``, as the
+    reference's plan splits a fan-in linear; on the CPU it dequantises in
+    x's dtype and takes one dot with fp32 output, so the ranks' fp32
+    partial products are all-reduced and rounded once after the bias."""
+    from jax.sharding import NamedSharding
+
+    from diffusionkit_tpu.ops.quantized import quantized_linear
+
+    lin = case["holder"].o
+    leaf = "q4" if lin.bits == 4 else "q8"
+    w = getattr(lin, leaf).numpy()
+    params = {leaf: w.view(np.uint32) if leaf == "q4" else w, "scales": lin.scales.numpy(),
+              "zeros": lin.zeros.numpy(),
+              "bias": jnp.asarray(lin.bias.float().numpy(), jnp.bfloat16)}
+    mesh = jax_create_mesh(1, n, devices=jax.devices()[:n])
+    rows = NamedSharding(mesh, P("model", None))
+    sharded = {k: jax.device_put(jnp.asarray(v), rows if k != "bias" else
+                                 NamedSharding(mesh, P(None))) for k, v in params.items()}
+    x = jax.device_put(jnp.asarray(case["x"].float().numpy(), jnp.bfloat16),
+                       NamedSharding(mesh, P(None, "model")))
+    y = jax.jit(lambda p, a: quantized_linear(p, a))(sharded, x)
+    return np.asarray(y.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("kind", ["int4", "int8"])
+def test_row_parallel_quantized_linear_rounds_once(ranks2, ranks4, kind):
+    """An int4 / int8 weight-only fan-in linear on bf16 x over 2 and 4
+    ranks: each rank's partial product from C / #13 in fp32 (their plain
+    versions here, ``out_dtype=torch.float32``), summed in fp32, the bias
+    added, one rounding to bf16. Held as
+    test_row_parallel_float_linear_rounds_once holds the bf16 linear:
+    against the fp32 product of the whole rows on the same dequantised
+    weight (rounded to bf16, as the kernels round it) and against the JAX
+    package's GSPMD ``quantized_linear`` over the same ranks, at most one
+    bf16 step (plus the fp32 sums' error, 2K 2^-24 (|x| @ |w|), where the
+    output cancels) apart and on under 1 % of the outputs (the fp32 sums
+    in other orders cross a rounding boundary now and then; bf16-rounded
+    partials move about a third of them)."""
+    case = rows_case(kind)
+    lin, x = case["holder"].o, case["x"]
+    deq = dequantize_int4 if lin.bits == 4 else dequantize_int8
+    w = deq(lin.q4 if lin.bits == 4 else lin.q8, lin.scales, lin.zeros, torch.bfloat16).float()
+    want = x.float() @ w + lin.bias.float()
+    assert float(want.abs().max()) > 0.5
+    # The fp32 sums' own error in any order, 2K 2^-24 (|x| @ |w|): it
+    # dominates where the output cancels to near zero.
+    slack = 2 * ROWS_K * 2.0**-24 * (x.float().abs() @ w.abs())
+    for outs, n in ((ranks2, 2), (ranks4, 4)):
+        jax_y = torch.from_numpy(jax_row_parallel_linear(case, n))
+        for out in outs:
+            got = out[kind]["linear"]
+            assert got.dtype == torch.bfloat16 and got.shape == want.shape
+            step = want.abs() * 2.0**-7 + slack
+            for ref in (want.to(torch.bfloat16).float(), jax_y):
+                moved = got.float() != ref
+                assert int(moved.sum()) < 0.01 * got.numel(), int(moved.sum())
+                assert bool(((got.float() - ref).abs() <= step).all())
 
 
 @pytest.mark.parametrize("form", [None, "erf", "tanh"])

@@ -209,7 +209,22 @@ def quantized_params(jcfg, mode, seed):
     """A random tree in ``mode`` as the reference's quantized init draws it
     (int4 / int8 / w8a8 block linears; w4a8: int4 with ``add_wscale_tree``),
     redrawn at scales where every layer moves the output, in the model
-    dtype."""
+    dtype. A "-mixed" mode is a random float tree quantized as the
+    reference's pipeline quantizes it (``quantize_tree`` at group 64 with
+    ``MIXED_OVERRIDES``: the block linears int4, every ``ada`` int8, the
+    embedders and the final layer float; w4a8-mixed with
+    ``add_wscale_tree`` after)."""
+    if mode.endswith("-mixed"):
+        params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=seed)
+        for stream in ("img", "txt"):
+            qk = params["mm_blocks"][stream]["qk_norm"]
+            params["mm_blocks"][stream]["qk_norm"] = randomize(qk, seed=seed + 2)
+        host = jax.tree.map(lambda a: None if a is None else np.asarray(a, np.float32),
+                            with_unit_qk_scales(params), is_leaf=lambda a: a is None)
+        params = jq.quantize_tree(host, bits=4, group_size=64, overrides=jq.MIXED_OVERRIDES)
+        if mode == "w4a8-mixed":
+            params = jw.add_wscale_tree(params)
+        return in_dtype(params, jcfg.dtype)
     bits = {"int4": 4, "w4a8": 4, "int8": 8, "w8a8": "w8a8"}[mode]
     params = init_mmdit_params(jax.random.PRNGKey(0), jcfg, quantize_bits=bits)
     if bits == 4:
@@ -225,18 +240,27 @@ def quantized_params(jcfg, mode, seed):
     return in_dtype(params, jcfg.dtype)
 
 
-@pytest.mark.parametrize("mode", ["int4", "int8", "w8a8", "w4a8"])
+@pytest.mark.parametrize("mode", ["int4", "int8", "w8a8", "w4a8", "w4a8-mixed", "int4-mixed"])
 def test_quantized_upcast_mmdit_matches_jax(mode, request, monkeypatch):
     """Each quantize mode of the tiny SD3.5 (hidden 256) in bf16 against the
     JAX package on the same tree: after conversion block 1's packed (or
-    w8a8) leaves are the tree's bit for bit and its floats fp32. The JAX
-    side runs its TPU dispatch on the CPU where it has one (w4a8 through
-    ``jax_tpu_dispatch``; w8a8's fused quantizers in interpret mode), else
-    its dequantising dot (int4, int8). bf16 through three blocks, with the
-    int8 activations of w8a8 and w4a8 moving by a step where bf16 rounding
-    differs: 3e-2 relative L2, the phase-5 bound of bf16 against fp32."""
-    if mode == "w4a8":
+    w8a8) leaves are the tree's bit for bit and its floats fp32; under
+    "-mixed" every ``ada`` int8 and the embedders and final layer float.
+    The JAX side runs its TPU dispatch on the CPU where it has one (w4a8
+    and w4a8-mixed through ``jax_tpu_dispatch``, w4a8-mixed's int8 ``ada``
+    on the reference's #13 kernel in interpret mode; w8a8's fused
+    quantizers in interpret mode), else its dequantising dot (int4, int8,
+    int4-mixed). bf16 through three blocks, with the int8 activations of
+    w8a8 and w4a8 moving by a step where bf16 rounding differs: 3e-2
+    relative L2, the phase-5 bound of bf16 against fp32."""
+    if mode.startswith("w4a8"):
         request.getfixturevalue("jax_tpu_dispatch")
+        if mode == "w4a8-mixed":
+            from diffusionkit_tpu.ops import int4_matmul as ji
+
+            int8_matmul = ji.int8_matmul
+            monkeypatch.setattr(ji, "int8_matmul",
+                                lambda *a, **kw: int8_matmul(*a, **{**kw, "interpret": True}))
     else:
         monkeypatch.setenv("DIFFUSIONKIT_TPU_FUSED_QUANT", "interpret")
     jcfg = dataclasses.replace(WIDE_SD35, dtype=jnp.bfloat16)
@@ -249,7 +273,14 @@ def test_quantized_upcast_mmdit_matches_jax(mode, request, monkeypatch):
         assert np.array_equal(layer.w8.numpy().T, np.asarray(leaf["w8"])[1])
     else:
         assert isinstance(layer, tq.QuantizedLinear) and (layer.wscale is not None) == (
-            mode == "w4a8")
+            mode.startswith("w4a8"))
+        if mode.endswith("-mixed"):
+            ada = model.mm_blocks[1].img.ada
+            assert isinstance(ada, tq.QuantizedLinear) and ada.bits == 8
+            assert np.array_equal(ada.q8.numpy(), np.asarray(params["mm_blocks"]["img"]["ada"]
+                                                             ["q8"])[1])
+            assert not isinstance(model.final_layer.ada, tq.QuantizedLinear)
+            assert not isinstance(model.context_embedder, tq.QuantizedLinear)
         if mode == "int8":
             assert np.array_equal(layer.q8.numpy(), np.asarray(leaf["q8"])[1])
         else:
