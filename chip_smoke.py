@@ -139,7 +139,12 @@ Phases, each raising on failure (the script then exits non-zero):
      the card, bit for bit the CPU's cast, and the 4-bit releases' packed
      final layer ((4096, 3072) and (8192, 2432) -> 64, group 64, int4 and
      w4a8) through ops/common.linear on the dequantise path, with no
-     kernel launched, against fp32 math;
+     kernel launched, against fp32 math; then the T5 outlier A/B
+     (tools/t5_outlier_ab.run): T5-XXL at full width, random weights at HF
+     T5's scales, 16 residual channels made 50x hotter, w8a8 with and
+     without the SmoothQuant fold against bf16, the fold's margin on the
+     non-outlier channels at least 3 dB (the JAX package's
+     tests/test_smoothquant.py gate);
   6. the main paths, with random weights from a seed, each serving two
      requests through generate_image and repeating the first through the
      phase methods, all under the default use_scan=True, the denoise loop a
@@ -207,9 +212,10 @@ Phases, each raising on failure (the script then exits non-zero):
         5.0; f's CLIP-L and VAE, a CLIP-G drawn anew;
      i'. the 4-bit release (...-3.5-large-4bit-quantized): the same settings
         on a packed int4 model, weight-only (kernel C; block 35 on C's fp32
-        tile);
+        tile); one request (and its repeat), for the smoke's time;
      k. SD3.5-large bf16 with use_t5=True: T5-XXL at 512 tokens (4685 joint
-        tokens), block 35 in fp32 (kernel A and B's fp32 kernels);
+        tokens), block 35 in fp32 (kernel A and B's fp32 kernels); one
+        request (and its repeat);
      t. SD3.5-large w4a8-mixed by GPTQ at 8B: a float bf16 SD3.5-large
         (block 35 fp32) drawn on the card and given to DiffusionPipeline(
         model_version=...-3.5-large, use_t5=False, quantize_mmdit=
@@ -227,6 +233,21 @@ Phases, each raising on failure (the script then exits non-zero):
      j. FLUX.1-dev bf16 (its guidance embedder, guidance 3.5) through
         FluxPipeline(model_version=...FLUX.1-dev), T5 at 512 tokens (4608
         joint tokens), 1024², 4 steps; k's T5, CLIP-L and VAE;
+     w. FLUX.1-dev w4a8 by GPTQ from its float model: a float bf16
+        FLUX.1-dev at full width and FLUX_GPTQ_DEPTH blocks, first served
+        through j's pipeline as it is (its bf16 twin), then written as
+        FLUX.1-dev's file (the MLX namespace) and loaded by FluxPipeline(
+        model_version=...FLUX.1-dev, quantize_mmdit="w4a8") with
+        check_and_load_models(): request 0 converts it by the pipelines'
+        default GPTQ (the guidance embedder's calibration site at 3.5;
+        seconds by phase) and writes the quantized-tree cache, request 1
+        (the MMDiT dropped) reads the cache, the packed state bit for bit;
+        every block linear and the guidance embedder w4a8; then served at
+        j's settings as every path is (E's three fused modes, E's GEMV on
+        every `ada`, D, #10 then #11 at the config's counts), its images
+        those of the conversion's requests bit for bit, each image's PSNR
+        against the twin's printed, and GPTQ's block-linear error at most
+        1.1x ALS's (as p's);
      l. img2img on a's models: a's request-1 image (a 530 x 520 copy, so
         read_image's LANCZOS resize runs) through DiffusionPipeline(
         local_ckpt=...) at 512², 50 steps at denoise 0.6 (the last 30 run),
@@ -327,6 +348,23 @@ Phases, each raising on failure (the script then exits non-zero):
         linears) the same way, each within 3e-2 of the whole model, its 94
         split o and fc2 on C / #13's fp32 output, printed beside the same
         split forward with those partials rounded to bf16 before the sum;
+     x. after i: i's request 0 at SD35_TP.steps steps (of i's 8) over
+        create_mesh(1, 2, backend="gloo"): i's MMDiT written in the cache
+        format, this script started twice as `--sd35-rank 2 i DIR`, each
+        rank reading it to the host and keeping its shard: both ranks'
+        latents bit for bit, within 3e-2 relative L2 of i's unsharded run
+        at those steps; every route off_kernel(SD3.5-large w4a8, 2) lists
+        (q, k, v col and o row off E's shapes, fc1 on E with the FFN off
+        E's fused modes) seen taken, and the kernels they reach launched
+        (#10 then #11, the two-pass D, #16), the fused modes and #4 never;
+     x4. one CFG forward at 512² of SD3.5-large int4 (X4_DEPTH blocks,
+        full width, block X4_UPCAST fp32; 38 heads over 4 ranks take the
+        materialised-score attention, too large at 1024² for four ranks
+        on one card) over create_mesh(1, 4): four
+        ranks (`--sd35-rank 4 i DIR`), each drawing the model from one seed
+        and holding its split forward within 3e-2 of the unsharded one;
+        every route off_kernel(SD3.5-large int4, 4) lists (heads gathered,
+        `ada` off C's shapes, o gathered onto C) seen taken;
      s. f's models whole on each rank over create_mesh(2, 1): num_images=2
         and generate_images_batched of f's two prompts, an image a rank,
         both ranks returning both images, latents and pixels bit for bit f's
@@ -340,15 +378,21 @@ Phases, each raising on failure (the script then exits non-zero):
         T5-XXL's and CLIP-L's HF files): every loaded model b's bit for bit,
         the images b's, the launches b's;
      (run in the order a, a', a'', l, n (and the CLI), p, the mode table,
-     h, h', d, e, b, o, c, m, g, g', f, q, r1, r, s, i, i', k, t, u, v, j,
-     so h, d and e share a's encoders, h a's MMDiT, g c's models and f g's,
-     before f converts the T5; each later path frees the previous MMDiT);
+     h, h', d, e, b, o, c, m, g, g', f, q, r1, r, s, i, x, x4, i', k, t, u,
+     v, j, w, so h, d and e share a's encoders, h a's MMDiT, g c's models
+     and f g's, before f converts the T5; each later path frees the
+     previous MMDiT);
   7. two denoise steps of each path (the graph's replays; the synced
      loop's if the profiler sees no kernel inside a replay) under
-     torch.profiler: device-busy time per step by kernel family and the
+     torch.profiler: device-busy time per step by kernel family and by
+     tools/profile_step's categories (attention, each quantized GEMM
+     family, cuBLAS GEMMs, row kernels, elementwise, copies), and the
      device's idle share against the graph's ms/step and the loop's; for
      FLUX also the text encoding (T5-XXL and CLIP-L); and a summary line of
      each path's graph and loop ms/step, busy time and idle shares.
+
+A phase's first line carries the seconds since the script started, and the
+whole smoke's seconds are printed before the kernels' summary.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' summary as JSON, and before that the card's name and power limit.
@@ -444,6 +488,10 @@ from diffusionkit_tpu_torch.ops.fused_quant import (
     quantize_two_pass,
     row_absmax,
     row_absmax_plain,
+    tile_absmax,
+    tile_absmax_plain,
+    tile_quantize,
+    tile_quantize_plain,
 )
 from diffusionkit_tpu_torch.ops.int4_matmul import (
     dequantize_int4,
@@ -485,6 +533,7 @@ from diffusionkit_tpu_torch.parallel import (
     merge_chunk_stats,
     shard_module_,
 )
+from diffusionkit_tpu_torch.parallel.sharding import off_kernel
 from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline, _encode_step
 from diffusionkit_tpu_torch.serve import GenerationServer
 from diffusionkit_tpu_torch.tokenizer import (
@@ -504,7 +553,9 @@ from diffusionkit_tpu_torch.tools import (
     device_ms,
     device_ms_cold,
     microbench_int8,
+    profile_step,
     quant_quality,
+    t5_outlier_ab,
 )
 
 GEMV_SOURCE = "diffusionkit_tpu_torch/csrc/gemv_sm90.cu"
@@ -555,6 +606,10 @@ KERNELS = {
                            "diffusionkit_tpu/ops/fused_quant.py:246"),
     "gelu_quantize[two-pass]": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
                                 "diffusionkit_tpu/ops/fused_quant.py:229"),
+    # Kernel E's gelu_quant epilogue in two passes over scale tiles split
+    # between ranks (a split w4a8 FFN whose local hidden is not whole tiles).
+    "gelu_quant[tiles]": ("diffusionkit_tpu_torch/csrc/mod_ln.cu",
+                          "diffusionkit_tpu/ops/w4a8_matmul.py:268"),
     # C and #13 on bf16 x with an fp32 output (a row-parallel linear's
     # partial product, summed over the ranks and rounded once): the Hopper
     # loop's fp32 store above 16 rows, the GEMV's at M <= 16.
@@ -587,6 +642,7 @@ SYMBOLS = {
     "gptq_group": "gptq_group_kernel<GS>",
     "quantize[two-pass]": "row_absmax_kernel<T, ACT_NONE>, quantize_amax_kernel<T, ACT_NONE>",
     "gelu_quantize[two-pass]": "row_absmax_kernel<T, GELU_ERF>, quantize_amax_kernel<T, GELU_ERF>",
+    "gelu_quant[tiles]": "tile_absmax_kernel, tile_quantize_kernel",
     "int4_matmul[f32out]": "int4_mm_sm90<BN, float> (M > 16), int4_gemv with out_f32 (M <= 16)",
     "int8_matmul[f32out]": "int8_mm_sm90<BN, float> (M > 16), int8_gemv with out_f32 (M <= 16)",
     "int8_matmul[f32]": "dequant_mm_3xtf32<8> (M > 16), dequant_mm_f32<8> (M <= 16)",
@@ -650,7 +706,7 @@ MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flu
              "quantize[two-pass]": "flux-w4a8-t5w8a8-tp2",
              "gelu_quantize[two-pass]": "sd3-w8a8-tp2",
              "int4_matmul[f32out]": "sd3-int4-tp2", "int8_matmul[f32out]": "sd3-int8-tp2",
-             "int8_matmul[f32]": "sd35-int8"}
+             "int8_matmul[f32]": "sd35-int8", "gelu_quant[tiles]": "sd35-w4a8-tp2"}
 # The two tool paths: each tool's run at the reference's default shape.
 TOOLS = {"bench-w4a8-mat": bench_w4a8_mat, "microbench-int8": microbench_int8}
 # Per-request launches the attention kernels must match exactly.
@@ -708,8 +764,9 @@ SD3_RING_TWIN = dataclasses.replace(SD3_RING, name="sd3-1024-flash", requests=SD
 # j: FLUX.1-dev bf16 at 1024², guidance 3.5 (the default), T5 at 512 tokens
 # (4608 joint), 4 steps.
 SD35 = Path("sd35-w4a8", 8, 5.0, (128, 128), 154, SD3.requests)
-SD35_4BIT = dataclasses.replace(SD35, name="sd35-4bit")
-SD35_T5 = dataclasses.replace(SD35, name="sd35-t5", txt_tokens=589)
+# i' and k serve one request each (and its repeat), for the smoke's time.
+SD35_4BIT = dataclasses.replace(SD35, name="sd35-4bit", requests=SD35.requests[:1])
+SD35_T5 = dataclasses.replace(SD35, name="sd35-t5", txt_tokens=589, requests=SD35.requests[:1])
 # t, u, v: a float bf16 SD3.5-large drawn on the card and converted by
 # DiffusionPipeline(quantize_mmdit=...): w4a8-mixed by GPTQ (the first GPTQ
 # at 8B), int8 (#13 on every block linear, block 35's on its fp32 tile) and
@@ -725,6 +782,25 @@ SD35_MODES = {SD35.name: ("w4a8", False), SD35_4BIT.name: ("int4", False),
               SD35_W4A8_MIXED.name: ("w4a8-mixed", True), SD35_INT8.name: ("int8", True),
               SD35_W8A8.name: ("w8a8", True)}
 FLUX_DEV_PATH = Path("flux-dev", 4, 0.0, (128, 128), 512, FLUX.requests)
+# w: a float FLUX.1-dev (full width, FLUX_GPTQ_DEPTH blocks: the smoke's
+# time) written as its file and loaded by FluxPipeline(model_version=
+# FLUX.1-dev, quantize_mmdit="w4a8"): GPTQ at the first request, the
+# quantized-tree cache at the second; j's settings. Its bf16 twin is the same
+# float model through j's pipeline.
+FLUX_DEV_GPTQ = dataclasses.replace(FLUX_DEV_PATH, name="flux-dev-w4a8-gptq")
+FLUX_DEV_GPTQ_SEED = 24
+# x: i's SD3.5-large w4a8 over create_mesh(1, 2), two gloo processes on the
+# one card, SD35_TP.steps of i's 8 steps (each step's 152 row-parallel sums
+# and 76 chained FFN sums go through the host, ~17.6 s a step); x4: one CFG forward of SD3.5-large int4 over
+# create_mesh(1, 4) against the unsharded one, X4_DEPTH blocks (every block
+# takes the same routes) with the fp32-upcast block kept, at 512² (1024 +
+# 154 tokens): 38 heads do not divide over 4 ranks, so every joint
+# attention takes the materialised-score attention (the reference's rule
+# for flash under a mesh), whose fp32 scores at 1024² (5.5 GB a call) put
+# four ranks' peaks past the one card's 80 GB.
+SD35_TP = dataclasses.replace(SD35, name="sd35-w4a8-tp2", steps=1, requests=SD35.requests[:1])
+SD35_TP4 = "sd35-int4-tp4"
+X4_DEPTH, X4_UPCAST, X4_LATENT = 4, (2,), (64, 64)
 # img2img: l, SD3-medium 512² on a's models from a's request-1 image (a
 # 530 x 520 copy, so read_image's LANCZOS resize runs), 50 steps at denoise
 # 0.6, so the last 30 run, CFG 5.0; m, FLUX.1-schnell w4a8 1024² on c's
@@ -916,6 +992,12 @@ def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3
     if "[f32out]" in name:  # C / #13 on bf16 x, the fp32 partial product written
         name, out_size = name.replace("[f32out]", ""), 4
     name = name.replace("[two-pass]", "")  # D / #4 in two passes: the same function
+    if name == "gelu_quant[tiles]":
+        # (M, N, T): one rank's fp32 y read once, its int8 hidden written,
+        # its T tiles' absmax and scale written (the all-reduce between the
+        # passes apart); the GELU and the grid an element.
+        m, n, t = shape
+        return bound(ROW_OPS["gelu_quantize"] * m * n, "fp32", 5 * m * n + 8 * m * t)
     if name == "w8_matmul[gemv]":  # the quantizing entry: bf16 x read once, no scales
         m, k, n = shape
         return bound(2 * m * k * n, "int8", 2 * m * k + n * k + 6 * n + 2 * m * n)
@@ -989,7 +1071,14 @@ def bound_note(t: dict) -> str:
     return f"bound {t['bound_ms']!r} ms ({t['bound_by']}), at {t['bound_ms'] / t['ms']!r} of it"
 
 
+STARTED = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """A line of the smoke's output; a phase's first line carries the
+    seconds since the script started."""
+    if msg.startswith("phase "):
+        msg += f" [t={time.perf_counter() - STARTED:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1019,6 +1108,7 @@ def reset_counts() -> None:
         fn.f32_launches = 0
     for fn in (row_absmax, quantize_amax):
         fn.launches = dict.fromkeys(fn.launches, 0)
+    tile_absmax.launches = tile_quantize.launches = 0
 
 
 def counts() -> dict:
@@ -1046,6 +1136,11 @@ def counts() -> dict:
         raise AssertionError(f"two-pass quantizers: pass 1 launched {row_absmax.launches}, "
                              f"pass 2 {quantize_amax.launches}")
     out.update({f"{name}[two-pass]": n for name, n in quantize_amax.launches.items()})
+    # The tiles form of E's gelu_quant: pass 2's launches (pass 1 runs as often).
+    if tile_absmax.launches != tile_quantize.launches:
+        raise AssertionError(f"tile passes: pass 1 launched {tile_absmax.launches}, pass 2 "
+                             f"{tile_quantize.launches}")
+    out["gelu_quant[tiles]"] = tile_quantize.launches
     return out
 
 
@@ -2966,7 +3061,7 @@ def reference_checks(gen) -> None:
     # these scales; both on the CPU).
     t5 = dataclasses.replace(T5_XXL, num_layers=2)
     model = init_t5(t5, gen, "cuda", dtype=torch.bfloat16)
-    t5_trained_scales_(model, gen)
+    t5_outlier_ab.hf_init_scales_(model, gen)
     smooth_t5(model, SyntheticT5Tokenizer(max_length=256))
     w8a8_module_(model)
     ref = fp32_cpu_mirror(model, lambda: T5Encoder(t5, torch.float32))
@@ -2976,22 +3071,6 @@ def reference_checks(gen) -> None:
 
 
 @torch.no_grad()
-def t5_trained_scales_(model: T5Encoder, gen) -> None:
-    """Redraw a T5's weights at HF T5's initialisation scales: q with std
-    (d_model d_kv)^-1/2, k/v/wi with d_model^-1/2, o with (heads d_kv)^-1/2,
-    wo with d_ff^-1/2, the embedding with 1 and the bucket table with
-    d_model^-1/2."""
-    c = model.config
-    for layer in model.layers:
-        layer.query_proj.weight.normal_(0.0, (c.d_model * c.d_kv) ** -0.5, generator=gen)
-        for lin in (layer.key_proj, layer.value_proj, layer.wi_0, layer.wi_1):
-            lin.weight.normal_(0.0, c.d_model**-0.5, generator=gen)
-        layer.out_proj.weight.normal_(0.0, (c.num_heads * c.d_kv) ** -0.5, generator=gen)
-        layer.wo.weight.normal_(0.0, c.d_ff**-0.5, generator=gen)
-    model.wte.weight.normal_(0.0, 1.0, generator=gen)
-    model.relative_attention_bias.weight.normal_(0.0, c.d_model**-0.5, generator=gen)
-
-
 def per_block_w4a8(dual: int, uni: int, img: int, txt: int) -> dict:
     """Launches of the w4a8 kernels in one forward of dual + uni blocks over
     img image and txt text rows (batch 1). Mode plain's calls: the `ada`
@@ -3242,13 +3321,11 @@ def denoise_request(pipe, path: Path, use_scan: bool, num_steps=None, **img2img)
 def device_kernels(pipe, path: Path, use_scan: bool) -> collections.Counter:
     """The device kernels (by the profiler's name) of one denoise step of
     request 0, under the graph or in the loop."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         denoise_request(pipe, path, use_scan, num_steps=1)
-    return collections.Counter({ev.key: ev.count for ev in prof.key_averages()
-                                if ev.device_type == DeviceType.CUDA})
+    return profile_step.kernel_counts(prof)
 
 
 def loop_beside(pipe, path: Path, graph_latents, graph_launches: dict, graph_ms: float,
@@ -3319,7 +3396,7 @@ def serve(pipe, path: Path, tag: str):
     peak = device_peak_flops(torch.cuda.get_device_name(0))
     rate, peak_name = "TFLOP/s", "bf16"
     if path.name in (FLUX_W4A8.name, FLUX_E2E.name, SD3_W8A8.name, FLUX_RING.name, SD35.name,
-                     SD35_W4A8_MIXED.name, SD35_W8A8.name):
+                     SD35_W4A8_MIXED.name, SD35_W8A8.name, FLUX_DEV_GPTQ.name):
         rate, peak_name, peak = "TOP/s", "int8", 2 * peak  # the int8 tensor cores
     for i, lg in enumerate(logs):
         it = lg["denoising"]["iter_time"]
@@ -4130,6 +4207,9 @@ def mlx_mmdit_ckpt(model: MMDiT) -> dict:
     for name in ("t_embedder", "y_embedder"):
         lin(getattr(model, name).fc1, f"{name}.mlp.layers.0")
         lin(getattr(model, name).fc2, f"{name}.mlp.layers.2")
+    if model.guidance_embedder is not None:  # FLUX.1-dev
+        lin(model.guidance_embedder.fc1, "guidance_in.mlp.layers.0")
+        lin(model.guidance_embedder.fc2, "guidance_in.mlp.layers.2")
     lin(model.final_layer.ada, "final_layer.adaLN_modulation.layers.1")
     lin(model.final_layer.linear, "final_layer.linear")
     return out
@@ -4270,7 +4350,9 @@ def loaded_sd3_path(prev: DiffusionPipeline, served: dict, scratch: str, tag: st
             got["p"] = gptq_sd3_path(os.path.join(d, model_io.MMDIT_CKPT[SD3_MEDIUM]), scratch,
                                      tag)
         log("phase 6p, quality: a's float MMDiT against its GPTQ, ALS and min/max int4 models")
-        gptq_quality(prev.mmdit, got["p"]["cache"], tag)
+        gptq_quality(prev.mmdit, model_io.load_mmdit_cache(got["p"]["cache"], SD3_MEDIUM,
+                                                           torch.bfloat16, "cuda"),
+                     "SD3-medium int4 at group 32", tag)
         log("phase 6t: the mode table: tools/quant_quality.run on path n's files, bf16 and each "
             "quantize mode (256², 6 steps, CFG 5.0, seed 42)")
         with env_set("DIFFUSIONKIT_TPU_CKPT_DIR", root):
@@ -4385,17 +4467,18 @@ def gptq_sd3_path(ckpt: str, scratch: str, tag: str) -> dict:
     return out
 
 
-def gptq_quality(float_model: MMDiT, cache: str, tag: str) -> None:
-    """The quality check beside path p (module docstring): each model's
-    error against the float model's output on calib_batch(seed=99), with
-    fp32 activations (the mirror, as the reference's test runs its models
-    in fp32) and through the bf16 forward. The criterion, GPTQ's error at
-    most 1.1x ALS's, is asserted on the block linears that read
-    activations (q, k, v, o, fc1, fc2: everything else float): at SD3's
-    2048-wide pooled input the reference's calibration leaves the
-    conditioning sites (y_embedder, every ``ada``) under-sampled and its
-    GPTQ loses to ALS there, as the JAX package's own does (PERF.md)."""
-    ev = gptq_ops.calib_batch(SD3_2b, batch=4, seed=99)
+def gptq_quality(float_model: MMDiT, gptq_model: MMDiT, label: str, tag: str) -> None:
+    """The quality check beside paths p and w (module docstring): each
+    model's error against the float model's output on calib_batch(seed=99)
+    (4 images at 256²), with fp32 activations (the mirror, as the
+    reference's test runs its models in fp32) and through the bf16 forward.
+    The criterion, GPTQ's error at most 1.1x ALS's, is asserted on the block
+    linears that read activations (q, k, v, o, fc1, fc2: everything else
+    float): at SD3's 2048-wide pooled input the reference's calibration
+    leaves the conditioning sites (y_embedder, every ``ada``) under-sampled
+    and its GPTQ loses to ALS there, as the JAX package's own does
+    (PERF.md)."""
+    ev = gptq_ops.calib_batch(float_model.config, batch=4, seed=99)
     args = [torch.from_numpy(ev[k]).cuda() for k in ("latent", "cond", "pooled", "t")]
 
     def run(model):
@@ -4403,13 +4486,14 @@ def gptq_quality(float_model: MMDiT, cache: str, tag: str) -> None:
             return gptq_ops.mirror_forward(model, *args), model(*args).float()
 
     ref32, ref16 = run(float_model)
-    models = {"gptq": model_io.load_mmdit_cache(cache, SD3_MEDIUM, torch.bfloat16, "cuda")}
+    models = {"gptq": gptq_model}
     for name, refine in (("als", True), ("minmax", False)):
         models[name] = quantize_module_(copy.deepcopy(float_model), 32, refine=refine)
     full, blocks = {}, {}
     hybrid = copy.deepcopy(float_model)
     names = [n for n, m in float_model.named_modules() if isinstance(m, torch.nn.Linear)
-             and n.startswith("mm_") and n.rpartition(".")[2] in ("q", "k", "v", "o", "fc1", "fc2")]
+             and n.startswith(("mm_", "uni_")) and n.rpartition(".")[2] in (
+                 "q", "k", "v", "o", "fc1", "fc2")]
     for name, model in models.items():
         got32, got16 = run(model)
         full[name] = (float(torch.linalg.norm(got32 - ref32)), float(torch.linalg.norm(got16 - ref16)))
@@ -4419,16 +4503,16 @@ def gptq_quality(float_model: MMDiT, cache: str, tag: str) -> None:
         blocks[name] = float(torch.linalg.norm(run(hybrid)[0] - ref32))
     del models, hybrid
     torch.cuda.empty_cache()
-    log(f"  quality, SD3-medium int4 at group 32, one forward on calib_batch(seed=99) (4 "
-        f"images at 256², the float output's norm {float(torch.linalg.norm(ref32))!r}): error "
-        f"(fp32 activations, bf16 forward) gptq {full['gptq']!r}, als {full['als']!r}, minmax "
-        f"{full['minmax']!r}; the {len(names)} block linears alone quantized (fp32): gptq "
-        f"{blocks['gptq']!r}, als {blocks['als']!r}, minmax {blocks['minmax']!r}; gptq / als "
+    log(f"  quality, {label}, one forward on calib_batch(seed=99) (4 images at 256², the float "
+        f"output's norm {float(torch.linalg.norm(ref32))!r}): error (fp32 activations, bf16 "
+        f"forward) gptq {full['gptq']!r}, als {full['als']!r}, minmax {full['minmax']!r}; the "
+        f"{len(names)} block linears alone quantized (fp32): gptq {blocks['gptq']!r}, als "
+        f"{blocks['als']!r}, minmax {blocks['minmax']!r}; gptq / als "
         f"{full['gptq'][0] / full['als'][0]!r} whole, {blocks['gptq'] / blocks['als']!r} blocks "
         f"[{tag}]")
     if not blocks["gptq"] <= 1.1 * blocks["als"]:
-        raise AssertionError(f"GPTQ's block-linear error {blocks['gptq']} exceeds 1.1x ALS's "
-                             f"{blocks['als']}")
+        raise AssertionError(f"{label}: GPTQ's block-linear error {blocks['gptq']} exceeds 1.1x "
+                             f"ALS's {blocks['als']}")
 
 
 def mode_table(tag: str) -> dict:
@@ -4791,6 +4875,146 @@ def build_flux_dev(gen, prev: DiffusionPipeline) -> FluxPipeline:
     return pipe
 
 
+# Path w's bf16 twin (its images and its float model) and its conversion's
+# record, from build_flux_dev_gptq until flux_dev_gptq_checks reads them.
+FLUX_DEV_TWIN: dict = {}
+
+
+def build_flux_dev_gptq(gen, prev: FluxPipeline) -> FluxPipeline:
+    """Path w: a float bf16 FLUX.1-dev at full width and FLUX_GPTQ_DEPTH
+    blocks, drawn from its own seed, served first as it is through
+    FluxPipeline(model_version=FLUX.1-dev) (its bf16 twin: j's pipeline on
+    these weights), then written as FLUX.1-dev's file (the MLX namespace)
+    under a temporary DIFFUSIONKIT_TPU_CKPT_DIR and loaded by
+    FluxPipeline(model_version=FLUX.1-dev, quantize_mmdit="w4a8"), the
+    pipelines' default GPTQ: request 0 reads the file and converts it
+    (GPTQ, timed by phase; the quantized tree written to the cache),
+    request 1, the MMDiT dropped, reads the cache. Both give the same packed
+    state bit for bit; every block linear and the guidance embedder are
+    w4a8. j's T5-XXL (512 tokens), CLIP-L, decoder and tokenizers; j's
+    MMDiT is freed first. Returns the pipeline, its model resident."""
+    cfg = dataclasses.replace(FLUX_DEV, depth_multimodal=FLUX_GPTQ_DEPTH[0],
+                              depth_unified=FLUX_GPTQ_DEPTH[1])
+    prev.mmdit = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = {name: getattr(prev, name)
+             for name in ("t5", "clip_l", "decoder", "tokenizer_l", "t5_tokenizer")}
+    float_model = init_mmdit(cfg, torch.Generator(device="cuda").manual_seed(FLUX_DEV_GPTQ_SEED),
+                             "cuda")
+    kw = dict(num_steps=FLUX_DEV_GPTQ.steps, cfg_weight=FLUX_DEV_GPTQ.cfg,
+              latent_size=FLUX_DEV_GPTQ.latent, verbose=False)
+    twin = FluxPipeline(load=False, low_memory_mode=False, device="cuda",
+                        model_version=FLUX_DEV_VERSION)
+    for name, value in small.items():
+        setattr(twin, name, value)
+    twin.mmdit = float_model
+    twin_images = [np.asarray(twin.generate_image(text, seed=seed, **kw)[0])
+                   for text, seed in FLUX_DEV_GPTQ.requests]
+    twin.mmdit = None
+    del twin
+    quantizers, states, images, per = [], [], [], []
+    saved_cfg = model_io.MMDIT_CONFIG[FLUX_DEV_VERSION]
+    with tempfile.TemporaryDirectory(prefix="flux_dev_") as root:
+        ckpt = os.path.join(root, FLUX_DEV_VERSION, model_io.MMDIT_CKPT[FLUX_DEV_VERSION])
+        os.makedirs(os.path.dirname(ckpt))
+        t0 = time.perf_counter()
+        write_safetensors(ckpt, mlx_mmdit_ckpt(float_model))
+        log(f"  float FLUX.1-dev ({cfg.depth_multimodal} + {cfg.depth_unified} blocks, hidden "
+            f"{cfg.hidden_size}) served in bf16 (the twin) and written as "
+            f"{model_io.MMDIT_CKPT[FLUX_DEV_VERSION]} ({os.path.getsize(ckpt) / 2**30!r} GiB) "
+            f"in {time.perf_counter() - t0!r} s")
+        model_io.MMDIT_CONFIG[FLUX_DEV_VERSION] = cfg  # the file's depth
+        gptq_ops.PHASE_SECONDS = {}
+        try:
+            with env_set("DIFFUSIONKIT_TPU_CKPT_DIR", root), \
+                    env_set("DIFFUSIONKIT_TPU_CACHE_DIR", os.path.join(root, "cache")):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                pipe = FluxPipeline(load=False, low_memory_mode=False, device="cuda",
+                                    model_version=FLUX_DEV_VERSION, quantize_mmdit="w4a8")
+                for name, value in small.items():
+                    setattr(pipe, name, value)
+                for i, (text, seed) in enumerate(FLUX_DEV_GPTQ.requests):
+                    if i:  # dropped: the second request loads it again, from the cache
+                        pipe.mmdit = None
+                        gc.collect()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    pipe.check_and_load_models()
+                    torch.cuda.synchronize()
+                    load_s, q = time.perf_counter() - t0, pipe.quantizer
+                    image, lg = pipe.generate_image(text, seed=seed, **kw)
+                    torch.cuda.synchronize()
+                    per.append(counts())
+                    quantizers.append(q["name"])
+                    images.append(np.asarray(image))
+                    states.append({k: v.clone() for k, v in pipe.mmdit.state_dict().items()})
+                    log(f"  request {i}: check_and_load_models() {load_s!r} s (the file or the "
+                        f"cache, the conversion, the cache write): quantizer {q['name']!r} in "
+                        f"{q['seconds']!r} s; then generate_image: capture "
+                        f"{lg['denoising']['capture_time']!r} s, total {lg['total_time']!r} s "
+                        f"[{card()}]")
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+                caches = sorted(pathlib.Path(root, "cache", "params").glob("*.safetensors"))
+                cache_gib = [os.path.getsize(c) / 2**30 for c in caches]
+        finally:
+            model_io.MMDIT_CONFIG[FLUX_DEV_VERSION] = saved_cfg
+            phases, gptq_ops.PHASE_SECONDS = gptq_ops.PHASE_SECONDS, None
+    if quantizers != ["gptq", "cached"]:
+        raise AssertionError(f"path w: quantizers {quantizers}, expected gptq then cached")
+    if len(caches) != 1:
+        raise AssertionError(f"path w: {len(caches)} cache files, expected one")
+    if states[0].keys() != states[1].keys() or not all(
+            torch.equal(states[0][k], states[1][k]) for k in states[0]):
+        raise AssertionError("path w: the cached packed state is not the GPTQ one bit for bit")
+    if per[0]["gptq_group"] == 0 or per[1]["gptq_group"] != 0:
+        raise AssertionError(f"path w: group kernel launches {per[0]['gptq_group']} / "
+                             f"{per[1]['gptq_group']}, expected some / none")
+    model = pipe.mmdit
+    linears = [getattr(blk, n) for blk in (*[b.img for b in model.mm_blocks],
+                                            *[b.txt for b in model.mm_blocks], *model.uni_blocks)
+               for n in ("q", "k", "v", "o", "fc1", "fc2", "ada")]
+    linears += [model.guidance_embedder.fc1, model.guidance_embedder.fc2]
+    if not all(isinstance(m, QuantizedLinear) and m.bits == 4 and m.wscale is not None
+               for m in linears):
+        raise AssertionError("path w: a block linear or the guidance embedder is not w4a8")
+    log(f"  {FLUX_DEV_GPTQ.name}: quantizers gptq then cached, the cached packed state the GPTQ "
+        f"one bit for bit, every block linear and the guidance embedder w4a8; GPTQ by phase "
+        f"{phases} ({sum(phases.values())!r} s timed), {per[0]['gptq_group']} group steps; the "
+        f"cache {cache_gib!r} GiB; peak {peak!r} GiB above the {base / 2**30!r} GiB allocated "
+        f"before it [{card()}]")
+    FLUX_DEV_TWIN.update(images=twin_images, float_model=float_model, gptq_images=images)
+    return pipe
+
+
+def flux_dev_gptq_checks(pipe: FluxPipeline, served: dict, tag: str) -> None:
+    """Path w after its serve: its images are those of the conversion's two
+    requests bit for bit (the model resident, then from the cache), each
+    image's PSNR against the bf16 twin's on the same weights, and GPTQ's
+    block-linear error at most 1.1x ALS's (``gptq_quality``, the GPTQ codes
+    taken as int4: wscale dropped, as the ALS model has none)."""
+    twin, float_model = FLUX_DEV_TWIN.pop("images"), FLUX_DEV_TWIN.pop("float_model")
+    for i, (got, conv) in enumerate(zip(served["images"], FLUX_DEV_TWIN.pop("gptq_images"))):
+        if not np.array_equal(got, conv):
+            raise AssertionError(f"path w: request {i}'s image differs from the conversion "
+                                 f"request's")
+    psnr = [image_psnr(t.astype(np.float32), g.astype(np.float32))
+            for t, g in zip(twin, served["images"])]
+    log(f"  {FLUX_DEV_GPTQ.name}: images bit for bit those of the conversion's requests; PSNR "
+        f"against the bf16 twin's images (the same float weights) {psnr!r} dB [{tag}]")
+    int4 = copy.deepcopy(pipe.mmdit)
+    for m in int4.modules():
+        if isinstance(m, QuantizedLinear):
+            m.wscale = None
+    gptq_quality(float_model, int4, f"FLUX.1-dev ({FLUX_GPTQ_DEPTH[0]} + {FLUX_GPTQ_DEPTH[1]} "
+                 f"blocks) int4 codes of its w4a8 GPTQ at group 32", tag)
+    del int4, float_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def build_sd3_ring(gen, prev: DiffusionPipeline) -> DiffusionPipeline:
     """Path h: a's models (SD3-medium, CLIP-L/G, the VAE decoder and the
     tokenizers) behind DiffusionPipeline(sdpa_impl="ring",
@@ -4817,88 +5041,6 @@ def build_flux_ring(gen, prev: FluxPipeline) -> FluxPipeline:
     return pipe
 
 
-# The flash kernels as the profiler names them, demangled or not: #14 is
-# flash_fwd_sm90_stats<128> and flash_fwd_sm90_stats64 (flash_fwd_bhsd_small
-# <64, true> in earlier builds), #15
-# flash_fwd_sm90<D, true> and at d = 512 flash_fwd_wide_sm90<true> with
-# flash_wide_merge<true>, kernel B the same with false (and the d = 512
-# kernel of earlier builds, flash_fwd_wide<512, .>).
-SCALE_FIRST = re.compile(r"flash_fwd_(?:wide|sm90)(?:<\d+, true>|ILi\d+ELb1E)"
-                         r"|flash_(?:fwd_wide_sm90|wide_merge)(?:<true>|ILb1E)")
-# The fp32 kernels, flash_fwd_3xtf32_sm90<D, mode> and flash_fwd_3xtf32<mode>
-# (and flash_fwd_f32<D, mode> of earlier builds): 0 kernel B, 1 #15, 2 #14;
-# #16 is w8_mm_sm90<int, BN> or w8_mm_sm90_k64<int> (M > 16) or
-# w8_mm<int, ...>, #11 the same templates with a bf16 or float output.
-FP32_MODE = re.compile(r"flash_fwd_(?:f32|3xtf32(?:_sm90)?)"
-                       r"(?:<(?:\d+, )?(\d)>|I(?:Li\d+E)?Li(\d)E)")
-INT8_DOT_KERNEL = re.compile(r"w8_mm(?:_sm90)?(?:_k64)?(?:<int[,>]|Ii[LE])")
-# The M <= 16 GEMVs of C, #13, E and #11: int4_gemv, int8_gemv, w4a8_gemv,
-# w8_gemv<XT, OutT>.
-GEMV_KERNEL = re.compile(r"(int4|int8|w4a8|w8)_gemv")
-# C and #13 on fp32 x: dequant_mm_3xtf32<BITS> and dequant_mm_f32<BITS>.
-F32_TILE = re.compile(r"dequant_mm_(?:f32|3xtf32)(?:<|ILi)(\d)")
-
-
-def family(name: str) -> str:
-    gemv = GEMV_KERNEL.search(name)
-    if gemv:
-        return f"{gemv.group(1)}_matmul[gemv]"
-    tile = F32_TILE.search(name)
-    if tile:
-        return f"int{tile.group(1)}_matmul[f32]"
-    fp32 = FP32_MODE.search(name)
-    if fp32:
-        return ("flash_attention_bshd", "flash_attention",
-                "flash_attention_stats")[int(fp32.group(1) or fp32.group(2))]
-    if "dequant_w8" in name:
-        return "dequant_w8"
-    if INT8_DOT_KERNEL.search(name):
-        return "int8_dot"
-    if "flash_fwd_sm90_stats" in name or "flash_fwd_bhsd_small" in name:
-        return "flash_attention_stats"
-    if SCALE_FIRST.search(name):
-        return "flash_attention"
-    if "flash_fwd" in name or "flash_wide_merge" in name:
-        return "flash_attention_bshd"
-    if "w4a8_mm" in name:
-        return "w4a8_matmul"
-    if "w8_mm" in name:
-        return "w8_matmul"
-    if "int8_mm" in name:
-        return "int8_matmul"
-    if "gelu_quantize_kernel" in name:
-        return "gelu_quantize"
-    if "mod_ln_quant" in name:
-        return "mod_ln_quantize"
-    if "quantize_kernel" in name:  # before mod_ln: a mangled name holds "mod_ln_cu"
-        return "quantize"
-    if "mod_ln" in name:
-        return "mod_ln"
-    if "int4_mm" in name:
-        return "int4_matmul"
-    if "nvjet" in name or "gemm" in name:
-        return "gemm"
-    return "other"
-
-
-def device_split(prof, div: int):
-    """Device-side time by kernel family from a profile, divided by ``div``."""
-    from torch.autograd import DeviceType
-
-    families, other = {}, []
-    for ev in prof.key_averages():
-        # Device-side rows only (kernels, copies, memsets): a CPU op's row
-        # repeats the device time of the kernels it launched.
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        ms = ev.self_device_time_total / 1e3 / div
-        fam = family(ev.key)
-        families[fam] = families.get(fam, 0.0) + ms
-        if fam == "other":
-            other.append((ms, ev.count // div, ev.key))
-    return families, other
-
-
 def profile_steps(pipe, path: Path, step_ms: float, loop_ms: float, tag: str) -> dict:
     """Phase 7: two denoise steps (the CUDA graph's replays) under
     torch.profiler: device-busy time per step by kernel family, the largest
@@ -4915,7 +5057,7 @@ def profile_steps(pipe, path: Path, step_ms: float, loop_ms: float, tag: str) ->
         cond, pooled = pipe.encode_text(text, path.cfg)
         torch.cuda.synchronize()
     if path.name.startswith("flux"):
-        fams, _ = device_split(prof, 1)
+        fams, _ = profile_step.device_split(prof, 1)
         log(f"  text encoding (T5-XXL + CLIP-L): device busy {sum(fams.values())!r} ms "
             f"{dict(sorted(fams.items()))} [{tag}]")
     what = "the CUDA graph's replays"
@@ -4928,7 +5070,7 @@ def profile_steps(pipe, path: Path, step_ms: float, loop_ms: float, tag: str) ->
                 torch.cuda.synchronize()
         finally:
             pipe.use_scan = saved
-        families, other = device_split(prof, 2)
+        families, other = profile_step.device_split(prof, 2)
         if any(fam != "other" for fam in families):
             break
         log(f"  the profiler saw no kernel inside {what}: profiling the synced loop instead")
@@ -4938,13 +5080,15 @@ def profile_steps(pipe, path: Path, step_ms: float, loop_ms: float, tag: str) ->
         f"{dict(sorted(families.items()))} [{tag}]")
     for ms, count, name in sorted(other, reverse=True)[:6]:
         log(f"    other: {ms!r} ms/step in {count} launches/step of {name[:90]}")
+    categories = profile_step.by_category(prof, 2)
+    log(f"  {path.name} by profile_step's categories: {categories} [{tag}]")
     profiled_ms = 1e3 * statistics.mean(it)
     log(f"  {path.name} idle share: {1 - busy / step_ms!r} at the graph's ms/step (a warm "
         f"request's total / n, {step_ms!r} ms, unprofiled); {1 - busy / loop_ms!r} at the "
         f"synced loop's median step of request 0 ({loop_ms!r} ms); "
         f"{1 - busy / profiled_ms!r} at the profiled "
         f"steps' own mean ({profiled_ms!r} ms, profiler overhead included) [{tag}]")
-    return {"families": families, "busy_ms": busy, "profiled": what,
+    return {"families": families, "categories": categories, "busy_ms": busy, "profiled": what,
             "idle_graph": 1 - busy / step_ms, "idle_loop": 1 - busy / loop_ms}
 
 
@@ -5057,6 +5201,67 @@ def two_pass_kernels(gen, tag: str):
             log(f"  {key} {(m, k)}: bit-identical to the one-pass kernel on whole rows and over "
                 f"two halves, as is the plain version; two-pass {ms!r} ms, "
                 f"one-pass {one_ms!r} ms, plain {plain_ms!r} ms, {bound_note(t)} [{tag}]")
+    return errs, times
+
+
+# (M, K, hidden) of the tiles route on path x: an FFN's fc1 over the CFG
+# batch's 4096 image tokens at 1024² (M 8192), SD3.5-large's width and
+# hidden, the hidden split over TP_RANKS ranks (4864 columns a rank: scale
+# tile 9 straddles them).
+TILE_SHAPES = [(8192, 2432, 9728)]
+
+
+def tile_kernels(tag: str):
+    """The kernel phase of gelu_quant[tiles]: E's fp32 mode-plain output of
+    a random SD3.5-large fc1 split over TP_RANKS ranks' columns, the two
+    passes on each rank's part (the absmaxes combined by max on the card)
+    against E's gelu_quant on the whole hidden (its bytes side by side, its
+    scales in each rank's tiles) bit for bit, as is the plain version;
+    rank 0's two passes timed (``device_ms``) beside the plain version's
+    and the function's bound. Its inputs come from a generator of its own,
+    so the smoke's generator, and so every later path's weights, stay as
+    they were."""
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    key = "gelu_quant[tiles]"
+    errs, times = {key: []}, {key: []}
+    for m, k, hidden in TILE_SHAPES:
+        layer = random_w4a8(k, hidden, 64, gen)
+        x8 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        xs = torch.rand(m, 1, generator=gen, device="cuda") * 0.02
+        args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias.float())
+        want8, want_s = w4a8_matmul(*args, mode="gelu_quant")
+        y = w4a8_matmul(*args, out_dtype=torch.float32)
+        n1, tiles = hidden // TP_RANKS, hidden // 512
+        parts = [y[:, r * n1:(r + 1) * n1].contiguous() for r in range(TP_RANKS)]
+        outs = {}
+        for label, absmax, quant in (("kernels", tile_absmax, tile_quantize),
+                                     ("plain version", tile_absmax_plain, tile_quantize_plain)):
+            amax = torch.stack([absmax(t, r * n1, tiles) for r, t in enumerate(parts)]).amax(0)
+            outs[label] = [quant(t, amax, r * n1) for r, t in enumerate(parts)]
+        torch.cuda.synchronize()
+        for label, got in outs.items():
+            if not torch.equal(torch.cat([a for a, _ in got], dim=-1), want8):
+                raise AssertionError(f"{key} {(m, k, hidden)}: the {label}'s bytes differ from "
+                                     f"E's gelu_quant")
+            for r, (_, ys) in enumerate(got):
+                held = slice(r * n1 // 512, ((r + 1) * n1 - 1) // 512 + 1)
+                if not torch.equal(ys[:, held], want_s[:, held]):
+                    raise AssertionError(f"{key} {(m, k, hidden)}: the {label}'s scales on rank "
+                                         f"{r} differ from E's gelu_quant")
+        err = (torch.cat([a for a, _ in outs["kernels"]], dim=-1).int()
+               - torch.cat([a for a, _ in outs["plain version"]], dim=-1).int()).abs().max()
+        errs[key].append(float(err.item()))
+        part, local = parts[0], (n1 - 1) // 512 + 1
+        ms = device_ms(lambda: tile_quantize(part, tile_absmax(part, 0, tiles), 0))
+        plain_ms = device_ms(lambda: tile_quantize_plain(part, tile_absmax_plain(part, 0, tiles),
+                                                         0))
+        t = timing(key, (m, n1, local), ms, plain_ms, library_ms=None)
+        times[key].append(t)
+        log(f"  {key} (M {m}, hidden {hidden} over {TP_RANKS} ranks, {n1} columns a rank): both "
+            f"ranks' bytes side by side and their scales bit for bit E's gelu_quant on the whole "
+            f"hidden, as the plain version's; rank 0's two passes {ms!r} ms, plain {plain_ms!r} "
+            f"ms, {bound_note(t)} [{tag}]")
+        del layer, x8, y, parts, outs
     return errs, times
 
 
@@ -5307,22 +5512,8 @@ def tp_paths(pipe, served: dict, scratch: str, tag: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()  # the ranks share the card
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
-                               str(root)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(TP_RANKS)]
-    try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
+    res = spawn_ranks(["--tp-rank"], TP_RANKS, root)
     ranks_s = time.perf_counter() - t0
-    for r, (p, out) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise AssertionError(f"tp rank {r} failed (exit {p.returncode}):\n{out[-6000:]}")
-        for line in out.splitlines():
-            if line.startswith("  rank"):
-                log(line)
-    res = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(TP_RANKS)]
     log(f"  f's models written in {write_s!r} s; two gloo ranks ran r, SD3-medium w8a8's "
         f"forward and s in {ranks_s!r} s")
 
@@ -5418,6 +5609,287 @@ def tp_paths(pipe, served: dict, scratch: str, tag: str) -> dict:
             **{name: res[0][name]["launches"] for name in SD3_WEIGHT_ONLY_TP.values()}}
 
 
+@contextlib.contextmanager
+def recorded_routes(model: torch.nn.Module):
+    """The routes ``ops/common`` dispatches ``model``'s linears to while
+    it is on, and the kernels each launched: yields (seen, launched).
+    ``seen`` is a set of (attribute, layout, route) from each
+    ``linear_route`` call (layout "whole" for an unsplit linear) and
+    ("ffn", fc1's attribute, route) from each ``ffn_route`` call;
+    ``launched`` maps (attribute, layout) of a linear, and ("ffn", fc1's
+    attribute) of a "tiles" FFN, to the launch counts (``counts``) made
+    inside its calls."""
+    names = {id(m): n.rsplit(".", 1)[-1] for n, m in model.named_modules()}
+    seen, launched = set(), {}
+    wrapped = ("linear_route", "ffn_route", "_whole_linear", "_row_linear", "_w4a8_ffn_tiles")
+    originals = {name: getattr(common_ops, name) for name in wrapped}
+
+    def layout(layer):
+        tp = getattr(layer, "tp", None)
+        return tp.kind if tp is not None else "whole"
+
+    def recorded_linear(layer):
+        route = originals["linear_route"](layer)
+        seen.add((names.get(id(layer), "?"), layout(layer), route))
+        return route
+
+    def recorded_ffn(fc1, fc2):
+        route = originals["ffn_route"](fc1, fc2)
+        seen.add(("ffn", names.get(id(fc1), "?"), route))
+        return route
+
+    def counted(name, key):
+        def run(layer, *args, **kw):
+            before = counts()
+            y = originals[name](layer, *args, **kw)
+            after = counts()
+            launched.setdefault(key(layer), collections.Counter()).update(
+                {k: n - before[k] for k, n in after.items() if n != before[k]})
+            return y
+        return run
+
+    linear_key = lambda layer: (names.get(id(layer), "?"), layout(layer))  # noqa: E731
+    common_ops.linear_route, common_ops.ffn_route = recorded_linear, recorded_ffn
+    common_ops._whole_linear = counted("_whole_linear", linear_key)
+    common_ops._row_linear = counted("_row_linear", linear_key)
+    common_ops._w4a8_ffn_tiles = counted("_w4a8_ffn_tiles",
+                                         lambda fc1: ("ffn", names.get(id(fc1), "?")))
+    try:
+        yield seen, launched
+    finally:
+        for name, fn in originals.items():
+            setattr(common_ops, name, fn)
+
+
+def sd35_meta(mode) -> MMDiT:
+    """SD3.5-large at full width and depth on ``meta``, packed for ``mode``
+    (4, or "w4a8" with a wscale), for ``parallel.sharding.off_kernel``."""
+    with torch.device("meta"):
+        model = MMDiT(SD3_8b, quantize_bits=4)
+        if mode == "w4a8":
+            for layer in model.modules():
+                if isinstance(layer, QuantizedLinear):
+                    layer.wscale = torch.empty(layer.out_features)
+    return model
+
+
+def unseen_routes(entries, seen: set, gathered: bool) -> list:
+    """The ``off_kernel`` entries ("name: layout, route[, FFN unfused][,
+    heads gathered]") that a run's ``recorded_routes`` did not see taken;
+    ``gathered``: whether the attention gathered its heads."""
+    missing = []
+    for entry in entries:
+        attr, rest = entry.split(": ", 1)
+        layout, route, *flags = rest.split(", ")
+        ok = (attr, layout, route) in seen
+        if "FFN unfused" in flags:
+            ok = ok and any(s[0] == "ffn" and s[1] == attr and s[2] != "fused" for s in seen)
+        if "heads gathered" in flags:
+            ok = ok and gathered
+        if not ok:
+            missing.append(entry)
+    return missing
+
+
+def sd35_tp_rank(rank: int, world: int, root: str) -> None:
+    """One of the gloo ranks of path x (``world`` 2: i's SD3.5-large w4a8
+    request over create_mesh(1, 2), from the cache file ``sd35_tp_paths``
+    wrote) or x4 (``world`` 4: one CFG forward of a cut SD3.5-large int4
+    over create_mesh(1, 4) against the unsharded forward, the model drawn
+    from one seed on every rank) on the one card; the results saved to
+    ``root/rank{rank}.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = pathlib.Path(root)
+    init_distributed(f"file://{root / 'rendezvous'}", world, rank, device="cuda",
+                     backend="gloo")
+    kernels.library()
+    mesh = create_mesh(1, world, device="cuda", backend="gloo")
+    torch.cuda.reset_peak_memory_stats()
+    if world == 2:
+        t0 = time.perf_counter()
+        pipe = DiffusionPipeline(load=False, low_memory_mode=False, device="cuda",
+                                 model_version=SD35_LARGE, use_t5=False, quantize_mmdit="w4a8",
+                                 mesh=mesh)
+        for name, value in torch.load(root / "small.pt", weights_only=False).items():
+            setattr(pipe, name, value)
+        pipe.mmdit = model_io.load_mmdit_cache(root / "sd35.safetensors", SD35_LARGE,
+                                               torch.bfloat16, device="cpu")
+        gc.collect()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        text, seed = SD35_TP.requests[0]
+        cond, pooled = pipe.encode_text(text, SD35_TP.cfg)
+        kw = dict(num_steps=SD35_TP.steps, cfg_weight=SD35_TP.cfg, latent_size=SD35_TP.latent,
+                  seed=seed)
+        reset_counts()
+        collectives.stats.reset()
+        with recorded_routes(pipe.mmdit) as (seen, launched):
+            t0 = time.perf_counter()
+            latents, _ = pipe.denoise_latents(cond, pooled, **kw)
+            torch.cuda.synchronize()
+            denoise_s = time.perf_counter() - t0
+        model = pipe.mmdit
+        out = {"latents": latents.cpu(), "load_s": load_s,
+               "step_ms": 1e3 * denoise_s / SD35_TP.steps}
+    else:
+        cfg = dataclasses.replace(SD3_8b, depth_multimodal=X4_DEPTH,
+                                  hidden_size_override=SD3_8b.hidden_size,
+                                  upcast_multimodal_blocks=X4_UPCAST)
+        gen = torch.Generator(device="cuda").manual_seed(44)
+        model = init_mmdit(cfg, gen, "cuda", quantize_bits=4)
+        inputs = (torch.randn(2, *X4_LATENT, 16, generator=gen, device="cuda"),
+                  torch.randn(2, 154, 4096, generator=gen, device="cuda"),
+                  torch.randn(2, 2048, generator=gen, device="cuda"),
+                  torch.full((2,), 700.0, device="cuda"))
+        with torch.no_grad():
+            want = model(*inputs)
+            shard_module_(model, mesh)
+            reset_counts()
+            collectives.stats.reset()
+            with recorded_routes(model) as (seen, launched):
+                t0 = time.perf_counter()
+                got = model(*inputs, mesh=mesh)
+                torch.cuda.synchronize()
+        out = {"rel_l2": rel_l2(got, want), "finite": bool(torch.isfinite(got).all()),
+               "forward_s": time.perf_counter() - t0}
+    out.update(launches=counts(), collectives=collectives.stats.snapshot(), seen=seen,
+               route_launches={key: dict(c) for key, c in launched.items()},
+               holds_heads=model.mm_blocks[0].img.holds_heads(model.config.head_dim),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"  rank {rank} of {world}: done")
+    torch.save(out, root / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(args, world: int, root: pathlib.Path, timeout: int = 600) -> list:
+    """``world`` processes of this script, rank r given ``args`` then r and
+    ``root``, on the one card; waits for them (killing any left), echoes
+    their ``  rank`` lines, fails on a rank's failure and returns each
+    rank's ``root/rank{r}.pt``."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *args, str(r),
+                               str(root)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {world} failed (exit {p.returncode}):\n"
+                                 f"{out[-6000:]}")
+        for line in out.splitlines():
+            if line.startswith("  rank"):
+                log(line)
+    return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def sd35_tp_paths(pipe: DiffusionPipeline, scratch: str, tag: str) -> dict:
+    """Paths x and x4 (module docstring) after i: i's request 0 at
+    SD35_TP.steps steps unsharded (the reference), i's MMDiT written in the
+    cache format and CLIP-L/G with their tokenizers pickled, two gloo ranks
+    of this script for x and four for x4 (``sd35_tp_rank``). x: both ranks'
+    latents bit for bit, within TP_RTOL relative L2 of the reference; x4:
+    each rank's split forward within TP_RTOL of the whole one. Each route
+    ``off_kernel`` lists for the mode and rank count seen taken
+    (``recorded_routes``), and the kernels those routes reach launched
+    (the launch counters). Returns each path's launches (rank 0)."""
+    root = pathlib.Path(scratch) / "sd35_tp"
+    root.mkdir()
+    want, want_ms, _ = denoise_request(pipe, SD35_TP, use_scan=True)
+    t0 = time.perf_counter()
+    model_io.save_module_cache(pipe.mmdit, root / "sd35.safetensors")
+    torch.save({name: getattr(pipe, name) for name in ("clip_l", "clip_g", "tokenizer_l",
+                                                        "tokenizer_g")}, root / "small.pt")
+    write_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card
+    out = {}
+    for world, name, mode in ((2, SD35_TP.name, "w4a8"), (4, SD35_TP4, 4)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        sub = root / f"tp{world}"
+        sub.mkdir()
+        if world == 2:
+            (sub / "sd35.safetensors").symlink_to(root / "sd35.safetensors")
+            (sub / "small.pt").symlink_to(root / "small.pt")
+        t0 = time.perf_counter()
+        res = spawn_ranks(["--sd35-rank", str(world)], world, sub)
+        ranks_s = time.perf_counter() - t0
+        r0 = res[0]
+        entries = off_kernel(sd35_meta(mode), world)
+        missing = unseen_routes(entries, r0["seen"], not r0["holds_heads"]
+                                and r0["collectives"].get("all_gather", {}).get("calls", 0) > 0)
+        launches = r0["launches"]
+        log(f"  {name}: {world} gloo ranks in {ranks_s!r} s; off_kernel(SD3.5-large {mode}, "
+            f"{world}) lists {entries}; seen taken: "
+            f"{sorted(s for s in r0['seen'] if s[1] != 'whole')}; launches (rank 0) {launches}; "
+            f"collectives (rank 0) {r0['collectives']}; peak GiB a rank "
+            f"{[rr['peak_gib'] for rr in res]!r} [{tag}]")
+        if missing:
+            raise AssertionError(f"{name}: off-kernel routes not taken: {missing}")
+        if world == 2:
+            if not all(torch.equal(rr["latents"], r0["latents"]) for rr in res):
+                raise AssertionError("x: the two ranks' latents differ")
+            rl = rel_l2(r0["latents"], want)
+            log(f"  {name}: i's request 0 at {SD35_TP.steps} steps (of i's {SD35.steps}), CFG "
+                f"{SD35_TP.cfg}, 1024²; i's MMDiT written in {write_s!r} s, read and sharded in "
+                f"{[rr['load_s'] for rr in res]!r} s; {[rr['step_ms'] for rr in res]!r} ms/step "
+                f"(uncaptured, the schedule's total / n; i unsharded {want_ms!r}); both ranks' "
+                f"latents bit for bit, relative L2 {rl!r} against i's unsharded latents "
+                f"(tolerance {TP_RTOL}; bit for bit: {torch.equal(r0['latents'], want.cpu())}) "
+                f"[{tag}]")
+            if not rl < TP_RTOL:
+                raise AssertionError(f"x: the latents are off i's by more than {TP_RTOL}")
+            # q/k/v and o off E's shapes: E's arithmetic on #10's grid and
+            # #16 (o's input by the two-pass D); the FFN off E's fused modes
+            # ("tiles": the fused pair's arithmetic over the scale tile the
+            # two ranks share): fc1 on E's mode plain (#10 then #11, fp32
+            # out), its GELU and int8 hidden by gelu_quant[tiles], fc2's tile
+            # parts on #10's grid and #16; the fused modes and #4 never.
+            need = ("w4a8_matmul[mat]", "dequant_w8", "w8_matmul", "w8_matmul[f32]",
+                    "quantize[two-pass]", "int8_dot", "w4a8_matmul[gemv]",
+                    "flash_attention_bshd", "gelu_quant[tiles]")
+            never = ("w4a8_matmul[gelu_quant]", "w4a8_matmul[grouped_xs]",
+                     "w4a8_matmul[norm_rope]", "gelu_quantize", "gelu_quantize[two-pass]")
+            # Each off-kernel route's own calls launched its kernels.
+            by_route = {entry: r0["route_launches"].get(
+                (entry.split(": ")[0], entry.split(": ")[1].split(", ")[0]), {})
+                for entry in entries if "dequant_linear" in entry}
+            by_route["ffn: tiles"] = r0["route_launches"].get(("ffn", "fc1"), {})
+            want_route = {entry: ("dequant_w8", "int8_dot") for entry in by_route}
+            want_route["ffn: tiles"] = ("w4a8_matmul[mat]", "gelu_quant[tiles]", "dequant_w8",
+                                        "int8_dot")
+            log(f"  {name}: launches inside each off-kernel route's calls (rank 0): "
+                f"{by_route} [{tag}]")
+            for entry, kinds in want_route.items():
+                short = [k for k in kinds if by_route[entry].get(k, 0) == 0]
+                if short:
+                    raise AssertionError(f"{name}: {entry} launched no {short}")
+        else:
+            rls = [rr["rel_l2"] for rr in res]
+            log(f"  {name}: one CFG forward at {8 * X4_LATENT[0]}² of SD3.5-large int4 "
+                f"({X4_DEPTH} blocks, block {X4_UPCAST[0]} fp32, full width) over "
+                f"create_mesh(1, 4): relative L2 "
+                f"against the unsharded forward {rls!r} (tolerance {TP_RTOL}); "
+                f"{[rr['forward_s'] for rr in res]!r} s a forward [{tag}]")
+            if not all(rr["finite"] and rr["rel_l2"] < TP_RTOL for rr in res):
+                raise AssertionError("x4: the split forward is off the whole one")
+            # o gathered onto C (its bf16 and fp32 forms), heads gathered.
+            need, never = ("int4_matmul", "int4_matmul[f32]", "mod_ln"), ()
+        for k in need:
+            if launches[k] == 0:
+                raise AssertionError(f"{name}: {k} was launched no time")
+        for k in never:
+            if launches[k] != 0:
+                raise AssertionError(f"{name}: {k} launched {launches[k]} times, expected none")
+        out[name] = launches
+    return out
+
+
+
+
 def main() -> None:
     log("phase 1: card")
     if not torch.cuda.is_available():
@@ -5505,8 +5977,12 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     log("phase 3-4h: the two-pass D and #4 (rows split over tensor-parallel ranks) against "
-        "their one-pass kernels on the card, and both forms' device times")
+        "their one-pass kernels on the card, and both forms' device times; E's gelu_quant "
+        "over scale tiles split between ranks against E's on the whole hidden")
     w_errs, w_times = two_pass_kernels(gen, tag)
+    errs.update(w_errs)
+    times.update(w_times)
+    w_errs, w_times = tile_kernels(tag)
     errs.update(w_errs)
     times.update(w_times)
     torch.cuda.empty_cache()
@@ -5530,6 +6006,19 @@ def main() -> None:
     f16_cast_check(scratch.name)
     packed_final_layer_check(gen)
     torch.cuda.empty_cache()
+    log(f"phase 5, T5 outlier A/B: tools/t5_outlier_ab.run, T5-XXL (random weights at HF T5's "
+        f"scales) with {t5_outlier_ab.N_OUT} residual channels x{t5_outlier_ab.FACTOR}, w8a8 "
+        f"with and without the SmoothQuant fold against bf16")
+    t0 = time.perf_counter()
+    ab = t5_outlier_ab.run(device="cuda")
+    log(f"  encoder-output SNR on the non-outlier channels: w8a8 plain {ab['w8a8_plain']!r} dB, "
+        f"smoothed {ab['w8a8_smooth']!r} dB, margin {ab['margin_db']!r} dB (gate 3 dB, the JAX "
+        f"package's tests/test_smoothquant.py); on all channels {ab['w8a8_plain_all_channels']!r}"
+        f" / {ab['w8a8_smooth_all_channels']!r} dB; {time.perf_counter() - t0!r} s [{tag}]")
+    if not ab["margin_db"] >= 3.0:
+        raise AssertionError(f"T5 outlier A/B: the fold's margin {ab['margin_db']} dB is under 3")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     families, walls = {}, {}
     pipe = None
@@ -5545,7 +6034,8 @@ def main() -> None:
             ("t", SD35_W4A8_MIXED, build_sd35_converted("w4a8-mixed"), True),
             ("u", SD35_INT8, build_sd35_converted("int8"), True),
             ("v", SD35_W8A8, build_sd35_converted("w8a8"), True),
-            ("j", FLUX_DEV_PATH, build_flux_dev, True))
+            ("j", FLUX_DEV_PATH, build_flux_dev, True),
+            ("w", FLUX_DEV_GPTQ, build_flux_dev_gptq, True))
     for letter, path, build, reuse in plan:
         if not reuse:
             pipe = None
@@ -5563,6 +6053,14 @@ def main() -> None:
         log(f"phase 7{letter}: where a {path.name} step's device time goes (torch.profiler)")
         families[path.name] = profile_steps(pipe, path, served["step_ms"], served["loop_ms"], tag)
         walls[path.name] = (served["step_ms"], served["loop_ms"])
+        if path is FLUX_DEV_GPTQ:
+            log(f"phase 6w, checks: {path.name} against its bf16 twin, and GPTQ against ALS")
+            flux_dev_gptq_checks(pipe, served, tag)
+        if path is SD35:
+            log(f"phase 6x/6x4: main paths {SD35_TP.name} (i's models over create_mesh(1, 2)) "
+                f"and {SD35_TP4} (SD3.5-large int4 over create_mesh(1, 4)), gloo processes on "
+                f"the one card")
+            launches.update(sd35_tp_paths(pipe, scratch.name, tag))
         if path is FLUX_E2E:
             log(f"phase 6q: main path {FLUX_SERVE.name}: path f's pipeline behind "
                 f"GenerationServer(max_batch=8) on an HTTP server at 127.0.0.1 in this process "
@@ -5650,6 +6148,8 @@ def main() -> None:
             "shape": first["shape"], "shapes": times[name],
         })
     scratch.cleanup()
+    log(f"  the whole smoke: {time.perf_counter() - STARTED!r} s, the kernels' build included "
+        f"[{tag}]")
     log(tag)
     log(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
@@ -5661,5 +6161,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:  # a rank of paths r and s, started by tp_paths
         tp_rank(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--sd35-rank"]:  # a rank of paths x and x4, by sd35_tp_paths
+        sd35_tp_rank(int(sys.argv[3]), int(sys.argv[2]), sys.argv[4])
     else:
         main()

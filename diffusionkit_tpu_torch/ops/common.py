@@ -31,6 +31,32 @@ result rounded once:
                                   rounding
   w4a8 FFN (fc2 grouped_xs)       E's fp32 output with no bias, summed in
                                   fp32, then the bias, one rounding
+  w4a8 at a local shape kernel E  as w4a8 on its kernels: #10's grid of
+  does not take                   the local rows, #16, #11's epilogue
+
+A split w4a8 FFN whose local hidden is not whole 512-column scale tiles
+(SD3.5-large's 9728 over 2 and 4 ranks) keeps the fused pair's arithmetic
+(``ffn_route`` "tiles"): fc1 on E in mode plain with an fp32 output, then
+E's gelu_quant epilogue in two passes (``fused_quant.tile_absmax`` and
+``tile_quantize``): each (row, tile)'s GELU absmax over this rank's part
+of the tile, the max all-reduced over the ranks that hold parts of it (one
+value a row and tile), the hidden quantized by it; then fc2's fp32 sum
+over the tiles in the unsharded order, as a chain over the ranks: a
+tile's int32 product on #16 at the rank where it starts (the other ranks'
+parts of it, the int8 hidden and weight columns, sent there), every
+rank's products at once, then each scaled by its tile's scale and added
+in turn, the running sum passed on from rank to rank, broadcast from the
+last, then ``* wscale + bias``:
+grouped_xs's result bit for bit, so the split FFN is the unsharded
+gelu_quant then grouped_xs.
+
+A column-parallel w4a8 linear at a local shape kernel E does not take
+(SD3.5-large's widths over 2 and 4 ranks, ROADMAP.md) keeps E's arithmetic
+the same way: its int8 activations (the input's ``ActQuant`` or D on the
+whole rows), #10's grid, the exact int32 product on #16, #11's epilogue;
+so the split model computes what the unsharded one does, as the
+reference's split runs the whole-shape kernel. Unsplit, such a shape
+takes ``dequant_linear`` (the reference's ``quantized_linear``).
 
 A "gathered" linear (a fan-in linear whose leaves the axis does not all
 divide) is whole on every rank and gathers its input first.
@@ -49,17 +75,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.collectives import all_gather, all_reduce_sum
-from .fused_quant import gelu_quantize, quantize_two_pass
+from ..parallel.collectives import all_gather, all_reduce_max, all_reduce_sum, broadcast, recv, send
+from .fused_quant import gelu_quantize, quantize_two_pass, tile_absmax, tile_quantize
 from .int4_matmul import (
     dequant_linear, dequantize_int4, dequantize_int8, int4_linear, int4_matmul, int8_linear,
     int8_matmul, kernel_takes,
 )
 from .quantized import QuantizedLinear
 from .w4a8_matmul import (
-    int8_dot, w4a8_ffn_eligible, w4a8_ffn_gelu, w4a8_linear, w4a8_w8, w8_epilogue,
+    SCALE_TILE, int8_dot, w4a8_ffn_eligible, w4a8_ffn_gelu, w4a8_linear, w4a8_matmul, w4a8_w8,
+    w8_epilogue,
 )
-from .w8a8 import ActQuant, W8A8Linear, needs_act_quant, w8a8_linear
+from .w8a8 import ActQuant, W8A8Linear, needs_act_quant, quantize_float, w8a8_linear
 
 
 def linear_route(layer: nn.Module) -> str:
@@ -68,7 +95,8 @@ def linear_route(layer: nn.Module) -> str:
     int8 weight-only), "#16 int32" and "#10 + #16 int32" (w8a8 and w4a8
     row-parallel: the int32 product summed over the group),
     "dequant_linear" (a packed shape its kernels do not take,
-    ``kernel_takes``), or "F.linear" (float)."""
+    ``kernel_takes``; a split w4a8 linear there keeps E's arithmetic on
+    #10 and #16, module docstring), or "F.linear" (float)."""
     row = getattr(getattr(layer, "tp", None), "kind", None) == "row"
     if isinstance(layer, W8A8Linear):
         return "#16 int32" if row else "#11"
@@ -142,10 +170,29 @@ def _partial_fp32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.linear(x2.float(), w.float())
 
 
+def _split_w4a8_off_kernel(layer: nn.Module, route: str) -> bool:
+    """A column- or row-parallel w4a8 linear at a local shape its kernels
+    do not take (module docstring)."""
+    return (route == "dequant_linear" and layer.wscale is not None
+            and getattr(layer, "tp", None) is not None and layer.tp.kind in ("col", "row"))
+
+
+def _w4a8_off_kernel(layer: nn.Module, x, act: Optional[str] = None) -> torch.Tensor:
+    """A column-parallel w4a8 linear off E's shapes: E's arithmetic on #10's
+    grid and #16, on x's int8 rows (module docstring)."""
+    aq = x if isinstance(x, ActQuant) else quantize_float(x)
+    lead, k = aq.shape[:-1], aq.shape[-1]
+    acc = int8_dot(aq.x8.reshape(-1, k), w4a8_w8(layer.q4, layer.scales, layer.zeros,
+                                                  layer.wscale))
+    y = w8_epilogue(acc, aq.xscale.reshape(-1, 1), layer.wscale, layer.bias, aq.dtype)
+    y = y.reshape(*lead, y.shape[-1])
+    return F.gelu(y) if act == "gelu" else y
+
+
 def _row_linear(layer: nn.Module, x, group) -> torch.Tensor:
     """A row-parallel linear on this rank's features (module docstring)."""
     route = linear_route(layer)
-    if route.endswith("#16 int32"):
+    if route.endswith("#16 int32") or _split_w4a8_off_kernel(layer, route):
         aq = x if isinstance(x, ActQuant) else quantize_two_pass(x, group)
         lead, k = aq.shape[:-1], aq.shape[-1]
         if isinstance(layer, W8A8Linear):
@@ -184,6 +231,8 @@ def _whole_linear(layer: nn.Module, x, act: Optional[str] = None) -> torch.Tenso
     if route == "#11":
         return w8a8_linear(layer, x, act)
     if route == "dequant_linear":
+        if _split_w4a8_off_kernel(layer, route):
+            return _w4a8_off_kernel(layer, x, act)
         return dequant_linear(layer, x.to_float() if isinstance(x, ActQuant) else x, act)
     if route == "E":
         return w4a8_linear(layer, x, act)
@@ -230,6 +279,8 @@ def ffn_gelu(fc1: nn.Module, fc2: nn.Module, x) -> torch.Tensor:
     route, tp2 = ffn_route(fc1, fc2), getattr(fc2, "tp", None)
     if route == "fused":
         return w4a8_ffn_gelu(fc1, fc2, x, None if tp2 is None else tp2.group)
+    if route == "tiles":
+        return _w4a8_ffn_tiles(fc1, fc2, x)
     if route == "#4":
         h = linear(fc1, x)
         split = tp2 is not None and tp2.kind != "col"
@@ -239,14 +290,87 @@ def ffn_gelu(fc1: nn.Module, fc2: nn.Module, x) -> torch.Tensor:
 
 def ffn_route(fc1: nn.Module, fc2: nn.Module) -> str:
     """Where ``ffn_gelu`` sends fc1 -> GELU -> fc2 as they lie on this rank:
-    "fused" (``w4a8_ffn_gelu``), "#4" (fc1, kernel #4 or its two-pass form,
-    fc2) or "float" (the GELU on fc1's float output); the 128 rule reads
-    fc1's whole width."""
+    "fused" (``w4a8_ffn_gelu``), "tiles" (a split w4a8 pair whose local
+    hidden is not whole scale tiles: ``_w4a8_ffn_tiles``, module
+    docstring), "#4" (fc1, kernel #4 or its two-pass form, fc2) or "float"
+    (the GELU on fc1's float output); the 128 rule reads fc1's whole
+    width."""
     tp1 = getattr(fc1, "tp", None)
     width = fc1.out_features * (tp1.n if tp1 is not None and tp1.kind == "col" else 1)
     if needs_act_quant(fc2) and width % 128 == 0:
-        return "fused" if w4a8_ffn_eligible(fc1, fc2) else "#4"
+        if w4a8_ffn_eligible(fc1, fc2):
+            return "fused"
+        if (tp1 is not None and tp1.kind == "col" and width % SCALE_TILE == 0
+                and linear_route(fc1) == "E" and linear_route(fc2) == "#10 + #16 int32"
+                and SCALE_TILE % fc2.group_size == 0 and fc1.out_features % 64 == 0):
+            return "tiles"
+        return "#4"
     return "float"
+
+
+def _w4a8_ffn_tiles(fc1: nn.Module, fc2: nn.Module, x) -> torch.Tensor:
+    """``ffn_gelu``'s "tiles" route (module docstring): fc1 column-, fc2
+    row-parallel w4a8 over fc1's group, the hidden's scale tiles split
+    between ranks."""
+    tp = fc1.tp
+    aq = x if isinstance(x, ActQuant) else quantize_float(x)
+    lead, k = aq.shape[:-1], aq.shape[-1]
+    x8 = aq.x8.reshape(-1, k)
+    n1 = fc1.out_features
+    bias1 = None if fc1.bias is None else fc1.bias.float()
+    g = w4a8_matmul(x8, fc1.q4, fc1.scales, fc1.zeros, fc1.wscale, aq.xscale.reshape(-1, 1),
+                    bias1, out_dtype=torch.float32)
+    start = tp.index * n1
+    amax = all_reduce_max(tile_absmax(g, start, tp.n * n1 // SCALE_TILE), tp.group)
+    h8, hs = tile_quantize(g, amax, start)
+    w8 = w4a8_w8(fc2.q4, fc2.scales, fc2.zeros, fc2.wscale)
+    y = _tile_chain(h8, w8, hs, start, tp) * fc2.wscale.float()
+    if fc2.bias is not None:
+        y = y + fc2.bias.float()
+    return y.to(aq.dtype).reshape(*lead, y.shape[-1])
+
+
+def _tile_chain(h8: torch.Tensor, w8: torch.Tensor, hs: torch.Tensor, start: int,
+                tp) -> torch.Tensor:
+    """grouped_xs's fp32 sum over the scale tiles in their order, split
+    over ``tp``'s ranks, each holding the hidden's columns (and fc2's rows)
+    from ``start``: this rank's part of a tile that starts on an earlier
+    rank goes there (the int8 columns of the hidden and of the weight);
+    the tiles that start here take their int32 products on #16 (with the
+    later ranks' parts), all ranks' at once; then the running sum comes
+    from the previous rank, adds this rank's tiles in order and goes on to
+    the next; the last rank's sum is broadcast to all."""
+    n1 = h8.shape[1]
+    owner = lambda t: (t * SCALE_TILE) // n1  # noqa: E731  the rank where tile t starts
+    first, last = start // SCALE_TILE, (start + n1 - 1) // SCALE_TILE
+    if owner(first) != tp.index:
+        hi = min((first + 1) * SCALE_TILE, start + n1) - start
+        send(h8[:, :hi], owner(first), tp.group)
+        send(w8[:, :hi], owner(first), tp.group)
+    m, n2 = h8.shape[0], w8.shape[0]
+    parts = []
+    for t in range(first, last + 1):
+        if owner(t) != tp.index:
+            continue
+        lo, end = t * SCALE_TILE - start, (t + 1) * SCALE_TILE - start
+        xs, ws = [h8[:, lo:min(end, n1)]], [w8[:, lo:min(end, n1)]]
+        src = tp.index
+        while end > (src + 1 - tp.index) * n1 and src + 1 < tp.n:  # the later ranks' parts
+            src += 1
+            k = min(end - (src - tp.index) * n1, n1)
+            xs.append(recv((m, k), torch.int8, h8.device, src, tp.group))
+            ws.append(recv((n2, k), torch.int8, h8.device, src, tp.group))
+        parts.append((t, int8_dot(torch.cat(xs, dim=1).contiguous(),
+                                  torch.cat(ws, dim=1).contiguous())))
+    if tp.index:
+        acc = recv((m, n2), torch.float32, h8.device, tp.index - 1, tp.group)
+    else:
+        acc = torch.zeros((m, n2), dtype=torch.float32, device=h8.device)
+    for t, part in parts:
+        acc = acc + part.float() * hs[:, t:t + 1]
+    if tp.index + 1 < tp.n:
+        send(acc, tp.index + 1, tp.group)
+    return broadcast(acc, tp.n - 1, tp.group)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:

@@ -16,6 +16,12 @@ Four kernels of ``csrc/mod_ln.cu``, each replacing a Pallas kernel of
   tanh) GELU of fc1's output quantized per row for fc2, in every w8a8 FFN
   and any w4a8 FFN the fused kernel-E chain does not take.
 
+Beside them, two-pass forms for rows split over tensor-parallel ranks:
+D's and #4's (``row_absmax``, ``quantize_amax``), and kernel E's
+gelu_quant epilogue over 512-column scale tiles that straddle ranks
+(``tile_absmax``, ``tile_quantize``: a split w4a8 FFN whose local hidden
+is not whole tiles).
+
 Each reads its rows once and keeps them in registers, with 16-byte
 accesses: A one block a row; A' and D a warp (or a few) a row, several
 rows a block, every load issued before the first reduction; #4, which is
@@ -32,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .w4a8_matmul import gelu_as
+from .w4a8_matmul import SCALE_TILE, _div, gelu_as
 from .w8a8 import ActQuant, quantize_activations
 
 _KERNELS = {torch.bfloat16: "dk_mod_ln_bf16", torch.float32: "dk_mod_ln_f32"}
@@ -205,6 +211,100 @@ def quantize_two_pass(y: torch.Tensor, group, form=None) -> ActQuant:
     y = y.contiguous()
     amax = all_reduce_max(row_absmax(y, form), group)
     return quantize_amax(y, amax, form)
+
+
+def _hidden_tiles(n: int, col0: int, device) -> torch.Tensor:
+    """The global scale tile of each of a rank's n hidden columns from
+    ``col0``."""
+    return torch.arange(col0, col0 + n, device=device) // SCALE_TILE
+
+
+def _local_tiles(n: int, col0: int) -> slice:
+    """The global tiles a rank's n hidden columns from ``col0`` touch."""
+    return slice(col0 // SCALE_TILE, (col0 + n - 1) // SCALE_TILE + 1)
+
+
+def tile_absmax_plain(g: torch.Tensor, col0: int, n_tiles: int) -> torch.Tensor:
+    """Plain torch ``tile_absmax``: the max |GELU| (``gelu_as``) of each row
+    of g over its columns in each scale tile, fp32 (M, n_tiles), 0 in the
+    tiles g holds no column of."""
+    v = gelu_as(g.float()).abs()
+    amax = torch.zeros((g.shape[0], n_tiles), dtype=torch.float32, device=g.device)
+    return amax.scatter_reduce_(1, _hidden_tiles(g.shape[1], col0, g.device).expand_as(v), v,
+                                "amax")
+
+
+def tile_quantize_plain(g: torch.Tensor, amax: torch.Tensor, col0: int):
+    """Plain torch ``tile_quantize``: E's gelu_quant grid on the group's
+    tile absmaxes, ``(y8, yscale)``: ``a = max(amax, 1e-8)``, ``y8 =
+    clip(rne(GELU(g) * (127 / a)))`` by tile, ``yscale = a / 127`` in the
+    tiles g holds columns of, 0 elsewhere."""
+    n = g.shape[1]
+    a = amax.float().clamp_min(1e-8)
+    tile = _hidden_tiles(n, col0, g.device)
+    y8 = torch.round(gelu_as(g.float()) * _div(127.0, a)[:, tile]).clamp_(-127, 127)
+    yscale = torch.zeros_like(a)
+    local = _local_tiles(n, col0)
+    yscale[:, local] = a[:, local] / torch.full_like(a[:, local], 127.0)
+    return y8.to(torch.int8), yscale
+
+
+def _tile_launch(name: str, n_pass: int, g: torch.Tensor, amax: torch.Tensor, col0: int,
+                 y8=None, yscale=None) -> None:
+    if g.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {g.device}")
+    if g.dtype != torch.float32 or g.ndim != 2 or not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError(f"{name}: g must be contiguous fp32 (M, N), 16-byte aligned")
+    m, n = g.shape
+    if n % 4 or col0 % 4:
+        raise ValueError(f"{name}: N={n} and col0={col0} must be multiples of 4")
+    n_tiles = amax.shape[-1]
+    if amax.dtype != torch.float32 or amax.shape != (m, n_tiles) or not amax.is_contiguous() \
+            or amax.device != g.device or n_tiles * SCALE_TILE < col0 + n:
+        raise ValueError(f"{name}: amax must be contiguous fp32 (M, tiles) on {g.device}, the "
+                         f"tiles covering columns {col0} + {n}")
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    err = kernels.library().dk_tile_gelu_quantize(
+        n_pass, g.data_ptr(), amax.data_ptr(), ptr(y8), ptr(yscale), m, n, col0, SCALE_TILE,
+        n_tiles, kernels.stream_ptr(g.device))
+    kernels.check(err, name)
+
+
+def tile_absmax(g: torch.Tensor, col0: int, n_tiles: int) -> torch.Tensor:
+    """Pass 1 of E's gelu_quant epilogue over scale tiles split between
+    ranks: g (M, N) fp32, fc1's pre-GELU output on this rank, its column 0
+    the hidden's column ``col0``; returns each row's max |GELU| over its
+    columns in each of the hidden's ``n_tiles`` 512-column tiles, fp32 (M,
+    n_tiles), 0 in the tiles it holds no column of (the group's max
+    all-reduce then gives the whole tiles'). On the card N and col0
+    multiples of 4."""
+    if g.device.type == "cpu":
+        return tile_absmax_plain(g, col0, n_tiles)
+    amax = torch.zeros((g.shape[0], n_tiles), dtype=torch.float32, device=g.device)
+    if g.numel():
+        _tile_launch("tile_absmax", 1, g, amax, col0)
+        tile_absmax.launches += 1
+    return amax
+
+
+def tile_quantize(g: torch.Tensor, amax: torch.Tensor, col0: int):
+    """Pass 2: g's GELU on E's gelu_quant grid of the group's tile absmaxes
+    ``amax`` (M, n_tiles), ``(y8 (M, N) int8, yscale (M, n_tiles) fp32)``,
+    yscale 0 in the tiles g holds no column of; side by side over the
+    ranks, E's gelu_quant output on the whole hidden bit for bit. Takes
+    on the card what ``tile_absmax`` takes."""
+    if g.device.type == "cpu":
+        return tile_quantize_plain(g, amax, col0)
+    y8 = torch.empty(g.shape, dtype=torch.int8, device=g.device)
+    yscale = torch.zeros_like(amax)
+    if g.numel():
+        _tile_launch("tile_quantize", 2, g, amax, col0, y8, yscale)
+        tile_quantize.launches += 1
+    return y8, yscale
+
+
+tile_absmax.launches = 0
+tile_quantize.launches = 0
 
 
 def _check_mod_ln_args(name: str, x, shift, scale) -> None:

@@ -70,6 +70,7 @@ _SIGNATURES = {
     "dk_quantize_f32": [_P, _P, _P, _I, _I, _P],
     "dk_quantize_two_pass_bf16": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
     "dk_quantize_two_pass_f32": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
+    "dk_tile_gelu_quantize": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dk_w4a8_matmul": [_P] * 7 + [_I, _P] + [_I] * 5 + [_L, _I, _P, _P],
     "dk_w4a8_matmul_sm90": [_P] * 7 + [_I] + [_P] * 3 + [_I, _P, _I, _P] + [_I] * 5 + [_L, _F, _P],
     "dk_gptq_group": [_P, _P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _F, _P],

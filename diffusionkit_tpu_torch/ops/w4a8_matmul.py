@@ -633,13 +633,17 @@ def w4a8_w8(q4: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
     """A w4a8 layer's (N, K) int8 weight grid, kernel E's in-tile grid bit
     for bit: #10 on the layer's scales, zeros and wscale on the card (as
     mode plain's "mat" route launches it), ``dequant_w8_plain`` of
-    ``scaled_affine`` on the CPU. A row-parallel w4a8 linear runs #16 on
-    it (``ops/common.linear``)."""
+    ``scaled_affine`` on the CPU. A row-parallel w4a8 linear, and a split
+    one at a local shape E does not take, runs #16 on it
+    (``ops/common.linear``). On CUDA: K a multiple of 8, N of 8, the
+    groups dividing K (#10's rules, ``dequant_w8``)."""
     if q4.device.type == "cpu":
         return dequant_w8_plain(q4, *scaled_affine(scales, zeros, wscale))
     k8, n = q4.shape
     groups = scales.shape[0]
-    w4a8_kernel(SMALL_M + 1, 8 * k8, k8, n, groups, "plain", "mat")  # raises on what #10 refuses
+    if n % 8 or groups == 0 or (8 * k8) % groups:
+        raise ValueError(f"w4a8_w8: N={n} must be a multiple of 8 and the {groups} groups "
+                         f"must divide K={8 * k8}")
     dev = q4.device
     _contiguous_on("q4", q4, dev, torch.int32, (k8, n))
     _contiguous_on("scales", scales, dev, torch.float32, (groups, n))

@@ -12,8 +12,11 @@ Every function takes the process group of one mesh axis
 identity and issues nothing, so a one-rank mesh runs, and captures, as no
 mesh does. A gloo group carries CUDA tensors as they are when several
 ranks share a card: gloo (torch 2.11) takes all three collectives on CUDA
-tensors, staging them through the host itself, so nothing is staged here.
-A failed collective raises; nothing here catches it.
+tensors, staging them through the host itself, so nothing is staged here;
+its point-to-point ``send`` / ``recv`` (the split w4a8 FFN's chain of fp32
+partial sums, ``ops/common``) go through host copies, and ``broadcast``
+hands the chain's end to every rank. A failed collective raises; nothing
+here catches it.
 
 ``stats`` counts each call issued, its elements and its host seconds, by
 kind, and how many calls of each size (a small fixed set: the activation,
@@ -36,7 +39,7 @@ class Stats:
     """Calls, elements and host seconds of the collectives issued, by kind;
     ``sizes[kind]`` counts the calls of each element count."""
 
-    KINDS = ("all_reduce_sum", "all_reduce_max", "all_gather")
+    KINDS = ("all_reduce_sum", "all_reduce_max", "all_gather", "send", "broadcast")
 
     def __init__(self):
         self.reset()
@@ -101,3 +104,36 @@ def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = torch.cat(parts, dim=dim)
     stats.record("all_gather", out.numel(), time.perf_counter() - t0)
     return out
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """The group's rank ``src``'s t on every rank, in place; returns t."""
+    if group_size(group) == 1:
+        return t
+    t0 = time.perf_counter()
+    if not t.is_contiguous():
+        raise ValueError("broadcast: the tensor must be contiguous")
+    dist.broadcast(t, dist.get_global_rank(group, src), group=group)
+    stats.record("broadcast", t.numel(), time.perf_counter() - t0)
+    return t
+
+
+def _staged(t: torch.Tensor, group) -> torch.Tensor:
+    """t as this group's point-to-point calls take it: on the host for a
+    gloo group."""
+    return t.cpu() if t.is_cuda and dist.get_backend(group) == "gloo" else t
+
+
+def send(t: torch.Tensor, dst: int, group) -> None:
+    """t to the group's rank ``dst``; returns when it is sent."""
+    t0 = time.perf_counter()
+    dist.send(_staged(t.contiguous(), group), dist.get_global_rank(group, dst), group=group)
+    stats.record("send", t.numel(), time.perf_counter() - t0)
+
+
+def recv(shape, dtype: torch.dtype, device, src: int, group) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` from the group's rank ``src``, on
+    ``device``."""
+    buf = _staged(torch.empty(shape, dtype=dtype, device=device), group)
+    dist.recv(buf, dist.get_global_rank(group, src), group=group)
+    return buf.to(device)

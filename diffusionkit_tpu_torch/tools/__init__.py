@@ -22,6 +22,14 @@ given ``--device cpu``):
 
     python -m diffusionkit_tpu_torch.tools.quant_quality [--steps 10] [--size 512] [--modes ...]
 
+``profile_step`` and ``t5_outlier_ab`` (the counterparts of the JAX repo's
+``tools/profile_step.py`` and ``tools/t5_outlier_ab.py``: one denoise
+step's device time by kernel category, and the SmoothQuant fold's A/B at
+the T5 encoder's output):
+
+    python -m diffusionkit_tpu_torch.tools.profile_step [sd3|flux-int4|flux-w4a8|sd35-w4a8] [out.json]
+    python -m diffusionkit_tpu_torch.tools.t5_outlier_ab [out.json]
+
 The first two have ``run(M, K, N, iters, device="cuda")``, which returns its rows,
 and ``main``, which prints them. A row is timed as the reference times it:
 a chain of ``iters`` calls, each fed the previous call's output through

@@ -64,12 +64,29 @@ def run(mode, steps, latent_hw, device="cuda", stats: Optional[dict] = None, **p
     return np.asarray(img, np.float32), time.time() - t0
 
 
+def t5_outlier_channels(d_model: int, n_channels: int) -> np.ndarray:
+    """The residual-stream channels the injection makes hot."""
+    return np.random.RandomState(7).choice(d_model, n_channels, replace=False)
+
+
+def inject_t5_outliers(model, n_channels: int, factor: float) -> np.ndarray:
+    """``n_channels`` residual-stream channels of a T5 made ``factor``
+    times hotter, in place (the embedding's columns and every layer's
+    ``wo`` output rows), as a trained T5-XXL has a few channels one or two
+    orders of magnitude above the rest: what per-token int8 clips. Returns
+    the channels."""
+    channels = t5_outlier_channels(model.wte.weight.shape[1], n_channels)
+    idx = torch.as_tensor(channels, device=model.wte.weight.device)
+    with torch.no_grad():
+        model.wte.weight[:, idx] *= factor
+        for layer in model.layers:
+            layer.wo.weight[idx, :] *= factor
+    return channels
+
+
 def _install_t5_outlier_injection(n_channels: int, factor: float):
-    """Wrap ``model_io.load_t5_encoder`` so the loaded T5 gets ``n_channels``
-    residual-stream channels ``factor`` times hotter (the embedding's
-    columns and every layer's ``wo`` output rows), as a trained T5-XXL has
-    a few channels one or two orders of magnitude above the rest: what
-    per-token int8 clips. Both the bf16 and the w8a8 run get the same
+    """Wrap ``model_io.load_t5_encoder`` so the loaded T5 gets
+    ``inject_t5_outliers``. Both the bf16 and the w8a8 run get the same
     injection, so their PSNR isolates the quantization. The T5's cache is
     turned off (its key is the untouched file's); the MMDiT's stays."""
     from .. import model_io
@@ -78,13 +95,7 @@ def _install_t5_outlier_injection(n_channels: int, factor: float):
 
     def load_with_outliers(dtype=torch.bfloat16, device="cuda"):
         model = orig(dtype, device=device)
-        d = model.wte.weight.shape[1]
-        channels = np.random.RandomState(7).choice(d, n_channels, replace=False)
-        idx = torch.as_tensor(channels, device=model.wte.weight.device)
-        with torch.no_grad():
-            model.wte.weight[:, idx] *= factor
-            for layer in model.layers:
-                layer.wo.weight[idx, :] *= factor
+        inject_t5_outliers(model, n_channels, factor)
         print(f"[t5-outliers] injected {n_channels} channels x{factor}", flush=True)
         return model
 

@@ -63,7 +63,10 @@ TINY_FLUX = JaxMMDiTConfig(depth_multimodal=2, depth_unified=2, num_heads=4,
                            pos_embed_type=JaxPE.PreSDPARope, rope_axes_dim=(16, 8, 8),
                            use_qk_norm=True, pooled_text_embed_dim=64,
                            token_level_text_embed_dim=96, dtype=jnp.float32)
-CONFIGS = {"sd3": TINY_SD3, "sd35": TINY_SD35, "flux": TINY_FLUX}
+# FLUX.1-dev: TINY_FLUX with the guidance embedder (tests/test_torch_loading.py's
+# FLUX_DEV_TINY), whose calibration site feeds it 3.5 on both sides.
+TINY_FLUX_DEV = dataclasses.replace(TINY_FLUX, guidance_embed=True)
+CONFIGS = {"sd3": TINY_SD3, "sd35": TINY_SD35, "flux": TINY_FLUX, "flux_dev": TINY_FLUX_DEV}
 CALIB = dict(batch=16, latent_hw=(16, 16))
 
 
@@ -316,7 +319,7 @@ def port_site_hessians(model, ev):
     return out
 
 
-@pytest.mark.parametrize("name", ["sd3", "sd35", "flux"])
+@pytest.mark.parametrize("name", ["sd3", "sd35", "flux", "flux_dev"])
 def test_mirror_matches_jax_and_the_forward(name):
     jcfg = CONFIGS[name]
     params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=3)
@@ -347,7 +350,7 @@ def reference_trees():
     saved = (jg.MIN_SIZE, jg.MIN_DIM)
     jg.MIN_SIZE, jg.MIN_DIM = 0, 1
     try:
-        for name in ("sd3", "flux"):
+        for name in ("sd3", "flux", "flux_dev"):
             jcfg = CONFIGS[name]
             params = randomize(init_mmdit_params(jax.random.PRNGKey(0), jcfg), seed=9)
             host = jax.tree.map(lambda a: None if a is None else np.asarray(a), params,
@@ -365,7 +368,7 @@ def reference_trees():
 
 
 @pytest.mark.parametrize("mixed", [False, True], ids=["uniform", "mixed"])
-@pytest.mark.parametrize("name", ["sd3", "flux"])
+@pytest.mark.parametrize("name", ["sd3", "flux", "flux_dev"])
 def test_gptq_tree_matches_the_reference(name, mixed, reference_trees, monkeypatch):
     jcfg = CONFIGS[name]
     params, jax_gptq, jax_als = reference_trees[name, mixed]
@@ -384,6 +387,8 @@ def test_gptq_tree_matches_the_reference(name, mixed, reference_trees, monkeypat
         assert form["mm_blocks.0.img.q"] == 4 and form["t_embedder.fc1"] is None
     else:
         assert form["final_layer.ada"] == form["x_embedder"] == form["mm_blocks.0.img.ada"] == 4
+    if jcfg.guidance_embed:  # the guidance embedder as its siblings: float under -mixed
+        assert form["guidance_embedder.fc1"] == form["t_embedder.fc1"] == (None if mixed else 4)
     for m in model.modules():
         if isinstance(m, tq.QuantizedLinear):
             assert torch.equal(m.scales, m.scales.half().float())

@@ -1975,6 +1975,39 @@ def test_two_pass_quantizers_are_the_one_pass_kernels(cuda, form, shape, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m, k, hidden", [(333, 2432, 9728), (77, 1024, 2560)])
+def test_tile_passes_are_e_gelu_quant(cuda, m, k, hidden):
+    """The tiles route's kernels (``tile_absmax``, ``tile_quantize``) on the
+    columns of E's fp32 mode-plain output split over 1, 2 and 4 ranks
+    (scale tiles straddling ranks), the absmaxes combined by max: E's
+    gelu_quant bytes side by side, and its scales in each rank's tiles,
+    bit for bit; the plain versions the same."""
+    from diffusionkit_tpu_torch.ops.fused_quant import (
+        tile_absmax, tile_absmax_plain, tile_quantize, tile_quantize_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(47)
+    layer = random_w4a8(k, hidden, 64, g, cuda)
+    x8 = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    xs = torch.rand(m, 1, generator=g, device=cuda) * 0.02
+    args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias.float())
+    want8, want_s = w4a8_matmul(*args, mode="gelu_quant")
+    y = w4a8_matmul(*args, out_dtype=torch.float32)
+    tiles = hidden // 512
+    for n in (1, 2, 4):
+        n1 = hidden // n
+        parts = [y[:, r * n1:(r + 1) * n1].contiguous() for r in range(n)]
+        for absmax, quant in ((tile_absmax, tile_quantize),
+                              (tile_absmax_plain, tile_quantize_plain)):
+            amax = torch.stack([absmax(t, r * n1, tiles) for r, t in enumerate(parts)]).amax(0)
+            got = [quant(t, amax, r * n1) for r, t in enumerate(parts)]
+            assert torch.equal(torch.cat([a for a, _ in got], dim=-1), want8), n
+            for r, (_, ys) in enumerate(got):
+                held = slice(r * n1 // 512, ((r + 1) * n1 - 1) // 512 + 1)
+                assert torch.equal(ys[:, held], want_s[:, held]), (n, r)
+
+
+@pytest.mark.gpu
 def test_quantize_graph_replays_are_bit_identical(cuda):
     g = torch.Generator(device=cuda).manual_seed(42)
     y = (torch.randn(2048, 1536, generator=g, device=cuda) * 3).bfloat16()

@@ -101,6 +101,8 @@ out = {}
 for name, case in job.get("forward", {}).items():
     mesh = create_mesh(*case["mesh"], device="cpu")
     model = shard_module_(copy.deepcopy(case["model"]), mesh)
+    for attr in case.get("keep_whole", ()):  # put back whole after the split
+        setattr(model, attr, copy.deepcopy(getattr(case["model"], attr)))
     d, r = axis_size(mesh, "data"), axis_index(mesh, "data")
     args = [a.chunk(d)[r] if case.get("split_batch") else a for a in case["inputs"]]
     collectives.stats.reset()
@@ -108,6 +110,9 @@ for name, case in job.get("forward", {}).items():
         y = model(*args, **case.get("kw", {}), **({"mesh": mesh} if case.get("mesh_kw") else {}))
     out[name] = {"out": y, "stats": collectives.stats.snapshot(),
                  "sizes": {k: dict(v) for k, v in collectives.stats.sizes.items()}}
+    if case.get("keep_whole"):  # the unsharded forward in this process, its threads
+        with torch.no_grad():
+            out[name]["whole"] = case["model"](*args)
 for name, case in job.get("rows", {}).items():
     mesh = create_mesh(*case["mesh"], device="cpu")
     holder = shard_module_(copy.deepcopy(case["holder"]), mesh)
@@ -259,6 +264,46 @@ def forward_job(mesh) -> dict:
 
 T5_TOKENS = np.asarray([[5, 3, 9, 1, 2, 8, 7, 4]], np.int32)
 
+# SD3.5-large's ratios at a tiny size: heads of 64 (6 heads: 3 a rank over
+# 2, a head and a half over 4, as 38 heads give 19 and 9.5), hidden 384
+# (192 a rank over 2: not a multiple of kernel E's 128-column tile, as 1216
+# is not), fc1 1536 (768 and 384 a rank: not a multiple of E's 512-column
+# scale tile, as 4864 is not), o's six group-64 scale rows (three a rank
+# over 2, not whole over 4, as 38 give 19 and 9.5), QK-norm, block 1 in fp32.
+# Its split linears take SD3.5-large's routes (off_kernel lists the same).
+SD35_RATIOS = JaxMMDiTConfig(depth_multimodal=3, num_heads=6, hidden_size_override=384,
+                             max_latent_resolution=16, use_qk_norm=True,
+                             upcast_multimodal_blocks=(1,), dtype=jnp.float32)
+SD35_TP_MODES = ["int4", "w4a8"]
+
+
+def sd35_tree(mode: str):
+    """SD35_RATIOS' JAX tree, its block linears drawn packed at group 64
+    (the 4-bit release's layout): int4, or w4a8 with its wscale."""
+    params = init_mmdit_params(jax.random.PRNGKey(0), SD35_RATIOS, quantize_bits=4)
+    params = randomize_packed(params, seed=22)
+    floats = {k: v for k, v in params.items() if k not in ("mm_blocks", "mm_final")}
+    params.update(randomize(floats, seed=23))
+    return jw.add_wscale_tree(params) if mode == "w4a8" else params
+
+
+# The float linears the plan splits in the MMDiT: their fp32 sums in another
+# order are a split model's only inexact steps.
+SPLIT_FLOATS = ("t_embedder", "y_embedder", "final_layer")
+
+
+def sd35_job(n: int) -> dict:
+    """The SD3.5-ratio forwards over a (1, n) mesh; w4a8 also with the split
+    float linears put back whole."""
+    job = {}
+    for mode in SD35_TP_MODES:
+        model = mmdit_from_jax(sd35_tree(mode), torch_config(SD35_RATIOS, tcfg.MMDiTConfig),
+                               device="cpu")
+        job[f"sd35-{mode}"] = {"model": model, "mesh": (1, n), "mesh_kw": True,
+                               "inputs": list(map(torch.from_numpy, mmdit_inputs(SD35_RATIOS)))}
+    job["sd35-w4a8-floats-whole"] = {**job["sd35-w4a8"], "keep_whole": SPLIT_FLOATS}
+    return job
+
 
 def t5_tree(mode: str):
     params = randomize(init_t5_params(jax.random.PRNGKey(0), TP_T5), seed=1)
@@ -342,14 +387,14 @@ def pipeline_job(sd3, flux, meshes) -> dict:
 
 @pytest.fixture(scope="module")
 def ranks2(tmp_path_factory, sd3_pipelines, flux_pipelines):  # noqa: F811
-    job = {"forward": forward_job((1, 2)), "rows": rows_job((1, 2)),
+    job = {"forward": {**forward_job((1, 2)), **sd35_job(2)}, "rows": rows_job((1, 2)),
            "pipeline": pipeline_job(sd3_pipelines, flux_pipelines, [(1, 2), (2, 1)])}
     return run_ranks(tmp_path_factory.mktemp("tp2"), 2, job)
 
 
 @pytest.fixture(scope="module")
 def ranks4(tmp_path_factory, sd3_pipelines, flux_pipelines):  # noqa: F811
-    job = {"forward": forward_job((2, 2)), "rows": rows_job((1, 4)),
+    job = {"forward": {**forward_job((2, 2)), **sd35_job(4)}, "rows": rows_job((1, 4)),
            "pipeline": pipeline_job(sd3_pipelines, flux_pipelines, [(2, 2)])}
     return run_ranks(tmp_path_factory.mktemp("tp4"), 4, job)
 
@@ -600,6 +645,62 @@ def test_mmdit_forward_on_a_2x2_mesh_matches_jax(ranks4, case, request):
     assert_forward(ranks4, *case, data=2, model=2, request=request)
 
 
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("mode", SD35_TP_MODES)
+def test_sd35_ratios_take_sd35_larges_routes(mode, n):
+    """SD35_RATIOS over n ranks leaves the same kernels and layouts as
+    SD3.5-large at full width (``off_kernel``)."""
+    bits = "w4a8" if mode == "w4a8" else 4
+    tiny = mmdit_from_jax(sd35_tree(mode), torch_config(SD35_RATIOS, tcfg.MMDiTConfig),
+                          device="cpu")
+    assert off_kernel(tiny, n) == off_kernel(meta_mmdit(tcfg.SD35_LARGE, bits), n) != []
+
+
+_SD35_WANT = {}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("mode", SD35_TP_MODES)
+def test_sd35_forward_split_matches_jax(ranks2, ranks4, mode, n, request):
+    """The SD3.5-ratio model split over (1, n), on the routes SD3.5-large's
+    split linears take (q/k/v and o off their kernels, heads gathered over
+    4, the w4a8 FFN unfused), against the JAX package's forward of the same
+    tree: int4 as the float cases (atol 2e-4, rtol 1e-4), w4a8 under the
+    reference's TPU dispatch up to int8 flips (``q90=3e-3``), and so against
+    the port's unsharded w4a8 forward. The split w4a8 linears off E's
+    shapes keep E's arithmetic and the split FFN the fused pair's, its fp32
+    sum over the scale tiles in the unsharded order (``ops/common``): with
+    the split float linears (the t / y embedders, the final layer's ada)
+    put back whole, the split forward is the whole one bit for bit; with
+    them split, their fp32 sums in another order flip an int8 step here and
+    there (0.15 % relative L2 from the whole forward over 2 and 4 ranks)."""
+    params = sd35_tree(mode)
+    inputs = mmdit_inputs(SD35_RATIOS)
+    outs = ranks2 if n == 2 else ranks4
+    if mode == "int4":
+        want = jax_sharded(params, SD35_RATIOS, inputs, 1, n)
+    else:
+        if "w4a8" not in _SD35_WANT:
+            dispatch = request.getfixturevalue("jax_tpu_dispatch")
+            _SD35_WANT["w4a8"] = np.asarray(apply_mmdit(params, SD35_RATIOS,
+                                                        *map(jnp.asarray, inputs)))
+            assert dispatch.count("plain") > 0
+        want = _SD35_WANT["w4a8"]
+        port = mmdit_from_jax(params, torch_config(SD35_RATIOS, tcfg.MMDiTConfig), device="cpu")
+        with torch.no_grad():
+            whole = port(*map(torch.from_numpy, inputs)).numpy()
+    assert np.abs(want).max() > 0.5
+    for out in outs:
+        got = out[f"sd35-{mode}"]["out"].numpy()
+        if mode == "int4":
+            np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
+        else:
+            assert_close_up_to_flips(got, want, q90=3e-3)
+            assert_close_up_to_flips(got, whole, q90=3e-3)
+            exact = out["sd35-w4a8-floats-whole"]
+            assert torch.equal(exact["out"], exact["whole"])
+
+
 def test_mmdit_ring_with_the_model_sharded_matches_jax(ranks2):
     """tests/test_torch_ring.py's two-rank MMDiT case (sdpa_impl="ring") with
     the model sharded too: each rank's heads gathered whole for the ring
@@ -784,6 +885,41 @@ def test_two_pass_plain_versions_are_the_one_pass_on_whole_rows(form, n):
         assert torch.equal(torch.cat([a.x8 for a in aqs], dim=-1), want.x8)
         for a in aqs:
             assert torch.equal(a.xscale, want.xscale) and a.out_dtype == dtype
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_tile_passes_are_e_gelu_quant_over_split_hidden(n):
+    """The tiles route's two passes (``tile_absmax``, ``tile_quantize``,
+    plain versions here) on each rank's columns of fc1's fp32 output (E's
+    mode plain), the absmaxes max-reduced over the ranks: E's gelu_quant
+    bytes side by side and its tile scales where each rank holds columns,
+    bit for bit. A hidden of 5 scale tiles, so over 2 and 4 ranks tiles
+    straddle ranks; a row of zeros and one with an outlier."""
+    from diffusionkit_tpu_torch.ops import w4a8_matmul as tw
+
+    gen = torch.Generator().manual_seed(7)
+    m, k, hidden, group = 6, 256, 5 * tw.SCALE_TILE, 64
+    x8 = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    x8[3] = 0
+    q4 = torch.randint(-2**31, 2**31, (k // 8, hidden), generator=gen, dtype=torch.int64).int()
+    scales = torch.rand(k // group, hidden, generator=gen) * 0.02 + 1e-3
+    zeros = -8.0 * scales
+    wscale = scales.amax(dim=0) * 8.0 / 127.0
+    xscale = torch.rand(m, 1, generator=gen) * 0.05
+    xscale[1] = 3.0
+    bias = torch.randn(hidden, generator=gen) * 0.1
+    args = (x8, q4, scales, zeros, wscale, xscale, bias)
+    want8, want_s = tw.w4a8_matmul_plain(*args, mode="gelu_quant")
+    g = tw.w4a8_matmul_plain(*args, out_dtype=torch.float32)
+    n1, tiles = hidden // n, hidden // tw.SCALE_TILE
+    parts = [g[:, r * n1:(r + 1) * n1].contiguous() for r in range(n)]
+    amax = torch.stack([tfq.tile_absmax(p, r * n1, tiles) for r, p in enumerate(parts)]).amax(0)
+    got = [tfq.tile_quantize(p, amax, r * n1) for r, p in enumerate(parts)]
+    assert torch.equal(torch.cat([y8 for y8, _ in got], dim=-1), want8)
+    for r, (_, ys) in enumerate(got):
+        held = slice(r * n1 // tw.SCALE_TILE, ((r + 1) * n1 - 1) // tw.SCALE_TILE + 1)
+        assert torch.equal(ys[:, held], want_s[:, held])
+        assert not ys[:, :held.start].any() and not ys[:, held.stop:].any()
 
 
 def test_two_pass_over_ranks_is_the_one_pass(ranks2, ranks4):

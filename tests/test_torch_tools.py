@@ -453,7 +453,8 @@ def test_bench_flash_leaves_the_tf32_setting_as_it_found_it(setting, monkeypatch
 
 
 # Kernel names as torch.profiler reports them, demangled and mangled, and
-# the family chip_smoke.py's device-time split files each under.
+# the family chip_smoke.py's device-time split (tools/profile_step.py's)
+# files each under.
 PROFILER_NAMES = [
     ("void (anonymous namespace)::flash_fwd_sm90<128, false>(CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, __nv_bfloat16*, int, long long, long long, long long, float)",
@@ -601,10 +602,12 @@ def chip_smoke():
 
 @pytest.mark.parametrize("name,family", PROFILER_NAMES)
 def test_chip_smoke_files_each_kernel_under_its_family(chip_smoke, name, family):
-    """chip_smoke.family, which splits a profiled step's device time by
-    kernel, on each flash and int8 GEMM instantiation's name (#14 on the
-    Hopper kernel is not #15 or kernel B, #16 on the Hopper GEMM not #11)."""
-    assert chip_smoke.family(name) == family
+    """The family chip_smoke.py's phase 7 splits a profiled step's device
+    time by (``tools/profile_step.family``, the one copy it calls), on each
+    flash and int8 GEMM instantiation's name (#14 on the Hopper kernel is
+    not #15 or kernel B, #16 on the Hopper GEMM not #11)."""
+    assert not hasattr(chip_smoke, "family")
+    assert chip_smoke.profile_step.family(name) == family
 
 
 PTXAS_LOG = """
