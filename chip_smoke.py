@@ -10,7 +10,8 @@ Phases, each raising on failure (the script then exits non-zero):
      from ptxas's report, failing on a C7512 ("wgmma serialized") or on a
      spill in the d=512 and 3xTF32 flash kernels, the Hopper main loops of
      kernels E, C and #13, the M <= 16 GEMVs of C, #13, E and #11, the row
-     kernels A', D and #4, #11's 64-deep Hopper loop or #10;
+     kernels A', D and #4, #11's 64-deep Hopper loop, #10 or the GPTQ
+     group step;
   3. each kernel against its plain torch version at the main paths' shapes,
      in bf16, against the plain math run in fp32 on the same bf16 inputs:
      mod_ln at the SD3 and FLUX shapes, flash attention at the SD3 shapes,
@@ -102,9 +103,11 @@ Phases, each raising on failure (the script then exits non-zero):
      1536) and a (12288, 3072) weight, each with H from correlated random
      rows, every group step against its plain version on the same inputs,
      bit for bit (codes, scales, zeros, err); each GPTQ timed with the
-     kernel and with the plain version; the group step at SD3's q/k/v,
-     those weights' and FLUX's q/k/v + fc1 widths timed beside its plain
-     version and its bytes bound;
+     kernel (with the phase timer off and on) and with the plain version,
+     the group loop's wall time a step beside its device spans; the group
+     step at gs 32, 64 and 128 at SD3's q/k/v, those weights' and FLUX's
+     q/k/v + fc1 widths timed beside its plain version (gs 32), its bytes
+     bound and (gs 32, in the log) the one-thread-a-column design's times;
   3-4h. the two-pass D and #4 (a row split over tensor-parallel ranks) at
      the split paths' shapes, D at (256, 5120) and (4352, 1536), #4 at
      (2048, 3072): on whole rows and over two halves (their absmaxes
@@ -2615,9 +2618,9 @@ def sd35_width_kernels(gen, tag: str, errs: dict, times: dict) -> None:
 
 
 # Phase 3-4g: whole GPTQs of these (in, out) weights, every group step held
-# against its plain version; then the group step (G, gs, N) timed at SD3's
-# q/k/v (3 x 1536), those weights' widths and FLUX's q/k/v + fc1 (3 x 3072 +
-# 12288).
+# against its plain version; then the group step (G, gs, N) timed at each
+# group size at SD3's q/k/v (3 x 1536), those weights' widths and FLUX's
+# q/k/v + fc1 (3 x 3072 + 12288).
 # Phase 3-4i: C and #13 with an fp32 output at the row-parallel shapes of
 # SD3-medium over two ranks: o (K 768) and fc2 (K 3072) at N 1536, at the
 # 512² image rows (2048) and the text rows (308), a ragged M, and the GEMV's
@@ -2682,7 +2685,11 @@ def f32out_kernels(gen, tag: str):
 
 
 GPTQ_WEIGHTS = [(6144, 1536), (12288, 3072)]
-GPTQ_STEPS = [(1, 32, 4608), (1, 32, 1536), (1, 32, 3072), (1, 32, 21504)]
+GPTQ_STEPS = [(1, gs, n) for gs in (32, 64, 128) for n in (4608, 1536, 3072, 21504)]
+# The first design's times (one thread a column; PERF.md's "XLA" row, run AB
+# on an H100 80GB HBM3 at 700 W), gs 32, by N: printed in the log beside the
+# new ones, kept out of the kernels line.
+GPTQ_THREAD_A_COLUMN_MS = {4608: 0.02784, 1536: 0.02733, 3072: 0.02724, 21504: 0.03034}
 GPTQ_CALIB_ROWS = 4096
 
 
@@ -2711,6 +2718,37 @@ def checked_group(counter: list):
     return step
 
 
+@contextlib.contextmanager
+def gptq_timed():
+    """``ops/gptq``'s seconds by phase while inside; the dict yielded holds
+    them after: ``phases`` (the device spans), ``loop`` (the group loops'
+    wall on the host clock) and ``steps`` (the group kernel's launches; a
+    path that resets the counts inside sets it from its own)."""
+    got = {}
+    gptq_ops.PHASE_SECONDS = {}
+    launches = gptq_group.launches
+    try:
+        yield got
+    finally:
+        phases, gptq_ops.PHASE_SECONDS = gptq_ops.PHASE_SECONDS, None
+        got["loop"] = phases.pop("loop", 0.0)
+        got["phases"], got["steps"] = phases, gptq_group.launches - launches
+
+
+def loop_note(timed: dict) -> str:
+    """The group loops' wall time a step (host clock, the phase timer's
+    events on) beside the device spans (CUDA events) of its group kernels
+    and tail GEMMs a step: where the spans fill less than the wall, the
+    device waited for the host's launches."""
+    steps, wall, phases = timed["steps"], timed["loop"], timed["phases"]
+    if not steps:
+        return "no group loop"
+    group, tail = phases.get("group", 0.0), phases.get("tail", 0.0)
+    return (f"{steps} group launches: loop wall {wall!r} s, {1e3 * wall / steps!r} ms a step; "
+            f"device spans: group {group!r} s ({1e3 * group / steps!r} ms a step), tail "
+            f"{tail!r} s ({1e3 * tail / steps!r} ms a step)")
+
+
 def gptq_kernel_phase(gen, tag: str):
     errs, times = {"gptq_group": []}, {"gptq_group": []}
     for k, n in GPTQ_WEIGHTS:
@@ -2721,25 +2759,39 @@ def gptq_kernel_phase(gen, tag: str):
         if steps[0] != k // 32:
             raise AssertionError(f"gptq_group: {steps[0]} group steps checked, {k // 32} expected")
         errs["gptq_group"].append(0.0)
+        # The kernel's GPTQ with the phase timer off and on (their walls'
+        # difference is the timer's own cost), then the plain version's.
         walls = {}
-        for label, step in (("kernel", gptq_group), ("plain", gptq_group_plain)):
+        for label, step in (("kernel", gptq_group), ("timed", gptq_group),
+                            ("plain", gptq_group_plain)):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = gptq_ops.gptq_quantize(w, H, 4, 32, group_step=step)
-            torch.cuda.synchronize()
-            walls[label] = (time.perf_counter() - t0, got)
-        same = all(torch.equal(a, b) for a, b in zip(walls["kernel"][1], walls["plain"][1]))
-        if not same:
-            raise AssertionError(f"GPTQ of ({k}, {n}): the kernel's result is not the plain one's")
-        log(f"  GPTQ of a ({k}, {n}) weight: {k // 32} group steps each bit for bit its plain "
+            with gptq_timed() if label == "timed" else contextlib.nullcontext({}) as timed:
+                t0 = time.perf_counter()
+                got = gptq_ops.gptq_quantize(w, H, 4, 32, group_step=step)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            walls[label] = (wall, got, timed)
+        for label in ("kernel", "timed"):
+            if not all(torch.equal(a, b) for a, b in zip(walls[label][1], walls["plain"][1])):
+                raise AssertionError(f"GPTQ of ({k}, {n}): the kernel's result is not the plain "
+                                     "one's")
+        timed, steps = walls["timed"][2], k // 32
+        untimed_loop = timed["loop"] - (walls["timed"][0] - walls["kernel"][0])
+        log(f"  GPTQ of a ({k}, {n}) weight: {steps} group steps each bit for bit its plain "
             f"version (codes, scales, zeros, err); whole GPTQ {walls['kernel'][0]!r} s with the "
-            f"kernel, {walls['plain'][0]!r} s with the plain version (the same codes) [{tag}]")
+            f"kernel ({walls['timed'][0]!r} s with the phase timer on), {walls['plain'][0]!r} s "
+            f"with the plain version (the same codes); timed: {loop_note(timed)}; the loop's wall "
+            f"less the timer's cost {1e3 * untimed_loop / steps!r} ms a step [{tag}]")
         del w, H, walls
         torch.cuda.empty_cache()
+    # The draws past gs 32's shapes come from a generator of their own, so
+    # the later phases' random models are those of earlier runs.
+    own = torch.Generator(device="cuda").manual_seed(25)
     for shape in GPTQ_STEPS:
         g, gs, n = shape
-        w = 0.02 * torch.randn(shape, generator=gen, device="cuda")
-        u = (torch.triu(torch.rand(gs, gs, generator=gen, device="cuda"), 1) * 0.1
+        draw = gen if gs == 32 else own
+        w = 0.02 * torch.randn(shape, generator=draw, device="cuda")
+        u = (torch.triu(torch.rand(gs, gs, generator=draw, device="cuda"), 1) * 0.1
              + torch.eye(gs, device="cuda")).expand(g, gs, gs)
         outs = tuple(torch.empty_like(t) for t in gptq_group_plain(w, u, 15))
         want = gptq_group_plain(w, u, 15)
@@ -2747,11 +2799,15 @@ def gptq_kernel_phase(gen, tag: str):
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"gptq_group at {shape}: not its plain version's")
         ms = device_ms(lambda: gptq_group(w, u, 15, outs))
-        plain = device_ms(lambda: gptq_group_plain(w, u, 15, outs))
+        # The plain version (gs python steps) timed at the main path's group
+        # size only.
+        plain = device_ms(lambda: gptq_group_plain(w, u, 15, outs)) if gs == 32 else None
+        before = GPTQ_THREAD_A_COLUMN_MS.get(n) if gs == 32 else None
         t = timing("gptq_group", shape, ms, plain)
         times["gptq_group"].append(t)
-        log(f"  gptq_group {shape}: {ms!r} ms, plain {plain!r} ms ({plain / ms!r}x), "
-            f"{bound_note(t)} [{tag}]")
+        was = f" (one thread a column: {before!r} ms)" if before else ""
+        vs = f"plain {plain!r} ms ({plain / ms!r}x), " if plain else ""
+        log(f"  gptq_group {shape}: {ms!r} ms{was}, {vs}{bound_note(t)} [{tag}]")
     return errs, times
 
 
@@ -3240,14 +3296,12 @@ def build_flux_e2e(gen, prev: FluxPipeline) -> FluxPipeline:
                               depth_unified=FLUX_GPTQ_DEPTH[1])
     model = init_mmdit(cfg, torch.Generator(device="cuda").manual_seed(19), "cuda")
     torch.cuda.synchronize()
-    gptq_ops.PHASE_SECONDS = {}
-    try:
+    with gptq_timed() as timed:
         t0 = time.perf_counter()
         pipe.mmdit = model
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    finally:
-        phases, gptq_ops.PHASE_SECONDS = gptq_ops.PHASE_SECONDS, None
+    phases = timed["phases"]
     if pipe.quantizer["name"] != "gptq":
         raise AssertionError(f"path f: the float FLUX MMDiT took {pipe.quantizer['name']}, "
                              "not GPTQ")
@@ -3259,7 +3313,8 @@ def build_flux_e2e(gen, prev: FluxPipeline) -> FluxPipeline:
     packed = sum(isinstance(m, QuantizedLinear) for m in model.modules())
     log(f"  float FLUX.1-schnell MMDiT ({cfg.depth_multimodal} + {cfg.depth_unified} blocks) "
         f"converted to w4a8 by GPTQ on the card in {seconds!r} s "
-        f"({packed} linears; by phase {phases}; the min/max grid took 1.02 s in an earlier "
+        f"({packed} linears; by phase {phases}; {loop_note(timed)}; "
+        f"the min/max grid took 1.02 s in an earlier "
         f"run on an NVIDIA H100 80GB HBM3 at 700 W)")
     del model, block
     pipe.mmdit = None
@@ -4391,10 +4446,9 @@ def gptq_sd3_path(ckpt: str, scratch: str, tag: str) -> dict:
         save(module, path)
         writes.append((time.perf_counter() - t0, path))
 
-    gptq_ops.PHASE_SECONDS = {}
     model_io.save_module_cache = timed_save
     try:
-        with env_set("DIFFUSIONKIT_TPU_CACHE_DIR", cache_dir):
+        with gptq_timed() as timed, env_set("DIFFUSIONKIT_TPU_CACHE_DIR", cache_dir):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -4434,7 +4488,7 @@ def gptq_sd3_path(ckpt: str, scratch: str, tag: str) -> dict:
             peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     finally:
         model_io.save_module_cache = save
-        phases, gptq_ops.PHASE_SECONDS = gptq_ops.PHASE_SECONDS, None
+    phases = timed["phases"]
     if out["quantizers"] != ["gptq", "cached"]:
         raise AssertionError(f"path p: quantizers {out['quantizers']}, expected gptq then cached")
     if len(kept) != 2 or kept[0].keys() != kept[1].keys() or not all(
@@ -4445,6 +4499,7 @@ def gptq_sd3_path(ckpt: str, scratch: str, tag: str) -> dict:
     if len(writes) != 1:
         raise AssertionError(f"path p: {len(writes)} cache writes, expected one")
     first, second = per
+    timed["steps"] = first["gptq_group"]
     if first["gptq_group"] == 0 or second["gptq_group"] != 0:
         raise AssertionError(f"path p: group kernel launches {first['gptq_group']} / "
                              f"{second['gptq_group']}, expected some / none")
@@ -4456,7 +4511,8 @@ def gptq_sd3_path(ckpt: str, scratch: str, tag: str) -> dict:
             raise AssertionError(f"path p: {name} was not launched")
     gptq_s = sum(phases.values())
     log(f"  {SD3_GPTQ.name}: quantizers gptq then cached, packed state and latents bit for bit, "
-        f"every block linear int4 on the f16 grid; GPTQ by phase {phases} ({gptq_s!r} s timed), "
+        f"every block linear int4 on the f16 grid; GPTQ by phase {phases} ({gptq_s!r} s timed; "
+        f"{loop_note(timed)}), "
         f"cache written in {writes[0][0]!r} s "
         f"({os.path.getsize(writes[0][1]) / 2**30!r} GiB), peak {peak!r} GiB above the "
         f"{base / 2**30!r} GiB allocated before it; launches {dict(first)} then "
@@ -4824,19 +4880,18 @@ def build_sd35_converted(mode: str):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        gptq_ops.PHASE_SECONDS = {}
         t0 = time.perf_counter()
-        try:
+        with gptq_timed() as timed:
             pipe.mmdit = model
             torch.cuda.synchronize()
-        finally:
-            phases, gptq_ops.PHASE_SECONDS = gptq_ops.PHASE_SECONDS, None
+        phases = timed["phases"]
         wall = time.perf_counter() - t0
         del model
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         q = pipe.quantizer
         log(f"  SD3.5-large {mode}: quantizer {q['name']!r} in {q['seconds']!r} s (the setter "
-            f"{wall!r} s); by phase {phases} ({sum(phases.values())!r} s timed); peak "
+            f"{wall!r} s); by phase {phases} ({sum(phases.values())!r} s timed; "
+            f"{loop_note(timed)}); peak "
             f"{peak!r} GiB above the {base / 2**30!r} GiB allocated before it, "
             f"{torch.cuda.memory_allocated() / 2**30!r} GiB after [{card()}]")
         want = "gptq" if mode == "w4a8-mixed" else {"int8": "minmax"}.get(mode, mode)
@@ -4925,9 +4980,8 @@ def build_flux_dev_gptq(gen, prev: FluxPipeline) -> FluxPipeline:
             f"{model_io.MMDIT_CKPT[FLUX_DEV_VERSION]} ({os.path.getsize(ckpt) / 2**30!r} GiB) "
             f"in {time.perf_counter() - t0!r} s")
         model_io.MMDIT_CONFIG[FLUX_DEV_VERSION] = cfg  # the file's depth
-        gptq_ops.PHASE_SECONDS = {}
         try:
-            with env_set("DIFFUSIONKIT_TPU_CKPT_DIR", root), \
+            with gptq_timed() as timed, env_set("DIFFUSIONKIT_TPU_CKPT_DIR", root), \
                     env_set("DIFFUSIONKIT_TPU_CACHE_DIR", os.path.join(root, "cache")):
                 torch.cuda.synchronize()
                 base = torch.cuda.memory_allocated()
@@ -4961,7 +5015,7 @@ def build_flux_dev_gptq(gen, prev: FluxPipeline) -> FluxPipeline:
                 cache_gib = [os.path.getsize(c) / 2**30 for c in caches]
         finally:
             model_io.MMDIT_CONFIG[FLUX_DEV_VERSION] = saved_cfg
-            phases, gptq_ops.PHASE_SECONDS = gptq_ops.PHASE_SECONDS, None
+        phases = timed["phases"]
     if quantizers != ["gptq", "cached"]:
         raise AssertionError(f"path w: quantizers {quantizers}, expected gptq then cached")
     if len(caches) != 1:
@@ -4969,6 +5023,7 @@ def build_flux_dev_gptq(gen, prev: FluxPipeline) -> FluxPipeline:
     if states[0].keys() != states[1].keys() or not all(
             torch.equal(states[0][k], states[1][k]) for k in states[0]):
         raise AssertionError("path w: the cached packed state is not the GPTQ one bit for bit")
+    timed["steps"] = per[0]["gptq_group"]
     if per[0]["gptq_group"] == 0 or per[1]["gptq_group"] != 0:
         raise AssertionError(f"path w: group kernel launches {per[0]['gptq_group']} / "
                              f"{per[1]['gptq_group']}, expected some / none")
@@ -4982,7 +5037,8 @@ def build_flux_dev_gptq(gen, prev: FluxPipeline) -> FluxPipeline:
         raise AssertionError("path w: a block linear or the guidance embedder is not w4a8")
     log(f"  {FLUX_DEV_GPTQ.name}: quantizers gptq then cached, the cached packed state the GPTQ "
         f"one bit for bit, every block linear and the guidance embedder w4a8; GPTQ by phase "
-        f"{phases} ({sum(phases.values())!r} s timed), {per[0]['gptq_group']} group steps; the "
+        f"{phases} ({sum(phases.values())!r} s timed; {loop_note(timed)}), "
+        f"{per[0]['gptq_group']} group steps; the "
         f"cache {cache_gib!r} GiB; peak {peak!r} GiB above the {base / 2**30!r} GiB allocated "
         f"before it [{card()}]")
     FLUX_DEV_TWIN.update(images=twin_images, float_model=float_model, gptq_images=images)
@@ -5096,11 +5152,13 @@ def profile_steps(pipe, path: Path, step_ms: float, loop_ms: float, tag: str) ->
 # C7512, "wgmma serialized"): the d = 512 wgmma kernel and its merge, the
 # 3xTF32 fp32 flash kernels, #14's 64-row kernel at d = 64, the Hopper main
 # loops of E, C and #13, the M <= 16 GEMVs of C, #13, E and #11, the row
-# kernels A', D and #4, #11's 64-deep Hopper loop and #10.
+# kernels A', D and #4, #11's 64-deep Hopper loop, #10 and the GPTQ group
+# step at every group size.
 NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32", "flash_fwd_sm90_stats64",
             "w4a8_mm_sm90", "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv",
             "w8_gemv", "mod_ln_quant_kernel", "quantize_kernel", "gelu_quantize_kernel",
-            "w8_mm_sm90_k64", "dequant_w8_kernel", "dequant_mm_3xtf32", "dequant_mm_f32")
+            "w8_mm_sm90_k64", "dequant_w8_kernel", "dequant_mm_3xtf32", "dequant_mm_f32",
+            "gptq_group_kernel")
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")

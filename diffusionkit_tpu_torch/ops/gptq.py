@@ -65,7 +65,9 @@ DAMP = 0.01
 
 # Seconds by phase ("mirror", "cholesky", "group", "tail") of the GPTQ runs
 # made while this is a dict (None: not timed). On the card each phase is
-# timed by CUDA events around its launches, read at the end of each kernel.
+# timed by CUDA events around its launches, read at the end of each kernel;
+# "loop" is the group loops' wall on the host clock, from the first launch
+# to the end of the last on the device (the events' own cost included).
 PHASE_SECONDS: Optional[Dict[str, float]] = None
 
 
@@ -271,6 +273,7 @@ def gptq_quantize(w: torch.Tensor, H: torch.Tensor, bits: int = 4, group_size: i
         s = torch.empty((groups, n), dtype=torch.float32, device=w.device)
         z = torch.empty_like(s)
         err = torch.empty((1, group_size, n), dtype=torch.float32, device=w.device)
+        loop_start = time.perf_counter()
         for g in range(groups):
             g0, g1 = g * group_size, (g + 1) * group_size
             group_step(w[g0:g1].view(1, group_size, n), U[g0:g1, g0:g1].unsqueeze(0), qmax,
@@ -282,6 +285,8 @@ def gptq_quantize(w: torch.Tensor, H: torch.Tensor, bits: int = 4, group_size: i
             t1 = timer.mark()
             timer.span("tail", t2, t1)
     timer.flush()
+    if timer.on and PHASE_SECONDS is not None:  # flush waited for the device
+        PHASE_SECONDS["loop"] = PHASE_SECONDS.get("loop", 0.0) + time.perf_counter() - loop_start
     return codes.reshape(k, n), s, z
 
 

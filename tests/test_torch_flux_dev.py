@@ -49,11 +49,10 @@ from diffusionkit_tpu_torch.tokenizer import CLIPTokenizer
 from test_pipeline import TinyT5Tokenizer, build_flux_pipeline, make_tiny_clip_tokenizer
 from test_torch_flux import with_unit_qk_scales
 from test_torch_gptq import kinds
+from test_torch_gptq import two_intra_op_threads  # noqa: F401 (a fixture)
 from test_torch_models import randomize, torch_config
 from test_torch_w4a8 import assert_close_up_to_flips
 from test_torch_w4a8 import jax_tpu_dispatch  # noqa: F401 (a fixture)
-
-torch.set_num_threads(2)
 
 WIDE_DEV = JaxMMDiTConfig(depth_multimodal=1, depth_unified=2, num_heads=2,
                           hidden_size_override=256, patchify_via_reshape=True,

@@ -52,7 +52,18 @@ from diffusionkit_tpu_torch.pipeline import DiffusionPipeline, FluxPipeline
 
 from test_torch_models import randomize, torch_config
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True, scope="module")
+def two_intra_op_threads():
+    """The module's tests on two intra-op threads, set and restored around
+    it, so that a pytest-xdist worker, which imports every test file first,
+    runs the other files on the count each of them sets (a count set at
+    import time would hold for whichever files the worker runs next)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 
 TINY_SD3 = JaxMMDiTConfig(depth_multimodal=3, num_heads=4, hidden_size_override=128,
                           pooled_text_embed_dim=64, token_level_text_embed_dim=96,

@@ -57,6 +57,20 @@ from diffusionkit_tpu_torch.ops.w4a8_matmul import (
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """Every test of this file on one intra-op thread, set and restored
+    around it: the line above runs when the module is imported, and a
+    pytest-xdist worker imports every test file before it runs any, so a
+    count set at import time by a later file would hold here. The CPU
+    comparisons below hold two calls of one fp32 function bit for bit."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # Main-path shapes of SD3-medium at 512² with CFG (batch 2): AdaLN sites on
 # the image (1024 tokens) and text (154 tokens) streams, the joint attention
 # (1024 + 154 tokens, 24 heads of 64) and the VAE mid-block (64x64 positions,
@@ -2356,12 +2370,109 @@ def test_gptq_group_kernel_is_its_plain_version(cuda, gs, qmax, identity):
     want = gptq_group_plain(w, u, qmax)
     torch.cuda.synchronize()
     assert gptq_group.launches == launches + 1
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert_gptq_bits(got, want)
     if identity and qmax == 15:
         k = 3 * gs
         for a, b in zip(als_grid(w.reshape(k, 333), gs), als_grid(w.reshape(k, 333).cpu(), gs)):
             assert torch.equal(a.cpu(), b)
+
+
+def assert_gptq_bits(got, want) -> None:
+    """The group step's four outputs equal bit for bit (the fp32 ones by
+    their bits, so a zero's sign counts too)."""
+    for a, b, label in zip(got, want, ("codes", "scales", "zeros", "err")):
+        assert a.dtype == b.dtype and a.shape == b.shape, label
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (label, int((a != b).sum()))
+
+
+def gptq_case(case: str, gs: int, g, cuda):
+    """(w, u) of one edge case of the group step (see its test)."""
+    def upper(k):
+        m = torch.triu(torch.rand(k, k, generator=g, device=cuda), 1) * 0.1
+        return m + torch.diag(0.5 + torch.rand(k, generator=g, device=cuda))
+
+    n = {"ragged-1": 1, "ragged-7": 7, "ragged-37": 37, "ragged-1000": 1000}.get(case, 200)
+    groups = 1 if case == "whole-u" else 3
+    w = 0.02 * torch.randn(groups, gs, n, generator=g, device=cuda)
+    if case == "whole-u":
+        # A diagonal block of a whole U, as gptq_quantize passes it: rows 4 gs
+        # apart, the block at an offset.
+        full = upper(4 * gs)
+        u = full[gs:2 * gs, gs:2 * gs].unsqueeze(0)
+        assert u.stride(1) == 4 * gs
+    elif case == "own-blocks":
+        u = torch.stack([upper(gs) for _ in range(groups)])
+    elif case == "als":
+        u = torch.eye(gs, device=cuda).expand(groups, gs, gs)
+        assert u.stride(0) == 0
+    else:
+        u = upper(gs).expand(groups, gs, gs)
+    if case == "constant-and-dead":
+        w[0, :, :40] = 0.37       # wmax = wmin: the 1e-8 scale
+        w[1, :, 40:80] = -0.0041  # constant and negative
+        w[2, ::3] = 0.0           # dead rows (zeroed inputs) among live ones
+        w[1, 5] = 0.0
+    if case == "special-values":
+        # Columns of tiny, subnormal, huge (a scale past 2^30) and mixed
+        # magnitudes: quotients near the ends of fp32's range.
+        w[:, :, :20] *= 1e-28
+        w[:, :, 20:40] *= 1e-38
+        w[:, :, 40:60] *= 1e27
+        w[:, ::2, 60:80] *= 1e-25
+        w[:, 1::2, 60:80] *= 1e15
+    return w, u
+
+
+GPTQ_CASES = ["ragged-1", "ragged-7", "ragged-37", "ragged-1000", "whole-u", "own-blocks", "als",
+              "constant-and-dead", "special-values"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("case", GPTQ_CASES)
+def test_gptq_group_kernel_edge_cases(cuda, gs, case):
+    """The group step's kernel against its plain version on the card, bit
+    for bit, at its edges: N not a multiple of a block's 32 columns or of a
+    warp's 8 (1, 7, 37, 1000); a diagonal block of a whole U (u_row_stride
+    4 gs, as gptq_quantize passes it); G = 3 with blocks of their own and
+    with one block repeated (group stride 0, the ALS grid); constant groups
+    (wmax = wmin) and zeroed rows; and w of tiny, subnormal and huge
+    magnitudes."""
+    from diffusionkit_tpu_torch.ops.gptq import gptq_group, gptq_group_plain
+
+    g = torch.Generator(device=cuda).manual_seed(gs + GPTQ_CASES.index(case))
+    for qmax in (15, 255):
+        w, u = gptq_case(case, gs, g, cuda)
+        launches = gptq_group.launches
+        got = gptq_group(w, u, qmax)
+        torch.cuda.synchronize()
+        assert gptq_group.launches == launches + 1
+        assert_gptq_bits(got, gptq_group_plain(w, u, qmax))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gs", [32, 64, 128])
+def test_gptq_quantize_on_card_is_plain_gptq(cuda, gs):
+    """A whole GPTQ on the card (H from correlated rows, dead inputs among
+    them) with the kernel as its group step equals the same GPTQ with the
+    plain version as its group step, bit for bit, with one launch a group."""
+    from diffusionkit_tpu_torch.ops import gptq
+
+    g = torch.Generator(device=cuda).manual_seed(gs)
+    k, n = 8 * gs, 300
+    w = 0.02 * torch.randn(k, n, generator=g, device=cuda)
+    x = torch.randn(1024, k, generator=g, device=cuda)
+    x += 0.5 * torch.randn(1024, 16, generator=g, device=cuda) @ torch.randn(
+        16, k, generator=g, device=cuda)
+    x[:, 3] = 0.0
+    H = x.t() @ x
+    launches = gptq.gptq_group.launches
+    got = gptq.gptq_quantize(w, H, 4, gs)
+    torch.cuda.synchronize()
+    assert gptq.gptq_group.launches == launches + k // gs
+    assert_gptq_bits(got, gptq.gptq_quantize(w, H, 4, gs, group_step=gptq.gptq_group_plain))
 
 
 @pytest.mark.gpu

@@ -11,9 +11,8 @@ import torch
 
 from diffusionkit_tpu_torch.tools import profile_step
 
+from test_torch_gptq import two_intra_op_threads  # noqa: F401 (a fixture)
 from test_torch_tools import PROFILER_NAMES
-
-torch.set_num_threads(2)
 
 ATTENTION = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 ROW = ("mod_ln", "mod_ln_quantize", "quantize", "gelu_quantize")

@@ -45,12 +45,11 @@ from diffusionkit_tpu_torch.tools import quant_quality as qq
 from diffusionkit_tpu_torch.utils import image_psnr
 
 import test_model_io as jt
+from test_torch_gptq import two_intra_op_threads  # noqa: F401 (a fixture)
 from test_torch_loading import SD3_PIPE, TINY_VAE, drawn
 from test_torch_loading import mirror  # noqa: F401 (a fixture)
 from test_torch_models import torch_config
 from test_torch_w4a8 import jax_tpu_dispatch  # noqa: F401 (a fixture)
-
-torch.set_num_threads(2)
 
 WIDE = dataclasses.replace(SD3_PIPE, hidden_size_override=256, num_heads=4,
                            max_latent_resolution=16)

@@ -34,11 +34,10 @@ from diffusionkit_tpu_torch.tokenizer import SyntheticT5Tokenizer
 from diffusionkit_tpu_torch.tools import t5_outlier_ab as ab_tool
 from diffusionkit_tpu_torch.tools.quant_quality import inject_t5_outliers, t5_outlier_channels
 
+from test_torch_gptq import two_intra_op_threads  # noqa: F401 (a fixture)
 from test_torch_models import randomize, torch_config
 from test_torch_w8a8 import T5_TINY
 from test_torch_w8a8 import jax_fused  # noqa: F401 (a fixture)
-
-torch.set_num_threads(2)
 
 SNR_TOL_DB = {"w8a8_plain": 0.05, "w8a8_smooth": 0.05,
               "w8a8_plain_all_channels": 0.25, "w8a8_smooth_all_channels": 0.25}
