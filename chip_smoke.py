@@ -491,6 +491,7 @@ from diffusionkit_tpu_torch.ops.fused_quant import (
     quantize_two_pass,
     row_absmax,
     row_absmax_plain,
+    straddled_tiles,
     tile_absmax,
     tile_absmax_plain,
     tile_quantize,
@@ -643,8 +644,10 @@ SYMBOLS = {
     "w8_matmul[gemv]": "w8_gemv<XT, OutT>",
     "int4_matmul[f32]": "dequant_mm_3xtf32<4> (M > 16), dequant_mm_f32<4> (M <= 16)",
     "gptq_group": "gptq_group_kernel<GS>",
-    "quantize[two-pass]": "row_absmax_kernel<T, ACT_NONE>, quantize_amax_kernel<T, ACT_NONE>",
-    "gelu_quantize[two-pass]": "row_absmax_kernel<T, GELU_ERF>, quantize_amax_kernel<T, GELU_ERF>",
+    "quantize[two-pass]": ("row_absmax_kernel<T, NV, ACT_NONE>, "
+                           "quantize_amax_kernel<T, NV, ACT_NONE>"),
+    "gelu_quantize[two-pass]": ("row_absmax_kernel<T, NV, GELU_ERF>, "
+                                "quantize_amax_kernel<T, NV, GELU_ERF>"),
     "gelu_quant[tiles]": "tile_absmax_kernel, tile_quantize_kernel",
     "int4_matmul[f32out]": "int4_mm_sm90<BN, float> (M > 16), int4_gemv with out_f32 (M <= 16)",
     "int8_matmul[f32out]": "int8_mm_sm90<BN, float> (M > 16), int8_gemv with out_f32 (M <= 16)",
@@ -1064,8 +1067,6 @@ def timing(name: str, shape, ms: float, plain: float, dtype: str = "bf16", **ext
     """One timed shape of a kernel: its time, its plain version's, its bound
     and any yardstick (``library_ms``, kernel C's time)."""
     b_ms, b_by = kernel_bound(name, shape, dtype)
-    if dtype == "fp32":  # the FMA-rate bound of earlier runs, beside it
-        extra["bound_fma_ms"] = kernel_bound(name, shape, dtype, fp32_peak="fp32")[0]
     return {"shape": list(shape), "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, **({"dtype": dtype} if dtype != "bf16" else {}), **extra}
 
@@ -2392,9 +2393,10 @@ def sd35_f32_kernels(gen, tag: str, errs: dict, times: dict) -> None:
             ms = device_ms(lambda: fn(x, qw, sc, zr), reps=reps)
             plain = device_ms(lambda: plain_fn(x, qw, sc, zr), reps=reps)
             t = timing(f"{name}[f32]", shape, ms, plain, "fp32", library_ms=None)
+            fma_ms = kernel_bound(f"{name}[f32]", shape, "fp32", fp32_peak="fp32")[0]
             log(f"  {name} fp32 (M, K, N, group) {shape}: kernel {ms!r} ms "
                 f"({2 * m * k * n / (ms / 1e3) / 1e12!r} TFLOP/s), plain {plain!r} ms, "
-                f"{bound_note(t)}; the FMA rate's bound {t['bound_fma_ms']!r} ms [{tag}]")
+                f"{bound_note(t)}; the FMA rate's bound {fma_ms!r} ms [{tag}]")
             times.setdefault(key, []).append(t)
             del x, qw, sc, zr
             torch.cuda.empty_cache()
@@ -5199,6 +5201,10 @@ def ptxas_report(path) -> None:
 # over two (the unified blocks' 4352 rows x 3072 / 2); #4 at SD3-medium
 # w8a8's fc1 hidden over two (2048 image rows x 6144 / 2).
 TWO_PASS_SHAPES = {"quantize": [(256, 5120), (4352, 1536)], "gelu_quantize": [(2048, 3072)]}
+# D at path x's shapes: o's input over two ranks (SD3.5-large's 2432 / 2),
+# the CFG batch's 8192 image rows and 308 text rows; drawn from a generator
+# of their own, so the smoke's generator stays as it was.
+X_TWO_PASS_SHAPES = [(8192, 1216), (308, 1216)]
 TWO_PASS_FORM = {"quantize": None, "gelu_quantize": "erf"}
 # r1: f's pipeline under a one-rank NCCL mesh (captured); r: f's models over
 # a (1, 2) mesh of two gloo processes on the one card; s: over (2, 1), the
@@ -5224,61 +5230,74 @@ def two_pass_kernels(gen, tag: str):
     passes on whole rows and over the row's two halves (two ranks' columns,
     their absmaxes combined by max on the card) against the one-pass kernel,
     bit for bit (x8 and xscale); both forms timed (``device_ms``) beside the
-    plain version's and the function's bound."""
+    plain version's, the function's bound and the form's floor by bytes
+    (its second read of y counted too; ``device_ms`` leaves y in L2 where
+    it fits, so a time may beat it)."""
     errs, times = {}, {}
-    for name, shapes in TWO_PASS_SHAPES.items():
+    x_gen = torch.Generator(device="cuda").manual_seed(53)
+    cases = [(name, shape, gen) for name, shapes in TWO_PASS_SHAPES.items() for shape in shapes]
+    cases += [("quantize", shape, x_gen) for shape in X_TWO_PASS_SHAPES]
+    for name, (m, k), g in cases:
         key, form = f"{name}[two-pass]", TWO_PASS_FORM[name]
         one_pass = quantize if form is None else (lambda y: gelu_quantize(y, "erf"))
-        errs[key], times[key] = [], []
-        for m, k in shapes:
-            y = (torch.randn(m, k, generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
-            y[m // 3, k // 5] = 60.0  # an outlier sets one row's scale
-            want = one_pass(y)
-            got = quantize_amax(y, row_absmax(y, form), form)
-            halves = [h.contiguous() for h in y.chunk(TP_RANKS, dim=-1)]
-            amax = torch.stack([row_absmax(h, form) for h in halves]).amax(dim=0)
-            split = [quantize_amax(h, amax, form) for h in halves]
-            plain = quantize_amax_plain(y, row_absmax_plain(y, form), form)
-            torch.cuda.synchronize()
-            for label, x8, xs in (("whole rows", got.x8, got.xscale),
-                                  ("two halves", torch.cat([a.x8 for a in split], dim=-1),
-                                   split[0].xscale)):
-                if not (torch.equal(x8, want.x8) and torch.equal(xs, want.xscale)):
-                    raise AssertionError(f"{key} {(m, k)} ({label}) differs from the one-pass "
-                                         f"kernel")
-            err = (plain.x8.int() - want.x8.int()).abs().max().item()
-            if err != 0 or not torch.equal(plain.xscale, want.xscale):
-                raise AssertionError(f"{key} {(m, k)}: the plain version differs from the "
-                                     f"one-pass kernel ({err} int8 steps)")
-            errs[key].append(float(err))
-            ms = device_ms(lambda: quantize_amax(y, row_absmax(y, form), form))
-            one_ms = device_ms(lambda: one_pass(y))
-            plain_ms = device_ms(lambda: quantize_amax_plain(y, row_absmax_plain(y, form), form))
-            t = timing(key, (m, k), ms, plain_ms, one_pass_ms=one_ms)
-            times[key].append(t)
-            log(f"  {key} {(m, k)}: bit-identical to the one-pass kernel on whole rows and over "
-                f"two halves, as is the plain version; two-pass {ms!r} ms, "
-                f"one-pass {one_ms!r} ms, plain {plain_ms!r} ms, {bound_note(t)} [{tag}]")
+        errs.setdefault(key, [])
+        times.setdefault(key, [])
+        y = (torch.randn(m, k, generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+        y[m // 3, k // 5] = 60.0  # an outlier sets one row's scale
+        want = one_pass(y)
+        got = quantize_amax(y, row_absmax(y, form), form)
+        halves = [h.contiguous() for h in y.chunk(TP_RANKS, dim=-1)]
+        amax = torch.stack([row_absmax(h, form) for h in halves]).amax(dim=0)
+        split = [quantize_amax(h, amax, form) for h in halves]
+        plain = quantize_amax_plain(y, row_absmax_plain(y, form), form)
+        torch.cuda.synchronize()
+        for label, x8, xs in (("whole rows", got.x8, got.xscale),
+                              ("two halves", torch.cat([a.x8 for a in split], dim=-1),
+                               split[0].xscale)):
+            if not (torch.equal(x8, want.x8) and torch.equal(xs, want.xscale)):
+                raise AssertionError(f"{key} {(m, k)} ({label}) differs from the one-pass "
+                                     f"kernel")
+        err = (plain.x8.int() - want.x8.int()).abs().max().item()
+        if err != 0 or not torch.equal(plain.xscale, want.xscale):
+            raise AssertionError(f"{key} {(m, k)}: the plain version differs from the "
+                                 f"one-pass kernel ({err} int8 steps)")
+        errs[key].append(float(err))
+        ms = device_ms(lambda: quantize_amax(y, row_absmax(y, form), form))
+        one_ms = device_ms(lambda: one_pass(y))
+        plain_ms = device_ms(lambda: quantize_amax_plain(y, row_absmax_plain(y, form), form))
+        # bf16 y read twice, x8 and the scales written once.
+        floor_ms = 1e3 * (2 * 2 * m * k + m * k + 4 * m) / HBM
+        t = timing(key, (m, k), ms, plain_ms, one_pass_ms=one_ms)
+        times[key].append(t)
+        log(f"  {key} {(m, k)}: bit-identical to the one-pass kernel on whole rows and over "
+            f"two halves, as is the plain version; two-pass {ms!r} ms, one-pass {one_ms!r} ms, "
+            f"plain {plain_ms!r} ms, {bound_note(t)}; the form's floor by bytes (a second "
+            f"read) {floor_ms!r} ms [{tag}]")
     return errs, times
 
 
 # (M, K, hidden) of the tiles route on path x: an FFN's fc1 over the CFG
 # batch's 4096 image tokens at 1024² (M 8192), SD3.5-large's width and
 # hidden, the hidden split over TP_RANKS ranks (4864 columns a rank: scale
-# tile 9 straddles them).
+# tile 9 straddles them) and over four (2432 a rank: tiles 4, 9 and 14).
 TILE_SHAPES = [(8192, 2432, 9728)]
+# Ranks the hidden is split over, and the rank timed at each: x's rank 0 (9
+# whole tiles and one part), and over four rank 1 (4 whole tiles between
+# two straddled parts).
+TILE_SPLITS = {TP_RANKS: 0, 4: 1}
 
 
 def tile_kernels(tag: str):
     """The kernel phase of gelu_quant[tiles]: E's fp32 mode-plain output of
-    a random SD3.5-large fc1 split over TP_RANKS ranks' columns, the two
-    passes on each rank's part (the absmaxes combined by max on the card)
-    against E's gelu_quant on the whole hidden (its bytes side by side, its
-    scales in each rank's tiles) bit for bit, as is the plain version;
-    rank 0's two passes timed (``device_ms``) beside the plain version's
-    and the function's bound. Its inputs come from a generator of its own,
-    so the smoke's generator, and so every later path's weights, stay as
-    they were."""
+    a random SD3.5-large fc1 split over 2 and 4 ranks' columns, the two
+    passes on each rank's part (pass 1 0 in the tiles no rank boundary
+    cuts; the absmaxes combined by max on the card) against E's gelu_quant
+    on the whole hidden (its bytes side by side, its scales in each rank's
+    tiles) bit for bit, as is the plain version; the two passes of one rank
+    of each split timed (``device_ms``) beside the plain version's and the
+    function's bound. Its inputs come from a generator of its own, so the
+    smoke's generator, and so every later path's weights, stay as they
+    were."""
     gen = torch.Generator(device="cuda").manual_seed(47)
     key = "gelu_quant[tiles]"
     errs, times = {key: []}, {key: []}
@@ -5289,37 +5308,47 @@ def tile_kernels(tag: str):
         args = (x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias.float())
         want8, want_s = w4a8_matmul(*args, mode="gelu_quant")
         y = w4a8_matmul(*args, out_dtype=torch.float32)
-        n1, tiles = hidden // TP_RANKS, hidden // 512
-        parts = [y[:, r * n1:(r + 1) * n1].contiguous() for r in range(TP_RANKS)]
-        outs = {}
-        for label, absmax, quant in (("kernels", tile_absmax, tile_quantize),
-                                     ("plain version", tile_absmax_plain, tile_quantize_plain)):
-            amax = torch.stack([absmax(t, r * n1, tiles) for r, t in enumerate(parts)]).amax(0)
-            outs[label] = [quant(t, amax, r * n1) for r, t in enumerate(parts)]
-        torch.cuda.synchronize()
-        for label, got in outs.items():
-            if not torch.equal(torch.cat([a for a, _ in got], dim=-1), want8):
-                raise AssertionError(f"{key} {(m, k, hidden)}: the {label}'s bytes differ from "
-                                     f"E's gelu_quant")
-            for r, (_, ys) in enumerate(got):
-                held = slice(r * n1 // 512, ((r + 1) * n1 - 1) // 512 + 1)
-                if not torch.equal(ys[:, held], want_s[:, held]):
-                    raise AssertionError(f"{key} {(m, k, hidden)}: the {label}'s scales on rank "
-                                         f"{r} differ from E's gelu_quant")
-        err = (torch.cat([a for a, _ in outs["kernels"]], dim=-1).int()
-               - torch.cat([a for a, _ in outs["plain version"]], dim=-1).int()).abs().max()
-        errs[key].append(float(err.item()))
-        part, local = parts[0], (n1 - 1) // 512 + 1
-        ms = device_ms(lambda: tile_quantize(part, tile_absmax(part, 0, tiles), 0))
-        plain_ms = device_ms(lambda: tile_quantize_plain(part, tile_absmax_plain(part, 0, tiles),
-                                                         0))
-        t = timing(key, (m, n1, local), ms, plain_ms, library_ms=None)
-        times[key].append(t)
-        log(f"  {key} (M {m}, hidden {hidden} over {TP_RANKS} ranks, {n1} columns a rank): both "
-            f"ranks' bytes side by side and their scales bit for bit E's gelu_quant on the whole "
-            f"hidden, as the plain version's; rank 0's two passes {ms!r} ms, plain {plain_ms!r} "
-            f"ms, {bound_note(t)} [{tag}]")
-        del layer, x8, y, parts, outs
+        tiles = hidden // 512
+        for ranks, timed in TILE_SPLITS.items():
+            n1 = hidden // ranks
+            parts = [y[:, r * n1:(r + 1) * n1].contiguous() for r in range(ranks)]
+            uncut = [t for t in range(tiles) if t not in straddled_tiles(hidden, ranks)]
+            outs = {}
+            for label, absmax, quant in (("kernels", tile_absmax, tile_quantize),
+                                         ("plain version", tile_absmax_plain,
+                                          tile_quantize_plain)):
+                amaxes = [absmax(t, r * n1, tiles) for r, t in enumerate(parts)]
+                if any(a[:, uncut].any() for a in amaxes):
+                    raise AssertionError(f"{key}: the {label}'s pass 1 over {ranks} ranks is "
+                                         f"not 0 in the tiles no rank boundary cuts")
+                amax = torch.stack(amaxes).amax(0)
+                outs[label] = [quant(t, amax, r * n1) for r, t in enumerate(parts)]
+            torch.cuda.synchronize()
+            for label, got in outs.items():
+                if not torch.equal(torch.cat([a for a, _ in got], dim=-1), want8):
+                    raise AssertionError(f"{key} {(m, k, hidden)} over {ranks} ranks: the "
+                                         f"{label}'s bytes differ from E's gelu_quant")
+                for r, (_, ys) in enumerate(got):
+                    held = slice(r * n1 // 512, ((r + 1) * n1 - 1) // 512 + 1)
+                    if not torch.equal(ys[:, held], want_s[:, held]):
+                        raise AssertionError(f"{key} {(m, k, hidden)}: the {label}'s scales on "
+                                             f"rank {r} of {ranks} differ from E's gelu_quant")
+            err = (torch.cat([a for a, _ in outs["kernels"]], dim=-1).int()
+                   - torch.cat([a for a, _ in outs["plain version"]], dim=-1).int()).abs().max()
+            errs[key].append(float(err.item()))
+            part, col0 = parts[timed], timed * n1
+            local = (col0 + n1 - 1) // 512 - col0 // 512 + 1
+            ms = device_ms(lambda: tile_quantize(part, tile_absmax(part, col0, tiles), col0))
+            plain_ms = device_ms(lambda: tile_quantize_plain(
+                part, tile_absmax_plain(part, col0, tiles), col0))
+            t = timing(key, (m, n1, local), ms, plain_ms, library_ms=None)
+            times[key].append(t)
+            log(f"  {key} (M {m}, hidden {hidden} over {ranks} ranks, {n1} columns a rank): "
+                f"the ranks' bytes side by side and their scales bit for bit E's gelu_quant on "
+                f"the whole hidden, as the plain version's; rank {timed}'s two passes ({local} "
+                f"tiles) {ms!r} ms, plain {plain_ms!r} ms, {bound_note(t)} [{tag}]")
+            del parts, outs
+        del layer, x8, y
     return errs, times
 
 
@@ -5782,14 +5811,27 @@ def sd35_tp_rank(rank: int, world: int, root: str) -> None:
                   seed=seed)
         reset_counts()
         collectives.stats.reset()
-        with recorded_routes(pipe.mmdit) as (seen, launched):
-            t0 = time.perf_counter()
-            latents, _ = pipe.denoise_latents(cond, pooled, **kw)
-            torch.cuda.synchronize()
-            denoise_s = time.perf_counter() - t0
+        # The two-pass quantizer's calls by (rows, K, dtype, form).
+        two_pass = collections.Counter()
+        two_pass_fn = common_ops.quantize_two_pass
+
+        def counting(y, group, form=None):
+            k = y.shape[-1]
+            two_pass[(y.numel() // k, k, str(y.dtype).removeprefix("torch."), form)] += 1
+            return two_pass_fn(y, group, form)
+
+        common_ops.quantize_two_pass = counting
+        try:
+            with recorded_routes(pipe.mmdit) as (seen, launched):
+                t0 = time.perf_counter()
+                latents, _ = pipe.denoise_latents(cond, pooled, **kw)
+                torch.cuda.synchronize()
+                denoise_s = time.perf_counter() - t0
+        finally:
+            common_ops.quantize_two_pass = two_pass_fn
         model = pipe.mmdit
         out = {"latents": latents.cpu(), "load_s": load_s,
-               "step_ms": 1e3 * denoise_s / SD35_TP.steps}
+               "step_ms": 1e3 * denoise_s / SD35_TP.steps, "two_pass_shapes": dict(two_pass)}
     else:
         cfg = dataclasses.replace(SD3_8b, depth_multimodal=X4_DEPTH,
                                   hidden_size_override=SD3_8b.hidden_size,
@@ -5811,7 +5853,9 @@ def sd35_tp_rank(rank: int, world: int, root: str) -> None:
                 torch.cuda.synchronize()
         out = {"rel_l2": rel_l2(got, want), "finite": bool(torch.isfinite(got).all()),
                "forward_s": time.perf_counter() - t0}
-    out.update(launches=counts(), collectives=collectives.stats.snapshot(), seen=seen,
+    out.update(launches=counts(), collectives=collectives.stats.snapshot(),
+               collective_sizes={k: dict(v) for k, v in collectives.stats.sizes.items()},
+               seen=seen,
                route_launches={key: dict(c) for key, c in launched.items()},
                holds_heads=model.mm_blocks[0].img.holds_heads(model.config.head_dim),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -5900,6 +5944,20 @@ def sd35_tp_paths(pipe: DiffusionPipeline, scratch: str, tag: str) -> dict:
                 f"[{tag}]")
             if not rl < TP_RTOL:
                 raise AssertionError(f"x: the latents are off i's by more than {TP_RTOL}")
+            # The max all-reduces: one value a row for o's input (the
+            # two-pass D) and for each scale tile the ranks share in the
+            # tiles route, none for the tiles a rank holds whole.
+            maxes = r0["collectives"]["all_reduce_max"]
+            shared = straddled_tiles(SD3_8b.mlp_ratio * SD3_8b.hidden_size, world)
+            by_size = r0["collective_sizes"]["all_reduce_max"]
+            log(f"  {name}: max all-reduces a step (rank 0): {maxes['calls']} calls, "
+                f"{maxes['elements']} elements, {maxes['seconds']!r} s; calls by elements "
+                f"{by_size}; the tiles route's straddled tiles {shared}; the two-pass quantizer's "
+                f"calls by (rows, K, dtype, form) {r0['two_pass_shapes']} [{tag}]")
+            rows = 2 * (SD35_TP.latent[0] // 2) * (SD35_TP.latent[1] // 2)  # CFG's image rows
+            if max(by_size) > rows * len(shared):
+                raise AssertionError(f"{name}: a max all-reduce carried more than one value a "
+                                     f"row and straddled tile: {by_size}")
             # q/k/v and o off E's shapes: E's arithmetic on #10's grid and
             # #16 (o's input by the two-pass D); the FFN off E's fused modes
             # ("tiles": the fused pair's arithmetic over the scale tile the

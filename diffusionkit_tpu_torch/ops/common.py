@@ -39,8 +39,10 @@ A split w4a8 FFN whose local hidden is not whole 512-column scale tiles
 (``ffn_route`` "tiles"): fc1 on E in mode plain with an fp32 output, then
 E's gelu_quant epilogue in two passes (``fused_quant.tile_absmax`` and
 ``tile_quantize``): each (row, tile)'s GELU absmax over this rank's part
-of the tile, the max all-reduced over the ranks that hold parts of it (one
-value a row and tile), the hidden quantized by it; then fc2's fp32 sum
+of each tile that straddles a rank boundary, the max all-reduced over the
+ranks for those tiles alone (one value a row and straddled tile:
+``fused_quant.straddled_tiles``), the hidden quantized by it there and by
+its own absmax in the tiles a rank holds whole; then fc2's fp32 sum
 over the tiles in the unsharded order, as a chain over the ranks: a
 tile's int32 product on #16 at the rank where it starts (the other ranks'
 parts of it, the int8 hidden and weight columns, sent there), every
@@ -68,6 +70,7 @@ divide) is whole on every rank and gathers its input first.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -76,7 +79,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.collectives import all_gather, all_reduce_max, all_reduce_sum, broadcast, recv, send
-from .fused_quant import gelu_quantize, quantize_two_pass, tile_absmax, tile_quantize
+from .fused_quant import (
+    gelu_quantize, quantize_two_pass, straddled_tiles, tile_absmax, tile_quantize,
+)
 from .int4_matmul import (
     dequant_linear, dequantize_int4, dequantize_int8, int4_linear, int4_matmul, int8_linear,
     int8_matmul, kernel_takes,
@@ -321,13 +326,24 @@ def _w4a8_ffn_tiles(fc1: nn.Module, fc2: nn.Module, x) -> torch.Tensor:
     g = w4a8_matmul(x8, fc1.q4, fc1.scales, fc1.zeros, fc1.wscale, aq.xscale.reshape(-1, 1),
                     bias1, out_dtype=torch.float32)
     start = tp.index * n1
-    amax = all_reduce_max(tile_absmax(g, start, tp.n * n1 // SCALE_TILE), tp.group)
+    amax = tile_absmax(g, start, tp.n * n1 // SCALE_TILE)
+    idx = _straddled_index(tp.n * n1, tp.n, g.device)
+    if idx is not None:  # only the tiles that straddle ranks need the others' maxima
+        amax.index_copy_(1, idx, all_reduce_max(amax.index_select(1, idx), tp.group))
     h8, hs = tile_quantize(g, amax, start)
     w8 = w4a8_w8(fc2.q4, fc2.scales, fc2.zeros, fc2.wscale)
     y = _tile_chain(h8, w8, hs, start, tp) * fc2.wscale.float()
     if fc2.bias is not None:
         y = y + fc2.bias.float()
     return y.to(aq.dtype).reshape(*lead, y.shape[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _straddled_index(hidden: int, n: int, device: torch.device) -> Optional[torch.Tensor]:
+    """``straddled_tiles`` of the layout as an index tensor on ``device``,
+    made once a layout; None where no tile straddles."""
+    shared = straddled_tiles(hidden, n)
+    return torch.tensor(shared, device=device) if shared else None
 
 
 def _tile_chain(h8: torch.Tensor, w8: torch.Tensor, hs: torch.Tensor, start: int,

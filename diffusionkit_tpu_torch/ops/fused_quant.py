@@ -17,10 +17,11 @@ Four kernels of ``csrc/mod_ln.cu``, each replacing a Pallas kernel of
   and any w4a8 FFN the fused kernel-E chain does not take.
 
 Beside them, two-pass forms for rows split over tensor-parallel ranks:
-D's and #4's (``row_absmax``, ``quantize_amax``), and kernel E's
-gelu_quant epilogue over 512-column scale tiles that straddle ranks
-(``tile_absmax``, ``tile_quantize``: a split w4a8 FFN whose local hidden
-is not whole tiles).
+D's and #4's (``row_absmax``, ``quantize_amax``, in D's geometry), and
+kernel E's gelu_quant epilogue over 512-column scale tiles that straddle
+ranks (``tile_absmax``, ``tile_quantize``: a split w4a8 FFN whose local
+hidden is not whole tiles; pass 1 reads only the tiles a rank holds in
+part, pass 2 quantizes the whole tiles on their own absmax in one read).
 
 Each reads its rows once and keeps them in registers, with 16-byte
 accesses: A one block a row; A' and D a warp (or a few) a row, several
@@ -149,8 +150,8 @@ def _two_pass_launch(name: str, n_pass: int, y: torch.Tensor, amax: torch.Tensor
         raise ValueError(f"{name}: y must be contiguous and 16-byte aligned")
     k = y.shape[-1]
     vec = 16 // y.element_size()
-    if k == 0 or k % vec:
-        raise ValueError(f"{name}: K={k} must be a multiple of {vec}")
+    if k == 0 or k % vec or k > MAX_ROW:
+        raise ValueError(f"{name}: K={k} must be a multiple of {vec} and <= {MAX_ROW}")
     m = y.numel() // k
     if amax.dtype != torch.float32 or amax.numel() != m or not amax.is_contiguous() \
             or amax.device != y.device:
@@ -167,7 +168,7 @@ def row_absmax(y: torch.Tensor, form=None) -> torch.Tensor:
     """Pass 1 of the two-pass D (``form`` None) or #4 (``form`` "erf" or
     "tanh"): each row's local max |value| (of the GELU for #4), fp32
     (..., 1). Takes on the card y bf16 or fp32, contiguous and 16-byte
-    aligned, K a multiple of the 16-byte vector."""
+    aligned, K a multiple of the 16-byte vector and at most ``MAX_ROW``."""
     if y.device.type == "cpu":
         return row_absmax_plain(y, form)
     if form not in TWO_PASS_FORMS:
@@ -224,23 +225,50 @@ def _local_tiles(n: int, col0: int) -> slice:
     return slice(col0 // SCALE_TILE, (col0 + n - 1) // SCALE_TILE + 1)
 
 
-def tile_absmax_plain(g: torch.Tensor, col0: int, n_tiles: int) -> torch.Tensor:
-    """Plain torch ``tile_absmax``: the max |GELU| (``gelu_as``) of each row
-    of g over its columns in each scale tile, fp32 (M, n_tiles), 0 in the
-    tiles g holds no column of."""
+def _whole_tiles(n: int, col0: int) -> slice:
+    """The global tiles a rank's n hidden columns from ``col0`` hold whole."""
+    return slice(-(-col0 // SCALE_TILE), (col0 + n) // SCALE_TILE)
+
+
+def straddled_tiles(hidden: int, n: int) -> list:
+    """The scale tiles of a hidden of ``hidden`` columns split evenly over n
+    ranks that straddle a rank boundary, in order: the only tiles whose
+    absmax the ranks must all-reduce (every other tile is one rank's whole,
+    or no rank's in part). Every rank gets the same list."""
+    bounds = (r * hidden // n for r in range(1, n))
+    return sorted({b // SCALE_TILE for b in bounds if b % SCALE_TILE})
+
+
+def _tile_maxima(g: torch.Tensor, col0: int, n_tiles: int) -> torch.Tensor:
+    """The max |GELU| (``gelu_as``) of each row of g over its columns in
+    each scale tile, fp32 (M, n_tiles), 0 in the tiles g holds no column
+    of."""
     v = gelu_as(g.float()).abs()
     amax = torch.zeros((g.shape[0], n_tiles), dtype=torch.float32, device=g.device)
     return amax.scatter_reduce_(1, _hidden_tiles(g.shape[1], col0, g.device).expand_as(v), v,
                                 "amax")
 
 
+def tile_absmax_plain(g: torch.Tensor, col0: int, n_tiles: int) -> torch.Tensor:
+    """Plain torch ``tile_absmax``: the max |GELU| of each row of g over its
+    columns in each tile it holds in part, fp32 (M, n_tiles), 0 in the
+    tiles it holds whole and in those it holds no column of."""
+    amax = _tile_maxima(g, col0, n_tiles)
+    amax[:, _whole_tiles(g.shape[1], col0)] = 0.0
+    return amax
+
+
 def tile_quantize_plain(g: torch.Tensor, amax: torch.Tensor, col0: int):
-    """Plain torch ``tile_quantize``: E's gelu_quant grid on the group's
-    tile absmaxes, ``(y8, yscale)``: ``a = max(amax, 1e-8)``, ``y8 =
-    clip(rne(GELU(g) * (127 / a)))`` by tile, ``yscale = a / 127`` in the
-    tiles g holds columns of, 0 elsewhere."""
+    """Plain torch ``tile_quantize``: E's gelu_quant grid by tile,
+    ``(y8, yscale)``: a tile's absmax is g's own in the tiles g holds whole
+    and ``amax``'s (the group's) in those it holds in part; ``a = max(absmax,
+    1e-8)``, ``y8 = clip(rne(GELU(g) * (127 / a)))``, ``yscale = a / 127``
+    in the tiles g holds columns of, 0 elsewhere."""
     n = g.shape[1]
-    a = amax.float().clamp_min(1e-8)
+    whole = _whole_tiles(n, col0)
+    a = amax.float().clone()
+    a[:, whole] = _tile_maxima(g, col0, amax.shape[-1])[:, whole]
+    a = a.clamp_min(1e-8)
     tile = _hidden_tiles(n, col0, g.device)
     y8 = torch.round(gelu_as(g.float()) * _div(127.0, a)[:, tile]).clamp_(-127, 127)
     yscale = torch.zeros_like(a)
@@ -274,32 +302,37 @@ def tile_absmax(g: torch.Tensor, col0: int, n_tiles: int) -> torch.Tensor:
     """Pass 1 of E's gelu_quant epilogue over scale tiles split between
     ranks: g (M, N) fp32, fc1's pre-GELU output on this rank, its column 0
     the hidden's column ``col0``; returns each row's max |GELU| over its
-    columns in each of the hidden's ``n_tiles`` 512-column tiles, fp32 (M,
-    n_tiles), 0 in the tiles it holds no column of (the group's max
-    all-reduce then gives the whole tiles'). On the card N and col0
-    multiples of 4."""
+    columns in each of the hidden's ``n_tiles`` 512-column tiles that it
+    holds in part (a tile straddling a rank boundary), fp32 (M, n_tiles), 0
+    in the tiles it holds whole and in those it holds no column of. The
+    group's max all-reduce of the straddled tiles' columns
+    (``straddled_tiles``) then gives those tiles' absmax; ``tile_quantize``
+    takes a whole tile's itself. On the card N and col0 multiples of 4."""
     if g.device.type == "cpu":
         return tile_absmax_plain(g, col0, n_tiles)
-    amax = torch.zeros((g.shape[0], n_tiles), dtype=torch.float32, device=g.device)
-    if g.numel():
-        _tile_launch("tile_absmax", 1, g, amax, col0)
-        tile_absmax.launches += 1
+    if not g.numel():
+        return torch.zeros((g.shape[0], n_tiles), dtype=torch.float32, device=g.device)
+    amax = torch.empty((g.shape[0], n_tiles), dtype=torch.float32, device=g.device)
+    _tile_launch("tile_absmax", 1, g, amax, col0)
+    tile_absmax.launches += 1
     return amax
 
 
 def tile_quantize(g: torch.Tensor, amax: torch.Tensor, col0: int):
-    """Pass 2: g's GELU on E's gelu_quant grid of the group's tile absmaxes
-    ``amax`` (M, n_tiles), ``(y8 (M, N) int8, yscale (M, n_tiles) fp32)``,
-    yscale 0 in the tiles g holds no column of; side by side over the
-    ranks, E's gelu_quant output on the whole hidden bit for bit. Takes
-    on the card what ``tile_absmax`` takes."""
+    """Pass 2: g's GELU on E's gelu_quant grid by tile, ``(y8 (M, N) int8,
+    yscale (M, n_tiles) fp32)``, each tile's absmax g's own where g holds
+    the tile whole and the group's ``amax`` (M, n_tiles) where it holds it
+    in part; yscale 0 in the tiles g holds no column of. Side by side over
+    the ranks, E's gelu_quant output on the whole hidden bit for bit.
+    Takes on the card what ``tile_absmax`` takes."""
     if g.device.type == "cpu":
         return tile_quantize_plain(g, amax, col0)
     y8 = torch.empty(g.shape, dtype=torch.int8, device=g.device)
-    yscale = torch.zeros_like(amax)
-    if g.numel():
-        _tile_launch("tile_quantize", 2, g, amax, col0, y8, yscale)
-        tile_quantize.launches += 1
+    if not g.numel():
+        return y8, torch.zeros_like(amax)
+    yscale = torch.empty_like(amax)
+    _tile_launch("tile_quantize", 2, g, amax, col0, y8, yscale)
+    tile_quantize.launches += 1
     return y8, yscale
 
 

@@ -1959,13 +1959,16 @@ def test_quantize_kernel_on_special_values(cuda, k, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("form", [None, "erf", "tanh"])
-@pytest.mark.parametrize("shape", [(256, 5120), (4352, 1536), (2048, 3072), (13, 1000), (9, 200)])
+@pytest.mark.parametrize("shape", [(256, 5120), (4352, 1536), (2048, 3072), (13, 1000), (9, 200),
+                                   (1, 5120), (3, 5120), (256, 16384), (8192, 1216)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_two_pass_quantizers_are_the_one_pass_kernels(cuda, form, shape, dtype):
     """The two-pass D (form None) and #4 on whole rows, and over the rows'
     columns split in 2 and 4 with the pass-1 absmaxes combined by max: the
     one-pass kernel's x8 and xscale bit for bit; also on D's special
-    values (+-0, subnormals, 1e30, 3e38, +-inf, NaN)."""
+    values (+-0, subnormals, 1e30, 3e38, +-inf, NaN). Rows of 1 and 3 (a
+    few warps or blocks cover the card), of 16384 (8 warps of 8 or 16
+    vectors a lane whole; 8192 and 4096 split), and path x's o input."""
     m, k = shape
     vec = 16 // torch.tensor([], dtype=dtype).element_size()
     g = torch.Generator(device=cuda).manual_seed(43)
@@ -1989,15 +1992,18 @@ def test_two_pass_quantizers_are_the_one_pass_kernels(cuda, form, shape, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m, k, hidden", [(333, 2432, 9728), (77, 1024, 2560)])
+@pytest.mark.parametrize("m, k, hidden", [(333, 2432, 9728), (77, 1024, 2560), (1, 2432, 9728),
+                                          (8193, 2432, 9728), (77, 1024, 1024)])
 def test_tile_passes_are_e_gelu_quant(cuda, m, k, hidden):
     """The tiles route's kernels (``tile_absmax``, ``tile_quantize``) on the
     columns of E's fp32 mode-plain output split over 1, 2 and 4 ranks
-    (scale tiles straddling ranks), the absmaxes combined by max: E's
-    gelu_quant bytes side by side, and its scales in each rank's tiles,
-    bit for bit; the plain versions the same."""
+    (scale tiles straddling ranks; at hidden 9728 over 4, rank 1 holds two
+    straddled parts; at 1024 over 4, each rank part of one tile), the
+    absmaxes combined by max: E's gelu_quant bytes side by side, and its
+    scales in each rank's tiles, bit for bit; the plain versions the same.
+    Pass 1 is 0 in every tile no rank boundary cuts, as its plain version."""
     from diffusionkit_tpu_torch.ops.fused_quant import (
-        tile_absmax, tile_absmax_plain, tile_quantize, tile_quantize_plain,
+        straddled_tiles, tile_absmax, tile_absmax_plain, tile_quantize, tile_quantize_plain,
     )
 
     g = torch.Generator(device=cuda).manual_seed(47)
@@ -2011,14 +2017,49 @@ def test_tile_passes_are_e_gelu_quant(cuda, m, k, hidden):
     for n in (1, 2, 4):
         n1 = hidden // n
         parts = [y[:, r * n1:(r + 1) * n1].contiguous() for r in range(n)]
+        uncut = [t for t in range(tiles) if t not in straddled_tiles(hidden, n)]
         for absmax, quant in ((tile_absmax, tile_quantize),
                               (tile_absmax_plain, tile_quantize_plain)):
-            amax = torch.stack([absmax(t, r * n1, tiles) for r, t in enumerate(parts)]).amax(0)
+            amaxes = [absmax(t, r * n1, tiles) for r, t in enumerate(parts)]
+            assert not any(a[:, uncut].any() for a in amaxes), n
+            amax = torch.stack(amaxes).amax(0)
             got = [quant(t, amax, r * n1) for r, t in enumerate(parts)]
             assert torch.equal(torch.cat([a for a, _ in got], dim=-1), want8), n
             for r, (_, ys) in enumerate(got):
                 held = slice(r * n1 // 512, ((r + 1) * n1 - 1) // 512 + 1)
                 assert torch.equal(ys[:, held], want_s[:, held]), (n, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", [None, "erf"])
+@pytest.mark.parametrize("m, k", [(256, 5120), (3, 5120), (2048, 3072)])
+def test_two_pass_graph_replays_are_bit_identical(cuda, form, m, k):
+    from diffusionkit_tpu_torch.ops.fused_quant import quantize_amax, row_absmax
+
+    g = torch.Generator(device=cuda).manual_seed(42)
+    y = (torch.randn(m, k, generator=g, device=cuda) * 3).bfloat16()
+    assert_graph_replays_bit_identical(lambda: quantize_amax(y, row_absmax(y, form), form))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n1, col0", [(4864, 0), (4864, 4864), (2432, 2432), (256, 256)])
+def test_tile_graph_replays_are_bit_identical(cuda, n1, col0):
+    """The tiles passes on one rank's columns (rank 0 and 1 of hidden 9728
+    over 2, rank 1 over 4, and a rank holding part of one tile), under a
+    graph: the int8 hidden and the scales bit for bit."""
+    from types import SimpleNamespace
+
+    from diffusionkit_tpu_torch.ops.fused_quant import tile_absmax, tile_quantize
+
+    g = torch.Generator(device=cuda).manual_seed(43)
+    y = torch.randn(777, n1, generator=g, device=cuda) * 2
+    tiles = 19 if n1 > 256 else 2
+
+    def call():
+        y8, ys = tile_quantize(y, tile_absmax(y, col0, tiles), col0)
+        return SimpleNamespace(x8=y8, xscale=ys)
+
+    assert_graph_replays_bit_identical(call)
 
 
 @pytest.mark.gpu

@@ -19,6 +19,7 @@ contracts some epilogue products into FMAs; tests/test_torch_w4a8.py's
 (latents 1e-3, pixels one level).
 """
 
+import collections
 import copy
 import dataclasses
 import os
@@ -701,6 +702,33 @@ def test_sd35_forward_split_matches_jax(ranks2, ranks4, mode, n, request):
             assert torch.equal(exact["out"], exact["whole"])
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_sd35_tiles_route_all_reduces_only_the_straddled_tiles(ranks2, ranks4, n):
+    """The split w4a8 FFN ("tiles") max all-reduces one value a row for each
+    scale tile a rank boundary cuts, and nothing for the tiles a rank holds
+    whole: SD35_RATIOS' fc1 of 1536 (3 tiles) over 2 ranks cuts tile 1, so
+    (M, 1) a call, not (M, 3); over 4 it cuts all three. A forward's max
+    all-reduces are those of the FFNs (the image stream's in every block,
+    the text stream's but in the last) and, over 2 ranks, the two-pass D's
+    of o's input (one value a row of the same rows; over 4, o is gathered)."""
+    outs = ranks2 if n == 2 else ranks4
+    cfg = SD35_RATIOS
+    shared = len(tfq.straddled_tiles(cfg.mlp_ratio * cfg.hidden_size, n))
+    assert shared == (1 if n == 2 else 3)
+    (b, h, w, _), txt = mmdit_inputs(cfg)[0].shape, mmdit_inputs(cfg)[1]
+    rows = {"img": b * (h // cfg.patch_size) * (w // cfg.patch_size),
+            "txt": txt.shape[0] * txt.shape[1]}
+    depth = cfg.depth_multimodal
+    want = collections.Counter()
+    for stream, calls in (("img", depth), ("txt", depth - 1)):
+        want[rows[stream] * shared] += calls  # the FFN's straddled tiles
+        if n == 2:
+            want[rows[stream]] += calls  # o's input by the two-pass D
+    for out in outs:
+        for case in ("sd35-w4a8", "sd35-w4a8-floats-whole"):
+            assert out[case]["sizes"]["all_reduce_max"] == dict(want), case
+
+
 def test_mmdit_ring_with_the_model_sharded_matches_jax(ranks2):
     """tests/test_torch_ring.py's two-rank MMDiT case (sdpa_impl="ring") with
     the model sharded too: each rank's heads gathered whole for the ring
@@ -919,6 +947,83 @@ def test_tile_passes_are_e_gelu_quant_over_split_hidden(n):
     for r, (_, ys) in enumerate(got):
         held = slice(r * n1 // tw.SCALE_TILE, ((r + 1) * n1 - 1) // tw.SCALE_TILE + 1)
         assert torch.equal(ys[:, held], want_s[:, held])
+        assert not ys[:, :held.start].any() and not ys[:, held.stop:].any()
+
+
+@pytest.mark.parametrize("hidden, n, want", [(9728, 1, []), (9728, 2, [9]),
+                                             (9728, 4, [4, 9, 14]), (1024, 4, [0, 1]),
+                                             (1536, 2, [1]), (1536, 4, [0, 1, 2])])
+def test_straddled_tiles(hidden, n, want):
+    """The scale tiles a rank boundary cuts: SD3.5-large's hidden over 1, 2
+    and 4 ranks, two tiles over 4 (256 columns a rank: each rank holds part
+    of one tile, and the boundary at 512 cuts none), and SD35_RATIOS' fc1."""
+    assert tfq.straddled_tiles(hidden, n) == want
+
+
+def _e_gelu_quant_case(m: int, hidden: int, seed: int):
+    """fc1's fp32 output (E's mode plain) of a random w4a8 layer of width
+    ``hidden`` at K = 256, group 64, and E's gelu_quant of it: ``(g, y8,
+    yscale)``; a row of zeros and a row with a large scale."""
+    from diffusionkit_tpu_torch.ops import w4a8_matmul as tw
+
+    gen = torch.Generator().manual_seed(seed)
+    k, group = 256, 64
+    x8 = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    x8[3] = 0
+    q4 = torch.randint(-2**31, 2**31, (k // 8, hidden), generator=gen, dtype=torch.int64).int()
+    scales = torch.rand(k // group, hidden, generator=gen) * 0.02 + 1e-3
+    wscale = scales.amax(dim=0) * 8.0 / 127.0
+    xscale = torch.rand(m, 1, generator=gen) * 0.05
+    xscale[1] = 3.0
+    args = (x8, q4, scales, -8.0 * scales, wscale, xscale, torch.randn(hidden, generator=gen) * 0.1)
+    want8, want_s = tw.w4a8_matmul_plain(*args, mode="gelu_quant")
+    return tw.w4a8_matmul_plain(*args, out_dtype=torch.float32), want8, want_s
+
+
+@pytest.mark.parametrize("hidden, n", [(5 * 512, 2), (5 * 512, 4), (2 * 512, 4), (19 * 512, 2),
+                                       (19 * 512, 4)])
+def test_tile_absmax_reads_only_the_tiles_a_rank_holds_in_part(hidden, n):
+    """Pass 1's plain version on each rank's columns: 0 in every tile the
+    rank holds whole and in those it holds no column of, the max |GELU|
+    of its columns in the tiles it holds in part (each a straddled tile);
+    a rank of 256 columns holds part of one tile."""
+    g, _, _ = _e_gelu_quant_case(6, hidden, seed=8)
+    n1, tiles = hidden // n, hidden // 512
+    v = tfq.gelu_as(g).abs()
+    for r in range(n):
+        amax = tfq.tile_absmax(g[:, r * n1:(r + 1) * n1].contiguous(), r * n1, tiles)
+        for t in range(tiles):
+            lo, hi = max(t * 512, r * n1), min((t + 1) * 512, (r + 1) * n1)
+            if lo < hi and hi - lo < 512:
+                assert t in tfq.straddled_tiles(hidden, n), (r, t)
+                assert torch.equal(amax[:, t], v[:, lo:hi].amax(dim=1)), (r, t)
+            else:
+                assert not amax[:, t].any(), (r, t)
+
+
+@pytest.mark.parametrize("hidden, n", [(5 * 512, 2), (5 * 512, 4), (2 * 512, 4)])
+def test_straddled_exchange_of_the_passes_is_e_gelu_quant(hidden, n):
+    """The tiles route's exchange written out in one process: the plain
+    passes on each rank's columns with only the straddled tiles' columns
+    max-reduced (each rank keeps its own 0 in the others) give E's
+    gelu_quant bytes side by side, its scales where each rank holds
+    columns, 0 elsewhere, bit for bit; over 4 ranks of a 2-tile hidden each
+    rank holds only part of one tile. The route itself
+    (``ops/common._w4a8_ffn_tiles``) runs in the gloo ranks: its all-reduce
+    sizes in ``test_sd35_tiles_route_all_reduces_only_the_straddled_tiles``,
+    its output in ``test_sd35_forward_split_matches_jax``."""
+    g, want8, want_s = _e_gelu_quant_case(6, hidden, seed=9)
+    n1, tiles = hidden // n, hidden // 512
+    shared = tfq.straddled_tiles(hidden, n)
+    amaxes = [tfq.tile_absmax(g[:, r * n1:(r + 1) * n1].contiguous(), r * n1, tiles)
+              for r in range(n)]
+    reduced = torch.stack([a[:, shared] for a in amaxes]).amax(0)
+    for r, amax in enumerate(amaxes):
+        amax[:, shared] = reduced
+        y8, ys = tfq.tile_quantize(g[:, r * n1:(r + 1) * n1].contiguous(), amax, r * n1)
+        assert torch.equal(y8, want8[:, r * n1:(r + 1) * n1]), r
+        held = slice(r * n1 // 512, ((r + 1) * n1 - 1) // 512 + 1)
+        assert torch.equal(ys[:, held], want_s[:, held]), r
         assert not ys[:, :held.start].any() and not ys[:, held.stop:].any()
 
 

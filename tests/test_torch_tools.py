@@ -384,6 +384,33 @@ def test_bench_rows_times_kernel_d_on_the_cpu():
     assert bench_rows.parse_shapes(["quantize:2048,1536"]) == {"quantize": [(2048, 1536)]}
 
 
+def test_bench_rows_times_the_split_row_forms_on_the_cpu():
+    """bench_rows' two-pass and tiles rows on the CPU: each output that of
+    the two passes' plain versions on one rank's inputs drawn the same way
+    (the tiles' fp32 columns from col0), the bytes the function moves, and
+    the paths' shapes among the defaults."""
+    from diffusionkit_tpu_torch.ops import fused_quant as fq
+
+    shapes = {"quantize_two_pass": [(3, 512)], "gelu_quantize_two_pass": [(2, 128)],
+              "gelu_quant_tiles": [(4, 256, 256, 2)]}
+    rows = bench_rows.run(shapes, device="cpu")
+    assert [r["bytes"] for r in rows] == [3 * 1536 + 4 * 3, 3 * 256 + 4 * 2,
+                                          5 * 1024 + 4 * 8]
+    gen = torch.Generator().manual_seed(0)
+    for r, form in zip(rows[:2], (None, "erf")):
+        y = (torch.randn(r["shape"], generator=gen) * 2).bfloat16()
+        want = fq.quantize_amax_plain(y, fq.row_absmax_plain(y, form), form)
+        assert r["warm_ms"] is None and r["copies"] == 1
+        assert torch.equal(r["out"].x8, want.x8) and torch.equal(r["out"].xscale, want.xscale)
+    g = torch.randn(4, 256, generator=gen) * 2
+    want8, want_s = fq.tile_quantize_plain(g, fq.tile_absmax_plain(g, 256, 2), 256)
+    assert torch.equal(rows[2]["out"][0], want8) and torch.equal(rows[2]["out"][1], want_s)
+    assert {(8192, 1216), (256, 5120)} <= set(bench_rows.DEFAULT_ROW_SHAPES["quantize_two_pass"])
+    assert (8192, 4864, 0, 19) in bench_rows.DEFAULT_ROW_SHAPES["gelu_quant_tiles"]
+    assert bench_rows.parse_shapes(["gelu_quant_tiles:8192,2432,2432,19"]) == {
+        "gelu_quant_tiles": [(8192, 2432, 2432, 19)]}
+
+
 def test_microbench_int8_runs_on_the_cpu():
     """Both rows of the port's microbench_int8 at a tiny shape (a ragged M
     of 40): a time each, and int8_dot equal to torch._int_mm, first call
