@@ -9,9 +9,9 @@ Phases, each raising on failure (the script then exits non-zero):
      parallel; sm_90a) and print each kernel's registers and spill bytes
      from ptxas's report, failing on a C7512 ("wgmma serialized") or on a
      spill in the d=512 and 3xTF32 flash kernels, the Hopper main loops of
-     kernels E, C and #13, the M <= 16 GEMVs of C, #13, E and #11, the row
-     kernels A', D and #4, #11's 64-deep Hopper loop, #10 or the GPTQ
-     group step;
+     kernels E, C and #13, the M <= 16 GEMVs of C, #13 (bf16 and fp32), E
+     and #11, the row kernels A', D and #4, #11's 64-deep Hopper loop, #10
+     or the GPTQ group step;
   3. each kernel against its plain torch version at the main paths' shapes,
      in bf16, against the plain math run in fp32 on the same bf16 inputs:
      mod_ln at the SD3 and FLUX shapes, flash attention at the SD3 shapes,
@@ -85,9 +85,13 @@ Phases, each raising on failure (the script then exits non-zero):
      equal to kernel and int8_dot to torch._int_mm bit for bit, each
      counter rising by exactly the launches one run makes;
   3-4f. SD3.5-large's kernels: C and #13 on fp32 x (csrc/dequant_f32.cu:
-     3xTF32 wgmma above 16 rows, an FMA tile at M <= 16; block 35's
-     linears, image and text rows and the
-     `ada` shape) within one fp32 ulp + 2K 2^-24 (|x| @ |w|) of fp32 math,
+     3xTF32 wgmma above 16 rows; block 35's linears, image and text rows)
+     within one fp32 ulp + 2K 2^-24 (|x| @ |w|) of fp32 math; their fp32
+     split-K GEMV at M <= 16 (csrc/gemv_sm90.cu) at the `ada` shapes of
+     paths z and y and of an fp32 SD3.5-large, at M = 3 and 16 on FLUX's
+     and a ragged 11 on SD3.5's, within the same bound, counted as a GEMV and an fp32
+     launch, a repeat bit for bit, timed cold and warm beside the bf16
+     GEMV at the same shape, its bound and the FMA tile it replaced;
      kernel E with block 35's fp32 bias (and fp32 output) in the GEMV, on
      #10 then #11, in gelu_quant and grouped_xs, bit-identical to its plain
      version (gelu_quant as in bf16), each timed beside its bound (fp32
@@ -127,7 +131,10 @@ Phases, each raising on failure (the script then exits non-zero):
      in bf16, w8a8 and int8 (2 blocks each), FLUX.1-schnell int4 and w4a8
      (1 dual-stream + 2 single-stream blocks each), and T5-XXL in w8a8 after
      SmoothQuant (2 layers); SD3-medium in fp32 on the card (every joint
-     attention on kernel B's fp32 instantiation) against fp32 on the CPU;
+     attention on kernel B's fp32 instantiation), and the int8 SD3-medium's
+     and int4 FLUX.1-schnell's fp32 twins (the CPU's fp32 model on the card:
+     paths y's and z's forms, #13 / C on the 3xTF32 loop, the fp32 GEMV at
+     each `ada`) against the same CPU output within 1e-4;
      and SD3.5-large at full width, 3 blocks with block 1 upcast to fp32
      (its calls on the fp32 entries, counted apart), in bf16, int4, w4a8,
      int8 (a float model quantized whole at group 32), w8a8 (random w8a8
@@ -251,6 +258,23 @@ Phases, each raising on failure (the script then exits non-zero):
         those of the conversion's requests bit for bit, each image's PSNR
         against the twin's printed, and GPTQ's block-linear error at most
         1.1x ALS's (as p's);
+     y. fp32 weights (the reference's w16=False, with a16=False): a float
+        fp32 SD3-medium drawn on the card and given to DiffusionPipeline(
+        w16=False, a16=False, use_t5=False, quantize_mmdit="int8"), which
+        converts it at group 32; CLIP-L/G and the VAE decoder in fp32; a's
+        settings, one request and its repeat: #13 on the 3xTF32 loop at the
+        2048 and 308 rows, the fp32 GEMV at every M = 2 linear (each
+        `ada`, the y / t embedders'), kernel B's fp32 form in every joint
+        attention and the decoder, A in fp32; no C, E, #11, D, A' or #4,
+        and every launch on an fp32 form;
+     z. b's configuration under FluxPipeline(w16=False, a16=False): int4
+        block linears drawn packed at group 64 with every float leaf in
+        fp32, T5-XXL at 256 tokens, CLIP-L and the VAE in fp32, b's
+        settings, one request and its repeat: C on the 3xTF32 loop at the
+        4352, 4096 and 256 rows, the fp32 GEMV at all 76 `ada`s a step, B
+        and A in fp32; every launch on an fp32 form. y and z check what
+        every path checks (the repeat and the synced loop bit for bit, the
+        launch counts, the fp32 GEMV's exactly the `ada`s times the steps);
      l. img2img on a's models: a's request-1 image (a 530 x 520 copy, so
         read_image's LANCZOS resize runs) through DiffusionPipeline(
         local_ckpt=...) at 512², 50 steps at denoise 0.6 (the last 30 run),
@@ -382,9 +406,9 @@ Phases, each raising on failure (the script then exits non-zero):
         the images b's, the launches b's;
      (run in the order a, a', a'', l, n (and the CLI), p, the mode table,
      h, h', d, e, b, o, c, m, g, g', f, q, r1, r, s, i, x, x4, i', k, t, u,
-     v, j, w, so h, d and e share a's encoders, h a's MMDiT, g c's models
-     and f g's, before f converts the T5; each later path frees the
-     previous MMDiT);
+     v, j, w, y, z, so h, d and e share a's encoders, h a's MMDiT, g c's
+     models and f g's, before f converts the T5; each later path frees the
+     previous MMDiT, and y and z every earlier model);
   7. two denoise steps of each path (the graph's replays; the synced
      loop's if the profiler sees no kernel inside a replay) under
      torch.profiler: device-busy time per step by kernel family and by
@@ -598,8 +622,8 @@ KERNELS = {
     "w4a8_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/w4a8_matmul.py:268"),
     # #11's M <= 16 GEMV, with its quantizing entry (kernel D in its prologue).
     "w8_matmul[gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/w4a8_matmul.py:530"),
-    # Kernel C on fp32 x (SD3.5-large's block 35): 3xTF32 wgmma above 16
-    # rows, an FMA tile at M <= 16.
+    # Kernel C on fp32 x above 16 rows (SD3.5-large's block 35, an fp32
+    # model's linears): 3xTF32 wgmma.
     "int4_matmul[f32]": (F32_DEQUANT_SOURCE, "diffusionkit_tpu/ops/int4_matmul.py:74"),
     # The GPTQ group step: the body of the reference's lax.scan (gbody), which
     # XLA compiles there; no Pallas call.
@@ -623,6 +647,10 @@ KERNELS = {
                             "diffusionkit_tpu/ops/int4_matmul.py:244"),
     # #13 on fp32 x (SD3.5-large int8's block 35): C's fp32 tile with bytes.
     "int8_matmul[f32]": (F32_DEQUANT_SOURCE, "diffusionkit_tpu/ops/int4_matmul.py:244"),
+    # C and #13 on fp32 x at M <= 16 (an fp32 model's `ada` GEMVs): the
+    # split-K GEMV with fp32 FMAs.
+    "int4_matmul[f32-gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/int4_matmul.py:74"),
+    "int8_matmul[f32-gemv]": (GEMV_SOURCE, "diffusionkit_tpu/ops/int4_matmul.py:244"),
 }
 # Each GEMV's entry in the line and that of its function at M > 16 (the same
 # bound; that entry points here as `small_m`).
@@ -642,7 +670,7 @@ SYMBOLS = {
     "int8_dot": "w8_mm_sm90<int, BN>", "int4_matmul[gemv]": "int4_gemv",
     "int8_matmul[gemv]": "int8_gemv", "w4a8_matmul[gemv]": "w4a8_gemv",
     "w8_matmul[gemv]": "w8_gemv<XT, OutT>",
-    "int4_matmul[f32]": "dequant_mm_3xtf32<4> (M > 16), dequant_mm_f32<4> (M <= 16)",
+    "int4_matmul[f32]": "dequant_mm_3xtf32<4>",
     "gptq_group": "gptq_group_kernel<GS>",
     "quantize[two-pass]": ("row_absmax_kernel<T, NV, ACT_NONE>, "
                            "quantize_amax_kernel<T, NV, ACT_NONE>"),
@@ -651,7 +679,9 @@ SYMBOLS = {
     "gelu_quant[tiles]": "tile_absmax_kernel, tile_quantize_kernel",
     "int4_matmul[f32out]": "int4_mm_sm90<BN, float> (M > 16), int4_gemv with out_f32 (M <= 16)",
     "int8_matmul[f32out]": "int8_mm_sm90<BN, float> (M > 16), int8_gemv with out_f32 (M <= 16)",
-    "int8_matmul[f32]": "dequant_mm_3xtf32<8> (M > 16), dequant_mm_f32<8> (M <= 16)",
+    "int8_matmul[f32]": "dequant_mm_3xtf32<8>",
+    "int4_matmul[f32-gemv]": "dequant_gemv_f32<4, MT>",
+    "int8_matmul[f32-gemv]": "dequant_gemv_f32<8, MT>",
 }
 # The sources and kernels of each function's other shapes: the fp32 flash
 # kernels (3xTF32 on wgmma at d = 64 and 128, on mma.sync at d = 512);
@@ -681,6 +711,7 @@ OTHER_SOURCES = {
     **{base: {"small_m": name} for name, base in GEMVS.items()},
     **{f"{name}[f32out]": {"small_m_source": GEMV_SOURCE}
        for name in ("int4_matmul", "int8_matmul")},
+    **{f"{name}[f32]": {"small_m": f"{name}[f32-gemv]"} for name in ("int4_matmul", "int8_matmul")},
     "gptq_group": {"replaces_kind": "the body (gbody) of the reference's lax.scan over weight "
                                     "groups, compiled by XLA; not a Pallas call"},
     "w8_matmul": {"small_m": "w8_matmul[gemv]",
@@ -712,11 +743,15 @@ MAIN_PATH = {"mod_ln": "sd3", "flash_attention_bshd": "sd3", "int4_matmul": "flu
              "quantize[two-pass]": "flux-w4a8-t5w8a8-tp2",
              "gelu_quantize[two-pass]": "sd3-w8a8-tp2",
              "int4_matmul[f32out]": "sd3-int4-tp2", "int8_matmul[f32out]": "sd3-int8-tp2",
-             "int8_matmul[f32]": "sd35-int8", "gelu_quant[tiles]": "sd35-w4a8-tp2"}
+             "int8_matmul[f32]": "sd35-int8", "gelu_quant[tiles]": "sd35-w4a8-tp2",
+             "int4_matmul[f32-gemv]": "flux-fp32", "int8_matmul[f32-gemv]": "sd3-int8-fp32"}
 # The two tool paths: each tool's run at the reference's default shape.
 TOOLS = {"bench-w4a8-mat": bench_w4a8_mat, "microbench-int8": microbench_int8}
 # Per-request launches the attention kernels must match exactly.
-EXACT = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
+# Counted exactly on every path: the attention kernels, and the fp32 GEMV
+# (the `ada` projections of an fp32 model, and nothing else).
+EXACT = ("flash_attention_bshd", "flash_attention", "flash_attention_stats",
+         "int4_matmul[f32-gemv]", "int8_matmul[f32-gemv]")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -814,6 +849,14 @@ X4_DEPTH, X4_UPCAST, X4_LATENT = 4, (2,), (64, 64)
 # path's encoder is loaded from a checkpoint file the smoke writes, at the
 # first img2img request: SD3's namespace (first_stage_model.encoder.*, F16)
 # for l, FLUX's ae.safetensors (encoder.*, BF16) for m.
+# y and z: fp32 weights (the reference's w16=False, with a16=False): y,
+# SD3-medium int8 (a float fp32 model converted on the card at group 32),
+# CLIP-L/G and the VAE decoder in fp32, at a's settings; z, b's packed int4
+# FLUX.1-schnell with fp32 float leaves, T5-XXL, CLIP-L and the VAE in
+# fp32, at b's. One request each (and its repeat), for the smoke's time.
+SD3_INT8_FP32 = dataclasses.replace(SD3, name="sd3-int8-fp32", requests=SD3.requests[:1])
+FLUX_FP32 = dataclasses.replace(FLUX, name="flux-fp32", requests=FLUX.requests[:1])
+FP32_PATHS = (SD3_INT8_FP32.name, FLUX_FP32.name)
 SD3_IMG2IMG = dataclasses.replace(SD3, name="sd3-img2img", requests=SD3.requests[:1])
 # Loading every model from its files: n, a's requests through
 # DiffusionPipeline(load=True, low_memory_mode=True) from a's models written
@@ -991,6 +1034,8 @@ def kernel_bound(name: str, shape, dtype: str = "bf16", fp32_peak: str = "tf32x3
     ``fp32_peak``: the 3xTF32 rate, or "fp32" for the FMA rate), in the
     layout each phase times it."""
     size = 4 if dtype == "fp32" else 2  # bytes an element of q, k, v (x, y)
+    if name.endswith("[f32-gemv]"):  # C / #13's fp32 GEMV: FMAs on the CUDA cores
+        name, fp32_peak = name.replace("[f32-gemv]", ""), "fp32"
     if dtype == "fp32":
         dtype = fp32_peak
     name = name.replace("[f32]", "")  # C / #13's fp32 tile: the same function
@@ -1107,6 +1152,7 @@ def reset_counts() -> None:
     for fn in (int4_matmul, int8_matmul, w4a8_matmul, w8_matmul):
         fn.gemv_launches = 0
     int4_matmul.f32out_launches = int8_matmul.f32out_launches = 0
+    int4_matmul.f32_gemv_launches = int8_matmul.f32_gemv_launches = 0
     w8_matmul.quantizing_launches = 0
     for fn in F32_COUNTED.values():
         fn.f32_launches = 0
@@ -1130,7 +1176,10 @@ def counts() -> dict:
                 "w8_matmul[quantizing]": w8_matmul.quantizing_launches,
                 # of C's and #13's, those on bf16 x with an fp32 output
                 "int4_matmul[f32out]": int4_matmul.f32out_launches,
-                "int8_matmul[f32out]": int8_matmul.f32out_launches})
+                "int8_matmul[f32out]": int8_matmul.f32out_launches,
+                # of C's and #13's GEMV launches, those on fp32 x
+                "int4_matmul[f32-gemv]": int4_matmul.f32_gemv_launches,
+                "int8_matmul[f32-gemv]": int8_matmul.f32_gemv_launches})
     # Of each wrapper's launches, those on fp32 (an fp32-upcast block's, an
     # fp32 model's or decoder's): fp32 inputs, or for E and #11 an fp32 bias
     # or output.
@@ -2286,12 +2335,43 @@ def w8_tool_kernels(gen, tag: str):
 # SD3.5-large at 1024² with CFG: 2 x 4096 image rows, 2 x 154 text rows (2 x
 # 589 with T5), hidden 2432 = 19 x 128, FFN 9728 = 19 x 512, 38 heads of 64,
 # `ada` 14592 (4864 in the last block's text stream), group 64.
-# Kernels C and #13 in fp32 (block 35's linears; csrc/dequant_f32.cu): q/k/v/o,
-# fc1 and fc2 at the image rows, q/k/v/o at the text rows, and the `ada`
-# shape at M = 2 (an fp32 model's: block 35's own `ada` takes the bf16 c).
-# Timed: every C shape, #13's image-row shapes and its GEMV shape.
+# Kernels C and #13 in fp32 above 16 rows (block 35's linears;
+# csrc/dequant_f32.cu): q/k/v/o, fc1 and fc2 at the image rows, q/k/v/o at
+# the text rows. Timed: every C shape, #13's image-row shapes.
 F32_DEQUANT_SHAPES = [(8192, 2432, 2432, 64), (8192, 2432, 9728, 64), (8192, 9728, 2432, 64),
-                      (308, 2432, 2432, 64), (2, 2432, 14592, 64)]
+                      (308, 2432, 2432, 64)]
+# C and #13 on fp32 x at M <= 16 (the fp32 GEMV of csrc/gemv_sm90.cu): the
+# `ada` shapes of the fp32 paths, z's dual and single blocks (M = 1, group
+# 64) and y's blocks (M = 2, group 32), and an fp32 SD3.5-large's (M = 2,
+# group 64), each kernel's main path's first; each checked and timed warm
+# and with the weight cold in L2, beside the bf16 GEMV at the same shape;
+# M = 3 and 16 at FLUX's shapes (timed) and a ragged 11 at SD3.5's
+# (checked).
+F32_GEMV_SHAPES = {
+    "int4_matmul": [(1, 3072, 18432, 64), (1, 3072, 9216, 64), (2, 2432, 14592, 64),
+                    (2, 1536, 9216, 32), (3, 3072, 9216, 64), (16, 3072, 18432, 64)],
+    "int8_matmul": [(2, 1536, 9216, 32), (1, 3072, 18432, 64), (1, 3072, 9216, 64),
+                    (2, 2432, 14592, 64), (3, 3072, 9216, 64), (16, 3072, 18432, 64)],
+}
+F32_GEMV_RAGGED = (11, 2432, 14592, 64)
+# The FMA tile that C and #13 ran at these shapes before the GEMV
+# (dequant_mm_f32<BITS>: N / 64 blocks of 16 x 64, each over all of K), its
+# warm and cold ms by tools/bench_gemv.py on the tree before the GEMV
+# (NVIDIA H100 80GB HBM3, 700.00 W).
+F32_TILE_MS = {
+    ("int4_matmul", (2, 2432, 14592, 64)): (0.12117, 0.12228),
+    ("int4_matmul", (1, 3072, 18432, 64)): (0.22914, 0.22931),
+    ("int4_matmul", (1, 3072, 9216, 64)): (0.15308, 0.15311),
+    ("int4_matmul", (2, 1536, 9216, 32)): (0.07831, 0.07850),
+    ("int4_matmul", (3, 3072, 9216, 64)): (0.15425, 0.15296),
+    ("int4_matmul", (16, 3072, 18432, 64)): (0.23345, 0.23530),
+    ("int8_matmul", (2, 2432, 14592, 64)): (0.13398, 0.13479),
+    ("int8_matmul", (1, 3072, 18432, 64)): (0.23891, 0.24021),
+    ("int8_matmul", (1, 3072, 9216, 64)): (0.16744, 0.16837),
+    ("int8_matmul", (2, 1536, 9216, 32)): (0.08482, 0.08579),
+    ("int8_matmul", (3, 3072, 9216, 64)): (0.16946, 0.17133),
+    ("int8_matmul", (16, 3072, 18432, 64)): (0.24219, 0.24341),
+}
 # Kernel E with block 35's fp32 bias (and fp32 output but for gelu_quant's
 # int8): the `ada` GEMV with a bf16 output (its input is the bf16 c) and
 # with an fp32 one, mode plain above 16 rows on #10 then #11 ("mat", fp32
@@ -2425,7 +2505,7 @@ def sd35_f32_kernels(gen, tag: str, errs: dict, times: dict) -> None:
             if not ok:
                 raise AssertionError(f"w4a8_matmul[{mode}] {label} disagrees with its plain version")
         # Mode plain's "mat" route (#10 then #11) is filed under mode plain.
-        key = "w4a8_matmul[gemv]" if route == "tile" else f"w4a8_matmul[{mode}]"
+        key = "w4a8_matmul[gemv]" if route == "gemv" else f"w4a8_matmul[{mode}]"
         errs[key].append(err)
         del got, want
         m, k, n, group = shape
@@ -2438,6 +2518,59 @@ def sd35_f32_kernels(gen, tag: str, errs: dict, times: dict) -> None:
         times[key].append(t)
         del args, extra
         torch.cuda.empty_cache()
+
+
+def f32_gemv_kernels(gen, tag: str, errs: dict, times: dict) -> None:
+    """Phase 3-4f, the fp32 GEMV: C and #13 on fp32 x at F32_GEMV_SHAPES and
+    F32_GEMV_RAGGED within one fp32 ulp + 2K 2^-24 (|x| @ |w|) of fp32 math,
+    each call counted as a GEMV and an fp32 launch (``f32_gemv_launches``),
+    a second call bit for bit the first; timed cold (``gemv_cold_ms``, the
+    number held against the bound) and warm, beside the plain version, the
+    bf16 GEMV at the same shape (cold and warm) and the FMA tile it
+    replaced (F32_TILE_MS)."""
+    for fn, plain_fn in ((int4_matmul, int4_matmul_plain), (int8_matmul, int8_matmul_plain)):
+        name = fn.__name__
+        key = f"{name}[f32-gemv]"
+        for shape in F32_GEMV_SHAPES[name] + [F32_GEMV_RAGGED]:
+            m, k, n, group = shape
+            if name == "int4_matmul":
+                x, qw, sc, zr = random_int4(shape, gen)
+                x = x.float()
+            else:
+                x, qw, sc, zr = random_int8(shape, gen, torch.float32)
+            counters = ("launches", "gemv_launches", "f32_launches", "f32_gemv_launches")
+            before = [getattr(fn, c) for c in counters]
+            got = fn(x, qw, sc, zr)
+            torch.cuda.synchronize()
+            grew = [getattr(fn, c) - b for c, b in zip(counters, before)]
+            if grew != [1, 1, 1, 1]:
+                raise AssertionError(f"{name} fp32 {shape}: launches by counter {grew}, not the "
+                                     f"fp32 GEMV's one")
+            errs.setdefault(key, []).append(check_dequant(name, shape, x, qw, sc, zr, got))
+            if not torch.equal(fn(x, qw, sc, zr), got):
+                raise AssertionError(f"{key} {shape}: a repeat differs")
+            del got
+            if shape == F32_GEMV_RAGGED:
+                continue
+            warm = device_ms(lambda: fn(x, qw, sc, zr))
+            plain = device_ms(lambda: plain_fn(x, qw, sc, zr), reps=5)
+            xb = x.bfloat16()
+            bf16_warm = device_ms(lambda: fn(xb, qw, sc, zr))
+            cold, copies = gemv_cold_ms(f"{name}[f32]", shape)
+            bf16_cold, _ = gemv_cold_ms(name, shape)
+            tile = F32_TILE_MS.get((name, shape))
+            # (the tile's times, an earlier run's, stay out of the kernels line)
+            t = timing(key, shape, cold, plain, "fp32", warm_ms=warm, cold_copies=copies,
+                       library_ms=None, bf16_gemv_ms=bf16_cold, bf16_gemv_warm_ms=bf16_warm)
+            wbytes = bench_gemv.weight_bytes(name, k, n, group)
+            log(f"  {key} (M, K, N, group) {shape}: kernel cold {cold!r} ms ({wbytes / cold / 1e9!r}"
+                f" TB/s of weight, scales and zeros; {copies} weight copies), warm {warm!r} ms, "
+                f"plain {plain!r} ms; the bf16 GEMV cold {bf16_cold!r} ms (the fp32 one at "
+                f"{cold / bf16_cold!r}x), warm {bf16_warm!r} ms; the FMA tile it replaced "
+                f"(warm, cold; an earlier run's) {tile!r} ms; {bound_note(t)} [{tag}]")
+            times.setdefault(key, []).append(t)
+            del x, xb, qw, sc, zr
+            torch.cuda.empty_cache()
 
 
 def sd35_width_kernels(gen, tag: str, errs: dict, times: dict) -> None:
@@ -2508,7 +2641,7 @@ def sd35_width_kernels(gen, tag: str, errs: dict, times: dict) -> None:
             got = w4a8_matmul(*args, mode=mode)
             torch.cuda.synchronize()
             want = w4a8_matmul_plain(*args, mode=mode)
-            key = "w4a8_matmul[gemv]" if route == "tile" else f"w4a8_matmul[{mode}]"
+            key = "w4a8_matmul[gemv]" if route == "gemv" else f"w4a8_matmul[{mode}]"
             errs[key].append(check_w4a8_result(mode, got, want,
                                                f"(M, K, N, group) {shape}, route {route}"))
             if route == "mat":  # and kernel E's own Hopper loop at the same shape
@@ -2875,16 +3008,18 @@ def fp32_cpu_mirror(model: torch.nn.Module, make) -> torch.nn.Module:
 
 
 def reference_check(model, ref, inputs, want_counts: dict, label: str,
-                    rtol: float = REF_RTOL) -> None:
+                    rtol: float = REF_RTOL, want=None) -> torch.Tensor:
     """Phase 5: a full-width, reduced-depth model in bf16 (or fp32) with the
     kernels on the card against the same weights in fp32 on the CPU (plain
-    path), within ``rtol`` relative L2. A counter the check does not name
-    must stay at 0."""
+    path; ``want``, its output, where it has run already), within ``rtol``
+    relative L2. A counter the check does not name must stay at 0. Returns
+    the CPU's output."""
     reset_counts()
     with torch.inference_mode():
         got = model(*(t.cuda() for t in inputs)).float().cpu()
         have = counts()
-        want = ref(*inputs).float()
+        if want is None:
+            want = ref(*inputs).float()
     off = {name: (have[name], want_counts.get(name, 0)) for name in have
            if have[name] != want_counts.get(name, 0)}
     if off:
@@ -2894,18 +3029,26 @@ def reference_check(model, ref, inputs, want_counts: dict, label: str,
         f"(tolerance {rtol}), finite {bool(torch.isfinite(got).all())}, launches {have}")
     if not (rel < rtol and torch.isfinite(got).all()):
         raise AssertionError(f"{label}: the model on the card disagrees with fp32 on the CPU")
+    return want
 
 
 def mmdit_check(cfg, inputs, want_counts: dict, label: str, gen, quantize_bits=None,
-                convert=None, rtol: float = REF_RTOL) -> None:
+                convert=None, rtol: float = REF_RTOL, fp32_counts=None) -> None:
     """``reference_check`` of a random MMDiT drawn on the card (packed
     blocks with ``quantize_bits``), then converted in place by
-    ``convert``."""
+    ``convert``. With ``fp32_counts``, the CPU's fp32 model itself then runs
+    on the card (the model's fp32 twin: every float leaf fp32, the packed
+    leaves the same), its launches ``fp32_counts``, against the same CPU
+    output within FP32_RTOL."""
     model = init_mmdit(cfg, gen, "cuda", quantize_bits=quantize_bits)
     if convert is not None:
         convert(model)
     ref = fp32_cpu_mirror(model, lambda: MMDiT(dataclasses.replace(cfg, dtype=torch.float32)))
-    reference_check(model, ref, inputs, want_counts, label, rtol)
+    want = reference_check(model, ref, inputs, want_counts, label, rtol)
+    if fp32_counts is not None:
+        del model
+        reference_check(ref.to("cuda"), None, inputs, fp32_counts, f"{label}, its fp32 twin",
+                        FP32_RTOL, want)
 
 
 def per_forward_sd3(depth: int, mode=None) -> dict:
@@ -2962,6 +3105,17 @@ def per_forward_sd3(depth: int, mode=None) -> dict:
         per.update({"int4_matmul": 12 * dual + 9, "int8_matmul": 2 * depth,
                     "int8_matmul[gemv]": 2 * depth})
     return per
+
+
+def fp32_model(per: dict) -> dict:
+    """The launches ``per`` of a model whose float leaves are all fp32 (and
+    a decoder in fp32): each counted kernel's launches all on its fp32 form
+    too (``[f32]``), C's and #13's M <= 16 GEMVs all the fp32 GEMV's."""
+    out = dict(per)
+    out.update({f"{k}[f32]": v for k, v in per.items() if k in F32_COUNTED})
+    out.update({f"{k}[f32-gemv]": per[f"{k}[gemv]"] for k in ("int4_matmul", "int8_matmul")
+                if f"{k}[gemv]" in per})
+    return out
 
 
 def per_forward_sd35(depth: int, upcast: int, mode=None, converted: bool = False) -> dict:
@@ -3040,9 +3194,8 @@ def reference_checks(gen) -> None:
                 "SD3 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen)
     # The same in fp32 on the card: every joint attention (1178 tokens) on
     # kernel B's fp32 instantiation, kernel A in fp32.
-    per = per_forward_sd3(2)
     mmdit_check(dataclasses.replace(sd3, dtype=torch.float32), inputs,
-                {**per, **{f"{k}[f32]": v for k, v in per.items() if k in F32_COUNTED}},
+                fp32_model(per_forward_sd3(2)),
                 "SD3 MMDiT fp32 2 blocks x hidden 1536, 512² CFG batch", gen, rtol=FP32_RTOL)
     # SD3.5-large at full width (hidden 2432 = 19 x 128, 38 heads of 64), 3
     # blocks with block 1 upcast to fp32 (the reference's block 35; its
@@ -3085,20 +3238,27 @@ def reference_checks(gen) -> None:
                               "flash_attention_bshd": 2},
                 "SD3 w8a8 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen,
                 quantize_bits="w8a8")
-    # SD3 int8: a float model quantized at load on the card at group 32.
+    # SD3 int8: a float model quantized at load on the card at group 32;
+    # then its fp32 twin, path y's form: #13 on the 3xTF32 loop above 16
+    # rows and the fp32 GEMV at every M = 2 linear (the `ada`, the y / t
+    # embedders').
     mmdit_check(sd3, inputs, per_forward_sd3(2, "int8"),
                 "SD3 int8 MMDiT 2 blocks x hidden 1536, 512² CFG batch", gen,
-                convert=lambda m: quantize_module_(m, 32, bits=8))
+                convert=lambda m: quantize_module_(m, 32, bits=8),
+                fp32_counts=fp32_model(per_forward_sd3(2, "int8")))
     # 512²: 1024 image + 256 text tokens, above the flash threshold.
     flux = dataclasses.replace(FLUX_SCHNELL, depth_multimodal=1, depth_unified=2)
     inputs = [torch.from_numpy(rs.randn(1, 64, 64, 16).astype(np.float32)),
               torch.from_numpy(rs.randn(1, 256, 4096).astype(np.float32)),
               torch.from_numpy(rs.randn(1, 768).astype(np.float32)),
               torch.tensor([1000.0])]
-    mmdit_check(flux, inputs, {"mod_ln": 4 + 2 + 1, "flash_attention_bshd": 3,
-                               "int4_matmul": 2 * 7 + 2 * 7, "int4_matmul[gemv]": 2 + 2},
+    per = {"mod_ln": 4 + 2 + 1, "flash_attention_bshd": 3, "int4_matmul": 2 * 7 + 2 * 7,
+           "int4_matmul[gemv]": 2 + 2}
+    # Then its fp32 twin, path z's form: C on the 3xTF32 loop and the fp32
+    # GEMV at each `ada`.
+    mmdit_check(flux, inputs, per,
                 "FLUX.1-schnell int4 MMDiT 1 dual + 2 single blocks x hidden 3072, 512²",
-                gen, quantize_bits=4)
+                gen, quantize_bits=4, fp32_counts=fp32_model(per))
     # The same at w4a8: per dual block plain 8 (ada x2, v and o of the image
     # stream, the text stream's q/k/v/o), norm_rope 2, gelu_quant 2,
     # grouped_xs 2; per single block 3 (ada, v, o), 2, 1, 1; mode plain
@@ -3167,7 +3327,7 @@ def per_request_launches(path: Path, cfg) -> dict:
         per["flash_attention_bshd"] += 1  # the VAE mid-block, bf16
         return per
     if path.name.startswith("sd3"):
-        mode = {"sd3-w8a8": "w8a8", "sd3-int8": "int8",
+        mode = {"sd3-w8a8": "w8a8", "sd3-int8": "int8", SD3_INT8_FP32.name: "int8",
                 **{p.name: m for m, p in QUALITY.items()}}.get(path.name)
         per = {k: path.steps * v for k, v in per_forward_sd3(cfg.depth_multimodal, mode).items()}
         # Kernel B runs where a sequence passes FLASH_ATTN_THRESHOLD: the
@@ -3181,16 +3341,17 @@ def per_request_launches(path: Path, cfg) -> dict:
         if path.name == SD3_RING.name:
             per["flash_attention_stats"] = per["flash_attention_bshd"] - 1
             per["flash_attention_bshd"] = 1
-        return per
+        return fp32_model(per) if path.name in FP32_PATHS else per
     dual, uni = cfg.depth_multimodal, cfg.depth_unified
     if path.name == FLUX_DEV_PATH.name:  # bf16: kernels A and B only
         return {"mod_ln": path.steps * (4 * dual + uni + 1),
                 "flash_attention_bshd": path.steps * (dual + uni) + 1}
-    if path.name == FLUX.name:
-        return {"mod_ln": path.steps * (4 * dual + uni + 1),
-                "flash_attention_bshd": path.steps * (dual + uni) + 1,
-                "int4_matmul": path.steps * (2 * 7 * dual + 7 * uni),
-                "int4_matmul[gemv]": path.steps * (2 * dual + uni)}
+    if path.name in (FLUX.name, FLUX_FP32.name):
+        per = {"mod_ln": path.steps * (4 * dual + uni + 1),
+               "flash_attention_bshd": path.steps * (dual + uni) + 1,
+               "int4_matmul": path.steps * (2 * 7 * dual + 7 * uni),
+               "int4_matmul[gemv]": path.steps * (2 * dual + uni)}
+        return fp32_model(per) if path.name in FP32_PATHS else per
     img = (path.latent[0] // 2) * (path.latent[1] // 2)  # 2 x 2 latent patches a token
     per = {k: path.steps * v for k, v in per_block_w4a8(dual, uni, img, path.txt_tokens).items()}
     per.update({"mod_ln": path.steps, "int4_matmul": 0,
@@ -3276,6 +3437,61 @@ def build_sd3_quantized(mode: str):
         return pipe
 
     return build
+
+
+def fp32_models_check(pipe, bits: int) -> None:
+    """Every float tensor of the pipeline's models fp32, and every block
+    linear of its MMDiT packed at ``bits``."""
+    names = ("mmdit", "clip_l", "clip_g", "t5", "decoder")
+    for name in names:
+        model = getattr(pipe, name, None)
+        if model is None:
+            continue
+        kinds = {t.dtype for t in model.state_dict().values() if t.is_floating_point()}
+        if kinds != {torch.float32}:
+            raise AssertionError(f"{name}: float tensors in {kinds}, not fp32 alone")
+    block = pipe.mmdit.mm_blocks[0].img
+    if not all(isinstance(getattr(block, n), QuantizedLinear) and getattr(block, n).bits == bits
+               for n in ("q", "ada", "fc1", "fc2")):
+        raise AssertionError(f"a block linear is not int{bits}")
+
+
+def build_sd3_int8_fp32(gen, _prev) -> DiffusionPipeline:
+    """Path y: a float fp32 SD3-medium drawn on the card and given to
+    DiffusionPipeline(w16=False, a16=False, quantize_mmdit="int8"), which
+    converts it on the card at group 32; CLIP-L/G and the VAE decoder drawn
+    in fp32."""
+    pipe = DiffusionPipeline(load=False, low_memory_mode=False, device="cuda", use_t5=False,
+                             quantize_mmdit="int8", w16=False, a16=False)
+    pipe.clip_l = init_clip(CLIP_L, gen, "cuda", dtype=torch.float32)
+    pipe.clip_g = init_clip(CLIP_G, gen, "cuda", dtype=torch.float32)
+    pipe.decoder = init_vae_decoder(VAEDecoderConfig(), gen, "cuda", dtype=torch.float32)
+    vocab = synthetic_clip_vocab()
+    pipe.tokenizer_l = CLIPTokenizer({}, vocab, pad_with_eos=True)
+    pipe.tokenizer_g = CLIPTokenizer({}, vocab, pad_with_eos=False)
+    t0 = time.perf_counter()
+    pipe.mmdit = init_mmdit(dataclasses.replace(SD3_2b, dtype=torch.float32), gen, "cuda")
+    torch.cuda.synchronize()
+    fp32_models_check(pipe, 8)
+    log(f"  float fp32 SD3-medium drawn and converted to int8 on the card in "
+        f"{time.perf_counter() - t0!r} s")
+    return pipe
+
+
+def build_flux_fp32(gen, _prev) -> FluxPipeline:
+    """Path z: b's configuration under FluxPipeline(w16=False, a16=False):
+    FLUX.1-schnell with int4 block linears drawn packed (group 64) and its
+    float leaves in fp32, T5-XXL, CLIP-L and the VAE decoder in fp32."""
+    pipe = FluxPipeline(load=False, low_memory_mode=False, device="cuda", w16=False, a16=False)
+    pipe.mmdit = init_mmdit(dataclasses.replace(FLUX_SCHNELL, dtype=torch.float32), gen, "cuda",
+                            quantize_bits=4)
+    pipe.t5 = init_t5(T5_XXL, gen, "cuda", dtype=torch.float32)
+    pipe.clip_l = init_clip(CLIP_L, gen, "cuda", dtype=torch.float32)
+    pipe.decoder = init_vae_decoder(VAEDecoderConfig(), gen, "cuda", dtype=torch.float32)
+    pipe.tokenizer_l = CLIPTokenizer({}, synthetic_clip_vocab(), pad_with_eos=True)
+    pipe.t5_tokenizer = SyntheticT5Tokenizer(max_length=256)
+    fp32_models_check(pipe, 4)
+    return pipe
 
 
 def build_flux_e2e(gen, prev: FluxPipeline) -> FluxPipeline:
@@ -3430,6 +3646,15 @@ def serve(pipe, path: Path, tag: str):
     launches = counts()
     check_launches(launches, per_request_launches(path, pipe.mmdit.config),
                    len(path.requests) + 1, f"the {path.name} main path")
+    if path.name in FP32_PATHS:  # every launch on an fp32 form, none on a bf16 one
+        bf16 = {k: launches[k] - launches[f"{k}[f32]"] for k in F32_COUNTED
+                if k in launches and launches[k] != launches[f"{k}[f32]"]}
+        if bf16:
+            raise AssertionError(f"{path.name}: launches off the fp32 forms {bf16}")
+        # the plain fp32 GEMMs and convolutions (embedders, final layer, T5,
+        # CLIP, the VAE) as the reference's fp32: no TF32
+        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+            raise AssertionError(f"{path.name}: TF32 is on")
 
     finite = bool(torch.isfinite(latents).all())
     log(f"  latents {tuple(latents.shape)} finite: {finite}, "
@@ -3455,6 +3680,8 @@ def serve(pipe, path: Path, tag: str):
     if path.name in (FLUX_W4A8.name, FLUX_E2E.name, SD3_W8A8.name, FLUX_RING.name, SD35.name,
                      SD35_W4A8_MIXED.name, SD35_W8A8.name, FLUX_DEV_GPTQ.name):
         rate, peak_name, peak = "TOP/s", "int8", 2 * peak  # the int8 tensor cores
+    if path.name in FP32_PATHS:  # fp32-accurate products: 3xTF32 on the tensor cores
+        peak_name, peak = "3xTF32", PEAK["tf32x3"]
     for i, lg in enumerate(logs):
         it = lg["denoising"]["iter_time"]
         median_ms = 1e3 * statistics.median(it)
@@ -5153,13 +5380,13 @@ def profile_steps(pipe, path: Path, step_ms: float, loop_ms: float, tag: str) ->
 # The redesigned kernels, held to 0 spill bytes (and, with the rest, to no
 # C7512, "wgmma serialized"): the d = 512 wgmma kernel and its merge, the
 # 3xTF32 fp32 flash kernels, #14's 64-row kernel at d = 64, the Hopper main
-# loops of E, C and #13, the M <= 16 GEMVs of C, #13, E and #11, the row
-# kernels A', D and #4, #11's 64-deep Hopper loop, #10 and the GPTQ group
-# step at every group size.
+# loops of E, C and #13, the M <= 16 GEMVs of C, #13 (bf16 and fp32), E and
+# #11, the row kernels A', D and #4, #11's 64-deep Hopper loop, #10 and the
+# GPTQ group step at every group size.
 NO_SPILL = ("flash_fwd_wide_sm90", "flash_wide_merge", "flash_fwd_3xtf32", "flash_fwd_sm90_stats64",
             "w4a8_mm_sm90", "int4_mm_sm90", "int8_mm_sm90", "int4_gemv", "int8_gemv", "w4a8_gemv",
             "w8_gemv", "mod_ln_quant_kernel", "quantize_kernel", "gelu_quantize_kernel",
-            "w8_mm_sm90_k64", "dequant_w8_kernel", "dequant_mm_3xtf32", "dequant_mm_f32",
+            "w8_mm_sm90_k64", "dequant_w8_kernel", "dequant_mm_3xtf32", "dequant_gemv_f32",
             "gptq_group_kernel")
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -6080,9 +6307,11 @@ def main() -> None:
     launches = tool_paths(tag)
     torch.cuda.empty_cache()
     log("phase 3-4f: SD3.5-large's kernels: C and #13 on fp32 x, kernel E with an fp32 bias and "
-        "output, and every kernel of the SD3.5 paths at the 19 x 128 widths, against their "
-        "plain versions on the card, and their device times")
+        "output, C and #13's fp32 GEMV at the fp32 paths' `ada` shapes, and every kernel of the "
+        "SD3.5 paths at the 19 x 128 widths, against their plain versions on the card, and "
+        "their device times")
     sd35_f32_kernels(gen, tag, errs, times)
+    f32_gemv_kernels(gen, tag, errs, times)
     sd35_width_kernels(gen, tag, errs, times)
     torch.cuda.empty_cache()
     log("phase 3-4g: the GPTQ group kernel against its plain version inside whole GPTQs, and "
@@ -6151,7 +6380,9 @@ def main() -> None:
             ("u", SD35_INT8, build_sd35_converted("int8"), True),
             ("v", SD35_W8A8, build_sd35_converted("w8a8"), True),
             ("j", FLUX_DEV_PATH, build_flux_dev, True),
-            ("w", FLUX_DEV_GPTQ, build_flux_dev_gptq, True))
+            ("w", FLUX_DEV_GPTQ, build_flux_dev_gptq, True),
+            ("y", SD3_INT8_FP32, build_sd3_int8_fp32, False),
+            ("z", FLUX_FP32, build_flux_fp32, False))
     for letter, path, build, reuse in plan:
         if not reuse:
             pipe = None

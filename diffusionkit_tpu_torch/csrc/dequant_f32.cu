@@ -1,10 +1,10 @@
-// Kernels C (int4_matmul) and #13 (int8_matmul) on fp32 activations: the
-// weight-only linears of an fp32-upcast block (SD3.5-large's block 35) and
-// of any fp32 model. Above 16 rows `dequant_mm_3xtf32<BITS>`, the products
-// on the tensor cores as 3xTF32 wgmma; at M <= 16 (the `ada` GEMVs of an
-// fp32 model: SD3.5's block 35 feeds its `ada` the model-dtype c, so the
-// bf16 GEMV of gemv_sm90.cu takes those) `dequant_mm_f32<BITS>`, a SIMT FMA
-// tile.
+// Kernels C (int4_matmul) and #13 (int8_matmul) on fp32 activations above
+// 16 rows: the weight-only linears of an fp32-upcast block (SD3.5-large's
+// block 35) and of any fp32 model, `dequant_mm_3xtf32<BITS>`, the products
+// on the tensor cores as 3xTF32 wgmma. At M <= 16 (the `ada` GEMVs of an
+// fp32 model) the split-K GEMV of gemv_sm90.cu, `dequant_gemv_f32`, runs
+// them; it replaced an FMA tile of 16 x 64 that each of N / 64 blocks ran
+// over all of K (5.5 and 8.9 % of the bytes bound at SD3.5-large's `ada`).
 //
 // Replaces, at fp32, the Pallas kernels diffusionkit_tpu/ops/int4_matmul.py:
 // int4_matmul (_kernel, C) and int8_matmul (_kernel8, #13), which the
@@ -35,11 +35,6 @@
 //    split into a hi and a lo tile; 4 stages of 48 KB. The producer fetches
 //    tile k + 1 into registers before storing tile k. Two consumer
 //    warpgroups, 64 rows each, run the wgmmas (m64n64k8 SS).
-//  * At M <= 16 a block of 256 threads owns 16 x 64 of y; per k tile of 32
-//    it stages x's 32 k of its rows (transposed) and the dequantised 32 x 64
-//    weight tile in shared memory, the next tile's x and packed words
-//    fetched into registers while the current one is multiplied; each
-//    thread accumulates 4 columns of a row by FMA in k order.
 // K tiles of 32 never straddle a group (group 32 or a multiple of 64), so a
 // tile's column takes one scale and one zero.
 
@@ -54,167 +49,6 @@
 namespace {
 
 constexpr int BK = 32;  // k a tile: within one group (32 or a multiple of 64)
-
-// ---- M <= 16: the FMA tile -------------------------------------------------
-
-namespace tile16 {
-constexpr int BM = 16, BN = 64, TM = 1, TN = 4, NTHREADS = 256;
-
-template <int BITS>
-struct Tile {
-  static_assert((BM / TM) * (BN / TN) == NTHREADS, "one TM x TN block a thread");
-  static constexpr int kXVec = BM * BK / 4;                           // float4 of x a tile
-  static constexpr int kXPer = (kXVec + NTHREADS - 1) / NTHREADS;     // ... a thread
-  static constexpr int kWWords = BITS == 4 ? BK / 8 * BN : BK * BN / 4;  // 32-bit words a tile
-  static constexpr int kWPer = (kWWords + NTHREADS - 1) / NTHREADS;
-  static constexpr int kPadM = BM + 4;  // the transposed x rows, 16-byte aligned
-};
-}  // namespace tile16
-
-// q as an exact float (q < 256).
-__device__ __forceinline__ float qf(uint32_t q) { return (float)q; }
-
-template <int BITS>
-__global__ void __launch_bounds__(tile16::NTHREADS)
-    dequant_mm_f32(const float* __restrict__ x, const void* __restrict__ qw,
-                   const float* __restrict__ scales, const float* __restrict__ zeros,
-                   float* __restrict__ y, int M, int N, int K, int group, long long lda) {
-  using namespace tile16;
-  using T = Tile<BITS>;
-  __shared__ __align__(16) float xs[BK][T::kPadM];  // x transposed: [k][m]
-  __shared__ __align__(16) float ws[BK][BN];        // the dequantised weight: [k][n]
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-
-  float4 xr[T::kXPer];
-  uint32_t wr[T::kWPer];
-  float sr[T::kWPer], zr[T::kWPer];
-
-  // Global -> registers: x's float4 i of the tile is row i / 8, k 4 (i % 8);
-  // the weight's word i is word row i / BN, column i % BN (C), or byte row
-  // i / (BN / 4), columns 4 (i % (BN / 4)) .. + 3 (#13).
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < T::kXPer; ++j) {
-      const int i = tid + j * NTHREADS;
-      const int row = i / (BK / 4), kc = i % (BK / 4);
-      xr[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < T::kXVec && m0 + row < M)
-        xr[j] = __ldg(reinterpret_cast<const float4*>(x + (long long)(m0 + row) * lda + k0) + kc);
-    }
-    const int gi = k0 / group;
-#pragma unroll
-    for (int j = 0; j < T::kWPer; ++j) {
-      const int i = tid + j * NTHREADS;
-      if (i >= T::kWWords) break;
-      int krow, col;
-      if constexpr (BITS == 4) {
-        krow = i / BN, col = i % BN;
-        wr[j] = __ldg(static_cast<const uint32_t*>(qw) + (long long)(k0 / 8 + krow) * N + n0 + col);
-      } else {
-        krow = i / (BN / 4), col = 4 * (i % (BN / 4));
-        wr[j] = __ldg(reinterpret_cast<const uint32_t*>(static_cast<const uint8_t*>(qw) +
-                                                        (long long)(k0 + krow) * N + n0 + col));
-      }
-      if constexpr (BITS == 4) {
-        sr[j] = __ldg(scales + (long long)gi * N + n0 + col);
-        zr[j] = __ldg(zeros + (long long)gi * N + n0 + col);
-      }
-    }
-  };
-  // #13's word holds 4 columns' bytes: their scales and zeros as float4s.
-  float4 s8[BITS == 8 ? T::kWPer : 1], z8[BITS == 8 ? T::kWPer : 1];
-  auto fetch_affine8 = [&](int k0) {
-    if constexpr (BITS == 8) {
-      const int gi = k0 / group;
-#pragma unroll
-      for (int j = 0; j < T::kWPer; ++j) {
-        const int i = tid + j * NTHREADS;
-        if (i >= T::kWWords) break;
-        const int col = 4 * (i % (BN / 4));
-        s8[j] = __ldg(reinterpret_cast<const float4*>(scales + (long long)gi * N + n0 + col));
-        z8[j] = __ldg(reinterpret_cast<const float4*>(zeros + (long long)gi * N + n0 + col));
-      }
-    }
-  };
-  // Registers -> shared: x transposed, the weight dequantised (q * s, then
-  // + z, each rounded).
-  auto stash = [&]() {
-#pragma unroll
-    for (int j = 0; j < T::kXPer; ++j) {
-      const int i = tid + j * NTHREADS;
-      if (i >= T::kXVec) break;
-      const int row = i / (BK / 4), k = 4 * (i % (BK / 4));
-      xs[k][row] = xr[j].x;
-      xs[k + 1][row] = xr[j].y;
-      xs[k + 2][row] = xr[j].z;
-      xs[k + 3][row] = xr[j].w;
-    }
-#pragma unroll
-    for (int j = 0; j < T::kWPer; ++j) {
-      const int i = tid + j * NTHREADS;
-      if (i >= T::kWWords) break;
-      if constexpr (BITS == 4) {
-        const int krow = i / BN, col = i % BN;
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          ws[8 * krow + e][col] = __fadd_rn(__fmul_rn(qf((wr[j] >> (4 * e)) & 0xFu), sr[j]), zr[j]);
-      } else {
-        const int krow = i / (BN / 4), col = 4 * (i % (BN / 4));
-        const float s[4] = {s8[j].x, s8[j].y, s8[j].z, s8[j].w};
-        const float z[4] = {z8[j].x, z8[j].y, z8[j].z, z8[j].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ws[krow][col + e] = __fadd_rn(__fmul_rn(qf((wr[j] >> (8 * e)) & 0xFFu), s[e]), z[e]);
-      }
-    }
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  fetch_affine8(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    stash();
-    __syncthreads();
-    if (k0 + BK < K) {  // the next tile's loads, in flight under this tile's FMAs
-      fetch(k0 + BK);
-      fetch_affine8(k0 + BK);
-    }
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[k][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; j += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(&ws[k][tx * TN + j]);
-        b[j] = v.x, b[j + 1] = v.y, b[j + 2] = v.z, b[j + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // the tile is read before the next one is stashed
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty * TM + i;
-    if (row >= M) continue;
-    float* yr = y + (long long)row * N + n0 + tx * TN;
-#pragma unroll
-    for (int j = 0; j < TN; j += 4)
-      *reinterpret_cast<float4*>(yr + j) =
-          make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
-  }
-}
 
 // ---- M > 16: 3xTF32 on wgmma ----------------------------------------------
 
@@ -418,18 +252,12 @@ __global__ void __launch_bounds__(512, 1)
 template <int BITS>
 int dispatch(const void* x, const void* qw, const void* scales, const void* zeros, void* y,
              int M, int N, int K, int group, long long lda, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || N % 64 || K % 64 || group <= 0 || K % group ||
+  if (M <= 16 || N <= 0 || K <= 0 || N % 64 || K % 64 || group <= 0 || K % group ||
       !(group == 32 || group % 64 == 0) || lda < K || lda % 4)
     return (int)cudaErrorInvalidValue;
   for (const void* p : {x, qw, scales, zeros, static_cast<const void*>(y)})
     if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= tile16::BM) {
-    dequant_mm_f32<BITS><<<dim3(N / tile16::BN, 1), tile16::NTHREADS, 0, st>>>(
-        static_cast<const float*>(x), qw, static_cast<const float*>(scales),
-        static_cast<const float*>(zeros), static_cast<float*>(y), M, N, K, group, lda);
-    return (int)cudaGetLastError();
-  }
   if ((M + tf32mm::BM - 1) / tf32mm::BM > 65535) return (int)cudaErrorInvalidValue;
   const cudaError_t a = cudaFuncSetAttribute(
       dequant_mm_3xtf32<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tf32mm::kSmem);
@@ -444,17 +272,18 @@ int dispatch(const void* x, const void* qw, const void* scales, const void* zero
 }  // namespace
 
 // Kernels C and #13 on fp32 x (M, K), rows `lda` elements apart (a multiple
-// of 4), at any M: q4 int32 words (K / 8, N) or q8 uint8 (K, N), scales and
+// of 4), at M > 16 (the wrapper sends M <= 16 to dk_int{4,8}_matmul_f32,
+// gemv_sm90.cu): q4 int32 words (K / 8, N) or q8 uint8 (K, N), scales and
 // zeros fp32 (K / group, N), y fp32 (M, N). K % 64 == 0, N % 64 == 0, group
 // 32 or a multiple of 64, every pointer 16-byte aligned.
-extern "C" int dk_int4_matmul_f32(const void* x, const void* q4, const void* scales,
-                                  const void* zeros, void* y, int M, int N, int K, int group,
-                                  long long lda, void* stream) {
+extern "C" int dk_int4_matmul_sm90_f32(const void* x, const void* q4, const void* scales,
+                                       const void* zeros, void* y, int M, int N, int K,
+                                       int group, long long lda, void* stream) {
   return dispatch<4>(x, q4, scales, zeros, y, M, N, K, group, lda, stream);
 }
 
-extern "C" int dk_int8_matmul_f32(const void* x, const void* q8, const void* scales,
-                                  const void* zeros, void* y, int M, int N, int K, int group,
-                                  long long lda, void* stream) {
+extern "C" int dk_int8_matmul_sm90_f32(const void* x, const void* q8, const void* scales,
+                                       const void* zeros, void* y, int M, int N, int K,
+                                       int group, long long lda, void* stream) {
   return dispatch<8>(x, q8, scales, zeros, y, M, N, K, group, lda, stream);
 }

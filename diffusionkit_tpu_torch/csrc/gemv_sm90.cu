@@ -1,5 +1,6 @@
 // Kernels C, #13, E (mode plain) and #11 at M <= 16: the AdaLN `ada` and
-// embedder GEMVs, split along K.
+// embedder GEMVs, split along K; C and #13 also on fp32 x (an fp32 model's
+// `ada`, dequant_gemv_f32 below).
 //
 // Replaces, at the rows these projections have (M = 1 for FLUX, 2 for SD3
 // with CFG; ops/int4_matmul.py and ops/w4a8_matmul.py route M <= 16 here),
@@ -93,6 +94,9 @@
 // its first weights load.
 
 #include <cooperative_groups.h>
+#include <stdint.h>
+
+#include <initializer_list>
 #include <type_traits>
 
 #include "common.cuh"
@@ -102,12 +106,12 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int NTHREADS = 256, BN = 128, MAX_M = 16, MAX_SPLITS = 8, MAX_TILES = 65536;
-enum Kind { INT4 = 0, INT8 = 1, W4A8 = 2 };
+enum Kind { INT4 = 0, INT8 = 1, W4A8 = 2, INT4_F32 = 3, INT8_F32 = 4 };
 
 // Per kernel and column tile, the splits that have stored their partial in
 // the current launch: zero between launches (the last split of a tile resets
 // it), so a CUDA graph may replay a launch. One stream at a time.
-__device__ int g_arrivals[3][MAX_TILES];
+__device__ int g_arrivals[5][MAX_TILES];
 
 // Per kind: columns a lane (CPT) and a warp (8 CPT), k a chunk (KC), rows
 // of a lane's chunk (ROWS; KR k a row: two packed word rows of 16 bytes, or
@@ -230,6 +234,41 @@ __device__ __forceinline__ uint32_t dequant_pair(uint32_t w, uint32_t magic, flo
   const float lo = nibble_f<0xFu>(w, magic);   // 2^23 + q0
   const float hi = nibble_f<0xF0u>(w, magic);  // 2^23 + 16 q1
   return dk::pack_bf16(__fadd_rn(__fmaf_rn(lo, s, c), z), __fadd_rn(__fmaf_rn(hi, s16, c16), z));
+}
+
+// The end of a split-K GEMV block: its H k parts' partials, red [H][M][BN],
+// summed in part order and stored to the workspace; the last of the column
+// tile's S blocks to arrive (an integer counter a tile, reset by that block)
+// sums the S partials in split order and hands each output to
+// store(m, n, v). One launch, no float atomics, the order of every sum fixed.
+template <int H, typename Acc, typename Store>
+__device__ __forceinline__ void finish(const Params& p, const Acc* red, int* last_flag,
+                                       Store store) {
+  __syncthreads();
+  const int tid = threadIdx.x, S = gridDim.x, tile = blockIdx.y, n0 = tile * BN;
+  const int total = p.M * BN;
+  Acc* parts = static_cast<Acc*>(p.partials) + (long long)tile * S * total;
+  for (int i = tid; i < total; i += NTHREADS) {
+    Acc v = red[i];
+#pragma unroll
+    for (int q = 1; q < H; ++q) v += red[q * total + i];
+    __stcg(parts + blockIdx.x * total + i, v);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int arrived = atomicAdd(p.arrivals + tile, 1);
+    *last_flag = arrived == S - 1;
+    if (arrived == S - 1) p.arrivals[tile] = 0;  // for the next launch
+  }
+  __syncthreads();
+  if (!*last_flag) return;
+  __threadfence();
+  for (int i = tid; i < total; i += NTHREADS) {
+    Acc v = __ldcg(parts + i);
+    for (int q = 1; q < S; ++q) v += __ldcg(parts + q * total + i);
+    store(i / BN, n0 + i % BN, v);
+  }
 }
 
 template <int KIND>
@@ -409,31 +448,7 @@ __device__ __forceinline__ void gemv(const Params& p) {
       for (int e = 0; e < 2; ++e)  // D fragment column 2t + e of n8 tile j
         dst[KIND == INT8 ? 16 * t + 8 * e + j : 8 * t + 4 * e + j] = acc[j][2 * hf + e];
   }
-  __syncthreads();
-  const int total = M * BN;
-  Acc* parts = static_cast<Acc*>(p.partials) + (long long)tile * S * total;
-  for (int i = tid; i < total; i += NTHREADS) {
-    Acc v = red[i];
-#pragma unroll
-    for (int q = 1; q < C::H; ++q) v += red[q * total + i];
-    __stcg(parts + blockIdx.x * total + i, v);
-  }
-  // The last of the tile's S blocks to arrive sums the partials in split
-  // order and applies the epilogue; the others are done.
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    const int arrived = atomicAdd(p.arrivals + tile, 1);
-    *last_flag = arrived == S - 1;
-    if (arrived == S - 1) p.arrivals[tile] = 0;  // for the next launch
-  }
-  __syncthreads();
-  if (!*last_flag) return;
-  __threadfence();
-  for (int i = tid; i < total; i += NTHREADS) {
-    Acc v = __ldcg(parts + i);
-    for (int q = 1; q < S; ++q) v += __ldcg(parts + q * total + i);
-    const int m = i / BN, n = n0 + i % BN;
+  finish<C::H>(p, red, last_flag, [&](int m, int n, Acc v) {
     float out;
     if constexpr (KIND == W4A8) {
       const float b = !p.bias      ? 0.f
@@ -447,7 +462,7 @@ __device__ __forceinline__ void gemv(const Params& p) {
       static_cast<float*>(p.y)[(long long)m * N + n] = out;
     else
       static_cast<bf16*>(p.y)[(long long)m * N + n] = __float2bfloat16(out);
-  }
+  });
 }
 
 __global__ void __launch_bounds__(NTHREADS, 2) int4_gemv(const Params p) { gemv<INT4>(p); }
@@ -503,6 +518,202 @@ int dequant_entry(const void* x, const void* qw, const void* scales, const void*
   Params p = params(x, lda, qw, scales, zeros, y, partials, M, N, K, group);
   p.out_f32 = out_f32;
   return launch<KIND>(KIND == INT4 ? int4_gemv : int8_gemv, p, splits, stream);
+}
+
+// -- C and #13 on fp32 x at M <= 16 ------------------------------------------
+//
+// The `ada` projections of an fp32 model (c at M = 1 for FLUX, 2 for SD3
+// with CFG): y = x @ W in fp32, W = q * s + z (the product and the sum each
+// rounded in fp32, no FMA between them) and not rounded further, the
+// products summed in fp32. The grid and the split are the bf16 GEMV's
+// (gemv_splits, whole groups a split); the products run on the CUDA cores'
+// FMA pipe, against x's rows, which every lane of a warp reads at the same
+// address (one L1 broadcast a vector), so no k permutation is needed:
+// * a block's 8 warps take 8 consecutive k parts of its slab, a warp all 128
+//   columns of the tile, a lane 4 adjacent columns (16 bytes of a packed
+//   word row, or 4 bytes of each of 4 byte rows for #13), streamed into a
+//   register ring of F32_D chunks with no L1 allocation;
+// * each chunk (8 k of C, 4 of #13) is dequantised in registers by the
+//   exact 2^23 step of the bf16 GEMV, then each of x's MT rows (M rounded
+//   up to 1, 2, 4, 8 or 16; rows past M repeat row M - 1 and are not
+//   stored) takes its chunk of x as float4 loads and one FMA a weight, in k
+//   order into the lane's fp32 sums (MT > 2 runs one block an SM: C's
+//   MT = 4 spilled at the 128 registers of two);
+// * the warps' sums go through `finish` in warp order, then the splits' in
+//   split order: no float atomics, a repeat is bit for bit.
+// Bound: bytes, as the bf16 GEMV's: 35.4 MB at FLUX's dual-block `ada`
+// (1 x 3072 x 18432, group 64), 10.6 us at 3.35 TB/s; ~4.4 operations a
+// weight at M = 1 (the dequantisation's 3 and 1.4 of nibble extraction, and
+// one FMA a row) put the issue rate near it too.
+
+constexpr int F32_CPT = 4, F32_WARPS = NTHREADS / 32, F32_D = 4;
+static_assert(32 * F32_CPT == BN, "a warp takes the column tile");
+
+// One chunk's weights of a lane: 4 columns' words of one word row (C), or
+// the 4 columns' bytes of each of 4 byte rows (#13), rows `stride` apart.
+template <int BITS>
+__device__ __forceinline__ uint4 load_chunk_f32(const unsigned char* src, long long stride,
+                                                bool valid) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (!valid) return r;
+  if constexpr (BITS == 4) {
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];"
+                 : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(src));
+  } else {
+    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(r.x) : "l"(src));
+    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(r.y) : "l"(src + stride));
+    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];"
+                 : "=r"(r.z) : "l"(src + 2 * stride));
+    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];"
+                 : "=r"(r.w) : "l"(src + 3 * stride));
+  }
+  return r;
+}
+
+template <int BITS, int MT>
+__global__ void __launch_bounds__(NTHREADS, MT <= 2 ? 2 : 1) dequant_gemv_f32(const Params p) {
+  constexpr int KC = BITS == 4 ? 8 : 4;  // k a chunk
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);  // [F32_WARPS][M][BN]
+  int* last_flag = reinterpret_cast<int*>(smem + (size_t)F32_WARPS * p.M * BN * 4);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int M = p.M, N = p.N, group = p.group;
+  const int kslab = p.K / gridDim.x, kp = kslab / F32_WARPS, L = kp / KC;
+  const int k0 = blockIdx.x * kslab + warp * kp;  // this warp's k range [k0, k0 + kp)
+  const int col = blockIdx.y * BN + F32_CPT * lane;
+  const uint32_t magic = 0x4B000000u;  // 2^23: f = magic | q is 2^23 + q
+
+  // A chunk is 4 N bytes on from the last: one word row, or four byte rows.
+  const long long rstride = BITS == 4 ? 4LL * N : N;
+  const unsigned char* wp = static_cast<const unsigned char*>(p.qw) +
+                            (BITS == 4 ? 4 * ((long long)(k0 / 8) * N + col) : (long long)k0 * N + col);
+  uint4 ring[F32_D];
+#pragma unroll
+  for (int i = 0; i < F32_D; ++i) ring[i] = load_chunk_f32<BITS>(wp + i * 4LL * N, rstride, i < L);
+
+  // The group affine, each next group's loaded a group ahead.
+  int next = k0;
+  const long long aoff = (long long)(k0 / group) * N + col;
+  float4 ps = __ldg(reinterpret_cast<const float4*>(p.scales + aoff));
+  float4 pz = __ldg(reinterpret_cast<const float4*>(p.zeros + aoff));
+  float cs[F32_CPT], cc[F32_CPT], cz[F32_CPT], cs16[F32_CPT], cc16[F32_CPT];
+
+  const float* x = static_cast<const float*>(p.x);
+  float acc[MT][F32_CPT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < F32_CPT; ++j) acc[m][j] = 0.f;
+
+#pragma unroll 1
+  for (int r0 = 0; r0 < L; r0 += F32_D) {
+#pragma unroll
+    for (int i = 0; i < F32_D; ++i) {
+      const int r = r0 + i;
+      if (r >= L) break;
+      const int k = k0 + r * KC;
+      const uint4 w = ring[i];
+      ring[i] = load_chunk_f32<BITS>(wp + (r + F32_D) * 4LL * N, rstride, r + F32_D < L);
+      if (k == next) {  // a group starts: s, -2^23 s and z (s / 16 too for C)
+        const float s[4] = {ps.x, ps.y, ps.z, ps.w}, z[4] = {pz.x, pz.y, pz.z, pz.w};
+#pragma unroll
+        for (int j = 0; j < F32_CPT; ++j) {
+          cs[j] = s[j];
+          cc[j] = -8388608.f * s[j];
+          cz[j] = z[j];
+          cs16[j] = 0.0625f * s[j];
+          cc16[j] = -8388608.f * cs16[j];
+        }
+        const int gi = k / group + 1;
+        next = gi * group;
+        if (next < k0 + kp) {
+          ps = __ldg(reinterpret_cast<const float4*>(p.scales + (long long)gi * N + col));
+          pz = __ldg(reinterpret_cast<const float4*>(p.zeros + (long long)gi * N + col));
+        }
+      }
+      // The chunk's weights, wv[j][e] at column col + j, k + e.
+      float wv[F32_CPT][KC];
+      if constexpr (BITS == 4) {
+        const uint32_t wq[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int j = 0; j < F32_CPT; ++j)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {  // byte b: nibbles 2b (low) and 2b + 1 (high)
+            const uint32_t wb = wq[j] >> (8 * b);
+            const float lo = nibble_f<0xFu>(wb, magic);   // 2^23 + q
+            const float hi = nibble_f<0xF0u>(wb, magic);  // 2^23 + 16 q
+            wv[j][2 * b] = __fadd_rn(__fmaf_rn(lo, cs[j], cc[j]), cz[j]);
+            wv[j][2 * b + 1] = __fadd_rn(__fmaf_rn(hi, cs16[j], cc16[j]), cz[j]);
+          }
+      } else {
+        const uint32_t rows[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int e = 0; e < KC; ++e)
+#pragma unroll
+          for (int j = 0; j < F32_CPT; ++j) {
+            const float f = __uint_as_float(__byte_perm(rows[e], magic, 0x7440 | j));
+            wv[j][e] = __fadd_rn(__fmaf_rn(f, cs[j], cc[j]), cz[j]);
+          }
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float4* xr = reinterpret_cast<const float4*>(x + (long long)min(m, M - 1) * p.lda + k);
+        float xv[KC];
+#pragma unroll
+        for (int v = 0; v < KC / 4; ++v) {
+          const float4 t = __ldg(xr + v);
+          xv[4 * v] = t.x, xv[4 * v + 1] = t.y, xv[4 * v + 2] = t.z, xv[4 * v + 3] = t.w;
+        }
+#pragma unroll
+        for (int j = 0; j < F32_CPT; ++j)
+#pragma unroll
+          for (int e = 0; e < KC; ++e) acc[m][j] = __fmaf_rn(xv[e], wv[j][e], acc[m][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (m >= M) break;
+    *reinterpret_cast<float4*>(red + (warp * M + m) * BN + F32_CPT * lane) =
+        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  }
+  finish<F32_WARPS>(p, red, last_flag, [&](int m, int n, float v) {
+    static_cast<float*>(p.y)[(long long)m * N + n] = v;
+  });
+}
+
+template <int BITS, int MT>
+int launch_f32(Params p, int splits, void* stream) {
+  auto kernel = dequant_gemv_f32<BITS, MT>;
+  const size_t smem = (size_t)F32_WARPS * p.M * BN * 4 + 16;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int* arrivals;
+  const cudaError_t ea = cudaGetSymbolAddress(reinterpret_cast<void**>(&arrivals), g_arrivals);
+  if (ea != cudaSuccess) return (int)ea;
+  p.arrivals = arrivals + (BITS == 4 ? INT4_F32 : INT8_F32) * MAX_TILES;
+  kernel<<<dim3(splits, p.N / BN), NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS>
+int f32_entry(const void* x, const void* qw, const void* scales, const void* zeros, void* y,
+              int M, int N, int K, int group, long long lda, int splits, void* partials,
+              void* stream) {
+  if (!takes(M, N, K, group, splits) || !(group == 32 || group % 64 == 0) || lda < K || lda % 4)
+    return (int)cudaErrorInvalidValue;
+  for (const void* ptr : {x, qw, scales, zeros, static_cast<const void*>(y),
+                          static_cast<const void*>(partials)})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return (int)cudaErrorInvalidValue;
+  const Params p = params(x, lda, qw, scales, zeros, y, partials, M, N, K, group);
+  if (M <= 1) return launch_f32<BITS, 1>(p, splits, stream);
+  if (M <= 2) return launch_f32<BITS, 2>(p, splits, stream);
+  if (M <= 4) return launch_f32<BITS, 4>(p, splits, stream);
+  if (M <= 8) return launch_f32<BITS, 8>(p, splits, stream);
+  return launch_f32<BITS, 16>(p, splits, stream);
 }
 
 // -- #11 at M <= 16: w8 int8 in (N, K), K-contiguous per column ----------------
@@ -818,6 +1029,22 @@ extern "C" int dk_int8_matmul_bf16_f32out(const void* x, const void* q8, const v
                                           void* stream) {
   return dequant_entry<INT8>(x, q8, scales, zeros, y, M, N, K, group, lda, splits, partials,
                              true, stream);
+}
+
+// Kernels C and #13 on fp32 x at M <= 16; the wrapper sends M > 16 to
+// dk_int{4,8}_matmul_sm90_f32 (dequant_f32.cu). x fp32 (M, K) rows lda
+// apart (a multiple of 4), y fp32 (M, N), the fp32 partials workspace as
+// C's; every pointer 16-byte aligned.
+extern "C" int dk_int4_matmul_f32(const void* x, const void* q4, const void* scales,
+                                  const void* zeros, void* y, int M, int N, int K, int group,
+                                  long long lda, int splits, void* partials, void* stream) {
+  return f32_entry<4>(x, q4, scales, zeros, y, M, N, K, group, lda, splits, partials, stream);
+}
+
+extern "C" int dk_int8_matmul_f32(const void* x, const void* q8, const void* scales,
+                                  const void* zeros, void* y, int M, int N, int K, int group,
+                                  long long lda, int splits, void* partials, void* stream) {
+  return f32_entry<8>(x, q8, scales, zeros, y, M, N, K, group, lda, splits, partials, stream);
 }
 
 // Kernel E in mode plain at M <= 16; the wrapper sends every other call to

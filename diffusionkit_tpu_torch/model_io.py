@@ -79,7 +79,7 @@ from .models.vae import Autoencoder, VAEDecoder, VAEEncoder
 from .ops.quantized import QuantizedLinear
 from .ops.rope import rope_head_permutation
 from .ops.w8a8 import W8A8Linear
-from .utils import get_logger
+from .utils import get_logger, tree_num_params
 
 logger = get_logger(__name__)
 
@@ -855,8 +855,8 @@ def load_mmdit(
               "sd3_raw": mmdit_from_sd3_ckpt}[detect_mmdit_namespace(sd)]
     model = mapper(sd, config, dtype, device=device)
     del sd
-    n = sum(t.numel() for t in model.state_dict().values())
-    logger.info("Loaded MMDiT %s (%.2fB parameters) from %s", model_version, n / 1e9, path)
+    logger.info("Loaded MMDiT %s (%.2fB parameters) from %s", model_version,
+                tree_num_params(model) / 1e9, path)
     return model, config
 
 

@@ -13,10 +13,12 @@ GEMVs) the split-K GEMV of ``csrc/gemv_sm90.cu`` (``gemv_splits`` blocks
 along K, each streaming its slab of the weight once, their partial sums
 added in split order in a workspace); the notes there say what bounds each
 and how it is tiled. An fp32 x (the linears of an fp32-upcast block, as
-SD3.5-large's block 35, or an fp32 model) takes ``csrc/dequant_f32.cu``:
-the weight dequantised in fp32 and not rounded further, the products as
-3xTF32 ``wgmma`` above 16 rows and on an FMA tile at M <= 16, fp32 out
-(counted in ``f32_launches`` too). ``out_dtype=torch.float32`` on bf16 x
+SD3.5-large's block 35, or an fp32 model) takes fp32 forms of the same two
+routes, the weight dequantised in fp32 and not rounded further, fp32 out
+(counted in ``f32_launches`` too): above 16 rows ``csrc/dequant_f32.cu``,
+the products as 3xTF32 ``wgmma``; at M <= 16 (an fp32 model's ``ada``
+GEMVs) ``csrc/gemv_sm90.cu``'s fp32 split-K GEMV, the products as fp32 FMAs
+(counted in ``gemv_launches`` too). ``out_dtype=torch.float32`` on bf16 x
 asks the bf16 loops for their fp32 sums unrounded (``_f32out`` entries,
 counted in ``f32out_launches``): a row-parallel linear's partial product,
 which ``ops/common.py`` sums over the ranks and rounds once.
@@ -68,6 +70,8 @@ GEMV_PART_K, GEMV_MAX_SPLITS, GEMV_SLOTS = 64, 8, 2 * 132
 # The cost of one more split against a wave's, fitted to the card's times
 # of S = 2..8 at the paths' shapes (tools/bench_gemv.py).
 GEMV_SPLIT_COST = 0.015
+# The device type whose tensors ``_launch`` hands to the kernels.
+CARD = "cuda"
 
 
 def kernel_takes(k: int, n: int, groups: int, wscale: bool = False) -> bool:
@@ -104,10 +108,11 @@ def dequant_linear(layer, x: torch.Tensor, act: Optional[str] = None) -> torch.T
 
 
 def dequant_route(m: int) -> str:
-    """The main loop of kernels C and #13 for ``m`` rows: ``"sm90"``
-    (csrc/int4_matmul_sm90.cu) above ``SMALL_M``, else ``"tile"``, the
-    split-K GEMV (csrc/gemv_sm90.cu)."""
-    return "sm90" if m > SMALL_M else "tile"
+    """The main loop of kernels C and #13 for ``m`` rows, in bf16 and in
+    fp32 alike: ``"sm90"`` (csrc/int4_matmul_sm90.cu; in fp32
+    csrc/dequant_f32.cu) above ``SMALL_M``, else ``"gemv"``, the split-K
+    GEMV (csrc/gemv_sm90.cu)."""
+    return "sm90" if m > SMALL_M else "gemv"
 
 
 def gemv_splits(k: int, n: int, group: int) -> int:
@@ -135,11 +140,11 @@ def dequant_kernel(name: str, m: int, k: int, k_w: int, n: int, groups: int,
                    out_dtype: Optional[torch.dtype] = None) -> str:
     """The C entry that runs kernel C (``name`` int4_matmul) or #13
     (int8_matmul) at these sizes for x of ``dtype`` and y of ``out_dtype``
-    (x's by default): in bf16 on the main loop ``dequant_route`` picks
-    (its ``_f32out`` form for an fp32 y), in fp32 ``csrc/dequant_f32.cu``
-    at any M; or ValueError for what none takes: K = ``k_w`` a multiple of
-    64, N of 128, group K / groups 32 or a multiple of 64, at any M;
-    TypeError for another dtype, or a bf16 y of fp32 x."""
+    (x's by default) on the main loop ``dequant_route`` picks: in bf16
+    (its ``_f32out`` form for an fp32 y) or in fp32; or ValueError for
+    what none takes: K = ``k_w`` a multiple of 64, N of 128, group K /
+    groups 32 or a multiple of 64, at any M; TypeError for another dtype,
+    or a bf16 y of fp32 x."""
     if k_w != k or not kernel_takes(k, n, groups):
         raise ValueError(f"{name}: K={k} must match the weight's {k_w} and be a multiple of "
                          f"{K_TILE}, N={n} a multiple of {N_TILE}, the group size K/{groups} "
@@ -147,11 +152,11 @@ def dequant_kernel(name: str, m: int, k: int, k_w: int, n: int, groups: int,
     out_dtype = dtype if out_dtype is None else out_dtype
     if out_dtype not in (dtype, torch.float32):
         raise TypeError(f"{name}: y must be x's dtype or fp32, got {out_dtype} for {dtype} x")
-    if dtype == torch.float32:
-        return f"dk_{name}_f32"
-    if dtype != torch.bfloat16:
+    if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: x must be bf16 or fp32 on the card, got {dtype}")
     route = "_sm90" if dequant_route(m) == "sm90" else ""
+    if dtype == torch.float32:
+        return f"dk_{name}{route}_f32"
     out = "_f32out" if out_dtype == torch.float32 else ""
     return f"dk_{name}{route}_bf16{out}"
 
@@ -225,7 +230,7 @@ def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
     scales and zeros (K/g, N) fp32, contiguous; y in ``out_dtype`` (x's
     dtype by default, or fp32)."""
     name = wrapper.__name__
-    if x.device.type != "cuda":
+    if x.device.type != CARD:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.ndim != 2:
         raise ValueError(f"{name}: x must be (M, K), got {tuple(x.shape)}")
@@ -248,7 +253,7 @@ def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m:
         f32 = x.dtype == torch.float32
-        gemv = not f32 and dequant_route(m) == "tile"
+        gemv = dequant_route(m) == "gemv"
         split = ()
         if gemv:  # S blocks along K and their fp32 partial sums
             s = gemv_splits(k, n, group)
@@ -262,13 +267,15 @@ def _launch(wrapper, x: torch.Tensor, qw: torch.Tensor, k_w: int, n: int,
         wrapper.launches += 1
         wrapper.gemv_launches += gemv
         wrapper.f32_launches += f32
+        wrapper.f32_gemv_launches += f32 and gemv
         wrapper.f32out_launches += not f32 and out_dtype == torch.float32
     return y
 
 
 int4_matmul.launches = 0
-int4_matmul.gemv_launches = 0  # of them, the bf16 M <= 16 GEMV's
-int4_matmul.f32_launches = 0  # of them, on fp32 x (csrc/dequant_f32.cu)
+int4_matmul.gemv_launches = 0  # of them, the M <= 16 GEMV's (bf16 or fp32 x)
+int4_matmul.f32_launches = 0  # of them, on fp32 x
+int4_matmul.f32_gemv_launches = 0  # of them, the fp32 GEMV's
 int4_matmul.f32out_launches = 0  # of them, bf16 x to an fp32 y (the _f32out entries)
 
 
@@ -313,6 +320,7 @@ def int8_matmul(
 int8_matmul.launches = 0
 int8_matmul.gemv_launches = 0
 int8_matmul.f32_launches = 0
+int8_matmul.f32_gemv_launches = 0
 int8_matmul.f32out_launches = 0
 
 

@@ -87,12 +87,12 @@ N_TILE = {"plain": 128, "gelu_quant": SCALE_TILE, "grouped_xs": 128, "norm_rope"
 SMALL_M = 16
 # The C entry each route runs first: kernel E's two main loops, and #10's
 # (then #11's, ``w8_matmul``) for the materialised dataflow.
-_E_SYMBOLS = {"sm90": "dk_w4a8_matmul_sm90", "tile": "dk_w4a8_matmul", "mat": "dk_dequant_w8"}
+_E_SYMBOLS = {"sm90": "dk_w4a8_matmul_sm90", "gemv": "dk_w4a8_matmul", "mat": "dk_dequant_w8"}
 
 
 def w4a8_route(m: int, mode: str) -> str:
     """The dataflow of ``w4a8_matmul`` for ``m`` rows in ``mode``. Mode
-    plain: ``"tile"``, kernel E's split-K GEMV (csrc/gemv_sm90.cu), at M <=
+    plain: ``"gemv"``, kernel E's split-K GEMV (csrc/gemv_sm90.cu), at M <=
     ``SMALL_M``; ``"mat"``, #10 ``dequant_w8`` then #11 ``w8_matmul``, above
     it. The other modes: ``"sm90"`` (csrc/w4a8_matmul_sm90.cu) at every M.
 
@@ -105,14 +105,14 @@ def w4a8_route(m: int, mode: str) -> str:
     (no FLUX w4a8 plain linear has them) take "mat" unmeasured."""
     if mode != "plain":
         return "sm90"
-    return "tile" if m <= SMALL_M else "mat"
+    return "gemv" if m <= SMALL_M else "mat"
 
 
 def w4a8_kernel(m: int, k: int, k8: int, n: int, groups: int, mode: str,
                 route: Optional[str] = None) -> str:
     """The C entry that runs ``route`` (by default ``w4a8_route``'s) at
     these sizes, or ValueError for a route that does not take ``m`` rows in
-    ``mode`` (``"tile"`` and ``"mat"`` are mode plain's, ``"tile"`` at M <=
+    ``mode`` (``"gemv"`` and ``"mat"`` are mode plain's, ``"gemv"`` at M <=
     ``SMALL_M`` only) or a shape that kernel E does not take: K = 8 * k8 a
     multiple of 128, N of the mode's column tile, group K / groups 32, 64 or
     a multiple of 128, K a multiple of 512 for grouped_xs, at any M (#10
@@ -125,7 +125,7 @@ def w4a8_kernel(m: int, k: int, k8: int, n: int, groups: int, mode: str,
         raise ValueError(f"w4a8_matmul: grouped_xs needs K a multiple of {SCALE_TILE}, got {k}")
     route = route or w4a8_route(m, mode)
     if route not in _E_SYMBOLS or (route != "sm90" and mode != "plain") or (
-            route == "tile" and m > SMALL_M):
+            route == "gemv" and m > SMALL_M):
         raise ValueError(f"w4a8_matmul: route {route!r} does not take M={m} in mode {mode}")
     return _E_SYMBOLS[route]
 
@@ -315,7 +315,7 @@ def w4a8_matmul(
         bias_f32 = int(bias is not None and bias.dtype == torch.float32)
         out_f32 = int(y.dtype == torch.float32)
         fn = getattr(kernels.library(), symbol)
-        if route == "tile":  # S blocks along K and their int32 partial sums
+        if route == "gemv":  # S blocks along K and their int32 partial sums
             splits = gemv_splits(k, n, group)
             partials = torch.empty(splits * m * n, dtype=torch.int32, device=dev)
             err = fn(
@@ -333,7 +333,7 @@ def w4a8_matmul(
         kernels.check(err, f"w4a8_matmul ({mode})")
         w4a8_matmul.launches += 1
         w4a8_matmul.mode_launches[mode] += 1
-        w4a8_matmul.gemv_launches += route == "tile"
+        w4a8_matmul.gemv_launches += route == "gemv"
         w4a8_matmul.f32_launches += bool(bias_f32 or out_f32)
     return (y, yscale) if mode == "gelu_quant" else y
 

@@ -811,6 +811,9 @@ class DiffusionPipeline:
     def get_empty_latent(self, *shape) -> np.ndarray:
         return np.full([1, *shape, 16], 0.0609, np.float32)
 
+    def max_denoise(self, sigmas) -> bool:
+        return self.sampler.max_denoise(sigmas)
+
     # -- denoising -----------------------------------------------------------
 
     @torch.inference_mode()
@@ -852,7 +855,7 @@ class DiffusionPipeline:
         sigmas = self.get_sigmas(num_steps)[int(num_steps * (1 - denoise)):]
         noise_scaled = np.asarray(
             self.sampler.noise_scaling(
-                sigmas[0], noise, x_T, self.sampler.max_denoise(sigmas)
+                sigmas[0], noise, x_T, self.max_denoise(sigmas)
             ),
             np.float32,
         )
@@ -1190,7 +1193,7 @@ class DiffusionPipeline:
         sigmas = self.get_sigmas(num_steps)
         noise_scaled = np.asarray(
             self.sampler.noise_scaling(
-                sigmas[0], noise, np.tile(x_T1, (n, 1, 1, 1)), self.sampler.max_denoise(sigmas)
+                sigmas[0], noise, np.tile(x_T1, (n, 1, 1, 1)), self.max_denoise(sigmas)
             ),
             np.float32,
         )

@@ -177,6 +177,12 @@ class T5TokenizerWrapper:
         return list(self._tok(text, return_attention_mask=False, max_length=self.max_length,
                               truncation=True)["input_ids"])
 
+    def decode(self, t: List[int], with_sep: bool = True) -> str:
+        """ids -> text: the sentencepiece tokens joined, each ``▁`` a space
+        (or nothing without ``with_sep``)."""
+        tokens = self._tok.convert_ids_to_tokens(t)
+        return "".join(tok.replace("▁", " " if with_sep else "") for tok in tokens)
+
 
 class SyntheticT5Tokenizer:
     """A deterministic stand-in for the T5 sentencepiece tokenizer, used until

@@ -8,7 +8,9 @@ paths: FLUX.1's dual and single blocks at M = 1, group 64, through C and E;
 SD3-medium's blocks, final layer and embedders at M = 2, group 32, through
 #13), on random packed weights: ``int4_matmul`` (C) and ``w4a8_matmul`` in
 mode plain (E) where K and the group allow them, ``int8_matmul`` (#13) at
-M = 2's shapes and wherever it is named alone. At each (M, K, N) (by
+M = 2's shapes and wherever it is named alone; ``int4_matmul[f32]`` and
+``int8_matmul[f32]``, C and #13 on fp32 x (an fp32 model's `ada`: the fp32
+GEMV), at the fp32 paths' shapes and wherever C is named. At each (M, K, N) (by
 default the same SD3 shapes, which SD3-medium w8a8 runs through #11) on
 random int8 weights: ``w8_matmul`` on int8 x (#11's int8 entry),
 ``quantize_w8_matmul`` on bf16 x (its quantizing entry, where the tree has
@@ -46,6 +48,10 @@ DEFAULT_GEMV_SHAPES = {
     **{name: ((2, 1536, 9216), (2, 1536, 3072), (2, 2048, 1536), (2, 256, 1536),
               (2, 1536, 1536))
        for name in ("w8_matmul", "quantize_w8_matmul", "quantize+w8_matmul")},
+    # fp32 FLUX's dual and single-block `ada` (path z), SD3.5-large's, and
+    # fp32 SD3-medium int8's (path y).
+    "int4_matmul[f32]": ((1, 3072, 18432, 64), (1, 3072, 9216, 64), (2, 2432, 14592, 64)),
+    "int8_matmul[f32]": ((2, 1536, 9216, 32), (2, 2432, 14592, 64)),
 }
 # #11's names (shapes (M, K, N)): the int8 entry, the quantizing entry, and
 # kernel D then #11.
@@ -58,7 +64,7 @@ def weight_bytes(name: str, k: int, n: int, group: int = 0) -> int:
     or #11's int8 w8 with its fp32 wscale."""
     if name in W8_NAMES:
         return k * n + 4 * n
-    return (k * n if name == "int8_matmul" else k * n // 2) + 8 * (k // group) * n
+    return (k * n if name.startswith("int8_matmul") else k * n // 2) + 8 * (k // group) * n
 
 
 def available(name: str) -> bool:
@@ -70,7 +76,7 @@ def available(name: str) -> bool:
 def layer(name: str, k: int, n: int, group: int, gen, dev) -> tuple:
     """One random packed layer: the weight, scales and zeros (and, for E,
     its per-channel wscale and a bf16 bias), weights of about 1/sqrt(K)."""
-    if name == "int8_matmul":
+    if name.startswith("int8_matmul"):
         qw = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
         levels = 255
     else:
@@ -124,8 +130,10 @@ def calls(name: str, shape, copies: int, gen, dev) -> List[Callable]:
             q4, s, z, ws, b = layer(name, k, n, group, gen, dev)
             out.append(lambda q4=q4, s=s, z=z, ws=ws, b=b: w4a8_matmul(x8, q4, s, z, ws, xs, b))
         return out
-    fn = int8_matmul if name == "int8_matmul" else int4_matmul
-    x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+    fn = int8_matmul if name.startswith("int8_matmul") else int4_matmul
+    x = torch.randn(m, k, generator=gen, device=dev)
+    if not name.endswith("[f32]"):
+        x = x.bfloat16()
     out = []
     for _ in range(copies):
         qw, s, z = layer(name, k, n, group, gen, dev)
@@ -160,8 +168,9 @@ def run(shapes: Optional[dict] = None, device="cuda") -> List[dict]:
 
 
 def parse_shapes(argv: List[str]) -> Optional[dict]:
-    """``M,K,N,group`` arguments -> every kernel that takes each shape (E
-    needs K a multiple of 128 and group 32, 64 or a multiple of 128);
+    """``M,K,N,group`` arguments -> every kernel that takes each shape (C
+    and #13 on bf16 and on fp32 x; E needs K a multiple of 128 and group
+    32, 64 or a multiple of 128);
     ``M,K,N`` arguments -> #11's three names."""
     if not argv:
         return None
@@ -173,8 +182,8 @@ def parse_shapes(argv: List[str]) -> Optional[dict]:
                 out[name].append(dims)
             continue
         m, k, n, group = dims
-        out["int4_matmul"].append((m, k, n, group))
-        out["int8_matmul"].append((m, k, n, group))
+        for name in ("int4_matmul", "int8_matmul", "int4_matmul[f32]", "int8_matmul[f32]"):
+            out[name].append((m, k, n, group))
         if k % 128 == 0 and (group in (32, 64) or group % 128 == 0):
             out["w4a8_matmul"].append((m, k, n, group))
     return out

@@ -12,7 +12,8 @@ synchronise at the end), then runs ``N_STEPS`` more under
 - each quantized GEMM family by its kernel: ``int4_matmul`` (C),
   ``int8_matmul`` (#13), ``w4a8_matmul`` (E), ``w8_matmul`` (#11),
   ``dequant_w8`` (#10), ``int8_dot`` (#16), with their M <= 16 GEMVs
-  (``[gemv]``) and fp32 tiles (``[f32]``) apart;
+  (``[gemv]``), fp32 tiles (``[f32]``) and fp32 GEMVs (``[f32-gemv]``)
+  apart;
 - ``cublas_gemm``: the library's GEMMs (nvjet, cutlass, ...);
 - ``row``: A, A', D and #4;
 - ``elementwise``: torch's elementwise and reduction kernels;
@@ -66,8 +67,11 @@ INT8_DOT_KERNEL = re.compile(r"w8_mm(?:_sm90)?(?:_k64)?(?:<int[,>]|Ii[LE])")
 # The M <= 16 GEMVs of C, #13, E and #11: int4_gemv, int8_gemv, w4a8_gemv,
 # w8_gemv<XT, OutT>.
 GEMV_KERNEL = re.compile(r"(int4|int8|w4a8|w8)_gemv")
-# C and #13 on fp32 x: dequant_mm_3xtf32<BITS> and dequant_mm_f32<BITS>.
+# C and #13 on fp32 x: dequant_mm_3xtf32<BITS> above 16 rows (and the
+# dequant_mm_f32<BITS> FMA tile of earlier builds at M <= 16), the fp32 GEMV
+# dequant_gemv_f32<BITS, MT> at M <= 16.
 F32_TILE = re.compile(r"dequant_mm_(?:f32|3xtf32)(?:<|ILi)(\d)")
+F32_GEMV = re.compile(r"dequant_gemv_f32(?:<|ILi)(\d)")
 
 ATTENTION = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 ROW = ("mod_ln", "mod_ln_quantize", "quantize", "gelu_quantize", "gelu_quant[tiles]")
@@ -78,8 +82,11 @@ ELEMENTWISE = re.compile(r"elementwise|reduce_kernel|Reduce|softmax|norm_kernel|
 
 def family(name: str) -> str:
     """The kernel family of a profiler row's name: a hand-written kernel's
-    wrapper name (``[gemv]`` / ``[f32]`` forms apart), ``gemm`` for the
-    library's GEMMs, else ``other``."""
+    wrapper name (``[gemv]`` / ``[f32]`` / ``[f32-gemv]`` forms apart),
+    ``gemm`` for the library's GEMMs, else ``other``."""
+    f32_gemv = F32_GEMV.search(name)
+    if f32_gemv:
+        return f"int{f32_gemv.group(1)}_matmul[f32-gemv]"
     gemv = GEMV_KERNEL.search(name)
     if gemv:
         return f"{gemv.group(1)}_matmul[gemv]"

@@ -52,6 +52,24 @@ def device_memory_stats(device=None) -> Dict[str, Optional[int]]:
     }
 
 
+def memory_snapshot_gb(device=None) -> Dict[str, Optional[float]]:
+    """``device_memory_stats`` in GiB, rounded to 3 decimals (None where a
+    statistic is, as on the CPU)."""
+    stats = device_memory_stats(device)
+    return {k: (round(bytes2gigabytes(v), 3) if v is not None else None)
+            for k, v in stats.items()}
+
+
+def tree_num_params(model) -> int:
+    """The parameter count of a module or a state dict: every parameter and
+    buffer, an int4-packed ``q4`` (int32 (K/8, N) words, ops/quantized.py)
+    counted as the 8 weights each word carries, so a 12B int4 model counts
+    12B; the per-group scales and zeros count as themselves."""
+    sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    return sum(t.numel() * (8 if name.rsplit(".", 1)[-1] == "q4" else 1)
+               for name, t in sd.items())
+
+
 def hbm_scale(device=None) -> float:
     """The card's memory over the 16 GB chip on which the reference sized
     its memory-derived budgets (the denoise batch auto-split), never below

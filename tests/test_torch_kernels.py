@@ -966,8 +966,8 @@ def test_w4a8_wrapper_raises_on_unsupported_input(cuda):
         w4a8_matmul(*args[:-1], layer.bias.float(), mode="norm_rope", **extra)
 
 
-# C and #13 on fp32 x (csrc/dequant_f32.cu: 3xTF32 wgmma above 16 rows, an
-# FMA tile at M <= 16): SD3.5-large's
+# C and #13 on fp32 x (csrc/dequant_f32.cu: 3xTF32 wgmma above 16 rows;
+# csrc/gemv_sm90.cu's fp32 split-K GEMV at M <= 16): SD3.5-large's
 # block 35 at 1024² with CFG (image rows 2 x 4096, text rows 2 x 154) at
 # q/k/v/o, fc1 and fc2; its `ada` shape at M = 2; ragged M, N a multiple of
 # 64 but not 128 inside the kernel's reach, group 32 and 128.
@@ -1009,7 +1009,7 @@ def test_dequant_kernels_take_fp32(cuda, bits, shape):
 
 
 @pytest.mark.gpu
-def test_dequant_fp32_reads_strided_rows_in_place(cuda):
+def test_dequant_fp32_reads_strided_rows_in_place(cuda):  # M = 9: the fp32 GEMV
     g = torch.Generator(device=cuda).manual_seed(31)
     q4, scales, zeros = random_int4(512, 256, 64, g, cuda)
     for m in (300, 9):
@@ -1017,6 +1017,48 @@ def test_dequant_fp32_reads_strided_rows_in_place(cuda):
         x = wide[:, 64:576]
         assert torch.equal(int4_matmul(x, q4, scales, zeros),
                            int4_matmul(x.contiguous(), q4, scales, zeros))
+
+
+# The fp32 GEMV of C and #13 at every M it takes, on the `ada` shapes of
+# an fp32 FLUX (K 3072, N 9216 = 72 column tiles, group 64) and an fp32
+# SD3 (K 1536, N 9216, group 32), and an N of 3 column tiles (a grid
+# smaller than one split's wave) at group 128.
+F32_GEMV_SHAPES = [(3072, 9216, 64), (1536, 9216, 32), (1024, 384, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", F32_GEMV_SHAPES)
+def test_dequant_gemv_takes_fp32_at_every_small_m(cuda, bits, shape):
+    """C and #13 on fp32 x at M = 1..16 launch the GEMV (counted in
+    ``gemv_launches``, ``f32_launches`` and ``f32_gemv_launches``) within
+    one fp32 ulp + 2K 2^-24 (|x| @ |w|) of the plain version's fp32 math,
+    and a second call is bit for bit the first."""
+    from diffusionkit_tpu_torch.ops.int4_matmul import int4_matmul_plain, int8_matmul_plain
+
+    k, n, group = shape
+    g = torch.Generator(device=cuda).manual_seed(32)
+    if bits == 4:
+        qw, scales, zeros = random_int4(k, n, group, g, cuda)
+        fn, plain = int4_matmul, int4_matmul_plain
+    else:
+        qw, scales, zeros = random_int8(k, n, group, g, cuda)
+        fn, plain = int8_matmul, int8_matmul_plain
+    deq = dequantize_int4 if bits == 4 else dequantize_int8
+    w = deq(qw, scales, zeros, torch.float32)
+    for m in range(1, 17):
+        x = torch.randn(m, k, generator=g, device=cuda)
+        before = (fn.launches, fn.gemv_launches, fn.f32_launches, fn.f32_gemv_launches)
+        got = fn(x, qw, scales, zeros)
+        torch.cuda.synchronize()
+        after = (fn.launches, fn.gemv_launches, fn.f32_launches, fn.f32_gemv_launches)
+        assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+        assert got.dtype == torch.float32 and got.shape == (m, n)
+        want = plain(x, qw, scales, zeros)
+        bound = fp32_ulp(want) + 2 * k * 2.0**-24 * (x.abs() @ w.abs())
+        diff = (got - want).abs()
+        assert torch.all(diff <= bound), (m, (diff / bound).max().item())
+        assert torch.equal(fn(x, qw, scales, zeros), got)
 
 
 # Kernel E with an fp32 bias and output, in the modes an fp32-upcast block
@@ -1432,7 +1474,7 @@ def test_dequant_w8_then_w8_matmul_is_kernel_e(cuda, m):
     layer, x8, xs, _ = w4a8_inputs("plain", m, 3072, 1536, 64, g, cuda)
     s8, z8 = scaled_affine(layer.scales, layer.zeros, layer.wscale)
     fused = w4a8_matmul(x8, layer.q4, layer.scales, layer.zeros, layer.wscale, xs, layer.bias,
-                        _route="sm90" if m > 16 else "tile")
+                        _route="sm90" if m > 16 else "gemv")
     mat = w8_matmul(x8, dequant_w8(layer.q4, s8, z8), layer.wscale, xs, layer.bias)
     assert torch.equal(mat, fused)
 
@@ -1531,7 +1573,7 @@ def test_tools_run_on_the_card(cuda):
 
 
 # Kernels E, C and #13 on their two main loops, and w4a8's mode plain above
-# 16 rows on #10 then #11. The routes: the split-K GEMV ("tile") at M <= 16
+# 16 rows on #10 then #11. The routes: the split-K GEMV ("gemv") at M <= 16
 # (the `ada` projections; for E mode plain only), for mode plain above it
 # the materialised dataflow ("mat"), the Hopper loop otherwise; every shape
 # the wrappers took before takes one.
@@ -1542,20 +1584,21 @@ E_ACCEPTED = [(k, n, group, mode) for mode in ("plain", "gelu_quant", "grouped_x
 
 @pytest.mark.parametrize("m", ROUTE_ROWS)
 def test_w4a8_route_takes_every_accepted_shape(m):
-    """Every (K, N, group, mode) the wrapper takes goes to the tile in mode
+    """Every (K, N, group, mode) the wrapper takes goes to the GEMV in mode
     plain at M <= 16, to #10 then #11 in mode plain above it, and to the
     Hopper loop in the other modes; the Hopper loop also takes mode plain
-    at any M when asked, the tile and "mat" no other mode, the tile no M
-    above 16; and what the wrapper refused it still refuses."""
+    at any M when asked, the GEMV and "mat" no other mode, the GEMV no M
+    above 16; a route of another name none; and what the wrapper refused
+    it still refuses."""
     from diffusionkit_tpu_torch.ops.w4a8_matmul import w4a8_kernel, w4a8_route
 
     for k, n, group, mode in E_ACCEPTED:
-        want = ("tile" if m <= 16 else "mat") if mode == "plain" else "sm90"
+        want = ("gemv" if m <= 16 else "mat") if mode == "plain" else "sm90"
         assert w4a8_route(m, mode) == want
-        symbol = {"tile": "dk_w4a8_matmul", "mat": "dk_dequant_w8", "sm90": "dk_w4a8_matmul_sm90"}
+        symbol = {"gemv": "dk_w4a8_matmul", "mat": "dk_dequant_w8", "sm90": "dk_w4a8_matmul_sm90"}
         assert w4a8_kernel(m, k, k // 8, n, k // group, mode) == symbol[want]
         assert w4a8_kernel(m, k, k // 8, n, k // group, mode, "sm90") == symbol["sm90"]
-        for route in ("tile", "mat"):
+        for route in ("gemv", "mat"):
             if mode == "plain" and (route == "mat" or m <= 16):
                 assert w4a8_kernel(m, k, k // 8, n, k // group, mode, route) == symbol[route]
             else:
@@ -1569,17 +1612,19 @@ def test_w4a8_route_takes_every_accepted_shape(m):
         with pytest.raises(ValueError):
             w4a8_kernel(m, k, k // 8, n, k // group, mode, "mat")
     with pytest.raises(ValueError, match="route"):
-        w4a8_kernel(m, 3072, 384, 3072, 48, "plain", "gemv")
+        w4a8_kernel(m, 3072, 384, 3072, 48, "plain", "tile")
 
 
 @pytest.mark.parametrize("m", ROUTE_ROWS)
 @pytest.mark.parametrize("name", ["int4_matmul", "int8_matmul"])
 def test_dequant_route_takes_every_accepted_shape(m, name):
-    """As for kernel E: C and #13 at every (K, N, group) they take."""
+    """As for kernel E: C and #13 at every (K, N, group) they take, in bf16
+    and in fp32 (the fp32 GEMV at M <= 16, 3xTF32 above)."""
     from diffusionkit_tpu_torch.ops.int4_matmul import dequant_kernel, dequant_route
 
-    suffix = "_bf16" if m <= 16 else "_sm90_bf16"
-    assert dequant_route(m) == ("tile" if m <= 16 else "sm90")
+    route = "" if m <= 16 else "_sm90"
+    suffix = f"{route}_bf16"
+    assert dequant_route(m) == ("gemv" if m <= 16 else "sm90")
     for k in (64, 512, 1536, 3072, 12288):
         for n in (128, 384, 3072):
             for group in (32, 64, 128, 192):
@@ -1587,6 +1632,8 @@ def test_dequant_route_takes_every_accepted_shape(m, name):
                     assert dequant_kernel(name, m, k, k, n, k // group) == f"dk_{name}{suffix}"
                     assert dequant_kernel(name, m, k, k, n, k // group, torch.bfloat16,
                                           torch.float32) == f"dk_{name}{suffix}_f32out"
+                    assert dequant_kernel(name, m, k, k, n, k // group,
+                                          torch.float32) == f"dk_{name}{route}_f32"
     for k, n, group in [(3072, 3072, 16), (3072, 3072, 96), (3072 + 32, 3072, 32),
                         (3072, 3072 + 64, 64)]:
         with pytest.raises(ValueError):

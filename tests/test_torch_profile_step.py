@@ -18,7 +18,7 @@ ATTENTION = ("flash_attention_bshd", "flash_attention", "flash_attention_stats")
 ROW = ("mod_ln", "mod_ln_quantize", "quantize", "gelu_quantize")
 
 # Names beyond the port's flash and GEMM kernels: the row kernels, C / #13's
-# fp32 tiles, the library's GEMMs and torch's own kernels.
+# fp32 tiles and fp32 GEMVs, the library's GEMMs and torch's own kernels.
 MORE_NAMES = [
     ("void (anonymous namespace)::mod_ln_kernel<__nv_bfloat16>(__nv_bfloat16 const*, "
      "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, int, int, int, float)",
@@ -36,6 +36,10 @@ MORE_NAMES = [
      "int4_matmul[f32]"),
     ("_ZN12_GLOBAL__N_114dequant_mm_f32ILi8EEEvPKfPKvS2_S2_Pfiiii", "int8_matmul[f32]",
      "int8_matmul[f32]"),
+    ("void (anonymous namespace)::dequant_gemv_f32<4, 2>((anonymous namespace)::Params)",
+     "int4_matmul[f32-gemv]", "int4_matmul[f32-gemv]"),
+    ("_ZN46_GLOBAL__N__6c1a2d0e_11_gemv_sm90_cu_5e8a1b2c16dequant_gemv_f32ILi8ELi16EEEvNS_6ParamsE",
+     "int8_matmul[f32-gemv]", "int8_matmul[f32-gemv]"),
     ("nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NTN", "gemm", "cublas_gemm"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroupsize1x1x1",
      "gemm", "cublas_gemm"),

@@ -299,6 +299,28 @@ def test_bench_gemv_runs_on_the_cpu():
         assert torch.equal(call(), r["y"])
 
 
+def test_bench_gemv_runs_fp32_on_the_cpu():
+    """bench_gemv's fp32 rows (C and #13 on fp32 x) on the CPU: an fp32
+    output, that of the plain version on fp32 x and a layer drawn the same
+    way; an ``M,K,N,group`` argument times them beside the bf16 forms."""
+    from diffusionkit_tpu_torch.ops import int4_matmul as ti
+
+    shapes = {"int4_matmul[f32]": [(1, 128, 256, 64)], "int8_matmul[f32]": [(2, 128, 128, 32)]}
+    rows = bench_gemv.run(shapes, device="cpu")
+    gen = torch.Generator().manual_seed(0)  # run's draws, in run's order
+    for r in rows:
+        m, k, n, group = r["shape"]
+        assert r["y"].dtype == torch.float32 and r["y"].shape == (m, n)
+        assert r["weight_bytes"] == (k * n if r["name"].startswith("int8") else k * n // 2) + \
+            8 * (k // group) * n
+        x = torch.randn(m, k, generator=gen)
+        qw, s, z = bench_gemv.layer(r["name"], k, n, group, gen, torch.device("cpu"))
+        plain = ti.int8_matmul_plain if r["name"].startswith("int8") else ti.int4_matmul_plain
+        assert torch.equal(r["y"], plain(x, qw, s, z))
+    got = bench_gemv.parse_shapes(["2,2432,14592,64"])
+    assert got["int4_matmul[f32]"] == got["int8_matmul[f32]"] == [(2, 2432, 14592, 64)]
+
+
 def test_bench_gemv_runs_w8_on_the_cpu():
     """bench_gemv's #11 rows on the CPU: the int8 entry, the quantizing
     entry and kernel D then #11, each output that of the plain versions on
@@ -784,6 +806,30 @@ def test_chip_smoke_counts_the_materialised_route_on_the_flux_paths(chip_smoke, 
     assert per["w8_matmul"] == mat + t5
     assert per["w4a8_matmul[gemv]"] == p.steps * (2 * dual + uni)
     assert per["w4a8_matmul[plain]"] == 0  # kernel E's Hopper loop, apart from its GEMV
+
+
+@pytest.mark.parametrize("path", ["sd3-int8-fp32", "flux-fp32"])
+def test_chip_smoke_counts_the_fp32_paths_on_fp32_forms(chip_smoke, path):
+    """Paths y and z: every counted launch on its fp32 form, the fp32 GEMV
+    exactly each step's `ada`s (and on y the y / t embedders' and the final
+    `ada`) times the steps (SD3-medium: 2 a block, 24 blocks, 53 a CFG
+    forward; FLUX.1-schnell: 2 a dual block and 1 a single, 76 a step),
+    counted exactly; kernel B once more in the fp32 decoder; no C on y, no
+    #13 on z; and the kernels line names the new GEMV on that path."""
+    from diffusionkit_tpu_torch.config import FLUX_SCHNELL, SD3_2b
+
+    p = {q.name: q for q in (chip_smoke.SD3_INT8_FP32, chip_smoke.FLUX_FP32)}[path]
+    sd3 = path.startswith("sd3")
+    per = chip_smoke.per_request_launches(p, SD3_2b if sd3 else FLUX_SCHNELL)
+    name = "int8_matmul" if sd3 else "int4_matmul"
+    assert per[f"{name}[f32-gemv]"] == per[f"{name}[gemv]"] == (50 * 53 if sd3 else 4 * 76)
+    assert f"{name}[f32-gemv]" in chip_smoke.EXACT
+    assert chip_smoke.MAIN_PATH[f"{name}[f32-gemv]"] == path
+    for k in chip_smoke.F32_COUNTED:
+        assert per.get(f"{k}[f32]", 0) == per.get(k, 0), k
+    assert per["flash_attention_bshd"] == p.steps * (24 if sd3 else 57) + 1
+    other = "int4_matmul" if sd3 else "int8_matmul"
+    assert per.get(other, 0) == 0 and per.get("w4a8_matmul[gemv]", 0) == 0
 
 
 def test_chip_smoke_counts_kernel_e_plain_apart_from_its_gemv(chip_smoke):
